@@ -1,0 +1,58 @@
+"""Model registry: string name -> module class, and default image sizes.
+
+The PyTorch counterpart of ``objectdetectionpl_tpu/models/registry.py``.
+Image-size defaults for all six families: RetinaNet 600, SSD 300, YOLOv5
+640, else 416.  Only YOLOv5 is ported so far; the others raise and name the
+ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from objectdetectionpl_tpu_torch.device import DeviceLike, resolve_device
+from objectdetectionpl_tpu_torch.models.yolov5 import YOLOv5, init_weights
+
+MODELS = {"YOLOv5": YOLOv5}
+
+DEFAULT_IMG_SIZE = {
+    "YOLOv2": 416,
+    "YOLOv3": 416,
+    "YOLOv4": 416,
+    "YOLOv5": 640,
+    "SSD": 300,
+    "RetinaNet": 600,
+}
+
+NOT_PORTED = {
+    "YOLOv3": "ROADMAP A9.1",
+    "YOLOv2": "ROADMAP A9.2",
+    "YOLOv4": "ROADMAP A9.3",
+    "RetinaNet": "ROADMAP A9.4",
+    "SSD": "ROADMAP A9.5",
+}
+
+
+def default_img_size(model_name: str) -> int:
+    return DEFAULT_IMG_SIZE[model_name]
+
+
+def build_model(model_name: str, num_classes: int,
+                dtype: torch.dtype = torch.float32,
+                yolov5_type: str = "Yolov5s", device: DeviceLike = None,
+                seed: int = 0) -> torch.nn.Module:
+    """Instantiate a detector by config name, in eval mode, on ``device``.
+
+    Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
+    and then moved, so one seed gives the same weights on every device.
+    ``dtype`` is the compute dtype of the convolutions; parameters and BN
+    statistics stay float32.
+    """
+    if model_name in NOT_PORTED:
+        raise NotImplementedError(
+            f"{model_name} is not ported yet ({NOT_PORTED[model_name]})")
+    dev = resolve_device(device)
+    model = MODELS[model_name](num_classes=num_classes, variant=yolov5_type,
+                               dtype=dtype)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.eval().to(dev)

@@ -1,0 +1,106 @@
+"""YOLOv5 s/m/l/x: Focus stem + CSPDarknet + SPP + top-down PANet head.
+
+The PyTorch counterpart of ``objectdetectionpl_tpu/models/yolov5.py``, with
+the same submodule names as the flax module so weights carry over one to one
+(``utils/weights.py``).  Input NHWC ``[B, S, S, 3]`` of any dtype (cast to
+the compute dtype; a uint8 batch works when the stem carries the /255,
+``utils/fuse.fold_input_scale``).  Output: list of 3 maps
+``[B, 3, g, g, 5+C]`` at strides (8, 16, 32), channel ``a*(5+C) + k`` of the
+1x1 head split into anchor ``a`` and field ``k``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from objectdetectionpl_tpu_torch.nn.blocks import (
+    SPP, BottleneckCSP, BottleneckV5, Conv, ConvBN, Focus,
+    scale_ch, scale_depth, upsample2x)
+
+VARIANTS = {
+    "Yolov5s": (0.33, 0.50),
+    "Yolov5m": (0.67, 0.75),
+    "Yolov5l": (1.00, 1.00),
+    "Yolov5x": (1.33, 1.25),
+}
+
+# flax's lecun_normal draws from a normal truncated at 2 stddev, rescaled so
+# the truncated distribution keeps variance 1/fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+class YOLOv5(nn.Module):
+    def __init__(self, num_classes: int, variant: str = "Yolov5s",
+                 num_anchors: int = 3, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dm, wm = VARIANTS[variant]
+        C = lambda c: scale_ch(c, wm)
+        D = lambda n: scale_depth(n, dm)
+        self.num_classes = num_classes
+        self.num_anchors = num_anchors
+        self.dtype = dtype
+        no = (5 + num_classes) * num_anchors
+
+        def csp(c1, c2, n, sc=True):
+            return BottleneckCSP(C(c1), C(c2), D(n), shortcut=sc, dtype=dtype)
+
+        self.Focus_0 = Focus(3, C(64), 3, dtype=dtype)                 # /2
+        self.ConvBN_0 = ConvBN(C(64), C(128), 3, 2, dtype=dtype)        # /4
+        self.BottleneckV5_0 = BottleneckV5(C(128), C(128), dtype=dtype)
+        self.ConvBN_1 = ConvBN(C(128), C(256), 3, 2, dtype=dtype)       # /8
+        self.BottleneckCSP_0 = csp(256, 256, 9)
+        self.ConvBN_2 = ConvBN(C(256), C(512), 3, 2, dtype=dtype)       # /16
+        self.BottleneckCSP_1 = csp(512, 512, 9)
+        self.ConvBN_3 = ConvBN(C(512), C(1024), 3, 2, dtype=dtype)      # /32
+        self.SPP_0 = SPP(C(1024), C(1024), dtype=dtype)
+        self.BottleneckCSP_2 = csp(1024, 1024, 6)
+        self.BottleneckCSP_3 = csp(1024, 1024, 3, sc=False)
+        self.Conv_0 = Conv(C(1024), no, 1, bias=True, dtype=dtype)      # s32
+        self.ConvBN_4 = ConvBN(C(1024) + C(512), C(512), 1, dtype=dtype)
+        self.BottleneckCSP_4 = csp(512, 512, 3, sc=False)
+        self.Conv_1 = Conv(C(512), no, 1, bias=True, dtype=dtype)       # s16
+        self.ConvBN_5 = ConvBN(C(512) + C(256), C(256), 1, dtype=dtype)
+        self.BottleneckCSP_5 = csp(256, 256, 3, sc=False)
+        self.Conv_2 = Conv(C(256), no, 1, bias=True, dtype=dtype)       # s8
+
+    def forward(self, x):
+        x = x.to(self.dtype).permute(0, 3, 1, 2)    # NHWC -> NCHW view
+        x = self.Focus_0(x)
+        x = self.ConvBN_0(x)
+        x = self.BottleneckV5_0(x)
+        x = self.ConvBN_1(x)
+        rt0 = self.BottleneckCSP_0(x)
+        rt1 = self.BottleneckCSP_1(self.ConvBN_2(rt0))
+        x = self.SPP_0(self.ConvBN_3(rt1))
+        route = self.BottleneckCSP_3(self.BottleneckCSP_2(x))
+        out0 = self.Conv_0(route)
+
+        x = self.ConvBN_4(torch.cat([upsample2x(route), rt1], dim=1))
+        route = self.BottleneckCSP_4(x)
+        out1 = self.Conv_1(route)
+
+        x = self.ConvBN_5(torch.cat([upsample2x(route), rt0], dim=1))
+        out2 = self.Conv_2(self.BottleneckCSP_5(x))
+        return [self._reshape(out2), self._reshape(out1),
+                self._reshape(out0)]
+
+    def _reshape(self, t):
+        B, _, H, W = t.shape
+        t = t.reshape(B, self.num_anchors, 5 + self.num_classes, H, W)
+        return t.permute(0, 1, 3, 4, 2)              # [B, 3, g, g, 5+C]
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's default conv init from a seeded generator: kernels
+    lecun_normal (truncated), biases 0.  BatchNorm keeps its constructor
+    values (scale 1, bias 0, mean 0, var 1), as flax initialises them."""
+    for m in model.modules():
+        if isinstance(m, Conv):
+            fan_in = m.weight[0].numel()
+            std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()

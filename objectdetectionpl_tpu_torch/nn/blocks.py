@@ -1,0 +1,195 @@
+"""PyTorch counterparts of the YOLOv5 blocks of ``objectdetectionpl_tpu/nn/blocks.py``.
+
+Inside the model the tensors are NCHW (``channels_last`` storage when the
+input came from an NHWC tensor), so these blocks take and return NCHW.
+Submodules carry the flax auto-names (``ConvBN_0``, ``Conv_1``,
+``BatchNorm_0``, ...) so a state_dict key is the flax variable path joined by
+dots (``utils/weights.py``).
+
+Numerics follow the JAX blocks:
+
+- parameters and BN statistics are float32; convolutions cast input and
+  kernel to the ``dtype`` knob and compute in it (flax ``nn.Conv(dtype=...)``),
+- eval-mode BN folds into one per-channel affine computed in f32 and cast
+  once to the activation dtype,
+- padding is the explicit torch-style ``k // 2``; max-pool pads with -inf,
+- space-to-depth orders channel blocks (row-phase, col-phase, C).
+
+Train-mode BatchNorm (biased batch variance, flax momentum 0.9) is not in
+this slice: it raises rather than compute something else.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+ACTIVATIONS = {
+    "leaky": functools.partial(F.leaky_relu, negative_slope=0.1),
+}
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` over NCHW: OIHW f32 weight, symmetric ``k // 2`` pad,
+    computed in ``dtype``."""
+
+    def __init__(self, c1: int, c2: int, kernel: int = 1, stride: int = 1,
+                 bias: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c2, c1, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(c2)) if bias else None
+        self.stride = stride
+        self.padding = kernel // 2
+        self.dtype = dtype
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), bias,
+                        self.stride, self.padding)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode counterpart of the JAX ``BatchNorm``: ``y = x*a + b`` with
+    ``a = scale * rsqrt(var + eps)``, ``b = bias - mean*a`` in f32, cast once
+    to x's dtype.  No ``num_batches_tracked``: the flax tree has none."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.eps = eps
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError(
+                "train-mode BatchNorm (biased batch variance, flax momentum "
+                "0.9) comes with the training slice (ROADMAP A2); call "
+                "model.eval() to serve")
+        a = self.weight * torch.rsqrt(self.running_var + self.eps)
+        b = self.bias - self.running_mean * a
+        return (x * a.to(x.dtype)[None, :, None, None]
+                + b.to(x.dtype)[None, :, None, None])
+
+
+class ConvBN(nn.Module):
+    """Conv2d (no bias) + BatchNorm + activation, pad = k // 2."""
+
+    def __init__(self, c1: int, c2: int, kernel: int = 3, stride: int = 1,
+                 act: str = "leaky", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(c1, c2, kernel, stride, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(c2)
+        self.act = ACTIVATIONS[act]
+
+    def forward(self, x):
+        return self.act(self.BatchNorm_0(self.Conv_0(x)))
+
+
+def max_pool(x, window: int, stride: int, pad: int = 0):
+    """torch-style MaxPool2d over NCHW (implicit -inf padding)."""
+    return F.max_pool2d(x, window, stride, pad)
+
+
+def space_to_depth(x, block: int = 2):
+    """NCHW space-to-depth: [B, C, H, W] -> [B, C*b*b, H/b, W/b].
+
+    Channel index ``(i*b + j)*C + c`` for row phase i and column phase j,
+    as the JAX ``space_to_depth`` orders its NHWC channels.
+    """
+    B, C, H, W = x.shape
+    t = x.reshape(B, C, H // block, block, W // block, block)
+    t = t.permute(0, 3, 5, 1, 2, 4)        # [B, i, j, C, H/b, W/b]
+    return t.reshape(B, block * block * C, H // block, W // block)
+
+
+def upsample2x(x):
+    """Nearest-neighbor 2x upsample, NCHW."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def scale_ch(c: int, width_multiple: float) -> int:
+    """Width-multiple channel scaling."""
+    return int(round(c * width_multiple, 1))
+
+
+def scale_depth(n: int, depth_multiple: float) -> int:
+    return max(1, int(round(n * depth_multiple, 1)))
+
+
+class BottleneckV5(nn.Module):
+    """Standard v5 bottleneck: 1x1 -> 3x3, residual when shapes allow."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True,
+                 e: float = 0.5, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.ConvBN_0 = ConvBN(c1, c_, 1, dtype=dtype)
+        self.ConvBN_1 = ConvBN(c_, c2, 3, dtype=dtype)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        h = self.ConvBN_1(self.ConvBN_0(x))
+        return x + h if self.add else h
+
+
+class BottleneckCSP(nn.Module):
+    """CSP bottleneck: ``Conv_0`` closes the bottleneck branch y1,
+    ``Conv_1`` is the 1x1 on the input x; BN + leaky act on ``[y1, y2]``."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 e: float = 0.5, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.ConvBN_0 = ConvBN(c1, c_, 1, dtype=dtype)
+        self.n = n
+        for i in range(n):
+            self.add_module(f"BottleneckV5_{i}",
+                            BottleneckV5(c_, c_, shortcut, e=1.0, dtype=dtype))
+        self.Conv_0 = Conv(c_, c_, 1, dtype=dtype)
+        self.Conv_1 = Conv(c1, c_, 1, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(2 * c_)
+        self.ConvBN_1 = ConvBN(2 * c_, c2, 1, dtype=dtype)
+
+    def forward(self, x):
+        y1 = self.ConvBN_0(x)
+        for i in range(self.n):
+            y1 = getattr(self, f"BottleneckV5_{i}")(y1)
+        y = torch.cat([self.Conv_0(y1), self.Conv_1(x)], dim=1)
+        y = F.leaky_relu(self.BatchNorm_0(y), 0.1)
+        return self.ConvBN_1(y)
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling 5/9/13: 1x1 halve -> [x, pools] -> 1x1."""
+
+    def __init__(self, c1: int, c2: int, kernels: Sequence[int] = (5, 9, 13),
+                 act: str = "leaky", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c_ = c1 // 2
+        self.kernels = tuple(kernels)
+        self.ConvBN_0 = ConvBN(c1, c_, 1, act=act, dtype=dtype)
+        self.ConvBN_1 = ConvBN(c_ * (len(self.kernels) + 1), c2, 1, act=act,
+                               dtype=dtype)
+
+    def forward(self, x):
+        x = self.ConvBN_0(x)
+        pools = [max_pool(x, k, 1, k // 2) for k in self.kernels]
+        return self.ConvBN_1(torch.cat([x] + pools, dim=1))
+
+
+class Focus(nn.Module):
+    """Space-to-depth + conv stem."""
+
+    def __init__(self, c1: int, c2: int, kernel: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(4 * c1, c2, kernel, dtype=dtype)
+
+    def forward(self, x):
+        return self.ConvBN_0(space_to_depth(x, 2))

@@ -1,0 +1,146 @@
+"""Greedy weighted-merge NMS: the Hopper kernel ``csrc/greedy_nms.cu`` and its
+plain PyTorch version.
+
+The counterpart of ``objectdetectionpl_tpu/ops/pallas/nms_kernel.py``
+(``pallas_greedy_nms``) and of the XLA ``blocked_greedy_nms`` in
+``objectdetectionpl_tpu/ops/nms.py``: all three compute the same function.
+
+:func:`greedy_nms` takes the plain version only for tensors on the CPU.  For
+CUDA tensors it launches the kernel or raises; ``LAUNCHES`` counts the
+launches, so a run can show that its path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from objectdetectionpl_tpu_torch.ops.cuda import _build
+
+NEG_INF = -1e9
+
+LAUNCHES = 0          # kernel launches by greedy_nms since import (or reset)
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("greedy_nms")
+    p = ctypes.c_void_p
+    lib.greedy_nms_launch.argtypes = [
+        p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
+    lib.greedy_nms_launch.restype = ctypes.c_int
+    lib.greedy_nms_max_k.argtypes = []
+    lib.greedy_nms_max_k.restype = ctypes.c_int
+    return lib
+
+
+def greedy_nms_plain(boxes, scores, labels, obj, nms_thresh: float = 0.4,
+                     class_aware: bool = True, merge: bool = True,
+                     plus1: float = 1.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched greedy NMS in plain PyTorch, on any device.
+
+    boxes [B, K, 4] xyxy sorted by descending score; scores [B, K]
+    (<= -1e9 invalid); labels [B, K]; obj [B, K] merge weights.  Returns
+    (boxes [B, K, 4] f32, keep [B, K] bool); with ``merge`` each kept box is
+    the obj-weighted mean of itself and the boxes it was first to suppress,
+    every other row is returned as given.  Same arithmetic as
+    ``blocked_greedy_nms``: K x K relation, a serial sweep over K columns,
+    then first-kept-suppressor attribution.
+    """
+    B, K, _ = boxes.shape
+    boxes = boxes.float()
+    valid = scores.float() > NEG_INF
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1 + plus1) * (y2 - y1 + plus1)
+    inter_w = (torch.minimum(x2[:, :, None], x2[:, None, :])
+               - torch.maximum(x1[:, :, None], x1[:, None, :]) + plus1)
+    inter_h = (torch.minimum(y2[:, :, None], y2[:, None, :])
+               - torch.maximum(y1[:, :, None], y1[:, None, :]) + plus1)
+    inter = inter_w.clamp(min=0.0) * inter_h.clamp(min=0.0)
+    iou = inter / (area[:, :, None] + area[:, None, :] - inter + 1e-16)
+    over = iou > nms_thresh                     # compared in f32
+    if class_aware:
+        over &= labels[:, :, None] == labels[:, None, :]
+    over &= torch.ones(K, K, dtype=torch.bool, device=boxes.device).triu(1)
+    over &= valid[:, :, None] & valid[:, None, :]
+
+    keep = torch.zeros(B, K, dtype=torch.bool, device=boxes.device)
+    suppressed = torch.zeros_like(keep)
+    for i in range(K):
+        kept = valid[:, i] & ~suppressed[:, i]
+        keep[:, i] = kept
+        suppressed |= kept[:, None] & over[:, i]
+    if not merge:
+        return boxes.clone(), keep
+
+    ids = torch.arange(K, device=boxes.device)
+    first = torch.where(keep[:, :, None] & over, ids[:, None],
+                        K).amin(dim=1)          # [B, K]; K = no suppressor
+    w = torch.where(valid, obj.float(), 0.0)
+    num = torch.zeros(B, K + 1, 4, device=boxes.device).scatter_add_(
+        1, first[..., None].expand(B, K, 4), w[..., None] * boxes)
+    den = torch.zeros(B, K + 1, device=boxes.device).scatter_add_(1, first, w)
+    num = num[:, :K] + w[..., None] * boxes
+    den = den[:, :K] + w
+    merged = num / den.clamp(min=1e-16)[..., None]
+    return torch.where(keep[..., None], merged, boxes), keep
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"greedy_nms: {name} is on {t.device}, boxes on "
+                         f"{device}")
+    if t.dtype != dtype:
+        raise TypeError(f"greedy_nms: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"greedy_nms: {name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"greedy_nms: {name} must be contiguous")
+
+
+def greedy_nms(boxes, scores, labels, obj, nms_thresh: float = 0.4,
+               class_aware: bool = True, merge: bool = True,
+               plus1: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched greedy NMS; see :func:`greedy_nms_plain` for the contract.
+
+    CPU tensors go to the plain version.  CUDA tensors must be contiguous,
+    boxes/scores/obj float32 and labels int32, with K at most the kernel's
+    limit (1024); the kernel runs on the current stream.
+    """
+    if boxes.device.type == "cpu":
+        return greedy_nms_plain(boxes, scores, labels, obj, nms_thresh,
+                                class_aware, merge, plus1)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"greedy_nms: unsupported device {boxes.device}")
+    B, K = scores.shape
+    dev = boxes.device
+    _check(boxes, "boxes", torch.float32, (B, K, 4), dev)
+    _check(scores, "scores", torch.float32, (B, K), dev)
+    _check(labels, "labels", torch.int32, (B, K), dev)
+    _check(obj, "obj", torch.float32, (B, K), dev)
+    if boxes.data_ptr() % 16:
+        raise ValueError("greedy_nms: boxes must be 16-byte aligned")
+    lib = _lib()
+    if K > lib.greedy_nms_max_k():
+        raise ValueError(f"greedy_nms: K={K} exceeds the kernel's limit "
+                         f"{lib.greedy_nms_max_k()}")
+    out = torch.empty_like(boxes)
+    keep = torch.empty((B, K), dtype=torch.bool, device=dev)
+    if B == 0 or K == 0:
+        return out, keep
+    err = lib.greedy_nms_launch(
+        boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
+        obj.data_ptr(), out.data_ptr(), keep.data_ptr(), B, K,
+        float(nms_thresh), int(class_aware), int(merge), float(plus1),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"greedy_nms kernel launch failed: cudaError {err}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out, keep

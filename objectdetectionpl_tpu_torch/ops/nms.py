@@ -1,0 +1,118 @@
+"""YOLOv5 decode and batched weighted-merge NMS on tensors.
+
+The serving subset of ``objectdetectionpl_tpu/ops/nms.py``: decoded
+predictions ``[B, N, 5+C]`` -> top-k candidates -> class-aware, obj-weighted
+merge greedy NMS with the +1-pixel IoU, as fixed-size ``[B, K, ...]``
+results with a validity mask.  The suppression scan is
+``ops/cuda/nms_kernel.greedy_nms``: the CUDA kernel for CUDA tensors, its
+plain version for CPU tensors.
+
+Candidate selection is exact and stable: equal scores keep the lower index
+first, as ``lax.top_k`` does (bf16 scores tie often).  The TPU's
+``approx_max_k`` has no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from objectdetectionpl_tpu_torch.ops import boxes as box_ops
+from objectdetectionpl_tpu_torch.ops.cuda import nms_kernel
+
+NEG_INF = -1e9
+
+
+class NMSResult(NamedTuple):
+    boxes: torch.Tensor   # [B, K, 4] xyxy
+    obj: torch.Tensor     # [B, K] objectness
+    scores: torch.Tensor  # [B, K]
+    labels: torch.Tensor  # [B, K] int32
+    valid: torch.Tensor   # [B, K] bool
+
+
+class YoloCandidates(NamedTuple):
+    """The top-k rows ``yolo_nms`` hands to the suppression scan."""
+    boxes: torch.Tensor   # [B, K, 4] xyxy, predictions' dtype
+    scores: torch.Tensor  # [B, K] obj * max_cls, NEG_INF below conf_thres
+    labels: torch.Tensor  # [B, K] int32
+    obj: torch.Tensor     # [B, K]
+    cls: torch.Tensor     # [B, K] max class confidence
+    weight: torch.Tensor  # [B, K] merge weight: obj, 0 for invalid rows
+
+    def nms_inputs(self):
+        """(boxes, scores, labels, obj) as ``greedy_nms`` takes them:
+        contiguous, float32 (the scan runs in f32 whatever the model's
+        dtype) and int32 labels."""
+        f32 = lambda t: t.float().contiguous()
+        return (f32(self.boxes), f32(self.scores), self.labels.contiguous(),
+                f32(self.weight))
+
+
+def decode_yolov5_predictions(outputs: Sequence[torch.Tensor], anchors_px,
+                              strides, num_classes: int) -> torch.Tensor:
+    """Decode YOLOv5 maps [B, 3, g, g, 5+C] to [B, N, 5+C] pixel-space rows.
+
+    xy = (sigmoid*2 - 0.5 + grid) * stride; wh = (sigmoid*2)^2 * anchor;
+    obj/cls = sigmoid.  Computed in the maps' dtype, as the JAX decode is.
+    """
+    parts = []
+    for x, anc_px, stride in zip(outputs, anchors_px, strides):
+        B, A, g, _, _ = x.shape
+        ar = torch.arange(g, dtype=x.dtype, device=x.device)
+        gy, gx = torch.meshgrid(ar, ar, indexing="ij")
+        grid = torch.stack([gx, gy], dim=-1)                 # [g, g, (x, y)]
+        anc = torch.as_tensor(np.asarray(anc_px), dtype=x.dtype,
+                              device=x.device).reshape(1, A, 1, 1, 2)
+        sig = torch.sigmoid(x)
+        xy = (sig[..., :2] * 2.0 - 0.5 + grid) * stride
+        wh = (sig[..., 2:4] * 2.0) ** 2 * anc
+        dec = torch.cat([xy, wh, sig[..., 4:]], dim=-1)
+        parts.append(dec.reshape(B, -1, 5 + num_classes))
+    return torch.cat(parts, dim=1)
+
+
+def _select_top_k(score: torch.Tensor, k: int):
+    """(values, indices) of the k best scores per row, ties by lower index."""
+    values, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def yolo_candidates(predictions: torch.Tensor, conf_thres: float = 0.5,
+                    top_k: int = 300) -> YoloCandidates:
+    """Rank rows by obj * max_cls among obj >= conf_thres and gather the
+    top ``top_k`` (all in the predictions' dtype)."""
+    top_k = min(top_k, predictions.shape[1])
+    boxes = box_ops.xywh_to_xyxy(predictions[..., :4])
+    obj = predictions[..., 4]
+    cls_conf = predictions[..., 5:].amax(dim=-1)
+    label = predictions[..., 5:].argmax(dim=-1).to(torch.int32)
+    score = torch.where(obj >= conf_thres, obj * cls_conf, NEG_INF)
+    top_scores, idx = _select_top_k(score, top_k)
+    take = lambda t: torch.gather(t, 1, idx)
+    tb = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+    to = take(obj)
+    # Compared in the scores' dtype: in bf16, NEG_INF itself rounds to
+    # -998244352, which is what the masked rows hold.
+    weight = torch.where(top_scores > NEG_INF, to, 0.0)
+    return YoloCandidates(tb, top_scores, take(label), to, take(cls_conf),
+                          weight)
+
+
+def yolo_nms(predictions: torch.Tensor, conf_thres: float = 0.5,
+             nms_thres: float = 0.4, top_k: int = 300) -> NMSResult:
+    """Batched YOLO weighted-merge NMS over decoded predictions [B, N, 5+C].
+
+    Candidates are ranked by obj_conf * max_cls_conf; a kept box absorbs
+    the same-label boxes with IoU > nms_thres that it suppresses, as an
+    obj-weighted mean.  The scan runs in float32 whatever the input dtype.
+    """
+    c = yolo_candidates(predictions, conf_thres, top_k)
+    kept_boxes, keep = nms_kernel.greedy_nms(
+        *c.nms_inputs(), nms_thresh=nms_thres, class_aware=True, merge=True,
+        plus1=1.0)
+    v = keep & (c.scores > NEG_INF)
+    return NMSResult(kept_boxes, torch.where(v, c.obj, 0.0),
+                     torch.where(v, c.cls, 0.0), c.labels, v)
