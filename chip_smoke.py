@@ -3,12 +3,14 @@
 
 Run from the repository root:  python3 chip_smoke.py [--profile]
 
-Phases, one JSON line each; any failure raises and exits non-zero:
+Phases, one JSON line each (a few print several); any failure raises and
+exits non-zero:
 
 1. device  -- the card (``nvidia-smi`` name and power limit on a line of
    its own), torch and CUDA versions.
 2. build   -- every ``objectdetectionpl_tpu_torch/csrc/*.cu`` compiled with
-   nvcc for sm_90a into ``build/kernels/`` (ptxas register/smem report).
+   nvcc for sm_90a into ``build/kernels/``, one nvcc per source, all
+   started together (ptxas register/smem report).
 3. kernel  -- ``greedy_nms`` (CUDA) against ``greedy_nms_plain`` on the card
    over the listed cases: ``keep`` identical, boxes within rtol=1e-4,
    atol=1e-3 on all rows; then timings at B=1 and B=256, K=300: the
@@ -19,10 +21,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    candidates through the kernel and the plain version.
 5. serving -- ``make_predict_step`` on YOLOv5s-640, 80 classes, bf16, /255
    folded into the stem, uint8 input: 3 batches at B=1 and 3 at B=64 after
-   one warm-up each.  Launch counts are zeroed just before and read just
-   after; every batch must launch the NMS kernel once.
-6. (``--profile``) torch.profiler over one B=64 serving batch: device time
-   by kernel and the device-busy share.
+   one warm-up each.  Every launch count is zeroed just before and read
+   just after; every batch must launch the NMS kernel once.
+6. warp_check -- ``affine_warp`` (CUDA) against ``affine_warp_plain`` on
+   the card: K=26 slots of 640x640 with random shift-scale-rotate matrices
+   inside the ``AugmentConfig`` bounds, the identity, a 60 degree rotation
+   at scale 0.5, a shift that maps every pixel outside, and 37x53 images.
+   Expected difference exactly 0 (the kernel's coordinate arithmetic is
+   the plain version's IEEE operation sequence); tolerance 1e-6.
+7. warp_time -- K=26, 640x640x3: the kernel's device and host-inclusive
+   time, its bound, the plain version's time and the library yardstick
+   ``F.affine_grid`` + ``F.grid_sample`` (bilinear, zeros,
+   align_corners=False), which the port never calls.
+8. train_fp32 -- one YOLOv5s-640 train step, 80 classes, B=2, f32 with
+   TF32 off, on the card and on the CPU from the same seeded weights and
+   batch, augmentation skipped (the same ``u`` with every coin >= p):
+   loss, d(loss)/d(head maps) and the BN running statistics after the
+   step, within the tolerances stated at ``TRAIN_TOL``.
+9. training -- the main path: YOLOv5s-640, 80 classes, bf16 compute, Adam
+   lr 1e-3 / wd 1e-5, B=64, M=32 boxes per image; each step uint8 images
+   on the card -> /255 -> ``augment_batch`` (warp kernel) ->
+   ``train_step``; one warm-up and 3 timed steps.  Every launch count is
+   zeroed just before and read just after; each ``augment_batch`` call must
+   launch the warp kernel once.  Then ``accum_steps=2`` at B=8 with
+   weights [1, 0] must leave the BN statistics equal to a step on the
+   first microbatch alone.
+10. conv3x3_bounds -- the bound, on paper, of the 3x3/s1 conv forward and
+   weight-gradient kernels (TPU kernels not ported yet) at the YOLOv5s-640
+   B=64 bf16 shapes.
+11. (``--profile``) torch.profiler over one B=64 serving batch and over one
+   B=64 training step: device time by kernel and by kernel class, and the
+   idle share against the profiled call and against the mean of three
+   unprofiled calls (the profiler's own host cost inflates the first).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it prints nothing to stdout and exits 1.
@@ -32,18 +62,26 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
+from objectdetectionpl_tpu_torch.config import Config
+from objectdetectionpl_tpu_torch.data import augment
 from objectdetectionpl_tpu_torch.models import build_model
+from objectdetectionpl_tpu_torch.nn import blocks
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
-from objectdetectionpl_tpu_torch.ops import nms
-from objectdetectionpl_tpu_torch.ops.cuda import _build, nms_kernel
+from objectdetectionpl_tpu_torch.ops import losses, nms
+from objectdetectionpl_tpu_torch.ops.cuda import _build, nms_kernel, warp_kernel
+from objectdetectionpl_tpu_torch.train.optim import build_optimizer
+from objectdetectionpl_tpu_torch.train.state import create_train_state
 from objectdetectionpl_tpu_torch.train.step import (make_postprocess,
-                                                    make_predict_step)
+                                                    make_predict_step,
+                                                    make_train_step)
 from objectdetectionpl_tpu_torch.utils.fuse import fold_input_scale
 
 NUM_CLASSES = 80
@@ -51,10 +89,21 @@ IMG = 640
 TOP_K = 300
 BOX_TOL = dict(rtol=1e-4, atol=1e-3)
 HEAD_TOL = dict(rtol=1e-3, atol=1e-3)    # f32 card vs CPU, 60 convs deep
+WARP_TOL = 1e-6          # expected 0: the same IEEE operation sequence
+WARP_K = 26              # warp slots at B=64: round(64 * 2 * p_ssr)
+TRAIN_B = 64
+TRAIN_M = 32
+# f32 train step, card vs CPU.  Batch-statistic BN over B=2 amplifies the
+# two backends' different summation orders; the loss and BN statistics are
+# sums over the whole batch, the head-map gradients elementwise (measured
+# on the H100: 3.8e-7, 9.5e-7 absolute, 1.4e-4 of the largest gradient).
+TRAIN_TOL = {"loss_rtol": 1e-5, "stats": dict(rtol=1e-4, atol=1e-5),
+             "head_grad_rel": 2e-3}      # max |diff| / max |ref| per map
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, non-tensor f32 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12                   # dense tensor-core rate
 # greedy_nms work, counted from the candidates: one IoU test per valid pair
 # i < j (4 min/max, 2x(sub, add, max), mul, add, sub, add, div, compare =
 # 16 ops); per valid row its area (5) and its share of a merge (4 mul, 5 add).
@@ -62,6 +111,10 @@ IOU_PAIR_OPS = 16
 ROW_OPS = 14
 # bytes each row must move: boxes, score, label, obj in; boxes, keep out.
 ROW_BYTES = 16 + 4 + 4 + 4 + 16 + 1
+# affine_warp work per output pixel, counted from csrc/affine_warp.cu:
+# 20 f32 ops for the coordinates; 9 per channel for the blend (inside only).
+WARP_COORD_OPS = 20
+WARP_BLEND_OPS_PER_CHANNEL = 9
 # torch.cuda._sleep spins in clock cycles; 2 GHz is above the H100's boost
 # clock, so a spin of ms * this lasts at least ms.
 SPIN_CYCLES_PER_MS = 2_000_000
@@ -254,7 +307,7 @@ def phase_serving(card: str) -> dict:
                                 dtype=torch.uint8, device="cuda")
                for B in (1, 64)}
     torch.cuda.synchronize()
-    nms_kernel.LAUNCHES = 0                    # main path starts here
+    reset_launches()                           # main path starts here
     calls, results, last = 0, {}, None
     for B, images in batches.items():
         times = []
@@ -267,7 +320,8 @@ def phase_serving(card: str) -> dict:
                 times.append((time.perf_counter() - t0) * 1e3)
         results[B] = {"ms_per_batch": times,
                       "img_per_s": [B * 1e3 / t for t in times]}
-    launches = nms_kernel.LAUNCHES             # main path ends here
+    counts = read_launches()                   # main path ends here
+    launches = counts["greedy_nms"]
     if launches != calls:
         raise AssertionError(f"greedy_nms launched {launches} times in "
                              f"{calls} batches")
@@ -294,42 +348,430 @@ def phase_serving(card: str) -> dict:
           "valid": int(last.valid.sum()), "keep_equal": True,
           "max_abs_box_err": err, "nms_ms": ms, "nms_call_ms": call_ms,
           "nms_bound_ms": bound_ms, "nms_bound_by": bound_by,
+          "launches": counts,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return {"launches": launches, "max_abs_err": err}
 
 
-def phase_profile(card: str) -> None:
+def reset_launches() -> None:
+    nms_kernel.LAUNCHES = 0
+    warp_kernel.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {"greedy_nms": nms_kernel.LAUNCHES,
+            "affine_warp": warp_kernel.LAUNCHES}
+
+
+# --- the affine warp -------------------------------------------------------
+
+
+def ssr_inverses(K: int, seed: int) -> torch.Tensor:
+    """Inverse matrices of K random shift-scale-rotate draws inside the
+    ``AugmentConfig`` bounds (every coin selects SSR)."""
+    u = torch.rand(K, 14, generator=torch.Generator().manual_seed(seed))
+    u[:, 2] = 0.0
+    fwd, _ = augment._ssr_params(u, augment.AugmentConfig())
+    return torch.linalg.inv(fwd)
+
+
+def rss_inverse(deg: float, scale: float, tx: float, ty: float):
+    fwd = augment._rot_shift_scale_matrix(
+        torch.tensor([math.radians(deg)]), torch.tensor([scale]),
+        torch.tensor([tx]), torch.tensor([ty]))
+    return torch.linalg.inv(fwd)
+
+
+def warp_inside(H: int, W: int, inv: torch.Tensor) -> int:
+    """Output pixels whose source point lies inside the image: the
+    kernel's coordinate test, for counting the blend work."""
+    dev = inv.device
+    ys = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5) / H
+    xs = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5) / W
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    m = inv[:, :, :, None, None]
+    sx = (m[:, 0, 0] * xx + m[:, 0, 1] * yy + m[:, 0, 2]) * W - 0.5
+    sy = (m[:, 1, 0] * xx + m[:, 1, 1] * yy + m[:, 1, 2]) * H - 0.5
+    return int(((sx >= 0) & (sx <= W - 1) & (sy >= 0)
+                & (sy <= H - 1)).sum())
+
+
+def warp_bound_ms(images: torch.Tensor, inv: torch.Tensor) -> tuple:
+    K, H, W, C = images.shape
+    nbytes = 2 * images.numel() * 4 + inv.numel() * 4
+    ops = (K * H * W * WARP_COORD_OPS
+           + warp_inside(H, W, inv) * C * WARP_BLEND_OPS_PER_CHANNEL)
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_warp(images: torch.Tensor, inv: torch.Tensor) -> float:
+    """Kernel vs plain on the same CUDA tensors; returns max |error|."""
+    got = warp_kernel.affine_warp(images, inv)
+    want = warp_kernel.affine_warp_plain(images, inv)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError("affine_warp: non-finite output")
+    err = float((got - want).abs().max())
+    if err > WARP_TOL:
+        raise AssertionError(f"affine_warp differs from its plain version "
+                             f"by {err} (tolerance {WARP_TOL})")
+    return err
+
+
+def phase_warp_check() -> float:
+    g = torch.Generator().manual_seed(20)
+    img = lambda K, H, W: torch.rand(K, H, W, 3, generator=g).cuda()
+    cases = [
+        ("ssr_K26_640", img(WARP_K, IMG, IMG), ssr_inverses(WARP_K, 21)),
+        ("identity_640", img(1, IMG, IMG), torch.eye(3)[None]),
+        ("rot60_scale0.5_640", img(1, IMG, IMG), rss_inverse(60, 0.5, 0, 0)),
+        ("all_outside_640", img(1, IMG, IMG), rss_inverse(0, 1.0, 2.0, 0)),
+        ("ssr_K4_37x53", img(4, 37, 53), ssr_inverses(4, 22)),
+    ]
+    max_err = 0.0
+    for name, images, inv in cases:
+        inv = inv.contiguous().cuda()
+        err = check_warp(images, inv)
+        max_err = max(max_err, err)
+        emit({"phase": "warp_check", "case": name,
+              "shape": list(images.shape), "max_abs_err": err,
+              "tolerance": WARP_TOL,
+              "inside_pixels": warp_inside(images.shape[1], images.shape[2],
+                                           inv)})
+    return max_err
+
+
+def grid_sample_warp(images: torch.Tensor, inv: torch.Tensor):
+    """The library yardstick: the same warp through ``F.affine_grid`` +
+    ``F.grid_sample`` on [-1, 1] coordinates (NCHW out).  It blends with
+    zero across the one-texel border where ``affine_warp`` zeroes the
+    pixel, so it is a yardstick of time, not of values."""
+    K, H, W, C = images.shape
+    m = inv[:, :2]
+    theta = torch.stack([m[:, 0, 0], m[:, 0, 1],
+                         m[:, 0, 0] + m[:, 0, 1] + 2 * m[:, 0, 2] - 1,
+                         m[:, 1, 0], m[:, 1, 1],
+                         m[:, 1, 0] + m[:, 1, 1] + 2 * m[:, 1, 2] - 1],
+                        -1).view(K, 2, 3)
+    grid = F.affine_grid(theta, (K, C, H, W), align_corners=False)
+    return F.grid_sample(images.permute(0, 3, 1, 2), grid, mode="bilinear",
+                         padding_mode="zeros", align_corners=False)
+
+
+def phase_warp_time(card: str) -> dict:
+    g = torch.Generator().manual_seed(23)
+    images = torch.rand(WARP_K, IMG, IMG, 3, generator=g).cuda()
+    inv = ssr_inverses(WARP_K, 24).contiguous().cuda()
+    ms, call_ms = time_ms(lambda: warp_kernel.affine_warp(images, inv), 200)
+    plain_ms = call_time_ms(
+        lambda: warp_kernel.affine_warp_plain(images, inv), 10)
+    # ~10 launches a call: 40 calls stay inside the launch queue's depth,
+    # which the spin needs to hold them all
+    lib_ms, lib_call_ms = time_ms(lambda: grid_sample_warp(images, inv), 40)
+    bound_ms, bound_by = warp_bound_ms(images, inv)
+    q = slice(IMG // 4, 3 * IMG // 4)          # always inside for SSR draws
+    lib_diff = float((grid_sample_warp(images, inv).permute(0, 2, 3, 1)
+                      - warp_kernel.affine_warp(images, inv))[:, q, q]
+                     .abs().max())
+    out = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+               library_call_ms=lib_call_ms,
+               library_max_abs_diff_center=lib_diff)
+    emit({"phase": "warp_time", "K": WARP_K, "S": IMG, "C": 3, "card": card,
+          **out})
+    return out
+
+
+# --- training ----------------------------------------------------------------
+
+
+def train_batch(B: int, seed: int):
+    """uint8 images [B, 640, 640, 3] and padded targets (M=32: centers in
+    [0.3, 0.7], wh in [0.05, 0.3], about half masked), made on the CPU
+    from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    images = torch.randint(0, 256, (B, IMG, IMG, 3), generator=g,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, NUM_CLASSES, (B, TRAIN_M), generator=g,
+                           dtype=torch.int32)
+    boxes = torch.cat([0.3 + 0.4 * torch.rand(B, TRAIN_M, 2, generator=g),
+                       0.05 + 0.25 * torch.rand(B, TRAIN_M, 2, generator=g)],
+                      -1)
+    mask = torch.rand(B, TRAIN_M, generator=g) < 0.5
+    return images, labels, boxes, mask
+
+
+def trainer(dtype: torch.dtype, device: str, seed: int = 0,
+            accum_steps: int = 1, capture=None):
+    """(state, train_step) for YOLOv5s-640 with the config's Adam."""
+    model = build_model("YOLOv5", NUM_CLASSES, dtype=dtype, device=device,
+                        seed=seed)
+    opt = build_optimizer(Config(), model.parameters())
+    loss_fn = losses.make_loss("YOLOv5", NUM_CLASSES, IMG)
+    if capture is not None:
+        def loss_fn(outputs, *targets, _loss=loss_fn):
+            for o in outputs:
+                o.retain_grad()
+            capture[:] = outputs
+            return _loss(outputs, *targets)
+    return (create_train_state(model, opt),
+            make_train_step(model, loss_fn, opt, accum_steps=accum_steps))
+
+
+def bn_stats(model) -> dict:
+    return {n: b.detach().float().cpu() for n, b in model.named_buffers()}
+
+
+def phase_train_fp32(card: str) -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images, labels, boxes, mask = train_batch(2, seed=30)
+    u = torch.full((2, 14), 0.99)              # every coin >= p: no change
+    res = {}
+    for dev in ("cuda", "cpu"):
+        heads = []
+        state, step = trainer(torch.float32, dev, seed=0, capture=heads)
+        x = images.to(dev).float() / 255.0
+        x, bx, mk = augment.augment_batch(x, boxes.to(dev), mask.to(dev),
+                                          u=u)
+        state, metrics = step(state, x[None], labels.to(dev)[None],
+                              bx[None], mk[None])
+        res[dev] = dict(loss=metrics["loss"].item(),
+                        grads=[h.grad.float().cpu() for h in heads],
+                        stats=bn_stats(state.model))
+    card_res, cpu = res["cuda"], res["cpu"]
+    loss_err = abs(card_res["loss"] / cpu["loss"] - 1)
+    if loss_err > TRAIN_TOL["loss_rtol"]:
+        raise AssertionError(f"train_fp32 loss {card_res['loss']} vs CPU "
+                             f"{cpu['loss']}")
+    grad_rel = []
+    for g, r in zip(card_res["grads"], cpu["grads"]):
+        rel = float((g - r).abs().max() / r.abs().max())
+        grad_rel.append(rel)
+        if not torch.isfinite(g).all() or rel > TRAIN_TOL["head_grad_rel"]:
+            raise AssertionError(f"train_fp32 head-map gradient differs by "
+                                 f"{rel} of its largest element")
+    stat_err = 0.0
+    for k, r in cpu["stats"].items():
+        torch.testing.assert_close(card_res["stats"][k], r,
+                                   **TRAIN_TOL["stats"], msg=k)
+        stat_err = max(stat_err, float((card_res["stats"][k] - r).abs()
+                                       .max()))
+    emit({"phase": "train_fp32", "card": card, "B": 2, "img": IMG,
+          "loss_card": card_res["loss"], "loss_cpu": cpu["loss"],
+          "loss_rel_err": loss_err, "head_grad_rel_err": grad_rel,
+          "bn_stats_max_abs_err": stat_err, "tolerance": TRAIN_TOL})
+
+
+def augment_and_step(state, step, images_u8, labels, boxes, mask, gen):
+    x = images_u8.float() / 255.0
+    x, bx, mk = augment.augment_batch(x, boxes, mask, generator=gen)
+    return step(state, x[None], labels[None], bx[None], mk[None])
+
+
+def phase_training(card: str) -> dict:
+    batch = [t.cuda() for t in train_batch(TRAIN_B, seed=31)]
+    state, step = trainer(torch.bfloat16, "cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    model = state.model
+    param0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                           # main path starts here
+    calls, step_ms, loss = 0, [], []
+    for i in range(4):                         # one warm-up, three timed
+        t0 = time.perf_counter()
+        state, metrics = augment_and_step(state, step, *batch, gen)
+        torch.cuda.synchronize()
+        calls += 1
+        loss.append(metrics["loss"].item())
+        if i:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_launches()                   # main path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if counts["affine_warp"] != calls:
+        raise AssertionError(f"affine_warp launched {counts['affine_warp']} "
+                             f"times in {calls} augment_batch calls")
+    if not all(math.isfinite(v) for v in loss):
+        raise AssertionError(f"non-finite training loss {loss}")
+    moved = sum(not torch.equal(p, param0[n])
+                for n, p in model.named_parameters())
+    stats_moved = sum(not torch.equal(b, stats0[n])
+                      for n, b in model.named_buffers())
+    if moved != len(param0) or stats_moved != len(stats0):
+        raise AssertionError(f"{moved}/{len(param0)} parameters and "
+                             f"{stats_moved}/{len(stats0)} BN statistics "
+                             f"changed")
+    on_card = ([t for t in model.parameters()] + [t for t in model.buffers()]
+               + [t for s in state.optimizer.state.values()
+                  for t in s.values() if torch.is_tensor(t)
+                  and t.dim() > 0] + [state.step])
+    if not all(t.is_cuda for t in on_card):
+        raise AssertionError("training state is not all on CUDA")
+
+    aug_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        augment.augment_batch(batch[0].float() / 255.0, batch[2], batch[3],
+                              generator=gen)
+        torch.cuda.synchronize()
+        aug_ms.append((time.perf_counter() - t0) * 1e3)
+    emit({"phase": "training", "card": card, "model": "Yolov5s", "img": IMG,
+          "classes": NUM_CLASSES, "dtype": "bfloat16", "B": TRAIN_B,
+          "M": TRAIN_M, "optimizer": "Adam lr 1e-3 wd 1e-5",
+          "ms_per_step": step_ms,
+          "img_per_s": [TRAIN_B * 1e3 / t for t in step_ms],
+          "augment_ms": aug_ms, "loss": loss, "launches": counts,
+          "augment_calls": calls, "peak_mem_gb": peak_gb,
+          "params_changed": moved, "bn_stats_changed": stats_moved})
+    return {"launches": counts["affine_warp"]}
+
+
+def phase_accumulation(card: str) -> None:
+    images, labels, boxes, mask = [t.cuda() for t in train_batch(8, seed=33)]
+    x = images.float() / 255.0
+    split = lambda t: t.view(2, 4, *t.shape[1:])
+    acc_state, acc_step = trainer(torch.bfloat16, "cuda", seed=1,
+                                  accum_steps=2)
+    one_state, one_step = trainer(torch.bfloat16, "cuda", seed=1)
+    acc_state, m2 = acc_step(acc_state, split(x), split(labels),
+                             split(boxes), split(mask), weights=[1.0, 0.0])
+    one_state, m1 = one_step(one_state, split(x)[:1], split(labels)[:1],
+                             split(boxes)[:1], split(mask)[:1])
+    a, b = bn_stats(acc_state.model), bn_stats(one_state.model)
+    err = max(float((a[k] - b[k]).abs().max()) for k in a)
+    if err != 0.0:
+        raise AssertionError(f"a zero-weight microbatch moved the BN "
+                             f"statistics by up to {err}")
+    emit({"phase": "accumulation", "card": card, "B": 8, "accum_steps": 2,
+          "weights": [1.0, 0.0], "bn_stats_max_abs_diff": err,
+          "loss_accumulated": m2["loss"].item(),
+          "loss_first_alone": m1["loss"].item()})
+
+
+def profile_one(fn) -> tuple:
+    """(wall ms, device-busy ms, device ms and launches by kernel class, top
+    kernels) of one call under the profiler."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # user annotations (e.g. ``Optimizer.step#Adam.step``) are ranges over
+    # kernels that are counted on their own
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")
+              and not getattr(e, "is_user_annotation", False)]
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    events.sort(key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    by_class = {}
+    for e in events:
+        c = by_class.setdefault(kernel_class(e.key), {"ms": 0.0, "calls": 0})
+        c["ms"] += dev_us(e) / 1e3
+        c["calls"] += e.count
+    return wall_ms, busy_ms, by_class, [
+        {"name": e.key[:80], "ms": dev_us(e) / 1e3, "calls": e.count}
+        for e in events[:25]]
+
+
+KERNEL_CLASSES = (
+    ("port kernels", ("affine_warp_kernel", "greedy_nms_kernel")),
+    ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolutions and GEMMs", ("xmma", "cutlass", "nvjet", "gemm",
+                                "cudnn")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("Memcpy", "Memset", "copy", "Cat")),
+    ("pooling and upsampling", ("max_pool", "upsample")),
+    ("elementwise", ("elementwise", "Functor")),
+)
+
+
+def kernel_class(name: str) -> str:
+    for cls, marks in KERNEL_CLASSES:
+        if any(m in name for m in marks):
+            return cls
+    return "other"
+
+
+def phase_conv3x3_bounds() -> dict:
+    """Bounds, on paper, of the TPU's 3x3/s1 conv kernels (not ported yet)
+    at the YOLOv5s-640 B=64 bf16 shapes: the shapes come from a forward on
+    the meta device; fwd moves x and w in and y out, wgrad x and dy in and
+    an f32 dW out; 2*9*C*Co multiply-adds per output pixel for each."""
+    model = build_model("YOLOv5", NUM_CLASSES, dtype=torch.bfloat16,
+                        device="meta")
+    shapes = []
+
+    def hook(mod, inp, out):
+        if mod.weight.shape[-1] == 3 and mod.stride == 1:
+            shapes.append((tuple(inp[0].shape), tuple(mod.weight.shape)))
+
+    for m in model.modules():
+        if isinstance(m, blocks.Conv):
+            m.register_forward_hook(hook)
+    with torch.no_grad():
+        model(torch.zeros(TRAIN_B, IMG, IMG, 3, device="meta"))
+    rows, fwd_ms, wgrad_ms = {}, 0.0, 0.0
+    for (B, C, H, W), (Co, _, _, _) in shapes:
+        ops = 2.0 * B * H * W * 9 * C * Co
+        x, y, w = 2 * B * H * W * C, 2 * B * H * W * Co, 9 * C * Co
+        fwd = max(ops / BF16_OPS_PER_S, (x + y + 2 * w) / HBM_BYTES_PER_S)
+        wgrad = max(ops / BF16_OPS_PER_S, (x + y + 4 * w) / HBM_BYTES_PER_S)
+        key = f"{C}->{Co}@{H}x{W}"
+        row = rows.setdefault(key, {"count": 0, "fwd_bound_ms": fwd * 1e3,
+                                    "wgrad_bound_ms": wgrad * 1e3})
+        row["count"] += 1
+        fwd_ms += fwd * 1e3
+        wgrad_ms += wgrad * 1e3
+    out = {"phase": "conv3x3_bounds", "B": TRAIN_B, "img": IMG,
+           "dtype": "bfloat16", "convs": len(shapes), "shapes": rows,
+           "fwd_bound_ms": fwd_ms, "wgrad_bound_ms": wgrad_ms}
+    emit(out)
+    return out
+
+
+def phase_profile(card: str) -> None:
     step, _ = serving_model()
     images = torch.randint(0, 256, (64, IMG, IMG, 3), dtype=torch.uint8,
                            device="cuda")
     for _ in range(2):
         step(images)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(images)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")]
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-    events.sort(key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    emit({"phase": "profile", "card": card, "B": 64, "wall_ms": wall_ms,
-          "device_busy_ms": busy_ms,
-          "idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-          "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
-                   "calls": e.count} for e in events[:20]]})
+    paths = {"serving": lambda: step(images)}
+    batch = [t.cuda() for t in train_batch(TRAIN_B, seed=34)]
+    state, tstep = trainer(torch.bfloat16, "cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    for _ in range(2):
+        state, _ = augment_and_step(state, tstep, *batch, gen)
+    paths["training"] = lambda: augment_and_step(state, tstep, *batch, gen)
+    # time every path unprofiled before the first profile: timed after a
+    # profiled call, the train step took 40 % longer than in `training`
+    unprofiled = {path: call_time_ms(fn, 3, warmup=0)
+                  for path, fn in paths.items()}
+    for path, fn in paths.items():
+        unprofiled_ms = unprofiled[path]
+        wall_ms, busy_ms, by_class, top = profile_one(fn)
+        emit({"phase": "profile", "path": path, "card": card, "B": 64,
+              "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+              "idle_share": 1.0 - busy_ms / wall_ms,
+              "unprofiled_ms": unprofiled_ms,
+              "idle_share_unprofiled": 1.0 - busy_ms / unprofiled_ms,
+              "by_class": by_class, "top": top})
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one B=64 serving batch")
+                        help="also profile one B=64 serving batch and one "
+                             "B=64 training step")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -338,8 +780,14 @@ def main(argv=None) -> int:
     card = info["card"]
     phase_build()
     kern = phase_kernel(card)
+    warp_err = phase_warp_check()
+    warp = phase_warp_time(card)
     fp32_err = phase_fp32(card)
+    phase_train_fp32(card)
     serve = phase_serving(card)
+    train = phase_training(card)
+    phase_accumulation(card)
+    phase_conv3x3_bounds()
     if args.profile:
         phase_profile(card)
     t = kern["timing"]
@@ -356,6 +804,16 @@ def main(argv=None) -> int:
         "call_ms": t[256]["call_ms"],
         "ms_b1": t[1]["ms"], "call_ms_b1": t[1]["call_ms"],
         "plain_ms_b1": t[1]["plain_ms"], "bound_ms_b1": t[1]["bound_ms"],
+        "card": card}, {
+        "name": "affine_warp", "route": "cuda",
+        "source": "objectdetectionpl_tpu_torch/csrc/affine_warp.cu",
+        "replaces": "objectdetectionpl_tpu/ops/pallas/warp_kernel.py:154",
+        "launches": train["launches"], "max_abs_err": warp_err,
+        "ms": warp["ms"], "plain_ms": warp["plain_ms"],
+        "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],
+        "library_ms": warp["library_ms"],
+        "library": "F.affine_grid + F.grid_sample",
+        "shape": f"K={WARP_K},S={IMG},C=3", "call_ms": warp["call_ms"],
         "card": card}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

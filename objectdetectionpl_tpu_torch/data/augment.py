@@ -1,0 +1,164 @@
+"""Device-side batch augmentation: the port of ``augment_batch`` in ``objectdetectionpl_tpu/data/augment.py``.
+
+The reference pipeline (Albumentations, per image, on the host):
+HorizontalFlip(p=.2) + VerticalFlip(p=.2) + ShiftScaleRotate(p=.2) +
+RandomBrightnessContrast(p=.2) + RGBShift(30, p=.2).  Here it is one batched
+function on the images' device: the JAX package's ``vmap`` over images
+becomes a batch dimension, and all randomness is one ``[B, 14]`` uniform
+draw.  Boxes are center-form normalized and transformed analytically;
+rotation maps a box to its enclosing axis-aligned box.
+
+The shift-scale-rotate warp is the Hopper kernel ``csrc/affine_warp.cu``
+(``ops/cuda/warp_kernel.py``), which computes the exact single-pass warp for
+every matrix, so the JAX package's ``use_pallas`` switch and its fallback
+for matrices outside the TPU kernel's range have no counterpart here.
+``mosaic_batch`` is not ported yet (ROADMAP A6).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from objectdetectionpl_tpu_torch.ops.cuda import warp_kernel
+
+
+class AugmentConfig(NamedTuple):
+    p_hflip: float = 0.2
+    p_vflip: float = 0.2
+    p_ssr: float = 0.2          # shift-scale-rotate
+    shift_limit: float = 0.0625
+    scale_limit: float = 0.1
+    rotate_limit: float = 45.0  # degrees
+    p_brightness: float = 0.2
+    brightness_limit: float = 0.2
+    contrast_limit: float = 0.2
+    p_rgb_shift: float = 0.2
+    rgb_shift_limit: float = 30.0 / 255.0
+
+
+def _span(v, lim):
+    return (v * 2.0 - 1.0) * lim
+
+
+def _rot_shift_scale_matrix(angle_rad, scale, tx, ty):
+    """Forward affines (input->output) around the image center, normalized
+    [0, 1] frame: [B] parameters -> [B, 3, 3]."""
+    B = angle_rad.shape[0]
+    dev = angle_rad.device
+    c, s = torch.cos(angle_rad), torch.sin(angle_rad)
+    rot = torch.zeros(B, 3, 3, device=dev)
+    rot[:, 0, 0] = c * scale
+    rot[:, 0, 1] = -s * scale
+    rot[:, 1, 0] = s * scale
+    rot[:, 1, 1] = c * scale
+    rot[:, 2, 2] = 1.0
+    center = torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]],
+                          device=dev)
+    uncenter = torch.tensor([[1.0, 0.0, -0.5], [0.0, 1.0, -0.5],
+                             [0.0, 0.0, 1.0]], device=dev)
+    shift = torch.eye(3, device=dev).repeat(B, 1, 1)
+    shift[:, 0, 2] = tx
+    shift[:, 1, 2] = ty
+    return shift @ center @ rot @ uncenter
+
+
+def _transform_boxes(boxes, mask, fwd):
+    """Map center-form normalized boxes [B, M, 4] through forward affines
+    [B, 3, 3] and enclose; returns (boxes, mask with boxes that left the
+    frame dropped)."""
+    cx, cy, w, h = boxes.unbind(-1)
+    corners_x = torch.stack([cx - w / 2, cx + w / 2, cx - w / 2, cx + w / 2],
+                            -1)
+    corners_y = torch.stack([cy - h / 2, cy - h / 2, cy + h / 2, cy + h / 2],
+                            -1)
+    pts = torch.stack([corners_x, corners_y, torch.ones_like(corners_x)],
+                      -2)                                    # [B, M, 3, 4]
+    out = torch.einsum("bij,bmjk->bmik", fwd, pts)
+    x1 = out[:, :, 0].amin(-1).clamp(0.0, 1.0)
+    x2 = out[:, :, 0].amax(-1).clamp(0.0, 1.0)
+    y1 = out[:, :, 1].amin(-1).clamp(0.0, 1.0)
+    y2 = out[:, :, 1].amax(-1).clamp(0.0, 1.0)
+    new = torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+    alive = mask & (new[..., 2] > 1e-4) & (new[..., 3] > 1e-4)
+    return torch.where(mask[..., None], new, boxes), alive
+
+
+def _augment_cheap(u, images, boxes, cfg: AugmentConfig):
+    """Flips + colour jitter of a batch (u: [B, 14] pre-drawn uniforms)."""
+    per_image = lambda v: v[:, None, None, None]
+
+    def flip(do, img_dim, box_field):
+        nonlocal images, boxes
+        images = torch.where(per_image(do), images.flip(img_dim), images)
+        flipped = boxes.clone()
+        flipped[..., box_field] = 1.0 - boxes[..., box_field]
+        boxes = torch.where(do[:, None, None], flipped, boxes)
+
+    flip(u[:, 0] < cfg.p_hflip, 2, 0)               # horizontal: cx -> 1 - cx
+    flip(u[:, 1] < cfg.p_vflip, 1, 1)               # vertical: cy -> 1 - cy
+
+    do = u[:, 7] < cfg.p_brightness
+    beta = _span(u[:, 8], cfg.brightness_limit) * do
+    alpha = 1.0 + _span(u[:, 9], cfg.contrast_limit) * do
+    images = (images * per_image(alpha) + per_image(beta)).clamp(0.0, 1.0)
+
+    do = u[:, 10] < cfg.p_rgb_shift
+    shift = _span(u[:, 11:14], cfg.rgb_shift_limit) * do[:, None]
+    images = (images + shift[:, None, None, :]).clamp(0.0, 1.0)
+    return images, boxes
+
+
+def _ssr_params(u, cfg: AugmentConfig):
+    """(forward matrices [B, 3, 3], applied? [B]) for shift-scale-rotate."""
+    do = u[:, 2] < cfg.p_ssr
+    ang = _span(u[:, 3], cfg.rotate_limit) * (math.pi / 180.0) * do
+    scale = 1.0 + _span(u[:, 4], cfg.scale_limit) * do
+    tx = _span(u[:, 5], cfg.shift_limit) * do
+    ty = _span(u[:, 6], cfg.shift_limit) * do
+    return _rot_shift_scale_matrix(ang, scale, tx, ty), do
+
+
+def augment_batch(images: torch.Tensor, boxes: torch.Tensor,
+                  mask: torch.Tensor, cfg: AugmentConfig = AugmentConfig(),
+                  generator: Optional[torch.Generator] = None, u=None):
+    """Augment a batch: images [B, S, S, 3] f32 in [0, 1], boxes [B, M, 4]
+    center-form normalized, mask [B, M].  Returns new (images, boxes, mask).
+
+    ``u`` [B, 14] uniforms are drawn from ``generator`` on the images'
+    device unless given (the tests hand in JAX's exact draw).  The warp runs
+    on K = max(1, min(B, round(B * min(2 p_ssr, 1)))) slots, claimed by the
+    K smallest SSR coins (ties to the lower index, as ``lax.top_k``); an
+    image is warped iff its coin selected SSR and it holds a slot, so with
+    more than K selected coins the overflow skips SSR, image and boxes
+    alike.  No step syncs with the host.
+    """
+    B = images.shape[0]
+    dev = images.device
+    if u is None:
+        u = torch.rand((B, 14), generator=generator, device=dev)
+    else:
+        u = torch.as_tensor(u, dtype=torch.float32, device=dev)
+    images, boxes = _augment_cheap(u, images, boxes, cfg)
+
+    K = max(1, min(B, int(round(B * min(2.0 * cfg.p_ssr, 1.0)))))
+    top = torch.sort(u[:, 2], stable=True).indices[:K]
+    covered = torch.zeros(B, dtype=torch.bool, device=dev)
+    covered[top] = True
+
+    fwd, do = _ssr_params(u, cfg)
+    applied = do & covered
+    fwd = torch.where(applied[:, None, None], fwd,
+                      torch.eye(3, device=dev)[None])
+    boxes, mask = _transform_boxes(boxes, mask, fwd)
+
+    # inv_ex, not inv: inv checks for singular input, a host sync.  Only a
+    # scale of 0 is singular; its non-finite inverse warps to zeros.
+    inv, _ = torch.linalg.inv_ex(fwd[top])
+    slots = images[top]
+    warped = warp_kernel.affine_warp(slots, inv.contiguous())
+    use = applied[top][:, None, None, None]
+    images.index_copy_(0, top, torch.where(use, warped, slots))
+    return images, boxes, mask

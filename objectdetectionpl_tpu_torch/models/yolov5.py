@@ -6,7 +6,9 @@ the same submodule names as the flax module so weights carry over one to one
 the compute dtype; a uint8 batch works when the stem carries the /255,
 ``utils/fuse.fold_input_scale``).  Output: list of 3 maps
 ``[B, 3, g, g, 5+C]`` at strides (8, 16, 32), channel ``a*(5+C) + k`` of the
-1x1 head split into anchor ``a`` and field ``k``.
+1x1 head split into anchor ``a`` and field ``k``.  ``model.train()`` is the
+flax ``train=True``: every BatchNorm normalizes with its batch moments and
+updates its running statistics (``nn/blocks.py``).
 """
 
 from __future__ import annotations

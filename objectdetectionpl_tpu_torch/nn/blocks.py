@@ -10,13 +10,11 @@ Numerics follow the JAX blocks:
 
 - parameters and BN statistics are float32; convolutions cast input and
   kernel to the ``dtype`` knob and compute in it (flax ``nn.Conv(dtype=...)``),
-- eval-mode BN folds into one per-channel affine computed in f32 and cast
-  once to the activation dtype,
+- BN folds into one per-channel affine computed in f32 and cast once to the
+  activation dtype, with running statistics in eval mode and f32-accumulated
+  batch moments in train mode,
 - padding is the explicit torch-style ``k // 2``; max-pool pads with -inf,
 - space-to-depth orders channel blocks (row-phase, col-phase, C).
-
-Train-mode BatchNorm (biased batch variance, flax momentum 0.9) is not in
-this slice: it raises rather than compute something else.
 """
 
 from __future__ import annotations
@@ -53,9 +51,18 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode counterpart of the JAX ``BatchNorm``: ``y = x*a + b`` with
-    ``a = scale * rsqrt(var + eps)``, ``b = bias - mean*a`` in f32, cast once
-    to x's dtype.  No ``num_batches_tracked``: the flax tree has none."""
+    """The JAX ``BatchNorm``: ``y = x*a + b`` with ``a = scale * rsqrt(var +
+    eps)``, ``b = bias - mean*a`` in f32, cast once to x's dtype.
+
+    In train mode ``mean``/``var`` are the batch moments over (N, H, W):
+    sums of ``x`` and of ``x**2`` (squared in x's dtype, as JAX does)
+    accumulated in f32, and the *biased* variance ``E[x^2] - E[x]^2``
+    clamped at 0; gradients flow through both.  The running statistics then
+    move as ``0.9*old + 0.1*batch`` (flax momentum 0.9).  ``nn.BatchNorm2d``
+    is not used: it updates the running variance with the unbiased one.
+    No ``num_batches_tracked``: the flax tree has none."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -67,12 +74,21 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm (biased batch variance, flax momentum "
-                "0.9) comes with the training slice (ROADMAP A2); call "
-                "model.eval() to serve")
-        a = self.weight * torch.rsqrt(self.running_var + self.eps)
-        b = self.bias - self.running_mean * a
+            dims = (0, 2, 3)
+            n = x.numel() // x.shape[1]
+            mean = x.sum(dims, dtype=torch.float32) / n
+            mean_sq = x.square().sum(dims, dtype=torch.float32) / n
+            var = torch.clamp(mean_sq - mean.square(), min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        a = self.weight * torch.rsqrt(var + self.eps)
+        b = self.bias - mean * a
         return (x * a.to(x.dtype)[None, :, None, None]
                 + b.to(x.dtype)[None, :, None, None])
 

@@ -1,1 +1,2 @@
-"""Tensor ops: boxes, anchors, decode and NMS; kernels under ``ops/cuda``."""
+"""Tensor ops: boxes, anchors, YOLOv5 assignment and loss, decode and NMS;
+kernels under ``ops/cuda``."""

@@ -1,4 +1,4 @@
-"""Box geometry on tensors: the serving subset of ``objectdetectionpl_tpu/ops/boxes.py``.
+"""Box geometry on tensors: the serving and YOLOv5-loss subset of ``objectdetectionpl_tpu/ops/boxes.py``.
 
 Elementwise and broadcastable over leading dims, in the input's dtype, with
 the same operation order as the JAX functions so f32 results agree bitwise
@@ -6,6 +6,8 @@ where the backends round alike.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -38,3 +40,42 @@ def iou_plus1(box1: torch.Tensor, box2: torch.Tensor,
     area2 = ((box2[..., 2] - box2[..., 0] + 1)
              * (box2[..., 3] - box2[..., 1] + 1))
     return inter / (area1 + area2 - inter + EPS)
+
+
+def iou_v5(box1: torch.Tensor, box2: torch.Tensor, xyxy: bool = True,
+           giou: bool = False, diou: bool = False,
+           ciou: bool = False) -> torch.Tensor:
+    """Elementwise IoU with GIoU/DIoU/CIoU variants (no +1 convention).
+
+    The CIoU aspect-ratio weight ``alpha`` is detached, as in JAX.
+    """
+    if not xyxy:
+        box1 = xywh_to_xyxy(box1)
+        box2 = xywh_to_xyxy(box2)
+    b1_x1, b1_y1, b1_x2, b1_y2 = box1.unbind(-1)
+    b2_x1, b2_y1, b2_x2, b2_y2 = box2.unbind(-1)
+
+    inter = ((torch.minimum(b1_x2, b2_x2)
+              - torch.maximum(b1_x1, b2_x1)).clamp(min=0)
+             * (torch.minimum(b1_y2, b2_y2)
+                - torch.maximum(b1_y1, b2_y1)).clamp(min=0))
+    w1, h1 = b1_x2 - b1_x1, b1_y2 - b1_y1
+    w2, h2 = b2_x2 - b2_x1, b2_y2 - b2_y1
+    union = (w1 * h1 + EPS) + w2 * h2 - inter
+    iou = inter / union
+    if not (giou or diou or ciou):
+        return iou
+
+    cw = torch.maximum(b1_x2, b2_x2) - torch.minimum(b1_x1, b2_x1)
+    ch = torch.maximum(b1_y2, b2_y2) - torch.minimum(b1_y1, b2_y1)
+    if giou:
+        c_area = cw * ch + EPS
+        return iou - (c_area - union) / c_area
+    c2 = cw ** 2 + ch ** 2 + EPS
+    rho2 = (((b2_x1 + b2_x2) - (b1_x1 + b1_x2)) ** 2 / 4
+            + ((b2_y1 + b2_y2) - (b1_y1 + b1_y2)) ** 2 / 4)
+    if diou:
+        return iou - rho2 / c2
+    v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+    alpha = (v / (1 - iou + v)).detach()
+    return iou - (rho2 / c2 + v * alpha)

@@ -1,1 +1,1 @@
-"""Train, eval and predict steps (predict only, so far)."""
+"""Optimizer, schedulers, train state, and the train, eval and predict steps."""

@@ -1,9 +1,13 @@
-"""Serving entry points: model-family postprocess and the predict step.
+"""Train, eval and predict steps.
 
-The PyTorch counterparts of ``make_postprocess`` and ``make_predict_step``
-in ``objectdetectionpl_tpu/train/step.py``.  The predict step runs the
-model in inference mode on whatever device it lives on; the train and eval
-steps come with the training slice (ROADMAP A7).
+The PyTorch counterparts of ``make_train_step``, ``make_eval_step``,
+``make_predict_step`` and ``make_postprocess`` in
+``objectdetectionpl_tpu/train/step.py``.  PyTorch runs eagerly, so a step is
+a plain function over the model and optimizer it closes over; it updates
+them in place and returns tensors, with no host sync inside.
+
+Train batches are ``[A, mB, ...]`` (A microbatches of mB images), as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +19,102 @@ import torch
 from objectdetectionpl_tpu_torch.models.registry import NOT_PORTED
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
 from objectdetectionpl_tpu_torch.ops import nms
+from objectdetectionpl_tpu_torch.train.state import TrainState
+
+
+def make_train_step(model: torch.nn.Module, loss_fn: Callable,
+                    optimizer: torch.optim.Optimizer, accum_steps: int = 1,
+                    ema_decay: float = 0.0) -> Callable:
+    """Returns ``train_step(state, images, labels, boxes, mask, weights=None)
+    -> (state, metrics)``.
+
+    images [A, mB, S, S, 3]; labels/boxes/mask [A, mB, ...]; ``weights`` [A]
+    is each microbatch's share (0 marks a padding microbatch that flushes a
+    partial accumulation window).  The model runs in train mode.  Gradients
+    are ``sum(w * g) / max(sum(w), 1)`` over microbatches and metrics are
+    averaged the same way; the BN running statistics carry from microbatch
+    to microbatch, and a zero-weight microbatch leaves them as they were.
+    The optimizer updates the parameters, then the EMA copy (if the state
+    has one and ``ema_decay > 0``) moves as ``e*decay + p*(1-decay)``.
+    """
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
+    stats = list(model.buffers())
+
+    def grads_of(images, labels, boxes, mask):
+        for p in params:
+            p.grad = None
+        metrics = loss_fn(model(images), labels, boxes, mask)
+        metrics["loss"].backward()
+        grads = [p.grad for p in params]
+        return {k: v.detach() for k, v in metrics.items()}, grads
+
+    def apply_update(state, grads, metrics):
+        for p, g in zip(params, grads):
+            p.grad = g
+        optimizer.step()
+        if state.ema_params is not None and ema_decay > 0:
+            with torch.no_grad():
+                ema = [state.ema_params[n] for n, _ in named]
+                torch._foreach_mul_(ema, ema_decay)
+                torch._foreach_add_(ema, torch._foreach_mul(
+                    [p.detach() for p in params], 1.0 - ema_decay))
+        state.step += 1
+        return state, metrics
+
+    def train_step(state: TrainState, images, labels, boxes, mask,
+                   weights=None):
+        if state.model is not model or state.optimizer is not optimizer:
+            raise ValueError("train_step: the state holds another model or "
+                             "optimizer than the step was made for")
+        model.train()
+        if accum_steps == 1 and weights is None:
+            metrics, grads = grads_of(images[0], labels[0], boxes[0],
+                                      mask[0])
+            return apply_update(state, grads, metrics)
+
+        A = images.shape[0]
+        w = (torch.ones(A, device=images.device) if weights is None else
+             torch.as_tensor(weights, dtype=torch.float32,
+                             device=images.device))
+        acc, per_micro = None, []
+        for i in range(A):
+            before = [b.clone() for b in stats]
+            metrics, grads = grads_of(images[i], labels[i], boxes[i],
+                                      mask[i])
+            acc = ([g * w[i] for g in grads] if acc is None else
+                   [a + g * w[i] for a, g in zip(acc, grads)])
+            with torch.no_grad():
+                for b, old in zip(stats, before):
+                    b.copy_(torch.where(w[i] > 0, b, old))
+            per_micro.append(metrics)
+        wsum = w.sum().clamp(min=1.0)
+        grads = [a / wsum for a in acc]
+        metrics = {k: (torch.stack([m[k] for m in per_micro]) * w).sum()
+                   / wsum for k in per_micro[0]}
+        return apply_update(state, grads, metrics)
+
+    return train_step
+
+
+def make_eval_step(model: torch.nn.Module, loss_fn: Callable) -> Callable:
+    """Returns ``eval_step(state, images, labels, boxes, mask) -> metrics``:
+    the loss of an eval-mode forward (running statistics) with the state's
+    ``eval_params`` (EMA when enabled), without gradients.  The model's
+    mode is restored afterwards."""
+
+    def eval_step(state: TrainState, images, labels, boxes, mask):
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                out = torch.func.functional_call(model, state.eval_params,
+                                                 (images,))
+                return loss_fn(out, labels, boxes, mask)
+        finally:
+            model.train(was_training)
+
+    return eval_step
 
 
 def make_predict_step(model: torch.nn.Module, postprocess: Callable

@@ -121,6 +121,10 @@ def test_focus_matches_jax():
 
 
 def test_batchnorm_eval_affine_and_train_mode_raises():
+    """Eval mode is the folded affine over running statistics; train mode
+    (which raised before the training slice) normalizes with the biased
+    batch moments and moves the running statistics by 0.1 toward them.
+    The flax parity of train mode is in ``test_torch_port_train.py``."""
     bn = pb.BatchNorm(4)
     rng = np.random.RandomState(0)
     with torch.no_grad():
@@ -129,8 +133,16 @@ def test_batchnorm_eval_affine_and_train_mode_raises():
         bn.bias.normal_(0, 0.1)
         bn.running_mean.normal_(0, 0.1)
     x = torch.from_numpy(_x((2, 4, 3, 3)))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        bn(x)
+    old_mean, old_var = bn.running_mean.clone(), bn.running_var.clone()
+    y = bn(x)                                  # a fresh module trains
+    mean = x.mean((0, 2, 3))
+    var = x.var((0, 2, 3), unbiased=False)
+    want = ((x - mean[:, None, None]) / torch.sqrt(var[:, None, None] + 1e-5)
+            * bn.weight[:, None, None] + bn.bias[:, None, None])
+    torch.testing.assert_close(y.detach(), want.detach(), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(bn.running_mean, 0.9 * old_mean + 0.1 * mean)
+    torch.testing.assert_close(bn.running_var, 0.9 * old_var + 0.1 * var)
     bn.eval()
     a = bn.weight / torch.sqrt(bn.running_var + 1e-5)
     want = (x - bn.running_mean[:, None, None]) * a[:, None, None] \

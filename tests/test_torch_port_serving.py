@@ -131,8 +131,15 @@ def test_predict_step_refuses_train_mode():
     step = make_predict_step(model, make_postprocess("YOLOv5", C, 64))
     with pytest.raises(RuntimeError, match="eval mode"):
         step(torch.zeros(1, 64, 64, 3))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.zeros(1, 64, 64, 3))
+    # the model itself runs in train mode (batch statistics), and its
+    # running statistics move
+    stat = model.Focus_0.ConvBN_0.BatchNorm_0.running_var
+    before = stat.clone()
+    heads = model(torch.rand(2, 64, 64, 3,
+                             generator=torch.Generator().manual_seed(0)))
+    assert [tuple(h.shape) for h in heads] == [
+        (2, 3, 8, 8, 5 + C), (2, 3, 4, 4, 5 + C), (2, 3, 2, 2, 5 + C)]
+    assert not torch.equal(stat, before)
 
 
 @pytest.mark.parametrize("name", ["YOLOv2", "YOLOv3", "YOLOv4", "SSD",

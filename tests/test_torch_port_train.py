@@ -1,0 +1,365 @@
+"""Port training (``objectdetectionpl_tpu_torch.train``, train-mode BN) against the JAX package.
+
+Everything runs in f32 on the CPU on both sides, from the same flax
+variables (BN drawn at random) carried over with ``state_dict_from_flax``.
+
+- Train-mode ``BatchNorm`` against flax ``BatchNorm`` with
+  ``mutable=["batch_stats"]``: output, updated running statistics and the
+  gradients of x, scale and bias within ``rtol=1e-5, atol=1e-6``.
+- A YOLOv5s train step (64 px, B=2, M=6, 3 classes, Adam lr 1e-3, weight
+  decay 1e-5) against ``make_train_step``, two steps.  This comparison is
+  ill-conditioned in f32 on both sides: the BN form ``y = x*a + b`` (JAX's,
+  kept by the port) differentiates ``a`` as ``sum(dy*x) - mean*sum(dy)``,
+  which cancels when ``|mean| >> std``.  Against a float64 evaluation of
+  the same step the JAX gradients are 1.5-5.5 % off in relative L2 and the
+  port's 0.5-4 % (measured at this size over four weight draws).  The conv kernels
+  are therefore made zero-mean over their inputs (pre-BN means near 0),
+  and the tolerances follow the measured spread:
+
+  - loss: step 1 ``rtol=1e-4`` (measured 4e-6); step 2 ``rtol=2e-2``
+    (measured 4e-3: the parameters have moved by Adam's sign-like first
+    step, which flips wherever a gradient is within the noise);
+  - gradients, through Adam's first moment after step 1 (JAX's ``mu`` and
+    torch's ``exp_avg`` are both ``0.1 * (g + wd*p)``): relative L2 error
+    at most 0.08 per tensor and 0.03 over all (measured 0.020 / 0.009);
+  - BN running statistics after step 1 (same parameters, forward only)
+    ``rtol=1e-3, atol=1e-4``; after step 2 relative L2 at most 0.15 per
+    tensor (measured 0.035);
+  - parameters after step 1 within ``atol=1e-6`` wherever the gradient
+    exceeds a quarter of its tensor's largest (there Adam's first step is
+    ``-lr*sign(g)`` on both sides); after step 2, whose gradients are taken
+    at parameters that the flipped signs moved apart, within ``2 * lr * 2``,
+    the most two Adam steps can move apart.
+- Gradient accumulation, the zero-weight microbatch, EMA and the eval step
+  on a two-ConvBN model (cheap to compile) within ``rtol=1e-5, atol=1e-6``;
+  a zero-weight microbatch leaves the BN statistics exactly as a run of
+  the other microbatch alone.
+- The seven schedulers over 30 epochs: equal floats (the same Python).
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch import nn
+
+import jax
+import jax.numpy as jnp
+from flax import linen as fnn
+from flax import traverse_util
+
+from objectdetectionpl_tpu.config import Config as JaxConfig
+from objectdetectionpl_tpu.models.yolov5 import YOLOv5 as JaxYOLOv5
+from objectdetectionpl_tpu.nn import blocks as jb
+from objectdetectionpl_tpu.ops import losses as jax_losses
+from objectdetectionpl_tpu.train import optim as jax_optim
+from objectdetectionpl_tpu.train import state as jax_state
+from objectdetectionpl_tpu.train import step as jax_step
+from objectdetectionpl_tpu_torch.config import Config
+from objectdetectionpl_tpu_torch.models import build_model
+from objectdetectionpl_tpu_torch.nn import blocks as pb
+from objectdetectionpl_tpu_torch.ops import losses as port_losses
+from objectdetectionpl_tpu_torch.train import optim as port_optim
+from objectdetectionpl_tpu_torch.train.state import create_train_state
+from objectdetectionpl_tpu_torch.train.step import (make_eval_step,
+                                                    make_train_step)
+from objectdetectionpl_tpu_torch.utils.weights import state_dict_from_flax
+from test_torch_port_blocks import randomized_variables
+
+torch.set_num_threads(2)
+
+C, IMG, B, M = 3, 64, 2, 6
+LR, WD = 1e-3, 1e-5
+TIGHT = dict(rtol=1e-5, atol=1e-6)
+
+
+def _as_port(params, stats):
+    """flax trees -> {port state_dict key: numpy array}."""
+    return {k: v.numpy() for k, v in state_dict_from_flax(
+        jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, stats)
+    ).items()}
+
+
+def _jax_state(params, stats, tx, ema=False):
+    params = jax.tree.map(jnp.asarray, params)
+    return jax_state.TrainState(
+        step=jnp.zeros((), jnp.int32), params=params,
+        batch_stats=jax.tree.map(jnp.asarray, stats),
+        opt_state=tx.init(params), rng=jax.random.PRNGKey(0),
+        ema_params=jax.tree.map(jnp.copy, params) if ema else None)
+
+
+def _adam_moments(opt_state):
+    for s in opt_state.inner_state:
+        if hasattr(s, "mu"):
+            return s.mu, s.nu
+    raise AssertionError("no ScaleByAdamState in the optax chain")
+
+
+def _targets(rng, A, mB):
+    labels = rng.randint(0, C, (A, mB, M)).astype(np.int32)
+    boxes = np.concatenate([rng.uniform(0.3, 0.7, (A, mB, M, 2)),
+                            rng.uniform(0.1, 0.5, (A, mB, M, 2))],
+                           -1).astype(np.float32)
+    mask = rng.rand(A, mB, M) < 0.6
+    return labels, boxes, mask
+
+
+# --- train-mode BatchNorm -----------------------------------------------------
+
+
+def test_train_batchnorm_matches_flax():
+    rng = np.random.RandomState(0)
+    x = (rng.randn(2, 5, 6, 4) * 2 + 1).astype(np.float32)      # NHWC
+    r = rng.randn(*x.shape).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, 4).astype(np.float32)
+    bias = rng.normal(0, 0.1, 4).astype(np.float32)
+    mean = rng.normal(0, 0.1, 4).astype(np.float32)
+    var = rng.uniform(0.5, 2.0, 4).astype(np.float32)
+
+    bn = jb.BatchNorm(use_running_average=False, momentum=0.9)
+
+    def f(x, scale, bias):
+        y, upd = bn.apply({"params": {"scale": scale, "bias": bias},
+                           "batch_stats": {"mean": mean, "var": var}},
+                          x, mutable=["batch_stats"])
+        return jnp.sum(y * r), (y, upd["batch_stats"])
+
+    (_, (y, stats)), grads = jax.value_and_grad(
+        f, argnums=(0, 1, 2), has_aux=True)(
+            jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+
+    port = pb.BatchNorm(4)
+    port.load_state_dict({k: torch.from_numpy(v) for k, v in (
+        ("weight", scale), ("bias", bias), ("running_mean", mean),
+        ("running_var", var))})
+    port.train()
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    yt = port(xt)
+    (yt * torch.from_numpy(r).permute(0, 3, 1, 2)).sum().backward()
+    np.testing.assert_allclose(yt.detach().permute(0, 2, 3, 1).numpy(),
+                               np.asarray(y), **TIGHT)
+    np.testing.assert_allclose(port.running_mean.numpy(),
+                               np.asarray(stats["mean"]), **TIGHT)
+    np.testing.assert_allclose(port.running_var.numpy(),
+                               np.asarray(stats["var"]), **TIGHT)
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(grads[0]), **TIGHT)
+    np.testing.assert_allclose(port.weight.grad.numpy(),
+                               np.asarray(grads[1]), **TIGHT)
+    np.testing.assert_allclose(port.bias.grad.numpy(),
+                               np.asarray(grads[2]), **TIGHT)
+    # bf16 activations: output in bf16, statistics stay f32
+    port(xt.detach().to(torch.bfloat16))
+    assert port.running_var.dtype == torch.float32
+
+
+# --- the YOLOv5s train step ---------------------------------------------------
+
+
+def _zero_mean_kernels(params):
+    """Every BN-fed conv kernel minus its mean over (kh, kw, Cin)."""
+    flat = traverse_util.flatten_dict(params)
+    for path, v in flat.items():
+        if path[-1] == "kernel" and not path[0].startswith("Conv_"):
+            flat[path] = (v - v.mean(axis=(0, 1, 2), keepdims=True)
+                          ).astype(np.float32)
+    return traverse_util.unflatten_dict(flat)
+
+
+@pytest.fixture(scope="module")
+def yolov5s_two_steps():
+    model = JaxYOLOv5(num_classes=C)
+    params, stats = randomized_variables(
+        model, np.zeros((1, IMG, IMG, 3), np.float32), seed=3, jit=True)
+    params = _zero_mean_kernels(params)
+    rng = np.random.RandomState(4)
+    batches = [(rng.rand(1, B, IMG, IMG, 3).astype(np.float32),)
+               + _targets(rng, 1, B) for _ in range(2)]
+
+    tx = jax_optim.build_optimizer(JaxConfig(optimizer="Adam", lr=LR,
+                                             weight_decay=WD))
+    step = jax_step.make_train_step(model, jax_losses.make_loss("YOLOv5", C,
+                                                                IMG), tx)
+    st = _jax_state(params, stats, tx)
+    jax_out = []
+    for batch in batches:
+        st, metrics = step(st, *map(jnp.asarray, batch))
+        jax_out.append(dict(loss=float(metrics["loss"]),
+                            mu=_as_port(_adam_moments(st.opt_state)[0], {}),
+                            state=_as_port(st.params, st.batch_stats)))
+
+    port = build_model("YOLOv5", C, device="cpu")
+    port.load_state_dict(state_dict_from_flax(params, stats), strict=True)
+    opt = port_optim.build_optimizer(Config(lr=LR, weight_decay=WD),
+                                     port.parameters())
+    pstate = create_train_state(port, opt)
+    pstep = make_train_step(port, port_losses.make_loss("YOLOv5", C, IMG),
+                            opt)
+    port_out = []
+    for batch in batches:
+        pstate, metrics = pstep(pstate, *map(torch.from_numpy, batch))
+        port_out.append(dict(
+            loss=metrics["loss"].item(),
+            mu={n: opt.state[p]["exp_avg"].numpy().copy()
+                for n, p in port.named_parameters()},
+            state={k: v.detach().numpy().copy()
+                   for k, v in port.state_dict().items()}))
+    return jax_out, port_out, pstate
+
+
+def _rel_l2(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def test_train_step_loss_matches_jax(yolov5s_two_steps):
+    jax_out, port_out, pstate = yolov5s_two_steps
+    np.testing.assert_allclose(port_out[0]["loss"], jax_out[0]["loss"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(port_out[1]["loss"], jax_out[1]["loss"],
+                               rtol=2e-2)
+    assert int(pstate.step) == 2 and pstate.model.training
+
+
+def test_train_step_gradients_match_jax(yolov5s_two_steps):
+    jax_out, port_out, _ = yolov5s_two_steps
+    mu, port_mu = jax_out[0]["mu"], port_out[0]["mu"]
+    assert mu.keys() == port_mu.keys() and len(mu) == 165
+    for k in mu:
+        assert _rel_l2(port_mu[k], mu[k]) <= 0.08, k
+    flat = lambda d: np.concatenate([d[k].ravel() for k in mu])
+    assert _rel_l2(flat(port_mu), flat(mu)) <= 0.03
+
+
+def test_train_step_params_and_stats_match_jax(yolov5s_two_steps):
+    jax_out, port_out, _ = yolov5s_two_steps
+    n_clear = 0
+    for k, want in jax_out[0]["state"].items():
+        got = port_out[0]["state"][k]
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4,
+                                       err_msg=k)
+            continue
+        mu = jax_out[0]["mu"][k]
+        clear = np.abs(mu) > 0.25 * np.abs(mu).max()
+        n_clear += int(clear.sum())
+        np.testing.assert_allclose(got[clear], want[clear], rtol=0,
+                                   atol=1e-6, err_msg=k)
+    assert n_clear > 0.02 * sum(v.size for v in jax_out[0]["mu"].values())
+    want, got = jax_out[1]["state"], port_out[1]["state"]
+    assert want.keys() == got.keys()
+    for k in want:
+        if k.endswith(("running_mean", "running_var")):
+            assert _rel_l2(got[k], want[k]) <= 0.15, k
+        else:
+            assert np.abs(got[k] - want[k]).max() <= 2 * LR * 2, k
+
+
+# --- accumulation, zero-weight microbatch, EMA, eval step ------------------------
+
+
+class _JaxTiny(fnn.Module):
+    @fnn.compact
+    def __call__(self, x, train: bool = True):
+        x = jb.ConvBN(8, 3)(x, train)
+        return jb.ConvBN(4, 1)(x, train)
+
+
+class _PortTiny(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.ConvBN_0 = pb.ConvBN(3, 8, 3)
+        self.ConvBN_1 = pb.ConvBN(8, 4, 1)
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)
+        return self.ConvBN_1(self.ConvBN_0(x)).permute(0, 2, 3, 1)
+
+
+def _tiny_loss(out, labels, boxes, mask):
+    return {"loss": ((out - 0.5) ** 2).mean(), "Mean": out.mean()}
+
+
+@pytest.mark.parametrize("weights,ema", [((1.0, 0.0), 0.9), ((1.0, 1.0), 0.0)],
+                         ids=["zero_weight_ema", "two_full"])
+def test_accumulated_step_and_eval_match_jax(weights, ema):
+    rng = np.random.RandomState(5)
+    images = rng.rand(2, 3, 8, 8, 3).astype(np.float32)       # [A, mB, ...]
+    dummy = [np.zeros((2, 3, 1), np.float32)] * 3
+    jmodel = _JaxTiny()
+    params, stats = randomized_variables(jmodel, images[0], seed=5)
+    tx = jax_optim.build_optimizer(JaxConfig(optimizer="Adam", lr=LR,
+                                             weight_decay=WD))
+    jstep = jax_step.make_train_step(jmodel, _tiny_loss, tx, accum_steps=2,
+                                     ema_decay=ema)
+    st, jm = jstep(_jax_state(params, stats, tx, ema=ema > 0),
+                   jnp.asarray(images), *map(jnp.asarray, dummy),
+                   weights=jnp.asarray(weights))
+    jeval = jax_step.make_eval_step(jmodel, _tiny_loss)(
+        st, jnp.asarray(images[1]), *map(jnp.asarray, dummy))
+
+    def port_run(imgs, w, accum):
+        model = _PortTiny()
+        model.load_state_dict(state_dict_from_flax(params, stats))
+        opt = port_optim.build_optimizer(Config(lr=LR, weight_decay=WD),
+                                         model.parameters())
+        state = create_train_state(model, opt, ema_decay=ema)
+        step = make_train_step(model, _tiny_loss, opt, accum_steps=accum,
+                               ema_decay=ema)
+        dm = [torch.zeros(len(imgs), 3, 1)] * 3
+        state, metrics = step(state, torch.from_numpy(imgs), *dm, weights=w)
+        return model, state, metrics
+
+    model, pst, pm = port_run(images, list(weights), 2)
+    for k in jm:
+        np.testing.assert_allclose(pm[k].item(), float(jm[k]), **TIGHT)
+    want = _as_port(st.params, st.batch_stats)
+    for k, v in model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), want[k], err_msg=k, **TIGHT)
+    if ema:
+        want_ema = _as_port(st.ema_params, {})
+        assert pst.eval_params.keys() == want_ema.keys()
+        for k, v in pst.eval_params.items():
+            np.testing.assert_allclose(v.numpy(), want_ema[k], err_msg=k,
+                                       **TIGHT)
+    peval = make_eval_step(model, _tiny_loss)(
+        pst, torch.from_numpy(images[1]), *[torch.zeros(3, 1)] * 3)
+    for k in jeval:
+        np.testing.assert_allclose(peval[k].item(), float(jeval[k]), **TIGHT)
+    assert model.training                       # eval step restored the mode
+
+    if weights[1] == 0.0:    # BN stats as if the second microbatch never ran
+        alone, _, _ = port_run(images[:1], None, 1)
+        for (k, v), (_, a) in zip(model.named_buffers(),
+                                  alone.named_buffers()):
+            torch.testing.assert_close(v, a, rtol=0, atol=0, msg=k)
+
+
+# --- optimizer and schedulers -------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["ReduceLROnPlateau", "StepLR", "MultiStepLR",
+                                  "ExponentialLR", "CosineAnnealingLR",
+                                  "LambdaLR", "CyclicLR"])
+def test_schedulers_match_jax(name):
+    port = port_optim.build_scheduler(Config(lr=0.01, lr_scheduler=name))
+    ref = jax_optim.build_scheduler(JaxConfig(lr=0.01, lr_scheduler=name))
+    metrics = np.random.RandomState(6).rand(30) * 3
+    got = [port.step(float(m)) for m in metrics]
+    want = [ref.step(float(m)) for m in metrics]
+    assert got == want
+    if name == "ReduceLROnPlateau":
+        assert min(got) < 0.01                 # the plateau cut fired
+
+
+def test_optimizer_factory_and_learning_rate():
+    w = nn.Parameter(torch.zeros(3))
+    opt = port_optim.build_optimizer(Config(lr=0.01), [w])
+    assert isinstance(opt, torch.optim.Adam)
+    assert opt.defaults["eps"] == 1e-8 and opt.defaults["weight_decay"] == 1e-5
+    port_optim.set_learning_rate(opt, 0.5)
+    assert port_optim.current_learning_rate(opt) == 0.5
+    for name in ("SGD", "RMSprop", "Adagrad"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            port_optim.build_optimizer(Config(optimizer=name), [w])
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        port_optim.build_optimizer(Config(optimizer="Lion"), [w])
