@@ -46,10 +46,24 @@ exits non-zero:
    launch the warp kernel once.  Then ``accum_steps=2`` at B=8 with
    weights [1, 0] must leave the BN statistics equal to a step on the
    first microbatch alone.
-10. conv3x3_bounds -- the bound, on paper, of the 3x3/s1 conv forward and
-   weight-gradient kernels (TPU kernels not ported yet) at the YOLOv5s-640
-   B=64 bf16 shapes.
-11. (``--profile``) torch.profiler over one B=64 serving batch and over one
+10. conv_check -- the 13 3x3/s1 convs of one YOLOv5s-640 bf16 train
+   forward and backward at B=64, captured by hooks on ``blocks.Conv``
+   (x, w, dy): ``conv3x3_s1`` (fwd, and dgrad on ``rot_w(w)``) and
+   ``conv3x3_s1_wgrad`` against their plain versions, wgrad twice (equal
+   bit for bit), and two planted wgrad faults (all zeros; one split chunk's
+   pixels left out) that the same check must reject; then f32 cases (TF32
+   off), 5x5 and C=12 cases; then one ``conv3x3_s1_op`` forward and
+   backward through autograd, whose launch counts must be 2
+   forward-kernel, 1 wgrad, 1 reduction.  Tolerances at
+   ``CONV_BF16_ULPS`` / ``CONV_SUM_TOL``; each case prints its limit beside
+   the median |reference|.
+11. conv_time -- the conv path: one ``conv3x3_s1_op`` forward and backward
+   per captured conv through the A/B tool's kernel step, launch counts
+   zeroed before and read after; then per distinct shape and summed over
+   the 13: device and host-inclusive ms of fwd, dgrad and wgrad, bounds,
+   plain versions' ms and the cuDNN yardstick's ms; then the A/B tool
+   ``tools/conv_bench.py`` itself on 40x40 128->128, B=64, ``--grad``.
+12. (``--profile``) torch.profiler over one B=64 serving batch and over one
    B=64 training step: device time by kernel and by kernel class, and the
    idle share against the profiled call and against the mean of three
    unprofiled calls (the profiler's own host cost inflates the first).
@@ -63,7 +77,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -76,13 +89,19 @@ from objectdetectionpl_tpu_torch.models import build_model
 from objectdetectionpl_tpu_torch.nn import blocks
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
 from objectdetectionpl_tpu_torch.ops import losses, nms
-from objectdetectionpl_tpu_torch.ops.cuda import _build, nms_kernel, warp_kernel
+from objectdetectionpl_tpu_torch.ops.cuda import (_build, conv_kernel,
+                                                  nms_kernel, warp_kernel)
+from objectdetectionpl_tpu_torch.tools import conv_bench
 from objectdetectionpl_tpu_torch.train.optim import build_optimizer
 from objectdetectionpl_tpu_torch.train.state import create_train_state
 from objectdetectionpl_tpu_torch.train.step import (make_postprocess,
                                                     make_predict_step,
                                                     make_train_step)
 from objectdetectionpl_tpu_torch.utils.fuse import fold_input_scale
+from objectdetectionpl_tpu_torch.utils import timing
+from objectdetectionpl_tpu_torch.utils.timing import (F32_OPS_PER_S,
+                                                     HBM_BYTES_PER_S,
+                                                     call_time_ms, time_ms)
 
 NUM_CLASSES = 80
 IMG = 640
@@ -100,10 +119,35 @@ TRAIN_M = 32
 TRAIN_TOL = {"loss_rtol": 1e-5, "stats": dict(rtol=1e-4, atol=1e-5),
              "head_grad_rel": 2e-3}      # max |diff| / max |ref| per map
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, non-tensor f32 FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12                   # dense tensor-core rate
+# The 3x3/s1 convs of YOLOv5s-640 in forward order (C->Co@HxW; B=64).
+CONV_SHAPES = (["12->32@320x320", "32->64@160x160"] + ["64->64@80x80"] * 3
+               + ["128->128@40x40"] * 3 + ["256->256@20x20"] * 3
+               + ["128->128@40x40", "64->64@80x80"])
+# Extra conv cases (name, (B, H, W, C, Co), dtype): f32 with TF32 off, the
+# odd 5x5 image of tests/test_pallas_conv.py, the stem's C=12 off the tile.
+CONV_EXTRA = [
+    ("f32_stem_B2", (2, 320, 320, 12, 32), torch.float32),
+    ("f32_128_B4", (4, 40, 40, 128, 128), torch.float32),
+    ("f32_odd_5x5", (2, 5, 5, 4, 4), torch.float32),
+    ("bf16_odd_5x5", (2, 5, 5, 4, 4), torch.bfloat16),
+    ("f32_c12_37x53", (3, 37, 53, 12, 32), torch.float32),
+    ("bf16_c12_37x53", (3, 37, 53, 12, 32), torch.bfloat16),
+]
+# Conv kernel against plain version on the same inputs.  bf16 results:
+# both sum exact bf16 products in f32 and round once, so they differ by at
+# most one ulp of an element where the two f32 sums straddle a rounding
+# boundary; allowed: CONV_BF16_ULPS bf16 ulps of the largest |value|.  f32
+# results (f32 convs, wgrad) come from two summation orders, each blocked
+# (the kernel sums k-steps, then pixel chunks in order; cuBLAS its own
+# tiles), over terms whose signs cancel; allowed elementwise: CONV_SUM_TOL
+# * log2(n) * eps_f32 * sum|a*b|, n the reduction length (9C or B*H*W).
+# Measured on an H100 at the cases below: 0 to 7.8 eps * sum|a*b|, at most
+# 0.23 of the allowance.  It must stay below a typical |dw| (about
+# sum|a*b| / sqrt(n) here), or a wrong wgrad passes: each wgrad check
+# holds two planted faults against it.
+CONV_BF16_ULPS = 2
+CONV_SUM_TOL = 2
+CONV_REPS = 20
 # greedy_nms work, counted from the candidates: one IoU test per valid pair
 # i < j (4 min/max, 2x(sub, add, max), mul, add, sub, add, div, compare =
 # 16 ops); per valid row its area (5) and its share of a merge (4 mul, 5 add).
@@ -115,9 +159,6 @@ ROW_BYTES = 16 + 4 + 4 + 4 + 16 + 1
 # 20 f32 ops for the coordinates; 9 per channel for the blend (inside only).
 WARP_COORD_OPS = 20
 WARP_BLEND_OPS_PER_CHANNEL = 9
-# torch.cuda._sleep spins in clock cycles; 2 GHz is above the H100's boost
-# clock, so a spin of ms * this lasts at least ms.
-SPIN_CYCLES_PER_MS = 2_000_000
 
 
 def emit(obj) -> None:
@@ -132,45 +173,6 @@ def nms_bound_ms(scores: torch.Tensor) -> tuple:
     t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
-
-
-def call_time_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Host-inclusive ms per call: ``reps`` calls between synchronizes."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps
-
-
-def time_ms(fn, reps: int) -> tuple:
-    """(device ms per call, host-inclusive ms per call) of a function that
-    launches a few kernels.
-
-    For the device time the calls are queued behind a spin kernel long
-    enough to hide the host's enqueue cost, so CUDA events see the device
-    work alone; the run is repeated with a longer spin if the spin ended
-    before the queue was full.
-    """
-    call_ms = call_time_ms(fn, reps)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    spin_ms = 2.0 * call_ms * reps + 5.0
-    for _ in range(4):
-        torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        queued_in_time = not start.query()
-        end.synchronize()
-        if queued_in_time:
-            return start.elapsed_time(end) / reps, call_ms
-        spin_ms *= 4
-    raise RuntimeError("could not queue the timed calls behind the spin")
 
 
 def candidates(B, K, seed, classes=5, dense=False, n_invalid=10):
@@ -203,11 +205,7 @@ def check_kernel(args, class_aware, merge) -> float:
 
 
 def phase_device() -> dict:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = timing.card()
     print(card, flush=True)
     info = {"phase": "device", "card": card,
             "name": torch.cuda.get_device_name(0),
@@ -356,11 +354,13 @@ def phase_serving(card: str) -> dict:
 def reset_launches() -> None:
     nms_kernel.LAUNCHES = 0
     warp_kernel.LAUNCHES = 0
+    for name in conv_kernel.LAUNCHES:
+        conv_kernel.LAUNCHES[name] = 0
 
 
 def read_launches() -> dict:
     return {"greedy_nms": nms_kernel.LAUNCHES,
-            "affine_warp": warp_kernel.LAUNCHES}
+            "affine_warp": warp_kernel.LAUNCHES, **conv_kernel.LAUNCHES}
 
 
 # --- the affine warp -------------------------------------------------------
@@ -684,7 +684,8 @@ def profile_one(fn) -> tuple:
 
 
 KERNEL_CLASSES = (
-    ("port kernels", ("affine_warp_kernel", "greedy_nms_kernel")),
+    ("port kernels", ("affine_warp_kernel", "greedy_nms_kernel",
+                      "conv3x3_")),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions and GEMMs", ("xmma", "cutlass", "nvjet", "gemm",
                                 "cudnn")),
@@ -702,41 +703,255 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def phase_conv3x3_bounds() -> dict:
-    """Bounds, on paper, of the TPU's 3x3/s1 conv kernels (not ported yet)
-    at the YOLOv5s-640 B=64 bf16 shapes: the shapes come from a forward on
-    the meta device; fwd moves x and w in and y out, wgrad x and dy in and
-    an f32 dW out; 2*9*C*Co multiply-adds per output pixel for each."""
+# --- the 3x3/s1 conv ---------------------------------------------------------
+
+
+def capture_convs() -> list:
+    """x and dy (NHWC, bf16) and w (HWIO, bf16) of every 3x3/s1 conv of one
+    YOLOv5s-640 bf16 train-mode forward and backward at B=64 (loss of a
+    ``train_batch``, no augmentation), in forward order."""
     model = build_model("YOLOv5", NUM_CLASSES, dtype=torch.bfloat16,
-                        device="meta")
-    shapes = []
+                        device="cuda", seed=0)
+    model.train()
+    loss_fn = losses.make_loss("YOLOv5", NUM_CLASSES, IMG)
+    images, labels, boxes, mask = [t.cuda() for t in
+                                   train_batch(TRAIN_B, seed=36)]
+    convs, handles = [], []
 
     def hook(mod, inp, out):
-        if mod.weight.shape[-1] == 3 and mod.stride == 1:
-            shapes.append((tuple(inp[0].shape), tuple(mod.weight.shape)))
+        rec = {"x": inp[0].detach().to(mod.dtype).permute(0, 2, 3, 1)
+               .contiguous(),
+               "w": mod.weight.detach().to(mod.dtype).permute(2, 3, 1, 0)
+               .contiguous()}
+        convs.append(rec)
+        out.register_hook(lambda g: rec.__setitem__(
+            "dy", g.permute(0, 2, 3, 1).contiguous()))
 
     for m in model.modules():
-        if isinstance(m, blocks.Conv):
-            m.register_forward_hook(hook)
-    with torch.no_grad():
-        model(torch.zeros(TRAIN_B, IMG, IMG, 3, device="meta"))
-    rows, fwd_ms, wgrad_ms = {}, 0.0, 0.0
-    for (B, C, H, W), (Co, _, _, _) in shapes:
-        ops = 2.0 * B * H * W * 9 * C * Co
-        x, y, w = 2 * B * H * W * C, 2 * B * H * W * Co, 9 * C * Co
-        fwd = max(ops / BF16_OPS_PER_S, (x + y + 2 * w) / HBM_BYTES_PER_S)
-        wgrad = max(ops / BF16_OPS_PER_S, (x + y + 4 * w) / HBM_BYTES_PER_S)
-        key = f"{C}->{Co}@{H}x{W}"
-        row = rows.setdefault(key, {"count": 0, "fwd_bound_ms": fwd * 1e3,
-                                    "wgrad_bound_ms": wgrad * 1e3})
-        row["count"] += 1
-        fwd_ms += fwd * 1e3
-        wgrad_ms += wgrad * 1e3
-    out = {"phase": "conv3x3_bounds", "B": TRAIN_B, "img": IMG,
-           "dtype": "bfloat16", "convs": len(shapes), "shapes": rows,
-           "fwd_bound_ms": fwd_ms, "wgrad_bound_ms": wgrad_ms}
-    emit(out)
-    return out
+        if isinstance(m, blocks.Conv) and m.weight.shape[-1] == 3 \
+                and m.stride == 1:
+            handles.append(m.register_forward_hook(hook))
+    loss_fn(model(images.float() / 255.0), labels, boxes, mask)["loss"] \
+        .backward()
+    for h in handles:
+        h.remove()
+    torch.cuda.synchronize()
+    shapes = [conv_key(c) for c in convs]
+    if shapes != CONV_SHAPES or not all("dy" in c for c in convs):
+        raise AssertionError(f"captured 3x3/s1 convs {shapes}, expected "
+                             f"{CONV_SHAPES} each with a gradient")
+    return convs
+
+
+def conv_key(c) -> str:
+    B, H, W, C = c["x"].shape
+    return f"{C}->{c['w'].shape[-1]}@{H}x{W}"
+
+
+def f32_sum_tol(plain, x_abs, other_abs, n: int) -> torch.Tensor:
+    """Elementwise bound on the reordered-sum error of an f32 result:
+    CONV_SUM_TOL * log2(n) * eps_f32 * the same product of |inputs|."""
+    return CONV_SUM_TOL * math.log2(max(n, 2)) \
+        * torch.finfo(torch.float32).eps * plain(x_abs, other_abs).float()
+
+
+def tol_share(got, want, tol) -> tuple:
+    """(max |got - want|, its largest share of the tolerance, which is a
+    scalar or an elementwise tensor)."""
+    diff = (got.detach().float() - want.detach().float()).abs()
+    share = float((diff / tol).max()) if torch.is_tensor(tol) \
+        else float(diff.max()) / tol
+    return float(diff.max()), share
+
+
+def check_close(name: str, got, want, tol) -> dict:
+    """Raises unless got is finite and within tol of want; returns the
+    error, its share of tol, and the median limit beside the median
+    |want|."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err, share = tol_share(got, want, tol)
+    if not share <= 1.0:
+        raise AssertionError(f"{name}: kernel differs from its plain version "
+                             f"by {err}, {share} of the tolerance")
+    return {"err": err, "share_of_tol": share,
+            "tol_median": float(tol.median()) if torch.is_tensor(tol)
+            else tol,
+            "ref_median_abs": float(want.detach().float().abs().median())}
+
+
+def out_tol(plain, a, b, n: int):
+    """The tolerance for ``plain(a, b)``: CONV_BF16_ULPS bf16 ulps of its
+    largest |value| for a bf16 result, the f32 reordered-sum bound else."""
+    ref = plain(a, b)
+    if ref.dtype == torch.bfloat16:
+        top = float(ref.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+        return ref, CONV_BF16_ULPS * ulp
+    return ref, f32_sum_tol(plain, a.abs(), b.abs(), n)
+
+
+def planted_wgrad_faults(name: str, x, dy, ref, tol) -> dict:
+    """Shares of the wgrad tolerance of two wrong results, each of which
+    the check must reject (share > 1): all zeros, and the wgrad kernel's
+    result with the first split chunk's pixels left out, i.e. with one
+    partial lost."""
+    B, H, W, C = x.shape
+    _, chunk = conv_kernel.wgrad_splits(
+        B * H * W, C, dy.shape[-1],
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
+    lost = dy.clone()
+    lost.view(-1, dy.shape[-1])[:chunk] = 0
+    faults = {"zeros": torch.zeros_like(ref),
+              "lost_split": conv_kernel.conv3x3_s1_wgrad(x, lost)}
+    shares = {}
+    for kind, bad in faults.items():
+        shares[kind] = tol_share(bad, ref, tol)[1]
+        if not shares[kind] > 1.0:
+            raise AssertionError(f"{name} wgrad: the planted fault {kind} "
+                                 f"passes the check ({shares[kind]} of the "
+                                 f"tolerance)")
+    return shares
+
+
+def check_conv(name: str, x, w, dy) -> dict:
+    """Forward, dgrad and wgrad kernels against their plain versions on the
+    same CUDA tensors; wgrad twice, which must agree bit for bit, and its
+    planted faults, which must fail."""
+    B, H, W, C = x.shape
+    res = {}
+    ref, tol = out_tol(conv_kernel.conv3x3_s1_plain, x, w, 9 * C)
+    res["fwd"] = check_close(f"{name} fwd", conv_kernel.conv3x3_s1(x, w),
+                             ref, tol)
+    wr = conv_kernel.rot_w(w).contiguous()
+    ref, tol = out_tol(conv_kernel.conv3x3_s1_plain, dy, wr, 9 * w.shape[-1])
+    res["dgrad"] = check_close(f"{name} dgrad",
+                               conv_kernel.conv3x3_s1(dy, wr), ref, tol)
+    ref, tol = out_tol(conv_kernel.conv3x3_s1_wgrad_plain, x, dy, B * H * W)
+    dw = conv_kernel.conv3x3_s1_wgrad(x, dy)
+    res["wgrad"] = check_close(f"{name} wgrad", dw, ref, tol)
+    if not torch.equal(dw, conv_kernel.conv3x3_s1_wgrad(x, dy)):
+        raise AssertionError(f"{name} wgrad: two runs differ")
+    res["wgrad"]["planted_fault_share_of_tol"] = planted_wgrad_faults(
+        name, x, dy, ref, tol)
+    torch.cuda.synchronize()
+    return res
+
+
+def phase_conv_check(card: str) -> tuple:
+    """Returns (the captured convs, max |kernel - plain| of the forward
+    kernel (fwd and dgrad) and of wgrad)."""
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain versions: f32
+    convs = capture_convs()
+    err = {"fwd": 0.0, "wgrad": 0.0}
+    for i, c in enumerate(convs):
+        res = check_conv(f"conv {i}", c["x"], c["w"], c["dy"])
+        err["fwd"] = max(err["fwd"], res["fwd"]["err"], res["dgrad"]["err"])
+        err["wgrad"] = max(err["wgrad"], res["wgrad"]["err"])
+        emit({"phase": "conv_check", "case": f"yolov5s_conv{i}",
+              "shape": conv_key(c), "B": TRAIN_B, "dtype": "bfloat16", **res})
+    g = torch.Generator(device="cuda").manual_seed(40)
+    for name, (B, H, W, C, Co), dtype in CONV_EXTRA:
+        x, w, dy = (torch.randn(*s, generator=g, device="cuda").to(dtype)
+                    for s in ((B, H, W, C), (3, 3, C, Co), (B, H, W, Co)))
+        res = check_conv(name, x, w, dy)
+        err["fwd"] = max(err["fwd"], res["fwd"]["err"], res["dgrad"]["err"])
+        err["wgrad"] = max(err["wgrad"], res["wgrad"]["err"])
+        emit({"phase": "conv_check", "case": name,
+              "shape": f"{C}->{Co}@{H}x{W}", "B": B,
+              "dtype": str(dtype).split(".")[-1], **res})
+
+    # the op through autograd: bf16 x, f32 master weights (dw in f32)
+    c = convs[CONV_SHAPES.index("128->128@40x40")]
+    x = c["x"].detach().requires_grad_()
+    w = c["w"].float().requires_grad_()
+    torch.cuda.synchronize()
+    reset_launches()
+    y = conv_kernel.conv3x3_s1_op(x, w)
+    dx, dw = torch.autograd.grad(y, (x, w), c["dy"])
+    torch.cuda.synchronize()
+    counts = read_launches()
+    want = {"conv3x3_s1": 2, "conv3x3_s1_wgrad": 1, "wgrad_reduce": 1,
+            "greedy_nms": 0, "affine_warp": 0}
+    if counts != want or dx.dtype != torch.bfloat16 \
+            or dw.dtype != torch.float32:
+        raise AssertionError(f"conv3x3_s1_op fwd+bwd launched {counts} "
+                             f"(expected {want}), dx {dx.dtype}, dw "
+                             f"{dw.dtype}")
+    res, w = {}, w.detach()
+    ref, tol = out_tol(conv_kernel.conv3x3_s1_plain, c["x"], w, 9 * 128)
+    res["y"] = check_close("op y", y, ref, tol)
+    ref, tol = out_tol(conv_kernel.conv3x3_s1_plain, c["dy"],
+                       conv_kernel.rot_w(w).to(torch.bfloat16).contiguous(),
+                       9 * 128)
+    res["dx"] = check_close("op dx", dx, ref, tol)
+    ref, tol = out_tol(conv_kernel.conv3x3_s1_wgrad_plain, c["x"], c["dy"],
+                       c["x"].shape[0] * 40 * 40)
+    res["dw"] = check_close("op dw", dw, ref, tol)
+    emit({"phase": "conv_check", "case": "conv3x3_s1_op_autograd",
+          "shape": "128->128@40x40", "B": TRAIN_B, "launches": counts, **res,
+          "tolerance": {"bf16_ulps_of_max": CONV_BF16_ULPS,
+                        "f32_sum": f"{CONV_SUM_TOL}*log2(n)*eps*sum|a*b|"}})
+    return convs, err
+
+
+def phase_conv_time(card: str, convs: list) -> dict:
+    # the conv path: one forward and backward of conv3x3_s1_op per conv,
+    # through the A/B tool's kernel step
+    torch.cuda.synchronize()
+    reset_launches()                           # main path starts here
+    for c in convs:
+        conv_bench.kernel_step(c["x"], c["w"], c["dy"])
+    torch.cuda.synchronize()
+    counts = read_launches()                   # main path ends here
+    n = len(convs)
+    want = {"conv3x3_s1": 2 * n, "conv3x3_s1_wgrad": n, "wgrad_reduce": n,
+            "greedy_nms": 0, "affine_warp": 0}
+    if counts != want:
+        raise AssertionError(f"{n} conv3x3_s1_op fwd+bwd launched {counts}, "
+                             f"expected {want}")
+
+    rows, total = {}, {}
+    for c in convs:
+        key = conv_key(c)
+        if key in rows:
+            rows[key]["count"] += 1
+            continue
+        fns = conv_bench.passes(c["x"], c["w"], c["dy"])
+        bounds = conv_bench.pass_bounds(*c["x"].shape, c["w"].shape[-1])
+        row = {"count": 1}
+        for part in conv_bench.PASSES:
+            ms, call_ms = time_ms(fns["kernel"][part], CONV_REPS)
+            lib_ms, _ = time_ms(fns["cudnn"][part], CONV_REPS)
+            bound_ms, bound_by = conv_bench.bound_ms(*bounds[part])
+            row[part] = {"ms": ms, "call_ms": call_ms,
+                         "plain_ms": call_time_ms(fns["plain"][part], 2,
+                                                  warmup=1),
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": lib_ms}
+        rows[key] = row
+    for key, row in rows.items():
+        emit({"phase": "conv_time", "shape": key, "B": TRAIN_B,
+              "dtype": "bfloat16", "card": card, **row})
+        for part in conv_bench.PASSES:
+            t = total.setdefault(part, {"ms": 0.0, "call_ms": 0.0,
+                                        "plain_ms": 0.0, "bound_ms": 0.0,
+                                        "library_ms": 0.0,
+                                        "bound_by_operations_ms": 0.0})
+            for k in ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms"):
+                t[k] += row["count"] * row[part][k]
+            if row[part]["bound_by"] == "operations":
+                t["bound_by_operations_ms"] += row["count"] \
+                    * row[part]["bound_ms"]
+    for t in total.values():
+        t["bound_by"] = "operations" if t.pop("bound_by_operations_ms") \
+            >= t["bound_ms"] / 2 else "bytes"
+    emit({"phase": "conv_time", "shape": f"all {n} convs", "B": TRAIN_B,
+          "dtype": "bfloat16", "card": card, "launches": counts, **total})
+    # the A/B tool as a user runs it, on one shape
+    conv_bench.main(["--shape", "40,128,128", "--batch", str(TRAIN_B),
+                     "--grad", "--iters", str(CONV_REPS)])
+    return {"launches": counts, "total": total}
 
 
 def phase_profile(card: str) -> None:
@@ -767,6 +982,27 @@ def phase_profile(card: str) -> None:
               "by_class": by_class, "top": top})
 
 
+def conv_entry(name, line, conv, err, part, library, card) -> dict:
+    t, counts = conv["total"], conv["launches"]
+    entry = {"name": name, "route": "cuda",
+             "source": "objectdetectionpl_tpu_torch/csrc/conv3x3.cu",
+             "replaces": f"objectdetectionpl_tpu/ops/pallas/conv_kernel.py"
+                         f"{line}",
+             "launches": counts[name], "max_abs_err": err,
+             **{k: t[part][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "call_ms")},
+             "library": library,
+             "shape": f"the {len(CONV_SHAPES)} YOLOv5s-640 3x3/s1 convs, "
+                      f"B={TRAIN_B}, bf16, summed", "card": card}
+    if part == "fwd":         # the same kernel computes the input gradient
+        entry.update({f"{k}_dgrad": t["dgrad"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "call_ms")})
+    else:
+        entry["reduce_launches"] = counts["wgrad_reduce"]
+    return entry
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -787,7 +1023,8 @@ def main(argv=None) -> int:
     serve = phase_serving(card)
     train = phase_training(card)
     phase_accumulation(card)
-    phase_conv3x3_bounds()
+    convs, conv_err = phase_conv_check(card)
+    conv = phase_conv_time(card, convs)
     if args.profile:
         phase_profile(card)
     t = kern["timing"]
@@ -814,7 +1051,10 @@ def main(argv=None) -> int:
         "library_ms": warp["library_ms"],
         "library": "F.affine_grid + F.grid_sample",
         "shape": f"K={WARP_K},S={IMG},C=3", "call_ms": warp["call_ms"],
-        "card": card}]})
+        "card": card}, conv_entry("conv3x3_s1", ":121", conv, conv_err["fwd"],
+                                  "fwd", "F.conv2d (cuDNN)", card),
+        conv_entry("conv3x3_s1_wgrad", ":185", conv, conv_err["wgrad"],
+                   "wgrad", "aten.convolution_backward, dw (cuDNN)", card)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
