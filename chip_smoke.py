@@ -10,7 +10,8 @@ exits non-zero:
    its own), torch and CUDA versions.
 2. build   -- every ``objectdetectionpl_tpu_torch/csrc/*.cu`` compiled with
    nvcc for sm_90a into ``build/kernels/``, one nvcc per source, all
-   started together (ptxas register/smem report).
+   started together: ptxas's registers, spills and shared memory per
+   kernel, and its performance warnings; any spill fails the phase.
 3. kernel  -- ``greedy_nms`` (CUDA) against ``greedy_nms_plain`` on the card
    over the listed cases: ``keep`` identical, boxes within rtol=1e-4,
    atol=1e-3 on all rows; then timings at B=1 and B=256, K=300: the
@@ -49,19 +50,25 @@ exits non-zero:
 10. conv_check -- the 13 3x3/s1 convs of one YOLOv5s-640 bf16 train
    forward and backward at B=64, captured by hooks on ``blocks.Conv``
    (x, w, dy): ``conv3x3_s1`` (fwd, and dgrad on ``rot_w(w)``) and
-   ``conv3x3_s1_wgrad`` against their plain versions, wgrad twice (equal
-   bit for bit), and two planted wgrad faults (all zeros; one split chunk's
-   pixels left out) that the same check must reject; then f32 cases (TF32
-   off), 5x5 and C=12 cases; then one ``conv3x3_s1_op`` forward and
-   backward through autograd, whose launch counts must be 2
-   forward-kernel, 1 wgrad, 1 reduction.  Tolerances at
-   ``CONV_BF16_ULPS`` / ``CONV_SUM_TOL``; each case prints its limit beside
-   the median |reference|.
+   ``conv3x3_s1_wgrad`` against their plain versions, each twice (the two
+   runs equal bit for bit: a race in the ring shows as a difference), with
+   planted faults that the same check must reject: for fwd and dgrad the
+   kernel's result with one k-tile of weights zeroed (what a skipped ring
+   stage leaves out), for wgrad all zeros and one split chunk's pixels left
+   out; then f32 cases (TF32 off), 5x5 and C=12 cases, the window
+   kernels on odd images, and bf16 cases that the simple kernels take (odd
+   channel counts, unaligned tensors): every pass's wgmma and simple bf16
+   kernels must both have been checked; then one ``conv3x3_s1_op``
+   forward and backward through autograd, whose launch counts must be 2
+   forward-kernel, 1 wgrad, 1 reduction.  Tolerances elementwise at ``CONV_BF16_ULPS`` / ``CONV_SUM_TOL``; each case prints
+   its median limit beside the median |reference| and each planted fault's
+   share of the limit.
 11. conv_time -- the conv path: one ``conv3x3_s1_op`` forward and backward
    per captured conv through the A/B tool's kernel step, launch counts
    zeroed before and read after; then per distinct shape and summed over
-   the 13: device and host-inclusive ms of fwd, dgrad and wgrad, bounds,
-   plain versions' ms and the cuDNN yardstick's ms; then the A/B tool
+   the 13: device and host-inclusive ms of fwd, dgrad and wgrad, bounds and
+   the share of the bound reached, plain versions' ms and the cuDNN
+   yardstick's ms with the kernel's factor against it; then the A/B tool
    ``tools/conv_bench.py`` itself on 40x40 128->128, B=64, ``--grad``.
 12. (``--profile``) torch.profiler over one B=64 serving batch and over one
    B=64 training step: device time by kernel and by kernel class, and the
@@ -77,6 +84,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import sys
 import time
 
@@ -123,28 +131,36 @@ TRAIN_TOL = {"loss_rtol": 1e-5, "stats": dict(rtol=1e-4, atol=1e-5),
 CONV_SHAPES = (["12->32@320x320", "32->64@160x160"] + ["64->64@80x80"] * 3
                + ["128->128@40x40"] * 3 + ["256->256@20x20"] * 3
                + ["128->128@40x40", "64->64@80x80"])
-# Extra conv cases (name, (B, H, W, C, Co), dtype): f32 with TF32 off, the
-# odd 5x5 image of tests/test_pallas_conv.py, the stem's C=12 off the tile.
+# Extra conv cases (name, (B, H, W, C, Co), dtype, offset): f32 with TF32
+# off, the odd 5x5 image of tests/test_pallas_conv.py, the stem's C=12 off
+# the tile, the window kernels on odd images with Co off their 64-column
+# tiles; then bf16 cases the simple (mma.sync) kernels take: C or Co not a
+# multiple of 4 (16 channels: its 16-byte loads), and x and dy starting
+# ``offset`` elements past a 16-byte boundary.
 CONV_EXTRA = [
-    ("f32_stem_B2", (2, 320, 320, 12, 32), torch.float32),
-    ("f32_128_B4", (4, 40, 40, 128, 128), torch.float32),
-    ("f32_odd_5x5", (2, 5, 5, 4, 4), torch.float32),
-    ("bf16_odd_5x5", (2, 5, 5, 4, 4), torch.bfloat16),
-    ("f32_c12_37x53", (3, 37, 53, 12, 32), torch.float32),
-    ("bf16_c12_37x53", (3, 37, 53, 12, 32), torch.bfloat16),
+    ("f32_stem_B2", (2, 320, 320, 12, 32), torch.float32, 0),
+    ("f32_128_B4", (4, 40, 40, 128, 128), torch.float32, 0),
+    ("f32_odd_5x5", (2, 5, 5, 4, 4), torch.float32, 0),
+    ("bf16_odd_5x5", (2, 5, 5, 4, 4), torch.bfloat16, 0),
+    ("f32_c12_37x53", (3, 37, 53, 12, 32), torch.float32, 0),
+    ("bf16_c12_37x53", (3, 37, 53, 12, 32), torch.bfloat16, 0),
+    ("bf16_c32_37x53", (3, 37, 53, 32, 24), torch.bfloat16, 0),
+    ("bf16_c64_9x7", (2, 9, 7, 64, 40), torch.bfloat16, 0),
+    ("bf16_c128_9x7", (2, 9, 7, 128, 72), torch.bfloat16, 0),
+    ("bf16_c6_9x7", (2, 9, 7, 6, 10), torch.bfloat16, 0),
+    ("bf16_c16_co6_9x7", (2, 9, 7, 16, 6), torch.bfloat16, 0),
+    ("bf16_c64_9x7_misaligned", (2, 9, 7, 64, 40), torch.bfloat16, 1),
 ]
-# Conv kernel against plain version on the same inputs.  bf16 results:
-# both sum exact bf16 products in f32 and round once, so they differ by at
-# most one ulp of an element where the two f32 sums straddle a rounding
-# boundary; allowed: CONV_BF16_ULPS bf16 ulps of the largest |value|.  f32
-# results (f32 convs, wgrad) come from two summation orders, each blocked
-# (the kernel sums k-steps, then pixel chunks in order; cuBLAS its own
-# tiles), over terms whose signs cancel; allowed elementwise: CONV_SUM_TOL
-# * log2(n) * eps_f32 * sum|a*b|, n the reduction length (9C or B*H*W).
-# Measured on an H100 at the cases below: 0 to 7.8 eps * sum|a*b|, at most
-# 0.23 of the allowance.  It must stay below a typical |dw| (about
-# sum|a*b| / sqrt(n) here), or a wrong wgrad passes: each wgrad check
-# holds two planted faults against it.
+# Conv kernel against plain version on the same inputs, elementwise.  Both
+# sum exact products in f32 in two orders, each blocked (the kernel sums
+# k-tiles, or pixel chunks in order; cuBLAS its own tiles), over terms
+# whose signs cancel: allowed CONV_SUM_TOL * log2(n) * eps_f32 * sum|a*b|,
+# n the reduction length (9C or B*H*W) (measured on an H100: 0 to 7.8 eps
+# * sum|a*b|, at most 0.23 of it).  A bf16 result rounds each sum once, so
+# where the two sums straddle a rounding boundary it differs by one ulp of
+# the element's own magnitude: allowed CONV_BF16_ULPS such ulps on top.
+# The limit must stay below a typical |value|, or a wrong result passes:
+# every check holds planted faults against it.
 CONV_BF16_ULPS = 2
 CONV_SUM_TOL = 2
 CONV_REPS = 20
@@ -215,15 +231,59 @@ def phase_device() -> dict:
     return info
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name."""
+    m = re.search(r"(?<=\d)(?:conv3x3_(?:fwd|wgrad)|greedy_nms|affine_warp)"
+                  r"\w*?(?:_kernel|_wgmma|_window)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end():]
+    if not rest.startswith("I"):
+        return m.group(0)
+    args = re.findall(r"Li(\d+)E", rest.split("EEv")[0]) or \
+        ["f32" if rest.startswith("If") else "bf16"]
+    return f"{m.group(0)}<{','.join(args)}>"
+
+
+def ptxas_report(log: str) -> tuple:
+    """From ``-Xptxas -v`` output: per kernel its registers, spilled bytes
+    and static shared memory; and ptxas's performance notes (wgmma
+    serialised, waits it injected)."""
+    kernels, notes, name, spill = [], [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            kernels.append({"kernel": name, "registers": int(m.group(1)),
+                            "spill_bytes": spill,
+                            "static_smem": int(m.group(2) or 0)})
+        if re.search(r"\(C75\d\d\)|Performance Loss", line):
+            m = re.search(r"function '(\w+)'", line)
+            notes.append(f"{kernel_name(m.group(1)) if m else name}: "
+                         f"{line.split(':', 1)[1].strip()[:64]}")
+    return kernels, notes
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build()
     secs = time.perf_counter() - t0
-    ptxas = [line.strip() for n in built
-             for line in _build.build_log[n].splitlines()
-             if "registers" in line or "spill" in line or "smem" in line]
+    report = {n: ptxas_report(_build.build_log[n]) for n in built}
+    for n, (kernels, notes) in report.items():
+        emit({"phase": "build", "source": f"csrc/{n}.cu", "kernels": kernels,
+              "ptxas_notes": notes})
+    spilled = [k["kernel"] for kernels, _ in report.values() for k in kernels
+               if k["spill_bytes"]]
     emit({"phase": "build", "seconds": secs, "built": built,
-          "sources": _build.sources(), "ptxas": ptxas})
+          "sources": _build.sources(), "spilled": spilled})
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers in {spilled}")
 
 
 def phase_kernel(card: str) -> dict:
@@ -637,10 +697,18 @@ def phase_accumulation(card: str) -> None:
     acc_state, acc_step = trainer(torch.bfloat16, "cuda", seed=1,
                                   accum_steps=2)
     one_state, one_step = trainer(torch.bfloat16, "cuda", seed=1)
-    acc_state, m2 = acc_step(acc_state, split(x), split(labels),
-                             split(boxes), split(mask), weights=[1.0, 0.0])
-    one_state, m1 = one_step(one_state, split(x)[:1], split(labels)[:1],
-                             split(boxes)[:1], split(mask)[:1])
+    # the two forwards of the first microbatch must be the same arithmetic:
+    # cuDNN's default algorithms may differ in the last bit between two
+    # calls (once 7.5e-9 on the BN statistics, H100)
+    torch.backends.cudnn.deterministic = True
+    try:
+        acc_state, m2 = acc_step(acc_state, split(x), split(labels),
+                                 split(boxes), split(mask),
+                                 weights=[1.0, 0.0])
+        one_state, m1 = one_step(one_state, split(x)[:1], split(labels)[:1],
+                                 split(boxes)[:1], split(mask)[:1])
+    finally:
+        torch.backends.cudnn.deterministic = False
     a, b = bn_stats(acc_state.model), bn_stats(one_state.model)
     err = max(float((a[k] - b[k]).abs().max()) for k in a)
     if err != 0.0:
@@ -780,62 +848,112 @@ def check_close(name: str, got, want, tol) -> dict:
             "ref_median_abs": float(want.detach().float().abs().median())}
 
 
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at each |t| (at 0: at the smallest
+    normal bf16)."""
+    a = t.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    _, e = torch.frexp(a)                     # a = m * 2**e, m in [0.5, 1)
+    return torch.ldexp(torch.ones_like(a), e - 8)
+
+
 def out_tol(plain, a, b, n: int):
-    """The tolerance for ``plain(a, b)``: CONV_BF16_ULPS bf16 ulps of its
-    largest |value| for a bf16 result, the f32 reordered-sum bound else."""
+    """``plain(a, b)`` and its tolerance, elementwise: the f32 reordered-sum
+    bound over the reduction length n, plus for a bf16 result
+    CONV_BF16_ULPS ulps of each element's own magnitude."""
     ref = plain(a, b)
+    tol = f32_sum_tol(plain, a.abs().float(), b.abs().float(), n)
     if ref.dtype == torch.bfloat16:
-        top = float(ref.float().abs().max())
-        ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
-        return ref, CONV_BF16_ULPS * ulp
-    return ref, f32_sum_tol(plain, a.abs(), b.abs(), n)
+        tol = tol + CONV_BF16_ULPS * bf16_ulp(ref)
+    return ref, tol
 
 
-def planted_wgrad_faults(name: str, x, dy, ref, tol) -> dict:
-    """Shares of the wgrad tolerance of two wrong results, each of which
-    the check must reject (share > 1): all zeros, and the wgrad kernel's
-    result with the first split chunk's pixels left out, i.e. with one
-    partial lost."""
-    B, H, W, C = x.shape
-    _, chunk = conv_kernel.wgrad_splits(
-        B * H * W, C, dy.shape[-1],
-        torch.cuda.get_device_properties(x.device).multi_processor_count)
-    lost = dy.clone()
-    lost.view(-1, dy.shape[-1])[:chunk] = 0
-    faults = {"zeros": torch.zeros_like(ref),
-              "lost_split": conv_kernel.conv3x3_s1_wgrad(x, lost)}
+def reject_faults(name: str, faults: dict, ref, tol) -> dict:
+    """Shares of the tolerance of wrong results, each of which the check
+    must reject (share > 1)."""
     shares = {}
     for kind, bad in faults.items():
         shares[kind] = tol_share(bad, ref, tol)[1]
         if not shares[kind] > 1.0:
-            raise AssertionError(f"{name} wgrad: the planted fault {kind} "
-                                 f"passes the check ({shares[kind]} of the "
+            raise AssertionError(f"{name}: the planted fault {kind} passes "
+                                 f"the check ({shares[kind]} of the "
                                  f"tolerance)")
     return shares
 
 
+def fwd_faults(a, b) -> dict:
+    """The forward kernel's result with one k-tile's worth of weights
+    zeroed: the first tap's first 64 input channels, what a ring stage
+    that was skipped (or read before it landed as zeros) leaves out."""
+    lost = b.clone()
+    lost[0, 0, :conv_kernel.STEP] = 0
+    return {"lost_k_tile": conv_kernel.conv3x3_s1(a, lost)}
+
+
+def wgrad_faults(x, dy) -> dict:
+    """All zeros, and the wgrad kernel's result with the first split
+    chunk's pixels left out, i.e. with one partial lost."""
+    B, H, W, C = x.shape
+    p = conv_kernel.wgrad_plan(
+        B, H, W, C, dy.shape[-1],
+        torch.cuda.get_device_properties(x.device).multi_processor_count,
+        conv_kernel.wgmma_path(x, dy))
+    # the pixels' positions in the reduction (rows of W, or of W + 2)
+    pos = (torch.arange(B * H, device=x.device)[:, None]
+           * (p.positions // (B * H))
+           + torch.arange(W, device=x.device)[None, :])
+    lost = dy.clone()
+    lost.view(B * H, W, -1)[pos < p.chunk] = 0
+    return {"zeros": torch.zeros(3, 3, C, dy.shape[-1], device=x.device),
+            "lost_split": conv_kernel.conv3x3_s1_wgrad(x, lost)}
+
+
+def at_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """t's values in a contiguous tensor that starts ``offset`` elements
+    into a fresh buffer (so, for offset 1, not 16-byte aligned)."""
+    if not offset:
+        return t
+    buf = torch.empty(offset + t.numel(), dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
 def check_conv(name: str, x, w, dy) -> dict:
     """Forward, dgrad and wgrad kernels against their plain versions on the
-    same CUDA tensors; wgrad twice, which must agree bit for bit, and its
-    planted faults, which must fail."""
+    same CUDA tensors, each twice (the runs must agree bit for bit), and
+    each with its planted faults, which must fail the same check; with the
+    kernel each pass took (``wgmma``, or ``simple`` for f32, odd channel
+    counts and unaligned tensors)."""
     B, H, W, C = x.shape
-    res = {}
-    ref, tol = out_tol(conv_kernel.conv3x3_s1_plain, x, w, 9 * C)
-    res["fwd"] = check_close(f"{name} fwd", conv_kernel.conv3x3_s1(x, w),
-                             ref, tol)
     wr = conv_kernel.rot_w(w).contiguous()
-    ref, tol = out_tol(conv_kernel.conv3x3_s1_plain, dy, wr, 9 * w.shape[-1])
-    res["dgrad"] = check_close(f"{name} dgrad",
-                               conv_kernel.conv3x3_s1(dy, wr), ref, tol)
-    ref, tol = out_tol(conv_kernel.conv3x3_s1_wgrad_plain, x, dy, B * H * W)
-    dw = conv_kernel.conv3x3_s1_wgrad(x, dy)
-    res["wgrad"] = check_close(f"{name} wgrad", dw, ref, tol)
-    if not torch.equal(dw, conv_kernel.conv3x3_s1_wgrad(x, dy)):
-        raise AssertionError(f"{name} wgrad: two runs differ")
-    res["wgrad"]["planted_fault_share_of_tol"] = planted_wgrad_faults(
-        name, x, dy, ref, tol)
+    res = {}
+    for part, a, b, plain, kernel, n, faults in (
+            ("fwd", x, w, conv_kernel.conv3x3_s1_plain,
+             conv_kernel.conv3x3_s1, 9 * C, fwd_faults),
+            ("dgrad", dy, wr, conv_kernel.conv3x3_s1_plain,
+             conv_kernel.conv3x3_s1, 9 * w.shape[-1], fwd_faults),
+            ("wgrad", x, dy, conv_kernel.conv3x3_s1_wgrad_plain,
+             conv_kernel.conv3x3_s1_wgrad, B * H * W, wgrad_faults)):
+        ref, tol = out_tol(plain, a, b, n)
+        got = kernel(a, b)
+        res[part] = check_close(f"{name} {part}", got, ref, tol)
+        res[part]["kernel"] = "wgmma" if conv_kernel.wgmma_path(a, b) \
+            else "simple"
+        if not torch.equal(got, kernel(a, b)):
+            raise AssertionError(f"{name} {part}: two runs differ")
+        res[part]["planted_fault_share_of_tol"] = reject_faults(
+            f"{name} {part}", faults(a, b), ref, tol)
     torch.cuda.synchronize()
     return res
+
+
+def conv_plans(x, w) -> dict:
+    """The wgmma kernels' tiles, grids and shared memory for the conv of x
+    [B, H, W, C] with w [3, 3, C, Co]: forward, dgrad, wgrad."""
+    B, H, W, C = x.shape
+    Co = w.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return {"fwd": conv_kernel.fwd_plan(B, H, W, C, Co, sms)._asdict(),
+            "dgrad": conv_kernel.fwd_plan(B, H, W, Co, C, sms)._asdict(),
+            "wgrad": conv_kernel.wgrad_plan(B, H, W, C, Co, sms)._asdict()}
 
 
 def phase_conv_check(card: str) -> tuple:
@@ -849,17 +967,29 @@ def phase_conv_check(card: str) -> tuple:
         err["fwd"] = max(err["fwd"], res["fwd"]["err"], res["dgrad"]["err"])
         err["wgrad"] = max(err["wgrad"], res["wgrad"]["err"])
         emit({"phase": "conv_check", "case": f"yolov5s_conv{i}",
-              "shape": conv_key(c), "B": TRAIN_B, "dtype": "bfloat16", **res})
+              "shape": conv_key(c), "B": TRAIN_B, "dtype": "bfloat16", **res,
+              "plan": conv_plans(c["x"], c["w"])})
     g = torch.Generator(device="cuda").manual_seed(40)
-    for name, (B, H, W, C, Co), dtype in CONV_EXTRA:
+    bf16_kernels = {part: set() for part in ("fwd", "dgrad", "wgrad")}
+    for name, (B, H, W, C, Co), dtype, offset in CONV_EXTRA:
         x, w, dy = (torch.randn(*s, generator=g, device="cuda").to(dtype)
                     for s in ((B, H, W, C), (3, 3, C, Co), (B, H, W, Co)))
+        x, dy = at_offset(x, offset), at_offset(dy, offset)
         res = check_conv(name, x, w, dy)
         err["fwd"] = max(err["fwd"], res["fwd"]["err"], res["dgrad"]["err"])
         err["wgrad"] = max(err["wgrad"], res["wgrad"]["err"])
+        if dtype == torch.bfloat16:
+            for part, kernels in bf16_kernels.items():
+                kernels.add(res[part]["kernel"])
         emit({"phase": "conv_check", "case": name,
               "shape": f"{C}->{Co}@{H}x{W}", "B": B,
-              "dtype": str(dtype).split(".")[-1], **res})
+              "dtype": str(dtype).split(".")[-1], "offset": offset, **res})
+    # CUDA bf16 inputs reach both the wgmma and the simple kernels of every
+    # pass: each must have been held against its plain version
+    for part, kernels in bf16_kernels.items():
+        if kernels != {"wgmma", "simple"}:
+            raise AssertionError(f"the bf16 {part} cases took only the "
+                                 f"{sorted(kernels)} kernels")
 
     # the op through autograd: bf16 x, f32 master weights (dw in f32)
     c = convs[CONV_SHAPES.index("128->128@40x40")]
@@ -890,8 +1020,8 @@ def phase_conv_check(card: str) -> tuple:
     res["dw"] = check_close("op dw", dw, ref, tol)
     emit({"phase": "conv_check", "case": "conv3x3_s1_op_autograd",
           "shape": "128->128@40x40", "B": TRAIN_B, "launches": counts, **res,
-          "tolerance": {"bf16_ulps_of_max": CONV_BF16_ULPS,
-                        "f32_sum": f"{CONV_SUM_TOL}*log2(n)*eps*sum|a*b|"}})
+          "tolerance": {"f32_sum": f"{CONV_SUM_TOL}*log2(n)*eps*sum|a*b|",
+                        "bf16_ulps_of_each": CONV_BF16_ULPS}})
     return convs, err
 
 
@@ -928,7 +1058,8 @@ def phase_conv_time(card: str, convs: list) -> dict:
                          "plain_ms": call_time_ms(fns["plain"][part], 2,
                                                   warmup=1),
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": lib_ms}
+                         "share_of_bound": bound_ms / ms,
+                         "library_ms": lib_ms, "vs_library": ms / lib_ms}
         rows[key] = row
     for key, row in rows.items():
         emit({"phase": "conv_time", "shape": key, "B": TRAIN_B,
@@ -946,6 +1077,8 @@ def phase_conv_time(card: str, convs: list) -> dict:
     for t in total.values():
         t["bound_by"] = "operations" if t.pop("bound_by_operations_ms") \
             >= t["bound_ms"] / 2 else "bytes"
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        t["vs_library"] = t["ms"] / t["library_ms"]
     emit({"phase": "conv_time", "shape": f"all {n} convs", "B": TRAIN_B,
           "dtype": "bfloat16", "card": card, "launches": counts, **total})
     # the A/B tool as a user runs it, on one shape

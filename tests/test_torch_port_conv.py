@@ -35,6 +35,8 @@ import jax.numpy as jnp
 from objectdetectionpl_tpu.ops.pallas import conv_kernel as jax_conv
 from objectdetectionpl_tpu_torch.ops.cuda import conv_kernel
 
+import chip_smoke
+
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -154,16 +156,166 @@ SPLIT_CASES = [(320, 12, 32), (160, 32, 64), (80, 64, 64), (40, 128, 128),
                 (20, 256, 256), (5, 4, 4), (1, 1, 1)]
 
 
+def _yolo_shapes():
+    """(B, H, W, C, Co) of the distinct YOLOv5s-640 B=64 3x3/s1 convs."""
+    out = []
+    for key in dict.fromkeys(chip_smoke.CONV_SHAPES):
+        cc, hw = key.split("@")
+        C, Co = (int(v) for v in cc.split("->"))
+        H, W = (int(v) for v in hw.split("x"))
+        out.append((chip_smoke.TRAIN_B, H, W, C, Co))
+    return out
+
+
+# the forward kernel's shapes: each YOLOv5s conv, its dgrad (the forward on
+# rot_w(w): C and Co swapped), and chip_smoke's extra cases
+PLAN_CASES = ([("fwd", s) for s in _yolo_shapes()]
+              + [("dgrad", s[:3] + (s[4], s[3])) for s in _yolo_shapes()]
+              + [(name, s) for name, s, *_ in chip_smoke.CONV_EXTRA])
+
+
+@pytest.mark.parametrize("kind,shape", PLAN_CASES,
+                         ids=[f"{k}-{'x'.join(map(str, s))}"
+                              for k, s in PLAN_CASES])
+def test_fwd_plan_tiles_the_output(kind, shape):
+    B, H, W, C, Co = shape
+    p = conv_kernel.fwd_plan(B, H, W, C, Co, H100_SMS)
+    # tile columns: a wgmma width (a multiple of 8) covering Co up to 256,
+    # or up to 64 for the window kernel
+    assert p.bn % 8 == 0 and min(Co, 64 if p.window else 256) <= p.bn
+    assert p.bn <= (64 if p.window else 256)
+    assert p.bn < 2 * Co or p.bn == 8               # no wasted half tile
+    # the MMAs run 9C rounded up to 16, inside the zero-padded k-tiles
+    assert p.k_mma == -(-9 * C // 16) * 16 <= p.k_tiles * conv_kernel.STEP
+    if C == 12:
+        assert p.k_mma == 112                       # the stem's K = 108
+    assert p.w_rows >= Co and p.w_rows % p.bn == 0
+    assert p.w_cols == p.k_tiles * conv_kernel.STEP >= 9 * C
+    assert p.vec == (8 if C % 8 == 0 else 4)
+    assert p.smem <= conv_kernel.BLOCK_SMEM_MAX
+    assert 1 <= conv_kernel.blocks_per_sm(p.smem) * (p.smem + 1024) \
+        <= conv_kernel.SM_SMEM
+    # the output tiles cover every pixel and channel (the window kernel's
+    # every position of the [B*H, W+2] grid, its weights in one tile), and
+    # the persistent blocks (block b takes tiles b, b + grid, ...) every
+    # tile once
+    assert p.window == (C in (32, 64, 128))     # its weight columns fit
+    rows = B * H * (W + 2) if p.window else B * H * W
+    assert p.tiles == -(-rows // conv_kernel.TILE_ROWS) * (p.w_rows // p.bn)
+    assert 1 <= p.grid <= min(p.tiles, H100_SMS * 2)
+    assert p.grid % (p.w_rows // p.bn) == 0         # blocks keep their columns
+    taken = np.zeros(p.tiles, dtype=np.int64)
+    for b in range(p.grid):
+        taken[b::p.grid] += 1
+    assert (taken == 1).all()
+
+
+@pytest.mark.parametrize("kind,shape", PLAN_CASES,
+                         ids=[f"{k}-{'x'.join(map(str, s))}"
+                              for k, s in PLAN_CASES])
+def test_wgrad_plan_splits_every_pixel_once(kind, shape):
+    B, H, W, C, Co = shape
+    p = conv_kernel.wgrad_plan(B, H, W, C, Co, H100_SMS)
+    assert p.smem <= conv_kernel.BLOCK_SMEM_MAX
+    # the window kernel reduces over the positions of the [B*H, W+2] grid,
+    # 64 (or all 32) channels of all nine taps a tile
+    assert p.window == ((C == 32 or C % 64 == 0) and Co % 8 == 0)
+    if p.window:
+        assert p.positions == B * H * (W + 2) and p.bn == 64
+        assert p.tiles == max(1, C // 64) * -(-Co // 64)
+    else:
+        assert p.positions == B * H * W
+        assert p.tiles == -(-9 * C // conv_kernel.TILE_ROWS) * -(-Co // p.bn)
+    seen = np.zeros(p.positions, dtype=np.int8)
+    for s in range(p.splits):                 # chunk s: [s*chunk, (s+1)*chunk)
+        seen[s * p.chunk:(s + 1) * p.chunk] += 1
+    assert (seen == 1).all() and p.splits * p.chunk < p.positions + p.chunk
+
+
+def _bf16_case(B, H, W, C, Co, seed):
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.standard_normal((B, H, W, C)).astype(np.float32))
+    w = torch.from_numpy((rs.standard_normal((3, 3, C, Co)) * 0.1)
+                         .astype(np.float32))
+    return x.bfloat16(), w.bfloat16()
+
+
+def _conv_f64(x, w):
+    """The 3x3/s1 SAME conv in float64 on the CPU, NHWC x HWIO."""
+    y = torch.nn.functional.conv2d(x.double().permute(0, 3, 1, 2),
+                                   w.double().permute(3, 2, 0, 1), padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16, 8), (2, 12, 12, 12, 32),
+                                   (4, 40, 40, 64, 64)])
+def test_bf16_tolerance_accepts_exact_sums(shape):
+    """chip_smoke's elementwise limit holds the float64 conv, rounded once
+    to bf16, against the plain version (f32 sums rounded to bf16)."""
+    x, w = _bf16_case(*shape, seed=5)
+    ref, tol = chip_smoke.out_tol(conv_kernel.conv3x3_s1_plain, x, w,
+                                  9 * shape[3])
+    assert tol.shape == ref.shape and (tol > 0).all()
+    exact = _conv_f64(x, w).to(torch.bfloat16)
+    assert chip_smoke.tol_share(exact, ref, tol)[1] <= 1.0
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16, 8), (2, 12, 12, 12, 32)])
+def test_bf16_tolerance_rejects_small_element_faults(shape):
+    """A fault confined to the 1 % of outputs smallest in magnitude fails
+    the elementwise limit, though it passes 2 ulps of the largest |y|."""
+    x, w = _bf16_case(*shape, seed=6)
+    ref, tol = chip_smoke.out_tol(conv_kernel.conv3x3_s1_plain, x, w,
+                                  9 * shape[3])
+    mag = ref.float().abs().flatten()
+    small = mag.argsort()[:max(1, mag.numel() // 100)]
+    bad = ref.clone().flatten()
+    bad[small] = 0
+    bad = bad.view_as(ref)
+    top = float(mag.max())
+    assert float((bad.float() - ref.float()).abs().max()) \
+        <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    assert chip_smoke.tol_share(bad, ref, tol)[1] > 1.0
+
+
+def test_smoke_cases_reach_both_bf16_kernels_of_every_pass():
+    """chip_smoke's bf16 conv cases send fwd, dgrad and wgrad both to the
+    wgmma kernels and to the simple ones (odd channel counts; x and dy off
+    a 16-byte boundary), so the card checks every kernel CUDA bf16 inputs
+    can reach."""
+    seen = {part: set() for part in ("fwd", "dgrad", "wgrad")}
+    for name, (B, H, W, C, Co), dtype, offset in chip_smoke.CONV_EXTRA:
+        if dtype != torch.bfloat16:
+            continue
+        x, dy = (chip_smoke.at_offset(torch.randn(B, H, W, n).bfloat16(),
+                                      offset) for n in (C, Co))
+        assert x.is_contiguous() and dy.is_contiguous()
+        assert (x.data_ptr() % 16 != 0) == (dy.data_ptr() % 16 != 0) \
+            == bool(offset)
+        w = torch.zeros(3, 3, C, Co, dtype=torch.bfloat16)
+        for part, a, b in (("fwd", x, w),
+                           ("dgrad", dy, conv_kernel.rot_w(w).contiguous()),
+                           ("wgrad", x, dy)):
+            seen[part].add(conv_kernel.wgmma_path(a, b))
+    assert all(s == {True, False} for s in seen.values()), seen
+
+
 @pytest.mark.parametrize("H,C,Co", SPLIT_CASES)
 def test_wgrad_splits_cover_the_pixels(H, C, Co):
-    pixels = 64 * H * H
-    splits, chunk = conv_kernel.wgrad_splits(pixels, C, Co, H100_SMS)
-    assert chunk % conv_kernel.PIXEL_STEP == 0
-    assert (splits - 1) * chunk < pixels <= splits * chunk
-    tiles = -(-9 * C // 128) * -(-Co // 64)
-    assert tiles * splits >= min(conv_kernel.WAVES * H100_SMS,
-                                 tiles * pixels // 256)
-    assert splits * 9 * C * Co * 4 < 32e6         # scratch bytes
+    for wgmma in (True, False):
+        p = conv_kernel.wgrad_plan(64, H, H, C, Co, H100_SMS, wgmma)
+        pixels = p.positions                # B*H*W, or B*H*(W+2): window
+        assert p.chunk % conv_kernel.STEP == 0
+        assert (p.splits - 1) * p.chunk < pixels <= p.splits * p.chunk
+        assert p.splits <= 65535                    # grid z
+        # chunks of at least MIN_SPLIT_PIXELS where there are that many
+        assert p.chunk >= min(pixels, conv_kernel.MIN_SPLIT_PIXELS)
+        # the blocks fill the card: a whole wave, or all the chunks there are
+        slots = H100_SMS * (conv_kernel.blocks_per_sm(p.smem) if wgmma
+                            else conv_kernel.SIMPLE_PER_SM)
+        assert p.tiles * p.splits >= min(
+            slots, p.tiles * (pixels // conv_kernel.MIN_SPLIT_PIXELS)) // 2
+        assert p.splits * 9 * C * Co * 4 < 32e6     # scratch bytes
 
 
 @pytest.mark.parametrize("case,error,match", [
