@@ -13,10 +13,13 @@ exits non-zero:
    started together: ptxas's registers, spills and shared memory per
    kernel, and its performance warnings; any spill fails the phase.
 3. kernel  -- ``greedy_nms`` (CUDA) against ``greedy_nms_plain`` on the card
-   over the listed cases: ``keep`` identical, boxes within rtol=1e-4,
-   atol=1e-3 on all rows; then timings at B=1 and B=256, K=300: the
-   kernel's device time (CUDA events) and host-inclusive time per call; the
-   plain version's host-inclusive time (a Python loop of ~1200 launches).
+   over the listed cases (one with 80 classes at B=64, pairs whose IoU
+   lies within ulps of the threshold, a negative threshold): ``keep``
+   identical, boxes within rtol=1e-4, atol=1e-3 on all
+   rows; then timings at K=300, B=1 and B=256 with 5 classes and B=64 with
+   80: the kernel's device time (CUDA events) and host-inclusive time per
+   call; the plain version's host-inclusive time (a Python loop of ~1200
+   launches); the greedy chain's length (kept heads per image, mean, max).
 4. fp32    -- YOLOv5s-640, 80 classes, B=2, f32 with TF32 off: head maps on
    the card against the CPU on the same seeded weights; the card's decoded
    candidates through the kernel and the plain version.
@@ -27,13 +30,21 @@ exits non-zero:
 6. warp_check -- ``affine_warp`` (CUDA) against ``affine_warp_plain`` on
    the card: K=26 slots of 640x640 with random shift-scale-rotate matrices
    inside the ``AugmentConfig`` bounds, the identity, a 60 degree rotation
-   at scale 0.5, a shift that maps every pixel outside, and 37x53 images.
-   Expected difference exactly 0 (the kernel's coordinate arithmetic is
-   the plain version's IEEE operation sequence); tolerance 1e-6.
-7. warp_time -- K=26, 640x640x3: the kernel's device and host-inclusive
-   time, its bound, the plain version's time and the library yardstick
-   ``F.affine_grid`` + ``F.grid_sample`` (bilinear, zeros,
-   align_corners=False), which the port never calls.
+   at scale 0.5, a shift that maps every pixel outside, and 37x53 images;
+   then ``affine_warp_slots`` against ``affine_warp_slots_plain`` with
+   slots of a B=64 batch in coin order (not sorted): all warped, none
+   (the copy path), the training mix, the 60 degree / 0.5 matrix (taps
+   from global memory), and a mix on 37x53 images (stores by element);
+   each case must reach the paths it names (``tile_plan``).  Expected
+   difference exactly 0 (the kernel's coordinate arithmetic is the plain
+   version's IEEE operation sequence); tolerance 1e-6.
+7. warp_time -- K=26 slots of a B=64 batch, 640x640x3: the kernel's device
+   and host-inclusive time with every slot warped, its bound, the plain
+   version's time and the library yardstick ``F.affine_grid`` +
+   ``F.grid_sample`` (bilinear, zeros, align_corners=False), which the
+   port never calls; the kernel on the training mix (about half the slots
+   warped); the SSR tail of ``augment_batch``, the slot call through
+   ``index_copy_``.
 8. train_fp32 -- one YOLOv5s-640 train step, 80 classes, B=2, f32 with
    TF32 off, on the card and on the CPU from the same seeded weights and
    batch, augmentation skipped (the same ``u`` with every coin >= p):
@@ -99,7 +110,9 @@ from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
 from objectdetectionpl_tpu_torch.ops import losses, nms
 from objectdetectionpl_tpu_torch.ops.cuda import (_build, conv_kernel,
                                                   nms_kernel, warp_kernel)
-from objectdetectionpl_tpu_torch.tools import conv_bench
+from objectdetectionpl_tpu_torch.tools import conv_bench, kernel_ab
+from objectdetectionpl_tpu_torch.tools.kernel_ab import (candidates,
+                                                         ssr_inverses)
 from objectdetectionpl_tpu_torch.train.optim import build_optimizer
 from objectdetectionpl_tpu_torch.train.state import create_train_state
 from objectdetectionpl_tpu_torch.train.step import (make_postprocess,
@@ -191,28 +204,32 @@ def nms_bound_ms(scores: torch.Tensor) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def candidates(B, K, seed, classes=5, dense=False, n_invalid=10):
-    """Score-sorted NMS candidates made on the CPU from a seed, on the card."""
+def near_threshold(B, K, seed, thresh=0.4):
+    """Candidates in pairs (2m, 2m + 1) of one label whose IoU+1 lies within
+    a few ulps of ``thresh`` on either side: a box and its copy shifted
+    right by s, (w + 1 - s) / (w + 1 + s) = thresh, s perturbed by up to
+    64 * 2**-26 of itself.  Made on the CPU from a seed, on the card."""
     g = torch.Generator().manual_seed(seed)
-    u = lambda lo, hi: lo + (hi - lo) * torch.rand(B, K, generator=g)
-    cx, cy, w, h = u(50, 550), u(50, 550), u(20, 120), u(20, 120)
-    boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
-    if dense:                   # small coordinate range: long chains
-        boxes /= 4.0
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(B, K // 2, generator=g)
+    x, y, w, h = u(50, 500), u(50, 500), u(20, 120), u(20, 120)
+    s = (w + 1) * (1 - thresh) / (1 + thresh) * (
+        1 + torch.randint(-64, 65, (B, K // 2), generator=g) * 2.0 ** -26)
+    first = torch.stack([x, y, x + w, y + h], -1)
+    second = torch.stack([x + s, y, x + w + s, y + h], -1)
+    boxes = torch.stack([first, second], 2).reshape(B, K, 4)
+    labels = torch.randint(0, 5, (B, K // 2), generator=g,
+                           dtype=torch.int32).repeat_interleave(2, dim=1)
     scores = torch.rand(B, K, generator=g).sort(dim=1, descending=True).values
-    scores[:, K - n_invalid:] = nms_kernel.NEG_INF
-    labels = torch.randint(0, classes, (B, K), generator=g, dtype=torch.int32)
-    obj = torch.where(scores > nms_kernel.NEG_INF,
-                      torch.rand(B, K, generator=g), 0.0)
+    obj = torch.rand(B, K, generator=g)
     return [t.contiguous().cuda() for t in (boxes, scores, labels, obj)]
 
 
-def check_kernel(args, class_aware, merge) -> float:
+def check_kernel(args, class_aware, merge, thresh=0.4) -> float:
     """Kernel vs plain on the same CUDA tensors; returns max |box error|."""
-    kb, kk = nms_kernel.greedy_nms(*args, class_aware=class_aware,
-                                   merge=merge)
-    pb, pk = nms_kernel.greedy_nms_plain(*args, class_aware=class_aware,
-                                         merge=merge)
+    kb, kk = nms_kernel.greedy_nms(*args, nms_thresh=thresh,
+                                   class_aware=class_aware, merge=merge)
+    pb, pk = nms_kernel.greedy_nms_plain(*args, nms_thresh=thresh,
+                                         class_aware=class_aware, merge=merge)
     torch.cuda.synchronize()
     if not torch.equal(kk, pk):
         raise AssertionError(f"keep differs in {int((kk != pk).sum())} rows")
@@ -240,7 +257,7 @@ def kernel_name(mangled: str) -> str:
     rest = mangled[m.end():]
     if not rest.startswith("I"):
         return m.group(0)
-    args = re.findall(r"Li(\d+)E", rest.split("EEv")[0]) or \
+    args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]) or \
         ["f32" if rest.startswith("If") else "bf16"]
     return f"{m.group(0)}<{','.join(args)}>"
 
@@ -296,6 +313,8 @@ def phase_kernel(card: str) -> dict:
         ("all_invalid_B2_K64", candidates(2, 64, 5, n_invalid=64), both[:1]),
         ("single_valid_B2_K64", candidates(2, 64, 6, n_invalid=63),
          both[:1]),
+        ("random_B64_K300_C80", candidates(64, 300, 7, classes=80), both),
+        ("near_threshold_B4_K256", near_threshold(4, 256, 8), both),
     ]
     max_err = 0.0
     for name, args, flag_pairs in cases:
@@ -305,18 +324,30 @@ def phase_kernel(card: str) -> dict:
             emit({"phase": "kernel_check", "case": name,
                   "class_aware": class_aware, "merge": merge,
                   "keep_equal": True, "max_abs_box_err": err})
+    # a negative threshold suppresses disjoint pairs too: the kernel must
+    # then divide where the intersection is empty
+    args = candidates(4, 37, 2)
+    err = check_kernel(args, True, True, thresh=-0.5)
+    max_err = max(max_err, err)
+    emit({"phase": "kernel_check", "case": "random_B4_K37_thresh_-0.5",
+          "class_aware": True, "merge": True, "keep_equal": True,
+          "max_abs_box_err": err})
 
+    # B=1 and B=256 with 5 classes, as in every earlier run; B=64 with 80
+    # classes, the serving configuration
     timing = {}
-    for B in (1, 256):
-        args = candidates(B, TOP_K, 10 + B)
+    for B, classes, seed in ((1, 5, 11), (256, 5, 266), (64, 80, 74)):
+        args = candidates(B, TOP_K, seed, classes=classes)
         ms, call_ms = time_ms(lambda: nms_kernel.greedy_nms(*args), 200)
         plain_ms = call_time_ms(lambda: nms_kernel.greedy_nms_plain(*args),
                                 20)
         bound_ms, bound_by = nms_bound_ms(args[1])
         timing[B] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
-        emit({"phase": "kernel_time", "B": B, "K": TOP_K, "card": card,
-              **timing[B], "library_ms": None})
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         **kernel_ab.chain_length(args))
+        emit({"phase": "kernel_time", "B": B, "K": TOP_K,
+              "classes": classes, "card": card, **timing[B],
+              "library_ms": None})
     return {"max_abs_err": max_err, "timing": timing}
 
 
@@ -406,6 +437,7 @@ def phase_serving(card: str) -> dict:
           "valid": int(last.valid.sum()), "keep_equal": True,
           "max_abs_box_err": err, "nms_ms": ms, "nms_call_ms": call_ms,
           "nms_bound_ms": bound_ms, "nms_bound_by": bound_by,
+          **kernel_ab.chain_length(args),
           "launches": counts,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return {"launches": launches, "max_abs_err": err}
@@ -424,15 +456,6 @@ def read_launches() -> dict:
 
 
 # --- the affine warp -------------------------------------------------------
-
-
-def ssr_inverses(K: int, seed: int) -> torch.Tensor:
-    """Inverse matrices of K random shift-scale-rotate draws inside the
-    ``AugmentConfig`` bounds (every coin selects SSR)."""
-    u = torch.rand(K, 14, generator=torch.Generator().manual_seed(seed))
-    u[:, 2] = 0.0
-    fwd, _ = augment._ssr_params(u, augment.AugmentConfig())
-    return torch.linalg.inv(fwd)
 
 
 def rss_inverse(deg: float, scale: float, tx: float, ty: float):
@@ -456,33 +479,36 @@ def warp_inside(H: int, W: int, inv: torch.Tensor) -> int:
                 & (sy <= H - 1)).sum())
 
 
-def warp_bound_ms(images: torch.Tensor, inv: torch.Tensor) -> tuple:
-    K, H, W, C = images.shape
-    nbytes = 2 * images.numel() * 4 + inv.numel() * 4
-    ops = (K * H * W * WARP_COORD_OPS
-           + warp_inside(H, W, inv) * C * WARP_BLEND_OPS_PER_CHANNEL)
+def warp_bound_ms(slots: torch.Tensor, inv: torch.Tensor,
+                  use: torch.Tensor) -> tuple:
+    """Read each slot once and write it; the coordinates of every pixel and
+    the blend of the inside ones of the slots that are warped."""
+    K, H, W, C = slots.shape
+    nbytes = 2 * slots.numel() * 4 + inv.numel() * 4 + use.numel()
+    ops = (int(use.sum()) * H * W * WARP_COORD_OPS
+           + warp_inside(H, W, inv[use]) * C * WARP_BLEND_OPS_PER_CHANNEL)
     t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_warp(images: torch.Tensor, inv: torch.Tensor) -> float:
+def check_warp(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """Kernel vs plain on the same CUDA tensors; returns max |error|."""
-    got = warp_kernel.affine_warp(images, inv)
-    want = warp_kernel.affine_warp_plain(images, inv)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
-        raise AssertionError("affine_warp: non-finite output")
+        raise AssertionError(f"{name}: non-finite output")
     err = float((got - want).abs().max())
     if err > WARP_TOL:
-        raise AssertionError(f"affine_warp differs from its plain version "
-                             f"by {err} (tolerance {WARP_TOL})")
+        raise AssertionError(f"{name}: the warp kernel differs from its "
+                             f"plain version by {err} (tolerance "
+                             f"{WARP_TOL})")
     return err
 
 
 def phase_warp_check() -> float:
     g = torch.Generator().manual_seed(20)
     img = lambda K, H, W: torch.rand(K, H, W, 3, generator=g).cuda()
+    # affine_warp: every image warped
     cases = [
         ("ssr_K26_640", img(WARP_K, IMG, IMG), ssr_inverses(WARP_K, 21)),
         ("identity_640", img(1, IMG, IMG), torch.eye(3)[None]),
@@ -493,13 +519,51 @@ def phase_warp_check() -> float:
     max_err = 0.0
     for name, images, inv in cases:
         inv = inv.contiguous().cuda()
-        err = check_warp(images, inv)
+        err = check_warp(name, warp_kernel.affine_warp(images, inv),
+                         warp_kernel.affine_warp_plain(images, inv))
         max_err = max(max_err, err)
         emit({"phase": "warp_check", "case": name,
               "shape": list(images.shape), "max_abs_err": err,
               "tolerance": WARP_TOL,
               "inside_pixels": warp_inside(images.shape[1], images.shape[2],
                                            inv)})
+    # affine_warp_slots on a B=64 batch (8 of 37x53): slots in coin order,
+    # as augment_batch gives them; each case reaches the kernel's paths
+    # that its check names, counted by tile_plan
+    batch, small = img(TRAIN_B, IMG, IMG), img(8, 37, 53)
+    top, inv, use = kernel_ab.ssr_mix(TRAIN_B, WARP_K, 26)
+    inv21 = ssr_inverses(WARP_K, 21).cuda()
+    yes = lambda n: torch.ones(n, dtype=torch.bool, device="cuda")
+    on = lambda *v: torch.tensor(v, device="cuda")
+    slot_cases = [
+        ("slots_all_used_K26_640", batch, top, inv21, yes(WARP_K),
+         lambda n: n["copy"] == 0 and n["staged"] > 0),
+        ("slots_none_used_K26_640", batch, top, inv21, ~yes(WARP_K),
+         lambda n: n["copy"] == sum(n.values())),
+        ("slots_mix_K26_640", batch, top, inv, use,
+         lambda n: n["copy"] > 0 and n["staged"] > 0),
+        ("slots_rot60_scale0.5_640", batch, on(37, 5),
+         rss_inverse(60, 0.5, 0, 0).expand(2, 3, 3).cuda(), yes(2),
+         lambda n: n["global"] > 0),
+        ("slots_mix_37x53", small, on(5, 2, 7, 0), ssr_inverses(4, 22).cuda(),
+         on(True, False, True, True), lambda n: n["copy"] and n["staged"]),
+    ]
+    for name, images, top, inv, use, expect in slot_cases:
+        inv = inv.contiguous()
+        _, H, W, C = images.shape
+        plan = warp_kernel.tile_plan(H, W, C, inv, use)
+        paths = warp_kernel.path_counts(plan)
+        if not expect(paths) or bool((top.diff() > 0).all()):
+            raise AssertionError(f"{name}: tiles per path {paths}, top "
+                                 f"{top.tolist()}: not the case it names")
+        err = check_warp(
+            name, warp_kernel.affine_warp_slots(images, top, inv, use),
+            warp_kernel.affine_warp_slots_plain(images, top, inv, use))
+        max_err = max(max_err, err)
+        emit({"phase": "warp_check", "case": name, "source": list(
+              images.shape), "K": len(top), "used": int(use.sum()),
+              "tiles": paths, "vec": plan["vec"], "max_abs_err": err,
+              "tolerance": WARP_TOL})
     return max_err
 
 
@@ -521,26 +585,31 @@ def grid_sample_warp(images: torch.Tensor, inv: torch.Tensor):
 
 
 def phase_warp_time(card: str) -> dict:
-    g = torch.Generator().manual_seed(23)
-    images = torch.rand(WARP_K, IMG, IMG, 3, generator=g).cuda()
-    inv = ssr_inverses(WARP_K, 24).contiguous().cuda()
-    ms, call_ms = time_ms(lambda: warp_kernel.affine_warp(images, inv), 200)
-    plain_ms = call_time_ms(
-        lambda: warp_kernel.affine_warp_plain(images, inv), 10)
+    w = kernel_ab.warp_inputs()
+    batch, top, inv, use = w["batch"], w["top"], w["inv_all"], w["all_used"]
+    slots = batch[top].contiguous()
+    bound_ms, bound_by = warp_bound_ms(slots, inv, use)
+    mix_bound_ms, _ = warp_bound_ms(slots, w["inv"], w["use"])
+    plain_ms = call_time_ms(lambda: warp_kernel.affine_warp_slots_plain(
+        batch, top, inv, use), 10)
     # ~10 launches a call: 40 calls stay inside the launch queue's depth,
     # which the spin needs to hold them all
-    lib_ms, lib_call_ms = time_ms(lambda: grid_sample_warp(images, inv), 40)
-    bound_ms, bound_by = warp_bound_ms(images, inv)
+    lib_ms, lib_call_ms = time_ms(lambda: grid_sample_warp(slots, inv), 40)
     q = slice(IMG // 4, 3 * IMG // 4)          # always inside for SSR draws
-    lib_diff = float((grid_sample_warp(images, inv).permute(0, 2, 3, 1)
-                      - warp_kernel.affine_warp(images, inv))[:, q, q]
+    lib_diff = float((grid_sample_warp(slots, inv).permute(0, 2, 3, 1)
+                      - warp_kernel.affine_warp(slots, inv))[:, q, q]
                      .abs().max())
-    out = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-               library_call_ms=lib_call_ms,
-               library_max_abs_diff_center=lib_diff)
-    emit({"phase": "warp_time", "K": WARP_K, "S": IMG, "C": 3, "card": card,
-          **out})
+    t = kernel_ab.warp_times(w)                # last: the tail edits batch
+    out = dict(ms=t["all_used_ms"], call_ms=t["all_used_call_ms"],
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / t["all_used_ms"],
+               library_ms=lib_ms, library_call_ms=lib_call_ms,
+               library_max_abs_diff_center=lib_diff, used_mix=t["used"],
+               ms_mix=t["mix_ms"], call_ms_mix=t["mix_call_ms"],
+               bound_ms_mix=mix_bound_ms, tail_ms=t["tail_ms"],
+               tail_call_ms=t["tail_call_ms"])
+    emit({"phase": "warp_time", "K": WARP_K, "S": IMG, "C": 3, "B": TRAIN_B,
+          "card": card, **out})
     return out
 
 
@@ -752,7 +821,7 @@ def profile_one(fn) -> tuple:
 
 
 KERNEL_CLASSES = (
-    ("port kernels", ("affine_warp_kernel", "greedy_nms_kernel",
+    ("port kernels", ("affine_warp_slots_kernel", "greedy_nms_kernel",
                       "conv3x3_")),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions and GEMMs", ("xmma", "cutlass", "nvjet", "gemm",
@@ -1171,9 +1240,11 @@ def main(argv=None) -> int:
         "ms": t[256]["ms"], "plain_ms": t[256]["plain_ms"],
         "bound_ms": t[256]["bound_ms"], "bound_by": t[256]["bound_by"],
         "library_ms": None, "shape": "B=256,K=300",
-        "call_ms": t[256]["call_ms"],
+        "call_ms": t[256]["call_ms"], "chain_mean": t[256]["chain_mean"],
+        "chain_max": t[256]["chain_max"],
         "ms_b1": t[1]["ms"], "call_ms_b1": t[1]["call_ms"],
         "plain_ms_b1": t[1]["plain_ms"], "bound_ms_b1": t[1]["bound_ms"],
+        "ms_b64_c80": t[64]["ms"], "bound_ms_b64_c80": t[64]["bound_ms"],
         "card": card}, {
         "name": "affine_warp", "route": "cuda",
         "source": "objectdetectionpl_tpu_torch/csrc/affine_warp.cu",
@@ -1183,7 +1254,9 @@ def main(argv=None) -> int:
         "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],
         "library_ms": warp["library_ms"],
         "library": "F.affine_grid + F.grid_sample",
-        "shape": f"K={WARP_K},S={IMG},C=3", "call_ms": warp["call_ms"],
+        "shape": f"K={WARP_K} of B={TRAIN_B},S={IMG},C=3, all warped",
+        "call_ms": warp["call_ms"], "ms_mix": warp["ms_mix"],
+        "used_mix": warp["used_mix"], "tail_ms": warp["tail_ms"],
         "card": card}, conv_entry("conv3x3_s1", ":121", conv, conv_err["fwd"],
                                   "fwd", "F.conv2d (cuDNN)", card),
         conv_entry("conv3x3_s1_wgrad", ":185", conv, conv_err["wgrad"],

@@ -17,23 +17,42 @@
 //
 // What bounds it on an H100: not bytes nor FLOPs.  At B=256, K=300 the
 // function moves ~3.5 MB (~1 us at 3.35 TB/s) and does ~45k IoUs per image
-// (~0.2 GFLOP f32 in all, a few us at 67 TFLOP/s).  What remains is the
-// greedy chain: head h+1 depends on every suppression by heads <= h, so each
-// image is a serial scan whose length is its number of kept boxes.
+// (~0.2 GFLOP f32 in all, a few us at 67 TFLOP/s).  What remains is
+// latency: one CTA per image, so B=1 and B=256 (one wave) take about the
+// same time, and within it the greedy chain -- head h+1 depends on every
+// suppression by heads <= h -- is serial in the number of kept boxes.
 //
-// What the design does about it: everything that does not depend on the
-// chain is taken off it and run by all 256 threads -- the K x K suppression
-// relation is built once as a bitmask in shared memory (K * ceil(K/64)
-// 64-bit words, 12 KB at K=300), and the merge runs after the scan.  The
-// scan itself is one warp: lane l owns word l of the "alive" set, the next
-// head is found with one shuffle and one find-first-set, and removing its
-// row is one shared-memory load and AND per lane; so a step costs a few
-// dozen cycles and steps are taken only for kept heads and empty words.
-// While a head is taken, its row of the bitmask is overwritten with the
-// boxes it removes now -- its merge group -- so the merge reads each group
-// directly and does work in proportion to the group, with no second K x K
-// pass.  Images run in parallel CTAs; making the chain itself shorter is
-// later work.
+// What the design does about it.  The first design (one thread per (row,
+// 64-column word) with a data-dependent inner loop; a one-warp scan that
+// shuffled the alive word and reloaded each head's row) took 0.134 ms at
+// B=1, K=300, of which the relation build was 90 us and the scan 42 us
+// (clock64() stamps, H100 80GB HBM3, 700 W: PERF.md).
+// - Relation build, one warp per 32-row x 64-column block that holds some
+//   j > i (blocks wholly on or below the diagonal are never read and get
+//   no task; the others are dealt out evenly, two per warp at K=300).  Lane = row i with its box, area and label in registers; the
+//   64 columns (K padded to whole words) are read as warp-uniform
+//   broadcasts, so no bank conflicts, with loads that do not depend on a
+//   branch, over a trip count that is the same for every lane.  The test
+//   IoU > thresh takes no division: RN(inter / denom) > t exactly when
+//   inter / denom lies above the midpoint m of t and the next float (or
+//   on it, where that tie rounds up), and inter > m * denom is exact in
+//   double for denom > 0 (m has 25 significant bits, denom 24); the IEEE
+//   division remains for a non-positive or non-finite denominator.
+//   Validity and j > i are masks applied once per word.
+// - Scan, blocked by 64-bit word.  The word's 64 diagonal rows are copied
+//   to a dense array; lane 0 resolves the word's kept heads in order, 8
+//   columns at a time: the rows of the batch's alive columns are loaded
+//   together and taken in order with register operations (cand &= ~row),
+//   so the chain holds one shared-memory load per 8 columns, not one per
+//   head, and no cross-lane step.  Then lane l > w walks word w's kept
+//   heads in order, g = over[h][l] & alive_l; over[h][l] = g; alive_l &=
+//   ~over[h][l], again 8 rows loaded together.  Each head's row is
+//   overwritten by the boxes it removes now, which is its merge group, as
+//   in the first design.
+// - Merge, one thread per kept row over its group (j ascending, then the
+//   row itself), reading only the words at and after its own.
+// 512 threads per CTA, at most 64 registers each: two CTAs per SM, so
+// B=256 still runs in one wave.
 //
 // IoU is evaluated in the JAX code's order,
 //   inter / (area_i + area_j - inter + 1e-16),
@@ -44,29 +63,24 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+typedef unsigned long long u64;
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 1024;       // nw <= 16 words: one warp holds the alive set
 constexpr float kNegInf = -1e9f;  // score <= kNegInf marks an invalid row
+constexpr int kBatch = 8;         // scan: rows loaded ahead of their use
 
 __device__ __forceinline__ float box_area(float4 b, float plus1) {
   return __fmul_rn(__fadd_rn(__fsub_rn(b.z, b.x), plus1),
                    __fadd_rn(__fsub_rn(b.w, b.y), plus1));
 }
 
-__device__ __forceinline__ bool iou_over(float4 a, float area_a, float4 b,
-                                         float area_b, float thresh,
-                                         float plus1) {
-  const float iw = fmaxf(__fadd_rn(__fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x)),
-                                   plus1), 0.0f);
-  const float ih = fmaxf(__fadd_rn(__fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y)),
-                                   plus1), 0.0f);
-  const float inter = __fmul_rn(iw, ih);
-  const float denom =
-      __fadd_rn(__fsub_rn(__fadd_rn(area_a, area_b), inter), 1e-16f);
-  return __fdiv_rn(inter, denom) > thresh;
+__device__ __forceinline__ u64 word_of(const unsigned* bits, int word) {
+  return (static_cast<u64>(bits[2 * word + 1]) << 32) | bits[2 * word];
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 greedy_nms_kernel(const float4* __restrict__ boxes,
                   const float* __restrict__ scores,
                   const int* __restrict__ labels,
@@ -77,82 +91,167 @@ greedy_nms_kernel(const float4* __restrict__ boxes,
                   float plus1) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nw = (K + 63) >> 6;
-  float4* box = reinterpret_cast<float4*>(smem);
-  unsigned long long* over =
-      reinterpret_cast<unsigned long long*>(box + K);   // [K][nw]
-  float* area = reinterpret_cast<float*>(over + (size_t)K * nw);
-  float* w = area + K;
-  int* lab = reinterpret_cast<int*>(w + K);
-  unsigned char* valid = reinterpret_cast<unsigned char*>(lab + K);
-  unsigned char* keep = valid + K;
+  const int kp = nw * 64;                               // K padded to words
+  float4* box = reinterpret_cast<float4*>(smem);        // [kp]
+  u64* over = reinterpret_cast<u64*>(box + kp);         // [K][nw]
+  u64* diag = over + (size_t)K * nw;                    // [64]
+  float* area = reinterpret_cast<float*>(diag + 64);    // [kp]
+  int* lab = reinterpret_cast<int*>(area + kp);         // [kp]
+  float* w = reinterpret_cast<float*>(lab + kp);        // [K]
+  unsigned* valid_bits = reinterpret_cast<unsigned*>(w + K);  // [2 nw]
+  unsigned* keep_bits = valid_bits + 2 * nw;                   // [2 nw]
+  unsigned char* heads = reinterpret_cast<unsigned char*>(keep_bits + 2 * nw);
 
   const size_t base = (size_t)blockIdx.x * K;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
 
-  // 1. Stage the image's candidates in shared memory.
-  for (int i = tid; i < K; i += kThreads) {
-    const float4 b = boxes[base + i];
-    const bool v = scores[base + i] > kNegInf;
+  // 1. Stage the image's candidates in shared memory; validity as bits.
+  //    Columns K..kp-1 hold a zero box that no valid bit lets through.
+  for (int i = tid; i < kp; i += kThreads) {
+    bool v = false;
+    float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    int l = 0;
+    if (i < K) {
+      b = boxes[base + i];
+      v = scores[base + i] > kNegInf;
+      w[i] = v ? obj[base + i] : 0.0f;
+      l = labels[base + i];
+    }
     box[i] = b;
     area[i] = box_area(b, plus1);
-    valid[i] = v;
-    w[i] = v ? obj[base + i] : 0.0f;
-    lab[i] = labels[base + i];
-    keep[i] = 0;
+    lab[i] = l;
+    const unsigned vb = __ballot_sync(0xffffffffu, v);
+    if (lane == 0) valid_bits[i >> 5] = vb;
   }
   __syncthreads();
 
-  // 2. Suppression relation, one 64-bit word (row i, columns 64*word..) per
-  //    task; only j > i can be suppressed by i.
-  for (int t = tid; t < K * nw; t += kThreads) {
-    const int i = t / nw;
-    const int word = t - i * nw;
-    unsigned long long bits = 0ull;
-    if (valid[i]) {
-      const float4 bi = box[i];
-      const float ai = area[i];
-      const int li = lab[i];
-      const int j0 = max(word * 64, i + 1);
-      const int j1 = min(word * 64 + 64, K);
-      for (int j = j0; j < j1; ++j) {
-        if (valid[j] && (!class_aware || lab[j] == li) &&
-            iou_over(bi, ai, box[j], area[j], thresh, plus1)) {
-          bits |= 1ull << (j - word * 64);
+  // 2. Suppression relation: warp task (row block rb, word wd) builds
+  //    over[rb*32 + lane][wd]; blocks with no column j > row i get none.
+  // IoU > thresh without the division: for b > 0 and a finite,
+  // RN(a / b) > t  <=>  a / b > mid, or a / b == mid when a tie rounds up,
+  // mid = (t + next float above t) / 2; a and mid * b are exact in double.
+  const float t_next = nextafterf(thresh, __int_as_float(0x7f800000));
+  const bool by_mid = isfinite(thresh) && isfinite(t_next);
+  const double mid = 0.5 * ((double)thresh + (double)t_next);
+  const bool tie_up = __float_as_uint(thresh) & 1u;   // t_next is even
+  // Word wd has tasks for row blocks 0 .. min(nrb, 2 wd + 2) - 1; the
+  // tasks are numbered densely, word by word, and dealt out to the warps.
+  const int nrb = (K + 31) >> 5;
+  int tasks = 0;
+  for (int wd = 0; wd < nw; ++wd) tasks += min(nrb, 2 * wd + 2);
+  for (int t = warp; t < tasks; t += kWarps) {
+    int wd = 0, rb = t;
+    while (rb >= min(nrb, 2 * wd + 2)) {
+      rb -= min(nrb, 2 * wd + 2);
+      ++wd;
+    }
+    const int j0 = wd * 64;
+    const int i = rb * 32 + lane;             // < kp: a padded row if >= K
+    const float4 bi = box[i];
+    const float ai = area[i];
+    const int li = lab[i];
+    u64 bits = 0ull;
+#pragma unroll 8
+    for (int c = 0; c < 64; ++c) {
+      const float4 bj = box[j0 + c];          // warp-uniform: a broadcast
+      const float aj = area[j0 + c];
+      const int lj = lab[j0 + c];
+      const float iw = fmaxf(
+          __fadd_rn(__fsub_rn(fminf(bi.z, bj.z), fmaxf(bi.x, bj.x)), plus1),
+          0.0f);
+      const float ih = fmaxf(
+          __fadd_rn(__fsub_rn(fminf(bi.w, bj.w), fmaxf(bi.y, bj.y)), plus1),
+          0.0f);
+      const float inter = __fmul_rn(iw, ih);
+      const float denom =
+          __fadd_rn(__fsub_rn(__fadd_rn(ai, aj), inter), 1e-16f);
+      bool hit;
+      if (by_mid && denom > 0.0f && isfinite(denom) && isfinite(inter)) {
+        const double a = inter, ab = mid * (double)denom;
+        hit = a > ab || (tie_up && a == ab);
+      } else {
+        hit = __fdiv_rn(inter, denom) > thresh;
+      }
+      if ((!class_aware || lj == li) && hit) bits |= 1ull << c;
+    }
+    if (i < K) {
+      const bool vi = (valid_bits[i >> 5] >> (i & 31)) & 1u;
+      const int s = i - j0;                    // columns c > s are j > i
+      const u64 later = s < 0 ? ~0ull : (s >= 63 ? 0ull : ~0ull << (s + 1));
+      over[(size_t)i * nw + wd] = vi ? bits & later & word_of(valid_bits, wd)
+                                     : 0ull;
+    }
+  }
+  __syncthreads();
+
+  // 3. Greedy scan on warp 0, one 64-bit word at a time.  Lane l holds
+  //    word l of the alive set (valid, not yet suppressed, not yet taken).
+  if (warp == 0) {
+    u64 alive = lane < nw ? word_of(valid_bits, lane) : 0ull;
+    for (int wd = 0; wd < nw; ++wd) {
+      // The word's own 64 rows (columns of word wd) in a dense array.
+      const int r_lo = wd * 64 + lane;
+      const int r_hi = r_lo + 32;
+      diag[lane] = r_lo < K ? over[(size_t)r_lo * nw + wd] : 0ull;
+      diag[lane + 32] = r_hi < K ? over[(size_t)r_hi * nw + wd] : 0ull;
+      __syncwarp();
+      // Its kept heads, in order, on lane 0, kBatch columns at a time: the
+      // rows of the batch's alive columns are loaded together, then taken
+      // in order with register operations alone.  Each head's row becomes
+      // its group in the word.
+      u64 cand = __shfl_sync(0xffffffffu, alive, wd);
+      u64 kept = 0ull;
+      if (lane == 0) {
+        int n = 0;
+        for (int p = 0; p < 64; p += kBatch) {
+          if (!((cand >> p) & ((1ull << kBatch) - 1))) continue;
+          u64 row[kBatch];
+#pragma unroll
+          for (int q = 0; q < kBatch; ++q)
+            row[q] = (cand >> (p + q)) & 1ull ? diag[p + q] : 0ull;
+#pragma unroll
+          for (int q = 0; q < kBatch; ++q) {
+            const u64 bit = 1ull << (p + q);
+            if (cand & bit) {
+              diag[p + q] = row[q] & cand;
+              kept |= bit;
+              heads[n++] = static_cast<unsigned char>(p + q);
+              cand &= ~row[q] & ~bit;
+            }
+          }
+        }
+        keep_bits[2 * wd] = static_cast<unsigned>(kept);
+        keep_bits[2 * wd + 1] = static_cast<unsigned>(kept >> 32);
+      }
+      __syncwarp();
+      kept = __shfl_sync(0xffffffffu, kept, 0);
+      if (r_lo < K) over[(size_t)r_lo * nw + wd] = diag[lane];
+      if (r_hi < K) over[(size_t)r_hi * nw + wd] = diag[lane + 32];
+      // Each later word l on lane l: the word's heads in order, g = row &
+      // alive_l (the head's group there), alive_l &= ~row; kBatch rows
+      // loaded together, the chain a register AND.
+      const int nk = __popcll(kept);
+      if (lane > wd && lane < nw) {
+        for (int r0 = 0; r0 < nk; r0 += kBatch) {
+          int at[kBatch];
+          u64 row[kBatch];
+#pragma unroll
+          for (int q = 0; q < kBatch; ++q) {
+            at[q] = r0 + q < nk ? (wd * 64 + heads[r0 + q]) * nw + lane : 0;
+            row[q] = r0 + q < nk ? over[at[q]] : 0ull;
+          }
+#pragma unroll
+          for (int q = 0; q < kBatch; ++q) {
+            if (r0 + q < nk) {
+              over[at[q]] = row[q] & alive;
+              alive &= ~row[q];
+            }
+          }
         }
       }
-    }
-    over[t] = bits;
-  }
-  __syncthreads();
-
-  // 3. Greedy scan on warp 0.  Lane l holds word l of the alive set (valid,
-  //    not yet suppressed, not yet taken as a head); the next head is the
-  //    lowest alive bit.  Row `head` of `over` becomes the head's group.
-  if (tid < 32) {
-    const int lane = tid;
-    unsigned long long alive = 0ull;
-    if (lane < nw) {
-      const int j1 = min(lane * 64 + 64, K);
-      for (int j = lane * 64; j < j1; ++j) {
-        if (valid[j]) alive |= 1ull << (j - lane * 64);
-      }
-    }
-    int word = 0;
-    while (word < nw) {
-      const unsigned long long cur = __shfl_sync(0xffffffffu, alive, word);
-      if (cur == 0ull) {
-        ++word;
-        continue;
-      }
-      const int bit = __ffsll(static_cast<long long>(cur)) - 1;
-      const int head = word * 64 + bit;
-      if (lane < nw) {
-        const unsigned long long row = over[head * nw + lane];
-        over[head * nw + lane] = row & alive;
-        alive &= ~row;
-      }
-      if (lane == word) alive &= ~(1ull << bit);
-      if (lane == 0) keep[head] = 1;
+      __syncwarp();                            // diag, heads reused
     }
   }
   __syncthreads();
@@ -160,10 +259,11 @@ greedy_nms_kernel(const float4* __restrict__ boxes,
   // 4. Outputs: kept boxes merged with their group, every other row as given.
   for (int i = tid; i < K; i += kThreads) {
     float4 out = box[i];
-    if (keep[i] && merge) {
+    const bool kept = (keep_bits[i >> 5] >> (i & 31)) & 1u;
+    if (kept && merge) {
       float nx1 = 0.0f, ny1 = 0.0f, nx2 = 0.0f, ny2 = 0.0f, den = 0.0f;
-      for (int word = 0; word < nw; ++word) {
-        unsigned long long g = over[i * nw + word];
+      for (int word = i >> 6; word < nw; ++word) {
+        u64 g = over[(size_t)i * nw + word];
         while (g) {
           const int j = word * 64 + __ffsll(static_cast<long long>(g)) - 1;
           g &= g - 1;
@@ -185,14 +285,15 @@ greedy_nms_kernel(const float4* __restrict__ boxes,
       out = make_float4(nx1 / den, ny1 / den, nx2 / den, ny2 / den);
     }
     out_boxes[base + i] = out;
-    keep_out[base + i] = keep[i] != 0;
+    keep_out[base + i] = kept;
   }
 }
 
 size_t smem_bytes(int K) {
-  const size_t nw = (K + 63) / 64;
-  return K * sizeof(float4) + (size_t)K * nw * sizeof(unsigned long long) +
-         3 * K * sizeof(float) + 2 * K;
+  const size_t nw = (K + 63) / 64, kp = nw * 64;
+  return kp * sizeof(float4) + (size_t)K * nw * sizeof(u64) +
+         64 * sizeof(u64) + 2 * kp * sizeof(float) + K * sizeof(float) +
+         4 * nw * sizeof(unsigned) + 64;
 }
 
 }  // namespace

@@ -9,7 +9,8 @@ draw.  Boxes are center-form normalized and transformed analytically;
 rotation maps a box to its enclosing axis-aligned box.
 
 The shift-scale-rotate warp is the Hopper kernel ``csrc/affine_warp.cu``
-(``ops/cuda/warp_kernel.py``), which computes the exact single-pass warp for
+(``ops/cuda/warp_kernel.py::affine_warp_slots``, which also gathers the
+slots and keeps the unselected ones), the exact single-pass warp for
 every matrix, so the JAX package's ``use_pallas`` switch and its fallback
 for matrices outside the TPU kernel's range have no counterpart here.
 ``mosaic_batch`` is not ported yet (ROADMAP A6).
@@ -157,8 +158,10 @@ def augment_batch(images: torch.Tensor, boxes: torch.Tensor,
     # inv_ex, not inv: inv checks for singular input, a host sync.  Only a
     # scale of 0 is singular; its non-finite inverse warps to zeros.
     inv, _ = torch.linalg.inv_ex(fwd[top])
-    slots = images[top]
-    warped = warp_kernel.affine_warp(slots, inv.contiguous())
-    use = applied[top][:, None, None, None]
-    images.index_copy_(0, top, torch.where(use, warped, slots))
+    # one kernel gathers the slots, warps those that apply SSR and copies
+    # the others; the write-back is a separate pass, since writing in place
+    # would race with the kernel's reads of the same images
+    slots = warp_kernel.affine_warp_slots(images, top, inv.contiguous(),
+                                          applied[top])
+    images.index_copy_(0, top, slots)
     return images, boxes, mask

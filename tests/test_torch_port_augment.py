@@ -107,3 +107,35 @@ def test_transform_boxes_matches_jax():
     np.testing.assert_allclose(got_b.numpy(), np.asarray(want_b), **BOX_TOL)
     # padded rows come back as given
     np.testing.assert_array_equal(got_b.numpy()[~mask], boxes[~mask])
+
+
+def test_augment_batch_warps_through_one_slot_call(seeds, monkeypatch):
+    """augment_batch hands the slots to affine_warp_slots once (top in coin
+    order, use = applied[top]) and writes its result back; the result is
+    JAX's, as test_augment_batch_matches_jax shows."""
+    from objectdetectionpl_tpu_torch.ops.cuda import warp_kernel
+    calls = []
+
+    def spy(images, top, inv, use):
+        calls.append((top.clone(), use.clone()))
+        return warp_kernel.affine_warp_slots_plain(images, top, inv, use)
+
+    monkeypatch.setattr(warp_kernel, "affine_warp_slots", spy)
+    monkeypatch.setattr(warp_kernel, "affine_warp", None)   # not called
+    images, boxes, mask = _batch(seeds["ssr_fires"])
+    u = _random_u(2, n=B)
+    u[:, 2] = [0.5, 0.1, 0.9, 0.05, 0.3, 0.15, 0.7, 0.02]
+    got = port_aug.augment_batch(torch.from_numpy(images),
+                                 torch.from_numpy(boxes),
+                                 torch.from_numpy(mask), u=u)
+    assert len(calls) == 1
+    top, use = calls[0]
+    assert top.tolist() == [7, 3, 1]                 # the 3 smallest coins
+    assert use.tolist() == [True, True, True]
+    untouched = [i for i in range(B) if i not in top.tolist()]
+    ref, _ = port_aug._augment_cheap(torch.from_numpy(u),
+                                     torch.from_numpy(images),
+                                     torch.from_numpy(boxes),
+                                     port_aug.AugmentConfig())
+    torch.testing.assert_close(got[0][untouched], ref[untouched], rtol=0,
+                               atol=0)

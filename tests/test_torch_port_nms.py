@@ -234,3 +234,80 @@ def test_top_k_ties_keep_lower_index_first():
     import jax
     jv, ji = jax.lax.top_k(jnp.asarray(score.numpy()), 4)
     assert np.asarray(ji).tolist() == idx.tolist()
+
+
+@pytest.mark.parametrize("thresh", [-0.5, 0.0])
+def test_greedy_nms_plain_threshold_edges_match_jax(thresh):
+    """A negative threshold suppresses disjoint same-class pairs too (IoU 0
+    > thresh), which the CUDA kernel's division shortcut must keep; at 0
+    only intersecting pairs suppress.  The kernel is held against this
+    plain version on the card (chip_smoke.py kernel_check)."""
+    arrays = _candidates(seed=7, B=2, K=48, C=3)
+    pb, pk = nms_kernel.greedy_nms_plain(*map(torch.from_numpy, arrays),
+                                         nms_thresh=thresh)
+    boxes, scores, labels, obj = map(jnp.asarray, arrays)
+    jb, jk = pallas_greedy_nms(boxes, scores, labels, obj, nms_thresh=thresh,
+                               class_aware=True, merge=True, plus1=1.0,
+                               interpret=True)
+    np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
+    np.testing.assert_allclose(pb.numpy(), np.asarray(jb), **BOX_TOL)
+    if thresh < 0:                     # one kept box per class and image
+        assert (pk.sum(dim=1) <= 3).all()
+
+
+def test_nms_phase_probe_marks_every_phase():
+    """tools/kernel_ab.py --phases stamps clock64() at the shipped kernel's
+    phase comments; the source must keep all five marks."""
+    from objectdetectionpl_tpu_torch.ops.cuda import _build
+    from objectdetectionpl_tpu_torch.tools import kernel_ab
+    text = kernel_ab.instrument((_build.CSRC / "greedy_nms.cu").read_text())
+    assert [f"PHASE_STAMP({n});" in text for n in range(5)] == [True] * 5
+    with pytest.raises(ValueError, match="found 0 of the 5 phase marks"):
+        kernel_ab.instrument("__global__ void k() {\n}\n")
+
+
+def _over_by_midpoint(a, b, t):
+    """csrc/greedy_nms.cu's IoU test without a division, in numpy: for
+    b > 0 and a, b finite, RN(a / b) > t iff a > m * b (or a == m * b
+    where that tie rounds up to the next float), m the midpoint of t and
+    the next float, compared in float64, where both sides are exact."""
+    t = np.float32(t)
+    t_next = np.nextafter(t, np.float32(np.inf))
+    mid = (np.float64(t) + np.float64(t_next)) / 2
+    tie_up = bool(np.array(t).view(np.uint32) & 1)
+    lhs, rhs = a.astype(np.float64), mid * b.astype(np.float64)
+    fast = (b > 0) & np.isfinite(b) & np.isfinite(a)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        slow = (a / b) > t
+    return np.where(fast, (lhs > rhs) | (tie_up & (lhs == rhs)), slow)
+
+
+TINY = np.float32(1.4e-45)                     # the smallest subnormal
+
+
+@pytest.mark.parametrize("t", [0.4, 0.5, 0.0, -0.5, 0.9, 0.45,
+                               float(np.nextafter(np.float32(0.4), 1)),
+                               float(3 * TINY)])
+def test_division_free_iou_test_is_exact(t):
+    """The kernel's midpoint test decides as the IEEE float32 division and
+    compare that greedy_nms_plain runs, on quotients within a few ulps of
+    the threshold, random ones, ties (possible only for a subnormal t),
+    and zero, negative, infinite and NaN operands."""
+    rng = np.random.RandomState(0)
+    n = 200_000
+    b = rng.uniform(1.0, 2e4, n).astype(np.float32)
+    t32 = np.float32(t)
+    near = (b.astype(np.float64) * float(t32)
+            * (1 + rng.randint(-8, 9, n) * 2.0 ** -24)).astype(np.float32)
+    a = np.concatenate([near, rng.uniform(0, 2e4, n).astype(np.float32),
+                        np.float32([0, 0, 1, np.inf, np.nan, 1, 0, TINY,
+                                    3 * TINY, 7 * TINY, 9 * TINY])])
+    b = np.concatenate([b, b, np.float32([1, 0, 0, 1, 1, -2, -1, 2, 2, 2,
+                                          2])])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        want = (a / b) > t32
+    got = _over_by_midpoint(a, b, t32)
+    np.testing.assert_array_equal(got, want)
+    assert want.any() and (~want).any()
+    if t32 > 1e-30:                            # near samples on both sides
+        assert want[:n].any() and (~want[:n]).any()
