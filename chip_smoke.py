@@ -23,10 +23,12 @@ exits non-zero:
 4. fp32    -- YOLOv5s-640, 80 classes, B=2, f32 with TF32 off: head maps on
    the card against the CPU on the same seeded weights; the card's decoded
    candidates through the kernel and the plain version.
-5. serving -- ``make_predict_step`` on YOLOv5s-640, 80 classes, bf16, /255
-   folded into the stem, uint8 input: 3 batches at B=1 and 3 at B=64 after
-   one warm-up each.  Every launch count is zeroed just before and read
-   just after; every batch must launch the NMS kernel once.
+5. serving -- ``make_predict_step``'s ``predict_step(state, images)`` on
+   YOLOv5s-640, 80 classes, bf16, /255 folded into the stem, uint8 input,
+   a state without EMA (the module's own weights): 3 batches at B=1 and 3
+   at B=64 after one warm-up each.  Every launch count is zeroed just
+   before and read just after; every batch must launch the NMS kernel
+   once.
 6. warp_check -- ``affine_warp`` (CUDA) against ``affine_warp_plain`` on
    the card: K=26 slots of 640x640 with random shift-scale-rotate matrices
    inside the ``AugmentConfig`` bounds, the identity, a 60 degree rotation
@@ -58,7 +60,20 @@ exits non-zero:
    launch the warp kernel once.  Then ``accum_steps=2`` at B=8 with
    weights [1, 0] must leave the BN statistics equal to a step on the
    first microbatch alone.
-10. conv_check -- the 13 3x3/s1 convs of one YOLOv5s-640 bf16 train
+10. trainer -- the user's entry point, in this process:
+   ``cli.run.main`` on ``configs/config.yaml`` with YOLOv5s, 640 px, bf16,
+   Synthetic (``synthetic_size`` 256, so that val and test hold two
+   batches of 32), B=32, accumulation 2, 4 train, 2 val and 2 test batches,
+   2 epochs, ``log_dir`` a temporary directory under ``build/``.  Every
+   launch count is zeroed just before and read just after: the warp kernel
+   must have launched once per training microbatch (8) and the NMS kernel
+   once per test batch (2).  The test must give a finite mAP table, the
+   run a checkpoint on disk; the best checkpoint, restored into a fresh
+   state on the card, must equal the saved tensors bit for bit.  Prints
+   each epoch's wall time, images/s (the Trainer's
+   ``throughput/images_per_sec``), losses, the Loader's resize path and
+   the peak memory.
+11. conv_check -- the 13 3x3/s1 convs of one YOLOv5s-640 bf16 train
    forward and backward at B=64, captured by hooks on ``blocks.Conv``
    (x, w, dy): ``conv3x3_s1`` (fwd, and dgrad on ``rot_w(w)``) and
    ``conv3x3_s1_wgrad`` against their plain versions, each twice (the two
@@ -74,14 +89,14 @@ exits non-zero:
    forward-kernel, 1 wgrad, 1 reduction.  Tolerances elementwise at ``CONV_BF16_ULPS`` / ``CONV_SUM_TOL``; each case prints
    its median limit beside the median |reference| and each planted fault's
    share of the limit.
-11. conv_time -- the conv path: one ``conv3x3_s1_op`` forward and backward
+12. conv_time -- the conv path: one ``conv3x3_s1_op`` forward and backward
    per captured conv through the A/B tool's kernel step, launch counts
    zeroed before and read after; then per distinct shape and summed over
    the 13: device and host-inclusive ms of fwd, dgrad and wgrad, bounds and
    the share of the bound reached, plain versions' ms and the cuDNN
    yardstick's ms with the kernel's factor against it; then the A/B tool
    ``tools/conv_bench.py`` itself on 40x40 128->128, B=64, ``--grad``.
-12. (``--profile``) torch.profiler over one B=64 serving batch and over one
+13. (``--profile``) torch.profiler over one B=64 serving batch and over one
    B=64 training step: device time by kernel and by kernel class, and the
    idle share against the profiled call and against the mean of three
    unprofiled calls (the profiler's own host cost inflates the first).
@@ -93,17 +108,22 @@ Without CUDA it prints nothing to stdout and exits 1.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
+import os
 import re
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-from objectdetectionpl_tpu_torch.config import Config
-from objectdetectionpl_tpu_torch.data import augment
+from objectdetectionpl_tpu_torch.cli import run as cli_run
+from objectdetectionpl_tpu_torch.config import Config, load_config
+from objectdetectionpl_tpu_torch.data import augment, build_datamodule, native
 from objectdetectionpl_tpu_torch.models import build_model
 from objectdetectionpl_tpu_torch.nn import blocks
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
@@ -113,6 +133,7 @@ from objectdetectionpl_tpu_torch.ops.cuda import (_build, conv_kernel,
 from objectdetectionpl_tpu_torch.tools import conv_bench, kernel_ab
 from objectdetectionpl_tpu_torch.tools.kernel_ab import (candidates,
                                                          ssr_inverses)
+from objectdetectionpl_tpu_torch.train.checkpoint import CheckpointManager
 from objectdetectionpl_tpu_torch.train.optim import build_optimizer
 from objectdetectionpl_tpu_torch.train.state import create_train_state
 from objectdetectionpl_tpu_torch.train.step import (make_postprocess,
@@ -188,6 +209,15 @@ ROW_BYTES = 16 + 4 + 4 + 4 + 16 + 1
 # 20 f32 ops for the coordinates; 9 per channel for the blend (inside only).
 WARP_COORD_OPS = 20
 WARP_BLEND_OPS_PER_CHANNEL = 9
+
+REPO = Path(__file__).resolve().parent
+# the trainer phase: cli.run on the YAML with these overrides
+TRAINER_SETS = {"model_name": "YOLOv5", "type": "Yolov5s", "img_size": "640",
+                "compute_dtype": "bfloat16", "data_module": "Synthetic",
+                "synthetic_size": "256", "batch_size": "32",
+                "accumulate_grad_batches": "2", "limit_train_batches": "4",
+                "limit_val_batches": "2", "limit_test_batches": "2",
+                "max_epochs": "2"}
 
 
 def emit(obj) -> None:
@@ -381,11 +411,14 @@ def phase_fp32(card: str) -> float:
 
 
 def serving_model():
+    """(images -> NMSResult, model): ``predict_step`` bound to a serving
+    state (no optimizer, no EMA)."""
     model = build_model("YOLOv5", NUM_CLASSES, dtype=torch.bfloat16,
                         device="cuda", seed=0)
     model.load_state_dict(fold_input_scale(model.state_dict(), 1.0 / 255.0))
-    return make_predict_step(model, make_postprocess("YOLOv5", NUM_CLASSES,
-                                                     IMG)), model
+    step = make_predict_step(model, make_postprocess("YOLOv5", NUM_CLASSES,
+                                                     IMG))
+    return functools.partial(step, create_train_state(model)), model
 
 
 def phase_serving(card: str) -> dict:
@@ -787,6 +820,162 @@ def phase_accumulation(card: str) -> None:
           "weights": [1.0, 0.0], "bn_stats_max_abs_diff": err,
           "loss_accumulated": m2["loss"].item(),
           "loss_first_alone": m1["loss"].item()})
+
+
+def epoch_rows(log_dir: str, cfg) -> list:
+    """Per-epoch scalars from the run's ``metrics.jsonl``."""
+    path = os.path.join(log_dir, cfg.data_module, cfg.model_name,
+                        "metrics.jsonl")
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    epochs = {}
+    for r in rows:
+        if r["tag"] in ("time/epoch_seconds", "throughput/images_per_sec",
+                        "Epoch/loss/Train", "val_loss"):
+            epochs.setdefault(r["step"], {})[r["tag"]] = r["value"]
+    train_steps = [r for r in rows if r["tag"] == "Loss/loss/Train"]
+    if not train_steps or not all(math.isfinite(r["value"]) for r in rows):
+        raise AssertionError("metrics.jsonl: no step losses, or a "
+                             "non-finite value")
+    return [{"epoch": e, "seconds": v["time/epoch_seconds"],
+             "images_per_sec": v["throughput/images_per_sec"],
+             "train_loss": v["Epoch/loss/Train"], "val_loss": v["val_loss"]}
+            for e, v in sorted(epochs.items())]
+
+
+def live_tensors(state) -> dict:
+    """{name: (device type, host copy)} of every tensor the state holds: the
+    model's parameters and buffers, the optimizer's per-parameter state, the
+    EMA and the step, read from the objects themselves, not from the state
+    dicts that a checkpoint is written from."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    out = {f"model.{n}": t for n, t in state.model.named_parameters()}
+    out.update({f"model.{n}": t for n, t in state.model.named_buffers()})
+    if state.optimizer is not None:
+        for p, st in state.optimizer.state.items():
+            out.update({f"opt.{names[id(p)]}.{k}": v for k, v in st.items()})
+    if state.ema_params is not None:
+        out.update({f"ema.{k}": v for k, v in state.ema_params.items()})
+    out["step"] = state.step
+    return {k: (v.device.type, v.detach().cpu().clone())
+            for k, v in out.items()}
+
+
+def check_restore(ckpt_dir: str, cfg, num_classes: int, device,
+                  at_save: dict) -> dict:
+    """Restore the best checkpoint into a fresh state on ``device``; every
+    tensor must equal, bit for bit and on the same kind of device, what the
+    Trainer held when it saved that step (``at_save[step]``)."""
+    with open(os.path.join(ckpt_dir, "best_model_path.txt")) as f:
+        best = f.read().strip()
+    if not os.path.isfile(os.path.join(best, "state.pt")):
+        raise AssertionError(f"no checkpoint at {best}")
+    mgr = CheckpointManager(ckpt_dir, cfg.save_top_k)
+    step = mgr.best_step()
+    if os.path.basename(best) != str(step) or step not in at_save:
+        raise AssertionError(f"best_model_path.txt names {best}, the "
+                             f"manager step {step}, the Trainer saved "
+                             f"{sorted(at_save)}")
+    dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+             else torch.float32)
+    model = build_model(cfg.model_name, num_classes, dtype=dtype,
+                        yolov5_type=cfg.type, device=device,
+                        seed=cfg.seed + 1)
+    state = create_train_state(model, build_optimizer(cfg, model.parameters()),
+                               ema_decay=cfg.ema_decay)
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
+    if mgr.restore(state) is not state:
+        raise AssertionError("restore found no checkpoint")
+    got, want = live_tensors(state), at_save[step]
+    if got.keys() != want.keys():
+        raise AssertionError(f"restored state holds other tensors than the "
+                             f"Trainer's: {sorted(got.keys() ^ want.keys())}")
+    for k, (place, w) in want.items():
+        if got[k][0] != place or not torch.equal(got[k][1], w):
+            raise AssertionError(f"restore: {k} differs from the Trainer's "
+                                 f"at step {step}, or lies on another device")
+    moved = sum(not torch.equal(v, fresh[k])
+                for k, v in model.state_dict().items())
+    return {"best_step": step, "steps_on_disk": mgr.steps(),
+            "tensors_bit_equal": len(want), "tensors_moved_from_init": moved,
+            "step_count": int(state.step),
+            "checkpoint_mb": os.path.getsize(os.path.join(best, "state.pt"))
+            / 1e6}
+
+
+def phase_trainer(card: str) -> dict:
+    """The CLI's fit -> validate -> checkpoint -> test on the card."""
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_",
+                                     dir=build) as log_dir:
+        argv = [str(REPO / "configs" / "config.yaml"), "--set", "log_dir",
+                log_dir]
+        for k, v in TRAINER_SETS.items():
+            argv += ["--set", k, v]
+        cfg = load_config(argv[0], {k: cli_run._coerce(v) for k, v in
+                                    zip(argv[2::3], argv[3::3])})
+        dm = build_datamodule(cfg)
+        microbatches = cfg.max_epochs * len(dm.train_dataloader())
+        test_batches = len(dm.test_dataloader())
+        resize_path = dm.train_dataloader().resize_path
+        build_error = native.build_error
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        at_save, kept = {}, []
+
+        class KeptTrainer(cli_run.Trainer):
+            """The CLI's Trainer, its state copied at every checkpoint save
+            for the restore check."""
+
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                kept.append(self)
+                save = self.ckpt.save
+
+                def save_and_copy(step, state, val_loss):
+                    at_save[step] = live_tensors(state)
+                    return save(step, state, val_loss)
+                self.ckpt.save = save_and_copy
+
+        trainer_cls, cli_run.Trainer = cli_run.Trainer, KeptTrainer
+        try:
+            reset_launches()                   # main path starts here
+            t0 = time.perf_counter()
+            results = cli_run.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = read_launches()           # main path ends here
+        finally:
+            cli_run.Trainer = trainer_cls
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if counts["affine_warp"] != microbatches:
+            raise AssertionError(f"affine_warp launched "
+                                 f"{counts['affine_warp']} times for "
+                                 f"{microbatches} training microbatches")
+        if counts["greedy_nms"] != test_batches:
+            raise AssertionError(f"greedy_nms launched "
+                                 f"{counts['greedy_nms']} times for "
+                                 f"{test_batches} test batches")
+        table = [results[k] for k in ("mAP", "precision", "recall", "f1")]
+        table += list(results["per_class_AP"].values())
+        if not results["per_class_AP"] or not all(
+                math.isfinite(v) and 0.0 <= v <= 1.0 for v in table):
+            raise AssertionError(f"test results not a finite mAP table: "
+                                 f"{results}")
+        epochs = epoch_rows(log_dir, cfg)
+        if len(epochs) != cfg.max_epochs:
+            raise AssertionError(f"{len(epochs)} epochs logged")
+        restore = check_restore(os.path.join(
+            log_dir, cfg.data_module, cfg.model_name, "checkpoints"), cfg,
+            len(dm.get_class()), kept[0].device, at_save)
+    emit({"phase": "trainer", "card": card, "sets": TRAINER_SETS,
+          "wall_s": wall_s, "epochs": epochs, "microbatches": microbatches,
+          "test_batches": test_batches, "launches": counts,
+          "resize_path": resize_path, "native_build_error": build_error,
+          "peak_mem_gb": peak_gb,
+          "results": results, "restore": restore})
+    return {"launches": counts}
 
 
 def profile_one(fn) -> tuple:
@@ -1225,6 +1414,7 @@ def main(argv=None) -> int:
     serve = phase_serving(card)
     train = phase_training(card)
     phase_accumulation(card)
+    fit = phase_trainer(card)
     convs, conv_err = phase_conv_check(card)
     conv = phase_conv_time(card, convs)
     if args.profile:
@@ -1235,7 +1425,8 @@ def main(argv=None) -> int:
         "name": "greedy_nms", "route": "cuda",
         "source": "objectdetectionpl_tpu_torch/csrc/greedy_nms.cu",
         "replaces": "objectdetectionpl_tpu/ops/pallas/nms_kernel.py:120",
-        "launches": serve["launches"], "keep_equal": True,
+        "launches": fit["launches"]["greedy_nms"],
+        "launches_serving": serve["launches"], "keep_equal": True,
         "max_abs_err": err, "max_abs_box_err": err,
         "ms": t[256]["ms"], "plain_ms": t[256]["plain_ms"],
         "bound_ms": t[256]["bound_ms"], "bound_by": t[256]["bound_by"],
@@ -1249,7 +1440,8 @@ def main(argv=None) -> int:
         "name": "affine_warp", "route": "cuda",
         "source": "objectdetectionpl_tpu_torch/csrc/affine_warp.cu",
         "replaces": "objectdetectionpl_tpu/ops/pallas/warp_kernel.py:154",
-        "launches": train["launches"], "max_abs_err": warp_err,
+        "launches": fit["launches"]["affine_warp"],
+        "launches_training": train["launches"], "max_abs_err": warp_err,
         "ms": warp["ms"], "plain_ms": warp["plain_ms"],
         "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],
         "library_ms": warp["library_ms"],

@@ -1,1 +1,10 @@
-"""Data on the device: the batch augmentation (loaders come with ROADMAP A8)."""
+"""Data: parsed examples -> fixed-shape host batches (``pipeline.Loader``)
+-> the batch augmentation on the device (``augment.augment_batch``).
+
+Targets are center-form xywh normalized to [0, 1], padded to ``max_boxes``
+with a validity mask, as in the JAX package.  Only the Synthetic dataset is
+ported so far; the other DataModules raise naming ROADMAP A8 step 6.
+"""
+
+from objectdetectionpl_tpu_torch.data.datamodules import (  # noqa: F401
+    DATAMODULES, build_datamodule)

@@ -39,15 +39,22 @@ def default_img_size(model_name: str) -> int:
 
 def build_model(model_name: str, num_classes: int,
                 dtype: torch.dtype = torch.float32,
-                yolov5_type: str = "Yolov5s", device: DeviceLike = None,
+                yolov5_type: str = "Yolov5s", remat: str = "none",
+                ssd_bn: bool = False, device: DeviceLike = None,
                 seed: int = 0) -> torch.nn.Module:
     """Instantiate a detector by config name, in eval mode, on ``device``.
 
     Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
     and then moved, so one seed gives the same weights on every device.
     ``dtype`` is the compute dtype of the convolutions; parameters and BN
-    statistics stay float32.
+    statistics stay float32.  ``remat`` (the JAX package's activation
+    rematerialization) takes only ``"none"`` until ROADMAP A3r.  ``ssd_bn``
+    (SSD's BN backbone) is ignored by the other families, as in JAX, and
+    SSD itself raises naming A9.5.
     """
+    if remat != "none":
+        raise NotImplementedError(f"remat={remat!r} is not ported yet "
+                                  f"(ROADMAP A3r)")
     if model_name in NOT_PORTED:
         raise NotImplementedError(
             f"{model_name} is not ported yet ({NOT_PORTED[model_name]})")

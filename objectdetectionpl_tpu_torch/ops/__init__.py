@@ -1,2 +1,2 @@
-"""Tensor ops: boxes, anchors, YOLOv5 assignment and loss, decode and NMS;
-kernels under ``ops/cuda``."""
+"""Tensor ops: boxes, anchors, YOLOv5 assignment and loss, decode and NMS,
+the host mAP metrics; kernels under ``ops/cuda``."""

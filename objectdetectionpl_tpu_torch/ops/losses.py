@@ -35,6 +35,18 @@ def focal_bce_logits(x: torch.Tensor, t: torch.Tensor, gamma: float = 1.5,
     return loss * alpha_f * (1.0 - p_t) ** gamma
 
 
+def mse(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return (x - t) ** 2
+
+
+def smooth_l1(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    d = (x - t).abs()
+    return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+
+
+COORD_CRITERIA = {"mse_loss": mse, "smooth_l1_loss": smooth_l1}
+
+
 def smooth_bce_targets(eps: float = 0.0):
     """Label-smoothing (positive, negative) targets."""
     return 1.0 - 0.5 * eps, 0.5 * eps
@@ -110,14 +122,19 @@ def yolov5_loss(outputs: Sequence[torch.Tensor], labels: torch.Tensor,
 
 def make_loss(model_name: str, num_classes: int, img_size: int,
               coord_criterion: str = "smooth_l1_loss",
-              cls_criterion: str = "bce_loss", anchors=None, **kw):
+              cls_criterion: str = "bce_loss", anchors=None,
+              v3_double_stride: bool = False, **kw):
     """String-config loss factory; YOLOv5 only so far.
 
     Returns ``(outputs, labels, boxes, mask) -> metrics dict``.  The anchor
-    table is copied to each device once, on the first call there.
-    ``img_size``, ``coord_criterion`` and ``cls_criterion`` are unused by
-    YOLOv5 and kept so callers pass the JAX factory's arguments.
+    table is copied to each device once, on the first call there.  As in
+    the JAX factory, an unknown ``coord_criterion`` raises KeyError for
+    every family, and YOLOv5 ignores ``img_size``, the criteria and
+    ``v3_double_stride`` (the YOLOv3 anchor flag, ROADMAP A9.1); ``kw``
+    goes to :func:`yolov5_loss`.
     """
+    if coord_criterion not in COORD_CRITERIA:
+        raise KeyError(coord_criterion)
     if model_name in NOT_PORTED:
         raise NotImplementedError(f"{model_name} loss is not ported yet "
                                   f"({NOT_PORTED[model_name]})")

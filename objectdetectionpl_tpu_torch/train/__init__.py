@@ -1,1 +1,2 @@
-"""Optimizer, schedulers, train state, and the train, eval and predict steps."""
+"""Optimizer, schedulers, train state, the train, eval and predict steps,
+checkpoints, and the Trainer that drives them."""

@@ -1,0 +1,353 @@
+"""Trainer: config-driven fit / validate / test loop.
+
+The port of ``objectdetectionpl_tpu/train/loop.py``, method for method:
+
+- fit: epochs over the train loader, each batch moved to the device (pinned
+  host memory, asynchronous copy) and augmented there (``augment_batch``,
+  one warp-kernel launch per microbatch), in a background thread when
+  ``prefetch_batches > 0``; gradient accumulation over ``[A, mB, ...]``
+  stacks with a zero-weight flush of a partial window; per-step loss
+  scalars, per-epoch means, throughput, parameter histograms and device
+  memory; the learning rate stepped per epoch on val_loss; top-k
+  checkpoints, early stopping and a warm start from the best checkpoint.
+- test: ``predict_step`` (forward with the EMA weights when enabled +
+  decode + the NMS kernel, once per batch) -> one host fetch per batch ->
+  greedy TP matching -> ``ap_per_class`` mAP; Test/* scalars, GT | pred
+  image panels and a stdout table.
+
+The augmentation draws from a ``torch.Generator`` on the device seeded with
+``seed + 1``; the JAX Trainer draws from ``jax.random``, so fits differ
+between the packages (ROADMAP §C) while everything after the draw is the
+same.  Not ported yet, and raising when asked for: mosaic (A6), torch
+checkpoints (A11), the tuner (A8 step 6), more than one device (A10), and
+the per-grid YOLO statistics of YOLOv2-v4 (A9).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from objectdetectionpl_tpu_torch.config import Config
+from objectdetectionpl_tpu_torch.data import build_datamodule
+from objectdetectionpl_tpu_torch.data.augment import augment_batch
+from objectdetectionpl_tpu_torch.data.pipeline import prefetch
+from objectdetectionpl_tpu_torch.device import DeviceLike, resolve_device
+from objectdetectionpl_tpu_torch.models import build_model
+from objectdetectionpl_tpu_torch.ops import boxes as box_ops
+from objectdetectionpl_tpu_torch.ops import losses as loss_lib
+from objectdetectionpl_tpu_torch.ops import metrics as metric_lib
+from objectdetectionpl_tpu_torch.train import checkpoint as ckpt_lib
+from objectdetectionpl_tpu_torch.train import optim
+from objectdetectionpl_tpu_torch.train import state as state_lib
+from objectdetectionpl_tpu_torch.train import step as step_lib
+from objectdetectionpl_tpu_torch.utils import summary as summary_lib
+from objectdetectionpl_tpu_torch.utils import viz
+from objectdetectionpl_tpu_torch.utils.logging import (MetricWriter,
+                                                       log_param_histograms)
+from objectdetectionpl_tpu_torch.utils.profiler import (device_memory_stats,
+                                                        start_trace,
+                                                        stop_trace)
+
+
+def _check_ported(cfg: Config) -> None:
+    if cfg.mosaic > 0:
+        raise NotImplementedError("mosaic is not ported yet (ROADMAP A6)")
+    if cfg.torch_ckpt:
+        raise NotImplementedError("torch_ckpt is not ported yet "
+                                  "(ROADMAP A11)")
+    if cfg.tune:
+        raise NotImplementedError("the tuner (train/tune.py) is not ported "
+                                  "yet (ROADMAP A8 step 6)")
+    if cfg.mesh_shape is not None and math.prod(cfg.mesh_shape) > 1:
+        raise NotImplementedError(f"mesh_shape {tuple(cfg.mesh_shape)}: "
+                                  f"more than one device is not ported yet "
+                                  f"(ROADMAP A10)")
+
+
+def _to_host(tensors):
+    """Tensors -> numpy, one synchronisation for all of them (bf16 as
+    f32, which holds every bf16 value)."""
+    out = [t.detach().to("cpu", non_blocking=True) for t in tensors]
+    if any(t.is_cuda for t in tensors):
+        torch.cuda.synchronize()
+    return [(t.float() if t.dtype == torch.bfloat16 else t).numpy()
+            for t in out]
+
+
+class Trainer:
+    def __init__(self, cfg: Config, device: DeviceLike = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        _check_ported(cfg)
+        self.dm = build_datamodule(cfg)
+        self.classes = self.dm.get_class()
+        self.num_classes = len(self.classes)
+        self.img_size = cfg.effective_img_size
+
+        dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                 else torch.float32)
+        self.model = build_model(cfg.model_name, self.num_classes,
+                                 dtype=dtype, yolov5_type=cfg.type,
+                                 remat=cfg.remat, ssd_bn=cfg.ssd_bn,
+                                 device=self.device, seed=cfg.seed)
+        self.loss_fn = loss_lib.make_loss(
+            cfg.model_name, self.num_classes, self.img_size,
+            coord_criterion=cfg.coord_criterion,
+            cls_criterion=cfg.cls_criterion,
+            v3_double_stride=cfg.v3_double_stride)
+        self.optimizer = optim.build_optimizer(cfg, self.model.parameters())
+        self.scheduler = optim.build_scheduler(cfg)
+        self.state = state_lib.create_train_state(
+            self.model, self.optimizer, ema_decay=cfg.ema_decay)
+        self.aug_gen = torch.Generator(device=self.device).manual_seed(
+            cfg.seed + 1)
+
+        self.train_step = step_lib.make_train_step(
+            self.model, self.loss_fn, self.optimizer,
+            cfg.accumulate_grad_batches, ema_decay=cfg.ema_decay)
+        self.eval_step = step_lib.make_eval_step(self.model, self.loss_fn)
+        self.postprocess = step_lib.make_postprocess(
+            cfg.model_name, self.num_classes, self.img_size,
+            conf_thres=cfg.conf_thres, nms_thres=cfg.nms_thres,
+            top_k=cfg.nms_top_k)
+        self.predict_step = step_lib.make_predict_step(
+            self.model, self.postprocess)
+
+        # log_dir/<dataset>/<model>
+        self.run_dir = os.path.join(cfg.log_dir, cfg.data_module,
+                                    cfg.model_name)
+        self.writer = MetricWriter(self.run_dir)
+        self.ckpt = ckpt_lib.CheckpointManager(
+            os.path.join(self.run_dir, "checkpoints"), cfg.save_top_k)
+        self.early_stop = ckpt_lib.EarlyStopping(cfg.early_stop_patience)
+        self.global_step = 0
+        summary_lib.save_summary(self.model, self.run_dir)
+
+    # ------------------------------------------------------------------ fit --
+
+    def maybe_restore(self):
+        """Warm-start from the best checkpoint if there is one; one that
+        does not fit this state is skipped."""
+        try:
+            restored = self.ckpt.restore(self.state)
+        except ValueError as e:
+            print(f"[trainer] checkpoint restore skipped: {e}")
+            return
+        if restored is not None:
+            self.state = restored
+            print(f"[trainer] restored best checkpoint "
+                  f"(step {self.ckpt.best_step()})")
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _device_batch(self, batch, augment: bool):
+        images, labels, boxes, mask = (self._to_device(a) for a in batch)
+        if augment:
+            images, boxes, mask = augment_batch(images, boxes, mask,
+                                                generator=self.aug_gen)
+        return images, labels, boxes, mask
+
+    def fit(self):
+        cfg = self.cfg
+        A = cfg.accumulate_grad_batches
+        self.maybe_restore()
+        val_metric: Optional[float] = None
+
+        for epoch in range(cfg.max_epochs):
+            t_epoch = time.time()
+            if epoch == 0:
+                self.writer.text("model/graph",
+                                 summary_lib.model_summary(self.model))
+            lr = self.scheduler.step(val_metric)
+            optim.set_learning_rate(self.optimizer, lr)
+            self.writer.scalar("lr-Adam" if cfg.optimizer == "Adam"
+                               else f"lr-{cfg.optimizer}", lr, epoch)
+
+            epoch_metrics: List[Dict[str, float]] = []
+            micro: List = []
+            t0 = time.time()
+            n_imgs = 0
+            prof = (start_trace(os.path.join(self.run_dir, "profile"))
+                    if cfg.profile_steps > 0 and epoch == 0 else None)
+            first_batch = True
+            # host preprocessing, the copy to the device and the
+            # augmentation's launches run in a background thread,
+            # overlapping the device's work on earlier steps
+            batches = (self._device_batch(b, augment=True)
+                       for b in self.dm.train_dataloader())
+            if cfg.prefetch_batches > 0:
+                batches = prefetch(batches, cfg.prefetch_batches)
+            with contextlib.closing(batches):   # ends the thread on error
+                for device_batch in batches:
+                    micro.append(device_batch)
+                    if cfg.view_mark and first_batch:
+                        self._view_mark(micro[0], epoch)
+                        first_batch = False
+                    if len(micro) < A:
+                        continue
+                    stacked = [torch.stack([m[i] for m in micro])
+                               for i in range(4)]
+                    micro = []
+                    self.state, metrics = self.train_step(self.state, *stacked)
+                    n_imgs += stacked[0].shape[0] * stacked[0].shape[1]
+                    metrics, prof = self._log_train_step(metrics, cfg, prof)
+                    epoch_metrics.append(metrics)
+                    self.global_step += 1
+
+            if micro:
+                # flush the partial accumulation window with zero-weight
+                # padding microbatches
+                n_real = len(micro)
+                n_imgs += sum(m[0].shape[0] for m in micro)
+                while len(micro) < A:
+                    micro.append(micro[-1])
+                stacked = [torch.stack([m[i] for m in micro])
+                           for i in range(4)]
+                weights = [1.0] * n_real + [0.0] * (A - n_real)
+                micro = []
+                self.state, metrics = self.train_step(self.state, *stacked,
+                                                      weights)
+                metrics, prof = self._log_train_step(metrics, cfg, prof)
+                epoch_metrics.append(metrics)
+                self.global_step += 1
+            if epoch_metrics:
+                epoch_metrics = [{k: float(v) for k, v in m.items()}
+                                 for m in epoch_metrics]
+                means = {k: float(np.mean([m[k] for m in epoch_metrics]))
+                         for k in epoch_metrics[0]}
+                self.writer.scalars("Epoch", {f"{k}/Train": v
+                                              for k, v in means.items()},
+                                    epoch)
+                dt = time.time() - t0
+                self.writer.scalar("throughput/images_per_sec",
+                                   n_imgs / max(dt, 1e-9), epoch)
+            if cfg.histogram_every and epoch % cfg.histogram_every == 0:
+                log_param_histograms(self.writer, self.model, epoch,
+                                     max_tensors=50)
+            for dev, stats in device_memory_stats().items():
+                for k, v in stats.items():
+                    self.writer.scalar(f"device/{dev}/{k}", v, epoch)
+            if prof is not None:        # epoch shorter than profile_steps
+                stop_trace(prof, os.path.join(self.run_dir, "profile"))
+
+            val_loss = self.validate(epoch)
+            val_metric = val_loss
+            stop = False
+            if val_loss is not None:
+                self.ckpt.save(epoch, self.state, val_loss)
+                stop = self.early_stop.update(val_loss)
+            self.writer.scalar("time/epoch_seconds", time.time() - t_epoch,
+                               epoch)
+            self.writer.flush()
+            if stop:
+                print(f"[trainer] early stopping at epoch {epoch}")
+                break
+        self.ckpt.wait()
+        return self.state
+
+    def _log_train_step(self, metrics, cfg, prof):
+        """Per-step metric logging + profiler stop + NaN guard.  Steps that
+        log pull their metrics to the host (a sync); the others keep them
+        on the device until the epoch ends."""
+        if prof is not None and self.global_step + 1 >= cfg.profile_steps:
+            stop_trace(prof, os.path.join(self.run_dir, "profile"))
+            prof = None
+        if self.global_step % max(cfg.log_every_steps, 1) == 0:
+            metrics = {k: float(v) for k, v in metrics.items()}
+            if cfg.nan_check and not math.isfinite(metrics["loss"]):
+                raise FloatingPointError(
+                    f"non-finite loss at step {self.global_step}: "
+                    f"{metrics} -- lower lr")
+            for k, v in metrics.items():
+                self.writer.scalar(f"Loss/{k}/Train", v, self.global_step)
+        return metrics, prof
+
+    def _view_mark(self, device_batch, epoch: int, max_images: int = 4):
+        """Log augmented training images with GT boxes drawn."""
+        images, labels, boxes, mask = device_batch
+        n = min(images.shape[0], max_images)
+        images, gt_xyxy, labels, mask = _to_host(
+            (images[:n], box_ops.xywh_to_xyxy(boxes[:n]) * self.img_size,
+             labels[:n], mask[:n]))
+        for i in range(n):
+            panel = viz.draw_boxes(images[i], gt_xyxy[i], labels[i],
+                                   valid=mask[i])
+            self.writer.image(f"view_mark/{i}", panel, epoch)
+
+    def validate(self, epoch: int) -> Optional[float]:
+        # per-batch metrics stay on the device; one pull at the end
+        losses: List[Dict] = []
+        for batch in self.dm.val_dataloader():
+            args = self._device_batch(batch, augment=False)
+            losses.append(self.eval_step(self.state, *args))
+        if not losses:
+            return None
+        keys = list(losses[0])
+        flat = _to_host([m[k] for m in losses for k in keys])
+        losses = [dict(zip(keys, flat[i:i + len(keys)]))
+                  for i in range(0, len(flat), len(keys))]
+        means = {k: float(np.mean([m[k] for m in losses])) for k in keys}
+        self.writer.scalar("val_loss", means["loss"], epoch)
+        self.writer.scalars("Epoch", {f"{k}/Val": v for k, v in means.items()},
+                            epoch)
+        return means["loss"]
+
+    # ----------------------------------------------------------------- test --
+
+    def test(self) -> Dict[str, float]:
+        """mAP evaluation with NMS, one ``predict_step`` per test batch."""
+        self.model.eval()
+        stats = []
+        target_classes: List[int] = []
+        panels = 0
+        for batch in self.dm.test_dataloader():
+            images, labels, boxes, mask = self._device_batch(batch, False)
+            res = self.predict_step(self.state, images)
+            # the reference ranks detections by column 4 of its NMS rows:
+            # obj_conf for the YOLO families
+            conf = (res.scores if self.cfg.model_name in ("SSD", "RetinaNet")
+                    else res.obj)
+            # one host fetch per batch for everything the numpy mAP path
+            # and the panel need
+            fetch = [res.boxes, conf, res.labels, res.valid,
+                     box_ops.xywh_to_xyxy(boxes) * self.img_size, labels,
+                     mask] + ([images[0]] if panels < 4 else [])
+            pboxes, conf, plabels, pvalid, gt_xyxy, labels, mask, *image0 = \
+                _to_host(fetch)
+            s = metric_lib.batch_statistics(pboxes, conf, plabels, pvalid,
+                                            gt_xyxy, labels, mask)
+            stats.append(s)
+            target_classes.extend(labels[mask].tolist())
+
+            if image0:              # first image of the first batches
+                gt_img = viz.draw_boxes(image0[0], gt_xyxy[0], labels[0],
+                                        valid=mask[0])
+                pr_img = viz.draw_boxes(image0[0], pboxes[0], plabels[0],
+                                        valid=pvalid[0])
+                self.writer.image(f"result/{panels}",
+                                  viz.side_by_side(gt_img, pr_img), panels)
+                panels += 1
+
+        results = metric_lib.evaluate_map(stats, np.asarray(target_classes))
+        for k in ("precision", "recall", "mAP", "f1"):
+            self.writer.scalar(f"Test/{k}", results[k], 0)
+
+        print("---- mAP per class ----")
+        for cid, ap in sorted(results["per_class_AP"].items()):
+            name = (self.classes[cid] if 0 <= cid < len(self.classes)
+                    else str(cid))
+            print(f"  {name}: {ap:.4f}")
+        print(f"mAP: {results['mAP']:.4f}")
+        self.writer.flush()
+        return results

@@ -17,7 +17,7 @@ import torch
 @dataclasses.dataclass
 class TrainState:
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: Optional[torch.optim.Optimizer]   # None for serving
     step: torch.Tensor                      # int64 scalar on the model's device
     ema_params: Optional[Dict[str, torch.Tensor]] = None   # None = disabled
 
@@ -32,10 +32,11 @@ class TrainState:
 
 
 def create_train_state(model: torch.nn.Module,
-                       optimizer: torch.optim.Optimizer,
+                       optimizer: Optional[torch.optim.Optimizer] = None,
                        ema_decay: float = 0.0) -> TrainState:
-    """Wrap an initialized model and its optimizer; the EMA starts as a copy
-    of the parameters when ``ema_decay > 0``."""
+    """Wrap an initialized model and its optimizer (None where nothing
+    trains, as in serving); the EMA starts as a copy of the parameters when
+    ``ema_decay > 0``."""
     device = next(model.parameters()).device
     ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
            if ema_decay > 0 else None)

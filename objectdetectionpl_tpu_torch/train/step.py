@@ -119,15 +119,24 @@ def make_eval_step(model: torch.nn.Module, loss_fn: Callable) -> Callable:
 
 def make_predict_step(model: torch.nn.Module, postprocess: Callable
                       ) -> Callable:
-    """Returns ``predict_step(images) -> NMSResult``: eval-mode forward on
-    NHWC images (any dtype the model casts from, e.g. uint8 with the /255
-    folded into the stem) + decode + batched NMS."""
+    """Returns ``predict_step(state, images) -> NMSResult``: an eval-mode
+    forward with the state's ``eval_params`` (EMA when enabled) on NHWC
+    images (any dtype the model casts from, e.g. uint8 with the /255 folded
+    into the stem) + decode + batched NMS.  Without an EMA the module runs
+    with its own parameters, called directly."""
 
-    def predict_step(images: torch.Tensor) -> nms.NMSResult:
+    def predict_step(state: TrainState, images: torch.Tensor
+                     ) -> nms.NMSResult:
+        if state.model is not model:
+            raise ValueError("predict_step: the state holds another model "
+                             "than the step was made for")
         if model.training:
             raise RuntimeError("predict_step needs the model in eval mode")
         with torch.inference_mode():
-            return postprocess(model(images))
+            if state.ema_params is None:
+                return postprocess(model(images))
+            return postprocess(torch.func.functional_call(
+                model, state.ema_params, (images,)))
 
     return predict_step
 

@@ -1,1 +1,2 @@
-"""Weight carry-over and serving-time weight transforms."""
+"""Weight carry-over and transforms, timing, metric logging, the model
+summary, profiler hooks and box panels."""

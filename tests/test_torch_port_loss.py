@@ -169,3 +169,37 @@ def test_yolov5_loss_bf16_dtype_flow_matches_jax():
 def test_make_loss_other_families_raise(name, error, match):
     with pytest.raises(error, match=match):
         port_losses.make_loss(name, C, IMG)
+
+
+def test_make_loss_takes_the_trainer_keywords():
+    """C2: the JAX Trainer's call (``train/loop.py:56-60``): every family
+    gets ``coord_criterion``, ``cls_criterion`` and ``v3_double_stride``;
+    YOLOv5 ignores the last, and an unknown criterion raises KeyError."""
+    labels, boxes, mask = _targets(7)
+    maps = _head_maps(8)
+    kw = dict(coord_criterion="smooth_l1_loss", cls_criterion="bce_loss",
+              v3_double_stride=False)
+    want = jax_losses.make_loss("YOLOv5", C, IMG, **kw)(
+        [jnp.asarray(m) for m in maps], jnp.asarray(labels),
+        jnp.asarray(boxes), jnp.asarray(mask))
+    got = port_losses.make_loss("YOLOv5", C, IMG, **kw)(
+        [torch.from_numpy(m) for m in maps], torch.from_numpy(labels),
+        torch.from_numpy(boxes), torch.from_numpy(mask))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k].item(), float(want[k]),
+                                   err_msg=k, **LOSS_TOL)
+    for make in (jax_losses.make_loss, port_losses.make_loss):
+        with pytest.raises(KeyError, match="l3_loss"):
+            make("YOLOv5", C, IMG, coord_criterion="l3_loss")
+
+
+@pytest.mark.parametrize("name", ["mse_loss", "smooth_l1_loss"])
+def test_coord_criteria_match_jax(name):
+    rng = np.random.RandomState(9)
+    x, t = (rng.randn(64).astype(np.float32) * 2 for _ in range(2))
+    np.testing.assert_allclose(
+        port_losses.COORD_CRITERIA[name](torch.from_numpy(x),
+                                         torch.from_numpy(t)).numpy(),
+        np.asarray(jax_losses.COORD_CRITERIA[name](jnp.asarray(x),
+                                                   jnp.asarray(t))), **TIGHT)

@@ -7,6 +7,13 @@ run YOLOv5s in f32 on the CPU at 128 px, B=2, on the same flax variables
 so the top-k cut to 300 is exercised.  The uint8 variant feeds raw pixels
 with the /255 folded into the stem conv on both sides.
 
+The EMA case (C1 of ROADMAP §C) bridges a second, distinct parameter set,
+the JAX ``ema_params`` = params x 1.1, into the port's ``TrainState``; both
+``predict_step(state, images)`` must detect with it, not with the live
+parameters.  Precondition there, asserted: the 300th and 301st scores
+differ by more than 1e-4 of their value, so the top-k cut cannot move
+(at x 0.9 they differ by 5e-6, below the forward's differences).
+
 ``valid`` and ``labels`` must be equal.  Boxes agree within ``rtol=1e-4,
 atol=1e-3`` (merged pixel coordinates), scores and obj within ``rtol=1e-4,
 atol=1e-6`` (the forward differs by ~1e-5 relative between XLA and torch).
@@ -26,10 +33,14 @@ import jax.numpy as jnp
 from objectdetectionpl_tpu.models.yolov5 import YOLOv5 as JaxYOLOv5
 from objectdetectionpl_tpu.ops import anchors as jax_anchors
 from objectdetectionpl_tpu.ops import nms as jax_nms
+from objectdetectionpl_tpu.train.state import TrainState as JaxTrainState
 from objectdetectionpl_tpu.train.step import make_postprocess as jax_post
+from objectdetectionpl_tpu.train.step import \
+    make_predict_step as jax_predict_step
 from objectdetectionpl_tpu.utils.fuse import fold_input_scale as jax_fold
 from objectdetectionpl_tpu_torch.models import build_model
 from objectdetectionpl_tpu_torch.ops.cuda import nms_kernel
+from objectdetectionpl_tpu_torch.train.state import create_train_state
 from objectdetectionpl_tpu_torch.train.step import (make_postprocess,
                                                     make_predict_step)
 from objectdetectionpl_tpu_torch.utils.fuse import fold_input_scale
@@ -82,8 +93,11 @@ def test_predict_step_matches_jax_chain(variables, uint8):
                          strict=True)
     step = make_predict_step(port, make_postprocess("YOLOv5", C, IMG,
                                                     conf_thres=CONF))
-    got = step(torch.from_numpy(images))
+    got = step(create_train_state(port), torch.from_numpy(images))
+    _assert_same_detections(got, want)
 
+
+def _assert_same_detections(got, want):
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
     assert got.valid.shape == (2, 300) and 0 < int(got.valid.sum()) < 600
@@ -107,7 +121,8 @@ def test_predict_step_runs_the_nms_wrapper_once_per_batch(monkeypatch):
         return real(*args, **kwargs)
 
     monkeypatch.setattr(nms_kernel, "greedy_nms", counting)
-    res = step(torch.zeros(3, 64, 64, 3, dtype=torch.uint8))
+    res = step(create_train_state(model),
+               torch.zeros(3, 64, 64, 3, dtype=torch.uint8))
     assert calls == [torch.Size([3, 252, 4])]        # top_k capped at N
     assert res.boxes.shape == (3, 252, 4) and res.boxes.dtype == torch.float32
     assert res.labels.dtype == torch.int32 and res.valid.dtype == torch.bool
@@ -121,7 +136,8 @@ def test_predict_step_bf16_keeps_f32_nms():
     heads = model(torch.zeros(1, 64, 64, 3, dtype=torch.uint8))
     assert all(h.dtype == torch.bfloat16 for h in heads)
     res = make_predict_step(model, make_postprocess("YOLOv5", C, 64))(
-        torch.zeros(1, 64, 64, 3, dtype=torch.uint8))
+        create_train_state(model), torch.zeros(1, 64, 64, 3,
+                                               dtype=torch.uint8))
     assert res.boxes.dtype == torch.float32 and res.obj.dtype == torch.bfloat16
     assert torch.isfinite(res.boxes).all()
 
@@ -130,7 +146,7 @@ def test_predict_step_refuses_train_mode():
     model = build_model("YOLOv5", C, device="cpu").train()
     step = make_predict_step(model, make_postprocess("YOLOv5", C, 64))
     with pytest.raises(RuntimeError, match="eval mode"):
-        step(torch.zeros(1, 64, 64, 3))
+        step(create_train_state(model), torch.zeros(1, 64, 64, 3))
     # the model itself runs in train mode (batch statistics), and its
     # running statistics move
     stat = model.Focus_0.ConvBN_0.BatchNorm_0.running_var
@@ -140,6 +156,42 @@ def test_predict_step_refuses_train_mode():
     assert [tuple(h.shape) for h in heads] == [
         (2, 3, 8, 8, 5 + C), (2, 3, 4, 4, 5 + C), (2, 3, 2, 2, 5 + C)]
     assert not torch.equal(stat, before)
+
+
+def test_predict_step_serves_the_ema_params(variables):
+    model, params, stats = variables
+    images = _images(False)
+    ema = jax.tree.map(lambda p: p * np.float32(1.1), params)
+    jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                           batch_stats=stats, opt_state=None, rng=None,
+                           ema_params=ema)
+    post = jax_post("YOLOv5", C, IMG, conf_thres=CONF)
+    want = jax_predict_step(model, post)(jstate, jnp.asarray(images))
+    out = model.apply({"params": ema, "batch_stats": stats},
+                      jnp.asarray(images), train=False)
+    dec = np.asarray(jax_nms.decode_yolov5_predictions(
+        out, jax_anchors.YOLOV5_ANCHORS, jax_anchors.YOLOV5_STRIDES, C))
+    obj = dec[..., 4]
+    assert np.abs(obj - CONF).min() > 1e-4           # preconditions
+    score = np.sort(np.where(obj >= CONF, obj * dec[..., 5:].max(-1), 0))
+    assert ((score[:, -300] - score[:, -301]) > 1e-4 * score[:, -300]).all()
+
+    port = build_model("YOLOv5", C, device="cpu")
+    port.load_state_dict(state_dict_from_flax(params, stats), strict=True)
+    state = create_train_state(port, ema_decay=0.999)
+    names = dict(port.named_parameters())
+    state.ema_params = {k: v for k, v in
+                        state_dict_from_flax(ema, stats).items()
+                        if k in names}
+    assert state.ema_params.keys() == names.keys()
+    step = make_predict_step(port, make_postprocess("YOLOv5", C, IMG,
+                                                    conf_thres=CONF))
+    got = step(state, torch.from_numpy(images))
+    _assert_same_detections(got, want)
+    # the live parameters detect otherwise, and stay the module's own
+    live = step(create_train_state(port), torch.from_numpy(images))
+    assert not torch.equal(live.boxes, got.boxes)
+    assert all(p is names[n] for n, p in port.named_parameters())
 
 
 @pytest.mark.parametrize("name", ["YOLOv2", "YOLOv3", "YOLOv4", "SSD",
