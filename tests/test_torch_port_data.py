@@ -9,12 +9,26 @@ cannot be built, is held against the library within 1e-6 (the same
 resize, ``F.interpolate``'s float32 arithmetic against the library's),
 at 64 px and upscaled to 640.
 Images are 64-96 px, batches of 2-3.
+
+The tests that compare with JAX's Loader need the JAX package's own
+library, ``native/libpreproc.so``, which its binding builds with ``make``
+on first use and, if that first load fails, never tries again in the
+process.  Under ``pytest -n`` several workers run that ``make`` at once,
+each writing the file in place, so a worker can load a file that another
+worker's linker is still writing, and JAX's Loader then resizes with
+cv2/PIL (up to 1/255 off).  The ``jax_library`` fixture waits, under a
+file lock, until the library loads, clears the binding's cached failure,
+and fails the test, naming the loader's error, when it does not load
+within ``JAX_LIBRARY_DEADLINE_S``.
 """
 
+import ctypes
+import fcntl
 import os
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +47,41 @@ from objectdetectionpl_tpu_torch.data import synthetic, types
 from objectdetectionpl_tpu_torch.parallel import data_shard
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_LIBRARY_DEADLINE_S = 120.0
+
+
+def _load_jax_library():
+    """One attempt: load ``native/libpreproc.so`` as it is (building it
+    when it is missing), then reset the JAX binding's cache and load it
+    there.  Returns None on success, else the reason."""
+    path = jax_native._LIB_PATH
+    if not os.path.exists(path):
+        out = subprocess.run(["make", "-C", os.path.dirname(path)],
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            return f"make -C native failed: {out.stderr.strip()[-2000:]}"
+    try:
+        ctypes.CDLL(path)
+    except OSError as e:            # missing or still being written
+        return f"ctypes.CDLL({path!r}): {e}"
+    jax_native._lib, jax_native._load_failed = None, False
+    return None if jax_native.available() else "jax_native.available() is False"
+
+
+@pytest.fixture(scope="module")
+def jax_library():
+    """The JAX package's native library, loaded in this process."""
+    lock = Path(REPO, "build", "jax_native.lock")
+    lock.parent.mkdir(exist_ok=True)
+    with open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        deadline = time.monotonic() + JAX_LIBRARY_DEADLINE_S
+        while (reason := _load_jax_library()) is not None:
+            if time.monotonic() > deadline:
+                pytest.fail(f"the JAX package's native library did not "
+                            f"load in {JAX_LIBRARY_DEADLINE_S:.0f} s: "
+                            f"{reason}")
+            time.sleep(0.5)
 
 
 class Cropped:
@@ -63,7 +112,7 @@ def _assert_same_batches(got, want):
             np.testing.assert_array_equal(a, b, err_msg=name)
 
 
-def test_native_library_builds_under_build():
+def test_native_library_builds_under_build(jax_library):
     assert jax_native.available() and native.available()
     lib = native.library_path()
     assert lib.parent == Path(REPO, "build", "native") and lib.exists()
@@ -123,7 +172,7 @@ LOADER_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(LOADER_CASES))
-def test_loader_batches_equal_jax(case):
+def test_loader_batches_equal_jax(case, jax_library):
     c = LOADER_CASES[case]
     port_parser = synthetic.SyntheticParser(c["size"], img_hw=96, seed=4)
     ref_parser = jax_syn.SyntheticParser(c["size"], img_hw=96, seed=4)
@@ -234,7 +283,7 @@ def test_data_shard_is_one_process(monkeypatch):
         data_shard()
 
 
-def test_synthetic_module_matches_jax():
+def test_synthetic_module_matches_jax(jax_library):
     kw = dict(data_module="Synthetic", synthetic_size=10, batch_size=2,
               img_size=64, limit_train_batches=3, seed=3, max_boxes=4)
     port = datamodules.build_datamodule(Config(**kw))
