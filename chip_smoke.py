@@ -73,7 +73,30 @@ exits non-zero:
    each epoch's wall time, images/s (the Trainer's
    ``throughput/images_per_sec``), losses, the Loader's resize path and
    the peak memory.
-11. conv_check -- the 13 3x3/s1 convs of one YOLOv5s-640 bf16 train
+11. yolo_fp32 -- YOLOv2, YOLOv3 and YOLOv4 at their published widths,
+   416 px, 80 classes, B=2, f32 with TF32 off, on the card and on the CPU
+   from the same seeded weights: head maps (``YOLO_HEAD_REL``), the card's
+   decoded candidates through the NMS kernel and its plain version
+   (``keep`` identical), and one train step from the same batch,
+   augmentation skipped: loss and d(loss)/d(head maps)
+   (``YOLO_TRAIN_TOL``).  Targets 0 and 1 of image 0 share a cell and an
+   anchor: ``build_targets_yolo`` on the card must equal the CPU's
+   (``YOLO_TARGET_TOL``) and keep the later target's offset and both
+   labels there.
+12. yolo_serving -- each family's ``predict_step`` at 416 px, 80 classes,
+   bf16, uint8 input with /255 folded into its stem conv: B=64 and B=1,
+   one warm-up and three batches each; counts zeroed before and read after
+   each family; one NMS launch per batch.  Prints ms per batch and img/s.
+13. yolo_training -- each family at 416 px, 80 classes, bf16, Adam lr 1e-3
+   / wd 1e-5, B=32, M=32: uint8 -> /255 -> ``augment_batch`` ->
+   ``train_step``, one warm-up and three timed steps; one warp launch per
+   step, a finite loss.  Prints ms per step and peak memory.
+14. trainer_yolov2 -- as ``trainer``, on the YAML's own model (YOLOv2,
+   no ``model_name`` override) at its 416-px default (``img_size`` 0):
+   warp launches equal the microbatches, NMS launches the test batches,
+   and the results hold the per-grid statistics ``13/{key}``, finite; the
+   best checkpoint (~0.6 GB) restored equal to the Trainer's tensors.
+15. conv_check -- the 13 3x3/s1 convs of one YOLOv5s-640 bf16 train
    forward and backward at B=64, captured by hooks on ``blocks.Conv``
    (x, w, dy): ``conv3x3_s1`` (fwd, and dgrad on ``rot_w(w)``) and
    ``conv3x3_s1_wgrad`` against their plain versions, each twice (the two
@@ -89,19 +112,20 @@ exits non-zero:
    forward-kernel, 1 wgrad, 1 reduction.  Tolerances elementwise at ``CONV_BF16_ULPS`` / ``CONV_SUM_TOL``; each case prints
    its median limit beside the median |reference| and each planted fault's
    share of the limit.
-12. conv_time -- the conv path: one ``conv3x3_s1_op`` forward and backward
+16. conv_time -- the conv path: one ``conv3x3_s1_op`` forward and backward
    per captured conv through the A/B tool's kernel step, launch counts
    zeroed before and read after; then per distinct shape and summed over
    the 13: device and host-inclusive ms of fwd, dgrad and wgrad, bounds and
    the share of the bound reached, plain versions' ms and the cuDNN
    yardstick's ms with the kernel's factor against it; then the A/B tool
    ``tools/conv_bench.py`` itself on 40x40 128->128, B=64, ``--grad``.
-13. (``--profile``) torch.profiler over one B=64 serving batch and over one
+17. (``--profile``) torch.profiler over one B=64 serving batch and over one
    B=64 training step: device time by kernel and by kernel class, and the
    idle share against the profiled call and against the mean of three
    unprofiled calls (the profiler's own host cost inflates the first).
 
-Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
+Then the ``kernels`` line (the NMS and warp entries also carry the launch
+counts of the YOLO phases) and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it prints nothing to stdout and exits 1.
 """
 
@@ -127,7 +151,7 @@ from objectdetectionpl_tpu_torch.data import augment, build_datamodule, native
 from objectdetectionpl_tpu_torch.models import build_model
 from objectdetectionpl_tpu_torch.nn import blocks
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
-from objectdetectionpl_tpu_torch.ops import losses, nms
+from objectdetectionpl_tpu_torch.ops import assignment, losses, nms
 from objectdetectionpl_tpu_torch.ops.cuda import (_build, conv_kernel,
                                                   nms_kernel, warp_kernel)
 from objectdetectionpl_tpu_torch.tools import conv_bench, kernel_ab
@@ -136,10 +160,12 @@ from objectdetectionpl_tpu_torch.tools.kernel_ab import (candidates,
 from objectdetectionpl_tpu_torch.train.checkpoint import CheckpointManager
 from objectdetectionpl_tpu_torch.train.optim import build_optimizer
 from objectdetectionpl_tpu_torch.train.state import create_train_state
-from objectdetectionpl_tpu_torch.train.step import (make_postprocess,
+from objectdetectionpl_tpu_torch.train.step import (YOLO_DECODE,
+                                                    make_postprocess,
                                                     make_predict_step,
                                                     make_train_step)
-from objectdetectionpl_tpu_torch.utils.fuse import fold_input_scale
+from objectdetectionpl_tpu_torch.utils.fuse import (STEM_CONVS,
+                                                    fold_input_scale)
 from objectdetectionpl_tpu_torch.utils import timing
 from objectdetectionpl_tpu_torch.utils.timing import (F32_OPS_PER_S,
                                                      HBM_BYTES_PER_S,
@@ -218,6 +244,25 @@ TRAINER_SETS = {"model_name": "YOLOv5", "type": "Yolov5s", "img_size": "640",
                 "accumulate_grad_batches": "2", "limit_train_batches": "4",
                 "limit_val_batches": "2", "limit_test_batches": "2",
                 "max_epochs": "2"}
+# the trainer_yolov2 phase: the YAML's own model (YOLOv2) at its 416-px
+# default (img_size 0: the YAML's yaml_test section caps it at 128)
+TRAINER_YOLOV2_SETS = {k: v for k, v in TRAINER_SETS.items()
+                       if k not in ("model_name", "type")}
+TRAINER_YOLOV2_SETS["img_size"] = "0"
+
+# the YOLOv2/v3/v4 phases: published widths at 416 px, 80 classes
+YOLO_FAMILIES = tuple(YOLO_DECODE)        # YOLOv2, YOLOv3, YOLOv4
+YOLO_IMG = 416
+YOLO_TRAIN_B = 32
+YOLO_STATS = ("cls_acc", "recall50", "recall75", "precision", "conf_obj",
+              "conf_noobj")
+# f32 card vs CPU (TF32 off), YOLOv2/v3/v4 (25 to 110 convs deep): head
+# maps and d(loss)/d(head maps) per map as max |diff| / max |ref|; the
+# loss relative; the assignment's float fields elementwise, card against
+# CPU on the same map.
+YOLO_HEAD_REL = 1e-3
+YOLO_TRAIN_TOL = {"loss_rtol": 1e-4, "head_grad_rel": 2e-3}
+YOLO_TARGET_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
 def emit(obj) -> None:
@@ -410,14 +455,14 @@ def phase_fp32(card: str) -> float:
     return err
 
 
-def serving_model():
+def serving_model(name: str = "YOLOv5", img: int = IMG):
     """(images -> NMSResult, model): ``predict_step`` bound to a serving
-    state (no optimizer, no EMA)."""
-    model = build_model("YOLOv5", NUM_CLASSES, dtype=torch.bfloat16,
+    state (no optimizer, no EMA), bf16, /255 folded into the stem."""
+    model = build_model(name, NUM_CLASSES, dtype=torch.bfloat16,
                         device="cuda", seed=0)
-    model.load_state_dict(fold_input_scale(model.state_dict(), 1.0 / 255.0))
-    step = make_predict_step(model, make_postprocess("YOLOv5", NUM_CLASSES,
-                                                     IMG))
+    model.load_state_dict(fold_input_scale(model.state_dict(), 1.0 / 255.0,
+                                           STEM_CONVS[name]))
+    step = make_predict_step(model, make_postprocess(name, NUM_CLASSES, img))
     return functools.partial(step, create_train_state(model)), model
 
 
@@ -649,12 +694,12 @@ def phase_warp_time(card: str) -> dict:
 # --- training ----------------------------------------------------------------
 
 
-def train_batch(B: int, seed: int):
-    """uint8 images [B, 640, 640, 3] and padded targets (M=32: centers in
+def train_batch(B: int, seed: int, img: int = IMG):
+    """uint8 images [B, img, img, 3] and padded targets (M=32: centers in
     [0.3, 0.7], wh in [0.05, 0.3], about half masked), made on the CPU
     from a seed."""
     g = torch.Generator().manual_seed(seed)
-    images = torch.randint(0, 256, (B, IMG, IMG, 3), generator=g,
+    images = torch.randint(0, 256, (B, img, img, 3), generator=g,
                            dtype=torch.uint8)
     labels = torch.randint(0, NUM_CLASSES, (B, TRAIN_M), generator=g,
                            dtype=torch.int32)
@@ -666,17 +711,23 @@ def train_batch(B: int, seed: int):
 
 
 def trainer(dtype: torch.dtype, device: str, seed: int = 0,
-            accum_steps: int = 1, capture=None):
-    """(state, train_step) for YOLOv5s-640 with the config's Adam."""
-    model = build_model("YOLOv5", NUM_CLASSES, dtype=dtype, device=device,
-                        seed=seed)
+            accum_steps: int = 1, capture=None, name: str = "YOLOv5",
+            model=None):
+    """(state, train_step) for ``name`` (YOLOv5s by default, or ``model``
+    when given) with the config's Adam; ``capture`` receives the head maps
+    of each step, their gradients retained."""
+    if model is None:
+        model = build_model(name, NUM_CLASSES, dtype=dtype, device=device,
+                            seed=seed)
     opt = build_optimizer(Config(), model.parameters())
-    loss_fn = losses.make_loss("YOLOv5", NUM_CLASSES, IMG)
+    loss_fn = losses.make_loss(name, NUM_CLASSES, IMG)
     if capture is not None:
         def loss_fn(outputs, *targets, _loss=loss_fn):
-            for o in outputs:
+            maps = (outputs if isinstance(outputs, (list, tuple))
+                    else [outputs])
+            for o in maps:
                 o.retain_grad()
-            capture[:] = outputs
+            capture[:] = maps
             return _loss(outputs, *targets)
     return (create_train_state(model, opt),
             make_train_step(model, loss_fn, opt, accum_steps=accum_steps))
@@ -822,6 +873,248 @@ def phase_accumulation(card: str) -> None:
           "loss_first_alone": m1["loss"].item()})
 
 
+# --- YOLOv2 / YOLOv3 / YOLOv4 ------------------------------------------------
+
+
+def yolo_fp32_batch(seed: int):
+    """train_batch(2) at 416 px, with targets 0 and 1 of image 0 in one cell
+    and anchor of every output map (centers 0.002 apart near the middle,
+    the same size) but with other offsets and labels; image 0's other
+    targets lie left of x = 0.35, away from that cell."""
+    images, labels, boxes, mask = train_batch(2, seed, YOLO_IMG)
+    boxes[0, 2:, 0] *= 0.5
+    boxes[0, 0] = torch.tensor([0.501, 0.502, 0.2, 0.15])
+    boxes[0, 1] = torch.tensor([0.503, 0.504, 0.2, 0.15])
+    labels[0, 0], labels[0, 1] = 3, 7
+    mask[0, :2] = True
+    return images, labels, boxes, mask
+
+
+def max_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got.float().cpu() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp(min=1e-30))
+
+
+def check_last_write(head, anchors_grid, labels, boxes, mask):
+    """``build_targets_yolo`` on the card against the CPU on the same map
+    (``head``, the first output map of the CPU's step); the shared cell
+    must hold target 1's offset and both labels.  Returns the largest
+    float difference."""
+    out = []
+    for dev in ("cuda", "cpu"):
+        x = head.detach().float().to(dev)
+        xy, wh, conf, cls = losses.decode_yolo_map(x, len(anchors_grid),
+                                                   NUM_CLASSES)
+        anc = torch.as_tensor(anchors_grid, device=dev)
+        pred = losses.decode_yolo_boxes(xy, wh, anc, cap_wh=True)
+        out.append(assignment.build_targets_yolo(
+            pred, cls, labels.to(dev), boxes.to(dev), mask.to(dev), anc))
+    card_t, cpu_t = out
+    err = 0.0
+    for name in card_t._fields:
+        a, b = getattr(card_t, name).cpu(), getattr(cpu_t, name)
+        torch.testing.assert_close(a, b, **YOLO_TARGET_TOL,
+                                   msg=lambda m: f"{name}: {m}")
+        err = max(err, float((a.float() - b.float()).abs().max()))
+    g = head.shape[2]
+    gx, gy = (boxes[0, 1, :2] * g).tolist()
+    gi, gj = int(gx), int(gy)
+    a = int(assignment.box_ops.wh_iou(
+        boxes[0, 1, 2:] * g, torch.as_tensor(anchors_grid)).argmax())
+    if float(card_t.obj_mask[0, :, gj, gi].sum()) != 1.0 or abs(
+            float(card_t.tx[0, a, gj, gi]) - (gx - math.floor(gx))) > 1e-6:
+        raise AssertionError("the shared cell does not hold the later "
+                             "target")
+    if card_t.tcls[0, a, gj, gi, [3, 7]].tolist() != [1.0, 1.0]:
+        raise AssertionError("the shared cell lost a label")
+    return err
+
+
+def phase_yolo_fp32(card: str) -> float:
+    """YOLOv2/v3/v4 at 416 px, 80 classes, f32 (TF32 off): head maps and
+    NMS on the card against the CPU, then one train step's loss and
+    d(loss)/d(head maps).  Returns the largest NMS box difference."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images, labels, boxes, mask = yolo_fp32_batch(seed=40)
+    x = images.float() / 255.0
+    worst = 0.0
+    for name in YOLO_FAMILIES:
+        on_cpu = build_model(name, NUM_CLASSES, device="cpu", seed=0)
+        on_card = build_model(name, NUM_CLASSES, device="cuda", seed=0)
+        with torch.inference_mode():
+            heads = on_card(x.cuda())
+            ref = on_cpu(x)
+        heads = heads if isinstance(heads, list) else [heads]
+        ref = ref if isinstance(ref, list) else [ref]
+        head_rel = [max_rel(h, r) for h, r in zip(heads, ref)]
+        if not all(torch.isfinite(h).all() for h in heads) or max(
+                head_rel) > YOLO_HEAD_REL:
+            raise AssertionError(f"{name} head maps: card vs CPU {head_rel}")
+        anchors_px, strides = YOLO_DECODE[name]
+        with torch.inference_mode():
+            preds = nms.decode_yolo_predictions(heads, anchors_px, strides,
+                                                NUM_CLASSES)
+            c = nms.yolo_candidates(preds, 0.5, TOP_K)
+            err = check_kernel(c.nms_inputs(), True, True)
+        worst = max(worst, err)
+
+        res = {}
+        for dev, model in (("cuda", on_card), ("cpu", on_cpu)):
+            maps = []
+            state, step = trainer(torch.float32, dev, capture=maps,
+                                  name=name, model=model)
+            state, metrics = step(state, x.to(dev)[None],
+                                  labels.to(dev)[None], boxes.to(dev)[None],
+                                  mask.to(dev)[None])
+            res[dev] = dict(loss=metrics["loss"].item(), maps=maps,
+                            grads=[m.grad.float().cpu() for m in maps])
+        loss_err = abs(res["cuda"]["loss"] / res["cpu"]["loss"] - 1)
+        grad_rel = [max_rel(g, r) for g, r in zip(res["cuda"]["grads"],
+                                                  res["cpu"]["grads"])]
+        if loss_err > YOLO_TRAIN_TOL["loss_rtol"] or not all(
+                torch.isfinite(g).all() for g in res["cuda"]["grads"]) \
+                or max(grad_rel) > YOLO_TRAIN_TOL["head_grad_rel"]:
+            raise AssertionError(f"{name} train step: loss {res['cuda']} vs "
+                                 f"{res['cpu']['loss']}, d(loss)/d(maps) "
+                                 f"{grad_rel}")
+        target_err = check_last_write(
+            res["cpu"]["maps"][0], losses.yolo_anchors_grid(name)[0],
+            labels, boxes, mask)
+        emit({"phase": "yolo_fp32", "card": card, "model": name, "B": 2,
+              "img": YOLO_IMG, "head_max_rel_err": head_rel,
+              "valid_candidates": int((c.scores > nms.NEG_INF).sum()),
+              "keep_equal": True, "max_abs_box_err": err,
+              "loss_card": res["cuda"]["loss"], "loss_cpu": res["cpu"]["loss"],
+              "loss_rel_err": loss_err, "head_grad_rel_err": grad_rel,
+              "target_max_abs_err": target_err, "last_write_wins": True,
+              "tolerance": {"head_rel": YOLO_HEAD_REL, **YOLO_TRAIN_TOL,
+                            "targets": YOLO_TARGET_TOL}})
+        del on_card, on_cpu, res
+        torch.cuda.empty_cache()
+    return worst
+
+
+def forward_flops(model, img: int) -> float:
+    """Forward FLOPs per image, from the layer shapes: 2 * Cin * Cout * k *
+    k * Ho * Wo per convolution (a multiply-add is two), read by hooks on
+    ``blocks.Conv`` during one B=1 forward; BN, activations, pools and the
+    decode are left out (under 1 % of it)."""
+    flops = []
+
+    def hook(mod, inputs, out):
+        flops.append(2.0 * mod.weight[0].numel() * out.shape[1]
+                     * out.shape[2] * out.shape[3])
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, blocks.Conv)]
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(1, img, img, 3, dtype=torch.uint8,
+                              device=next(model.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(flops)
+
+
+def phase_yolo_serving(card: str) -> dict:
+    """Each family's ``predict_step`` at 416 px, 80 classes, bf16, uint8
+    with /255 folded: B=64 and B=1, one warm-up and three batches each,
+    one NMS launch per batch."""
+    out = {}
+    for name in YOLO_FAMILIES:
+        step, model = serving_model(name, YOLO_IMG)
+        g = torch.Generator(device="cuda").manual_seed(41)
+        batches = {B: torch.randint(0, 256, (B, YOLO_IMG, YOLO_IMG, 3),
+                                    generator=g, dtype=torch.uint8,
+                                    device="cuda") for B in (64, 1)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()                       # main path starts here
+        calls, results, last = 0, {}, {}
+        for B, images in batches.items():
+            times = []
+            for i in range(4):                 # one warm-up, three requests
+                t0 = time.perf_counter()
+                last[B] = step(images)
+                torch.cuda.synchronize()
+                calls += 1
+                if i:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            results[B] = {"ms_per_batch": times,
+                          "img_per_s": [B * 1e3 / t for t in times]}
+        counts = read_launches()               # main path ends here
+        if counts["greedy_nms"] != calls:
+            raise AssertionError(f"{name}: greedy_nms launched "
+                                 f"{counts['greedy_nms']} times in {calls} "
+                                 f"batches")
+        rows = (5 if name == "YOLOv2" else 3) * sum(
+            (YOLO_IMG // s) ** 2 for s in YOLO_DECODE[name][1])
+        for B, res in last.items():
+            if res.boxes.shape != (B, min(TOP_K, rows), 4) \
+                    or not res.boxes.is_cuda \
+                    or not torch.isfinite(res.boxes).all():
+                raise AssertionError(f"{name} serving boxes at B={B}: wrong "
+                                     f"shape, device or non-finite")
+        gflop = forward_flops(model, YOLO_IMG) / 1e9
+        for B, r in results.items():
+            emit({"phase": "yolo_serving", "card": card, "model": name,
+                  "img": YOLO_IMG, "classes": NUM_CLASSES,
+                  "dtype": "bfloat16", "B": B, **r,
+                  "forward_gflop_per_img": gflop,
+                  "valid": int(last[B].valid.sum()), "launches": counts,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        out[name] = counts["greedy_nms"]
+        del step, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_yolo_training(card: str) -> dict:
+    """Each family at 416 px, 80 classes, bf16, Adam, B=32, M=32: uint8 ->
+    /255 -> ``augment_batch`` (one warp launch) -> ``train_step``; one
+    warm-up and three timed steps."""
+    out = {}
+    batch = [t.cuda() for t in train_batch(YOLO_TRAIN_B, seed=42,
+                                           img=YOLO_IMG)]
+    for name in YOLO_FAMILIES:
+        state, step = trainer(torch.bfloat16, "cuda", name=name)
+        gen = torch.Generator(device="cuda").manual_seed(43)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()                       # main path starts here
+        calls, step_ms, loss = 0, [], []
+        for i in range(4):                     # one warm-up, three timed
+            t0 = time.perf_counter()
+            state, metrics = augment_and_step(state, step, *batch, gen)
+            torch.cuda.synchronize()
+            calls += 1
+            loss.append(metrics["loss"].item())
+            if i:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_launches()               # main path ends here
+        if counts["affine_warp"] != calls:
+            raise AssertionError(f"{name}: affine_warp launched "
+                                 f"{counts['affine_warp']} times in {calls} "
+                                 f"steps")
+        if not all(math.isfinite(v) for v in loss):
+            raise AssertionError(f"{name}: non-finite training loss {loss}")
+        emit({"phase": "yolo_training", "card": card, "model": name,
+              "img": YOLO_IMG, "classes": NUM_CLASSES, "dtype": "bfloat16",
+              "B": YOLO_TRAIN_B, "M": TRAIN_M,
+              "optimizer": "Adam lr 1e-3 wd 1e-5", "ms_per_step": step_ms,
+              "img_per_s": [YOLO_TRAIN_B * 1e3 / t for t in step_ms],
+              "loss": loss, "metrics": {k: float(v)
+                                        for k, v in metrics.items()},
+              "launches": counts,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        out[name] = counts["affine_warp"]
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
 def epoch_rows(log_dir: str, cfg) -> list:
     """Per-epoch scalars from the run's ``metrics.jsonl``."""
     path = os.path.join(log_dir, cfg.data_module, cfg.model_name,
@@ -903,15 +1196,18 @@ def check_restore(ckpt_dir: str, cfg, num_classes: int, device,
             / 1e6}
 
 
-def phase_trainer(card: str) -> dict:
-    """The CLI's fit -> validate -> checkpoint -> test on the card."""
+def phase_trainer(card: str, sets: dict = TRAINER_SETS,
+                  phase: str = "trainer") -> dict:
+    """The CLI's fit -> validate -> checkpoint -> test on the card, on the
+    YAML with ``sets`` as ``--set`` overrides; YOLOv2/v3/v4 runs must also
+    report the per-grid statistics."""
     build = REPO / "build"
     build.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_",
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_",
                                      dir=build) as log_dir:
         argv = [str(REPO / "configs" / "config.yaml"), "--set", "log_dir",
                 log_dir]
-        for k, v in TRAINER_SETS.items():
+        for k, v in sets.items():
             argv += ["--set", k, v]
         cfg = load_config(argv[0], {k: cli_run._coerce(v) for k, v in
                                     zip(argv[2::3], argv[3::3])})
@@ -963,13 +1259,23 @@ def phase_trainer(card: str) -> dict:
                 math.isfinite(v) and 0.0 <= v <= 1.0 for v in table):
             raise AssertionError(f"test results not a finite mAP table: "
                                  f"{results}")
+        if cfg.model_name in YOLO_FAMILIES:
+            grids = [cfg.effective_img_size // s
+                     for s in YOLO_DECODE[cfg.model_name][1]]
+            stats = {f"{g}/{k}": results.get(f"{g}/{k}") for g in grids
+                     for k in YOLO_STATS}
+            if not all(v is not None and math.isfinite(v)
+                       for v in stats.values()):
+                raise AssertionError(f"per-grid statistics missing or "
+                                     f"non-finite: {stats}")
         epochs = epoch_rows(log_dir, cfg)
         if len(epochs) != cfg.max_epochs:
             raise AssertionError(f"{len(epochs)} epochs logged")
         restore = check_restore(os.path.join(
             log_dir, cfg.data_module, cfg.model_name, "checkpoints"), cfg,
             len(dm.get_class()), kept[0].device, at_save)
-    emit({"phase": "trainer", "card": card, "sets": TRAINER_SETS,
+    emit({"phase": phase, "card": card, "model": cfg.model_name,
+          "img": cfg.effective_img_size, "sets": sets,
           "wall_s": wall_s, "epochs": epochs, "microbatches": microbatches,
           "test_batches": test_batches, "launches": counts,
           "resize_path": resize_path, "native_build_error": build_error,
@@ -1415,18 +1721,25 @@ def main(argv=None) -> int:
     train = phase_training(card)
     phase_accumulation(card)
     fit = phase_trainer(card)
+    yolo_err = phase_yolo_fp32(card)
+    yolo_serve = phase_yolo_serving(card)
+    yolo_train = phase_yolo_training(card)
+    fit_v2 = phase_trainer(card, TRAINER_YOLOV2_SETS, "trainer_yolov2")
     convs, conv_err = phase_conv_check(card)
     conv = phase_conv_time(card, convs)
     if args.profile:
         phase_profile(card)
     t = kern["timing"]
-    err = max(kern["max_abs_err"], fp32_err, serve["max_abs_err"])
+    err = max(kern["max_abs_err"], fp32_err, serve["max_abs_err"], yolo_err)
     emit({"kernels": [{
         "name": "greedy_nms", "route": "cuda",
         "source": "objectdetectionpl_tpu_torch/csrc/greedy_nms.cu",
         "replaces": "objectdetectionpl_tpu/ops/pallas/nms_kernel.py:120",
         "launches": fit["launches"]["greedy_nms"],
-        "launches_serving": serve["launches"], "keep_equal": True,
+        "launches_serving": serve["launches"],
+        "launches_yolo_serving": yolo_serve,
+        "launches_trainer_yolov2": fit_v2["launches"]["greedy_nms"],
+        "keep_equal": True,
         "max_abs_err": err, "max_abs_box_err": err,
         "ms": t[256]["ms"], "plain_ms": t[256]["plain_ms"],
         "bound_ms": t[256]["bound_ms"], "bound_by": t[256]["bound_by"],
@@ -1441,7 +1754,10 @@ def main(argv=None) -> int:
         "source": "objectdetectionpl_tpu_torch/csrc/affine_warp.cu",
         "replaces": "objectdetectionpl_tpu/ops/pallas/warp_kernel.py:154",
         "launches": fit["launches"]["affine_warp"],
-        "launches_training": train["launches"], "max_abs_err": warp_err,
+        "launches_training": train["launches"],
+        "launches_yolo_training": yolo_train,
+        "launches_trainer_yolov2": fit_v2["launches"]["affine_warp"],
+        "max_abs_err": warp_err,
         "ms": warp["ms"], "plain_ms": warp["plain_ms"],
         "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],
         "library_ms": warp["library_ms"],

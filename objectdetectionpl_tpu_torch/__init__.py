@@ -7,7 +7,8 @@ numpy, yaml and the standard library only -- never jax, flax, optax or
 anything under ``objectdetectionpl_tpu``.
 
 Public layouts follow the JAX package: NHWC images in, YOLOv5 head maps
-``[B, 3, g, g, 5+C]`` out, ``NMSResult`` fields ``[B, K, ...]``.  Entry points
+``[B, 3, g, g, 5+C]`` or YOLOv2/v3/v4 raw maps ``[B, A*(5+C), g, g]`` out,
+``NMSResult`` fields ``[B, K, ...]``.  Entry points
 run on CUDA unless the caller passes ``device="cpu"``
 (:func:`objectdetectionpl_tpu_torch.device.resolve_device`).
 

@@ -2,6 +2,9 @@
 
 Output contracts match the JAX package's models; so far:
 
+- YOLOv2: 1 raw map [B, 5*(5+C), g, g], stride 32
+- YOLOv3: 3 raw maps [B, 3*(5+C), g, g], strides (32, 16, 8)
+- YOLOv4: 3 raw maps [B, 3*(5+C), g, g], strides (8, 16, 32)
 - YOLOv5: 3 reshaped maps [B, 3, g, g, 5+C], strides (8, 16, 32)
 """
 

@@ -2,8 +2,8 @@
 
 The PyTorch counterpart of ``objectdetectionpl_tpu/models/registry.py``.
 Image-size defaults for all six families: RetinaNet 600, SSD 300, YOLOv5
-640, else 416.  Only YOLOv5 is ported so far; the others raise and name the
-ROADMAP item that brings them.
+640, else 416.  The YOLO families are ported; RetinaNet and SSD raise and
+name the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -11,9 +11,13 @@ from __future__ import annotations
 import torch
 
 from objectdetectionpl_tpu_torch.device import DeviceLike, resolve_device
+from objectdetectionpl_tpu_torch.models.yolov2 import YOLOv2
+from objectdetectionpl_tpu_torch.models.yolov3 import YOLOv3
+from objectdetectionpl_tpu_torch.models.yolov4 import YOLOv4
 from objectdetectionpl_tpu_torch.models.yolov5 import YOLOv5, init_weights
 
-MODELS = {"YOLOv5": YOLOv5}
+MODELS = {"YOLOv2": YOLOv2, "YOLOv3": YOLOv3, "YOLOv4": YOLOv4,
+          "YOLOv5": YOLOv5}
 
 DEFAULT_IMG_SIZE = {
     "YOLOv2": 416,
@@ -25,9 +29,6 @@ DEFAULT_IMG_SIZE = {
 }
 
 NOT_PORTED = {
-    "YOLOv3": "ROADMAP A9.1",
-    "YOLOv2": "ROADMAP A9.2",
-    "YOLOv4": "ROADMAP A9.3",
     "RetinaNet": "ROADMAP A9.4",
     "SSD": "ROADMAP A9.5",
 }
@@ -50,7 +51,7 @@ def build_model(model_name: str, num_classes: int,
     statistics stay float32.  ``remat`` (the JAX package's activation
     rematerialization) takes only ``"none"`` until ROADMAP A3r.  ``ssd_bn``
     (SSD's BN backbone) is ignored by the other families, as in JAX, and
-    SSD itself raises naming A9.5.
+    SSD itself raises naming A9.5.  ``yolov5_type`` is read by YOLOv5 only.
     """
     if remat != "none":
         raise NotImplementedError(f"remat={remat!r} is not ported yet "
@@ -59,7 +60,7 @@ def build_model(model_name: str, num_classes: int,
         raise NotImplementedError(
             f"{model_name} is not ported yet ({NOT_PORTED[model_name]})")
     dev = resolve_device(device)
-    model = MODELS[model_name](num_classes=num_classes, variant=yolov5_type,
-                               dtype=dtype)
+    kw = dict(variant=yolov5_type) if model_name == "YOLOv5" else {}
+    model = MODELS[model_name](num_classes=num_classes, dtype=dtype, **kw)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.eval().to(dev)

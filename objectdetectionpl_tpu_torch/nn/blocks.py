@@ -1,4 +1,4 @@
-"""PyTorch counterparts of the YOLOv5 blocks of ``objectdetectionpl_tpu/nn/blocks.py``.
+"""PyTorch counterparts of the YOLO blocks of ``objectdetectionpl_tpu/nn/blocks.py``.
 
 Inside the model the tensors are NCHW (``channels_last`` storage when the
 input came from an NHWC tensor), so these blocks take and return NCHW.
@@ -14,7 +14,9 @@ Numerics follow the JAX blocks:
   activation dtype, with running statistics in eval mode and f32-accumulated
   batch moments in train mode,
 - padding is the explicit torch-style ``k // 2``; max-pool pads with -inf,
-- space-to-depth orders channel blocks (row-phase, col-phase, C).
+- space-to-depth orders channel blocks (row-phase, col-phase, C),
+- mish is ``F.mish``: ``x * tanh(softplus(x))`` in one kernel, within f32
+  rounding of the JAX formula (``tests/test_torch_port_yolo_models.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from torch import nn
 
 ACTIVATIONS = {
     "leaky": functools.partial(F.leaky_relu, negative_slope=0.1),
+    "mish": F.mish,
 }
 
 
@@ -124,9 +127,49 @@ def space_to_depth(x, block: int = 2):
     return t.reshape(B, block * block * C, H // block, W // block)
 
 
+def reorg_darknet_bug(x):
+    """The darknet "reorg" passthrough, NCHW [B, C, H, W] -> [B, 4C, H/2,
+    W/2]: a view/permute of channel blocks that scrambles (channel,
+    position) pairs, unlike a true space-to-depth; kept so weights carried
+    over from darknet reproduce its forward."""
+    B, C, H, W = x.shape
+    t = x.reshape(B, C // 4, H, 2, W, 2).permute(0, 3, 5, 1, 2, 4)
+    return t.reshape(B, 4 * C, H // 2, W // 2)
+
+
 def upsample2x(x):
     """Nearest-neighbor 2x upsample, NCHW."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+class Residual(nn.Module):
+    """1x1 to ``mid`` then 3x3 back to ``ch`` (leaky), plus the input."""
+
+    def __init__(self, ch: int, mid: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(ch, mid, 1, dtype=dtype)
+        self.ConvBN_1 = ConvBN(mid, ch, 3, dtype=dtype)
+
+    def forward(self, x):
+        return x + self.ConvBN_1(self.ConvBN_0(x))
+
+
+class MishResBlock(nn.Module):
+    """``nblocks`` x (1x1 + 3x3 mish ConvBN, plus the input)."""
+
+    def __init__(self, ch: int, nblocks: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.nblocks = nblocks
+        for i in range(2 * nblocks):
+            self.add_module(f"ConvBN_{i}", ConvBN(ch, ch, 3 if i % 2 else 1,
+                                                  act="mish", dtype=dtype))
+
+    def forward(self, x):
+        for i in range(self.nblocks):
+            h = getattr(self, f"ConvBN_{2 * i}")(x)
+            x = x + getattr(self, f"ConvBN_{2 * i + 1}")(h)
+        return x
 
 
 def scale_ch(c: int, width_multiple: float) -> int:

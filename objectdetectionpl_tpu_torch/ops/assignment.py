@@ -1,4 +1,4 @@
-"""YOLOv5 target assignment: the port of ``build_targets_v5`` in ``objectdetectionpl_tpu/ops/assignment.py``.
+"""YOLO target assignment: the port of ``build_targets_yolo`` and ``build_targets_v5`` in ``objectdetectionpl_tpu/ops/assignment.py``.
 
 Padded per-image targets, as in the JAX package:
 
@@ -7,7 +7,9 @@ Padded per-image targets, as in the JAX package:
     mask:   bool  [B, M]      True for real targets, False for padding
 
 Every shape is fixed by (B, M, A): no host sync, no boolean indexing.
-The other families' assignment comes with their slices (ROADMAP A9).
+Padded targets scatter to a sentinel slot one past the end, which is then
+cut off: they drop, never wrap.  The SSD and RetinaNet matching come with
+their slices (ROADMAP A9.4-A9.5).
 """
 
 from __future__ import annotations
@@ -15,6 +17,120 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from objectdetectionpl_tpu_torch.ops import boxes as box_ops
+
+
+def _last_write_wins(lin_idx: torch.Tensor, valid: torch.Tensor,
+                     size: int) -> torch.Tensor:
+    """bool [N]: the valid entries that are the last valid occurrence of
+    their index in ``lin_idx`` [N] (indices in [0, size)).
+
+    The winner is the largest position per index, found by a
+    ``scatter_reduce(amax)``, whose result does not depend on the order
+    the device applies the writes in (a plain ``index_put_`` with
+    duplicate indices has no defined order on CUDA).
+    """
+    n = lin_idx.shape[0]
+    pos = torch.arange(n, device=lin_idx.device)
+    key = torch.where(valid, lin_idx, size)
+    last = torch.full((size + 1,), -1, dtype=pos.dtype, device=pos.device)
+    last = last.scatter_reduce(0, key, pos, "amax")
+    return valid & (last[key] == pos)
+
+
+def _scatter(lin: torch.Tensor, vals, size: int) -> torch.Tensor:
+    """float32 [size]: ``vals`` written at ``lin`` (index ``size`` drops).
+    Callers pass indices that are unique or whose writes agree."""
+    out = torch.zeros(size + 1, dtype=torch.float32, device=lin.device)
+    return out.index_put_((lin,), torch.as_tensor(
+        vals, dtype=torch.float32, device=lin.device).expand(lin.shape))[:size]
+
+
+class YoloTargets(NamedTuple):
+    """Dense per-cell targets for the YOLOv2/3/4 region losses (float32,
+    ``noobj_mask`` bool; ``obj_mask`` is 0/1 floats, as in JAX)."""
+
+    iou_scores: torch.Tensor   # [B, A, g, g]
+    class_mask: torch.Tensor   # [B, A, g, g]
+    obj_mask: torch.Tensor     # [B, A, g, g]
+    noobj_mask: torch.Tensor   # [B, A, g, g] bool
+    tx: torch.Tensor           # [B, A, g, g]
+    ty: torch.Tensor
+    tw: torch.Tensor
+    th: torch.Tensor
+    tcls: torch.Tensor         # [B, A, g, g, C]
+
+
+def build_targets_yolo(pred_boxes: torch.Tensor, pred_cls: torch.Tensor,
+                       labels: torch.Tensor, boxes: torch.Tensor,
+                       mask: torch.Tensor, anchors: torch.Tensor,
+                       ignore_thres: float = 0.5) -> YoloTargets:
+    """YOLOv2/3/4 assignment: each target goes to its best anchor by wh-IoU
+    at the cell that holds its center.
+
+    pred_boxes [B, A, g, g, 4] decoded predictions in grid units (for the
+    metrics only), pred_cls [B, A, g, g, C] class probabilities, anchors
+    [A, 2] float32 grid units.  A cell hit by several targets keeps the
+    last one's ``tx/ty/tw/th``, ``class_mask`` and ``iou_scores``; ``obj``
+    and ``tcls`` take every write; ``noobj`` is cleared at assigned cells
+    and at every anchor whose wh-IoU with a target there exceeds
+    ``ignore_thres``.
+    """
+    B, A, g = pred_boxes.shape[0], pred_boxes.shape[1], pred_boxes.shape[2]
+    C = pred_cls.shape[-1]
+    M = labels.shape[1]
+    dev = boxes.device
+
+    tb = boxes * g                                   # grid units [B, M, 4]
+    gxy, gwh = tb[..., :2], tb[..., 2:4]
+    ious = box_ops.wh_iou(gwh[:, :, None, :], anchors[None, None])  # [B,M,A]
+    best_n = ious.argmax(dim=-1)                     # first max, as jnp
+
+    # truncation toward zero, as astype(int32)
+    gi = gxy[..., 0].to(torch.int64).clamp(0, g - 1)
+    gj = gxy[..., 1].to(torch.int64).clamp(0, g - 1)
+    b_idx = torch.arange(B, device=dev)[:, None].expand(B, M)
+
+    flat_mask = mask.reshape(-1)
+    n_cells = B * A * g * g
+    lin_cell = (((b_idx * A + best_n) * g + gj) * g + gi).reshape(-1)
+    lin_cell = torch.where(flat_mask, lin_cell, n_cells)
+    obj = _scatter(lin_cell, 1.0, n_cells).view(B, A, g, g)
+
+    a_idx = torch.arange(A, device=dev)[None, None, :]
+    lin_ign = (((b_idx[..., None] * A + a_idx) * g + gj[..., None]) * g
+               + gi[..., None]).reshape(-1)
+    ign_upd = (mask[..., None] & (ious > ignore_thres)).reshape(-1)
+    lin_ign = torch.where(ign_upd, lin_ign, n_cells)
+    cleared = _scatter(lin_ign, 1.0, n_cells).view(B, A, g, g)
+    noobj = (obj == 0) & (cleared == 0)
+
+    win = _last_write_wins(lin_cell, flat_mask, n_cells)
+    lin_win = torch.where(win, lin_cell, n_cells)
+
+    def scatter(vals):
+        return _scatter(lin_win, vals.reshape(-1), n_cells).view(B, A, g, g)
+
+    gx, gy = gxy[..., 0], gxy[..., 1]
+    gw, gh = gwh[..., 0], gwh[..., 1]
+    anc = anchors[best_n]                            # [B, M, 2]
+    tx = scatter(gx - torch.floor(gx))
+    ty = scatter(gy - torch.floor(gy))
+    tw = scatter(torch.log(gw / anc[..., 0] + 1e-16))
+    th = scatter(torch.log(gh / anc[..., 1] + 1e-16))
+
+    # one-hot writes: a cell hit by two labels keeps both
+    lbl = labels.clamp(0, C - 1).reshape(-1).to(torch.int64)
+    lin_cls = torch.where(flat_mask, lin_cell * C + lbl, n_cells * C)
+    tcls = _scatter(lin_cls, 1.0, n_cells * C).view(B, A, g, g, C)
+
+    pb = pred_boxes[b_idx, best_n, gj, gi]           # [B, M, 4]
+    pc = pred_cls[b_idx, best_n, gj, gi]             # [B, M, C]
+    correct = (pc.argmax(dim=-1) == labels).to(torch.float32)
+    iou_t = box_ops.iou_plus1(pb, tb, xyxy=False)
+    return YoloTargets(scatter(iou_t), scatter(correct), obj, noobj,
+                       tx, ty, tw, th, tcls)
 
 
 class V5Targets(NamedTuple):

@@ -1,4 +1,4 @@
-"""Box geometry on tensors: the serving and YOLOv5-loss subset of ``objectdetectionpl_tpu/ops/boxes.py``.
+"""Box geometry on tensors: the YOLO subset of ``objectdetectionpl_tpu/ops/boxes.py``.
 
 Elementwise and broadcastable over leading dims, in the input's dtype, with
 the same operation order as the JAX functions so f32 results agree bitwise
@@ -79,3 +79,20 @@ def iou_v5(box1: torch.Tensor, box2: torch.Tensor, xyxy: bool = True,
     v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
     alpha = (v / (1 - iou + v)).detach()
     return iou - (rho2 / c2 + v * alpha)
+
+
+def wh_iou(wh1: torch.Tensor, wh2: torch.Tensor) -> torch.Tensor:
+    """IoU of (w, h) pairs that share their top-left corner, broadcast
+    over the leading dims of ``wh1 [..., 2]`` and ``wh2 [..., 2]``."""
+    inter = (torch.minimum(wh1[..., 0], wh2[..., 0])
+             * torch.minimum(wh1[..., 1], wh2[..., 1]))
+    union = (wh1[..., 0] * wh1[..., 1] + EPS) + wh2[..., 0] * wh2[..., 1] \
+        - inter
+    return inter / union
+
+
+def grid_offsets(g: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """[g, g, (x, y)] integer cell offsets of a g x g map, in ``dtype``."""
+    ar = torch.arange(g, dtype=dtype, device=device)
+    gy, gx = torch.meshgrid(ar, ar, indexing="ij")
+    return torch.stack([gx, gy], dim=-1)

@@ -1,10 +1,11 @@
-"""The YOLOv5 loss: the port of ``objectdetectionpl_tpu/ops/losses.py`` (YOLOv5 part).
+"""The YOLO losses: the port of ``objectdetectionpl_tpu/ops/losses.py`` (YOLO part).
 
 A loss is a function ``(outputs, labels, boxes, mask) -> dict[str, scalar
 tensor]`` over padded targets (``ops/assignment.py``), with the metric keys
 of the JAX package.  Loss terms are computed in the head maps' dtype (bf16
-under bf16 compute) and accumulated in f32, as JAX does; nothing syncs with
-the host.  The other families' losses come with their slices (ROADMAP A9).
+under bf16 compute) and promoted to f32 where they meet the f32 targets,
+as JAX promotes; nothing syncs with the host.  The SSD and RetinaNet
+losses come with their slices (ROADMAP A9.4-A9.5).
 """
 
 from __future__ import annotations
@@ -12,12 +13,31 @@ from __future__ import annotations
 import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from objectdetectionpl_tpu_torch.models.registry import NOT_PORTED
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
 from objectdetectionpl_tpu_torch.ops import assignment
 from objectdetectionpl_tpu_torch.ops import boxes as box_ops
+
+
+# Probability floor of the -100 log clamp: the smallest normal float32 (JAX
+# flushes denormals, so torch's e^-100 would never bind there).
+_BCE_FLOOR_P = 1.2e-38
+
+
+def _safe_log_clamped(p: torch.Tensor) -> torch.Tensor:
+    """log(p) clamped at -100, with gradient 0 (not NaN) where clamped: the
+    log of the untaken branch sees 1, not 0."""
+    unsafe = p < _BCE_FLOOR_P
+    return torch.where(unsafe, -100.0, torch.log(torch.where(unsafe, 1.0, p)))
+
+
+def bce_prob(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """torch.nn.BCELoss semantics on probabilities (log clamped at -100).
+    ``F.binary_cross_entropy`` clamps elsewhere and is not used."""
+    return -(t * _safe_log_clamped(p) + (1.0 - t) * _safe_log_clamped(1.0 - p))
 
 
 def bce_logits(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -47,9 +67,128 @@ def smooth_l1(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 COORD_CRITERIA = {"mse_loss": mse, "smooth_l1_loss": smooth_l1}
 
 
+def _masked_mean(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Mean of x over mask m; 0 when the mask is empty."""
+    m = m.to(x.dtype)
+    return (x * m).sum() / m.sum().clamp(min=1.0)
+
+
 def smooth_bce_targets(eps: float = 0.0):
     """Label-smoothing (positive, negative) targets."""
     return 1.0 - 0.5 * eps, 0.5 * eps
+
+
+# --- YOLO v2/v3/v4 region loss --------------------------------------------
+
+
+def decode_yolo_map(x: torch.Tensor, num_anchors: int, num_classes: int):
+    """Raw head map [B, A*(5+C), g, g] -> (xy sigmoid, raw wh, conf, cls),
+    each [B, A, g, g, ...] in x's dtype."""
+    B, _, g, _ = x.shape
+    pred = x.reshape(B, num_anchors, 5 + num_classes, g, g)
+    pred = pred.permute(0, 1, 3, 4, 2)                  # [B, A, g, g, 5+C]
+    xy = torch.sigmoid(pred[..., 0:2])
+    wh = pred[..., 2:4]
+    conf = torch.sigmoid(pred[..., 4])
+    cls = torch.sigmoid(pred[..., 5:])
+    return xy, wh, conf, cls
+
+
+def decode_yolo_boxes(xy: torch.Tensor, wh: torch.Tensor,
+                      anchors_grid: torch.Tensor,
+                      cap_wh: bool) -> torch.Tensor:
+    """[B, A, g, g, 4] grid-unit xywh boxes from :func:`decode_yolo_map`'s
+    ``xy`` and raw ``wh``, in their dtype; ``cap_wh`` caps the exp at
+    e^20 (the loss's assignment does, the statistics do not)."""
+    A, g = xy.shape[1], xy.shape[2]
+    anc = anchors_grid.reshape(1, A, 1, 1, 2).to(xy.dtype)
+    return torch.cat([xy + box_ops.grid_offsets(g, xy.dtype, xy.device),
+                      torch.exp(wh.clamp(max=20.0) if cap_wh else wh) * anc],
+                     dim=-1)
+
+
+def region_loss(x: torch.Tensor, labels: torch.Tensor, boxes: torch.Tensor,
+                mask: torch.Tensor, anchors_grid: torch.Tensor,
+                num_classes: int, coord_criterion=mse,
+                cls_criterion=bce_prob, conf_criterion=bce_prob,
+                ignore_thres: float = 0.5, obj_scale: float = 1.0,
+                noobj_scale: float = 100.0) -> dict:
+    """Single-scale YOLO region loss over a raw map [B, A*(5+C), g, g];
+    ``anchors_grid`` [A, 2] float32 in grid units, on x's device.
+
+    The assignment sees detached boxes and classes, with the exp of ``wh``
+    capped at e^20 (the boxes feed only its metrics); the loss terms use
+    the raw ``wh``.
+    """
+    A = anchors_grid.shape[0]
+    xy, wh, conf, cls = decode_yolo_map(x, A, num_classes)
+    pred_boxes = decode_yolo_boxes(xy, wh, anchors_grid, cap_wh=True)
+    anc = anchors_grid.reshape(1, A, 1, 1, 2).to(x.dtype)
+
+    tgt = assignment.build_targets_yolo(
+        pred_boxes.detach(), cls.detach(), labels, boxes, mask,
+        anchors_grid, ignore_thres)
+    obj = tgt.obj_mask
+    noobj = tgt.noobj_mask.to(x.dtype)
+
+    loss_x = _masked_mean(coord_criterion(xy[..., 0], tgt.tx), obj)
+    loss_y = _masked_mean(coord_criterion(xy[..., 1], tgt.ty), obj)
+    loss_w = _masked_mean(coord_criterion(wh[..., 0], tgt.tw), obj)
+    loss_h = _masked_mean(coord_criterion(wh[..., 1], tgt.th), obj)
+    loss_conf_obj = _masked_mean(conf_criterion(conf, obj), obj)
+    loss_conf_noobj = _masked_mean(conf_criterion(conf, obj), noobj)
+    loss_conf = obj_scale * loss_conf_obj + noobj_scale * loss_conf_noobj
+    loss_cls = _masked_mean(cls_criterion(cls, tgt.tcls),
+                            obj[..., None].expand(cls.shape))
+    total = loss_x + loss_y + loss_w + loss_h + loss_conf + loss_cls
+
+    # "Size": sqrt-wh error at assigned cells
+    pw = torch.sqrt(pred_boxes[..., 2:4].abs() + 1e-32)
+    tw_grid = torch.sqrt(
+        (torch.exp(torch.stack([tgt.tw, tgt.th], -1)) * anc).abs() + 1e-32)
+    wh_loss = _masked_mean(coord_criterion(pw, tw_grid).mean(-1), obj)
+
+    return {"loss": total, "Localization": loss_x + loss_y, "Size": wh_loss,
+            "Conf": loss_conf, "Classification": loss_cls,
+            "Conf_obj": loss_conf_obj, "Conf_noobj": loss_conf_noobj}
+
+
+def multiscale_region_loss(outputs: Sequence[torch.Tensor], labels, boxes,
+                           mask, anchors_grid_per_scale, num_classes: int,
+                           **kw) -> dict:
+    """Per-scale region loss; every metric, the loss included, is the mean
+    over the scales."""
+    acc = None
+    for out, anc in zip(outputs, anchors_grid_per_scale):
+        m = region_loss(out, labels, boxes, mask, anc, num_classes, **kw)
+        acc = m if acc is None else {k: acc[k] + m[k] for k in m}
+    return {k: v / len(outputs) for k, v in acc.items()}
+
+
+def yolo_anchors_grid(model_name: str, anchors=None,
+                      v3_double_stride: bool = False):
+    """The region losses' per-scale anchors in grid units, float32 numpy,
+    in the model's output order (YOLOv2: one scale, already grid units).
+
+    ``v3_double_stride`` divides YOLOv3's anchors by the stride twice
+    (8-32x smaller), as the reference YOLOv3 does: once when it builds the
+    model, again in its loss."""
+    if model_name == "YOLOv2":
+        return [np.asarray(anchor_lib.YOLOV2_ANCHORS if anchors is None
+                           else anchors, dtype=np.float32)]
+    if model_name == "YOLOv3":
+        anc = anchor_lib.YOLOV3_ANCHORS if anchors is None else anchors
+        return [np.asarray(anc[i], np.float32) / (s * s if v3_double_stride
+                                                  else s)
+                for i, s in enumerate(anchor_lib.YOLOV3_STRIDES)]
+    if model_name == "YOLOv4":
+        anc = anchor_lib.YOLOV4_ANCHORS if anchors is None else anchors
+        return [np.asarray(anc[list(m)], np.float32) / s for m, s in
+                zip(anchor_lib.YOLOV4_ANCH_MASKS, anchor_lib.YOLOV4_STRIDES)]
+    raise ValueError(f"unknown model {model_name!r}")
+
+
+# --- YOLOv5 loss -----------------------------------------------------------
 
 
 def yolov5_loss(outputs: Sequence[torch.Tensor], labels: torch.Tensor,
@@ -124,32 +263,49 @@ def make_loss(model_name: str, num_classes: int, img_size: int,
               coord_criterion: str = "smooth_l1_loss",
               cls_criterion: str = "bce_loss", anchors=None,
               v3_double_stride: bool = False, **kw):
-    """String-config loss factory; YOLOv5 only so far.
+    """String-config loss factory for the YOLO families.
 
     Returns ``(outputs, labels, boxes, mask) -> metrics dict``.  The anchor
-    table is copied to each device once, on the first call there.  As in
+    tables are copied to each device once, on the first call there.  As in
     the JAX factory, an unknown ``coord_criterion`` raises KeyError for
-    every family, and YOLOv5 ignores ``img_size``, the criteria and
-    ``v3_double_stride`` (the YOLOv3 anchor flag, ROADMAP A9.1); ``kw``
-    goes to :func:`yolov5_loss`.
+    every family; the YOLO families ignore ``img_size`` and
+    ``cls_criterion``, and all but YOLOv3 ignore ``v3_double_stride``
+    (:func:`yolo_anchors_grid`).  YOLOv2/v3/v4 take ``coord_criterion``
+    for the box terms; YOLOv5 ignores it.  ``kw`` goes to
+    :func:`region_loss` or :func:`yolov5_loss`.
     """
-    if coord_criterion not in COORD_CRITERIA:
-        raise KeyError(coord_criterion)
+    coord = COORD_CRITERIA[coord_criterion]
     if model_name in NOT_PORTED:
         raise NotImplementedError(f"{model_name} loss is not ported yet "
                                   f"({NOT_PORTED[model_name]})")
-    if model_name != "YOLOv5":
-        raise ValueError(f"unknown model {model_name!r}")
-    anc = anchor_lib.YOLOV5_ANCHORS if anchors is None else anchors
     on_device = {}
 
-    def loss(outputs, labels, boxes, mask):
-        dev = outputs[0].device
+    def tables(dev, arrays):
         if dev not in on_device:
             on_device[dev] = [torch.as_tensor(a, dtype=torch.float32,
-                                              device=dev) for a in anc]
+                                              device=dev) for a in arrays]
+        return on_device[dev]
+
+    if model_name != "YOLOv5":
+        per_scale = yolo_anchors_grid(model_name, anchors, v3_double_stride)
+
+        def region(outputs, labels, boxes, mask):
+            if model_name == "YOLOv2":                  # one map
+                return region_loss(outputs, labels, boxes, mask,
+                                   tables(outputs.device, per_scale)[0],
+                                   num_classes, coord_criterion=coord, **kw)
+            return multiscale_region_loss(
+                outputs, labels, boxes, mask,
+                tables(outputs[0].device, per_scale), num_classes,
+                coord_criterion=coord, **kw)
+
+        return region
+
+    anc = anchor_lib.YOLOV5_ANCHORS if anchors is None else anchors
+
+    def loss(outputs, labels, boxes, mask):
         return yolov5_loss(outputs, labels, boxes, mask,
-                           anchors_px=on_device[dev],
+                           anchors_px=tables(outputs[0].device, anc),
                            strides=anchor_lib.YOLOV5_STRIDES,
                            num_classes=num_classes, **kw)
 

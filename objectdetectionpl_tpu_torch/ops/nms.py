@@ -1,4 +1,4 @@
-"""YOLOv5 decode and batched weighted-merge NMS on tensors.
+"""YOLO decodes and batched weighted-merge NMS on tensors.
 
 The serving subset of ``objectdetectionpl_tpu/ops/nms.py``: decoded
 predictions ``[B, N, 5+C]`` -> top-k candidates -> class-aware, obj-weighted
@@ -51,6 +51,27 @@ class YoloCandidates(NamedTuple):
                 f32(self.weight))
 
 
+def decode_yolo_predictions(outputs: Sequence[torch.Tensor], anchors_px,
+                            strides, num_classes: int) -> torch.Tensor:
+    """Decode YOLOv2/v3/v4 raw maps [B, A*(5+C), g, g] to [B, N, 5+C]
+    pixel-space rows: xy = (sigmoid + grid) * stride, wh = exp * anchor,
+    obj/cls = sigmoid.  Computed in the maps' dtype, as the JAX decode
+    is (the anchors too: pixels cast to it, then divided by the stride)."""
+    parts = []
+    for x, anc_px, stride in zip(outputs, anchors_px, strides):
+        B, _, g, _ = x.shape
+        A = len(anc_px)
+        pred = x.reshape(B, A, 5 + num_classes, g, g).permute(0, 1, 3, 4, 2)
+        grid = box_ops.grid_offsets(g, x.dtype, x.device)
+        anc = torch.as_tensor(np.asarray(anc_px), dtype=x.dtype,
+                              device=x.device).reshape(1, A, 1, 1, 2) / stride
+        xy = (torch.sigmoid(pred[..., :2]) + grid) * stride
+        wh = torch.exp(pred[..., 2:4]) * anc * stride
+        dec = torch.cat([xy, wh, torch.sigmoid(pred[..., 4:])], dim=-1)
+        parts.append(dec.reshape(B, -1, 5 + num_classes))
+    return torch.cat(parts, dim=1)
+
+
 def decode_yolov5_predictions(outputs: Sequence[torch.Tensor], anchors_px,
                               strides, num_classes: int) -> torch.Tensor:
     """Decode YOLOv5 maps [B, 3, g, g, 5+C] to [B, N, 5+C] pixel-space rows.
@@ -61,9 +82,7 @@ def decode_yolov5_predictions(outputs: Sequence[torch.Tensor], anchors_px,
     parts = []
     for x, anc_px, stride in zip(outputs, anchors_px, strides):
         B, A, g, _, _ = x.shape
-        ar = torch.arange(g, dtype=x.dtype, device=x.device)
-        gy, gx = torch.meshgrid(ar, ar, indexing="ij")
-        grid = torch.stack([gx, gy], dim=-1)                 # [g, g, (x, y)]
+        grid = box_ops.grid_offsets(g, x.dtype, x.device)
         anc = torch.as_tensor(np.asarray(anc_px), dtype=x.dtype,
                               device=x.device).reshape(1, A, 1, 1, 2)
         sig = torch.sigmoid(x)

@@ -11,16 +11,17 @@ The port of ``objectdetectionpl_tpu/train/loop.py``, method for method:
   memory; the learning rate stepped per epoch on val_loss; top-k
   checkpoints, early stopping and a warm start from the best checkpoint.
 - test: ``predict_step`` (forward with the EMA weights when enabled +
-  decode + the NMS kernel, once per batch) -> one host fetch per batch ->
-  greedy TP matching -> ``ap_per_class`` mAP; Test/* scalars, GT | pred
-  image panels and a stdout table.
+  decode + the NMS kernel, once per batch) and, for YOLOv2/v3/v4, the
+  per-grid statistics of a second eval forward -> one host fetch per
+  batch -> greedy TP matching -> ``ap_per_class`` mAP; Test/* scalars
+  (``Test/{g}/{key}`` per grid), GT | pred image panels and a stdout
+  table.
 
 The augmentation draws from a ``torch.Generator`` on the device seeded with
 ``seed + 1``; the JAX Trainer draws from ``jax.random``, so fits differ
 between the packages (ROADMAP §C) while everything after the draw is the
 same.  Not ported yet, and raising when asked for: mosaic (A6), torch
-checkpoints (A11), the tuner (A8 step 6), more than one device (A10), and
-the per-grid YOLO statistics of YOLOv2-v4 (A9).
+checkpoints (A11), the tuner (A8 step 6) and more than one device (A10).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from objectdetectionpl_tpu_torch.models import build_model
 from objectdetectionpl_tpu_torch.ops import boxes as box_ops
 from objectdetectionpl_tpu_torch.ops import losses as loss_lib
 from objectdetectionpl_tpu_torch.ops import metrics as metric_lib
+from objectdetectionpl_tpu_torch.ops import yolo_stats
 from objectdetectionpl_tpu_torch.train import checkpoint as ckpt_lib
 from objectdetectionpl_tpu_torch.train import optim
 from objectdetectionpl_tpu_torch.train import state as state_lib
@@ -305,15 +307,38 @@ class Trainer:
 
     # ----------------------------------------------------------------- test --
 
+    def _yolo_stat_fn(self):
+        """The per-grid statistics of YOLOv2/v3/v4 under the weights
+        ``predict_step`` serves (EMA when enabled), else None.  The anchors
+        are divided by the stride once, whatever ``v3_double_stride``."""
+        if self.cfg.model_name not in step_lib.YOLO_DECODE:
+            return None
+        per_scale = [torch.as_tensor(a, device=self.device)
+                     for a in loss_lib.yolo_anchors_grid(self.cfg.model_name)]
+
+        def stat_fn(images, labels, boxes, mask):
+            with torch.inference_mode():
+                out = torch.func.functional_call(
+                    self.model, self.state.eval_params, (images,))
+                return yolo_stats.yolo_statistics(out, labels, boxes, mask,
+                                                  per_scale, self.num_classes)
+        return stat_fn
+
     def test(self) -> Dict[str, float]:
         """mAP evaluation with NMS, one ``predict_step`` per test batch."""
         self.model.eval()
         stats = []
         target_classes: List[int] = []
         panels = 0
+        yolo_stat_fn = self._yolo_stat_fn()
+        grid_stats: List[Dict[str, float]] = []
         for batch in self.dm.test_dataloader():
             images, labels, boxes, mask = self._device_batch(batch, False)
             res = self.predict_step(self.state, images)
+            ys = ({} if yolo_stat_fn is None else
+                  {f"{g}/{k}": v for g, d in
+                   yolo_stat_fn(images, labels, boxes, mask).items()
+                   for k, v in d.items()})
             # the reference ranks detections by column 4 of its NMS rows:
             # obj_conf for the YOLO families
             conf = (res.scores if self.cfg.model_name in ("SSD", "RetinaNet")
@@ -322,9 +347,11 @@ class Trainer:
             # and the panel need
             fetch = [res.boxes, conf, res.labels, res.valid,
                      box_ops.xywh_to_xyxy(boxes) * self.img_size, labels,
-                     mask] + ([images[0]] if panels < 4 else [])
-            pboxes, conf, plabels, pvalid, gt_xyxy, labels, mask, *image0 = \
+                     mask, *ys.values()] + ([images[0]] if panels < 4 else [])
+            pboxes, conf, plabels, pvalid, gt_xyxy, labels, mask, *rest = \
                 _to_host(fetch)
+            grid_stats.append(dict(zip(ys, rest)))
+            image0 = rest[len(ys):]
             s = metric_lib.batch_statistics(pboxes, conf, plabels, pvalid,
                                             gt_xyxy, labels, mask)
             stats.append(s)
@@ -342,6 +369,10 @@ class Trainer:
         results = metric_lib.evaluate_map(stats, np.asarray(target_classes))
         for k in ("precision", "recall", "mAP", "f1"):
             self.writer.scalar(f"Test/{k}", results[k], 0)
+        # per-grid YOLO statistics: means over the test batches
+        for k in (grid_stats[0] if grid_stats else ()):
+            results[k] = float(np.mean([s[k] for s in grid_stats]))
+            self.writer.scalar(f"Test/{k}", results[k], 0)
 
         print("---- mAP per class ----")
         for cid, ap in sorted(results["per_class_AP"].items()):
@@ -349,5 +380,9 @@ class Trainer:
                     else str(cid))
             print(f"  {name}: {ap:.4f}")
         print(f"mAP: {results['mAP']:.4f}")
+        if grid_stats:
+            print("---- YOLO statistics per grid ----")
+            for k in grid_stats[0]:
+                print(f"  {k}: {results[k]:.4f}")
         self.writer.flush()
         return results

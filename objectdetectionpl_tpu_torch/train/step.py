@@ -141,24 +141,44 @@ def make_predict_step(model: torch.nn.Module, postprocess: Callable
     return predict_step
 
 
+# (anchors in input pixels per output map, strides) of the YOLOv2/v3/v4
+# decodes.  YOLOv2's anchors are output-grid units: x 32 at stride 32,
+# whatever the input size.
+YOLO_DECODE = {
+    "YOLOv2": ([anchor_lib.YOLOV2_ANCHORS * 32], (32,)),
+    "YOLOv3": (anchor_lib.YOLOV3_ANCHORS, anchor_lib.YOLOV3_STRIDES),
+    "YOLOv4": ([anchor_lib.YOLOV4_ANCHORS[list(m)]
+                for m in anchor_lib.YOLOV4_ANCH_MASKS],
+               anchor_lib.YOLOV4_STRIDES),
+}
+
+
 def make_postprocess(model_name: str, num_classes: int, img_size: int,
                      conf_thres: float = 0.5, nms_thres: float = 0.4,
                      top_k: int = 300) -> Callable:
-    """Model-family decode + NMS, emitting pixel-space boxes (YOLOv5 only).
+    """YOLO-family decode + NMS, emitting pixel-space boxes.
 
-    ``img_size`` is unused by YOLOv5, whose decode is stride-based; it is
-    kept so callers pass the same arguments as to the JAX function.
+    ``img_size`` is unused by the YOLO decodes, which are stride-based; it
+    is kept so callers pass the same arguments as to the JAX function.
     """
     if model_name in NOT_PORTED:
         raise NotImplementedError(f"{model_name} postprocess is not ported "
                                   f"yet ({NOT_PORTED[model_name]})")
-    if model_name != "YOLOv5":
-        raise KeyError(model_name)
+    if model_name == "YOLOv5":
+        def post(outputs):
+            preds = nms.decode_yolov5_predictions(
+                outputs, anchor_lib.YOLOV5_ANCHORS,
+                anchor_lib.YOLOV5_STRIDES, num_classes)
+            return nms.yolo_nms(preds, conf_thres, nms_thres, top_k)
+        return post
+
+    anchors_px, strides = YOLO_DECODE[model_name]
 
     def post(outputs):
-        preds = nms.decode_yolov5_predictions(
-            outputs, anchor_lib.YOLOV5_ANCHORS, anchor_lib.YOLOV5_STRIDES,
-            num_classes)
+        if not isinstance(outputs, (list, tuple)):
+            outputs = [outputs]
+        preds = nms.decode_yolo_predictions(outputs, anchors_px, strides,
+                                            num_classes)
         return nms.yolo_nms(preds, conf_thres, nms_thres, top_k)
 
     return post

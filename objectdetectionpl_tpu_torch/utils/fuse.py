@@ -14,6 +14,14 @@ BN_EPS = 1e-5
 
 STEM_CONV = "Focus_0.ConvBN_0.Conv_0"
 
+# the first conv of each family, the one an input scale folds into
+STEM_CONVS = {
+    "YOLOv2": "ConvBN_0.Conv_0",
+    "YOLOv3": "Darknet53_0.ConvBN_0.Conv_0",
+    "YOLOv4": "DownSample1_0.ConvBN_0.Conv_0",
+    "YOLOv5": STEM_CONV,
+}
+
 
 def fuse_conv_bn(weight: torch.Tensor, bn_scale: torch.Tensor,
                  bn_bias: torch.Tensor, bn_mean: torch.Tensor,

@@ -65,7 +65,9 @@ def _load_jax_library():
     except OSError as e:            # missing or still being written
         return f"ctypes.CDLL({path!r}): {e}"
     jax_native._lib, jax_native._load_failed = None, False
-    return None if jax_native.available() else "jax_native.available() is False"
+    if not jax_native.available():
+        return "jax_native.available() is False"
+    return None
 
 
 @pytest.fixture(scope="module")

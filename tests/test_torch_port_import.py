@@ -44,6 +44,8 @@ def test_port_and_chip_smoke_import_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert "objectdetectionpl_tpu_torch.ops.cuda.nms_kernel" in res["modules"]
+    assert {"objectdetectionpl_tpu_torch.ops.yolo_stats",
+            "objectdetectionpl_tpu_torch.models.yolov4"} <= set(res["modules"])
     assert len(res["modules"]) >= 15
 
 

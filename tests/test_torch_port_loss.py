@@ -162,7 +162,7 @@ def test_yolov5_loss_bf16_dtype_flow_matches_jax():
 
 
 @pytest.mark.parametrize("name,error,match", [
-    ("YOLOv3", NotImplementedError, r"ROADMAP A9\.1"),
+    ("RetinaNet", NotImplementedError, r"ROADMAP A9\.4"),
     ("SSD", NotImplementedError, r"ROADMAP A9\.5"),
     ("YOLOv9", ValueError, "unknown model"),
 ])

@@ -20,6 +20,12 @@
   them within 1e-3 of the threshold and their scores at least 3e-4 of
   their value apart (all asserted).  At 64 px an image has 252 rows, fewer than
   ``nms_top_k``, so no top-k cut can differ.
+- The same for YOLOv2 at 128 px (80 rows an image; ``conf_thres`` 0.65,
+  the same margins asserted), and its per-grid statistics ``4/{key}``
+  against the JAX Trainer's within ``STAT_TOL`` (``rtol=1e-4,
+  atol=1e-6``).  Both comparisons wait for the JAX package's native
+  library (``test_torch_port_data.jax_library``): without it JAX's Loader
+  resizes with cv2 or PIL, up to 1/255 off.
 - Checkpoints: save -> restore gives identical tensors; top-k retention,
   the best step and ``best_model_path.txt`` follow the JAX (orbax) manager
   on the same val_loss sequence, ties included; ``EarlyStopping`` equals
@@ -29,7 +35,8 @@
   summary table and the profiler's trace.
 - The CLI on ``configs/config.yaml`` (its ``yaml_test`` caps: 128 px, B=2,
   accumulation 2, 4 train batches, 2 epochs) with ``--device cpu``, then
-  an eval-only run that restores the best checkpoint.
+  an eval-only run that restores the best checkpoint; and on the YAML's
+  own model, YOLOv2, for one epoch (its checkpoint is ~0.6 GB).
 """
 
 import json
@@ -62,6 +69,7 @@ from objectdetectionpl_tpu_torch.utils import profiler, summary
 from objectdetectionpl_tpu_torch.utils.logging import (MetricWriter,
                                                        log_param_histograms)
 from objectdetectionpl_tpu_torch.utils.weights import state_dict_from_flax
+from test_torch_port_data import jax_library  # noqa: F401  (a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(REPO, "configs", "config.yaml")
@@ -69,6 +77,7 @@ CONF = 0.75
 VAR_FLOOR = 0.03
 BOX_TOL = dict(rtol=1e-4, atol=1e-3)
 OBJ_TOL = dict(rtol=1e-4, atol=1e-6)
+STAT_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
 def _draw_variables(params, seed):
@@ -114,13 +123,25 @@ def _recording(fn, calls):
     return wrapper
 
 
-def test_trainer_test_equals_jax(tmp_path, monkeypatch):
+def _decode(model_name, out):
+    """JAX's decoded rows [B, N, 5+C] of a model's head maps (C=3)."""
+    if model_name == "YOLOv5":
+        return jax_nms.decode_yolov5_predictions(
+            out, jax_anchors.YOLOV5_ANCHORS, jax_anchors.YOLOV5_STRIDES, 3)
+    return jax_nms.decode_yolo_predictions(
+        [out], [jax_anchors.YOLOV2_ANCHORS * 32], (32,), 3, 0)
+
+
+def _test_both(tmp_path, monkeypatch, model_name, img_size, conf):
+    """``Trainer.test`` of the JAX package and of the port on bridged
+    weights (EMA = params x 0.9); returns (got, want) after comparing what
+    each handed to ``batch_statistics``."""
     # the JAX summary inits the model a second time to tabulate it
     monkeypatch.setattr(jax_loop.summary_lib, "save_summary",
                         lambda *a, **k: None)
     kw = dict(data_module="Synthetic", synthetic_size=8, batch_size=2,
-              img_size=64, model_name="YOLOv5", mesh_shape=(1, 1),
-              ema_decay=0.9, max_boxes=8, conf_thres=CONF)
+              img_size=img_size, model_name=model_name, mesh_shape=(1, 1),
+              ema_decay=0.9, max_boxes=8, conf_thres=conf)
     jt = jax_loop.Trainer(JaxConfig(log_dir=str(tmp_path / "jax"), **kw))
     pt = loop.Trainer(Config(log_dir=str(tmp_path / "port"), **kw),
                       device="cpu")
@@ -144,12 +165,11 @@ def test_trainer_test_equals_jax(tmp_path, monkeypatch):
     for b in jt.dm.test_dataloader():
         out = jt.model.apply({"params": ema, "batch_stats": stats},
                              jnp.asarray(b.images), train=False)
-        dec = np.asarray(jax_nms.decode_yolov5_predictions(
-            out, jax_anchors.YOLOV5_ANCHORS, jax_anchors.YOLOV5_STRIDES, 3))
+        dec = np.asarray(_decode(model_name, out))
         obj = dec[..., 4]
-        assert np.abs(obj - CONF).min() > 1e-3
+        assert np.abs(obj - conf).min() > 1e-3
         for o, score in zip(obj, obj * dec[..., 5:].max(-1)):
-            s = np.sort(score[o >= CONF])[::-1]
+            s = np.sort(score[o >= conf])[::-1]
             assert len(s) >= 2 and (-np.diff(s) > 3e-4 * s[1:]).all()
 
     def no_augment(*args, **kwargs):
@@ -183,6 +203,29 @@ def test_trainer_test_equals_jax(tmp_path, monkeypatch):
     assert got["per_class_AP"].keys() == want["per_class_AP"].keys()
     for c, ap in want["per_class_AP"].items():
         np.testing.assert_allclose(got["per_class_AP"][c], ap, rtol=1e-6)
+    return got, want
+
+
+def test_trainer_test_equals_jax(tmp_path, monkeypatch, jax_library):
+    _test_both(tmp_path, monkeypatch, "YOLOv5", 64, CONF)
+
+
+def test_trainer_test_yolov2_equals_jax(tmp_path, monkeypatch, jax_library):
+    """YOLOv2 at 128 px (a 4x4 grid, 80 rows per image), ``conf_thres``
+    0.65 (its obj tops out near 0.7 under these weights): the detections,
+    the mAP and the per-grid statistics ``4/{key}`` (within ``STAT_TOL``),
+    means over the test batches as the JAX Trainer takes them."""
+    got, want = _test_both(tmp_path, monkeypatch, "YOLOv2", 128, 0.65)
+    keys = [f"4/{k}" for k in ("cls_acc", "recall50", "recall75",
+                               "precision", "conf_obj", "conf_noobj")]
+    assert keys == [k for k in got if "/" in k]
+    for k in keys:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **STAT_TOL)
+    assert got["4/conf_obj"] > 0 and got["4/conf_noobj"] > 0
+    rows = [json.loads(line) for line in (tmp_path / "port" / "Synthetic" /
+                                          "YOLOv2" / "metrics.jsonl")
+            .read_text().splitlines()]
+    assert {f"Test/{k}" for k in keys} <= {r["tag"] for r in rows}
 
 
 # --- checkpoints -----------------------------------------------------------
@@ -391,6 +434,32 @@ def test_cli_fits_checkpoints_and_tests(tmp_path, capsys):
         capsys.readouterr().out
     if best_step == 1:                    # the weights the first test used
         assert again == results
+
+
+def test_cli_trains_the_yaml_default_model(tmp_path, capsys):
+    """The YAML's own ``model_name`` (YOLOv2) with ``--device cpu``: one
+    epoch at the ``yaml_test`` caps (128 px, so a 4x4 grid) and one
+    checkpoint (~0.6 GB), then the mAP table with the per-grid
+    statistics."""
+    results = cli_run.main([YAML, "--device", "cpu", "--set", "log_dir",
+                            str(tmp_path), "--set", "max_epochs", "1"])
+    out = capsys.readouterr().out
+    assert "[run] model=YOLOv2 dataset=Synthetic img_size=128" in out
+    assert "---- mAP per class ----" in out
+    assert "---- YOLO statistics per grid ----" in out
+    keys = [f"4/{k}" for k in ("cls_acc", "recall50", "recall75",
+                               "precision", "conf_obj", "conf_noobj")]
+    for k in ["mAP", "precision", "recall", "f1"] + keys:
+        assert math.isfinite(results[k]), k
+        assert k.startswith("4/") or 0.0 <= results[k] <= 1.0, k
+        assert not k.startswith("4/") or f"  {k}: {results[k]:.4f}" in out
+    run_dir = tmp_path / "Synthetic" / "YOLOv2"
+    assert sorted(p.name for p in (run_dir / "checkpoints").iterdir()) == [
+        "0", "best_model_path.txt"]
+    tags = {json.loads(line)["tag"] for line in
+            (run_dir / "metrics.jsonl").read_text().splitlines()}
+    assert {"Loss/Size/Train", "Loss/Conf_noobj/Train", "val_loss",
+            "Test/mAP", "Test/4/recall50"} <= tags
 
 
 def test_cli_without_device_needs_cuda(tmp_path):
