@@ -350,7 +350,8 @@ class Trainer:
                      mask, *ys.values()] + ([images[0]] if panels < 4 else [])
             pboxes, conf, plabels, pvalid, gt_xyxy, labels, mask, *rest = \
                 _to_host(fetch)
-            grid_stats.append(dict(zip(ys, rest)))
+            if ys:
+                grid_stats.append(dict(zip(ys, rest)))
             image0 = rest[len(ys):]
             s = metric_lib.batch_statistics(pboxes, conf, plabels, pvalid,
                                             gt_xyxy, labels, mask)

@@ -410,6 +410,7 @@ def test_cli_fits_checkpoints_and_tests(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "img_size=128 batch=2 accum=2 device=cpu" in out
     assert "---- mAP per class ----" in out and "mAP: " in out
+    assert "YOLO statistics" not in out          # YOLOv2/v3/v4 only
 
     run_dir = tmp_path / "Synthetic" / "YOLOv5"
     ckpt_dir = run_dir / "checkpoints"
