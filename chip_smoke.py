@@ -14,11 +14,15 @@ exits non-zero:
    kernel, and its performance warnings; any spill fails the phase.
 3. kernel  -- ``greedy_nms`` (CUDA) against ``greedy_nms_plain`` on the card
    over the listed cases (one with 80 classes at B=64, pairs whose IoU
-   lies within ulps of the threshold, a negative threshold): ``keep``
+   lies within ulps of the threshold, a negative threshold; the anchor
+   families' scan, class-agnostic without merge at IoU 0.5 and K=100, at
+   B=1 and B=64, ``drop_lone_survivor`` off and on; a last kept row that
+   is lone, which the flag must drop, and one that is not): ``keep``
    identical, boxes within rtol=1e-4, atol=1e-3 on all
    rows; then timings at K=300, B=1 and B=256 with 5 classes and B=64 with
-   80: the kernel's device time (CUDA events) and host-inclusive time per
-   call; the plain version's host-inclusive time (a Python loop of ~1200
+   80, and the anchor scan at B=64 with the flag on: the kernel's device
+   time (CUDA events) and host-inclusive time per call; the plain
+   version's host-inclusive time (a Python loop of ~100 to ~1200
    launches); the greedy chain's length (kept heads per image, mean, max).
 4. fp32    -- YOLOv5s-640, 80 classes, B=2, f32 with TF32 off: head maps on
    the card against the CPU on the same seeded weights; the card's decoded
@@ -96,7 +100,28 @@ exits non-zero:
    warp launches equal the microbatches, NMS launches the test batches,
    and the results hold the per-grid statistics ``13/{key}``, finite; the
    best checkpoint (~0.6 GB) restored equal to the Trainer's tensors.
-15. conv_check -- the 13 3x3/s1 convs of one YOLOv5s-640 bf16 train
+15. anchor_fp32 -- RetinaNet (ResNet-50-FPN) at 600 px and SSD-300 (VGG16),
+   80 classes, B=2, f32 with TF32 off, card against CPU on the same
+   seeded weights: head maps (``ANCHOR_HEAD_REL``), ``retina_match`` /
+   ``ssd_match`` on the same targets (integer fields equal, offsets within
+   ``ANCHOR_MATCH_TOL``), the card's anchor candidates through the NMS
+   kernel and its plain version (``keep`` identical, the flag off and
+   on), one train step's loss and d(loss)/d(head maps)
+   (``ANCHOR_TRAIN_TOL``).
+16. anchor_serving -- each family's ``predict_step`` at its size, 80
+   classes, bf16, uint8 with /255 folded into its stem: B=64 and B=1, one
+   warm-up and three batches each, one NMS launch a batch; ms per batch,
+   img/s, forward GFLOP per image; the last B=64 batch's candidates
+   (bf16 scores) through kernel and plain version.
+17. anchor_training -- each family, bf16, Adam lr 1e-3 / wd 1e-5, B=32
+   (B=16 where B=32 needs more than ``ANCHOR_TRAIN_MEM_GB``), M=32:
+   ``augment_batch`` -> ``train_step``, one warm-up and three timed
+   steps; one warp launch a step, a finite loss, peak memory.
+18. trainer_retinanet, trainer_ssd -- as ``trainer``, one epoch, with
+   ``model_name`` RetinaNet (600 px) or SSD (300 px): warp launches equal
+   the microbatches, NMS launches the test batches, a finite mAP table,
+   the best checkpoint restored equal bit for bit.
+19. conv_check -- the 13 3x3/s1 convs of one YOLOv5s-640 bf16 train
    forward and backward at B=64, captured by hooks on ``blocks.Conv``
    (x, w, dy): ``conv3x3_s1`` (fwd, and dgrad on ``rot_w(w)``) and
    ``conv3x3_s1_wgrad`` against their plain versions, each twice (the two
@@ -112,20 +137,21 @@ exits non-zero:
    forward-kernel, 1 wgrad, 1 reduction.  Tolerances elementwise at ``CONV_BF16_ULPS`` / ``CONV_SUM_TOL``; each case prints
    its median limit beside the median |reference| and each planted fault's
    share of the limit.
-16. conv_time -- the conv path: one ``conv3x3_s1_op`` forward and backward
+20. conv_time -- the conv path: one ``conv3x3_s1_op`` forward and backward
    per captured conv through the A/B tool's kernel step, launch counts
    zeroed before and read after; then per distinct shape and summed over
    the 13: device and host-inclusive ms of fwd, dgrad and wgrad, bounds and
    the share of the bound reached, plain versions' ms and the cuDNN
    yardstick's ms with the kernel's factor against it; then the A/B tool
    ``tools/conv_bench.py`` itself on 40x40 128->128, B=64, ``--grad``.
-17. (``--profile``) torch.profiler over one B=64 serving batch and over one
+21. (``--profile``) torch.profiler over one B=64 serving batch and over one
    B=64 training step: device time by kernel and by kernel class, and the
    idle share against the profiled call and against the mean of three
    unprofiled calls (the profiler's own host cost inflates the first).
 
 Then the ``kernels`` line (the NMS and warp entries also carry the launch
-counts of the YOLO phases) and, last, ``{"ok": true, "device": {...}}``.
+counts of the YOLO and anchor phases, and the NMS entry the anchor scan's
+times) and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it prints nothing to stdout and exits 1.
 """
 
@@ -152,6 +178,7 @@ from objectdetectionpl_tpu_torch.models import build_model
 from objectdetectionpl_tpu_torch.nn import blocks
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
 from objectdetectionpl_tpu_torch.ops import assignment, losses, nms
+from objectdetectionpl_tpu_torch.ops import boxes as box_ops
 from objectdetectionpl_tpu_torch.ops.cuda import (_build, conv_kernel,
                                                   nms_kernel, warp_kernel)
 from objectdetectionpl_tpu_torch.tools import conv_bench, kernel_ab
@@ -226,9 +253,11 @@ CONV_SUM_TOL = 2
 CONV_REPS = 20
 # greedy_nms work, counted from the candidates: one IoU test per valid pair
 # i < j (4 min/max, 2x(sub, add, max), mul, add, sub, add, div, compare =
-# 16 ops); per valid row its area (5) and its share of a merge (4 mul, 5 add).
+# 16 ops); per valid row its area (5) and, with merge, its share of a merge
+# (4 mul, 5 add).
 IOU_PAIR_OPS = 16
-ROW_OPS = 14
+AREA_OPS = 5
+MERGE_ROW_OPS = 9
 # bytes each row must move: boxes, score, label, obj in; boxes, keep out.
 ROW_BYTES = 16 + 4 + 4 + 4 + 16 + 1
 # affine_warp work per output pixel, counted from csrc/affine_warp.cu:
@@ -264,15 +293,40 @@ YOLO_HEAD_REL = 1e-3
 YOLO_TRAIN_TOL = {"loss_rtol": 1e-4, "head_grad_rel": 2e-3}
 YOLO_TARGET_TOL = dict(rtol=1e-5, atol=1e-6)
 
+# the RetinaNet and SSD phases: published widths at their published sizes,
+# 80 classes; the anchor NMS as make_postprocess runs it
+ANCHOR_FAMILIES = {"RetinaNet": 600, "SSD": 300}
+ANCHOR_TOP_K = 100
+ANCHOR_NMS = dict(class_aware=False, merge=False, thresh=0.5)
+ANCHOR_CLASS_THRESH = 0.45
+ANCHOR_SERVE_B = 64
+ANCHOR_TRAIN_B = 32
+# RetinaNet-600 trains at B=16 instead where B=32 needs more than this
+ANCHOR_TRAIN_MEM_GB = 60.0
+# f32 card vs CPU (TF32 off): head maps and d(loss)/d(head maps) per map as
+# max |diff| / max |ref|, the loss relative (as for YOLOv2/v3/v4; RetinaNet
+# has 53 convs in its backbone, SSD 15 without BN); the matching's offsets
+# elementwise, on the same targets
+ANCHOR_HEAD_REL = 1e-3
+ANCHOR_TRAIN_TOL = {"loss_rtol": 1e-4, "head_grad_rel": 2e-3}
+ANCHOR_MATCH_TOL = dict(rtol=1e-5, atol=1e-5)
+# trainer_retinanet / trainer_ssd: cli.run as in `trainer`, one epoch, each
+# family at its published size (img_size 0: RetinaNet 600; SSD is 300)
+TRAINER_ANCHOR_SETS = {
+    name: {**{k: v for k, v in TRAINER_SETS.items() if k != "type"},
+           "model_name": name, "img_size": "0", "max_epochs": "1"}
+    for name in ANCHOR_FAMILIES}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nms_bound_ms(scores: torch.Tensor) -> tuple:
+def nms_bound_ms(scores: torch.Tensor, merge: bool = True) -> tuple:
     valid = (scores > nms_kernel.NEG_INF).sum(dim=1).double()
+    row_ops = AREA_OPS + (MERGE_ROW_OPS if merge else 0)
     ops = float((valid * (valid - 1) / 2).sum()) * IOU_PAIR_OPS \
-        + float(valid.sum()) * ROW_OPS
+        + float(valid.sum()) * row_ops
     nbytes = scores.numel() * ROW_BYTES
     t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -299,17 +353,38 @@ def near_threshold(B, K, seed, thresh=0.4):
     return [t.contiguous().cuda() for t in (boxes, scores, labels, obj)]
 
 
-def check_kernel(args, class_aware, merge, thresh=0.4) -> float:
-    """Kernel vs plain on the same CUDA tensors; returns max |box error|."""
-    kb, kk = nms_kernel.greedy_nms(*args, nms_thresh=thresh,
-                                   class_aware=class_aware, merge=merge)
-    pb, pk = nms_kernel.greedy_nms_plain(*args, nms_thresh=thresh,
-                                         class_aware=class_aware, merge=merge)
+def check_kernel(args, class_aware, merge, thresh=0.4, drop=False) -> float:
+    """Kernel vs plain on the same CUDA tensors (``drop``:
+    ``drop_lone_survivor``); returns max |box error|."""
+    flags = dict(nms_thresh=thresh, class_aware=class_aware, merge=merge,
+                 drop_lone_survivor=drop)
+    kb, kk = nms_kernel.greedy_nms(*args, **flags)
+    pb, pk = nms_kernel.greedy_nms_plain(*args, **flags)
     torch.cuda.synchronize()
     if not torch.equal(kk, pk):
         raise AssertionError(f"keep differs in {int((kk != pk).sum())} rows")
     torch.testing.assert_close(kb, pb, **BOX_TOL)
     return float((kb - pb).abs().max()) if kb.numel() else 0.0
+
+
+def lone_survivor(lone: bool, B: int = 2, K: int = ANCHOR_TOP_K):
+    """Anchor-scan candidates whose last kept row is lone, or not: rows 0
+    .. K-3 are disjoint 20-px boxes on a grid (all kept), row K-2 is row 0
+    shifted by 1 px (suppressed by row 0), row K-1 is row 1 shifted (lone:
+    the last kept row K-3 suppresses nothing) or row K-3 shifted (K-3
+    suppresses it first).  Image b is image 0 moved by 7b px."""
+    n = K - 2
+    i = torch.arange(n, dtype=torch.float32)
+    x, y = 40.0 * (i % 10), 40.0 * (i // 10)
+    grid = torch.stack([x, y, x + 20, y + 20], -1)
+    last = grid[1] if lone else grid[n - 1]
+    shift = torch.tensor([1.0, 0.0, 1.0, 0.0])
+    one = torch.cat([grid, (grid[0] + shift)[None], (last + shift)[None]])
+    boxes = torch.stack([one + 7.0 * b for b in range(B)])
+    scores = torch.linspace(0.99, 0.5, K).expand(B, K)
+    labels = torch.zeros(B, K, dtype=torch.int32)      # class-agnostic scan
+    return [t.contiguous().cuda() for t in (boxes, scores, labels,
+                                            torch.zeros(B, K))]
 
 
 def phase_device() -> dict:
@@ -408,6 +483,37 @@ def phase_kernel(card: str) -> dict:
           "class_aware": True, "merge": True, "keep_equal": True,
           "max_abs_box_err": err})
 
+    # the anchor families' scan (class-agnostic, no merge, IoU 0.5, K=100),
+    # drop_lone_survivor off and on; then a last kept row that is lone and
+    # one that is not: the flag must drop the first and keep the second
+    a = ANCHOR_NMS
+    for name, args in (
+            ("anchor_B1_K100", candidates(1, ANCHOR_TOP_K, 12, classes=80)),
+            ("anchor_B64_K100", candidates(64, ANCHOR_TOP_K, 13, classes=80)),
+            ("anchor_dense_B64_K100", candidates(64, ANCHOR_TOP_K, 14,
+                                                 classes=80, dense=True))):
+        for drop in (False, True):
+            err = check_kernel(args, a["class_aware"], a["merge"],
+                               a["thresh"], drop)
+            max_err = max(max_err, err)
+            emit({"phase": "kernel_check", "case": name, **a,
+                  "drop_lone_survivor": drop, "keep_equal": True,
+                  "max_abs_box_err": err})
+    for lone in (True, False):
+        args = lone_survivor(lone)
+        check_kernel(args, a["class_aware"], a["merge"], a["thresh"], True)
+        _, keep = nms_kernel.greedy_nms(
+            *args, nms_thresh=a["thresh"], class_aware=False, merge=False,
+            drop_lone_survivor=True)
+        kept = keep.sum(dim=1).tolist()
+        want = ANCHOR_TOP_K - 2 - int(lone)
+        if kept != [want] * len(kept) or bool(keep[:, -3].any()) == lone:
+            raise AssertionError(f"drop_lone_survivor, lone={lone}: kept "
+                                 f"{kept} rows, row K-3 {keep[:, -3]}")
+        emit({"phase": "kernel_check", "case": f"last_kept_lone={lone}",
+              **a, "drop_lone_survivor": True, "keep_equal": True,
+              "kept": kept, "last_kept_dropped": lone})
+
     # B=1 and B=256 with 5 classes, as in every earlier run; B=64 with 80
     # classes, the serving configuration
     timing = {}
@@ -423,6 +529,23 @@ def phase_kernel(card: str) -> dict:
         emit({"phase": "kernel_time", "B": B, "K": TOP_K,
               "classes": classes, "card": card, **timing[B],
               "library_ms": None})
+    # the anchor configuration at B=64, drop_lone_survivor on
+    args = candidates(64, ANCHOR_TOP_K, 13, classes=80)
+    flags = dict(nms_thresh=a["thresh"], class_aware=False, merge=False,
+                 drop_lone_survivor=True)
+    ms, call_ms = time_ms(lambda: nms_kernel.greedy_nms(*args, **flags), 200)
+    plain_ms = call_time_ms(
+        lambda: nms_kernel.greedy_nms_plain(*args, **flags), 20)
+    bound_ms, bound_by = nms_bound_ms(args[1], merge=False)
+    ms_no_drop, _ = time_ms(lambda: nms_kernel.greedy_nms(
+        *args, **{**flags, "drop_lone_survivor": False}), 200)
+    timing["anchor_b64"] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                ms_without_drop=ms_no_drop,
+                                **kernel_ab.chain_length(args, **flags))
+    emit({"phase": "kernel_time", "B": 64, "K": ANCHOR_TOP_K, "classes": 80,
+          **a, "drop_lone_survivor": True, "card": card,
+          **timing["anchor_b64"], "library_ms": None})
     return {"max_abs_err": max_err, "timing": timing}
 
 
@@ -712,15 +835,15 @@ def train_batch(B: int, seed: int, img: int = IMG):
 
 def trainer(dtype: torch.dtype, device: str, seed: int = 0,
             accum_steps: int = 1, capture=None, name: str = "YOLOv5",
-            model=None):
+            model=None, img: int = IMG):
     """(state, train_step) for ``name`` (YOLOv5s by default, or ``model``
-    when given) with the config's Adam; ``capture`` receives the head maps
-    of each step, their gradients retained."""
+    when given) at ``img`` px with the config's Adam; ``capture`` receives
+    the head maps of each step, their gradients retained."""
     if model is None:
         model = build_model(name, NUM_CLASSES, dtype=dtype, device=device,
                             seed=seed)
     opt = build_optimizer(Config(), model.parameters())
-    loss_fn = losses.make_loss(name, NUM_CLASSES, IMG)
+    loss_fn = losses.make_loss(name, NUM_CLASSES, img)
     if capture is not None:
         def loss_fn(outputs, *targets, _loss=loss_fn):
             maps = (outputs if isinstance(outputs, (list, tuple))
@@ -1115,6 +1238,241 @@ def phase_yolo_training(card: str) -> dict:
     return out
 
 
+# --- RetinaNet / SSD -----------------------------------------------------------
+
+
+def anchor_postprocess_args(name: str, img: int, outputs):
+    """(loc, cls, anchors, keywords) of ``anchor_candidates`` as
+    ``make_postprocess`` calls it for the family."""
+    loc, cls = outputs
+    if name == "SSD":
+        return loc, cls[..., 1:], anchor_lib.ssd_dboxes(), dict(
+            scale=float(img))
+    return loc, cls, anchor_lib.retina_anchors(img), dict(
+        decode=box_ops.retina_decode)
+
+
+def check_match(name: str, img: int, labels, boxes, mask) -> float:
+    """The family's matching on the card against the CPU on the same
+    targets: the integer fields equal, the offsets within
+    ``ANCHOR_MATCH_TOL``.  Returns the largest offset difference."""
+    out = []
+    for dev in ("cuda", "cpu"):
+        t = [x.to(dev) for x in (labels, boxes, mask)]
+        if name == "SSD":
+            dbox = torch.as_tensor(anchor_lib.ssd_dboxes(), device=dev)
+            out.append(assignment.ssd_match(dbox, *t))
+        else:
+            anc = torch.as_tensor(anchor_lib.retina_anchors(img), device=dev)
+            out.append(assignment.retina_match(anc, *t, img))
+    card_m, cpu_m = out
+    err = 0.0
+    for field in card_m._fields:
+        a, b = getattr(card_m, field).cpu(), getattr(cpu_m, field)
+        if a.is_floating_point():
+            torch.testing.assert_close(a, b, **ANCHOR_MATCH_TOL,
+                                       msg=lambda m: f"{field}: {m}")
+            err = max(err, float((a - b).abs().max()))
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{name} matching: {field} differs in "
+                                 f"{int((a != b).sum())} entries")
+    return err
+
+
+def phase_anchor_fp32(card: str) -> float:
+    """RetinaNet-600 and SSD-300, 80 classes, B=2, f32 (TF32 off), card
+    against CPU on the same seeded weights: head maps, the matching, the
+    anchor NMS scan through the kernel and its plain version (``keep``
+    identical, ``drop_lone_survivor`` off and on), one train step's loss
+    and d(loss)/d(head maps).  Returns the largest NMS box difference."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = 0.0
+    for name, img in ANCHOR_FAMILIES.items():
+        images, labels, boxes, mask = train_batch(2, seed=50, img=img)
+        x = images.float() / 255.0
+        on_cpu = build_model(name, NUM_CLASSES, device="cpu", seed=0)
+        on_card = build_model(name, NUM_CLASSES, device="cuda", seed=0)
+        with torch.inference_mode():
+            heads = on_card(x.cuda())
+            ref = on_cpu(x)
+        head_rel = [max_rel(h, r) for h, r in zip(heads, ref)]
+        if not all(torch.isfinite(h).all() for h in heads) or max(
+                head_rel) > ANCHOR_HEAD_REL:
+            raise AssertionError(f"{name} head maps: card vs CPU {head_rel}")
+        match_err = check_match(name, img, labels, boxes, mask)
+        with torch.inference_mode():
+            loc, cls, anchors, kw = anchor_postprocess_args(name, img, heads)
+            c = nms.anchor_candidates(loc, cls, anchors, ANCHOR_TOP_K,
+                                      ANCHOR_CLASS_THRESH, **kw)
+            for drop in (False, True):
+                worst = max(worst, check_kernel(
+                    c.nms_inputs(), ANCHOR_NMS["class_aware"],
+                    ANCHOR_NMS["merge"], ANCHOR_NMS["thresh"], drop))
+
+        res = {}
+        for dev, model in (("cuda", on_card), ("cpu", on_cpu)):
+            maps = []
+            state, step = trainer(torch.float32, dev, capture=maps,
+                                  name=name, model=model, img=img)
+            state, metrics = step(state, x.to(dev)[None],
+                                  labels.to(dev)[None], boxes.to(dev)[None],
+                                  mask.to(dev)[None])
+            res[dev] = dict(loss=metrics["loss"].item(),
+                            grads=[m.grad.float().cpu() for m in maps])
+        loss_err = abs(res["cuda"]["loss"] / res["cpu"]["loss"] - 1)
+        grad_rel = [max_rel(g, r) for g, r in zip(res["cuda"]["grads"],
+                                                  res["cpu"]["grads"])]
+        if loss_err > ANCHOR_TRAIN_TOL["loss_rtol"] or not all(
+                torch.isfinite(g).all() for g in res["cuda"]["grads"]) \
+                or max(grad_rel) > ANCHOR_TRAIN_TOL["head_grad_rel"]:
+            raise AssertionError(f"{name} train step: loss {res['cuda']['loss']}"
+                                 f" vs {res['cpu']['loss']}, d(loss)/d(maps) "
+                                 f"{grad_rel}")
+        emit({"phase": "anchor_fp32", "card": card, "model": name, "B": 2,
+              "img": img, "head_max_rel_err": head_rel,
+              "match_max_abs_err": match_err, "match_equal": True,
+              "valid_candidates": int((c.scores > nms.NEG_INF).sum()),
+              "keep_equal": True, "drop_lone_survivor": [False, True],
+              "loss_card": res["cuda"]["loss"], "loss_cpu": res["cpu"]["loss"],
+              "loss_rel_err": loss_err, "head_grad_rel_err": grad_rel,
+              "tolerance": {"head_rel": ANCHOR_HEAD_REL, **ANCHOR_TRAIN_TOL,
+                            "match": ANCHOR_MATCH_TOL}})
+        del on_card, on_cpu, res, heads
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_anchor_serving(card: str) -> dict:
+    """Each family's ``predict_step`` at its size, 80 classes, bf16, uint8
+    with /255 folded: B=64 and B=1, one warm-up and three batches each, one
+    NMS launch per batch; then the last B=64 batch's candidates through the
+    kernel and its plain version.  Returns launches and the largest NMS
+    box difference."""
+    out, worst = {}, 0.0
+    for name, img in ANCHOR_FAMILIES.items():
+        step, model = serving_model(name, img)
+        g = torch.Generator(device="cuda").manual_seed(51)
+        batches = {B: torch.randint(0, 256, (B, img, img, 3), generator=g,
+                                    dtype=torch.uint8, device="cuda")
+                   for B in (ANCHOR_SERVE_B, 1)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()                       # main path starts here
+        calls, results, last = 0, {}, {}
+        for B, images in batches.items():
+            times = []
+            for i in range(4):                 # one warm-up, three requests
+                t0 = time.perf_counter()
+                last[B] = step(images)
+                torch.cuda.synchronize()
+                calls += 1
+                if i:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            results[B] = {"ms_per_batch": times,
+                          "img_per_s": [B * 1e3 / t for t in times]}
+        counts = read_launches()               # main path ends here
+        if counts["greedy_nms"] != calls:
+            raise AssertionError(f"{name}: greedy_nms launched "
+                                 f"{counts['greedy_nms']} times in {calls} "
+                                 f"batches")
+        for B, res in last.items():
+            if res.boxes.shape != (B, ANCHOR_TOP_K, 4) \
+                    or not res.boxes.is_cuda \
+                    or not torch.isfinite(res.boxes).all():
+                raise AssertionError(f"{name} serving boxes at B={B}: wrong "
+                                     f"shape, device or non-finite")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        gflop = forward_flops(model, img) / 1e9
+        for B, r in results.items():
+            emit({"phase": "anchor_serving", "card": card, "model": name,
+                  "img": img, "classes": NUM_CLASSES, "dtype": "bfloat16",
+                  "B": B, **r, "forward_gflop_per_img": gflop,
+                  "valid": int(last[B].valid.sum()), "launches": counts,
+                  "peak_mem_gb": peak_gb})
+        # the candidates of the last B=64 batch (bf16 scores: masked rows
+        # hold -998244352 and count as valid in the f32 scan, as in JAX)
+        with torch.inference_mode():
+            loc, cls, anchors, kw = anchor_postprocess_args(
+                name, img, model(batches[ANCHOR_SERVE_B]))
+            c = nms.anchor_candidates(loc, cls, anchors, ANCHOR_TOP_K,
+                                      ANCHOR_CLASS_THRESH, **kw)
+            args = c.nms_inputs()
+            for drop in (False, True):
+                worst = max(worst, check_kernel(
+                    args, False, False, ANCHOR_NMS["thresh"], drop))
+        emit({"phase": "anchor_serving_check", "card": card, "model": name,
+              "B": ANCHOR_SERVE_B, "keep_equal": True,
+              "drop_lone_survivor": [False, True],
+              "valid_candidates": int((c.scores > nms.NEG_INF).sum()),
+              **kernel_ab.chain_length(args, nms_thresh=ANCHOR_NMS["thresh"],
+                                       class_aware=False, merge=False)})
+        out[name] = counts["greedy_nms"]
+        del step, model, batches, last
+        torch.cuda.empty_cache()
+    return {"launches": out, "max_abs_err": worst}
+
+
+def anchor_training_run(name: str, img: int, B: int) -> dict:
+    """One warm-up and three timed augment + train steps of ``name`` at
+    batch B; raises if the warp kernel is not launched once a step or the
+    loss is not finite."""
+    batch = [t.cuda() for t in train_batch(B, seed=52, img=img)]
+    state, step = trainer(torch.bfloat16, "cuda", name=name, img=img)
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                           # main path starts here
+    calls, step_ms, loss = 0, [], []
+    for i in range(4):                         # one warm-up, three timed
+        t0 = time.perf_counter()
+        state, metrics = augment_and_step(state, step, *batch, gen)
+        torch.cuda.synchronize()
+        calls += 1
+        loss.append(metrics["loss"].item())
+        if i:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_launches()                   # main path ends here
+    if counts["affine_warp"] != calls:
+        raise AssertionError(f"{name}: affine_warp launched "
+                             f"{counts['affine_warp']} times in {calls} "
+                             f"steps")
+    if not all(math.isfinite(v) for v in loss):
+        raise AssertionError(f"{name}: non-finite training loss {loss}")
+    return {"B": B, "ms_per_step": step_ms,
+            "img_per_s": [B * 1e3 / t for t in step_ms], "loss": loss,
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "launches": counts,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_anchor_training(card: str) -> dict:
+    """Each family at its size, 80 classes, bf16, Adam lr 1e-3 / wd 1e-5,
+    B=32, M=32: uint8 -> /255 -> ``augment_batch`` (one warp launch) ->
+    ``train_step``; one warm-up and three timed steps.  A family whose
+    B=32 step needs more than ``ANCHOR_TRAIN_MEM_GB`` (or runs out of
+    memory) is run again at B=16, and the line says so."""
+    out = {}
+    for name, img in ANCHOR_FAMILIES.items():
+        note = None
+        try:
+            r = anchor_training_run(name, img, ANCHOR_TRAIN_B)
+            if r["peak_mem_gb"] > ANCHOR_TRAIN_MEM_GB:
+                note = f"B={ANCHOR_TRAIN_B} peaked at {r['peak_mem_gb']} GB"
+        except torch.cuda.OutOfMemoryError:
+            note = f"B={ANCHOR_TRAIN_B} ran out of memory"
+        if note:
+            torch.cuda.empty_cache()
+            r = anchor_training_run(name, img, ANCHOR_TRAIN_B // 2)
+        emit({"phase": "anchor_training", "card": card, "model": name,
+              "img": img, "classes": NUM_CLASSES, "dtype": "bfloat16",
+              "M": TRAIN_M, "optimizer": "Adam lr 1e-3 wd 1e-5", **r,
+              "reduced_batch": note})
+        out[name] = r["launches"]["affine_warp"]
+        torch.cuda.empty_cache()
+    return out
+
+
 def epoch_rows(log_dir: str, cfg) -> list:
     """Per-epoch scalars from the run's ``metrics.jsonl``."""
     path = os.path.join(log_dir, cfg.data_module, cfg.model_name,
@@ -1172,8 +1530,8 @@ def check_restore(ckpt_dir: str, cfg, num_classes: int, device,
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
     model = build_model(cfg.model_name, num_classes, dtype=dtype,
-                        yolov5_type=cfg.type, device=device,
-                        seed=cfg.seed + 1)
+                        yolov5_type=cfg.type, ssd_bn=cfg.ssd_bn,
+                        device=device, seed=cfg.seed + 1)
     state = create_train_state(model, build_optimizer(cfg, model.parameters()),
                                ema_decay=cfg.ema_decay)
     fresh = {k: v.clone() for k, v in model.state_dict().items()}
@@ -1725,12 +2083,20 @@ def main(argv=None) -> int:
     yolo_serve = phase_yolo_serving(card)
     yolo_train = phase_yolo_training(card)
     fit_v2 = phase_trainer(card, TRAINER_YOLOV2_SETS, "trainer_yolov2")
+    anchor_err = phase_anchor_fp32(card)
+    anchor_serve = phase_anchor_serving(card)
+    anchor_train = phase_anchor_training(card)
+    fit_anchor = {name: phase_trainer(card, sets,
+                                      f"trainer_{name.lower()}")["launches"]
+                  for name, sets in TRAINER_ANCHOR_SETS.items()}
     convs, conv_err = phase_conv_check(card)
     conv = phase_conv_time(card, convs)
     if args.profile:
         phase_profile(card)
     t = kern["timing"]
-    err = max(kern["max_abs_err"], fp32_err, serve["max_abs_err"], yolo_err)
+    err = max(kern["max_abs_err"], fp32_err, serve["max_abs_err"], yolo_err,
+              anchor_err, anchor_serve["max_abs_err"])
+    ta = t["anchor_b64"]
     emit({"kernels": [{
         "name": "greedy_nms", "route": "cuda",
         "source": "objectdetectionpl_tpu_torch/csrc/greedy_nms.cu",
@@ -1739,6 +2105,9 @@ def main(argv=None) -> int:
         "launches_serving": serve["launches"],
         "launches_yolo_serving": yolo_serve,
         "launches_trainer_yolov2": fit_v2["launches"]["greedy_nms"],
+        "launches_anchor_serving": anchor_serve["launches"],
+        **{f"launches_trainer_{n.lower()}": c["greedy_nms"]
+           for n, c in fit_anchor.items()},
         "keep_equal": True,
         "max_abs_err": err, "max_abs_box_err": err,
         "ms": t[256]["ms"], "plain_ms": t[256]["plain_ms"],
@@ -1749,6 +2118,13 @@ def main(argv=None) -> int:
         "ms_b1": t[1]["ms"], "call_ms_b1": t[1]["call_ms"],
         "plain_ms_b1": t[1]["plain_ms"], "bound_ms_b1": t[1]["bound_ms"],
         "ms_b64_c80": t[64]["ms"], "bound_ms_b64_c80": t[64]["bound_ms"],
+        "ms_anchor_b64": ta["ms"], "call_ms_anchor_b64": ta["call_ms"],
+        "plain_ms_anchor_b64": ta["plain_ms"],
+        "ms_anchor_b64_without_drop": ta["ms_without_drop"],
+        "bound_ms_anchor_b64": ta["bound_ms"],
+        "bound_by_anchor_b64": ta["bound_by"],
+        "shape_anchor": f"B=64,K={ANCHOR_TOP_K}, class-agnostic, no merge, "
+                        f"IoU 0.5, drop_lone_survivor",
         "card": card}, {
         "name": "affine_warp", "route": "cuda",
         "source": "objectdetectionpl_tpu_torch/csrc/affine_warp.cu",
@@ -1757,6 +2133,9 @@ def main(argv=None) -> int:
         "launches_training": train["launches"],
         "launches_yolo_training": yolo_train,
         "launches_trainer_yolov2": fit_v2["launches"]["affine_warp"],
+        "launches_anchor_training": anchor_train,
+        **{f"launches_trainer_{n.lower()}": c["affine_warp"]
+           for n, c in fit_anchor.items()},
         "max_abs_err": warp_err,
         "ms": warp["ms"], "plain_ms": warp["plain_ms"],
         "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],

@@ -14,6 +14,10 @@
 //                itself and the boxes whose first kept suppressor is i,
 //                w = obj for valid rows, 0 otherwise.
 //   Rows that are not kept return their input box unchanged.
+//   drop_lone  : un-keep the image's last kept row k when no valid j > k
+//                has k as its first kept suppressor, i.e. when k's merge
+//                group is empty (the JAX twin's drop_lone_survivor,
+//                objectdetectionpl_tpu/ops/nms.py:184-197).
 //
 // What bounds it on an H100: not bytes nor FLOPs.  At B=256, K=300 the
 // function moves ~3.5 MB (~1 us at 3.35 TB/s) and does ~45k IoUs per image
@@ -51,6 +55,8 @@
 //   in the first design.
 // - Merge, one thread per kept row over its group (j ascending, then the
 //   row itself), reading only the words at and after its own.
+// - drop_lone: the thread of a kept row with no kept bit above it reads the
+//   same group words; all zero drops the row before the merge.
 // 512 threads per CTA, at most 64 registers each: two CTAs per SM, so
 // B=256 still runs in one wave.
 //
@@ -88,7 +94,7 @@ greedy_nms_kernel(const float4* __restrict__ boxes,
                   float4* __restrict__ out_boxes,
                   bool* __restrict__ keep_out,
                   int K, float thresh, int class_aware, int merge,
-                  float plus1) {
+                  float plus1, int drop_lone) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nw = (K + 63) >> 6;
   const int kp = nw * 64;                               // K padded to words
@@ -259,7 +265,16 @@ greedy_nms_kernel(const float4* __restrict__ boxes,
   // 4. Outputs: kept boxes merged with their group, every other row as given.
   for (int i = tid; i < K; i += kThreads) {
     float4 out = box[i];
-    const bool kept = (keep_bits[i >> 5] >> (i & 31)) & 1u;
+    bool kept = (keep_bits[i >> 5] >> (i & 31)) & 1u;
+    if (kept && drop_lone) {
+      // the last kept row (no kept bit above it) with an empty group
+      bool last = (keep_bits[i >> 5] >> (i & 31)) >> 1 == 0u;
+      for (int b = (i >> 5) + 1; b < 2 * nw; ++b) last &= keep_bits[b] == 0u;
+      bool lone = last;
+      for (int word = i >> 6; lone && word < nw; ++word)
+        lone = over[(size_t)i * nw + word] == 0ull;
+      kept = !lone;
+    }
     if (kept && merge) {
       float nx1 = 0.0f, ny1 = 0.0f, nx2 = 0.0f, ny2 = 0.0f, den = 0.0f;
       for (int word = i >> 6; word < nw; ++word) {
@@ -303,11 +318,13 @@ extern "C" int greedy_nms_max_k() { return kMaxK; }
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // boxes/out_boxes [B, K, 4] f32 (16-byte aligned), scores/obj [B, K] f32,
 // labels [B, K] i32, keep [B, K] bool; all contiguous on the current device.
+// drop_lone is the last argument, so the others keep the positions they had
+// before it was added.
 extern "C" int greedy_nms_launch(const void* boxes, const void* scores,
                                  const void* labels, const void* obj,
                                  void* out_boxes, void* keep, int B, int K,
                                  float thresh, int class_aware, int merge,
-                                 float plus1, void* stream) {
+                                 float plus1, void* stream, int drop_lone) {
   if (B <= 0 || K <= 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(K);
   if (smem > 48 * 1024) {
@@ -320,6 +337,6 @@ extern "C" int greedy_nms_launch(const void* boxes, const void* scores,
       static_cast<const float4*>(boxes), static_cast<const float*>(scores),
       static_cast<const int*>(labels), static_cast<const float*>(obj),
       static_cast<float4*>(out_boxes), static_cast<bool*>(keep), K, thresh,
-      class_aware, merge, plus1);
+      class_aware, merge, plus1, drop_lone);
   return (int)cudaGetLastError();
 }

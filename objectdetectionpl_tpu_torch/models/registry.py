@@ -2,8 +2,7 @@
 
 The PyTorch counterpart of ``objectdetectionpl_tpu/models/registry.py``.
 Image-size defaults for all six families: RetinaNet 600, SSD 300, YOLOv5
-640, else 416.  The YOLO families are ported; RetinaNet and SSD raise and
-name the ROADMAP item that brings them.
+640, else 416.
 """
 
 from __future__ import annotations
@@ -11,13 +10,16 @@ from __future__ import annotations
 import torch
 
 from objectdetectionpl_tpu_torch.device import DeviceLike, resolve_device
+from objectdetectionpl_tpu_torch.models.retinanet import RetinaNet
+from objectdetectionpl_tpu_torch.models.ssd import SSD
 from objectdetectionpl_tpu_torch.models.yolov2 import YOLOv2
 from objectdetectionpl_tpu_torch.models.yolov3 import YOLOv3
 from objectdetectionpl_tpu_torch.models.yolov4 import YOLOv4
-from objectdetectionpl_tpu_torch.models.yolov5 import YOLOv5, init_weights
+from objectdetectionpl_tpu_torch.models.yolov5 import YOLOv5
+from objectdetectionpl_tpu_torch.nn.blocks import init_weights
 
 MODELS = {"YOLOv2": YOLOv2, "YOLOv3": YOLOv3, "YOLOv4": YOLOv4,
-          "YOLOv5": YOLOv5}
+          "YOLOv5": YOLOv5, "SSD": SSD, "RetinaNet": RetinaNet}
 
 DEFAULT_IMG_SIZE = {
     "YOLOv2": 416,
@@ -27,12 +29,6 @@ DEFAULT_IMG_SIZE = {
     "SSD": 300,
     "RetinaNet": 600,
 }
-
-NOT_PORTED = {
-    "RetinaNet": "ROADMAP A9.4",
-    "SSD": "ROADMAP A9.5",
-}
-
 
 def default_img_size(model_name: str) -> int:
     return DEFAULT_IMG_SIZE[model_name]
@@ -46,21 +42,21 @@ def build_model(model_name: str, num_classes: int,
     """Instantiate a detector by config name, in eval mode, on ``device``.
 
     Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
-    and then moved, so one seed gives the same weights on every device.
+    and then moved, so one seed gives the same weights on every device;
+    each conv by its family's initializer (``Conv.init``: lecun normal, and
+    for SSD He/fan-out on the VGG convs, Xavier on the extras and heads).
     ``dtype`` is the compute dtype of the convolutions; parameters and BN
     statistics stay float32.  ``remat`` (the JAX package's activation
     rematerialization) takes only ``"none"`` until ROADMAP A3r.  ``ssd_bn``
-    (SSD's BN backbone) is ignored by the other families, as in JAX, and
-    SSD itself raises naming A9.5.  ``yolov5_type`` is read by YOLOv5 only.
+    (SSD's BN backbone) is ignored by the other families, as in JAX.
+    ``yolov5_type`` is read by YOLOv5 only.
     """
     if remat != "none":
         raise NotImplementedError(f"remat={remat!r} is not ported yet "
                                   f"(ROADMAP A3r)")
-    if model_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_name} is not ported yet ({NOT_PORTED[model_name]})")
     dev = resolve_device(device)
-    kw = dict(variant=yolov5_type) if model_name == "YOLOv5" else {}
+    kw = ({"variant": yolov5_type} if model_name == "YOLOv5" else
+          {"use_bn": ssd_bn} if model_name == "SSD" else {})
     model = MODELS[model_name](num_classes=num_classes, dtype=dtype, **kw)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.eval().to(dev)

@@ -27,11 +27,6 @@ VARIANTS = {
     "Yolov5x": (1.33, 1.25),
 }
 
-# flax's lecun_normal draws from a normal truncated at 2 stddev, rescaled so
-# the truncated distribution keeps variance 1/fan_in.
-_TRUNC_STD = 0.87962566103423978
-
-
 class YOLOv5(nn.Module):
     def __init__(self, num_classes: int, variant: str = "Yolov5s",
                  num_anchors: int = 3, dtype: torch.dtype = torch.float32):
@@ -91,18 +86,3 @@ class YOLOv5(nn.Module):
         B, _, H, W = t.shape
         t = t.reshape(B, self.num_anchors, 5 + self.num_classes, H, W)
         return t.permute(0, 1, 3, 4, 2)              # [B, 3, g, g, 5+C]
-
-
-@torch.no_grad()
-def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """flax's default conv init from a seeded generator: kernels
-    lecun_normal (truncated), biases 0.  BatchNorm keeps its constructor
-    values (scale 1, bias 0, mean 0, var 1), as flax initialises them."""
-    for m in model.modules():
-        if isinstance(m, Conv):
-            fan_in = m.weight[0].numel()
-            std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
-            if m.bias is not None:
-                m.bias.zero_()

@@ -13,7 +13,8 @@ Numerics follow the JAX blocks:
 - BN folds into one per-channel affine computed in f32 and cast once to the
   activation dtype, with running statistics in eval mode and f32-accumulated
   batch moments in train mode,
-- padding is the explicit torch-style ``k // 2``; max-pool pads with -inf,
+- padding is the explicit torch-style ``dilation * (k - 1) // 2`` unless a
+  conv names its own (SSD's VALID convs: 0); max-pool pads with -inf,
 - space-to-depth orders channel blocks (row-phase, col-phase, C),
 - mish is ``F.mish``: ``x * tanh(softplus(x))`` in one kernel, within f32
   rounding of the JAX formula (``tests/test_torch_port_yolo_models.py``).
@@ -24,33 +25,58 @@ from __future__ import annotations
 import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 ACTIVATIONS = {
     "leaky": functools.partial(F.leaky_relu, negative_slope=0.1),
+    "relu": F.relu,
     "mish": F.mish,
+    "linear": lambda x: x,
+}
+
+# flax's truncated-normal initializers draw from a normal cut at 2 stddev,
+# rescaled so the truncated distribution keeps the variance asked for.
+_TRUNC_STD = 0.87962566103423978
+
+# kernel initializers by name: (scale, fan mode, distribution), as flax's
+# ``variance_scaling`` takes them
+KERNEL_INITS = {
+    "lecun_normal": (1.0, "fan_in", "truncated_normal"),
+    "xavier_normal": (1.0, "fan_avg", "truncated_normal"),
+    "kaiming_fan_out": (2.0, "fan_out", "normal"),
 }
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` over NCHW: OIHW f32 weight, symmetric ``k // 2`` pad,
-    computed in ``dtype``."""
+    """flax ``nn.Conv`` over NCHW: OIHW f32 weight, symmetric padding
+    (``dilation * (k - 1) // 2`` unless ``padding`` is given), computed in
+    ``dtype``.  ``init`` names the kernel initializer (``KERNEL_INITS``)
+    that :func:`init_weights` applies."""
 
     def __init__(self, c1: int, c2: int, kernel: int = 1, stride: int = 1,
-                 bias: bool = False, dtype: torch.dtype = torch.float32):
+                 bias: bool = False, dtype: torch.dtype = torch.float32,
+                 dilation: int = 1, padding: int = None,
+                 init: str = "lecun_normal"):
         super().__init__()
+        if init not in KERNEL_INITS:
+            raise ValueError(f"init={init!r}: expected one of "
+                             f"{sorted(KERNEL_INITS)}")
         self.weight = nn.Parameter(torch.empty(c2, c1, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(c2)) if bias else None
         self.stride = stride
-        self.padding = kernel // 2
+        self.dilation = dilation
+        self.padding = (dilation * (kernel - 1) // 2 if padding is None
+                        else padding)
         self.dtype = dtype
+        self.init = init
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), bias,
-                        self.stride, self.padding)
+                        self.stride, self.padding, self.dilation)
 
 
 class BatchNorm(nn.Module):
@@ -97,17 +123,25 @@ class BatchNorm(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Conv2d (no bias) + BatchNorm + activation, pad = k // 2."""
+    """Conv2d + BatchNorm + activation, pad = dilation * (k - 1) // 2.
+    With ``use_bn=False`` the conv has a bias and there is no
+    ``BatchNorm_0``, as in flax."""
 
     def __init__(self, c1: int, c2: int, kernel: int = 3, stride: int = 1,
-                 act: str = "leaky", dtype: torch.dtype = torch.float32):
+                 act: str = "leaky", dtype: torch.dtype = torch.float32,
+                 use_bn: bool = True, dilation: int = 1,
+                 init: str = "lecun_normal"):
         super().__init__()
-        self.Conv_0 = Conv(c1, c2, kernel, stride, dtype=dtype)
-        self.BatchNorm_0 = BatchNorm(c2)
+        self.Conv_0 = Conv(c1, c2, kernel, stride, bias=not use_bn,
+                           dtype=dtype, dilation=dilation, init=init)
+        self.BatchNorm_0 = BatchNorm(c2) if use_bn else None
         self.act = ACTIVATIONS[act]
 
     def forward(self, x):
-        return self.act(self.BatchNorm_0(self.Conv_0(x)))
+        x = self.Conv_0(x)
+        if self.BatchNorm_0 is not None:
+            x = self.BatchNorm_0(x)
+        return self.act(x)
 
 
 def max_pool(x, window: int, stride: int, pad: int = 0):
@@ -142,6 +176,46 @@ def upsample2x(x):
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """float32 [n_in, n_out]: the interpolation matrix ``jax.image.resize``
+    builds (``compute_weight_mat``): half-pixel sample positions, the
+    triangle kernel widened by the downscale factor (its antialiasing),
+    each column divided by its sum, so a sample left of the first centre
+    (or right of the last) takes the edge pixel; samples outside the
+    input get no weight."""
+    inv_scale = 1.0 / (n_out / n_in)
+    f32 = np.float32
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * f32(inv_scale) \
+        - f32(0.5)
+    dist = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / f32(max(inv_scale, 1.0))
+    w = np.maximum(f32(0.0), f32(1.0) - dist)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_bilinear(x, size: Sequence[int]):
+    """Bilinear resize of NCHW ``x`` to ``size`` (H, W):
+    ``jax.image.resize(method="bilinear")`` as JAX computes it, two
+    contractions with its interpolation matrices (:func:`_resize_weights`)
+    cast to x's dtype, the one with the smaller intermediate first (H on a
+    tie), as JAX's einsum orders them; in bf16 the intermediate rounds to
+    bf16 as JAX's does.  ``F.interpolate`` (bilinear,
+    ``align_corners=False``) is 6.7e-6 off JAX on 38 -> 75 in f32, and in
+    bf16 keeps f32 weights and one rounding where JAX rounds three times
+    (``tests/test_torch_port_anchor_models.py``)."""
+    H, W = x.shape[2], x.shape[3]
+    wh, ww = [torch.from_numpy(_resize_weights(n, m)).to(x.device, x.dtype)
+              for n, m in ((H, size[0]), (W, size[1]))]
+    if H * size[1] < size[0] * W:      # W first: the smaller intermediate
+        return wh.t() @ (x @ ww)
+    return (wh.t() @ x) @ ww
+
+
 class Residual(nn.Module):
     """1x1 to ``mid`` then 3x3 back to ``ch`` (leaky), plus the input."""
 
@@ -170,6 +244,31 @@ class MishResBlock(nn.Module):
             h = getattr(self, f"ConvBN_{2 * i}")(x)
             x = x + getattr(self, f"ConvBN_{2 * i + 1}")(h)
         return x
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's conv init from a seeded generator: each kernel by its
+    ``Conv.init`` (flax ``variance_scaling``: variance scale / fan, the fan
+    over the receptive field times the in, out or mean channel count;
+    "truncated_normal" cut at 2 stddev), biases 0.  BatchNorm keeps its
+    constructor values (scale 1, bias 0, mean 0, var 1), as flax
+    initialises them."""
+    for m in model.modules():
+        if isinstance(m, Conv):
+            scale, mode, dist = KERNEL_INITS[m.init]
+            c2, c1, kh, kw = m.weight.shape
+            fan = {"fan_in": c1 * kh * kw, "fan_out": c2 * kh * kw,
+                   "fan_avg": (c1 + c2) * kh * kw / 2}[mode]
+            std = (scale / fan) ** 0.5
+            if dist == "normal":
+                m.weight.normal_(0.0, std, generator=generator)
+            else:
+                std /= _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
 
 
 def scale_ch(c: int, width_multiple: float) -> int:

@@ -1,4 +1,6 @@
-"""YOLO target assignment: the port of ``build_targets_yolo`` and ``build_targets_v5`` in ``objectdetectionpl_tpu/ops/assignment.py``.
+"""Target assignment: the port of ``objectdetectionpl_tpu/ops/assignment.py``
+(``build_targets_yolo``, ``build_targets_v5``, ``ssd_match``,
+``retina_match``).
 
 Padded per-image targets, as in the JAX package:
 
@@ -8,8 +10,9 @@ Padded per-image targets, as in the JAX package:
 
 Every shape is fixed by (B, M, A): no host sync, no boolean indexing.
 Padded targets scatter to a sentinel slot one past the end, which is then
-cut off: they drop, never wrap.  The SSD and RetinaNet matching come with
-their slices (ROADMAP A9.4-A9.5).
+cut off: they drop, never wrap.  The JAX functions match one image and are
+vmapped; these take the batch as their leading dimension.  ``argmax``
+resolves ties to the first index, as ``jnp.argmax`` does.
 """
 
 from __future__ import annotations
@@ -210,3 +213,97 @@ def build_targets_v5(labels: torch.Tensor, boxes: torch.Tensor,
         gi.reshape(n).clamp(0, grid_size - 1),
         tbox.reshape(n, 4), anch.reshape(n, 2), cls.reshape(n),
         valid.reshape(n))
+
+
+class SSDMatch(NamedTuple):
+    """SSD matching over D default boxes, per image of the batch."""
+
+    matched: torch.Tensor       # [B, D] bool: positives
+    best_ann: torch.Tensor      # [B, D] int64: index of the matched target
+    true_offsets: torch.Tensor  # [B, D, 4] float32 encoded regression targets
+    true_classes: torch.Tensor  # [B, D] int64: 0 background, 1..C classes
+
+
+def ssd_match(default_xywh: torch.Tensor, labels: torch.Tensor,
+              boxes: torch.Tensor, mask: torch.Tensor,
+              match_thresh: float = 0.5) -> SSDMatch:
+    """Bidirectional SSD matching.
+
+    default_xywh [D, 4] center-form normalized; labels [B, M], boxes
+    [B, M, 4] (normalized xywh), mask [B, M].  A default box matches the
+    target of highest corner IoU when that IoU is >= ``match_thresh``; and
+    every real target claims its best default box, the highest target
+    index winning where two claim one box (a ``scatter_reduce(amax)``,
+    whose result does not depend on the order of the writes).  Classes are
+    1..C with 0 for background.
+    """
+    B, M = labels.shape
+    D = default_xywh.shape[0]
+    dev = boxes.device
+
+    d_pts = box_ops.center_to_points_clipped(default_xywh)
+    a_pts = box_ops.center_to_points_clipped(boxes)
+    ious = box_ops.pairwise_iou_corner(a_pts, d_pts)            # [B, M, D]
+    ious = torch.where(mask[:, :, None], ious, -1.0)
+
+    ious_max = ious.amax(dim=1)                                 # [B, D]
+    best_ann = ious.argmax(dim=1)          # first max, as jnp.argmax
+    matched = ious_max >= match_thresh
+
+    # forced matches: each real target claims its best default box; padded
+    # rows aim at the sentinel column D, which is cut off
+    forced = torch.where(mask, ious.argmax(dim=2), D)           # [B, M]
+    ann_ids = torch.arange(M, device=dev).expand(B, M)
+    claimed = torch.full((B, D + 1), -1, dtype=torch.int64, device=dev)
+    claimed = claimed.scatter_reduce(1, forced, ann_ids, "amax")[:, :D]
+    matched = matched | (claimed >= 0)
+    best_ann = torch.maximum(best_ann, claimed)
+
+    matched_boxes = torch.gather(boxes, 1,
+                                 best_ann[..., None].expand(B, D, 4))
+    # wh floored before the log-encode: a default box matched to a padded
+    # (zero-size) target would give -inf offsets, and -inf * 0 = NaN
+    matched_boxes = torch.cat([matched_boxes[..., :2],
+                               matched_boxes[..., 2:4].clamp(min=1e-9)], -1)
+    true_offsets = box_ops.ssd_encode(matched_boxes, default_xywh)
+    true_classes = torch.where(
+        matched, 1 + torch.gather(labels.long(), 1, best_ann), 0)
+    return SSDMatch(matched, best_ann, true_offsets, true_classes)
+
+
+class RetinaMatch(NamedTuple):
+    loc_targets: torch.Tensor   # [B, A, 4] float32
+    cls_targets: torch.Tensor   # [B, A] int64: -1 ignore, 0 bg, 1..C classes
+
+
+def retina_match(anchors_xywh: torch.Tensor, labels: torch.Tensor,
+                 boxes: torch.Tensor, mask: torch.Tensor,
+                 img_size: float) -> RetinaMatch:
+    """RetinaNet max-IoU matching.
+
+    anchors_xywh [A, 4] center-form pixels; labels [B, M], boxes [B, M, 4]
+    normalized xywh (scaled by ``img_size``), mask [B, M].  IoU with the +1
+    convention: >= 0.5 the target's class, (0.4, 0.5) ignored (-1), the
+    rest background (0), and an image without targets all background.
+    """
+    B = labels.shape[0]
+    A = anchors_xywh.shape[0]
+    boxes_px = boxes * img_size
+    a_xyxy = box_ops.xywh_to_xyxy(anchors_xywh)
+    b_xyxy = box_ops.xywh_to_xyxy(boxes_px)
+    ious = box_ops.pairwise_iou_plus1(a_xyxy, b_xyxy)           # [B, A, M]
+    ious = torch.where(mask[:, None, :], ious, -1.0)
+    max_ious = ious.amax(dim=2)
+    max_ids = ious.argmax(dim=2)           # first max, as jnp.argmax
+
+    matched = torch.gather(boxes_px, 1, max_ids[..., None].expand(B, A, 4))
+    # wh floor: see ssd_match
+    matched = torch.cat([matched[..., :2], matched[..., 2:4].clamp(min=1e-6)],
+                        -1)
+    loc_targets = box_ops.retina_encode(matched, anchors_xywh)
+    cls_targets = 1 + torch.gather(labels.long(), 1, max_ids)
+    cls_targets = torch.where(max_ious < 0.5, 0, cls_targets)
+    cls_targets = torch.where((max_ious > 0.4) & (max_ious < 0.5), -1,
+                              cls_targets)
+    cls_targets = torch.where(mask.any(dim=1, keepdim=True), cls_targets, 0)
+    return RetinaMatch(loc_targets, cls_targets)

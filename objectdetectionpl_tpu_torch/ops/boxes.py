@@ -1,4 +1,4 @@
-"""Box geometry on tensors: the YOLO subset of ``objectdetectionpl_tpu/ops/boxes.py``.
+"""Box geometry on tensors: the port of ``objectdetectionpl_tpu/ops/boxes.py``.
 
 Elementwise and broadcastable over leading dims, in the input's dtype, with
 the same operation order as the JAX functions so f32 results agree bitwise
@@ -96,3 +96,94 @@ def grid_offsets(g: int, dtype: torch.dtype, device) -> torch.Tensor:
     ar = torch.arange(g, dtype=dtype, device=device)
     gy, gx = torch.meshgrid(ar, ar, indexing="ij")
     return torch.stack([gx, gy], dim=-1)
+
+
+def iou_corner(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
+    """Elementwise corner-form IoU, no +1 pixel and no eps (SSD matching);
+    negative widths and heights count as 0."""
+    lt = torch.maximum(box1[..., :2], box2[..., :2])
+    rb = torch.minimum(box1[..., 2:4], box2[..., 2:4])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    wh1 = (box1[..., 2:4] - box1[..., :2]).clamp(min=0.0)
+    wh2 = (box2[..., 2:4] - box2[..., :2]).clamp(min=0.0)
+    return inter / (wh1[..., 0] * wh1[..., 1] + wh2[..., 0] * wh2[..., 1]
+                    - inter)
+
+
+def pairwise_iou_plus1(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
+    """IoU with the +1 convention (RetinaNet anchor matching) between every
+    pair of ``box1 [..., N, 4]`` and ``box2 [..., M, 4]`` (xyxy), shared
+    leading dims: [..., N, M].  No union eps, as in JAX."""
+    lt = torch.maximum(box1[..., :, None, :2], box2[..., None, :, :2])
+    rb = torch.minimum(box1[..., :, None, 2:4], box2[..., None, :, 2:4])
+    wh = (rb - lt + 1).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area1 = ((box1[..., 2] - box1[..., 0] + 1)
+             * (box1[..., 3] - box1[..., 1] + 1))
+    area2 = ((box2[..., 2] - box2[..., 0] + 1)
+             * (box2[..., 3] - box2[..., 1] + 1))
+    return inter / (area1[..., :, None] + area2[..., None, :] - inter)
+
+
+def pairwise_iou_corner(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
+    """Corner-form IoU without +1 (SSD matching) between every pair of
+    ``box1 [..., N, 4]`` and ``box2 [..., M, 4]``: [..., N, M]."""
+    return iou_corner(box1[..., :, None, :], box2[..., None, :, :])
+
+
+# --- SSD / RetinaNet box codecs --------------------------------------------
+
+SSD_VARIANCE_XY = 0.1
+SSD_VARIANCE_WH = 0.2
+
+
+def ssd_encode(matched_xywh: torch.Tensor, default_xywh: torch.Tensor,
+               use_variance: bool = True) -> torch.Tensor:
+    """Offsets of matched center-form boxes against the default boxes:
+    xy / (wh_d * 0.1), log(wh / wh_d) / 0.2 (without the variances when
+    ``use_variance`` is False)."""
+    off_cxy = matched_xywh[..., :2] - default_xywh[..., :2]
+    if use_variance:
+        off_cxy = off_cxy / (default_xywh[..., 2:4] * SSD_VARIANCE_XY)
+    else:
+        off_cxy = off_cxy / default_xywh[..., 2:4]
+    off_wh = torch.log(matched_xywh[..., 2:4] / default_xywh[..., 2:4])
+    if use_variance:
+        off_wh = off_wh / SSD_VARIANCE_WH
+    return torch.cat([off_cxy, off_wh], dim=-1)
+
+
+def ssd_decode(offsets: torch.Tensor, default_xywh: torch.Tensor,
+               use_variance: bool = True) -> torch.Tensor:
+    """Invert :func:`ssd_encode` -> center-form boxes."""
+    var_xy = SSD_VARIANCE_XY if use_variance else 1.0
+    var_wh = SSD_VARIANCE_WH if use_variance else 1.0
+    cxy = (offsets[..., :2] * var_xy * default_xywh[..., 2:4]
+           + default_xywh[..., :2])
+    wh = torch.exp(offsets[..., 2:4] * var_wh) * default_xywh[..., 2:4]
+    return torch.cat([cxy, wh], dim=-1)
+
+
+def retina_encode(matched_xywh: torch.Tensor,
+                  anchor_xywh: torch.Tensor) -> torch.Tensor:
+    """RetinaNet offsets: (xy - xy_a) / wh_a, log(wh / wh_a)."""
+    loc_xy = ((matched_xywh[..., :2] - anchor_xywh[..., :2])
+              / anchor_xywh[..., 2:4])
+    loc_wh = torch.log(matched_xywh[..., 2:4] / anchor_xywh[..., 2:4])
+    return torch.cat([loc_xy, loc_wh], dim=-1)
+
+
+def retina_decode(offsets: torch.Tensor,
+                  anchor_xywh: torch.Tensor) -> torch.Tensor:
+    """Invert :func:`retina_encode` -> center-form boxes."""
+    cxy = offsets[..., :2] * anchor_xywh[..., 2:4] + anchor_xywh[..., :2]
+    wh = torch.exp(offsets[..., 2:4]) * anchor_xywh[..., 2:4]
+    return torch.cat([cxy, wh], dim=-1)
+
+
+def center_to_points_clipped(xywh: torch.Tensor) -> torch.Tensor:
+    """Center-form -> corner-form, the corners clipped into [0, 1]."""
+    lp = (xywh[..., :2] - xywh[..., 2:4] / 2.0).clamp(min=0.0)
+    rp = (xywh[..., :2] + xywh[..., 2:4] / 2.0).clamp(max=1.0)
+    return torch.cat([lp, rp], dim=-1)

@@ -31,7 +31,7 @@ def _lib() -> ctypes.CDLL:
     p = ctypes.c_void_p
     lib.greedy_nms_launch.argtypes = [
         p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, p, ctypes.c_int]
     lib.greedy_nms_launch.restype = ctypes.c_int
     lib.greedy_nms_max_k.argtypes = []
     lib.greedy_nms_max_k.restype = ctypes.c_int
@@ -40,7 +40,7 @@ def _lib() -> ctypes.CDLL:
 
 def greedy_nms_plain(boxes, scores, labels, obj, nms_thresh: float = 0.4,
                      class_aware: bool = True, merge: bool = True,
-                     plus1: float = 1.0
+                     plus1: float = 1.0, drop_lone_survivor: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched greedy NMS in plain PyTorch, on any device.
 
@@ -48,7 +48,9 @@ def greedy_nms_plain(boxes, scores, labels, obj, nms_thresh: float = 0.4,
     (<= -1e9 invalid); labels [B, K]; obj [B, K] merge weights.  Returns
     (boxes [B, K, 4] f32, keep [B, K] bool); with ``merge`` each kept box is
     the obj-weighted mean of itself and the boxes it was first to suppress,
-    every other row is returned as given.  Same arithmetic as
+    every other row is returned as given.  ``drop_lone_survivor`` un-keeps
+    each image's last kept row k unless some valid j > k has k as its
+    first kept suppressor (before the merge).  Same arithmetic as
     ``blocked_greedy_nms``: K x K relation, a serial sweep over K columns,
     then first-kept-suppressor attribution.
     """
@@ -75,12 +77,23 @@ def greedy_nms_plain(boxes, scores, labels, obj, nms_thresh: float = 0.4,
         kept = valid[:, i] & ~suppressed[:, i]
         keep[:, i] = kept
         suppressed |= kept[:, None] & over[:, i]
+    ids = torch.arange(K, device=boxes.device)
+
+    def first_suppressor():                     # [B, K]; K = none
+        return torch.where(keep[:, :, None] & over, ids[:, None],
+                           K).amin(dim=1)
+
+    if drop_lone_survivor:
+        first = first_suppressor()
+        last_kept = (K - 1) - keep.flip(1).int().argmax(dim=1)   # [B]
+        late = ((ids[None, :] > last_kept[:, None]) & valid
+                & (first >= last_kept[:, None])).any(dim=1)
+        drop = keep.any(dim=1) & ~late
+        keep = keep & ~(drop[:, None] & (ids[None, :] == last_kept[:, None]))
     if not merge:
         return boxes.clone(), keep
 
-    ids = torch.arange(K, device=boxes.device)
-    first = torch.where(keep[:, :, None] & over, ids[:, None],
-                        K).amin(dim=1)          # [B, K]; K = no suppressor
+    first = first_suppressor()
     w = torch.where(valid, obj.float(), 0.0)
     num = torch.zeros(B, K + 1, 4, device=boxes.device).scatter_add_(
         1, first[..., None].expand(B, K, 4), w[..., None] * boxes)
@@ -106,7 +119,8 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
 
 def greedy_nms(boxes, scores, labels, obj, nms_thresh: float = 0.4,
                class_aware: bool = True, merge: bool = True,
-               plus1: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+               plus1: float = 1.0, drop_lone_survivor: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched greedy NMS; see :func:`greedy_nms_plain` for the contract.
 
     CPU tensors go to the plain version.  CUDA tensors must be contiguous,
@@ -115,7 +129,8 @@ def greedy_nms(boxes, scores, labels, obj, nms_thresh: float = 0.4,
     """
     if boxes.device.type == "cpu":
         return greedy_nms_plain(boxes, scores, labels, obj, nms_thresh,
-                                class_aware, merge, plus1)
+                                class_aware, merge, plus1,
+                                drop_lone_survivor)
     if boxes.device.type != "cuda":
         raise ValueError(f"greedy_nms: unsupported device {boxes.device}")
     B, K = scores.shape
@@ -138,7 +153,7 @@ def greedy_nms(boxes, scores, labels, obj, nms_thresh: float = 0.4,
         boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
         obj.data_ptr(), out.data_ptr(), keep.data_ptr(), B, K,
         float(nms_thresh), int(class_aware), int(merge), float(plus1),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, int(drop_lone_survivor))
     if err != 0:
         raise RuntimeError(f"greedy_nms kernel launch failed: cudaError {err}")
     global LAUNCHES

@@ -1,22 +1,23 @@
-"""The YOLO losses: the port of ``objectdetectionpl_tpu/ops/losses.py`` (YOLO part).
+"""Detection losses: the port of ``objectdetectionpl_tpu/ops/losses.py``.
 
 A loss is a function ``(outputs, labels, boxes, mask) -> dict[str, scalar
 tensor]`` over padded targets (``ops/assignment.py``), with the metric keys
 of the JAX package.  Loss terms are computed in the head maps' dtype (bf16
 under bf16 compute) and promoted to f32 where they meet the f32 targets,
-as JAX promotes; nothing syncs with the host.  The SSD and RetinaNet
-losses come with their slices (ROADMAP A9.4-A9.5).
+as JAX promotes (a bf16 map meets a f32 one-hot or offset target in
+f32); nothing syncs with the host.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from objectdetectionpl_tpu_torch.models.registry import NOT_PORTED
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
 from objectdetectionpl_tpu_torch.ops import assignment
 from objectdetectionpl_tpu_torch.ops import boxes as box_ops
@@ -65,6 +66,31 @@ def smooth_l1(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 
 COORD_CRITERIA = {"mse_loss": mse, "smooth_l1_loss": smooth_l1}
+
+
+def softmax_focal(logits: torch.Tensor, y: torch.Tensor, num_classes: int,
+                  alpha: float = 0.25, gamma: float = 2.0) -> torch.Tensor:
+    """Focal loss on a softmax over the C class logits [N, C]; y [N] in
+    {0 (background), 1..C}.  Background rows have an all-zero target, so
+    they add neither loss nor gradient.  Returns [N, C] elementwise, f32."""
+    t = F.one_hot(y.long(), num_classes + 1)[..., 1:].float()
+    p = torch.softmax(logits, dim=-1).clamp(1e-7, 1.0 - 1e-7)
+    return alpha * (-t * torch.log(p)) * (1.0 - p) ** gamma
+
+
+def sigmoid_focal(logits: torch.Tensor, y: torch.Tensor, num_classes: int,
+                  alpha: float = 0.25, gamma: float = 2.0) -> torch.Tensor:
+    """RetinaNet's focal loss (Lin et al. 2017): per-class sigmoid BCE with
+    focal modulation.  logits [N, C]; y [N] in {0 (background), 1..C};
+    background rows have all-zero targets, which push every class logit
+    down.  Returns [N, C] elementwise, f32."""
+    t = F.one_hot(y.long(), num_classes + 1)[..., 1:].float()
+    p = torch.sigmoid(logits)
+    bce = (logits.clamp(min=0.0) - logits * t
+           + torch.log1p(torch.exp(-logits.abs())))
+    pt = p * t + (1.0 - p) * (1.0 - t)
+    w = alpha * t + (1.0 - alpha) * (1.0 - t)
+    return w * (1.0 - pt) ** gamma * bce
 
 
 def _masked_mean(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -259,25 +285,112 @@ def yolov5_loss(outputs: Sequence[torch.Tensor], labels: torch.Tensor,
             "Classification": lcls, "Conf_obj": lobj}
 
 
+# --- SSD loss ---------------------------------------------------------------
+
+
+def ssd_loss(outputs, labels: torch.Tensor, boxes: torch.Tensor,
+             mask: torch.Tensor, default_xywh, num_classes: int,
+             coord_criterion=smooth_l1, cls_mode: str = "ce",
+             match_thresh: float = 0.5, neg_ratio: int = 3) -> dict:
+    """SSD multibox loss with 3:1 hard-negative mining.
+
+    outputs: (loc [B, D, 4], cls [B, D, 1+C]), class channel 0 background.
+    ``cls_mode`` "ce" (cross-entropy over 1+C channels) or "focal"
+    (:func:`softmax_focal` over the C foreground channels, summed per box).
+    Per image: localization over the positives and classification over the
+    positives plus the ``neg_ratio * positives`` hardest negatives (a full
+    descending sort and a rank mask), both over max(positives, 1); an image
+    without targets adds the mined negatives' zero count and no
+    localization.  The metrics are the means over the images.
+    """
+    loc_p, cls_p = outputs
+    B, D = loc_p.shape[:2]
+    dev = loc_p.device
+    dbox = torch.as_tensor(default_xywh, dtype=torch.float32, device=dev)
+    m = assignment.ssd_match(dbox, labels, boxes, mask, match_thresh)
+    n_matched = m.matched.sum(dim=1)                            # [B]
+    has_ann = mask.any(dim=1)
+    n = torch.where(has_ann, n_matched, 1).clamp(min=1).float()
+
+    reg_elem = coord_criterion(loc_p, m.true_offsets).sum(-1)   # [B, D]
+    reg = (reg_elem * m.matched).sum(dim=1) / n
+    reg = torch.where(has_ann, reg, 0.0)
+
+    if cls_mode == "focal":
+        # channel 0 (background) is unused in focal mode
+        cls_elem = softmax_focal(cls_p[..., 1:].reshape(B * D, num_classes),
+                                 m.true_classes.reshape(-1), num_classes
+                                 ).sum(-1).view(B, D)
+    else:
+        logp = torch.log_softmax(cls_p, dim=-1)
+        cls_elem = -torch.gather(logp, 2, m.true_classes[..., None])[..., 0]
+
+    pos_sum = (cls_elem * m.matched).sum(dim=1)
+    neg = torch.where(m.matched, -math.inf, cls_elem)
+    neg_sorted = torch.sort(neg, dim=1, descending=True).values
+    rank = torch.arange(D, device=dev)
+    k = neg_ratio * torch.where(has_ann, n_matched, 0)
+    neg_sum = torch.where(rank[None] < k[:, None], neg_sorted, 0.0).sum(dim=1)
+    cls_loss = ((pos_sum + neg_sum) / n).mean()
+    loc_loss = reg.mean()
+    return {"loss": cls_loss + loc_loss, "Localization": loc_loss,
+            "Classification": cls_loss}
+
+
+# --- RetinaNet loss ----------------------------------------------------------
+
+
+def retinanet_loss(outputs, labels: torch.Tensor, boxes: torch.Tensor,
+                   mask: torch.Tensor, anchors_xywh, num_classes: int,
+                   img_size: float, coord_criterion=smooth_l1,
+                   focal: str = "softmax") -> dict:
+    """RetinaNet focal loss + box regression, both over max(positives, 1)
+    of the whole batch.
+
+    outputs: (loc [B, A, 4], cls [B, A, C]).  ``focal`` "softmax"
+    (:func:`softmax_focal`, no gradient on background rows) or "sigmoid"
+    (:func:`sigmoid_focal`, the default of :func:`make_loss`); anchors in
+    the ignore band add nothing.
+    """
+    loc_p, cls_p = outputs
+    dev = loc_p.device
+    anc = torch.as_tensor(anchors_xywh, dtype=torch.float32, device=dev)
+    match = assignment.retina_match(anc, labels, boxes, mask, img_size)
+
+    pos = match.cls_targets > 0                                 # [B, A]
+    num_pos = pos.sum().float().clamp(min=1.0)
+    loc_elem = coord_criterion(loc_p, match.loc_targets).sum(-1)
+    loc_loss = (loc_elem * pos).sum()
+
+    not_ignored = match.cls_targets > -1
+    focal_fn = sigmoid_focal if focal == "sigmoid" else softmax_focal
+    cls_elem = focal_fn(cls_p.reshape(-1, num_classes),
+                        match.cls_targets.clamp(min=0).reshape(-1),
+                        num_classes).sum(-1)
+    cls_loss = (cls_elem * not_ignored.reshape(-1)).sum()
+    return {"loss": (loc_loss + cls_loss) / num_pos,
+            "Localization": loc_loss / num_pos,
+            "Classification": cls_loss / num_pos}
+
+
 def make_loss(model_name: str, num_classes: int, img_size: int,
               coord_criterion: str = "smooth_l1_loss",
               cls_criterion: str = "bce_loss", anchors=None,
               v3_double_stride: bool = False, **kw):
-    """String-config loss factory for the YOLO families.
+    """String-config loss factory for the six families.
 
     Returns ``(outputs, labels, boxes, mask) -> metrics dict``.  The anchor
-    tables are copied to each device once, on the first call there.  As in
-    the JAX factory, an unknown ``coord_criterion`` raises KeyError for
-    every family; the YOLO families ignore ``img_size`` and
-    ``cls_criterion``, and all but YOLOv3 ignore ``v3_double_stride``
-    (:func:`yolo_anchors_grid`).  YOLOv2/v3/v4 take ``coord_criterion``
-    for the box terms; YOLOv5 ignores it.  ``kw`` goes to
-    :func:`region_loss` or :func:`yolov5_loss`.
+    tables and default boxes are copied to each device once, on the first
+    call there.  As in the JAX factory, an unknown ``coord_criterion``
+    raises KeyError for every family; the YOLO families ignore ``img_size``
+    and ``cls_criterion``, and all but YOLOv3 ignore ``v3_double_stride``
+    (:func:`yolo_anchors_grid`).  YOLOv2/v3/v4, SSD and RetinaNet take
+    ``coord_criterion`` for the box terms; YOLOv5 ignores it.  SSD uses
+    the focal classification for ``cls_criterion="focal_loss"``, else
+    cross-entropy; RetinaNet's ``focal`` defaults to "sigmoid".  ``kw``
+    goes to the family's loss function.
     """
     coord = COORD_CRITERIA[coord_criterion]
-    if model_name in NOT_PORTED:
-        raise NotImplementedError(f"{model_name} loss is not ported yet "
-                                  f"({NOT_PORTED[model_name]})")
     on_device = {}
 
     def tables(dev, arrays):
@@ -285,6 +398,29 @@ def make_loss(model_name: str, num_classes: int, img_size: int,
             on_device[dev] = [torch.as_tensor(a, dtype=torch.float32,
                                               device=dev) for a in arrays]
         return on_device[dev]
+
+    if model_name == "SSD":
+        dboxes = anchor_lib.ssd_dboxes() if anchors is None else anchors
+        mode = "focal" if cls_criterion == "focal_loss" else "ce"
+
+        def ssd(outputs, labels, boxes, mask):
+            return ssd_loss(outputs, labels, boxes, mask,
+                            tables(outputs[0].device, [dboxes])[0],
+                            num_classes, coord_criterion=coord,
+                            cls_mode=mode, **kw)
+        return ssd
+
+    if model_name == "RetinaNet":
+        anc = (anchor_lib.retina_anchors(img_size) if anchors is None
+               else anchors)
+        kw.setdefault("focal", "sigmoid")
+
+        def retina(outputs, labels, boxes, mask):
+            return retinanet_loss(outputs, labels, boxes, mask,
+                                  tables(outputs[0].device, [anc])[0],
+                                  num_classes, img_size,
+                                  coord_criterion=coord, **kw)
+        return retina
 
     if model_name != "YOLOv5":
         per_scale = yolo_anchors_grid(model_name, anchors, v3_double_stride)

@@ -1,11 +1,12 @@
-"""YOLO decodes and batched weighted-merge NMS on tensors.
+"""Decodes and batched greedy NMS on tensors.
 
-The serving subset of ``objectdetectionpl_tpu/ops/nms.py``: decoded
+The serving part of ``objectdetectionpl_tpu/ops/nms.py``: YOLO decoded
 predictions ``[B, N, 5+C]`` -> top-k candidates -> class-aware, obj-weighted
-merge greedy NMS with the +1-pixel IoU, as fixed-size ``[B, K, ...]``
-results with a validity mask.  The suppression scan is
-``ops/cuda/nms_kernel.greedy_nms``: the CUDA kernel for CUDA tensors, its
-plain version for CPU tensors.
+merge greedy NMS (``yolo_nms``); SSD / RetinaNet offsets and class logits ->
+anchor decode -> top-k -> class-agnostic greedy NMS (``anchor_nms``); both
+with the +1-pixel IoU, as fixed-size ``[B, K, ...]`` results with a
+validity mask.  The suppression scan is ``ops/cuda/nms_kernel.greedy_nms``:
+the CUDA kernel for CUDA tensors, its plain version for CPU tensors.
 
 Candidate selection is exact and stable: equal scores keep the lower index
 first, as ``lax.top_k`` does (bf16 scores tie often).  The TPU's
@@ -135,3 +136,72 @@ def yolo_nms(predictions: torch.Tensor, conf_thres: float = 0.5,
     v = keep & (c.scores > NEG_INF)
     return NMSResult(kept_boxes, torch.where(v, c.obj, 0.0),
                      torch.where(v, c.cls, 0.0), c.labels, v)
+
+
+class AnchorCandidates(NamedTuple):
+    """The top-k rows ``anchor_nms`` hands to the suppression scan."""
+    boxes: torch.Tensor   # [B, K, 4] xyxy, f32
+    scores: torch.Tensor  # [B, K] best class sigmoid (logits' dtype),
+                          # NEG_INF below the class threshold
+    labels: torch.Tensor  # [B, K] int32
+
+    def nms_inputs(self):
+        """(boxes, scores, labels, obj) as ``greedy_nms`` takes them:
+        contiguous, scores in f32 (the scan runs in f32 whatever the
+        model's dtype), obj 0."""
+        return (self.boxes.float().contiguous(),
+                self.scores.float().contiguous(), self.labels.contiguous(),
+                torch.zeros(self.scores.shape, dtype=torch.float32,
+                            device=self.scores.device))
+
+
+def anchor_candidates(loc_preds: torch.Tensor, cls_preds: torch.Tensor,
+                      anchors_xywh, top_k: int = 100,
+                      class_thresh: float = 0.45,
+                      decode=box_ops.ssd_decode, use_variance: bool = False,
+                      scale: float = 1.0) -> AnchorCandidates:
+    """Each row scores its best class sigmoid (``class_thresh`` masks lower
+    ones to NEG_INF, in the logits' dtype); the ``top_k`` best rows (ties
+    by lower index) are decoded (``ssd_decode`` without the variances
+    unless ``use_variance``, or ``decode(offsets, anchors)``) in f32,
+    corner-form times ``scale``.  The rows are gathered before the decode,
+    which is elementwise, so the boxes equal a decode of every anchor
+    followed by the gather."""
+    anc = torch.as_tensor(anchors_xywh, dtype=torch.float32,
+                          device=loc_preds.device)
+    top_k = min(top_k, anc.shape[0])
+    probs = torch.sigmoid(cls_preds)
+    score = probs.amax(dim=-1)
+    label = probs.argmax(dim=-1).to(torch.int32)   # first max, as jnp
+    score = torch.where(score > class_thresh, score, NEG_INF)
+    top_scores, idx = _select_top_k(score, top_k)
+    loc = torch.gather(loc_preds, 1, idx[..., None].expand(-1, -1, 4))
+    if decode is box_ops.ssd_decode:
+        xywh = box_ops.ssd_decode(loc, anc[idx], use_variance)
+    else:
+        xywh = decode(loc, anc[idx])
+    return AnchorCandidates(box_ops.xywh_to_xyxy(xywh) * scale, top_scores,
+                            torch.gather(label, 1, idx))
+
+
+def anchor_nms(loc_preds: torch.Tensor, cls_preds: torch.Tensor,
+               anchors_xywh, top_k: int = 100, nms_thresh: float = 0.5,
+               class_thresh: float = 0.45, decode=box_ops.ssd_decode,
+               use_variance: bool = False, scale: float = 1.0,
+               drop_lone_survivor: bool = False) -> NMSResult:
+    """SSD / RetinaNet batched NMS.
+
+    loc_preds [B, D, 4] offsets; cls_preds [B, D, C] logits; anchors_xywh
+    [D, 4] (numpy or tensor).  :func:`anchor_candidates`, then the
+    class-agnostic greedy NMS without merge in f32, with
+    ``drop_lone_survivor`` as ``greedy_nms`` takes it.  ``obj`` is 0.
+    """
+    c = anchor_candidates(loc_preds, cls_preds, anchors_xywh, top_k,
+                          class_thresh, decode, use_variance, scale)
+    kept_boxes, keep = nms_kernel.greedy_nms(
+        *c.nms_inputs(), nms_thresh=nms_thresh, class_aware=False,
+        merge=False, plus1=1.0, drop_lone_survivor=drop_lone_survivor)
+    # compared in the scores' dtype, as for the YOLO candidates
+    v = keep & (c.scores > NEG_INF)
+    return NMSResult(kept_boxes, torch.zeros_like(c.scores),
+                     torch.where(v, c.scores, 0.0), c.labels, v)

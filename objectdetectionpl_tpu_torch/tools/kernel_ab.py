@@ -103,9 +103,10 @@ def nms_cases() -> dict:
             "serving_B1": [t[:1].contiguous() for t in serve]}
 
 
-def chain_length(args) -> dict:
-    """Kept heads per image of the greedy scan, mean and max."""
-    _, keep = nms_kernel.greedy_nms(*args)
+def chain_length(args, **flags) -> dict:
+    """Kept heads per image of the greedy scan, mean and max; ``flags``
+    go to ``greedy_nms``."""
+    _, keep = nms_kernel.greedy_nms(*args, **flags)
     kept = keep.sum(dim=1).float()
     return {"chain_mean": float(kept.mean()), "chain_max": int(kept.max())}
 
@@ -238,7 +239,7 @@ def probe_lib(source: Path) -> ctypes.CDLL:
     p = ctypes.c_void_p
     dll.greedy_nms_launch.argtypes = [
         p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, p, ctypes.c_int]
     dll.phase_clocks.argtypes = [p, ctypes.c_int]
     return dll
 
@@ -253,7 +254,7 @@ def phases(dll: ctypes.CDLL, args) -> dict:
     launch = lambda: dll.greedy_nms_launch(
         boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
         obj.data_ptr(), out.data_ptr(), keep.data_ptr(), B, K, 0.4, 1, 1,
-        1.0, torch.cuda.current_stream().cuda_stream)
+        1.0, torch.cuda.current_stream().cuda_stream, 0)
     for _ in range(3):                         # warm: the last launch counts
         if launch():
             raise RuntimeError("probe launch failed")

@@ -16,8 +16,8 @@ from typing import Callable
 
 import torch
 
-from objectdetectionpl_tpu_torch.models.registry import NOT_PORTED
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
+from objectdetectionpl_tpu_torch.ops import boxes as box_ops
 from objectdetectionpl_tpu_torch.ops import nms
 from objectdetectionpl_tpu_torch.train.state import TrainState
 
@@ -156,14 +156,40 @@ YOLO_DECODE = {
 def make_postprocess(model_name: str, num_classes: int, img_size: int,
                      conf_thres: float = 0.5, nms_thres: float = 0.4,
                      top_k: int = 300) -> Callable:
-    """YOLO-family decode + NMS, emitting pixel-space boxes.
+    """Family-specific decode + NMS, emitting pixel-space boxes.
 
-    ``img_size`` is unused by the YOLO decodes, which are stride-based; it
-    is kept so callers pass the same arguments as to the JAX function.
+    SSD and RetinaNet: anchor decode + class-agnostic greedy NMS
+    (``nms.anchor_nms``: IoU 0.5, its own top-k of 100, class threshold
+    ``min(0.45, conf_thres)``); SSD drops the background channel and
+    scales its normalized boxes by ``img_size``.  YOLO: family decode +
+    weighted-merge NMS (``nms_thres``, ``top_k``); their decodes are
+    stride-based and ignore ``img_size``.
     """
-    if model_name in NOT_PORTED:
-        raise NotImplementedError(f"{model_name} postprocess is not ported "
-                                  f"yet ({NOT_PORTED[model_name]})")
+    # the anchor families' class threshold is 0.45 unless the configured
+    # conf_thres is lower (an untrained model's scores may all lie below it)
+    anchor_class_thresh = min(0.45, conf_thres)
+    if model_name == "SSD":
+        dboxes = anchor_lib.ssd_dboxes()
+
+        def post(outputs):
+            loc, cls = outputs
+            return nms.anchor_nms(loc, cls[..., 1:], dboxes, nms_thresh=0.5,
+                                  class_thresh=anchor_class_thresh,
+                                  scale=float(img_size))
+        return post
+
+    if model_name == "RetinaNet":
+        anchors = anchor_lib.retina_anchors(img_size)
+
+        def post(outputs):
+            loc, cls = outputs
+            return nms.anchor_nms(loc, cls, anchors,
+                                  decode=box_ops.retina_decode,
+                                  nms_thresh=0.5,
+                                  class_thresh=anchor_class_thresh,
+                                  scale=1.0)
+        return post
+
     if model_name == "YOLOv5":
         def post(outputs):
             preds = nms.decode_yolov5_predictions(

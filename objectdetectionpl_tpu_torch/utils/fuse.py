@@ -20,6 +20,8 @@ STEM_CONVS = {
     "YOLOv3": "Darknet53_0.ConvBN_0.Conv_0",
     "YOLOv4": "DownSample1_0.ConvBN_0.Conv_0",
     "YOLOv5": STEM_CONV,
+    "SSD": "_VGGStack_0.ConvBN_0.Conv_0",
+    "RetinaNet": "ResNetFPN_0.ConvBN_0.Conv_0",
 }
 
 

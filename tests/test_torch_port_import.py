@@ -45,7 +45,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res["bad"] == []
     assert "objectdetectionpl_tpu_torch.ops.cuda.nms_kernel" in res["modules"]
     assert {"objectdetectionpl_tpu_torch.ops.yolo_stats",
-            "objectdetectionpl_tpu_torch.models.yolov4"} <= set(res["modules"])
+            "objectdetectionpl_tpu_torch.models.yolov4",
+            "objectdetectionpl_tpu_torch.models.retinanet",
+            "objectdetectionpl_tpu_torch.models.ssd"} <= set(res["modules"])
     assert len(res["modules"]) >= 15
 
 

@@ -162,13 +162,16 @@ def test_yolov5_loss_bf16_dtype_flow_matches_jax():
 
 
 @pytest.mark.parametrize("name,error,match", [
-    ("RetinaNet", NotImplementedError, r"ROADMAP A9\.4"),
-    ("SSD", NotImplementedError, r"ROADMAP A9\.5"),
+    ("RetinaNet", KeyError, "l3_loss"),
+    ("SSD", KeyError, "l3_loss"),
     ("YOLOv9", ValueError, "unknown model"),
 ])
 def test_make_loss_other_families_raise(name, error, match):
+    """An unknown family raises ValueError; SSD and RetinaNet, ported since,
+    raise KeyError on an unknown coord criterion, as the JAX factory does."""
+    coord = "l3_loss" if error is KeyError else "smooth_l1_loss"
     with pytest.raises(error, match=match):
-        port_losses.make_loss(name, C, IMG)
+        port_losses.make_loss(name, C, IMG, coord_criterion=coord)
 
 
 def test_make_loss_takes_the_trainer_keywords():

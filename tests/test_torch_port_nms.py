@@ -115,6 +115,65 @@ def test_greedy_nms_plain_edge_cases(case):
         np.testing.assert_array_equal(pk.sum(axis=1), n_valid)
 
 
+def _lone_case(last_alone: bool):
+    """Class-agnostic, image 0: A, B, then a shifted copy of A, or (with
+    ``last_alone`` False) of B, then two invalid rows; B is the last kept
+    box and the copy's first kept suppressor is A (B lone) or B.  Image 1:
+    A, two copies of A, C, then a copy of A (C lone) or of C."""
+    A = [10.0, 10.0, 60.0, 60.0]
+    Bx = [200.0, 200.0, 260.0, 250.0]
+    Cx = [400.0, 40.0, 450.0, 90.0]
+    shift = lambda b, d: [b[0] + d, b[1], b[2] + d, b[3]]
+    img0 = [A, Bx, shift(A if last_alone else Bx, 2.0), A, A]
+    img1 = [A, shift(A, 1.0), shift(A, 3.0), Cx,
+            shift(A, 4.0) if last_alone else shift(Cx, 2.0)]
+    boxes = np.array([img0, img1], np.float32)
+    scores = np.array([[0.9, 0.8, 0.7, jax_nms.NEG_INF, jax_nms.NEG_INF],
+                       [0.9, 0.8, 0.7, 0.6, 0.5]], np.float32)
+    labels = np.array([[0, 1, 2, 0, 0], [0, 1, 2, 3, 4]], np.int32)
+    obj = np.where(scores > jax_nms.NEG_INF, 0.5, 0.0).astype(np.float32)
+    return boxes, scores, labels, obj
+
+
+@pytest.mark.parametrize("case", ["lone", "not_lone", "random_sparse",
+                                  "random_dense", "all_invalid",
+                                  "single_valid"])
+@pytest.mark.parametrize("class_aware,merge", [(False, False), (True, True)])
+def test_greedy_nms_plain_drop_lone_survivor_matches_jax(case, class_aware,
+                                                         merge):
+    """``drop_lone_survivor=True`` against ``blocked_greedy_nms``: the last
+    kept row goes exactly when no valid later row has it as its first
+    kept suppressor."""
+    if case in ("lone", "not_lone"):
+        arrays = _lone_case(case == "lone")
+    elif case == "all_invalid":
+        arrays = _candidates(seed=21, K=37, n_invalid=37)
+    elif case == "single_valid":
+        arrays = _candidates(seed=22, K=37, n_invalid=36)
+    else:
+        arrays = _candidates(seed=23, B=4, K=100, C=3,
+                             dense=case == "random_dense")
+    b, k = nms_kernel.greedy_nms_plain(
+        *map(torch.from_numpy, arrays), nms_thresh=0.4,
+        class_aware=class_aware, merge=merge, plus1=1.0,
+        drop_lone_survivor=True)
+    jb, jk = jax_nms.blocked_greedy_nms(
+        *map(jnp.asarray, arrays), nms_thresh=0.4, class_aware=class_aware,
+        merge=merge, plus1=1.0, drop_lone_survivor=True)
+    np.testing.assert_array_equal(k.numpy(), np.asarray(jk))
+    np.testing.assert_allclose(b.numpy(), np.asarray(jb), **BOX_TOL)
+    _, plain_k = _port(arrays, class_aware, merge)
+    dropped = plain_k & ~k.numpy()
+    assert dropped.sum(axis=1).max() <= 1        # at most the last kept row
+    if case in ("lone", "not_lone") and not class_aware:
+        # image 0: B is lone unless its copy follows; image 1: the last
+        # kept box (C) is lone unless its copy follows
+        assert dropped[:, 1].tolist() == [case == "lone", False]
+        assert dropped[1, 3] == (case == "lone")
+    if case == "single_valid":                   # alone: always dropped
+        assert not k.numpy().any()
+
+
 def test_greedy_nms_dispatch_has_no_fallback():
     arrays = [torch.from_numpy(a) for a in _candidates(seed=5, K=16)]
     b, k = nms_kernel.greedy_nms(*arrays)          # CPU -> plain version
