@@ -41,6 +41,9 @@ exits non-zero:
    slots of a B=64 batch in coin order (not sorted): all warped, none
    (the copy path), the training mix, the 60 degree / 0.5 matrix (taps
    from global memory), and a mix on 37x53 images (stores by element);
+   and the slots the anchor families' training gives it: B=32 batches of
+   600x600 and 300x300 with the training mix of K=13, 16-byte stores with
+   partial 32-pixel tiles at the right and bottom edges;
    each case must reach the paths it names (``tile_plan``).  Expected
    difference exactly 0 (the kernel's coordinate arithmetic is the plain
    version's IEEE operation sequence); tolerance 1e-6.
@@ -113,8 +116,8 @@ exits non-zero:
    warm-up and three batches each, one NMS launch a batch; ms per batch,
    img/s, forward GFLOP per image; the last B=64 batch's candidates
    (bf16 scores) through kernel and plain version.
-17. anchor_training -- each family, bf16, Adam lr 1e-3 / wd 1e-5, B=32
-   (B=16 where B=32 needs more than ``ANCHOR_TRAIN_MEM_GB``), M=32:
+17. anchor_training -- each family, bf16, Adam lr 1e-3 / wd 1e-5, B=32,
+   M=32:
    ``augment_batch`` -> ``train_step``, one warm-up and three timed
    steps; one warp launch a step, a finite loss, peak memory.
 18. trainer_retinanet, trainer_ssd -- as ``trainer``, one epoch, with
@@ -301,8 +304,6 @@ ANCHOR_NMS = dict(class_aware=False, merge=False, thresh=0.5)
 ANCHOR_CLASS_THRESH = 0.45
 ANCHOR_SERVE_B = 64
 ANCHOR_TRAIN_B = 32
-# RetinaNet-600 trains at B=16 instead where B=32 needs more than this
-ANCHOR_TRAIN_MEM_GB = 60.0
 # f32 card vs CPU (TF32 off): head maps and d(loss)/d(head maps) per map as
 # max |diff| / max |ref|, the loss relative (as for YOLOv2/v3/v4; RetinaNet
 # has 53 convs in its backbone, SSD 15 without BN); the matching's offsets
@@ -706,6 +707,15 @@ def check_warp(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+def edge_staged(plan: dict, H: int, W: int) -> int:
+    """Staged tiles of a ``tile_plan`` in the partial last row or column
+    of tiles (none where the size is a multiple of the tile)."""
+    last = torch.zeros(plan["path"].shape[1:], dtype=torch.bool)
+    last[:, -1] = W % warp_kernel.TILE != 0
+    last[-1, :] |= H % warp_kernel.TILE != 0
+    return int((plan["path"][:, last] == 1).sum())
+
+
 def phase_warp_check() -> float:
     g = torch.Generator().manual_seed(20)
     img = lambda K, H, W: torch.rand(K, H, W, 3, generator=g).cuda()
@@ -740,7 +750,7 @@ def phase_warp_check() -> float:
         ("slots_all_used_K26_640", batch, top, inv21, yes(WARP_K),
          lambda n: n["copy"] == 0 and n["staged"] > 0),
         ("slots_none_used_K26_640", batch, top, inv21, ~yes(WARP_K),
-         lambda n: n["copy"] == sum(n.values())),
+         lambda n: n["copy"] == sum(n[p] for p in warp_kernel.PATHS)),
         ("slots_mix_K26_640", batch, top, inv, use,
          lambda n: n["copy"] > 0 and n["staged"] > 0),
         ("slots_rot60_scale0.5_640", batch, on(37, 5),
@@ -749,12 +759,24 @@ def phase_warp_check() -> float:
         ("slots_mix_37x53", small, on(5, 2, 7, 0), ssr_inverses(4, 22).cuda(),
          on(True, False, True, True), lambda n: n["copy"] and n["staged"]),
     ]
+    # the anchor families' training batches (B=32, K=13): the stores are
+    # 16 bytes wide and the last row and column of tiles are partial
+    anchor_k = round(ANCHOR_TRAIN_B * 2 * augment.AugmentConfig().p_ssr)
+    for i, S in enumerate(sorted(set(ANCHOR_FAMILIES.values()))):
+        slot_cases.append(
+            (f"slots_mix_K{anchor_k}_B{ANCHOR_TRAIN_B}_{S}",
+             img(ANCHOR_TRAIN_B, S, S),
+             *kernel_ab.ssr_mix(ANCHOR_TRAIN_B, anchor_k, 27 + i),
+             lambda n: n["copy"] > 0 and n["staged"] > 0
+             and n["edge_staged"] > 0 and n["vec"]))
     for name, images, top, inv, use, expect in slot_cases:
         inv = inv.contiguous()
         _, H, W, C = images.shape
         plan = warp_kernel.tile_plan(H, W, C, inv, use)
         paths = warp_kernel.path_counts(plan)
-        if not expect(paths) or bool((top.diff() > 0).all()):
+        edge = edge_staged(plan, H, W)
+        if not expect(dict(paths, vec=plan["vec"], edge_staged=edge)) \
+                or bool((top.diff() > 0).all()):
             raise AssertionError(f"{name}: tiles per path {paths}, top "
                                  f"{top.tolist()}: not the case it names")
         err = check_warp(
@@ -763,8 +785,8 @@ def phase_warp_check() -> float:
         max_err = max(max_err, err)
         emit({"phase": "warp_check", "case": name, "source": list(
               images.shape), "K": len(top), "used": int(use.sum()),
-              "tiles": paths, "vec": plan["vec"], "max_abs_err": err,
-              "tolerance": WARP_TOL})
+              "tiles": paths, "vec": plan["vec"], "edge_staged": edge,
+              "max_abs_err": err, "tolerance": WARP_TOL})
     return max_err
 
 
@@ -1449,25 +1471,13 @@ def anchor_training_run(name: str, img: int, B: int) -> dict:
 def phase_anchor_training(card: str) -> dict:
     """Each family at its size, 80 classes, bf16, Adam lr 1e-3 / wd 1e-5,
     B=32, M=32: uint8 -> /255 -> ``augment_batch`` (one warp launch) ->
-    ``train_step``; one warm-up and three timed steps.  A family whose
-    B=32 step needs more than ``ANCHOR_TRAIN_MEM_GB`` (or runs out of
-    memory) is run again at B=16, and the line says so."""
+    ``train_step``; one warm-up and three timed steps."""
     out = {}
     for name, img in ANCHOR_FAMILIES.items():
-        note = None
-        try:
-            r = anchor_training_run(name, img, ANCHOR_TRAIN_B)
-            if r["peak_mem_gb"] > ANCHOR_TRAIN_MEM_GB:
-                note = f"B={ANCHOR_TRAIN_B} peaked at {r['peak_mem_gb']} GB"
-        except torch.cuda.OutOfMemoryError:
-            note = f"B={ANCHOR_TRAIN_B} ran out of memory"
-        if note:
-            torch.cuda.empty_cache()
-            r = anchor_training_run(name, img, ANCHOR_TRAIN_B // 2)
+        r = anchor_training_run(name, img, ANCHOR_TRAIN_B)
         emit({"phase": "anchor_training", "card": card, "model": name,
               "img": img, "classes": NUM_CLASSES, "dtype": "bfloat16",
-              "M": TRAIN_M, "optimizer": "Adam lr 1e-3 wd 1e-5", **r,
-              "reduced_batch": note})
+              "M": TRAIN_M, "optimizer": "Adam lr 1e-3 wd 1e-5", **r})
         out[name] = r["launches"]["affine_warp"]
         torch.cuda.empty_cache()
     return out

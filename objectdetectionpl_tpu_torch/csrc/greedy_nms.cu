@@ -56,7 +56,8 @@
 // - Merge, one thread per kept row over its group (j ascending, then the
 //   row itself), reading only the words at and after its own.
 // - drop_lone: the thread of a kept row with no kept bit above it reads the
-//   same group words; all zero drops the row before the merge.
+//   same group words; all zero drops the row before the merge.  It is a
+//   template argument: the instance without it pays nothing for the flag.
 // 512 threads per CTA, at most 64 registers each: two CTAs per SM, so
 // B=256 still runs in one wave.
 //
@@ -86,6 +87,7 @@ __device__ __forceinline__ u64 word_of(const unsigned* bits, int word) {
   return (static_cast<u64>(bits[2 * word + 1]) << 32) | bits[2 * word];
 }
 
+template <bool kDropLone>
 __global__ void __launch_bounds__(kThreads, 2)
 greedy_nms_kernel(const float4* __restrict__ boxes,
                   const float* __restrict__ scores,
@@ -94,7 +96,7 @@ greedy_nms_kernel(const float4* __restrict__ boxes,
                   float4* __restrict__ out_boxes,
                   bool* __restrict__ keep_out,
                   int K, float thresh, int class_aware, int merge,
-                  float plus1, int drop_lone) {
+                  float plus1) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nw = (K + 63) >> 6;
   const int kp = nw * 64;                               // K padded to words
@@ -266,7 +268,7 @@ greedy_nms_kernel(const float4* __restrict__ boxes,
   for (int i = tid; i < K; i += kThreads) {
     float4 out = box[i];
     bool kept = (keep_bits[i >> 5] >> (i & 31)) & 1u;
-    if (kept && drop_lone) {
+    if (kDropLone && kept) {
       // the last kept row (no kept bit above it) with an empty group
       bool last = (keep_bits[i >> 5] >> (i & 31)) >> 1 == 0u;
       for (int b = (i >> 5) + 1; b < 2 * nw; ++b) last &= keep_bits[b] == 0u;
@@ -327,16 +329,17 @@ extern "C" int greedy_nms_launch(const void* boxes, const void* scores,
                                  float plus1, void* stream, int drop_lone) {
   if (B <= 0 || K <= 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(K);
+  const auto kernel =
+      drop_lone ? greedy_nms_kernel<true> : greedy_nms_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        greedy_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  greedy_nms_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(boxes), static_cast<const float*>(scores),
       static_cast<const int*>(labels), static_cast<const float*>(obj),
       static_cast<float4*>(out_boxes), static_cast<bool*>(keep), K, thresh,
-      class_aware, merge, plus1, drop_lone);
+      class_aware, merge, plus1);
   return (int)cudaGetLastError();
 }

@@ -198,6 +198,18 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(n_in: int, n_out: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """:func:`_resize_weights` on ``device`` in ``dtype``, copied there once:
+    a copy from the host inside a forward would wait for the card.  Made
+    outside inference mode, so a matrix first made for serving still
+    serves a training step's backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_resize_weights(n_in, n_out)).to(device,
+                                                                 dtype)
+
+
 def resize_bilinear(x, size: Sequence[int]):
     """Bilinear resize of NCHW ``x`` to ``size`` (H, W):
     ``jax.image.resize(method="bilinear")`` as JAX computes it, two
@@ -209,8 +221,8 @@ def resize_bilinear(x, size: Sequence[int]):
     bf16 keeps f32 weights and one rounding where JAX rounds three times
     (``tests/test_torch_port_anchor_models.py``)."""
     H, W = x.shape[2], x.shape[3]
-    wh, ww = [torch.from_numpy(_resize_weights(n, m)).to(x.device, x.dtype)
-              for n, m in ((H, size[0]), (W, size[1]))]
+    wh = _resize_matrix(H, size[0], x.device, x.dtype)
+    ww = _resize_matrix(W, size[1], x.device, x.dtype)
     if H * size[1] < size[0] * W:      # W first: the smaller intermediate
         return wh.t() @ (x @ ww)
     return (wh.t() @ x) @ ww

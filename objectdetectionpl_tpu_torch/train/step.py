@@ -153,6 +153,21 @@ YOLO_DECODE = {
 }
 
 
+def _on_device(table) -> Callable:
+    """``device -> table`` as f32 on that device, copied there on the first
+    call only: a copy from the host in every batch would wait for the
+    card.  Made outside inference mode, as blocks._resize_matrix is."""
+    on_device = {}
+
+    def get(dev):
+        if dev not in on_device:
+            with torch.inference_mode(False):
+                on_device[dev] = torch.as_tensor(table, dtype=torch.float32,
+                                                 device=dev)
+        return on_device[dev]
+    return get
+
+
 def make_postprocess(model_name: str, num_classes: int, img_size: int,
                      conf_thres: float = 0.5, nms_thres: float = 0.4,
                      top_k: int = 300) -> Callable:
@@ -169,21 +184,22 @@ def make_postprocess(model_name: str, num_classes: int, img_size: int,
     # conf_thres is lower (an untrained model's scores may all lie below it)
     anchor_class_thresh = min(0.45, conf_thres)
     if model_name == "SSD":
-        dboxes = anchor_lib.ssd_dboxes()
+        dboxes = _on_device(anchor_lib.ssd_dboxes())
 
         def post(outputs):
             loc, cls = outputs
-            return nms.anchor_nms(loc, cls[..., 1:], dboxes, nms_thresh=0.5,
+            return nms.anchor_nms(loc, cls[..., 1:], dboxes(loc.device),
+                                  nms_thresh=0.5,
                                   class_thresh=anchor_class_thresh,
                                   scale=float(img_size))
         return post
 
     if model_name == "RetinaNet":
-        anchors = anchor_lib.retina_anchors(img_size)
+        anchors = _on_device(anchor_lib.retina_anchors(img_size))
 
         def post(outputs):
             loc, cls = outputs
-            return nms.anchor_nms(loc, cls, anchors,
+            return nms.anchor_nms(loc, cls, anchors(loc.device),
                                   decode=box_ops.retina_decode,
                                   nms_thresh=0.5,
                                   class_thresh=anchor_class_thresh,

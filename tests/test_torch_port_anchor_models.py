@@ -222,6 +222,28 @@ def test_resize_bilinear_bf16_equals_jax(src, dst):
     np.testing.assert_array_equal(got, want)
 
 
+def test_resize_matrices_are_made_once_and_serve_a_backward():
+    """The interpolation matrices are copied to a device once per size and
+    dtype; one first made under inference mode (serving) still serves a
+    training forward's backward, whose input gradient is each input
+    pixel's total weight."""
+    pb._resize_matrix.cache_clear()
+    x = torch.from_numpy(np.random.RandomState(7).randn(2, 5, 7, 9)
+                         .astype(np.float32))
+    with torch.inference_mode():
+        served = pb.resize_bilinear(x, (13, 17))
+    assert pb._resize_matrix.cache_info().misses == 2
+    xg = x.clone().requires_grad_(True)
+    out = pb.resize_bilinear(xg, (13, 17))
+    assert pb._resize_matrix.cache_info().misses == 2
+    torch.testing.assert_close(out.detach(), served, rtol=0, atol=0)
+    out.sum().backward()
+    wh = pb._resize_weights(7, 13).sum(1)
+    ww = pb._resize_weights(9, 17).sum(1)
+    want = np.broadcast_to(wh[:, None] * ww[None, :], (2, 5, 7, 9))
+    np.testing.assert_allclose(xg.grad.numpy(), want, rtol=1e-6)
+
+
 @pytest.mark.parametrize("h,w", [(75, 75), (38, 38), (5, 8), (1, 3)])
 def test_ceil_pool_matches_jax(h, w):
     x = np.random.RandomState(h * w).randn(2, h, w, 4).astype(np.float32)

@@ -159,6 +159,28 @@ def test_make_postprocess_matches_jax_on_the_same_maps(name):
         assert float(got.boxes[got.valid].abs().max()) > 1.0
 
 
+@pytest.mark.parametrize("name", ["SSD", "RetinaNet"])
+def test_make_postprocess_copies_its_anchors_once(name, monkeypatch):
+    """The anchor table reaches ``anchor_nms`` as one f32 tensor on the
+    maps' device, made on the first batch (here under inference mode, as
+    ``predict_step`` runs) and handed again to every later batch, so no
+    batch copies it from the host."""
+    img = 300 if name == "SSD" else RETINA_IMG
+    want = (port_anchors.ssd_dboxes() if name == "SSD"
+            else port_anchors.retina_anchors(img))
+    seen = []
+    monkeypatch.setattr(port_nms, "anchor_nms",
+                        lambda loc, cls, anchors, **kw: seen.append(anchors))
+    post = make_postprocess(name, C, img)
+    maps = tuple(torch.from_numpy(m) for m in _maps(name, seed=5))
+    with torch.inference_mode():
+        post(maps)
+    post(maps)
+    assert len(seen) == 2 and seen[0] is seen[1]
+    assert seen[0].dtype == torch.float32 and not seen[0].is_inference()
+    np.testing.assert_array_equal(seen[0].numpy(), want)
+
+
 def _serving_variables(name, kw, x, seed):
     """Bridged flax variables whose class convs have a zero kernel and a
     bias per channel, so the scores are the same numbers on both sides,
