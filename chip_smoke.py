@@ -80,6 +80,29 @@ exits non-zero:
    each epoch's wall time, images/s (the Trainer's
    ``throughput/images_per_sec``), losses, the Loader's resize path and
    the peak memory.
+10a. jpeg_check -- the port's JPEG decoder (``csrc/jpeg_decode.cc``) built
+   with g++ (seconds, or ``jpeg_build_error``, which fails the phase);
+   every committed fixture (``data/testdata``) decoded and its RGB bytes'
+   SHA-256 held against the committed libjpeg hash; the progressive
+   fixture must raise naming its path; ``decode_batch`` over the fixtures
+   x 32 at 1 thread and at the Loader's thread count: ms per image, MP/s,
+   ``os.cpu_count()``.
+10b. trainer_voc -- ``cli.run.main`` with ``data_module`` VOC on a VOC2012
+   tree written under ``build/`` (200 train and 64 val ids cycling over
+   the decodable fixtures, hard links, 1-5 boxes each;
+   ``tools/fixture_trees.py``), YOLOv2 at 416 px, bf16, B=32 and the
+   ``yaml_test`` caps (accumulation 2, 4/2/2 batches, 2 epochs): checked
+   as ``trainer`` (one warp launch per microbatch, one NMS launch per
+   test batch, a finite mAP table, the best checkpoint restored bit-equal)
+   and ``decode_path`` "native"; prints the epochs, img/s and the
+   Loader's host ms per batch for decode and for resize, each alone.
+   Inside it, on its checkpoint: predict_cli -- ``cli.predict.main`` over
+   the decodable fixtures with ``--out-dir``: one JSON line and one NMS
+   launch per image (counts zeroed before, read after), each PNG's
+   signature and IHDR size, ms per image in the call and warm.
+10c. trainer_coco -- the same on a COCO 2017 tree (``images/train2017``,
+   ``images/val2017``, ``annotations/instances_*2017.json``), YOLOv5s at
+   640 px, the flagship.
 11. yolo_fp32 -- YOLOv2, YOLOv3 and YOLOv4 at their published widths,
    416 px, 80 classes, B=2, f32 with TF32 off, on the card and on the CPU
    from the same seeded weights: head maps (``YOLO_HEAD_REL``), the card's
@@ -153,15 +176,18 @@ exits non-zero:
    unprofiled calls (the profiler's own host cost inflates the first).
 
 Then the ``kernels`` line (the NMS and warp entries also carry the launch
-counts of the YOLO and anchor phases, and the NMS entry the anchor scan's
-times) and, last, ``{"ok": true, "device": {...}}``.
+counts of the YOLO, anchor, VOC, COCO and predict phases, and the NMS
+entry the anchor scan's times) and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it prints nothing to stdout and exits 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import hashlib
+import io
 import json
 import math
 import os
@@ -174,6 +200,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from objectdetectionpl_tpu_torch.cli import predict as cli_predict
 from objectdetectionpl_tpu_torch.cli import run as cli_run
 from objectdetectionpl_tpu_torch.config import Config, load_config
 from objectdetectionpl_tpu_torch.data import augment, build_datamodule, native
@@ -184,7 +211,8 @@ from objectdetectionpl_tpu_torch.ops import assignment, losses, nms
 from objectdetectionpl_tpu_torch.ops import boxes as box_ops
 from objectdetectionpl_tpu_torch.ops.cuda import (_build, conv_kernel,
                                                   nms_kernel, warp_kernel)
-from objectdetectionpl_tpu_torch.tools import conv_bench, kernel_ab
+from objectdetectionpl_tpu_torch.tools import (conv_bench, fixture_trees,
+                                               kernel_ab)
 from objectdetectionpl_tpu_torch.tools.kernel_ab import (candidates,
                                                          ssr_inverses)
 from objectdetectionpl_tpu_torch.train.checkpoint import CheckpointManager
@@ -317,6 +345,25 @@ TRAINER_ANCHOR_SETS = {
     name: {**{k: v for k, v in TRAINER_SETS.items() if k != "type"},
            "model_name": name, "img_size": "0", "max_epochs": "1"}
     for name in ANCHOR_FAMILIES}
+
+
+# the real-dataset phases: cli.run on trees of the committed fixture JPEGs
+# (tools/fixture_trees.py) at the YAML's yaml_test caps (accumulation 2,
+# 4 train, 2 val, 2 test batches, 2 epochs), bf16, B=32: VOC2012 with
+# YOLOv2 at 416 px, COCO 2017 with YOLOv5s at 640 px, the flagship
+VOC_TREE = {"n_train": 200, "n_val": 64, "seed": 0}
+COCO_TREE = {"n_train": 200, "n_val": 64, "seed": 1}
+REAL_SETS = {"compute_dtype": "bfloat16", "batch_size": "32",
+             "accumulate_grad_batches": "2", "limit_train_batches": "4",
+             "limit_val_batches": "2", "limit_test_batches": "2",
+             "max_epochs": "2"}
+TRAINER_VOC_SETS = {**REAL_SETS, "data_module": "VOC", "model_name": "YOLOv2",
+                    "img_size": "416"}
+TRAINER_COCO_SETS = {**REAL_SETS, "data_module": "COCO",
+                     "model_name": "YOLOv5", "type": "Yolov5s",
+                     "img_size": "640"}
+JPEG_REPEAT = 32          # decode_batch timing: the fixtures x 32
+LOADER_REPS = 3           # the Loader's decode / resize split: median of 3
 
 
 def emit(obj) -> None:
@@ -1564,11 +1611,40 @@ def check_restore(ckpt_dir: str, cfg, num_classes: int, device,
             / 1e6}
 
 
+def loader_split(loader) -> dict:
+    """Host ms of the Loader's two stages on its first batch, each alone
+    (median of ``LOADER_REPS``): one ``decode_batch`` call, then the resize
+    of the decoded images into the float32 batch."""
+    recs = [loader.parser.record(int(i))
+            for i in loader.indices[:loader.batch_size]]
+    paths = [r[0] for r in recs]
+    times = {"decode": [], "resize": []}
+    for _ in range(LOADER_REPS):
+        t0 = time.perf_counter()
+        images = native.decode_batch(paths)
+        t1 = time.perf_counter()
+        native.preproc_batch(images, loader.img_size, loader.letterbox)
+        t2 = time.perf_counter()
+        times["decode"].append((t1 - t0) * 1e3)
+        times["resize"].append((t2 - t1) * 1e3)
+    pixels = sum(im.shape[0] * im.shape[1] for im in images)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    return {"batch": len(paths), "threads": min(len(paths),
+                                                os.cpu_count() or 1),
+            "cpu_count": os.cpu_count(),
+            "decode_ms_per_batch": med["decode"],
+            "resize_ms_per_batch": med["resize"],
+            "decode_mp_per_s": pixels / 1e6 / (med["decode"] / 1e3),
+            "host_img_per_s": len(paths) / ((med["decode"] + med["resize"])
+                                            / 1e3)}
+
+
 def phase_trainer(card: str, sets: dict = TRAINER_SETS,
-                  phase: str = "trainer") -> dict:
+                  phase: str = "trainer", after=None) -> dict:
     """The CLI's fit -> validate -> checkpoint -> test on the card, on the
     YAML with ``sets`` as ``--set`` overrides; YOLOv2/v3/v4 runs must also
-    report the per-grid statistics."""
+    report the per-grid statistics.  ``after(argv)``, when given, runs
+    while the run's log_dir (and its checkpoints) still exist."""
     build = REPO / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_",
@@ -1581,8 +1657,12 @@ def phase_trainer(card: str, sets: dict = TRAINER_SETS,
                                     zip(argv[2::3], argv[3::3])})
         dm = build_datamodule(cfg)
         microbatches = cfg.max_epochs * len(dm.train_dataloader())
-        test_batches = len(dm.test_dataloader())
         resize_path = dm.train_dataloader().resize_path
+        decode_path = dm.train_dataloader().decode_path
+        split = (loader_split(dm.train_dataloader())
+                 if decode_path == "native" else None)
+        dm.setup("test")                  # as the CLI does before its test
+        test_batches = len(dm.test_dataloader())
         build_error = native.build_error
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1642,14 +1722,169 @@ def phase_trainer(card: str, sets: dict = TRAINER_SETS,
         restore = check_restore(os.path.join(
             log_dir, cfg.data_module, cfg.model_name, "checkpoints"), cfg,
             len(dm.get_class()), kept[0].device, at_save)
+        extra = after(argv) if after is not None else None
     emit({"phase": phase, "card": card, "model": cfg.model_name,
           "img": cfg.effective_img_size, "sets": sets,
           "wall_s": wall_s, "epochs": epochs, "microbatches": microbatches,
           "test_batches": test_batches, "launches": counts,
-          "resize_path": resize_path, "native_build_error": build_error,
+          "resize_path": resize_path, "decode_path": decode_path,
+          "loader_split": split, "native_build_error": build_error,
           "peak_mem_gb": peak_gb,
           "results": results, "restore": restore})
-    return {"launches": counts}
+    return {"launches": counts, "after": extra, "decode_path": decode_path}
+
+
+# --- the JPEG decoder and the real datasets ---------------------------------
+
+
+def phase_jpeg_check(card: str) -> None:
+    """Build the decoder with g++, hold every fixture's decode against its
+    committed libjpeg hash, check that the progressive fixture raises
+    naming its path, and time ``decode_batch`` on the fixtures x
+    ``JPEG_REPEAT`` at 1 thread and at the Loader's thread count."""
+    t0 = time.perf_counter()
+    if not native.jpeg_available():
+        emit({"phase": "jpeg_check", "jpeg_build_error":
+              native.jpeg_build_error})
+        raise AssertionError(f"the JPEG decoder did not build: "
+                             f"{native.jpeg_build_error}")
+    build_s = time.perf_counter() - t0
+    want = fixture_trees.fixtures()
+    names = fixture_trees.decodable()
+    for name in names:
+        img = native.decode_one(str(fixture_trees.TESTDATA / name))
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        if list(img.shape) != want[name]["shape"] or \
+                digest != want[name]["sha256"]:
+            raise AssertionError(f"{name}: decode differs from libjpeg's "
+                                 f"(shape {img.shape})")
+    for name in fixture_trees.UNSUPPORTED:
+        path = str(fixture_trees.TESTDATA / name)
+        try:
+            native.decode_one(path)
+        except native.JpegError as e:
+            if not str(e).startswith(path):
+                raise AssertionError(f"the error does not name {path}: {e}")
+            refused = str(e)
+        else:
+            raise AssertionError(f"{name} decoded; it must raise")
+    paths = [str(fixture_trees.TESTDATA / n) for n in names] * JPEG_REPEAT
+    pixels = sum(want[n]["shape"][0] * want[n]["shape"][1]
+                 for n in names) * JPEG_REPEAT
+    timing = {}
+    for threads in sorted({1, min(len(paths), os.cpu_count() or 1)}):
+        native.decode_batch(paths[:len(names)], threads=threads)   # warm
+        t0 = time.perf_counter()
+        native.decode_batch(paths, threads=threads)
+        dt = time.perf_counter() - t0
+        timing[f"threads_{threads}"] = {
+            "ms_per_image": dt * 1e3 / len(paths),
+            "mp_per_s": pixels / 1e6 / dt}
+    per_file = {}
+    for name in names:
+        path = str(fixture_trees.TESTDATA / name)
+        t0 = time.perf_counter()
+        for _ in range(JPEG_REPEAT):
+            native.decode_one(path)
+        per_file[name] = (time.perf_counter() - t0) * 1e3 / JPEG_REPEAT
+    emit({"phase": "jpeg_check", "card": card, "build_s": build_s,
+          "library": native.jpeg_library_path().name,
+          "hashes_equal": len(names), "refused": refused,
+          "images": len(paths), "megapixels": pixels / 1e6,
+          "cpu_count": os.cpu_count(), "decode_batch": timing,
+          "decode_one_ms": per_file})
+
+
+def predict_after(card: str, out: dict):
+    """``after`` for ``trainer_voc``: ``cli.predict.main`` on the run's
+    best checkpoint over the decodable fixtures with ``--out-dir``: one
+    JSON line and one NMS launch per image, a PNG of the model's input
+    size per image; ms per image of ``predict_images`` in the call (the
+    first image includes the warm-up) and again on the warm Trainer."""
+    def after(argv):
+        paths = [str(fixture_trees.TESTDATA / n)
+                 for n in fixture_trees.decodable()]
+        calls = {}
+        predict_images = cli_predict.predict_images
+
+        def timed(trainer, images, panels=None):
+            calls["trainer"] = trainer
+            t0 = time.perf_counter()
+            res = predict_images(trainer, images, panels)
+            calls["ms"] = (time.perf_counter() - t0) * 1e3
+            return res
+
+        build = REPO / "build"
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_predict_",
+                                         dir=build) as out_dir:
+            stdout = io.StringIO()
+            cli_predict.predict_images = timed
+            try:
+                reset_launches()               # main path starts here
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(stdout):
+                    records = cli_predict.main(
+                        [*argv, "--images", *paths, "--out-dir", out_dir])
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                counts = read_launches()       # main path ends here
+            finally:
+                cli_predict.predict_images = predict_images
+            lines = [json.loads(x) for x in stdout.getvalue().splitlines()
+                     if x.startswith("{")]
+            if lines != records or [r["image"] for r in lines] != paths:
+                raise AssertionError("predict printed other lines than one "
+                                     "JSON record per image")
+            if counts["greedy_nms"] != len(paths):
+                raise AssertionError(f"greedy_nms launched "
+                                     f"{counts['greedy_nms']} times for "
+                                     f"{len(paths)} images")
+            if "restored best checkpoint" not in stdout.getvalue():
+                raise AssertionError("predict did not restore the "
+                                     "checkpoint")
+            S = calls["trainer"].img_size
+            for p in paths:
+                stem = os.path.splitext(os.path.basename(p))[0]
+                with open(os.path.join(out_dir, f"{stem}_pred.png"),
+                          "rb") as f:
+                    head = f.read(24)
+                if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != \
+                        b"IHDR" or (int.from_bytes(head[16:20], "big"),
+                                    int.from_bytes(head[20:24], "big")) != (
+                                        S, S):
+                    raise AssertionError(f"{stem}_pred.png: not an "
+                                         f"{S}x{S} PNG")
+        t0 = time.perf_counter()
+        predict_images(calls["trainer"], paths)
+        warm_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+        out.update({"launches": counts})
+        emit({"phase": "predict_cli", "card": card, "images": len(paths),
+              "img": S, "wall_s": wall_s, "launches": counts,
+              "ms_per_image_in_call": calls["ms"] / len(paths),
+              "ms_per_image_warm": warm_ms,
+              "detections": sum(len(r["labels"]) for r in records),
+              "pngs": len(paths)})
+    return after
+
+
+def phase_trainer_real(card: str, name: str, sets: dict, tree: dict,
+                       after=None) -> dict:
+    """``phase_trainer`` on a VOC or COCO tree of the fixture JPEGs
+    written under ``build/``: the Loader must decode with the port's
+    decoder, one ``decode_batch`` call a batch."""
+    write = (fixture_trees.write_voc_tree if sets["data_module"] == "VOC"
+             else fixture_trees.write_coco_tree)
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_tree_",
+                                     dir=REPO / "build") as root:
+        t0 = time.perf_counter()
+        write(root, **tree)
+        emit({"phase": name, "tree": tree, "root": "build/" +
+              os.path.basename(root), "write_s": time.perf_counter() - t0})
+        out = phase_trainer(card, {**sets, "data_root": root}, name, after)
+    if out["decode_path"] != "native":
+        raise AssertionError(f"{name}: the Loader decoded through "
+                             f"{out['decode_path']!r}, not decode_batch")
+    return out
 
 
 def profile_one(fn) -> tuple:
@@ -2089,6 +2324,12 @@ def main(argv=None) -> int:
     train = phase_training(card)
     phase_accumulation(card)
     fit = phase_trainer(card)
+    phase_jpeg_check(card)
+    predicted = {}
+    fit_voc = phase_trainer_real(card, "trainer_voc", TRAINER_VOC_SETS,
+                                 VOC_TREE, predict_after(card, predicted))
+    fit_coco = phase_trainer_real(card, "trainer_coco", TRAINER_COCO_SETS,
+                                  COCO_TREE)
     yolo_err = phase_yolo_fp32(card)
     yolo_serve = phase_yolo_serving(card)
     yolo_train = phase_yolo_training(card)
@@ -2118,6 +2359,9 @@ def main(argv=None) -> int:
         "launches_anchor_serving": anchor_serve["launches"],
         **{f"launches_trainer_{n.lower()}": c["greedy_nms"]
            for n, c in fit_anchor.items()},
+        "launches_trainer_voc": fit_voc["launches"]["greedy_nms"],
+        "launches_trainer_coco": fit_coco["launches"]["greedy_nms"],
+        "launches_predict_cli": predicted["launches"]["greedy_nms"],
         "keep_equal": True,
         "max_abs_err": err, "max_abs_box_err": err,
         "ms": t[256]["ms"], "plain_ms": t[256]["plain_ms"],
@@ -2146,6 +2390,8 @@ def main(argv=None) -> int:
         "launches_anchor_training": anchor_train,
         **{f"launches_trainer_{n.lower()}": c["affine_warp"]
            for n, c in fit_anchor.items()},
+        "launches_trainer_voc": fit_voc["launches"]["affine_warp"],
+        "launches_trainer_coco": fit_coco["launches"]["affine_warp"],
         "max_abs_err": warp_err,
         "ms": warp["ms"], "plain_ms": warp["plain_ms"],
         "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],

@@ -1,0 +1,114 @@
+"""Inference CLI: run a trained checkpoint on image files.
+
+The port of ``objectdetectionpl_tpu/cli/predict.py``:
+
+    python -m objectdetectionpl_tpu_torch.cli.predict configs/config.yaml \\
+        --images a.jpg b.jpg [--out-dir preds/] [--set KEY VALUE]... \\
+        [--device cpu]
+
+Builds the config's Trainer (its DataModule too, for the class names),
+restores the best checkpoint of its run directory, then serves each image
+on its own: decode (the port's JPEG decoder), resize to the model's
+img_size with the Loader's resize, ``predict_step`` (the NMS kernel once
+per image).  Prints one JSON line per image (boxes xyxy in pixels of the
+resized input, scores, class names) and, with ``--out-dir``, writes
+``<stem>_pred.png`` panels.  The JAX CLI resizes to uint8 with cv2 before
+/255; the port's resize gives the float image directly, within 1/255 of it
+(ROADMAP §C).  ``--export`` (the serving-graph export) is not ported yet
+(ROADMAP A8 step 6b).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from objectdetectionpl_tpu_torch.cli.run import _coerce
+from objectdetectionpl_tpu_torch.config import load_config
+from objectdetectionpl_tpu_torch.data import native
+from objectdetectionpl_tpu_torch.data.parsers.common import load_image_rgb
+from objectdetectionpl_tpu_torch.data.pipeline import _torch_preproc
+from objectdetectionpl_tpu_torch.train.loop import Trainer, _to_host
+from objectdetectionpl_tpu_torch.utils import viz
+
+
+def resize_input(img: np.ndarray, size: int) -> np.ndarray:
+    """uint8 [H, W, 3] -> float32 [1, S, S, 3] in [0, 1], by the Loader's
+    resize (the native library, else torch), without letterbox."""
+    preproc = native.preproc_batch if native.available() else _torch_preproc
+    return preproc([img], size, False)[0]
+
+
+def predict_images(trainer: Trainer, paths: Sequence[str],
+                   panels: List[np.ndarray] = None) -> List[Dict]:
+    """One ``predict_step`` per image -> the JSON records of the JAX CLI:
+    ``image``, ``boxes_xyxy`` (rounded to 2 decimals), ``scores`` (4) and
+    ``labels`` (class names).  With ``panels`` a list, each image's panel
+    (the input with its boxes drawn, uint8) is appended to it."""
+    trainer.model.eval()
+    out = []
+    for path in paths:
+        x = resize_input(load_image_rgb(path), trainer.img_size)
+        res = trainer.predict_step(
+            trainer.state, torch.from_numpy(x).to(trainer.device))
+        boxes, scores, labels, valid = (a[0] for a in _to_host(
+            (res.boxes, res.scores, res.labels, res.valid)))
+        out.append({
+            "image": path,
+            "boxes_xyxy": boxes[valid].round(2).tolist(),
+            "scores": scores[valid].round(4).tolist(),
+            "labels": [trainer.classes[int(c)] for c in labels[valid]],
+        })
+        if panels is not None:
+            panels.append(viz.draw_boxes(x[0], boxes, labels, valid=valid))
+    return out
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("config", nargs="?", default=None)
+    p.add_argument("--set", nargs=2, action="append", metavar=("KEY", "VALUE"),
+                   default=[], help="override a config field")
+    p.add_argument("--images", nargs="+", default=[])
+    p.add_argument("--out-dir", default=None,
+                   help="write <stem>_pred.png panels here")
+    p.add_argument("--export", default=None,
+                   help="the serving-graph export (not ported yet)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda, which must exist)")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> List[Dict]:
+    args = parse_args(argv)
+    if args.export:
+        raise NotImplementedError("--export (utils/export.py) is not ported "
+                                  "yet (ROADMAP A8 step 6b)")
+    cfg = load_config(args.config, {k: _coerce(v) for k, v in args.set})
+    trainer = Trainer(cfg, device=args.device)
+    try:
+        trainer.maybe_restore()
+        panels = [] if args.out_dir else None
+        records = predict_images(trainer, args.images, panels)
+    finally:
+        trainer.ckpt.close()
+        trainer.writer.close()
+    for rec in records:
+        print(json.dumps(rec))
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+        for path, panel in zip(args.images, panels):
+            stem = os.path.splitext(os.path.basename(path))[0]
+            viz.write_png(os.path.join(args.out_dir, f"{stem}_pred.png"),
+                          panel)
+    return records
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

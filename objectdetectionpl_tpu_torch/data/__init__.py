@@ -2,8 +2,9 @@
 -> the batch augmentation on the device (``augment.augment_batch``).
 
 Targets are center-form xywh normalized to [0, 1], padded to ``max_boxes``
-with a validity mask, as in the JAX package.  Only the Synthetic dataset is
-ported so far; the other DataModules raise naming ROADMAP A8 step 6.
+with a validity mask, as in the JAX package.  Synthetic, VOC and COCO are
+ported (the real datasets on the port's own JPEG decoder); the other four
+DataModules raise naming ROADMAP A8 step 6b.
 """
 
 from objectdetectionpl_tpu_torch.data.datamodules import (  # noqa: F401

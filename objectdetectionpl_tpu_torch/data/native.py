@@ -1,33 +1,47 @@
-"""ctypes binding of the native host preprocessing library ``native/preproc.cc``.
+"""ctypes bindings of the port's two host libraries: the resize and the
+JPEG decoder.
 
-The port's counterpart of ``objectdetectionpl_tpu/data/native.py``: the same
-C function (``preproc_batch``: a multithreaded bilinear resize or letterbox
-of uint8 images straight into the float32 NHWC batch, scaled by 1/255),
-built with the Makefile's flags, but with g++ into
-``build/native/libpreproc-<key>.so`` at the repository root, so
-``native/`` is left as it is.  Only the part of the source before its fused
-JPEG decoder is compiled, so the library needs no libjpeg: the port does
-not bind the decoder yet.  The key hashes that source, the flags and the
-host's name: ``-march=native`` code belongs to the machine that built it.
-The build runs on first use.  Without g++ the build fails,
-:func:`available` is False, ``build_error`` says why, and the Loader
-resizes with torch instead (``pipeline.torch_resize``).
+The resize: the port's counterpart of ``objectdetectionpl_tpu/data/native.py``,
+the same C function (``preproc_batch``: a multithreaded bilinear resize or
+letterbox of uint8 images straight into the float32 NHWC batch, scaled by
+1/255), built with the Makefile's flags, but with g++ into
+``build/native/libpreproc-<key>.so`` at the repository root, so ``native/``
+is left as it is.  Only the part of ``native/preproc.cc`` before its fused
+libjpeg decoder is compiled, so the library needs no libjpeg.  Without g++
+the build fails, :func:`available` is False, ``build_error`` says why, and
+the Loader resizes with torch instead (``pipeline.torch_resize``).
+
+The decoder: ``csrc/jpeg_decode.cc``, the port's own baseline sequential
+JPEG decoder (equal bit for bit to libjpeg-turbo's default decompression
+to RGB at full scale), built the same way into
+``build/native/libjpegdec-<key>.so``.  :func:`decode_batch` decodes a
+batch of files on a pool of threads with one call, :func:`decode_one` one
+file.  A file it cannot read raises :class:`JpegError` naming the path
+and the reason; there is no other decoder to fall back to.  Without g++
+:func:`jpeg_available` is False, ``jpeg_build_error`` says why, and the
+real datasets raise.
+
+Each key hashes the source, the flags and the host's name: ``-march=native``
+code belongs to the machine that built it.  A build runs on first use,
+under a file lock, into a temporary file that is renamed into place.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import platform
 import subprocess
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 REPO = Path(__file__).resolve().parents[2]
 SOURCE = REPO / "native" / "preproc.cc"
+JPEG_SOURCE = REPO / "objectdetectionpl_tpu_torch" / "csrc" / "jpeg_decode.cc"
 BUILD_DIR = REPO / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
              "-pthread", "-Wall")
@@ -35,7 +49,10 @@ BUILD_TIMEOUT_S = 300
 
 _lib = None
 _load_failed = False
-build_error: Optional[str] = None   # why the library is unavailable
+build_error: Optional[str] = None   # why the resize library is unavailable
+_jpeg_lib = None
+_jpeg_load_failed = False
+jpeg_build_error: Optional[str] = None   # why the decoder is unavailable
 
 
 JPEG_SECTION = b"// Fused JPEG decode"   # where the libjpeg part begins
@@ -50,30 +67,56 @@ def resize_source() -> bytes:
     return text[:cut]
 
 
-def library_path() -> Path:
-    key = hashlib.sha256(resize_source() + " ".join(CXX_FLAGS).encode()
+def _library_path(name: str, source: bytes) -> Path:
+    key = hashlib.sha256(source + " ".join(CXX_FLAGS).encode()
                          + platform.node().encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libpreproc-{key}.so"
+    return BUILD_DIR / f"lib{name}-{key}.so"
 
 
-def build() -> Path:
-    """Compile the resize part of ``native/preproc.cc`` unless its library
-    exists.  Raises OSError (no compiler) or SubprocessError (a failed
-    build)."""
-    lib = library_path()
+def library_path() -> Path:
+    return _library_path("preproc", resize_source())
+
+
+def jpeg_library_path() -> Path:
+    return _library_path("jpegdec", JPEG_SOURCE.read_bytes())
+
+
+def _build(name: str, source: bytes) -> Path:
+    """Compile ``source`` unless its library exists.  Raises OSError (no
+    compiler) or SubprocessError (a failed build)."""
+    lib = _library_path(name, source)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    try:
-        subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-x", "c++",
-                        "-", "-o", str(tmp)], input=resize_source(),
-                       check=True, capture_output=True,
-                       timeout=BUILD_TIMEOUT_S)
-        os.replace(tmp, lib)
-    finally:
-        tmp.unlink(missing_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)    # one build per library at once
+        if lib.exists():
+            return lib
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        try:
+            subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-x",
+                            "c++", "-", "-o", str(tmp)], input=source,
+                           check=True, capture_output=True,
+                           timeout=BUILD_TIMEOUT_S)
+            os.replace(tmp, lib)
+        finally:
+            tmp.unlink(missing_ok=True)
     return lib
+
+
+def build() -> Path:
+    """Compile the resize part of ``native/preproc.cc``."""
+    return _build("preproc", resize_source())
+
+
+def jpeg_build() -> Path:
+    """Compile the decoder, ``csrc/jpeg_decode.cc``."""
+    return _build("jpegdec", JPEG_SOURCE.read_bytes())
+
+
+def _why(e: Exception) -> str:
+    stderr = getattr(e, "stderr", None) or b""
+    return f"{type(e).__name__}: {e} {stderr.decode()[-400:]}"
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -84,8 +127,7 @@ def _load() -> Optional[ctypes.CDLL]:
         lib = ctypes.CDLL(str(build()))
     except (OSError, subprocess.SubprocessError) as e:
         _load_failed = True
-        stderr = getattr(e, "stderr", None) or b""
-        build_error = f"{type(e).__name__}: {e} {stderr.decode()[-400:]}"
+        build_error = _why(e)
         return None
     lib.preproc_batch.argtypes = [
         ctypes.POINTER(ctypes.c_void_p),                 # srcs
@@ -135,3 +177,111 @@ def preproc_batch(images: List[np.ndarray], size: int, letterbox: bool
     lib.preproc_batch(srcs, hs, ws, n, f32(dst), size, int(letterbox),
                       threads, f32(scales), f32(pad_xs), f32(pad_ys))
     return dst, scales, pad_xs, pad_ys
+
+
+# --- the JPEG decoder -------------------------------------------------------
+
+JPEG_OK = 0              # csrc/jpeg_decode.cc's codes; any other is an error
+MSG_LEN = 256
+
+
+class JpegError(ValueError):
+    """A file the decoder cannot read: the message names the path."""
+
+
+def _jpeg_load() -> Optional[ctypes.CDLL]:
+    global _jpeg_lib, _jpeg_load_failed, jpeg_build_error
+    if _jpeg_lib is not None or _jpeg_load_failed:
+        return _jpeg_lib
+    try:
+        lib = ctypes.CDLL(str(jpeg_build()))
+    except (OSError, subprocess.SubprocessError) as e:
+        _jpeg_load_failed = True
+        jpeg_build_error = _why(e)
+        return None
+    i32p = ctypes.POINTER(ctypes.c_int)
+    lib.jpeg_probe_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,   # paths, n
+        i32p, i32p, i32p,                                # ws, hs, codes
+        ctypes.c_char_p, ctypes.c_int]                   # msgs, msg_len
+    lib.jpeg_probe_batch.restype = None
+    lib.jpeg_decode_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,   # paths, n
+        ctypes.c_int,                                    # threads
+        ctypes.POINTER(ctypes.c_void_p),                 # dsts
+        i32p, i32p, i32p,                                # ws, hs, codes
+        ctypes.c_char_p, ctypes.c_int]                   # msgs, msg_len
+    lib.jpeg_decode_batch.restype = None
+    lib.jpeg_decode_one.argtypes = [
+        ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64,   # path, dst, cap
+        i32p, i32p, ctypes.c_char_p, ctypes.c_int]          # w, h, msg
+    lib.jpeg_decode_one.restype = ctypes.c_int
+    _jpeg_lib = lib
+    return _jpeg_lib
+
+
+def jpeg_available() -> bool:
+    return _jpeg_load() is not None
+
+
+def _jpeg_lib_or_raise() -> ctypes.CDLL:
+    lib = _jpeg_load()
+    if lib is None:
+        raise RuntimeError(f"the JPEG decoder (csrc/jpeg_decode.cc) could "
+                           f"not be built: {jpeg_build_error}")
+    return lib
+
+
+def _check(path: str, code: int, msg: bytes) -> None:
+    if code != JPEG_OK:
+        reason = msg.split(bytes(1), 1)[0].decode(errors="replace")
+        raise JpegError(f"{path}: {reason}")
+
+
+def _check_all(paths: Sequence[str], codes: np.ndarray, msgs: bytes) -> None:
+    for i, path in enumerate(paths):
+        _check(path, int(codes[i]), msgs[i * MSG_LEN:(i + 1) * MSG_LEN])
+
+
+def decode_batch(paths: Sequence[str], threads: Optional[int] = None
+                 ) -> List[np.ndarray]:
+    """JPEG files -> [uint8 [H, W, 3] RGB, ...], decoded on ``threads``
+    threads (default one per file up to the CPU count) with one call after
+    a probe of the sizes.  Raises :class:`JpegError` naming the first file
+    that fails."""
+    lib = _jpeg_lib_or_raise()
+    n = len(paths)
+    if n == 0:
+        return []
+    c_paths = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    ws = np.zeros(n, np.int32)
+    hs = np.zeros(n, np.int32)
+    codes = np.zeros(n, np.int32)
+    msgs = ctypes.create_string_buffer(n * MSG_LEN)
+    i32 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+    lib.jpeg_probe_batch(c_paths, n, i32(ws), i32(hs), i32(codes), msgs,
+                         MSG_LEN)
+    _check_all(paths, codes, msgs.raw)
+    out = [np.empty((int(h), int(w), 3), np.uint8) for w, h in zip(ws, hs)]
+    dsts = (ctypes.c_void_p * n)(*[a.ctypes.data for a in out])
+    threads = min(n, os.cpu_count() or 1) if threads is None else threads
+    lib.jpeg_decode_batch(c_paths, n, int(threads), dsts, i32(ws), i32(hs),
+                          i32(codes), msgs, MSG_LEN)
+    _check_all(paths, codes, msgs.raw)
+    return out
+
+
+def decode_one(path: str) -> np.ndarray:
+    """One JPEG file -> uint8 [H, W, 3] RGB; raises :class:`JpegError`."""
+    lib = _jpeg_lib_or_raise()
+    w, h = ctypes.c_int(0), ctypes.c_int(0)
+    msg = ctypes.create_string_buffer(MSG_LEN)
+    c_path = os.fsencode(path)
+    code = lib.jpeg_decode_one(c_path, None, 0, ctypes.byref(w),
+                               ctypes.byref(h), msg, MSG_LEN)   # the size
+    _check(path, code, msg.raw)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    code = lib.jpeg_decode_one(c_path, out.ctypes.data, out.nbytes,
+                               ctypes.byref(w), ctypes.byref(h), msg, MSG_LEN)
+    _check(path, code, msg.raw)
+    return out

@@ -4,13 +4,18 @@ The port of ``objectdetectionpl_tpu/data/pipeline.py``.  The host decodes
 and resizes to the static img_size; normalization happens here (float32 in
 [0, 1]) and all augmentation runs on the device (``augment.py``).
 
+Decode: a parser with ``record(i) -> (path, boxes, labels)`` (VOC, COCO)
+whose batch of paths all end in .jpg/.jpeg is decoded by the port's JPEG
+decoder with one ``native.decode_batch`` call per batch, on a pool of
+threads; other parsers give their images themselves (Synthetic).
+``Loader.decode_path`` says which ("native" or "parser").
+
 Resize: the native library ``native/preproc.cc`` through the port's own
 binding (``data/native.py``), so batches equal the JAX package's bit for
 bit; where the library cannot be built, :func:`torch_resize`, the same
 resize by ``F.interpolate`` on the host (within float32 rounding of it).
 ``Loader.resize_path`` says which one a loader uses.  The packed cache
-(``data/cache.py``) and the fused JPEG decode come with the real parsers
-(ROADMAP A8 step 6).
+(``data/cache.py``) is not ported yet (ROADMAP A8 step 6b).
 
 drop_last=True like the reference dataloaders.
 """
@@ -26,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from objectdetectionpl_tpu_torch.data import native
-from objectdetectionpl_tpu_torch.data.types import (Batch, pad_targets,
+from objectdetectionpl_tpu_torch.data.types import (Batch, Example,
+                                                    pad_targets,
                                                     topleft_to_center_norm)
 
 INV_255 = np.float32(1.0) / np.float32(255.0)
@@ -76,7 +82,7 @@ class Loader:
                  shard_id: int = 0, cache_dir: Optional[str] = None):
         if cache_dir:
             raise NotImplementedError("the packed cache (data/cache.py) is "
-                                      "not ported yet (ROADMAP A8 step 6)")
+                                      "not ported yet (ROADMAP A8 step 6b)")
         self.parser = parser
         self.img_size = img_size
         self.batch_size = batch_size
@@ -95,6 +101,7 @@ class Loader:
         self.num_shards = max(int(num_shards), 1)
         self.shard_id = int(shard_id)
         self.resize_path = "native" if native.available() else "torch"
+        self.decode_path = "native" if hasattr(parser, "record") else "parser"
 
     def _shard_len(self) -> int:
         return len(self.indices) // self.num_shards
@@ -121,7 +128,7 @@ class Loader:
                    else _torch_preproc)
         for b in range(len(self)):
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
-            examples = [self.parser[int(i)] for i in idx]
+            examples = self._examples(idx)
             imgs, scales, pad_xs, pad_ys = preproc(
                 [ex.image for ex in examples], S, self.letterbox)
             boxes_l = []
@@ -134,6 +141,15 @@ class Loader:
             boxes, labels, mask = pad_targets(
                 boxes_l, [ex.labels for ex in examples], self.max_boxes)
             yield Batch(imgs, labels, boxes, mask)
+
+    def _examples(self, idx) -> List[Example]:
+        if self.decode_path == "native":
+            recs = [self.parser.record(int(i)) for i in idx]
+            if all(r[0].lower().endswith((".jpg", ".jpeg")) for r in recs):
+                images = native.decode_batch([r[0] for r in recs])
+                return [Example(im, bx, lb)
+                        for im, (_, bx, lb) in zip(images, recs)]
+        return [self.parser[int(i)] for i in idx]
 
 
 def _letterbox_boxes(boxes_px: np.ndarray, s: float, px: float, py: float,

@@ -21,7 +21,7 @@ The augmentation draws from a ``torch.Generator`` on the device seeded with
 ``seed + 1``; the JAX Trainer draws from ``jax.random``, so fits differ
 between the packages (ROADMAP §C) while everything after the draw is the
 same.  Not ported yet, and raising when asked for: mosaic (A6), torch
-checkpoints (A11), the tuner (A8 step 6) and more than one device (A10).
+checkpoints (A11), the tuner (A8 step 6b) and more than one device (A10).
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ def _check_ported(cfg: Config) -> None:
                                   "(ROADMAP A11)")
     if cfg.tune:
         raise NotImplementedError("the tuner (train/tune.py) is not ported "
-                                  "yet (ROADMAP A8 step 6)")
+                                  "yet (ROADMAP A8 step 6b)")
     if cfg.mesh_shape is not None and math.prod(cfg.mesh_shape) > 1:
         raise NotImplementedError(f"mesh_shape {tuple(cfg.mesh_shape)}: "
                                   f"more than one device is not ported yet "

@@ -4,9 +4,13 @@ Drawn in numpy (the port imports no PIL): 2 px outlines in the palette's
 colours, as PIL's ``rectangle(..., width=2)`` draws them (corners truncated
 to integers, the outline inside the box, clipped to the image).  The
 class-name text of the JAX panels is dropped (ROADMAP §C).
+:func:`write_png` saves a panel with the standard library alone.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -48,3 +52,24 @@ def side_by_side(gt_img: np.ndarray, pred_img: np.ndarray) -> np.ndarray:
     h = max(gt_img.shape[0], pred_img.shape[0])
     pad = lambda im: np.pad(im, ((0, h - im.shape[0]), (0, 0), (0, 0)))
     return np.concatenate([pad(gt_img), pad(pred_img)], axis=1)
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """uint8 [H, W, 3] -> an 8-bit RGB PNG (filter 0 on every row)."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"write_png takes uint8 [H, W, 3], got {rgb.dtype} "
+                         f"{rgb.shape}")
+    h, w = rgb.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, 3 * w)],
+                          axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_chunk(b"IEND", b""))

@@ -1,7 +1,8 @@
 """Import hygiene, the device rule and the config copy of the port.
 
-The port and ``chip_smoke.py`` must import no jax, flax or optax and nothing
-of ``objectdetectionpl_tpu`` -- checked in a fresh interpreter, since this
+The port and ``chip_smoke.py`` must import no jax, flax or optax, nothing
+of ``objectdetectionpl_tpu``, and neither cv2 nor PIL (the port decodes
+JPEGs and writes PNGs itself) -- checked in a fresh interpreter, since this
 test process has JAX loaded for the parity tests.
 """
 
@@ -29,7 +30,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2",
+                                    "PIL")
              or k == "objectdetectionpl_tpu"
              or k.startswith("objectdetectionpl_tpu."))
 print(json.dumps({"modules": names, "bad": bad}))
@@ -47,7 +49,14 @@ def test_port_and_chip_smoke_import_no_jax():
     assert {"objectdetectionpl_tpu_torch.ops.yolo_stats",
             "objectdetectionpl_tpu_torch.models.yolov4",
             "objectdetectionpl_tpu_torch.models.retinanet",
-            "objectdetectionpl_tpu_torch.models.ssd"} <= set(res["modules"])
+            "objectdetectionpl_tpu_torch.models.ssd",
+            "objectdetectionpl_tpu_torch.data.parsers",
+            "objectdetectionpl_tpu_torch.data.parsers.common",
+            "objectdetectionpl_tpu_torch.data.parsers.pascal",
+            "objectdetectionpl_tpu_torch.data.parsers.coco",
+            "objectdetectionpl_tpu_torch.cli.predict",
+            "objectdetectionpl_tpu_torch.tools.fixture_trees"} <= set(
+                res["modules"])
     assert len(res["modules"]) >= 15
 
 

@@ -1,0 +1,199 @@
+"""The port's predict CLI (``cli/predict.py``) and PNG writer
+(``utils/viz.py::write_png``) against the JAX package.
+
+- ``predict_images`` against JAX's chain on bridged weights: YOLOv5s at
+  64 px, 3 classes, the decodable fixture JPEGs.  The JAX side is
+  ``load_image_rgb`` (cv2) -> the port's resized float input (the JAX CLI
+  resizes to uint8 with cv2 before /255, within 1/255 of it; ROADMAP §C)
+  -> the JAX Trainer's ``predict_step`` -> the JAX CLI's JSON fields.
+  ``image`` and ``labels`` are equal; ``boxes_xyxy`` and ``scores``, which
+  the CLI rounds to 2 and 4 decimals, are within one unit of that rounding
+  plus the serving tolerance of the unrounded values (boxes
+  ``rtol=1e-4, atol=1e-3``, scores ``rtol=1e-4, atol=1e-6`` as obj in
+  ``test_torch_port_trainer.py``; the CPU convs' thread count moves
+  scores by ~1e-5), and the unrounded values within those tolerances.  The weights follow
+  ``test_torch_port_trainer.py``: BN scales and biases drawn at random, the
+  BN running statistics the inputs' own moments plus 0.03, zero head
+  biases, and ``conf_thres`` 0.75 with no candidate within 1e-3 of it and
+  scores 3e-4 of their value apart (asserted), so that both frameworks keep
+  the same rows.
+- ``main`` end to end on a port checkpoint: one JSON line per image equal
+  to ``predict_images`` on the restored state, one PNG panel per image.
+- ``write_png`` read back by PIL, equal.
+- ``--export`` raises naming ROADMAP A8 step 6b.
+"""
+
+import json
+import os
+import struct
+import zlib
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import jax.numpy as jnp
+
+from objectdetectionpl_tpu.config import Config as JaxConfig
+from objectdetectionpl_tpu.data.parsers.common import load_image_rgb
+from objectdetectionpl_tpu.train import loop as jax_loop
+from objectdetectionpl_tpu_torch.cli import predict
+from objectdetectionpl_tpu_torch.config import Config
+from objectdetectionpl_tpu_torch.tools import fixture_trees
+from objectdetectionpl_tpu_torch.train import loop
+from objectdetectionpl_tpu_torch.utils import viz
+from objectdetectionpl_tpu_torch.utils.weights import state_dict_from_flax
+from test_torch_port_trainer import (_calibrated_stats, _decode,
+                                     _draw_variables)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+YAML = os.path.join(REPO, "configs", "config.yaml")
+IMG = 64
+CONF = 0.75
+BOX_TOL = dict(rtol=1e-4, atol=1e-3)
+SCORE_TOL = dict(rtol=1e-4, atol=1e-6)
+PATHS = [str(fixture_trees.TESTDATA / n) for n in fixture_trees.decodable()]
+
+
+def _jax_records(jt, paths, inputs):
+    """The JAX CLI's loop (``objectdetectionpl_tpu/cli/predict.py``) on
+    the given float inputs: records and the unrounded rows."""
+    out, raw = [], []
+    for path, x in zip(paths, inputs):
+        res = jt.predict_step(jt.state, jnp.asarray(x))
+        v = np.asarray(res.valid[0])
+        boxes, scores = np.asarray(res.boxes[0]), np.asarray(res.scores[0])
+        out.append({
+            "image": path,
+            "boxes_xyxy": boxes[v].round(2).tolist(),
+            "scores": scores[v].round(4).tolist(),
+            "labels": [jt.classes[int(c)]
+                       for c in np.asarray(res.labels[0])[v]]})
+        raw.append((boxes[v], scores[v]))
+    return out, raw
+
+
+def _bridged_trainers(tmp_path, monkeypatch, inputs):
+    monkeypatch.setattr(jax_loop.summary_lib, "save_summary",
+                        lambda *a, **k: None)
+    kw = dict(data_module="Synthetic", synthetic_size=4, batch_size=2,
+              img_size=IMG, model_name="YOLOv5", mesh_shape=(1, 1),
+              conf_thres=CONF)
+    jt = jax_loop.Trainer(JaxConfig(log_dir=str(tmp_path / "jax"), **kw))
+    pt = loop.Trainer(Config(log_dir=str(tmp_path / "port"), **kw),
+                      device="cpu")
+    params = _draw_variables(jt.state.params, seed=13)
+    pt.model.load_state_dict(state_dict_from_flax(params,
+                                                  jt.state.batch_stats))
+    stats = _calibrated_stats(pt.model, jt.state.batch_stats,
+                              np.concatenate(inputs))
+    jt.state = jt.state.replace(params=params, batch_stats=stats)
+    pt.model.load_state_dict(state_dict_from_flax(params, stats), strict=True)
+    assert jt.state.ema_params is None and pt.state.ema_params is None
+    # no candidate near conf_thres, scores well apart, in every image
+    for x in inputs:
+        out = jt.model.apply({"params": params, "batch_stats": stats},
+                             jnp.asarray(x), train=False)
+        dec = np.asarray(_decode("YOLOv5", out))[0]
+        obj = dec[:, 4]
+        assert np.abs(obj - CONF).min() > 1e-3
+        s = np.sort((obj * dec[:, 5:].max(-1))[obj >= CONF])[::-1]
+        assert (-np.diff(s) > 3e-4 * s[1:]).all()
+    return jt, pt
+
+
+def test_predict_images_equals_jax(tmp_path, monkeypatch):
+    inputs = [predict.resize_input(load_image_rgb(p), IMG) for p in PATHS]
+    jt, pt = _bridged_trainers(tmp_path, monkeypatch, inputs)
+    got = predict.predict_images(pt, PATHS)
+    want, raw = _jax_records(jt, PATHS, inputs)
+    assert len(got) == len(want) == len(PATHS)
+    assert sum(len(w["labels"]) for w in want) >= len(PATHS)
+    # the unrounded rows, taken again from the port's predict_step
+    for g, w, (wb, ws), x in zip(got, want, raw, inputs):
+        assert g["image"] == w["image"]
+        assert g["labels"] == w["labels"]
+        res = pt.predict_step(pt.state, torch.from_numpy(x))
+        v = res.valid[0].numpy()
+        np.testing.assert_allclose(res.boxes[0].numpy()[v], wb, **BOX_TOL)
+        np.testing.assert_allclose(res.scores[0].numpy()[v], ws, **SCORE_TOL)
+        gb, wb2 = np.asarray(g["boxes_xyxy"]), np.asarray(w["boxes_xyxy"])
+        assert gb.shape == wb2.shape
+        np.testing.assert_allclose(gb, wb2, rtol=BOX_TOL["rtol"],
+                                   atol=0.01 + BOX_TOL["atol"])
+        np.testing.assert_allclose(g["scores"], w["scores"],
+                                   rtol=SCORE_TOL["rtol"],
+                                   atol=1e-4 + SCORE_TOL["atol"])
+
+
+def test_resize_input_is_the_loaders_resize():
+    from objectdetectionpl_tpu_torch.data import native
+    img = load_image_rgb(PATHS[0])
+    want = native.preproc_batch([img], IMG, False)[0]
+    got = predict.resize_input(img, IMG)
+    assert got.shape == (1, IMG, IMG, 3) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def _png_size(path):
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR"
+    return struct.unpack(">II", data[16:24])
+
+
+def test_main_end_to_end(tmp_path, capsys):
+    sets = ["--set", "model_name", "YOLOv5", "--set", "img_size", str(IMG),
+            "--set", "log_dir", str(tmp_path / "logs"),
+            "--set", "conf_thres", "0.3"]
+    cfg_over = {"model_name": "YOLOv5", "img_size": IMG, "conf_thres": 0.3,
+                "log_dir": str(tmp_path / "logs")}
+    from objectdetectionpl_tpu_torch.config import load_config
+    trainer = loop.Trainer(load_config(YAML, cfg_over), device="cpu")
+    with torch.no_grad():                   # a state that differs from init
+        for p in trainer.model.parameters():
+            p.add_(0.01)
+    trainer.ckpt.save(0, trainer.state, 1.0)
+    trainer.ckpt.wait()
+    want = predict.predict_images(trainer, PATHS)
+    trainer.ckpt.close()
+    trainer.writer.close()
+    capsys.readouterr()
+
+    out_dir = tmp_path / "preds"
+    got = predict.main([YAML, *sets, "--device", "cpu", "--images", *PATHS,
+                        "--out-dir", str(out_dir)])
+    stdout = capsys.readouterr().out
+    assert "restored best checkpoint" in stdout
+    lines = [json.loads(line) for line in stdout.splitlines()
+             if line.startswith("{")]
+    assert lines == got == want
+    for path in PATHS:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        png = out_dir / f"{stem}_pred.png"
+        assert _png_size(png) == (IMG, IMG)
+        assert np.asarray(Image.open(png)).shape == (IMG, IMG, 3)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (5, 7), (64, 48)])
+def test_write_png_reads_back(tmp_path, shape):
+    rgb = np.random.RandomState(shape[0]).randint(
+        0, 256, (*shape, 3)).astype(np.uint8)
+    path = tmp_path / "x.png"
+    viz.write_png(str(path), rgb)
+    back = Image.open(path)
+    assert back.mode == "RGB" and back.size == (shape[1], shape[0])
+    np.testing.assert_array_equal(np.asarray(back), rgb)
+    assert _png_size(path) == (shape[1], shape[0])
+    data = path.read_bytes()                  # filter 0 on every row
+    idat = data.index(b"IDAT")
+    n = struct.unpack(">I", data[idat - 4:idat])[0]
+    raw = zlib.decompress(data[idat + 4:idat + 4 + n])
+    assert all(raw[r * (3 * shape[1] + 1)] == 0 for r in range(shape[0]))
+    with pytest.raises(ValueError, match="uint8"):
+        viz.write_png(str(path), rgb.astype(np.float32))
+
+
+def test_export_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP A8 step 6b"):
+        predict.main([YAML, "--export", "model.pt", "--device", "cpu"])

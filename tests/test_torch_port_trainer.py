@@ -388,7 +388,7 @@ def test_unported_options_raise(tmp_path):
                 model_name="YOLOv5", log_dir=str(tmp_path))
     for extra, item in ((dict(mosaic=0.5), "A6"),
                         (dict(torch_ckpt="w.pt"), "A11"),
-                        (dict(tune=True), "A8 step 6"),
+                        (dict(tune=True), "A8 step 6b"),
                         (dict(mesh_shape=(2, 1)), "A10"),
                         (dict(remat="all"), "A3r")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
