@@ -88,9 +88,9 @@ exits non-zero:
    x 32 at 1 thread and at the Loader's thread count: ms per image, MP/s,
    ``os.cpu_count()``.
 10b. trainer_voc -- ``cli.run.main`` with ``data_module`` VOC on a VOC2012
-   tree written under ``build/`` (200 train and 64 val ids cycling over
-   the decodable fixtures, hard links, 1-5 boxes each;
-   ``tools/fixture_trees.py``), YOLOv2 at 416 px, bf16, B=32 and the
+   tree written under ``build/`` (200 train and 64 val ids, each a hard
+   link to the 500x375 4:2:0 fixture, VOC2012's typical size, 1-5 boxes
+   each; ``tools/fixture_trees.py``), YOLOv2 at 416 px, bf16, B=32 and the
    ``yaml_test`` caps (accumulation 2, 4/2/2 batches, 2 epochs): checked
    as ``trainer`` (one warp launch per microbatch, one NMS launch per
    test batch, a finite mAP table, the best checkpoint restored bit-equal)
@@ -101,8 +101,9 @@ exits non-zero:
    launch per image (counts zeroed before, read after), each PNG's
    signature and IHDR size, ms per image in the call and warm.
 10c. trainer_coco -- the same on a COCO 2017 tree (``images/train2017``,
-   ``images/val2017``, ``annotations/instances_*2017.json``), YOLOv5s at
-   640 px, the flagship.
+   ``images/val2017``, ``annotations/instances_*2017.json``) of the
+   640x480 4:2:0 fixture, COCO 2017's typical size, YOLOv5s at 640 px,
+   the flagship.
 11. yolo_fp32 -- YOLOv2, YOLOv3 and YOLOv4 at their published widths,
    416 px, 80 classes, B=2, f32 with TF32 off, on the card and on the CPU
    from the same seeded weights: head maps (``YOLO_HEAD_REL``), the card's
@@ -347,12 +348,15 @@ TRAINER_ANCHOR_SETS = {
     for name in ANCHOR_FAMILIES}
 
 
-# the real-dataset phases: cli.run on trees of the committed fixture JPEGs
-# (tools/fixture_trees.py) at the YAML's yaml_test caps (accumulation 2,
-# 4 train, 2 val, 2 test batches, 2 epochs), bf16, B=32: VOC2012 with
-# YOLOv2 at 416 px, COCO 2017 with YOLOv5s at 640 px, the flagship
-VOC_TREE = {"n_train": 200, "n_val": 64, "seed": 0}
-COCO_TREE = {"n_train": 200, "n_val": 64, "seed": 1}
+# the real-dataset phases: cli.run on trees of a committed fixture JPEG
+# at the dataset's typical image size (tools/fixture_trees.py) at the
+# YAML's yaml_test caps (accumulation 2, 4 train, 2 val, 2 test batches,
+# 2 epochs), bf16, B=32: VOC2012 (~500x375) with YOLOv2 at 416 px, COCO
+# 2017 (~640x480) with YOLOv5s at 640 px, the flagship
+VOC_TREE = {"n_train": 200, "n_val": 64, "seed": 0,
+            "names": ["voc_420_q75_500x375.jpg"]}
+COCO_TREE = {"n_train": 200, "n_val": 64, "seed": 1,
+             "names": ["coco_420_q75_640x480.jpg"]}
 REAL_SETS = {"compute_dtype": "bfloat16", "batch_size": "32",
              "accumulate_grad_batches": "2", "limit_train_batches": "4",
              "limit_val_batches": "2", "limit_test_batches": "2",
@@ -1632,6 +1636,7 @@ def loader_split(loader) -> dict:
     return {"batch": len(paths), "threads": min(len(paths),
                                                 os.cpu_count() or 1),
             "cpu_count": os.cpu_count(),
+            "mp_per_image": pixels / 1e6 / len(paths),
             "decode_ms_per_batch": med["decode"],
             "resize_ms_per_batch": med["resize"],
             "decode_mp_per_s": pixels / 1e6 / (med["decode"] / 1e3),

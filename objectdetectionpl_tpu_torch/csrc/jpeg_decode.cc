@@ -14,22 +14,22 @@
 // marker or the reason.  EXIF orientation is not applied.
 //
 // C interface (one call per batch, on a pool of threads):
-//   jpeg_probe_batch(paths, n, ws, hs, codes, msgs, msg_len)
-//     reads each file's frame header: its width and height;
-//   jpeg_decode_batch(paths, n, threads, dsts, ws, hs, codes, msgs, msg_len)
-//     decodes file i into dsts[i], a caller buffer of hs[i]*ws[i]*3 bytes
-//     (the probed size; a file of another size is an error);
-//   jpeg_decode_one(path, dst, capacity, &w, &h, msg, msg_len)
-//     one file; with dst null it reads the size only, with a too small
-//     buffer it returns JPEG_NEED_SPACE and the size.
-// Each returns a code per file (JPEG_OK, ...) and a message in
-// msgs[i * msg_len].
+//   jpeg_decode_batch(paths, n, threads, pixels, ws, hs, codes, msgs, msg_len)
+//     each worker reads file i once, parses it and decodes it into a
+//     buffer of hs[i]*ws[i]*3 bytes that it allocates: pixels[i], which the
+//     caller releases with jpeg_free;
+//   jpeg_free(pixel_buffer).
+// A file that fails leaves pixels[i] null and sets codes[i] (JPEG_OK, ...)
+// and a message at msgs + i * msg_len.
 
 #include <algorithm>
+#include <atomic>
 #include <cerrno>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <new>
 #include <string>
 #include <thread>
 #include <vector>
@@ -41,7 +41,6 @@ enum Code {
   JPEG_IO = 1,           // the file cannot be read
   JPEG_UNSUPPORTED = 2,  // a valid JPEG of a kind this decoder does not take
   JPEG_CORRUPT = 3,      // not a JPEG, truncated or malformed
-  JPEG_NEED_SPACE = 4,   // the caller's buffer does not fit the image
 };
 
 struct Error {
@@ -847,9 +846,11 @@ void set_msg(char* msg, int msg_len, const std::string& s) {
   std::snprintf(msg, msg_len, "%s", s.c_str());
 }
 
-// Decodes one file; dst may be null (then only the size is read).
-int decode_file(const char* path, uint8_t* dst, int64_t capacity, int* w,
-                int* h, char* msg, int msg_len) {
+// Reads and decodes one file into a buffer of *h * *w * 3 bytes that it
+// allocates (*pixels, freed with jpeg_free); on an error *pixels is null.
+int decode_file(const char* path, uint8_t** pixels, int* w, int* h, char* msg,
+                int msg_len) {
+  *pixels = nullptr;
   *w = *h = 0;
   set_msg(msg, msg_len, "");
   std::vector<uint8_t> data;
@@ -858,20 +859,22 @@ int decode_file(const char* path, uint8_t* dst, int64_t capacity, int* w,
                               std::strerror(errno));
     return JPEG_IO;
   }
+  uint8_t* rgb = nullptr;
   try {
     Decoder d(data.data(), data.size());
     d.header(w, h);
-    if (!dst) return JPEG_OK;
-    if (static_cast<int64_t>(*w) * *h * 3 > capacity) {
-      set_msg(msg, msg_len, "buffer too small");
-      return JPEG_NEED_SPACE;
-    }
-    d.decode(dst);
+    rgb = static_cast<uint8_t*>(
+        std::malloc(static_cast<size_t>(*w) * *h * 3));
+    if (!rgb) throw std::bad_alloc();
+    d.decode(rgb);
+    *pixels = rgb;
     return JPEG_OK;
   } catch (const Error& e) {
+    std::free(rgb);
     set_msg(msg, msg_len, e.msg);
     return e.code;
   } catch (const std::bad_alloc&) {
+    std::free(rgb);
     set_msg(msg, msg_len, "out of memory");
     return JPEG_CORRUPT;
   }
@@ -881,47 +884,31 @@ int decode_file(const char* path, uint8_t* dst, int64_t capacity, int* w,
 
 extern "C" {
 
-// The frame size of each file: codes[i] JPEG_OK with ws[i], hs[i], or an
-// error with its message at msgs + i * msg_len.
-void jpeg_probe_batch(const char** paths, int n, int* ws, int* hs, int* codes,
-                      char* msgs, int msg_len) {
-  for (int i = 0; i < n; ++i)
-    codes[i] = decode_file(paths[i], nullptr, 0, &ws[i], &hs[i],
-                           msgs + static_cast<int64_t>(i) * msg_len, msg_len);
-}
-
-// Decodes file i into dsts[i] (hs[i] * ws[i] * 3 bytes, the probed size) on
-// up to `threads` threads; a file whose size differs fails with
-// JPEG_NEED_SPACE.
-void jpeg_decode_batch(const char** paths, int n, int threads, uint8_t** dsts,
-                       const int* ws, const int* hs, int* codes, char* msgs,
-                       int msg_len) {
+// Decodes file i into pixels[i] on up to `threads` threads, each file read
+// once by the thread that decodes it.  A thread takes the next file when it
+// is done with one: files of a batch differ in size, so a fixed share per
+// thread leaves the others waiting on the one that drew the large files.
+void jpeg_decode_batch(const char** paths, int n, int threads,
+                       uint8_t** pixels, int* ws, int* hs, int* codes,
+                       char* msgs, int msg_len) {
   const int nt = std::max(1, std::min(threads, n));
-  auto work = [=](int t) {
-    for (int i = t; i < n; i += nt) {
-      int w = 0, h = 0;
-      char* msg = msgs + static_cast<int64_t>(i) * msg_len;
-      int64_t cap = static_cast<int64_t>(ws[i]) * hs[i] * 3;
-      codes[i] = decode_file(paths[i], dsts[i], cap, &w, &h, msg, msg_len);
-      if (codes[i] == JPEG_OK && (w != ws[i] || h != hs[i])) {
-        codes[i] = JPEG_NEED_SPACE;
-        set_msg(msg, msg_len, "the image's size changed since the probe");
-      }
-    }
+  std::atomic<int> next{0};
+  auto work = [&] {
+    for (int i; (i = next.fetch_add(1)) < n;)
+      codes[i] = decode_file(paths[i], &pixels[i], &ws[i], &hs[i],
+                             msgs + static_cast<int64_t>(i) * msg_len,
+                             msg_len);
   };
   if (nt == 1) {
-    work(0);
+    work();
     return;
   }
   std::vector<std::thread> pool;
   pool.reserve(nt);
-  for (int t = 0; t < nt; ++t) pool.emplace_back(work, t);
+  for (int t = 0; t < nt; ++t) pool.emplace_back(work);
   for (auto& th : pool) th.join();
 }
 
-int jpeg_decode_one(const char* path, uint8_t* dst, int64_t capacity, int* w,
-                    int* h, char* msg, int msg_len) {
-  return decode_file(path, dst, capacity, w, h, msg, msg_len);
-}
+void jpeg_free(uint8_t* pixels) { std::free(pixels); }
 
 }  // extern "C"

@@ -15,8 +15,8 @@ The decoder: ``csrc/jpeg_decode.cc``, the port's own baseline sequential
 JPEG decoder (equal bit for bit to libjpeg-turbo's default decompression
 to RGB at full scale), built the same way into
 ``build/native/libjpegdec-<key>.so``.  :func:`decode_batch` decodes a
-batch of files on a pool of threads with one call, :func:`decode_one` one
-file.  A file it cannot read raises :class:`JpegError` naming the path
+batch of files on a pool of threads with one call, each file read once by
+the thread that decodes it; :func:`decode_one` is a batch of one.  A file it cannot read raises :class:`JpegError` naming the path
 and the reason; there is no other decoder to fall back to.  Without g++
 :func:`jpeg_available` is False, ``jpeg_build_error`` says why, and the
 real datasets raise.
@@ -34,6 +34,7 @@ import hashlib
 import os
 import platform
 import subprocess
+import weakref
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -200,22 +201,15 @@ def _jpeg_load() -> Optional[ctypes.CDLL]:
         jpeg_build_error = _why(e)
         return None
     i32p = ctypes.POINTER(ctypes.c_int)
-    lib.jpeg_probe_batch.argtypes = [
-        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,   # paths, n
-        i32p, i32p, i32p,                                # ws, hs, codes
-        ctypes.c_char_p, ctypes.c_int]                   # msgs, msg_len
-    lib.jpeg_probe_batch.restype = None
     lib.jpeg_decode_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,   # paths, n
         ctypes.c_int,                                    # threads
-        ctypes.POINTER(ctypes.c_void_p),                 # dsts
+        ctypes.POINTER(ctypes.c_void_p),                 # pixels (out)
         i32p, i32p, i32p,                                # ws, hs, codes
         ctypes.c_char_p, ctypes.c_int]                   # msgs, msg_len
     lib.jpeg_decode_batch.restype = None
-    lib.jpeg_decode_one.argtypes = [
-        ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64,   # path, dst, cap
-        i32p, i32p, ctypes.c_char_p, ctypes.c_int]          # w, h, msg
-    lib.jpeg_decode_one.restype = ctypes.c_int
+    lib.jpeg_free.argtypes = [ctypes.c_void_p]
+    lib.jpeg_free.restype = None
     _jpeg_lib = lib
     return _jpeg_lib
 
@@ -232,56 +226,43 @@ def _jpeg_lib_or_raise() -> ctypes.CDLL:
     return lib
 
 
-def _check(path: str, code: int, msg: bytes) -> None:
-    if code != JPEG_OK:
-        reason = msg.split(bytes(1), 1)[0].decode(errors="replace")
-        raise JpegError(f"{path}: {reason}")
-
-
-def _check_all(paths: Sequence[str], codes: np.ndarray, msgs: bytes) -> None:
-    for i, path in enumerate(paths):
-        _check(path, int(codes[i]), msgs[i * MSG_LEN:(i + 1) * MSG_LEN])
+def _owned(lib: ctypes.CDLL, ptr: int, h: int, w: int) -> np.ndarray:
+    """The decoder's buffer at ``ptr`` as uint8 [h, w, 3], without a copy;
+    the buffer is freed when the last array over it goes."""
+    buf = (ctypes.c_uint8 * (h * w * 3)).from_address(ptr)
+    weakref.finalize(buf, lib.jpeg_free, ptr)
+    return np.frombuffer(buf, np.uint8).reshape(h, w, 3)
 
 
 def decode_batch(paths: Sequence[str], threads: Optional[int] = None
                  ) -> List[np.ndarray]:
-    """JPEG files -> [uint8 [H, W, 3] RGB, ...], decoded on ``threads``
-    threads (default one per file up to the CPU count) with one call after
-    a probe of the sizes.  Raises :class:`JpegError` naming the first file
-    that fails."""
+    """JPEG files -> [uint8 [H, W, 3] RGB, ...], decoded with one call on
+    ``threads`` threads (default one per file up to the CPU count).  Raises
+    :class:`JpegError` naming the first file that fails."""
     lib = _jpeg_lib_or_raise()
     n = len(paths)
     if n == 0:
         return []
     c_paths = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    pixels = (ctypes.c_void_p * n)()
     ws = np.zeros(n, np.int32)
     hs = np.zeros(n, np.int32)
     codes = np.zeros(n, np.int32)
     msgs = ctypes.create_string_buffer(n * MSG_LEN)
     i32 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
-    lib.jpeg_probe_batch(c_paths, n, i32(ws), i32(hs), i32(codes), msgs,
-                         MSG_LEN)
-    _check_all(paths, codes, msgs.raw)
-    out = [np.empty((int(h), int(w), 3), np.uint8) for w, h in zip(ws, hs)]
-    dsts = (ctypes.c_void_p * n)(*[a.ctypes.data for a in out])
     threads = min(n, os.cpu_count() or 1) if threads is None else threads
-    lib.jpeg_decode_batch(c_paths, n, int(threads), dsts, i32(ws), i32(hs),
+    lib.jpeg_decode_batch(c_paths, n, int(threads), pixels, i32(ws), i32(hs),
                           i32(codes), msgs, MSG_LEN)
-    _check_all(paths, codes, msgs.raw)
+    out = [_owned(lib, p, int(h), int(w)) if p else None
+           for p, w, h in zip(pixels, ws, hs)]
+    raw = msgs.raw
+    for i, path in enumerate(paths):
+        if codes[i] != JPEG_OK:
+            reason = raw[i * MSG_LEN:(i + 1) * MSG_LEN].split(bytes(1), 1)[0]
+            raise JpegError(f"{path}: {reason.decode(errors='replace')}")
     return out
 
 
 def decode_one(path: str) -> np.ndarray:
     """One JPEG file -> uint8 [H, W, 3] RGB; raises :class:`JpegError`."""
-    lib = _jpeg_lib_or_raise()
-    w, h = ctypes.c_int(0), ctypes.c_int(0)
-    msg = ctypes.create_string_buffer(MSG_LEN)
-    c_path = os.fsencode(path)
-    code = lib.jpeg_decode_one(c_path, None, 0, ctypes.byref(w),
-                               ctypes.byref(h), msg, MSG_LEN)   # the size
-    _check(path, code, msg.raw)
-    out = np.empty((h.value, w.value, 3), np.uint8)
-    code = lib.jpeg_decode_one(c_path, out.ctypes.data, out.nbytes,
-                               ctypes.byref(w), ctypes.byref(h), msg, MSG_LEN)
-    _check(path, code, msg.raw)
-    return out
+    return decode_batch([path], threads=1)[0]

@@ -4,10 +4,11 @@ The port of ``objectdetectionpl_tpu/data/pipeline.py``.  The host decodes
 and resizes to the static img_size; normalization happens here (float32 in
 [0, 1]) and all augmentation runs on the device (``augment.py``).
 
-Decode: a parser with ``record(i) -> (path, boxes, labels)`` (VOC, COCO)
-whose batch of paths all end in .jpg/.jpeg is decoded by the port's JPEG
-decoder with one ``native.decode_batch`` call per batch, on a pool of
-threads; other parsers give their images themselves (Synthetic).
+Decode: the images of a parser with ``record(i) -> (path, boxes,
+labels)`` (VOC, COCO) are decoded by the port's JPEG decoder with one
+``native.decode_batch`` call per batch, on a pool of threads; a file it
+cannot read raises, naming the path.  Other parsers give their images
+themselves (Synthetic).
 ``Loader.decode_path`` says which ("native" or "parser").
 
 Resize: the native library ``native/preproc.cc`` through the port's own
@@ -145,10 +146,9 @@ class Loader:
     def _examples(self, idx) -> List[Example]:
         if self.decode_path == "native":
             recs = [self.parser.record(int(i)) for i in idx]
-            if all(r[0].lower().endswith((".jpg", ".jpeg")) for r in recs):
-                images = native.decode_batch([r[0] for r in recs])
-                return [Example(im, bx, lb)
-                        for im, (_, bx, lb) in zip(images, recs)]
+            images = native.decode_batch([r[0] for r in recs])
+            return [Example(im, bx, lb)
+                    for im, (_, bx, lb) in zip(images, recs)]
         return [self.parser[int(i)] for i in idx]
 
 

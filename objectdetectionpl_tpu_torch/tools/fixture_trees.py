@@ -3,15 +3,18 @@
 ``data/testdata/`` holds a few small baseline JPEGs (and one progressive
 file, which the decoder must refuse) with the SHA-256 of their libjpeg
 decodes (``decoded_sha256.json``).  The functions here lay those files out
-as the VOC and COCO parsers expect, cycling over the decodable fixtures
-(hard links where the file system allows, else copies), with annotations of
-1-5 boxes per image drawn from a seed:
+as the VOC and COCO parsers expect, cycling over ``names`` (by default
+every decodable fixture, from 37x53 to 640x480; hard links where the file
+system allows, else copies), with annotations of 1-5 boxes per image drawn
+from a seed:
 
-    write_voc_tree(root, n_train=200, n_val=64, seed=0)
-    write_coco_tree(root, n_train=200, n_val=64, seed=0)
+    write_voc_tree(root, n_train=200, n_val=64, seed=0, names=None)
+    write_coco_tree(root, n_train=200, n_val=64, seed=0, names=None)
 
-``chip_smoke.py`` trains on such trees and the tests parse them with both
-packages.
+The tests parse the mixed trees with both packages.  ``chip_smoke.py``
+times its fits on trees of one fixture each at the dataset's typical image
+size: ``voc_420_q75_500x375.jpg`` (VOC2012's ~500x375) and
+``coco_420_q75_640x480.jpg`` (COCO 2017's ~640x480).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import json
 import os
 import shutil
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -63,15 +66,25 @@ def _boxes(rng, w: int, h: int) -> List[Tuple[int, int, int, int]]:
     return out
 
 
+def _names(names: Optional[Sequence[str]]) -> List[str]:
+    names = decodable() if names is None else list(names)
+    unknown = sorted(set(names) - set(decodable()))
+    if not names or unknown:
+        raise ValueError(f"not decodable fixtures: {unknown or names}")
+    return names
+
+
 def write_voc_tree(root, n_train: int = 200, n_val: int = 64,
-                   seed: int = 0) -> str:
+                   seed: int = 0,
+                   names: Optional[Sequence[str]] = None) -> str:
     """``<root>/VOC2012/{JPEGImages, Annotations, ImageSets/Main}`` with
-    ``n_train`` ids in train.txt and ``n_val`` in val.txt.  Returns root."""
+    ``n_train`` ids in train.txt and ``n_val`` in val.txt, the images
+    cycling over the fixtures ``names``.  Returns root."""
     rng = np.random.RandomState(seed)
     base = Path(root) / "VOC2012"
     for d in ("JPEGImages", "Annotations", "ImageSets/Main"):
         (base / d).mkdir(parents=True, exist_ok=True)
-    names, shapes = decodable(), fixtures()
+    names, shapes = _names(names), fixtures()
     ids = [f"{i:06d}" for i in range(n_train + n_val)]
     for i, _id in enumerate(ids):
         name = names[i % len(names)]
@@ -92,13 +105,14 @@ def write_voc_tree(root, n_train: int = 200, n_val: int = 64,
 
 
 def write_coco_tree(root, n_train: int = 200, n_val: int = 64,
-                    seed: int = 0) -> str:
+                    seed: int = 0,
+                    names: Optional[Sequence[str]] = None) -> str:
     """``<root>/images/{train,val}2017`` and
-    ``<root>/annotations/instances_{train,val}2017.json``; a few
-    annotations use a category outside the 80 classes, which the parser
-    drops.  Returns root."""
+    ``<root>/annotations/instances_{train,val}2017.json``, the images
+    cycling over the fixtures ``names``; a few annotations use a category
+    outside the 80 classes, which the parser drops.  Returns root."""
     rng = np.random.RandomState(seed)
-    names, shapes = decodable(), fixtures()
+    names, shapes = _names(names), fixtures()
     next_ann = 1
     for split, n, first in (("train", n_train, 0), ("val", n_val, n_train)):
         img_dir = Path(root) / "images" / f"{split}2017"

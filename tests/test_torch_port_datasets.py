@@ -19,6 +19,8 @@ committed fixture JPEGs (``tools/fixture_trees.py``).
 
 import json
 import os
+import re
+import shutil
 
 import numpy as np
 import pytest
@@ -159,6 +161,48 @@ def test_loader_decodes_a_batch_in_one_call(voc_root, monkeypatch):
     assert len(calls) == len(batches) == 4
     assert all(len(c) == 4 for c in calls)
     assert all(c[0].endswith(".jpg") for c in calls)
+
+
+@pytest.mark.parametrize("data_module,name", [
+    ("VOC", "voc_420_q75_500x375.jpg"), ("COCO", "coco_420_q75_640x480.jpg")])
+def test_tree_of_one_fixture(tmp_path, data_module, name):
+    """The trees ``chip_smoke.py`` times its fits on: every image is the
+    fixture of the dataset's typical size, and both packages parse them
+    alike."""
+    write = (fixture_trees.write_voc_tree if data_module == "VOC"
+             else fixture_trees.write_coco_tree)
+    root = write(tmp_path, n_train=5, n_val=3, seed=4, names=[name])
+    port, ref = ((VOCParser(root, "2012", "train"), JaxVOC(root, "2012",
+                                                           "train"))
+                 if data_module == "VOC" else
+                 (COCOParser(root, "2017", "train"), JaxCOCO(root, "2017",
+                                                             "train")))
+    _assert_same_parser(port, ref)
+    want = (fixture_trees.TESTDATA / name).read_bytes()
+    for i in range(len(port)):
+        with open(port.record(i)[0], "rb") as f:
+            assert f.read() == want
+    with pytest.raises(ValueError, match="not decodable fixtures"):
+        write(tmp_path / "bad", names=list(fixture_trees.UNSUPPORTED))
+
+
+def test_loader_raises_naming_a_file_it_cannot_decode(coco_root, tmp_path):
+    """No fallback: a record that is not a JPEG (a PNG named in the COCO
+    annotations) fails the batch with the decoder's error naming it."""
+    root = tmp_path / "coco"
+    shutil.copytree(coco_root, root)
+    ann_file = root / "annotations" / "instances_train2017.json"
+    ann = json.loads(ann_file.read_text())
+    ann["images"][1]["file_name"] = "not_a_jpeg.png"
+    ann_file.write_text(json.dumps(ann))
+    bad = root / "images" / "train2017" / "not_a_jpeg.png"
+    bad.write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(64))
+    loader = datamodules.build_datamodule(Config(
+        data_module="COCO", data_root=str(root), batch_size=4, img_size=64,
+        stage="fit")).train_dataloader()
+    with pytest.raises(native.JpegError,
+                       match=f"^{re.escape(str(bad))}: not a JPEG file"):
+        _batches(loader)
 
 
 @pytest.mark.parametrize("data_module", ["VOC", "COCO"])
