@@ -80,8 +80,9 @@ exits non-zero:
    each epoch's wall time, images/s (the Trainer's
    ``throughput/images_per_sec``), losses, the Loader's resize path and
    the peak memory.
-10a. jpeg_check -- the port's JPEG decoder (``csrc/jpeg_decode.cc``) built
-   with g++ (seconds, or ``jpeg_build_error``, which fails the phase);
+10a. jpeg_check -- the port's host library (``csrc/preproc.cc`` and the
+   JPEG decoder ``csrc/jpeg_decode.cc``) built with g++ (seconds, or
+   ``native.build_error``, which fails the phase);
    every committed fixture (``data/testdata``) decoded and its RGB bytes'
    SHA-256 held against the committed libjpeg hash; the progressive
    fixture must raise naming its path; ``decode_batch`` over the fixtures
@@ -93,9 +94,13 @@ exits non-zero:
    each; ``tools/fixture_trees.py``), YOLOv2 at 416 px, bf16, B=32 and the
    ``yaml_test`` caps (accumulation 2, 4/2/2 batches, 2 epochs): checked
    as ``trainer`` (one warp launch per microbatch, one NMS launch per
-   test batch, a finite mAP table, the best checkpoint restored bit-equal)
-   and ``decode_path`` "native"; prints the epochs, img/s and the
-   Loader's host ms per batch for decode and for resize, each alone.
+   test batch, a finite mAP table, the best checkpoint restored bit-equal,
+   a pinned ring of ``prefetch_batches`` + 2 slots) and ``decode_path``
+   "fused"; prints the epochs, img/s and ``loader_split``: the Loader's
+   host ms per batch for the two stages it ran before (decode, then
+   resize, each alone), for the fused decode-and-resize call it runs now
+   (into a pinned buffer), and for the batch's upload from the pinned ring
+   against a copy into freshly pinned memory.
    Inside it, on its checkpoint: predict_cli -- ``cli.predict.main`` over
    the decodable fixtures with ``--out-dir``: one JSON line and one NMS
    launch per image (counts zeroed before, read after), each PNG's
@@ -104,6 +109,21 @@ exits non-zero:
    ``images/val2017``, ``annotations/instances_*2017.json``) of the
    640x480 4:2:0 fixture, COCO 2017's typical size, YOLOv5s at 640 px,
    the flagship.
+10d. trainer_coco_cache -- trainer_coco with ``--set cache_dir`` (a
+   directory under the tree's): the CLI builds the packed uint8 caches
+   (train, val, test) and trains, validates and tests from their gathers,
+   ``decode_path`` "cache"; checked as ``trainer_coco``.  Then, on those
+   caches: the builds' images per second, ``cache_split`` (host ms of one
+   batch's gather into a pinned buffer and its upload) and
+   ``check_ring``: 6 batches through a ring of the Trainer's size, their
+   copies held back behind a 500 ms spin so that the Loader must wait for
+   each slot's copy (the loop must last the spin), each batch on the card equal byte for byte to the
+   same batch made by a fresh Loader (cached uint8 batches and fused
+   float32 batches); the same check on a planted ring whose ``take`` does
+   not wait must fail.
+10e. trainer_widerperson -- as trainer_coco, one epoch, on a WiderPerson
+   tree (``Images``, ``Annotations/<id>.jpg.txt``, ``train.txt``,
+   ``val.txt``) of 128 + 64 copies of the 640x480 fixture, 5 classes.
 11. yolo_fp32 -- YOLOv2, YOLOv3 and YOLOv4 at their published widths,
    416 px, 80 classes, B=2, f32 with TF32 off, on the card and on the CPU
    from the same seeded weights: head maps (``YOLO_HEAD_REL``), the card's
@@ -177,8 +197,8 @@ exits non-zero:
    unprofiled calls (the profiler's own host cost inflates the first).
 
 Then the ``kernels`` line (the NMS and warp entries also carry the launch
-counts of the YOLO, anchor, VOC, COCO and predict phases, and the NMS
-entry the anchor scan's times) and, last, ``{"ok": true, "device": {...}}``.
+counts of the YOLO, anchor, VOC, COCO (uncached and cached), WiderPerson
+and predict phases, and the NMS entry the anchor scan's times) and, last, ``{"ok": true, "device": {...}}``.
 Without CUDA it prints nothing to stdout and exits 1.
 """
 
@@ -186,6 +206,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import hashlib
 import io
@@ -198,6 +219,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -205,6 +227,10 @@ from objectdetectionpl_tpu_torch.cli import predict as cli_predict
 from objectdetectionpl_tpu_torch.cli import run as cli_run
 from objectdetectionpl_tpu_torch.config import Config, load_config
 from objectdetectionpl_tpu_torch.data import augment, build_datamodule, native
+from objectdetectionpl_tpu_torch.data import cache as cache_lib
+from objectdetectionpl_tpu_torch.data import datamodules, pipeline
+from objectdetectionpl_tpu_torch.data.parsers import COCOParser
+from objectdetectionpl_tpu_torch.data.types import Batch
 from objectdetectionpl_tpu_torch.models import build_model
 from objectdetectionpl_tpu_torch.nn import blocks
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
@@ -217,6 +243,7 @@ from objectdetectionpl_tpu_torch.tools import (conv_bench, fixture_trees,
 from objectdetectionpl_tpu_torch.tools.kernel_ab import (candidates,
                                                          ssr_inverses)
 from objectdetectionpl_tpu_torch.train.checkpoint import CheckpointManager
+from objectdetectionpl_tpu_torch.train.loop import PinnedRing
 from objectdetectionpl_tpu_torch.train.optim import build_optimizer
 from objectdetectionpl_tpu_torch.train.state import create_train_state
 from objectdetectionpl_tpu_torch.train.step import (YOLO_DECODE,
@@ -367,7 +394,21 @@ TRAINER_COCO_SETS = {**REAL_SETS, "data_module": "COCO",
                      "model_name": "YOLOv5", "type": "Yolov5s",
                      "img_size": "640"}
 JPEG_REPEAT = 32          # decode_batch timing: the fixtures x 32
-LOADER_REPS = 3           # the Loader's decode / resize split: median of 3
+LOADER_REPS = 3           # the Loader's host split: median of 3
+# trainer_coco_cache: trainer_coco with the packed cache, which the CLI
+# builds under a temporary directory of build/ (cache_dir set at run time)
+TRAINER_COCO_CACHE_SETS = dict(TRAINER_COCO_SETS)
+# trainer_widerperson: one epoch of YOLOv5s-640 on a WiderPerson tree of
+# the 640x480 fixture (WiderPerson's 5 classes)
+WIDER_TREE = {"n_train": 128, "n_val": 64, "seed": 2,
+              "names": ["coco_420_q75_640x480.jpg"]}
+TRAINER_WIDER_SETS = {**REAL_SETS, "data_module": "WiderPerson",
+                      "model_name": "YOLOv5", "type": "Yolov5s",
+                      "img_size": "640", "max_epochs": "1"}
+# the pinned ring check: batches through a ring of the Trainer's size
+# (prefetch_batches + 2 slots), their copies held back behind a spin
+RING_BATCHES = 6
+RING_SPIN_MS = 500
 
 
 def emit(obj) -> None:
@@ -1615,33 +1656,159 @@ def check_restore(ckpt_dir: str, cfg, num_classes: int, device,
             / 1e6}
 
 
+def _median(xs: list) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def warm_ring(shape, dtype, slots: int = 2) -> PinnedRing:
+    """A ring whose slots are allocated (pinned) for ``shape``, ``dtype``
+    before anything is timed, its next slot the first."""
+    ring = PinnedRing(slots, torch.device("cuda"))
+    for _ in range(slots):
+        ring.take(shape, dtype)
+    return ring
+
+
+def _upload_ms(ring, batch, reps: int = LOADER_REPS) -> float:
+    """Host ms of ``ring.upload`` of a batch and a sync (median)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring.upload(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times)
+
+
 def loader_split(loader) -> dict:
-    """Host ms of the Loader's two stages on its first batch, each alone
-    (median of ``LOADER_REPS``): one ``decode_batch`` call, then the resize
-    of the decoded images into the float32 batch."""
+    """Host ms of one batch of the Loader's first indices (median of
+    ``LOADER_REPS``): the two stages the Loader ran before, each alone
+    (one ``decode_batch`` call, then the float32 resize), the fused
+    ``decode_preproc_batch`` call the Loader runs now, writing into a
+    pinned ring buffer, and that batch's upload from the ring against the
+    replaced upload (a copy into freshly pinned memory, then the copy to
+    the card)."""
     recs = [loader.parser.record(int(i))
             for i in loader.indices[:loader.batch_size]]
     paths = [r[0] for r in recs]
-    times = {"decode": [], "resize": []}
+    S, n = loader.img_size, len(paths)
+    ring = warm_ring((n, S, S, 3), np.float32)
+    times = {"decode": [], "resize": [], "fused": [], "pin_copy": []}
     for _ in range(LOADER_REPS):
         t0 = time.perf_counter()
         images = native.decode_batch(paths)
         t1 = time.perf_counter()
-        native.preproc_batch(images, loader.img_size, loader.letterbox)
+        native.preproc_batch(images, S, loader.letterbox)
+        out = ring.take((n, S, S, 3), np.float32)
         t2 = time.perf_counter()
+        native.decode_preproc_batch(paths, S, loader.letterbox, out)
+        t3 = time.perf_counter()
         times["decode"].append((t1 - t0) * 1e3)
         times["resize"].append((t2 - t1) * 1e3)
+        times["fused"].append((t3 - t2) * 1e3)
+    plain = np.array(out)
+    torch.from_numpy(plain).pin_memory().to("cuda")           # warm
+    for _ in range(LOADER_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(plain).pin_memory().to("cuda", non_blocking=True)
+        torch.cuda.synchronize()
+        times["pin_copy"].append((time.perf_counter() - t0) * 1e3)
+    zeros = [np.zeros((n, loader.max_boxes), np.int32),
+             np.zeros((n, loader.max_boxes, 4), np.float32),
+             np.zeros((n, loader.max_boxes), bool)]
+    upload = _upload_ms(ring, Batch(out, *zeros))
     pixels = sum(im.shape[0] * im.shape[1] for im in images)
-    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
-    return {"batch": len(paths), "threads": min(len(paths),
-                                                os.cpu_count() or 1),
+    med = {k: _median(v) for k, v in times.items()}
+    return {"batch": n, "threads": min(n, os.cpu_count() or 1),
             "cpu_count": os.cpu_count(),
-            "mp_per_image": pixels / 1e6 / len(paths),
+            "mp_per_image": pixels / 1e6 / n,
             "decode_ms_per_batch": med["decode"],
             "resize_ms_per_batch": med["resize"],
+            "fused_ms_per_batch": med["fused"],
             "decode_mp_per_s": pixels / 1e6 / (med["decode"] / 1e3),
-            "host_img_per_s": len(paths) / ((med["decode"] + med["resize"])
-                                            / 1e3)}
+            "host_img_per_s_two_stage": n / ((med["decode"] + med["resize"])
+                                             / 1e3),
+            "host_img_per_s_fused": n / (med["fused"] / 1e3),
+            "batch_mb": out.nbytes / 1e6,
+            "upload_ms_pinned_ring": upload,
+            "upload_ms_pin_copy": med["pin_copy"]}
+
+
+def cache_split(loader) -> dict:
+    """Host ms of one cached batch of the Loader's first indices (median of
+    ``LOADER_REPS``): the gather of uint8 rows from the packed cache into a
+    pinned ring buffer, and its upload from the ring."""
+    idx = loader.indices[:loader.batch_size]
+    S, n = loader.img_size, len(idx)
+    ring = warm_ring((n, S, S, 3), np.uint8)
+    times = []
+    for _ in range(LOADER_REPS):
+        out = ring.take((n, S, S, 3), np.uint8)
+        t0 = time.perf_counter()
+        batch = loader.cache.batch(idx, loader.max_boxes, out)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"batch": n, "batch_mb": batch.images.nbytes / 1e6,
+            "gather_ms_per_batch": _median(times),
+            "host_img_per_s_gather": n / (_median(times) / 1e3),
+            "upload_ms_pinned_ring": _upload_ms(ring, batch)}
+
+
+class UnwaitedRing(PinnedRing):
+    """A planted fault: a ring whose ``take`` hands out a slot without
+    waiting for the copy that reads it."""
+
+    def take(self, shape, dtype):
+        k = self.next
+        self.next = (k + 1) % len(self.buffers)
+        self.events[k] = None
+        return self._view(k, "images", shape, dtype)
+
+
+def check_ring(make_loader, n_batches: int = RING_BATCHES,
+               ring_cls=PinnedRing) -> dict:
+    """The Trainer's pinned ring on the card: ``n_batches`` batches that a
+    Loader writes into a ring of the Trainer's size and that are uploaded
+    from it, their copies held back behind a ``RING_SPIN_MS`` spin, so
+    that the Loader must wait for a slot's copy before it writes the slot
+    again: the loop must last the spin, and each batch on the card must
+    equal, byte for byte, the same batch made by a fresh Loader into
+    arrays of its own.  A first pass through the ring allocates its slots,
+    so that no allocation outlasts the spin."""
+    cfg = Config()
+    ring = ring_cls(cfg.prefetch_batches + 2, torch.device("cuda"))
+    if n_batches <= len(ring.buffers):
+        raise AssertionError("the check must reuse the ring's slots")
+    for _, b in zip(range(len(ring.buffers)), make_loader().batches(
+            ring.take)):
+        ring.upload(b)
+    ring.next = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(int(RING_SPIN_MS * timing.SPIN_CYCLES_PER_MS))
+    on_card = [ring.upload(b) for _, b in zip(range(n_batches),
+                                               make_loader().batches(
+                                                   ring.take))]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    want = [b for _, b in zip(range(n_batches), make_loader())]
+    if len(want) != n_batches or len(on_card) != n_batches:
+        raise AssertionError(f"the Loader gave {len(want)} batches")
+    for i, (got, w) in enumerate(zip(on_card, want)):
+        for name, g, a in zip(Batch._fields, got, w):
+            if g.cpu().numpy().tobytes() != np.ascontiguousarray(a).tobytes():
+                raise AssertionError(f"batch {i}'s {name} on the card "
+                                     f"differs from the Loader's")
+    if host_ms < RING_SPIN_MS:
+        raise AssertionError(f"the Loader wrote {n_batches} batches into "
+                             f"{len(ring.buffers)} slots in {host_ms:.1f} "
+                             f"ms, within the {RING_SPIN_MS} ms spin that "
+                             f"holds their copies: it did not wait")
+    return {"batches": n_batches, "slots": len(ring.buffers),
+            "images_dtype": str(want[0].images.dtype),
+            "bytes_equal": sum(a.nbytes for w in want for a in w),
+            "spin_ms": RING_SPIN_MS, "host_loop_ms": host_ms}
 
 
 def phase_trainer(card: str, sets: dict = TRAINER_SETS,
@@ -1660,12 +1827,12 @@ def phase_trainer(card: str, sets: dict = TRAINER_SETS,
             argv += ["--set", k, v]
         cfg = load_config(argv[0], {k: cli_run._coerce(v) for k, v in
                                     zip(argv[2::3], argv[3::3])})
-        dm = build_datamodule(cfg)
+        # counted without the cache, which the run itself must build
+        dm = build_datamodule(dataclasses.replace(cfg, cache_dir=""))
         microbatches = cfg.max_epochs * len(dm.train_dataloader())
         resize_path = dm.train_dataloader().resize_path
-        decode_path = dm.train_dataloader().decode_path
         split = (loader_split(dm.train_dataloader())
-                 if decode_path == "native" else None)
+                 if dm.train_dataloader().decode_path == "fused" else None)
         dm.setup("test")                  # as the CLI does before its test
         test_batches = len(dm.test_dataloader())
         build_error = native.build_error
@@ -1698,6 +1865,11 @@ def phase_trainer(card: str, sets: dict = TRAINER_SETS,
         finally:
             cli_run.Trainer = trainer_cls
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        decode_path = kept[0].dm.train_dataloader().decode_path
+        if kept[0].ring is None or len(kept[0].ring.buffers) != \
+                cfg.prefetch_batches + 2:
+            raise AssertionError("the Trainer has no pinned ring of "
+                                 "prefetch_batches + 2 slots")
         if counts["affine_warp"] != microbatches:
             raise AssertionError(f"affine_warp launched "
                                  f"{counts['affine_warp']} times for "
@@ -1748,11 +1920,10 @@ def phase_jpeg_check(card: str) -> None:
     naming its path, and time ``decode_batch`` on the fixtures x
     ``JPEG_REPEAT`` at 1 thread and at the Loader's thread count."""
     t0 = time.perf_counter()
-    if not native.jpeg_available():
-        emit({"phase": "jpeg_check", "jpeg_build_error":
-              native.jpeg_build_error})
+    if not native.available():
+        emit({"phase": "jpeg_check", "build_error": native.build_error})
         raise AssertionError(f"the JPEG decoder did not build: "
-                             f"{native.jpeg_build_error}")
+                             f"{native.build_error}")
     build_s = time.perf_counter() - t0
     want = fixture_trees.fixtures()
     names = fixture_trees.decodable()
@@ -1793,7 +1964,7 @@ def phase_jpeg_check(card: str) -> None:
             native.decode_one(path)
         per_file[name] = (time.perf_counter() - t0) * 1e3 / JPEG_REPEAT
     emit({"phase": "jpeg_check", "card": card, "build_s": build_s,
-          "library": native.jpeg_library_path().name,
+          "library": native.library_path().name,
           "hashes_equal": len(names), "refused": refused,
           "images": len(paths), "megapixels": pixels / 1e6,
           "cpu_count": os.cpu_count(), "decode_batch": timing,
@@ -1812,10 +1983,10 @@ def predict_after(card: str, out: dict):
         calls = {}
         predict_images = cli_predict.predict_images
 
-        def timed(trainer, images, panels=None):
+        def timed(trainer, images, on_image=None):
             calls["trainer"] = trainer
             t0 = time.perf_counter()
-            res = predict_images(trainer, images, panels)
+            res = predict_images(trainer, images, on_image)
             calls["ms"] = (time.perf_counter() - t0) * 1e3
             return res
 
@@ -1872,24 +2043,110 @@ def predict_after(card: str, out: dict):
     return after
 
 
+TREE_WRITERS = {"VOC": fixture_trees.write_voc_tree,
+                "COCO": fixture_trees.write_coco_tree,
+                "WiderPerson": fixture_trees.write_widerperson_tree}
+
+
 def phase_trainer_real(card: str, name: str, sets: dict, tree: dict,
-                       after=None) -> dict:
-    """``phase_trainer`` on a VOC or COCO tree of the fixture JPEGs
-    written under ``build/``: the Loader must decode with the port's
-    decoder, one ``decode_batch`` call a batch."""
-    write = (fixture_trees.write_voc_tree if sets["data_module"] == "VOC"
-             else fixture_trees.write_coco_tree)
+                       after=None, cache: bool = False) -> dict:
+    """``phase_trainer`` on a tree of the fixture JPEGs written under
+    ``build/``: the Loader must decode with the port's decoder, one fused
+    ``decode_preproc_batch`` call a batch, or, with ``cache``, gather from
+    the packed caches that the run builds under the tree's directory."""
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_tree_",
                                      dir=REPO / "build") as root:
         t0 = time.perf_counter()
-        write(root, **tree)
+        TREE_WRITERS[sets["data_module"]](root, **tree)
         emit({"phase": name, "tree": tree, "root": "build/" +
               os.path.basename(root), "write_s": time.perf_counter() - t0})
-        out = phase_trainer(card, {**sets, "data_root": root}, name, after)
-    if out["decode_path"] != "native":
-        raise AssertionError(f"{name}: the Loader decoded through "
-                             f"{out['decode_path']!r}, not decode_batch")
+        sets = {**sets, "data_root": root}
+        if cache:
+            sets["cache_dir"] = os.path.join(root, "cache")
+        out = phase_trainer(card, sets, name, after)
+    want = "cache" if cache else "fused"
+    if out["decode_path"] != want:
+        raise AssertionError(f"{name}: the Loader read its batches through "
+                             f"{out['decode_path']!r}, not {want!r}")
     return out
+
+
+def cache_after(card: str, builds: list):
+    """``after`` for ``trainer_coco_cache``, on the caches the run built:
+    the cache builds' images per second and ``cache_split`` of the train
+    loader; then ``check_ring`` on the cached (uint8) and on the fused
+    (float32) batches of a COCO tree of every decodable fixture (the run's
+    tree holds one image, so a batch written into the wrong slot would
+    show only in its targets)."""
+    def after(argv):
+        cfg = load_config(argv[0], {k: cli_run._coerce(v) for k, v in
+                                    zip(argv[2::3], argv[3::3])})
+        dm = build_datamodule(cfg)
+        S = cfg.effective_img_size
+        first = {}                      # each cache's first build call
+        for b in builds:
+            first.setdefault(b["cache"], b)
+        if sorted(first) != [f"{dm.name}_{role}_{S}px" for role in
+                             ("test", "train", "val")] or any(
+                                 b["was_valid"] for b in first.values()):
+            raise AssertionError(f"the run did not build its three "
+                                 f"caches: {builds}")
+        built = list(first.values())
+        split = cache_split(dm.train_dataloader())
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ring_",
+                                         dir=REPO / "build") as root:
+            n = RING_BATCHES * cfg.batch_size
+            fixture_trees.write_coco_tree(root, n_train=n, n_val=0, seed=5)
+            parser = COCOParser(root, "2017", "train")
+            cache_dir = cache_lib.build_packed_cache(
+                parser, S, os.path.join(root, "cache"))
+
+            def loader(cache_dir=None):
+                return pipeline.Loader(parser, S, cfg.batch_size,
+                                       cfg.max_boxes, shuffle=True,
+                                       seed=cfg.seed, cache_dir=cache_dir)
+            makers = {"cache": lambda: loader(cache_dir), "fused": loader}
+            rings = {name: check_ring(make) for name, make in makers.items()}
+            for name, make in makers.items():   # the check must catch it
+                try:
+                    check_ring(make, ring_cls=UnwaitedRing)
+                except AssertionError as e:
+                    rings[name]["planted_fault_caught"] = str(e)
+                else:
+                    raise AssertionError(f"check_ring passed a ring that "
+                                         f"does not wait ({name})")
+        emit({"phase": "cache_split", "card": card, "builds": built,
+              "build_img_per_s": sum(b["images"] for b in built)
+              / sum(b["seconds"] for b in built),
+              "split": split, "ring": rings})
+    return after
+
+
+def phase_trainer_coco_cache(card: str) -> dict:
+    """``trainer_coco`` with ``--set cache_dir``: the CLI builds the packed
+    caches (timed by a wrapper around ``build_packed_cache``), then trains,
+    validates and tests from uint8 gathers."""
+    builds = []
+    build = datamodules.cache_lib.build_packed_cache
+
+    def timed_build(parser, img_size, cache_dir, letterbox=False,
+                    log_every=0):
+        was_valid = cache_lib.cache_valid(cache_dir, len(parser), img_size,
+                                          letterbox)
+        t0 = time.perf_counter()
+        out = build(parser, img_size, cache_dir, letterbox, log_every)
+        builds.append({"cache": os.path.basename(cache_dir),
+                       "images": len(parser), "was_valid": was_valid,
+                       "seconds": time.perf_counter() - t0})
+        return out
+
+    datamodules.cache_lib.build_packed_cache = timed_build
+    try:
+        return phase_trainer_real(card, "trainer_coco_cache",
+                                  TRAINER_COCO_CACHE_SETS, COCO_TREE,
+                                  cache_after(card, builds), cache=True)
+    finally:
+        datamodules.cache_lib.build_packed_cache = build
 
 
 def profile_one(fn) -> tuple:
@@ -2335,6 +2592,9 @@ def main(argv=None) -> int:
                                  VOC_TREE, predict_after(card, predicted))
     fit_coco = phase_trainer_real(card, "trainer_coco", TRAINER_COCO_SETS,
                                   COCO_TREE)
+    fit_cache = phase_trainer_coco_cache(card)
+    fit_wider = phase_trainer_real(card, "trainer_widerperson",
+                                   TRAINER_WIDER_SETS, WIDER_TREE)
     yolo_err = phase_yolo_fp32(card)
     yolo_serve = phase_yolo_serving(card)
     yolo_train = phase_yolo_training(card)
@@ -2366,6 +2626,8 @@ def main(argv=None) -> int:
            for n, c in fit_anchor.items()},
         "launches_trainer_voc": fit_voc["launches"]["greedy_nms"],
         "launches_trainer_coco": fit_coco["launches"]["greedy_nms"],
+        "launches_trainer_coco_cache": fit_cache["launches"]["greedy_nms"],
+        "launches_trainer_widerperson": fit_wider["launches"]["greedy_nms"],
         "launches_predict_cli": predicted["launches"]["greedy_nms"],
         "keep_equal": True,
         "max_abs_err": err, "max_abs_box_err": err,
@@ -2397,6 +2659,9 @@ def main(argv=None) -> int:
            for n, c in fit_anchor.items()},
         "launches_trainer_voc": fit_voc["launches"]["affine_warp"],
         "launches_trainer_coco": fit_coco["launches"]["affine_warp"],
+        "launches_trainer_coco_cache": fit_cache["launches"]["affine_warp"],
+        "launches_trainer_widerperson":
+            fit_wider["launches"]["affine_warp"],
         "max_abs_err": warp_err,
         "ms": warp["ms"], "plain_ms": warp["plain_ms"],
         "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],

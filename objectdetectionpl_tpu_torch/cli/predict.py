@@ -12,9 +12,10 @@ on its own: decode (the port's JPEG decoder), resize to the model's
 img_size with the Loader's resize, ``predict_step`` (the NMS kernel once
 per image).  Prints one JSON line per image (boxes xyxy in pixels of the
 resized input, scores, class names) and, with ``--out-dir``, writes
-``<stem>_pred.png`` panels.  The JAX CLI resizes to uint8 with cv2 before
-/255; the port's resize gives the float image directly, within 1/255 of it
-(ROADMAP §C).  ``--export`` (the serving-graph export) is not ported yet
+``<stem>_pred.png`` panels, each image's line and panel before the next
+image is read, as the JAX CLI does.  The JAX CLI resizes to uint8 with cv2
+before /255; the port's resize gives the float image directly, within
+1/255 of it (ROADMAP §C).  ``--export`` (the serving-graph export) is not ported yet
 (ROADMAP A8 step 6b).
 """
 
@@ -24,7 +25,7 @@ import argparse
 import json
 import os
 import sys
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,11 +47,12 @@ def resize_input(img: np.ndarray, size: int) -> np.ndarray:
 
 
 def predict_images(trainer: Trainer, paths: Sequence[str],
-                   panels: List[np.ndarray] = None) -> List[Dict]:
+                   on_image: Optional[Callable] = None) -> List[Dict]:
     """One ``predict_step`` per image -> the JSON records of the JAX CLI:
     ``image``, ``boxes_xyxy`` (rounded to 2 decimals), ``scores`` (4) and
-    ``labels`` (class names).  With ``panels`` a list, each image's panel
-    (the input with its boxes drawn, uint8) is appended to it."""
+    ``labels`` (class names).  With ``on_image``, ``on_image(record,
+    panel)`` runs after each image, before the next is read; ``panel()``
+    draws the input with its boxes (uint8)."""
     trainer.model.eval()
     out = []
     for path in paths:
@@ -65,8 +67,9 @@ def predict_images(trainer: Trainer, paths: Sequence[str],
             "scores": scores[valid].round(4).tolist(),
             "labels": [trainer.classes[int(c)] for c in labels[valid]],
         })
-        if panels is not None:
-            panels.append(viz.draw_boxes(x[0], boxes, labels, valid=valid))
+        if on_image is not None:
+            on_image(out[-1], lambda: viz.draw_boxes(x[0], boxes, labels,
+                                                     valid=valid))
     return out
 
 
@@ -91,23 +94,23 @@ def main(argv=None) -> List[Dict]:
         raise NotImplementedError("--export (utils/export.py) is not ported "
                                   "yet (ROADMAP A8 step 6b)")
     cfg = load_config(args.config, {k: _coerce(v) for k, v in args.set})
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+
+    def on_image(record, panel):
+        print(json.dumps(record), flush=True)
+        if args.out_dir:
+            stem = os.path.splitext(os.path.basename(record["image"]))[0]
+            viz.write_png(os.path.join(args.out_dir, f"{stem}_pred.png"),
+                          panel())
+
     trainer = Trainer(cfg, device=args.device)
     try:
         trainer.maybe_restore()
-        panels = [] if args.out_dir else None
-        records = predict_images(trainer, args.images, panels)
+        return predict_images(trainer, args.images, on_image)
     finally:
         trainer.ckpt.close()
         trainer.writer.close()
-    for rec in records:
-        print(json.dumps(rec))
-    if args.out_dir:
-        os.makedirs(args.out_dir, exist_ok=True)
-        for path, panel in zip(args.images, panels):
-            stem = os.path.splitext(os.path.basename(path))[0]
-            viz.write_png(os.path.join(args.out_dir, f"{stem}_pred.png"),
-                          panel)
-    return records
 
 
 if __name__ == "__main__":

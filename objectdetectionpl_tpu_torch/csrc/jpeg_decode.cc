@@ -21,6 +21,8 @@
 //   jpeg_free(pixel_buffer).
 // A file that fails leaves pixels[i] null and sets codes[i] (JPEG_OK, ...)
 // and a message at msgs + i * msg_len.
+// C++ interface (jpeg_decode.h): jpegdec::decode_into, one file into
+// buffers the caller reuses; preproc.cc's fused decode and resize calls it.
 
 #include <algorithm>
 #include <atomic>
@@ -34,14 +36,11 @@
 #include <thread>
 #include <vector>
 
+#include "jpeg_decode.h"
+
 namespace {
 
-enum Code {
-  JPEG_OK = 0,
-  JPEG_IO = 1,           // the file cannot be read
-  JPEG_UNSUPPORTED = 2,  // a valid JPEG of a kind this decoder does not take
-  JPEG_CORRUPT = 3,      // not a JPEG, truncated or malformed
-};
+using namespace jpegdec;
 
 struct Error {
   int code;
@@ -846,38 +845,52 @@ void set_msg(char* msg, int msg_len, const std::string& s) {
   std::snprintf(msg, msg_len, "%s", s.c_str());
 }
 
-// Reads and decodes one file into a buffer of *h * *w * 3 bytes that it
-// allocates (*pixels, freed with jpeg_free); on an error *pixels is null.
-int decode_file(const char* path, uint8_t** pixels, int* w, int* h, char* msg,
-                int msg_len) {
-  *pixels = nullptr;
+// Reads and decodes one file, its bytes into *data, its pixels into the
+// buffer that alloc(bytes) returns (null: out of memory).  Returns a Code.
+template <typename Alloc>
+int decode_with(const char* path, std::vector<uint8_t>* data, int* w, int* h,
+                char* msg, int msg_len, Alloc alloc) {
   *w = *h = 0;
   set_msg(msg, msg_len, "");
-  std::vector<uint8_t> data;
-  if (!read_file(path, &data)) {
+  if (!read_file(path, data)) {
     set_msg(msg, msg_len, std::string("cannot read the file: ") +
                               std::strerror(errno));
     return JPEG_IO;
   }
-  uint8_t* rgb = nullptr;
   try {
-    Decoder d(data.data(), data.size());
+    Decoder d(data->data(), data->size());
     d.header(w, h);
-    rgb = static_cast<uint8_t*>(
-        std::malloc(static_cast<size_t>(*w) * *h * 3));
+    uint8_t* rgb = alloc(static_cast<size_t>(*w) * *h * 3);
     if (!rgb) throw std::bad_alloc();
     d.decode(rgb);
-    *pixels = rgb;
     return JPEG_OK;
   } catch (const Error& e) {
-    std::free(rgb);
     set_msg(msg, msg_len, e.msg);
     return e.code;
   } catch (const std::bad_alloc&) {
-    std::free(rgb);
     set_msg(msg, msg_len, "out of memory");
     return JPEG_CORRUPT;
   }
+}
+
+// One file into a buffer of *h * *w * 3 bytes that it allocates (*pixels,
+// freed with jpeg_free); on an error *pixels is null.
+int decode_file(const char* path, uint8_t** pixels, int* w, int* h, char* msg,
+                int msg_len) {
+  std::vector<uint8_t> data;
+  uint8_t* rgb = nullptr;
+  const int code = decode_with(path, &data, w, h, msg, msg_len,
+                               [&](size_t bytes) {
+                                 rgb = static_cast<uint8_t*>(
+                                     std::malloc(bytes));
+                                 return rgb;
+                               });
+  if (code != JPEG_OK) {
+    std::free(rgb);
+    rgb = nullptr;
+  }
+  *pixels = rgb;
+  return code;
 }
 
 }  // namespace
@@ -912,3 +925,12 @@ void jpeg_decode_batch(const char** paths, int n, int threads,
 void jpeg_free(uint8_t* pixels) { std::free(pixels); }
 
 }  // extern "C"
+
+int jpegdec::decode_into(const char* path, std::vector<uint8_t>* data,
+                         std::vector<uint8_t>* rgb, int* w, int* h, char* msg,
+                         int msg_len) {
+  return decode_with(path, data, w, h, msg, msg_len, [&](size_t bytes) {
+    rgb->resize(bytes);
+    return rgb->data();
+  });
+}

@@ -1,22 +1,30 @@
 """Host-side batching pipeline: parsed examples -> fixed-shape Batch.
 
 The port of ``objectdetectionpl_tpu/data/pipeline.py``.  The host decodes
-and resizes to the static img_size; normalization happens here (float32 in
-[0, 1]) and all augmentation runs on the device (``augment.py``).
+and resizes to the static img_size; all augmentation runs on the device
+(``augment.py``).  A batch comes one of three ways, which
+``Loader.decode_path`` names:
 
-Decode: the images of a parser with ``record(i) -> (path, boxes,
-labels)`` (VOC, COCO) are decoded by the port's JPEG decoder with one
-``native.decode_batch`` call per batch, on a pool of threads; a file it
-cannot read raises, naming the path.  Other parsers give their images
-themselves (Synthetic).
-``Loader.decode_path`` says which ("native" or "parser").
+- "cache": with ``cache_dir``, a gather of uint8 rows from the packed
+  cache (``data/cache.py``), with read-ahead of the next batches' pages;
+  the Trainer divides by 255 on the device.
+- "fused": a parser with ``record(i) -> (path, boxes, labels)`` (the real
+  datasets): one ``native.decode_preproc_batch`` call a batch, each worker
+  thread decoding a file and resizing it straight into its slot of the
+  float32 batch; a file the decoder cannot read raises, naming the path.
+- "parser": other parsers give their images themselves (Synthetic), which
+  one ``native.preproc_batch`` call resizes.
 
-Resize: the native library ``native/preproc.cc`` through the port's own
-binding (``data/native.py``), so batches equal the JAX package's bit for
-bit; where the library cannot be built, :func:`torch_resize`, the same
-resize by ``F.interpolate`` on the host (within float32 rounding of it).
-``Loader.resize_path`` says which one a loader uses.  The packed cache
-(``data/cache.py``) is not ported yet (ROADMAP A8 step 6b).
+The float32 resize is the port's host library (``data/native.py``), so
+batches equal the JAX package's bit for bit; where the library cannot be
+built, :func:`torch_resize`, the same resize by ``F.interpolate`` on the
+host (within float32 rounding of it).  ``Loader.resize_path`` says which.
+The uint8 resize that fills the cache is cv2's INTER_LINEAR, in the
+library and, as its plain version, :func:`resize_u8` in numpy.
+
+``Loader.batches(take)`` writes each batch's images into ``take(shape,
+dtype)``: the Trainer passes its pinned upload buffers, so no batch is
+allocated or copied on the host.
 
 drop_last=True like the reference dataloaders.
 """
@@ -25,15 +33,14 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from objectdetectionpl_tpu_torch.data import native
-from objectdetectionpl_tpu_torch.data.types import (Batch, Example,
-                                                    pad_targets,
+from objectdetectionpl_tpu_torch.data.types import (Batch, pad_targets,
                                                     topleft_to_center_norm)
 
 INV_255 = np.float32(1.0) / np.float32(255.0)
@@ -51,9 +58,10 @@ def torch_resize(img: np.ndarray, w: int, h: int) -> torch.Tensor:
     return out[0].permute(1, 2, 0) * float(INV_255)
 
 
-def _torch_preproc(images: Sequence[np.ndarray], S: int, letterbox: bool):
+def _torch_preproc(images: Sequence[np.ndarray], S: int, letterbox: bool,
+                   out: Optional[np.ndarray] = None):
     """``native.preproc_batch`` on torch: (batch, scales, pad_xs, pad_ys)."""
-    out = np.empty((len(images), S, S, 3), np.float32)
+    out = native.batch_out(out, len(images), S, False)
     dst = torch.from_numpy(out)
     scales = np.ones(len(images), np.float32)
     pads = np.zeros((2, len(images)), np.float32)
@@ -72,6 +80,70 @@ def _torch_preproc(images: Sequence[np.ndarray], S: int, letterbox: bool):
     return out, scales, pads[0], pads[1]
 
 
+COEF_SCALE = np.float32(2048)            # cv2's INTER_RESIZE_COEF_SCALE
+
+
+def _linear_taps(n_src: int, n_dst: int, clamp_weights: bool):
+    """One axis of cv2's INTER_LINEAR map on uint8: (i0, i1, a0, a1), the
+    two source indices of each output index and their 11-bit weights.
+    The weights are clamped at the edges of x only (``clamp_weights``);
+    in y only the indices are."""
+    scale = 1.0 / (n_dst / n_src)
+    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = f - s
+    s = s.astype(np.int64)
+    if clamp_weights:
+        edge = (s < 0) | (s >= n_src - 1)
+        f[edge] = 0.0
+        s = np.where(s < 0, 0, np.where(s >= n_src - 1, n_src - 1, s))
+    a0 = np.rint((np.float32(1) - f) * COEF_SCALE).astype(np.int64)
+    a1 = np.rint(f * COEF_SCALE).astype(np.int64)
+    return (np.clip(s, 0, n_src - 1), np.clip(s + 1, 0, n_src - 1), a0, a1)
+
+
+def resize_u8(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """uint8 [H, W, 3] -> uint8 [h, w, 3]: ``cv2.resize(img, (w, h),
+    interpolation=cv2.INTER_LINEAR)`` bit for bit, in numpy: the plain
+    version of ``csrc/preproc.cc::linear_rect_u8``."""
+    H, W = img.shape[:2]
+    x0, x1, a0, a1 = _linear_taps(W, w, True)
+    y0, y1, b0, b1 = _linear_taps(H, h, False)
+    src = img.astype(np.int64)
+    rows = (src[:, x0] * a0[:, None] + src[:, x1] * a1[:, None]) >> 4
+    out = (((b0[:, None, None] * rows[y0]) >> 16)
+           + ((b1[:, None, None] * rows[y1]) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def letterbox_u8(img: np.ndarray, S: int):
+    """The JAX package's ``_resize_letterbox`` with :func:`resize_u8`:
+    (canvas uint8 [S, S, 3], scale, pad_x, pad_y), the scale in float64
+    and the sizes rounded half to even, on gray 114."""
+    h, w = img.shape[:2]
+    scale = S / max(h, w)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    canvas = np.full((S, S, 3), 114, np.uint8)
+    py, px = (S - nh) // 2, (S - nw) // 2
+    canvas[py:py + nh, px:px + nw] = resize_u8(img, nw, nh)
+    return canvas, scale, px, py
+
+
+def numpy_preproc_u8(images: Sequence[np.ndarray], S: int, letterbox: bool,
+                     out: Optional[np.ndarray] = None):
+    """``native.preproc_batch(..., u8=True)`` in numpy: (batch uint8,
+    scales, pad_xs, pad_ys)."""
+    out = native.batch_out(out, len(images), S, True)
+    scales = np.ones(len(images), np.float32)
+    pads = np.zeros((2, len(images)), np.float32)
+    for i, img in enumerate(images):
+        if letterbox:
+            out[i], scales[i], pads[0, i], pads[1, i] = letterbox_u8(img, S)
+        else:
+            out[i] = resize_u8(img, S, S)
+    return out, scales, pads[0], pads[1]
+
+
 class Loader:
     """Iterates padded batches over a parser (or an index subset of one)."""
 
@@ -80,10 +152,8 @@ class Loader:
                  indices: Optional[Sequence[int]] = None,
                  drop_last: bool = True, limit_batches: Optional[int] = None,
                  letterbox: bool = False, num_shards: int = 1,
-                 shard_id: int = 0, cache_dir: Optional[str] = None):
-        if cache_dir:
-            raise NotImplementedError("the packed cache (data/cache.py) is "
-                                      "not ported yet (ROADMAP A8 step 6b)")
+                 shard_id: int = 0, cache_dir: Optional[str] = None,
+                 read_ahead_batches: int = 32):
         self.parser = parser
         self.img_size = img_size
         self.batch_size = batch_size
@@ -101,8 +171,25 @@ class Loader:
         # equal-length slice (the DistributedSampler analogue).
         self.num_shards = max(int(num_shards), 1)
         self.shard_id = int(shard_id)
+        # The packed cache (data/cache.py): epochs gather uint8 rows and
+        # read the next ``read_ahead_batches`` batches' pages ahead.  A
+        # cache_dir without a cache of this geometry is refused (the JAX
+        # Loader decodes instead).
+        self.cache = None
+        self.read_ahead_batches = max(int(read_ahead_batches), 0)
+        if cache_dir:
+            from objectdetectionpl_tpu_torch.data import cache as cache_lib
+            self.cache = cache_lib.maybe_open(cache_dir, len(parser),
+                                              img_size, letterbox)
+            if self.cache is None:
+                raise ValueError(
+                    f"{cache_dir} holds no packed cache of {len(parser)} "
+                    f"images at {img_size} px, letterbox {letterbox}: "
+                    f"build it with cache.build_packed_cache")
         self.resize_path = "native" if native.available() else "torch"
-        self.decode_path = "native" if hasattr(parser, "record") else "parser"
+        self.decode_path = ("cache" if self.cache is not None else
+                            "fused" if hasattr(parser, "record") else
+                            "parser")
 
     def _shard_len(self) -> int:
         return len(self.indices) // self.num_shards
@@ -116,6 +203,12 @@ class Loader:
         return min(n, self.limit_batches) if self.limit_batches else n
 
     def __iter__(self) -> Iterator[Batch]:
+        return self.batches()
+
+    def batches(self, take: Optional[Callable] = None) -> Iterator[Batch]:
+        """The next epoch's batches, each batch's images written into
+        ``take(shape, dtype)`` (default: a new array each batch)."""
+        take = take or np.empty
         order = self.indices.copy()
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self.epoch)
@@ -124,32 +217,55 @@ class Loader:
         if self.num_shards > 1:
             order = order[self.shard_id::self.num_shards][:self._shard_len()]
 
-        S = self.img_size
+        S, bs = self.img_size, self.batch_size
+        if self.cache is not None:
+            ra = self.read_ahead_batches
+            if ra:
+                self.cache.willneed(order[:ra * bs])
+            for b in range(len(self)):
+                idx = order[b * bs:(b + 1) * bs]
+                if ra:
+                    self.cache.willneed(order[(b + ra) * bs:
+                                              (b + ra + 1) * bs])
+                yield self.cache.batch(idx, self.max_boxes,
+                                       take((len(idx), S, S, 3), np.uint8))
+            return
+
         preproc = (native.preproc_batch if self.resize_path == "native"
                    else _torch_preproc)
         for b in range(len(self)):
-            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
-            examples = self._examples(idx)
-            imgs, scales, pad_xs, pad_ys = preproc(
-                [ex.image for ex in examples], S, self.letterbox)
-            boxes_l = []
-            for ex, s, px, py in zip(examples, scales, pad_xs, pad_ys):
-                h, w = ex.image.shape[:2]
-                if self.letterbox:
-                    boxes_l.append(_letterbox_boxes(ex.boxes, s, px, py, S))
-                else:
-                    boxes_l.append(topleft_to_center_norm(ex.boxes, w, h))
-            boxes, labels, mask = pad_targets(
-                boxes_l, [ex.labels for ex in examples], self.max_boxes)
+            idx = order[b * bs:(b + 1) * bs]
+            out = take((len(idx), S, S, 3), np.float32)
+            if self.decode_path == "fused":
+                recs = [self.parser.record(int(i)) for i in idx]
+                imgs, ws, hs, scales, pad_xs, pad_ys = \
+                    native.decode_preproc_batch([r[0] for r in recs], S,
+                                                self.letterbox, out)
+                boxes_px = [r[1] for r in recs]
+                labels_l = [r[2] for r in recs]
+            else:
+                examples = [self.parser[int(i)] for i in idx]
+                imgs, scales, pad_xs, pad_ys = preproc(
+                    [ex.image for ex in examples], S, self.letterbox, out)
+                hs = [ex.image.shape[0] for ex in examples]
+                ws = [ex.image.shape[1] for ex in examples]
+                boxes_px = [ex.boxes for ex in examples]
+                labels_l = [ex.labels for ex in examples]
+            boxes_l = [box_targets(bx, w, h, s, px, py, S, self.letterbox)
+                       for bx, w, h, s, px, py in zip(boxes_px, ws, hs,
+                                                      scales, pad_xs, pad_ys)]
+            boxes, labels, mask = pad_targets(boxes_l, labels_l,
+                                              self.max_boxes)
             yield Batch(imgs, labels, boxes, mask)
 
-    def _examples(self, idx) -> List[Example]:
-        if self.decode_path == "native":
-            recs = [self.parser.record(int(i)) for i in idx]
-            images = native.decode_batch([r[0] for r in recs])
-            return [Example(im, bx, lb)
-                    for im, (_, bx, lb) in zip(images, recs)]
-        return [self.parser[int(i)] for i in idx]
+
+def box_targets(boxes_px: np.ndarray, w: int, h: int, s: float, px: float,
+                py: float, S: int, letterbox: bool) -> np.ndarray:
+    """Top-left pixel xywh of a w x h image -> normalized center xywh of
+    its resized (or letterboxed: scale ``s``, pads ``px``, ``py``) image."""
+    if letterbox:
+        return _letterbox_boxes(boxes_px, float(s), float(px), float(py), S)
+    return topleft_to_center_norm(boxes_px, int(w), int(h))
 
 
 def _letterbox_boxes(boxes_px: np.ndarray, s: float, px: float, py: float,

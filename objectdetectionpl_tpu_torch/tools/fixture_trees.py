@@ -1,20 +1,24 @@
-"""VOC and COCO dataset trees made of the committed fixture JPEGs.
+"""Dataset trees made of the committed fixture JPEGs, one layout per parser.
 
 ``data/testdata/`` holds a few small baseline JPEGs (and one progressive
 file, which the decoder must refuse) with the SHA-256 of their libjpeg
 decodes (``decoded_sha256.json``).  The functions here lay those files out
-as the VOC and COCO parsers expect, cycling over ``names`` (by default
-every decodable fixture, from 37x53 to 640x480; hard links where the file
-system allows, else copies), with annotations of 1-5 boxes per image drawn
-from a seed:
+as each parser expects, cycling over ``names`` (by default every decodable
+fixture, from 37x53 to 640x480; hard links where the file system allows,
+else copies), with annotations of 1-5 boxes per image drawn from a seed:
 
     write_voc_tree(root, n_train=200, n_val=64, seed=0, names=None)
     write_coco_tree(root, n_train=200, n_val=64, seed=0, names=None)
+    write_bdd100k_tree(root, n_train=200, n_val=64, seed=0, names=None)
+    write_widerperson_tree(root, n_train=200, n_val=64, seed=0, names=None)
+    write_container_tree(root, n=200, seed=0, names=None)
+    write_asiatraffic_tree(root, n=200, seed=0, names=None)
 
-The tests parse the mixed trees with both packages.  ``chip_smoke.py``
-times its fits on trees of one fixture each at the dataset's typical image
-size: ``voc_420_q75_500x375.jpg`` (VOC2012's ~500x375) and
-``coco_420_q75_640x480.jpg`` (COCO 2017's ~640x480).
+Each returns root.  The tests parse the mixed trees with both packages.
+``chip_smoke.py`` times its fits on trees of one fixture each at the
+dataset's typical image size: ``voc_420_q75_500x375.jpg`` (VOC2012's
+~500x375) and ``coco_420_q75_640x480.jpg`` (COCO 2017's ~640x480, and
+its WiderPerson fit).
 """
 
 from __future__ import annotations
@@ -27,9 +31,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from objectdetectionpl_tpu_torch.data.parsers.asiatraffic import \
+    ASIA_CLASSES
+from objectdetectionpl_tpu_torch.data.parsers.bdd100k import BDD_CLASSES
 from objectdetectionpl_tpu_torch.data.parsers.coco import (COCO_CLASS_IDS,
                                                            COCO_CLASSES)
+from objectdetectionpl_tpu_torch.data.parsers.container import \
+    CONTAINER_CLASSES
 from objectdetectionpl_tpu_torch.data.parsers.pascal import VOC_CLASSES
+from objectdetectionpl_tpu_torch.data.parsers.widerperson import \
+    WIDERPERSON_CLASSES
 
 TESTDATA = Path(__file__).resolve().parents[1] / "data" / "testdata"
 HASHES = TESTDATA / "decoded_sha256.json"
@@ -74,6 +85,18 @@ def _names(names: Optional[Sequence[str]]) -> List[str]:
     return names
 
 
+def _voc_xml(path: Path, stem: str, classes: Sequence[str], rng, w: int,
+             h: int) -> None:
+    """A VOC-style annotation of 1-5 boxes of ``classes``."""
+    rows = "".join(
+        f"<object><name>{classes[rng.randint(len(classes))]}</name>"
+        f"<bndbox><xmin>{x0}</xmin><ymin>{y0}</ymin><xmax>{x1}</xmax>"
+        f"<ymax>{y1}</ymax></bndbox></object>"
+        for x0, y0, x1, y1 in _boxes(rng, w, h))
+    path.write_text(f"<annotation><filename>{stem}.jpg</filename>{rows}"
+                    f"</annotation>")
+
+
 def write_voc_tree(root, n_train: int = 200, n_val: int = 64,
                    seed: int = 0,
                    names: Optional[Sequence[str]] = None) -> str:
@@ -90,13 +113,8 @@ def write_voc_tree(root, n_train: int = 200, n_val: int = 64,
         name = names[i % len(names)]
         h, w = shapes[name]["shape"][:2]
         _place(TESTDATA / name, base / "JPEGImages" / f"{_id}.jpg")
-        rows = "".join(
-            f"<object><name>{VOC_CLASSES[rng.randint(20)]}</name>"
-            f"<bndbox><xmin>{x0}</xmin><ymin>{y0}</ymin><xmax>{x1}</xmax>"
-            f"<ymax>{y1}</ymax></bndbox></object>"
-            for x0, y0, x1, y1 in _boxes(rng, w, h))
-        (base / "Annotations" / f"{_id}.xml").write_text(
-            f"<annotation><filename>{_id}.jpg</filename>{rows}</annotation>")
+        _voc_xml(base / "Annotations" / f"{_id}.xml", _id, VOC_CLASSES, rng,
+                 w, h)
     (base / "ImageSets/Main/train.txt").write_text(
         "\n".join(ids[:n_train]) + "\n")
     (base / "ImageSets/Main/val.txt").write_text(
@@ -142,4 +160,113 @@ def write_coco_tree(root, n_train: int = 200, n_val: int = 64,
             {"images": images, "annotations": anns,
              "categories": [{"id": c, "name": n} for c, n in
                             zip(COCO_CLASS_IDS, COCO_CLASSES)]}))
+    return str(root)
+
+
+# BDD100K's raw categories: its classes and the ones the parser remaps or
+# drops
+BDD_CATEGORIES = BDD_CLASSES + ["pedestrian", "other person", "bicycle",
+                                "motorcycle", "trailer", "other vehicle"]
+
+
+def write_bdd100k_tree(root, n_train: int = 200, n_val: int = 64,
+                       seed: int = 0,
+                       names: Optional[Sequence[str]] = None,
+                       videos: int = 3) -> str:
+    """``<root>/images/track/{train,val}/<video>/<frame>.jpg`` and
+    ``<root>/labels/box_track_20/{train,val}/<video>.json`` (Scalabel
+    frames), ``n_train`` and ``n_val`` frames spread over ``videos``
+    videos a split, the raw categories drawn from ``BDD_CATEGORIES``
+    (every tenth frame's boxes all 'other vehicle', which the parser
+    drops with the frame).  Returns root."""
+    rng = np.random.RandomState(seed)
+    names, shapes = _names(names), fixtures()
+    for split, n, first in (("train", n_train, 0), ("val", n_val, n_train)):
+        img_base = Path(root) / "images" / "track" / split
+        lbl_dir = Path(root) / "labels" / "box_track_20" / split
+        lbl_dir.mkdir(parents=True, exist_ok=True)
+        frames: Dict[str, list] = {}
+        for k in range(n):
+            i = first + k
+            video = f"v{k % videos:03d}"
+            name = names[i % len(names)]
+            h, w = shapes[name]["shape"][:2]
+            (img_base / video).mkdir(parents=True, exist_ok=True)
+            frame = f"{video}-{i:07d}.jpg"
+            _place(TESTDATA / name, img_base / video / frame)
+            labels = [{"category": ("other vehicle" if i % 10 == 9 else
+                                    BDD_CATEGORIES[rng.randint(
+                                        len(BDD_CATEGORIES))]),
+                       "box2d": {"x1": float(x0 - 1), "y1": float(y0 - 1),
+                                 "x2": float(x1), "y2": float(y1)}}
+                      for x0, y0, x1, y1 in _boxes(rng, w, h)]
+            frames.setdefault(video, []).append({"name": frame,
+                                                 "labels": labels})
+        for video, items in frames.items():
+            (lbl_dir / f"{video}.json").write_text(json.dumps(items))
+    return str(root)
+
+
+def write_widerperson_tree(root, n_train: int = 200, n_val: int = 64,
+                           seed: int = 0,
+                           names: Optional[Sequence[str]] = None) -> str:
+    """``<root>/Images/<id>.jpg``, ``<root>/Annotations/<id>.jpg.txt`` (a
+    count line, then ``label x1 y1 x2 y2`` rows, labels 1-5) and
+    ``<root>/{train,val}.txt``.  Returns root."""
+    rng = np.random.RandomState(seed)
+    base = Path(root)
+    for d in ("Images", "Annotations"):
+        (base / d).mkdir(parents=True, exist_ok=True)
+    names, shapes = _names(names), fixtures()
+    ids = [f"{i:06d}" for i in range(n_train + n_val)]
+    for i, _id in enumerate(ids):
+        name = names[i % len(names)]
+        h, w = shapes[name]["shape"][:2]
+        _place(TESTDATA / name, base / "Images" / f"{_id}.jpg")
+        rows = [f"{rng.randint(len(WIDERPERSON_CLASSES)) + 1} {x0 - 1} "
+                f"{y0 - 1} {x1} {y1}" for x0, y0, x1, y1 in _boxes(rng, w, h)]
+        (base / "Annotations" / f"{_id}.jpg.txt").write_text(
+            "\n".join([str(len(rows))] + rows) + "\n")
+    (base / "train.txt").write_text("\n".join(ids[:n_train]) + "\n")
+    (base / "val.txt").write_text("\n".join(ids[n_train:]) + "\n")
+    return str(root)
+
+
+def write_container_tree(root, n: int = 200, seed: int = 0,
+                         names: Optional[Sequence[str]] = None) -> str:
+    """``<root>/train_cdc/train_images/<stem>.jpg`` and
+    ``<root>/train_cdc/train_annotations/<stem>.xml`` (VOC-style, the
+    Mosquito-Container classes).  Returns root."""
+    rng = np.random.RandomState(seed)
+    img_dir = Path(root) / "train_cdc" / "train_images"
+    ann_dir = Path(root) / "train_cdc" / "train_annotations"
+    for d in (img_dir, ann_dir):
+        d.mkdir(parents=True, exist_ok=True)
+    names, shapes = _names(names), fixtures()
+    for i in range(n):
+        name, stem = names[i % len(names)], f"c{i:05d}"
+        h, w = shapes[name]["shape"][:2]
+        _place(TESTDATA / name, img_dir / f"{stem}.jpg")
+        _voc_xml(ann_dir / f"{stem}.xml", stem, CONTAINER_CLASSES, rng, w, h)
+    return str(root)
+
+
+def write_asiatraffic_tree(root, n: int = 200, seed: int = 0,
+                           names: Optional[Sequence[str]] = None) -> str:
+    """``<root>/{JPEGImages, Annotations}`` and
+    ``<root>/ImageSets/All.txt`` (VOC-style, the Asia-Traffic classes).
+    Returns root."""
+    rng = np.random.RandomState(seed)
+    base = Path(root)
+    for d in ("JPEGImages", "Annotations", "ImageSets"):
+        (base / d).mkdir(parents=True, exist_ok=True)
+    names, shapes = _names(names), fixtures()
+    ids = [f"t{i:05d}" for i in range(n)]
+    for i, _id in enumerate(ids):
+        name = names[i % len(names)]
+        h, w = shapes[name]["shape"][:2]
+        _place(TESTDATA / name, base / "JPEGImages" / f"{_id}.jpg")
+        _voc_xml(base / "Annotations" / f"{_id}.xml", _id, ASIA_CLASSES, rng,
+                 w, h)
+    (base / "ImageSets" / "All.txt").write_text("\n".join(ids) + "\n")
     return str(root)

@@ -2,10 +2,13 @@
 
 The port of ``objectdetectionpl_tpu/train/loop.py``, method for method:
 
-- fit: epochs over the train loader, each batch moved to the device (pinned
-  host memory, asynchronous copy) and augmented there (``augment_batch``,
-  one warp-kernel launch per microbatch), in a background thread when
-  ``prefetch_batches > 0``; gradient accumulation over ``[A, mB, ...]``
+- fit: epochs over the train loader, each batch moved to the device and
+  augmented there (``augment_batch``, one warp-kernel launch per
+  microbatch), in a background thread when ``prefetch_batches > 0``.  On
+  CUDA the Loader writes each batch's images straight into a ring of
+  pinned host buffers (:class:`PinnedRing`), from which it is copied
+  asynchronously; uint8 batches (the packed cache) become float32 / 255
+  on the device, as in JAX.  Gradient accumulation over ``[A, mB, ...]``
   stacks with a zero-weight flush of a partial window; per-step loss
   scalars, per-epoch means, throughput, parameter histograms and device
   memory; the learning rate stepped per epoch on val_loss; top-k
@@ -39,6 +42,7 @@ from objectdetectionpl_tpu_torch.config import Config
 from objectdetectionpl_tpu_torch.data import build_datamodule
 from objectdetectionpl_tpu_torch.data.augment import augment_batch
 from objectdetectionpl_tpu_torch.data.pipeline import prefetch
+from objectdetectionpl_tpu_torch.data.types import Batch
 from objectdetectionpl_tpu_torch.device import DeviceLike, resolve_device
 from objectdetectionpl_tpu_torch.models import build_model
 from objectdetectionpl_tpu_torch.ops import boxes as box_ops
@@ -83,6 +87,70 @@ def _to_host(tensors):
             for t in out]
 
 
+class PinnedRing:
+    """Pinned host buffers for the uploads to the card, allocated once and
+    reused round robin, one slot a batch.
+
+    The Loader writes a batch's images into :meth:`take` (the next slot's
+    buffer); :meth:`upload` copies the batch's other arrays into that
+    slot's buffers, starts the asynchronous copies to the card and records
+    a CUDA event after them.  ``take`` hands a slot out again only once its
+    event has completed: a buffer is never rewritten while a copy may
+    still read it.  With ``prefetch`` batches queued on the card side, the
+    ring needs ``prefetch + 2`` slots so that the Loader seldom waits."""
+
+    def __init__(self, slots: int, device: torch.device):
+        self.device = device
+        self.buffers: List[Dict[str, torch.Tensor]] = [
+            {} for _ in range(slots)]
+        self.events: List[Optional[torch.cuda.Event]] = [None] * slots
+        self.next = 0
+
+    def _view(self, k: int, name: str, shape, dtype) -> np.ndarray:
+        """Slot ``k``'s buffer ``name`` as a numpy array; it grows to fit."""
+        dtype = np.dtype(dtype)
+        nbytes = math.prod(shape) * dtype.itemsize
+        buf = self.buffers[k].get(name)
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                              pin_memory=True)
+            self.buffers[k][name] = buf
+        return buf[:nbytes].numpy().view(dtype).reshape(shape)
+
+    def take(self, shape, dtype) -> np.ndarray:
+        """The next slot's image buffer, once no copy reads it."""
+        k = self.next
+        self.next = (k + 1) % len(self.buffers)
+        if self.events[k] is not None:
+            self.events[k].synchronize()
+            self.events[k] = None
+        return self._view(k, "images", shape, dtype)
+
+    def _slot_of(self, a: np.ndarray) -> Optional[int]:
+        for k, bufs in enumerate(self.buffers):
+            if "images" in bufs and bufs["images"].data_ptr() == \
+                    a.ctypes.data:
+                return k
+        return None
+
+    def upload(self, batch: Batch) -> List[torch.Tensor]:
+        """The batch's arrays on the card, copied from the slot its images
+        were written into by :meth:`take`."""
+        k = self._slot_of(batch.images)
+        if k is None:
+            raise ValueError("PinnedRing.upload takes a batch whose images "
+                             "were written into PinnedRing.take()")
+        host = [batch.images]
+        for name, a in zip(Batch._fields[1:], batch[1:]):
+            host.append(self._view(k, name, a.shape, a.dtype))
+            np.copyto(host[-1], a)
+        out = [torch.from_numpy(a).to(self.device, non_blocking=True)
+               for a in host]
+        self.events[k] = torch.cuda.Event()
+        self.events[k].record()
+        return out
+
+
 class Trainer:
     def __init__(self, cfg: Config, device: DeviceLike = None):
         self.cfg = cfg
@@ -92,6 +160,11 @@ class Trainer:
         self.classes = self.dm.get_class()
         self.num_classes = len(self.classes)
         self.img_size = cfg.effective_img_size
+        # the Loaders write into these buffers on CUDA; numpy arrays of
+        # their own on the CPU
+        self.ring = (PinnedRing(max(cfg.prefetch_batches, 0) + 2, self.device)
+                     if self.device.type == "cuda" else None)
+        self.take = self.ring.take if self.ring is not None else None
 
         dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                  else torch.float32)
@@ -147,14 +220,15 @@ class Trainer:
             print(f"[trainer] restored best checkpoint "
                   f"(step {self.ckpt.best_step()})")
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
-    def _device_batch(self, batch, augment: bool):
-        images, labels, boxes, mask = (self._to_device(a) for a in batch)
+    def _device_batch(self, batch: Batch, augment: bool):
+        if self.ring is not None:
+            images, labels, boxes, mask = self.ring.upload(batch)
+        else:
+            images, labels, boxes, mask = (torch.from_numpy(a).to(self.device)
+                                           for a in batch)
+        if images.dtype == torch.uint8:
+            # packed-cache batches come as uint8; normalized here
+            images = images.to(torch.float32) / 255.0
         if augment:
             images, boxes, mask = augment_batch(images, boxes, mask,
                                                 generator=self.aug_gen)
@@ -187,7 +261,7 @@ class Trainer:
             # augmentation's launches run in a background thread,
             # overlapping the device's work on earlier steps
             batches = (self._device_batch(b, augment=True)
-                       for b in self.dm.train_dataloader())
+                       for b in self.dm.train_dataloader().batches(self.take))
             if cfg.prefetch_batches > 0:
                 batches = prefetch(batches, cfg.prefetch_batches)
             with contextlib.closing(batches):   # ends the thread on error
@@ -290,7 +364,7 @@ class Trainer:
     def validate(self, epoch: int) -> Optional[float]:
         # per-batch metrics stay on the device; one pull at the end
         losses: List[Dict] = []
-        for batch in self.dm.val_dataloader():
+        for batch in self.dm.val_dataloader().batches(self.take):
             args = self._device_batch(batch, augment=False)
             losses.append(self.eval_step(self.state, *args))
         if not losses:
@@ -332,7 +406,7 @@ class Trainer:
         panels = 0
         yolo_stat_fn = self._yolo_stat_fn()
         grid_stats: List[Dict[str, float]] = []
-        for batch in self.dm.test_dataloader():
+        for batch in self.dm.test_dataloader().batches(self.take):
             images, labels, boxes, mask = self._device_batch(batch, False)
             res = self.predict_step(self.state, images)
             ys = ({} if yolo_stat_fn is None else

@@ -1,10 +1,10 @@
 """The port's data layer (``objectdetectionpl_tpu_torch.data``) against the JAX package.
 
 Synthetic examples, the padding helpers, the Loader's batches and the
-train/val split must equal JAX's bit for bit: both Loaders resize through
-``native/preproc.cc`` (the port builds its own copy of the library under
-``build/native/``), so images, boxes, labels and masks are compared with
-``assert_array_equal``.  The port's torch resize, taken where the library
+train/val split must equal JAX's bit for bit: the port's Loader resizes
+through its own copy of the JAX library's resize (``csrc/preproc.cc``,
+built under ``build/native/``), so images, boxes, labels and masks are
+compared with ``assert_array_equal``.  The port's torch resize, taken where the library
 cannot be built, is held against the library within 1e-6 (the same
 resize, ``F.interpolate``'s float32 arithmetic against the library's),
 at 64 px and upscaled to 640.
@@ -119,8 +119,10 @@ def test_native_library_builds_under_build(jax_library):
     lib = native.library_path()
     assert lib.parent == Path(REPO, "build", "native") and lib.exists()
     assert lib.name.startswith("libpreproc-") and native.build_error is None
-    # the resize part alone: no libjpeg to link
-    src = native.resize_source()
+    # the port's own sources, nothing of native/: no libjpeg to link
+    assert all(f.parent == Path(REPO, "objectdetectionpl_tpu_torch", "csrc")
+               for f in native.SOURCES + native.HEADERS)
+    src = b"".join(f.read_bytes() for f in native.SOURCES)
     assert b"preproc_batch" in src and b"jpeglib" not in src
 
 
@@ -303,19 +305,34 @@ def test_synthetic_module_matches_jax(jax_library):
 @pytest.mark.parametrize("name", ["VOC", "COCO", "BDD100K", "WiderPerson",
                                   "MosquitoContainer", "AsiaTraffic"])
 def test_real_datamodules_raise(name, tmp_path):
-    """VOC and COCO are ported: without their tree they raise naming the
-    missing file; the other four are not, and raise naming A8 step 6b."""
+    """All six are ported.  Without their tree VOC, COCO, WiderPerson and
+    AsiaTraffic raise naming the missing file; BDD100K and
+    MosquitoContainer glob for their files and, as JAX's, hold none."""
     cfg = Config(data_module=name, data_root=str(tmp_path / "none"))
-    if name in ("VOC", "COCO"):
-        with pytest.raises(FileNotFoundError, match=str(tmp_path / "none")):
-            datamodules.build_datamodule(cfg)
+    if name in ("BDD100K", "MosquitoContainer"):
+        port = datamodules.build_datamodule(cfg)
+        ref = jax_dm.build_datamodule(JaxConfig(data_module=name,
+                                                data_root=cfg.data_root))
+        assert len(port.train_parser) == len(ref.train_parser) == 0
+        assert port.get_class() == ref.get_class()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A8 step 6b"):
+    with pytest.raises(FileNotFoundError, match=str(tmp_path / "none")):
         datamodules.build_datamodule(cfg)
 
 
-def test_cache_dir_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8 step 6b"):
-        pipeline.Loader(synthetic.SyntheticParser(2), 32, 2, cache_dir="c")
+def test_cache_dir_raises(tmp_path):
+    """A cache_dir without a cache of the Loader's geometry is refused:
+    here a cache built at 64 px, asked for at 32 px or with letterbox
+    (the JAX Loader decodes live instead; ROADMAP §C)."""
+    from objectdetectionpl_tpu_torch.data import cache
+    parser = synthetic.SyntheticParser(4, img_hw=64)
+    d = str(tmp_path / "c")
+    cache.build_packed_cache(parser, 64, d)
+    assert pipeline.Loader(parser, 64, 2, cache_dir=d).decode_path == "cache"
+    for kw in (dict(img_size=32), dict(img_size=64, letterbox=True)):
+        with pytest.raises(ValueError, match="no packed cache of 4 images"):
+            pipeline.Loader(parser, batch_size=2, cache_dir=d, **kw)
+    with pytest.raises(ValueError, match="no packed cache"):
+        pipeline.Loader(parser, 64, 2, cache_dir=str(tmp_path / "none"))
     with pytest.raises(ValueError, match="unknown data_module"):
         datamodules.build_datamodule(Config(data_module="Nope"))

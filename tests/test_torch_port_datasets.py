@@ -12,9 +12,10 @@ committed fixture JPEGs (``tools/fixture_trees.py``).
   when both sides are at least twice the target; the largest fixture is
   640x480).  JAX takes that path only with its native library loaded
   (fixture ``jax_library``).
-- Without the decoder a real dataset raises with ``jpeg_build_error``.
+- Without the decoder a real dataset raises with ``build_error``.
 - One ``cli.run --device cpu`` epoch on a VOC tree at the YAML's
-  ``yaml_test`` caps.
+  ``yaml_test`` caps, and one on a COCO tree with ``--set cache_dir``,
+  which builds the packed caches and trains from them.
 """
 
 import json
@@ -143,17 +144,17 @@ def test_loader_batches_equal_jax(voc_root, coco_root, jax_library,
     assert jax_native.available()
     for split in ("train", "val", "test"):
         pl, rl = (getattr(m, f"{split}_dataloader")() for m in (port, ref))
-        assert pl.decode_path == "native" and pl.resize_path == "native"
+        assert pl.decode_path == "fused" and pl.resize_path == "native"
         assert len(pl) == len(rl) > 0
         _assert_same_batches(_batches(pl, epochs=2), _batches(rl, epochs=2))
 
 
 def test_loader_decodes_a_batch_in_one_call(voc_root, monkeypatch):
     calls = []
-    decode_batch = native.decode_batch
-    monkeypatch.setattr(native, "decode_batch",
-                        lambda paths: calls.append(paths) or
-                        decode_batch(paths))
+    decode_preproc_batch = native.decode_preproc_batch
+    monkeypatch.setattr(native, "decode_preproc_batch",
+                        lambda paths, *a: calls.append(paths) or
+                        decode_preproc_batch(paths, *a))
     dm = datamodules.build_datamodule(Config(
         data_module="VOC", data_root=voc_root, batch_size=4, img_size=64))
     loader = dm.train_dataloader()
@@ -208,9 +209,9 @@ def test_loader_raises_naming_a_file_it_cannot_decode(coco_root, tmp_path):
 @pytest.mark.parametrize("data_module", ["VOC", "COCO"])
 def test_real_dataset_needs_the_decoder(voc_root, coco_root, monkeypatch,
                                         data_module):
-    monkeypatch.setattr(native, "_jpeg_lib", None)
-    monkeypatch.setattr(native, "_jpeg_load_failed", True)
-    monkeypatch.setattr(native, "jpeg_build_error", "OSError: no g++")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_failed", True)
+    monkeypatch.setattr(native, "build_error", "OSError: no g++")
     root = voc_root if data_module == "VOC" else coco_root
     with pytest.raises(RuntimeError, match="could not be built: OSError: "
                                            "no g\\+\\+"):
@@ -237,4 +238,29 @@ def test_cli_run_voc_epoch(voc_root, tmp_path):
     run_dir = tmp_path / "VOC" / "YOLOv5"
     assert (run_dir / "checkpoints" / "0" / "state.pt").exists()
     rows = (run_dir / "metrics.jsonl").read_text()
+    assert "Loss/loss/Train" in rows and "val_loss" in rows
+
+
+def test_cli_run_coco_epoch_from_the_cache(coco_root, tmp_path, capsys):
+    """``cli.run --set cache_dir``: the CLI builds one packed cache per
+    parser (train, val, and the test stage's own val parser), valid for
+    the run's geometry, then fits, validates and tests YOLOv5s from uint8
+    batches: a finite mAP table over COCO's classes."""
+    from objectdetectionpl_tpu_torch.data import cache
+    cache_dir = tmp_path / "cache"
+    results = cli_run.main([YAML, "--device", "cpu",
+                            "--set", "data_module", "COCO",
+                            "--set", "data_root", coco_root,
+                            "--set", "model_name", "YOLOv5",
+                            "--set", "cache_dir", str(cache_dir),
+                            "--set", "max_epochs", "1",
+                            "--set", "log_dir", str(tmp_path / "logs")])
+    for k in ("mAP", "precision", "recall", "f1"):
+        assert np.isfinite(results[k]) and 0.0 <= results[k] <= 1.0
+    names = sorted(os.listdir(cache_dir))
+    assert names == ["COCO_test_128px", "COCO_train_128px", "COCO_val_128px"]
+    for name, n in zip(names, (6, 12, 6)):
+        assert cache.cache_valid(str(cache_dir / name), n, 128, False)
+    rows = (tmp_path / "logs" / "COCO" / "YOLOv5" /
+            "metrics.jsonl").read_text()
     assert "Loss/loss/Train" in rows and "val_loss" in rows

@@ -54,6 +54,11 @@ def test_port_and_chip_smoke_import_no_jax():
             "objectdetectionpl_tpu_torch.data.parsers.common",
             "objectdetectionpl_tpu_torch.data.parsers.pascal",
             "objectdetectionpl_tpu_torch.data.parsers.coco",
+            "objectdetectionpl_tpu_torch.data.parsers.bdd100k",
+            "objectdetectionpl_tpu_torch.data.parsers.widerperson",
+            "objectdetectionpl_tpu_torch.data.parsers.container",
+            "objectdetectionpl_tpu_torch.data.parsers.asiatraffic",
+            "objectdetectionpl_tpu_torch.data.cache",
             "objectdetectionpl_tpu_torch.cli.predict",
             "objectdetectionpl_tpu_torch.tools.fixture_trees"} <= set(
                 res["modules"])

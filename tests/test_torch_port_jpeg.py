@@ -291,6 +291,9 @@ def test_unsupported_and_broken_files_raise(tmp_path, kind, reason):
         native.decode_one(path)
     with pytest.raises(native.JpegError, match=pattern):
         native.decode_batch([str(TESTDATA / DECODABLE[0]), path])
+    with pytest.raises(native.JpegError, match=pattern):
+        native.decode_preproc_batch([str(TESTDATA / DECODABLE[0]), path],
+                                    64, False)
 
 
 def test_decode_batch_equals_decode_one(tmp_path):
@@ -304,6 +307,6 @@ def test_decode_batch_equals_decode_one(tmp_path):
 
 
 def test_decoder_builds_under_build():
-    assert native.jpeg_available() and native.jpeg_build_error is None
-    lib = native.jpeg_library_path()
+    assert native.available() and native.build_error is None
+    lib = native.library_path()
     assert lib.parent == native.BUILD_DIR and lib.exists()

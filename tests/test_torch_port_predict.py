@@ -19,12 +19,15 @@
   the same rows.
 - ``main`` end to end on a port checkpoint: one JSON line per image equal
   to ``predict_images`` on the restored state, one PNG panel per image.
+- ``main`` streams: on [good, progressive, good] the first image's line
+  is printed and its PNG written before the second raises ``JpegError``.
 - ``write_png`` read back by PIL, equal.
 - ``--export`` raises naming ROADMAP A8 step 6b.
 """
 
 import json
 import os
+import re
 import struct
 import zlib
 
@@ -40,6 +43,7 @@ from objectdetectionpl_tpu.data.parsers.common import load_image_rgb
 from objectdetectionpl_tpu.train import loop as jax_loop
 from objectdetectionpl_tpu_torch.cli import predict
 from objectdetectionpl_tpu_torch.config import Config
+from objectdetectionpl_tpu_torch.data import native
 from objectdetectionpl_tpu_torch.tools import fixture_trees
 from objectdetectionpl_tpu_torch.train import loop
 from objectdetectionpl_tpu_torch.utils import viz
@@ -173,6 +177,28 @@ def test_main_end_to_end(tmp_path, capsys):
         png = out_dir / f"{stem}_pred.png"
         assert _png_size(png) == (IMG, IMG)
         assert np.asarray(Image.open(png)).shape == (IMG, IMG, 3)
+
+
+def test_main_prints_and_writes_each_image_before_the_next(tmp_path,
+                                                           capsys):
+    """On [good, progressive, good] the first image's JSON line is printed
+    and its PNG written before the progressive file raises, as the JAX
+    CLI streams image by image."""
+    good, other = PATHS[0], PATHS[1]
+    bad = str(fixture_trees.TESTDATA / fixture_trees.UNSUPPORTED[0])
+    out_dir = tmp_path / "preds"
+    with pytest.raises(native.JpegError, match=f"^{re.escape(bad)}: "):
+        predict.main([YAML, "--set", "model_name", "YOLOv5",
+                      "--set", "img_size", str(IMG),
+                      "--set", "log_dir", str(tmp_path / "logs"),
+                      "--device", "cpu", "--images", good, bad, other,
+                      "--out-dir", str(out_dir)])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert [rec["image"] for rec in lines] == [good]
+    stem = os.path.splitext(os.path.basename(good))[0]
+    assert os.listdir(out_dir) == [f"{stem}_pred.png"]
+    assert _png_size(out_dir / f"{stem}_pred.png") == (IMG, IMG)
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (5, 7), (64, 48)])
