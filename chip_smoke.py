@@ -67,6 +67,21 @@ exits non-zero:
    launch the warp kernel once.  Then ``accum_steps=2`` at B=8 with
    weights [1, 0] must leave the BN statistics equal to a step on the
    first microbatch alone.
+9a. optim_check -- SGD (momentum 0.9), RMSprop (alpha 0.95, momentum 0.9)
+   and Adagrad (``lr_decay`` 0 and 1e-2), each with weight decay 1e-5 and
+   lr 1e-2, 5 steps of seeded gradients over the YOLOv5s-640 parameter
+   shapes, fp32: parameters and optimizer state on the card against the
+   CPU within ``OPTIM_TOL``; ms per step on the card.
+9b. remat_check -- YOLOv5s-640, bf16, B=64 under ``remat`` none, early
+   and all: one step from the same weights and batch with cuDNN's
+   deterministic algorithms, loss and gradients of early and all against
+   none (``REMAT_TOL``) and BN statistics equal; then uint8 -> /255 ->
+   ``augment_batch`` -> ``train_step``, one warm-up and three timed steps
+   (counts zeroed before, read after: one warp launch a step), ms per
+   step and the peak memory over them.
+9c. mosaic_check -- ``mosaic_batch`` at B=64, 640 px, p=1 on the card
+   against the CPU on the same draws: images within ``MOSAIC_TOL``,
+   boxes, labels and masks equal; ms per call.
 10. trainer -- the user's entry point, in this process:
    ``cli.run.main`` on ``configs/config.yaml`` with YOLOv5s, 640 px, bf16,
    Synthetic (``synthetic_size`` 256, so that val and test hold two
@@ -124,6 +139,17 @@ exits non-zero:
 10e. trainer_widerperson -- as trainer_coco, one epoch, on a WiderPerson
    tree (``Images``, ``Annotations/<id>.jpg.txt``, ``train.txt``,
    ``val.txt``) of 128 + 64 copies of the 640x480 fixture, 5 classes.
+10f. trainer_options -- as trainer_coco with the YAML's training options:
+   ``optimizer`` SGD (momentum 0.9), ``mosaic`` 0.5, ``remat`` early and
+   ``tune`` true.  The tuner runs before the fit: ``auto_lr_find`` (25
+   steps of augmented microbatches: the warp launches must equal every
+   augmented microbatch, the fit's and the sweep's) and
+   ``auto_scale_batch_size`` from 32 (one executed step per candidate);
+   prints both suggestions, their seconds and every candidate's peak
+   memory; the best checkpoint, with the SGD momentum buffers, restored
+   equal bit for bit.  Then one epoch each with RMSprop and Adagrad
+   (``trainer_options_rmsprop``, ``trainer_options_adagrad``), and a
+   summary line ``trainer_options``.
 11. yolo_fp32 -- YOLOv2, YOLOv3 and YOLOv4 at their published widths,
    416 px, 80 classes, B=2, f32 with TF32 off, on the card and on the CPU
    from the same seeded weights: head maps (``YOLO_HEAD_REL``), the card's
@@ -197,8 +223,10 @@ exits non-zero:
    unprofiled calls (the profiler's own host cost inflates the first).
 
 Then the ``kernels`` line (the NMS and warp entries also carry the launch
-counts of the YOLO, anchor, VOC, COCO (uncached and cached), WiderPerson
-and predict phases, and the NMS entry the anchor scan's times) and, last, ``{"ok": true, "device": {...}}``.
+counts of the YOLO, anchor, VOC, COCO (uncached and cached), WiderPerson,
+training-options and predict phases, the warp entry those of
+``remat_check``, and the NMS entry the anchor scan's times) and, last,
+``{"ok": true, "device": {...}}``.
 Without CUDA it prints nothing to stdout and exits 1.
 """
 
@@ -245,6 +273,7 @@ from objectdetectionpl_tpu_torch.tools.kernel_ab import (candidates,
 from objectdetectionpl_tpu_torch.train.checkpoint import CheckpointManager
 from objectdetectionpl_tpu_torch.train.loop import PinnedRing
 from objectdetectionpl_tpu_torch.train.optim import build_optimizer
+from objectdetectionpl_tpu_torch.train import tune
 from objectdetectionpl_tpu_torch.train.state import create_train_state
 from objectdetectionpl_tpu_torch.train.step import (YOLO_DECODE,
                                                     make_postprocess,
@@ -405,6 +434,42 @@ WIDER_TREE = {"n_train": 128, "n_val": 64, "seed": 2,
 TRAINER_WIDER_SETS = {**REAL_SETS, "data_module": "WiderPerson",
                       "model_name": "YOLOv5", "type": "Yolov5s",
                       "img_size": "640", "max_epochs": "1"}
+# optim_check: SGD, RMSprop and Adagrad over the YOLOv5s-640 parameter
+# shapes, 5 steps of seeded gradients, fp32, card against CPU: parameters
+# and state per tensor as max |card - CPU| / max |CPU| within OPTIM_TOL
+# (the card's rsqrtf is within 2 ulps, the CPU's 1/sqrt correctly
+# rounded, and a momentum sum of updates of either sign can cancel to
+# near 0, where an elementwise relative bound means nothing)
+OPTIM_CASES = {
+    "SGD": dict(optimizer="SGD", momentum=0.9, weight_decay=1e-5),
+    "RMSprop": dict(optimizer="RMSprop", alpha=0.95, momentum=0.9,
+                    weight_decay=1e-5),
+    "Adagrad": dict(optimizer="Adagrad", lr_decay=0.0, weight_decay=1e-5),
+    "Adagrad_lr_decay": dict(optimizer="Adagrad", lr_decay=1e-2,
+                             weight_decay=1e-5)}
+OPTIM_STEPS = 5
+OPTIM_LR = 1e-2
+OPTIM_TOL = 1e-5
+# remat_check: YOLOv5s-640 bf16 B=64 train steps under each setting; with
+# cuDNN's deterministic algorithms, one step from the same weights and
+# batch: loss relative, gradients per tensor as max |diff| / max |ref|
+# against "none", BN statistics equal
+REMAT_SETTINGS = ("none", "early", "all")
+REMAT_TOL = {"loss_rtol": 1e-6, "grad_rel": 1e-3}
+# mosaic_check: mosaic_batch at B=64, 640 px, p=1, card against CPU on the
+# same draws: images elementwise (f32 products of 640 terms), boxes,
+# labels and masks equal
+MOSAIC_B = 64
+MOSAIC_TOL = 1e-5
+# trainer_options: cli.run as trainer_coco with the YAML's training
+# options (SGD with momentum, mosaic, remat, the tuner), then one epoch
+# each with RMSprop and Adagrad
+TRAINER_OPTIONS_SETS = {**TRAINER_COCO_SETS, "optimizer": "SGD",
+                        "mosaic": "0.5", "remat": "early", "tune": "true"}
+TRAINER_OPTIONS_EPOCH_SETS = {
+    name: {**TRAINER_OPTIONS_SETS, "optimizer": name, "tune": "false",
+           "max_epochs": "1"} for name in ("RMSprop", "Adagrad")}
+
 # the pinned ring check: batches through a ring of the Trainer's size
 # (prefetch_batches + 2 slots), their copies held back behind a spin
 RING_BATCHES = 6
@@ -1108,6 +1173,199 @@ def phase_accumulation(card: str) -> None:
           "weights": [1.0, 0.0], "bn_stats_max_abs_diff": err,
           "loss_accumulated": m2["loss"].item(),
           "loss_first_alone": m1["loss"].item()})
+
+
+# --- the training options: optimizers, remat, mosaic -------------------------
+
+
+def optim_run(kw: dict, shapes: list, grads: list, device: str):
+    """OPTIM_STEPS steps of ``kw``'s optimizer on ``device``, from the
+    seeded parameters of ``shapes``: (parameters, per-parameter state)."""
+    g = torch.Generator().manual_seed(40)
+    params = [torch.nn.Parameter((0.1 * torch.randn(s, generator=g))
+                                 .to(device)) for s in shapes]
+    opt = build_optimizer(Config(lr=OPTIM_LR, **kw), params)
+    for step_grads in grads:
+        for p, gr in zip(params, step_grads):
+            p.grad = gr.to(device)
+        opt.step()
+    return ([p.detach().cpu() for p in params],
+            [{k: v.detach().cpu() for k, v in opt.state[p].items()}
+             for p in params])
+
+
+def event_ms(fn, reps: int) -> tuple:
+    """(device ms, host-inclusive ms) per call, median of ``reps`` calls
+    each between CUDA events and a synchronize: for calls long enough
+    (tens of ms) that the enqueue is a small share."""
+    for _ in range(2):
+        fn()
+    dev, host = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return _median(dev), _median(host)
+
+
+def phase_optim_check(card: str) -> dict:
+    """The port's SGD, RMSprop and Adagrad (optax's updates) on the card
+    against the same updates on the CPU, over the YOLOv5s-640 parameter
+    shapes; ms per step on the card."""
+    shapes = [tuple(p.shape) for p in build_model(
+        "YOLOv5", NUM_CLASSES, device="cpu").parameters()]
+    g = torch.Generator().manual_seed(41)
+    grads = [[0.01 * torch.randn(s, generator=g) for s in shapes]
+             for _ in range(OPTIM_STEPS)]
+    out = {}
+    for name, kw in OPTIM_CASES.items():
+        card_p, card_s = optim_run(kw, shapes, grads, "cuda")
+        cpu_p, cpu_s = optim_run(kw, shapes, grads, "cpu")
+        err, rel = 0.0, 0.0
+        for a, b in zip(card_p + [v for st in card_s for v in st.values()],
+                        cpu_p + [v for st in cpu_s for v in st.values()]):
+            diff = float((a - b).abs().max())
+            err = max(err, diff)
+            rel = max(rel, diff / max(float(b.abs().max()), 1e-30))
+        if rel > OPTIM_TOL:
+            raise AssertionError(f"optim_check {name}: card off the CPU by "
+                                 f"{rel} of a tensor's largest element "
+                                 f"({err} absolute)")
+        params = [torch.nn.Parameter(torch.zeros(s, device="cuda"))
+                  for s in shapes]
+        for p, gr in zip(params, grads[0]):
+            p.grad = gr.cuda()
+        opt = build_optimizer(Config(lr=OPTIM_LR, **kw), params)
+        ms = call_time_ms(opt.step, 10)
+        out[name] = {"max_abs_err": err, "max_rel_err": rel,
+                     "ms_per_step": ms,
+                     "state": sorted(card_s[0])}
+    emit({"phase": "optim_check", "card": card, "tensors": len(shapes),
+          "elements": sum(math.prod(s) for s in shapes),
+          "steps": OPTIM_STEPS, "lr": OPTIM_LR, "cases": OPTIM_CASES,
+          "tolerance": OPTIM_TOL, "results": out})
+    return out
+
+
+def phase_remat_check(card: str) -> dict:
+    """YOLOv5s-640 bf16 B=64 train steps under each ``remat`` setting:
+    one deterministic step from the same weights and batch held against
+    "none"; then uint8 -> /255 -> ``augment_batch`` (warp kernel) ->
+    ``train_step``, one warm-up and three timed steps, counts zeroed before
+    and read after, and the peak memory over them."""
+    images, labels, boxes, mask = [t.cuda() for t in
+                                   train_batch(TRAIN_B, seed=42)]
+    x = images.float() / 255.0
+    ref, out, launches = None, {}, 0
+    for remat in REMAT_SETTINGS:
+        model = build_model("YOLOv5", NUM_CLASSES, dtype=torch.bfloat16,
+                            device="cuda", seed=0, remat=remat)
+        state, step = trainer(torch.bfloat16, "cuda", model=model)
+        torch.backends.cudnn.deterministic = True
+        try:
+            state, metrics = step(state, x[None], labels[None], boxes[None],
+                                  mask[None])
+        finally:
+            torch.backends.cudnn.deterministic = False
+        got = {"loss": metrics["loss"].item(),
+               "grads": {n: p.grad.float().cpu().clone()
+                         for n, p in model.named_parameters()},
+               "stats": {n: t.clone() for n, t in bn_stats(model).items()}}
+        check = {}
+        if ref is None:
+            ref = got
+        else:
+            loss_err = abs(got["loss"] / ref["loss"] - 1)
+            grad_rel = max(float((got["grads"][n] - r).abs().max()
+                                 / r.abs().max().clamp(min=1e-30))
+                           for n, r in ref["grads"].items())
+            stat_diff = max(float((got["stats"][n] - r).abs().max())
+                            for n, r in ref["stats"].items())
+            if (loss_err > REMAT_TOL["loss_rtol"]
+                    or grad_rel > REMAT_TOL["grad_rel"] or stat_diff != 0.0):
+                raise AssertionError(
+                    f"remat={remat}: loss {loss_err}, gradients {grad_rel}, "
+                    f"BN statistics {stat_diff} off remat=none")
+            check = {"loss_rel_err": loss_err, "grad_rel_err": grad_rel,
+                     "bn_stats_max_abs_diff": stat_diff}
+        gen = torch.Generator(device="cuda").manual_seed(43)
+        state, _ = augment_and_step(state, step, images, labels, boxes, mask,
+                                    gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()                       # the path starts here
+        step_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, metrics = augment_and_step(state, step, images, labels,
+                                              boxes, mask, gen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_launches()               # the path ends here
+        if counts["affine_warp"] != 3 or not math.isfinite(
+                metrics["loss"].item()):
+            raise AssertionError(f"remat={remat}: {counts['affine_warp']} "
+                                 f"warp launches in 3 steps, loss "
+                                 f"{metrics['loss'].item()}")
+        launches += counts["affine_warp"]
+        out[remat] = {"ms_per_step": step_ms,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "loss": got["loss"], **check}
+        del model, state, step, got
+        torch.cuda.empty_cache()
+    emit({"phase": "remat_check", "card": card, "model": "Yolov5s",
+          "img": IMG, "B": TRAIN_B, "dtype": "bfloat16",
+          "tolerance": REMAT_TOL, "results": out})
+    return {"launches": launches,
+            "peak_mem_gb": {k: v["peak_mem_gb"] for k, v in out.items()}}
+
+
+def phase_mosaic_check(card: str) -> dict:
+    """``mosaic_batch`` at B=64, 640 px, p=1 on the card against the CPU on
+    the same draws; ms per call on the card."""
+    images, labels, boxes, mask = train_batch(MOSAIC_B, seed=44)
+    x = images.float() / 255.0
+    g = torch.Generator().manual_seed(45)
+    centers = 0.3 + 0.4 * torch.rand(MOSAIC_B, 2, generator=g)
+    u_apply = torch.zeros(MOSAIC_B)
+    args = (x, boxes, labels, mask)
+    cpu = augment.mosaic_batch(*args, p=1.0, centers=centers,
+                               u_apply=u_apply)
+    cuda_args = [t.cuda() for t in args]
+    draws = dict(centers=centers.cuda(), u_apply=u_apply.cuda())
+    got = [t.cpu() for t in augment.mosaic_batch(*cuda_args, p=1.0, **draws)]
+    err = float((got[0] - cpu[0]).abs().max())
+    if err > MOSAIC_TOL or not all(torch.equal(a, b) for a, b in
+                                   zip(got[1:], cpu[1:])):
+        raise AssertionError(f"mosaic_check: images off the CPU's by {err}, "
+                             f"or boxes, labels, masks differ")
+    if not cpu[3].any():
+        raise AssertionError("mosaic_check: no box kept")
+    # a host sync inside would stall the Loader's thread: find the op
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        augment.mosaic_batch(*cuda_args, p=1.0, **draws)
+        sync = None
+    except RuntimeError as e:
+        sync = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ms, call_ms = event_ms(lambda: augment.mosaic_batch(
+        *cuda_args, p=1.0, **draws), 10)
+    emit({"phase": "mosaic_check", "card": card, "B": MOSAIC_B, "img": IMG,
+          "M": TRAIN_M, "p": 1.0, "max_abs_err": err,
+          "tolerance": MOSAIC_TOL, "boxes_equal": True,
+          "kept_boxes": int(cpu[3].sum()), "ms": ms, "call_ms": call_ms,
+          "host_sync": sync,
+          "matmul_gflop": 2 * 2 * 4 * MOSAIC_B * IMG ** 3 * 3 / 1e9})
+    return {"max_abs_err": err, "ms": ms}
 
 
 # --- YOLOv2 / YOLOv3 / YOLOv4 ------------------------------------------------
@@ -1854,14 +2112,21 @@ def phase_trainer(card: str, sets: dict = TRAINER_SETS,
                     return save(step, state, val_loss)
                 self.ckpt.save = save_and_copy
 
+            def _device_batch(self, batch, augment):
+                augmented[0] += bool(augment)
+                return super()._device_batch(batch, augment)
+
+        augmented = [0]
+        tuner = {} if cfg.tune else None
         trainer_cls, cli_run.Trainer = cli_run.Trainer, KeptTrainer
         try:
-            reset_launches()                   # main path starts here
-            t0 = time.perf_counter()
-            results = cli_run.main(argv)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-            counts = read_launches()           # main path ends here
+            with recorded_tuner(tuner):
+                reset_launches()               # main path starts here
+                t0 = time.perf_counter()
+                results = cli_run.main(argv)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                counts = read_launches()       # main path ends here
         finally:
             cli_run.Trainer = trainer_cls
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1870,10 +2135,16 @@ def phase_trainer(card: str, sets: dict = TRAINER_SETS,
                 cfg.prefetch_batches + 2:
             raise AssertionError("the Trainer has no pinned ring of "
                                  "prefetch_batches + 2 slots")
-        if counts["affine_warp"] != microbatches:
+        # the tuner's LR sweep augments microbatches of its own
+        if augmented[0] != microbatches and not cfg.tune:
+            raise AssertionError(f"{augmented[0]} microbatches augmented "
+                                 f"for {microbatches} training microbatches")
+        if counts["affine_warp"] != augmented[0] or \
+                augmented[0] < microbatches:
             raise AssertionError(f"affine_warp launched "
                                  f"{counts['affine_warp']} times for "
-                                 f"{microbatches} training microbatches")
+                                 f"{augmented[0]} augmented microbatches "
+                                 f"({microbatches} of the fit)")
         if counts["greedy_nms"] != test_batches:
             raise AssertionError(f"greedy_nms launched "
                                  f"{counts['greedy_nms']} times for "
@@ -1903,12 +2174,59 @@ def phase_trainer(card: str, sets: dict = TRAINER_SETS,
     emit({"phase": phase, "card": card, "model": cfg.model_name,
           "img": cfg.effective_img_size, "sets": sets,
           "wall_s": wall_s, "epochs": epochs, "microbatches": microbatches,
-          "test_batches": test_batches, "launches": counts,
+          "test_batches": test_batches, "augmented": augmented[0],
+          "launches": counts, "tuner": tuner,
           "resize_path": resize_path, "decode_path": decode_path,
           "loader_split": split, "native_build_error": build_error,
           "peak_mem_gb": peak_gb,
           "results": results, "restore": restore})
-    return {"launches": counts, "after": extra, "decode_path": decode_path}
+    return {"launches": counts, "after": extra, "decode_path": decode_path,
+            "tuner": tuner, "epochs": epochs, "restore": restore}
+
+
+@contextlib.contextmanager
+def recorded_tuner(tuner):
+    """While active, and when ``tuner`` is a dict: the tuner's two entry
+    points record their suggestions, seconds and the batch sizes tried
+    with each peak into ``tuner``."""
+    if tuner is None:
+        yield
+        return
+    find, scale = tune.auto_lr_find, tune.auto_scale_batch_size
+    probe = tune.probe_batch_size
+
+    def auto_lr_find(trainer, *args, **kwargs):
+        t0 = time.perf_counter()
+        tuner["lr"] = find(trainer, *args, **kwargs)
+        tuner["lr_find_s"] = time.perf_counter() - t0
+        return tuner["lr"]
+
+    def auto_scale_batch_size(trainer, *args, **kwargs):
+        tuner["trials"] = []
+        t0 = time.perf_counter()
+        tuner["batch_size"] = scale(trainer, *args, **kwargs)
+        tuner["scale_s"] = time.perf_counter() - t0
+        tuner["budget_gb"] = 0.9 * tune._device_bytes_limit(
+            trainer.device) / 1e9
+        for trial in tuner["trials"]:
+            trial["fits"] = (trial["peak_gb"] is not None
+                             and trial["peak_gb"] <= tuner["budget_gb"])
+        return tuner["batch_size"]
+
+    def probe_batch_size(trainer, bs):
+        peak = probe(trainer, bs)
+        tuner["trials"].append({"batch_size": bs, "peak_gb":
+                                None if peak is None else peak / 1e9})
+        return peak
+
+    tune.auto_lr_find = auto_lr_find
+    tune.auto_scale_batch_size = auto_scale_batch_size
+    tune.probe_batch_size = probe_batch_size
+    try:
+        yield
+    finally:
+        tune.auto_lr_find, tune.auto_scale_batch_size = find, scale
+        tune.probe_batch_size = probe
 
 
 # --- the JPEG decoder and the real datasets ---------------------------------
@@ -2585,6 +2903,9 @@ def main(argv=None) -> int:
     serve = phase_serving(card)
     train = phase_training(card)
     phase_accumulation(card)
+    optim_check = phase_optim_check(card)
+    remat = phase_remat_check(card)
+    mosaic = phase_mosaic_check(card)
     fit = phase_trainer(card)
     phase_jpeg_check(card)
     predicted = {}
@@ -2595,6 +2916,25 @@ def main(argv=None) -> int:
     fit_cache = phase_trainer_coco_cache(card)
     fit_wider = phase_trainer_real(card, "trainer_widerperson",
                                    TRAINER_WIDER_SETS, WIDER_TREE)
+    fit_options = {"SGD": phase_trainer_real(
+        card, "trainer_options", TRAINER_OPTIONS_SETS, COCO_TREE)}
+    for name, sets in TRAINER_OPTIONS_EPOCH_SETS.items():
+        fit_options[name] = phase_trainer_real(
+            card, f"trainer_options_{name.lower()}", sets, COCO_TREE)
+    tuner = fit_options["SGD"]["tuner"]
+    emit({"phase": "trainer_options", "card": card,
+          "lr_suggested": tuner["lr"], "lr_find_s": tuner["lr_find_s"],
+          "batch_size_suggested": tuner["batch_size"],
+          "scale_s": tuner["scale_s"], "trials": tuner["trials"],
+          "budget_gb": tuner["budget_gb"],
+          "images_per_sec": {k: [e["images_per_sec"] for e in v["epochs"]]
+                             for k, v in fit_options.items()},
+          "launches": {k: v["launches"] for k, v in fit_options.items()},
+          "optimizer_tensors_restored": {
+              k: v["restore"]["tensors_bit_equal"]
+              for k, v in fit_options.items()},
+          "optim_check": optim_check, "mosaic": mosaic,
+          "remat_peak_mem_gb": remat["peak_mem_gb"]})
     yolo_err = phase_yolo_fp32(card)
     yolo_serve = phase_yolo_serving(card)
     yolo_train = phase_yolo_training(card)
@@ -2628,6 +2968,8 @@ def main(argv=None) -> int:
         "launches_trainer_coco": fit_coco["launches"]["greedy_nms"],
         "launches_trainer_coco_cache": fit_cache["launches"]["greedy_nms"],
         "launches_trainer_widerperson": fit_wider["launches"]["greedy_nms"],
+        **{f"launches_trainer_options_{k.lower()}": v["launches"]
+           ["greedy_nms"] for k, v in fit_options.items()},
         "launches_predict_cli": predicted["launches"]["greedy_nms"],
         "keep_equal": True,
         "max_abs_err": err, "max_abs_box_err": err,
@@ -2662,6 +3004,9 @@ def main(argv=None) -> int:
         "launches_trainer_coco_cache": fit_cache["launches"]["affine_warp"],
         "launches_trainer_widerperson":
             fit_wider["launches"]["affine_warp"],
+        **{f"launches_trainer_options_{k.lower()}": v["launches"]
+           ["affine_warp"] for k, v in fit_options.items()},
+        "launches_remat_check": remat["launches"],
         "max_abs_err": warp_err,
         "ms": warp["ms"], "plain_ms": warp["plain_ms"],
         "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],

@@ -15,8 +15,9 @@ resized input, scores, class names) and, with ``--out-dir``, writes
 ``<stem>_pred.png`` panels, each image's line and panel before the next
 image is read, as the JAX CLI does.  The JAX CLI resizes to uint8 with cv2
 before /255; the port's resize gives the float image directly, within
-1/255 of it (ROADMAP §C).  ``--export`` (the serving-graph export) is not ported yet
-(ROADMAP A8 step 6b).
+1/255 of it (ROADMAP §C).  ``--export`` (the serving-graph export) is not
+ported yet (ROADMAP A4r: it needs the NMS kernel registered as a
+``torch.library`` op first).
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ def main(argv=None) -> List[Dict]:
     args = parse_args(argv)
     if args.export:
         raise NotImplementedError("--export (utils/export.py) is not ported "
-                                  "yet (ROADMAP A8 step 6b)")
+                                  "yet (ROADMAP A4r)")
     cfg = load_config(args.config, {k: _coerce(v) for k, v in args.set})
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)

@@ -8,8 +8,11 @@ The port of ``objectdetectionpl_tpu/cli/run.py``:
 Any config field can be overridden with ``--set KEY VALUE`` (the value is
 read as an int, a float, true/false, or else a string).  The run uses the
 CUDA card unless ``--device`` names another; without CUDA and without
-``--device`` it raises.  ``main`` returns the test results (or None when
-``test`` is off).
+``--device`` it raises.  With ``tune`` on, the tuner runs before the fit
+(``train/tune.py``): ``auto_lr_find`` sets the scheduler's base rate and
+``cfg.lr``; ``auto_scale_batch_size`` ("power") prints its suggestion and
+does not apply it, as in JAX.  ``main`` returns the test results (or None
+when ``test`` is off).
 """
 
 from __future__ import annotations
@@ -51,6 +54,16 @@ def main(argv=None):
     print(f"[run] model={cfg.model_name} dataset={cfg.data_module} "
           f"img_size={cfg.effective_img_size} batch={cfg.batch_size} "
           f"accum={cfg.accumulate_grad_batches} device={trainer.device}")
+    if cfg.tune:
+        from objectdetectionpl_tpu_torch.train import tune
+        if cfg.auto_lr_find:
+            lr = tune.auto_lr_find(trainer)
+            print(f"[tune] auto_lr_find suggests lr={lr:.2e}")
+            trainer.scheduler.base_lr = lr
+            cfg.lr = lr
+        if cfg.auto_scale_batch_size == "power":
+            bs = tune.auto_scale_batch_size(trainer, start=cfg.batch_size)
+            print(f"[tune] auto_scale_batch_size suggests batch_size={bs}")
     try:
         if cfg.max_epochs > 0:
             trainer.fit()

@@ -2,9 +2,9 @@
 
 The port's own copy of ``objectdetectionpl_tpu/config.py``: same fields, same
 defaults, same section-order override rule (later YAML sections override
-earlier keys), so one YAML file drives either package.  The TPU-only knobs
-(``remat``, ``mesh_shape``, ...) are kept so such files still load; the port
-reads only what it implements.
+earlier keys), so one YAML file drives either package.  The knobs the port
+does not implement yet (``mesh_shape``, ``torch_ckpt``) are kept so such
+files still load, and the Trainer raises when they are set.
 
 Per-model image size defaults: RetinaNet 600, SSD 300, YOLOv5 640, else 416.
 """

@@ -13,7 +13,11 @@ The shift-scale-rotate warp is the Hopper kernel ``csrc/affine_warp.cu``
 slots and keeps the unselected ones), the exact single-pass warp for
 every matrix, so the JAX package's ``use_pallas`` switch and its fallback
 for matrices outside the TPU kernel's range have no counterpart here.
-``mosaic_batch`` is not ported yet (ROADMAP A6).
+
+``mosaic_batch`` is the YOLOv5-style 4-image paste that the Trainer runs
+before ``augment_batch`` when ``cfg.mosaic > 0``; it scales each quadrant
+with ``jax.image.scale_and_translate``'s linear weights, antialiased
+(:func:`scale_translate_weights`), as two matrix products.
 """
 
 from __future__ import annotations
@@ -165,3 +169,113 @@ def augment_batch(images: torch.Tensor, boxes: torch.Tensor,
                                           applied[top])
     images.index_copy_(0, top, slots)
     return images, boxes, mask
+
+
+# --- mosaic (YOLOv5-style 4-way paste) ------------------------------------------
+
+
+def scale_translate_weights(in_size: int, out_size: int,
+                            scale: torch.Tensor, translation: torch.Tensor
+                            ) -> torch.Tensor:
+    """float32 ``[..., in_size, out_size]``: the linear interpolation
+    matrices of ``jax.image.scale_and_translate`` (``compute_weight_mat``,
+    antialias on) for each scale and translation ``[...]``: output pixel
+    ``o`` samples the input at ``(o + 0.5 - t)/scale - 0.5`` with the
+    triangle kernel widened by ``max(1/scale, 1)``, each column divided by
+    its sum (zero where the sum is at most 1000 eps), and no weight for a
+    sample outside ``[-0.5, in_size - 0.5]``.  The same float32 operations
+    in the same order as JAX."""
+    dev = scale.device
+    scale = scale.to(torch.float32)[..., None, None]
+    translation = translation.to(torch.float32)[..., None, None]
+    inv_scale = 1.0 / scale
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample_f = ((torch.arange(out_size, dtype=torch.float32, device=dev)
+                 + 0.5) * inv_scale - translation * inv_scale - 0.5)
+    src = torch.arange(in_size, dtype=torch.float32, device=dev)[:, None]
+    x = torch.abs(sample_f - src) / kernel_scale
+    w = torch.clamp(1.0 - x, min=0.0)
+    total = w.sum(dim=-2, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside, w, 0.0)
+
+
+def mosaic_batch(images: torch.Tensor, boxes: torch.Tensor,
+                 labels: torch.Tensor, mask: torch.Tensor, p: float = 0.5,
+                 generator: Optional[torch.Generator] = None,
+                 centers=None, u_apply=None):
+    """4-image mosaic: output i pastes images ``(i + k) % B``, k = 0..3,
+    scaled into the quadrants top-left, top-right, bottom-left and
+    bottom-right of a centre drawn from U[0.3, 0.7)^2; applied to image i
+    when ``u_apply[i] < p``.  images [B, S, S, 3] f32, boxes [B, M, 4]
+    center-form normalized, labels [B, M], mask [B, M]; returns new
+    (images, boxes, labels, mask).  Each output keeps the M largest of its
+    4M composited boxes (ties to the lower index, as ``lax.top_k``), a box
+    of zero area or a padded one marked invalid.
+
+    ``centers`` [B, 2] (x, y) and ``u_apply`` [B] are drawn from
+    ``generator`` on the images' device unless given (the tests hand in
+    JAX's draws).  A quadrant's pixels are those whose ``arange(S)/S``
+    lies in it, compared in float32 as JAX compares them.  No step syncs
+    with the host.
+    """
+    B, S = images.shape[0], images.shape[1]
+    M = boxes.shape[1]
+    dev = images.device
+    f32 = torch.float32
+    if centers is None:
+        centers = 0.3 + 0.4 * torch.rand((B, 2), generator=generator,
+                                         device=dev)
+    if u_apply is None:
+        u_apply = torch.rand((B,), generator=generator, device=dev)
+    centers = torch.as_tensor(centers, dtype=f32, device=dev)
+    apply = torch.as_tensor(u_apply, dtype=f32, device=dev) < p
+    cx, cy = centers[:, 0], centers[:, 1]
+    zero = torch.zeros_like(cx)
+    # quadrant origins and sizes [B, 4]: TL, TR, BL, BR
+    ox = torch.stack([zero, cx, zero, cx], 1)
+    oy = torch.stack([zero, zero, cy, cy], 1)
+    sx = torch.stack([cx, 1 - cx, cx, 1 - cx], 1)
+    sy = torch.stack([cy, cy, 1 - cy, 1 - cy], 1)
+
+    pos = torch.arange(S, dtype=f32, device=dev) / S
+    in_x = (pos >= ox[..., None]) & (pos < (ox + sx)[..., None])
+    in_y = (pos >= oy[..., None]) & (pos < (oy + sy)[..., None])
+    # each quadrant's weights with the pixels outside it zeroed: the four
+    # products then add up to JAX's where() over the quadrants exactly
+    wx = scale_translate_weights(S, S, sx, ox * S) * in_x[:, :, None, :]
+    wy = scale_translate_weights(S, S, sy, oy * S) * in_y[:, :, None, :]
+    src = (torch.arange(B, device=dev)[:, None]
+           + torch.arange(4, device=dev)) % B               # [B, 4]
+    # rows (y, c) times the x weights, then the y weights times rows
+    # (c, x): two batched products of [S, S] matrices, no broadcast
+    x = images[src].transpose(-1, -2).reshape(B, 4, S * 3, S)
+    t = torch.matmul(x, wx).reshape(B, 4, S, 3 * S)
+    canvas = torch.matmul(wy.transpose(-1, -2), t).sum(1)    # [B,y,(c,x)]
+    canvas = canvas.reshape(B, S, 3, S).transpose(-1, -2).contiguous()
+
+    b = boxes[src]                                          # [B,4,M,4]
+    ox, oy, sx, sy = (t[..., None] for t in (ox, oy, sx, sy))
+
+    def fma(o, x, s):
+        # XLA fuses o + x*s into one multiply-add: the product is exact in
+        # float64, and the sum is rounded there and then to float32
+        return (o.double() + x.double() * s.double()).float()
+    nb = torch.stack([fma(ox, b[..., 0], sx), fma(oy, b[..., 1], sy),
+                      b[..., 2] * sx, b[..., 3] * sy], -1)
+    valid = mask[src]
+    area = torch.where(valid, nb[..., 2] * nb[..., 3], -1.0)
+    nb, area = nb.reshape(B, 4 * M, 4), area.reshape(B, 4 * M)
+    top = torch.sort(area, dim=1, descending=True, stable=True).indices[:, :M]
+    m_boxes = torch.gather(nb, 1, top[..., None].expand(B, M, 4))
+    m_labels = torch.gather(labels[src].reshape(B, 4 * M), 1, top)
+    m_mask = (torch.gather(valid.reshape(B, 4 * M), 1, top)
+              & (torch.gather(area, 1, top) > 0))
+
+    def sel(mixed, kept):
+        return torch.where(apply.reshape((B,) + (1,) * (mixed.ndim - 1)),
+                           mixed, kept)
+    return (sel(canvas, images), sel(m_boxes, boxes), sel(m_labels, labels),
+            sel(m_mask, mask))

@@ -46,16 +46,14 @@ def build_model(model_name: str, num_classes: int,
     each conv by its family's initializer (``Conv.init``: lecun normal, and
     for SSD He/fan-out on the VGG convs, Xavier on the extras and heads).
     ``dtype`` is the compute dtype of the convolutions; parameters and BN
-    statistics stay float32.  ``remat`` (the JAX package's activation
-    rematerialization) takes only ``"none"`` until ROADMAP A3r.  ``ssd_bn``
-    (SSD's BN backbone) is ignored by the other families, as in JAX.
-    ``yolov5_type`` is read by YOLOv5 only.
+    statistics stay float32.  ``remat`` ("none", "early", "all": the
+    activations YOLOv5 recomputes in the backward pass) and ``yolov5_type``
+    are read by YOLOv5 only, ``ssd_bn`` (SSD's BN backbone) by SSD only;
+    the other families ignore them, as in JAX.
     """
-    if remat != "none":
-        raise NotImplementedError(f"remat={remat!r} is not ported yet "
-                                  f"(ROADMAP A3r)")
     dev = resolve_device(device)
-    kw = ({"variant": yolov5_type} if model_name == "YOLOv5" else
+    kw = ({"variant": yolov5_type, "remat": remat}
+          if model_name == "YOLOv5" else
           {"use_bn": ssd_bn} if model_name == "SSD" else {})
     model = MODELS[model_name](num_classes=num_classes, dtype=dtype, **kw)
     init_weights(model, torch.Generator().manual_seed(seed))

@@ -9,6 +9,13 @@ the compute dtype; a uint8 batch works when the stem carries the /255,
 1x1 head split into anchor ``a`` and field ``k``.  ``model.train()`` is the
 flax ``train=True``: every BatchNorm normalizes with its batch moments and
 updates its running statistics (``nn/blocks.py``).
+
+``remat`` recomputes block activations in the backward pass instead of
+keeping them (``blocks.remat``), as the JAX module's ``nn.remat`` does:
+"early" the blocks at strides 2-8 (``EARLY``), whose activations are the
+largest and cheapest to recompute, "all" every block but the three 1x1
+heads, "none" none.  It changes neither the module tree nor the
+``state_dict`` keys, and only acts when gradients are being recorded.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import torch
 from torch import nn
 
 from objectdetectionpl_tpu_torch.nn.blocks import (
-    SPP, BottleneckCSP, BottleneckV5, Conv, ConvBN, Focus,
+    SPP, BottleneckCSP, BottleneckV5, Conv, ConvBN, Focus, remat,
     scale_ch, scale_depth, upsample2x)
 
 VARIANTS = {
@@ -27,16 +34,26 @@ VARIANTS = {
     "Yolov5x": (1.33, 1.25),
 }
 
+# the blocks the JAX module marks ``late=False``
+EARLY = frozenset({"Focus_0", "ConvBN_0", "BottleneckV5_0", "ConvBN_1",
+                   "BottleneckCSP_0", "ConvBN_5", "BottleneckCSP_5"})
+HEADS = ("Conv_0", "Conv_1", "Conv_2")
+REMAT = ("none", "early", "all")
+
 class YOLOv5(nn.Module):
     def __init__(self, num_classes: int, variant: str = "Yolov5s",
-                 num_anchors: int = 3, dtype: torch.dtype = torch.float32):
+                 num_anchors: int = 3, dtype: torch.dtype = torch.float32,
+                 remat: str = "none"):
         super().__init__()
+        if remat not in REMAT:
+            raise ValueError(f"remat={remat!r}: expected one of {REMAT}")
         dm, wm = VARIANTS[variant]
         C = lambda c: scale_ch(c, wm)
         D = lambda n: scale_depth(n, dm)
         self.num_classes = num_classes
         self.num_anchors = num_anchors
         self.dtype = dtype
+        self.remat = remat
         no = (5 + num_classes) * num_anchors
 
         def csp(c1, c2, n, sc=True):
@@ -61,24 +78,35 @@ class YOLOv5(nn.Module):
         self.BottleneckCSP_5 = csp(256, 256, 3, sc=False)
         self.Conv_2 = Conv(C(256), no, 1, bias=True, dtype=dtype)       # s8
 
+    def _recomputed(self, name: str) -> bool:
+        return (self.remat == "all" and name not in HEADS
+                or self.remat == "early" and name in EARLY)
+
+    def _block(self, name: str, x):
+        block = getattr(self, name)
+        if torch.is_grad_enabled() and self._recomputed(name):
+            return remat(block, x)
+        return block(x)
+
     def forward(self, x):
+        b = self._block
         x = x.to(self.dtype).permute(0, 3, 1, 2)    # NHWC -> NCHW view
-        x = self.Focus_0(x)
-        x = self.ConvBN_0(x)
-        x = self.BottleneckV5_0(x)
-        x = self.ConvBN_1(x)
-        rt0 = self.BottleneckCSP_0(x)
-        rt1 = self.BottleneckCSP_1(self.ConvBN_2(rt0))
-        x = self.SPP_0(self.ConvBN_3(rt1))
-        route = self.BottleneckCSP_3(self.BottleneckCSP_2(x))
+        x = b("Focus_0", x)
+        x = b("ConvBN_0", x)
+        x = b("BottleneckV5_0", x)
+        x = b("ConvBN_1", x)
+        rt0 = b("BottleneckCSP_0", x)
+        rt1 = b("BottleneckCSP_1", b("ConvBN_2", rt0))
+        x = b("SPP_0", b("ConvBN_3", rt1))
+        route = b("BottleneckCSP_3", b("BottleneckCSP_2", x))
         out0 = self.Conv_0(route)
 
-        x = self.ConvBN_4(torch.cat([upsample2x(route), rt1], dim=1))
-        route = self.BottleneckCSP_4(x)
+        x = b("ConvBN_4", torch.cat([upsample2x(route), rt1], dim=1))
+        route = b("BottleneckCSP_4", x)
         out1 = self.Conv_1(route)
 
-        x = self.ConvBN_5(torch.cat([upsample2x(route), rt0], dim=1))
-        out2 = self.Conv_2(self.BottleneckCSP_5(x))
+        x = b("ConvBN_5", torch.cat([upsample2x(route), rt0], dim=1))
+        out2 = self.Conv_2(b("BottleneckCSP_5", x))
         return [self._reshape(out2), self._reshape(out1),
                 self._reshape(out0)]
 

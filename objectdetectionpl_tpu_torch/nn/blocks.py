@@ -18,16 +18,24 @@ Numerics follow the JAX blocks:
 - space-to-depth orders channel blocks (row-phase, col-phase, C),
 - mish is ``F.mish``: ``x * tanh(softplus(x))`` in one kernel, within f32
   rounding of the JAX formula (``tests/test_torch_port_yolo_models.py``).
+
+:func:`remat` runs a block under activation checkpointing (flax
+``nn.remat``): its forward is run again in the backward pass, and train-mode
+BatchNorm moves its running statistics only in the first run, so they move
+once per forward as in JAX's functional state.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from typing import Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 ACTIVATIONS = {
@@ -48,6 +56,31 @@ KERNEL_INITS = {
     "xavier_normal": (1.0, "fan_avg", "truncated_normal"),
     "kaiming_fan_out": (2.0, "fan_out", "normal"),
 }
+
+
+# set while a checkpointed block's forward runs again in the backward pass
+# (which runs in autograd's device thread on CUDA, hence per thread)
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    before = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = before
+
+
+def remat(block: nn.Module, *args):
+    """``block(*args)``, its activations recomputed in the backward pass
+    instead of kept (``torch.utils.checkpoint``, non-reentrant).  The
+    recomputation leaves BatchNorm's running statistics as the first run
+    moved them.  No block draws random numbers, so no RNG state is kept."""
+    return torch.utils.checkpoint.checkpoint(
+        block, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
 
 
 class Conv(nn.Module):
@@ -87,7 +120,8 @@ class BatchNorm(nn.Module):
     sums of ``x`` and of ``x**2`` (squared in x's dtype, as JAX does)
     accumulated in f32, and the *biased* variance ``E[x^2] - E[x]^2``
     clamped at 0; gradients flow through both.  The running statistics then
-    move as ``0.9*old + 0.1*batch`` (flax momentum 0.9).  ``nn.BatchNorm2d``
+    move as ``0.9*old + 0.1*batch`` (flax momentum 0.9), except in the
+    second run of a block under :func:`remat`.  ``nn.BatchNorm2d``
     is not used: it updates the running variance with the unbiased one.
     No ``num_batches_tracked``: the flax tree has none."""
 
@@ -108,12 +142,13 @@ class BatchNorm(nn.Module):
             mean = x.sum(dims, dtype=torch.float32) / n
             mean_sq = x.square().sum(dims, dtype=torch.float32) / n
             var = torch.clamp(mean_sq - mean.square(), min=0.0)
-            with torch.no_grad():
-                m = self.MOMENTUM
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var
-                                       + (1.0 - m) * var)
+            if not getattr(_recompute, "on", False):
+                with torch.no_grad():
+                    m = self.MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1.0 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         a = self.weight * torch.rsqrt(var + self.eps)

@@ -3,8 +3,9 @@
 The port of ``objectdetectionpl_tpu/train/loop.py``, method for method:
 
 - fit: epochs over the train loader, each batch moved to the device and
-  augmented there (``augment_batch``, one warp-kernel launch per
-  microbatch), in a background thread when ``prefetch_batches > 0``.  On
+  augmented there (``mosaic_batch`` when ``cfg.mosaic > 0``, then
+  ``augment_batch``, one warp-kernel launch per microbatch), in a
+  background thread when ``prefetch_batches > 0``.  On
   CUDA the Loader writes each batch's images straight into a ring of
   pinned host buffers (:class:`PinnedRing`), from which it is copied
   asynchronously; uint8 batches (the packed cache) become float32 / 255
@@ -20,11 +21,12 @@ The port of ``objectdetectionpl_tpu/train/loop.py``, method for method:
   (``Test/{g}/{key}`` per grid), GT | pred image panels and a stdout
   table.
 
-The augmentation draws from a ``torch.Generator`` on the device seeded with
-``seed + 1``; the JAX Trainer draws from ``jax.random``, so fits differ
-between the packages (ROADMAP §C) while everything after the draw is the
-same.  Not ported yet, and raising when asked for: mosaic (A6), torch
-checkpoints (A11), the tuner (A8 step 6b) and more than one device (A10).
+The augmentation (mosaic included) draws from a ``torch.Generator`` on
+the device seeded with ``seed + 1``; the JAX Trainer draws from
+``jax.random``, so fits differ between the packages (ROADMAP §C) while
+everything after the draw is the same.  The tuner (``train/tune.py``)
+runs from ``cli.run``.  Not ported yet, and raising when asked for: torch
+checkpoints (A11) and more than one device (A10).
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ import torch
 
 from objectdetectionpl_tpu_torch.config import Config
 from objectdetectionpl_tpu_torch.data import build_datamodule
-from objectdetectionpl_tpu_torch.data.augment import augment_batch
+from objectdetectionpl_tpu_torch.data.augment import (augment_batch,
+                                                      mosaic_batch)
 from objectdetectionpl_tpu_torch.data.pipeline import prefetch
 from objectdetectionpl_tpu_torch.data.types import Batch
 from objectdetectionpl_tpu_torch.device import DeviceLike, resolve_device
@@ -63,14 +66,9 @@ from objectdetectionpl_tpu_torch.utils.profiler import (device_memory_stats,
 
 
 def _check_ported(cfg: Config) -> None:
-    if cfg.mosaic > 0:
-        raise NotImplementedError("mosaic is not ported yet (ROADMAP A6)")
     if cfg.torch_ckpt:
         raise NotImplementedError("torch_ckpt is not ported yet "
                                   "(ROADMAP A11)")
-    if cfg.tune:
-        raise NotImplementedError("the tuner (train/tune.py) is not ported "
-                                  "yet (ROADMAP A8 step 6b)")
     if cfg.mesh_shape is not None and math.prod(cfg.mesh_shape) > 1:
         raise NotImplementedError(f"mesh_shape {tuple(cfg.mesh_shape)}: "
                                   f"more than one device is not ported yet "
@@ -230,6 +228,10 @@ class Trainer:
             # packed-cache batches come as uint8; normalized here
             images = images.to(torch.float32) / 255.0
         if augment:
+            if self.cfg.mosaic > 0:
+                images, boxes, labels, mask = mosaic_batch(
+                    images, boxes, labels, mask, p=self.cfg.mosaic,
+                    generator=self.aug_gen)
             images, boxes, mask = augment_batch(images, boxes, mask,
                                                 generator=self.aug_gen)
         return images, labels, boxes, mask

@@ -1,8 +1,9 @@
 """Import hygiene, the device rule and the config copy of the port.
 
 The port and ``chip_smoke.py`` must import no jax, flax or optax, nothing
-of ``objectdetectionpl_tpu``, and neither cv2 nor PIL (the port decodes
-JPEGs and writes PNGs itself) -- checked in a fresh interpreter, since this
+of ``objectdetectionpl_tpu``, neither cv2 nor PIL (the port decodes
+JPEGs and writes PNGs itself), and no psutil (absent on the card's
+machine; the tuner reads ``/proc/meminfo``) -- checked in a fresh interpreter, since this
 test process has JAX loaded for the parity tests.
 """
 
@@ -31,7 +32,7 @@ for n in names:
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2",
-                                    "PIL")
+                                    "PIL", "psutil")
              or k == "objectdetectionpl_tpu"
              or k.startswith("objectdetectionpl_tpu."))
 print(json.dumps({"modules": names, "bad": bad}))
@@ -60,6 +61,7 @@ def test_port_and_chip_smoke_import_no_jax():
             "objectdetectionpl_tpu_torch.data.parsers.asiatraffic",
             "objectdetectionpl_tpu_torch.data.cache",
             "objectdetectionpl_tpu_torch.cli.predict",
+            "objectdetectionpl_tpu_torch.train.tune",
             "objectdetectionpl_tpu_torch.tools.fixture_trees"} <= set(
                 res["modules"])
     assert len(res["modules"]) >= 15

@@ -22,7 +22,7 @@
 - ``main`` streams: on [good, progressive, good] the first image's line
   is printed and its PNG written before the second raises ``JpegError``.
 - ``write_png`` read back by PIL, equal.
-- ``--export`` raises naming ROADMAP A8 step 6b.
+- ``--export`` raises naming ROADMAP A4r.
 """
 
 import json
@@ -221,5 +221,5 @@ def test_write_png_reads_back(tmp_path, shape):
 
 
 def test_export_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8 step 6b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4r"):
         predict.main([YAML, "--export", "model.pt", "--device", "cpu"])

@@ -196,10 +196,12 @@ def test_predict_step_serves_the_ema_params(variables):
 
 @pytest.mark.parametrize("name", ["SSD", "RetinaNet"])
 def test_unported_families_raise(name):
-    """SSD and RetinaNet build and postprocess (ported since); what is still
-    unported for them raises naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A3r"):
-        build_model(name, C, device="cpu", remat="all")
-    assert isinstance(build_model(name, C, device="cpu"),
-                      MODELS[name])
+    """SSD and RetinaNet build and postprocess (ported since), and accept
+    ``remat`` and ignore it, as in JAX: the same weights, the same tree."""
+    plain = build_model(name, C, device="cpu")
+    assert isinstance(plain, MODELS[name])
+    remat = build_model(name, C, device="cpu", remat="all")
+    assert remat.state_dict().keys() == plain.state_dict().keys()
+    for k, v in remat.state_dict().items():
+        assert torch.equal(v, plain.state_dict()[k]), k
     assert callable(make_postprocess(name, C, 416))

@@ -358,8 +358,12 @@ def test_optimizer_factory_and_learning_rate():
     assert opt.defaults["eps"] == 1e-8 and opt.defaults["weight_decay"] == 1e-5
     port_optim.set_learning_rate(opt, 0.5)
     assert port_optim.current_learning_rate(opt) == 0.5
-    for name in ("SGD", "RMSprop", "Adagrad"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            port_optim.build_optimizer(Config(optimizer=name), [w])
+    for name, cls in (("SGD", torch.optim.SGD),
+                      ("RMSprop", port_optim.RMSprop),
+                      ("Adagrad", port_optim.Adagrad)):
+        opt = port_optim.build_optimizer(Config(optimizer=name, lr=0.01), [w])
+        assert isinstance(opt, cls) and opt.defaults["weight_decay"] == 1e-5
+        port_optim.set_learning_rate(opt, 0.5)
+        assert port_optim.current_learning_rate(opt) == 0.5
     with pytest.raises(ValueError, match="unknown optimizer"):
         port_optim.build_optimizer(Config(optimizer="Lion"), [w])

@@ -42,6 +42,7 @@
 import json
 import math
 import os
+import re
 import sys
 import threading
 
@@ -384,15 +385,19 @@ def test_fit_error_ends_the_loader_thread(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
+    """Only torch checkpoints (A11) and more than one device (A10) are
+    left unported; mosaic, remat and the tuner build a Trainer."""
     base = dict(data_module="Synthetic", synthetic_size=4, img_size=64,
                 model_name="YOLOv5", log_dir=str(tmp_path))
-    for extra, item in ((dict(mosaic=0.5), "A6"),
-                        (dict(torch_ckpt="w.pt"), "A11"),
-                        (dict(tune=True), "A8 step 6b"),
-                        (dict(mesh_shape=(2, 1)), "A10"),
-                        (dict(remat="all"), "A3r")):
+    for extra, item in ((dict(torch_ckpt="w.pt"), "A11"),
+                        (dict(mesh_shape=(2, 1)), "A10")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             loop.Trainer(Config(**base, **extra), device="cpu")
+    trainer = loop.Trainer(Config(**base, mosaic=0.5, tune=True,
+                                  remat="all", optimizer="RMSprop"),
+                           device="cpu")
+    assert trainer.model.remat == "all"
+    assert type(trainer.optimizer).__name__ == "RMSprop"
 
 
 def _cli(tmp_path, *extra):
@@ -435,6 +440,61 @@ def test_cli_fits_checkpoints_and_tests(tmp_path, capsys):
         capsys.readouterr().out
     if best_step == 1:                    # the weights the first test used
         assert again == results
+
+
+# the per-parameter state each optimizer checkpoints
+OPTIMIZER_STATE = {"SGD": {"momentum_buffer"},
+                   "RMSprop": {"square_avg", "momentum_buffer"},
+                   "Adagrad": {"sum", "step"}}
+
+
+def cli_with_options(tmp_path, capsys, optimizer, remat, *extra):
+    """YOLOv5 at the ``yaml_test`` caps with ``optimizer``, mosaic 0.5,
+    ``remat`` and the tuner: both ``[tune]`` lines, then the fit (every
+    microbatch, the tuner's included, through mosaic and the warp path),
+    checkpoints holding the optimizer's state, and the test's mAP table."""
+    calls = {"mosaic": 0}
+    mosaic = loop.mosaic_batch
+
+    def counted(*args, **kwargs):
+        calls["mosaic"] += 1
+        return mosaic(*args, **kwargs)
+
+    loop.mosaic_batch = counted
+    try:
+        results = _cli(tmp_path, "--set", "optimizer", optimizer, "--set",
+                       "mosaic", "0.5", "--set", "remat", remat, "--set",
+                       "tune", "true", *extra)
+    finally:
+        loop.mosaic_batch = mosaic
+    out = capsys.readouterr().out
+    lr = re.search(r"\[tune\] auto_lr_find suggests lr=(\S+)", out)
+    bs = re.search(r"\[tune\] auto_scale_batch_size suggests "
+                   r"batch_size=(\d+)", out)
+    assert lr and 1e-8 <= float(lr.group(1)) <= 1.0
+    assert bs and int(bs.group(1)) >= 2
+    assert "img_size=128 batch=2 accum=2 device=cpu" in out
+    assert "---- mAP per class ----" in out
+    for k in ("mAP", "precision", "recall", "f1"):
+        assert math.isfinite(results[k]) and 0.0 <= results[k] <= 1.0, k
+    # the fit's 2 x 4 microbatches and the tuner's (at least 3 steps of
+    # 2, at most 25) all went through mosaic
+    assert 8 + 2 * 3 <= calls["mosaic"] <= 8 + 2 * 25
+    run_dir = tmp_path / "Synthetic" / "YOLOv5"
+    best = (run_dir / "checkpoints" / "best_model_path.txt").read_text()
+    ckpt = torch.load(os.path.join(best, "state.pt"), weights_only=True)
+    per_param = list(ckpt["optimizer"]["state"].values())
+    assert len(per_param) == 165
+    for st in per_param:
+        assert set(st) == OPTIMIZER_STATE[optimizer]
+        assert all(torch.isfinite(v).all() for v in st.values())
+    tags = {json.loads(line)["tag"] for line in
+            (run_dir / "metrics.jsonl").read_text().splitlines()}
+    assert f"lr-{optimizer}" in tags and "lr-Adam" not in tags
+
+
+def test_cli_fits_with_the_training_options(tmp_path, capsys):
+    cli_with_options(tmp_path, capsys, "SGD", "early")
 
 
 def test_cli_trains_the_yaml_default_model(tmp_path, capsys):
