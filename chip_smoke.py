@@ -98,11 +98,14 @@ exits non-zero:
 10a. jpeg_check -- the port's host library (``csrc/preproc.cc`` and the
    JPEG decoder ``csrc/jpeg_decode.cc``) built with g++ (seconds, or
    ``native.build_error``, which fails the phase);
-   every committed fixture (``data/testdata``) decoded and its RGB bytes'
-   SHA-256 held against the committed libjpeg hash; the progressive
-   fixture must raise naming its path; ``decode_batch`` over the fixtures
-   x 32 at 1 thread and at the Loader's thread count: ms per image, MP/s,
-   ``os.cpu_count()``.
+   every decodable fixture (``data/testdata``, baseline and progressive)
+   decoded and its RGB bytes' SHA-256 held against the committed libjpeg
+   hash, the two 1280x720 frames (baseline, progressive) also at 1/2, 1/4
+   and 1/8; the CMYK fixture must raise naming its path; ``decode_batch``
+   over the fixtures x 32 at 1 thread and at the Loader's thread count: ms
+   per image, MP/s, ``os.cpu_count()``; and each frame's ms per image at
+   each scale and both thread counts (``tools/decode_bench.py``), timed on
+   the host's CPU.
 10b. trainer_voc -- ``cli.run.main`` with ``data_module`` VOC on a VOC2012
    tree written under ``build/`` (200 train and 64 val ids, each a hard
    link to the 500x375 4:2:0 fixture, VOC2012's typical size, 1-5 boxes
@@ -150,6 +153,18 @@ exits non-zero:
    equal bit for bit.  Then one epoch each with RMSprop and Adagrad
    (``trainer_options_rmsprop``, ``trainer_options_adagrad``), and a
    summary line ``trainer_options``.
+10g. trainer_bdd_ssd -- as trainer_coco, on a BDD100K tree
+   (``images/track/{train,val}/<video>/``, ``labels/box_track_20``) of 160
+   + 80 frames of 1280x720 (BDD100K's size), half the baseline frame and
+   half the progressive one, SSD-300 (``img_size`` 0: SSD's 300 px), no
+   cache: the fused Loader decodes every frame at libjpeg's 1/2 scale
+   (1280/2 and 720/2 >= 300); one warp launch per microbatch, one NMS
+   launch (``anchor_nms``) per test batch, the best checkpoint restored
+   bit-equal; prints the epochs' img/s and ``loader_split`` (the fused
+   call's ms a batch).  Inside it, ``bdd_scaled_batch``: one fused batch
+   of the first train files at 300 px equals ``preproc_batch`` of
+   ``decode_one(path, denom=2)`` on them bit for bit and differs from the
+   full-scale decode's batch; orig sizes 1280x720.
 11. yolo_fp32 -- YOLOv2, YOLOv3 and YOLOv4 at their published widths,
    416 px, 80 classes, B=2, f32 with TF32 off, on the card and on the CPU
    from the same seeded weights: head maps (``YOLO_HEAD_REL``), the card's
@@ -224,7 +239,7 @@ exits non-zero:
 
 Then the ``kernels`` line (the NMS and warp entries also carry the launch
 counts of the YOLO, anchor, VOC, COCO (uncached and cached), WiderPerson,
-training-options and predict phases, the warp entry those of
+training-options, BDD100K-SSD and predict phases, the warp entry those of
 ``remat_check``, and the NMS entry the anchor scan's times) and, last,
 ``{"ok": true, "device": {...}}``.
 Without CUDA it prints nothing to stdout and exits 1.
@@ -266,8 +281,8 @@ from objectdetectionpl_tpu_torch.ops import assignment, losses, nms
 from objectdetectionpl_tpu_torch.ops import boxes as box_ops
 from objectdetectionpl_tpu_torch.ops.cuda import (_build, conv_kernel,
                                                   nms_kernel, warp_kernel)
-from objectdetectionpl_tpu_torch.tools import (conv_bench, fixture_trees,
-                                               kernel_ab)
+from objectdetectionpl_tpu_torch.tools import (conv_bench, decode_bench,
+                                               fixture_trees, kernel_ab)
 from objectdetectionpl_tpu_torch.tools.kernel_ab import (candidates,
                                                          ssr_inverses)
 from objectdetectionpl_tpu_torch.train.checkpoint import CheckpointManager
@@ -423,6 +438,13 @@ TRAINER_COCO_SETS = {**REAL_SETS, "data_module": "COCO",
                      "model_name": "YOLOv5", "type": "Yolov5s",
                      "img_size": "640"}
 JPEG_REPEAT = 32          # decode_batch timing: the fixtures x 32
+# trainer_bdd_ssd: SSD-300 on a BDD100K tree of the 1280x720 frames, half
+# baseline and half progressive, which the fused Loader decodes at 1/2
+BDD_TREE = {"n_train": 160, "n_val": 80, "seed": 3,
+            "names": list(fixture_trees.BDD_FRAMES)}
+TRAINER_BDD_SSD_SETS = {**REAL_SETS, "data_module": "BDD100K",
+                        "model_name": "SSD", "img_size": "0"}
+BDD_DENOM = 2             # libjpeg's scale for 1280x720 at 300 px
 LOADER_REPS = 3           # the Loader's host split: median of 3
 # trainer_coco_cache: trainer_coco with the packed cache, which the CLI
 # builds under a temporary directory of build/ (cache_dir set at run time)
@@ -1942,9 +1964,9 @@ def _upload_ms(ring, batch, reps: int = LOADER_REPS) -> float:
 def loader_split(loader) -> dict:
     """Host ms of one batch of the Loader's first indices (median of
     ``LOADER_REPS``): the two stages the Loader ran before, each alone
-    (one ``decode_batch`` call, then the float32 resize), the fused
-    ``decode_preproc_batch`` call the Loader runs now, writing into a
-    pinned ring buffer, and that batch's upload from the ring against the
+    (one ``decode_batch`` call at full scale, then the float32 resize), the
+    fused ``decode_preproc_batch`` call the Loader runs now (at the DCT
+    scale it picks), writing into a pinned ring buffer, and that batch's upload from the ring against the
     replaced upload (a copy into freshly pinned memory, then the copy to
     the card)."""
     recs = [loader.parser.record(int(i))
@@ -1960,7 +1982,8 @@ def loader_split(loader) -> dict:
         native.preproc_batch(images, S, loader.letterbox)
         out = ring.take((n, S, S, 3), np.float32)
         t2 = time.perf_counter()
-        native.decode_preproc_batch(paths, S, loader.letterbox, out)
+        native.decode_preproc_batch(paths, S, loader.letterbox, out,
+                                    max_denom=native.MAX_DENOM)
         t3 = time.perf_counter()
         times["decode"].append((t1 - t0) * 1e3)
         times["resize"].append((t2 - t1) * 1e3)
@@ -2233,10 +2256,11 @@ def recorded_tuner(tuner):
 
 
 def phase_jpeg_check(card: str) -> None:
-    """Build the decoder with g++, hold every fixture's decode against its
-    committed libjpeg hash, check that the progressive fixture raises
-    naming its path, and time ``decode_batch`` on the fixtures x
-    ``JPEG_REPEAT`` at 1 thread and at the Loader's thread count."""
+    """Build the decoder with g++, hold every decodable fixture's decode
+    (and the 1280x720 frames' at 1/2, 1/4 and 1/8) against its committed
+    libjpeg hash, check that the CMYK fixture raises naming its path, and
+    time ``decode_batch`` on the fixtures x ``JPEG_REPEAT`` and on each
+    frame at each scale, at 1 thread and at the Loader's thread count."""
     t0 = time.perf_counter()
     if not native.available():
         emit({"phase": "jpeg_check", "build_error": native.build_error})
@@ -2245,13 +2269,21 @@ def phase_jpeg_check(card: str) -> None:
     build_s = time.perf_counter() - t0
     want = fixture_trees.fixtures()
     names = fixture_trees.decodable()
+    checked = 0
     for name in names:
-        img = native.decode_one(str(fixture_trees.TESTDATA / name))
-        digest = hashlib.sha256(img.tobytes()).hexdigest()
-        if list(img.shape) != want[name]["shape"] or \
-                digest != want[name]["sha256"]:
-            raise AssertionError(f"{name}: decode differs from libjpeg's "
-                                 f"(shape {img.shape})")
+        path = str(fixture_trees.TESTDATA / name)
+        for denom, entry in [("1", want[name]),
+                             *want[name].get("scaled", {}).items()]:
+            img = native.decode_one(path, int(denom))
+            digest = hashlib.sha256(img.tobytes()).hexdigest()
+            if list(img.shape) != entry["shape"] or \
+                    digest != entry["sha256"]:
+                raise AssertionError(f"{name} at 1/{denom}: decode differs "
+                                     f"from libjpeg's (shape {img.shape})")
+            checked += 1
+    for name in fixture_trees.BDD_FRAMES:
+        if sorted(want[name].get("scaled", {})) != ["2", "4", "8"]:
+            raise AssertionError(f"{name}: no hashes at 1/2, 1/4, 1/8")
     for name in fixture_trees.UNSUPPORTED:
         path = str(fixture_trees.TESTDATA / name)
         try:
@@ -2265,8 +2297,9 @@ def phase_jpeg_check(card: str) -> None:
     paths = [str(fixture_trees.TESTDATA / n) for n in names] * JPEG_REPEAT
     pixels = sum(want[n]["shape"][0] * want[n]["shape"][1]
                  for n in names) * JPEG_REPEAT
+    thread_counts = sorted({1, min(len(paths), os.cpu_count() or 1)})
     timing = {}
-    for threads in sorted({1, min(len(paths), os.cpu_count() or 1)}):
+    for threads in thread_counts:
         native.decode_batch(paths[:len(names)], threads=threads)   # warm
         t0 = time.perf_counter()
         native.decode_batch(paths, threads=threads)
@@ -2281,12 +2314,16 @@ def phase_jpeg_check(card: str) -> None:
         for _ in range(JPEG_REPEAT):
             native.decode_one(path)
         per_file[name] = (time.perf_counter() - t0) * 1e3 / JPEG_REPEAT
+    frames = [decode_bench.time_decode(
+        str(fixture_trees.TESTDATA / name), denom, threads, JPEG_REPEAT)
+        for name in fixture_trees.BDD_FRAMES for denom in native.DENOMS
+        for threads in thread_counts]
     emit({"phase": "jpeg_check", "card": card, "build_s": build_s,
           "library": native.library_path().name,
-          "hashes_equal": len(names), "refused": refused,
+          "hashes_equal": checked, "refused": refused,
           "images": len(paths), "megapixels": pixels / 1e6,
           "cpu_count": os.cpu_count(), "decode_batch": timing,
-          "decode_one_ms": per_file})
+          "decode_one_ms": per_file, "frames_ms_per_image": frames})
 
 
 def predict_after(card: str, out: dict):
@@ -2363,6 +2400,7 @@ def predict_after(card: str, out: dict):
 
 TREE_WRITERS = {"VOC": fixture_trees.write_voc_tree,
                 "COCO": fixture_trees.write_coco_tree,
+                "BDD100K": fixture_trees.write_bdd100k_tree,
                 "WiderPerson": fixture_trees.write_widerperson_tree}
 
 
@@ -2437,6 +2475,47 @@ def cache_after(card: str, builds: list):
               "build_img_per_s": sum(b["images"] for b in built)
               / sum(b["seconds"] for b in built),
               "split": split, "ring": rings})
+    return after
+
+
+def scaled_after(card: str):
+    """``after`` for ``trainer_bdd_ssd``: one fused batch of the train
+    loader's first files at the run's size (``max_denom`` the Loader's)
+    equals ``preproc_batch`` of ``decode_one(path, denom=BDD_DENOM)`` on
+    the same files bit for bit, and not the full-scale decode's batch; its
+    orig sizes are the files' own."""
+    def after(argv):
+        cfg = load_config(argv[0], {k: cli_run._coerce(v) for k, v in
+                                    zip(argv[2::3], argv[3::3])})
+        loader = build_datamodule(cfg).train_dataloader()
+        S = cfg.effective_img_size
+        paths = [loader.parser.record(int(i))[0]
+                 for i in loader.indices[:loader.batch_size]]
+        got, ows, ohs, scales, _, _ = native.decode_preproc_batch(
+            paths, S, loader.letterbox, max_denom=native.MAX_DENOM)
+        reduced = [native.decode_one(p, BDD_DENOM) for p in paths]
+        want = native.preproc_batch(reduced, S, loader.letterbox)[0]
+        full = native.decode_preproc_batch(paths, S, loader.letterbox)[0]
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"the fused batch differs from preproc_batch of the 1/"
+                f"{BDD_DENOM} decodes by up to "
+                f"{float(np.abs(got - want).max())}")
+        if np.array_equal(got, full):
+            raise AssertionError("the fused batch equals the full-scale "
+                                 "decode's: the Loader did not scale")
+        sizes = {(int(w), int(h)) for w, h in zip(ows, ohs)}
+        if sizes != {(1280, 720)} or {im.shape[:2] for im in reduced} != \
+                {(360, 640)}:
+            raise AssertionError(f"orig sizes {sizes}, reduced "
+                                 f"{[im.shape for im in reduced][:2]}")
+        progressive = sum(open(p, "rb").read().find(b"\xff\xc2") >= 0
+                          for p in paths)
+        emit({"phase": "bdd_scaled_batch", "card": card, "img": S,
+              "batch": len(paths), "progressive_files": progressive,
+              "denom": BDD_DENOM, "orig_sizes": sorted(sizes),
+              "bit_equal_to_decode_one_denom": True,
+              "max_abs_diff_full_scale": float(np.abs(got - full).max())})
     return after
 
 
@@ -2921,6 +3000,9 @@ def main(argv=None) -> int:
     for name, sets in TRAINER_OPTIONS_EPOCH_SETS.items():
         fit_options[name] = phase_trainer_real(
             card, f"trainer_options_{name.lower()}", sets, COCO_TREE)
+    fit_bdd = phase_trainer_real(card, "trainer_bdd_ssd",
+                                 TRAINER_BDD_SSD_SETS, BDD_TREE,
+                                 scaled_after(card))
     tuner = fit_options["SGD"]["tuner"]
     emit({"phase": "trainer_options", "card": card,
           "lr_suggested": tuner["lr"], "lr_find_s": tuner["lr_find_s"],
@@ -2970,6 +3052,7 @@ def main(argv=None) -> int:
         "launches_trainer_widerperson": fit_wider["launches"]["greedy_nms"],
         **{f"launches_trainer_options_{k.lower()}": v["launches"]
            ["greedy_nms"] for k, v in fit_options.items()},
+        "launches_trainer_bdd_ssd": fit_bdd["launches"]["greedy_nms"],
         "launches_predict_cli": predicted["launches"]["greedy_nms"],
         "keep_equal": True,
         "max_abs_err": err, "max_abs_box_err": err,
@@ -3006,6 +3089,7 @@ def main(argv=None) -> int:
             fit_wider["launches"]["affine_warp"],
         **{f"launches_trainer_options_{k.lower()}": v["launches"]
            ["affine_warp"] for k, v in fit_options.items()},
+        "launches_trainer_bdd_ssd": fit_bdd["launches"]["affine_warp"],
         "launches_remat_check": remat["launches"],
         "max_abs_err": warp_err,
         "ms": warp["ms"], "plain_ms": warp["plain_ms"],

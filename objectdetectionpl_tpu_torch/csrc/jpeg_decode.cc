@@ -1,23 +1,33 @@
-// Baseline sequential JPEG decoder (ITU T.81), host C++17.
+// Sequential and progressive JPEG decoder (ITU T.81), host C++17.
 //
-// Decodes a JPEG file at full scale to packed 8-bit RGB, equal bit for bit
-// to libjpeg-turbo's default decompression to RGB (what cv2.imread and PIL
-// give): the ISLOW integer IDCT with its range-limit table, "fancy"
-// triangle upsampling for h2v1, h1v2 and h2v2 chroma, box replication for
-// other integer factors, and the fixed-point YCbCr->RGB tables.
+// Decodes a JPEG file to packed 8-bit RGB at 1/1, 1/2, 1/4 or 1/8 scale,
+// equal bit for bit to libjpeg-turbo's decompression to RGB with that
+// scale_denom (what cv2.imread, with IMREAD_REDUCED_COLOR_2/4/8 for the
+// reduced scales, and PIL give): every scan's coefficients go into one
+// buffer a component (libjpeg's jdcoefct.c), dequantisation and the IDCT
+// run once after the last scan -- the ISLOW IDCT at full scale, the reduced
+// jidctred.c IDCTs (4x4, 2x2, 1x1) below it, each with the range-limit
+// table -- then the upsampler that libjpeg's jdsample.c picks at that scale
+// ("fancy" triangle upsampling for h2v1, h1v2 and h2v2 chroma, box
+// replication otherwise) and the fixed-point YCbCr->RGB tables.
 //
-// Supported: SOF0/SOF1 with 8-bit samples, 1 or 3 components, sampling
-// factors 1..4, DQT (8- and 16-bit), DHT, DRI and restart markers, one
-// interleaved scan holding every component.  Everything else (progressive,
-// lossless, hierarchical, arithmetic coding, 12-bit samples, 4 components,
-// several scans, data that ends before the last MCU) is an error naming the
-// marker or the reason.  EXIF orientation is not applied.
+// Supported: SOF0/SOF1 (sequential, one scan or several, interleaved or
+// not) and SOF2 (progressive Huffman: DC first and refine scans,
+// interleaved or not, AC first and refine scans with EOB runs, libjpeg's
+// jdphuff.c) with 8-bit samples, 1 or 3 components, sampling factors 1..4,
+// DQT (8- and 16-bit), DHT and DRI between scans, restart markers.
+// Everything else (lossless, hierarchical, arithmetic coding, 12-bit
+// samples, 4 components, data that ends before the last MCU, a progressive
+// file whose scans leave coefficient bits unsent, which libjpeg would
+// smooth) is an error naming the marker or the reason.  EXIF orientation
+// is not applied.
 //
 // C interface (one call per batch, on a pool of threads):
-//   jpeg_decode_batch(paths, n, threads, pixels, ws, hs, codes, msgs, msg_len)
-//     each worker reads file i once, parses it and decodes it into a
-//     buffer of hs[i]*ws[i]*3 bytes that it allocates: pixels[i], which the
-//     caller releases with jpeg_free;
+//   jpeg_decode_batch(paths, n, threads, denom, pixels, ws, hs, codes,
+//                     msgs, msg_len)
+//     each worker reads file i once, parses it and decodes it at 1/denom
+//     into a buffer of hs[i]*ws[i]*3 bytes that it allocates: pixels[i],
+//     which the caller releases with jpeg_free;
 //   jpeg_free(pixel_buffer).
 // A file that fails leaves pixels[i] null and sets codes[i] (JPEG_OK, ...)
 // and a message at msgs + i * msg_len.
@@ -176,27 +186,37 @@ class BitReader {
   void restart(int expected) {
     buf_ = 0;
     bits_ = fake_ = 0;
-    if (marker_ < 0) {
-      // the padding byte(s) before the marker were not read yet
-      while (p_ < end_) {
-        if (*p_++ != 0xFF) continue;
-        while (p_ < end_ && *p_ == 0xFF) ++p_;
-        if (p_ < end_ && *p_ != 0) {
-          marker_ = *p_++;
-          break;
-        }
-      }
-    }
+    if (marker_ < 0) find_marker();
     if (marker_ != 0xD0 + expected)
       fail(JPEG_CORRUPT, "expected restart marker " +
                              hex_marker(0xD0 + expected) + ", found " +
-                             (marker_ < 0 || marker_ > 0xFF
-                                  ? std::string("the end of the file")
-                                          : hex_marker(marker_)));
+                             (marker_ > 0xFF ? std::string("the end of the file")
+                                             : hex_marker(marker_)));
     marker_ = -1;
   }
 
+  // At the scan's end: where the marker after its data begins (its 0xFF),
+  // or the end of the file.  Bytes before the marker are skipped, as
+  // libjpeg skips them.
+  const uint8_t* marker_start() {
+    if (marker_ < 0) find_marker();
+    return marker_ > 0xFF ? end_ : p_ - 2;
+  }
+
  private:
+  // The next marker past the data read so far (0x100: none before the end)
+  void find_marker() {
+    marker_ = 0x100;
+    while (p_ < end_) {
+      if (*p_++ != 0xFF) continue;
+      while (p_ < end_ && *p_ == 0xFF) ++p_;
+      if (p_ < end_ && *p_ != 0) {
+        marker_ = *p_++;
+        return;
+      }
+    }
+  }
+
   void fill() {
     while (bits_ <= 56) {
       uint32_t c = 0;
@@ -239,24 +259,35 @@ inline int extend(uint32_t v, int s) {
 }
 
 // ---------------------------------------------------------------------------
-// ISLOW inverse DCT: libjpeg's jidctint.c arithmetic (CONST_BITS 13,
-// PASS1_BITS 2), with the post-IDCT range-limit table: the output index is
-// masked to 10 bits, so values far out of range wrap as libjpeg's do.
+// Inverse DCTs: libjpeg's jidctint.c (ISLOW, 8x8) and jidctred.c (4x4,
+// 2x2, 1x1) arithmetic, CONST_BITS 13 and PASS1_BITS 2, each with the
+// post-IDCT range-limit table: the output index is masked to 10 bits, so
+// values far out of range wrap as libjpeg's do.
 
 constexpr int kConstBits = 13;
 constexpr int kPass1Bits = 2;
+constexpr int64_t F_0_211164243 = 1730;
 constexpr int64_t F_0_298631336 = 2446;
 constexpr int64_t F_0_390180644 = 3196;
+constexpr int64_t F_0_509795579 = 4176;
 constexpr int64_t F_0_541196100 = 4433;
+constexpr int64_t F_0_601344887 = 4926;
+constexpr int64_t F_0_720959822 = 5906;
 constexpr int64_t F_0_765366865 = 6270;
+constexpr int64_t F_0_850430095 = 6967;
 constexpr int64_t F_0_899976223 = 7373;
+constexpr int64_t F_1_061594337 = 8697;
 constexpr int64_t F_1_175875602 = 9633;
+constexpr int64_t F_1_272758580 = 10426;
+constexpr int64_t F_1_451774981 = 11893;
 constexpr int64_t F_1_501321110 = 12299;
 constexpr int64_t F_1_847759065 = 15137;
 constexpr int64_t F_1_961570560 = 16069;
 constexpr int64_t F_2_053119869 = 16819;
+constexpr int64_t F_2_172734803 = 17799;
 constexpr int64_t F_2_562915447 = 20995;
 constexpr int64_t F_3_072711026 = 25172;
+constexpr int64_t F_3_624509785 = 29692;
 
 inline int64_t descale(int64_t x, int n) {
   return (x + (int64_t{1} << (n - 1))) >> n;
@@ -275,6 +306,10 @@ struct RangeTable {
   }
 };
 const RangeTable kRange;
+
+inline uint8_t range_limit(int64_t x) {
+  return kRange.idct[static_cast<int>(x) & 1023];
+}
 
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
                 int stride) {
@@ -334,13 +369,11 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
     ws[4 * 8 + c] = static_cast<int>(descale(tmp13 - tmp0, n));
   }
   constexpr int n2 = kConstBits + kPass1Bits + 3;
-  const uint8_t* lim = kRange.idct;
   for (int r = 0; r < 8; ++r) {
     const int* w = ws + r * 8;
     uint8_t* o = out + r * stride;
     if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      uint8_t v = lim[static_cast<int>(descale(w[0], kPass1Bits + 3)) & 1023];
-      std::memset(o, v, 8);
+      std::memset(o, range_limit(descale(w[0], kPass1Bits + 3)), 8);
       continue;
     }
     int64_t z2 = w[2], z3 = w[6];
@@ -374,15 +407,110 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
     tmp1 += z2 + z4;
     tmp2 += z2 + z3;
     tmp3 += z1 + z4;
-    o[0] = lim[static_cast<int>(descale(tmp10 + tmp3, n2)) & 1023];
-    o[7] = lim[static_cast<int>(descale(tmp10 - tmp3, n2)) & 1023];
-    o[1] = lim[static_cast<int>(descale(tmp11 + tmp2, n2)) & 1023];
-    o[6] = lim[static_cast<int>(descale(tmp11 - tmp2, n2)) & 1023];
-    o[2] = lim[static_cast<int>(descale(tmp12 + tmp1, n2)) & 1023];
-    o[5] = lim[static_cast<int>(descale(tmp12 - tmp1, n2)) & 1023];
-    o[3] = lim[static_cast<int>(descale(tmp13 + tmp0, n2)) & 1023];
-    o[4] = lim[static_cast<int>(descale(tmp13 - tmp0, n2)) & 1023];
+    o[0] = range_limit(descale(tmp10 + tmp3, n2));
+    o[7] = range_limit(descale(tmp10 - tmp3, n2));
+    o[1] = range_limit(descale(tmp11 + tmp2, n2));
+    o[6] = range_limit(descale(tmp11 - tmp2, n2));
+    o[2] = range_limit(descale(tmp12 + tmp1, n2));
+    o[5] = range_limit(descale(tmp12 - tmp1, n2));
+    o[3] = range_limit(descale(tmp13 + tmp0, n2));
+    o[4] = range_limit(descale(tmp13 - tmp0, n2));
   }
+}
+
+// jidctred.c's jpeg_idct_4x4: the 4-point IDCT of the even-numbered and
+// odd coefficients, row and column 4 left out.
+void idct_4x4(const int16_t* in, const uint16_t* q, uint8_t* out,
+              int stride) {
+  int ws[8 * 4];
+  for (int c = 0; c < 8; ++c) {
+    if (c == 4) continue;           // the second pass does not use it
+    const int16_t* col = in + c;
+    const uint16_t* qc = q + c;
+    auto dq = [&](int r) { return static_cast<int64_t>(col[8 * r]) * qc[8 * r]; };
+    if (!col[8] && !col[16] && !col[24] && !col[40] && !col[48] &&
+        !col[56]) {
+      const int dc = static_cast<int>(dq(0) * (1 << kPass1Bits));
+      for (int r = 0; r < 4; ++r) ws[r * 8 + c] = dc;
+      continue;
+    }
+    int64_t tmp0 = dq(0) * (int64_t{1} << (kConstBits + 1));
+    int64_t tmp2 = dq(2) * F_1_847759065 + dq(6) * -F_0_765366865;
+    const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    const int64_t z1 = dq(7), z2 = dq(5), z3 = dq(3), z4 = dq(1);
+    tmp0 = z1 * -F_0_211164243 + z2 * F_1_451774981 + z3 * -F_2_172734803 +
+           z4 * F_1_061594337;
+    tmp2 = z1 * -F_0_509795579 + z2 * -F_0_601344887 + z3 * F_0_899976223 +
+           z4 * F_2_562915447;
+    constexpr int n = kConstBits - kPass1Bits + 1;
+    ws[0 * 8 + c] = static_cast<int>(descale(tmp10 + tmp2, n));
+    ws[3 * 8 + c] = static_cast<int>(descale(tmp10 - tmp2, n));
+    ws[1 * 8 + c] = static_cast<int>(descale(tmp12 + tmp0, n));
+    ws[2 * 8 + c] = static_cast<int>(descale(tmp12 - tmp0, n));
+  }
+  constexpr int n2 = kConstBits + kPass1Bits + 3 + 1;
+  for (int r = 0; r < 4; ++r) {
+    const int* w = ws + r * 8;
+    uint8_t* o = out + r * stride;
+    if (!w[1] && !w[2] && !w[3] && !w[5] && !w[6] && !w[7]) {
+      std::memset(o, range_limit(descale(w[0], kPass1Bits + 3)), 4);
+      continue;
+    }
+    int64_t tmp0 = int64_t{w[0]} * (int64_t{1} << (kConstBits + 1));
+    int64_t tmp2 = w[2] * F_1_847759065 + w[6] * -F_0_765366865;
+    const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    const int64_t z1 = w[7], z2 = w[5], z3 = w[3], z4 = w[1];
+    tmp0 = z1 * -F_0_211164243 + z2 * F_1_451774981 + z3 * -F_2_172734803 +
+           z4 * F_1_061594337;
+    tmp2 = z1 * -F_0_509795579 + z2 * -F_0_601344887 + z3 * F_0_899976223 +
+           z4 * F_2_562915447;
+    o[0] = range_limit(descale(tmp10 + tmp2, n2));
+    o[3] = range_limit(descale(tmp10 - tmp2, n2));
+    o[1] = range_limit(descale(tmp12 + tmp0, n2));
+    o[2] = range_limit(descale(tmp12 - tmp0, n2));
+  }
+}
+
+// jidctred.c's jpeg_idct_2x2: the DC and the odd coefficients only.
+void idct_2x2(const int16_t* in, const uint16_t* q, uint8_t* out,
+              int stride) {
+  int ws[8 * 2];
+  for (int c = 0; c < 8; ++c) {
+    if (c == 2 || c == 4 || c == 6) continue;
+    const int16_t* col = in + c;
+    const uint16_t* qc = q + c;
+    auto dq = [&](int r) { return static_cast<int64_t>(col[8 * r]) * qc[8 * r]; };
+    if (!col[8] && !col[24] && !col[40] && !col[56]) {
+      const int dc = static_cast<int>(dq(0) * (1 << kPass1Bits));
+      ws[c] = ws[8 + c] = dc;
+      continue;
+    }
+    const int64_t tmp10 = dq(0) * (int64_t{1} << (kConstBits + 2));
+    const int64_t tmp0 = dq(7) * -F_0_720959822 + dq(5) * F_0_850430095 +
+                         dq(3) * -F_1_272758580 + dq(1) * F_3_624509785;
+    constexpr int n = kConstBits - kPass1Bits + 2;
+    ws[c] = static_cast<int>(descale(tmp10 + tmp0, n));
+    ws[8 + c] = static_cast<int>(descale(tmp10 - tmp0, n));
+  }
+  constexpr int n2 = kConstBits + kPass1Bits + 3 + 2;
+  for (int r = 0; r < 2; ++r) {
+    const int* w = ws + r * 8;
+    uint8_t* o = out + r * stride;
+    if (!w[1] && !w[3] && !w[5] && !w[7]) {
+      o[0] = o[1] = range_limit(descale(w[0], kPass1Bits + 3));
+      continue;
+    }
+    const int64_t tmp10 = int64_t{w[0]} * (int64_t{1} << (kConstBits + 2));
+    const int64_t tmp0 = w[7] * -F_0_720959822 + w[5] * F_0_850430095 +
+                         w[3] * -F_1_272758580 + w[1] * F_3_624509785;
+    o[0] = range_limit(descale(tmp10 + tmp0, n2));
+    o[1] = range_limit(descale(tmp10 - tmp0, n2));
+  }
+}
+
+// jidctred.c's jpeg_idct_1x1: the block's mean, DC / 8.
+void idct_1x1(const int16_t* in, const uint16_t* q, uint8_t* out, int) {
+  *out = range_limit(descale(static_cast<int64_t>(in[0]) * q[0], 3));
 }
 
 // ---------------------------------------------------------------------------
@@ -414,15 +542,33 @@ const ColorTables kColor;
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0, td = 0, ta = 0;
-  int dw = 0, dh = 0;        // samples of the component inside the image
-  int stride = 0, rows = 0;  // the plane: whole MCUs' blocks
-  std::vector<uint8_t> plane;
-  int dc = 0;
+  int bw = 0, bh = 0;          // blocks inside the image
+  int gw = 0, gh = 0;          // the coefficient grid: whole MCUs' blocks
+  int16_t* coef = nullptr;     // gh x gw blocks of 64, natural order
+  uint16_t q[64];              // the quantization table of its first scan
+  bool latched = false;        // scanned
+  int bits[64];                // progressive: the Al of the last scan of
+                               // each coefficient, -1 before any
+  int dc = 0;                  // the DC predictor of the current scan
+  // the output: the IDCT's size, the component's samples at that scale and
+  // its plane (whole blocks)
+  int ssize = 8, dw = 0, dh = 0, stride = 0;
+
+  int16_t* block(int row, int col) const {
+    return coef + (static_cast<size_t>(row) * gw + col) * 64;
+  }
+};
+
+// A component's samples at the output size: a plane and its row stride.
+struct View {
+  const uint8_t* p;
+  int stride;
 };
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t size) : p_(data), end_(data + size) {}
+  Decoder(const uint8_t* data, size_t size, Buffers* b)
+      : p_(data), end_(data + size), b_(b) {}
 
   // Reads markers up to the frame header: the image's size.
   void header(int* w, int* h) {
@@ -434,10 +580,12 @@ class Decoder {
     *h = height_;
   }
 
-  // Decodes the whole image into rgb (height * width * 3 bytes).
-  void decode(uint8_t* rgb) {
-    while (!scanned_) segment();
-    upsample_and_convert(rgb);
+  // Reads every scan, then writes the image at 1/denom scale into rgb
+  // (ceil(height / denom) * ceil(width / denom) * 3 bytes).
+  void decode(int denom, uint8_t* rgb) {
+    while (!done_) segment();
+    check_complete();
+    output(8 / denom, rgb);
   }
 
  private:
@@ -455,6 +603,11 @@ class Decoder {
 
   // One marker and its segment.
   void segment() {
+    if (scans_ && p_ >= end_) {
+      // libjpeg reads the end of the file after a scan as an EOI
+      eoi_missing_ = done_ = true;
+      return;
+    }
     int c = byte();
     if (c != 0xFF) {
       // libjpeg skips garbage before a marker with a warning
@@ -462,9 +615,7 @@ class Decoder {
     }
     while (c == 0xFF) c = byte();
     const int m = c;
-    if (m == 0xC0 || m == 0xC1) return sof(m);
-    if (m == 0xC2)
-      fail(JPEG_UNSUPPORTED, "progressive JPEG (SOF2 marker 0xFFC2)");
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2) return sof(m);
     if ((m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC))
       fail(JPEG_UNSUPPORTED,
            "SOF marker " + hex_marker(m) +
@@ -475,7 +626,11 @@ class Decoder {
     if (m == 0xDB) return dqt();
     if (m == 0xDD) return dri();
     if (m == 0xDA) return sos();
-    if (m == 0xD9) fail(JPEG_CORRUPT, "EOI marker before any image data");
+    if (m == 0xD9) {
+      if (!scans_) fail(JPEG_CORRUPT, "EOI marker before any image data");
+      done_ = true;
+      return;
+    }
     if (m == 0xDC)
       fail(JPEG_UNSUPPORTED,
            "DNL marker 0xFFDC (height given after the scan)");
@@ -575,6 +730,7 @@ class Decoder {
     if (height_ == 0)
       fail(JPEG_UNSUPPORTED, "height 0 in the SOF (DNL marker)");
     if (width_ == 0) fail(JPEG_CORRUPT, "width 0 in the SOF");
+    progressive_ = m == 0xC2;
     comps_.resize(nf);
     for (int i = 0; i < nf; ++i) {
       Component& c = comps_[i];
@@ -588,7 +744,30 @@ class Decoder {
       hmax_ = std::max(hmax_, c.h);
       vmax_ = std::max(vmax_, c.v);
     }
+    // an interleaved scan covers the image in Hmax x Vmax blocks an MCU,
+    // a component's own scan its blocks inside the image (jdinput.c)
+    mcux_ = ceil_div(width_, hmax_ * 8);
+    mcuy_ = ceil_div(height_, vmax_ * 8);
+    size_t total = 0;
+    for (Component& c : comps_) {
+      c.bw = ceil_div(width_ * c.h, hmax_ * 8);
+      c.bh = ceil_div(height_ * c.v, vmax_ * 8);
+      c.gw = mcux_ * c.h;
+      c.gh = mcuy_ * c.v;
+      total += static_cast<size_t>(c.gw) * c.gh * 64;
+      std::fill(c.bits, c.bits + 64, -1);
+    }
+    b_->coef.assign(total, 0);
+    int16_t* next = b_->coef.data();
+    for (Component& c : comps_) {
+      c.coef = next;
+      next += static_cast<size_t>(c.gw) * c.gh * 64;
+    }
     frame_ = true;
+  }
+
+  static int ceil_div(int64_t a, int64_t b) {
+    return static_cast<int>((a + b - 1) / b);
   }
 
   void sos() {
@@ -598,11 +777,6 @@ class Decoder {
     int ns = len > 0 ? d[0] : 0;
     if (ns < 1 || ns > 4 || len != 4 + 2 * ns)
       fail(JPEG_CORRUPT, "bad SOS length");
-    if (ns != static_cast<int>(comps_.size()))
-      fail(JPEG_UNSUPPORTED,
-           "a scan of " + std::to_string(ns) + " of " +
-               std::to_string(comps_.size()) +
-               " components (non-interleaved multi-scan JPEG)");
     std::vector<Component*> scan;
     for (int i = 0; i < ns; ++i) {
       int id = d[1 + 2 * i];
@@ -618,103 +792,286 @@ class Decoder {
         fail(JPEG_CORRUPT, "bad Huffman table index");
       scan.push_back(c);
     }
-    int ss = d[1 + 2 * ns], se = d[2 + 2 * ns], ah = d[3 + 2 * ns] >> 4,
-        al = d[3 + 2 * ns] & 15;
-    if (ss != 0 || se != 63 || ah != 0 || al != 0)
-      fail(JPEG_UNSUPPORTED, "a scan that is not sequential (Ss/Se/Ah/Al)");
-    for (Component* c : scan) {
-      if (!quant_defined_[c->tq])
-        fail(JPEG_CORRUPT, "quantization table " + std::to_string(c->tq) +
-                               " not defined");
-      if (!huff_[0][c->td].defined || !huff_[1][c->ta].defined)
-        fail(JPEG_UNSUPPORTED, "Huffman table not defined before the scan");
-    }
-    scan_entropy(scan);
-    scanned_ = true;
-  }
-
-  void scan_entropy(const std::vector<Component*>& scan) {
-    const bool single = scan.size() == 1;
     int blocks_in_mcu = 0;
-    for (Component* c : scan) blocks_in_mcu += single ? 1 : c->h * c->v;
+    for (Component* c : scan) blocks_in_mcu += ns == 1 ? 1 : c->h * c->v;
     if (blocks_in_mcu > 10)
       fail(JPEG_UNSUPPORTED, "sampling factors too large for an "
                              "interleaved scan");
-    // a single-component scan has one block per MCU over the component's
-    // own size; an interleaved one covers the image in Hmax x Vmax blocks
-    const int hs = single ? scan[0]->h : 1, vs = single ? scan[0]->v : 1;
-    const int mcux = (width_ * hs + hmax_ * 8 - 1) / (hmax_ * 8);
-    const int mcuy = (height_ * vs + vmax_ * 8 - 1) / (vmax_ * 8);
-    for (Component& c : comps_) {
-      c.dw = (width_ * c.h + hmax_ - 1) / hmax_;
-      c.dh = (height_ * c.v + vmax_ - 1) / vmax_;
-      int bw = single ? mcux : mcux * c.h, bh = single ? mcuy : mcuy * c.v;
-      c.stride = bw * 8;
-      c.rows = bh * 8;
-      c.plane.assign(static_cast<size_t>(c.stride) * c.rows, 0);
-      c.dc = 0;
+    const int ss = d[1 + 2 * ns], se = d[2 + 2 * ns],
+              ah = d[3 + 2 * ns] >> 4, al = d[3 + 2 * ns] & 15;
+    for (Component* c : scan) {
+      if (!progressive_ && c->latched)
+        fail(JPEG_CORRUPT, "a component in two sequential scans");
+      // libjpeg latches a component's table at its first scan
+      if (c->latched) continue;
+      if (!quant_defined_[c->tq])
+        fail(JPEG_CORRUPT, "quantization table " + std::to_string(c->tq) +
+                               " not defined");
+      std::memcpy(c->q, quant_[c->tq], sizeof(c->q));
+      c->latched = true;
     }
     BitReader br(p_, end_);
-    int16_t block[64];
+    for (Component* c : scan) c->dc = 0;
+    eobrun_ = 0;
+    if (progressive_) {
+      progressive_scan(scan, &br, ss, se, ah, al);
+    } else {
+      // libjpeg takes any Ss/Se/Ah/Al of a sequential scan as 0/63/0/0
+      // (with a warning)
+      for (Component* c : scan) need_tables(*c, true, true);
+      sequential_scan(scan, &br);
+    }
+    p_ = br.marker_start();
+    ++scans_;
+  }
+
+  void need_tables(const Component& c, bool dc, bool ac) const {
+    if ((dc && !huff_[0][c.td].defined) || (ac && !huff_[1][c.ta].defined))
+      fail(JPEG_UNSUPPORTED, "Huffman table not defined before the scan");
+  }
+
+  // Runs block(component, coefficients) over the scan's blocks in MCU
+  // order, with its restart intervals: a scan of one component covers its
+  // blocks inside the image, an interleaved one whole MCUs.
+  template <typename Block>
+  void run_scan(const std::vector<Component*>& scan, BitReader* br,
+                Block block) {
+    const bool single = scan.size() == 1;
+    const int mcux = single ? scan[0]->bw : mcux_;
+    const int mcuy = single ? scan[0]->bh : mcuy_;
     int restarts_left = restart_interval_;
     int next_rst = 0;
-    const int total = mcux * mcuy;
-    for (int mcu = 0; mcu < total; ++mcu) {
+    const int64_t total = static_cast<int64_t>(mcux) * mcuy;
+    for (int64_t mcu = 0; mcu < total; ++mcu) {
       if (restart_interval_) {
         if (restarts_left == 0) {
-          br.restart(next_rst);
+          br->restart(next_rst);
           next_rst = (next_rst + 1) & 7;
           for (Component* c : scan) c->dc = 0;
+          eobrun_ = 0;
           restarts_left = restart_interval_;
         }
         --restarts_left;
       }
-      const int mx = mcu % mcux, my = mcu / mcux;
-      for (Component* c : scan) {
-        const int bh = single ? 1 : c->h, bv = single ? 1 : c->v;
-        const HuffTable& dct = huff_[0][c->td];
-        const HuffTable& act = huff_[1][c->ta];
-        const uint16_t* q = quant_[c->tq];
-        for (int by = 0; by < bv; ++by) {
-          for (int bx = 0; bx < bh; ++bx) {
-            std::memset(block, 0, sizeof(block));
-            int s = br.decode(dct);
-            if (s) c->dc += extend(br.get(s), s);
-            block[0] = static_cast<int16_t>(c->dc);
-            for (int k = 1; k < 64; ++k) {
-              int rs = br.decode(act);
-              int r = rs >> 4;
-              s = rs & 15;
-              if (s) {
-                k += r;
-                block[kNatural[k]] =
-                    static_cast<int16_t>(extend(br.get(s), s));
-              } else {
-                if (r != 15) break;
-                k += 15;
-              }
-            }
-            const int col = (mx * bh + bx) * 8, row = (my * bv + by) * 8;
-            idct_islow(block, q, c->plane.data() + static_cast<size_t>(row) *
-                                                   c->stride + col, c->stride);
+      const int mx = static_cast<int>(mcu % mcux);
+      const int my = static_cast<int>(mcu / mcux);
+      if (single) {
+        block(scan[0], scan[0]->block(my, mx));
+        continue;
+      }
+      for (Component* c : scan)
+        for (int by = 0; by < c->v; ++by)
+          for (int bx = 0; bx < c->h; ++bx)
+            block(c, c->block(my * c->v + by, mx * c->h + bx));
+    }
+  }
+
+  void sequential_scan(const std::vector<Component*>& scan, BitReader* br) {
+    run_scan(scan, br, [&](Component* c, int16_t* blk) {
+      int s = br->decode(huff_[0][c->td]);
+      if (s) c->dc += extend(br->get(s), s);
+      blk[0] = static_cast<int16_t>(c->dc);
+      const HuffTable& act = huff_[1][c->ta];
+      for (int k = 1; k < 64; ++k) {
+        int rs = br->decode(act);
+        int r = rs >> 4;
+        s = rs & 15;
+        if (s) {
+          k += r;
+          blk[kNatural[k]] = static_cast<int16_t>(extend(br->get(s), s));
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    });
+  }
+
+  // libjpeg's jdphuff.c: the checks of start_pass_phuff_decoder (where
+  // libjpeg only warns of a bad progression, this decoder refuses it),
+  // then one of the four kinds of scan.
+  void progressive_scan(const std::vector<Component*>& scan, BitReader* br,
+                        int ss, int se, int ah, int al) {
+    const bool dc_band = ss == 0;
+    if ((dc_band ? se != 0 : ss > se || se > 63 || scan.size() != 1) ||
+        (ah != 0 && al != ah - 1) || al > 13)
+      fail(JPEG_CORRUPT, "bad progressive scan parameters Ss=" +
+                             std::to_string(ss) + " Se=" + std::to_string(se) +
+                             " Ah=" + std::to_string(ah) +
+                             " Al=" + std::to_string(al));
+    for (Component* c : scan) {
+      if (!dc_band && c->bits[0] < 0)
+        fail(JPEG_CORRUPT, "an AC scan of component " + std::to_string(c->id) +
+                               " before its DC scan");
+      for (int k = ss; k <= se; ++k) {
+        if (ah != std::max(c->bits[k], 0))
+          fail(JPEG_CORRUPT,
+               "scan Ah=" + std::to_string(ah) + " does not follow "
+                   "coefficient " + std::to_string(k) + " of component " +
+                   std::to_string(c->id) +
+                   (c->bits[k] < 0 ? std::string(" (no scan yet)")
+                                   : "'s Al=" + std::to_string(c->bits[k])));
+        c->bits[k] = al;
+      }
+      need_tables(*c, dc_band && ah == 0, !dc_band);
+    }
+    const int p1 = 1 << al;            // 1 in the bit position coded
+    const int m1 = -p1;                // -1 in it
+    if (dc_band && ah == 0) {
+      run_scan(scan, br, [&](Component* c, int16_t* blk) {
+        int s = br->decode(huff_[0][c->td]);
+        if (s) c->dc += extend(br->get(s), s);
+        blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c->dc) << al);
+      });
+    } else if (dc_band) {
+      run_scan(scan, br, [&](Component*, int16_t* blk) {
+        if (br->get(1)) blk[0] = static_cast<int16_t>(blk[0] | p1);
+      });
+    } else if (ah == 0) {
+      const HuffTable& act = huff_[1][scan[0]->ta];
+      run_scan(scan, br, [&](Component*, int16_t* blk) {
+        if (eobrun_ > 0) {
+          --eobrun_;
+          return;
+        }
+        for (int k = ss; k <= se; ++k) {
+          const int rs = br->decode(act);
+          const int r = rs >> 4, s = rs & 15;
+          if (s) {
+            k += r;
+            blk[kNatural[k]] = static_cast<int16_t>(
+                static_cast<uint32_t>(extend(br->get(s), s)) << al);
+          } else if (r == 15) {
+            k += 15;
+          } else {
+            eobrun_ = (1 << r) + static_cast<int>(br->get(r)) - 1;
+            break;
           }
         }
+      });
+    } else {
+      const HuffTable& act = huff_[1][scan[0]->ta];
+      // a correction bit for a coefficient already nonzero: 1 means its
+      // magnitude grows by p1
+      auto refine = [&](int16_t* coef) {
+        if (br->get(1) && (*coef & p1) == 0)
+          *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+      };
+      run_scan(scan, br, [&](Component*, int16_t* blk) {
+        int k = ss;
+        if (eobrun_ == 0) {
+          for (; k <= se; ++k) {
+            const int rs = br->decode(act);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+              s = br->get(1) ? p1 : m1;     // a newly nonzero coefficient
+            } else if (r != 15) {
+              eobrun_ = (1 << r) + static_cast<int>(br->get(r));
+              break;                        // the EOB run takes the rest
+            }
+            // skip r zero coefficients, refining the nonzero ones passed
+            do {
+              int16_t* coef = blk + kNatural[k];
+              if (*coef != 0) {
+                refine(coef);
+              } else if (--r < 0) {
+                break;
+              }
+              ++k;
+            } while (k <= se);
+            if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+          }
+        }
+        if (eobrun_ > 0) {
+          for (; k <= se; ++k) {
+            int16_t* coef = blk + kNatural[k];
+            if (*coef != 0) refine(coef);
+          }
+          --eobrun_;
+        }
+      });
+    }
+  }
+
+  // Every component scanned and, in a progressive file, every coefficient
+  // bit sent: libjpeg smooths the blocks of a file whose scans leave bits
+  // unsent (jdcoefct.c's block smoothing), which this decoder does not do.
+  void check_complete() const {
+    const std::string truncated = eoi_missing_ ? " (truncated file)" : "";
+    for (const Component& c : comps_) {
+      if (!c.latched)
+        fail(JPEG_CORRUPT, "component " + std::to_string(c.id) +
+                               " has no scan" + truncated);
+      if (!progressive_) continue;
+      for (int k = 0; k < 64; ++k) {
+        if (c.bits[k] == 0) continue;
+        if (eoi_missing_)
+          fail(JPEG_CORRUPT, "file ends before the last scan (truncated "
+                             "file)");
+        fail(JPEG_UNSUPPORTED,
+             "incomplete progressive JPEG: coefficient " + std::to_string(k) +
+                 " of component " + std::to_string(c.id) +
+                 (c.bits[k] < 0 ? std::string(" is never sent")
+                                : " lacks its " + std::to_string(c.bits[k]) +
+                                      " low bits") +
+                 " (libjpeg would smooth the blocks)");
       }
     }
   }
 
-  // One component's sample at (x, y) of the full-size image, as libjpeg's
-  // upsampler for the component's factors computes it, into `out`
-  // (width_ x height_).
-  void upsample(const Component& c, uint8_t* out) const {
-    const int W = width_, H = height_;
-    const uint8_t* pl = c.plane.data();
+  // The IDCT of each component at its scaled size, then upsampling and
+  // colour conversion, as libjpeg's jdmaster.c, jddctmgr.c, jdsample.c and
+  // jdcolor.c do at scale_denom 8 / min_ss.
+  void output(int min_ss, uint8_t* rgb) {
+    const int W = ceil_div(static_cast<int64_t>(width_) * min_ss, 8);
+    const int H = ceil_div(static_cast<int64_t>(height_) * min_ss, 8);
+    View views[3];
+    for (size_t i = 0; i < comps_.size(); ++i) {
+      Component& c = comps_[i];
+      // jdmaster.c: raise a subsampled component's IDCT size instead of
+      // upsampling, while its factors divide the frame's
+      c.ssize = min_ss;
+      while (c.ssize < 8 && (hmax_ * min_ss) % (c.h * c.ssize * 2) == 0 &&
+             (vmax_ * min_ss) % (c.v * c.ssize * 2) == 0)
+        c.ssize *= 2;
+      c.dw = ceil_div(static_cast<int64_t>(width_) * c.h * c.ssize,
+                      hmax_ * 8);
+      c.dh = ceil_div(static_cast<int64_t>(height_) * c.v * c.ssize,
+                      vmax_ * 8);
+      c.stride = c.bw * c.ssize;
+      std::vector<uint8_t>& plane = b_->plane[i];
+      plane.resize(static_cast<size_t>(c.stride) * c.bh * c.ssize);
+      auto idct = c.ssize == 8   ? idct_islow
+                  : c.ssize == 4 ? idct_4x4
+                  : c.ssize == 2 ? idct_2x2
+                                 : idct_1x1;
+      for (int by = 0; by < c.bh; ++by) {
+        uint8_t* row = plane.data() +
+                       static_cast<size_t>(by) * c.ssize * c.stride;
+        for (int bx = 0; bx < c.bw; ++bx)
+          idct(c.block(by, bx), c.q, row + bx * c.ssize, c.stride);
+      }
+      views[i] = upsample(c, plane.data(), &b_->full[i], W, H, min_ss);
+    }
+    convert(views, W, H, rgb);
+  }
+
+  // One component at the output size (W x H), as jdsample.c's upsampler
+  // for its factors at this scale computes it: the component itself when
+  // its samples are the output's, else written into `full`.  "Fancy"
+  // upsampling needs an IDCT size above 1 (jdmainct.c gives no context
+  // rows at 1/8), and for h2v1 and h2v2 a component over 2 samples wide.
+  View upsample(const Component& c, const uint8_t* pl,
+                std::vector<uint8_t>* full, int W, int H, int min_ss) const {
     const int st = c.stride, dw = c.dw, dh = c.dh;
+    const int h_in = c.h * c.ssize / min_ss, v_in = c.v * c.ssize / min_ss;
+    const bool fancy = min_ss > 1;
+    if (h_in == hmax_ && v_in == vmax_) return {pl, st};
+    full->resize(static_cast<size_t>(W) * H);
+    uint8_t* out = full->data();
     auto row = [&](int y) { return pl + static_cast<size_t>(y) * st; };
     auto clamp_row = [&](int y) { return std::min(std::max(y, 0), dh - 1); };
-    if (c.h == hmax_ && c.v == vmax_) {
-      for (int y = 0; y < H; ++y) std::memcpy(out + y * W, row(y), W);
-    } else if (c.h * 2 == hmax_ && c.v == vmax_ && dw > 2) {
+    if (h_in * 2 == hmax_ && v_in == vmax_ && fancy && dw > 2) {
       // h2v1 fancy: 3/4 nearer + 1/4 further sample
       for (int y = 0; y < H; ++y) {
         const uint8_t* in = row(y);
@@ -729,7 +1086,7 @@ class Decoder {
           o[x] = static_cast<uint8_t>(v);
         }
       }
-    } else if (c.h == hmax_ && c.v * 2 == vmax_) {
+    } else if (h_in == hmax_ && v_in * 2 == vmax_ && fancy) {
       // h1v2 fancy (libjpeg-turbo): the row above with bias 1, below with 2
       for (int y = 0; y < H; ++y) {
         int i = y >> 1;
@@ -740,7 +1097,7 @@ class Decoder {
         for (int x = 0; x < W; ++x)
           o[x] = static_cast<uint8_t>((near[x] * 3 + far[x] + bias) >> 2);
       }
-    } else if (c.h * 2 == hmax_ && c.v * 2 == vmax_ && dw > 2) {
+    } else if (h_in * 2 == hmax_ && v_in * 2 == vmax_ && fancy && dw > 2) {
       // h2v2 fancy: triangle filter over the column sums 3*near + far
       std::vector<int> sum(dw);
       for (int y = 0; y < H; ++y) {
@@ -761,9 +1118,10 @@ class Decoder {
           o[x] = static_cast<uint8_t>(v);
         }
       }
-    } else if (hmax_ % c.h == 0 && vmax_ % c.v == 0) {
-      // box replication (also h2v1 / h2v2 at 1 or 2 samples wide)
-      const int he = hmax_ / c.h, ve = vmax_ / c.v;
+    } else if (hmax_ % h_in == 0 && vmax_ % v_in == 0) {
+      // box replication (also h2v1 / h2v2 at 1 or 2 samples wide, and
+      // everything at 1/8)
+      const int he = hmax_ / h_in, ve = vmax_ / v_in;
       for (int y = 0; y < H; ++y) {
         const uint8_t* in = row(y / ve);
         uint8_t* o = out + static_cast<size_t>(y) * W;
@@ -772,37 +1130,41 @@ class Decoder {
     } else {
       fail(JPEG_UNSUPPORTED, "fractional sampling factors");
     }
+    return {out, W};
   }
 
-  void upsample_and_convert(uint8_t* rgb) const {
-    const size_t n = static_cast<size_t>(width_) * height_;
+  void convert(const View* v, int W, int H, uint8_t* rgb) const {
     if (comps_.size() == 1) {
-      std::vector<uint8_t> g(n);
-      upsample(comps_[0], g.data());
-      for (size_t i = 0; i < n; ++i)
-        rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = g[i];
-      return;
-    }
-    std::vector<uint8_t> a(n), b(n), c(n);
-    upsample(comps_[0], a.data());
-    upsample(comps_[1], b.data());
-    upsample(comps_[2], c.data());
-    if (is_rgb()) {
-      for (size_t i = 0; i < n; ++i) {
-        rgb[3 * i] = a[i];
-        rgb[3 * i + 1] = b[i];
-        rgb[3 * i + 2] = c[i];
+      for (int y = 0; y < H; ++y) {
+        const uint8_t* g = v[0].p + static_cast<size_t>(y) * v[0].stride;
+        uint8_t* o = rgb + static_cast<size_t>(y) * W * 3;
+        for (int x = 0; x < W; ++x) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = g[x];
       }
       return;
     }
+    const bool as_rgb = is_rgb();
     const uint8_t* lim = kRange.clamp + 256;
-    for (size_t i = 0; i < n; ++i) {
-      int y = a[i], cb = b[i], cr = c[i];
-      rgb[3 * i] = lim[y + kColor.cr_r[cr]];
-      rgb[3 * i + 1] = lim[y + static_cast<int>(
-                                   (kColor.cb_g[cb] + kColor.cr_g[cr]) >>
-                                   kScaleBits)];
-      rgb[3 * i + 2] = lim[y + kColor.cb_b[cb]];
+    for (int y = 0; y < H; ++y) {
+      const uint8_t* a = v[0].p + static_cast<size_t>(y) * v[0].stride;
+      const uint8_t* b = v[1].p + static_cast<size_t>(y) * v[1].stride;
+      const uint8_t* c = v[2].p + static_cast<size_t>(y) * v[2].stride;
+      uint8_t* o = rgb + static_cast<size_t>(y) * W * 3;
+      if (as_rgb) {
+        for (int x = 0; x < W; ++x) {
+          o[3 * x] = a[x];
+          o[3 * x + 1] = b[x];
+          o[3 * x + 2] = c[x];
+        }
+        continue;
+      }
+      for (int x = 0; x < W; ++x) {
+        int yy = a[x], cb = b[x], cr = c[x];
+        o[3 * x] = lim[yy + kColor.cr_r[cr]];
+        o[3 * x + 1] = lim[yy + static_cast<int>(
+                                    (kColor.cb_g[cb] + kColor.cr_g[cr]) >>
+                                    kScaleBits)];
+        o[3 * x + 2] = lim[yy + kColor.cb_b[cb]];
+      }
     }
   }
 
@@ -816,11 +1178,13 @@ class Decoder {
 
   const uint8_t* p_;
   const uint8_t* end_;
-  bool frame_ = false, scanned_ = false;
+  Buffers* b_;
+  bool frame_ = false, progressive_ = false, done_ = false;
+  bool eoi_missing_ = false;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = -1;
-  int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1;
-  int restart_interval_ = 0;
+  int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
+  int restart_interval_ = 0, scans_ = 0, eobrun_ = 0;
   std::vector<Component> comps_;
   uint16_t quant_[4][64] = {};
   bool quant_defined_[4] = {false, false, false, false};
@@ -845,24 +1209,32 @@ void set_msg(char* msg, int msg_len, const std::string& s) {
   std::snprintf(msg, msg_len, "%s", s.c_str());
 }
 
-// Reads and decodes one file, its bytes into *data, its pixels into the
-// buffer that alloc(bytes) returns (null: out of memory).  Returns a Code.
+// Reads and decodes one file, its bytes into b->data, its pixels at 1/d,
+// d = pick_denom(its size, target, max_denom), into the buffer that
+// alloc(bytes) returns (null: out of memory).  Returns a Code.
 template <typename Alloc>
-int decode_with(const char* path, std::vector<uint8_t>* data, int* w, int* h,
-                char* msg, int msg_len, Alloc alloc) {
-  *w = *h = 0;
+int decode_with(const char* path, Buffers* b, int target, int max_denom,
+                int* w, int* h, int* ow, int* oh, char* msg, int msg_len,
+                Alloc alloc) {
+  *w = *h = *ow = *oh = 0;
   set_msg(msg, msg_len, "");
-  if (!read_file(path, data)) {
+  if (!read_file(path, &b->data)) {
     set_msg(msg, msg_len, std::string("cannot read the file: ") +
                               std::strerror(errno));
     return JPEG_IO;
   }
   try {
-    Decoder d(data->data(), data->size());
-    d.header(w, h);
+    if (max_denom != 1 && max_denom != 2 && max_denom != 4 && max_denom != 8)
+      fail(JPEG_UNSUPPORTED, "scale 1/" + std::to_string(max_denom) +
+                                 " (1/1, 1/2, 1/4 or 1/8)");
+    Decoder d(b->data.data(), b->data.size(), b);
+    d.header(ow, oh);
+    const int denom = pick_denom(*ow, *oh, target, max_denom);
+    *w = (*ow + denom - 1) / denom;
+    *h = (*oh + denom - 1) / denom;
     uint8_t* rgb = alloc(static_cast<size_t>(*w) * *h * 3);
     if (!rgb) throw std::bad_alloc();
-    d.decode(rgb);
+    d.decode(denom, rgb);
     return JPEG_OK;
   } catch (const Error& e) {
     set_msg(msg, msg_len, e.msg);
@@ -873,14 +1245,14 @@ int decode_with(const char* path, std::vector<uint8_t>* data, int* w, int* h,
   }
 }
 
-// One file into a buffer of *h * *w * 3 bytes that it allocates (*pixels,
-// freed with jpeg_free); on an error *pixels is null.
-int decode_file(const char* path, uint8_t** pixels, int* w, int* h, char* msg,
-                int msg_len) {
-  std::vector<uint8_t> data;
+// One file at 1/denom into a buffer of *h * *w * 3 bytes that it allocates
+// (*pixels, freed with jpeg_free); on an error *pixels is null.
+int decode_file(const char* path, Buffers* b, int denom, uint8_t** pixels,
+                int* w, int* h, char* msg, int msg_len) {
   uint8_t* rgb = nullptr;
-  const int code = decode_with(path, &data, w, h, msg, msg_len,
-                               [&](size_t bytes) {
+  int ow, oh;
+  const int code = decode_with(path, b, 0, denom, w, h, &ow, &oh, msg,
+                               msg_len, [&](size_t bytes) {
                                  rgb = static_cast<uint8_t*>(
                                      std::malloc(bytes));
                                  return rgb;
@@ -897,18 +1269,20 @@ int decode_file(const char* path, uint8_t** pixels, int* w, int* h, char* msg,
 
 extern "C" {
 
-// Decodes file i into pixels[i] on up to `threads` threads, each file read
-// once by the thread that decodes it.  A thread takes the next file when it
-// is done with one: files of a batch differ in size, so a fixed share per
-// thread leaves the others waiting on the one that drew the large files.
-void jpeg_decode_batch(const char** paths, int n, int threads,
+// Decodes file i at 1/denom into pixels[i] on up to `threads` threads,
+// each file read once by the thread that decodes it.  A thread takes the
+// next file when it is done with one: files of a batch differ in size, so
+// a fixed share per thread leaves the others waiting on the one that drew
+// the large files.
+void jpeg_decode_batch(const char** paths, int n, int threads, int denom,
                        uint8_t** pixels, int* ws, int* hs, int* codes,
                        char* msgs, int msg_len) {
   const int nt = std::max(1, std::min(threads, n));
   std::atomic<int> next{0};
   auto work = [&] {
+    Buffers b;
     for (int i; (i = next.fetch_add(1)) < n;)
-      codes[i] = decode_file(paths[i], &pixels[i], &ws[i], &hs[i],
+      codes[i] = decode_file(paths[i], &b, denom, &pixels[i], &ws[i], &hs[i],
                              msgs + static_cast<int64_t>(i) * msg_len,
                              msg_len);
   };
@@ -926,11 +1300,19 @@ void jpeg_free(uint8_t* pixels) { std::free(pixels); }
 
 }  // extern "C"
 
-int jpegdec::decode_into(const char* path, std::vector<uint8_t>* data,
-                         std::vector<uint8_t>* rgb, int* w, int* h, char* msg,
-                         int msg_len) {
-  return decode_with(path, data, w, h, msg, msg_len, [&](size_t bytes) {
-    rgb->resize(bytes);
-    return rgb->data();
-  });
+int jpegdec::pick_denom(int w, int h, int target, int max_denom) {
+  int d = 1;
+  while (d < max_denom && w / (d * 2) >= target && h / (d * 2) >= target)
+    d *= 2;
+  return d;
+}
+
+int jpegdec::decode_into(const char* path, Buffers* b, int target,
+                         int max_denom, int* w, int* h, int* orig_w,
+                         int* orig_h, char* msg, int msg_len) {
+  return decode_with(path, b, target, max_denom, w, h, orig_w, orig_h, msg,
+                     msg_len, [&](size_t bytes) {
+                       b->rgb.resize(bytes);
+                       return b->rgb.data();
+                     });
 }

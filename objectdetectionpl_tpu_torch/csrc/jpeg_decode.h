@@ -15,12 +15,29 @@ enum Code {
   JPEG_CORRUPT = 3,      // not a JPEG, truncated or malformed
 };
 
-// Reads the file at `path` into *data and decodes it at full scale into
-// *rgb (resized to *h * *w * 3 bytes of packed RGB); both buffers keep
-// their storage from call to call.  Returns a Code; on an error the reason
-// is written to msg (msg_len bytes, NUL-terminated).
-int decode_into(const char* path, std::vector<uint8_t>* data,
-                std::vector<uint8_t>* rgb, int* w, int* h, char* msg,
+// A worker's buffers, which keep their storage from file to file: the
+// file's bytes, the decoded RGB image and the decoder's own planes.
+struct Buffers {
+  std::vector<uint8_t> data, rgb;
+  std::vector<int16_t> coef;        // every component's DCT coefficients
+  std::vector<uint8_t> plane[3];    // each component after the IDCT
+  std::vector<uint8_t> full[3];     // each upsampled component
+};
+
+// libjpeg's scale_denom for a W x H source and a target of S pixels, as
+// the JAX package's fused loader picks it: the largest power of two d <=
+// max_denom with W / (2d) >= S and H / (2d) >= S at the step to d
+// (integer division).  S = 0 gives max_denom.
+int pick_denom(int w, int h, int target, int max_denom);
+
+// Reads the file at `path` into b->data and decodes it into b->rgb
+// (resized to *h * *w * 3 bytes of packed RGB) at 1/d scale, d =
+// pick_denom(orig_w, orig_h, target, max_denom), d in {1, 2, 4, 8}:
+// *w = ceil(orig_w / d), *h = ceil(orig_h / d), as libjpeg's scale_denom
+// gives.  *orig_w / *orig_h are the SOF's sizes.  Returns a Code; on an
+// error the reason is written to msg (msg_len bytes, NUL-terminated).
+int decode_into(const char* path, Buffers* b, int target, int max_denom,
+                int* w, int* h, int* orig_w, int* orig_h, char* msg,
                 int msg_len);
 
 }  // namespace jpegdec

@@ -19,13 +19,18 @@
 //   preproc_batch(srcs, hs, ws, n, dst, S, letterbox, u8, threads,
 //                 scales, pad_xs, pad_ys)
 //     image i (srcs[i], hs[i] x ws[i] x 3) into slot i of dst;
-//   decode_preproc_batch(paths, n, dst, S, letterbox, u8, threads,
-//                        orig_ws, orig_hs, scales, pad_xs, pad_ys,
+//   decode_preproc_batch(paths, n, dst, S, letterbox, u8, max_denom,
+//                        threads, orig_ws, orig_hs, scales, pad_xs, pad_ys,
 //                        codes, msgs, msg_len)
-//     each worker reads and decodes file i into buffers it reuses, then
-//     resizes it into slot i; a file that fails sets codes[i] (jpegdec's
-//     Code) and a message at msgs + i * msg_len, and leaves slot i as it
-//     was.  orig_ws / orig_hs are the decoded (full-scale) sizes.
+//     each worker reads and decodes file i into buffers it reuses, at the
+//     JAX package's DCT scale (native/preproc.cc): 1/d for the largest d <=
+//     max_denom with both sides of the file at least 2 * S at each step;
+//     then it resizes it into slot i.  A file that fails sets codes[i]
+//     (jpegdec's Code) and a message at msgs + i * msg_len, and leaves slot
+//     i as it was.  orig_ws / orig_hs are the files' own (SOF) sizes, and
+//     with letterbox the scales map their pixels, as JAX's do.  max_denom 1
+//     decodes at full scale (the uint8 cache, which the JAX package fills
+//     from cv2.imread at full scale).
 // dst is float32 or (u8 != 0) uint8; scales, pad_xs, pad_ys describe the
 // letterbox (1, 0, 0 without).  A worker takes the next image when it is
 // done with one.
@@ -223,12 +228,6 @@ void resize_into(const uint8_t* src, int h, int w, void* dst, int64_t i,
                scale, padx, pady);
 }
 
-// A worker's decode buffers: the file's bytes and its pixels, reused from
-// file to file.
-struct Buffers {
-  std::vector<uint8_t> data, rgb;
-};
-
 // Runs work(i, buffers) for i in [0, n) on up to `threads` threads, each
 // with buffers of its own, taking the next i when it is done with one.
 template <typename Work>
@@ -236,7 +235,7 @@ void for_each_image(int n, int threads, Work work) {
   const int nt = std::max(1, std::min(threads, n));
   std::atomic<int> next{0};
   auto run = [&] {
-    Buffers buffers;
+    jpegdec::Buffers buffers;
     for (int i; (i = next.fetch_add(1)) < n;) work(i, &buffers);
   };
   if (nt == 1) {
@@ -256,27 +255,29 @@ extern "C" {
 void preproc_batch(const uint8_t** srcs, const int* hs, const int* ws, int n,
                    void* dst, int S, int letterbox, int u8, int threads,
                    float* scales, float* pad_xs, float* pad_ys) {
-  for_each_image(n, threads, [&](int i, Buffers*) {
+  for_each_image(n, threads, [&](int i, jpegdec::Buffers*) {
     resize_into(srcs[i], hs[i], ws[i], dst, i, S, letterbox != 0, u8 != 0,
                 &scales[i], &pad_xs[i], &pad_ys[i]);
   });
 }
 
 void decode_preproc_batch(const char** paths, int n, void* dst, int S,
-                          int letterbox, int u8, int threads, int* orig_ws,
-                          int* orig_hs, float* scales, float* pad_xs,
-                          float* pad_ys, int* codes, char* msgs,
-                          int msg_len) {
-  for_each_image(n, threads, [&](int i, Buffers* b) {
+                          int letterbox, int u8, int max_denom, int threads,
+                          int* orig_ws, int* orig_hs, float* scales,
+                          float* pad_xs, float* pad_ys, int* codes,
+                          char* msgs, int msg_len) {
+  for_each_image(n, threads, [&](int i, jpegdec::Buffers* b) {
     int w = 0, h = 0;
-    codes[i] = jpegdec::decode_into(paths[i], &b->data, &b->rgb, &w, &h,
+    codes[i] = jpegdec::decode_into(paths[i], b, S, max_denom, &w, &h,
+                                    &orig_ws[i], &orig_hs[i],
                                     msgs + static_cast<int64_t>(i) * msg_len,
                                     msg_len);
-    orig_ws[i] = w;
-    orig_hs[i] = h;
     if (codes[i] != jpegdec::JPEG_OK) return;
     resize_into(b->rgb.data(), h, w, dst, i, S, letterbox != 0, u8 != 0,
                 &scales[i], &pad_xs[i], &pad_ys[i]);
+    // the letterbox scale is the decoded image's; the boxes are in the
+    // original's pixels (native/preproc.cc)
+    if (letterbox) scales[i] *= static_cast<float>(w) / orig_ws[i];
   });
 }
 

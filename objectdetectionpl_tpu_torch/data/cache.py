@@ -63,8 +63,9 @@ def _resize_chunk(parser, idx: range, S: int, letterbox: bool,
     px, labels, ws, hs, scales, pad_xs, pad_ys) of each."""
     if hasattr(parser, "record"):
         recs = [parser.record(i) for i in idx]
+        # full scale, as the JAX package's cv2.imread
         _, ws, hs, scales, pad_xs, pad_ys = native.decode_preproc_batch(
-            [r[0] for r in recs], S, letterbox, out, u8=True)
+            [r[0] for r in recs], S, letterbox, out, u8=True, max_denom=1)
         return ([r[1] for r in recs], [r[2] for r in recs], ws, hs, scales,
                 pad_xs, pad_ys)
     examples = [parser[i] for i in idx]

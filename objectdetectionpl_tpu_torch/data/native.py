@@ -5,18 +5,21 @@ decoder, one ``.so``.
 two kinds picked per call: float32 in [0, 1] (a copy of the JAX package's
 ``native/preproc.cc`` resize, so batches equal its bit for bit) and uint8
 (cv2's INTER_LINEAR, bit for bit: what the JAX package fills its packed
-cache with).  ``csrc/jpeg_decode.cc`` is the port's own baseline
-sequential JPEG decoder (equal bit for bit to libjpeg-turbo's default
-decompression to RGB at full scale).  Both build with g++ into
+cache with).  ``csrc/jpeg_decode.cc`` is the port's own JPEG
+decoder, sequential and progressive, at 1/1, 1/2, 1/4 or 1/8 scale (equal
+bit for bit to libjpeg-turbo's decompression to RGB with that
+``scale_denom``).  Both build with g++ into
 ``build/native/libpreproc-<key>.so`` at the repository root.
 
 - :func:`preproc_batch`: decoded images -> the batch, one call;
 - :func:`decode_preproc_batch`: JPEG files -> the batch, one call, each
   worker thread reading and decoding a file into buffers it reuses and
-  resizing it straight into its slot;
+  resizing it straight into its slot; with ``max_denom`` above 1 at the
+  DCT scale the JAX package's fused loader picks (the Loader's float32
+  batches), at full scale otherwise (the uint8 cache);
 - :func:`decode_batch`: JPEG files -> decoded images, one call, each file
-  read once by the thread that decodes it; :func:`decode_one` is a batch
-  of one.
+  read once by the thread that decodes it, at full scale unless
+  ``denom`` says otherwise; :func:`decode_one` is a batch of one.
 
 The batch functions write into ``out`` when the caller passes one (a
 pinned buffer it reuses, a cache's rows), else into a new array.  A file
@@ -56,6 +59,8 @@ CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
 BUILD_TIMEOUT_S = 300
 JPEG_OK = 0              # csrc/jpeg_decode.h's codes; any other is an error
 MSG_LEN = 256
+DENOMS = (1, 2, 4, 8)    # the DCT scales: libjpeg's scale_denom
+MAX_DENOM = 8            # the float32 Loader's, as the JAX package's
 
 _lib = None
 _load_failed = False
@@ -124,14 +129,14 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,   # paths, n
         ctypes.c_void_p,                                 # dst
         ctypes.c_int, ctypes.c_int, ctypes.c_int,        # S, letterbox, u8
-        ctypes.c_int,                                    # threads
+        ctypes.c_int, ctypes.c_int,                      # max_denom, threads
         i32p, i32p,                                      # orig_ws, orig_hs
         f32p, f32p, f32p,                                # scales, pads
         i32p, ctypes.c_char_p, ctypes.c_int]             # codes, msgs, len
     lib.decode_preproc_batch.restype = None
     lib.jpeg_decode_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,   # paths, n
-        ctypes.c_int,                                    # threads
+        ctypes.c_int, ctypes.c_int,                      # threads, denom
         ctypes.POINTER(ctypes.c_void_p),                 # pixels (out)
         i32p, i32p, i32p,                                # ws, hs, codes
         ctypes.c_char_p, ctypes.c_int]                   # msgs, msg_len
@@ -153,6 +158,11 @@ def _lib_or_raise() -> ctypes.CDLL:
                            f"csrc/jpeg_decode.cc) could not be built: "
                            f"{build_error}")
     return lib
+
+
+def _check_denom(denom: int) -> None:
+    if denom not in DENOMS:
+        raise ValueError(f"denom must be one of {DENOMS}, got {denom}")
 
 
 def _threads(n: int) -> int:
@@ -220,17 +230,25 @@ def _raise_first(paths: Sequence[str], codes: np.ndarray, msgs) -> None:
 
 
 def decode_preproc_batch(paths: Sequence[str], size: int, letterbox: bool,
-                         out: Optional[np.ndarray] = None, u8: bool = False
+                         out: Optional[np.ndarray] = None, u8: bool = False,
+                         max_denom: int = 1
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                     np.ndarray, np.ndarray, np.ndarray]:
     """JPEG files -> (batch [N, S, S, 3], orig_ws, orig_hs, scales,
     pad_xs, pad_ys) with one call: each worker thread (one per file up to
-    the CPU count) takes the next file, reads it once, decodes it at full
-    scale into buffers it reuses and resizes it straight into its slot of
-    ``out`` (or of a new array), float32 in [0, 1] or with ``u8`` uint8.
-    orig_ws / orig_hs are the files' sizes.  Raises :class:`JpegError`
-    naming the first file that fails, once every file is done."""
+    the CPU count) takes the next file, reads it once, decodes it into
+    buffers it reuses and resizes it straight into its slot of ``out`` (or
+    of a new array), float32 in [0, 1] or with ``u8`` uint8.
+
+    The decode is at 1/d scale (libjpeg's ``scale_denom``), d the largest
+    power of two up to ``max_denom`` that the JAX package's fused loader
+    picks for the file: both sides at least twice ``size`` at each step
+    (:data:`MAX_DENOM` there; the default 1 decodes at full scale).
+    orig_ws / orig_hs are the files' own sizes, and with letterbox the
+    scales map their pixels.  Raises :class:`JpegError` naming the first
+    file that fails, once every file is done; it is not decoded again."""
     lib = _lib_or_raise()
+    _check_denom(max_denom)
     n = len(paths)
     dst = batch_out(out, n, size, u8)
     c_paths = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
@@ -238,10 +256,10 @@ def decode_preproc_batch(paths: Sequence[str], size: int, letterbox: bool,
     scales, pad_xs, pad_ys = (np.empty((n,), np.float32) for _ in range(3))
     msgs = ctypes.create_string_buffer(max(n, 1) * MSG_LEN)
     lib.decode_preproc_batch(c_paths, n, dst.ctypes.data, size,
-                             int(letterbox), int(u8), _threads(n),
-                             _i32(orig_ws), _i32(orig_hs), _f32(scales),
-                             _f32(pad_xs), _f32(pad_ys), _i32(codes), msgs,
-                             MSG_LEN)
+                             int(letterbox), int(u8), int(max_denom),
+                             _threads(n), _i32(orig_ws), _i32(orig_hs),
+                             _f32(scales), _f32(pad_xs), _f32(pad_ys),
+                             _i32(codes), msgs, MSG_LEN)
     _raise_first(paths, codes, msgs)
     return dst, orig_ws, orig_hs, scales, pad_xs, pad_ys
 
@@ -254,12 +272,15 @@ def _owned(lib: ctypes.CDLL, ptr: int, h: int, w: int) -> np.ndarray:
     return np.frombuffer(buf, np.uint8).reshape(h, w, 3)
 
 
-def decode_batch(paths: Sequence[str], threads: Optional[int] = None
-                 ) -> List[np.ndarray]:
-    """JPEG files -> [uint8 [H, W, 3] RGB, ...], decoded with one call on
-    ``threads`` threads (default one per file up to the CPU count).  Raises
-    :class:`JpegError` naming the first file that fails."""
+def decode_batch(paths: Sequence[str], threads: Optional[int] = None,
+                 denom: int = 1) -> List[np.ndarray]:
+    """JPEG files -> [uint8 [H, W, 3] RGB, ...], decoded at 1/``denom``
+    scale (libjpeg's ``scale_denom``: 1, 2, 4 or 8; H = ceil(height /
+    denom), W likewise) with one call on ``threads`` threads (default one
+    per file up to the CPU count).  Raises :class:`JpegError` naming the
+    first file that fails."""
     lib = _lib_or_raise()
+    _check_denom(denom)
     n = len(paths)
     if n == 0:
         return []
@@ -268,14 +289,15 @@ def decode_batch(paths: Sequence[str], threads: Optional[int] = None
     ws, hs, codes = (np.zeros(n, np.int32) for _ in range(3))
     msgs = ctypes.create_string_buffer(n * MSG_LEN)
     threads = _threads(n) if threads is None else threads
-    lib.jpeg_decode_batch(c_paths, n, int(threads), pixels, _i32(ws),
-                          _i32(hs), _i32(codes), msgs, MSG_LEN)
+    lib.jpeg_decode_batch(c_paths, n, int(threads), int(denom), pixels,
+                          _i32(ws), _i32(hs), _i32(codes), msgs, MSG_LEN)
     out = [_owned(lib, p, int(h), int(w)) if p else None
            for p, w, h in zip(pixels, ws, hs)]
     _raise_first(paths, codes, msgs)
     return out
 
 
-def decode_one(path: str) -> np.ndarray:
-    """One JPEG file -> uint8 [H, W, 3] RGB; raises :class:`JpegError`."""
-    return decode_batch([path], threads=1)[0]
+def decode_one(path: str, denom: int = 1) -> np.ndarray:
+    """One JPEG file -> uint8 [H, W, 3] RGB at 1/``denom`` scale; raises
+    :class:`JpegError`."""
+    return decode_batch([path], threads=1, denom=denom)[0]

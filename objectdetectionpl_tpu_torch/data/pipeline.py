@@ -12,6 +12,9 @@ and resizes to the static img_size; all augmentation runs on the device
   datasets): one ``native.decode_preproc_batch`` call a batch, each worker
   thread decoding a file and resizing it straight into its slot of the
   float32 batch; a file the decoder cannot read raises, naming the path.
+  A file at least twice img_size on both sides decodes at libjpeg's DCT
+  scale 1/2, 1/4 or 1/8, as the JAX package's fused loader does, and its
+  boxes are normalized against its own (original) size.
 - "parser": other parsers give their images themselves (Synthetic), which
   one ``native.preproc_batch`` call resizes.
 
@@ -240,7 +243,8 @@ class Loader:
                 recs = [self.parser.record(int(i)) for i in idx]
                 imgs, ws, hs, scales, pad_xs, pad_ys = \
                     native.decode_preproc_batch([r[0] for r in recs], S,
-                                                self.letterbox, out)
+                                                self.letterbox, out,
+                                                max_denom=native.MAX_DENOM)
                 boxes_px = [r[1] for r in recs]
                 labels_l = [r[2] for r in recs]
             else:

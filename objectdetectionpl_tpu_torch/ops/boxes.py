@@ -21,6 +21,20 @@ def xywh_to_xyxy(box: torch.Tensor) -> torch.Tensor:
                        dim=-1)
 
 
+def xyxy_to_xywh(box: torch.Tensor) -> torch.Tensor:
+    """(x1, y1, x2, y2) -> (cx, cy, w, h) on the last axis."""
+    x1, y1, x2, y2 = box[..., 0], box[..., 1], box[..., 2], box[..., 3]
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1],
+                       dim=-1)
+
+
+def xyxy_to_xywh_plus1(box: torch.Tensor) -> torch.Tensor:
+    """RetinaNet's ``change_box_order('xyxy2xywh')``: wh = max - min + 1."""
+    x1, y1, x2, y2 = box[..., 0], box[..., 1], box[..., 2], box[..., 3]
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1 + 1,
+                        y2 - y1 + 1], dim=-1)
+
+
 def iou_plus1(box1: torch.Tensor, box2: torch.Tensor,
               xyxy: bool = True) -> torch.Tensor:
     """Elementwise IoU with the +1-pixel convention and 1e-16 union eps.

@@ -1,11 +1,13 @@
 """Dataset trees made of the committed fixture JPEGs, one layout per parser.
 
-``data/testdata/`` holds a few small baseline JPEGs (and one progressive
-file, which the decoder must refuse) with the SHA-256 of their libjpeg
-decodes (``decoded_sha256.json``).  The functions here lay those files out
-as each parser expects, cycling over ``names`` (by default every decodable
-fixture, from 37x53 to 640x480; hard links where the file system allows,
-else copies), with annotations of 1-5 boxes per image drawn from a seed:
+``data/testdata/`` holds a few small JPEGs, baseline and progressive, two
+1280x720 frames (BDD100K's size, baseline and progressive) and one CMYK
+file, which the decoder must refuse, with the SHA-256 of the decodable
+ones' libjpeg decodes (``decoded_sha256.json``).  The functions here lay
+those files out as each parser expects, cycling over ``names`` (by default
+every decodable fixture, from 37x53 to 1280x720; hard links where the file
+system allows, else copies), with annotations of 1-5 boxes per image drawn
+from a seed:
 
     write_voc_tree(root, n_train=200, n_val=64, seed=0, names=None)
     write_coco_tree(root, n_train=200, n_val=64, seed=0, names=None)
@@ -15,10 +17,10 @@ else copies), with annotations of 1-5 boxes per image drawn from a seed:
     write_asiatraffic_tree(root, n=200, seed=0, names=None)
 
 Each returns root.  The tests parse the mixed trees with both packages.
-``chip_smoke.py`` times its fits on trees of one fixture each at the
-dataset's typical image size: ``voc_420_q75_500x375.jpg`` (VOC2012's
-~500x375) and ``coco_420_q75_640x480.jpg`` (COCO 2017's ~640x480, and
-its WiderPerson fit).
+``chip_smoke.py`` times its fits on trees of the dataset's typical image
+size: ``voc_420_q75_500x375.jpg`` (VOC2012's ~500x375),
+``coco_420_q75_640x480.jpg`` (COCO 2017's ~640x480, and its WiderPerson
+fit) and the two ``BDD_FRAMES`` (BDD100K's 1280x720).
 """
 
 from __future__ import annotations
@@ -44,17 +46,22 @@ from objectdetectionpl_tpu_torch.data.parsers.widerperson import \
 
 TESTDATA = Path(__file__).resolve().parents[1] / "data" / "testdata"
 HASHES = TESTDATA / "decoded_sha256.json"
-UNSUPPORTED = ("progressive_420_q75_160x120.jpg",)
+UNSUPPORTED = ("cmyk_q90_56x40.jpg",)
+# BDD100K's frame size, baseline and progressive: hashed at 1/2, 1/4, 1/8
+BDD_FRAMES = ("bdd_420_q75_1280x720.jpg",
+              "bdd_progressive_420_q75_1280x720.jpg")
 
 
 def fixtures() -> Dict[str, dict]:
-    """{name: {"shape": [h, w, 3], "sha256": ...}} of every fixture."""
+    """{name: {"shape": [h, w, 3], "sha256": ...}} of every decodable
+    fixture; the BDD_FRAMES also hold "scaled": {"2" | "4" | "8": {"shape",
+    "sha256"}}, libjpeg's decodes at that scale_denom."""
     return json.loads(HASHES.read_text())
 
 
 def decodable() -> List[str]:
     """The fixtures' names that the decoder reads, sorted."""
-    return sorted(n for n in fixtures() if n not in UNSUPPORTED)
+    return sorted(fixtures())
 
 
 def _place(src: Path, dst: Path) -> None:

@@ -43,3 +43,9 @@ def create_train_state(model: torch.nn.Module,
     return TrainState(model=model, optimizer=optimizer,
                       step=torch.zeros((), dtype=torch.int64, device=device),
                       ema_params=ema)
+
+
+def param_count(model: torch.nn.Module) -> int:
+    """The number of parameters (BatchNorm statistics excluded, as they are
+    not parameters in the JAX package either)."""
+    return sum(p.numel() for p in model.parameters())

@@ -8,10 +8,11 @@ committed fixture JPEGs (``tools/fixture_trees.py``).
   JAX's.
 - The port's Loader batches equal the JAX Loader's bit for bit (images,
   labels, boxes, mask), letterbox off and on, at 256 px, where JAX's fused
-  libjpeg path decodes every fixture at full scale (it scales the DCT only
-  when both sides are at least twice the target; the largest fixture is
-  640x480).  JAX takes that path only with its native library loaded
-  (fixture ``jax_library``).
+  libjpeg path decodes the 1280x720 frames at 1/2 (it scales the DCT when
+  both sides are at least twice the target) and every other fixture at
+  full scale (the next largest is 640x480), and so must the port's.  JAX
+  takes that path only with its native library loaded (fixture
+  ``jax_library``).
 - Without the decoder a real dataset raises with ``build_error``.
 - One ``cli.run --device cpu`` epoch on a VOC tree at the YAML's
   ``yaml_test`` caps, and one on a COCO tree with ``--set cache_dir``,
@@ -74,7 +75,8 @@ def _assert_same_parser(port, ref):
         for g, w in ((gb, wb), (gl, wl)):
             assert g.dtype == w.dtype and g.shape == w.shape
             np.testing.assert_array_equal(g, w)
-    for i in range(min(len(ref), 9)):       # every fixture once
+    for i in range(min(len(ref), len(fixture_trees.decodable()))):
+        # every fixture once
         g, w = port[i], ref[i]
         assert g.image.dtype == w.image.dtype == np.uint8
         np.testing.assert_array_equal(g.image, w.image)
@@ -133,8 +135,9 @@ def test_coco_stages_equal_jax(coco_root, stage):
 def test_loader_batches_equal_jax(voc_root, coco_root, jax_library,
                                   data_module, letterbox):
     for name, shape in fixture_trees.fixtures().items():
-        h, w = shape["shape"][:2]       # JAX's fused path at full scale
-        assert h // 2 < FULL_SCALE_PX or w // 2 < FULL_SCALE_PX, name
+        h, w = shape["shape"][:2]       # JAX's fused path scales the frames
+        scaled = h // 2 >= FULL_SCALE_PX and w // 2 >= FULL_SCALE_PX
+        assert scaled == (name in fixture_trees.BDD_FRAMES), name
     root = voc_root if data_module == "VOC" else coco_root
     kw = dict(data_module=data_module, data_root=root, batch_size=3,
               img_size=FULL_SCALE_PX, max_boxes=4, letterbox=letterbox,
@@ -153,8 +156,8 @@ def test_loader_decodes_a_batch_in_one_call(voc_root, monkeypatch):
     calls = []
     decode_preproc_batch = native.decode_preproc_batch
     monkeypatch.setattr(native, "decode_preproc_batch",
-                        lambda paths, *a: calls.append(paths) or
-                        decode_preproc_batch(paths, *a))
+                        lambda paths, *a, **kw: calls.append(paths) or
+                        decode_preproc_batch(paths, *a, **kw))
     dm = datamodules.build_datamodule(Config(
         data_module="VOC", data_root=voc_root, batch_size=4, img_size=64))
     loader = dm.train_dataloader()

@@ -11,7 +11,10 @@ committed bytes and decoded hashes), PIL-made files over subsampling,
 quality, size and Huffman optimisation, cv2-made files with restart
 intervals and every sampling layout cv2 writes, grayscale, the colour-space
 rules (an Adobe marker with transform 0, component ids 'R','G','B'), 16-bit
-quantization tables under SOF1, fill bytes before markers; and the files that must raise, naming the path.
+quantization tables under SOF1, fill bytes before markers; and the files
+that must raise, naming the path (the committed CMYK fixture among them).
+Progressive files, scan scripts and the reduced scales are in
+``test_torch_port_progressive.py``.
 """
 
 import hashlib
@@ -28,7 +31,8 @@ from PIL import Image
 
 from objectdetectionpl_tpu.data.parsers.common import load_image_rgb
 from objectdetectionpl_tpu_torch.data import native
-from objectdetectionpl_tpu_torch.tools.fixture_trees import (HASHES, TESTDATA,
+from objectdetectionpl_tpu_torch.tools.fixture_trees import (BDD_FRAMES,
+                                                            HASHES, TESTDATA,
                                                             UNSUPPORTED)
 
 
@@ -82,8 +86,17 @@ FIXTURES = {
                 cv2.IMWRITE_JPEG_RST_INTERVAL, 7])),
     "progressive_420_q75_160x120.jpg": ((160, 120), 3, lambda p, im: _pil(
         p, im, quality=75, subsampling=2, progressive=True)),
+    "cmyk_q90_56x40.jpg": ((56, 40), 3, lambda p, im: Image.fromarray(
+        im).convert("CMYK").save(p, "JPEG", quality=90)),
+    "bdd_420_q75_1280x720.jpg": ((1280, 720), 3, lambda p, im: _pil(
+        p, im, quality=75, subsampling=2)),
+    "bdd_progressive_420_q75_1280x720.jpg": ((1280, 720), 3,
+                                             lambda p, im: _pil(
+        p, im, quality=75, subsampling=2, progressive=True)),
 }
 DECODABLE = [n for n in FIXTURES if n not in UNSUPPORTED]
+REDUCED = {2: cv2.IMREAD_REDUCED_COLOR_2, 4: cv2.IMREAD_REDUCED_COLOR_4,
+           8: cv2.IMREAD_REDUCED_COLOR_8}
 
 
 def make_fixtures(out_dir, seed: int = 0) -> None:
@@ -94,13 +107,23 @@ def make_fixtures(out_dir, seed: int = 0) -> None:
         write(Path(out_dir) / name, smooth_image(h, w, rng, channels))
 
 
+def _entry(rgb: np.ndarray) -> dict:
+    return {"shape": list(rgb.shape),
+            "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
+
+
 def libjpeg_hashes(directory) -> dict:
-    """{name: {"shape": [h, w, 3], "sha256": ...}} of cv2's RGB decodes."""
+    """{name: {"shape": [h, w, 3], "sha256": ...}} of cv2's RGB decodes of
+    the decodable fixtures; the 1280x720 frames also hold "scaled": {d:
+    {"shape", "sha256"}} of cv2's decodes at 1/d (libjpeg's scale_denom)."""
     out = {}
-    for name in FIXTURES:
-        rgb = load_image_rgb(str(Path(directory) / name))
-        out[name] = {"shape": list(rgb.shape),
-                     "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
+    for name in DECODABLE:
+        path = str(Path(directory) / name)
+        out[name] = _entry(load_image_rgb(path))
+        if name in BDD_FRAMES:
+            out[name]["scaled"] = {
+                str(d): _entry(cv2.imread(path, flag)[..., ::-1])
+                for d, flag in REDUCED.items()}
     return out
 
 
@@ -265,7 +288,7 @@ def _bad_files(tmp_path):
     rng = np.random.RandomState(5)
     img = smooth_image(40, 56, rng)
     files = {}
-    files["progressive"] = TESTDATA / "progressive_420_q75_160x120.jpg"
+    files["cmyk_fixture"] = TESTDATA / UNSUPPORTED[0]
     files["cmyk"] = tmp_path / "cmyk.jpg"
     Image.fromarray(img).convert("CMYK").save(files["cmyk"], "JPEG")
     files["truncated"] = tmp_path / "truncated.jpg"
@@ -280,7 +303,7 @@ def _bad_files(tmp_path):
 
 
 @pytest.mark.parametrize("kind,reason", [
-    ("progressive", "progressive JPEG \\(SOF2 marker 0xFFC2\\)"),
+    ("cmyk_fixture", "4 components \\(CMYK or YCCK\\)"),
     ("cmyk", "4 components"), ("truncated", "truncated file"),
     ("header_cut", "truncated file"), ("not_jpeg", "not a JPEG file"),
     ("missing", "cannot read the file")])
@@ -298,9 +321,9 @@ def test_unsupported_and_broken_files_raise(tmp_path, kind, reason):
 
 def test_decode_batch_equals_decode_one(tmp_path):
     paths = [str(TESTDATA / n) for n in DECODABLE]
-    assert len(paths) == 8
+    assert len(paths) == 11
     batch = native.decode_batch(paths, threads=3)
-    assert len(batch) == 8
+    assert len(batch) == 11
     for p, img in zip(paths, batch):
         assert np.array_equal(img, native.decode_one(p)), p
     assert native.decode_batch([]) == []

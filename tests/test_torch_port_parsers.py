@@ -5,13 +5,14 @@ against the JAX package's.
 - On the hand-made fixtures of ``tests/test_data.py`` (the same files,
   drawn by its helpers from the same seed, and the same expectations) and
   on trees of the committed fixture JPEGs (``tools/fixture_trees.py``, 10
-  images cycling over every decodable fixture): records (path, boxes,
+  images cycling over the decodable fixtures): records (path, boxes,
   labels) equal, and the examples' images equal JAX's ``load_image_rgb``
   (cv2) bit for bit.
 - The DataModules' splits, stages and class lists equal JAX's.
 - The Loader's batches, one fused decode-and-resize call a batch, equal
   the JAX Loader's fused libjpeg path bit for bit at 256 px (where JAX
-  decodes every fixture at full scale), letterbox off and on, over the
+  decodes the 1280x720 frames at 1/2, the others at full scale), letterbox
+  off and on, over the
   train, val and test loaders (fixture ``jax_library``).
 """
 
