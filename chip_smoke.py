@@ -33,6 +33,25 @@ exits non-zero:
    at B=64 after one warm-up each.  Every launch count is zeroed just
    before and read just after; every batch must launch the NMS kernel
    once.
+5a. export -- the serving export (``utils/export.py``): YOLOv5s-640, 80
+   classes, bf16, /255 folded, ``build_inference_fn`` saved with
+   ``torch.export`` at B=1 and B=64 and loaded in this process: ``valid``,
+   ``labels`` and ``scores`` identical to eager ``predict_step`` on the
+   same weights and batch, the largest box difference stated (0
+   expected); one NMS launch per call of the loaded program (counts
+   zeroed before, read after); ms a batch of eager and loaded, one warm-up
+   and three requests; seconds to export and the ``.pt2`` size; at B=64
+   one profiled call of each, device time by kernel class.  Then a
+   fresh interpreter that imports only ``utils.export`` loads both
+   programs and runs each once: one launch a call, no model module
+   imported, detections identical.  Then SSD-300 once (the divide path and
+   the class-agnostic NMS), loaded against its module.
+5b. bench -- the port bench (``objectdetectionpl_tpu_torch/bench.py``,
+   YOLOv5s-640, 10 classes, bf16, folded) at B=64 and B=256, dense and
+   ``--prefilter`` alternated (D P P D) in this process, each printing its
+   JSON line; every run must launch the NMS kernel once per iteration
+   (2 warm-up + 20); then both chains on one batch: every output of the
+   prefilter identical to the dense chain's.
 6. warp_check -- ``affine_warp`` (CUDA) against ``affine_warp_plain`` on
    the card: K=26 slots of 640x640 with random shift-scale-rotate matrices
    inside the ``AugmentConfig`` bounds, the identity, a 60 degree rotation
@@ -122,7 +141,11 @@ exits non-zero:
    Inside it, on its checkpoint: predict_cli -- ``cli.predict.main`` over
    the decodable fixtures with ``--out-dir``: one JSON line and one NMS
    launch per image (counts zeroed before, read after), each PNG's
-   signature and IHDR size, ms per image in the call and warm.
+   signature and IHDR size, ms per image in the call and warm; then
+   predict_export -- ``cli.predict.main`` with ``--export`` and no images
+   on that checkpoint: its line, then the loaded program on one fixture
+   (uint8) against the module on the restored evaluation weights,
+   detections identical, one NMS launch.
 10c. trainer_coco -- the same on a COCO 2017 tree (``images/train2017``,
    ``images/val2017``, ``annotations/instances_*2017.json``) of the
    640x480 4:2:0 fixture, COCO 2017's typical size, YOLOv5s at 640 px,
@@ -239,7 +262,8 @@ exits non-zero:
 
 Then the ``kernels`` line (the NMS and warp entries also carry the launch
 counts of the YOLO, anchor, VOC, COCO (uncached and cached), WiderPerson,
-training-options, BDD100K-SSD and predict phases, the warp entry those of
+training-options, BDD100K-SSD and predict phases, the NMS entry those of
+the export, the fresh interpreter, ``predict --export`` and the bench, the warp entry those of
 ``remat_check``, and the NMS entry the anchor scan's times) and, last,
 ``{"ok": true, "device": {...}}``.
 Without CUDA it prints nothing to stdout and exits 1.
@@ -257,6 +281,7 @@ import json
 import math
 import os
 import re
+import subprocess
 import sys
 import tempfile
 import time
@@ -266,6 +291,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from objectdetectionpl_tpu_torch import bench
 from objectdetectionpl_tpu_torch.cli import predict as cli_predict
 from objectdetectionpl_tpu_torch.cli import run as cli_run
 from objectdetectionpl_tpu_torch.config import Config, load_config
@@ -296,6 +322,7 @@ from objectdetectionpl_tpu_torch.train.step import (YOLO_DECODE,
                                                     make_train_step)
 from objectdetectionpl_tpu_torch.utils.fuse import (STEM_CONVS,
                                                     fold_input_scale)
+from objectdetectionpl_tpu_torch.utils import export as export_lib
 from objectdetectionpl_tpu_torch.utils import timing
 from objectdetectionpl_tpu_torch.utils.timing import (F32_OPS_PER_S,
                                                      HBM_BYTES_PER_S,
@@ -822,6 +849,221 @@ def phase_serving(card: str) -> dict:
           "launches": counts,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     return {"launches": launches, "max_abs_err": err}
+
+
+# --- the serving export and the serving bench ------------------------------
+
+
+EXPORT_BATCHES = (1, 64)
+EXPORT_FAMILY = {"SSD": 300}      # the class-agnostic op variant, run once
+BENCH_BATCHES = (64, 256)
+BENCH_ORDER = (False, True, True, False)      # dense, prefilter, alternated
+
+# a fresh interpreter that imports only the export module: loads each
+# program, runs it once on its saved batch, and reports its NMS launches
+# and the port's modules it imported
+_LOAD_PROBE = r"""
+import json, sys
+import torch
+from objectdetectionpl_tpu_torch.ops.cuda import nms_kernel
+from objectdetectionpl_tpu_torch.utils import export
+out = {}
+for prog, raw, res in zip(*[iter(sys.argv[1:])] * 3):
+    images = torch.load(raw).cuda()
+    fn = export.load(prog)
+    with torch.inference_mode():
+        torch.save([t.cpu() for t in fn(images)], res)
+torch.cuda.synchronize()
+print(json.dumps({"launches": nms_kernel.LAUNCHES,
+                  "calls": (len(sys.argv) - 1) // 3,
+                  "modules": sorted(k for k in sys.modules
+                                    if k.startswith("objectdetectionpl_tpu"))}))
+"""
+
+
+def requests_ms(fn, images, n: int = 3) -> list:
+    """Host ms of each of ``n`` requests after one warm-up, each to a
+    sync."""
+    times = []
+    for i in range(n + 1):
+        t0 = time.perf_counter()
+        fn(images)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def same_detections(name: str, got, want) -> float:
+    """``valid``, ``labels`` and ``scores`` identical; returns the largest
+    box difference."""
+    got, want = tuple(got), tuple(want)
+    for i, field in ((4, "valid"), (3, "labels"), (2, "scores")):
+        if not torch.equal(got[i].to(want[i].device), want[i]):
+            raise AssertionError(f"{name}: {field} differs from eager")
+    return (got[0].to(want[0].device).float()
+            - want[0].float()).abs().max().item()
+
+
+def phase_export(card: str) -> dict:
+    """YOLOv5s-640, bf16, 80 classes, /255 folded: ``build_inference_fn``
+    saved at B=1 and B=64, loaded here and in a fresh interpreter, against
+    eager ``predict_step`` on the same weights and batches; then SSD-300
+    once."""
+    step, _ = serving_model()          # the stem folded by fold_input_scale
+    model = build_model("YOLOv5", NUM_CLASSES, dtype=torch.bfloat16,
+                        device="cuda", seed=0)       # the same seed, unfolded
+    fn = export_lib.build_inference_fn(
+        model, model.state_dict(), make_postprocess("YOLOv5", NUM_CLASSES,
+                                                    IMG))
+    if not fn.fold:
+        raise AssertionError("export: YOLOv5 must fold the /255")
+    del model
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batches = {B: torch.randint(0, 256, (B, IMG, IMG, 3), generator=g,
+                                dtype=torch.uint8, device="cuda")
+               for B in EXPORT_BATCHES}
+    out = {"launches": 0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_",
+                                     dir=REPO / "build") as tmp:
+        probe_args, rows = [], {}
+        for B, images in batches.items():
+            path = os.path.join(tmp, f"yolov5s_b{B}.pt2")
+            t0 = time.perf_counter()
+            export_lib.save(path, fn, batch=B, img_size=IMG)
+            export_s = time.perf_counter() - t0
+            loaded = export_lib.load(path)
+            with torch.inference_mode():
+                want = step(images)
+                torch.cuda.synchronize()
+                reset_launches()               # main path starts here
+                got = loaded(images)
+                torch.cuda.synchronize()
+                counts = read_launches()       # main path ends here
+                err = same_detections(f"export B={B}", got, want)
+                eager_ms = requests_ms(step, images)
+                reset_launches()
+                loaded_ms = requests_ms(loaded, images)
+                timed = read_launches()["greedy_nms"]
+            if counts["greedy_nms"] != 1 or timed != 4:
+                raise AssertionError(
+                    f"export B={B}: the loaded program launched the NMS "
+                    f"kernel {counts['greedy_nms']} times in one call, "
+                    f"{timed} in four")
+            out["launches"] += counts["greedy_nms"] + timed
+            if B == max(EXPORT_BATCHES):       # where the device time goes
+                with torch.inference_mode():
+                    for name, call in (("eager", step), ("loaded", loaded)):
+                        wall_ms, busy_ms, by_class, top = profile_one(
+                            lambda: call(images))
+                        emit({"phase": "export_profile", "card": card,
+                              "B": B, "path": name, "wall_ms": wall_ms,
+                              "device_busy_ms": busy_ms,
+                              "by_class": by_class, "top": top})
+                out["launches"] += read_launches()["greedy_nms"] - timed
+            raw_path = os.path.join(tmp, f"raw_b{B}.pt")
+            torch.save(images.cpu(), raw_path)
+            probe_args += [path, raw_path, os.path.join(tmp, f"out_b{B}.pt")]
+            rows[B] = {"export_s": export_s,
+                       "pt2_mb": os.path.getsize(path) / 1e6,
+                       "max_abs_box_err": err, "eager_ms": eager_ms,
+                       "loaded_ms": loaded_ms,
+                       "valid": int(got[4].sum()), "launches": counts}
+        # the fresh interpreter: imports the export module alone
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _LOAD_PROBE,
+                               *probe_args], cwd=REPO, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"export: the fresh interpreter failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        if fresh["launches"] != fresh["calls"]:
+            raise AssertionError(f"export: the fresh interpreter launched "
+                                 f"the NMS kernel {fresh['launches']} times "
+                                 f"in {fresh['calls']} calls")
+        if any(m.startswith("objectdetectionpl_tpu_torch.models")
+               or m.split(".")[0] == "objectdetectionpl_tpu"
+               for m in fresh["modules"]):
+            raise AssertionError(f"export: loading imported "
+                                 f"{fresh['modules']}")
+        for B, images in batches.items():
+            got = torch.load(os.path.join(tmp, f"out_b{B}.pt"))
+            with torch.inference_mode():
+                rows[B]["fresh_max_abs_box_err"] = same_detections(
+                    f"fresh B={B}", got, step(images))
+        for B, r in rows.items():
+            emit({"phase": "export", "card": card, "model": "Yolov5s",
+                  "img": IMG, "classes": NUM_CLASSES, "dtype": "bfloat16",
+                  "fold": True, "B": B, **r})
+        emit({"phase": "export_fresh", "card": card,
+              "wall_s": time.perf_counter() - t0, **fresh})
+        out["fresh_launches"] = fresh["launches"]
+        for name, img in EXPORT_FAMILY.items():
+            model = build_model(name, NUM_CLASSES, dtype=torch.bfloat16,
+                                device="cuda", seed=0)
+            fam = export_lib.build_inference_fn(
+                model, model.state_dict(),
+                make_postprocess(name, NUM_CLASSES, img))
+            path = os.path.join(tmp, f"{name.lower()}.pt2")
+            t0 = time.perf_counter()
+            export_lib.save(path, fam, batch=1, img_size=img)
+            export_s = time.perf_counter() - t0
+            images = torch.randint(0, 256, (1, img, img, 3), generator=g,
+                                   dtype=torch.uint8, device="cuda")
+            loaded = export_lib.load(path)
+            with torch.inference_mode():
+                want = fam(images)
+                reset_launches()               # main path starts here
+                got = loaded(images)
+                torch.cuda.synchronize()
+                counts = read_launches()       # main path ends here
+            err = same_detections(f"export {name}", got, want)
+            if counts["greedy_nms"] != 1:
+                raise AssertionError(f"export {name}: {counts}")
+            out["launches"] += 1
+            emit({"phase": "export_family", "card": card, "model": name,
+                  "img": img, "fold": fam.fold, "export_s": export_s,
+                  "pt2_mb": os.path.getsize(path) / 1e6,
+                  "max_abs_box_err": err, "valid": int(got[4].sum()),
+                  "launches": counts})
+    return out
+
+
+def phase_bench(card: str) -> dict:
+    """The port bench (``objectdetectionpl_tpu_torch/bench.py``) at B=64
+    and B=256, dense and ``--prefilter`` alternated (D P P D) in this
+    process, each run's launches counted; then the two chains on one
+    batch: the prefilter's detections identical to the dense chain's."""
+    out = {"launches": 0, "runs": []}
+    for B in BENCH_BATCHES:
+        for prefilter in BENCH_ORDER:
+            reset_launches()                   # main path starts here
+            res = bench.main(["--batch", str(B)]
+                             + (["--prefilter"] if prefilter else []))
+            counts = read_launches()           # main path ends here
+            want = bench.WARMUP + bench.ITERS
+            if counts["greedy_nms"] != want or res["nms_launches"] != want:
+                raise AssertionError(f"bench B={B}: {counts} for {want} "
+                                     f"iterations")
+            out["launches"] += counts["greedy_nms"]
+            out["runs"].append({"B": B, "prefilter": prefilter,
+                                "img_per_s": res["value"]})
+        raw = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 255, (B, IMG, IMG, 3)).astype(np.uint8)).cuda()
+        with torch.inference_mode():
+            dense = bench.make_chain("cuda", False)(raw)
+            pre = bench.make_chain("cuda", True)(raw)
+        for i, field in enumerate(("boxes", "obj", "scores", "labels",
+                                   "valid")):
+            if not torch.equal(dense[i], pre[i]):
+                raise AssertionError(f"bench B={B}: the prefilter's "
+                                     f"{field} differ from the dense chain's")
+        emit({"phase": "bench_check", "card": card, "B": B,
+              "detections_identical": True, "valid": int(dense[4].sum())})
+    emit({"phase": "bench", "card": card, "runs": out["runs"],
+          "launches": out["launches"]})
+    return out
 
 
 def reset_launches() -> None:
@@ -2388,7 +2630,9 @@ def predict_after(card: str, out: dict):
         t0 = time.perf_counter()
         predict_images(calls["trainer"], paths)
         warm_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
-        out.update({"launches": counts})
+        out.update({"launches": counts,
+                    "export": predict_export(card, argv, calls["trainer"],
+                                             paths[0])})
         emit({"phase": "predict_cli", "card": card, "images": len(paths),
               "img": S, "wall_s": wall_s, "launches": counts,
               "ms_per_image_in_call": calls["ms"] / len(paths),
@@ -2396,6 +2640,52 @@ def predict_after(card: str, out: dict):
               "detections": sum(len(r["labels"]) for r in records),
               "pngs": len(paths)})
     return after
+
+
+def predict_export(card: str, argv: list, trainer, image_path: str) -> dict:
+    """``cli.predict.main`` with ``--export`` and no images on the same
+    checkpoint: it must print its line and return; the loaded program on
+    one fixture (resized, as uint8) launches the NMS kernel once and
+    detects as the module made from the restored Trainer's evaluation
+    weights."""
+    S = trainer.img_size
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_predict_export_",
+                                     dir=REPO / "build") as tmp:
+        path = os.path.join(tmp, "model.pt2")
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            records = cli_predict.main([*argv, "--export", path])
+        export_s = time.perf_counter() - t0
+        if records != [] or stdout.getvalue().strip().splitlines()[-1] != (
+                f"[predict] exported serving graph to {path}"):
+            raise AssertionError(f"predict --export: {stdout.getvalue()!r}")
+        x = cli_predict.resize_input(
+            cli_predict.load_image_rgb(image_path), S)
+        images = torch.from_numpy(
+            np.round(x * 255.0).astype(np.uint8)).cuda()
+        fn = export_lib.build_inference_fn(
+            trainer.model, {**trainer.model.state_dict(),
+                            **trainer.state.eval_params},
+            trainer.postprocess)
+        loaded = export_lib.load(path)
+        with torch.inference_mode():
+            want = fn(images)
+            torch.cuda.synchronize()
+            reset_launches()                   # main path starts here
+            got = loaded(images)
+            torch.cuda.synchronize()
+            counts = read_launches()           # main path ends here
+        err = same_detections("predict --export", got, want)
+        if counts["greedy_nms"] != 1:
+            raise AssertionError(f"predict --export: {counts}")
+        row = {"phase": "predict_export", "card": card,
+               "model": trainer.cfg.model_name, "img": S, "fold": fn.fold,
+               "export_s": export_s, "pt2_mb": os.path.getsize(path) / 1e6,
+               "max_abs_box_err": err, "valid": int(got[4].sum()),
+               "launches": counts}
+    emit(row)
+    return row
 
 
 TREE_WRITERS = {"VOC": fixture_trees.write_voc_tree,
@@ -2980,6 +3270,8 @@ def main(argv=None) -> int:
     fp32_err = phase_fp32(card)
     phase_train_fp32(card)
     serve = phase_serving(card)
+    exported = phase_export(card)
+    benched = phase_bench(card)
     train = phase_training(card)
     phase_accumulation(card)
     optim_check = phase_optim_check(card)
@@ -3054,6 +3346,11 @@ def main(argv=None) -> int:
            ["greedy_nms"] for k, v in fit_options.items()},
         "launches_trainer_bdd_ssd": fit_bdd["launches"]["greedy_nms"],
         "launches_predict_cli": predicted["launches"]["greedy_nms"],
+        "launches_export": exported["launches"],
+        "launches_export_fresh_interpreter": exported["fresh_launches"],
+        "launches_predict_export":
+            predicted["export"]["launches"]["greedy_nms"],
+        "launches_bench": benched["launches"],
         "keep_equal": True,
         "max_abs_err": err, "max_abs_box_err": err,
         "ms": t[256]["ms"], "plain_ms": t[256]["plain_ms"],

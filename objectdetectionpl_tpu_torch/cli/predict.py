@@ -4,7 +4,7 @@ The port of ``objectdetectionpl_tpu/cli/predict.py``:
 
     python -m objectdetectionpl_tpu_torch.cli.predict configs/config.yaml \\
         --images a.jpg b.jpg [--out-dir preds/] [--set KEY VALUE]... \\
-        [--device cpu]
+        [--export model.pt2] [--device cpu]
 
 Builds the config's Trainer (its DataModule too, for the class names),
 restores the best checkpoint of its run directory, then serves each image
@@ -15,9 +15,12 @@ resized input, scores, class names) and, with ``--out-dir``, writes
 ``<stem>_pred.png`` panels, each image's line and panel before the next
 image is read, as the JAX CLI does.  The JAX CLI resizes to uint8 with cv2
 before /255; the port's resize gives the float image directly, within
-1/255 of it (ROADMAP §C).  ``--export`` (the serving-graph export) is not
-ported yet (ROADMAP A4r: it needs the NMS kernel registered as a
-``torch.library`` op first).
+1/255 of it (ROADMAP §C).  ``--export PATH`` first writes the serving chain
+(uint8 -> cast, /255 folded into YOLOv5's stem or divided -> forward ->
+decode -> NMS op) with the evaluation weights (EMA when on) at batch 1 and
+the model's img_size as a ``torch.export`` program (``utils/export.py``),
+and returns when no ``--images`` are given.  The program holds tensors on
+the Trainer's device and runs there (``utils.export.load``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from objectdetectionpl_tpu_torch.data import native
 from objectdetectionpl_tpu_torch.data.parsers.common import load_image_rgb
 from objectdetectionpl_tpu_torch.data.pipeline import _torch_preproc
 from objectdetectionpl_tpu_torch.train.loop import Trainer, _to_host
+from objectdetectionpl_tpu_torch.utils import export as export_lib
 from objectdetectionpl_tpu_torch.utils import viz
 
 
@@ -74,6 +78,16 @@ def predict_images(trainer: Trainer, paths: Sequence[str],
     return out
 
 
+def export_serving(trainer: Trainer, path: str) -> None:
+    """Write the Trainer's serving chain with its evaluation weights (the
+    EMA parameters when on, over the module's BN statistics) to ``path``
+    at batch 1 and the model's img_size."""
+    state_dict = {**trainer.model.state_dict(), **trainer.state.eval_params}
+    fn = export_lib.build_inference_fn(trainer.model, state_dict,
+                                       trainer.postprocess)
+    export_lib.save(path, fn, batch=1, img_size=trainer.img_size)
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("config", nargs="?", default=None)
@@ -83,7 +97,7 @@ def parse_args(argv=None):
     p.add_argument("--out-dir", default=None,
                    help="write <stem>_pred.png panels here")
     p.add_argument("--export", default=None,
-                   help="the serving-graph export (not ported yet)")
+                   help="write the serving program (.pt2) to this path")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda, which must exist)")
     return p.parse_args(argv)
@@ -91,9 +105,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> List[Dict]:
     args = parse_args(argv)
-    if args.export:
-        raise NotImplementedError("--export (utils/export.py) is not ported "
-                                  "yet (ROADMAP A4r)")
     cfg = load_config(args.config, {k: _coerce(v) for k, v in args.set})
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
@@ -108,6 +119,11 @@ def main(argv=None) -> List[Dict]:
     trainer = Trainer(cfg, device=args.device)
     try:
         trainer.maybe_restore()
+        if args.export:
+            export_serving(trainer, args.export)
+            print(f"[predict] exported serving graph to {args.export}")
+            if not args.images:
+                return []
         return predict_images(trainer, args.images, on_image)
     finally:
         trainer.ckpt.close()

@@ -3,11 +3,14 @@
 Entry points take ``device=None`` and resolve it here.  With no device given
 and no CUDA present this raises instead of dropping to the CPU, so a run that
 was meant for the card can never silently measure the host.
+
+Also the per-device caches of constant tables (:func:`device_table`), which
+a trace reads but never fills.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Callable, Union
 
 import torch
 
@@ -22,3 +25,27 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "CUDA is not available; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def device_table(cache: dict, key, make: Callable[[], torch.Tensor]
+                 ) -> torch.Tensor:
+    """``cache[key]``, filled by ``make()`` on the first call: a constant
+    table copied to the device once, since a copy from the host in every
+    batch would wait for the card.  Made outside inference mode, so a
+    table first made for serving also serves a training step's backward.
+
+    A trace (``torch.export``, ``torch.compile``, any fake-tensor mode)
+    reads the cached table (a real tensor, which it captures as a constant
+    of the program) and never fills the cache: a table it made would be
+    the trace's fake tensor, and every later eager call would get it.
+    Without a cached table the trace makes its own.
+    """
+    if key in cache:
+        return cache[key]
+    if (torch.compiler.is_exporting() or torch.compiler.is_compiling()
+            or torch._guards.detect_fake_mode() is not None):
+        return make()
+    with torch.inference_mode(False):
+        table = make()
+    cache[key] = table
+    return table

@@ -38,6 +38,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from objectdetectionpl_tpu_torch.device import device_table
+
 ACTIVATIONS = {
     "leaky": functools.partial(F.leaky_relu, negative_slope=0.1),
     "relu": F.relu,
@@ -233,16 +235,18 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
-@functools.lru_cache(maxsize=None)
+_RESIZE_MATRICES: dict = {}   # (n_in, n_out, device, dtype) -> matrix
+
+
 def _resize_matrix(n_in: int, n_out: int, device: torch.device,
                    dtype: torch.dtype) -> torch.Tensor:
-    """:func:`_resize_weights` on ``device`` in ``dtype``, copied there once:
-    a copy from the host inside a forward would wait for the card.  Made
-    outside inference mode, so a matrix first made for serving still
-    serves a training step's backward."""
-    with torch.inference_mode(False):
-        return torch.from_numpy(_resize_weights(n_in, n_out)).to(device,
-                                                                 dtype)
+    """:func:`_resize_weights` on ``device`` in ``dtype``, copied there on
+    the first eager call only (``device.device_table``: a trace never
+    fills the cache)."""
+    return device_table(
+        _RESIZE_MATRICES, (n_in, n_out, device, dtype),
+        lambda: torch.from_numpy(_resize_weights(n_in, n_out)).to(device,
+                                                                  dtype))
 
 
 def resize_bilinear(x, size: Sequence[int]):

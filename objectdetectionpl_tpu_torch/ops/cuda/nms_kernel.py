@@ -5,9 +5,14 @@ The counterpart of ``objectdetectionpl_tpu/ops/pallas/nms_kernel.py``
 (``pallas_greedy_nms``) and of the XLA ``blocked_greedy_nms`` in
 ``objectdetectionpl_tpu/ops/nms.py``: all three compute the same function.
 
-:func:`greedy_nms` takes the plain version only for tensors on the CPU.  For
-CUDA tensors it launches the kernel or raises; ``LAUNCHES`` counts the
-launches, so a run can show that its path went through the kernel.
+:func:`greedy_nms` calls the custom op ``objdet::greedy_nms``
+(``torch.library``), whose CPU kernel is the plain version and whose CUDA
+kernel launches ``csrc/greedy_nms.cu`` or raises; ``LAUNCHES`` counts the
+launches, so a run can show that its path went through the kernel.  The
+op's fake kernel gives the output shapes, so ``torch.export`` captures the
+op as one node of the serving graph (``utils/export.py``), and a program
+loaded from a ``.pt2`` file calls the same kernels once this module is
+imported.
 """
 
 from __future__ import annotations
@@ -125,14 +130,30 @@ def greedy_nms(boxes, scores, labels, obj, nms_thresh: float = 0.4,
 
     CPU tensors go to the plain version.  CUDA tensors must be contiguous,
     boxes/scores/obj float32 and labels int32, with K at most the kernel's
-    limit (1024); the kernel runs on the current stream.
+    limit (1024); the kernel runs on the current stream.  Either way
+    through the op ``objdet::greedy_nms``; other devices raise.
     """
-    if boxes.device.type == "cpu":
-        return greedy_nms_plain(boxes, scores, labels, obj, nms_thresh,
-                                class_aware, merge, plus1,
-                                drop_lone_survivor)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"greedy_nms: unsupported device {boxes.device}")
+    return torch.ops.objdet.greedy_nms(
+        boxes, scores, labels, obj, float(nms_thresh), bool(class_aware),
+        bool(merge), float(plus1), bool(drop_lone_survivor))
+
+
+@torch.library.custom_op("objdet::greedy_nms", mutates_args=(),
+                         device_types="cpu")
+def _greedy_nms_op(boxes: torch.Tensor, scores: torch.Tensor,
+                    labels: torch.Tensor, obj: torch.Tensor,
+                    nms_thresh: float, class_aware: bool, merge: bool,
+                    plus1: float, drop_lone_survivor: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return greedy_nms_plain(boxes, scores, labels, obj, nms_thresh,
+                            class_aware, merge, plus1, drop_lone_survivor)
+
+
+@_greedy_nms_op.register_kernel("cuda")
+def _greedy_nms_cuda(boxes, scores, labels, obj, nms_thresh, class_aware,
+                     merge, plus1, drop_lone_survivor):
     B, K = scores.shape
     dev = boxes.device
     _check(boxes, "boxes", torch.float32, (B, K, 4), dev)
@@ -159,3 +180,10 @@ def greedy_nms(boxes, scores, labels, obj, nms_thresh: float = 0.4,
     global LAUNCHES
     LAUNCHES += 1
     return out, keep
+
+
+@_greedy_nms_op.register_fake
+def _greedy_nms_fake(boxes, scores, labels, obj, nms_thresh, class_aware,
+                     merge, plus1, drop_lone_survivor):
+    return (torch.empty_like(boxes, dtype=torch.float32),
+            boxes.new_empty(scores.shape, dtype=torch.bool))

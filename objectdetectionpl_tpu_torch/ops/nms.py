@@ -10,7 +10,8 @@ the CUDA kernel for CUDA tensors, its plain version for CPU tensors.
 
 Candidate selection is exact and stable: equal scores keep the lower index
 first, as ``lax.top_k`` does (bf16 scores tie often).  The TPU's
-``approx_max_k`` has no counterpart here.
+``approx_max_k`` has no counterpart here.  :func:`decode_select_yolov5`
+ranks on the raw YOLOv5 maps and decodes only the selected rows.
 """
 
 from __future__ import annotations
@@ -20,10 +21,13 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from objectdetectionpl_tpu_torch.device import device_table
 from objectdetectionpl_tpu_torch.ops import boxes as box_ops
 from objectdetectionpl_tpu_torch.ops.cuda import nms_kernel
 
 NEG_INF = -1e9
+
+_ANCHORS: dict = {}   # (anchor pixels, dtype, device) -> [A, 2] tensor
 
 
 class NMSResult(NamedTuple):
@@ -52,6 +56,16 @@ class YoloCandidates(NamedTuple):
                 f32(self.weight))
 
 
+def anchor_table(anc_px, dtype: torch.dtype, device) -> torch.Tensor:
+    """Anchor sizes in pixels ``[A, 2]`` as a tensor in ``dtype`` on
+    ``device``, copied there once (``device.device_table``)."""
+    a = np.asarray(anc_px)
+    return device_table(_ANCHORS, (a.tobytes(), a.dtype.str, a.shape, dtype,
+                                   torch.device(device)),
+                        lambda: torch.as_tensor(a, dtype=dtype,
+                                                device=device))
+
+
 def decode_yolo_predictions(outputs: Sequence[torch.Tensor], anchors_px,
                             strides, num_classes: int) -> torch.Tensor:
     """Decode YOLOv2/v3/v4 raw maps [B, A*(5+C), g, g] to [B, N, 5+C]
@@ -64,8 +78,8 @@ def decode_yolo_predictions(outputs: Sequence[torch.Tensor], anchors_px,
         A = len(anc_px)
         pred = x.reshape(B, A, 5 + num_classes, g, g).permute(0, 1, 3, 4, 2)
         grid = box_ops.grid_offsets(g, x.dtype, x.device)
-        anc = torch.as_tensor(np.asarray(anc_px), dtype=x.dtype,
-                              device=x.device).reshape(1, A, 1, 1, 2) / stride
+        anc = anchor_table(anc_px, x.dtype, x.device).reshape(
+            1, A, 1, 1, 2) / stride
         xy = (torch.sigmoid(pred[..., :2]) + grid) * stride
         wh = torch.exp(pred[..., 2:4]) * anc * stride
         dec = torch.cat([xy, wh, torch.sigmoid(pred[..., 4:])], dim=-1)
@@ -84,8 +98,7 @@ def decode_yolov5_predictions(outputs: Sequence[torch.Tensor], anchors_px,
     for x, anc_px, stride in zip(outputs, anchors_px, strides):
         B, A, g, _, _ = x.shape
         grid = box_ops.grid_offsets(g, x.dtype, x.device)
-        anc = torch.as_tensor(np.asarray(anc_px), dtype=x.dtype,
-                              device=x.device).reshape(1, A, 1, 1, 2)
+        anc = anchor_table(anc_px, x.dtype, x.device).reshape(1, A, 1, 1, 2)
         sig = torch.sigmoid(x)
         xy = (sig[..., :2] * 2.0 - 0.5 + grid) * stride
         wh = (sig[..., 2:4] * 2.0) ** 2 * anc
@@ -98,6 +111,55 @@ def _select_top_k(score: torch.Tensor, k: int):
     """(values, indices) of the k best scores per row, ties by lower index."""
     values, idx = torch.sort(score, dim=-1, descending=True, stable=True)
     return values[..., :k], idx[..., :k]
+
+
+def decode_select_yolov5(outputs: Sequence[torch.Tensor], anchors_px,
+                         strides, num_classes: int, top_k: int = 300,
+                         conf_thres: float = 0.5) -> torch.Tensor:
+    """Score -> top-k -> gather -> decode: the serving-tail form of
+    :func:`decode_yolov5_predictions`, feeding :func:`yolo_nms`.
+
+    The score is taken on the raw maps, ``sigmoid(obj) * sigmoid(max
+    cls)`` where ``sigmoid(obj) >= conf_thres`` (``max(sigmoid(z)) ==
+    sigmoid(max(z))``), the ``top_k`` best rows over all maps are picked
+    by the exact, stable :func:`_select_top_k`, and only their raw rows
+    are gathered and decoded, grid cell and anchor recovered from the flat
+    index.  An image with fewer than ``top_k`` rows over the threshold
+    gathers rows that fail it in :func:`yolo_nms`, so the detections are
+    the dense chain's.  Returns ``[B, min(top_k, N), 5+C]`` in the maps'
+    dtype.
+    """
+    B = outputs[0].shape[0]
+    scores = []
+    for x in outputs:
+        obj = torch.sigmoid(x[..., 4])
+        cls = torch.sigmoid(x[..., 5:].amax(dim=-1))
+        scores.append(torch.where(obj >= conf_thres, obj * cls,
+                                  NEG_INF).reshape(B, -1))
+    score = torch.cat(scores, dim=1)
+    _, idx = _select_top_k(score, min(top_k, score.shape[1]))   # [B, K]
+
+    out = outputs[0].new_zeros((B, idx.shape[1], 5 + num_classes))
+    image = torch.arange(B, device=idx.device)[:, None]
+    offset = 0
+    for x, anc_px, stride in zip(outputs, anchors_px, strides):
+        _, A, g, _, _ = x.shape
+        n = A * g * g
+        local = idx - offset
+        in_scale = (local >= 0) & (local < n)
+        li = local.clamp(0, n - 1)
+        a, rem = li // (g * g), li % (g * g)
+        gy, gx = rem // g, rem % g
+        rows = x[image, a, gy, gx]                      # [B, K, 5+C]
+        gxy = torch.stack([gx, gy], dim=-1).to(rows.dtype)
+        anc = anchor_table(anc_px, rows.dtype, rows.device)[a]
+        sig = torch.sigmoid(rows)
+        xy = (sig[..., :2] * 2.0 - 0.5 + gxy) * stride
+        wh = (sig[..., 2:4] * 2.0) ** 2 * anc
+        dec = torch.cat([xy, wh, sig[..., 4:]], dim=-1)
+        out = torch.where(in_scale[..., None], dec, out)
+        offset += n
+    return out
 
 
 def yolo_candidates(predictions: torch.Tensor, conf_thres: float = 0.5,

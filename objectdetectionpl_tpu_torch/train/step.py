@@ -16,6 +16,7 @@ from typing import Callable
 
 import torch
 
+from objectdetectionpl_tpu_torch.device import device_table
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
 from objectdetectionpl_tpu_torch.ops import boxes as box_ops
 from objectdetectionpl_tpu_torch.ops import nms
@@ -155,16 +156,12 @@ YOLO_DECODE = {
 
 def _on_device(table) -> Callable:
     """``device -> table`` as f32 on that device, copied there on the first
-    call only: a copy from the host in every batch would wait for the
-    card.  Made outside inference mode, as blocks._resize_matrix is."""
+    eager call only (``device.device_table``: a trace never fills it)."""
     on_device = {}
 
     def get(dev):
-        if dev not in on_device:
-            with torch.inference_mode(False):
-                on_device[dev] = torch.as_tensor(table, dtype=torch.float32,
-                                                 device=dev)
-        return on_device[dev]
+        return device_table(on_device, dev, lambda: torch.as_tensor(
+            table, dtype=torch.float32, device=dev))
     return get
 
 

@@ -227,15 +227,15 @@ def test_resize_matrices_are_made_once_and_serve_a_backward():
     dtype; one first made under inference mode (serving) still serves a
     training forward's backward, whose input gradient is each input
     pixel's total weight."""
-    pb._resize_matrix.cache_clear()
+    pb._RESIZE_MATRICES.clear()
     x = torch.from_numpy(np.random.RandomState(7).randn(2, 5, 7, 9)
                          .astype(np.float32))
     with torch.inference_mode():
         served = pb.resize_bilinear(x, (13, 17))
-    assert pb._resize_matrix.cache_info().misses == 2
+    assert len(pb._RESIZE_MATRICES) == 2
     xg = x.clone().requires_grad_(True)
     out = pb.resize_bilinear(xg, (13, 17))
-    assert pb._resize_matrix.cache_info().misses == 2
+    assert len(pb._RESIZE_MATRICES) == 2
     torch.testing.assert_close(out.detach(), served, rtol=0, atol=0)
     out.sum().backward()
     wh = pb._resize_weights(7, 13).sum(1)

@@ -61,6 +61,8 @@ def test_port_and_chip_smoke_import_no_jax():
             "objectdetectionpl_tpu_torch.data.parsers.asiatraffic",
             "objectdetectionpl_tpu_torch.data.cache",
             "objectdetectionpl_tpu_torch.cli.predict",
+            "objectdetectionpl_tpu_torch.utils.export",
+            "objectdetectionpl_tpu_torch.bench",
             "objectdetectionpl_tpu_torch.train.tune",
             "objectdetectionpl_tpu_torch.tools.fixture_trees"} <= set(
                 res["modules"])

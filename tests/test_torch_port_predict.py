@@ -23,7 +23,8 @@
 - ``main`` streams: on [good, CMYK, good] the first image's line is
   printed and its PNG written before the second raises ``JpegError``.
 - ``write_png`` read back by PIL, equal.
-- ``--export`` raises naming ROADMAP A4r.
+- ``--export`` to a path that cannot be written raises before any image
+  is served (``tests/test_torch_port_export.py`` writes and reloads).
 """
 
 import json
@@ -229,6 +230,16 @@ def test_write_png_reads_back(tmp_path, shape):
         viz.write_png(str(path), rgb.astype(np.float32))
 
 
-def test_export_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4r"):
-        predict.main([YAML, "--export", "model.pt", "--device", "cpu"])
+def test_export_raises(tmp_path, capsys):
+    """``--export`` runs before any image is served and has no fallback: a
+    program that cannot be written raises, and nothing is predicted."""
+    missing = tmp_path / "no_such_dir" / "model.pt2"
+    with pytest.raises((FileNotFoundError, RuntimeError)):
+        predict.main([YAML, "--set", "model_name", "YOLOv5",
+                      "--set", "img_size", str(IMG),
+                      "--set", "log_dir", str(tmp_path / "logs"),
+                      "--device", "cpu", "--export", str(missing),
+                      "--images", PATHS[0]])
+    out = capsys.readouterr().out
+    assert "exported serving graph" not in out and "{" not in out
+    assert not missing.exists()
