@@ -114,6 +114,26 @@ exits non-zero:
    each epoch's wall time, images/s (the Trainer's
    ``throughput/images_per_sec``), losses, the Loader's resize path and
    the peak memory.
+10'. ddp -- data parallelism (``parallel/``), in processes of their own
+   (``parallel/dryrun.py::spawn``, torchrun's environment): (a) two ranks
+   on the one card over gloo (NCCL refuses two ranks on one device),
+   YOLOv5s-640, 80 classes, f32 with TF32 off, B=4 a rank, accumulation
+   2, ``mosaic_batch`` p=1 and ``augment_batch``, Adam, 3 steps; each
+   step against this process stepping on the concatenated microbatches
+   with the same draws from rank 0's state before that step: loss,
+   parameter norm, Adam's first moment and the share of parameters whose
+   update took the other sign within ``DDP_TOL`` (f32 reduction order),
+   that share above it for a step on rank 0's rows alone (no collective),
+   the two ranks' parameters equal; each rank's counts zeroed before and read after its
+   steps, one warp launch a microbatch; step ms of 2 ranks (gloo over the
+   host) and of 1 process.  (b) ``cli.run.main`` as rank 0 of a world of
+   1 over NCCL (it joins the group from the environment, prints ``[run]
+   distributed: process 0 / 1`` and leaves at exit; one all-reduce of
+   a 1 inside its fit must give 1): YOLOv5s-640, bf16, one epoch of
+   Synthetic with test on, counts zeroed before and read after: 2 warp
+   launches, 1 NMS launch.  (c) ``dryrun_multichip(2)`` on the card over
+   gloo: the four families' one-step losses finite and equal on both
+   ranks.
 10a. jpeg_check -- the port's host library (``csrc/preproc.cc`` and the
    JPEG decoder ``csrc/jpeg_decode.cc``) built with g++ (seconds, or
    ``native.build_error``, which fails the phase);
@@ -264,7 +284,7 @@ Then the ``kernels`` line (the NMS and warp entries also carry the launch
 counts of the YOLO, anchor, VOC, COCO (uncached and cached), WiderPerson,
 training-options, BDD100K-SSD and predict phases, the NMS entry those of
 the export, the fresh interpreter, ``predict --export`` and the bench, the warp entry those of
-``remat_check``, and the NMS entry the anchor scan's times) and, last,
+``remat_check``, both those of ``ddp``, and the NMS entry the anchor scan's times) and, last,
 ``{"ok": true, "device": {...}}``.
 Without CUDA it prints nothing to stdout and exits 1.
 """
@@ -307,6 +327,9 @@ from objectdetectionpl_tpu_torch.ops import assignment, losses, nms
 from objectdetectionpl_tpu_torch.ops import boxes as box_ops
 from objectdetectionpl_tpu_torch.ops.cuda import (_build, conv_kernel,
                                                   nms_kernel, warp_kernel)
+from objectdetectionpl_tpu_torch.parallel import distributed
+from objectdetectionpl_tpu_torch.parallel.dryrun import (dryrun_multichip,
+                                                         spawn)
 from objectdetectionpl_tpu_torch.tools import (conv_bench, decode_bench,
                                                fixture_trees, kernel_ab)
 from objectdetectionpl_tpu_torch.tools.kernel_ab import (candidates,
@@ -3231,6 +3254,288 @@ def phase_profile(card: str) -> None:
               "by_class": by_class, "top": top})
 
 
+# --- data parallelism (ddp) ------------------------------------------------
+
+# (a) two ranks on the one card over gloo (NCCL refuses two ranks on one
+# device): YOLOv5s-640 at full width, f32, B=4 a rank, accumulation 2,
+# mosaic 1.0, Adam, 3 steps, against one process on the concatenated
+# microbatches with the same draws
+DDP_RANKS = 2
+DDP_B = 4                 # images a rank and microbatch
+DDP_ACCUM = 2
+DDP_STEPS = 3
+DDP_LR = 1e-3
+# Each step of the two ranks is held against one process stepping on the
+# concatenated microbatches, with the same draws, from the ranks' state
+# before that step: what differs is the f32 reduction order alone.  That
+# order moves this model's gradient by ~1 % in relative L2 at random
+# init (the BN cancellation of test_torch_port_train.py: permuting the
+# rows of one process's batch moved it by 1.06 % at 64 px on the CPU),
+# and Adam turns a gradient of unsettled sign into a whole step either
+# way, so trajectories are not compared: over 3 steps they drift apart
+# by ~lr.  Loss and parameter norm at rtol 1e-4 as
+# tests/test_distributed_2proc.py holds JAX's processes; Adam's first
+# moment (0.1 x the summed gradient) within 3 % (a lost or halved
+# reduction is ~50 % off).  An Adam update is ~lr whatever the gradient's
+# size, so parameters are compared by the share of them whose update
+# (post - pre) took the other sign than one process's: 2 %, five times
+# the largest of a sound run (0.39 / 0.21 / 0.06 % at steps 1-3, H100),
+# which a step on rank 0's rows alone (what a rank without any collective
+# computes: 45 / 22 / 13 % there) must exceed, or the check could not
+# tell.
+DDP_TOL = {"loss_rtol": 1e-4, "pnorm_rtol": 1e-4, "mu_rel_l2": 3e-2,
+           "update_sign_mismatch": 2e-2}
+# (b) cli.run at world size 1 over NCCL: one epoch of Synthetic, test on
+DDP_CLI_SETS = {"model_name": "YOLOv5", "type": "Yolov5s", "img_size": "640",
+                "compute_dtype": "bfloat16", "data_module": "Synthetic",
+                "synthetic_size": "64", "batch_size": "16",
+                "accumulate_grad_batches": "2", "limit_train_batches": "2",
+                "limit_val_batches": "1", "limit_test_batches": "1",
+                "max_epochs": "1"}
+
+
+def ddp_setup():
+    """(state, step, microbatches) of the ``ddp`` (a) run: this process's
+    rows of every global microbatch (all of them without a process
+    group), augmented from one generator, mosaic first."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    R, r = distributed.data_shard()
+    b = DDP_RANKS * DDP_B // R
+    model = build_model("YOLOv5", NUM_CLASSES, device="cuda", seed=0)
+    opt = build_optimizer(Config(lr=DDP_LR), model.parameters())
+    state = create_train_state(model, opt)
+    distributed.broadcast_state(state)
+    step = make_train_step(model, losses.make_loss("YOLOv5", NUM_CLASSES,
+                                                   IMG), opt, DDP_ACCUM)
+    rows = slice(r * b, (r + 1) * b)
+    batches = [[t[rows].cuda() for t in train_batch(DDP_RANKS * DDP_B,
+                                                    seed=37 + i)]
+               for i in range(DDP_STEPS * DDP_ACCUM)]
+    return state, step, batches
+
+
+def ddp_augmented(batches, gen, s: int) -> list:
+    """Step ``s``'s stacked microbatches: uint8 -> /255 -> mosaic (p=1)
+    -> ``augment_batch``, drawing from ``gen``."""
+    micro = []
+    for images, labels, boxes, mask in batches[s * DDP_ACCUM:
+                                               (s + 1) * DDP_ACCUM]:
+        x, boxes, labels, mask = augment.mosaic_batch(
+            images.float() / 255.0, boxes, labels, mask, p=1.0,
+            generator=gen)
+        x, boxes, mask = augment.augment_batch(x, boxes, mask,
+                                               generator=gen)
+        micro.append((x, labels, boxes, mask))
+    return [torch.stack([m[i] for m in micro]) for i in range(4)]
+
+
+def _pnorm(model) -> float:
+    return math.sqrt(sum(p.detach().double().square().sum().item()
+                         for p in model.parameters()))
+
+
+def _params_and_mu(state) -> dict:
+    return {"params": {n: p.detach().cpu()
+                       for n, p in state.model.named_parameters()},
+            "mu": {n: state.optimizer.state[p]["exp_avg"].cpu()
+                   for n, p in state.model.named_parameters()}}
+
+
+def ddp_ranks(out: str) -> dict:
+    """One rank of ``ddp`` (a): its steps, each rank's parameters and
+    Adam's first moment after each step saved to ``out`` (rank 0 also its
+    state before each step); returns the losses, norms, step ms and this
+    rank's launches."""
+    state, step, batches = ddp_setup()
+    r = distributed.process_index()
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    res = {"loss": [], "pnorm": [], "ms": []}
+    torch.cuda.synchronize()
+    reset_launches()                           # main path starts here
+    for s in range(DDP_STEPS):
+        if r == 0:
+            torch.save({"model": state.model.state_dict(),
+                        "optimizer": state.optimizer.state_dict()},
+                       os.path.join(out, f"pre{s}.pt"))
+        t0 = time.perf_counter()
+        state, metrics = step(state, *ddp_augmented(batches, gen, s))
+        torch.cuda.synchronize()
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["loss"].append(metrics["loss"].item())
+        res["pnorm"].append(_pnorm(state.model))
+        torch.save(_params_and_mu(state), os.path.join(out,
+                                                       f"post{s}_{r}.pt"))
+    res["launches"] = read_launches()          # main path ends here
+    return res
+
+
+def ddp_reference(out: str, ranks: list) -> dict:
+    """``ddp`` (a)'s one process: each step on the concatenated
+    microbatches from rank 0's state before it, held to ``DDP_TOL``
+    against the ranks after it; then the same step on rank 0's rows
+    alone, the update sign check's fault."""
+    state, step, batches = ddp_setup()
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    res = {"loss": [], "loss_rel_err": [], "pnorm_rel_err": [],
+           "mu_rel_l2": [], "update_sign_mismatch": [],
+           "update_sign_mismatch_rank0_alone": [], "ms": []}
+    flat = lambda d: torch.cat([d[n].double().ravel() for n in sorted(d)])
+    for s in range(DDP_STEPS):
+        pre = torch.load(os.path.join(out, f"pre{s}.pt"))
+        state.model.load_state_dict(pre["model"])
+        state.optimizer.load_state_dict(pre["optimizer"])
+        batch = ddp_augmented(batches, gen, s)
+        t0 = time.perf_counter()
+        state, metrics = step(state, *batch)
+        torch.cuda.synchronize()
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+        loss = metrics["loss"].item()
+        res["loss"].append(loss)
+        got = [torch.load(os.path.join(out, f"post{s}_{r}.pt"))
+               for r in range(DDP_RANKS)]
+        want = _params_and_mu(state)
+        if any(not torch.equal(got[0]["params"][n], g["params"][n])
+               for g in got[1:] for n in want["params"]):
+            raise AssertionError(f"ddp: the ranks' parameters differ after "
+                                 f"step {s}")
+        res["loss_rel_err"].append(abs(ranks[0]["loss"][s] / loss - 1))
+        res["pnorm_rel_err"].append(abs(ranks[0]["pnorm"][s]
+                                        / _pnorm(state.model) - 1))
+        res["mu_rel_l2"].append(((flat(got[0]["mu"]) - flat(want["mu"]))
+                                 .norm() / flat(want["mu"]).norm()).item())
+        signs = lambda params: torch.cat([
+            (params[n] - pre["model"][n].cpu()).sign().ravel()
+            for n in sorted(params)])
+        ref = signs(want["params"])
+        res["update_sign_mismatch"].append(
+            (signs(got[0]["params"]) != ref).double().mean().item())
+        state.model.load_state_dict(pre["model"])
+        state.optimizer.load_state_dict(pre["optimizer"])
+        state, _ = step(state, *[t[:, :DDP_B] for t in batch])
+        res["update_sign_mismatch_rank0_alone"].append(
+            (signs(_params_and_mu(state)["params"]) != ref).double().mean()
+            .item())
+    return res
+
+
+def ddp_worker(kind: str, out: str) -> None:
+    """One rank of ``ddp``, started by ``parallel.dryrun.spawn``: ``train``
+    (a, over gloo) or ``cli`` (b, ``cli.run.main`` joining the group from
+    torchrun's environment, NCCL); prints one JSON line."""
+    if kind == "train":
+        distributed.maybe_initialize("gloo")
+        try:
+            res = ddp_ranks(out)
+        finally:
+            distributed.shutdown()
+    else:
+        seen = {}
+
+        class Seen(cli_run.Trainer):
+            def fit(self):
+                seen["backend"] = torch.distributed.get_backend()
+                seen["device"] = str(self.device)
+                one = torch.ones(1, device=self.device)
+                torch.distributed.all_reduce(one)   # a collective it carries
+                seen["all_reduce_of_one"] = one.item()
+                return super().fit()
+
+        cli_run.Trainer = Seen
+        argv = [str(REPO / "configs" / "config.yaml"), "--set", "log_dir",
+                out]
+        for k, v in DDP_CLI_SETS.items():
+            argv += ["--set", k, v]
+        reset_launches()                       # main path starts here
+        results = cli_run.main(argv)
+        torch.cuda.synchronize()
+        res = {**seen, "launches": read_launches(),  # main path ends here
+               "mAP": results["mAP"],
+               "group_left": not torch.distributed.is_initialized()}
+    print("DDP " + json.dumps(res), flush=True)
+
+
+def _ddp_result(out: str) -> dict:
+    return json.loads([line for line in out.splitlines()
+                       if line.startswith("DDP ")][-1][4:])
+
+
+def phase_ddp(card: str) -> dict:
+    """(a) two ranks on the card over gloo against one process, (b)
+    ``cli.run`` at world size 1 over NCCL, (c) ``dryrun_multichip(2)`` on
+    the card over gloo."""
+    me = str(Path(__file__).resolve())
+    threads = {"OMP_NUM_THREADS": str(max(os.cpu_count() // DDP_RANKS, 1))}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_",
+                                     dir=REPO / "build") as tmp:
+        t0 = time.perf_counter()
+        ranks = [_ddp_result(o) for o in spawn(
+            [me, "--ddp-worker", "train", tmp], DDP_RANKS, 900, threads)]
+        ranks_s = time.perf_counter() - t0
+        one = ddp_reference(tmp, ranks)
+    warp = [r["launches"]["affine_warp"] for r in ranks]
+    row = {"phase": "ddp", "part": "two_ranks_gloo", "card": card,
+           "model": "Yolov5s", "img": IMG, "classes": NUM_CLASSES,
+           "dtype": "float32", "B_per_rank": DDP_B, "ranks": DDP_RANKS,
+           "accum": DDP_ACCUM, "mosaic": 1.0, "steps": DDP_STEPS,
+           "loss_ranks": [r["loss"] for r in ranks],
+           "loss_one_process": one["loss"],
+           **{k: one[k] for k in ("loss_rel_err", "pnorm_rel_err",
+                                  "mu_rel_l2", "update_sign_mismatch",
+                                  "update_sign_mismatch_rank0_alone")},
+           "tolerance": DDP_TOL, "warp_launches_per_rank": warp,
+           "step_ms_two_ranks_gloo_over_host": [r["ms"] for r in ranks],
+           "step_ms_one_process": one["ms"], "spawn_s": ranks_s}
+    emit(row)
+    if ranks[0]["loss"] != ranks[1]["loss"] or not all(
+            math.isfinite(v) for v in ranks[0]["loss"]):
+        raise AssertionError(f"ddp: rank losses {row['loss_ranks']}")
+    for key, tol in (("loss_rel_err", "loss_rtol"),
+                     ("pnorm_rel_err", "pnorm_rtol"),
+                     ("mu_rel_l2", "mu_rel_l2"),
+                     ("update_sign_mismatch", "update_sign_mismatch")):
+        if max(one[key]) > DDP_TOL[tol]:
+            raise AssertionError(f"ddp: two ranks against one process: "
+                                 f"{key} {one[key]} beyond {DDP_TOL[tol]}")
+    alone = one["update_sign_mismatch_rank0_alone"]
+    if min(alone) <= DDP_TOL["update_sign_mismatch"]:
+        raise AssertionError(f"ddp: a step on rank 0's rows alone changed the "
+                             f"update's sign of {alone} of the parameters, "
+                             f"not above the limit "
+                             f"{DDP_TOL['update_sign_mismatch']}")
+    if warp != [DDP_STEPS * DDP_ACCUM] * DDP_RANKS:
+        raise AssertionError(f"ddp: warp launches per rank {warp}, expected "
+                             f"{DDP_STEPS * DDP_ACCUM} each")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_cli_",
+                                     dir=REPO / "build") as tmp:
+        t0 = time.perf_counter()
+        out = spawn([me, "--ddp-worker", "cli", tmp], 1, 900)[0]
+        cli_s = time.perf_counter() - t0
+    cli = _ddp_result(out)
+    emit({"phase": "ddp", "part": "cli_nccl_world1", "card": card,
+          "sets": DDP_CLI_SETS, "wall_s": cli_s, **cli,
+          "printed": [line for line in out.splitlines()
+                      if line.startswith("[run]")]})
+    if "[run] distributed: process 0 / 1" not in out or \
+            cli["backend"] != "nccl" or cli["all_reduce_of_one"] != 1.0 \
+            or not cli["group_left"]:
+        raise AssertionError(f"ddp: cli.run did not join and leave an NCCL "
+                             f"group: {cli}\n{out[-3000:]}")
+    if cli["launches"]["greedy_nms"] != 1 or \
+            cli["launches"]["affine_warp"] != 2:
+        raise AssertionError(f"ddp: cli.run launched {cli['launches']}, "
+                             f"expected 1 NMS (one test batch) and 2 warp "
+                             f"(two microbatches)")
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(DDP_RANKS, device="cuda")
+    emit({"phase": "ddp", "part": "dryrun_multichip_gloo", "card": card,
+          "ranks": DDP_RANKS, "loss": dry,
+          "wall_s": time.perf_counter() - t0})
+    return {"warp_per_rank": warp, "cli": cli["launches"]}
+
+
 def conv_entry(name, line, conv, err, part, library, card) -> dict:
     t, counts = conv["total"], conv["launches"]
     entry = {"name": name, "route": "cuda",
@@ -3257,10 +3562,15 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also profile one B=64 serving batch and one "
                              "B=64 training step")
+    parser.add_argument("--ddp-worker", nargs=2, metavar=("KIND", "OUT"),
+                        help=argparse.SUPPRESS)   # a rank of the ddp phase
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.ddp_worker:
+        ddp_worker(*args.ddp_worker)
+        return 0
     info = phase_device()
     card = info["card"]
     phase_build()
@@ -3278,6 +3588,7 @@ def main(argv=None) -> int:
     remat = phase_remat_check(card)
     mosaic = phase_mosaic_check(card)
     fit = phase_trainer(card)
+    ddp = phase_ddp(card)
     phase_jpeg_check(card)
     predicted = {}
     fit_voc = phase_trainer_real(card, "trainer_voc", TRAINER_VOC_SETS,
@@ -3351,6 +3662,7 @@ def main(argv=None) -> int:
         "launches_predict_export":
             predicted["export"]["launches"]["greedy_nms"],
         "launches_bench": benched["launches"],
+        "launches_ddp_cli_nccl": ddp["cli"]["greedy_nms"],
         "keep_equal": True,
         "max_abs_err": err, "max_abs_box_err": err,
         "ms": t[256]["ms"], "plain_ms": t[256]["plain_ms"],
@@ -3388,6 +3700,8 @@ def main(argv=None) -> int:
            ["affine_warp"] for k, v in fit_options.items()},
         "launches_trainer_bdd_ssd": fit_bdd["launches"]["affine_warp"],
         "launches_remat_check": remat["launches"],
+        "launches_ddp_per_rank": ddp["warp_per_rank"],
+        "launches_ddp_cli_nccl": ddp["cli"]["affine_warp"],
         "max_abs_err": warp_err,
         "ms": warp["ms"], "plain_ms": warp["plain_ms"],
         "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],

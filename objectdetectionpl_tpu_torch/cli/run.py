@@ -13,6 +13,15 @@ CUDA card unless ``--device`` names another; without CUDA and without
 ``cfg.lr``; ``auto_scale_batch_size`` ("power") prints its suggestion and
 does not apply it, as in JAX.  ``main`` returns the test results (or None
 when ``test`` is off).
+
+Data-parallel on N cards of one host (``batch_size`` is each rank's)::
+
+    python -m torch.distributed.run --nproc_per_node N \\
+        -m objectdetectionpl_tpu_torch.cli.run configs/config.yaml
+
+With torchrun's environment ``main`` joins the process group (NCCL, or
+gloo with ``--device cpu``) before it builds the Trainer, and leaves it
+at exit.
 """
 
 from __future__ import annotations
@@ -20,7 +29,10 @@ from __future__ import annotations
 import argparse
 import sys
 
+import torch
+
 from objectdetectionpl_tpu_torch.config import load_config
+from objectdetectionpl_tpu_torch.parallel import distributed
 from objectdetectionpl_tpu_torch.train.loop import Trainer
 
 
@@ -50,7 +62,21 @@ def main(argv=None):
     args = parse_args(argv)
     overrides = {k: _coerce(v) for k, v in args.set}
     cfg = load_config(args.config, overrides)
-    trainer = Trainer(cfg, device=args.device)
+    joined = (not torch.distributed.is_initialized()
+              and distributed.maybe_initialize(
+                  "gloo" if args.device == "cpu" else None))
+    if joined:
+        print(f"[run] distributed: process {distributed.process_index()} / "
+              f"{distributed.process_count()}")
+    try:
+        return _run(cfg, args.device)
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _run(cfg, device):
+    trainer = Trainer(cfg, device=device)
     print(f"[run] model={cfg.model_name} dataset={cfg.data_module} "
           f"img_size={cfg.effective_img_size} batch={cfg.batch_size} "
           f"accum={cfg.accumulate_grad_batches} device={trainer.device}")

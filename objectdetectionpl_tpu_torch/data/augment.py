@@ -18,6 +18,13 @@ for matrices outside the TPU kernel's range have no counterpart here.
 before ``augment_batch`` when ``cfg.mosaic > 0``; it scales each quadrant
 with ``jax.image.scale_and_translate``'s linear weights, antialiased
 (:func:`scale_translate_weights`), as two matrix products.
+
+Under a process group of R ranks each rank holds b rows of a global
+batch of R*b (``parallel/distributed.py::data_shard``): both functions
+draw the global batch's uniforms from the rank's generator (seeded alike
+on every rank) and keep the rank's rows, and mosaic's partners come from
+the global batch (``gather_rows``).  So R ranks augment exactly as one
+process augments the concatenation of their shards in rank order.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from objectdetectionpl_tpu_torch.ops.cuda import warp_kernel
+from objectdetectionpl_tpu_torch.parallel import distributed
 
 
 class AugmentConfig(NamedTuple):
@@ -132,26 +140,32 @@ def augment_batch(images: torch.Tensor, boxes: torch.Tensor,
     """Augment a batch: images [B, S, S, 3] f32 in [0, 1], boxes [B, M, 4]
     center-form normalized, mask [B, M].  Returns new (images, boxes, mask).
 
-    ``u`` [B, 14] uniforms are drawn from ``generator`` on the images'
-    device unless given (the tests hand in JAX's exact draw).  The warp runs
-    on K = max(1, min(B, round(B * min(2 p_ssr, 1)))) slots, claimed by the
-    K smallest SSR coins (ties to the lower index, as ``lax.top_k``); an
-    image is warped iff its coin selected SSR and it holds a slot, so with
-    more than K selected coins the overflow skips SSR, image and boxes
-    alike.  No step syncs with the host.
+    ``u`` [R*B, 14] uniforms of the global batch (R ranks, R = 1 without
+    a process group) are drawn from ``generator`` on the images' device
+    unless given (the tests hand in JAX's exact draw); the rank keeps its
+    B rows.  The warp runs on K = max(1, min(RB, round(RB * min(2 p_ssr,
+    1)))) slots of the global batch, claimed by the K smallest SSR coins
+    (ties to the lower index, as ``lax.top_k``); an image is warped iff
+    its coin selected SSR and it holds a slot, so with more than K
+    selected coins the overflow skips SSR, image and boxes alike.  A rank
+    holds min(B, K) of them, its smallest coins: every global slot among
+    its rows, and others that copy their image.  No step syncs with the
+    host.
     """
     B = images.shape[0]
     dev = images.device
+    R, r = distributed.data_shard()
     if u is None:
-        u = torch.rand((B, 14), generator=generator, device=dev)
+        u = torch.rand((R * B, 14), generator=generator, device=dev)
     else:
         u = torch.as_tensor(u, dtype=torch.float32, device=dev)
+    K = max(1, min(R * B, int(round(R * B * min(2.0 * cfg.p_ssr, 1.0)))))
+    covered = torch.zeros(R * B, dtype=torch.bool, device=dev)
+    covered[torch.sort(u[:, 2], stable=True).indices[:K]] = True
+    u, covered = u[r * B:(r + 1) * B], covered[r * B:(r + 1) * B]
     images, boxes = _augment_cheap(u, images, boxes, cfg)
 
-    K = max(1, min(B, int(round(B * min(2.0 * cfg.p_ssr, 1.0)))))
-    top = torch.sort(u[:, 2], stable=True).indices[:K]
-    covered = torch.zeros(B, dtype=torch.bool, device=dev)
-    covered[top] = True
+    top = torch.sort(u[:, 2], stable=True).indices[:min(B, K)]
 
     fwd, do = _ssr_params(u, cfg)
     applied = do & covered
@@ -215,23 +229,27 @@ def mosaic_batch(images: torch.Tensor, boxes: torch.Tensor,
     4M composited boxes (ties to the lower index, as ``lax.top_k``), a box
     of zero area or a padded one marked invalid.
 
-    ``centers`` [B, 2] (x, y) and ``u_apply`` [B] are drawn from
-    ``generator`` on the images' device unless given (the tests hand in
-    JAX's draws).  A quadrant's pixels are those whose ``arange(S)/S``
-    lies in it, compared in float32 as JAX compares them.  No step syncs
-    with the host.
+    ``centers`` [R*B, 2] (x, y) and ``u_apply`` [R*B], the global batch's
+    (R ranks, R = 1 without a process group), are drawn from ``generator``
+    on the images' device unless given (the tests hand in JAX's draws);
+    the rank keeps its B rows, and its partners ``(i + k) % RB`` are rows
+    of the global batch, the first min(B, 3) of every rank gathered.  A quadrant's pixels
+    are those whose ``arange(S)/S`` lies in it, compared in float32 as JAX
+    compares them.  No step syncs with the host.
     """
     B, S = images.shape[0], images.shape[1]
     M = boxes.shape[1]
     dev = images.device
     f32 = torch.float32
+    R, r = distributed.data_shard()
     if centers is None:
-        centers = 0.3 + 0.4 * torch.rand((B, 2), generator=generator,
+        centers = 0.3 + 0.4 * torch.rand((R * B, 2), generator=generator,
                                          device=dev)
     if u_apply is None:
-        u_apply = torch.rand((B,), generator=generator, device=dev)
-    centers = torch.as_tensor(centers, dtype=f32, device=dev)
-    apply = torch.as_tensor(u_apply, dtype=f32, device=dev) < p
+        u_apply = torch.rand((R * B,), generator=generator, device=dev)
+    rows = slice(r * B, (r + 1) * B)
+    centers = torch.as_tensor(centers, dtype=f32, device=dev)[rows]
+    apply = torch.as_tensor(u_apply, dtype=f32, device=dev)[rows] < p
     cx, cy = centers[:, 0], centers[:, 1]
     zero = torch.zeros_like(cx)
     # quadrant origins and sizes [B, 4]: TL, TR, BL, BR
@@ -247,16 +265,27 @@ def mosaic_batch(images: torch.Tensor, boxes: torch.Tensor,
     # products then add up to JAX's where() over the quadrants exactly
     wx = scale_translate_weights(S, S, sx, ox * S) * in_x[:, :, None, :]
     wy = scale_translate_weights(S, S, sy, oy * S) * in_y[:, :, None, :]
-    src = (torch.arange(B, device=dev)[:, None]
-           + torch.arange(4, device=dev)) % B               # [B, 4]
+    src = (torch.arange(r * B, (r + 1) * B, device=dev)[:, None]
+           + torch.arange(4, device=dev)) % (R * B)         # [B, 4]
+    pool = [images, boxes, labels, mask]
+    if R > 1:
+        # a partner on another rank is among its first c = min(B, 3) rows
+        # (k <= 3), so only those cross ranks: rows of the rank's own B,
+        # then of the R*c gathered ones
+        c = min(B, 3)
+        q, l = src // B, src % B
+        src = torch.where(q == r, l, B + q * c + l)
+        pool = [torch.cat([t, g]) for t, g in zip(
+            pool, distributed.gather_rows([t[:c] for t in pool]))]
+    g_images, g_boxes, g_labels, g_mask = pool
     # rows (y, c) times the x weights, then the y weights times rows
     # (c, x): two batched products of [S, S] matrices, no broadcast
-    x = images[src].transpose(-1, -2).reshape(B, 4, S * 3, S)
+    x = g_images[src].transpose(-1, -2).reshape(B, 4, S * 3, S)
     t = torch.matmul(x, wx).reshape(B, 4, S, 3 * S)
     canvas = torch.matmul(wy.transpose(-1, -2), t).sum(1)    # [B,y,(c,x)]
     canvas = canvas.reshape(B, S, 3, S).transpose(-1, -2).contiguous()
 
-    b = boxes[src]                                          # [B,4,M,4]
+    b = g_boxes[src]                                        # [B,4,M,4]
     ox, oy, sx, sy = (t[..., None] for t in (ox, oy, sx, sy))
 
     def fma(o, x, s):
@@ -265,12 +294,12 @@ def mosaic_batch(images: torch.Tensor, boxes: torch.Tensor,
         return (o.double() + x.double() * s.double()).float()
     nb = torch.stack([fma(ox, b[..., 0], sx), fma(oy, b[..., 1], sy),
                       b[..., 2] * sx, b[..., 3] * sy], -1)
-    valid = mask[src]
+    valid = g_mask[src]
     area = torch.where(valid, nb[..., 2] * nb[..., 3], -1.0)
     nb, area = nb.reshape(B, 4 * M, 4), area.reshape(B, 4 * M)
     top = torch.sort(area, dim=1, descending=True, stable=True).indices[:, :M]
     m_boxes = torch.gather(nb, 1, top[..., None].expand(B, M, 4))
-    m_labels = torch.gather(labels[src].reshape(B, 4 * M), 1, top)
+    m_labels = torch.gather(g_labels[src].reshape(B, 4 * M), 1, top)
     m_mask = (torch.gather(valid.reshape(B, 4 * M), 1, top)
               & (torch.gather(area, 1, top) > 0))
 

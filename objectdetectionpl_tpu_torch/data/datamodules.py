@@ -19,6 +19,10 @@ each loader reads the packed cache of its parser (``data/cache.py``),
 built once on first use under ``<cache_dir>/<dataset>_<role>_<S>px``
 (``_lb`` with letterbox), the role being the first split that asked for
 that parser, so a train/val split of one parser shares one cache.
+Under a process group the train loader reads the rank's shard
+(``parallel/distributed.py::data_shard``), while val and test run the
+whole set on every rank, so their metrics need no reduction; rank 0
+builds a cache while the others wait.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from objectdetectionpl_tpu_torch.data import cache as cache_lib
 from objectdetectionpl_tpu_torch.data import native, synthetic
 from objectdetectionpl_tpu_torch.data.pipeline import (Loader,
                                                        random_split_indices)
+from objectdetectionpl_tpu_torch.parallel import distributed
 
 
 def _need_decoder(name: str) -> None:
@@ -63,11 +68,8 @@ class DataModule:
                 batch_size: Optional[int] = None, sharded: bool = False,
                 split: str = "train") -> Loader:
         cfg = self.cfg
-        if sharded:
-            from objectdetectionpl_tpu_torch.parallel import data_shard
-            num_shards, shard_id = data_shard()
-        else:
-            num_shards, shard_id = 1, 0
+        num_shards, shard_id = (distributed.data_shard() if sharded
+                                else (1, 0))
         cache_dir = None
         if cfg.cache_dir:
             S = cfg.effective_img_size
@@ -75,8 +77,11 @@ class DataModule:
             cache_dir = os.path.join(
                 cfg.cache_dir,
                 f"{self.name}_{role}_{S}px" + ("_lb" if cfg.letterbox else ""))
-            cache_lib.build_packed_cache(parser, S, cache_dir,
-                                         letterbox=cfg.letterbox)
+            # one rank builds, the others wait and read its cache
+            if distributed.process_index() == 0:
+                cache_lib.build_packed_cache(parser, S, cache_dir,
+                                             letterbox=cfg.letterbox)
+            distributed.barrier()
         return Loader(parser, cfg.effective_img_size,
                       batch_size or cfg.batch_size, cfg.max_boxes,
                       shuffle=shuffle, seed=cfg.seed, indices=indices,

@@ -2,7 +2,8 @@
 
 Entry points take ``device=None`` and resolve it here.  With no device given
 and no CUDA present this raises instead of dropping to the CPU, so a run that
-was meant for the card can never silently measure the host.
+was meant for the card can never silently measure the host.  Under a
+process group each rank takes the card of its ``LOCAL_RANK``.
 
 Also the per-device caches of constant tables (:func:`device_table`), which
 a trace reads but never fills.
@@ -14,16 +15,24 @@ from typing import Callable, Union
 
 import torch
 
+from objectdetectionpl_tpu_torch.parallel import distributed
+
 DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda`` (raises if CUDA is absent); anything else as given."""
+    """``None`` -> ``cuda`` (raises if CUDA is absent), or under a process
+    group ``cuda:LOCAL_RANK``, made the current device (the kernels'
+    launches act on it); anything else as given."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
+        if not torch.distributed.is_initialized():
+            return torch.device("cuda")
+        dev = torch.device("cuda", distributed.local_rank())
+        torch.cuda.set_device(dev)
+        return dev
     return torch.device(device)
 
 

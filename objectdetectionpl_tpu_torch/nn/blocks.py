@@ -39,6 +39,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from objectdetectionpl_tpu_torch.device import device_table
+from objectdetectionpl_tpu_torch.parallel import distributed
 
 ACTIVATIONS = {
     "leaky": functools.partial(F.leaky_relu, negative_slope=0.1),
@@ -121,11 +122,15 @@ class BatchNorm(nn.Module):
     In train mode ``mean``/``var`` are the batch moments over (N, H, W):
     sums of ``x`` and of ``x**2`` (squared in x's dtype, as JAX does)
     accumulated in f32, and the *biased* variance ``E[x^2] - E[x]^2``
-    clamped at 0; gradients flow through both.  The running statistics then
-    move as ``0.9*old + 0.1*batch`` (flax momentum 0.9), except in the
-    second run of a block under :func:`remat`.  ``nn.BatchNorm2d``
-    is not used: it updates the running variance with the unbiased one.
-    No ``num_batches_tracked``: the flax tree has none."""
+    clamped at 0; gradients flow through both.  Under a process group of
+    more than one rank the sums and counts are all-reduced first, so the
+    moments are the global batch's, as JAX's sharded reduction gives them
+    (a recomputation under :func:`remat` all-reduces again).  The running
+    statistics then move as ``0.9*old + 0.1*batch`` (flax momentum 0.9),
+    except in the second run of a block under :func:`remat`.
+    ``nn.BatchNorm2d`` is not used: it updates the running variance with
+    the unbiased one.  No ``num_batches_tracked``: the flax tree has none.
+    """
 
     MOMENTUM = 0.9
 
@@ -141,8 +146,17 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = (0, 2, 3)
             n = x.numel() // x.shape[1]
-            mean = x.sum(dims, dtype=torch.float32) / n
-            mean_sq = x.square().sum(dims, dtype=torch.float32) / n
+            s1 = x.sum(dims, dtype=torch.float32)
+            s2 = x.square().sum(dims, dtype=torch.float32)
+            if distributed.process_count() > 1:
+                # the global batch's moments: [sum x, sum x^2, n] over the
+                # ranks, the gradient flowing back through the sum
+                C = s1.shape[0]
+                sums = distributed.sum_with_grad(torch.cat(
+                    [s1, s2, s1.new_full((1,), float(n))]))
+                s1, s2, n = sums[:C], sums[C:2 * C], sums[2 * C]
+            mean = s1 / n
+            mean_sq = s2 / n
             var = torch.clamp(mean_sq - mean.square(), min=0.0)
             if not getattr(_recompute, "on", False):
                 with torch.no_grad():

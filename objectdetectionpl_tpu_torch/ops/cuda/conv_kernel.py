@@ -332,24 +332,29 @@ def conv3x3_s1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"got shape {tuple(w.shape)}")
     if x.device.type == "cpu":
         return conv3x3_s1_plain(x, w)
+    return _fwd_launch(x, w.to(x.dtype))
+
+
+def _fwd_launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     B, H, W, C = x.shape
     Co = w.shape[-1]
-    w = w.to(x.dtype)
     y = torch.empty(B, H, W, Co, dtype=x.dtype, device=x.device)
     if y.numel() == 0 or C == 0:
         return y.zero_()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if wgmma_path(x, w):
-        p = fwd_plan(B, H, W, C, Co, _sms(x.device.index))
-        wk = _weight_copy(w, p)
-        launch = (_lib().conv3x3_fwd_window_launch if p.window
-                  else _lib().conv3x3_fwd_wgmma_launch)
-        err = launch(x.data_ptr(), wk.data_ptr(), y.data_ptr(), B, H, W, C,
-                     Co, p.bn, p.grid, p.smem, stream)
-    else:
-        err = _lib().conv3x3_fwd_launch(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), B, H, W, C, Co,
-            DTYPES[x.dtype], stream)
+    # the launch acts on the current device: make it the tensors' card
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if wgmma_path(x, w):
+            p = fwd_plan(B, H, W, C, Co, _sms(x.device.index))
+            wk = _weight_copy(w, p)
+            launch = (_lib().conv3x3_fwd_window_launch if p.window
+                      else _lib().conv3x3_fwd_wgmma_launch)
+            err = launch(x.data_ptr(), wk.data_ptr(), y.data_ptr(), B, H, W,
+                         C, Co, p.bn, p.grid, p.smem, stream)
+        else:
+            err = _lib().conv3x3_fwd_launch(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), B, H, W, C, Co,
+                DTYPES[x.dtype], stream)
     _launched("conv3x3_s1", err)
     return y
 
@@ -367,6 +372,10 @@ def conv3x3_s1_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                          f"shape {tuple(g.shape)}")
     if x.device.type == "cpu":
         return conv3x3_s1_wgrad_plain(x, g)
+    return _wgrad_launch(x, g)
+
+
+def _wgrad_launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     B, H, W, C = x.shape
     Co = g.shape[-1]
     dw = torch.empty(3, 3, C, Co, dtype=torch.float32, device=x.device)
@@ -376,23 +385,25 @@ def conv3x3_s1_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     p = wgrad_plan(B, H, W, C, Co, _sms(x.device.index), fast)
     partial = torch.empty(p.splits, 9 * C, Co, dtype=torch.float32,
                           device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _lib()
-    if p.window:
-        err = lib.conv3x3_wgrad_window_launch(
-            x.data_ptr(), g.data_ptr(), partial.data_ptr(), B, H, W, C, Co,
-            p.splits, p.chunk, p.smem, stream)
-    elif fast:
-        err = lib.conv3x3_wgrad_wgmma_launch(
-            x.data_ptr(), g.data_ptr(), partial.data_ptr(), B, H, W, C, Co,
-            p.bn, p.splits, p.chunk, p.smem, stream)
-    else:
-        err = lib.conv3x3_wgrad_launch(
-            x.data_ptr(), g.data_ptr(), partial.data_ptr(), B, H, W, C, Co,
-            p.splits, p.chunk, DTYPES[x.dtype], stream)
-    _launched("conv3x3_s1_wgrad", err)
-    _launched("wgrad_reduce", lib.conv3x3_wgrad_reduce_launch(
-        partial.data_ptr(), dw.data_ptr(), dw.numel(), p.splits, stream))
+    # the launches act on the current device: make it the tensors' card
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if p.window:
+            err = lib.conv3x3_wgrad_window_launch(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(), B, H, W, C,
+                Co, p.splits, p.chunk, p.smem, stream)
+        elif fast:
+            err = lib.conv3x3_wgrad_wgmma_launch(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(), B, H, W, C,
+                Co, p.bn, p.splits, p.chunk, p.smem, stream)
+        else:
+            err = lib.conv3x3_wgrad_launch(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(), B, H, W, C,
+                Co, p.splits, p.chunk, DTYPES[x.dtype], stream)
+        _launched("conv3x3_s1_wgrad", err)
+        _launched("wgrad_reduce", lib.conv3x3_wgrad_reduce_launch(
+            partial.data_ptr(), dw.data_ptr(), dw.numel(), p.splits, stream))
     return dw
 
 

@@ -170,11 +170,15 @@ def _greedy_nms_cuda(boxes, scores, labels, obj, nms_thresh, class_aware,
     keep = torch.empty((B, K), dtype=torch.bool, device=dev)
     if B == 0 or K == 0:
         return out, keep
-    err = lib.greedy_nms_launch(
-        boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
-        obj.data_ptr(), out.data_ptr(), keep.data_ptr(), B, K,
-        float(nms_thresh), int(class_aware), int(merge), float(plus1),
-        torch.cuda.current_stream(dev).cuda_stream, int(drop_lone_survivor))
+    # the launch and its shared-memory attribute act on the current
+    # device: make it the tensors' card
+    with torch.cuda.device(dev):
+        err = lib.greedy_nms_launch(
+            boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
+            obj.data_ptr(), out.data_ptr(), keep.data_ptr(), B, K,
+            float(nms_thresh), int(class_aware), int(merge), float(plus1),
+            torch.cuda.current_stream(dev).cuda_stream,
+            int(drop_lone_survivor))
     if err != 0:
         raise RuntimeError(f"greedy_nms kernel launch failed: cudaError {err}")
     global LAUNCHES

@@ -218,10 +218,12 @@ def _launch(images, top, inv, use) -> torch.Tensor:
         return out
     vec = (C == 3 and W % RUN == 0 and images.data_ptr() % 16 == 0
            and out.data_ptr() % 16 == 0)
-    err = _lib().affine_warp_slots_launch(
-        images.data_ptr(), B, top.data_ptr(), inv.data_ptr(), use.data_ptr(),
-        out.data_ptr(), K, H, W, C, int(vec),
-        torch.cuda.current_stream(images.device).cuda_stream)
+    # the launch acts on the current device: make it the tensors' card
+    with torch.cuda.device(images.device):
+        err = _lib().affine_warp_slots_launch(
+            images.data_ptr(), B, top.data_ptr(), inv.data_ptr(),
+            use.data_ptr(), out.data_ptr(), K, H, W, C, int(vec),
+            torch.cuda.current_stream(images.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"affine_warp kernel launch failed: cudaError "
                            f"{err}")

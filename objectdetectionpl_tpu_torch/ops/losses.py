@@ -6,6 +6,15 @@ of the JAX package.  Loss terms are computed in the head maps' dtype (bf16
 under bf16 compute) and promoted to f32 where they meet the f32 targets,
 as JAX promotes (a bf16 map meets a f32 one-hot or offset target in
 f32); nothing syncs with the host.
+
+Under a process group, inside a train step
+(``parallel/distributed.py::global_batch``), each rank's loss is its share
+of the global batch's: its own numerators over the global normalisers
+(positive counts all-reduced by ``batch_sum``; means over the batch or
+its elements divided by ``batch_world``, the Loader's shards being
+equal).  The ranks' losses then add up to JAX's loss of the concatenated
+batch, and their gradients to its gradient.  Elsewhere, and at world
+size 1, the normalisers are the rank's own.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ import torch.nn.functional as F
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
 from objectdetectionpl_tpu_torch.ops import assignment
 from objectdetectionpl_tpu_torch.ops import boxes as box_ops
+from objectdetectionpl_tpu_torch.parallel.distributed import (batch_sum,
+                                                              batch_world)
 
 
 # Probability floor of the -100 log clamp: the smallest normal float32 (JAX
@@ -94,9 +105,10 @@ def sigmoid_focal(logits: torch.Tensor, y: torch.Tensor, num_classes: int,
 
 
 def _masked_mean(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """Mean of x over mask m; 0 when the mask is empty."""
+    """Mean of x over mask m (the global batch's mask in a train step); 0
+    when the mask is empty."""
     m = m.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp(min=1.0)
+    return (x * m).sum() / batch_sum(m.sum()).clamp(min=1.0)
 
 
 def smooth_bce_targets(eps: float = 0.0):
@@ -252,7 +264,7 @@ def yolov5_loss(outputs: Sequence[torch.Tensor], labels: torch.Tensor,
         t = assignment.build_targets_v5(labels, boxes, mask, anc_grid, g,
                                         anchor_t)
         valid = t.valid.to(torch.float32)
-        cnt = valid.sum().clamp(min=1.0)
+        cnt = batch_sum(valid.sum()).clamp(min=1.0)
 
         ps = pi[t.b, t.a, t.gj, t.gi]                       # [K, 5+C]
         pxy = torch.sigmoid(ps[:, :2]) * 2.0 - 0.5
@@ -267,7 +279,8 @@ def yolov5_loss(outputs: Sequence[torch.Tensor], labels: torch.Tensor,
         tobj = torch.zeros(B * A * g * g, dtype=pi.dtype, device=dev)
         tobj = tobj.scatter_reduce(0, cell, giou_t.to(pi.dtype), "amax")
         obj_elem = crit(pi[..., 4], tobj.view(B, A, g, g))
-        lobj = lobj + obj_elem.mean(dtype=torch.float32).to(pi.dtype)
+        lobj = lobj + (obj_elem.mean(dtype=torch.float32)
+                       / batch_world()).to(pi.dtype)
 
         if num_classes > 1:
             tcl = torch.full((ps.shape[0], num_classes), cn, dtype=pi.dtype,
@@ -331,8 +344,8 @@ def ssd_loss(outputs, labels: torch.Tensor, boxes: torch.Tensor,
     rank = torch.arange(D, device=dev)
     k = neg_ratio * torch.where(has_ann, n_matched, 0)
     neg_sum = torch.where(rank[None] < k[:, None], neg_sorted, 0.0).sum(dim=1)
-    cls_loss = ((pos_sum + neg_sum) / n).mean()
-    loc_loss = reg.mean()
+    cls_loss = ((pos_sum + neg_sum) / n).mean() / batch_world()
+    loc_loss = reg.mean() / batch_world()
     return {"loss": cls_loss + loc_loss, "Localization": loc_loss,
             "Classification": cls_loss}
 
@@ -358,7 +371,7 @@ def retinanet_loss(outputs, labels: torch.Tensor, boxes: torch.Tensor,
     match = assignment.retina_match(anc, labels, boxes, mask, img_size)
 
     pos = match.cls_targets > 0                                 # [B, A]
-    num_pos = pos.sum().float().clamp(min=1.0)
+    num_pos = batch_sum(pos.sum().float()).clamp(min=1.0)
     loc_elem = coord_criterion(loc_p, match.loc_targets).sum(-1)
     loc_loss = (loc_elem * pos).sum()
 

@@ -15,6 +15,11 @@ checkpoints of lowest val_loss stay (of equal ones, the later steps) and
 the others are deleted; the best step is the one of lowest val_loss (of
 equal ones, the latest); a step at or below the latest saved one is not
 saved again.  ``best_model_path.txt`` holds the best checkpoint's path.
+
+Under a process group rank 0 alone writes and deletes; every rank keeps
+the same book of steps and val_losses (the Trainer hands every rank rank
+0's val_loss), and a restore waits at a barrier before every rank reads
+the same file (one file system for all ranks).
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from typing import Dict, Optional
 
 import torch
 
+from objectdetectionpl_tpu_torch.parallel import distributed
+
 STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
 
@@ -33,10 +40,14 @@ METRICS_FILE = "metrics.json"
 class CheckpointManager:
     def __init__(self, directory: str, save_top_k: Optional[int] = 3):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.writes = distributed.process_index() == 0
+        if self.writes:
+            os.makedirs(self.directory, exist_ok=True)
         self.save_top_k = save_top_k
         self._val_loss: Dict[int, float] = {}
-        for name in os.listdir(self.directory):
+        names = (os.listdir(self.directory)
+                 if os.path.isdir(self.directory) else [])
+        for name in names:
             metrics = os.path.join(self.directory, name, METRICS_FILE)
             if name.isdigit() and os.path.exists(metrics):
                 with open(metrics) as f:
@@ -67,6 +78,15 @@ class CheckpointManager:
         latest = self.latest_step()
         if latest is not None and latest >= step:
             return False
+        self._val_loss[step] = float(val_loss)
+        drop = []
+        if self.save_top_k is not None:
+            order = self._by_quality()
+            drop = order[:max(len(order) - self.save_top_k, 0)]
+            for old in drop:
+                del self._val_loss[old]
+        if not self.writes:
+            return True
         tmp = self._path(step) + f".tmp-{os.getpid()}"
         os.makedirs(tmp)
         opt = state.optimizer
@@ -77,13 +97,8 @@ class CheckpointManager:
         with open(os.path.join(tmp, METRICS_FILE), "w") as f:
             json.dump({"val_loss": float(val_loss)}, f)
         os.rename(tmp, self._path(step))
-        self._val_loss[step] = float(val_loss)
-        if self.save_top_k is not None:
-            order = self._by_quality()
-            n_drop = max(len(order) - self.save_top_k, 0)
-            for old in order[:n_drop]:
-                shutil.rmtree(self._path(old))
-                del self._val_loss[old]
+        for old in drop:
+            shutil.rmtree(self._path(old))
         self.write_best_model_path()
         return True
 
@@ -101,6 +116,7 @@ class CheckpointManager:
         step = self.best_step() if step is None else step
         if step is None:
             return None
+        distributed.barrier()           # rank 0's saves are on disk
         ckpt = self.load(step, next(state.model.parameters()).device)
         have = {k: v.shape for k, v in state.model.state_dict().items()}
         if {k: v.shape for k, v in ckpt["model"].items()} != have:

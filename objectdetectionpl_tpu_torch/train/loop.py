@@ -26,7 +26,17 @@ the device seeded with ``seed + 1``; the JAX Trainer draws from
 ``jax.random``, so fits differ between the packages (ROADMAP §C) while
 everything after the draw is the same.  The tuner (``train/tune.py``)
 runs from ``cli.run``.  Not ported yet, and raising when asked for: torch
-checkpoints (A11) and more than one device (A10).
+checkpoints (A11) and a model axis in ``mesh_shape`` (A12).
+
+Under a process group (``parallel/distributed.py``, one rank a card)
+every rank trains on its Loader shard of ``batch_size`` images a
+microbatch, so the global batch is R x ``batch_size``; the train step is
+the global batch's (global BN moments, loss normalisers and mosaic
+partners, summed gradients).  The state is broadcast from rank 0 after
+construction and after a restore; validation and test run the whole set
+on every rank, and rank 0's val_loss drives the scheduler, the
+checkpoints and early stopping on every rank.  Rank 0 alone writes (run
+directory, metrics, checkpoints) and prints.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from objectdetectionpl_tpu_torch.ops import boxes as box_ops
 from objectdetectionpl_tpu_torch.ops import losses as loss_lib
 from objectdetectionpl_tpu_torch.ops import metrics as metric_lib
 from objectdetectionpl_tpu_torch.ops import yolo_stats
+from objectdetectionpl_tpu_torch.parallel import distributed, make_mesh
 from objectdetectionpl_tpu_torch.train import checkpoint as ckpt_lib
 from objectdetectionpl_tpu_torch.train import optim
 from objectdetectionpl_tpu_torch.train import state as state_lib
@@ -69,10 +80,12 @@ def _check_ported(cfg: Config) -> None:
     if cfg.torch_ckpt:
         raise NotImplementedError("torch_ckpt is not ported yet "
                                   "(ROADMAP A11)")
-    if cfg.mesh_shape is not None and math.prod(cfg.mesh_shape) > 1:
-        raise NotImplementedError(f"mesh_shape {tuple(cfg.mesh_shape)}: "
-                                  f"more than one device is not ported yet "
-                                  f"(ROADMAP A10)")
+
+
+def _say(*args) -> None:
+    """print, on rank 0 only."""
+    if distributed.process_index() == 0:
+        print(*args)
 
 
 def _to_host(tensors):
@@ -152,8 +165,9 @@ class PinnedRing:
 class Trainer:
     def __init__(self, cfg: Config, device: DeviceLike = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
         _check_ported(cfg)
+        self.mesh = make_mesh(cfg.mesh_shape)
+        self.device = resolve_device(device)
         self.dm = build_datamodule(cfg)
         self.classes = self.dm.get_class()
         self.num_classes = len(self.classes)
@@ -179,6 +193,7 @@ class Trainer:
         self.scheduler = optim.build_scheduler(cfg)
         self.state = state_lib.create_train_state(
             self.model, self.optimizer, ema_decay=cfg.ema_decay)
+        distributed.broadcast_state(self.state)
         self.aug_gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
 
@@ -201,7 +216,8 @@ class Trainer:
             os.path.join(self.run_dir, "checkpoints"), cfg.save_top_k)
         self.early_stop = ckpt_lib.EarlyStopping(cfg.early_stop_patience)
         self.global_step = 0
-        summary_lib.save_summary(self.model, self.run_dir)
+        if distributed.process_index() == 0:
+            summary_lib.save_summary(self.model, self.run_dir)
 
     # ------------------------------------------------------------------ fit --
 
@@ -211,12 +227,13 @@ class Trainer:
         try:
             restored = self.ckpt.restore(self.state)
         except ValueError as e:
-            print(f"[trainer] checkpoint restore skipped: {e}")
+            _say(f"[trainer] checkpoint restore skipped: {e}")
             return
         if restored is not None:
             self.state = restored
-            print(f"[trainer] restored best checkpoint "
-                  f"(step {self.ckpt.best_step()})")
+            distributed.broadcast_state(self.state)
+            _say(f"[trainer] restored best checkpoint "
+                 f"(step {self.ckpt.best_step()})")
 
     def _device_batch(self, batch: Batch, augment: bool):
         if self.ring is not None:
@@ -309,7 +326,8 @@ class Trainer:
                                     epoch)
                 dt = time.time() - t0
                 self.writer.scalar("throughput/images_per_sec",
-                                   n_imgs / max(dt, 1e-9), epoch)
+                                   n_imgs * self.mesh.data / max(dt, 1e-9),
+                                   epoch)
             if cfg.histogram_every and epoch % cfg.histogram_every == 0:
                 log_param_histograms(self.writer, self.model, epoch,
                                      max_tensors=50)
@@ -319,7 +337,8 @@ class Trainer:
             if prof is not None:        # epoch shorter than profile_steps
                 stop_trace(prof, os.path.join(self.run_dir, "profile"))
 
-            val_loss = self.validate(epoch)
+            # every rank ran the whole val set: rank 0's loss decides
+            val_loss = distributed.broadcast_value(self.validate(epoch))
             val_metric = val_loss
             stop = False
             if val_loss is not None:
@@ -329,7 +348,7 @@ class Trainer:
                                epoch)
             self.writer.flush()
             if stop:
-                print(f"[trainer] early stopping at epoch {epoch}")
+                _say(f"[trainer] early stopping at epoch {epoch}")
                 break
         self.ckpt.wait()
         return self.state
@@ -451,15 +470,15 @@ class Trainer:
             results[k] = float(np.mean([s[k] for s in grid_stats]))
             self.writer.scalar(f"Test/{k}", results[k], 0)
 
-        print("---- mAP per class ----")
+        _say("---- mAP per class ----")
         for cid, ap in sorted(results["per_class_AP"].items()):
             name = (self.classes[cid] if 0 <= cid < len(self.classes)
                     else str(cid))
-            print(f"  {name}: {ap:.4f}")
-        print(f"mAP: {results['mAP']:.4f}")
+            _say(f"  {name}: {ap:.4f}")
+        _say(f"mAP: {results['mAP']:.4f}")
         if grid_stats:
-            print("---- YOLO statistics per grid ----")
+            _say("---- YOLO statistics per grid ----")
             for k in grid_stats[0]:
-                print(f"  {k}: {results[k]:.4f}")
+                _say(f"  {k}: {results[k]:.4f}")
         self.writer.flush()
         return results

@@ -7,7 +7,12 @@ a plain function over the model and optimizer it closes over; it updates
 them in place and returns tensors, with no host sync inside.
 
 Train batches are ``[A, mB, ...]`` (A microbatches of mB images), as in the
-JAX package.
+JAX package.  Under a process group a train step is the global batch's:
+each rank's ``[A, mB, ...]`` holds its rows of the global microbatches,
+the losses carry the global normalisers (``ops/losses.py``), one
+coalesced all-reduce sums the gradients before the optimizer, and the
+metrics returned are the global ones.  The eval and predict steps run no
+collective.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from objectdetectionpl_tpu_torch.device import device_table
 from objectdetectionpl_tpu_torch.ops import anchors as anchor_lib
 from objectdetectionpl_tpu_torch.ops import boxes as box_ops
 from objectdetectionpl_tpu_torch.ops import nms
+from objectdetectionpl_tpu_torch.parallel import distributed
 from objectdetectionpl_tpu_torch.train.state import TrainState
 
 
@@ -37,6 +43,10 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
     to microbatch, and a zero-weight microbatch leaves them as they were.
     The optimizer updates the parameters, then the EMA copy (if the state
     has one and ``ema_decay > 0``) moves as ``e*decay + p*(1-decay)``.
+
+    Under a process group every rank calls the step on its shard with the
+    same ``weights``; the gradients and metrics are summed over the ranks
+    (each rank's loss is its share of the global batch's, so no 1/R).
     """
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     params = [p for _, p in named]
@@ -45,12 +55,20 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
     def grads_of(images, labels, boxes, mask):
         for p in params:
             p.grad = None
-        metrics = loss_fn(model(images), labels, boxes, mask)
-        metrics["loss"].backward()
+        with distributed.global_batch():
+            metrics = loss_fn(model(images), labels, boxes, mask)
+            metrics["loss"].backward()
         grads = [p.grad for p in params]
         return {k: v.detach() for k, v in metrics.items()}, grads
 
     def apply_update(state, grads, metrics):
+        distributed.all_reduce_(grads)
+        if distributed.process_count() > 1:
+            keys = list(metrics)
+            total = torch.stack([metrics[k].float() for k in keys])
+            distributed.all_reduce_([total])
+            metrics = {k: total[i].to(metrics[k].dtype)
+                       for i, k in enumerate(keys)}
         for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()

@@ -16,6 +16,14 @@ over the step, everything the process holds on the card included.  On
 the CPU, which has no such counter, it is the bytes of the tensors that
 autograd keeps for the backward pass plus those of the parameters, their
 gradients, the optimizer's state and the batch, each storage counted once.
+
+Under a process group every rank runs the tuner through the distributed
+train step (``train/step.py``), as every JAX process runs it: the losses
+the sweep reads are the global ones, and the sweep's deadline is rank
+0's, broadcast.  The memory probe steps each rank alone
+(``distributed.local``: no collective, since a rank that runs out of
+memory stops mid-step), and a batch fits when it fits on every rank.  So
+every rank takes the same steps and gets the same suggestions.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from objectdetectionpl_tpu_torch.parallel import distributed
 from objectdetectionpl_tpu_torch.train import optim
 from objectdetectionpl_tpu_torch.train import state as state_lib
 from objectdetectionpl_tpu_torch.train import step as step_lib
@@ -70,7 +79,7 @@ def auto_lr_find(trainer, num_steps: int = 25, min_lr: float = 1e-7,
     it = loader.batches(trainer.take)
     losses: List[float] = []
     for lr in lrs:
-        if time.monotonic() - t0 > deadline_s:
+        if distributed.broadcast_value(time.monotonic() - t0) > deadline_s:
             break             # budget spent: suggest from what we have
         optim.set_learning_rate(state.optimizer, float(lr))
         micro = []
@@ -175,8 +184,9 @@ def probe_batch_size(trainer, bs: int) -> Optional[int]:
     state, step = _throwaway(trainer, accum_steps=1)
     peak = None
     try:
-        peak = _step_peak_bytes(trainer, state, step,
-                                _probe_batch(trainer, bs))
+        with distributed.local():     # the rank's own peak, no collective
+            peak = _step_peak_bytes(trainer, state, step,
+                                    _probe_batch(trainer, bs))
     except Exception as e:
         if not _is_resource_error(e):
             raise
@@ -191,10 +201,12 @@ def probe_batch_size(trainer, bs: int) -> Optional[int]:
 
 def batch_fits(trainer, bs: int, headroom: float = 0.9) -> bool:
     """True when a train step at batch ``bs`` runs and its peak memory is
-    at most ``headroom`` x the device's memory."""
+    at most ``headroom`` x the device's memory, on every rank of a
+    process group."""
     peak = probe_batch_size(trainer, bs)
-    return peak is not None and \
-        peak <= headroom * _device_bytes_limit(trainer.device)
+    return distributed.all_true(
+        peak is not None
+        and peak <= headroom * _device_bytes_limit(trainer.device))
 
 
 def auto_scale_batch_size(trainer, start: int = 2, max_trials: int = 6,

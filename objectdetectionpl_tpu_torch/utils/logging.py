@@ -3,7 +3,9 @@
 A JSONL mirror (``metrics.jsonl``, always written) plus TensorBoard through
 ``torch.utils.tensorboard`` when it imports; without it, scalars still go
 to the JSONL file and histograms, images and text are skipped.  Log root
-layout: log_dir/<dataset>/<model>.
+layout: log_dir/<dataset>/<model>.  Under a process group only rank 0
+writes: the writers of the other ranks create nothing and drop every
+record.
 """
 
 from __future__ import annotations
@@ -16,15 +18,20 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from objectdetectionpl_tpu_torch.parallel import distributed
+
 
 class MetricWriter:
     """TensorBoard writer (when available) with a JSONL mirror."""
 
     def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
         self.log_dir = log_dir
-        self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        self._jsonl = None
         self._tb = None
+        if distributed.process_index() != 0:
+            return
+        os.makedirs(log_dir, exist_ok=True)
+        self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -32,6 +39,8 @@ class MetricWriter:
         self._tb = SummaryWriter(log_dir)
 
     def scalar(self, tag: str, value: float, step: int):
+        if self._jsonl is None:
+            return
         if self._tb:
             self._tb.add_scalar(tag, float(value), step)
         self._jsonl.write(json.dumps(
@@ -60,13 +69,15 @@ class MetricWriter:
             self._tb.add_text(tag, f"```\n{content}\n```", step)
 
     def flush(self):
-        self._jsonl.flush()
+        if self._jsonl is not None:
+            self._jsonl.flush()
         if self._tb:
             self._tb.flush()
 
     def close(self):
         self.flush()
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb:
             self._tb.close()
 

@@ -280,11 +280,17 @@ def test_prefetch_stops_its_thread_when_closed():
 
 
 def test_data_shard_is_one_process(monkeypatch):
+    """(1, 0) without a process group, whatever the environment says;
+    (world size, rank) under one."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert data_shard() == (1, 0)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        data_shard()
+    assert data_shard() == (1, 0)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size",
+                        lambda group=None: 2)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 1)
+    assert data_shard() == (2, 1)
 
 
 def test_synthetic_module_matches_jax(jax_library):

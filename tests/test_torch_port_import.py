@@ -64,7 +64,11 @@ def test_port_and_chip_smoke_import_no_jax():
             "objectdetectionpl_tpu_torch.utils.export",
             "objectdetectionpl_tpu_torch.bench",
             "objectdetectionpl_tpu_torch.train.tune",
-            "objectdetectionpl_tpu_torch.tools.fixture_trees"} <= set(
+            "objectdetectionpl_tpu_torch.tools.fixture_trees",
+            "objectdetectionpl_tpu_torch.parallel",
+            "objectdetectionpl_tpu_torch.parallel.distributed",
+            "objectdetectionpl_tpu_torch.parallel.mesh",
+            "objectdetectionpl_tpu_torch.parallel.dryrun"} <= set(
                 res["modules"])
     assert len(res["modules"]) >= 15
 

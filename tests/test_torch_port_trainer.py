@@ -385,14 +385,19 @@ def test_fit_error_ends_the_loader_thread(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-    """Only torch checkpoints (A11) and more than one device (A10) are
-    left unported; mosaic, remat and the tuner build a Trainer."""
+    """Only torch checkpoints (A11) and a model axis (A12) are left
+    unported; a data axis other than the process group's is refused;
+    mosaic, remat, the tuner and ``mesh_shape`` (1, 1) build a Trainer."""
     base = dict(data_module="Synthetic", synthetic_size=4, img_size=64,
                 model_name="YOLOv5", log_dir=str(tmp_path))
     for extra, item in ((dict(torch_ckpt="w.pt"), "A11"),
-                        (dict(mesh_shape=(2, 1)), "A10")):
+                        (dict(mesh_shape=(1, 2)), "A12")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             loop.Trainer(Config(**base, **extra), device="cpu")
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        loop.Trainer(Config(**base, mesh_shape=(2, 1)), device="cpu")
+    assert loop.Trainer(Config(**base, mesh_shape=(1, 1)),
+                        device="cpu").mesh == (1, 1)
     trainer = loop.Trainer(Config(**base, mosaic=0.5, tune=True,
                                   remat="all", optimizer="RMSprop"),
                            device="cpu")
