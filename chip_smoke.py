@@ -134,6 +134,17 @@ exits non-zero:
    launches, 1 NMS launch.  (c) ``dryrun_multichip(2)`` on the card over
    gloo: the four families' one-step losses finite and equal on both
    ranks.
+10''. tp -- the mesh's model axis (``parallel/mesh.py``): four ranks on
+   the card over gloo, (data=2, model=2), YOLOv2-416, 80 classes, TF32
+   off, split by ``shard_model_parallel`` (the 425-channel head stays
+   replicated), each data index's 2 rows of a 4-image batch: uint8 ->
+   /255 -> ``augment_batch`` -> one SGD step (lr 1), counts zeroed before
+   and read after (one warp launch a rank); once computing in f32, once in
+   f64.  Against this process on the 4 rows: loss and BN statistics, the
+   split parameters' gradients (the update of the gathered parameters) in
+   relative L2, within ``TP_TOL``; half of ``ConvBN_13``'s channels on
+   each rank, the same gathered state on all four, ranks at row-major
+   (data, model) coordinates; step ms of the ranks and of one process.
 10a. jpeg_check -- the port's host library (``csrc/preproc.cc`` and the
    JPEG decoder ``csrc/jpeg_decode.cc``) built with g++ (seconds, or
    ``native.build_error``, which fails the phase);
@@ -252,6 +263,19 @@ exits non-zero:
    ``model_name`` RetinaNet (600 px) or SSD (300 px): warp launches equal
    the microbatches, NMS launches the test batches, a finite mAP table,
    the best checkpoint restored equal bit for bit.
+18'. torch_ckpt -- a torchvision VGG16 ``features.*`` state dict drawn
+   from a seed (14,714,688 float32) written under ``build/``, read and
+   loaded into SSD-300 on the card (``utils/torch_weights.py``, timed);
+   then ``trainer_ssd`` at the ``yaml_test`` caps (2 epochs) with ``--set
+   torch_ckpt``: the ``[trainer] loaded 13 tensors ... (vgg16 backbone)``
+   line printed, the 13 conv weights and biases on the card right after
+   construction equal to the file's bit for bit, and ``trainer``'s checks
+   (a warp launch a microbatch, an NMS launch a test batch, the mAP
+   table, the restore).  Then a full reference YOLOv2 state dict drawn
+   from a seed through ``load_torch_checkpoint`` into YOLOv2-416 on the
+   card and the CPU: every tensor in place bit for bit, f32 head maps
+   within ``YOLO_HEAD_REL`` (TF32 off), one ``predict_step`` at B=1 with
+   one NMS launch.
 19. conv_check -- the 13 3x3/s1 convs of one YOLOv5s-640 bf16 train
    forward and backward at B=64, captured by hooks on ``blocks.Conv``
    (x, w, dy): ``conv3x3_s1`` (fwd, and dgrad on ``rot_w(w)``) and
@@ -284,7 +308,8 @@ Then the ``kernels`` line (the NMS and warp entries also carry the launch
 counts of the YOLO, anchor, VOC, COCO (uncached and cached), WiderPerson,
 training-options, BDD100K-SSD and predict phases, the NMS entry those of
 the export, the fresh interpreter, ``predict --export`` and the bench, the warp entry those of
-``remat_check``, both those of ``ddp``, and the NMS entry the anchor scan's times) and, last,
+``remat_check``, both those of ``ddp`` and ``torch_ckpt``, the warp entry
+those of ``tp``, and the NMS entry the anchor scan's times) and, last,
 ``{"ok": true, "device": {...}}``.
 Without CUDA it prints nothing to stdout and exits 1.
 """
@@ -327,7 +352,7 @@ from objectdetectionpl_tpu_torch.ops import assignment, losses, nms
 from objectdetectionpl_tpu_torch.ops import boxes as box_ops
 from objectdetectionpl_tpu_torch.ops.cuda import (_build, conv_kernel,
                                                   nms_kernel, warp_kernel)
-from objectdetectionpl_tpu_torch.parallel import distributed
+from objectdetectionpl_tpu_torch.parallel import distributed, mesh
 from objectdetectionpl_tpu_torch.parallel.dryrun import (dryrun_multichip,
                                                          spawn)
 from objectdetectionpl_tpu_torch.tools import (conv_bench, decode_bench,
@@ -346,7 +371,7 @@ from objectdetectionpl_tpu_torch.train.step import (YOLO_DECODE,
 from objectdetectionpl_tpu_torch.utils.fuse import (STEM_CONVS,
                                                     fold_input_scale)
 from objectdetectionpl_tpu_torch.utils import export as export_lib
-from objectdetectionpl_tpu_torch.utils import timing
+from objectdetectionpl_tpu_torch.utils import timing, torch_weights
 from objectdetectionpl_tpu_torch.utils.timing import (F32_OPS_PER_S,
                                                      HBM_BYTES_PER_S,
                                                      call_time_ms, time_ms)
@@ -2358,11 +2383,12 @@ def check_ring(make_loader, n_batches: int = RING_BATCHES,
 
 
 def phase_trainer(card: str, sets: dict = TRAINER_SETS,
-                  phase: str = "trainer", after=None) -> dict:
+                  phase: str = "trainer", after=None, on_init=None) -> dict:
     """The CLI's fit -> validate -> checkpoint -> test on the card, on the
     YAML with ``sets`` as ``--set`` overrides; YOLOv2/v3/v4 runs must also
     report the per-grid statistics.  ``after(argv)``, when given, runs
-    while the run's log_dir (and its checkpoints) still exist."""
+    while the run's log_dir (and its checkpoints) still exist;
+    ``on_init(trainer)`` right after the CLI's Trainer is made."""
     build = REPO / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase}_",
@@ -2393,6 +2419,8 @@ def phase_trainer(card: str, sets: dict = TRAINER_SETS,
             def __init__(self, *args, **kwargs):
                 super().__init__(*args, **kwargs)
                 kept.append(self)
+                if on_init is not None:
+                    on_init(self)
                 save = self.ckpt.save
 
                 def save_and_copy(step, state, val_loss):
@@ -3536,6 +3564,356 @@ def phase_ddp(card: str) -> dict:
     return {"warp_per_rank": warp, "cli": cli["launches"]}
 
 
+# --- torch checkpoints (utils/torch_weights.py) ------------------------------
+
+# torchvision vgg16.features, config D: conv widths, "M" a max-pool
+VGG16_FEATURES = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512,
+                  512, "M", 512, 512, 512, "M"]
+VGG16_PARAMS = 14_714_688
+# torch_ckpt: the trainer_ssd run (the YAML's yaml_test caps, bf16, B=32,
+# 2 epochs) from a VGG16 ``features.*`` file
+TORCH_CKPT_SETS = {**{k: v for k, v in TRAINER_SETS.items() if k != "type"},
+                   "model_name": "SSD", "img_size": "0"}
+# the reference YOLOv2's ConvBN modules (model/YOLOV2.py:42-102), in order
+YOLOV2_REFERENCE = ([f"stage1_conv{i}" for i in range(1, 14)]
+                    + [f"stage2_a_conv{i}" for i in range(1, 8)]
+                    + ["stage2_b_conv", "stage3_conv1"])
+
+
+def vgg16_features(seed: int) -> dict:
+    """A torchvision vgg16 ``features.*`` state dict drawn from ``seed``:
+    He-normal weights, small biases, torchvision's keys and shapes."""
+    g = torch.Generator().manual_seed(seed)
+    out, c, i = {}, 3, 0
+    for v in VGG16_FEATURES:
+        if v == "M":
+            i += 1
+            continue
+        out[f"features.{i}.weight"] = (torch.randn(v, c, 3, 3, generator=g)
+                                       * math.sqrt(2.0 / (9 * c)))
+        out[f"features.{i}.bias"] = 0.01 * torch.randn(v, generator=g)
+        c, i = v, i + 2                       # the conv and its ReLU
+    return out
+
+
+def reference_yolov2(model, seed: int) -> dict:
+    """A full reference-YOLOv2 state dict for ``model``'s shapes, drawn
+    from ``seed``: lecun-normal convs, BN near the identity."""
+    g = torch.Generator().manual_seed(seed)
+    have = model.state_dict()
+    conv = lambda shape: torch.randn(shape, generator=g) / math.sqrt(
+        math.prod(shape[1:]))
+    out = {}
+    for k, tk in enumerate(YOLOV2_REFERENCE):
+        w = have[f"ConvBN_{k}.Conv_0.weight"]
+        n = w.shape[0]
+        out[f"{tk}.0.weight"] = conv(w.shape)
+        out[f"{tk}.1.weight"] = 1.0 + 0.1 * torch.randn(n, generator=g)
+        out[f"{tk}.1.bias"] = 0.1 * torch.randn(n, generator=g)
+        out[f"{tk}.1.running_mean"] = 0.1 * torch.randn(n, generator=g)
+        out[f"{tk}.1.running_var"] = 0.5 + torch.rand(n, generator=g)
+    out["stage3_conv2.weight"] = conv(have["Conv_0.weight"].shape)
+    return out
+
+
+def yolov2_reference_predict(card: str) -> dict:
+    """A full reference YOLOv2 dict through ``load_torch_checkpoint`` into
+    YOLOv2-416 (80 classes) on the card and on the CPU: every tensor where
+    the name map puts it, bit for bit; f32 head maps (TF32 off) within
+    ``YOLO_HEAD_REL`` of the CPU's; one ``predict_step`` at B=1 on the
+    card, one NMS launch (counts zeroed before, read after)."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    models = {dev: build_model("YOLOv2", NUM_CLASSES, device=dev, seed=0)
+              for dev in ("cpu", "cuda")}
+    ref = reference_yolov2(models["cpu"], seed=6)
+    for dev, model in models.items():
+        loaded, n, desc = torch_weights.load_torch_checkpoint(
+            "YOLOv2", model.state_dict(), ref)
+        if (n, desc) != (23, "reference YOLOv2 (full model)"):
+            raise AssertionError(f"torch_ckpt: YOLOv2 route gave {n}, {desc}")
+        model.load_state_dict(loaded, strict=True)
+    sd = models["cuda"].state_dict()
+    pairs = [("Conv_0.weight", "stage3_conv2.weight")]
+    for k, tk in enumerate(YOLOV2_REFERENCE):
+        pairs.append((f"ConvBN_{k}.Conv_0.weight", f"{tk}.0.weight"))
+        for port, leaf in (("weight", "weight"), ("bias", "bias"),
+                           ("running_mean", "running_mean"),
+                           ("running_var", "running_var")):
+            pairs.append((f"ConvBN_{k}.BatchNorm_0.{port}", f"{tk}.1.{leaf}"))
+    moved = [p for p, r in pairs if not torch.equal(sd[p].cpu(), ref[r])]
+    if moved or len(pairs) != len(ref):
+        raise AssertionError(f"torch_ckpt: YOLOv2 tensors not loaded bit for "
+                             f"bit: {moved[:4]} ({len(pairs)} of {len(ref)})")
+    g = torch.Generator().manual_seed(62)
+    x = torch.randint(0, 256, (1, YOLO_IMG, YOLO_IMG, 3), generator=g,
+                      dtype=torch.uint8).float() / 255.0
+    with torch.no_grad():
+        head = models["cuda"](x.cuda())
+        head_rel = max_rel(head, models["cpu"](x))
+    if head_rel > YOLO_HEAD_REL:
+        raise AssertionError(f"torch_ckpt: YOLOv2 head maps card vs CPU "
+                             f"{head_rel} > {YOLO_HEAD_REL}")
+    step = make_predict_step(models["cuda"], make_postprocess(
+        "YOLOv2", NUM_CLASSES, YOLO_IMG))
+    state = create_train_state(models["cuda"])
+    torch.cuda.synchronize()
+    reset_launches()                           # main path starts here
+    res = step(state, x.cuda())
+    torch.cuda.synchronize()
+    counts = read_launches()                   # main path ends here
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    if counts["greedy_nms"] != 1:
+        raise AssertionError(f"torch_ckpt: predict_step launched NMS "
+                             f"{counts['greedy_nms']} times")
+    rows = 5 * (YOLO_IMG // 32) ** 2
+    if res.boxes.shape != (1, min(TOP_K, rows), 4) or not torch.isfinite(
+            res.boxes).all():
+        raise AssertionError("torch_ckpt: YOLOv2 boxes of a wrong shape or "
+                             "non-finite")
+    return {"tensors_bit_equal": len(pairs), "head_rel_err": head_rel,
+            "valid": int(res.valid.sum()), "launches": counts}
+
+
+def phase_torch_ckpt(card: str) -> dict:
+    """A seeded VGG16 ``features.*`` file under ``build/``: its read and
+    load into SSD-300 on the card, timed; then ``cli.run`` on the YAML with
+    SSD and ``--set torch_ckpt`` (``phase_trainer``: warp and NMS launches,
+    mAP table, restore), which must print the loaded line and hold the
+    file's 13 convs bit for bit right after construction; then a full
+    reference YOLOv2 through the router and one ``predict_step``."""
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    sd = vgg16_features(5)
+    if sum(t.numel() for t in sd.values()) != VGG16_PARAMS:
+        raise AssertionError("torch_ckpt: not VGG16's parameter count")
+    path = build / "vgg16_features_seed5.pth"
+    torch.save(sd, path)
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    read = torch_weights.read_torch_state_dict(str(path))
+    read_s = time.perf_counter() - t0
+    ssd = build_model("SSD", NUM_CLASSES, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded, n, desc = torch_weights.load_torch_checkpoint(
+        "SSD", ssd.state_dict(), read)
+    ssd.load_state_dict(loaded, strict=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del ssd, loaded, read
+
+    at_init = {}
+
+    def on_init(trainer):
+        wrong = []
+        for j, ti in enumerate(torch_weights.VGG16_CONV_IDX):
+            stack, k = (0, j) if j < 10 else (1, j - 10)
+            conv = trainer.model.get_submodule(
+                f"_VGGStack_{stack}.ConvBN_{k}.Conv_0")
+            for leaf in ("weight", "bias"):
+                if not torch.equal(getattr(conv, leaf).detach().cpu(),
+                                   sd[f"features.{ti}.{leaf}"]):
+                    wrong.append(f"features.{ti}.{leaf}")
+        at_init.update(device=str(conv.weight.device), wrong=wrong)
+
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            fit = phase_trainer(card, {**TORCH_CKPT_SETS,
+                                       "torch_ckpt": str(path)},
+                                "torch_ckpt", on_init=on_init)
+    finally:
+        sys.stdout.write(printed.getvalue())
+    line = f"[trainer] loaded 13 tensors from {path} (vgg16 backbone)"
+    if line not in printed.getvalue():
+        raise AssertionError(f"torch_ckpt: no line {line!r}")
+    if at_init.get("wrong") != [] or not at_init["device"].startswith("cuda"):
+        raise AssertionError(f"torch_ckpt: the Trainer's VGG convs differ from "
+                             f"the file right after construction: {at_init}")
+    predicted = yolov2_reference_predict(card)
+    emit({"phase": "torch_ckpt", "card": card, "file_mb": nbytes / 1e6,
+          "float32_tensors": VGG16_PARAMS, "read_s": read_s,
+          "load_into_ssd_on_card_s": load_s, "n": n, "desc": desc,
+          "trainer_convs_bit_equal": 26, "printed": line,
+          "epoch_s": [e["seconds"] for e in fit["epochs"]],
+          "launches": fit["launches"], "yolov2_reference": predicted})
+    return {"launches": fit["launches"], "predict": predicted["launches"]}
+
+
+# --- the mesh's model axis (parallel/mesh.py) --------------------------------
+
+TP_SHAPE = (2, 2)         # (data, model): four ranks on the one card, gloo
+TP_ROWS = 2               # images a data index
+TP_LR = 1.0               # SGD: the update is the gradient
+# loss and BN statistics against one process on the same four rows at f32
+# (TF32 off); the gradient (the update of the gathered parameters) in f64,
+# where one process's own reduction order moves it by ~1e-11, and in f32,
+# where reversing one process's rows moves it by 2.2 % (YOLOv2 at 64 px on
+# the CPU, tests/test_torch_port_model_axis.py): a gradient twice too large
+# is off by 1
+TP_TOL = {"loss_rtol": 1e-4, "bn_abs": 1e-4, "grad_rel_l2_f64": 1e-4,
+          "grad_rel_l2_f32": 5e-2}
+
+
+def tp_step(dtype: torch.dtype, data: int, index: int) -> tuple:
+    """One SGD step of YOLOv2-416, 80 classes, computing in ``dtype``, on
+    the rows of data index ``index`` (of ``data``) of a 4-image batch:
+    uint8 -> /255 -> ``augment_batch`` (one warp launch) -> ``train_step``,
+    split over the model axis under a process group.  Returns (state,
+    metrics, ms, launches); counts zeroed just before, read just after."""
+    model = build_model("YOLOv2", NUM_CLASSES, dtype=dtype, device="cuda",
+                        seed=0)
+    opt = torch.optim.SGD(model.parameters(), lr=TP_LR)
+    state = create_train_state(model, opt)
+    if distributed.process_count() > 1:
+        distributed.broadcast_state(state)
+        mesh.shard_model_parallel(mesh.Mesh(*TP_SHAPE), state)
+    step = make_train_step(model, losses.make_loss("YOLOv2", NUM_CLASSES,
+                                                   YOLO_IMG), opt)
+    b = TP_SHAPE[0] * TP_ROWS // data
+    images, labels, boxes, mask = (t[index * b:(index + 1) * b].cuda()
+                                   for t in train_batch(TP_SHAPE[0] * TP_ROWS,
+                                                        seed=59,
+                                                        img=YOLO_IMG))
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    torch.cuda.synchronize()
+    reset_launches()                           # main path starts here
+    t0 = time.perf_counter()
+    x, boxes, mask = augment.augment_batch(images.float() / 255.0, boxes,
+                                           mask, generator=gen)
+    state, metrics = step(state, x[None], labels[None], boxes[None],
+                          mask[None])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return state, metrics, ms, read_launches()  # main path ends here
+
+
+def tp_worker(out: str) -> None:
+    """One rank of ``tp``, started by ``parallel.dryrun.spawn``: the f32
+    and the f64 step on its data index's rows, split over the model axis;
+    rank 0 saves each gathered state; prints one JSON line."""
+    distributed.maybe_initialize("gloo")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        grid = mesh.make_mesh(TP_SHAPE)
+        a = distributed.axes()
+        rank = distributed.process_index()
+        res = {"rank": rank, "coords": [a.data_index, a.model_index]}
+        for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            state, metrics, ms, counts = tp_step(dtype, grid.data,
+                                                 a.data_index)
+            whole = {k: v.cpu() for k, v in
+                     mesh.gather_state_dict(state).items()}
+            h = hashlib.sha256()
+            for k in sorted(whole):
+                h.update(whole[k].numpy().tobytes())
+            if rank == 0:
+                torch.save(whole, os.path.join(out, f"tp_{tag}.pt"))
+            res[tag] = {"loss": metrics["loss"].item(), "ms": ms,
+                        "launches": counts, "hash": h.hexdigest(),
+                        "conv13": list(state.model.ConvBN_13.Conv_0
+                                       .weight.shape),
+                        "head": list(state.model.Conv_0.weight.shape)}
+            del state, whole
+    finally:
+        distributed.shutdown()
+    print("TP " + json.dumps(res), flush=True)
+
+
+def _grad_rel_l2(sd0: dict, got: dict, want: dict, keys) -> float:
+    upd = lambda sd: torch.cat([(sd0[k] - sd[k]).double().ravel()
+                                for k in keys])
+    ref = upd(want)
+    return float((upd(got) - ref).norm() / ref.norm())
+
+
+def phase_tp(card: str) -> dict:
+    """Four ranks (data=2, model=2) on the card over gloo against one
+    process on the same four rows: loss and BN statistics (f32), the split
+    parameters' gradients (f64, and f32 within its noise), half of
+    ``ConvBN_13``'s output channels on each rank, the 425-channel head
+    replicated, one warp launch a rank and step, the same gathered state on
+    every rank."""
+    me = str(Path(__file__).resolve())
+    ranks = math.prod(TP_SHAPE)
+    threads = {"OMP_NUM_THREADS": str(max(os.cpu_count() // ranks, 1))}
+    sd0 = build_model("YOLOv2", NUM_CLASSES, device="cpu", seed=0).state_dict()
+    splits = mesh.model_parallel_shardings(mesh.Mesh(*TP_SHAPE), sd0)
+    split = [k for k, d in splits.items() if d == 0
+             and not k.endswith(("running_mean", "running_var"))]
+    stats = [k for k in sd0 if k.endswith(("running_mean", "running_var"))]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    row = {"phase": "tp", "card": card, "model": "YOLOv2", "img": YOLO_IMG,
+           "classes": NUM_CLASSES, "mesh": TP_SHAPE, "rows_per_data_index":
+           TP_ROWS, "optimizer": f"SGD lr {TP_LR}", "tolerance": TP_TOL,
+           "split_tensors": len(split), "replicated_head":
+           splits["Conv_0.weight"] is None}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_",
+                                     dir=REPO / "build") as tmp:
+        t0 = time.perf_counter()
+        outs = spawn([me, "--tp-worker", tmp], ranks, 900, threads)
+        row["spawn_s"] = time.perf_counter() - t0
+        got = [json.loads([line for line in o.splitlines()
+                           if line.startswith("TP ")][-1][3:]) for o in outs]
+        for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            state, metrics, ms, counts = tp_step(dtype, 1, 0)
+            one = {k: v.cpu() for k, v in state.model.state_dict().items()}
+            del state
+            whole = torch.load(os.path.join(tmp, f"tp_{tag}.pt"))
+            loss = metrics["loss"].item()
+            row[tag] = {
+                "loss_ranks": [r[tag]["loss"] for r in got],
+                "loss_one_process": loss,
+                "loss_rel_err": max(abs(r[tag]["loss"] / loss - 1)
+                                    for r in got),
+                "bn_max_abs_err": max(float((whole[k] - one[k]).abs().max())
+                                      for k in stats),
+                "grad_rel_l2_split": _grad_rel_l2(sd0, whole, one, split),
+                "step_ms_ranks": [r[tag]["ms"] for r in got],
+                "step_ms_one_process": ms,
+                "warp_launches_ranks": [r[tag]["launches"]["affine_warp"]
+                                        for r in got],
+                "warp_launches_one_process": counts["affine_warp"]}
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    row["coords"] = [r["coords"] for r in got]
+    row["conv13_per_rank"] = [r["f32"]["conv13"] for r in got]
+    emit(row)
+    if row["coords"] != [list(mesh.coords(mesh.Mesh(*TP_SHAPE), r))
+                         for r in range(ranks)]:
+        raise AssertionError(f"tp: ranks at {row['coords']}")
+    full = list(sd0["ConvBN_13.Conv_0.weight"].shape)
+    for r in got:
+        for tag in ("f32", "f64"):
+            if r[tag]["conv13"] != [full[0] // TP_SHAPE[1], *full[1:]] or \
+                    r[tag]["head"] != list(sd0["Conv_0.weight"].shape):
+                raise AssertionError(f"tp: rank {r['rank']} holds "
+                                     f"ConvBN_13 {r[tag]['conv13']} and the "
+                                     f"head {r[tag]['head']}")
+            if r[tag]["launches"]["affine_warp"] != 1:
+                raise AssertionError(f"tp: rank {r['rank']} {tag}: "
+                                     f"{r[tag]['launches']} launches")
+            if r[tag]["hash"] != got[0][tag]["hash"]:
+                raise AssertionError(f"tp: rank {r['rank']} {tag}: its "
+                                     f"gathered state differs from rank 0's")
+    for tag in ("f32", "f64"):
+        res = row[tag]
+        if res["loss_rel_err"] > TP_TOL["loss_rtol"] or \
+                res["bn_max_abs_err"] > TP_TOL["bn_abs"] or \
+                res["grad_rel_l2_split"] > TP_TOL[f"grad_rel_l2_{tag}"] or \
+                not math.isfinite(res["loss_one_process"]):
+            raise AssertionError(f"tp: {tag} against one process: {res}")
+    return {"warp_per_rank": row["f32"]["warp_launches_ranks"]}
+
+
 def conv_entry(name, line, conv, err, part, library, card) -> dict:
     t, counts = conv["total"], conv["launches"]
     entry = {"name": name, "route": "cuda",
@@ -3564,12 +3942,17 @@ def main(argv=None) -> int:
                              "B=64 training step")
     parser.add_argument("--ddp-worker", nargs=2, metavar=("KIND", "OUT"),
                         help=argparse.SUPPRESS)   # a rank of the ddp phase
+    parser.add_argument("--tp-worker", metavar="OUT",
+                        help=argparse.SUPPRESS)   # a rank of the tp phase
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if args.ddp_worker:
         ddp_worker(*args.ddp_worker)
+        return 0
+    if args.tp_worker:
+        tp_worker(args.tp_worker)
         return 0
     info = phase_device()
     card = info["card"]
@@ -3589,6 +3972,7 @@ def main(argv=None) -> int:
     mosaic = phase_mosaic_check(card)
     fit = phase_trainer(card)
     ddp = phase_ddp(card)
+    tp = phase_tp(card)
     phase_jpeg_check(card)
     predicted = {}
     fit_voc = phase_trainer_real(card, "trainer_voc", TRAINER_VOC_SETS,
@@ -3630,6 +4014,7 @@ def main(argv=None) -> int:
     fit_anchor = {name: phase_trainer(card, sets,
                                       f"trainer_{name.lower()}")["launches"]
                   for name, sets in TRAINER_ANCHOR_SETS.items()}
+    ckpt = phase_torch_ckpt(card)
     convs, conv_err = phase_conv_check(card)
     conv = phase_conv_time(card, convs)
     if args.profile:
@@ -3663,6 +4048,8 @@ def main(argv=None) -> int:
             predicted["export"]["launches"]["greedy_nms"],
         "launches_bench": benched["launches"],
         "launches_ddp_cli_nccl": ddp["cli"]["greedy_nms"],
+        "launches_torch_ckpt": ckpt["launches"]["greedy_nms"],
+        "launches_torch_ckpt_yolov2_predict": ckpt["predict"]["greedy_nms"],
         "keep_equal": True,
         "max_abs_err": err, "max_abs_box_err": err,
         "ms": t[256]["ms"], "plain_ms": t[256]["plain_ms"],
@@ -3702,6 +4089,8 @@ def main(argv=None) -> int:
         "launches_remat_check": remat["launches"],
         "launches_ddp_per_rank": ddp["warp_per_rank"],
         "launches_ddp_cli_nccl": ddp["cli"]["affine_warp"],
+        "launches_torch_ckpt": ckpt["launches"]["affine_warp"],
+        "launches_tp_per_rank": tp["warp_per_rank"],
         "max_abs_err": warp_err,
         "ms": warp["ms"], "plain_ms": warp["plain_ms"],
         "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],

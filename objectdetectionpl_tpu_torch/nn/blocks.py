@@ -121,11 +121,12 @@ class BatchNorm(nn.Module):
 
     In train mode ``mean``/``var`` are the batch moments over (N, H, W):
     sums of ``x`` and of ``x**2`` (squared in x's dtype, as JAX does)
-    accumulated in f32, and the *biased* variance ``E[x^2] - E[x]^2``
-    clamped at 0; gradients flow through both.  Under a process group of
-    more than one rank the sums and counts are all-reduced first, so the
-    moments are the global batch's, as JAX's sharded reduction gives them
-    (a recomputation under :func:`remat` all-reduces again).  The running
+    accumulated in f32 (f64 in an f64 model), and the *biased* variance
+    ``E[x^2] - E[x]^2`` clamped at 0; gradients flow through both.  Under
+    a data axis of more than one rank the sums and counts are all-reduced
+    over the data group first, so the moments are the global batch's, as
+    JAX's sharded reduction gives them (a recomputation under
+    :func:`remat` all-reduces again).  The running
     statistics then move as ``0.9*old + 0.1*batch`` (flax momentum 0.9),
     except in the second run of a block under :func:`remat`.
     ``nn.BatchNorm2d`` is not used: it updates the running variance with
@@ -146,11 +147,12 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = (0, 2, 3)
             n = x.numel() // x.shape[1]
-            s1 = x.sum(dims, dtype=torch.float32)
-            s2 = x.square().sum(dims, dtype=torch.float32)
-            if distributed.process_count() > 1:
+            acc = torch.promote_types(x.dtype, torch.float32)
+            s1 = x.sum(dims, dtype=acc)
+            s2 = x.square().sum(dims, dtype=acc)
+            if distributed.data_shard()[0] > 1:
                 # the global batch's moments: [sum x, sum x^2, n] over the
-                # ranks, the gradient flowing back through the sum
+                # data group, the gradient flowing back through the sum
                 C = s1.shape[0]
                 sums = distributed.sum_with_grad(torch.cat(
                     [s1, s2, s1.new_full((1,), float(n))]))

@@ -19,7 +19,9 @@ saved again.  ``best_model_path.txt`` holds the best checkpoint's path.
 Under a process group rank 0 alone writes and deletes; every rank keeps
 the same book of steps and val_losses (the Trainer hands every rank rank
 0's val_loss), and a restore waits at a barrier before every rank reads
-the same file (one file system for all ranks).
+the same file (one file system for all ranks).  A state split over a model
+axis (``parallel/mesh.py::shard_model_parallel``) is saved whole, gathered
+by every rank, and a restore cuts each rank's slices from the whole.
 """
 
 from __future__ import annotations
@@ -85,15 +87,19 @@ class CheckpointManager:
             drop = order[:max(len(order) - self.save_top_k, 0)]
             for old in drop:
                 del self._val_loss[old]
+        # a state split over a model axis is gathered whole by every rank
+        whole = (state.model_axis.whole(state)
+                 if state.model_axis is not None else None)
         if not self.writes:
             return True
         tmp = self._path(step) + f".tmp-{os.getpid()}"
         os.makedirs(tmp)
         opt = state.optimizer
-        torch.save({"model": state.model.state_dict(),
-                    "optimizer": None if opt is None else opt.state_dict(),
-                    "ema": state.ema_params, "step": int(state.step)},
-                   os.path.join(tmp, STATE_FILE))
+        torch.save(whole or {
+            "model": state.model.state_dict(),
+            "optimizer": None if opt is None else opt.state_dict(),
+            "ema": state.ema_params, "step": int(state.step)},
+            os.path.join(tmp, STATE_FILE))
         with open(os.path.join(tmp, METRICS_FILE), "w") as f:
             json.dump({"val_loss": float(val_loss)}, f)
         os.rename(tmp, self._path(step))
@@ -118,6 +124,8 @@ class CheckpointManager:
             return None
         distributed.barrier()           # rank 0's saves are on disk
         ckpt = self.load(step, next(state.model.parameters()).device)
+        if state.model_axis is not None:        # whole on disk: own slices
+            ckpt = state.model_axis.own(state, ckpt)
         have = {k: v.shape for k, v in state.model.state_dict().items()}
         if {k: v.shape for k, v in ckpt["model"].items()} != have:
             raise ValueError(f"checkpoint {step} holds another model")

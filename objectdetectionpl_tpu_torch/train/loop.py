@@ -25,14 +25,19 @@ The augmentation (mosaic included) draws from a ``torch.Generator`` on
 the device seeded with ``seed + 1``; the JAX Trainer draws from
 ``jax.random``, so fits differ between the packages (ROADMAP §C) while
 everything after the draw is the same.  The tuner (``train/tune.py``)
-runs from ``cli.run``.  Not ported yet, and raising when asked for: torch
-checkpoints (A11) and a model axis in ``mesh_shape`` (A12).
+runs from ``cli.run``.  ``cfg.torch_ckpt`` loads a reference torch
+checkpoint into the parameters after the state is made
+(``utils/torch_weights.py``), as JAX loads it at construction.
 
 Under a process group (``parallel/distributed.py``, one rank a card)
 every rank trains on its Loader shard of ``batch_size`` images a
 microbatch, so the global batch is R x ``batch_size``; the train step is
 the global batch's (global BN moments, loss normalisers and mosaic
-partners, summed gradients).  The state is broadcast from rank 0 after
+partners, summed gradients).  With ``mesh_shape`` (d, m) the ranks form a
+(data, model) mesh: R is d, the ranks of one data index read one shard and
+draw one augmentation, and the state stays replicated over the model axis,
+as JAX's Trainer replicates it (JAX ``train/loop.py:79-85``), so they run
+the same step.  The state is broadcast from rank 0 after
 construction and after a restore; validation and test run the whole set
 on every rank, and rank 0's val_loss drives the scheduler, the
 checkpoints and early stopping on every rank.  Rank 0 alone writes (run
@@ -68,18 +73,13 @@ from objectdetectionpl_tpu_torch.train import optim
 from objectdetectionpl_tpu_torch.train import state as state_lib
 from objectdetectionpl_tpu_torch.train import step as step_lib
 from objectdetectionpl_tpu_torch.utils import summary as summary_lib
+from objectdetectionpl_tpu_torch.utils import torch_weights
 from objectdetectionpl_tpu_torch.utils import viz
 from objectdetectionpl_tpu_torch.utils.logging import (MetricWriter,
                                                        log_param_histograms)
 from objectdetectionpl_tpu_torch.utils.profiler import (device_memory_stats,
                                                         start_trace,
                                                         stop_trace)
-
-
-def _check_ported(cfg: Config) -> None:
-    if cfg.torch_ckpt:
-        raise NotImplementedError("torch_ckpt is not ported yet "
-                                  "(ROADMAP A11)")
 
 
 def _say(*args) -> None:
@@ -165,7 +165,6 @@ class PinnedRing:
 class Trainer:
     def __init__(self, cfg: Config, device: DeviceLike = None):
         self.cfg = cfg
-        _check_ported(cfg)
         self.mesh = make_mesh(cfg.mesh_shape)
         self.device = resolve_device(device)
         self.dm = build_datamodule(cfg)
@@ -193,6 +192,15 @@ class Trainer:
         self.scheduler = optim.build_scheduler(cfg)
         self.state = state_lib.create_train_state(
             self.model, self.optimizer, ema_decay=cfg.ema_decay)
+        if cfg.torch_ckpt:
+            # pretrained torch weights at construction (model/SSD.py:46),
+            # into the parameters only: the EMA keeps its copy of the init
+            sd = torch_weights.read_torch_state_dict(cfg.torch_ckpt)
+            loaded, n, desc = torch_weights.load_torch_checkpoint(
+                cfg.model_name, self.model.state_dict(), sd)
+            self.model.load_state_dict(loaded, strict=True)
+            _say(f"[trainer] loaded {n} tensors from {cfg.torch_ckpt} "
+                 f"({desc})")
         distributed.broadcast_state(self.state)
         self.aug_gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)

@@ -26,6 +26,12 @@ class TrainState:
         return dict(self.model.named_parameters())
 
     @property
+    def model_axis(self):
+        """How the model is split over a model axis
+        (``parallel/mesh.py::shard_model_parallel``), or None."""
+        return getattr(self.model, "model_axis", None)
+
+    @property
     def eval_params(self) -> Dict[str, torch.Tensor]:
         """Parameters to evaluate/serve with (EMA when enabled)."""
         return self.ema_params if self.ema_params is not None else self.params

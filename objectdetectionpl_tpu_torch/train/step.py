@@ -63,7 +63,7 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
 
     def apply_update(state, grads, metrics):
         distributed.all_reduce_(grads)
-        if distributed.process_count() > 1:
+        if distributed.data_shard()[0] > 1:
             keys = list(metrics)
             total = torch.stack([metrics[k].float() for k in keys])
             distributed.all_reduce_([total])
