@@ -23,7 +23,18 @@ exits non-zero:
    80, and the anchor scan at B=64 with the flag on: the kernel's device
    time (CUDA events) and host-inclusive time per call; the plain
    version's host-inclusive time (a Python loop of ~100 to ~1200
-   launches); the greedy chain's length (kept heads per image, mean, max).
+   launches); the greedy chain's length (kept heads per image, mean, max);
+   the tiled kernel's device time on the same candidates (launched through
+   ``greedy_nms_tiled_launch``, uncounted, its result checked first); the
+   bound counts the pairs of one label (class-aware) or all pairs.
+3a. kernel_wide -- the tiled kernel (K above 1024, the single-tile
+   kernel's limit) against ``greedy_nms_plain`` at K = 1025, 2048, 4096,
+   B = 1 and 8, 80 classes: class-aware with merge, class-agnostic without
+   merge with ``drop_lone_survivor`` off and on, and near-threshold pairs,
+   within a tile and (K = 2048, 4096) a tile apart, so that the cross-tile
+   test decides them; each check must count one tiled launch.  Then its device time at K =
+   2048, 4096 and 25,200, B = 1 and 64, with the chain length, K x kept
+   heads, the bound, and the plain version's time at B=1.
 4. fp32    -- YOLOv5s-640, 80 classes, B=2, f32 with TF32 off: head maps on
    the card against the CPU on the same seeded weights; the card's decoded
    candidates through the kernel and the plain version.
@@ -32,7 +43,11 @@ exits non-zero:
    a state without EMA (the module's own weights): 3 batches at B=1 and 3
    at B=64 after one warm-up each.  Every launch count is zeroed just
    before and read just after; every batch must launch the NMS kernel
-   once.
+   once.  Then serving_all: the same with every decoded row into the NMS
+   (``top_k`` 25,200, ``conf_thres`` 0.001, as an mAP evaluation runs):
+   each batch launches the tiled kernel once and the plain version never;
+   the B=1 candidates through the kernel and the plain version, both
+   timed, and the B=64 kernel time.
 5a. export -- the serving export (``utils/export.py``): YOLOv5s-640, 80
    classes, bf16, /255 folded, ``build_inference_fn`` saved with
    ``torch.export`` at B=1 and B=64 and loaded in this process: ``valid``,
@@ -170,9 +185,11 @@ exits non-zero:
    (into a pinned buffer), and for the batch's upload from the pinned ring
    against a copy into freshly pinned memory.
    Inside it, on its checkpoint: predict_cli -- ``cli.predict.main`` over
-   the decodable fixtures with ``--out-dir``: one JSON line and one NMS
-   launch per image (counts zeroed before, read after), each PNG's
-   signature and IHDR size, ms per image in the call and warm; then
+   the decodable fixtures and a copy of the 500x375 one with EXIF
+   Orientation 6 with ``--out-dir``: one JSON line and one NMS launch per
+   image (counts zeroed before, read after), each PNG's signature and IHDR
+   size, the EXIF copy's record and panel equal to those of its turned
+   image, ms per image in the call and warm; then
    predict_export -- ``cli.predict.main`` with ``--export`` and no images
    on that checkpoint: its line, then the loaded program on one fixture
    (uint8) against the module on the restored evaluation weights,
@@ -304,7 +321,9 @@ exits non-zero:
    idle share against the profiled call and against the mean of three
    unprofiled calls (the profiler's own host cost inflates the first).
 
-Then the ``kernels`` line (the NMS and warp entries also carry the launch
+Then the ``kernels`` line (``greedy_nms`` is the single-tile NMS kernel,
+K <= 1024, ``greedy_nms_tiled`` the tiled one with ``serving_all``'s
+launches and times at B=1, K=25,200; the NMS and warp entries also carry the launch
 counts of the YOLO, anchor, VOC, COCO (uncached and cached), WiderPerson,
 training-options, BDD100K-SSD and predict phases, the NMS entry those of
 the export, the fresh interpreter, ``predict --export`` and the bench, the warp entry those of
@@ -360,7 +379,7 @@ from objectdetectionpl_tpu_torch.tools import (conv_bench, decode_bench,
 from objectdetectionpl_tpu_torch.tools.kernel_ab import (candidates,
                                                          ssr_inverses)
 from objectdetectionpl_tpu_torch.train.checkpoint import CheckpointManager
-from objectdetectionpl_tpu_torch.train.loop import PinnedRing
+from objectdetectionpl_tpu_torch.train.loop import PinnedRing, _to_host
 from objectdetectionpl_tpu_torch.train.optim import build_optimizer
 from objectdetectionpl_tpu_torch.train import tune
 from objectdetectionpl_tpu_torch.train.state import create_train_state
@@ -371,7 +390,7 @@ from objectdetectionpl_tpu_torch.train.step import (YOLO_DECODE,
 from objectdetectionpl_tpu_torch.utils.fuse import (STEM_CONVS,
                                                     fold_input_scale)
 from objectdetectionpl_tpu_torch.utils import export as export_lib
-from objectdetectionpl_tpu_torch.utils import timing, torch_weights
+from objectdetectionpl_tpu_torch.utils import timing, torch_weights, viz
 from objectdetectionpl_tpu_torch.utils.timing import (F32_OPS_PER_S,
                                                      HBM_BYTES_PER_S,
                                                      call_time_ms, time_ms)
@@ -430,7 +449,7 @@ CONV_BF16_ULPS = 2
 CONV_SUM_TOL = 2
 CONV_REPS = 20
 # greedy_nms work, counted from the candidates: one IoU test per valid pair
-# i < j (4 min/max, 2x(sub, add, max), mul, add, sub, add, div, compare =
+# i < j (of one label when class-aware) (4 min/max, 2x(sub, add, max), mul, add, sub, add, div, compare =
 # 16 ops); per valid row its area (5) and, with merge, its share of a merge
 # (4 mul, 5 add).
 IOU_PAIR_OPS = 16
@@ -442,6 +461,19 @@ ROW_BYTES = 16 + 4 + 4 + 4 + 16 + 1
 # 20 f32 ops for the coordinates; 9 per channel for the blend (inside only).
 WARP_COORD_OPS = 20
 WARP_BLEND_OPS_PER_CHANNEL = 9
+
+# the tiled NMS kernel (K above the single-tile kernel's 1024): checked
+# against the plain version at WIDE_K x WIDE_B, timed at WIDE_TIME_K x
+# WIDE_TIME_B (the plain version at B=1 only: its [B, K, K] tensors take
+# GBs), and served at every row of a YOLOv5s-640 decode (3 anchors x (80²
+# + 40² + 20²)) at mAP evaluation's confidence threshold
+WIDE_K = (1025, 2048, 4096)
+WIDE_B = (1, 8)
+WIDE_TIME_K = (2048, 4096, 25200)
+WIDE_TIME_B = (1, 64)
+SERVE_ALL_K = 25200
+SERVE_ALL_CONF = 0.001
+NMS_TILE = 1024          # the tiled kernel's rows a tile (csrc kTile)
 
 REPO = Path(__file__).resolve().parent
 # the trainer phase: cli.run on the YAML with these overrides
@@ -577,15 +609,32 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nms_bound_ms(scores: torch.Tensor, merge: bool = True) -> tuple:
-    valid = (scores > nms_kernel.NEG_INF).sum(dim=1).double()
+def nms_bound_ms(args, class_aware: bool = True, merge: bool = True) -> dict:
+    """The least time of greedy_nms on ``args`` (boxes, scores, labels,
+    obj): one IoU test per pair i < j of valid rows that the function must
+    decide -- with ``class_aware`` only the pairs of one label, the sum over
+    labels of n_l (n_l - 1) / 2 an image -- and each valid row's area and
+    merge share, against the rows' bytes.  ``bound_pairs``: the pairs
+    counted."""
+    scores, labels = args[1], args[2]
+    B = scores.shape[0]
+    valid = (scores > nms_kernel.NEG_INF).cpu()
+    if class_aware:
+        lab = labels.cpu().long()
+        lab = lab - lab.min()
+        per = int(lab.max()) + 1
+        key = torch.arange(B)[:, None] * per + lab
+        n = torch.bincount(key[valid], minlength=B * per).double()
+    else:
+        n = valid.sum(dim=1).double()
+    pairs = float((n * (n - 1) / 2).sum())
     row_ops = AREA_OPS + (MERGE_ROW_OPS if merge else 0)
-    ops = float((valid * (valid - 1) / 2).sum()) * IOU_PAIR_OPS \
-        + float(valid.sum()) * row_ops
+    ops = pairs * IOU_PAIR_OPS + float(valid.sum()) * row_ops
     nbytes = scores.numel() * ROW_BYTES
     t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_pairs": int(pairs)}
 
 
 def near_threshold(B, K, seed, thresh=0.4):
@@ -606,6 +655,53 @@ def near_threshold(B, K, seed, thresh=0.4):
     scores = torch.rand(B, K, generator=g).sort(dim=1, descending=True).values
     obj = torch.rand(B, K, generator=g)
     return [t.contiguous().cuda() for t in (boxes, scores, labels, obj)]
+
+
+def near_threshold_k(B, K, seed):
+    """``near_threshold`` at any K: an odd K drops the last pair's
+    second row."""
+    return [t[:, :K].contiguous()
+            for t in near_threshold(B, K + K % 2, seed)]
+
+
+def near_threshold_cross(B, K, seed):
+    """``near_threshold``'s pairs with each second box a tile later: of
+    every 2 * NMS_TILE rows, pair m at rows m and m + NMS_TILE, the scores
+    still sorted, so that the tiled kernel's cross-tile test (its step (a))
+    decides them.  K a multiple of 2 * NMS_TILE."""
+    boxes, scores, labels, obj = near_threshold(B, K, seed)
+    m = torch.arange(K // 2)
+    first = m // NMS_TILE * 2 * NMS_TILE + m % NMS_TILE
+    order = torch.empty(K, dtype=torch.long)
+    order[first], order[first + NMS_TILE] = 2 * m, 2 * m + 1
+    order = order.cuda()
+    return [boxes[:, order].contiguous(), scores,
+            labels[:, order].contiguous(), obj]
+
+
+def tiled_at_any_k(args, nms_thresh=0.4, class_aware=True, merge=True,
+                   drop=False):
+    """The tiled kernel at any K through ``greedy_nms_tiled_launch`` (the
+    wrapper takes it only above 1024), not counted: to time it beside the
+    single-tile kernel at K <= 1024.  Its workspace is 28 bytes a row
+    (a float4, a float and two ints)."""
+    boxes, scores, labels, obj = args
+    B, K = scores.shape
+    lib = nms_kernel._lib()
+    lib.greedy_nms_tiled_launch.argtypes = lib.greedy_nms_launch.argtypes
+    out = torch.empty_like(boxes)
+    keep = torch.empty((B, K), dtype=torch.bool, device=boxes.device)
+    workspace = torch.empty(28 * B * K, dtype=torch.uint8,
+                            device=boxes.device)
+    err = lib.greedy_nms_tiled_launch(
+        boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
+        obj.data_ptr(), out.data_ptr(), keep.data_ptr(), B, K,
+        float(nms_thresh), int(class_aware), int(merge), 1.0,
+        torch.cuda.current_stream().cuda_stream, int(drop),
+        workspace.data_ptr())
+    if err:
+        raise RuntimeError(f"greedy_nms_tiled_launch: cudaError {err}")
+    return out, keep
 
 
 def check_kernel(args, class_aware, merge, thresh=0.4, drop=False) -> float:
@@ -777,9 +873,15 @@ def phase_kernel(card: str) -> dict:
         ms, call_ms = time_ms(lambda: nms_kernel.greedy_nms(*args), 200)
         plain_ms = call_time_ms(lambda: nms_kernel.greedy_nms_plain(*args),
                                 20)
-        bound_ms, bound_by = nms_bound_ms(args[1])
+        # the tiled kernel on the same candidates, beside the single-tile one
+        tb, tk = tiled_at_any_k(args)
+        pb, pk = nms_kernel.greedy_nms_plain(*args)
+        if not torch.equal(tk, pk):
+            raise AssertionError(f"tiled kernel at K={TOP_K}: keep differs")
+        torch.testing.assert_close(tb, pb, **BOX_TOL)
+        tiled_ms, _ = time_ms(lambda: tiled_at_any_k(args), 200)
         timing[B] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
+                         tiled_ms=tiled_ms, **nms_bound_ms(args),
                          **kernel_ab.chain_length(args))
         emit({"phase": "kernel_time", "B": B, "K": TOP_K,
               "classes": classes, "card": card, **timing[B],
@@ -791,11 +893,11 @@ def phase_kernel(card: str) -> dict:
     ms, call_ms = time_ms(lambda: nms_kernel.greedy_nms(*args, **flags), 200)
     plain_ms = call_time_ms(
         lambda: nms_kernel.greedy_nms_plain(*args, **flags), 20)
-    bound_ms, bound_by = nms_bound_ms(args[1], merge=False)
     ms_no_drop, _ = time_ms(lambda: nms_kernel.greedy_nms(
         *args, **{**flags, "drop_lone_survivor": False}), 200)
     timing["anchor_b64"] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                                bound_ms=bound_ms, bound_by=bound_by,
+                                **nms_bound_ms(args, class_aware=False,
+                                               merge=False),
                                 ms_without_drop=ms_no_drop,
                                 **kernel_ab.chain_length(args, **flags))
     emit({"phase": "kernel_time", "B": 64, "K": ANCHOR_TOP_K, "classes": 80,
@@ -803,6 +905,150 @@ def phase_kernel(card: str) -> dict:
           **timing["anchor_b64"], "library_ms": None})
     return {"max_abs_err": max_err, "timing": timing}
 
+
+
+def ious_k_by_kept(args, **flags) -> int:
+    """K x kept heads summed over the images: the IoUs of a greedy scan
+    that tests each kept head against every row (the Pallas kernel's)."""
+    _, keep = nms_kernel.greedy_nms(*args, **flags)
+    return int(keep.sum()) * args[1].shape[1]
+
+
+def cross_tile_pairs(args, class_aware, drop) -> dict:
+    """Of ``near_threshold_cross``'s pairs (plain version's keep): those
+    whose first row is a kept head, so that the cross-tile test decides
+    the second, and how many of those seconds are suppressed."""
+    _, keep = nms_kernel.greedy_nms_plain(
+        *args, class_aware=class_aware, merge=False, drop_lone_survivor=drop)
+    B, K = keep.shape
+    k = keep.view(B, K // (2 * NMS_TILE), 2, NMS_TILE)
+    head = k[:, :, 0]
+    return {"pairs_first_kept": int(head.sum()),
+            "pairs_second_suppressed": int((head & ~k[:, :, 1]).sum())}
+
+
+def phase_kernel_wide(card: str) -> dict:
+    """The tiled kernel (K > 1024) against the plain version on the card at
+    WIDE_K x WIDE_B, 80 classes: class-aware with merge, class-agnostic
+    without merge with drop_lone_survivor off and on, and near-threshold
+    pairs both ways; every check must take the tiled kernel.  Then its
+    device time at WIDE_TIME_K x WIDE_TIME_B with the chain length, the
+    plain version's at B=1, and the bound."""
+    max_err = 0.0
+    flag_sets = ((True, True, False), (False, False, False),
+                 (False, False, True))        # (class_aware, merge, drop)
+    for K in WIDE_K:
+        for B in WIDE_B:
+            seed = 10 * K + B
+            cases = [("random_c80", candidates(B, K, seed, classes=80),
+                      flag_sets),
+                     ("near_threshold", near_threshold_k(B, K, seed + 1),
+                      flag_sets[::2])]
+            if K % (2 * NMS_TILE) == 0:
+                cases.append(("near_threshold_cross_tile",
+                              near_threshold_cross(B, K, seed + 2),
+                              flag_sets[::2]))
+            for name, args, flags in cases:
+                for class_aware, merge, drop in flags:
+                    tiled = nms_kernel.TILED_LAUNCHES
+                    err = check_kernel(args, class_aware, merge, drop=drop)
+                    if nms_kernel.TILED_LAUNCHES != tiled + 1:
+                        raise AssertionError(f"K={K} did not take the tiled "
+                                             f"kernel")
+                    max_err = max(max_err, err)
+                    row = {"phase": "kernel_check", "case": f"{name}_B{B}_K{K}",
+                           "class_aware": class_aware, "merge": merge,
+                           "drop_lone_survivor": drop, "keep_equal": True,
+                           "max_abs_box_err": err, "card": card}
+                    if name == "near_threshold_cross_tile":
+                        row.update(cross_tile_pairs(args, class_aware, drop))
+                    emit(row)
+    timing = {}
+    for K in WIDE_TIME_K:
+        for B in WIDE_TIME_B:
+            args = candidates(B, K, 7 * K + B, classes=80)
+            ms, call_ms = time_ms(lambda: nms_kernel.greedy_nms(*args),
+                                  5 if K > 4096 else 50)
+            plain_ms = (call_time_ms(lambda: nms_kernel.greedy_nms_plain(
+                *args), 1, warmup=1) if B == 1 else None)
+            timing[(K, B)] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                                  **nms_bound_ms(args),
+                                  ious_k_by_kept=ious_k_by_kept(args),
+                                  **kernel_ab.chain_length(args))
+            emit({"phase": "kernel_time", "kernel": "tiled", "B": B, "K": K,
+                  "classes": 80, "card": card, **timing[(K, B)],
+                  "library_ms": None})
+    return {"max_abs_err": max_err, "timing": timing}
+
+
+def phase_serving_all(card: str) -> dict:
+    """``predict_step`` on YOLOv5s-640 bf16 with every decoded row into the
+    NMS (top_k SERVE_ALL_K, conf_thres SERVE_ALL_CONF) at B=1 and 64: one
+    launch of the tiled kernel a batch and none of the plain version; ms a
+    batch.  Then the B=1 batch's candidates through the kernel and the
+    plain version (keep identical, boxes within BOX_TOL), both timed, and
+    the B=64 batch's kernel time."""
+    step, model = serving_model(conf_thres=SERVE_ALL_CONF, top_k=SERVE_ALL_K)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batches = {B: torch.randint(0, 256, (B, IMG, IMG, 3), generator=g,
+                                dtype=torch.uint8, device="cuda")
+               for B in (1, 64)}
+    plain = nms_kernel.greedy_nms_plain
+    plain_calls = []
+    nms_kernel.greedy_nms_plain = lambda *a, **k: plain_calls.append(1) or \
+        plain(*a, **k)
+    torch.cuda.synchronize()
+    try:
+        reset_launches()                       # main path starts here
+        calls, results, last = 0, {}, None
+        for B, images in batches.items():
+            times = []
+            for i in range(4):                 # one warm-up, three batches
+                t0 = time.perf_counter()
+                last = step(images)
+                torch.cuda.synchronize()
+                calls += 1
+                if i:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            results[B] = {"ms_per_batch": times, "valid": int(
+                last.valid.sum())}
+        counts = read_launches()               # main path ends here
+    finally:
+        nms_kernel.greedy_nms_plain = plain
+    if (counts["greedy_nms"], counts["greedy_nms_tiled"], len(plain_calls)) \
+            != (calls, calls, 0):
+        raise AssertionError(f"{calls} batches: {counts} launches, "
+                             f"{len(plain_calls)} plain calls")
+    if last.boxes.shape != (64, SERVE_ALL_K, 4) or not torch.isfinite(
+            last.boxes).all():
+        raise AssertionError("serving_all boxes: wrong shape or non-finite")
+    for B, r in results.items():
+        emit({"phase": "serving_all", "card": card, "model": "Yolov5s",
+              "img": IMG, "classes": NUM_CLASSES, "dtype": "bfloat16",
+              "top_k": SERVE_ALL_K, "conf_thres": SERVE_ALL_CONF, "B": B,
+              **r, "launches": counts})
+    out = {"launches": counts["greedy_nms_tiled"]}
+    with torch.inference_mode():
+        for B, images in batches.items():
+            preds = nms.decode_yolov5_predictions(
+                model(images), anchor_lib.YOLOV5_ANCHORS,
+                anchor_lib.YOLOV5_STRIDES, NUM_CLASSES)
+            args = nms.yolo_candidates(preds, SERVE_ALL_CONF,
+                                       SERVE_ALL_K).nms_inputs()
+            ms, call_ms = time_ms(lambda: nms_kernel.greedy_nms(*args), 5)
+            r = dict(ms=ms, call_ms=call_ms, **nms_bound_ms(args),
+                     ious_k_by_kept=ious_k_by_kept(args),
+                     valid_rows=int((args[1] > nms_kernel.NEG_INF).sum()),
+                     **kernel_ab.chain_length(args))
+            if B == 1:                          # the plain version's GBs
+                r["max_abs_err"] = check_kernel(args, True, True)
+                r["plain_ms"] = call_time_ms(
+                    lambda: nms_kernel.greedy_nms_plain(*args), 1, warmup=1)
+            out[B] = r
+            emit({"phase": "serving_all_check", "card": card, "B": B,
+                  "K": SERVE_ALL_K, "keep_equal": B == 1 or None, **r,
+                  "library_ms": None})
+    return out
 
 def phase_fp32(card: str) -> float:
     torch.backends.cudnn.allow_tf32 = False
@@ -833,14 +1079,16 @@ def phase_fp32(card: str) -> float:
     return err
 
 
-def serving_model(name: str = "YOLOv5", img: int = IMG):
+def serving_model(name: str = "YOLOv5", img: int = IMG, **post):
     """(images -> NMSResult, model): ``predict_step`` bound to a serving
-    state (no optimizer, no EMA), bf16, /255 folded into the stem."""
+    state (no optimizer, no EMA), bf16, /255 folded into the stem;
+    ``post`` goes to ``make_postprocess`` (conf_thres, top_k)."""
     model = build_model(name, NUM_CLASSES, dtype=torch.bfloat16,
                         device="cuda", seed=0)
     model.load_state_dict(fold_input_scale(model.state_dict(), 1.0 / 255.0,
                                            STEM_CONVS[name]))
-    step = make_predict_step(model, make_postprocess(name, NUM_CLASSES, img))
+    step = make_predict_step(model, make_postprocess(name, NUM_CLASSES, img,
+                                                     **post))
     return functools.partial(step, create_train_state(model)), model
 
 
@@ -888,11 +1136,11 @@ def phase_serving(card: str) -> dict:
         args = nms.yolo_candidates(preds, 0.5, TOP_K).nms_inputs()
         err = check_kernel(args, True, True)
         ms, call_ms = time_ms(lambda: nms_kernel.greedy_nms(*args), 100)
-    bound_ms, bound_by = nms_bound_ms(args[1])
+    bound = nms_bound_ms(args)
     emit({"phase": "serving_check", "card": card, "B": 64,
           "valid": int(last.valid.sum()), "keep_equal": True,
           "max_abs_box_err": err, "nms_ms": ms, "nms_call_ms": call_ms,
-          "nms_bound_ms": bound_ms, "nms_bound_by": bound_by,
+          **{f"nms_{k}": v for k, v in bound.items()},
           **kernel_ab.chain_length(args),
           "launches": counts,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -1116,6 +1364,7 @@ def phase_bench(card: str) -> dict:
 
 def reset_launches() -> None:
     nms_kernel.LAUNCHES = 0
+    nms_kernel.TILED_LAUNCHES = 0
     warp_kernel.LAUNCHES = 0
     for name in conv_kernel.LAUNCHES:
         conv_kernel.LAUNCHES[name] = 0
@@ -1123,6 +1372,7 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {"greedy_nms": nms_kernel.LAUNCHES,
+            "greedy_nms_tiled": nms_kernel.TILED_LAUNCHES,
             "affine_warp": warp_kernel.LAUNCHES, **conv_kernel.LAUNCHES}
 
 
@@ -2619,17 +2869,70 @@ def phase_jpeg_check(card: str) -> None:
           "decode_one_ms": per_file, "frames_ms_per_image": frames})
 
 
+EXIF_FIXTURE = "voc_420_q75_500x375.jpg"   # served turned by Orientation 6
+
+
+def exif6_copy(path: str, name: str = EXIF_FIXTURE) -> np.ndarray:
+    """Writes the fixture ``name`` to ``path`` with an APP1 Exif segment
+    after its SOI whose IFD0 holds Orientation 6 (little-endian TIFF);
+    returns the image cv2.imread gives for it: the fixture's pixels turned
+    90 degrees clockwise."""
+    tiff = b"II*\0" + (8).to_bytes(4, "little") + (1).to_bytes(2, "little")
+    tiff += bytes.fromhex("1201 0300 01000000 0600 0000") + bytes(4)
+    seg = b"Exif\0\0" + tiff
+    raw = (fixture_trees.TESTDATA / name).read_bytes()
+    with open(path, "wb") as f:
+        f.write(raw[:2] + b"\xff\xe1" + (len(seg) + 2).to_bytes(2, "big")
+                + seg + raw[2:])
+    img = native.decode_one(str(fixture_trees.TESTDATA / name))
+    return np.ascontiguousarray(img.transpose(1, 0, 2)[:, ::-1])
+
+
+def check_exif_served(trainer, path: str, turned: np.ndarray, record: dict,
+                      panel: np.ndarray) -> dict:
+    """The CLI's record and panel for the Orientation-6 file are those of
+    its turned image: ``load_image_rgb`` gives the turned pixels, and
+    ``predict_step`` on their resized input gives the record and the
+    panel the CLI gave, bit for bit; the unturned input differs."""
+    if not np.array_equal(cli_predict.load_image_rgb(path), turned):
+        raise AssertionError("load_image_rgb did not turn the EXIF-6 file")
+    S = trainer.img_size
+    x = cli_predict.resize_input(turned, S)
+    unturned = cli_predict.resize_input(
+        np.ascontiguousarray(turned[:, ::-1].transpose(1, 0, 2)), S)
+    if np.array_equal(x, unturned):
+        raise AssertionError("the turned and unturned inputs are equal")
+    res = trainer.predict_step(trainer.state,
+                               torch.from_numpy(x).to(trainer.device))
+    boxes, scores, labels, valid = (a[0] for a in _to_host(
+        (res.boxes, res.scores, res.labels, res.valid)))
+    want = {"image": path, "boxes_xyxy": boxes[valid].round(2).tolist(),
+            "scores": scores[valid].round(4).tolist(),
+            "labels": [trainer.classes[int(c)] for c in labels[valid]]}
+    if record != want:
+        raise AssertionError(f"the EXIF-6 record {record} is not the "
+                             f"turned image's {want}")
+    if not np.array_equal(panel, viz.draw_boxes(x[0], boxes, labels,
+                                                valid=valid)):
+        raise AssertionError("the EXIF-6 panel is not the turned image's")
+    return {"shape": list(turned.shape), "detections": len(want["labels"])}
+
+
 def predict_after(card: str, out: dict):
     """``after`` for ``trainer_voc``: ``cli.predict.main`` on the run's
-    best checkpoint over the decodable fixtures with ``--out-dir``: one
-    JSON line and one NMS launch per image, a PNG of the model's input
-    size per image; ms per image of ``predict_images`` in the call (the
-    first image includes the warm-up) and again on the warm Trainer."""
+    best checkpoint over the decodable fixtures and a copy of one with EXIF
+    Orientation 6 (``check_exif_served``) with ``--out-dir``: one JSON line
+    and one NMS launch per image, a PNG of the model's input size per
+    image; ms per image of ``predict_images`` in the call (the first image
+    includes the warm-up) and again on the warm Trainer."""
     def after(argv):
-        paths = [str(fixture_trees.TESTDATA / n)
-                 for n in fixture_trees.decodable()]
-        calls = {}
+        calls, panels = {}, {}
         predict_images = cli_predict.predict_images
+        write_png = viz.write_png
+
+        def kept_png(path, image):
+            panels[os.path.basename(path)] = image.copy()
+            write_png(path, image)
 
         def timed(trainer, images, on_image=None):
             calls["trainer"] = trainer
@@ -2641,8 +2944,13 @@ def predict_after(card: str, out: dict):
         build = REPO / "build"
         with tempfile.TemporaryDirectory(prefix="chip_smoke_predict_",
                                          dir=build) as out_dir:
+            exif_path = os.path.join(out_dir, "exif6_voc.jpg")
+            turned = exif6_copy(exif_path)
+            paths = [str(fixture_trees.TESTDATA / n)
+                     for n in fixture_trees.decodable()] + [exif_path]
             stdout = io.StringIO()
             cli_predict.predict_images = timed
+            viz.write_png = kept_png
             try:
                 reset_launches()               # main path starts here
                 t0 = time.perf_counter()
@@ -2654,6 +2962,7 @@ def predict_after(card: str, out: dict):
                 counts = read_launches()       # main path ends here
             finally:
                 cli_predict.predict_images = predict_images
+                viz.write_png = write_png
             lines = [json.loads(x) for x in stdout.getvalue().splitlines()
                      if x.startswith("{")]
             if lines != records or [r["image"] for r in lines] != paths:
@@ -2678,9 +2987,12 @@ def predict_after(card: str, out: dict):
                                         S, S):
                     raise AssertionError(f"{stem}_pred.png: not an "
                                          f"{S}x{S} PNG")
+            exif = check_exif_served(calls["trainer"], exif_path, turned,
+                                     records[-1],
+                                     panels["exif6_voc_pred.png"])
         t0 = time.perf_counter()
-        predict_images(calls["trainer"], paths)
-        warm_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+        predict_images(calls["trainer"], paths[:-1])
+        warm_ms = (time.perf_counter() - t0) * 1e3 / (len(paths) - 1)
         out.update({"launches": counts,
                     "export": predict_export(card, argv, calls["trainer"],
                                              paths[0])})
@@ -2689,7 +3001,7 @@ def predict_after(card: str, out: dict):
               "ms_per_image_in_call": calls["ms"] / len(paths),
               "ms_per_image_warm": warm_ms,
               "detections": sum(len(r["labels"]) for r in records),
-              "pngs": len(paths)})
+              "pngs": len(paths), "exif6": exif})
     return after
 
 
@@ -3169,7 +3481,7 @@ def phase_conv_check(card: str) -> tuple:
     torch.cuda.synchronize()
     counts = read_launches()
     want = {"conv3x3_s1": 2, "conv3x3_s1_wgrad": 1, "wgrad_reduce": 1,
-            "greedy_nms": 0, "affine_warp": 0}
+            "greedy_nms": 0, "greedy_nms_tiled": 0, "affine_warp": 0}
     if counts != want or dx.dtype != torch.bfloat16 \
             or dw.dtype != torch.float32:
         raise AssertionError(f"conv3x3_s1_op fwd+bwd launched {counts} "
@@ -3203,7 +3515,7 @@ def phase_conv_time(card: str, convs: list) -> dict:
     counts = read_launches()                   # main path ends here
     n = len(convs)
     want = {"conv3x3_s1": 2 * n, "conv3x3_s1_wgrad": n, "wgrad_reduce": n,
-            "greedy_nms": 0, "affine_warp": 0}
+            "greedy_nms": 0, "greedy_nms_tiled": 0, "affine_warp": 0}
     if counts != want:
         raise AssertionError(f"{n} conv3x3_s1_op fwd+bwd launched {counts}, "
                              f"expected {want}")
@@ -3958,11 +4270,13 @@ def main(argv=None) -> int:
     card = info["card"]
     phase_build()
     kern = phase_kernel(card)
+    wide = phase_kernel_wide(card)
     warp_err = phase_warp_check()
     warp = phase_warp_time(card)
     fp32_err = phase_fp32(card)
     phase_train_fp32(card)
     serve = phase_serving(card)
+    serve_all = phase_serving_all(card)
     exported = phase_export(card)
     benched = phase_bench(card)
     train = phase_training(card)
@@ -4023,6 +4337,7 @@ def main(argv=None) -> int:
     err = max(kern["max_abs_err"], fp32_err, serve["max_abs_err"], yolo_err,
               anchor_err, anchor_serve["max_abs_err"])
     ta = t["anchor_b64"]
+    w1, w64 = serve_all[1], serve_all[64]
     emit({"kernels": [{
         "name": "greedy_nms", "route": "cuda",
         "source": "objectdetectionpl_tpu_torch/csrc/greedy_nms.cu",
@@ -4059,6 +4374,7 @@ def main(argv=None) -> int:
         "chain_max": t[256]["chain_max"],
         "ms_b1": t[1]["ms"], "call_ms_b1": t[1]["call_ms"],
         "plain_ms_b1": t[1]["plain_ms"], "bound_ms_b1": t[1]["bound_ms"],
+        "bound_pairs": t[256]["bound_pairs"],
         "ms_b64_c80": t[64]["ms"], "bound_ms_b64_c80": t[64]["bound_ms"],
         "ms_anchor_b64": ta["ms"], "call_ms_anchor_b64": ta["call_ms"],
         "plain_ms_anchor_b64": ta["plain_ms"],
@@ -4067,6 +4383,29 @@ def main(argv=None) -> int:
         "bound_by_anchor_b64": ta["bound_by"],
         "shape_anchor": f"B=64,K={ANCHOR_TOP_K}, class-agnostic, no merge, "
                         f"IoU 0.5, drop_lone_survivor",
+        "card": card}, {
+        "name": "greedy_nms_tiled", "route": "cuda",
+        "source": "objectdetectionpl_tpu_torch/csrc/greedy_nms.cu",
+        "replaces": "objectdetectionpl_tpu/ops/pallas/nms_kernel.py:120",
+        "launches": serve_all["launches"],
+        "keep_equal": True,
+        "max_abs_err": max(wide["max_abs_err"], w1["max_abs_err"]),
+        "ms": w1["ms"], "plain_ms": w1["plain_ms"],
+        "bound_ms": w1["bound_ms"], "bound_by": w1["bound_by"],
+        "bound_pairs": w1["bound_pairs"],
+        "library_ms": None,
+        "shape": f"B=1,K={SERVE_ALL_K}: a YOLOv5s-640 bf16 decode at "
+                 f"conf_thres {SERVE_ALL_CONF}, 80 classes, class-aware, "
+                 f"merge",
+        "call_ms": w1["call_ms"], "chain_mean": w1["chain_mean"],
+        "valid_rows": w1["valid_rows"],
+        "ious_k_by_kept": w1["ious_k_by_kept"],
+        "ms_b64": w64["ms"], "bound_ms_b64": w64["bound_ms"],
+        "bound_pairs_b64": w64["bound_pairs"],
+        **{f"ms_k{TOP_K}_b{B}": t[B]["tiled_ms"] for B in (1, 64, 256)},
+        "chain_mean_b64": w64["chain_mean"],
+        **{f"ms_random_c80_K{K}_B{B}": r["ms"]
+           for (K, B), r in wide["timing"].items()},
         "card": card}, {
         "name": "affine_warp", "route": "cuda",
         "source": "objectdetectionpl_tpu_torch/csrc/affine_warp.cu",

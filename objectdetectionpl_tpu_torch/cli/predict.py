@@ -8,14 +8,15 @@ The port of ``objectdetectionpl_tpu/cli/predict.py``:
 
 Builds the config's Trainer (its DataModule too, for the class names),
 restores the best checkpoint of its run directory, then serves each image
-on its own: decode (the port's JPEG decoder), resize to the model's
-img_size with the Loader's resize, ``predict_step`` (the NMS kernel once
-per image).  Prints one JSON line per image (boxes xyxy in pixels of the
-resized input, scores, class names) and, with ``--out-dir``, writes
-``<stem>_pred.png`` panels, each image's line and panel before the next
-image is read, as the JAX CLI does.  The JAX CLI resizes to uint8 with cv2
-before /255; the port's resize gives the float image directly, within
-1/255 of it (ROADMAP §C).  ``--export PATH`` first writes the serving chain
+on its own: decode (the port's JPEG decoder, turned by the file's EXIF
+orientation as ``cv2.imread`` turns it), resize to the model's img_size as
+the JAX CLI does (cv2's uint8 INTER_LINEAR, then /255), ``predict_step``
+(the NMS kernel once per image).  Prints one JSON line per image (boxes
+xyxy in pixels of the resized input, scores, class names) and, with
+``--out-dir``, writes ``<stem>_pred.png`` panels, each image's line and
+panel before the next image is read, as the JAX CLI does.  Any
+``nms_top_k`` is served (above 1024 the NMS kernel works in tiles).
+``--export PATH`` first writes the serving chain
 (uint8 -> cast, /255 folded into YOLOv5's stem or divided -> forward ->
 decode -> NMS op) with the evaluation weights (EMA when on) at batch 1 and
 the model's img_size as a ``torch.export`` program (``utils/export.py``),
@@ -38,17 +39,20 @@ from objectdetectionpl_tpu_torch.cli.run import _coerce
 from objectdetectionpl_tpu_torch.config import load_config
 from objectdetectionpl_tpu_torch.data import native
 from objectdetectionpl_tpu_torch.data.parsers.common import load_image_rgb
-from objectdetectionpl_tpu_torch.data.pipeline import _torch_preproc
+from objectdetectionpl_tpu_torch.data.pipeline import numpy_preproc_u8
 from objectdetectionpl_tpu_torch.train.loop import Trainer, _to_host
 from objectdetectionpl_tpu_torch.utils import export as export_lib
 from objectdetectionpl_tpu_torch.utils import viz
 
 
 def resize_input(img: np.ndarray, size: int) -> np.ndarray:
-    """uint8 [H, W, 3] -> float32 [1, S, S, 3] in [0, 1], by the Loader's
-    resize (the native library, else torch), without letterbox."""
-    preproc = native.preproc_batch if native.available() else _torch_preproc
-    return preproc([img], size, False)[0]
+    """uint8 [H, W, 3] -> float32 [1, S, S, 3] in [0, 1], the JAX CLI's
+    input bit for bit: cv2's uint8 INTER_LINEAR to S x S (the host
+    library's uint8 resize, else ``pipeline.numpy_preproc_u8``), then /255
+    in float32."""
+    u8 = (native.preproc_batch([img], size, False, u8=True)
+          or numpy_preproc_u8([img], size, False))[0]
+    return u8.astype(np.float32) / np.float32(255.0)
 
 
 def predict_images(trainer: Trainer, paths: Sequence[str],

@@ -313,21 +313,429 @@ size_t smem_bytes(int K) {
          4 * nw * sizeof(unsigned) + 64;
 }
 
+// ---------------------------------------------------------------------------
+// K > kMaxK: the same function over tiles of the score-sorted candidates.
+//
+// greedy_nms_kernel holds the whole [K][nw] relation in shared memory, which
+// caps K at 1024 (128 KB of relation).  A YOLO decode gives far more rows
+// (25,200 for YOLOv5s at 640 px), and the Pallas kernel takes any K.  Above
+// the cap one CTA per image walks its candidates in tiles of kTile rows, in
+// score order:
+//   (a) each live row of the tile (valid, not yet suppressed) is tested
+//       against the heads kept in earlier tiles, in head order, kHeadChunk
+//       heads staged in shared memory at a time; its first hit is its first
+//       kept suppressor and the row is dead.  The rows test independently:
+//       no serial chain here, O(tile x earlier heads) IoUs over all threads,
+//       a label test first when class_aware, and an exit once no live row
+//       is left.
+//   (b) the tile's live rows resolve their own chain with greedy_nms_kernel's
+//       relation build and word-blocked scan (its steps 2 and 3 over the
+//       tile), which leave each head's in-tile group in its relation row.
+//   (c) the tile's heads take ordinals after the earlier ones, their in-tile
+//       groups name them as first suppressor, and each head's running merge
+//       sum (in the per-image workspace) takes the tile's rows of its group
+//       in ascending row order -- the first row of the tile that names a
+//       head adds them all -- so over the tiles every group is summed in
+//       ascending j, then the head's own row, as greedy_nms_kernel sums it.
+// Chosen over one head at a time (the Pallas kernel's loop, alive set as K
+// bits) because there every kept head costs a CTA-wide barrier and a pass
+// over the K rows; here the serial part is only the in-tile scan, and the
+// cross-tile test is parallel over rows.  Every pair is decided by
+// over_pair, the relation build's division-free midpoint test, so pairs
+// within ulps of the threshold decide as in greedy_nms_kernel.
+//
+// Workspace, [B][K] slots indexed by head ordinal, from the caller
+// (greedy_nms_workspace_bytes): each head's merge sum (float4) and weight
+// (float), its row and its group size (int), 28 bytes a candidate.
+// What bounds it: neither bytes nor FLOPs -- the cross-tile test is
+// O(K x kept heads) IoUs per image on one SM, and the in-tile chain is
+// serial as in greedy_nms_kernel; B=1 uses one SM of 132.
+
+constexpr int kTile = 1024;                  // rows a tile: nw <= 16 words
+constexpr int kTileWords = kTile / 64;
+constexpr int kTileThreads = 1024;
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kHeadChunk = 1024;             // earlier heads staged at once
+constexpr int kNone = -1;                    // no kept suppressor
+
+struct TileSmem {
+  float4 box[kTile];
+  float area[kTile];
+  int lab[kTile];
+  int first[kTile];          // ordinal of the row's first kept suppressor
+  union {
+    u64 over[kTile * kTileWords];            // (b): the tile's relation
+    struct {
+      float4 box[kHeadChunk];
+      float area[kHeadChunk];
+      int lab[kHeadChunk];
+    } head;                                  // (a): earlier heads
+  } u;
+  u64 diag[64];
+  unsigned valid_bits[kTile / 32];
+  unsigned live_bits[kTile / 32];
+  unsigned keep_bits[kTile / 32];
+  unsigned char heads[64];
+};
+
+// greedy_nms_kernel's step-2 threshold test for one pair, i the earlier row.
+struct Thresh {
+  float t;
+  bool by_mid, tie_up;
+  double mid;
+};
+
+__device__ __forceinline__ Thresh make_thresh(float thresh) {
+  const float t_next = nextafterf(thresh, __int_as_float(0x7f800000));
+  Thresh th;
+  th.t = thresh;
+  th.by_mid = isfinite(thresh) && isfinite(t_next);
+  th.mid = 0.5 * ((double)thresh + (double)t_next);
+  th.tie_up = __float_as_uint(thresh) & 1u;
+  return th;
+}
+
+__device__ __forceinline__ bool over_pair(float4 bi, float ai, float4 bj,
+                                          float aj, float plus1,
+                                          const Thresh& th) {
+  const float iw = fmaxf(
+      __fadd_rn(__fsub_rn(fminf(bi.z, bj.z), fmaxf(bi.x, bj.x)), plus1),
+      0.0f);
+  const float ih = fmaxf(
+      __fadd_rn(__fsub_rn(fminf(bi.w, bj.w), fmaxf(bi.y, bj.y)), plus1),
+      0.0f);
+  const float inter = __fmul_rn(iw, ih);
+  const float denom = __fadd_rn(__fsub_rn(__fadd_rn(ai, aj), inter), 1e-16f);
+  if (th.by_mid && denom > 0.0f && isfinite(denom) && isfinite(inter)) {
+    const double a = inter, ab = th.mid * (double)denom;
+    return a > ab || (th.tie_up && a == ab);
+  }
+  return __fdiv_rn(inter, denom) > th.t;
+}
+
+__device__ __forceinline__ bool bit_of(const unsigned* bits, int i) {
+  return (bits[i >> 5] >> (i & 31)) & 1u;
+}
+
+template <bool kDropLone>
+__global__ void __launch_bounds__(kTileThreads, 1)
+greedy_nms_tiled_kernel(const float4* __restrict__ boxes,
+                        const float* __restrict__ scores,
+                        const int* __restrict__ labels,
+                        const float* __restrict__ obj,
+                        float4* __restrict__ out_boxes,
+                        bool* __restrict__ keep_out,
+                        float4* __restrict__ head_sum,
+                        float* __restrict__ head_den,
+                        int* __restrict__ head_row,
+                        int* __restrict__ head_size,
+                        int K, float thresh, int class_aware, int merge,
+                        float plus1) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  TileSmem& s = *reinterpret_cast<TileSmem*>(smem);
+  const size_t base = (size_t)blockIdx.x * K;   // the image's rows and slots
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const Thresh th = make_thresh(thresh);
+  int nk = 0;                                   // heads kept so far
+
+  for (int r0 = 0; r0 < K; r0 += kTile) {
+    const int kt = min(kTile, K - r0);
+    const int nw = (kt + 63) >> 6;
+    const int kp = nw * 64;
+
+    // Stage the tile; columns kt..kp-1 hold a zero box, never valid.
+    for (int i = tid; i < kp; i += kTileThreads) {
+      bool v = false;
+      float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      int l = 0;
+      if (i < kt) {
+        b = boxes[base + r0 + i];
+        v = scores[base + r0 + i] > kNegInf;
+        l = labels[base + r0 + i];
+      }
+      s.box[i] = b;
+      s.area[i] = box_area(b, plus1);
+      s.lab[i] = l;
+      s.first[i] = kNone;
+      const unsigned vb = __ballot_sync(0xffffffffu, v);
+      if (lane == 0) s.valid_bits[i >> 5] = vb;
+    }
+    __syncthreads();
+
+    // (a) Live rows against the heads of earlier tiles, in head order.
+    for (int h0 = 0; h0 < nk; h0 += kHeadChunk) {
+      int any = 0;
+      for (int i = tid; i < kt; i += kTileThreads)
+        any |= bit_of(s.valid_bits, i) && s.first[i] == kNone;
+      // also the barrier between the last chunk's tests and the restaging
+      if (!__syncthreads_or(any)) break;
+      const int nh = min(kHeadChunk, nk - h0);
+      for (int h = tid; h < nh; h += kTileThreads) {
+        const int row = head_row[base + h0 + h];
+        const float4 b = boxes[base + row];
+        s.u.head.box[h] = b;
+        s.u.head.area[h] = box_area(b, plus1);
+        s.u.head.lab[h] = labels[base + row];
+      }
+      __syncthreads();
+      for (int i = tid; i < kt; i += kTileThreads) {
+        if (!bit_of(s.valid_bits, i) || s.first[i] != kNone) continue;
+        const float4 bj = s.box[i];
+        const float aj = s.area[i];
+        const int lj = s.lab[i];
+        for (int h = 0; h < nh; ++h) {
+          if (class_aware && s.u.head.lab[h] != lj) continue;
+          if (over_pair(s.u.head.box[h], s.u.head.area[h], bj, aj, plus1,
+                        th)) {
+            s.first[i] = h0 + h;
+            break;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // (b) The tile's own chain over its live rows: greedy_nms_kernel's
+    //     relation build and scan, the live rows taking the valid ones' place.
+    for (int i = tid; i < kp; i += kTileThreads) {
+      const bool live =
+          i < kt && bit_of(s.valid_bits, i) && s.first[i] == kNone;
+      const unsigned lb = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) s.live_bits[i >> 5] = lb;
+    }
+    __syncthreads();
+    const int nrb = (kt + 31) >> 5;
+    int tasks = 0;
+    for (int wd = 0; wd < nw; ++wd) tasks += min(nrb, 2 * wd + 2);
+    for (int t = warp; t < tasks; t += kTileWarps) {
+      int wd = 0, rb = t;
+      while (rb >= min(nrb, 2 * wd + 2)) {
+        rb -= min(nrb, 2 * wd + 2);
+        ++wd;
+      }
+      const int j0 = wd * 64;
+      const int i = rb * 32 + lane;             // < kp: a padded row if >= kt
+      const float4 bi = s.box[i];
+      const float ai = s.area[i];
+      const int li = s.lab[i];
+      u64 bits = 0ull;
+#pragma unroll 8
+      for (int c = 0; c < 64; ++c) {
+        const float4 bj = s.box[j0 + c];        // warp-uniform: a broadcast
+        const float aj = s.area[j0 + c];
+        const int lj = s.lab[j0 + c];
+        const bool hit = over_pair(bi, ai, bj, aj, plus1, th);
+        if ((!class_aware || lj == li) && hit) bits |= 1ull << c;
+      }
+      if (i < kt) {
+        const bool vi = bit_of(s.live_bits, i);
+        const int sh = i - j0;                   // columns c > sh are j > i
+        const u64 later =
+            sh < 0 ? ~0ull : (sh >= 63 ? 0ull : ~0ull << (sh + 1));
+        s.u.over[(size_t)i * nw + wd] =
+            vi ? bits & later & word_of(s.live_bits, wd) : 0ull;
+      }
+    }
+    __syncthreads();
+
+    if (warp == 0) {
+      u64 alive = lane < nw ? word_of(s.live_bits, lane) : 0ull;
+      for (int wd = 0; wd < nw; ++wd) {
+        const int r_lo = wd * 64 + lane;
+        const int r_hi = r_lo + 32;
+        s.diag[lane] = r_lo < kt ? s.u.over[(size_t)r_lo * nw + wd] : 0ull;
+        s.diag[lane + 32] =
+            r_hi < kt ? s.u.over[(size_t)r_hi * nw + wd] : 0ull;
+        __syncwarp();
+        u64 cand = __shfl_sync(0xffffffffu, alive, wd);
+        u64 kept = 0ull;
+        if (lane == 0) {
+          int n = 0;
+          for (int p = 0; p < 64; p += kBatch) {
+            if (!((cand >> p) & ((1ull << kBatch) - 1))) continue;
+            u64 row[kBatch];
+#pragma unroll
+            for (int q = 0; q < kBatch; ++q)
+              row[q] = (cand >> (p + q)) & 1ull ? s.diag[p + q] : 0ull;
+#pragma unroll
+            for (int q = 0; q < kBatch; ++q) {
+              const u64 bit = 1ull << (p + q);
+              if (cand & bit) {
+                s.diag[p + q] = row[q] & cand;
+                kept |= bit;
+                s.heads[n++] = static_cast<unsigned char>(p + q);
+                cand &= ~row[q] & ~bit;
+              }
+            }
+          }
+          s.keep_bits[2 * wd] = static_cast<unsigned>(kept);
+          s.keep_bits[2 * wd + 1] = static_cast<unsigned>(kept >> 32);
+        }
+        __syncwarp();
+        kept = __shfl_sync(0xffffffffu, kept, 0);
+        if (r_lo < kt) s.u.over[(size_t)r_lo * nw + wd] = s.diag[lane];
+        if (r_hi < kt) s.u.over[(size_t)r_hi * nw + wd] = s.diag[lane + 32];
+        const int nkw = __popcll(kept);
+        if (lane > wd && lane < nw) {
+          for (int r = 0; r < nkw; r += kBatch) {
+            int at[kBatch];
+            u64 row[kBatch];
+#pragma unroll
+            for (int q = 0; q < kBatch; ++q) {
+              at[q] = r + q < nkw ? (wd * 64 + s.heads[r + q]) * nw + lane
+                                  : 0;
+              row[q] = r + q < nkw ? s.u.over[at[q]] : 0ull;
+            }
+#pragma unroll
+            for (int q = 0; q < kBatch; ++q) {
+              if (r + q < nkw) {
+                s.u.over[at[q]] = row[q] & alive;
+                alive &= ~row[q];
+              }
+            }
+          }
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+
+    // (c) The tile's heads: ordinals after nk, fresh sums, and their in-tile
+    //     groups naming them.
+    int tile_kept = 0;
+    for (int wd = 0; wd < 2 * nw; ++wd) tile_kept += __popc(s.keep_bits[wd]);
+    for (int i = tid; i < kt; i += kTileThreads) {
+      if (!bit_of(s.keep_bits, i)) continue;
+      int n = nk + __popc(s.keep_bits[i >> 5] & ((1u << (i & 31)) - 1u));
+      for (int wd = 0; wd < (i >> 5); ++wd) n += __popc(s.keep_bits[wd]);
+      head_row[base + n] = r0 + i;
+      head_sum[base + n] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      head_den[base + n] = 0.0f;
+      head_size[base + n] = 0;
+      for (int wd = i >> 6; wd < nw; ++wd) {
+        u64 g = s.u.over[(size_t)i * nw + wd];
+        while (g) {
+          s.first[wd * 64 + __ffsll(static_cast<long long>(g)) - 1] = n;
+          g &= g - 1;
+        }
+      }
+    }
+    __syncthreads();
+    // Each head's rows in this tile, in row order, added to its sum by the
+    // first of them; every row of the tile is written as given.
+    for (int j = tid; j < kt; j += kTileThreads) {
+      out_boxes[base + r0 + j] = s.box[j];
+      keep_out[base + r0 + j] = bit_of(s.keep_bits, j);
+      const int n = s.first[j];
+      if (n == kNone) continue;
+      bool lead = true;
+      for (int q = 0; q < j && lead; ++q) lead = s.first[q] != n;
+      if (!lead) continue;
+      float4 sum = head_sum[base + n];
+      float den = head_den[base + n];
+      int size = head_size[base + n];
+      for (int q = j; q < kt; ++q) {
+        if (s.first[q] != n) continue;
+        const float wq = obj[base + r0 + q];    // group rows are valid
+        const float4 bq = s.box[q];
+        sum.x += wq * bq.x;
+        sum.y += wq * bq.y;
+        sum.z += wq * bq.z;
+        sum.w += wq * bq.w;
+        den += wq;
+        ++size;
+      }
+      head_sum[base + n] = sum;
+      head_den[base + n] = den;
+      head_size[base + n] = size;
+    }
+    nk += tile_kept;
+    __syncthreads();               // the next tile restages the shared arrays
+  }
+
+  // The kept rows: drop_lone, then each head merged with its group, its own
+  // row last (greedy_nms_kernel's step 4).
+  for (int n = tid; n < nk; n += kTileThreads) {
+    const int i = head_row[base + n];
+    if (kDropLone && n == nk - 1 && head_size[base + n] == 0) {
+      keep_out[base + i] = false;
+      continue;
+    }
+    if (!merge) continue;
+    float4 sum = head_sum[base + n];
+    const float4 b = boxes[base + i];
+    const float wi = obj[base + i];
+    sum.x += wi * b.x;
+    sum.y += wi * b.y;
+    sum.z += wi * b.z;
+    sum.w += wi * b.w;
+    const float den = fmaxf(head_den[base + n] + wi, 1e-16f);
+    out_boxes[base + i] =
+        make_float4(sum.x / den, sum.y / den, sum.z / den, sum.w / den);
+  }
+}
+
+// greedy_nms_tiled_kernel's workspace: B*K each of float4, float, int, int.
+size_t tiled_workspace_bytes(int B, int K) {
+  return (size_t)B * K * (sizeof(float4) + sizeof(float) + 2 * sizeof(int));
+}
+
+int launch_tiled(const void* boxes, const void* scores, const void* labels,
+                 const void* obj, void* out_boxes, void* keep, int B, int K,
+                 float thresh, int class_aware, int merge, float plus1,
+                 cudaStream_t stream, int drop_lone, void* workspace) {
+  if (!workspace || reinterpret_cast<size_t>(workspace) % 16)
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = drop_lone ? greedy_nms_tiled_kernel<true>
+                                : greedy_nms_tiled_kernel<false>;
+  const size_t smem = sizeof(TileSmem);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const size_t n = (size_t)B * K;
+  float4* head_sum = static_cast<float4*>(workspace);
+  float* head_den = reinterpret_cast<float*>(head_sum + n);
+  int* head_row = reinterpret_cast<int*>(head_den + n);
+  kernel<<<B, kTileThreads, smem, stream>>>(
+      static_cast<const float4*>(boxes), static_cast<const float*>(scores),
+      static_cast<const int*>(labels), static_cast<const float*>(obj),
+      static_cast<float4*>(out_boxes), static_cast<bool*>(keep), head_sum,
+      head_den, head_row, head_row + n, K, thresh, class_aware, merge, plus1);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// The largest K of the single-tile kernel; larger K takes the tiled one.
 extern "C" int greedy_nms_max_k() { return kMaxK; }
+
+// Bytes of device workspace that greedy_nms_launch needs for B x K: 0 up to
+// greedy_nms_max_k(), 28 * B * K above it (greedy_nms_tiled_launch: 28 * B *
+// K at any K).
+extern "C" size_t greedy_nms_workspace_bytes(int B, int K) {
+  return K > kMaxK ? tiled_workspace_bytes(B, K) : 0;
+}
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // boxes/out_boxes [B, K, 4] f32 (16-byte aligned), scores/obj [B, K] f32,
 // labels [B, K] i32, keep [B, K] bool; all contiguous on the current device.
-// drop_lone is the last argument, so the others keep the positions they had
-// before it was added.
+// workspace: greedy_nms_workspace_bytes(B, K) bytes on that device, 16-byte
+// aligned (null when that is 0).  drop_lone and workspace are the last
+// arguments, so the others keep the positions they had before.
 extern "C" int greedy_nms_launch(const void* boxes, const void* scores,
                                  const void* labels, const void* obj,
                                  void* out_boxes, void* keep, int B, int K,
                                  float thresh, int class_aware, int merge,
-                                 float plus1, void* stream, int drop_lone) {
-  if (B <= 0 || K <= 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
+                                 float plus1, void* stream, int drop_lone,
+                                 void* workspace) {
+  if (B <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (K > kMaxK)
+    return launch_tiled(boxes, scores, labels, obj, out_boxes, keep, B, K,
+                        thresh, class_aware, merge, plus1,
+                        static_cast<cudaStream_t>(stream), drop_lone,
+                        workspace);
   const size_t smem = smem_bytes(K);
   const auto kernel =
       drop_lone ? greedy_nms_kernel<true> : greedy_nms_kernel<false>;
@@ -342,4 +750,21 @@ extern "C" int greedy_nms_launch(const void* boxes, const void* scores,
       static_cast<float4*>(out_boxes), static_cast<bool*>(keep), K, thresh,
       class_aware, merge, plus1);
   return (int)cudaGetLastError();
+}
+
+// greedy_nms_launch's arguments, but the tiled kernel at any K (its
+// workspace tiled_workspace_bytes(B, K), which greedy_nms_workspace_bytes
+// gives only above kMaxK): to time the two kernels side by side at
+// K <= kMaxK.  The serving path never calls it.
+extern "C" int greedy_nms_tiled_launch(const void* boxes, const void* scores,
+                                       const void* labels, const void* obj,
+                                       void* out_boxes, void* keep, int B,
+                                       int K, float thresh, int class_aware,
+                                       int merge, float plus1, void* stream,
+                                       int drop_lone, void* workspace) {
+  if (B <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  return launch_tiled(boxes, scores, labels, obj, out_boxes, keep, B, K,
+                      thresh, class_aware, merge, plus1,
+                      static_cast<cudaStream_t>(stream), drop_lone,
+                      workspace);
 }

@@ -19,15 +19,23 @@
 // Everything else (lossless, hierarchical, arithmetic coding, 12-bit
 // samples, 4 components, data that ends before the last MCU, a progressive
 // file whose scans leave coefficient bits unsent, which libjpeg would
-// smooth) is an error naming the marker or the reason.  EXIF orientation
-// is not applied.
+// smooth) is an error naming the marker or the reason.
+//
+// EXIF orientation: the decoder reads the Orientation tag (0x0112) of IFD0
+// from the APP1 "Exif\0\0" segments before the first scan, as OpenCV's
+// ExifReader reads it (the class of that name below), and returns it with
+// the pixels; jpegdec::orient turns the image as cv2.imread does.  Whether to
+// turn is the caller's: the JAX package's cv2.imread does, its fused
+// libjpeg loader does not.
 //
 // C interface (one call per batch, on a pool of threads):
-//   jpeg_decode_batch(paths, n, threads, denom, pixels, ws, hs, codes,
-//                     msgs, msg_len)
+//   jpeg_decode_batch(paths, n, threads, denom, exif, pixels, ws, hs,
+//                     codes, msgs, msg_len)
 //     each worker reads file i once, parses it and decodes it at 1/denom
 //     into a buffer of hs[i]*ws[i]*3 bytes that it allocates: pixels[i],
-//     which the caller releases with jpeg_free;
+//     which the caller releases with jpeg_free; with exif != 0 turned by
+//     the file's EXIF orientation (ws[i] and hs[i] are then the turned
+//     image's);
 //   jpeg_free(pixel_buffer).
 // A file that fails leaves pixels[i] null and sets codes[i] (JPEG_OK, ...)
 // and a message at msgs + i * msg_len.
@@ -559,6 +567,83 @@ struct Component {
   }
 };
 
+// The EXIF Orientation of one APP1 segment's TIFF data (the bytes after
+// "Exif\0\0"), read as OpenCV's ExifReader reads it, since that is what
+// cv2.imread applies: byte order "II" little-endian, anything else
+// big-endian; the TIFF mark 42 at 2; IFD0 at the 32-bit offset at 4; its
+// 12-byte entries in order, each read by its tag -- the string tags
+// (ImageDescription, Make, Model, Software, DateTime, Copyright) check that
+// their data lies inside the segment (inline when 4 bytes or fewer), the
+// rational tags (X/YResolution, WhitePoint, PrimaryChromaticities,
+// YCbCrCoefficients, ReferenceBlackWhite) read their 1, 2, 6, 3 or 6
+// rationals, the 16-bit ones (Orientation, ResolutionUnit,
+// YCbCrPositioning) read the 16 bits at entry + 8 whatever the entry's
+// type, others are skipped -- and the first read outside the segment ends
+// the segment's entries.  Returns true with *value (any 16-bit value) when
+// an Orientation entry was read before that.  Never throws out.
+class ExifReader {
+ public:
+  ExifReader(const uint8_t* d, size_t n)
+      : d_(d), n_(n), le_(n > 1 && d[0] == 'I' && d[1] == 'I') {}
+
+  bool orientation(int* value) const {
+    try {
+      if (u16(2) != 42) return false;
+      size_t e = u32(4);
+      const uint32_t entries = u16(e);
+      e += 2;
+      for (uint32_t k = 0; k < entries; ++k, e += 12) {
+        const uint32_t tag = u16(e);
+        switch (tag) {
+          case 0x0112:                               // Orientation
+            *value = static_cast<int>(u16(e + 8));
+            return true;
+          case 0x010E: case 0x010F: case 0x0110:     // strings
+          case 0x0131: case 0x0132: case 0x8298: {
+            const uint64_t size = u32(e + 4);
+            const uint64_t at = size > 4 ? u32(e + 8) : 8;
+            if (at > n_ || at + size > n_) throw End();
+            break;
+          }
+          case 0x011A: case 0x011B: rationals(u32(e + 8), 1); break;
+          case 0x013E: rationals(u32(e + 8), 2); break;
+          case 0x013F: rationals(u32(e + 8), 6); break;
+          case 0x0211: rationals(u32(e + 8), 3); break;
+          case 0x0214: rationals(u32(e + 8), 6); break;
+          case 0x0128: case 0x0213: u16(e + 8); break;
+          default: break;
+        }
+      }
+    } catch (const End&) {
+    }
+    return false;
+  }
+
+ private:
+  struct End {};
+
+  uint32_t u16(uint64_t at) const {
+    if (at + 1 >= n_) throw End();
+    return le_ ? d_[at] | d_[at + 1] << 8 : d_[at] << 8 | d_[at + 1];
+  }
+  uint32_t u32(uint64_t at) const {
+    if (at + 3 >= n_) throw End();
+    const uint32_t a = d_[at], b = d_[at + 1], c = d_[at + 2], e = d_[at + 3];
+    return le_ ? a | b << 8 | c << 16 | e << 24
+               : a << 24 | b << 16 | c << 8 | e;
+  }
+  void rationals(uint64_t at, int count) const {
+    for (int r = 0; r < count; ++r, at += 8) {
+      u32(at);
+      u32(at + 4);
+    }
+  }
+
+  const uint8_t* d_;
+  size_t n_;
+  bool le_;
+};
+
 // A component's samples at the output size: a plane and its row stride.
 struct View {
   const uint8_t* p;
@@ -587,6 +672,10 @@ class Decoder {
     check_complete();
     output(8 / denom, rgb);
   }
+
+  // The EXIF Orientation read before the first scan, 0 without one; known
+  // once decode() is done.
+  int orientation() const { return orientation_; }
 
  private:
   size_t size() const { return static_cast<size_t>(end_ - p_); }
@@ -660,6 +749,11 @@ class Decoder {
     int len;
     const uint8_t* d = segment_body(&len);
     if (m == 0xE0 && len >= 14 && !std::memcmp(d, "JFIF\0", 5)) jfif_ = true;
+    // as cv2: every Exif segment before the first scan, until one of them
+    // has an Orientation entry
+    if (m == 0xE1 && !has_orientation_ && !scans_ && len >= 6 &&
+        !std::memcmp(d, "Exif\0\0", 6))
+      has_orientation_ = ExifReader(d + 6, len - 6).orientation(&orientation_);
     if (m == 0xEE && len >= 12 && !std::memcmp(d, "Adobe", 5)) {
       adobe_ = true;
       adobe_transform_ = d[11];
@@ -1181,8 +1275,8 @@ class Decoder {
   Buffers* b_;
   bool frame_ = false, progressive_ = false, done_ = false;
   bool eoi_missing_ = false;
-  bool jfif_ = false, adobe_ = false;
-  int adobe_transform_ = -1;
+  bool jfif_ = false, adobe_ = false, has_orientation_ = false;
+  int adobe_transform_ = -1, orientation_ = 0;
   int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int restart_interval_ = 0, scans_ = 0, eobrun_ = 0;
   std::vector<Component> comps_;
@@ -1211,12 +1305,13 @@ void set_msg(char* msg, int msg_len, const std::string& s) {
 
 // Reads and decodes one file, its bytes into b->data, its pixels at 1/d,
 // d = pick_denom(its size, target, max_denom), into the buffer that
-// alloc(bytes) returns (null: out of memory).  Returns a Code.
+// alloc(bytes) returns (null: out of memory), its EXIF orientation into
+// *orientation.  Returns a Code.
 template <typename Alloc>
 int decode_with(const char* path, Buffers* b, int target, int max_denom,
-                int* w, int* h, int* ow, int* oh, char* msg, int msg_len,
-                Alloc alloc) {
-  *w = *h = *ow = *oh = 0;
+                int* w, int* h, int* ow, int* oh, int* orientation,
+                char* msg, int msg_len, Alloc alloc) {
+  *w = *h = *ow = *oh = *orientation = 0;
   set_msg(msg, msg_len, "");
   if (!read_file(path, &b->data)) {
     set_msg(msg, msg_len, std::string("cannot read the file: ") +
@@ -1235,6 +1330,7 @@ int decode_with(const char* path, Buffers* b, int target, int max_denom,
     uint8_t* rgb = alloc(static_cast<size_t>(*w) * *h * 3);
     if (!rgb) throw std::bad_alloc();
     d.decode(denom, rgb);
+    *orientation = d.orientation();
     return JPEG_OK;
   } catch (const Error& e) {
     set_msg(msg, msg_len, e.msg);
@@ -1246,17 +1342,29 @@ int decode_with(const char* path, Buffers* b, int target, int max_denom,
 }
 
 // One file at 1/denom into a buffer of *h * *w * 3 bytes that it allocates
-// (*pixels, freed with jpeg_free); on an error *pixels is null.
-int decode_file(const char* path, Buffers* b, int denom, uint8_t** pixels,
-                int* w, int* h, char* msg, int msg_len) {
+// (*pixels, freed with jpeg_free), turned by its EXIF orientation when
+// `exif`; on an error *pixels is null.
+int decode_file(const char* path, Buffers* b, int denom, bool exif,
+                uint8_t** pixels, int* w, int* h, char* msg, int msg_len) {
   uint8_t* rgb = nullptr;
-  int ow, oh;
-  const int code = decode_with(path, b, 0, denom, w, h, &ow, &oh, msg,
-                               msg_len, [&](size_t bytes) {
-                                 rgb = static_cast<uint8_t*>(
-                                     std::malloc(bytes));
-                                 return rgb;
-                               });
+  int ow, oh, orientation;
+  int code = decode_with(path, b, 0, denom, w, h, &ow, &oh, &orientation,
+                         msg, msg_len, [&](size_t bytes) {
+                           rgb = static_cast<uint8_t*>(std::malloc(bytes));
+                           return rgb;
+                         });
+  if (code == JPEG_OK && exif && orientation >= 2 && orientation <= 8) {
+    uint8_t* turned = static_cast<uint8_t*>(
+        std::malloc(static_cast<size_t>(*w) * *h * 3));
+    if (turned) {
+      orient(rgb, *w, *h, orientation, turned, w, h);
+    } else {
+      set_msg(msg, msg_len, "out of memory");
+      code = JPEG_CORRUPT;
+    }
+    std::free(rgb);
+    rgb = turned;
+  }
   if (code != JPEG_OK) {
     std::free(rgb);
     rgb = nullptr;
@@ -1275,14 +1383,15 @@ extern "C" {
 // a fixed share per thread leaves the others waiting on the one that drew
 // the large files.
 void jpeg_decode_batch(const char** paths, int n, int threads, int denom,
-                       uint8_t** pixels, int* ws, int* hs, int* codes,
-                       char* msgs, int msg_len) {
+                       int exif, uint8_t** pixels, int* ws, int* hs,
+                       int* codes, char* msgs, int msg_len) {
   const int nt = std::max(1, std::min(threads, n));
   std::atomic<int> next{0};
   auto work = [&] {
     Buffers b;
     for (int i; (i = next.fetch_add(1)) < n;)
-      codes[i] = decode_file(paths[i], &b, denom, &pixels[i], &ws[i], &hs[i],
+      codes[i] = decode_file(paths[i], &b, denom, exif != 0, &pixels[i],
+                             &ws[i], &hs[i],
                              msgs + static_cast<int64_t>(i) * msg_len,
                              msg_len);
   };
@@ -1309,10 +1418,45 @@ int jpegdec::pick_denom(int w, int h, int target, int max_denom) {
 
 int jpegdec::decode_into(const char* path, Buffers* b, int target,
                          int max_denom, int* w, int* h, int* orig_w,
-                         int* orig_h, char* msg, int msg_len) {
-  return decode_with(path, b, target, max_denom, w, h, orig_w, orig_h, msg,
-                     msg_len, [&](size_t bytes) {
+                         int* orig_h, int* orientation, char* msg,
+                         int msg_len) {
+  return decode_with(path, b, target, max_denom, w, h, orig_w, orig_h,
+                     orientation, msg, msg_len, [&](size_t bytes) {
                        b->rgb.resize(bytes);
                        return b->rgb.data();
                      });
+}
+
+void jpegdec::orient(const uint8_t* src, int w, int h, int orientation,
+                     uint8_t* dst, int* out_w, int* out_h) {
+  // dst(y, x) = src at offset + x * dx + y * dy (bytes): cv2's flips and
+  // transposes, 2 flip x, 3 rotate 180, 4 flip y, 5 transpose, 6 rotate 90
+  // clockwise, 7 transverse, 8 rotate 90 counter-clockwise; 1 and any other
+  // value copy the image.
+  const int64_t row = static_cast<int64_t>(w) * 3;
+  const int64_t last_x = static_cast<int64_t>(w - 1) * 3;
+  const int64_t last_y = static_cast<int64_t>(h - 1) * row;
+  int64_t offset = 0, dx = 3, dy = row;
+  switch (orientation) {
+    case 2: offset = last_x; dx = -3; break;
+    case 3: offset = last_y + last_x; dx = -3; dy = -row; break;
+    case 4: offset = last_y; dy = -row; break;
+    case 5: dx = row; dy = 3; break;
+    case 6: offset = last_y; dx = -row; dy = 3; break;
+    case 7: offset = last_y + last_x; dx = -row; dy = -3; break;
+    case 8: offset = last_x; dx = row; dy = -3; break;
+    default: break;
+  }
+  const bool swap = orientation >= 5 && orientation <= 8;
+  *out_w = swap ? h : w;
+  *out_h = swap ? w : h;
+  for (int y = 0; y < *out_h; ++y) {
+    const uint8_t* s = src + offset + y * dy;
+    uint8_t* d = dst + static_cast<int64_t>(y) * *out_w * 3;
+    for (int x = 0; x < *out_w; ++x, s += dx, d += 3) {
+      d[0] = s[0];
+      d[1] = s[1];
+      d[2] = s[2];
+    }
+  }
 }

@@ -19,6 +19,7 @@ enum Code {
 // file's bytes, the decoded RGB image and the decoder's own planes.
 struct Buffers {
   std::vector<uint8_t> data, rgb;
+  std::vector<uint8_t> turned;      // rgb turned by its EXIF orientation
   std::vector<int16_t> coef;        // every component's DCT coefficients
   std::vector<uint8_t> plane[3];    // each component after the IDCT
   std::vector<uint8_t> full[3];     // each upsampled component
@@ -34,10 +35,18 @@ int pick_denom(int w, int h, int target, int max_denom);
 // (resized to *h * *w * 3 bytes of packed RGB) at 1/d scale, d =
 // pick_denom(orig_w, orig_h, target, max_denom), d in {1, 2, 4, 8}:
 // *w = ceil(orig_w / d), *h = ceil(orig_h / d), as libjpeg's scale_denom
-// gives.  *orig_w / *orig_h are the SOF's sizes.  Returns a Code; on an
-// error the reason is written to msg (msg_len bytes, NUL-terminated).
+// gives.  *orig_w / *orig_h are the SOF's sizes, *orientation the EXIF
+// Orientation as cv2.imread reads it (0 without one; not applied).
+// Returns a Code; on an error the reason is written to msg (msg_len bytes,
+// NUL-terminated).
 int decode_into(const char* path, Buffers* b, int target, int max_denom,
-                int* w, int* h, int* orig_w, int* orig_h, char* msg,
-                int msg_len);
+                int* w, int* h, int* orig_w, int* orig_h, int* orientation,
+                char* msg, int msg_len);
+
+// The w x h packed RGB image at src turned by EXIF orientation 1..8 into
+// dst (w * h * 3 bytes) as cv2.imread turns it; *out_w x *out_h is the
+// result's size (w and h swapped for 5..8).
+void orient(const uint8_t* src, int w, int h, int orientation, uint8_t* dst,
+            int* out_w, int* out_h);
 
 }  // namespace jpegdec

@@ -19,7 +19,7 @@
 //   preproc_batch(srcs, hs, ws, n, dst, S, letterbox, u8, threads,
 //                 scales, pad_xs, pad_ys)
 //     image i (srcs[i], hs[i] x ws[i] x 3) into slot i of dst;
-//   decode_preproc_batch(paths, n, dst, S, letterbox, u8, max_denom,
+//   decode_preproc_batch(paths, n, dst, S, letterbox, u8, max_denom, exif,
 //                        threads, orig_ws, orig_hs, scales, pad_xs, pad_ys,
 //                        codes, msgs, msg_len)
 //     each worker reads and decodes file i into buffers it reuses, at the
@@ -30,7 +30,9 @@
 //     i as it was.  orig_ws / orig_hs are the files' own (SOF) sizes, and
 //     with letterbox the scales map their pixels, as JAX's do.  max_denom 1
 //     decodes at full scale (the uint8 cache, which the JAX package fills
-//     from cv2.imread at full scale).
+//     from cv2.imread at full scale); exif != 0 turns each image by its
+//     EXIF orientation first, as cv2.imread does, and then orig_ws /
+//     orig_hs are the turned image's sizes (the cache again).
 // dst is float32 or (u8 != 0) uint8; scales, pad_xs, pad_ys describe the
 // letterbox (1, 0, 0 without).  A worker takes the next image when it is
 // done with one.
@@ -41,6 +43,7 @@
 #include <cstdint>
 #include <cstring>
 #include <thread>
+#include <utility>
 #include <vector>
 
 #include "jpeg_decode.h"
@@ -262,19 +265,26 @@ void preproc_batch(const uint8_t** srcs, const int* hs, const int* ws, int n,
 }
 
 void decode_preproc_batch(const char** paths, int n, void* dst, int S,
-                          int letterbox, int u8, int max_denom, int threads,
-                          int* orig_ws, int* orig_hs, float* scales,
-                          float* pad_xs, float* pad_ys, int* codes,
-                          char* msgs, int msg_len) {
+                          int letterbox, int u8, int max_denom, int exif,
+                          int threads, int* orig_ws, int* orig_hs,
+                          float* scales, float* pad_xs, float* pad_ys,
+                          int* codes, char* msgs, int msg_len) {
   for_each_image(n, threads, [&](int i, jpegdec::Buffers* b) {
-    int w = 0, h = 0;
+    int w = 0, h = 0, orientation = 0;
     codes[i] = jpegdec::decode_into(paths[i], b, S, max_denom, &w, &h,
-                                    &orig_ws[i], &orig_hs[i],
+                                    &orig_ws[i], &orig_hs[i], &orientation,
                                     msgs + static_cast<int64_t>(i) * msg_len,
                                     msg_len);
     if (codes[i] != jpegdec::JPEG_OK) return;
-    resize_into(b->rgb.data(), h, w, dst, i, S, letterbox != 0, u8 != 0,
-                &scales[i], &pad_xs[i], &pad_ys[i]);
+    const uint8_t* src = b->rgb.data();
+    if (exif && orientation >= 2 && orientation <= 8) {
+      b->turned.resize(b->rgb.size());
+      jpegdec::orient(src, w, h, orientation, b->turned.data(), &w, &h);
+      src = b->turned.data();
+      if (orientation >= 5) std::swap(orig_ws[i], orig_hs[i]);
+    }
+    resize_into(src, h, w, dst, i, S, letterbox != 0, u8 != 0, &scales[i],
+                &pad_xs[i], &pad_ys[i]);
     // the letterbox scale is the decoded image's; the boxes are in the
     // original's pixels (native/preproc.cc)
     if (letterbox) scales[i] *= static_cast<float>(w) / orig_ws[i];

@@ -11,14 +11,21 @@ Layout under ``cache_dir``::
     images.u8    raw memmap [N, S, S, 3] uint8 (post-resize, RGB)
     targets.npz  boxes [T,4] f32 normalized center xywh, labels [T] i32,
                  offsets [N+1] i64 (ragged row spans)
-    meta.json    {"n", "img_size", "letterbox", "version"}
+    meta.json    {"n", "img_size", "letterbox", "version", "exif"}
 
-The images are resized as JAX fills its cache, by cv2's INTER_LINEAR on
-uint8 (the host library's uint8 resize, else ``pipeline.resize_u8``), so
-the two caches are equal byte for byte.  A parser with ``record(i)`` is
+The images are read as JAX fills its cache, by ``cv2.imread`` (turned by
+their EXIF orientation) and cv2's INTER_LINEAR on uint8 (the host
+library's uint8 resize, else ``pipeline.resize_u8``), so the two caches
+are equal byte for byte.  A parser with ``record(i)`` is
 read with ``native.decode_preproc_batch`` straight into the memmap's
 rows, ``BUILD_CHUNK`` images a call.  Batches stay uint8 and the Trainer
 divides by 255 on the device (``train/loop.py``).
+
+``"exif": true`` in ``meta.json`` marks a cache whose images were turned
+by their EXIF orientation.  JAX's caches and the port's older ones lack
+it (JAX ignores the key): :func:`build_packed_cache` rebuilds such a
+directory once, since an older port cache may hold unturned images, while
+a Loader given the directory reads it as JAX's Loader does.
 """
 
 from __future__ import annotations
@@ -40,8 +47,9 @@ BUILD_CHUNK = 64          # images per resize call while building
 
 
 def cache_valid(cache_dir: str, n: int, img_size: int,
-                letterbox: bool) -> bool:
-    """True if ``cache_dir`` holds a complete cache matching the request."""
+                letterbox: bool, exif: bool = True) -> bool:
+    """True if ``cache_dir`` holds a complete cache matching the request;
+    with ``exif``, one marked as turned by the EXIF orientation."""
     meta_path = os.path.join(cache_dir, "meta.json")
     if not os.path.exists(meta_path):
         return False
@@ -53,6 +61,7 @@ def cache_valid(cache_dir: str, n: int, img_size: int,
     return (meta.get("version") == _VERSION and meta.get("n") == n
             and meta.get("img_size") == img_size
             and bool(meta.get("letterbox")) == bool(letterbox)
+            and (meta.get("exif") is True or not exif)
             and os.path.exists(os.path.join(cache_dir, "images.u8"))
             and os.path.exists(os.path.join(cache_dir, "targets.npz")))
 
@@ -63,9 +72,11 @@ def _resize_chunk(parser, idx: range, S: int, letterbox: bool,
     px, labels, ws, hs, scales, pad_xs, pad_ys) of each."""
     if hasattr(parser, "record"):
         recs = [parser.record(i) for i in idx]
-        # full scale, as the JAX package's cv2.imread
+        # full scale and turned by the EXIF orientation, as the JAX
+        # package's cv2.imread: the boxes are normalised by the turned sizes
         _, ws, hs, scales, pad_xs, pad_ys = native.decode_preproc_batch(
-            [r[0] for r in recs], S, letterbox, out, u8=True, max_denom=1)
+            [r[0] for r in recs], S, letterbox, out, u8=True, max_denom=1,
+            exif=True)
         return ([r[1] for r in recs], [r[2] for r in recs], ws, hs, scales,
                 pad_xs, pad_ys)
     examples = [parser[i] for i in idx]
@@ -118,7 +129,7 @@ def build_packed_cache(parser, img_size: int, cache_dir: str,
              offsets=np.asarray(offsets, np.int64))
     with open(os.path.join(cache_dir, "meta.json"), "w") as f:
         json.dump({"version": _VERSION, "n": n, "img_size": S,
-                   "letterbox": bool(letterbox)}, f)
+                   "letterbox": bool(letterbox), "exif": True}, f)
     return cache_dir
 
 
@@ -179,7 +190,9 @@ class PackedCache:
 
 def maybe_open(cache_dir: Optional[str], n: int, img_size: int,
                letterbox: bool) -> Optional[PackedCache]:
-    """Open ``cache_dir`` if it holds a valid matching cache, else None."""
-    if not cache_dir or not cache_valid(cache_dir, n, img_size, letterbox):
+    """Open ``cache_dir`` if it holds a valid matching cache, else None:
+    JAX's too, which lacks the ``exif`` mark."""
+    if not cache_dir or not cache_valid(cache_dir, n, img_size, letterbox,
+                                        exif=False):
         return None
     return PackedCache(cache_dir)

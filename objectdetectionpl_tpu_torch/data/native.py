@@ -21,6 +21,12 @@ bit for bit to libjpeg-turbo's decompression to RGB with that
   read once by the thread that decodes it, at full scale unless
   ``denom`` says otherwise; :func:`decode_one` is a batch of one.
 
+With ``exif`` the decode and the fused call turn each image by the EXIF
+Orientation tag of its file, as ``cv2.imread`` does (the decoder reads the
+tag as OpenCV does, and a malformed one turns nothing, as there): the JAX
+package reads images with ``cv2.imread`` for its parsers, its predict CLI
+and its packed cache, but not in its fused float32 loader.
+
 The batch functions write into ``out`` when the caller passes one (a
 pinned buffer it reuses, a cache's rows), else into a new array.  A file
 the decoder cannot read raises :class:`JpegError` naming the path and the
@@ -129,14 +135,16 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,   # paths, n
         ctypes.c_void_p,                                 # dst
         ctypes.c_int, ctypes.c_int, ctypes.c_int,        # S, letterbox, u8
-        ctypes.c_int, ctypes.c_int,                      # max_denom, threads
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,        # max_denom, exif,
+                                                         # threads
         i32p, i32p,                                      # orig_ws, orig_hs
         f32p, f32p, f32p,                                # scales, pads
         i32p, ctypes.c_char_p, ctypes.c_int]             # codes, msgs, len
     lib.decode_preproc_batch.restype = None
     lib.jpeg_decode_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,   # paths, n
-        ctypes.c_int, ctypes.c_int,                      # threads, denom
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,        # threads, denom,
+                                                         # exif
         ctypes.POINTER(ctypes.c_void_p),                 # pixels (out)
         i32p, i32p, i32p,                                # ws, hs, codes
         ctypes.c_char_p, ctypes.c_int]                   # msgs, msg_len
@@ -231,7 +239,7 @@ def _raise_first(paths: Sequence[str], codes: np.ndarray, msgs) -> None:
 
 def decode_preproc_batch(paths: Sequence[str], size: int, letterbox: bool,
                          out: Optional[np.ndarray] = None, u8: bool = False,
-                         max_denom: int = 1
+                         max_denom: int = 1, exif: bool = False
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                     np.ndarray, np.ndarray, np.ndarray]:
     """JPEG files -> (batch [N, S, S, 3], orig_ws, orig_hs, scales,
@@ -245,8 +253,10 @@ def decode_preproc_batch(paths: Sequence[str], size: int, letterbox: bool,
     picks for the file: both sides at least twice ``size`` at each step
     (:data:`MAX_DENOM` there; the default 1 decodes at full scale).
     orig_ws / orig_hs are the files' own sizes, and with letterbox the
-    scales map their pixels.  Raises :class:`JpegError` naming the first
-    file that fails, once every file is done; it is not decoded again."""
+    scales map their pixels.  With ``exif`` each image is first turned by
+    its file's EXIF orientation, and the sizes are the turned image's.
+    Raises :class:`JpegError` naming the first file that fails, once every
+    file is done; it is not decoded again."""
     lib = _lib_or_raise()
     _check_denom(max_denom)
     n = len(paths)
@@ -257,7 +267,8 @@ def decode_preproc_batch(paths: Sequence[str], size: int, letterbox: bool,
     msgs = ctypes.create_string_buffer(max(n, 1) * MSG_LEN)
     lib.decode_preproc_batch(c_paths, n, dst.ctypes.data, size,
                              int(letterbox), int(u8), int(max_denom),
-                             _threads(n), _i32(orig_ws), _i32(orig_hs),
+                             int(exif), _threads(n), _i32(orig_ws),
+                             _i32(orig_hs),
                              _f32(scales), _f32(pad_xs), _f32(pad_ys),
                              _i32(codes), msgs, MSG_LEN)
     _raise_first(paths, codes, msgs)
@@ -273,12 +284,13 @@ def _owned(lib: ctypes.CDLL, ptr: int, h: int, w: int) -> np.ndarray:
 
 
 def decode_batch(paths: Sequence[str], threads: Optional[int] = None,
-                 denom: int = 1) -> List[np.ndarray]:
+                 denom: int = 1, exif: bool = False) -> List[np.ndarray]:
     """JPEG files -> [uint8 [H, W, 3] RGB, ...], decoded at 1/``denom``
     scale (libjpeg's ``scale_denom``: 1, 2, 4 or 8; H = ceil(height /
     denom), W likewise) with one call on ``threads`` threads (default one
-    per file up to the CPU count).  Raises :class:`JpegError` naming the
-    first file that fails."""
+    per file up to the CPU count); with ``exif`` turned by each file's
+    EXIF orientation.  Raises :class:`JpegError` naming the first file
+    that fails."""
     lib = _lib_or_raise()
     _check_denom(denom)
     n = len(paths)
@@ -289,15 +301,16 @@ def decode_batch(paths: Sequence[str], threads: Optional[int] = None,
     ws, hs, codes = (np.zeros(n, np.int32) for _ in range(3))
     msgs = ctypes.create_string_buffer(n * MSG_LEN)
     threads = _threads(n) if threads is None else threads
-    lib.jpeg_decode_batch(c_paths, n, int(threads), int(denom), pixels,
-                          _i32(ws), _i32(hs), _i32(codes), msgs, MSG_LEN)
+    lib.jpeg_decode_batch(c_paths, n, int(threads), int(denom), int(exif),
+                          pixels, _i32(ws), _i32(hs), _i32(codes), msgs,
+                          MSG_LEN)
     out = [_owned(lib, p, int(h), int(w)) if p else None
            for p, w, h in zip(pixels, ws, hs)]
     _raise_first(paths, codes, msgs)
     return out
 
 
-def decode_one(path: str, denom: int = 1) -> np.ndarray:
-    """One JPEG file -> uint8 [H, W, 3] RGB at 1/``denom`` scale; raises
-    :class:`JpegError`."""
-    return decode_batch([path], threads=1, denom=denom)[0]
+def decode_one(path: str, denom: int = 1, exif: bool = False) -> np.ndarray:
+    """One JPEG file -> uint8 [H, W, 3] RGB at 1/``denom`` scale, turned
+    by its EXIF orientation with ``exif``; raises :class:`JpegError`."""
+    return decode_batch([path], threads=1, denom=denom, exif=exif)[0]

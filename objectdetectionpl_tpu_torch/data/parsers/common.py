@@ -1,10 +1,10 @@
 """Shared parser helpers (image IO, VOC-style XML): the port's copy of
 ``objectdetectionpl_tpu/data/parsers/common.py``.
 
-Images decode with the port's baseline JPEG decoder, which equals
-libjpeg-turbo's default decompression to RGB; EXIF orientation is not
-applied (as in the JAX package's fused libjpeg path and PIL; ``cv2.imread``
-rotates), and a file the decoder cannot read raises naming the path.
+Images decode with the port's JPEG decoder, which equals libjpeg-turbo's
+default decompression to RGB, and are turned by their EXIF orientation as
+``cv2.imread`` turns them (the JAX package's ``load_image_rgb``); a file
+the decoder cannot read raises naming the path.
 """
 
 from __future__ import annotations
@@ -20,8 +20,9 @@ from objectdetectionpl_tpu_torch.data.types import Example
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """uint8 RGB HWC, decoded by ``native.decode_one``."""
-    return native.decode_one(path)
+    """uint8 RGB HWC, decoded by ``native.decode_one`` and turned by the
+    file's EXIF orientation, as ``cv2.imread`` reads it."""
+    return native.decode_one(path, exif=True)
 
 
 def parse_voc_xml(xml_path: str, classes: Sequence[str],

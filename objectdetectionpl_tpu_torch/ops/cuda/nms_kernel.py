@@ -8,7 +8,10 @@ The counterpart of ``objectdetectionpl_tpu/ops/pallas/nms_kernel.py``
 :func:`greedy_nms` calls the custom op ``objdet::greedy_nms``
 (``torch.library``), whose CPU kernel is the plain version and whose CUDA
 kernel launches ``csrc/greedy_nms.cu`` or raises; ``LAUNCHES`` counts the
-launches, so a run can show that its path went through the kernel.  The
+launches, so a run can show that its path went through the kernel, and
+``TILED_LAUNCHES`` those of them that took the tiled kernel (K above
+``greedy_nms_max_k()``, 1024), whose device workspace the CUDA
+implementation allocates on the tensors' card.  The
 op's fake kernel gives the output shapes, so ``torch.export`` captures the
 op as one node of the serving graph (``utils/export.py``), and a program
 loaded from a ``.pt2`` file calls the same kernels once this module is
@@ -28,6 +31,7 @@ from objectdetectionpl_tpu_torch.ops.cuda import _build
 NEG_INF = -1e9
 
 LAUNCHES = 0          # kernel launches by greedy_nms since import (or reset)
+TILED_LAUNCHES = 0    # those of them at K > greedy_nms_max_k(): the tiled one
 
 
 @functools.lru_cache(maxsize=1)
@@ -36,10 +40,12 @@ def _lib() -> ctypes.CDLL:
     p = ctypes.c_void_p
     lib.greedy_nms_launch.argtypes = [
         p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, p, ctypes.c_int]
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, p, ctypes.c_int, p]
     lib.greedy_nms_launch.restype = ctypes.c_int
     lib.greedy_nms_max_k.argtypes = []
     lib.greedy_nms_max_k.restype = ctypes.c_int
+    lib.greedy_nms_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.greedy_nms_workspace_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -129,9 +135,11 @@ def greedy_nms(boxes, scores, labels, obj, nms_thresh: float = 0.4,
     """Batched greedy NMS; see :func:`greedy_nms_plain` for the contract.
 
     CPU tensors go to the plain version.  CUDA tensors must be contiguous,
-    boxes/scores/obj float32 and labels int32, with K at most the kernel's
-    limit (1024); the kernel runs on the current stream.  Either way
-    through the op ``objdet::greedy_nms``; other devices raise.
+    boxes/scores/obj float32 and labels int32; any K: up to 1024 one
+    kernel holds the image's relation in shared memory, above it the tiled
+    kernel takes the candidates 1024 at a time.  The kernel runs on the
+    current stream.  Either way through the op ``objdet::greedy_nms``;
+    other devices raise.
     """
     if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"greedy_nms: unsupported device {boxes.device}")
@@ -163,13 +171,14 @@ def _greedy_nms_cuda(boxes, scores, labels, obj, nms_thresh, class_aware,
     if boxes.data_ptr() % 16:
         raise ValueError("greedy_nms: boxes must be 16-byte aligned")
     lib = _lib()
-    if K > lib.greedy_nms_max_k():
-        raise ValueError(f"greedy_nms: K={K} exceeds the kernel's limit "
-                         f"{lib.greedy_nms_max_k()}")
     out = torch.empty_like(boxes)
     keep = torch.empty((B, K), dtype=torch.bool, device=dev)
     if B == 0 or K == 0:
         return out, keep
+    tiled = K > lib.greedy_nms_max_k()
+    # the tiled kernel's per-head sums, rows and group sizes
+    workspace = (torch.empty(lib.greedy_nms_workspace_bytes(B, K),
+                             dtype=torch.uint8, device=dev) if tiled else None)
     # the launch and its shared-memory attribute act on the current
     # device: make it the tensors' card
     with torch.cuda.device(dev):
@@ -178,11 +187,13 @@ def _greedy_nms_cuda(boxes, scores, labels, obj, nms_thresh, class_aware,
             obj.data_ptr(), out.data_ptr(), keep.data_ptr(), B, K,
             float(nms_thresh), int(class_aware), int(merge), float(plus1),
             torch.cuda.current_stream(dev).cuda_stream,
-            int(drop_lone_survivor))
+            int(drop_lone_survivor),
+            None if workspace is None else workspace.data_ptr())
     if err != 0:
         raise RuntimeError(f"greedy_nms kernel launch failed: cudaError {err}")
-    global LAUNCHES
+    global LAUNCHES, TILED_LAUNCHES
     LAUNCHES += 1
+    TILED_LAUNCHES += int(tiled)
     return out, keep
 
 

@@ -239,7 +239,7 @@ def probe_lib(source: Path) -> ctypes.CDLL:
     p = ctypes.c_void_p
     dll.greedy_nms_launch.argtypes = [
         p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, p, ctypes.c_int]
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, p, ctypes.c_int, p]
     dll.phase_clocks.argtypes = [p, ctypes.c_int]
     return dll
 
@@ -254,7 +254,7 @@ def phases(dll: ctypes.CDLL, args) -> dict:
     launch = lambda: dll.greedy_nms_launch(
         boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
         obj.data_ptr(), out.data_ptr(), keep.data_ptr(), B, K, 0.4, 1, 1,
-        1.0, torch.cuda.current_stream().cuda_stream, 0)
+        1.0, torch.cuda.current_stream().cuda_stream, 0, None)
     for _ in range(3):                         # warm: the last launch counts
         if launch():
             raise RuntimeError("probe launch failed")

@@ -8,8 +8,9 @@ Trainer's uint8 batch path, against cv2 and the JAX package.
   over eleven sizes down and up (640x480 -> 213 letterboxes to 213x160).
 - ``build_packed_cache`` against JAX's on the same trees: ``images.u8``
   byte for byte, ``targets.npz`` (boxes within 1e-6) and ``meta.json``
-  equal, letterbox off and on; a JPEG tree (the fused decode into the
-  memmap) and Synthetic (the library, and the numpy resize without it).
+  equal but for the port's ``"exif": true``, letterbox off and on; a JPEG
+  tree (the fused decode into the memmap) and Synthetic (the library, and
+  the numpy resize without it).
 - Cached Loader batches against JAX's cached Loader, through the
   DataModules with ``cache_dir`` (the same cache directories, the same
   shuffle seed, two epochs): bit for bit; the port's Loader also reads the
@@ -108,10 +109,13 @@ def voc_root(tmp_path_factory):
 
 
 def _assert_same_cache(got_dir, want_dir):
-    for name in ("images.u8", "meta.json"):
-        with open(os.path.join(got_dir, name), "rb") as g, \
-                open(os.path.join(want_dir, name), "rb") as w:
-            assert g.read() == w.read(), name
+    with open(os.path.join(got_dir, "images.u8"), "rb") as g, \
+            open(os.path.join(want_dir, "images.u8"), "rb") as w:
+        assert g.read() == w.read(), "images.u8"
+    # JAX's keys and values, and the port's mark of turned images
+    with open(os.path.join(got_dir, "meta.json")) as g, \
+            open(os.path.join(want_dir, "meta.json")) as w:
+        assert json.load(g) == {**json.load(w), "exif": True}
     got = np.load(os.path.join(got_dir, "targets.npz"))
     want = np.load(os.path.join(want_dir, "targets.npz"))
     assert sorted(got.files) == sorted(want.files) == ["boxes", "labels",

@@ -217,10 +217,12 @@ def test_decode_yolov5_matches_jax():
                                rtol=1e-6, atol=1e-5)
 
 
-@pytest.mark.parametrize("top_k", [64, 300])
+@pytest.mark.parametrize("top_k", [64, 300, 2048])
 def test_yolo_nms_matches_jax(top_k):
     """Decoded predictions -> yolo_nms on both sides, including a top-k cut
-    (252 rows per image, 64 candidates) and no cut (300 > 252)."""
+    (252 rows per image, 64 candidates) and no cut (300 and 2048 > 252:
+    both sides cap top_k at the rows; K > 1024 itself is held in
+    tests/test_torch_port_nms_wide.py)."""
     outs = _head_maps(seed=1)
     dec = np.array(jax_nms.decode_yolov5_predictions(
         [jnp.asarray(o) for o in outs], jax_anchors.YOLOV5_ANCHORS,
