@@ -60,7 +60,14 @@ exits non-zero:
    fresh interpreter that imports only ``utils.export`` loads both
    programs and runs each once: one launch a call, no model module
    imported, detections identical.  Then SSD-300 once (the divide path and
-   the class-agnostic NMS), loaded against its module.
+   the class-agnostic NMS), loaded against its module.  Then across
+   devices (``export_cross``): YOLOv5s-640 f32 exported on the CPU and
+   loaded on the card (``utils.export.load``'s default device), and the
+   B=1 bf16 program exported on the card loaded with ``device="cpu"``:
+   each against the eager chain on the device it runs on, ``valid``,
+   ``labels`` and ``scores`` identical and the largest box difference
+   stated (0 expected: the same operations on the same device); one NMS
+   launch on the card for the first, none for the second.
 5b. bench -- the port bench (``objectdetectionpl_tpu_torch/bench.py``,
    YOLOv5s-640, 10 classes, bf16, folded) at B=64 and B=256, dense and
    ``--prefilter`` alternated (D P P D) in this process, each printing its
@@ -166,11 +173,28 @@ exits non-zero:
    every decodable fixture (``data/testdata``, baseline and progressive)
    decoded and its RGB bytes' SHA-256 held against the committed libjpeg
    hash, the two 1280x720 frames (baseline, progressive) also at 1/2, 1/4
-   and 1/8; the CMYK fixture must raise naming its path; ``decode_batch``
+   and 1/8; the CMYK fixture must raise naming its path where libjpeg's
+   RGB output (the fused route) reads it, and decode where cv2.imread
+   (the parser route) does; ``decode_batch``
    over the fixtures x 32 at 1 thread and at the Loader's thread count: ms
    per image, MP/s, ``os.cpu_count()``; and each frame's ms per image at
    each scale and both thread counts (``tools/decode_bench.py``), timed on
    the host's CPU.
+10a'. formats -- the files a scraped tree holds
+   (``tools/format_files.py``: a baseline JPEG, CMYK, YCCK, arithmetic
+   sequential and progressive, a cut baseline JPEG, a cut progressive one
+   (block smoothing), a damaged JPEG, PNG RGB 8-bit,
+   grey 16-bit Adam7, 4-bit palette, a PNG named .jpg, BMP 24-bit and
+   RLE8): each decoded by ``native.decode_image`` (the port's
+   ``load_image_rgb``), its SHA-256 held against cv2's recorded in
+   ``data/testdata/formats/sha256.json``, with its host ms per image on
+   this machine's CPU (median of ``FORMATS_DECODE_REPS``) and whether the
+   fused route takes it; then ``formats_fit``: ``trainer_voc``'s fit on a
+   VOC tree whose train ids are the baseline JPEG and whose test ids are
+   the files of every kind, reporting the Loader's fused and parser
+   batches (both must occur) beside its warp and NMS launches; inside it
+   ``cli.predict.main`` on the run's checkpoint over one file of each kind:
+   one JSON line and one NMS launch per image.
 10b. trainer_voc -- ``cli.run.main`` with ``data_module`` VOC on a VOC2012
    tree written under ``build/`` (200 train and 64 val ids, each a hard
    link to the 500x375 4:2:0 fixture, VOC2012's typical size, 1-5 boxes
@@ -374,6 +398,7 @@ from objectdetectionpl_tpu_torch.ops.cuda import (_build, conv_kernel,
 from objectdetectionpl_tpu_torch.parallel import distributed, mesh
 from objectdetectionpl_tpu_torch.parallel.dryrun import (dryrun_multichip,
                                                          spawn)
+from objectdetectionpl_tpu_torch.tools import format_files
 from objectdetectionpl_tpu_torch.tools import (conv_bench, decode_bench,
                                                fixture_trees, kernel_ab)
 from objectdetectionpl_tpu_torch.tools.kernel_ab import (candidates,
@@ -545,6 +570,9 @@ TRAINER_COCO_SETS = {**REAL_SETS, "data_module": "COCO",
                      "model_name": "YOLOv5", "type": "Yolov5s",
                      "img_size": "640"}
 JPEG_REPEAT = 32          # decode_batch timing: the fixtures x 32
+FORMATS_DECODE_REPS = 10  # host decode timing of each format file: median
+# the formats fit: train ids the baseline JPEG, test ids every kind
+FORMATS_TREE = {"n_train": 160, "n_val": 32, "seed": 6}
 # trainer_bdd_ssd: SSD-300 on a BDD100K tree of the 1280x720 frames, half
 # baseline and half progressive, which the fused Loader decodes at 1/2
 BDD_TREE = {"n_train": 160, "n_val": 80, "seed": 3,
@@ -1323,7 +1351,67 @@ def phase_export(card: str) -> dict:
                   "pt2_mb": os.path.getsize(path) / 1e6,
                   "max_abs_box_err": err, "valid": int(got[4].sum()),
                   "launches": counts})
+        out["cross_launches"] = export_cross(
+            card, tmp, fn, os.path.join(tmp, "yolov5s_b1.pt2"), batches[1])
     return out
+
+
+def export_cross(card: str, tmp: str, fn, card_path: str, images) -> int:
+    """A program exported on the CPU served on the card, and one exported
+    on the card served on the CPU, each against the eager chain on its
+    device; returns the NMS launches of the first."""
+    model = build_model("YOLOv5", NUM_CLASSES, dtype=torch.float32,
+                        device="cpu", seed=0)
+    on_cpu = export_lib.build_inference_fn(
+        model, model.state_dict(), make_postprocess("YOLOv5", NUM_CLASSES,
+                                                    IMG))
+    del model
+    path = os.path.join(tmp, "yolov5s_f32_exported_on_cpu.pt2")
+    t0 = time.perf_counter()
+    export_lib.save(path, on_cpu, batch=1, img_size=IMG)
+    export_s = time.perf_counter() - t0
+    eager_card = on_cpu.to("cuda")
+    loaded = export_lib.load(path)             # the port's rule: the card
+    with torch.inference_mode():
+        want = eager_card(images)
+        torch.cuda.synchronize()
+        reset_launches()                       # main path starts here
+        got = loaded(images)
+        torch.cuda.synchronize()
+        counts = read_launches()               # main path ends here
+    if counts["greedy_nms"] != 1 or got[0].device.type != "cuda":
+        raise AssertionError(f"export cpu->cuda: {counts}, "
+                             f"{got[0].device}")
+    rows = [{"exported_on": "cpu", "loaded_on": "cuda", "dtype": "float32",
+             "export_s": export_s, "launches": counts,
+             "max_abs_box_err": same_detections("export cpu->cuda", got,
+                                                want),
+             "valid": int(got[4].sum())}]
+    eager_cpu = fn.to("cpu")
+    t0 = time.perf_counter()
+    loaded = export_lib.load(card_path, "cpu")
+    load_s = time.perf_counter() - t0
+    raw = images.cpu()
+    with torch.inference_mode():
+        want = eager_cpu(raw)
+        reset_launches()
+        got = loaded(raw)
+        torch.cuda.synchronize()
+        cpu_counts = read_launches()
+    fn.to("cuda")
+    if cpu_counts["greedy_nms"] != 0 or got[0].device.type != "cpu":
+        raise AssertionError(f"export cuda->cpu: {cpu_counts}, "
+                             f"{got[0].device}")
+    rows.append({"exported_on": "cuda", "loaded_on": "cpu",
+                 "dtype": "bfloat16", "load_s": load_s,
+                 "launches": cpu_counts,
+                 "max_abs_box_err": same_detections("export cuda->cpu", got,
+                                                    want),
+                 "valid": int(got[4].sum())})
+    for r in rows:
+        emit({"phase": "export_cross", "card": card, "model": "Yolov5s",
+              "img": IMG, "B": 1, **r})
+    return counts["greedy_nms"]
 
 
 def phase_bench(card: str) -> dict:
@@ -2801,7 +2889,8 @@ def recorded_tuner(tuner):
 def phase_jpeg_check(card: str) -> None:
     """Build the decoder with g++, hold every decodable fixture's decode
     (and the 1280x720 frames' at 1/2, 1/4 and 1/8) against its committed
-    libjpeg hash, check that the CMYK fixture raises naming its path, and
+    libjpeg hash, check that the CMYK fixture raises naming its path on
+    the fused (libjpeg RGB) route and decodes on cv2's, and
     time ``decode_batch`` on the fixtures x ``JPEG_REPEAT`` and on each
     frame at each scale, at 1 thread and at the Loader's thread count."""
     t0 = time.perf_counter()
@@ -2837,6 +2926,8 @@ def phase_jpeg_check(card: str) -> None:
             refused = str(e)
         else:
             raise AssertionError(f"{name} decoded; it must raise")
+        if native.decode_image(path).shape[2] != 3:
+            raise AssertionError(f"{name}: not read as cv2.imread reads it")
     paths = [str(fixture_trees.TESTDATA / n) for n in names] * JPEG_REPEAT
     pixels = sum(want[n]["shape"][0] * want[n]["shape"][1]
                  for n in names) * JPEG_REPEAT
@@ -2867,6 +2958,92 @@ def phase_jpeg_check(card: str) -> None:
           "images": len(paths), "megapixels": pixels / 1e6,
           "cpu_count": os.cpu_count(), "decode_batch": timing,
           "decode_one_ms": per_file, "frames_ms_per_image": frames})
+
+
+def phase_formats(card: str) -> dict:
+    """Every kind of ``tools/format_files.py`` decoded against cv2's
+    recorded hash and timed on the host; the fit on a VOC tree of them
+    (``FORMATS_TREE``) with its Loader's route counts, and ``cli.predict``
+    over one file of each kind inside it."""
+    want = json.loads(format_files.HASHES.read_text())
+    counted = {"fused": 0, "parser": 0}
+    fused = pipeline.Loader._fused
+
+    def counting(self, idx, out):
+        res = fused(self, idx, out)
+        counted["fused" if res is not None else "parser"] += 1
+        return res
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_formats_",
+                                     dir=REPO / "build") as tmp:
+        paths = format_files.write_format_files(tmp)
+        decode = {}
+        for kind, path in paths.items():
+            img = native.decode_image(path)
+            digest = hashlib.sha256(img.tobytes()).hexdigest()
+            if list(img.shape) != want[kind]["shape"] or \
+                    digest != want[kind]["sha256"]:
+                raise AssertionError(f"formats {kind}: decode differs from "
+                                     f"cv2's (shape {img.shape})")
+            times = []
+            for _ in range(FORMATS_DECODE_REPS):
+                t0 = time.perf_counter()
+                native.decode_image(path)
+                times.append((time.perf_counter() - t0) * 1e3)
+            code = native.decode_preproc_codes([path], 416, False,
+                                               max_denom=native.MAX_DENOM)[-1]
+            decode[kind] = {"shape": list(img.shape), "ms": _median(times),
+                            "fused_route": bool(code[0] == native.JPEG_OK)}
+        emit({"phase": "formats_decode", "card": card,
+              "cpu_count": os.cpu_count(), "decode": decode})
+        n_train = FORMATS_TREE["n_train"]
+        tree = {**FORMATS_TREE,
+                "files": [paths["jpeg"]] * n_train + list(paths.values())}
+        served = {}
+        pipeline.Loader._fused = counting
+        try:
+            fit = phase_trainer_real(card, "formats_fit", TRAINER_VOC_SETS,
+                                     tree, formats_predict(card, paths,
+                                                           served))
+        finally:
+            pipeline.Loader._fused = fused
+    if not counted["fused"] or not counted["parser"]:
+        raise AssertionError(f"formats_fit: the Loader's batches took one "
+                             f"route only: {counted}")
+    emit({"phase": "formats", "card": card, "kinds": len(paths),
+          "loader_batches": counted, "launches": fit["launches"],
+          "predict": served})
+    return {"fit": fit, "predict": served["launches"], "batches": counted}
+
+
+def formats_predict(card: str, paths: dict, out: dict):
+    """``after`` for ``formats_fit``: ``cli.predict.main`` on the run's
+    checkpoint over one file of each kind: one JSON line and one NMS
+    launch per image."""
+    def after(argv):
+        images = list(paths.values())
+        stdout = io.StringIO()
+        reset_launches()                       # main path starts here
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            records = cli_predict.main([*argv, "--images", *images])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_launches()               # main path ends here
+        lines = [json.loads(x) for x in stdout.getvalue().splitlines()
+                 if x.startswith("{")]
+        if lines != records or [r["image"] for r in records] != images:
+            raise AssertionError("formats predict: not one JSON line per "
+                                 "image")
+        if counts["greedy_nms"] != len(images):
+            raise AssertionError(f"formats predict: greedy_nms launched "
+                                 f"{counts['greedy_nms']} times for "
+                                 f"{len(images)} images")
+        out.update({"images": len(images), "wall_s": wall_s,
+                    "launches": counts,
+                    "detections": {k: len(r["labels"]) for k, r in
+                                   zip(paths, records)}})
+    return after
 
 
 EXIF_FIXTURE = "voc_420_q75_500x375.jpg"   # served turned by Orientation 6
@@ -3067,7 +3244,9 @@ def phase_trainer_real(card: str, name: str, sets: dict, tree: dict,
                                      dir=REPO / "build") as root:
         t0 = time.perf_counter()
         TREE_WRITERS[sets["data_module"]](root, **tree)
-        emit({"phase": name, "tree": tree, "root": "build/" +
+        emit({"phase": name, "tree": {k: len(v) if k == "files" else v
+                                      for k, v in tree.items()},
+              "root": "build/" +
               os.path.basename(root), "write_s": time.perf_counter() - t0})
         sets = {**sets, "data_root": root}
         if cache:
@@ -4288,6 +4467,7 @@ def main(argv=None) -> int:
     ddp = phase_ddp(card)
     tp = phase_tp(card)
     phase_jpeg_check(card)
+    formats = phase_formats(card)
     predicted = {}
     fit_voc = phase_trainer_real(card, "trainer_voc", TRAINER_VOC_SETS,
                                  VOC_TREE, predict_after(card, predicted))
@@ -4358,6 +4538,9 @@ def main(argv=None) -> int:
         "launches_trainer_bdd_ssd": fit_bdd["launches"]["greedy_nms"],
         "launches_predict_cli": predicted["launches"]["greedy_nms"],
         "launches_export": exported["launches"],
+        "launches_export_cross_device": exported["cross_launches"],
+        "launches_formats_fit": formats["fit"]["launches"]["greedy_nms"],
+        "launches_formats_predict": formats["predict"]["greedy_nms"],
         "launches_export_fresh_interpreter": exported["fresh_launches"],
         "launches_predict_export":
             predicted["export"]["launches"]["greedy_nms"],

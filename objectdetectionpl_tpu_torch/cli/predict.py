@@ -4,12 +4,13 @@ The port of ``objectdetectionpl_tpu/cli/predict.py``:
 
     python -m objectdetectionpl_tpu_torch.cli.predict configs/config.yaml \\
         --images a.jpg b.jpg [--out-dir preds/] [--set KEY VALUE]... \\
-        [--export model.pt2] [--device cpu]
+        [--export model.pt2 | --program model.pt2] [--device cpu]
 
 Builds the config's Trainer (its DataModule too, for the class names),
 restores the best checkpoint of its run directory, then serves each image
-on its own: decode (the port's JPEG decoder, turned by the file's EXIF
-orientation as ``cv2.imread`` turns it), resize to the model's img_size as
+on its own: read as ``cv2.imread`` reads it (``native.decode_image``:
+JPEG -- CMYK, cut and damaged files too -- PNG and BMP, picked by the
+file's first bytes and turned by its EXIF orientation), resize to the model's img_size as
 the JAX CLI does (cv2's uint8 INTER_LINEAR, then /255), ``predict_step``
 (the NMS kernel once per image).  Prints one JSON line per image (boxes
 xyxy in pixels of the resized input, scores, class names) and, with
@@ -20,8 +21,9 @@ panel before the next image is read, as the JAX CLI does.  Any
 (uint8 -> cast, /255 folded into YOLOv5's stem or divided -> forward ->
 decode -> NMS op) with the evaluation weights (EMA when on) at batch 1 and
 the model's img_size as a ``torch.export`` program (``utils/export.py``),
-and returns when no ``--images`` are given.  The program holds tensors on
-the Trainer's device and runs there (``utils.export.load``).
+and returns when no ``--images`` are given.  ``--program PATH`` serves
+the images through a saved program instead of the checkpoint, moved to
+``--device`` by ``utils.export.load`` whatever device it was exported on.
 """
 
 from __future__ import annotations
@@ -45,31 +47,44 @@ from objectdetectionpl_tpu_torch.utils import export as export_lib
 from objectdetectionpl_tpu_torch.utils import viz
 
 
+def resize_u8(img: np.ndarray, size: int) -> np.ndarray:
+    """uint8 [H, W, 3] -> uint8 [1, S, S, 3]: cv2's uint8 INTER_LINEAR to
+    S x S (the host library's uint8 resize, else
+    ``pipeline.numpy_preproc_u8``)."""
+    return (native.preproc_batch([img], size, False, u8=True)
+            or numpy_preproc_u8([img], size, False))[0]
+
+
 def resize_input(img: np.ndarray, size: int) -> np.ndarray:
     """uint8 [H, W, 3] -> float32 [1, S, S, 3] in [0, 1], the JAX CLI's
-    input bit for bit: cv2's uint8 INTER_LINEAR to S x S (the host
-    library's uint8 resize, else ``pipeline.numpy_preproc_u8``), then /255
-    in float32."""
-    u8 = (native.preproc_batch([img], size, False, u8=True)
-          or numpy_preproc_u8([img], size, False))[0]
-    return u8.astype(np.float32) / np.float32(255.0)
+    input bit for bit: :func:`resize_u8`, then /255 in float32."""
+    return resize_u8(img, size).astype(np.float32) / np.float32(255.0)
 
 
 def predict_images(trainer: Trainer, paths: Sequence[str],
-                   on_image: Optional[Callable] = None) -> List[Dict]:
+                   on_image: Optional[Callable] = None,
+                   program: Optional[Callable] = None) -> List[Dict]:
     """One ``predict_step`` per image -> the JSON records of the JAX CLI:
     ``image``, ``boxes_xyxy`` (rounded to 2 decimals), ``scores`` (4) and
-    ``labels`` (class names).  With ``on_image``, ``on_image(record,
-    panel)`` runs after each image, before the next is read; ``panel()``
-    draws the input with its boxes (uint8)."""
+    ``labels`` (class names).  With ``program`` (a loaded ``.pt2``,
+    ``utils.export.load``) each image's uint8 input goes through it
+    instead.  With ``on_image``, ``on_image(record, panel)`` runs after
+    each image, before the next is read; ``panel()`` draws the input with
+    its boxes (uint8)."""
     trainer.model.eval()
     out = []
     for path in paths:
-        x = resize_input(load_image_rgb(path), trainer.img_size)
-        res = trainer.predict_step(
-            trainer.state, torch.from_numpy(x).to(trainer.device))
-        boxes, scores, labels, valid = (a[0] for a in _to_host(
-            (res.boxes, res.scores, res.labels, res.valid)))
+        u8 = resize_u8(load_image_rgb(path), trainer.img_size)
+        x = u8.astype(np.float32) / np.float32(255.0)
+        if program is None:
+            res = trainer.predict_step(
+                trainer.state, torch.from_numpy(x).to(trainer.device))
+            res = (res.boxes, res.scores, res.labels, res.valid)
+        else:
+            boxes, _, scores, labels, valid = program(
+                torch.from_numpy(u8).to(trainer.device))
+            res = (boxes, scores, labels, valid)
+        boxes, scores, labels, valid = (a[0] for a in _to_host(res))
         out.append({
             "image": path,
             "boxes_xyxy": boxes[valid].round(2).tolist(),
@@ -102,6 +117,9 @@ def parse_args(argv=None):
                    help="write <stem>_pred.png panels here")
     p.add_argument("--export", default=None,
                    help="write the serving program (.pt2) to this path")
+    p.add_argument("--program", default=None,
+                   help="serve the images through this saved .pt2 "
+                        "(exported on any device) instead of the checkpoint")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda, which must exist)")
     return p.parse_args(argv)
@@ -122,6 +140,9 @@ def main(argv=None) -> List[Dict]:
 
     trainer = Trainer(cfg, device=args.device)
     try:
+        if args.program:
+            program = export_lib.load(args.program, trainer.device)
+            return predict_images(trainer, args.images, on_image, program)
         trainer.maybe_restore()
         if args.export:
             export_serving(trainer, args.export)

@@ -14,12 +14,24 @@
 // Supported: SOF0/SOF1 (sequential, one scan or several, interleaved or
 // not) and SOF2 (progressive Huffman: DC first and refine scans,
 // interleaved or not, AC first and refine scans with EOB runs, libjpeg's
-// jdphuff.c) with 8-bit samples, 1 or 3 components, sampling factors 1..4,
-// DQT (8- and 16-bit), DHT and DRI between scans, restart markers.
-// Everything else (lossless, hierarchical, arithmetic coding, 12-bit
-// samples, 4 components, data that ends before the last MCU, a progressive
-// file whose scans leave coefficient bits unsent, which libjpeg would
-// smooth) is an error naming the marker or the reason.
+// jdphuff.c), and their arithmetic-coded twins SOF9/SOF10 with DAC
+// (jdarith.c), with 8-bit samples, 1, 3 or 4 components, sampling factors
+// 1..4, DQT (8- and 16-bit), DHT and DRI between scans, restart markers.
+// 4 components (CMYK, or YCCK under an Adobe transform other than 0)
+// decode as cv2.imread decodes them (READ_IMREAD: libjpeg's CMYK output,
+// then cv2's CMYK -> BGR); without that flag they fail, as libjpeg's RGB
+// output refuses them.  Damaged data decode as libjpeg-turbo decodes them:
+// zero bits past a marker or the end of the file (its source manager
+// answers with FF D9) and the rest of the restart interval left zero,
+// symbol 0 for a bad Huffman code, jpeg_resync_to_restart's actions on a
+// missing or wrong RSTn, and the IDCTs in the 16-bit lanes of its SIMD
+// code.  A progressive file whose scans leave bits of coefficients 1..9
+// unsent (cut, or an unfinished scan script) is smoothed as jdcoefct.c
+// smooths it: libjpeg-turbo 3's neighbour rows and columns with
+// READ_IMREAD (cv2's), 2.1's without (the system library of the JAX
+// package's fused loader).  Errors naming the marker or the reason:
+// lossless and hierarchical files, 12-bit samples (refused by cv2's and
+// the system's 8-bit libjpeg too) and a file cut before its first scan.
 //
 // EXIF orientation: the decoder reads the Orientation tag (0x0112) of IFD0
 // from the APP1 "Exif\0\0" segments before the first scan, as OpenCV's
@@ -49,6 +61,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <functional>
 #include <new>
 #include <string>
 #include <thread>
@@ -88,6 +101,7 @@ const int kNatural[64 + 16] = {
 // Huffman tables (T.81 Annex C, decoded as in F.2.2.3)
 
 constexpr int kLookBits = 9;
+constexpr size_t kEofPad = 65540;    // FF D9 pairs after a file's last byte
 
 struct HuffTable {
   bool defined = false;
@@ -146,61 +160,48 @@ void build_huffman(HuffTable* t, const uint8_t bits[17], const uint8_t* vals,
 
 // ---------------------------------------------------------------------------
 // Entropy-coded data: 0xFF00 stuffing, fill bytes, markers.  Past a marker
-// (or the end of the file) the buffer fills with zero bits; consuming any of
-// them means the data ended early, which is an error.
+// (or the end of the file, which libjpeg's source manager turns into an EOI
+// marker) the data are zero bits, as libjpeg supplies them: a scan whose
+// data end early decodes on (jdhuff.c's insufficient_data, below).
 
-class BitReader {
+class Source {
  public:
-  BitReader(const uint8_t* p, const uint8_t* end) : p_(p), end_(end) {}
+  Source(const uint8_t* p, const uint8_t* end) : p_(p), end_(end) {}
 
-  uint32_t peek(int n) {
-    if (bits_ < n) fill();
-    return static_cast<uint32_t>(buf_ >> (bits_ - n)) & ((1u << n) - 1);
-  }
-
-  void skip(int n) {
-    if (bits_ < n) fill();
-    if (n > bits_ - fake_) fail(JPEG_CORRUPT, "data ends before the image "
-                                              "does (truncated file)");
-    bits_ -= n;
-  }
-
-  uint32_t get(int n) {
-    if (n == 0) return 0;
-    uint32_t v = peek(n);
-    skip(n);
-    return v;
-  }
-
-  int decode(const HuffTable& t) {
-    uint32_t look = peek(kLookBits);
-    int e = t.look[look];
-    if (e) {
-      skip(e >> 8);
-      return e & 0xFF;
-    }
-    int l = kLookBits + 1;
-    int32_t code = static_cast<int32_t>(peek(l));
-    while (code > t.maxcode[l]) {
-      if (++l > 16) fail(JPEG_CORRUPT, "corrupt Huffman code");
-      code = static_cast<int32_t>(peek(l));
-    }
-    skip(l);
-    return t.vals[(code + t.valoffset[l]) & 0xFF];
-  }
-
-  // At a restart interval's end: drop the padding bits, then read the RSTn
-  // marker, which must be `expected`.
-  void restart(int expected) {
-    buf_ = 0;
-    bits_ = fake_ = 0;
+  // At a restart interval's end: libjpeg's read_restart_marker.  The marker
+  // after the data read so far should be RSTn, n = `desired`; any other
+  // goes to jpeg_resync_to_restart's default recovery: a marker below
+  // SOF0 is skipped (scan on to the next one), RST(desired-1 or -2) is
+  // skipped too, RST(desired+1 or +2) and every other valid marker stay
+  // unread (the interval decodes as empty: zero bits), and anything else
+  // (another RSTn) is taken as the restart.
+  void read_restart_marker(int desired) {
     if (marker_ < 0) find_marker();
-    if (marker_ != 0xD0 + expected)
-      fail(JPEG_CORRUPT, "expected restart marker " +
-                             hex_marker(0xD0 + expected) + ", found " +
-                             (marker_ > 0xFF ? std::string("the end of the file")
-                                             : hex_marker(marker_)));
-    marker_ = -1;
+    if (marker_ == 0xD0 + desired) {
+      marker_ = -1;
+      return;
+    }
+    for (;;) {
+      const int m = marker_ > 0xFF ? 0xD9 : marker_;   // end of file: EOI
+      auto rst = [&](int k) { return m == 0xD0 + ((desired + k) & 7); };
+      int action;
+      if (m < 0xC0)
+        action = 2;
+      else if (m < 0xD0 || m > 0xD7)
+        action = 3;
+      else if (rst(1) || rst(2))
+        action = 3;
+      else if (rst(-1) || rst(-2))
+        action = 2;
+      else
+        action = 1;
+      if (action == 1) {
+        marker_ = -1;
+        return;
+      }
+      if (action == 3) return;
+      find_marker();
+    }
   }
 
   // At the scan's end: where the marker after its data begins (its 0xFF),
@@ -211,8 +212,9 @@ class BitReader {
     return marker_ > 0xFF ? end_ : p_ - 2;
   }
 
- private:
-  // The next marker past the data read so far (0x100: none before the end)
+ protected:
+  // The next marker past the data read so far (0x100: none before the end),
+  // libjpeg's next_marker
   void find_marker() {
     marker_ = 0x100;
     while (p_ < end_) {
@@ -225,40 +227,196 @@ class BitReader {
     }
   }
 
-  void fill() {
-    while (bits_ <= 56) {
-      uint32_t c = 0;
-      if (marker_ >= 0 || p_ >= end_) {
-        if (marker_ < 0) marker_ = 0x100;   // end of file: no marker
-        fake_ += 8;
-      } else {
-        c = *p_++;
-        if (c == 0xFF) {
-          while (p_ < end_ && *p_ == 0xFF) ++p_;   // fill bytes
-          if (p_ >= end_) {
-            marker_ = 0x100;
-            c = 0;
-            fake_ += 8;
-          } else if (*p_ == 0) {
-            ++p_;                                  // stuffed 0xFF data byte
-          } else {
-            marker_ = *p_++;
-            c = 0;
-            fake_ += 8;
-          }
-        }
-      }
-      buf_ = (buf_ << 8) | c;
-      bits_ += 8;
+  // The next data byte, 0 once a marker (or the end) has been met: a
+  // stuffed 0xFF00 is 0xFF, fill bytes before a marker are dropped.
+  int data_byte() {
+    if (marker_ >= 0) return 0;
+    if (p_ >= end_) {
+      marker_ = 0x100;
+      return 0;
     }
+    int c = *p_++;
+    if (c != 0xFF) return c;
+    while (p_ < end_ && *p_ == 0xFF) ++p_;
+    if (p_ >= end_) {
+      marker_ = 0x100;
+      return 0;
+    }
+    if (*p_ == 0) {
+      ++p_;
+      return 0xFF;
+    }
+    marker_ = *p_++;
+    return 0;
   }
 
   const uint8_t* p_;
   const uint8_t* end_;
+  int marker_ = -1;   // the marker that ended the data, 0x100 for EOF
+};
+
+// Huffman-coded data, read as jdhuff.c reads it: the bit buffer holds up to
+// 64 bits and takes bytes while it has 56 or fewer.  Consuming a bit past
+// the data sets insufficient(): libjpeg then leaves the rest of the
+// interval's MCUs zero.
+class BitReader : public Source {
+ public:
+  using Source::Source;
+
+  uint32_t peek(int n) {
+    if (bits_ < n) fill();
+    return static_cast<uint32_t>(buf_ >> (bits_ - n)) & ((1u << n) - 1);
+  }
+
+  void skip(int n) {
+    if (bits_ < n) fill();
+    if (n > bits_ - fake_) insufficient_ = true;
+    bits_ -= n;
+    fake_ = std::min(fake_, bits_);
+  }
+
+  uint32_t get(int n) {
+    if (n == 0) return 0;
+    uint32_t v = peek(n);
+    skip(n);
+    return v;
+  }
+
+  // A symbol; a code that no table entry matches takes 17 bits and gives
+  // symbol 0, as jdhuff.c's jpeg_huff_decode (a warning there).
+  int decode(const HuffTable& t) {
+    uint32_t look = peek(kLookBits);
+    int e = t.look[look];
+    if (e) {
+      skip(e >> 8);
+      return e & 0xFF;
+    }
+    int l = kLookBits + 1;
+    int32_t code = static_cast<int32_t>(peek(l));
+    while (l <= 16 && code > t.maxcode[l]) code = static_cast<int32_t>(peek(++l));
+    skip(l);
+    return l > 16 ? 0 : t.vals[(code + t.valoffset[l]) & 0xFF];
+  }
+
+  // jdhuff.c's process_restart: drop the bits left, read the marker, and
+  // decode on unless the marker stays unread.
+  void restart(int desired) {
+    buf_ = 0;
+    bits_ = fake_ = 0;
+    read_restart_marker(desired);
+    if (marker_ < 0) insufficient_ = false;
+  }
+
+  bool stopped() const { return insufficient_; }
+  bool insufficient() const { return insufficient_; }
+
+ private:
+  void fill() {
+    while (bits_ <= 56) {
+      const bool real = marker_ < 0 && p_ < end_;
+      const int c = data_byte();
+      if (!real || marker_ >= 0) fake_ += 8;
+      buf_ = (buf_ << 8) | static_cast<uint32_t>(c);
+      bits_ += 8;
+    }
+  }
+
   uint64_t buf_ = 0;
   int bits_ = 0;
   int fake_ = 0;      // zero bits past the data, at the low end of buf_
-  int marker_ = -1;   // the marker that ended the data, 0x100 for EOF
+  bool insufficient_ = false;
+};
+
+// Arithmetic-coded data: T.81 Annex D's QM decoder as libjpeg's jdarith.c
+// runs it (arith_decode), with jaricom.c's Qe table: entry = Qe << 16 |
+// Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the
+// fixed probability 0.5 bin.  Past a marker the data are zero bytes.
+const uint32_t kAriTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+class ArithReader : public Source {
+ public:
+  using Source::Source;
+
+  // A new interval: C and A cleared, two bytes to read first
+  void reset() {
+    c_ = a_ = 0;
+    ct_ = -16;
+  }
+
+  // jdarith.c's process_restart for the reader's part
+  void restart(int desired) {
+    read_restart_marker(desired);
+    reset();
+  }
+
+  // jdarith.c marks bad data (a spectral or magnitude overflow) with ct =
+  // -1; the rest of the interval is then left alone.
+  bool failed() const { return ct_ == -1; }
+  bool stopped() const { return failed(); }
+  bool insufficient() const { return false; }   // jdarith.c never sets it
+  void set_failed() { ct_ = -1; }
+
+  // One binary decision with the statistics bin *st (arith_decode)
+  int decode(uint8_t* st) {
+    while (a_ < 0x8000) {
+      if (--ct_ < 0) {
+        c_ = (c_ << 8) | data_byte();
+        if ((ct_ += 8) < 0 && ++ct_ == 0) a_ = 0x8000;
+      }
+      a_ <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a_ - qe;
+    a_ = temp;
+    temp <<= ct_;
+    if (c_ >= temp) {
+      c_ -= temp;
+      if (a_ < qe) {
+        a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a_ < 0x8000) {
+      if (a_ < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+ private:
+  int64_t c_ = 0, a_ = 0;
+  int ct_ = -16;
 };
 
 inline int extend(uint32_t v, int s) {
@@ -319,129 +477,126 @@ inline uint8_t range_limit(int64_t x) {
   return kRange.idct[static_cast<int>(x) & 1023];
 }
 
+// libjpeg-turbo's SIMD ISLOW IDCT (jidctint-avx2.asm, the SSE2 one alike),
+// which cv2's and the system's libjpeg-turbo run on x86: the C arithmetic
+// of jidctint.c in 16-bit lanes.  On every intact file the two agree; on
+// damaged data, whose coefficients can be huge, the lanes wrap and
+// saturate where C's ints do not, and this follows the lanes: the
+// dequantized coefficient and the sums in0 +- in4, in7 + in3, in5 + in1
+// wrap to 16 bits, the products' sums to 32, each pass's output saturates
+// to 16 bits, the last to 8 around the centre.  A block whose rows 1..7 are
+// all zero takes the shortcut (row 0 dequantized << 2, wrapping).
+inline int32_t wrap32(int64_t x) {
+  return static_cast<int32_t>(static_cast<uint32_t>(x));
+}
+inline int16_t wrap16(int32_t x) {
+  return static_cast<int16_t>(static_cast<uint16_t>(x));
+}
+inline int16_t sat16(int32_t x) {
+  return static_cast<int16_t>(std::min(std::max(x, -32768), 32767));
+}
+
+// One 8-point pass over x[0], x[s], .. x[7s] into o[0], o[os], .., each
+// descaled by n and saturated to 16 bits.
+void islow_lanes(const int16_t* x, int s, int n, int16_t* o, int os) {
+  const int64_t x0 = x[0], x1 = x[s], x2 = x[2 * s], x3 = x[3 * s],
+                x4 = x[4 * s], x5 = x[5 * s], x6 = x[6 * s], x7 = x[7 * s];
+  const int32_t tmp3 = wrap32(x2 * (F_0_541196100 + F_0_765366865) +
+                              x6 * F_0_541196100);
+  const int32_t tmp2 = wrap32(x2 * F_0_541196100 +
+                              x6 * (F_0_541196100 - F_1_847759065));
+  const int32_t tmp0 = wrap16(static_cast<int32_t>(x0 + x4)) * (1 << kConstBits);
+  const int32_t tmp1 = wrap16(static_cast<int32_t>(x0 - x4)) * (1 << kConstBits);
+  const int32_t tmp10 = wrap32(int64_t{tmp0} + tmp3);
+  const int32_t tmp13 = wrap32(int64_t{tmp0} - tmp3);
+  const int32_t tmp11 = wrap32(int64_t{tmp1} + tmp2);
+  const int32_t tmp12 = wrap32(int64_t{tmp1} - tmp2);
+  const int64_t z3 = wrap16(static_cast<int32_t>(x7 + x3));
+  const int64_t z4 = wrap16(static_cast<int32_t>(x5 + x1));
+  const int32_t z3p = wrap32(z3 * (F_1_175875602 - F_1_961570560) +
+                             z4 * F_1_175875602);
+  const int32_t z4p = wrap32(z3 * F_1_175875602 +
+                             z4 * (F_1_175875602 - F_0_390180644));
+  const int32_t o0 = wrap32(wrap32(x7 * (F_0_298631336 - F_0_899976223) +
+                                   x1 * -F_0_899976223) + int64_t{z3p});
+  const int32_t o1 = wrap32(wrap32(x5 * (F_2_053119869 - F_2_562915447) +
+                                   x3 * -F_2_562915447) + int64_t{z4p});
+  const int32_t o2 = wrap32(wrap32(x5 * -F_2_562915447 +
+                                   x3 * (F_3_072711026 - F_2_562915447)) +
+                            int64_t{z3p});
+  const int32_t o3 = wrap32(wrap32(x7 * -F_0_899976223 +
+                                   x1 * (F_1_501321110 - F_0_899976223)) +
+                            int64_t{z4p});
+  auto out = [&](int64_t v) {
+    return sat16(wrap32(wrap32(v) + (int64_t{1} << (n - 1))) >> n);
+  };
+  o[0] = out(int64_t{tmp10} + o3);
+  o[7 * os] = out(int64_t{tmp10} - o3);
+  o[1 * os] = out(int64_t{tmp11} + o2);
+  o[6 * os] = out(int64_t{tmp11} - o2);
+  o[2 * os] = out(int64_t{tmp12} + o1);
+  o[5 * os] = out(int64_t{tmp12} - o1);
+  o[3 * os] = out(int64_t{tmp13} + o0);
+  o[4 * os] = out(int64_t{tmp13} - o0);
+}
+
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
                 int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* col = in + c;
-    const uint16_t* qc = q + c;
-    if (!col[8] && !col[16] && !col[24] && !col[32] && !col[40] &&
-        !col[48] && !col[56]) {
-      int dc = static_cast<int>(col[0]) * static_cast<int>(qc[0])
-               * (1 << kPass1Bits);
-      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
-      continue;
-    }
-    int64_t z2 = static_cast<int64_t>(col[16]) * qc[16];
-    int64_t z3 = static_cast<int64_t>(col[48]) * qc[48];
-    int64_t z1 = (z2 + z3) * F_0_541196100;
-    int64_t tmp2 = z1 + z3 * -F_1_847759065;
-    int64_t tmp3 = z1 + z2 * F_0_765366865;
-    z2 = static_cast<int64_t>(col[0]) * qc[0];
-    z3 = static_cast<int64_t>(col[32]) * qc[32];
-    int64_t tmp0 = (z2 + z3) * (int64_t{1} << kConstBits);
-    int64_t tmp1 = (z2 - z3) * (int64_t{1} << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = static_cast<int64_t>(col[56]) * qc[56];
-    tmp1 = static_cast<int64_t>(col[40]) * qc[40];
-    tmp2 = static_cast<int64_t>(col[24]) * qc[24];
-    tmp3 = static_cast<int64_t>(col[8]) * qc[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F_1_175875602;
-    tmp0 *= F_0_298631336;
-    tmp1 *= F_2_053119869;
-    tmp2 *= F_3_072711026;
-    tmp3 *= F_1_501321110;
-    z1 *= -F_0_899976223;
-    z2 *= -F_2_562915447;
-    z3 *= -F_1_961570560;
-    z4 *= -F_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    constexpr int n = kConstBits - kPass1Bits;
-    ws[0 * 8 + c] = static_cast<int>(descale(tmp10 + tmp3, n));
-    ws[7 * 8 + c] = static_cast<int>(descale(tmp10 - tmp3, n));
-    ws[1 * 8 + c] = static_cast<int>(descale(tmp11 + tmp2, n));
-    ws[6 * 8 + c] = static_cast<int>(descale(tmp11 - tmp2, n));
-    ws[2 * 8 + c] = static_cast<int>(descale(tmp12 + tmp1, n));
-    ws[5 * 8 + c] = static_cast<int>(descale(tmp12 - tmp1, n));
-    ws[3 * 8 + c] = static_cast<int>(descale(tmp13 + tmp0, n));
-    ws[4 * 8 + c] = static_cast<int>(descale(tmp13 - tmp0, n));
+  int16_t d[64], ws[64];
+  bool ac = false;
+  for (int i = 0; i < 64; ++i) {
+    d[i] = wrap16(static_cast<int32_t>(in[i]) * q[i]);
+    ac |= i >= 8 && in[i] != 0;
   }
-  constexpr int n2 = kConstBits + kPass1Bits + 3;
+  if (!ac) {
+    for (int c = 0; c < 8; ++c) {
+      const int16_t v = wrap16(d[c] * (1 << kPass1Bits));
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = v;
+    }
+  } else {
+    for (int c = 0; c < 8; ++c)
+      islow_lanes(d + c, 8, kConstBits - kPass1Bits, ws + c, 8);
+  }
   for (int r = 0; r < 8; ++r) {
-    const int* w = ws + r * 8;
+    int16_t row[8];
+    islow_lanes(ws + r * 8, 1, kConstBits + kPass1Bits + 3, row, 1);
     uint8_t* o = out + r * stride;
-    if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      std::memset(o, range_limit(descale(w[0], kPass1Bits + 3)), 8);
-      continue;
-    }
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * F_0_541196100;
-    int64_t tmp2 = z1 + z3 * -F_1_847759065;
-    int64_t tmp3 = z1 + z2 * F_0_765366865;
-    int64_t tmp0 = (int64_t{w[0]} + w[4]) * (int64_t{1} << kConstBits);
-    int64_t tmp1 = (int64_t{w[0]} - w[4]) * (int64_t{1} << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F_1_175875602;
-    tmp0 *= F_0_298631336;
-    tmp1 *= F_2_053119869;
-    tmp2 *= F_3_072711026;
-    tmp3 *= F_1_501321110;
-    z1 *= -F_0_899976223;
-    z2 *= -F_2_562915447;
-    z3 *= -F_1_961570560;
-    z4 *= -F_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    o[0] = range_limit(descale(tmp10 + tmp3, n2));
-    o[7] = range_limit(descale(tmp10 - tmp3, n2));
-    o[1] = range_limit(descale(tmp11 + tmp2, n2));
-    o[6] = range_limit(descale(tmp11 - tmp2, n2));
-    o[2] = range_limit(descale(tmp12 + tmp1, n2));
-    o[5] = range_limit(descale(tmp12 - tmp1, n2));
-    o[3] = range_limit(descale(tmp13 + tmp0, n2));
-    o[4] = range_limit(descale(tmp13 - tmp0, n2));
+    for (int c = 0; c < 8; ++c)
+      o[c] = static_cast<uint8_t>(std::min(std::max<int>(row[c], -128), 127) +
+                                  128);
   }
+}
+
+// libjpeg-turbo's SIMD reduced IDCTs (jidctred-sse2.asm): jidctred.c's
+// jpeg_idct_4x4 and jpeg_idct_2x2 arithmetic in 16-bit lanes, as for the
+// ISLOW IDCT above: the dequantized coefficients wrap to 16 bits, pass 1's
+// output saturates to 16 bits, pass 2's to 8 around the centre, and a
+// block whose odd rows (4x4: and row 2 and 6) are all zero takes the
+// shortcut, row 0 dequantized << 2.
+inline uint8_t sat8(int32_t x) {
+  return static_cast<uint8_t>(std::min(std::max<int32_t>(sat16(x), -128), 127)
+                              + 128);
 }
 
 // jidctred.c's jpeg_idct_4x4: the 4-point IDCT of the even-numbered and
 // odd coefficients, row and column 4 left out.
 void idct_4x4(const int16_t* in, const uint16_t* q, uint8_t* out,
               int stride) {
-  int ws[8 * 4];
+  int16_t d[64], ws[8 * 4];
+  bool ac = false;
+  for (int i = 0; i < 64; ++i) {
+    d[i] = wrap16(static_cast<int32_t>(in[i]) * q[i]);
+    ac |= i >= 8 && (i < 32 || i >= 40) && in[i] != 0;
+  }
   for (int c = 0; c < 8; ++c) {
     if (c == 4) continue;           // the second pass does not use it
-    const int16_t* col = in + c;
-    const uint16_t* qc = q + c;
-    auto dq = [&](int r) { return static_cast<int64_t>(col[8 * r]) * qc[8 * r]; };
-    if (!col[8] && !col[16] && !col[24] && !col[40] && !col[48] &&
-        !col[56]) {
-      const int dc = static_cast<int>(dq(0) * (1 << kPass1Bits));
+    const int16_t* col = d + c;
+    if (!ac) {
+      const int16_t dc = wrap16(col[0] * (1 << kPass1Bits));
       for (int r = 0; r < 4; ++r) ws[r * 8 + c] = dc;
       continue;
     }
+    auto dq = [&](int r) { return static_cast<int64_t>(col[8 * r]); };
     int64_t tmp0 = dq(0) * (int64_t{1} << (kConstBits + 1));
     int64_t tmp2 = dq(2) * F_1_847759065 + dq(6) * -F_0_765366865;
     const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
@@ -451,19 +606,15 @@ void idct_4x4(const int16_t* in, const uint16_t* q, uint8_t* out,
     tmp2 = z1 * -F_0_509795579 + z2 * -F_0_601344887 + z3 * F_0_899976223 +
            z4 * F_2_562915447;
     constexpr int n = kConstBits - kPass1Bits + 1;
-    ws[0 * 8 + c] = static_cast<int>(descale(tmp10 + tmp2, n));
-    ws[3 * 8 + c] = static_cast<int>(descale(tmp10 - tmp2, n));
-    ws[1 * 8 + c] = static_cast<int>(descale(tmp12 + tmp0, n));
-    ws[2 * 8 + c] = static_cast<int>(descale(tmp12 - tmp0, n));
+    ws[0 * 8 + c] = sat16(wrap32(descale(wrap32(tmp10 + tmp2), n)));
+    ws[3 * 8 + c] = sat16(wrap32(descale(wrap32(tmp10 - tmp2), n)));
+    ws[1 * 8 + c] = sat16(wrap32(descale(wrap32(tmp12 + tmp0), n)));
+    ws[2 * 8 + c] = sat16(wrap32(descale(wrap32(tmp12 - tmp0), n)));
   }
   constexpr int n2 = kConstBits + kPass1Bits + 3 + 1;
   for (int r = 0; r < 4; ++r) {
-    const int* w = ws + r * 8;
+    const int16_t* w = ws + r * 8;
     uint8_t* o = out + r * stride;
-    if (!w[1] && !w[2] && !w[3] && !w[5] && !w[6] && !w[7]) {
-      std::memset(o, range_limit(descale(w[0], kPass1Bits + 3)), 4);
-      continue;
-    }
     int64_t tmp0 = int64_t{w[0]} * (int64_t{1} << (kConstBits + 1));
     int64_t tmp2 = w[2] * F_1_847759065 + w[6] * -F_0_765366865;
     const int64_t tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
@@ -472,47 +623,46 @@ void idct_4x4(const int16_t* in, const uint16_t* q, uint8_t* out,
            z4 * F_1_061594337;
     tmp2 = z1 * -F_0_509795579 + z2 * -F_0_601344887 + z3 * F_0_899976223 +
            z4 * F_2_562915447;
-    o[0] = range_limit(descale(tmp10 + tmp2, n2));
-    o[3] = range_limit(descale(tmp10 - tmp2, n2));
-    o[1] = range_limit(descale(tmp12 + tmp0, n2));
-    o[2] = range_limit(descale(tmp12 - tmp0, n2));
+    o[0] = sat8(wrap32(descale(wrap32(tmp10 + tmp2), n2)));
+    o[3] = sat8(wrap32(descale(wrap32(tmp10 - tmp2), n2)));
+    o[1] = sat8(wrap32(descale(wrap32(tmp12 + tmp0), n2)));
+    o[2] = sat8(wrap32(descale(wrap32(tmp12 - tmp0), n2)));
   }
 }
 
 // jidctred.c's jpeg_idct_2x2: the DC and the odd coefficients only.
 void idct_2x2(const int16_t* in, const uint16_t* q, uint8_t* out,
               int stride) {
-  int ws[8 * 2];
+  int16_t d[64], ws[8 * 2];
+  bool ac = false;
+  for (int i = 0; i < 64; ++i) {
+    d[i] = wrap16(static_cast<int32_t>(in[i]) * q[i]);
+    ac |= ((i >> 3) & 1) && in[i] != 0;
+  }
   for (int c = 0; c < 8; ++c) {
     if (c == 2 || c == 4 || c == 6) continue;
-    const int16_t* col = in + c;
-    const uint16_t* qc = q + c;
-    auto dq = [&](int r) { return static_cast<int64_t>(col[8 * r]) * qc[8 * r]; };
-    if (!col[8] && !col[24] && !col[40] && !col[56]) {
-      const int dc = static_cast<int>(dq(0) * (1 << kPass1Bits));
-      ws[c] = ws[8 + c] = dc;
+    const int16_t* col = d + c;
+    if (!ac) {
+      ws[c] = ws[8 + c] = wrap16(col[0] * (1 << kPass1Bits));
       continue;
     }
+    auto dq = [&](int r) { return static_cast<int64_t>(col[8 * r]); };
     const int64_t tmp10 = dq(0) * (int64_t{1} << (kConstBits + 2));
     const int64_t tmp0 = dq(7) * -F_0_720959822 + dq(5) * F_0_850430095 +
                          dq(3) * -F_1_272758580 + dq(1) * F_3_624509785;
     constexpr int n = kConstBits - kPass1Bits + 2;
-    ws[c] = static_cast<int>(descale(tmp10 + tmp0, n));
-    ws[8 + c] = static_cast<int>(descale(tmp10 - tmp0, n));
+    ws[c] = sat16(wrap32(descale(wrap32(tmp10 + tmp0), n)));
+    ws[8 + c] = sat16(wrap32(descale(wrap32(tmp10 - tmp0), n)));
   }
   constexpr int n2 = kConstBits + kPass1Bits + 3 + 2;
   for (int r = 0; r < 2; ++r) {
-    const int* w = ws + r * 8;
+    const int16_t* w = ws + r * 8;
     uint8_t* o = out + r * stride;
-    if (!w[1] && !w[3] && !w[5] && !w[7]) {
-      o[0] = o[1] = range_limit(descale(w[0], kPass1Bits + 3));
-      continue;
-    }
     const int64_t tmp10 = int64_t{w[0]} * (int64_t{1} << (kConstBits + 2));
     const int64_t tmp0 = w[7] * -F_0_720959822 + w[5] * F_0_850430095 +
                          w[3] * -F_1_272758580 + w[1] * F_3_624509785;
-    o[0] = range_limit(descale(tmp10 + tmp0, n2));
-    o[1] = range_limit(descale(tmp10 - tmp0, n2));
+    o[0] = sat8(wrap32(descale(wrap32(tmp10 + tmp0), n2)));
+    o[1] = sat8(wrap32(descale(wrap32(tmp10 - tmp0), n2)));
   }
 }
 
@@ -555,9 +705,11 @@ struct Component {
   int16_t* coef = nullptr;     // gh x gw blocks of 64, natural order
   uint16_t q[64];              // the quantization table of its first scan
   bool latched = false;        // scanned
+  int prev_bits[10];           // bits[0..9] before the last scan of it
   int bits[64];                // progressive: the Al of the last scan of
                                // each coefficient, -1 before any
   int dc = 0;                  // the DC predictor of the current scan
+  int dc_ctx = 0;              // arithmetic coding: the DC context
   // the output: the IDCT's size, the component's samples at that scale and
   // its plane (whole blocks)
   int ssize = 8, dw = 0, dh = 0, stride = 0;
@@ -652,8 +804,15 @@ struct View {
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t size, Buffers* b)
-      : p_(data), end_(data + size), b_(b) {}
+  // imread: decode as cv2.imread asks libjpeg to (4-component files to
+  // CMYK, then cv2's CMYK -> BGR); else as an RGB output request does,
+  // which refuses them.
+  Decoder(const uint8_t* data, size_t size, Buffers* b, bool imread)
+      : begin_(data), p_(data), end_(data + size), b_(b), imread_(imread) {
+    std::fill(dc_l_, dc_l_ + 16, 0);
+    std::fill(dc_u_, dc_u_ + 16, 1);
+    std::fill(ac_k_, ac_k_ + 16, 5);
+  }
 
   // Reads markers up to the frame header: the image's size.
   void header(int* w, int* h) {
@@ -669,13 +828,16 @@ class Decoder {
   // (ceil(height / denom) * ceil(width / denom) * 3 bytes).
   void decode(int denom, uint8_t* rgb) {
     while (!done_) segment();
-    check_complete();
+    smooth_ = smoothing_ok();
     output(8 / denom, rgb);
   }
 
   // The EXIF Orientation read before the first scan, 0 without one; known
   // once decode() is done.
   int orientation() const { return orientation_; }
+
+  // The bytes read so far
+  size_t consumed() const { return static_cast<size_t>(p_ - begin_); }
 
  private:
   size_t size() const { return static_cast<size_t>(end_ - p_); }
@@ -690,11 +852,11 @@ class Decoder {
     return (hi << 8) | byte();
   }
 
-  // One marker and its segment.
+  // One marker and its segment, as libjpeg's read_markers takes it.
   void segment() {
     if (scans_ && p_ >= end_) {
       // libjpeg reads the end of the file after a scan as an EOI
-      eoi_missing_ = done_ = true;
+      done_ = true;
       return;
     }
     int c = byte();
@@ -704,13 +866,15 @@ class Decoder {
     }
     while (c == 0xFF) c = byte();
     const int m = c;
-    if (m == 0xC0 || m == 0xC1 || m == 0xC2) return sof(m);
-    if ((m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC))
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA)
+      return sof(m);
+    if (m == 0xC3)
+      fail(JPEG_UNSUPPORTED, "lossless JPEG (SOF marker 0xFFC3)");
+    if (m >= 0xC5 && m <= 0xCF && m != 0xCC)
       fail(JPEG_UNSUPPORTED,
            "SOF marker " + hex_marker(m) +
-               " (lossless, hierarchical or arithmetic-coded JPEG)");
-    if (m == 0xCC)
-      fail(JPEG_UNSUPPORTED, "arithmetic-coded JPEG (DAC marker 0xFFCC)");
+               " (hierarchical, lossless or the JPG extension)");
+    if (m == 0xCC) return dac();
     if (m == 0xC4) return dht();
     if (m == 0xDB) return dqt();
     if (m == 0xDD) return dri();
@@ -720,9 +884,8 @@ class Decoder {
       done_ = true;
       return;
     }
-    if (m == 0xDC)
-      fail(JPEG_UNSUPPORTED,
-           "DNL marker 0xFFDC (height given after the scan)");
+    if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) return;   // RSTn, TEM
+    if (m == 0xDC) return skip_segment();                // DNL: ignored
     if (m >= 0xE0 && m <= 0xEF) return app(m);
     if (m == 0xFE) return skip_segment();
     fail(JPEG_CORRUPT, "unexpected marker " + hex_marker(m));
@@ -804,6 +967,26 @@ class Decoder {
     restart_interval_ = (d[0] << 8) | d[1];
   }
 
+  // jdmarker.c's get_dac: the arithmetic conditioning of the DC (L, U)
+  // and AC (Kx) tables
+  void dac() {
+    int len;
+    const uint8_t* d = segment_body(&len);
+    if (len % 2) fail(JPEG_CORRUPT, "bad DAC length");
+    for (int i = 0; i < len; i += 2) {
+      const int index = d[i], val = d[i + 1];
+      // Tc << 4 | Tb over libjpeg's 16 tables of each class
+      if (index >= 32) fail(JPEG_CORRUPT, "bad DAC table index");
+      if (index >= 16) {
+        ac_k_[index - 16] = val;
+      } else {
+        dc_l_[index] = val & 15;
+        dc_u_[index] = val >> 4;
+        if (dc_l_[index] > dc_u_[index]) fail(JPEG_CORRUPT, "bad DAC value");
+      }
+    }
+  }
+
   void sof(int m) {
     if (frame_) fail(JPEG_UNSUPPORTED, "a second SOF marker");
     int len;
@@ -813,18 +996,22 @@ class Decoder {
     height_ = (d[1] << 8) | d[2];
     width_ = (d[3] << 8) | d[4];
     int nf = d[5];
+    // cv2.imread and the JAX package's library both decompress with
+    // libjpeg's 8-bit interface, which refuses other precisions
     if (precision != 8)
       fail(JPEG_UNSUPPORTED, std::to_string(precision) + "-bit samples (SOF " +
                                  hex_marker(m) + "); only 8-bit is supported");
-    if (nf == 4)
-      fail(JPEG_UNSUPPORTED, "4 components (CMYK or YCCK)");
-    if (nf != 1 && nf != 3)
+    if (nf == 4 && !imread_)
+      fail(JPEG_UNSUPPORTED, "4 components (CMYK or YCCK), which libjpeg's "
+                             "RGB output refuses");
+    if (nf != 1 && nf != 3 && nf != 4)
       fail(JPEG_UNSUPPORTED, std::to_string(nf) + " components");
     if (len != 6 + 3 * nf) fail(JPEG_CORRUPT, "bad SOF length");
     if (height_ == 0)
       fail(JPEG_UNSUPPORTED, "height 0 in the SOF (DNL marker)");
     if (width_ == 0) fail(JPEG_CORRUPT, "width 0 in the SOF");
-    progressive_ = m == 0xC2;
+    progressive_ = m == 0xC2 || m == 0xCA;
+    arith_ = m == 0xC9 || m == 0xCA;
     comps_.resize(nf);
     for (int i = 0; i < nf; ++i) {
       Component& c = comps_[i];
@@ -904,18 +1091,27 @@ class Decoder {
       std::memcpy(c->q, quant_[c->tq], sizeof(c->q));
       c->latched = true;
     }
-    BitReader br(p_, end_);
-    for (Component* c : scan) c->dc = 0;
-    eobrun_ = 0;
-    if (progressive_) {
-      progressive_scan(scan, &br, ss, se, ah, al);
+    const bool dc_first = !progressive_ || (ss == 0 && ah == 0);
+    if (progressive_) check_progression(scan, ss, se, ah, al);
+    if (arith_) {
+      ArithReader ar(p_, end_);
+      arith_scan(scan, &ar, ss, se, ah, al, dc_first);
+      p_ = ar.marker_start();
     } else {
-      // libjpeg takes any Ss/Se/Ah/Al of a sequential scan as 0/63/0/0
-      // (with a warning)
-      for (Component* c : scan) need_tables(*c, true, true);
-      sequential_scan(scan, &br);
+      for (Component* c : scan)
+        need_tables(*c, !progressive_ || (ss == 0 && ah == 0),
+                    !progressive_ || ss != 0);
+      BitReader br(p_, end_);
+      for (Component* c : scan) c->dc = 0;
+      eobrun_ = 0;
+      if (progressive_)
+        progressive_scan(scan, &br, ss, se, ah, al);
+      else
+        // libjpeg takes any Ss/Se/Ah/Al of a sequential scan as 0/63/0/0
+        // (with a warning)
+        sequential_scan(scan, &br);
+      p_ = br.marker_start();
     }
-    p_ = br.marker_start();
     ++scans_;
   }
 
@@ -926,10 +1122,15 @@ class Decoder {
 
   // Runs block(component, coefficients) over the scan's blocks in MCU
   // order, with its restart intervals: a scan of one component covers its
-  // blocks inside the image, an interleaved one whole MCUs.
-  template <typename Block>
-  void run_scan(const std::vector<Component*>& scan, BitReader* br,
-                Block block) {
+  // blocks inside the image, an interleaved one whole MCUs.  At each
+  // interval's end the reader reads the restart marker and on_restart()
+  // resets the entropy decoder's state; an MCU after r->stopped() (data
+  // that ended early, or bad arithmetic-coded data) is left as it is,
+  // unless `always` (jdphuff.c's and jdarith.c's DC refinement scans read
+  // on: zero data change nothing there).
+  template <typename Reader, typename Restart, typename Block>
+  void run_scan(const std::vector<Component*>& scan, Reader* r,
+                Restart on_restart, Block block, bool always = false) {
     const bool single = scan.size() == 1;
     const int mcux = single ? scan[0]->bw : mcux_;
     const int mcuy = single ? scan[0]->bh : mcuy_;
@@ -937,16 +1138,20 @@ class Decoder {
     int next_rst = 0;
     const int64_t total = static_cast<int64_t>(mcux) * mcuy;
     for (int64_t mcu = 0; mcu < total; ++mcu) {
+      // jdcoefct.c's consume_data: the iMCU row of the last MCU begun with
+      // the data not yet run out (before the MCU's restart marker)
+      if (!r->insufficient())
+        last_good_ = static_cast<int>(mcu / mcux) / (single ? scan[0]->v : 1);
       if (restart_interval_) {
         if (restarts_left == 0) {
-          br->restart(next_rst);
+          r->restart(next_rst);
           next_rst = (next_rst + 1) & 7;
-          for (Component* c : scan) c->dc = 0;
-          eobrun_ = 0;
+          on_restart();
           restarts_left = restart_interval_;
         }
         --restarts_left;
       }
+      if (r->stopped() && !always) continue;
       const int mx = static_cast<int>(mcu % mcux);
       const int my = static_cast<int>(mcu / mcux);
       if (single) {
@@ -961,7 +1166,10 @@ class Decoder {
   }
 
   void sequential_scan(const std::vector<Component*>& scan, BitReader* br) {
-    run_scan(scan, br, [&](Component* c, int16_t* blk) {
+    auto restart = [&] {
+      for (Component* c : scan) c->dc = 0;
+    };
+    run_scan(scan, br, restart, [&](Component* c, int16_t* blk) {
       int s = br->decode(huff_[0][c->td]);
       if (s) c->dc += extend(br->get(s), s);
       blk[0] = static_cast<int16_t>(c->dc);
@@ -981,11 +1189,11 @@ class Decoder {
     });
   }
 
-  // libjpeg's jdphuff.c: the checks of start_pass_phuff_decoder (where
-  // libjpeg only warns of a bad progression, this decoder refuses it),
-  // then one of the four kinds of scan.
-  void progressive_scan(const std::vector<Component*>& scan, BitReader* br,
-                        int ss, int se, int ah, int al) {
+  // The checks of jdphuff.c's and jdarith.c's start_pass (where libjpeg
+  // only warns of a bad progression, this decoder refuses it), and the
+  // coefficient bits each component now has.
+  void check_progression(const std::vector<Component*>& scan, int ss, int se,
+                         int ah, int al) {
     const bool dc_band = ss == 0;
     if ((dc_band ? se != 0 : ss > se || se > 63 || scan.size() != 1) ||
         (ah != 0 && al != ah - 1) || al > 13)
@@ -997,6 +1205,10 @@ class Decoder {
       if (!dc_band && c->bits[0] < 0)
         fail(JPEG_CORRUPT, "an AC scan of component " + std::to_string(c->id) +
                                " before its DC scan");
+      // the bits before this scan, which block smoothing uses for the
+      // rows it did not reach (jdphuff.c's start_pass)
+      for (int k = std::min(ss, 1); k <= std::min(std::max(se, 9), 9); ++k)
+        c->prev_bits[k] = scans_ ? c->bits[k] : 0;
       for (int k = ss; k <= se; ++k) {
         if (ah != std::max(c->bits[k], 0))
           fail(JPEG_CORRUPT,
@@ -1007,23 +1219,32 @@ class Decoder {
                                    : "'s Al=" + std::to_string(c->bits[k])));
         c->bits[k] = al;
       }
-      need_tables(*c, dc_band && ah == 0, !dc_band);
     }
+  }
+
+  // libjpeg's jdphuff.c: one of the four kinds of progressive scan.
+  void progressive_scan(const std::vector<Component*>& scan, BitReader* br,
+                        int ss, int se, int ah, int al) {
+    const bool dc_band = ss == 0;
     const int p1 = 1 << al;            // 1 in the bit position coded
     const int m1 = -p1;                // -1 in it
+    auto restart = [&] {
+      for (Component* c : scan) c->dc = 0;
+      eobrun_ = 0;
+    };
     if (dc_band && ah == 0) {
-      run_scan(scan, br, [&](Component* c, int16_t* blk) {
+      run_scan(scan, br, restart, [&](Component* c, int16_t* blk) {
         int s = br->decode(huff_[0][c->td]);
         if (s) c->dc += extend(br->get(s), s);
         blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c->dc) << al);
       });
     } else if (dc_band) {
-      run_scan(scan, br, [&](Component*, int16_t* blk) {
+      run_scan(scan, br, restart, [&](Component*, int16_t* blk) {
         if (br->get(1)) blk[0] = static_cast<int16_t>(blk[0] | p1);
-      });
+      }, true);
     } else if (ah == 0) {
       const HuffTable& act = huff_[1][scan[0]->ta];
-      run_scan(scan, br, [&](Component*, int16_t* blk) {
+      run_scan(scan, br, restart, [&](Component*, int16_t* blk) {
         if (eobrun_ > 0) {
           --eobrun_;
           return;
@@ -1051,7 +1272,7 @@ class Decoder {
         if (br->get(1) && (*coef & p1) == 0)
           *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
       };
-      run_scan(scan, br, [&](Component*, int16_t* blk) {
+      run_scan(scan, br, restart, [&](Component*, int16_t* blk) {
         int k = ss;
         if (eobrun_ == 0) {
           for (; k <= se; ++k) {
@@ -1087,28 +1308,306 @@ class Decoder {
     }
   }
 
-  // Every component scanned and, in a progressive file, every coefficient
-  // bit sent: libjpeg smooths the blocks of a file whose scans leave bits
-  // unsent (jdcoefct.c's block smoothing), which this decoder does not do.
-  void check_complete() const {
-    const std::string truncated = eoi_missing_ ? " (truncated file)" : "";
+  // libjpeg's jdarith.c: a sequential scan (decode_mcu) or one of the four
+  // kinds of progressive scan, with the statistics bins of T.81 F.1.4.4:
+  // DC S0 at the context (0, 4, 8, 12 or 16), SS, SP/SN, X1 at 20 and M at
+  // X + 14; AC SE, S0 and SS/SP at 3 (k - 1), X2 at 189 or 217 by Kx.
+  void arith_scan(const std::vector<Component*>& scan, ArithReader* ar,
+                  int ss, int se, int ah, int al, bool dc_first) {
+    const bool ac = !progressive_ || ss != 0;
+    auto clear = [&] {
+      for (Component* c : scan) {
+        if (dc_first) {
+          std::memset(dc_stats_[c->td], 0, sizeof(dc_stats_[0]));
+          c->dc = c->dc_ctx = 0;
+        }
+        if (ac) std::memset(ac_stats_[c->ta], 0, sizeof(ac_stats_[0]));
+      }
+    };
+    clear();
+    ar->reset();
+    // Decode_DC_DIFF (F.19, F.21-F.24): false on a magnitude overflow
+    auto dc_diff = [&](Component* c) {
+      uint8_t* st = dc_stats_[c->td] + c->dc_ctx;
+      if (ar->decode(st) == 0) {
+        c->dc_ctx = 0;
+        return true;
+      }
+      const int sign = ar->decode(st + 1);
+      st += 2 + sign;
+      int m = ar->decode(st);
+      if (m) {
+        st = dc_stats_[c->td] + 20;
+        while (ar->decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar->set_failed();
+            return false;
+          }
+          ++st;
+        }
+      }
+      if (m < ((1 << dc_l_[c->td]) >> 1))
+        c->dc_ctx = 0;
+      else if (m > ((1 << dc_u_[c->td]) >> 1))
+        c->dc_ctx = 12 + sign * 4;
+      else
+        c->dc_ctx = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar->decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      c->dc = (c->dc + v) & 0xFFFF;
+      return true;
+    };
+    // a nonzero AC value after its S0 bin (F.21-F.24); 0 on an overflow
+    auto ac_value = [&](uint8_t* st, int tbl, int k, int* v_out) {
+      const int sign = ar->decode(fixed_bin_);
+      st += 2;
+      int m = ar->decode(st);
+      if (m && ar->decode(st)) {
+        m <<= 1;
+        st = ac_stats_[tbl] + (k <= ac_k_[tbl] ? 189 : 217);
+        while (ar->decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar->set_failed();
+            return false;
+          }
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar->decode(st)) v |= m;
+      v += 1;
+      *v_out = sign ? -v : v;
+      return true;
+    };
+    if (!progressive_) {
+      run_scan(scan, ar, clear, [&](Component* c, int16_t* blk) {
+        if (ar->failed()) return;
+        if (!dc_diff(c)) return;
+        blk[0] = static_cast<int16_t>(c->dc);
+        const int tbl = c->ta;
+        int k = 0;
+        while (k < 63) {
+          uint8_t* st = ac_stats_[tbl] + 3 * k;
+          if (ar->decode(st)) break;                     // EOB
+          for (;;) {
+            ++k;
+            if (ar->decode(st + 1)) break;
+            st += 3;
+            if (k >= 63) {
+              ar->set_failed();                          // spectral overflow
+              return;
+            }
+          }
+          int v;
+          if (!ac_value(st, tbl, k, &v)) return;
+          blk[kNatural[k]] = static_cast<int16_t>(v);
+        }
+      });
+    } else if (ss == 0 && ah == 0) {
+      run_scan(scan, ar, clear, [&](Component* c, int16_t* blk) {
+        if (ar->failed() || !dc_diff(c)) return;
+        blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c->dc) << al);
+      });
+    } else if (ss == 0) {
+      run_scan(scan, ar, clear, [&](Component*, int16_t* blk) {
+        if (ar->decode(fixed_bin_))
+          blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+      }, true);
+    } else if (ah == 0) {
+      const int tbl = scan[0]->ta;
+      run_scan(scan, ar, clear, [&](Component*, int16_t* blk) {
+        for (int k = ss; k <= se; ++k) {
+          uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+          if (ar->decode(st)) break;                     // EOB
+          while (ar->decode(st + 1) == 0) {
+            st += 3;
+            if (++k > se) {
+              ar->set_failed();
+              return;
+            }
+          }
+          int v;
+          if (!ac_value(st, tbl, k, &v)) return;
+          blk[kNatural[k]] =
+              static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+        }
+      });
+    } else {
+      const int tbl = scan[0]->ta;
+      const int p1 = 1 << al, m1 = -p1;
+      run_scan(scan, ar, clear, [&](Component*, int16_t* blk) {
+        int kex = se;                   // the previous stage's end of block
+        for (; kex > 0; --kex)
+          if (blk[kNatural[kex]]) break;
+        for (int k = ss; k <= se; ++k) {
+          uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+          if (k > kex && ar->decode(st)) break;          // EOB
+          for (;;) {
+            int16_t* coef = blk + kNatural[k];
+            if (*coef) {
+              if (ar->decode(st + 2))
+                *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+              break;
+            }
+            if (ar->decode(st + 1)) {
+              *coef = static_cast<int16_t>(ar->decode(fixed_bin_) ? m1 : p1);
+              break;
+            }
+            st += 3;
+            if (++k > se) {
+              ar->set_failed();
+              return;
+            }
+          }
+        }
+      });
+    }
+  }
+
+  // Whether libjpeg's output smooths the blocks (jdcoefct.c's
+  // smoothing_ok): a progressive file whose scans leave bits of
+  // coefficients 1..9 unsent, with every component's DC begun and its
+  // quantization table's first entries nonzero.
+  bool smoothing_ok() const {
+    if (!progressive_) return false;
+    bool useful = false;
     for (const Component& c : comps_) {
-      if (!c.latched)
-        fail(JPEG_CORRUPT, "component " + std::to_string(c.id) +
-                               " has no scan" + truncated);
-      if (!progressive_) continue;
-      for (int k = 0; k < 64; ++k) {
-        if (c.bits[k] == 0) continue;
-        if (eoi_missing_)
-          fail(JPEG_CORRUPT, "file ends before the last scan (truncated "
-                             "file)");
-        fail(JPEG_UNSUPPORTED,
-             "incomplete progressive JPEG: coefficient " + std::to_string(k) +
-                 " of component " + std::to_string(c.id) +
-                 (c.bits[k] < 0 ? std::string(" is never sent")
-                                : " lacks its " + std::to_string(c.bits[k]) +
-                                      " low bits") +
-                 " (libjpeg would smooth the blocks)");
+      if (!c.latched || c.bits[0] < 0) return false;
+      for (int pos : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+        if (c.q[pos] == 0) return false;
+      for (int k = 1; k <= 9; ++k) useful |= c.bits[k] != 0;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c's decompress_smooth_data on one component's blocks into
+  // `out` (bw x bh blocks of 64, natural order): each block's coefficients
+  // 1..9 still unknown (zero, their bits unsent) are predicted from the DC
+  // values of its 5x5 neighbourhood (edges replicated, rows as below) --
+  // and when none of
+  // coefficients 1..9 has had a scan, the DC itself is smoothed.  A block
+  // row past the last iMCU row that the final scan reached with data takes
+  // the coefficient bits from before that scan.
+  void smooth(const Component& c, std::vector<int16_t>* out) const {
+    struct Rule {
+      int k, pos;             // coefficient bits index (zigzag), natural pos
+      bool always;            // predicted outside change_dc too
+      int8_t w[25], w_dc[25]; // weights with and without change_dc
+    };
+    // the 5x5 weights, rows top to bottom (libjpeg-turbo's jdcoefct.c)
+    static const Rule kRules[9] = {
+        {1, 1, true,
+         {-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3,
+          -3, 13, 0, -13, 3, -1, -1, 0, 1, 1},
+         {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7,
+          0, 0, 0, 0, 0, 0, 0, 0, 0, 0}},
+        {2, 8, true,
+         {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0,
+          1, -13, -38, -13, 1, 1, 3, 3, 3, 1},
+         {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0,
+          0, 0, -50, 0, 0, 0, 0, 7, 0, 0}},
+        {3, 16, true,
+         {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0,
+          0, 2, 7, 2, 0, 0, 0, 1, 0, 0},
+         {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0,
+          0, 0, 13, 0, 0, 0, 0, -1, 0, 0}},
+        {4, 9, true,
+         {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0,
+          0, -9, 0, 9, 0, 1, 0, 0, 0, -1},
+         {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0,
+          1, -10, 0, 10, -1, 0, 1, 0, -1, 0}},
+        {5, 2, true,
+         {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1,
+          0, 2, -5, 2, 0, 0, 0, 0, 0, 0},
+         {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1,
+          0, 0, 0, 0, 0, 0, 0, 0, 0, 0}},
+        {6, 3, false,
+         {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0,
+          0, 1, 0, -1, 0, 0, 0, 0, 0, 0}, {}},
+        {7, 10, false,
+         {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0,
+          0, -1, 3, -1, 0, 0, 0, 0, 0, 0}, {}},
+        {8, 17, false,
+         {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0,
+          0, 1, 0, -1, 0, 0, 0, 0, 0, 0}, {}},
+        {9, 24, false,
+         {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0,
+          0, -1, -2, -1, 0, 0, 0, 0, 0, 0}, {}},
+    };
+    static const int16_t kDc[25] = {-2, -6, -8, -6, -2, -6, 6, 42, 6, -6,
+                                   -8, 42, 152, 42, -8, -6, 6, 42, 6, -6,
+                                   -2, -6, -8, -6, -2};
+    int cur[10], prev[10];
+    for (int k = 0; k < 10; ++k) {
+      cur[k] = c.bits[k];
+      prev[k] = scans_ > 1 ? c.prev_bits[k] : -1;
+    }
+    out->resize(static_cast<size_t>(c.bw) * c.bh * 64);
+    const int64_t q00 = c.q[0];
+    const int last_imcu = (c.bh - 1) / c.v;
+    const int padded = ceil_div(c.bh, c.v) * c.v;
+    for (int by = 0; by < c.bh; ++by) {
+      const int* bits = by / c.v > last_good_ ? prev : cur;
+      // the neighbour rows: libjpeg-turbo 3's reach into the next iMCU row,
+      // padding blocks included (the coefficient array is whole iMCU rows),
+      // except from the last iMCU row, where they stop at the image's last
+      // row; 2.1's (the fused route's libjpeg) take the row above for two
+      // above in iMCU row 1 and the row below for two below in the last
+      // iMCU row but one
+      const int m = by / c.v, i = by % c.v;
+      int rows[5];
+      const int lim = m < last_imcu ? padded - 1 : c.bh - 1;
+      for (int d = -2; d <= 2; ++d)
+        rows[d + 2] = std::min(std::max(by + d, 0), lim);
+      if (!imread_) {
+        if (!(i > 1 || m > 1)) rows[0] = rows[1];
+        if (!(i < c.v - 2 || m + 1 < last_imcu)) rows[4] = rows[3];
+      }
+      bool change_dc = true;
+      for (int k = 1; k <= 9; ++k) change_dc &= bits[k] == -1;
+      // the neighbour columns: edges replicated; 2.1's sliding registers
+      // start as column 0 and, on a component 2 blocks wide, keep it for
+      // the columns to the right
+      int reg[5] = {0, 0, 0, 0, 0};
+      for (int bx = 0; bx < c.bw; ++bx) {
+        int cols[5];
+        if (imread_) {
+          for (int d = -2; d <= 2; ++d)
+            cols[d + 2] = std::min(std::max(bx + d, 0), c.bw - 1);
+        } else {
+          if (bx == 0 && bx < c.bw - 1) reg[3] = 1;
+          if (bx + 1 < c.bw - 1) reg[4] = bx + 2;
+          std::copy(reg, reg + 5, cols);
+          std::copy(reg + 1, reg + 5, reg);
+        }
+        int64_t dc[25];
+        for (int dy = 0; dy < 5; ++dy)
+          for (int dx = 0; dx < 5; ++dx)
+            dc[dy * 5 + dx] = c.block(rows[dy], cols[dx])[0];
+        int16_t* ws = out->data() + (static_cast<size_t>(by) * c.bw + bx) * 64;
+        std::memcpy(ws, c.block(by, bx), 64 * sizeof(int16_t));
+        auto predict = [&](const auto* w, int64_t q, int al) {
+          int64_t num = 0;
+          for (int i = 0; i < 25; ++i) num += w[i] * dc[i];
+          num *= q00;
+          int64_t pred = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+          if (al > 0 && pred >= (int64_t{1} << al))
+            pred = (int64_t{1} << al) - 1;
+          return static_cast<int16_t>(num >= 0 ? pred : -pred);
+        };
+        if (change_dc) ws[0] = predict(kDc, q00, 0);
+        for (const Rule& r : kRules) {
+          if (!r.always && !change_dc) continue;
+          const int al = bits[r.k];
+          if (al != 0 && ws[r.pos] == 0)
+            ws[r.pos] = predict(change_dc ? r.w : r.w_dc, c.q[r.pos], al);
+        }
       }
     }
   }
@@ -1119,7 +1618,7 @@ class Decoder {
   void output(int min_ss, uint8_t* rgb) {
     const int W = ceil_div(static_cast<int64_t>(width_) * min_ss, 8);
     const int H = ceil_div(static_cast<int64_t>(height_) * min_ss, 8);
-    View views[3];
+    View views[4];
     for (size_t i = 0; i < comps_.size(); ++i) {
       Component& c = comps_[i];
       // jdmaster.c: raise a subsampled component's IDCT size instead of
@@ -1139,11 +1638,16 @@ class Decoder {
                   : c.ssize == 4 ? idct_4x4
                   : c.ssize == 2 ? idct_2x2
                                  : idct_1x1;
+      std::vector<int16_t> smoothed;
+      if (smooth_) smooth(c, &smoothed);
       for (int by = 0; by < c.bh; ++by) {
         uint8_t* row = plane.data() +
                        static_cast<size_t>(by) * c.ssize * c.stride;
         for (int bx = 0; bx < c.bw; ++bx)
-          idct(c.block(by, bx), c.q, row + bx * c.ssize, c.stride);
+          idct(smooth_ ? smoothed.data() +
+                             (static_cast<size_t>(by) * c.bw + bx) * 64
+                       : c.block(by, bx),
+               c.q, row + bx * c.ssize, c.stride);
       }
       views[i] = upsample(c, plane.data(), &b_->full[i], W, H, min_ss);
     }
@@ -1236,8 +1740,37 @@ class Decoder {
       }
       return;
     }
-    const bool as_rgb = is_rgb();
     const uint8_t* lim = kRange.clamp + 256;
+    if (comps_.size() == 4) {
+      // libjpeg's CMYK output: Adobe transform 0 or no Adobe segment is
+      // CMYK as stored, any other transform YCCK (jdcolor.c's
+      // ycck_cmyk_convert: 255 - the YCbCr -> RGB value); then cv2's
+      // icvCvt_CMYK2BGR_8u_C4C3R, x' = k - ((255 - x) * k >> 8)
+      const bool ycck = adobe_ && adobe_transform_ != 0;
+      for (int y = 0; y < H; ++y) {
+        const uint8_t* row[4];
+        for (int i = 0; i < 4; ++i)
+          row[i] = v[i].p + static_cast<size_t>(y) * v[i].stride;
+        uint8_t* o = rgb + static_cast<size_t>(y) * W * 3;
+        for (int x = 0; x < W; ++x) {
+          int c = row[0][x], m = row[1][x], ye = row[2][x];
+          const int k = row[3][x];
+          if (ycck) {
+            const int yy = c, cb = m, cr = ye;
+            c = lim[255 - (yy + kColor.cr_r[cr])];
+            m = lim[255 - (yy + static_cast<int>(
+                                    (kColor.cb_g[cb] + kColor.cr_g[cr]) >>
+                                    kScaleBits))];
+            ye = lim[255 - (yy + kColor.cb_b[cb])];
+          }
+          o[3 * x] = static_cast<uint8_t>(k - ((255 - c) * k >> 8));
+          o[3 * x + 1] = static_cast<uint8_t>(k - ((255 - m) * k >> 8));
+          o[3 * x + 2] = static_cast<uint8_t>(k - ((255 - ye) * k >> 8));
+        }
+      }
+      return;
+    }
+    const bool as_rgb = is_rgb();
     for (int y = 0; y < H; ++y) {
       const uint8_t* a = v[0].p + static_cast<size_t>(y) * v[0].stride;
       const uint8_t* b = v[1].p + static_cast<size_t>(y) * v[1].stride;
@@ -1270,11 +1803,14 @@ class Decoder {
     return comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B';
   }
 
+  const uint8_t* begin_;
   const uint8_t* p_;
   const uint8_t* end_;
   Buffers* b_;
-  bool frame_ = false, progressive_ = false, done_ = false;
-  bool eoi_missing_ = false;
+  bool imread_;
+  bool smooth_ = false;    // libjpeg's block smoothing applies
+  int last_good_ = -1;     // jdcoefct.c's last_good_iMCU_row
+  bool frame_ = false, progressive_ = false, arith_ = false, done_ = false;
   bool jfif_ = false, adobe_ = false, has_orientation_ = false;
   int adobe_transform_ = -1, orientation_ = 0;
   int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
@@ -1283,6 +1819,10 @@ class Decoder {
   uint16_t quant_[4][64] = {};
   bool quant_defined_[4] = {false, false, false, false};
   HuffTable huff_[2][4];
+  // arithmetic coding: conditioning (DAC; SOI's defaults) and statistics
+  int dc_l_[16], dc_u_[16], ac_k_[16];
+  uint8_t dc_stats_[4][64] = {}, ac_stats_[4][256] = {};
+  uint8_t fixed_bin_[4] = {113, 0, 0, 0};
 };
 
 bool read_file(const char* path, std::vector<uint8_t>* data) {
@@ -1309,7 +1849,7 @@ void set_msg(char* msg, int msg_len, const std::string& s) {
 // *orientation.  Returns a Code.
 template <typename Alloc>
 int decode_with(const char* path, Buffers* b, int target, int max_denom,
-                int* w, int* h, int* ow, int* oh, int* orientation,
+                bool imread, int* w, int* h, int* ow, int* oh, int* orientation,
                 char* msg, int msg_len, Alloc alloc) {
   *w = *h = *ow = *oh = *orientation = 0;
   set_msg(msg, msg_len, "");
@@ -1318,11 +1858,23 @@ int decode_with(const char* path, Buffers* b, int target, int max_denom,
                               std::strerror(errno));
     return JPEG_IO;
   }
+  std::function<bool()> past_end;
   try {
     if (max_denom != 1 && max_denom != 2 && max_denom != 4 && max_denom != 8)
       fail(JPEG_UNSUPPORTED, "scale 1/" + std::to_string(max_denom) +
                                  " (1/1, 1/2, 1/4 or 1/8)");
-    Decoder d(b->data.data(), b->data.size(), b);
+    // libjpeg's source manager answers a read past the end with an EOI
+    // marker, FF D9, each time it is asked: a file cut inside a segment
+    // after its first scan reads on through them as libjpeg does (one
+    // segment takes at most 65535 bytes of them), and a cut scan ends.
+    const size_t real = b->data.size();
+    b->data.resize(real + kEofPad);
+    for (size_t i = real; i < b->data.size(); i += 2) {
+      b->data[i] = 0xFF;
+      b->data[i + 1] = 0xD9;
+    }
+    Decoder d(b->data.data(), b->data.size(), b, imread);
+    past_end = [&] { return d.consumed() > real; };
     d.header(ow, oh);
     const int denom = pick_denom(*ow, *oh, target, max_denom);
     *w = (*ow + denom - 1) / denom;
@@ -1333,7 +1885,9 @@ int decode_with(const char* path, Buffers* b, int target, int max_denom,
     *orientation = d.orientation();
     return JPEG_OK;
   } catch (const Error& e) {
-    set_msg(msg, msg_len, e.msg);
+    const bool cut = past_end && past_end() &&
+                     e.msg.find("truncated") == std::string::npos;
+    set_msg(msg, msg_len, e.msg + (cut ? " (truncated file)" : ""));
     return e.code;
   } catch (const std::bad_alloc&) {
     set_msg(msg, msg_len, "out of memory");
@@ -1344,11 +1898,13 @@ int decode_with(const char* path, Buffers* b, int target, int max_denom,
 // One file at 1/denom into a buffer of *h * *w * 3 bytes that it allocates
 // (*pixels, freed with jpeg_free), turned by its EXIF orientation when
 // `exif`; on an error *pixels is null.
-int decode_file(const char* path, Buffers* b, int denom, bool exif,
+int decode_file(const char* path, Buffers* b, int denom, int flags,
                 uint8_t** pixels, int* w, int* h, char* msg, int msg_len) {
   uint8_t* rgb = nullptr;
   int ow, oh, orientation;
-  int code = decode_with(path, b, 0, denom, w, h, &ow, &oh, &orientation,
+  const bool exif = flags & READ_EXIF;
+  int code = decode_with(path, b, 0, denom, (flags & READ_IMREAD) != 0, w, h,
+                         &ow, &oh, &orientation,
                          msg, msg_len, [&](size_t bytes) {
                            rgb = static_cast<uint8_t*>(std::malloc(bytes));
                            return rgb;
@@ -1383,14 +1939,14 @@ extern "C" {
 // a fixed share per thread leaves the others waiting on the one that drew
 // the large files.
 void jpeg_decode_batch(const char** paths, int n, int threads, int denom,
-                       int exif, uint8_t** pixels, int* ws, int* hs,
+                       int flags, uint8_t** pixels, int* ws, int* hs,
                        int* codes, char* msgs, int msg_len) {
   const int nt = std::max(1, std::min(threads, n));
   std::atomic<int> next{0};
   auto work = [&] {
     Buffers b;
     for (int i; (i = next.fetch_add(1)) < n;)
-      codes[i] = decode_file(paths[i], &b, denom, exif != 0, &pixels[i],
+      codes[i] = decode_file(paths[i], &b, denom, flags, &pixels[i],
                              &ws[i], &hs[i],
                              msgs + static_cast<int64_t>(i) * msg_len,
                              msg_len);
@@ -1417,14 +1973,19 @@ int jpegdec::pick_denom(int w, int h, int target, int max_denom) {
 }
 
 int jpegdec::decode_into(const char* path, Buffers* b, int target,
-                         int max_denom, int* w, int* h, int* orig_w,
+                         int max_denom, bool imread, int* w, int* h, int* orig_w,
                          int* orig_h, int* orientation, char* msg,
                          int msg_len) {
-  return decode_with(path, b, target, max_denom, w, h, orig_w, orig_h,
+  return decode_with(path, b, target, max_denom, imread, w, h, orig_w, orig_h,
                      orientation, msg, msg_len, [&](size_t bytes) {
                        b->rgb.resize(bytes);
                        return b->rgb.data();
                      });
+}
+
+int jpegdec::exif_orientation(const uint8_t* tiff, size_t len) {
+  int value = 0;
+  return ExifReader(tiff, len).orientation(&value) ? value : 0;
 }
 
 void jpegdec::orient(const uint8_t* src, int w, int h, int orientation,

@@ -19,7 +19,7 @@
 //   preproc_batch(srcs, hs, ws, n, dst, S, letterbox, u8, threads,
 //                 scales, pad_xs, pad_ys)
 //     image i (srcs[i], hs[i] x ws[i] x 3) into slot i of dst;
-//   decode_preproc_batch(paths, n, dst, S, letterbox, u8, max_denom, exif,
+//   decode_preproc_batch(paths, n, dst, S, letterbox, u8, max_denom, flags,
 //                        threads, orig_ws, orig_hs, scales, pad_xs, pad_ys,
 //                        codes, msgs, msg_len)
 //     each worker reads and decodes file i into buffers it reuses, at the
@@ -30,9 +30,11 @@
 //     i as it was.  orig_ws / orig_hs are the files' own (SOF) sizes, and
 //     with letterbox the scales map their pixels, as JAX's do.  max_denom 1
 //     decodes at full scale (the uint8 cache, which the JAX package fills
-//     from cv2.imread at full scale); exif != 0 turns each image by its
-//     EXIF orientation first, as cv2.imread does, and then orig_ws /
-//     orig_hs are the turned image's sizes (the cache again).
+//     from cv2.imread at full scale); flags READ_EXIF turns each image by
+//     its EXIF orientation first, as cv2.imread does, and then orig_ws /
+//     orig_hs are the turned image's sizes (the cache again); READ_IMREAD
+//     decodes CMYK and YCCK files as cv2.imread does, which an RGB request
+//     to libjpeg (the JAX package's fused loader) refuses.
 // dst is float32 or (u8 != 0) uint8; scales, pad_xs, pad_ys describe the
 // letterbox (1, 0, 0 without).  A worker takes the next image when it is
 // done with one.
@@ -265,19 +267,20 @@ void preproc_batch(const uint8_t** srcs, const int* hs, const int* ws, int n,
 }
 
 void decode_preproc_batch(const char** paths, int n, void* dst, int S,
-                          int letterbox, int u8, int max_denom, int exif,
+                          int letterbox, int u8, int max_denom, int flags,
                           int threads, int* orig_ws, int* orig_hs,
                           float* scales, float* pad_xs, float* pad_ys,
                           int* codes, char* msgs, int msg_len) {
   for_each_image(n, threads, [&](int i, jpegdec::Buffers* b) {
     int w = 0, h = 0, orientation = 0;
-    codes[i] = jpegdec::decode_into(paths[i], b, S, max_denom, &w, &h,
+    codes[i] = jpegdec::decode_into(paths[i], b, S, max_denom,
+                                    (flags & jpegdec::READ_IMREAD) != 0, &w, &h,
                                     &orig_ws[i], &orig_hs[i], &orientation,
                                     msgs + static_cast<int64_t>(i) * msg_len,
                                     msg_len);
     if (codes[i] != jpegdec::JPEG_OK) return;
     const uint8_t* src = b->rgb.data();
-    if (exif && orientation >= 2 && orientation <= 8) {
+    if ((flags & jpegdec::READ_EXIF) && orientation >= 2 && orientation <= 8) {
       b->turned.resize(b->rgb.size());
       jpegdec::orient(src, w, h, orientation, b->turned.data(), &w, &h);
       src = b->turned.data();

@@ -17,8 +17,11 @@ The images are read as JAX fills its cache, by ``cv2.imread`` (turned by
 their EXIF orientation) and cv2's INTER_LINEAR on uint8 (the host
 library's uint8 resize, else ``pipeline.resize_u8``), so the two caches
 are equal byte for byte.  A parser with ``record(i)`` is
-read with ``native.decode_preproc_batch`` straight into the memmap's
-rows, ``BUILD_CHUNK`` images a call.  Batches stay uint8 and the Trainer
+read with ``native.decode_preproc_codes`` straight into the memmap's
+rows, ``BUILD_CHUNK`` images a call, as cv2 reads JPEG (CMYK and YCCK
+too); a file that call does not read (a PNG or a BMP, whatever its name)
+goes through ``native.decode_image`` and the uint8 resize, and one that
+neither reads raises ``native.ImageError`` naming it.  Batches stay uint8 and the Trainer
 divides by 255 on the device (``train/loop.py``).
 
 ``"exif": true`` in ``meta.json`` marks a cache whose images were turned
@@ -74,9 +77,15 @@ def _resize_chunk(parser, idx: range, S: int, letterbox: bool,
         recs = [parser.record(i) for i in idx]
         # full scale and turned by the EXIF orientation, as the JAX
         # package's cv2.imread: the boxes are normalised by the turned sizes
-        _, ws, hs, scales, pad_xs, pad_ys = native.decode_preproc_batch(
+        _, ws, hs, scales, pad_xs, pad_ys, codes = native.decode_preproc_codes(
             [r[0] for r in recs], S, letterbox, out, u8=True, max_denom=1,
-            exif=True)
+            exif=True, imread=True)
+        for i in np.flatnonzero(codes):
+            img = native.decode_image(recs[i][0], exif=True)
+            hs[i], ws[i] = img.shape[:2]
+            _, scales[i:i + 1], pad_xs[i:i + 1], pad_ys[i:i + 1] = (
+                native.preproc_batch([img], S, letterbox, out[i:i + 1],
+                                     u8=True))
         return ([r[1] for r in recs], [r[2] for r in recs], ws, hs, scales,
                 pad_xs, pad_ys)
     examples = [parser[i] for i in idx]

@@ -57,7 +57,8 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parents[2]
 CSRC = REPO / "objectdetectionpl_tpu_torch" / "csrc"
-SOURCES = (CSRC / "preproc.cc", CSRC / "jpeg_decode.cc")
+SOURCES = (CSRC / "preproc.cc", CSRC / "jpeg_decode.cc",
+           CSRC / "png_decode.cc")
 HEADERS = (CSRC / "jpeg_decode.h",)
 BUILD_DIR = REPO / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
@@ -73,8 +74,20 @@ _load_failed = False
 build_error: Optional[str] = None   # why the library is unavailable
 
 
-class JpegError(ValueError):
-    """A file the decoder cannot read: the message names the path."""
+READ_EXIF, READ_IMREAD = 1, 2   # csrc/jpeg_decode.h's Flags
+
+
+class ImageError(OSError):
+    """An image file the port cannot read: the message names the path (an
+    OSError, as the JAX package's ``IOError("cannot read image ...")``)."""
+
+
+class JpegError(ImageError):
+    """A JPEG file the decoder cannot read: the message names the path."""
+
+
+def _flags(exif: bool, imread: bool) -> int:
+    return (READ_EXIF if exif else 0) | (READ_IMREAD if imread else 0)
 
 
 def library_path() -> Path:
@@ -135,7 +148,7 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,   # paths, n
         ctypes.c_void_p,                                 # dst
         ctypes.c_int, ctypes.c_int, ctypes.c_int,        # S, letterbox, u8
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,        # max_denom, exif,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,        # max_denom, flags,
                                                          # threads
         i32p, i32p,                                      # orig_ws, orig_hs
         f32p, f32p, f32p,                                # scales, pads
@@ -144,13 +157,26 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.jpeg_decode_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,   # paths, n
         ctypes.c_int, ctypes.c_int, ctypes.c_int,        # threads, denom,
-                                                         # exif
+                                                         # flags
         ctypes.POINTER(ctypes.c_void_p),                 # pixels (out)
         i32p, i32p, i32p,                                # ws, hs, codes
         ctypes.c_char_p, ctypes.c_int]                   # msgs, msg_len
     lib.jpeg_decode_batch.restype = None
     lib.jpeg_free.argtypes = [ctypes.c_void_p]
     lib.jpeg_free.restype = None
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.png_unfilter.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,   # raw, len, w, h
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,          # depth, color,
+                                                           # interlace
+        u8p, ctypes.c_int, u8p,                            # palette, n, rgb
+        ctypes.c_char_p, ctypes.c_int]                     # msg, msg_len
+    lib.png_unfilter.restype = ctypes.c_int
+    lib.exif_orientation.argtypes = [u8p, ctypes.c_int64]
+    lib.exif_orientation.restype = ctypes.c_int
+    lib.image_orient.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, u8p, i32p, i32p]
+    lib.image_orient.restype = None
     _lib = lib
     return _lib
 
@@ -239,7 +265,8 @@ def _raise_first(paths: Sequence[str], codes: np.ndarray, msgs) -> None:
 
 def decode_preproc_batch(paths: Sequence[str], size: int, letterbox: bool,
                          out: Optional[np.ndarray] = None, u8: bool = False,
-                         max_denom: int = 1, exif: bool = False
+                         max_denom: int = 1, exif: bool = False,
+                         imread: bool = False
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                     np.ndarray, np.ndarray, np.ndarray]:
     """JPEG files -> (batch [N, S, S, 3], orig_ws, orig_hs, scales,
@@ -254,9 +281,31 @@ def decode_preproc_batch(paths: Sequence[str], size: int, letterbox: bool,
     (:data:`MAX_DENOM` there; the default 1 decodes at full scale).
     orig_ws / orig_hs are the files' own sizes, and with letterbox the
     scales map their pixels.  With ``exif`` each image is first turned by
-    its file's EXIF orientation, and the sizes are the turned image's.
+    its file's EXIF orientation, and the sizes are the turned image's;
+    with ``imread`` CMYK and YCCK files decode as ``cv2.imread`` decodes
+    them, without it they fail, as libjpeg's RGB output refuses them.
     Raises :class:`JpegError` naming the first file that fails, once every
-    file is done; it is not decoded again."""
+    file is done; it is not decoded again.  :func:`decode_preproc_codes`
+    is the same call with a status for each file instead."""
+    *batch, codes, msgs = _decode_preproc(paths, size, letterbox, out, u8,
+                                          max_denom, exif, imread)
+    _raise_first(paths, codes, msgs)
+    return tuple(batch)
+
+
+def decode_preproc_codes(paths: Sequence[str], size: int, letterbox: bool,
+                         out: Optional[np.ndarray] = None, u8: bool = False,
+                         max_denom: int = 1, exif: bool = False,
+                         imread: bool = False):
+    """:func:`decode_preproc_batch` that does not raise: (batch, orig_ws,
+    orig_hs, scales, pad_xs, pad_ys, codes), codes[i] ``JPEG_OK`` (0) where
+    file i was decoded into slot i, else csrc/jpeg_decode.h's Code and slot
+    i left as it was -- the JAX package's ``ok[i]``."""
+    return tuple(_decode_preproc(paths, size, letterbox, out, u8, max_denom,
+                                 exif, imread)[:-1])
+
+
+def _decode_preproc(paths, size, letterbox, out, u8, max_denom, exif, imread):
     lib = _lib_or_raise()
     _check_denom(max_denom)
     n = len(paths)
@@ -267,12 +316,11 @@ def decode_preproc_batch(paths: Sequence[str], size: int, letterbox: bool,
     msgs = ctypes.create_string_buffer(max(n, 1) * MSG_LEN)
     lib.decode_preproc_batch(c_paths, n, dst.ctypes.data, size,
                              int(letterbox), int(u8), int(max_denom),
-                             int(exif), _threads(n), _i32(orig_ws),
+                             _flags(exif, imread), _threads(n), _i32(orig_ws),
                              _i32(orig_hs),
                              _f32(scales), _f32(pad_xs), _f32(pad_ys),
                              _i32(codes), msgs, MSG_LEN)
-    _raise_first(paths, codes, msgs)
-    return dst, orig_ws, orig_hs, scales, pad_xs, pad_ys
+    return dst, orig_ws, orig_hs, scales, pad_xs, pad_ys, codes, msgs
 
 
 def _owned(lib: ctypes.CDLL, ptr: int, h: int, w: int) -> np.ndarray:
@@ -284,12 +332,14 @@ def _owned(lib: ctypes.CDLL, ptr: int, h: int, w: int) -> np.ndarray:
 
 
 def decode_batch(paths: Sequence[str], threads: Optional[int] = None,
-                 denom: int = 1, exif: bool = False) -> List[np.ndarray]:
+                 denom: int = 1, exif: bool = False,
+                 imread: bool = False) -> List[np.ndarray]:
     """JPEG files -> [uint8 [H, W, 3] RGB, ...], decoded at 1/``denom``
     scale (libjpeg's ``scale_denom``: 1, 2, 4 or 8; H = ceil(height /
     denom), W likewise) with one call on ``threads`` threads (default one
     per file up to the CPU count); with ``exif`` turned by each file's
-    EXIF orientation.  Raises :class:`JpegError` naming the first file
+    EXIF orientation; with ``imread`` CMYK and YCCK files decoded as
+    ``cv2.imread`` decodes them (else they fail).  Raises :class:`JpegError` naming the first file
     that fails."""
     lib = _lib_or_raise()
     _check_denom(denom)
@@ -301,7 +351,8 @@ def decode_batch(paths: Sequence[str], threads: Optional[int] = None,
     ws, hs, codes = (np.zeros(n, np.int32) for _ in range(3))
     msgs = ctypes.create_string_buffer(n * MSG_LEN)
     threads = _threads(n) if threads is None else threads
-    lib.jpeg_decode_batch(c_paths, n, int(threads), int(denom), int(exif),
+    lib.jpeg_decode_batch(c_paths, n, int(threads), int(denom),
+                          _flags(exif, imread),
                           pixels, _i32(ws), _i32(hs), _i32(codes), msgs,
                           MSG_LEN)
     out = [_owned(lib, p, int(h), int(w)) if p else None
@@ -310,7 +361,85 @@ def decode_batch(paths: Sequence[str], threads: Optional[int] = None,
     return out
 
 
-def decode_one(path: str, denom: int = 1, exif: bool = False) -> np.ndarray:
+def decode_one(path: str, denom: int = 1, exif: bool = False,
+               imread: bool = False) -> np.ndarray:
     """One JPEG file -> uint8 [H, W, 3] RGB at 1/``denom`` scale, turned
-    by its EXIF orientation with ``exif``; raises :class:`JpegError`."""
-    return decode_batch([path], threads=1, denom=denom, exif=exif)[0]
+    by its EXIF orientation with ``exif``, CMYK and YCCK decoded with
+    ``imread``; raises :class:`JpegError`."""
+    return decode_batch([path], threads=1, denom=denom, exif=exif,
+                        imread=imread)[0]
+
+
+def _u8(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _png_unfilter(raw: bytes, w: int, h: int, depth: int, color: int,
+                  interlace: int, palette: bytes) -> np.ndarray:
+    lib = _lib_or_raise()
+    src = np.frombuffer(raw, np.uint8)
+    pal = np.frombuffer(palette or bytes(3), np.uint8)
+    rgb = np.empty((h, w, 3), np.uint8)
+    msg = ctypes.create_string_buffer(MSG_LEN)
+    code = lib.png_unfilter(_u8(src), len(src), w, h, depth, color,
+                            interlace, _u8(pal), len(palette) // 3, _u8(rgb),
+                            msg, MSG_LEN)
+    if code != JPEG_OK:
+        from objectdetectionpl_tpu_torch.data.formats import FormatError
+        raise FormatError(msg.value.decode(errors="replace"))
+    return rgb
+
+
+def _exif_orientation(tiff: bytes) -> int:
+    data = np.frombuffer(tiff or bytes(1), np.uint8)
+    return int(_lib_or_raise().exif_orientation(_u8(data), len(tiff)))
+
+
+def orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """uint8 [H, W, 3] turned by an EXIF orientation as ``cv2.imread``
+    turns it (1 and values outside 2..8 leave it as it is)."""
+    if not 2 <= orientation <= 8:
+        return img
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    out = np.empty((w, h, 3) if orientation >= 5 else (h, w, 3), np.uint8)
+    ow, oh = np.zeros(1, np.int32), np.zeros(1, np.int32)
+    _lib_or_raise().image_orient(_u8(img), w, h, int(orientation), _u8(out),
+                                 _i32(ow), _i32(oh))
+    return out
+
+
+def decode_image(path: str, exif: bool = True) -> np.ndarray:
+    """One image file -> uint8 [H, W, 3] RGB, as ``cv2.imread(path)`` (the
+    JAX package's ``load_image_rgb``) reads it: the reader picked by the
+    file's first bytes whatever its name (``formats.sniff``), JPEG by the
+    port's decoder (CMYK and YCCK included), PNG and BMP by
+    ``data/formats.py``, each turned by its EXIF orientation with
+    ``exif``.  Other formats cv2 reads (WebP, TIFF, JPEG 2000, ...) and
+    anything else raise :class:`ImageError` naming the path and the
+    format, as does a file that cv2 would not read either."""
+    from objectdetectionpl_tpu_torch.data import formats
+    try:
+        with open(path, "rb") as f:
+            head = f.read(16)
+            kind = formats.sniff(head)
+            data = head + f.read() if kind in ("PNG", "BMP") else b""
+    except OSError as e:
+        raise ImageError(f"{path}: cannot read the file: {e.strerror}") \
+            from None
+    if kind == "JPEG":
+        return decode_one(path, exif=exif, imread=True)
+    try:
+        if kind == "PNG":
+            img, orientation = formats.read_png(data, _png_unfilter,
+                                                _exif_orientation)
+            return orient(img, orientation) if exif else img
+        if kind == "BMP":
+            return formats.read_bmp(data)
+    except formats.FormatError as e:
+        raise ImageError(f"{path}: {kind}: {e}") from None
+    if kind:
+        raise ImageError(f"{path}: a {kind} image, which the port does not "
+                         f"read (cv2.imread does)")
+    raise ImageError(f"{path}: not an image file (no JPEG, PNG or BMP "
+                     f"signature)")

@@ -1,10 +1,11 @@
 """Shared parser helpers (image IO, VOC-style XML): the port's copy of
 ``objectdetectionpl_tpu/data/parsers/common.py``.
 
-Images decode with the port's JPEG decoder, which equals libjpeg-turbo's
-default decompression to RGB, and are turned by their EXIF orientation as
-``cv2.imread`` turns them (the JAX package's ``load_image_rgb``); a file
-the decoder cannot read raises naming the path.
+Images are read as ``cv2.imread`` (the JAX package's ``load_image_rgb``)
+reads them, by ``native.decode_image``: the reader picked by the file's
+first bytes (JPEG by the port's decoder, PNG and BMP by
+``data/formats.py``), turned by their EXIF orientation; a file it cannot
+read raises ``native.ImageError`` (an ``OSError``) naming the path.
 """
 
 from __future__ import annotations
@@ -20,9 +21,8 @@ from objectdetectionpl_tpu_torch.data.types import Example
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """uint8 RGB HWC, decoded by ``native.decode_one`` and turned by the
-    file's EXIF orientation, as ``cv2.imread`` reads it."""
-    return native.decode_one(path, exif=True)
+    """uint8 RGB HWC as ``cv2.imread`` reads it: ``native.decode_image``."""
+    return native.decode_image(path, exif=True)
 
 
 def parse_voc_xml(xml_path: str, classes: Sequence[str],

@@ -9,12 +9,21 @@ and resizes to the static img_size; all augmentation runs on the device
   cache (``data/cache.py``), with read-ahead of the next batches' pages;
   the Trainer divides by 255 on the device.
 - "fused": a parser with ``record(i) -> (path, boxes, labels)`` (the real
-  datasets): one ``native.decode_preproc_batch`` call a batch, each worker
-  thread decoding a file and resizing it straight into its slot of the
-  float32 batch; a file the decoder cannot read raises, naming the path.
-  A file at least twice img_size on both sides decodes at libjpeg's DCT
-  scale 1/2, 1/4 or 1/8, as the JAX package's fused loader does, and its
-  boxes are normalized against its own (original) size.
+  datasets), whose route the Loader picks for each batch as the JAX
+  package's does.  A batch whose records all end in ``.jpg`` / ``.jpeg``
+  (any case) first goes through one ``native.decode_preproc_codes`` call,
+  each worker thread decoding a file and resizing it straight into its
+  slot of the float32 batch, as libjpeg's RGB decompression does there: a
+  file at least twice img_size on both sides at libjpeg's DCT scale 1/2,
+  1/4 or 1/8, its boxes normalized against its own (original) size; a cut
+  or damaged file decodes as libjpeg decodes it.  If any file of the batch
+  is one that call refuses (CMYK or YCCK, not a JPEG inside, ...), or a
+  record has another name, the whole batch takes the parser route instead:
+  every image read by the parser as ``cv2.imread`` reads it (full scale,
+  EXIF-turned, any format ``native.decode_image`` reads), then resized.
+  ``Loader.fused_batches`` and ``Loader.parser_batches`` count the two; a
+  file that neither route reads raises ``native.ImageError`` (an OSError)
+  naming the path.
 - "parser": other parsers give their images themselves (Synthetic), which
   one ``native.preproc_batch`` call resizes.
 
@@ -193,6 +202,23 @@ class Loader:
         self.decode_path = ("cache" if self.cache is not None else
                             "fused" if hasattr(parser, "record") else
                             "parser")
+        # batches that took each route (decode_path "fused")
+        self.fused_batches = self.parser_batches = 0
+
+    def _fused(self, idx, out: np.ndarray):
+        """The batch of records ``idx`` through the fused call into ``out``,
+        or None when the batch must take the parser route: a record not
+        named .jpg / .jpeg, or a file the call refuses."""
+        recs = [self.parser.record(int(i)) for i in idx]
+        if not all(r[0].lower().endswith((".jpg", ".jpeg")) for r in recs):
+            return None
+        *batch, codes = native.decode_preproc_codes(
+            [r[0] for r in recs], self.img_size, self.letterbox, out,
+            max_denom=native.MAX_DENOM)
+        if codes.any():
+            return None
+        self.fused_batches += 1
+        return (*batch, [r[1] for r in recs], [r[2] for r in recs])
 
     def _shard_len(self) -> int:
         return len(self.indices) // self.num_shards
@@ -239,14 +265,12 @@ class Loader:
         for b in range(len(self)):
             idx = order[b * bs:(b + 1) * bs]
             out = take((len(idx), S, S, 3), np.float32)
+            fused = None
             if self.decode_path == "fused":
-                recs = [self.parser.record(int(i)) for i in idx]
-                imgs, ws, hs, scales, pad_xs, pad_ys = \
-                    native.decode_preproc_batch([r[0] for r in recs], S,
-                                                self.letterbox, out,
-                                                max_denom=native.MAX_DENOM)
-                boxes_px = [r[1] for r in recs]
-                labels_l = [r[2] for r in recs]
+                fused = self._fused(idx, out)
+            if fused is not None:
+                imgs, ws, hs, scales, pad_xs, pad_ys, boxes_px, labels_l = \
+                    fused
             else:
                 examples = [self.parser[int(i)] for i in idx]
                 imgs, scales, pad_xs, pad_ys = preproc(
@@ -255,6 +279,7 @@ class Loader:
                 ws = [ex.image.shape[1] for ex in examples]
                 boxes_px = [ex.boxes for ex in examples]
                 labels_l = [ex.labels for ex in examples]
+                self.parser_batches += self.decode_path == "fused"
             boxes_l = [box_targets(bx, w, h, s, px, py, S, self.letterbox)
                        for bx, w, h, s, px, py in zip(boxes_px, ws, hs,
                                                       scales, pad_xs, pad_ys)]

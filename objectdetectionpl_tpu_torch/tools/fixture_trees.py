@@ -2,14 +2,16 @@
 
 ``data/testdata/`` holds a few small JPEGs, baseline and progressive, two
 1280x720 frames (BDD100K's size, baseline and progressive) and one CMYK
-file, which the decoder must refuse, with the SHA-256 of the decodable
+file (``UNSUPPORTED``: libjpeg's RGB output, the fused route, refuses it,
+cv2.imread and the port's parser route read it), with the SHA-256 of the decodable
 ones' libjpeg decodes (``decoded_sha256.json``).  The functions here lay
 those files out as each parser expects, cycling over ``names`` (by default
 every decodable fixture, from 37x53 to 1280x720; hard links where the file
 system allows, else copies), with annotations of 1-5 boxes per image drawn
 from a seed:
 
-    write_voc_tree(root, n_train=200, n_val=64, seed=0, names=None)
+    write_voc_tree(root, n_train=200, n_val=64, seed=0, names=None,
+                   files=None)
     write_coco_tree(root, n_train=200, n_val=64, seed=0, names=None)
     write_bdd100k_tree(root, n_train=200, n_val=64, seed=0, names=None)
     write_widerperson_tree(root, n_train=200, n_val=64, seed=0, names=None)
@@ -105,21 +107,28 @@ def _voc_xml(path: Path, stem: str, classes: Sequence[str], rng, w: int,
 
 
 def write_voc_tree(root, n_train: int = 200, n_val: int = 64,
-                   seed: int = 0,
-                   names: Optional[Sequence[str]] = None) -> str:
+                   seed: int = 0, names: Optional[Sequence[str]] = None,
+                   files: Optional[Sequence[str]] = None) -> str:
     """``<root>/VOC2012/{JPEGImages, Annotations, ImageSets/Main}`` with
     ``n_train`` ids in train.txt and ``n_val`` in val.txt, the images
-    cycling over the fixtures ``names``.  Returns root."""
+    cycling over the fixtures ``names``, or over the image ``files`` (any
+    format the port reads, each placed as ``<id>.jpg``).  Returns root."""
     rng = np.random.RandomState(seed)
     base = Path(root) / "VOC2012"
     for d in ("JPEGImages", "Annotations", "ImageSets/Main"):
         (base / d).mkdir(parents=True, exist_ok=True)
-    names, shapes = _names(names), fixtures()
+    if files:
+        from objectdetectionpl_tpu_torch.data import native
+        sources = [Path(f) for f in files]
+        sizes = [native.decode_image(str(f)).shape[:2] for f in sources]
+    else:
+        names, shapes = _names(names), fixtures()
+        sources = [TESTDATA / n for n in names]
+        sizes = [shapes[n]["shape"][:2] for n in names]
     ids = [f"{i:06d}" for i in range(n_train + n_val)]
     for i, _id in enumerate(ids):
-        name = names[i % len(names)]
-        h, w = shapes[name]["shape"][:2]
-        _place(TESTDATA / name, base / "JPEGImages" / f"{_id}.jpg")
+        h, w = sizes[i % len(sources)]
+        _place(sources[i % len(sources)], base / "JPEGImages" / f"{_id}.jpg")
         _voc_xml(base / "Annotations" / f"{_id}.xml", _id, VOC_CLASSES, rng,
                  w, h)
     (base / "ImageSets/Main/train.txt").write_text(

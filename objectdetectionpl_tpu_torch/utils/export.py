@@ -9,9 +9,14 @@ else divided) -> forward -> decode -> top-k -> the NMS op
 ``.pt2`` file.  :func:`load` needs only the op registration, not the model
 code.
 
-Unlike JAX's StableHLO, which runs on any backend, a ``.pt2`` holds the
-weights and tables as tensors on the device it was exported on: a program
-exported on the card runs on the card.
+A ``.pt2`` holds the weights and tables as tensors on the device it was
+exported on; :func:`load` moves the program to the device the port's rule
+gives (``device.resolve_device``: the card unless the caller names
+another) -- its parameters, buffers and lifted constants and the
+``device=`` arguments of its nodes -- so that, like JAX's StableHLO, a
+program exported on the card serves on the CPU and the other way round.
+The NMS op then runs the CUDA kernel or its plain version by its inputs'
+device, as it does eagerly.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
+from torch.export.passes import move_to_device_pass
+
+from objectdetectionpl_tpu_torch.device import resolve_device
 
 # registers objdet::greedy_nms, which a loaded program calls
 from objectdetectionpl_tpu_torch.ops.cuda import nms_kernel  # noqa: F401
@@ -96,8 +104,16 @@ def save(path: str, fn: nn.Module, batch: int, img_size: int) -> None:
     torch.export.save(program, path)
 
 
-def load(path: str) -> Callable:
-    """The program saved at ``path`` as a callable: uint8 images of the
-    exported shape, on the exported device -> the tuple of
-    :func:`build_inference_fn`."""
-    return torch.export.load(path).module()
+def load_program(path: str, device=None) -> torch.export.ExportedProgram:
+    """The program saved at ``path``, moved to ``resolve_device(device)``
+    (``torch.export.passes.move_to_device_pass``)."""
+    target = resolve_device(device)
+    program = torch.export.load(path)
+    return move_to_device_pass(program, target)
+
+
+def load(path: str, device=None) -> Callable:
+    """The program saved at ``path`` as a callable on
+    ``resolve_device(device)``: uint8 images of the exported shape on that
+    device -> the tuple of :func:`build_inference_fn`."""
+    return load_program(path, device).module()

@@ -154,10 +154,10 @@ def test_loader_batches_equal_jax(voc_root, coco_root, jax_library,
 
 def test_loader_decodes_a_batch_in_one_call(voc_root, monkeypatch):
     calls = []
-    decode_preproc_batch = native.decode_preproc_batch
-    monkeypatch.setattr(native, "decode_preproc_batch",
+    decode_preproc_codes = native.decode_preproc_codes
+    monkeypatch.setattr(native, "decode_preproc_codes",
                         lambda paths, *a, **kw: calls.append(paths) or
-                        decode_preproc_batch(paths, *a, **kw))
+                        decode_preproc_codes(paths, *a, **kw))
     dm = datamodules.build_datamodule(Config(
         data_module="VOC", data_root=voc_root, batch_size=4, img_size=64))
     loader = dm.train_dataloader()
@@ -165,6 +165,7 @@ def test_loader_decodes_a_batch_in_one_call(voc_root, monkeypatch):
     assert len(calls) == len(batches) == 4
     assert all(len(c) == 4 for c in calls)
     assert all(c[0].endswith(".jpg") for c in calls)
+    assert (loader.fused_batches, loader.parser_batches) == (4, 0)
 
 
 @pytest.mark.parametrize("data_module,name", [
@@ -190,9 +191,13 @@ def test_tree_of_one_fixture(tmp_path, data_module, name):
         write(tmp_path / "bad", names=list(fixture_trees.UNSUPPORTED))
 
 
-def test_loader_raises_naming_a_file_it_cannot_decode(coco_root, tmp_path):
-    """No fallback: a record that is not a JPEG (a PNG named in the COCO
-    annotations) fails the batch with the decoder's error naming it."""
+def test_loader_raises_naming_a_file_it_cannot_decode(coco_root, tmp_path,
+                                                      jax_library):
+    """A record that neither route reads (a broken PNG named in the COCO
+    annotations, which cv2 refuses too) fails its batch with an OSError
+    naming it, as JAX's ``IOError("cannot read image ...")``; a good PNG
+    named ``.jpg`` sends its batch down the parser route, equal to JAX's
+    batch."""
     root = tmp_path / "coco"
     shutil.copytree(coco_root, root)
     ann_file = root / "annotations" / "instances_train2017.json"
@@ -201,12 +206,32 @@ def test_loader_raises_naming_a_file_it_cannot_decode(coco_root, tmp_path):
     ann_file.write_text(json.dumps(ann))
     bad = root / "images" / "train2017" / "not_a_jpeg.png"
     bad.write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(64))
-    loader = datamodules.build_datamodule(Config(
-        data_module="COCO", data_root=str(root), batch_size=4, img_size=64,
-        stage="fit")).train_dataloader()
-    with pytest.raises(native.JpegError,
-                       match=f"^{re.escape(str(bad))}: not a JPEG file"):
+    cfg = dict(data_module="COCO", data_root=str(root), batch_size=4,
+               img_size=64, stage="fit")
+    loader = datamodules.build_datamodule(Config(**cfg)).train_dataloader()
+    with pytest.raises(native.ImageError,
+                       match=f"^{re.escape(str(bad))}: PNG: "):
         _batches(loader)
+    with pytest.raises(OSError, match="cannot read image"):
+        _batches(jax_dm.build_datamodule(JaxConfig(**cfg)).train_dataloader())
+    # the same record a good PNG under a .jpg name
+    good = root / "images" / "train2017" / ann["images"][2]["file_name"]
+    png = root / "images" / "train2017" / "png_named.jpg"
+    png.write_bytes(cv2_png(good))
+    ann["images"][1]["file_name"] = "png_named.jpg"
+    ann_file.write_text(json.dumps(ann))
+    port = datamodules.build_datamodule(Config(**cfg)).train_dataloader()
+    ref = jax_dm.build_datamodule(JaxConfig(**cfg)).train_dataloader()
+    _assert_same_batches(_batches(port), _batches(ref))
+    assert port.parser_batches == 1 and port.fused_batches == len(port) - 1
+
+
+def cv2_png(path) -> bytes:
+    """The image at ``path`` re-encoded as a PNG by cv2."""
+    import cv2
+    ok, buf = cv2.imencode(".png", cv2.imread(str(path)))
+    assert ok
+    return buf.tobytes()
 
 
 @pytest.mark.parametrize("data_module", ["VOC", "COCO"])

@@ -83,7 +83,7 @@ def test_export_roundtrip(tmp_path):
     direct = fn(raw)
     path = str(tmp_path / "m.pt2")
     export_lib.save(path, fn, batch=1, img_size=S)
-    _equal(export_lib.load(path)(raw), direct)
+    _equal(export_lib.load(path, "cpu")(raw), direct)
     assert direct[0].shape == (1, 16, 4) and direct[4].dtype == torch.bool
     assert torch.export.load(path).example_inputs is None
 
@@ -142,7 +142,7 @@ def test_loaded_program_equals_jax_export(tmp_path, name):
     assert fn.fold == (name == "YOLOv5")
     path = str(tmp_path / "m.pt2")
     export_lib.save(path, fn, batch=2, img_size=S)
-    got = export_lib.load(path)(torch.from_numpy(raw))
+    got = export_lib.load(path, "cpu")(torch.from_numpy(raw))
 
     boxes, obj, scores, labels, valid = (np.asarray(w) for w in want)
     assert 0 < valid.sum(axis=1).min()
@@ -211,7 +211,7 @@ def test_cli_export_serves_the_ema_weights(tmp_path, capsys):
     assert out.strip().splitlines()[-1] == (
         f"[predict] exported serving graph to {path}")
     raw = _raw(1, S, seed=2)
-    got = export_lib.load(path)(raw)
+    got = export_lib.load(path, "cpu")(raw)
     _equal(got, ema(raw))
     assert int(got[4].sum()) > 0
     assert not torch.equal(got[0], live(raw)[0])
@@ -223,7 +223,7 @@ import torch
 from objectdetectionpl_tpu_torch.utils import export
 torch.set_num_threads(2)
 program, raw_path, out_path = sys.argv[1:]
-torch.save(export.load(program)(torch.load(raw_path)), out_path)
+torch.save(export.load(program, "cpu")(torch.load(raw_path)), out_path)
 print(json.dumps(sorted(k for k in sys.modules
                         if k.startswith("objectdetectionpl_tpu"))))
 """

@@ -51,7 +51,7 @@ program = torch.export.export(fn, (raw,))    # the first call: a trace
 after = fn(raw)                              # eager, after the trace
 real = [type(t).__name__ for t in after]
 torch.export.save(program, path)
-loaded = export.load(path)(raw)
+loaded = export.load(path, "cpu")(raw)
 blocks._RESIZE_MATRICES.clear()
 nms._ANCHORS.clear()
 fresh = chain()(raw)                         # a chain of empty caches

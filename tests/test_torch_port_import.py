@@ -60,6 +60,7 @@ def test_port_and_chip_smoke_import_no_jax():
             "objectdetectionpl_tpu_torch.data.parsers.container",
             "objectdetectionpl_tpu_torch.data.parsers.asiatraffic",
             "objectdetectionpl_tpu_torch.data.cache",
+            "objectdetectionpl_tpu_torch.data.formats",
             "objectdetectionpl_tpu_torch.cli.predict",
             "objectdetectionpl_tpu_torch.utils.export",
             "objectdetectionpl_tpu_torch.bench",

@@ -12,7 +12,9 @@ quality, size and Huffman optimisation, cv2-made files with restart
 intervals and every sampling layout cv2 writes, grayscale, the colour-space
 rules (an Adobe marker with transform 0, component ids 'R','G','B'), 16-bit
 quantization tables under SOF1, fill bytes before markers; and the files
-that must raise, naming the path (the committed CMYK fixture among them).
+that must raise, naming the path; the committed CMYK fixture, a drawn
+CMYK file and a cut file, which decode as cv2 decodes them (the damaged
+and CMYK/YCCK cases at large are in ``test_torch_port_jpeg_damaged.py``).
 Progressive files, scan scripts and the reduced scales are in
 ``test_torch_port_progressive.py``.
 """
@@ -304,10 +306,13 @@ def _bad_files(tmp_path):
 
 @pytest.mark.parametrize("kind,reason", [
     ("cmyk_fixture", "4 components \\(CMYK or YCCK\\)"),
-    ("cmyk", "4 components"), ("truncated", "truncated file"),
+    ("cmyk", "4 components"),
     ("header_cut", "truncated file"), ("not_jpeg", "not a JPEG file"),
     ("missing", "cannot read the file")])
 def test_unsupported_and_broken_files_raise(tmp_path, kind, reason):
+    """Files that libjpeg's RGB output refuses (CMYK, which cv2.imread reads
+    and the cv2 route decodes: ``test_cmyk_and_truncated_files_decode``),
+    and files that every route refuses."""
     path = str(_bad_files(tmp_path)[kind])
     pattern = f"^{re.escape(path)}: .*{reason}"
     with pytest.raises(native.JpegError, match=pattern):
@@ -317,6 +322,22 @@ def test_unsupported_and_broken_files_raise(tmp_path, kind, reason):
     with pytest.raises(native.JpegError, match=pattern):
         native.decode_preproc_batch([str(TESTDATA / DECODABLE[0]), path],
                                     64, False)
+    if not kind.startswith("cmyk"):
+        with pytest.raises(native.JpegError, match=pattern):
+            native.decode_one(path, imread=True)
+
+
+@pytest.mark.parametrize("kind", ["cmyk_fixture", "cmyk", "truncated"])
+def test_cmyk_and_truncated_files_decode(tmp_path, kind):
+    """The CMYK files and a file cut at half its bytes decode as cv2.imread
+    decodes them (the JAX package's ``load_image_rgb``); the cut file's
+    missing rows are libjpeg's mid-grey."""
+    path = _bad_files(tmp_path)[kind]
+    got = native.decode_one(str(path), imread=True)
+    np.testing.assert_array_equal(got, load_image_rgb(str(path)))
+    if kind == "truncated":
+        assert (got[-8:] == 128).all()
+        np.testing.assert_array_equal(native.decode_one(str(path)), got)
 
 
 def test_decode_batch_equals_decode_one(tmp_path):

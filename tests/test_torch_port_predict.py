@@ -32,8 +32,9 @@
 - ``main`` end to end on a port checkpoint, over every decodable fixture
   (progressive and 1280x720 ones too): one JSON line per image equal to
   ``predict_images`` on the restored state, one PNG panel per image.
-- ``main`` streams: on [good, CMYK, good] the first image's line is
-  printed and its PNG written before the second raises ``JpegError``.
+- ``main`` streams: on [good, cut, good] the first image's line is
+  printed and its PNG written before the second (cut inside its headers)
+  raises ``JpegError``.
 - ``resize_input`` equals the JAX CLI's input bit for bit, with the host
   library and without it, over the decodable fixtures at 64 and 416 px.
 - ``write_png`` read back by PIL, equal.
@@ -267,11 +268,13 @@ def test_main_end_to_end(tmp_path, capsys):
 
 def test_main_prints_and_writes_each_image_before_the_next(tmp_path,
                                                            capsys):
-    """On [good, CMYK, good] the first image's JSON line is printed and its
-    PNG written before the CMYK file (4 components) raises, as the JAX CLI
-    streams image by image."""
+    """On [good, cut, good] the first image's JSON line is printed and its
+    PNG written before the file cut inside its headers (which cv2 refuses
+    too) raises, as the JAX CLI streams image by image."""
     good, other = PATHS[0], PATHS[1]
-    bad = str(fixture_trees.TESTDATA / fixture_trees.UNSUPPORTED[0])
+    bad = str(tmp_path / "header_cut.jpg")
+    with open(good, "rb") as f:
+        open(bad, "wb").write(f.read()[:100])
     out_dir = tmp_path / "preds"
     with pytest.raises(native.JpegError, match=f"^{re.escape(bad)}: "):
         predict.main([YAML, "--set", "model_name", "YOLOv5",
