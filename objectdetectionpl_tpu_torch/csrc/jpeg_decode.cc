@@ -105,6 +105,8 @@ constexpr size_t kEofPad = 65540;    // FF D9 pairs after a file's last byte
 
 struct HuffTable {
   bool defined = false;
+  int max_val = 0;        // the largest symbol (a DC table's is checked at
+                          // the scan that uses it, as libjpeg checks it)
   int32_t maxcode[18];    // largest code of each length, -1 if none
   int32_t valoffset[18];  // symbol index = code + valoffset[length]
   uint8_t vals[256];
@@ -113,7 +115,7 @@ struct HuffTable {
 };
 
 void build_huffman(HuffTable* t, const uint8_t bits[17], const uint8_t* vals,
-                   int nvals, bool dc) {
+                   int nvals) {
   uint8_t size[257];
   uint32_t code_of[257];
   int p = 0;
@@ -152,9 +154,8 @@ void build_huffman(HuffTable* t, const uint8_t bits[17], const uint8_t* vals,
         t->look[look + c] = static_cast<uint16_t>((l << 8) | vals[p]);
     }
   }
-  if (dc)
-    for (int i = 0; i < nvals; ++i)
-      if (vals[i] > 15) fail(JPEG_CORRUPT, "bad DC Huffman table");
+  t->max_val = 0;
+  for (int i = 0; i < nvals; ++i) t->max_val = std::max<int>(t->max_val, vals[i]);
   t->defined = true;
 }
 
@@ -828,6 +829,13 @@ class Decoder {
   // (ceil(height / denom) * ceil(width / denom) * 3 bytes).
   void decode(int denom, uint8_t* rgb) {
     while (!done_) segment();
+    if (lossless_) {
+      if (denom != 1)
+        fail(JPEG_UNSUPPORTED, "a lossless JPEG at scale 1/" +
+                                   std::to_string(denom) +
+                                   " (libjpeg scales no lossless file)");
+      return lossless_output(rgb);
+    }
     smooth_ = smoothing_ok();
     output(8 / denom, rgb);
   }
@@ -868,8 +876,12 @@ class Decoder {
     const int m = c;
     if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA)
       return sof(m);
-    if (m == 0xC3)
+    if (m == 0xC3) {
+      // cv2's libjpeg-turbo 3 reads lossless files; the system libjpeg 2.1
+      // of the JAX package's fused loader refuses them
+      if (imread_) return sof(m);
       fail(JPEG_UNSUPPORTED, "lossless JPEG (SOF marker 0xFFC3)");
+    }
     if (m >= 0xC5 && m <= 0xCF && m != 0xCC)
       fail(JPEG_UNSUPPORTED,
            "SOF marker " + hex_marker(m) +
@@ -955,7 +967,7 @@ class Decoder {
       for (int l = 1; l <= 16; ++l) count += bits[l] = d[i + l];
       i += 17;
       if (count > 256 || len - i < count) fail(JPEG_CORRUPT, "bad DHT table");
-      build_huffman(&huff_[tc][th], bits, d + i, count, tc == 0);
+      build_huffman(&huff_[tc][th], bits, d + i, count);
       i += count;
     }
   }
@@ -996,9 +1008,16 @@ class Decoder {
     height_ = (d[1] << 8) | d[2];
     width_ = (d[3] << 8) | d[4];
     int nf = d[5];
+    lossless_ = m == 0xC3;
+    precision_ = precision;
     // cv2.imread and the JAX package's library both decompress with
-    // libjpeg's 8-bit interface, which refuses other precisions
-    if (precision != 8)
+    // libjpeg's 8-bit interface, which refuses other precisions, but for
+    // lossless files of 2 to 8 bits, whose samples it returns unscaled
+    if (lossless_ && (precision < 2 || precision > 8))
+      fail(JPEG_UNSUPPORTED, std::to_string(precision) +
+                                 "-bit samples (SOF 0xFFC3); cv2 reads "
+                                 "lossless JPEG of 2 to 8 bits");
+    if (!lossless_ && precision != 8)
       fail(JPEG_UNSUPPORTED, std::to_string(precision) + "-bit samples (SOF " +
                                  hex_marker(m) + "); only 8-bit is supported");
     if (nf == 4 && !imread_)
@@ -1026,17 +1045,28 @@ class Decoder {
       vmax_ = std::max(vmax_, c.v);
     }
     // an interleaved scan covers the image in Hmax x Vmax blocks an MCU,
-    // a component's own scan its blocks inside the image (jdinput.c)
-    mcux_ = ceil_div(width_, hmax_ * 8);
-    mcuy_ = ceil_div(height_, vmax_ * 8);
+    // a component's own scan its blocks inside the image (jdinput.c); a
+    // lossless file's blocks are single samples
+    const int unit = lossless_ ? 1 : 8;
+    mcux_ = ceil_div(width_, hmax_ * unit);
+    mcuy_ = ceil_div(height_, vmax_ * unit);
     size_t total = 0;
     for (Component& c : comps_) {
-      c.bw = ceil_div(width_ * c.h, hmax_ * 8);
-      c.bh = ceil_div(height_ * c.v, vmax_ * 8);
+      c.bw = ceil_div(width_ * c.h, hmax_ * unit);
+      c.bh = ceil_div(height_ * c.v, vmax_ * unit);
       c.gw = mcux_ * c.h;
       c.gh = mcuy_ * c.v;
       total += static_cast<size_t>(c.gw) * c.gh * 64;
       std::fill(c.bits, c.bits + 64, -1);
+    }
+    if (lossless_) {
+      for (size_t i = 0; i < comps_.size(); ++i) {
+        const size_t n = static_cast<size_t>(comps_[i].bw) * comps_[i].bh;
+        undiff_[i].assign(n, 0);
+        b_->plane[i].assign(n, 0);
+      }
+      frame_ = true;
+      return;
     }
     b_->coef.assign(total, 0);
     int16_t* next = b_->coef.data();
@@ -1080,6 +1110,13 @@ class Decoder {
                              "interleaved scan");
     const int ss = d[1 + 2 * ns], se = d[2 + 2 * ns],
               ah = d[3 + 2 * ns] >> 4, al = d[3 + 2 * ns] & 15;
+    if (lossless_) {
+      BitReader br(p_, end_);
+      lossless_scan(scan, &br, ss, se, ah, al);
+      p_ = br.marker_start();
+      ++scans_;
+      return;
+    }
     for (Component* c : scan) {
       if (!progressive_ && c->latched)
         fail(JPEG_CORRUPT, "a component in two sequential scans");
@@ -1118,6 +1155,10 @@ class Decoder {
   void need_tables(const Component& c, bool dc, bool ac) const {
     if ((dc && !huff_[0][c.td].defined) || (ac && !huff_[1][c.ta].defined))
       fail(JPEG_UNSUPPORTED, "Huffman table not defined before the scan");
+    // jdhuff.c's jpeg_make_d_derived_tbl: DC categories up to 15, and up
+    // to 16 in a lossless scan
+    if (dc && huff_[0][c.td].max_val > (lossless_ ? 16 : 15))
+      fail(JPEG_CORRUPT, "bad DC Huffman table");
   }
 
   // Runs block(component, coefficients) over the scan's blocks in MCU
@@ -1163,6 +1204,154 @@ class Decoder {
           for (int bx = 0; bx < c->h; ++bx)
             block(c, c->block(my * c->v + by, mx * c->h + bx));
     }
+  }
+
+  // A lossless scan as libjpeg-turbo 3 decodes it (jdlhuff.c, jddiffct.c,
+  // jdlossls.c): each MCU row's sample differences (category 16 is 32768
+  // with no extra bits), then, an iMCU row at a time, each component's
+  // rows undifferenced modulo 2^16 -- a row after the scan's start, a
+  // restart or data that ran out predicts from the left (column 0 from
+  // 2^(P - Al - 1)) and switches the component to predictor Ss (column 0
+  // from above) -- and shifted left by Al into 8-bit samples.  Restart
+  // intervals count MCU rows (DRI / MCUs a row); an MCU row begun after
+  // the data ran out is zero differences.
+  void lossless_scan(const std::vector<Component*>& scan, BitReader* br,
+                     int psv, int se, int ah, int al) {
+    if (psv < 1 || psv > 7 || se != 0 || ah != 0 || al >= precision_)
+      fail(JPEG_CORRUPT, "bad lossless scan parameters Ss=" +
+                             std::to_string(psv) + " Se=" +
+                             std::to_string(se) + " Ah=" + std::to_string(ah) +
+                             " Al=" + std::to_string(al));
+    for (Component* c : scan) need_tables(*c, true, false);
+    const bool single = scan.size() == 1;
+    const size_t ns = scan.size();
+    const int mcux = single ? scan[0]->bw : mcux_;
+    std::vector<int> width(ns);               // one iMCU row's diff row
+    std::vector<std::vector<int32_t>> diff(ns);
+    for (size_t k = 0; k < ns; ++k) {
+      width[k] = single ? mcux : mcux * scan[k]->h;
+      diff[k].assign(static_cast<size_t>(width[k]) * scan[k]->v, 0);
+    }
+    std::vector<bool> first_row(ns, true);
+    const uint32_t rows_per_restart =
+        static_cast<uint32_t>(restart_interval_) / static_cast<uint32_t>(mcux);
+    uint32_t rows_to_go = rows_per_restart;
+    int next_rst = 0;
+    const int initial = 1 << (precision_ - al - 1);
+    auto reset = [&] { std::fill(first_row.begin(), first_row.end(), true); };
+    auto get_diff = [&](const HuffTable& t) -> int32_t {
+      const int s = br->decode(t);
+      if (s == 16) return 32768;
+      return s ? extend(br->get(s), s) : 0;
+    };
+    for (int m = 0; m < mcuy_; ++m) {
+      const bool last = m == mcuy_ - 1;
+      const int mcu_rows = single ? (last ? scan[0]->bh - m * scan[0]->v
+                                          : scan[0]->v)
+                                  : 1;
+      for (int y = 0; y < mcu_rows; ++y) {
+        if (restart_interval_ && rows_to_go == 0) {
+          br->restart(next_rst);
+          next_rst = (next_rst + 1) & 7;
+          reset();
+          rows_to_go = rows_per_restart;
+        }
+        if (br->insufficient()) {
+          if (single)
+            std::fill_n(diff[0].begin() + static_cast<size_t>(y) * mcux, mcux,
+                        0);
+          else
+            for (auto& d : diff) std::fill(d.begin(), d.end(), 0);
+          reset();
+        } else if (single) {
+          const HuffTable& t = huff_[0][scan[0]->td];
+          int32_t* d = diff[0].data() + static_cast<size_t>(y) * mcux;
+          for (int x = 0; x < mcux; ++x) d[x] = get_diff(t);
+        } else {
+          for (int mx = 0; mx < mcux; ++mx)
+            for (size_t k = 0; k < ns; ++k) {
+              const Component* c = scan[k];
+              const HuffTable& t = huff_[0][c->td];
+              for (int by = 0; by < c->v; ++by)
+                for (int bx = 0; bx < c->h; ++bx)
+                  diff[k][static_cast<size_t>(by) * width[k] + mx * c->h +
+                          bx] = get_diff(t);
+            }
+        }
+        if (restart_interval_) --rows_to_go;
+      }
+      for (size_t k = 0; k < ns; ++k) {
+        const Component* c = scan[k];
+        const int ci = static_cast<int>(c - comps_.data());
+        const int rows = last ? c->bh - m * c->v : c->v;
+        for (int r = 0; r < rows; ++r) {
+          const int y = m * c->v + r;
+          const int32_t* d = diff[k].data() + static_cast<size_t>(r) * width[k];
+          uint16_t* u = undiff_[ci].data() + static_cast<size_t>(y) * c->bw;
+          const uint16_t* p = u - c->bw;
+          int ra;
+          if (first_row[k]) {
+            ra = (d[0] + initial) & 0xFFFF;
+            u[0] = static_cast<uint16_t>(ra);
+            for (int x = 1; x < c->bw; ++x)
+              u[x] = static_cast<uint16_t>(ra = (d[x] + ra) & 0xFFFF);
+            first_row[k] = false;
+          } else {
+            int rb = p[0], rc;
+            ra = (d[0] + rb) & 0xFFFF;
+            u[0] = static_cast<uint16_t>(ra);
+            for (int x = 1; x < c->bw; ++x) {
+              rc = rb;
+              rb = p[x];
+              int pred;
+              switch (psv) {
+                case 1: pred = ra; break;
+                case 2: pred = rb; break;
+                case 3: pred = rc; break;
+                case 4: pred = ra + rb - rc; break;
+                case 5: pred = ra + ((rb - rc) >> 1); break;
+                case 6: pred = rb + ((ra - rc) >> 1); break;
+                default: pred = (ra + rb) >> 1; break;
+              }
+              u[x] = static_cast<uint16_t>(ra = (d[x] + pred) & 0xFFFF);
+            }
+          }
+          uint8_t* o = b_->plane[ci].data() + static_cast<size_t>(y) * c->bw;
+          for (int x = 0; x < c->bw; ++x)
+            o[x] = static_cast<uint8_t>(u[x] << al);
+        }
+      }
+    }
+  }
+
+  // A lossless file's output: libjpeg-turbo converts no colour space in
+  // lossless mode (jdcolor.c), so cv2's BGR request takes 3 components as
+  // RGB (its default for lossless files but under an Adobe transform
+  // other than 0, YCbCr, which it refuses), a grey file fails, and 4
+  // components are CMYK (YCCK fails); subsampled components are
+  // replicated (no "fancy" upsampling for 1-sample blocks).
+  void lossless_output(uint8_t* rgb) {
+    const int nf = static_cast<int>(comps_.size());
+    if (nf == 1)
+      fail(JPEG_UNSUPPORTED, "a grey lossless JPEG, which cv2.imread refuses "
+                             "(libjpeg converts no colour space of a "
+                             "lossless file)");
+    if (adobe_ && adobe_transform_ != 0)
+      fail(JPEG_UNSUPPORTED, std::string("a lossless JPEG in ") +
+                                 (nf == 3 ? "YCbCr" : "YCCK") +
+                                 ", which cv2.imread refuses (libjpeg "
+                                 "converts no colour space of a lossless "
+                                 "file)");
+    View views[4];
+    for (int i = 0; i < nf; ++i) {
+      Component& c = comps_[i];
+      c.ssize = 1;
+      c.dw = c.stride = c.bw;
+      c.dh = c.bh;
+      views[i] = upsample(c, b_->plane[i].data(), &b_->full[i], width_,
+                          height_, 1);
+    }
+    convert(views, width_, height_, rgb);
   }
 
   void sequential_scan(const std::vector<Component*>& scan, BitReader* br) {
@@ -1798,6 +1987,7 @@ class Decoder {
   // libjpeg's default colour space for 3 components: JFIF means YCbCr, an
   // Adobe marker's transform 0 means RGB, else component ids 'R','G','B'.
   bool is_rgb() const {
+    if (lossless_) return true;
     if (jfif_) return false;
     if (adobe_) return adobe_transform_ == 0;
     return comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B';
@@ -1811,6 +2001,9 @@ class Decoder {
   bool smooth_ = false;    // libjpeg's block smoothing applies
   int last_good_ = -1;     // jdcoefct.c's last_good_iMCU_row
   bool frame_ = false, progressive_ = false, arith_ = false, done_ = false;
+  bool lossless_ = false;  // SOF3: 1-sample blocks, undiff_ the samples
+  int precision_ = 8;
+  std::vector<uint16_t> undiff_[4];
   bool jfif_ = false, adobe_ = false, has_orientation_ = false;
   int adobe_transform_ = -1, orientation_ = 0;
   int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;

@@ -163,6 +163,118 @@ def _rle8(index: np.ndarray) -> bytes:
     return bytes(out[:-2]) + b"\x00\x01"
 
 
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def _pack_bits(values: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Codes of ``lengths`` bits (MSB first) -> bytes, the last padded
+    with 1 bits, 0xFF stuffed with 0x00 (JPEG entropy-coded data)."""
+    top = int(lengths.max()) if len(lengths) else 0
+    shifts = np.arange(top - 1, -1, -1)
+    bits = (values[:, None] >> np.maximum(shifts - (top - lengths[:, None]),
+                                          0)) & 1
+    bits = bits[shifts[None, :] >= top - lengths[:, None]]
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, bits.dtype)])
+    out = np.packbits(bits.astype(np.uint8)).tobytes()
+    return out.replace(b"\xff", b"\xff\x00")
+
+
+def _lossless_predict(x: np.ndarray, psv: int, first: np.ndarray,
+                      initial: int) -> np.ndarray:
+    """The predictions T.81 H.1.2.1 (libjpeg-turbo's jdlossls.c) makes for
+    the samples ``x`` [h, w]: rows where ``first`` is set (a scan's first
+    row, or the first after a restart) predict from the left, from
+    ``initial`` in column 0; other rows' column 0 from above."""
+    x = x.astype(np.int64)
+    ra = np.roll(x, 1, 1)
+    rb = np.roll(x, 1, 0)
+    rc = np.roll(rb, 1, 1)
+    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[psv].copy()
+    pred[:, 0] = rb[:, 0]
+    pred[first] = ra[first]
+    pred[first, 0] = initial
+    return pred
+
+
+def lossless_jpeg_bytes(planes, psv: int = 1, al: int = 0,
+                        restart_rows: int = 0, sampling=None,
+                        precision: int = 8, ids=None, app: bytes = b"",
+                        size=None) -> bytes:
+    """Component planes (each [ceil(H v / Vmax), ceil(W h / Hmax)] samples
+    in [0, 2**precision); or one [H, W, C] array at 1x1 sampling) -> a
+    lossless (SOF3) Huffman JPEG of one interleaved scan: predictor
+    ``psv`` (1..7), point transform ``al`` (the samples' low ``al`` bits
+    dropped), a restart marker every ``restart_rows`` MCU rows, the
+    components' ``sampling`` factors [(h, v), ...], ids ``ids`` (default
+    1, 2, 3: YCbCr to a reader without JFIF or Adobe marker), ``app``
+    segments after SOI, the image's (H, W) ``size`` (default the first
+    plane's).  The difference categories 0..16 are 5-bit codes."""
+    if not isinstance(planes, (list, tuple)):
+        img = np.asarray(planes)
+        img = img[..., None] if img.ndim == 2 else img
+        planes = [img[..., c] for c in range(img.shape[2])]
+    planes = [np.asarray(p, np.int64) >> al for p in planes]
+    nc = len(planes)
+    sampling = sampling or [(1, 1)] * nc
+    ids = ids or list(range(1, nc + 1))
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    height, width = size or planes[0].shape
+    mcux, mcuy = -(-width // hmax), -(-height // vmax)
+    single = nc == 1
+    if single:
+        mcux, mcuy = planes[0].shape[1], planes[0].shape[0]
+        sampling = [(1, 1)]
+    initial = 1 << (precision - al - 1)
+    diffs = []          # per component: [mcuy * v, mcux * h], 0 past it
+    for p, (h, v) in zip(planes, sampling):
+        rows = np.arange(p.shape[0])
+        first = rows % v == 0
+        first &= (rows // v) % restart_rows == 0 if restart_rows else \
+            rows == 0
+        d = (p - _lossless_predict(p, psv, first, initial)) & 0xFFFF
+        full = np.zeros((mcuy * v, mcux * h), np.int64)
+        full[:p.shape[0], :p.shape[1]] = d
+        diffs.append(full)
+    order = []          # each MCU row's differences in MCU order
+    for m in range(mcuy):
+        parts = [d[m * v:(m + 1) * v].reshape(v, mcux, h).transpose(1, 0, 2)
+                 .reshape(mcux, v * h) for d, (h, v) in zip(diffs, sampling)]
+        order.append(np.concatenate(parts, 1).reshape(-1))
+    sym_bits = 5
+    data = b""
+    interval = restart_rows or mcuy
+    for k, start in enumerate(range(0, mcuy, interval)):
+        d = np.concatenate(order[start:start + interval])
+        signed = np.where(d >= 32768, d - 65536, d)
+        a = np.abs(signed)
+        cat = np.where(a > 0, np.floor(np.log2(np.maximum(a, 1))) + 1,
+                       0).astype(np.int64)
+        cat[d == 32768] = 16
+        mag = np.where(signed >= 0, signed, signed + (1 << cat) - 1)
+        extra = np.where((cat > 0) & (cat < 16), cat, 0)
+        values = cat << extra | np.where(extra > 0, mag, 0)
+        data += _pack_bits(values, sym_bits + extra)
+        if start + interval < mcuy:
+            data += bytes([0xFF, 0xD0 + (k & 7)])
+    dc_bits = bytearray(16)
+    dc_bits[sym_bits - 1] = 17
+    return (b"\xff\xd8" + app
+            + _segment(0xC3, bytes([precision]) + struct.pack(
+                ">HH", height, width) + bytes([nc]) + b"".join(
+                    bytes([i, h << 4 | v, 0])
+                    for i, (h, v) in zip(ids, sampling)))
+            + _segment(0xC4, b"\x00" + bytes(dc_bits) + bytes(range(17)))
+            + (_segment(0xDD, struct.pack(">H", restart_rows * mcux))
+               if restart_rows else b"")
+            + _segment(0xDA, bytes([nc]) + b"".join(bytes([i, 0])
+                                                    for i in ids)
+                       + bytes([psv, 0, al]))
+            + data + b"\xff\xd9")
+
+
 def write_format_files(directory) -> Dict[str, str]:
     """Every kind of ``KINDS`` written under ``directory``: {kind: path}."""
     d = Path(directory)

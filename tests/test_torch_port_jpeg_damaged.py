@@ -1,7 +1,6 @@
 """The port's JPEG decoder on the files a scraped tree holds besides clean
 8-bit YCbCr ones: CMYK and YCCK, cut and damaged files, arithmetic coding,
-and the kinds every reader refuses (12-bit samples) or the port still
-does (lossless).
+lossless files, and the kinds every reader refuses (12-bit samples).
 
 Two references, as in the JAX package: the parser route is
 ``load_image_rgb`` (``cv2.imread``, cv2's bundled libjpeg-turbo), the
@@ -32,8 +31,12 @@ sizes that make both pick the denominators 1, 2, 4 and 8.
 - 12-bit samples (SOF1, P=12) from :func:`encode_sequential`, this file's
   extended-sequential Huffman encoder, whose 8-bit output cv2 reads back
   to the pixels it was given: cv2, JAX's library and the port all refuse.
-- Lossless (SOF3) from :func:`encode_lossless`: cv2 reads it, the port
-  refuses it, naming it (an open item of ROADMAP §C).
+- Lossless (SOF3) from :func:`encode_lossless`: predictors 1-7, point
+  transforms 0-3, restart intervals, sampling factors, CMYK, 2 to 7 bits,
+  cut and damaged files, read as cv2 reads them on the parser route; the
+  fused route refuses them, as JAX's libjpeg 2.1 does; grey, YCbCr under
+  an Adobe transform, 9 to 16 bits and arithmetic lossless (SOF11) raise,
+  as cv2 refuses them.
 """
 
 import re
@@ -48,6 +51,7 @@ from objectdetectionpl_tpu.data import native as jax_native
 from objectdetectionpl_tpu.data.parsers.common import load_image_rgb
 from objectdetectionpl_tpu_torch.data import native
 from objectdetectionpl_tpu_torch.tools.fixture_trees import TESTDATA
+from objectdetectionpl_tpu_torch.tools.format_files import lossless_jpeg_bytes
 from test_torch_port_data import jax_library  # noqa: F401
 from test_torch_port_jpeg import smooth_image
 
@@ -470,35 +474,11 @@ def encode_sequential(img: np.ndarray, precision: int = 12,
             + bits.flush() + b"\xff\xd9")
 
 
-def encode_lossless(img: np.ndarray) -> bytes:
-    """An 8-bit image -> a lossless (SOF3) JPEG, predictor 1 (the left
-    sample; the row above in column 0), difference categories in 5
-    bits."""
-    img = np.asarray(img, np.int64)
-    img = img[..., None] if img.ndim == 2 else img
-    h, w, nc = img.shape
-    bits = _Bits()
-    for y in range(h):
-        for x in range(w):
-            for c in range(nc):
-                p = (128 if x == y == 0 else img[y - 1, x, c] if x == 0
-                     else img[y, x - 1, c])
-                d = (int(img[y, x, c] - p) + 32768) % 65536 - 32768
-                s = _category(d)
-                bits.put(s, 5)
-                if 0 < s < 16:
-                    bits.put(_magnitude(d, s), s)
-    dc_bits = bytearray(16)
-    dc_bits[4] = 17
-    return (b"\xff\xd8"
-            + _segment(0xC3, b"\x08" + struct.pack(">HH", h, w) + bytes([nc])
-                       + b"".join(bytes([c + 1, 0x11, 0])
-                                  for c in range(nc)))
-            + _segment(0xC4, b"\x00" + bytes(dc_bits) + bytes(range(17)))
-            + _segment(0xDA, bytes([nc]) + b"".join(bytes([c + 1, 0])
-                                                    for c in range(nc))
-                       + b"\x01\x00\x00")
-            + bits.flush() + b"\xff\xd9")
+def encode_lossless(img, **kw) -> bytes:
+    """An image (or component planes) -> a lossless (SOF3) JPEG through
+    ``tools/format_files.py::lossless_jpeg_bytes``: predictor ``psv``,
+    point transform ``al``, restart rows, sampling, precision."""
+    return lossless_jpeg_bytes(img, **kw)
 
 
 def test_sequential_encoder_is_read_by_cv2(tmp_path):
@@ -532,6 +512,9 @@ def test_12_bit_files_are_refused_by_every_reader(tmp_path, jax_library,
 
 def test_lossless_is_read_by_cv2_and_refused_by_the_port(tmp_path,
                                                          jax_library):
+    """cv2's libjpeg-turbo 3 reads a lossless file and so does the port's
+    parser route; the fused route refuses it, as the system libjpeg 2.1
+    of JAX's fused loader does, so its batch takes the parser route."""
     rng = np.random.RandomState(5)
     img = rng.randint(0, 256, (5, 7, 3))
     path = str(tmp_path / "lossless.jpg")
@@ -539,9 +522,103 @@ def test_lossless_is_read_by_cv2_and_refused_by_the_port(tmp_path,
         f.write(encode_lossless(img))
     assert load_image_rgb(path).shape == (5, 7, 3)
     assert not jax_native.decode_preproc_batch([path], 4, False)[-1][0]
+    codes = native.decode_preproc_codes([path], 4, False, max_denom=8)[-1]
+    assert codes[0] == 2                            # JPEG_UNSUPPORTED
     with pytest.raises(native.JpegError,
                        match=f"^{re.escape(path)}: lossless JPEG"):
-        native.decode_image(path)
+        native.decode_one(path)
+    assert _cv2_route(path)
+    np.testing.assert_array_equal(native.decode_image(path), img)
+
+
+def _lossless_case(tmp_path, data, name="ll.jpg"):
+    path = str(tmp_path / name)
+    with open(path, "wb") as f:
+        f.write(data)
+    return _cv2_route(path)
+
+
+@pytest.mark.parametrize("psv", range(1, 8))
+@pytest.mark.parametrize("al", range(4))
+def test_lossless_predictors_and_point_transforms(tmp_path, psv, al):
+    rng = np.random.RandomState(psv * 4 + al)
+    img = smooth_image(13, 17, rng, 3)
+    for restart_rows in (0, 1, 3):
+        assert _lossless_case(tmp_path, encode_lossless(
+            img, psv=psv, al=al, restart_rows=restart_rows))
+
+
+# (sampling of the 3 components, restart rows, predictor); each plane is
+# ceil(H h / Hmax) x ceil(W v / Vmax) samples of an 11 x 13 image
+LOSSLESS_SAMPLING = [([(2, 2), (1, 1), (1, 1)], 0, 1),
+                     ([(2, 2), (1, 1), (1, 1)], 1, 6),
+                     ([(2, 2), (1, 1), (1, 1)], 2, 7),
+                     ([(2, 1), (1, 1), (1, 1)], 1, 5),
+                     ([(1, 2), (1, 1), (1, 1)], 0, 4),
+                     ([(1, 1), (2, 2), (1, 1)], 3, 2)]
+
+
+@pytest.mark.parametrize("sampling,restart_rows,psv", LOSSLESS_SAMPLING)
+def test_lossless_sampling_factors(tmp_path, sampling, restart_rows, psv):
+    rng = np.random.RandomState(psv)
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    planes = [rng.randint(0, 256, (-(-11 * v // vmax), -(-13 * h // hmax)))
+              for h, v in sampling]
+    assert _lossless_case(tmp_path, encode_lossless(
+        planes, psv=psv, restart_rows=restart_rows, sampling=sampling,
+        size=(11, 13)))
+
+
+# what cv2 refuses (libjpeg-turbo converts no colour space of a lossless
+# file, reads 2 to 8 bits with its 8-bit interface, and has no arithmetic
+# lossless decoder) and what it reads
+ADOBE = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00"
+
+
+@pytest.mark.parametrize("kind,read", [
+    ("grey", False), ("cmyk", True), ("ycbcr_adobe", False),
+    ("rgb_adobe", True), ("p2", True), ("p5", True), ("p7", True),
+    ("p9", False), ("p12", False), ("p16", False), ("sof11", False),
+    ("out_of_range", True), ("out_of_range_al2", True)])
+def test_lossless_kinds(tmp_path, kind, read):
+    rng = np.random.RandomState(len(kind))
+    img = rng.randint(0, 256, (9, 11, 3))
+    if kind == "grey":
+        data = encode_lossless(img[..., 0])
+    elif kind == "cmyk":
+        data = encode_lossless(rng.randint(0, 256, (6, 5, 4)))
+    elif kind.endswith("_adobe"):
+        data = encode_lossless(img, app=ADOBE + bytes([kind == "ycbcr_adobe"]))
+    elif kind.startswith("p"):
+        bits = int(kind[1:])
+        data = encode_lossless(rng.randint(0, 1 << bits, (9, 11, 3)),
+                               precision=bits, al=1)
+    elif kind == "sof11":
+        data = bytearray(encode_lossless(img))
+        data[data.index(b"\xff\xc3") + 1] = 0xCB
+        data = bytes(data)
+    else:                                   # 16-bit samples, 8-bit output
+        data = encode_lossless(rng.randint(0, 65536, (7, 9, 3)),
+                               al=2 if kind.endswith("al2") else 0)
+    assert _lossless_case(tmp_path, data) == read
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_lossless_cut_and_damaged(tmp_path, seed):
+    """Cut at 8 offsets and 8 bit flips of the scan data, with restarts:
+    libjpeg's zero differences after the data ran out, each such row
+    predicted afresh, and its resync."""
+    rng = np.random.RandomState(seed)
+    data = encode_lossless(smooth_image(20, 24, rng, 3), psv=1 + seed,
+                           restart_rows=seed)
+    scan = data.index(b"\xff\xda") + 14
+    for cut in rng.randint(scan, len(data), 8):
+        assert _lossless_case(tmp_path, data[:cut])
+    for _ in range(8):
+        flipped = bytearray(data)
+        flipped[rng.randint(scan, len(data) - 2)] ^= 1 << rng.randint(8)
+        _lossless_case(tmp_path, bytes(flipped))
 
 
 def test_formats_fixtures_match_recipe(tmp_path, writer):
