@@ -303,3 +303,168 @@ def _rle(data: bytes, offset: int, w: int, h: int, palette: np.ndarray,
             if y >= h:
                 break
     return img
+
+
+# ---------------------------------------------------------------------------
+# WebP
+
+def _le24(b: bytes, at: int) -> int:
+    return b[at] | b[at + 1] << 8 | b[at + 2] << 16
+
+
+def _le32(b: bytes, at: int) -> int:
+    return struct.unpack("<I", b[at:at + 4])[0]
+
+
+_VP8X_FLAGS = 0x3E      # ICC, alpha, EXIF, XMP, animation
+
+
+def _webp_chunks(data: bytes, pos: int, end: int):
+    """(tag, payload offset, payload size) of each whole chunk from pos."""
+    while pos + 8 <= end:
+        size = _le32(data, pos + 4)
+        if pos + 8 + size > end:
+            raise FormatError(f"the file ends inside the {data[pos:pos + 4]!r}"
+                              f" chunk")
+        yield data[pos:pos + 4], pos + 8, size
+        pos += 8 + size + (size & 1)
+
+
+def _webp_image(data: bytes, at: int, size: int) -> Tuple[str, int, int]:
+    """A VP8 or VP8L chunk's kind and size from its header, checked as
+    libwebp's WebPGetFeatures checks it."""
+    body = data[at:at + size]
+    if data[at - 8:at - 4] == b"VP8 ":
+        if size < 10 or body[3:6] != b"\x9d\x01\x2a":
+            raise FormatError("bad VP8 frame header")
+        bits = _le24(body, 0)
+        if bits & 1 or (bits >> 1) & 7 > 3 or not (bits >> 4) & 1 or \
+                bits >> 5 >= size:
+            raise FormatError("bad VP8 frame header")
+        w = struct.unpack("<H", body[6:8])[0] & 0x3FFF
+        h = struct.unpack("<H", body[8:10])[0] & 0x3FFF
+        if not w or not h:
+            raise FormatError("a VP8 frame of size 0")
+        return "VP8", w, h
+    if size < 5 or body[0] != 0x2F or body[4] >> 5:
+        raise FormatError("bad VP8L header")
+    v = _le32(body, 1)
+    return "VP8L", (v & 0x3FFF) + 1, (v >> 14 & 0x3FFF) + 1
+
+
+def _webp_frame_chunks(data: bytes, chunks) -> Tuple[Optional[tuple], tuple]:
+    """A frame's (ALPH chunk or None, image chunk) as libwebp's demuxer
+    stores them: at most one ALPH, then the VP8 or VP8L chunk (a VP8L
+    after an ALPH is an error); anything else ends the frame."""
+    alpha = None
+    for chunk in chunks:
+        tag = chunk[0]
+        if tag == b"ALPH" and alpha is None:
+            alpha = chunk
+        elif tag in (b"VP8 ", b"VP8L"):
+            if tag == b"VP8L" and alpha is not None:
+                raise FormatError("an ALPH chunk before a VP8L image")
+            return alpha, chunk
+        else:
+            break
+    raise FormatError("a frame without a VP8 or VP8L chunk")
+
+
+def read_webp(data: bytes, vp8, vp8l, vp8l_alpha, exif_orientation
+              ) -> Tuple[np.ndarray, int]:
+    """WebP bytes -> (uint8 [H, W, 3] RGB, EXIF orientation or 0), as
+    cv2.imread reads them through libwebp: the RIFF size bounds the file
+    (a file shorter than it fails, bytes past it are ignored); a simple
+    file's first chunk is VP8 or VP8L; a VP8X file's canvas must be its
+    image's size, the last ALPH chunk before a VP8 image must decode
+    (libwebp decodes it for cv2's BGRA output, whose alpha cv2 then
+    drops), and with the EXIF flag the first EXIF chunk's orientation
+    turns the image.  An animation gives its first frame on a canvas of
+    transparent black.  The host library's ``vp8(body, w, h)``,
+    ``vp8l(body, w, h)`` and ``vp8l_alpha(stream, w, h)`` decode the
+    bitstreams."""
+    if len(data) < 12:
+        raise FormatError("the file ends inside the RIFF header")
+    riff = _le32(data, 4)
+    if riff < 12 or riff > 0xFFFFFFF6:
+        raise FormatError(f"RIFF size {riff}")
+    if riff > len(data) - 8:
+        raise FormatError("the file ends before its RIFF size")
+    end = riff + 8
+    first = data[12:16]
+
+    def decode(alpha, image) -> np.ndarray:
+        _, at, size = image
+        kind, w, h = _webp_image(data, at, size)
+        body = data[at:at + size]
+        if kind == "VP8L":
+            return vp8l(body, w, h)
+        if alpha is not None:              # libwebp decodes it, cv2 drops it
+            stream = data[alpha[1]:alpha[1] + alpha[2]]
+            if len(stream) <= 1:
+                raise FormatError("an empty ALPH chunk")
+            method, pre, rsrv = stream[0] & 3, stream[0] >> 4 & 3, \
+                stream[0] >> 6
+            if method > 1 or pre > 1 or rsrv:
+                raise FormatError(f"bad ALPH header {stream[0]:#04x}")
+            if method == 0 and len(stream) - 1 < w * h:
+                raise FormatError("the ALPH chunk ends early")
+            if method == 1:
+                vp8l_alpha(stream[1:], w, h)
+        return vp8(body, w, h)
+
+    if first != b"VP8X":
+        chunks = list(_webp_chunks(data, 12, end))
+        if not chunks or chunks[0][0] not in (b"VP8 ", b"VP8L"):
+            raise FormatError("no VP8 or VP8L chunk first")
+        return decode(None, chunks[0]), 0
+    if len(data) < 30 or _le32(data, 16) != 10:
+        raise FormatError("bad VP8X chunk")
+    flags = _le32(data, 20)
+    cw, ch = _le24(data, 24) + 1, _le24(data, 27) + 1
+    chunks = list(_webp_chunks(data, 30, end))
+    orientation = 0
+    if flags & 0x08:
+        for tag, at, size in chunks:
+            if tag == b"EXIF":
+                orientation = exif_orientation(data[at:at + size])
+                break
+    if not flags & 0x02:
+        # libwebp's decoder skips other chunks up to the image, the last
+        # ALPH before it holding a VP8 image's alpha
+        alpha = None
+        for chunk in chunks:
+            if chunk[0] == b"ALPH":
+                alpha = chunk
+            elif chunk[0] in (b"VP8 ", b"VP8L"):
+                _, w, h = _webp_image(data, chunk[1], chunk[2])
+                if (w, h) != (cw, ch):
+                    raise FormatError(f"a {w}x{h} image on a {cw}x{ch} "
+                                      f"canvas")
+                return decode(alpha, chunk), orientation
+        raise FormatError("no VP8 or VP8L chunk")
+    # an animation, as libwebp's demuxer checks it (ANIM before the
+    # frames, each frame's image inside the canvas at its offset) and its
+    # animation decoder gives the first frame: on transparent black
+    frames = []
+    for tag, at, size in chunks:
+        if tag == b"ANIM" and size < 6:
+            raise FormatError("a short ANIM chunk")
+        if tag == b"ANMF":
+            if not any(c[0] == b"ANIM" and c[1] < at for c in chunks):
+                raise FormatError("an ANMF chunk before the ANIM chunk")
+            if size < 16:
+                raise FormatError("a short ANMF chunk")
+            alpha, image = _webp_frame_chunks(
+                data, _webp_chunks(data, at + 16, at + size))
+            _, w, h = _webp_image(data, image[1], image[2])
+            x, y = 2 * _le24(data, at), 2 * _le24(data, at + 3)
+            if x + w > cw or y + h > ch:
+                raise FormatError("a frame outside the canvas")
+            frames.append((x, y, w, h, alpha, image))
+    if not frames:
+        raise FormatError("an animation without frames")
+    x, y, w, h, alpha, image = frames[0]
+    canvas = np.zeros((ch, cw, 3), np.uint8)
+    canvas[y:y + h, x:x + w] = decode(alpha, image)
+    return canvas, orientation

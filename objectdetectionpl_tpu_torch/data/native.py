@@ -58,7 +58,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parents[2]
 CSRC = REPO / "objectdetectionpl_tpu_torch" / "csrc"
 SOURCES = (CSRC / "preproc.cc", CSRC / "jpeg_decode.cc",
-           CSRC / "png_decode.cc")
+           CSRC / "png_decode.cc", CSRC / "webp_decode.cc")
 HEADERS = (CSRC / "jpeg_decode.h",)
 BUILD_DIR = REPO / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
@@ -177,6 +177,13 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.image_orient.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, u8p, i32p, i32p]
     lib.image_orient.restype = None
+    lib.webp_vp8.argtypes = [u8p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                             u8p, ctypes.c_char_p, ctypes.c_int]
+    lib.webp_vp8.restype = ctypes.c_int
+    lib.webp_vp8l.argtypes = [u8p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, u8p, ctypes.c_char_p,
+                              ctypes.c_int]
+    lib.webp_vp8l.restype = ctypes.c_int
     _lib = lib
     return _lib
 
@@ -390,6 +397,37 @@ def _png_unfilter(raw: bytes, w: int, h: int, depth: int, color: int,
     return rgb
 
 
+def _format_error(msg) -> Exception:
+    from objectdetectionpl_tpu_torch.data.formats import FormatError
+    return FormatError(msg.value.decode(errors="replace"))
+
+
+def _webp_vp8(body: bytes, w: int, h: int) -> np.ndarray:
+    src = np.frombuffer(body, np.uint8)
+    rgb = np.empty((h, w, 3), np.uint8)
+    msg = ctypes.create_string_buffer(MSG_LEN)
+    if _lib_or_raise().webp_vp8(_u8(src), len(src), w, h, _u8(rgb), msg,
+                                MSG_LEN):
+        raise _format_error(msg)
+    return rgb
+
+
+def _webp_vp8l(body: bytes, w: int, h: int, headerless: bool = False
+               ) -> Optional[np.ndarray]:
+    src = np.frombuffer(body or bytes(1), np.uint8)
+    rgb = None if headerless else np.empty((h, w, 3), np.uint8)
+    msg = ctypes.create_string_buffer(MSG_LEN)
+    if _lib_or_raise().webp_vp8l(_u8(src), len(body), int(headerless), w, h,
+                                 None if rgb is None else _u8(rgb), msg,
+                                 MSG_LEN):
+        raise _format_error(msg)
+    return rgb
+
+
+def _webp_alpha(stream: bytes, w: int, h: int) -> None:
+    _webp_vp8l(stream, w, h, headerless=True)
+
+
 def _exif_orientation(tiff: bytes) -> int:
     data = np.frombuffer(tiff or bytes(1), np.uint8)
     return int(_lib_or_raise().exif_orientation(_u8(data), len(tiff)))
@@ -409,6 +447,9 @@ def orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return out
 
 
+_READERS = ("PNG", "BMP", "WebP")    # formats.py's, besides JPEG
+
+
 def decode_image(path: str, exif: bool = True) -> np.ndarray:
     """One image file -> uint8 [H, W, 3] RGB, as ``cv2.imread(path)`` (the
     JAX package's ``load_image_rgb``) reads it: the reader picked by the
@@ -423,7 +464,7 @@ def decode_image(path: str, exif: bool = True) -> np.ndarray:
         with open(path, "rb") as f:
             head = f.read(16)
             kind = formats.sniff(head)
-            data = head + f.read() if kind in ("PNG", "BMP") else b""
+            data = head + f.read() if kind in _READERS else b""
     except OSError as e:
         raise ImageError(f"{path}: cannot read the file: {e.strerror}") \
             from None
@@ -436,6 +477,10 @@ def decode_image(path: str, exif: bool = True) -> np.ndarray:
             return orient(img, orientation) if exif else img
         if kind == "BMP":
             return formats.read_bmp(data)
+        if kind == "WebP":
+            img, orientation = formats.read_webp(
+                data, _webp_vp8, _webp_vp8l, _webp_alpha, _exif_orientation)
+            return orient(img, orientation) if exif else img
     except formats.FormatError as e:
         raise ImageError(f"{path}: {kind}: {e}") from None
     if kind:
