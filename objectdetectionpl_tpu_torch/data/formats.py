@@ -38,7 +38,8 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # what cv2.imread reads but the port does not: (name, test on the head)
 _OTHERS = (
     ("WebP", lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP"),
-    ("TIFF", lambda h: h[:4] in (b"II*\x00", b"MM\x00*")),
+    ("TIFF", lambda h: h[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00",
+                                 b"MM\x00+")),
     ("JPEG 2000", lambda h: h[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n"
      or h[:4] == b"\xff\x4f\xff\x51"),
     ("AVIF", lambda h: h[4:8] == b"ftyp" and h[8:12] in (b"avif", b"avis")),
@@ -468,3 +469,286 @@ def read_webp(data: bytes, vp8, vp8l, vp8l_alpha, exif_orientation
     canvas = np.zeros((ch, cw, 3), np.uint8)
     canvas[y:y + h, x:x + w] = decode(alpha, image)
     return canvas, orientation
+
+
+# ---------------------------------------------------------------------------
+# TIFF
+
+# entry type -> (struct code, bytes)
+_TIFF_TYPE = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4),
+              5: ("II", 8), 6: ("b", 1), 7: ("B", 1), 8: ("h", 2),
+              9: ("i", 4), 10: ("ii", 8), 11: ("f", 4), 12: ("d", 8),
+              13: ("I", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
+_COMPRESSIONS = {1: "none", 5: "LZW", 8: "Deflate", 32946: "Deflate",
+                 32773: "PackBits", 2: "CCITT RLE", 3: "CCITT Group 3",
+                 4: "CCITT Group 4", 6: "old JPEG", 7: "JPEG",
+                 34676: "SGI LogLuv", 34677: "SGI LogL", 32809: "ThunderScan",
+                 32766: "NeXT", 34925: "LZMA", 50000: "Zstandard",
+                 50001: "WebP", 34712: "JPEG 2000", 34892: "lossy JPEG"}
+_PHOTOMETRICS = {0: "MINISWHITE", 1: "MINISBLACK", 2: "RGB", 3: "palette",
+                 4: "mask", 5: "CMYK", 6: "YCbCr", 8: "CIELab",
+                 9: "ICCLab", 10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
+
+
+def _tiff_ifd(data: bytes) -> dict:
+    """The first IFD of a classic or BigTIFF file: {tag: [values]}."""
+    e = "<" if data[:2] == b"II" else ">"
+    big = struct.unpack(e + "H", data[2:4])[0] == 43
+    try:
+        if big:
+            if struct.unpack(e + "HH", data[4:8]) != (8, 0):
+                raise FormatError("bad BigTIFF header")
+            at = struct.unpack(e + "Q", data[8:16])[0]
+            count = struct.unpack(e + "Q", data[at:at + 8])[0]
+            at, size, inline = at + 8, 20, 8
+        else:
+            at = struct.unpack(e + "I", data[4:8])[0]
+            count = struct.unpack(e + "H", data[at:at + 2])[0]
+            at, size, inline = at + 2, 12, 4
+    except struct.error:
+        raise FormatError("the file ends inside its first IFD") from None
+    if count == 0 or at + count * size > len(data):
+        raise FormatError("the file ends inside its first IFD")
+    tags = {}
+    for k in range(count):
+        ent = data[at + k * size:at + (k + 1) * size]
+        tag, typ = struct.unpack(e + "HH", ent[:4])
+        n = struct.unpack(e + ("Q" if big else "I"), ent[4:4 + inline])[0]
+        if typ not in _TIFF_TYPE:
+            continue
+        code, width = _TIFF_TYPE[typ]
+        nbytes = n * width
+        if nbytes <= inline:
+            raw = ent[4 + inline:4 + inline + nbytes]
+        else:
+            off = struct.unpack(e + ("Q" if big else "I"),
+                                ent[4 + inline:4 + 2 * inline])[0]
+            raw = data[off:off + nbytes]
+            if len(raw) < nbytes:
+                raise FormatError(f"the file ends inside tag {tag}'s values")
+        tags[tag] = list(struct.unpack(e + code * n, raw))
+    return tags, e
+
+
+def _tiff_kind(photometric: int, bits, compression: int) -> str:
+    return (f"a TIFF image ({_PHOTOMETRICS.get(photometric, photometric)}, "
+            f"{'/'.join(map(str, sorted(set(bits))))}-bit samples, "
+            f"{_COMPRESSIONS.get(compression, compression)} compression)")
+
+
+_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
+                     np.uint8)
+
+
+def read_tiff(data: bytes, lzw, packbits) -> np.ndarray:
+    """TIFF bytes (classic or BigTIFF, either byte order) -> uint8 [H, W,
+    3] RGB, as cv2.imread reads the first page: through libtiff's RGBA
+    interface (TIFFReadRGBAStrip / Tile), which cv2 asks for whenever its
+    output is 8-bit.  That interface takes grey (MINISBLACK, MINISWHITE
+    inverted) at 1, 8 and 16 bits (16-bit grey by its high byte; grey in
+    tiles whose right part is clipped as libtiff's grey routines misstep
+    over it), planar grey and RGB at 8 and 16 bits (16-bit samples become
+    (v + 128) // 257) with alpha (associated: kept; unassociated:
+    multiplied into the colour, as libtiff's UaToAa table rounds it; a
+    fourth RGB sample without an ExtraSamples tag, or an unspecified one
+    past 3 samples, counts as associated), and palettes of 1, 4 and 8 bits
+    (a colour map with any entry above 255 is read by its high byte); cv2
+    refuses 2- and 4-bit grey.  Strips or tiles, chunky or
+    planar, compressions none, LZW (the host library's ``lzw``),
+    Deflate (zlib) and PackBits (``packbits``); predictor 2 (horizontal
+    differencing, 8 and 16 bits) only where libtiff's codec honours it
+    (LZW and Deflate), FillOrder 2 uncompressed (each byte's bits
+    reversed).  The
+    Orientation tag: 2 and 3 flip each strip or tile left to right (the
+    RGBA reader's flip), 3 and 4 then flip the image upside down (cv2's);
+    cv2 fails on 5 to 8 (a turned image of another shape), and so does
+    this reader.  Other kinds raise :class:`FormatError`
+    naming themselves."""
+    tags, e = _tiff_ifd(data)
+
+    def one(tag, default=None):
+        v = tags.get(tag)
+        return v[0] if v else default
+
+    w, h = one(256), one(257)
+    if not w or not h:
+        raise FormatError("no ImageWidth or ImageLength")
+    spp = one(277, 1)
+    bits = tags.get(258) or [1] * spp
+    compression = one(259, 1)
+    photometric = one(262)
+    if photometric is None:
+        photometric = 1 if spp == 1 else 2 if spp == 3 else None
+        if photometric is None:
+            raise FormatError("no PhotometricInterpretation")
+    kind = _tiff_kind(photometric, bits, compression)
+    bps = bits[0]
+    planar = one(284, 1) if spp > 1 else 1
+    predictor = one(317, 1) if compression in (5, 8, 32946) else 1
+    sample_format = one(339, 1)
+    if compression not in (1, 5, 8, 32946, 32773):
+        raise FormatError(f"{kind}, which the port does not read")
+    if photometric not in (0, 1, 2, 3):
+        raise FormatError(f"{kind}, which the port does not read")
+    # cv2 takes 1, 8 and 16 bits, and 4 in a palette
+    if len(set(bits)) != 1 or bps not in ((1, 4, 8) if photometric == 3
+                                          else (1, 8, 16)) or \
+            sample_format not in (1,) or planar not in (1, 2):
+        raise FormatError(f"{kind} of sample format {sample_format}, planar "
+                          f"configuration {planar}, which the port does not "
+                          f"read")
+    if predictor not in (1, 2) or (predictor == 2 and bps < 8):
+        raise FormatError(f"{kind} with predictor {predictor}, which the "
+                          f"port does not read")
+    if photometric == 2 and spp > 4:
+        raise FormatError(f"{kind} of {spp} samples, which cv2 does not "
+                          f"read either")
+    if photometric == 2 and (bps < 8 or spp < 3):
+        raise FormatError(f"{kind} of {spp} samples, which cv2 does not "
+                          f"read either")
+    if photometric == 3 and len(tags.get(320, ())) != 3 << bps:
+        raise FormatError(f"{kind} without a colour map of {1 << bps} "
+                          f"entries")
+    if photometric in (0, 1, 3) and spp > 1 and (bps < 8 or (
+            planar == 2 and photometric == 3)):
+        raise FormatError(f"{kind} of {spp} samples, which the port does "
+                          f"not read")
+    # libtiff's alpha: ExtraSamples' first, unspecified counting as
+    # associated past 3 samples, and a fourth RGB sample without the tag
+    extra = tags.get(338) or []
+    if extra:
+        alpha = extra[0] if extra[0] in (1, 2) else int(spp > 3)
+    else:
+        alpha = int(spp == 4 and photometric == 2)
+    # libtiff's grey "put" routines step over a tile's clipped right part
+    # by its width in samples, not bytes: each row after the first reads
+    # from where it lands (a no-op for one 8-bit sample)
+    skewed = photometric in (0, 1) and planar == 1
+    fill_order = one(266, 1)
+    if fill_order == 2 and compression != 1:
+        raise FormatError(f"{kind} with FillOrder 2, which the port does "
+                          f"not read")
+    orientation = one(274, 1)
+    if orientation in (5, 6, 7, 8):
+        raise FormatError(f"{kind} with Orientation {orientation}, which "
+                          f"cv2.imread fails on")
+    tiled = 322 in tags
+    if tiled:
+        tw, th = one(322), one(323)
+        offsets, counts = tags.get(324), tags.get(325)
+        if not tw or not th or tw % 16 or th % 16:
+            raise FormatError(f"bad tile size {tw}x{th}")
+        across, down = -(-w // tw), -(-h // th)
+    else:
+        rps = min(one(278, h) or h, h)
+        offsets, counts = tags.get(273), tags.get(279)
+        tw, th, across, down = w, rps, 1, -(-h // rps)
+    nplanes = spp if planar == 2 else 1
+    chunk_spp = 1 if planar == 2 else spp
+    if not offsets or not counts or \
+            len(offsets) < across * down * nplanes or \
+            len(counts) < across * down * nplanes:
+        raise FormatError("missing or short strip or tile offsets")
+    row_bytes = (tw * chunk_spp * bps + 7) // 8
+    dtype = np.dtype(e + "u2") if bps == 16 else np.dtype(np.uint8)
+    planes = np.zeros((nplanes, h, w, chunk_spp), np.uint16)
+    for p in range(nplanes):
+        for k in range(across * down):
+            ty, tx = divmod(k, across)
+            rows = th if tiled else min(th, h - ty * th)
+            size = row_bytes * rows
+            i = p * across * down + k
+            raw = data[offsets[i]:offsets[i] + counts[i]]
+            if fill_order == 2:                 # libtiff reverses the bits
+                raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
+            if compression == 1:
+                if len(raw) < size:
+                    raise FormatError("the file ends inside a strip or tile")
+                buf = raw[:size]
+            elif compression == 5:
+                buf = lzw(raw, size)
+            elif compression == 32773:
+                buf = packbits(raw, size)
+            else:
+                try:
+                    buf = zlib.decompressobj().decompress(raw, size)
+                except zlib.error as err:
+                    raise FormatError(f"Deflate: {err}") from None
+                if len(buf) < size:
+                    raise FormatError("Deflate data end before the strip "
+                                      "is full")
+            if bps >= 8:
+                s = np.frombuffer(buf, dtype).reshape(rows, tw, chunk_spp)
+                if predictor == 2:
+                    s = np.cumsum(s, axis=1, dtype=dtype)
+                if skewed and tiled and w - tx * tw < tw:
+                    s = _tiff_skew(s, w - tx * tw, bps)
+            else:
+                bitrows = np.unpackbits(np.frombuffer(buf, np.uint8).reshape(
+                    rows, row_bytes), axis=1)[:, :tw * bps]
+                s = (bitrows.reshape(rows, tw, bps)
+                     * (1 << np.arange(bps - 1, -1, -1))).sum(-1)[..., None]
+            y0, x0 = ty * th, tx * tw
+            hh, ww = min(rows, h - y0), min(tw, w - x0)
+            s = s[:hh, :ww]
+            if orientation in (2, 3):           # libtiff's RGBA reader
+                s = s[:, ::-1]                  # flips each strip or tile
+            planes[p, y0:y0 + hh, x0:x0 + ww] = s
+    samples = planes[:, ..., 0].transpose(1, 2, 0) if planar == 2 \
+        else planes[0]
+    img = _tiff_rgb(samples, photometric, bps, tags, planar, alpha)
+    if orientation in (3, 4):                   # and cv2 the whole image
+        img = img[::-1]
+    return np.ascontiguousarray(img)
+
+
+def _tiff_skew(s: np.ndarray, ww: int, bps: int) -> np.ndarray:
+    """A tile [rows, tw, spp] as libtiff's skewed grey routines read its
+    first ``ww`` columns: row r from byte r * (ww * pixel bytes + tw -
+    ww), the grey sample at each pixel's first byte (8-bit) or the high
+    byte of the little-endian word there (16-bit, held as v << 8)."""
+    rows, tw, spp = s.shape
+    raw = np.ascontiguousarray(s.astype("<u2" if bps == 16 else np.uint8)
+                               ).view(np.uint8).reshape(-1)
+    pixel = spp * (2 if bps == 16 else 1)
+    at = (np.arange(rows)[:, None] * (ww * pixel + tw - ww)
+          + np.arange(ww)[None, :] * pixel)
+    out = np.zeros_like(s)
+    out[:, :ww, 0] = raw[at + 1].astype(np.uint16) << 8 if bps == 16 \
+        else raw[at]
+    return out
+
+
+def _to8(v: np.ndarray, bps: int) -> np.ndarray:
+    """libtiff's Bitdepth16To8 for 16-bit samples."""
+    return ((v.astype(np.int64) + 128) // 257) if bps == 16 else v
+
+
+def _tiff_rgb(samples: np.ndarray, photometric: int, bps: int,
+              tags: dict, planar: int, alpha: int) -> np.ndarray:
+    """Samples [H, W, spp] -> RGB as libtiff's RGBA "put" routines make
+    it (tif_getimage.c)."""
+    spp = samples.shape[2]
+    if photometric in (0, 1) and planar == 1:   # grey: the BW map
+        g = samples[..., 0].astype(np.int64)
+        if bps == 16:
+            g >>= 8                             # the high byte
+        top = 255 if bps >= 8 else (1 << bps) - 1
+        g = (top - g if photometric == 0 else g) * 255 // top
+        return np.repeat(g.astype(np.uint8)[..., None], 3, -1)
+    if photometric == 3:                        # palette
+        n = 1 << bps
+        cmap = np.asarray(tags[320], np.int64)
+        if len(cmap) < 3 * n:
+            raise FormatError("a short colour map")
+        cmap = cmap[:3 * n].reshape(3, n)
+        if (cmap >= 256).any():
+            cmap = cmap >> 8
+        return cmap.T.astype(np.uint8)[samples[..., 0]]
+    # RGB, and planar grey, which libtiff reads as RGB from one plane
+    channels = 3 if photometric == 2 else 1
+    rgb = _to8(samples[..., :channels], bps).astype(np.int64)
+    if spp > channels and alpha == 2:           # unassociated: premultiply
+        a = _to8(samples[..., channels:channels + 1], bps).astype(np.int64)
+        rgb = (rgb * a + 127) // 255
+    return np.repeat(rgb, 3 // channels, -1).astype(np.uint8)

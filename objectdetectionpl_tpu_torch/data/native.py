@@ -58,7 +58,8 @@ import numpy as np
 REPO = Path(__file__).resolve().parents[2]
 CSRC = REPO / "objectdetectionpl_tpu_torch" / "csrc"
 SOURCES = (CSRC / "preproc.cc", CSRC / "jpeg_decode.cc",
-           CSRC / "png_decode.cc", CSRC / "webp_decode.cc")
+           CSRC / "png_decode.cc", CSRC / "webp_decode.cc",
+           CSRC / "tiff_decode.cc")
 HEADERS = (CSRC / "jpeg_decode.h",)
 BUILD_DIR = REPO / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
@@ -184,6 +185,11 @@ def _load() -> Optional[ctypes.CDLL]:
                               ctypes.c_int, u8p, ctypes.c_char_p,
                               ctypes.c_int]
     lib.webp_vp8l.restype = ctypes.c_int
+    for name in ("tiff_lzw", "tiff_packbits"):
+        fn = getattr(lib, name)
+        fn.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64,
+                       ctypes.c_char_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
     _lib = lib
     return _lib
 
@@ -428,6 +434,21 @@ def _webp_alpha(stream: bytes, w: int, h: int) -> None:
     _webp_vp8l(stream, w, h, headerless=True)
 
 
+def _tiff_codec(name: str):
+    def decode(raw: bytes, size: int) -> bytes:
+        src = np.frombuffer(raw or bytes(1), np.uint8)
+        dst = np.empty(max(size, 1), np.uint8)
+        msg = ctypes.create_string_buffer(MSG_LEN)
+        if getattr(_lib_or_raise(), name)(_u8(src), len(raw), _u8(dst), size,
+                                          msg, MSG_LEN):
+            raise _format_error(msg)
+        return dst[:size].tobytes()
+    return decode
+
+
+_tiff_lzw, _tiff_packbits = _tiff_codec("tiff_lzw"), _tiff_codec("tiff_packbits")
+
+
 def _exif_orientation(tiff: bytes) -> int:
     data = np.frombuffer(tiff or bytes(1), np.uint8)
     return int(_lib_or_raise().exif_orientation(_u8(data), len(tiff)))
@@ -447,7 +468,7 @@ def orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return out
 
 
-_READERS = ("PNG", "BMP", "WebP")    # formats.py's, besides JPEG
+_READERS = ("PNG", "BMP", "WebP", "TIFF")   # formats.py's, besides JPEG
 
 
 def decode_image(path: str, exif: bool = True) -> np.ndarray:
@@ -481,10 +502,12 @@ def decode_image(path: str, exif: bool = True) -> np.ndarray:
             img, orientation = formats.read_webp(
                 data, _webp_vp8, _webp_vp8l, _webp_alpha, _exif_orientation)
             return orient(img, orientation) if exif else img
+        if kind == "TIFF":
+            return formats.read_tiff(data, _tiff_lzw, _tiff_packbits)
     except formats.FormatError as e:
         raise ImageError(f"{path}: {kind}: {e}") from None
     if kind:
         raise ImageError(f"{path}: a {kind} image, which the port does not "
                          f"read (cv2.imread does)")
-    raise ImageError(f"{path}: not an image file (no JPEG, PNG or BMP "
-                     f"signature)")
+    raise ImageError(f"{path}: not an image file (no JPEG, PNG, BMP, WebP "
+                     f"or TIFF signature)")

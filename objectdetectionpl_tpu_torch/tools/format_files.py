@@ -275,6 +275,194 @@ def lossless_jpeg_bytes(planes, psv: int = 1, al: int = 0,
             + data + b"\xff\xd9")
 
 
+# ---------------------------------------------------------------------------
+# TIFF
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW (MSB first, 9 to 12-bit codes widened as libtiff's
+    decoder expects, a Clear code first and when the table is full, EOI
+    last)."""
+    out, acc, nacc = bytearray(), 0, 0
+    width, table = 9, {bytes([i]): i for i in range(256)}
+    nxt = 258
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = acc << width | code
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append(acc >> nacc & 0xFF)
+
+    put(256)
+    w = b""
+    for i in range(len(data)):
+        c = data[i:i + 1]
+        if w + c in table:
+            w += c
+            continue
+        put(table[w])
+        table[w + c] = nxt
+        nxt += 1
+        if nxt == 1 << width and width < 12:
+            width += 1
+        if nxt == 4094:
+            put(256)
+            table = {bytes([k]): k for k in range(256)}
+            nxt, width = 258, 9
+        w = c
+    if w:
+        put(table[w])
+        nxt += 1
+        if nxt == 1 << width and width < 12:
+            width += 1
+    put(257)
+    if nacc:
+        out.append(acc << (8 - nacc) & 0xFF)
+    return bytes(out)
+
+
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 2-128 equal bytes, literals of up to 128."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        run = 1
+        while i + run < n and run < 128 and data[i + run] == data[i]:
+            run += 1
+        if run > 1:
+            out += bytes([257 - run, data[i]])
+            i += run
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n and data[j] == data[j + 1]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+_TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 16: "Q"}
+
+
+def tiff_bytes(samples, bits: int = 8, photometric: int = 2,
+               compression: int = 1, predictor: int = 1, planar: int = 1,
+               rows_per_strip=None, tile=None, big_endian: bool = False,
+               bigtiff: bool = False, extra_samples=None, colormap=None,
+               orientation=None, pages=1, extra_tags=None) -> bytes:
+    """samples [H, W, C] (ints at ``bits`` bits) -> a TIFF: strips of
+    ``rows_per_strip`` rows (default all) or ``tile`` (w, h) tiles,
+    chunky (planar 1) or planar (2), compression 1, 5 (LZW), 8 / 32946
+    (Deflate) or 32773 (PackBits), predictor 2 (horizontal differencing
+    at 8 and 16 bits), MM or II byte order, classic or BigTIFF, with
+    ExtraSamples, a ColorMap (3 x 2**bits 16-bit entries), an
+    Orientation, and ``pages`` copies of the IFD (each page's pixels
+    inverted).  ``extra_tags`` {tag: (type, [values])} adds or replaces
+    entries."""
+    samples = np.asarray(samples, np.int64)
+    h, w, spp = samples.shape
+    e = ">" if big_endian else "<"
+    dt = np.dtype(e + ("u2" if bits == 16 else "u1"))
+
+    def rows_bytes(block):
+        """[rows, cols, c] -> packed rows (predictor applied)."""
+        block = block.copy()
+        if predictor == 2:
+            block[:, 1:] = block[:, 1:] - block[:, :-1]
+            block &= (1 << bits) - 1
+        if bits >= 8:
+            return block.astype(dt).tobytes()
+        return b"".join(pack(r, bits) for r in block)
+
+    def compress(raw: bytes) -> bytes:
+        if compression == 5:
+            return lzw_encode(raw)
+        if compression in (8, 32946):
+            return zlib.compress(raw)
+        if compression == 32773:
+            return packbits_encode(raw)
+        return raw
+
+    def page_chunks(img):
+        planes = [img[..., c:c + 1] for c in range(spp)] if planar == 2 \
+            else [img]
+        chunks = []
+        for plane in planes:
+            if tile:
+                tw, th = tile
+                for ty in range(0, h, th):
+                    for tx in range(0, w, tw):
+                        t = np.zeros((th, tw, plane.shape[2]), np.int64)
+                        part = plane[ty:ty + th, tx:tx + tw]
+                        t[:part.shape[0], :part.shape[1]] = part
+                        chunks.append(compress(rows_bytes(t)))
+            else:
+                rps = rows_per_strip or h
+                for y in range(0, h, rps):
+                    chunks.append(compress(rows_bytes(plane[y:y + rps])))
+        return chunks
+
+    off_fmt = "Q" if bigtiff else "I"
+    head = ((b"MM" if big_endian else b"II")
+            + (struct.pack(e + "HHHQ", 43, 8, 0, 16) if bigtiff
+               else struct.pack(e + "HI", 42, 8)))
+    out = bytearray(head)
+    link_at = None                           # where the previous IFD links
+    for page in range(pages):
+        img = samples if page == 0 else (1 << bits) - 1 - samples
+        chunks = page_chunks(img)
+        data_at = len(out)
+        offsets = []
+        for c in chunks:
+            offsets.append(len(out))
+            out += c + bytes(len(c) & 1)
+        tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
+                259: (3, [compression]), 262: (3, [photometric]),
+                277: (3, [spp]), 284: (3, [planar])}
+        if tile:
+            tags.update({322: (4, [tile[0]]), 323: (4, [tile[1]]),
+                         324: (16 if bigtiff else 4, offsets),
+                         325: (4, [len(c) for c in chunks])})
+        else:
+            tags.update({273: (16 if bigtiff else 4, offsets),
+                         278: (4, [rows_per_strip or h]),
+                         279: (4, [len(c) for c in chunks])})
+        if predictor != 1:
+            tags[317] = (3, [predictor])
+        if extra_samples is not None:
+            tags[338] = (3, list(extra_samples))
+        if colormap is not None:
+            tags[320] = (3, list(np.asarray(colormap).reshape(-1)))
+        if orientation is not None:
+            tags[274] = (3, [orientation])
+        tags.update(extra_tags or {})
+        del data_at
+        # the values that do not fit in the entry go before the IFD
+        inline = 8 if bigtiff else 4
+        entries = []
+        for tag in sorted(tags):
+            typ, vals = tags[tag]
+            raw = struct.pack(e + _TIFF_TYPES[typ] * len(vals), *vals) \
+                if typ != 2 else bytes(vals)
+            if len(raw) > inline:
+                at = len(out)
+                out += raw + bytes(len(raw) & 1)
+                raw = struct.pack(e + off_fmt, at)
+            entries.append((tag, typ, len(vals), raw.ljust(inline, b"\0")))
+        ifd_at = len(out)
+        if link_at is not None:
+            out[link_at:link_at + inline] = struct.pack(e + off_fmt, ifd_at)
+        else:
+            out[len(head) - inline:len(head)] = struct.pack(e + off_fmt,
+                                                            ifd_at)
+        out += struct.pack(e + ("Q" if bigtiff else "H"), len(entries))
+        for tag, typ, count, raw in entries:
+            out += struct.pack(e + ("HHQ" if bigtiff else "HHI"), tag, typ,
+                               count) + raw
+        link_at = len(out)
+        out += bytes(inline)
+    return bytes(out)
+
+
 def write_format_files(directory) -> Dict[str, str]:
     """Every kind of ``KINDS`` written under ``directory``: {kind: path}."""
     d = Path(directory)

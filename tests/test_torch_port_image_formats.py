@@ -1,6 +1,7 @@
 """``native.decode_image`` -- the port's ``load_image_rgb`` -- against the
 JAX package's ``load_image_rgb`` (``cv2.imread``) on PNG and BMP files, bit
-for bit, and on the formats the port refuses.
+for bit, and on the other formats cv2 reads (WebP and TIFF have files of
+their own, ``test_torch_port_webp.py`` and ``test_torch_port_tiff.py``).
 
 - PNG written by ``tools/format_files.py::png_bytes`` (which
   :func:`test_png_writer_is_read_by_cv2` holds to cv2 on the pixels it was
@@ -18,8 +19,9 @@ for bit, and on the formats the port refuses.
   its row, the OS/2 header, odd widths (row padding).
 - ``format_files.write_format_files``: every kind's decode equals cv2's
   and the SHA-256 recorded for ``chip_smoke.py formats``.
-- WebP, TIFF, JPEG 2000 and PNM files (written by cv2) raise naming the
-  format; a file with no signature raises.
+- WebP and TIFF files written by cv2 read as cv2 reads them; JPEG 2000,
+  PNM, Sun raster and Radiance HDR files raise naming the format; a file
+  with no signature raises.
 """
 
 import hashlib
@@ -288,8 +290,13 @@ def test_bmp_rle(tmp_path, four, name):
 # the formats the port refuses
 
 @pytest.mark.parametrize("ext,name", [(".webp", "WebP"), (".tiff", "TIFF"),
-                                      (".jp2", "JPEG 2000"), (".ppm", "PNM")])
+                                      (".jp2", "JPEG 2000"), (".ppm", "PNM"),
+                                      (".ras", "Sun raster"),
+                                      (".hdr", "Radiance HDR")])
 def test_other_formats_raise_naming_the_format(tmp_path, ext, name):
+    """cv2.imwrite's file of each other format, under its name and a .jpg
+    one: the formats the port reads (WebP, TIFF) equal cv2's decode; the
+    others raise naming the format."""
     rng = np.random.RandomState(1)
     img = rng.randint(0, 256, (64, 64, 3)).astype(np.uint8)
     path = tmp_path / f"img{ext}"
@@ -298,6 +305,9 @@ def test_other_formats_raise_naming_the_format(tmp_path, ext, name):
     named = tmp_path / "img.jpg"                             # any name
     named.write_bytes(path.read_bytes())
     for p in (path, named):
+        if name in ("WebP", "TIFF"):
+            assert _assert_like_jax(p) is not None
+            continue
         with pytest.raises(native.ImageError,
                            match=f"^{p}: a {name} image, which the port"):
             common.load_image_rgb(str(p))
@@ -306,7 +316,8 @@ def test_other_formats_raise_naming_the_format(tmp_path, ext, name):
 def test_no_signature_raises(tmp_path):
     path = tmp_path / "x.jpg"
     path.write_bytes(b"GIF89a" + bytes(40))
-    with pytest.raises(OSError, match="no JPEG, PNG or BMP signature"):
+    with pytest.raises(OSError,
+                       match="no JPEG, PNG, BMP, WebP or TIFF signature"):
         common.load_image_rgb(str(path))
     with pytest.raises(OSError, match="cannot read the file"):
         common.load_image_rgb(str(tmp_path / "missing.png"))
