@@ -183,9 +183,11 @@ exits non-zero:
 10a'. formats -- the files a scraped tree holds
    (``tools/format_files.py``: a baseline JPEG, CMYK, YCCK, arithmetic
    sequential and progressive, a cut baseline JPEG, a cut progressive one
-   (block smoothing), a damaged JPEG, PNG RGB 8-bit,
+   (block smoothing), a damaged JPEG, a lossless JPEG, PNG RGB 8-bit,
    grey 16-bit Adam7, 4-bit palette, a PNG named .jpg, BMP 24-bit and
-   RLE8): each decoded by ``native.decode_image`` (the port's
+   RLE8, WebP VP8, VP8L and VP8X with alpha, TIFF LZW strips, Deflate
+   tiles, an 8-bit palette and 16-bit RGB): each decoded by
+   ``native.decode_image`` (the port's
    ``load_image_rgb``), its SHA-256 held against cv2's recorded in
    ``data/testdata/formats/sha256.json``, with its host ms per image on
    this machine's CPU (median of ``FORMATS_DECODE_REPS``) and whether the

@@ -7,16 +7,23 @@ The kinds (``KINDS``): a baseline JPEG; the CMYK fixture and the committed
 YCCK and arithmetic-coded (sequential, progressive) fixtures, which the
 system libjpeg wrote; a JPEG cut at half its bytes, a progressive one cut
 in its sixth scan (libjpeg smooths its blocks) and one with bit flips in
-its scan data; PNGs (RGB 8-bit, grey 16-bit Adam7, a 4-bit palette with
-tRNS, and an RGB PNG named ``.jpg``); BMPs (24-bit, RLE8).  Every file is
+its scan data; a lossless JPEG (predictor 6, restart markers); PNGs (RGB
+8-bit, grey 16-bit Adam7, a 4-bit palette with tRNS, and an RGB PNG
+named ``.jpg``); BMPs (24-bit, RLE8); the committed WebP files, which
+cv2.imwrite wrote (VP8 at quality 75, VP8L, VP8X with a lossless-coded
+ALPH chunk); TIFFs (RGB LZW strips with predictor 2, Deflate tiles, an
+8-bit palette in PackBits and MM order, 16-bit RGB LZW in a BigTIFF).  Every file is
 made the same way on every machine, so the SHA-256 of each one's decode
 (``data/testdata/formats/sha256.json``, cv2's decodes, which
 ``tests/test_torch_port_image_formats.py`` holds against cv2 and the
 port) checks the port's reader wherever it runs.
 
-``png_bytes``, ``chunk`` and ``bmp_bytes`` are the writers: PNG of any colour type,
-bit depth and interlace, each row with a filter of its own (None, Sub,
-Up, Average, Paeth in turn); BMP of BI_RGB, BI_BITFIELDS or RLE rows.
+``png_bytes``, ``chunk``, ``bmp_bytes``, ``lossless_jpeg_bytes`` and
+``tiff_bytes`` are the writers: PNG of any colour type, bit depth and
+interlace, each row with a filter of its own (None, Sub, Up, Average,
+Paeth in turn); BMP of BI_RGB, BI_BITFIELDS or RLE rows; lossless JPEG
+of any predictor, point transform, restart interval and sampling; TIFF
+of any layout, compression and sample kind the port reads.
 """
 
 from __future__ import annotations
@@ -40,15 +47,19 @@ RESTART = "restart7_420_q90_333x251.jpg"
 PROGRESSIVE = "progressive_420_q75_160x120.jpg"   # cut in its 6th scan
 KINDS = ("jpeg", "jpeg_cmyk", "jpeg_ycck", "jpeg_arithmetic",
          "jpeg_arithmetic_progressive", "jpeg_cut", "jpeg_progressive_cut",
-         "jpeg_damaged", "png",
+         "jpeg_damaged", "jpeg_lossless", "png",
          "png_gray16_adam7", "png_palette4", "png_named_jpg", "bmp",
-         "bmp_rle8")
+         "bmp_rle8", "webp_lossy", "webp_lossless", "webp_alpha",
+         "tiff_lzw", "tiff_deflate_tiled", "tiff_palette", "tiff_16bit")
 COMMITTED = {"jpeg": TESTDATA / BASE,
              "jpeg_cmyk": TESTDATA / UNSUPPORTED[0],
              "jpeg_ycck": FORMATS / "ycck_420_q85_160x120.jpg",
              "jpeg_arithmetic": FORMATS / "arith_420_q80_160x120.jpg",
              "jpeg_arithmetic_progressive":
-                 FORMATS / "arith_progressive_420_q80_160x120.jpg"}
+                 FORMATS / "arith_progressive_420_q80_160x120.jpg",
+             "webp_lossy": FORMATS / "webp_q75_500x375.webp",
+             "webp_lossless": FORMATS / "webp_lossless_160x120.webp",
+             "webp_alpha": FORMATS / "webp_alpha_q75_160x120.webp"}
 
 
 def chunk(ctype: bytes, body: bytes) -> bytes:
@@ -293,6 +304,7 @@ def lzw_encode(data: bytes) -> bytes:
         while nacc >= 8:
             nacc -= 8
             out.append(acc >> nacc & 0xFF)
+        acc &= (1 << nacc) - 1
 
     put(256)
     w = b""
@@ -469,7 +481,7 @@ def write_format_files(directory) -> Dict[str, str]:
     d.mkdir(parents=True, exist_ok=True)
     paths = {}
     for kind, src in COMMITTED.items():
-        paths[kind] = d / f"{kind}.jpg"
+        paths[kind] = d / f"{kind}{src.suffix}"
         paths[kind].write_bytes(src.read_bytes())
     base = (TESTDATA / BASE).read_bytes()
     paths["jpeg_cut"] = d / "jpeg_cut.jpg"
@@ -515,5 +527,24 @@ def write_format_files(directory) -> Dict[str, str]:
     paths["bmp_rle8"].write_bytes(bmp_bytes(w, h, 8, _rle8(index), 1,
                                             palette=gray.tobytes(),
                                             clrused=16))
+    paths["jpeg_lossless"] = d / "jpeg_lossless.jpg"
+    paths["jpeg_lossless"].write_bytes(lossless_jpeg_bytes(small, psv=6,
+                                                           restart_rows=8))
+    i = np.arange(256)
+    palette = np.stack([i, 255 - i, i * 7 % 256]) * 257   # 16-bit entries
+    tiffs = {
+        "tiff_lzw": tiff_bytes(rgb, compression=5, predictor=2,
+                               rows_per_strip=16),
+        "tiff_deflate_tiled": tiff_bytes(rgb, compression=8, predictor=2,
+                                         tile=(64, 64)),
+        "tiff_palette": tiff_bytes(rgb[..., 1:2], photometric=3,
+                                   compression=32773, colormap=palette,
+                                   big_endian=True),
+        "tiff_16bit": tiff_bytes(small.astype(np.int64) * 257, bits=16, compression=5,
+                                 predictor=2, bigtiff=True),
+    }
+    for kind, data in tiffs.items():
+        paths[kind] = d / f"{kind}.tiff"
+        paths[kind].write_bytes(data)
     assert sorted(paths) == sorted(KINDS)
     return {k: str(paths[k]) for k in KINDS}

@@ -9,12 +9,16 @@ trees here (VOC and COCO, from ``tools/fixture_trees.py``, at 64 px, where
 the 500x375 and larger fixtures decode at 1/4 or 1/8 on the fused route)
 have some images replaced by: the committed CMYK fixture (which the fused
 call refuses), a file cut at half its bytes and a bit-flipped one (which
-it decodes), a PNG named ``.jpg`` and a 500x375 copy with EXIF
-Orientation 6.
+it decodes), a PNG named ``.jpg``, a 500x375 copy with EXIF Orientation
+6, a lossless JPEG (which JAX's libjpeg 2.1 refuses on the fused route and
+cv2 reads), a VP8 and a VP8L WebP and an LZW TIFF, named ``.jpg`` in the
+VOC tree and the VP8 and TIFF files by their own extension in the COCO
+tree.
 
 - The port's batches equal JAX's bit for bit, epoch after epoch; the port
   counts its fused and parser batches, and every batch holding the CMYK
-  file or the PNG took the parser route.
+  file, the PNG, the lossless JPEG, a WebP or the TIFF took the parser
+  route.
 - A batch that took the parser route equals ``preproc_batch`` of
   ``decode_image`` (full scale, turned) and differs from the fused call's
   decode of the same files.
@@ -37,7 +41,9 @@ from objectdetectionpl_tpu.data.parsers import VOCParser as JaxVOC
 from objectdetectionpl_tpu_torch.config import Config
 from objectdetectionpl_tpu_torch.data import cache, datamodules, native
 from objectdetectionpl_tpu_torch.data.parsers import COCOParser, VOCParser
-from objectdetectionpl_tpu_torch.tools import fixture_trees
+from objectdetectionpl_tpu_torch.tools import fixture_trees, format_files
+from objectdetectionpl_tpu_torch.tools.format_files import (
+    lossless_jpeg_bytes, tiff_bytes)
 from test_torch_port_cache import _assert_same_cache
 from test_torch_port_data import (_assert_same_batches, _batches,  # noqa: F401
                                   jax_library)
@@ -50,6 +56,8 @@ VOC_FIXTURE = "voc_420_q75_500x375.jpg"
 def _replacements():
     """{slot: bytes} of the odd files, slot i of the tree's sorted images."""
     voc = (fixture_trees.TESTDATA / VOC_FIXTURE).read_bytes()
+    small = native.decode_one(str(fixture_trees.TESTDATA / VOC_FIXTURE))[
+        ::4, ::4]
     flipped = bytearray((fixture_trees.TESTDATA /
                          "restart7_420_q90_333x251.jpg").read_bytes())
     flipped[len(flipped) // 2] ^= 0x10
@@ -64,19 +72,37 @@ def _replacements():
         6: bytes(flipped),                                   # damaged
         9: png.tobytes(),                                    # PNG as .jpg
         13: spliced(VOC_FIXTURE, app1(tiff("II", [(0x0112, 3, 1, 6)]))),
+        3: lossless_jpeg_bytes(small, psv=4, restart_rows=5),
+        7: format_files.COMMITTED["webp_lossy"].read_bytes(),
+        11: format_files.COMMITTED["webp_lossless"].read_bytes(),
+        14: tiff_bytes(small, compression=5, predictor=2, rows_per_strip=8),
     }
 
 
-def _replace(paths):
+# the slots whose file keeps its own extension in the COCO tree (the VOC
+# tree names every file .jpg)
+OWN_NAME = {7: ".webp", 14: ".tiff"}
+
+
+def _replace(paths, rename=False):
+    """Write the odd files over the tree's slots; with ``rename`` the
+    ``OWN_NAME`` slots move to their format's extension.  Returns {old
+    name: new name}."""
+    renamed = {}
     for slot, data in _replacements().items():
         paths[slot].unlink()                   # a link to a fixture
-        paths[slot].write_bytes(data)
+        path = paths[slot]
+        if rename and slot in OWN_NAME:
+            path = path.with_suffix(OWN_NAME[slot])
+            renamed[paths[slot].name] = path.name
+        path.write_bytes(data)
+    return renamed
 
 
 @pytest.fixture(scope="module")
 def mixed_voc(tmp_path_factory):
     root = fixture_trees.write_voc_tree(tmp_path_factory.mktemp("voc"),
-                                        n_train=16, n_val=4, seed=3)
+                                        n_train=40, n_val=4, seed=3)
     _replace(sorted((Path(root) / "VOC2012" / "JPEGImages").iterdir()))
     return root
 
@@ -84,11 +110,15 @@ def mixed_voc(tmp_path_factory):
 @pytest.fixture(scope="module")
 def mixed_coco(tmp_path_factory):
     root = fixture_trees.write_coco_tree(tmp_path_factory.mktemp("coco"),
-                                         n_train=16, n_val=4, seed=4)
-    ann = json.loads((Path(root) / "annotations" /
-                      "instances_train2017.json").read_text())
+                                         n_train=40, n_val=4, seed=4)
+    ann_path = Path(root) / "annotations" / "instances_train2017.json"
+    ann = json.loads(ann_path.read_text())
     image_dir = Path(root) / "images" / "train2017"
-    _replace([image_dir / im["file_name"] for im in ann["images"]])
+    renamed = _replace([image_dir / im["file_name"] for im in ann["images"]],
+                       rename=True)
+    for im in ann["images"]:
+        im["file_name"] = renamed.get(im["file_name"], im["file_name"])
+    ann_path.write_text(json.dumps(ann))
     return root
 
 
@@ -110,7 +140,8 @@ def test_batches_and_routes_equal_jax(mixed_voc, mixed_coco, jax_library,
     odd = {port.parser.record(i)[0] for i in range(len(port.parser))
            if native.decode_preproc_codes([port.parser.record(i)[0]], S,
                                           False, max_denom=8)[-1][0]}
-    assert len(odd) == 2                       # the CMYK file and the PNG
+    # the CMYK file, the PNG, the lossless JPEG, both WebPs and the TIFF
+    assert len(odd) == 6
     # batches holding one of them take the parser route, the others fused
     n_odd = 0
     for epoch in range(2):

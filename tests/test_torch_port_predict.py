@@ -29,6 +29,10 @@
     this tolerance, 1.09 of the fixed one), and with JAX's NMS on the
     port's head maps at most 1.5e-5 px and scores 6e-8 apart: the gap is
     the forward's, not the NMS's.
+- The same against JAX on one file of each kind ``NEW_KINDS``: a lossless
+  JPEG, VP8, VP8L and VP8X+ALPH WebPs, LZW, Deflate-tiled, palette and
+  16-bit TIFFs (``tools/format_files.py``), at seed 47, the one of 13..55
+  whose margins hold on them.
 - ``main`` end to end on a port checkpoint, over every decodable fixture
   (progressive and 1280x720 ones too): one JSON line per image equal to
   ``predict_images`` on the restored state, one PNG panel per image.
@@ -62,7 +66,7 @@ from objectdetectionpl_tpu.train import loop as jax_loop
 from objectdetectionpl_tpu_torch.cli import predict
 from objectdetectionpl_tpu_torch.config import Config
 from objectdetectionpl_tpu_torch.data import native
-from objectdetectionpl_tpu_torch.tools import fixture_trees
+from objectdetectionpl_tpu_torch.tools import fixture_trees, format_files
 from objectdetectionpl_tpu_torch.train import loop
 from objectdetectionpl_tpu_torch.utils import viz
 from objectdetectionpl_tpu_torch.utils.weights import state_dict_from_flax
@@ -157,17 +161,37 @@ def _forward_noise(jt, params, stats, x, heads) -> float:
 
 
 def test_predict_images_equals_jax(tmp_path, monkeypatch):
+    _assert_predict_equals_jax(tmp_path, monkeypatch, PATHS, SEEDS)
+
+
+# One file of each kind this slice added to the reader, from
+# ``tools/format_files.py``, and the seed at which the margins of
+# ``_draw_weights`` hold on them: of 13 to 55, 47 alone
+NEW_KINDS = ("jpeg_lossless", "webp_lossy", "webp_lossless", "webp_alpha",
+             "tiff_lzw", "tiff_deflate_tiled", "tiff_palette", "tiff_16bit")
+NEW_KIND_SEEDS = (47,)
+
+
+def test_predict_new_formats_equal_jax(tmp_path, monkeypatch):
+    """``predict_images`` on a lossless JPEG, WebPs and TIFFs against the
+    JAX CLI's chain on its cv2 decodes, as for the baseline fixtures."""
+    paths = format_files.write_format_files(tmp_path / "formats")
+    _assert_predict_equals_jax(tmp_path, monkeypatch,
+                               [paths[k] for k in NEW_KINDS], NEW_KIND_SEEDS)
+
+
+def _assert_predict_equals_jax(tmp_path, monkeypatch, paths, seeds):
     # the JAX CLI's input (cli/predict.py): cv2's uint8 resize, then /255
     inputs = [_resize(load_image_rgb(p), IMG).astype(np.float32)[None] / 255.0
-              for p in PATHS]
+              for p in paths]
     jt, pt = _bridged_trainers(tmp_path, monkeypatch)
     init_stats = jt.state.batch_stats
-    for seed in SEEDS:
+    for seed in seeds:
         params, stats = _draw_weights(jt, pt, inputs, init_stats, seed)
-        got = predict.predict_images(pt, PATHS)
-        want, raw = _jax_records(jt, PATHS, inputs)
-        assert len(got) == len(want) == len(PATHS)
-        assert sum(len(w["labels"]) for w in want) >= len(PATHS)
+        got = predict.predict_images(pt, paths)
+        want, raw = _jax_records(jt, paths, inputs)
+        assert len(got) == len(want) == len(paths)
+        assert sum(len(w["labels"]) for w in want) >= len(paths)
         # the unrounded rows, taken again from the port's predict_step
         for g, w, (wb, ws), x in zip(got, want, raw, inputs):
             assert g["image"] == w["image"]

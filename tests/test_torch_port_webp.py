@@ -391,3 +391,30 @@ def test_cut_and_flipped(tmp_path, encoder, lossless):
         flipped = bytearray(data)
         flipped[rng.randint(30, len(data))] ^= 1 << rng.randint(8)
         like_cv2(tmp_path, bytes(flipped))
+
+
+def test_committed_fixtures_match_recipe():
+    """The WebP files of ``data/testdata/formats/`` (``chip_smoke.py
+    formats``' kinds ``webp_*``) are cv2.imwrite's output here: VP8 at
+    quality 75 of the 500x375 fixture, VP8L of the progressive 160x120
+    one, and that one with a left-to-right alpha ramp at quality 75 (VP8X,
+    ALPH, VP8); a libwebp that encodes otherwise breaks this test, not the
+    reader."""
+    from objectdetectionpl_tpu_torch.tools import format_files
+    from objectdetectionpl_tpu_torch.tools.fixture_trees import TESTDATA
+    base = native.decode_one(str(TESTDATA / format_files.BASE))[..., ::-1]
+    small = native.decode_one(str(TESTDATA / format_files.PROGRESSIVE))[
+        ..., ::-1]
+    ramp = (np.arange(160) * 255 // 159).astype(np.uint8)[None, :, None]
+    quality = [cv2.IMWRITE_WEBP_QUALITY, 75]
+    recipe = {"webp_lossy": (base, quality), "webp_lossless": (small, []),
+              "webp_alpha": (np.concatenate(
+                  [small, np.repeat(ramp, 120, 0)], -1), quality)}
+    layouts = {"webp_lossy": [b"VP8 "], "webp_lossless": [b"VP8L"],
+               "webp_alpha": [b"VP8X", b"ALPH", b"VP8 "]}
+    for kind, (img, params) in recipe.items():
+        ok, data = cv2.imencode(".webp", img, params)
+        assert ok
+        committed = format_files.COMMITTED[kind].read_bytes()
+        assert data.tobytes() == committed, kind
+        assert [c[0] for c in chunks(committed)] == layouts[kind]
