@@ -29,9 +29,12 @@
 // unsent (cut, or an unfinished scan script) is smoothed as jdcoefct.c
 // smooths it: libjpeg-turbo 3's neighbour rows and columns with
 // READ_IMREAD (cv2's), 2.1's without (the system library of the JAX
-// package's fused loader).  Errors naming the marker or the reason:
-// lossless and hierarchical files, 12-bit samples (refused by cv2's and
-// the system's 8-bit libjpeg too) and a file cut before its first scan.
+// package's fused loader).  Lossless files (SOF3) decode with READ_IMREAD
+// as libjpeg-turbo 3 decodes them for cv2 (lossless_scan below); without
+// it they fail, as the system's libjpeg 2.1 fails them.  Errors naming
+// the marker or the reason: hierarchical files, 12-bit samples (refused
+// by cv2's and the system's 8-bit libjpeg too) and a file cut before its
+// first scan.
 //
 // EXIF orientation: the decoder reads the Orientation tag (0x0112) of IFD0
 // from the APP1 "Exif\0\0" segments before the first scan, as OpenCV's

@@ -18,9 +18,9 @@ enum Code {
 // How a file is read (the `flags` of the C interface)
 enum Flags {
   READ_EXIF = 1,     // turned by its EXIF orientation, as cv2.imread turns it
-  READ_IMREAD = 2,   // 4-component (CMYK, YCCK) files decoded as
-                     // cv2.imread decodes them; without it they fail, as
-                     // libjpeg's RGB output refuses them
+  READ_IMREAD = 2,   // 4-component (CMYK, YCCK) and lossless files
+                     // decoded as cv2.imread decodes them; without it they
+                     // fail, as libjpeg 2.1's RGB output refuses them
 };
 
 // A worker's buffers, which keep their storage from file to file: the

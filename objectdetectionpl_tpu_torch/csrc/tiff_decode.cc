@@ -43,9 +43,13 @@ void lzw(const uint8_t* src, int64_t n, uint8_t* dst, int64_t size) {
   int64_t out = 0;
   auto next_code = [&]() -> int {
     if (pos + nbits > total) return -1;
-    int code = 0;
-    for (int b = 0; b < nbits; ++b, ++pos)
-      code = code << 1 | ((src[pos >> 3] >> (7 - (pos & 7))) & 1);
+    // the three bytes that hold any 9- to 12-bit code
+    const int64_t at = pos >> 3;
+    uint32_t w = static_cast<uint32_t>(src[at]) << 16;
+    if (at + 1 < n) w |= static_cast<uint32_t>(src[at + 1]) << 8;
+    if (at + 2 < n) w |= src[at + 2];
+    const int code = (w >> (24 - (pos & 7) - nbits)) & ((1 << nbits) - 1);
+    pos += nbits;
     return code;
   };
   while (out < size) {

@@ -1,11 +1,11 @@
-"""PNG and BMP files read as ``cv2.imread(path, IMREAD_COLOR)`` reads
-them, and the signatures that pick a reader.
+"""PNG, BMP, WebP and TIFF files read as ``cv2.imread(path,
+IMREAD_COLOR)`` reads them, and the signatures that pick a reader.
 
 ``cv2.imread`` picks its decoder by the file's first bytes, not by its
 name: a PNG named ``.jpg`` is read as a PNG.  :func:`sniff` names the
 format the same way; ``native.decode_image`` reads JPEG with the port's
-decoder and PNG and BMP here, and refuses the other formats cv2 reads,
-naming them.
+decoder and PNG, BMP, WebP and TIFF here (with the host library's inner
+loops), and refuses the other formats cv2 reads, naming them.
 
 PNG (libpng through cv2): the chunks are read here -- a bad CRC fails a
 critical chunk and drops an ancillary one, an unknown critical chunk
@@ -23,6 +23,14 @@ RLE4 (whose delta and end-of-bitmap escapes cv2 runs as "skip to the
 row's end", moving down no row), bottom-up or top-down, the OS/2 header;
 5- and 6-bit channels shift up without replicating their high bits, as
 cv2 does.
+
+WebP (libwebp through cv2, :func:`read_webp`): the RIFF container, VP8X
+and animation chunks here, the VP8 and VP8L bitstreams in the host
+library (``csrc/webp_decode.cc``).
+
+TIFF (libtiff's RGBA interface through cv2, :func:`read_tiff`): the IFD,
+strips and tiles, Deflate and libtiff's sample rules here; LZW and
+PackBits in the host library (``csrc/tiff_decode.cc``).
 """
 
 from __future__ import annotations
@@ -315,9 +323,6 @@ def _le24(b: bytes, at: int) -> int:
 
 def _le32(b: bytes, at: int) -> int:
     return struct.unpack("<I", b[at:at + 4])[0]
-
-
-_VP8X_FLAGS = 0x3E      # ICC, alpha, EXIF, XMP, animation
 
 
 def _webp_chunks(data: bytes, pos: int, end: int):
@@ -651,7 +656,8 @@ def read_tiff(data: bytes, lzw, packbits) -> np.ndarray:
         raise FormatError("missing or short strip or tile offsets")
     row_bytes = (tw * chunk_spp * bps + 7) // 8
     dtype = np.dtype(e + "u2") if bps == 16 else np.dtype(np.uint8)
-    planes = np.zeros((nplanes, h, w, chunk_spp), np.uint16)
+    planes = np.zeros((nplanes, h, w, chunk_spp),
+                      np.uint16 if bps == 16 else np.uint8)
     for p in range(nplanes):
         for k in range(across * down):
             ty, tx = divmod(k, across)
@@ -747,6 +753,8 @@ def _tiff_rgb(samples: np.ndarray, photometric: int, bps: int,
         return cmap.T.astype(np.uint8)[samples[..., 0]]
     # RGB, and planar grey, which libtiff reads as RGB from one plane
     channels = 3 if photometric == 2 else 1
+    if bps == 8 and channels == 3 and not (spp > 3 and alpha == 2):
+        return samples[..., :3]
     rgb = _to8(samples[..., :channels], bps).astype(np.int64)
     if spp > channels and alpha == 2:           # unassociated: premultiply
         a = _to8(samples[..., channels:channels + 1], bps).astype(np.int64)

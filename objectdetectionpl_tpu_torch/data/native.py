@@ -1,5 +1,6 @@
-"""ctypes binding of the port's host library: the resize and the JPEG
-decoder, one ``.so``.
+"""ctypes binding of the port's host library: the resize, the JPEG
+decoder and the inner loops of the PNG, WebP and TIFF readers, one
+``.so``.
 
 ``csrc/preproc.cc`` resizes uint8 RGB images into a batch [N, S, S, 3],
 two kinds picked per call: float32 in [0, 1] (a copy of the JAX package's
@@ -8,8 +9,10 @@ two kinds picked per call: float32 in [0, 1] (a copy of the JAX package's
 cache with).  ``csrc/jpeg_decode.cc`` is the port's own JPEG
 decoder, sequential and progressive, at 1/1, 1/2, 1/4 or 1/8 scale (equal
 bit for bit to libjpeg-turbo's decompression to RGB with that
-``scale_denom``).  Both build with g++ into
-``build/native/libpreproc-<key>.so`` at the repository root.
+``scale_denom``).  ``csrc/png_decode.cc``, ``csrc/webp_decode.cc`` and
+``csrc/tiff_decode.cc`` serve :func:`decode_image`'s readers.  All build
+with g++ into ``build/native/libpreproc-<key>.so`` at the repository
+root.
 
 - :func:`preproc_batch`: decoded images -> the batch, one call;
 - :func:`decode_preproc_batch`: JPEG files -> the batch, one call, each
@@ -446,7 +449,8 @@ def _tiff_codec(name: str):
     return decode
 
 
-_tiff_lzw, _tiff_packbits = _tiff_codec("tiff_lzw"), _tiff_codec("tiff_packbits")
+_tiff_lzw = _tiff_codec("tiff_lzw")
+_tiff_packbits = _tiff_codec("tiff_packbits")
 
 
 def _exif_orientation(tiff: bytes) -> int:
@@ -475,11 +479,13 @@ def decode_image(path: str, exif: bool = True) -> np.ndarray:
     """One image file -> uint8 [H, W, 3] RGB, as ``cv2.imread(path)`` (the
     JAX package's ``load_image_rgb``) reads it: the reader picked by the
     file's first bytes whatever its name (``formats.sniff``), JPEG by the
-    port's decoder (CMYK and YCCK included), PNG and BMP by
-    ``data/formats.py``, each turned by its EXIF orientation with
-    ``exif``.  Other formats cv2 reads (WebP, TIFF, JPEG 2000, ...) and
+    port's decoder (CMYK, YCCK and lossless included), PNG, BMP, WebP and
+    TIFF by ``data/formats.py``; JPEG, PNG and WebP turned by their EXIF
+    orientation with ``exif`` (a TIFF's Orientation tag is its reader's,
+    as in cv2).  Other formats cv2 reads (JPEG 2000, AVIF, PNM, ...) and
     anything else raise :class:`ImageError` naming the path and the
-    format, as does a file that cv2 would not read either."""
+    format, as does a file that cv2 would not read either, and a TIFF or
+    WebP of a kind the port does not read, naming the kind."""
     from objectdetectionpl_tpu_torch.data import formats
     try:
         with open(path, "rb") as f:

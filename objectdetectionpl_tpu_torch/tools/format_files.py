@@ -219,7 +219,8 @@ def lossless_jpeg_bytes(planes, psv: int = 1, al: int = 0,
     ``psv`` (1..7), point transform ``al`` (the samples' low ``al`` bits
     dropped), a restart marker every ``restart_rows`` MCU rows, the
     components' ``sampling`` factors [(h, v), ...], ids ``ids`` (default
-    1, 2, 3: YCbCr to a reader without JFIF or Adobe marker), ``app``
+    1, 2, ...; libjpeg-turbo converts no colour space of a lossless file,
+    so three components are RGB), ``app``
     segments after SOI, the image's (H, W) ``size`` (default the first
     plane's).  The difference categories 0..16 are 5-bit codes."""
     if not isinstance(planes, (list, tuple)):
@@ -346,7 +347,8 @@ def packbits_encode(data: bytes) -> bytes:
             i += run
             continue
         j = i + 1
-        while j < n and j - i < 128 and not (j + 1 < n and data[j] == data[j + 1]):
+        while j < n and j - i < 128 and not (
+                j + 1 < n and data[j] == data[j + 1]):
             j += 1
         out += bytes([j - i - 1]) + data[i:j]
         i = j
@@ -422,7 +424,6 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2,
     for page in range(pages):
         img = samples if page == 0 else (1 << bits) - 1 - samples
         chunks = page_chunks(img)
-        data_at = len(out)
         offsets = []
         for c in chunks:
             offsets.append(len(out))
@@ -447,7 +448,6 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2,
         if orientation is not None:
             tags[274] = (3, [orientation])
         tags.update(extra_tags or {})
-        del data_at
         # the values that do not fit in the entry go before the IFD
         inline = 8 if bigtiff else 4
         entries = []
@@ -540,8 +540,8 @@ def write_format_files(directory) -> Dict[str, str]:
         "tiff_palette": tiff_bytes(rgb[..., 1:2], photometric=3,
                                    compression=32773, colormap=palette,
                                    big_endian=True),
-        "tiff_16bit": tiff_bytes(small.astype(np.int64) * 257, bits=16, compression=5,
-                                 predictor=2, bigtiff=True),
+        "tiff_16bit": tiff_bytes(small.astype(np.int64) * 257, bits=16,
+                                 compression=5, predictor=2, bigtiff=True),
     }
     for kind, data in tiffs.items():
         paths[kind] = d / f"{kind}.tiff"

@@ -31,7 +31,8 @@ sizes that make both pick the denominators 1, 2, 4 and 8.
 - 12-bit samples (SOF1, P=12) from :func:`encode_sequential`, this file's
   extended-sequential Huffman encoder, whose 8-bit output cv2 reads back
   to the pixels it was given: cv2, JAX's library and the port all refuse.
-- Lossless (SOF3) from :func:`encode_lossless`: predictors 1-7, point
+- Lossless (SOF3) from ``tools/format_files.py::lossless_jpeg_bytes``:
+  predictors 1-7, point
   transforms 0-3, restart intervals, sampling factors, CMYK, 2 to 7 bits,
   cut and damaged files, read as cv2 reads them on the parser route; the
   fused route refuses them, as JAX's libjpeg 2.1 does; grey, YCbCr under
@@ -474,13 +475,6 @@ def encode_sequential(img: np.ndarray, precision: int = 12,
             + bits.flush() + b"\xff\xd9")
 
 
-def encode_lossless(img, **kw) -> bytes:
-    """An image (or component planes) -> a lossless (SOF3) JPEG through
-    ``tools/format_files.py::lossless_jpeg_bytes``: predictor ``psv``,
-    point transform ``al``, restart rows, sampling, precision."""
-    return lossless_jpeg_bytes(img, **kw)
-
-
 def test_sequential_encoder_is_read_by_cv2(tmp_path):
     """At 8 bits and q=1 the encoder's file decodes to the samples given
     (within the DCT's rounding), by cv2 and the port alike."""
@@ -519,7 +513,7 @@ def test_lossless_is_read_by_cv2_and_refused_by_the_port(tmp_path,
     img = rng.randint(0, 256, (5, 7, 3))
     path = str(tmp_path / "lossless.jpg")
     with open(path, "wb") as f:
-        f.write(encode_lossless(img))
+        f.write(lossless_jpeg_bytes(img))
     assert load_image_rgb(path).shape == (5, 7, 3)
     assert not jax_native.decode_preproc_batch([path], 4, False)[-1][0]
     codes = native.decode_preproc_codes([path], 4, False, max_denom=8)[-1]
@@ -544,7 +538,7 @@ def test_lossless_predictors_and_point_transforms(tmp_path, psv, al):
     rng = np.random.RandomState(psv * 4 + al)
     img = smooth_image(13, 17, rng, 3)
     for restart_rows in (0, 1, 3):
-        assert _lossless_case(tmp_path, encode_lossless(
+        assert _lossless_case(tmp_path, lossless_jpeg_bytes(
             img, psv=psv, al=al, restart_rows=restart_rows))
 
 
@@ -565,7 +559,7 @@ def test_lossless_sampling_factors(tmp_path, sampling, restart_rows, psv):
     vmax = max(v for _, v in sampling)
     planes = [rng.randint(0, 256, (-(-11 * v // vmax), -(-13 * h // hmax)))
               for h, v in sampling]
-    assert _lossless_case(tmp_path, encode_lossless(
+    assert _lossless_case(tmp_path, lossless_jpeg_bytes(
         planes, psv=psv, restart_rows=restart_rows, sampling=sampling,
         size=(11, 13)))
 
@@ -585,21 +579,22 @@ def test_lossless_kinds(tmp_path, kind, read):
     rng = np.random.RandomState(len(kind))
     img = rng.randint(0, 256, (9, 11, 3))
     if kind == "grey":
-        data = encode_lossless(img[..., 0])
+        data = lossless_jpeg_bytes(img[..., 0])
     elif kind == "cmyk":
-        data = encode_lossless(rng.randint(0, 256, (6, 5, 4)))
+        data = lossless_jpeg_bytes(rng.randint(0, 256, (6, 5, 4)))
     elif kind.endswith("_adobe"):
-        data = encode_lossless(img, app=ADOBE + bytes([kind == "ycbcr_adobe"]))
+        data = lossless_jpeg_bytes(img, app=ADOBE + bytes(
+            [kind == "ycbcr_adobe"]))
     elif kind.startswith("p"):
         bits = int(kind[1:])
-        data = encode_lossless(rng.randint(0, 1 << bits, (9, 11, 3)),
+        data = lossless_jpeg_bytes(rng.randint(0, 1 << bits, (9, 11, 3)),
                                precision=bits, al=1)
     elif kind == "sof11":
-        data = bytearray(encode_lossless(img))
+        data = bytearray(lossless_jpeg_bytes(img))
         data[data.index(b"\xff\xc3") + 1] = 0xCB
         data = bytes(data)
     else:                                   # 16-bit samples, 8-bit output
-        data = encode_lossless(rng.randint(0, 65536, (7, 9, 3)),
+        data = lossless_jpeg_bytes(rng.randint(0, 65536, (7, 9, 3)),
                                al=2 if kind.endswith("al2") else 0)
     assert _lossless_case(tmp_path, data) == read
 
@@ -610,7 +605,7 @@ def test_lossless_cut_and_damaged(tmp_path, seed):
     libjpeg's zero differences after the data ran out, each such row
     predicted afresh, and its resync."""
     rng = np.random.RandomState(seed)
-    data = encode_lossless(smooth_image(20, 24, rng, 3), psv=1 + seed,
+    data = lossless_jpeg_bytes(smooth_image(20, 24, rng, 3), psv=1 + seed,
                            restart_rows=seed)
     scan = data.index(b"\xff\xda") + 14
     for cut in rng.randint(scan, len(data), 8):

@@ -334,7 +334,8 @@ def test_vp8x_chunks(tmp_path, encoder, lossless):
 def test_animation(tmp_path, encoder):
     first = chunks(encode(encoder, tmp_path, content(20, 30, "noise"), 1))[0]
     second = chunks(encode(encoder, tmp_path, content(20, 30, "grey"), 0))[0]
-    small = chunks(encode(encoder, tmp_path, content(10, 12, "noise", 2), 1))[0]
+    small = chunks(encode(encoder, tmp_path, content(10, 12, "noise", 2),
+                          1))[0]
     alpha_ll = chunks(encode(encoder, tmp_path, _rgba(10, 12), 1, exact=1))[0]
     alpha_lossy = chunks(encode(encoder, tmp_path, _rgba(10, 12), 0, 50))[1:]
     read = {
