@@ -186,7 +186,13 @@ exits non-zero:
    (block smoothing), a damaged JPEG, a lossless JPEG, PNG RGB 8-bit,
    grey 16-bit Adam7, 4-bit palette, a PNG named .jpg, BMP 24-bit and
    RLE8, WebP VP8, VP8L and VP8X with alpha, TIFF LZW strips, Deflate
-   tiles, an 8-bit palette and 16-bit RGB): each decoded by
+   tiles, an 8-bit palette and 16-bit RGB, JPEG 2000 (cv2's lossy and
+   lossless 500x375 JP2s, a tiled three-layer 9/7 JP2, an RPCL J2K with
+   precincts, a J2K with every code-block style bit, SOP/EPH and
+   tile-parts, a 16-bit grey JP2), GIF (256 colours at 500x375, an
+   interlaced transparent frame at an offset), a PPM, a 16-bit ASCII
+   PGM, a PAM, a PFM, Sun rasters (24-bit, 8-bit mapped) and a Radiance
+   HDR): each decoded by
    ``native.decode_image`` (the port's
    ``load_image_rgb``), its SHA-256 held against cv2's recorded in
    ``data/testdata/formats/sha256.json``, with its host ms per image on
@@ -573,8 +579,9 @@ TRAINER_COCO_SETS = {**REAL_SETS, "data_module": "COCO",
                      "img_size": "640"}
 JPEG_REPEAT = 32          # decode_batch timing: the fixtures x 32
 FORMATS_DECODE_REPS = 10  # host decode timing of each format file: median
-# the formats fit: train ids the baseline JPEG, test ids every kind
-FORMATS_TREE = {"n_train": 160, "n_val": 32, "seed": 6}
+# the formats fit: train ids the baseline JPEG, test ids every kind (37),
+# in two whole test batches of B=32 (the Loader drops a partial one)
+FORMATS_TREE = {"n_train": 160, "n_val": 64, "seed": 6}
 # trainer_bdd_ssd: SSD-300 on a BDD100K tree of the 1280x720 frames, half
 # baseline and half progressive, which the fused Loader decodes at 1/2
 BDD_TREE = {"n_train": 160, "n_val": 80, "seed": 3,

@@ -1032,6 +1032,11 @@ class Decoder {
     if (height_ == 0)
       fail(JPEG_UNSUPPORTED, "height 0 in the SOF (DNL marker)");
     if (width_ == 0) fail(JPEG_CORRUPT, "width 0 in the SOF");
+    // cv2.imread's validateInputImageSize (sides up to 65535 pass 2^20)
+    if (imread_ && int64_t(width_) * height_ > (int64_t(1) << 30))
+      fail(JPEG_UNSUPPORTED, "a " + std::to_string(width_) + "x" +
+                                 std::to_string(height_) +
+                                 " image, larger than cv2 reads");
     progressive_ = m == 0xC2 || m == 0xCA;
     arith_ = m == 0xC9 || m == 0xCA;
     comps_.resize(nf);

@@ -1,11 +1,12 @@
-"""PNG, BMP, WebP and TIFF files read as ``cv2.imread(path,
-IMREAD_COLOR)`` reads them, and the signatures that pick a reader.
+"""PNG, BMP, GIF, WebP, TIFF, JPEG 2000, PNM, PAM, PFM, Sun raster and
+Radiance HDR files read as ``cv2.imread(path, IMREAD_COLOR)`` reads them,
+and the signatures that pick a reader.
 
 ``cv2.imread`` picks its decoder by the file's first bytes, not by its
 name: a PNG named ``.jpg`` is read as a PNG.  :func:`sniff` names the
 format the same way; ``native.decode_image`` reads JPEG with the port's
-decoder and PNG, BMP, WebP and TIFF here (with the host library's inner
-loops), and refuses the other formats cv2 reads, naming them.
+decoder and the others here (with the host library's inner loops), and
+refuses the formats cv2 reads that the port does not (AVIF), naming them.
 
 PNG (libpng through cv2): the chunks are read here -- a bad CRC fails a
 critical chunk and drops an ancillary one, an unknown critical chunk
@@ -31,10 +32,24 @@ library (``csrc/webp_decode.cc``).
 TIFF (libtiff's RGBA interface through cv2, :func:`read_tiff`): the IFD,
 strips and tiles, Deflate and libtiff's sample rules here; LZW and
 PackBits in the host library (``csrc/tiff_decode.cc``).
+
+JPEG 2000 (OpenJPEG 2.5 through cv2, :func:`read_jp2`): the JP2 boxes,
+the palette, channel definitions and cv2's conversion to 8-bit here; the
+codestream in the host library (``csrc/jp2_decode.cc``).
+
+GIF (cv2 5's own ``GifDecoder``, :func:`read_gif`): the blocks, the
+canvas and the colours here; the LZW codes in the host library
+(``csrc/gif_decode.cc``).
+
+PNM, PAM, PFM, Sun raster and Radiance HDR (cv2's own decoders,
+:func:`read_pnm`, :func:`read_pam`, :func:`read_pfm`, :func:`read_sun`,
+:func:`read_hdr`): numpy here, with cv2's quirks.  None of these formats
+carries EXIF that cv2 reads.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 from typing import Optional, Tuple
@@ -43,17 +58,19 @@ import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
-# what cv2.imread reads but the port does not: (name, test on the head)
+# the other formats cv2.imread reads: (name, test on the head)
 _OTHERS = (
+    ("GIF", lambda h: h[:6] in (b"GIF87a", b"GIF89a")),
     ("WebP", lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP"),
     ("TIFF", lambda h: h[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00",
                                  b"MM\x00+")),
-    ("JPEG 2000", lambda h: h[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n"
-     or h[:4] == b"\xff\x4f\xff\x51"),
+    ("JPEG 2000", lambda h: h[:12] == JP2_SIGNATURE
+     or h[:4] == J2K_SIGNATURE),
     ("AVIF", lambda h: h[4:8] == b"ftyp" and h[8:12] in (b"avif", b"avis")),
     ("OpenEXR", lambda h: h[:4] == b"\x76\x2f\x31\x01"),
-    ("PNM", lambda h: len(h) > 1 and h[:1] == b"P" and h[1:2] in
-     b"1234567Ff"),
+    ("PNM", lambda h: len(h) > 1 and h[:1] == b"P" and h[1:2] in b"123456"),
+    ("PAM", lambda h: h[:2] == b"P7"),
+    ("PFM", lambda h: h[:2] in (b"Pf", b"PF")),
     ("Sun raster", lambda h: h[:4] == b"\x59\xa6\x6a\x95"),
     ("Radiance HDR", lambda h: h.startswith((b"#?RADIANCE", b"#?RGBE"))),
 )
@@ -75,7 +92,19 @@ def sniff(head: bytes) -> str:
 
 
 class FormatError(ValueError):
-    """A PNG or BMP file cv2 would not read either; the caller names it."""
+    """A file cv2 would not read either; the caller names the format."""
+
+
+# cv2.imread's limits on the size a header gives (validateInputImageSize,
+# under the defaults of OPENCV_IO_MAX_IMAGE_WIDTH, _HEIGHT and _PIXELS)
+MAX_SIDE, MAX_PIXELS = 1 << 20, 1 << 30
+
+
+def check_size(w: int, h: int) -> None:
+    """Refuse a header's size as cv2.imread refuses it, before anything
+    of that size is made."""
+    if not (0 < w <= MAX_SIDE and 0 < h <= MAX_SIDE and w * h <= MAX_PIXELS):
+        raise FormatError(f"a {w}x{h} image, larger than cv2 reads")
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +146,7 @@ def read_png(data: bytes, unfilter, exif_orientation
                     or depth not in _DEPTHS.get(color, ()) or comp or filt
                     or interlace > 1):
                 raise FormatError(f"bad IHDR: {ihdr}")
+            check_size(w, h)
         elif ctype == b"PLTE":
             palette = body
         elif ctype == b"IDAT":
@@ -197,6 +227,7 @@ def read_bmp(data: bytes) -> np.ndarray:
     else:
         raise FormatError(f"a BMP header of {size} bytes")
     bottom_up, h = h > 0, abs(h)
+    check_size(w, h)
     if rle in (_RLE8, _RLE4):
         img = _rle(data, offset, w, h, palette, rle == _RLE4)
     else:
@@ -428,6 +459,7 @@ def read_webp(data: bytes, vp8, vp8l, vp8l_alpha, exif_orientation
         raise FormatError("bad VP8X chunk")
     flags = _le32(data, 20)
     cw, ch = _le24(data, 24) + 1, _le24(data, 27) + 1
+    check_size(cw, ch)
     chunks = list(_webp_chunks(data, 30, end))
     orientation = 0
     if flags & 0x08:
@@ -578,6 +610,7 @@ def read_tiff(data: bytes, lzw, packbits) -> np.ndarray:
     w, h = one(256), one(257)
     if not w or not h:
         raise FormatError("no ImageWidth or ImageLength")
+    check_size(w, h)
     spp = one(277, 1)
     bits = tags.get(258) or [1] * spp
     compression = one(259, 1)
@@ -760,3 +793,753 @@ def _tiff_rgb(samples: np.ndarray, photometric: int, bps: int,
         a = _to8(samples[..., channels:channels + 1], bps).astype(np.int64)
         rgb = (rgb * a + 127) // 255
     return np.repeat(rgb, 3 // channels, -1).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# JPEG 2000
+
+JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+J2K_SIGNATURE = b"\xff\x4f\xff\x51"
+# colr's enumerated colour spaces as OpenJPEG names them; any other, an ICC
+# profile or no colr box is "unknown", which cv2 reads as sRGB
+_ENUMCS = {16: "sRGB", 17: "grey", 18: "sYCC", 24: "e-YCC", 12: "CMYK"}
+
+
+def _jp2_boxes(data: bytes, pos: int, end: int, top: bool = False):
+    """(type, body start, body end) of each box in data[pos:end]; a box
+    of length 0 runs to the end, one of length 1 has a 64-bit length.
+    With ``top`` (the file's own boxes) the jp2c box runs to the end
+    whatever its length says, as OpenJPEG reads it."""
+    while pos + 8 <= end:
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        head = 8
+        if length == 1:
+            if pos + 16 > end:
+                raise FormatError("the file ends inside a box header")
+            length, head = struct.unpack(">Q", data[pos + 8:pos + 16])[0], 16
+        elif length == 0:
+            length = end - pos
+        if top and kind == b"jp2c":
+            yield kind, pos + head, end
+            return
+        if length < head or pos + length > end:
+            raise FormatError(f"the {kind!r} box runs past its end")
+        yield kind, pos + head, pos + length
+        pos += length
+
+
+def _jp2_header(data: bytes) -> Tuple[dict, int]:
+    """The JP2 boxes OpenJPEG reads before the codestream: (the colour
+    information of jp2h, where jp2c's contents start)."""
+    boxes = _jp2_boxes(data, 0, len(data), top=True)
+    if next(boxes, (None,))[0] != b"jP  ":
+        raise FormatError("the signature box is not the first")
+    if next(boxes, (None,))[0] != b"ftyp":
+        raise FormatError("the ftyp box is not the second")
+    info = None
+    for kind, at, end in boxes:
+        if kind == b"jp2h":
+            info = _jp2h(data, at, end)
+        elif kind == b"jp2c":
+            if info is None:
+                raise FormatError("no jp2h box before the codestream")
+            return info, at
+    raise FormatError("no jp2c (codestream) box")
+
+
+def _jp2h(data: bytes, at: int, end: int) -> dict:
+    info = {"enumcs": 0, "pclr": None, "cmap": None, "cdef": None}
+    colr = ihdr = False
+    for kind, a, e in _jp2_boxes(data, at, end):
+        body = data[a:e]
+        if kind == b"ihdr" and not ihdr:        # the first one counts
+            if len(body) != 14:
+                raise FormatError("a bad ihdr box")
+            info["ihdr"] = struct.unpack(">IIH", body[:10])
+            if not all(info["ihdr"]) or info["ihdr"][2] > 16384:
+                raise FormatError(f"an ihdr box of {info['ihdr']}")
+            ihdr = True
+        elif kind == b"colr" and not colr:      # the first one counts
+            colr = True
+            if len(body) < 3:
+                raise FormatError("a bad colr box")
+            if body[0] == 1:
+                if len(body) < 7:
+                    raise FormatError("a bad colr box")
+                info["enumcs"] = struct.unpack(">I", body[3:7])[0]
+        elif kind == b"pclr":
+            if len(body) < 3:
+                raise FormatError("a bad pclr box")
+            ne, npc = struct.unpack(">HB", body[:3])
+            if not 0 < ne <= 1024 or npc == 0 or len(body) < 3 + npc:
+                raise FormatError("a bad pclr box")
+            bits = [(b & 0x7F) + 1 for b in body[3:3 + npc]]
+            widths = [min((b + 7) >> 3, 4) for b in bits]
+            pos, entries = 3 + npc, np.zeros((ne, npc), np.int64)
+            if len(body) < pos + ne * sum(widths):
+                raise FormatError("the pclr box ends inside its entries")
+            for i in range(ne):
+                for j, w in enumerate(widths):
+                    entries[i, j] = int.from_bytes(body[pos:pos + w], "big")
+                    pos += w
+            info["pclr"] = (entries, bits)
+        elif kind == b"cmap":
+            if info["pclr"] is None:
+                raise FormatError("a cmap box before the pclr box")
+            npc = info["pclr"][0].shape[1]
+            if len(body) < 4 * npc:
+                raise FormatError("a short cmap box")
+            info["cmap"] = [struct.unpack(">HBB", body[4 * i:4 * i + 4])
+                            for i in range(npc)]
+        elif kind == b"cdef":
+            if len(body) < 2:
+                raise FormatError("a bad cdef box")
+            n = struct.unpack(">H", body[:2])[0]
+            if n == 0 or len(body) < 2 + 6 * n:
+                raise FormatError("a bad cdef box")
+            info["cdef"] = [list(struct.unpack(">HHH",
+                                               body[2 + 6 * i:8 + 6 * i]))
+                            for i in range(n)]
+    if not ihdr:
+        raise FormatError("no ihdr box in jp2h")
+    return info
+
+
+def _jp2_check(info: dict, ncomp: int) -> None:
+    """OpenJPEG's checks of cdef, pclr and cmap (opj_jp2_check_color)."""
+    cmap = info["cmap"]
+    if info["cdef"] is not None:
+        n = len(cmap) if cmap is not None else ncomp
+        for cn, _, asoc in info["cdef"]:
+            if cn >= n or (asoc not in (0, 65535) and asoc - 1 >= n):
+                raise FormatError("a cdef channel that is not there")
+        if any(all(e[0] != c for e in info["cdef"]) for c in range(n)):
+            raise FormatError("incomplete channel definitions in cdef")
+    if cmap is None:
+        return
+    npc, used, sane = len(cmap), [False] * len(cmap), True
+    for i, (cmp, mtyp, pcol) in enumerate(cmap):
+        if cmp >= ncomp:
+            sane = False
+        if mtyp not in (0, 1) or pcol >= npc or (used[pcol] and mtyp == 1) \
+                or (mtyp == 0 and pcol != 0) or (mtyp == 1 and pcol != i):
+            sane = False
+        else:
+            used[pcol] = True
+    if any(not used[i] and cmap[i][1] != 0 for i in range(npc)):
+        sane = False
+    if sane and ncomp == 1 and not all(used):   # OpenJPEG's "correction"
+        info["cmap"] = [(cmp, 1, i) for i, (cmp, _, _) in enumerate(cmap)]
+    if not sane:
+        raise FormatError("a bad cmap box")
+
+
+def read_jp2(data: bytes, decode) -> np.ndarray:
+    """JPEG 2000 bytes (a JP2 file or a raw J2K codestream) -> uint8
+    [H, W, 3] RGB, as cv2.imread reads them through OpenJPEG 2.5: the
+    codestream decoded by the host library (``decode(codestream) ->
+    (int32 [ncomp, h, w], largest precision)``, which refuses what cv2
+    refuses by the codestream's header), then OpenJPEG's palette (pclr,
+    cmap) and channel definitions (cdef), then cv2's conversion: every
+    sample shifted right by the largest precision less 8 and cast to 8
+    bits; grey (colr 17) repeated, sYCC (18) through cvtColor's integer
+    YUV-to-BGR, an unknown colour space read as sRGB.  cv2 refuses 1 or 2
+    channels read as sRGB, e-YCC and CMYK; so does this reader.  No EXIF:
+    cv2's JPEG 2000 decoder reads none."""
+    if data.startswith(JP2_SIGNATURE):
+        info, at = _jp2_header(data)
+        codestream = data[at:]
+    else:
+        info, codestream = {"enumcs": 0, "pclr": None, "cmap": None,
+                            "cdef": None}, data
+    space = _ENUMCS.get(info["enumcs"], "unknown")
+    if space in ("e-YCC", "CMYK"):
+        raise FormatError(f"the {space} colour space (cv2 refuses it)")
+    samples, max_prec = decode(codestream)
+    ncomp, h, w = samples.shape
+    if "ihdr" in info and info["ihdr"][:2] != (h, w):
+        raise FormatError(f"ihdr's size {info['ihdr'][1]}x{info['ihdr'][0]}"
+                          f" is not SIZ's {w}x{h}")
+    planes = list(samples)
+    _jp2_check(info, ncomp)
+    if info["pclr"] is not None and info["cmap"] is not None:
+        entries, _ = info["pclr"]
+        out = []
+        for i, (cmp, mtyp, pcol) in enumerate(info["cmap"]):
+            src = planes[cmp]
+            out.append(src if mtyp == 0 else
+                       entries[np.clip(src, 0, len(entries) - 1), pcol])
+        planes = out
+    if info["cdef"] is not None:                # opj_jp2_apply_cdef's swaps
+        cdef = [list(e) for e in info["cdef"]]
+        for i, (cn, typ, asoc) in enumerate(cdef):
+            if cn >= len(planes) or asoc in (0, 65535):
+                continue
+            acn = asoc - 1
+            if acn >= len(planes) or cn == acn or typ != 0:
+                continue
+            planes[cn], planes[acn] = planes[acn], planes[cn]
+            for e in cdef[i + 1:]:
+                if e[0] == cn:
+                    e[0] = acn
+                elif e[0] == acn:
+                    e[0] = cn
+    shift = max_prec - 8
+    if space == "grey":
+        chans = [planes[0]] * 3
+    elif len(planes) < 3:
+        raise FormatError(f"{len(planes)} channels read as sRGB (cv2 "
+                          f"refuses them)")
+    else:
+        chans = planes[:3]
+    rgb = np.stack([(c.astype(np.int64) >> shift) & 0xFF for c in chans], -1)
+    if space == "sYCC":
+        rgb = _yuv_to_rgb(rgb)
+    return np.ascontiguousarray(rgb.astype(np.uint8))
+
+
+def _yuv_to_rgb(yuv: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(COLOR_YUV2BGR) on uint8, its integer path (14-bit
+    coefficients, rounded), RGB out."""
+    y, u, v = (yuv[..., i].astype(np.int64) for i in range(3))
+    u, v = u - 128, v - 128
+
+    def descale(x):
+        return (x + (1 << 13)) >> 14
+
+    b = y + descale(u * 33292)
+    g = y + descale(u * -6472 + v * -9519)
+    r = y + descale(v * 18678)
+    return np.clip(np.stack([r, g, b], -1), 0, 255)
+
+
+# ---------------------------------------------------------------------------
+# GIF
+
+def _gif_sub_blocks(data: bytes, pos: int) -> Tuple[bytes, int]:
+    """The data of the sub-blocks at ``pos`` and the position after their
+    terminator."""
+    parts = []
+    while True:
+        if pos >= len(data):
+            raise FormatError("the file ends inside a block")
+        n = data[pos]
+        pos += 1
+        if n == 0:
+            return b"".join(parts), pos
+        if pos + n > len(data):
+            raise FormatError("the file ends inside a block")
+        parts.append(data[pos:pos + n])
+        pos += n
+
+
+def _gif_walk(data: bytes, pos: int) -> None:
+    """cv2's first pass over the blocks, to the trailer: extensions and
+    images skipped by their lengths; any other byte fails, as does a file
+    that ends before the trailer."""
+    while True:
+        if pos >= len(data):
+            raise FormatError("the file ends before the trailer")
+        kind = data[pos]
+        if kind == 0x3B:
+            return
+        if kind == 0x21:
+            _, pos = _gif_sub_blocks(data, pos + 2)
+        elif kind == 0x2C:
+            if pos + 10 > len(data):
+                raise FormatError("the file ends inside an image descriptor")
+            flags = data[pos + 9]
+            pos += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0) + 1
+            _, pos = _gif_sub_blocks(data, pos)
+        else:
+            raise FormatError(f"a block of type {kind:#04x}")
+
+
+# cv2's colours for a GIF with neither table: grey i, but white for 1
+_GIF_DEFAULT_TABLE = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+_GIF_DEFAULT_TABLE[1] = 255
+
+
+def read_gif(data: bytes, lzw) -> np.ndarray:
+    """GIF bytes -> uint8 [H, W, 3] RGB, the first frame, as cv2 5's own
+    GifDecoder reads it: the signature GIF87a or GIF89a, a logical screen
+    of at least 1x1, a background index inside the global colour table
+    when there is one, and blocks that run to the trailer; then the
+    extensions before the first image (the last graphic control
+    extension's transparency index counts; its disposal does not change
+    the first frame), and the image, which must lie inside the screen.
+    The canvas is the global table's background colour, or black without
+    a global table; the frame's pixels are drawn over it at its offset
+    (de-interlaced), each from the local table, else the global one when
+    the index is past the local table, and a transparent index leaves the
+    canvas; with neither table, index i is grey i but 1 is white.  The
+    host library's ``lzw(data, min_code_size, npix) ->
+    (indices, count)`` decodes the codes; fewer than the frame's pixels
+    fail.  No EXIF: cv2 reads none from a GIF."""
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise FormatError("no GIF87a or GIF89a signature")
+    if len(data) < 13:
+        raise FormatError("the file ends inside the screen descriptor")
+    sw, sh, flags, bg = struct.unpack("<HHBB", data[6:12])
+    if not sw or not sh:
+        raise FormatError(f"a logical screen of {sw}x{sh}")
+    check_size(sw, sh)
+    pos, gtable = 13, None
+    if flags & 0x80:
+        n = 1 << ((flags & 7) + 1)
+        if pos + 3 * n > len(data):
+            raise FormatError("the file ends inside the global colour table")
+        gtable = np.frombuffer(data[pos:pos + 3 * n], np.uint8).reshape(n, 3)
+        pos += 3 * n
+        if bg >= n:
+            raise FormatError(f"background index {bg} past the global "
+                              f"colour table")
+    _gif_walk(data, pos)
+    transparent = None
+    while data[pos] == 0x21:                    # the extensions
+        label = data[pos + 1]
+        if label == 0xF9:
+            if data[pos + 2] != 4:
+                raise FormatError("a graphic control extension not of 4 "
+                                  "bytes")
+            transparent = data[pos + 6] if data[pos + 3] & 1 else None
+        _, pos = _gif_sub_blocks(data, pos + 2)
+    if data[pos] != 0x2C:
+        raise FormatError("no image before the trailer")
+    left, top, w, h, iflags = struct.unpack("<HHHHB", data[pos + 1:pos + 10])
+    if not w or not h or left + w > sw or top + h > sh:
+        raise FormatError(f"a {w}x{h} frame at ({left}, {top}) outside the "
+                          f"{sw}x{sh} screen")
+    pos += 10
+    ltable = gtable
+    if iflags & 0x80:
+        n = 1 << ((iflags & 7) + 1)
+        ltable = np.frombuffer(data[pos:pos + 3 * n], np.uint8).reshape(n, 3)
+        pos += 3 * n
+    if ltable is None:
+        ltable = _GIF_DEFAULT_TABLE
+    mcs = data[pos]
+    if not 2 <= mcs <= 11:
+        raise FormatError(f"an LZW minimum code size of {mcs}")
+    codes, _ = _gif_sub_blocks(data, pos + 1)
+    index, count = lzw(codes, mcs, w * h)
+    if count < w * h:
+        raise FormatError(f"the LZW data hold {count} of the frame's "
+                          f"{w * h} pixels")
+    index = index.reshape(h, w)
+    if iflags & 0x40:                           # the four interlace passes
+        rows = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
+                               np.arange(2, h, 4), np.arange(1, h, 2)])
+        index = index[np.argsort(rows)]
+    colours = np.zeros((256, 3), np.uint8)
+    known = np.zeros(256, bool)
+    if gtable is not None:
+        colours[:len(gtable)], known[:len(gtable)] = gtable, True
+    colours[:len(ltable)], known[:len(ltable)] = ltable, True
+    opaque = np.ones((h, w), bool) if transparent is None \
+        else index != transparent
+    if not known[index[opaque]].all():
+        raise FormatError("a colour index past the colour tables")
+    canvas = np.zeros((sh, sw, 3), np.uint8)
+    if gtable is not None:
+        canvas[:] = gtable[bg]
+    frame = canvas[top:top + h, left:left + w]
+    frame[opaque] = colours[index[opaque]]
+    return canvas
+
+
+# ---------------------------------------------------------------------------
+# PNM (P1-P6), PAM (P7) and PFM (PF): cv2's PxMDecoder, PAMDecoder and
+# PFMDecoder
+
+class _Bytes:
+    """cv2's RLByteStream over the file: reading past the end fails."""
+
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data, self.pos = data, pos
+
+    def byte(self) -> int:
+        if self.pos >= len(self.data):
+            raise FormatError("the file ends early")
+        self.pos += 1
+        return self.data[self.pos - 1]
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise FormatError("the file ends inside the image data")
+        self.pos += n
+        return self.data[self.pos - n:self.pos]
+
+
+_SPACE = b" \t\n\v\f\r"
+
+
+def _pnm_number(s: _Bytes, maxdigits: int = 0) -> int:
+    """cv2's ReadNumber: whitespace and # comments (to the line's end)
+    before the digits, one byte past them consumed."""
+    code = s.byte()
+    while not 0x30 <= code <= 0x39:
+        if code == 0x23:                        # '#'
+            while code not in (10, 13):
+                code = s.byte()
+            code = s.byte()
+        elif code in _SPACE:
+            while code in _SPACE:
+                code = s.byte()
+        else:
+            raise FormatError(f"an unexpected byte {code:#04x} in a number")
+    val = digits = 0
+    while True:
+        val = val * 10 + code - 0x30
+        if val > 0x7FFFFFFF:
+            raise FormatError("a number too large")
+        digits += 1
+        if maxdigits and digits >= maxdigits:
+            break
+        code = s.byte()
+        if not 0x30 <= code <= 0x39:
+            break
+    return val
+
+
+def _bits_to_rgb(rows: np.ndarray, w: int, one_black: bool) -> np.ndarray:
+    """Rows of MSB-first bits -> grey RGB: 1 black and 0 white, or the
+    reverse."""
+    bits = np.unpackbits(rows, axis=1)[:, :w]
+    grey = (bits ^ 1 if one_black else bits) * np.uint8(255)
+    return np.repeat(grey[..., None], 3, -1)
+
+
+def read_pnm(data: bytes) -> np.ndarray:
+    """P1-P6 bytes -> uint8 [H, W, 3] RGB as cv2's PxMDecoder reads them:
+    P1 and P4 bits with 1 black; ASCII samples clamped to maxval and
+    scaled to 0..255 by integer division (above maxval 255 kept and their
+    high byte taken); binary 8-bit samples as they are, whatever maxval;
+    16-bit samples (maxval above 255) big-endian, their high byte."""
+    if len(data) < 2 or data[:1] != b"P" or data[1:2] not in b"123456":
+        raise FormatError("not a P1-P6 header")
+    kind = data[1] - 0x30
+    s = _Bytes(data, 2)
+    w, h = _pnm_number(s), _pnm_number(s)
+    maxval = 1 if kind in (1, 4) else _pnm_number(s)
+    if maxval > 65535 or not (w > 0 and h > 0 and maxval > 0):
+        raise FormatError(f"a {w}x{h} image of maxval {maxval}")
+    check_size(w, h)
+    channels = 3 if kind in (3, 6) else 1
+    if kind == 1:
+        bits = np.array([[_pnm_number(s, 1) != 0 for _ in range(w)]
+                         for _ in range(h)], np.uint8)
+        return _bits_to_rgb(np.packbits(bits, axis=1), w, True)
+    if kind == 4:
+        rows = np.frombuffer(s.take(h * ((w + 7) // 8)), np.uint8)
+        return _bits_to_rgb(rows.reshape(h, -1), w, True)
+    n = h * w * channels
+    if kind in (2, 3):
+        v = np.minimum(np.array([_pnm_number(s) for _ in range(n)],
+                                np.int64), maxval)
+        v = v >> 8 if maxval > 255 else v * 255 // maxval
+    elif maxval > 255:
+        v = np.frombuffer(s.take(2 * n), ">u2") >> 8
+    else:
+        v = np.frombuffer(s.take(n), np.uint8)
+    v = v.astype(np.uint8).reshape(h, w, channels)
+    return np.ascontiguousarray(np.repeat(v, 3 // channels, -1))
+
+
+def _pam_line(s: _Bytes):
+    """cv2's ReadPAMHeaderLine: (field, value), field None for a blank
+    line or a comment."""
+    code = s.byte()
+    while code in _SPACE:
+        code = s.byte()
+    if code == 0x23:
+        while code not in (10, 13):
+            code = s.byte()
+        return None, ""
+    if code in (10, 13):
+        return None, ""
+    ident = bytearray()
+    while len(ident) < 8 and code not in _SPACE:
+        ident.append(code)
+        code = s.byte()
+    if code not in _SPACE:
+        raise FormatError("a bad PAM header line")
+    name = ident.decode("latin-1")
+    if name not in ("ENDHDR", "HEIGHT", "WIDTH", "DEPTH", "MAXVAL",
+                    "TUPLTYPE"):
+        raise FormatError(f"an unknown PAM header field {name!r}")
+    if code in (10, 13):
+        return name, ""
+    code = s.byte()
+    while code in _SPACE:
+        code = s.byte()
+    value = bytearray()
+    while len(value) < 255 and code not in (10, 13):
+        value.append(code)
+        code = s.byte()
+    return name, value.decode("latin-1")
+
+
+def _pam_int(value: str) -> int:
+    """cv2's ParseInt: digits between optional whitespace."""
+    digits = value.strip(" \t\n\v\f\r")
+    if not digits.isdigit() or not digits.isascii():
+        raise FormatError(f"a bad PAM number {value!r}")
+    return int(digits)
+
+
+# TUPLTYPE -> the DEPTH cv2 requires of it
+_PAM_TUPLTYPES = {"BLACKANDWHITE": 1, "GRAYSCALE": 1, "GRAYSCALE_ALPHA": 2,
+                  "RGB": 3, "RGB_ALPHA": 4}
+
+
+def read_pam(data: bytes) -> np.ndarray:
+    """P7 bytes -> uint8 [H, W, 3] RGB as cv2's PAMDecoder reads them for
+    a colour image: WIDTH, HEIGHT, DEPTH (1-4) and MAXVAL once each,
+    ENDHDR; 16-bit samples (MAXVAL above 255) big-endian, their high
+    byte; 8-bit samples as they are.  Three channels are copied as they
+    stand into cv2's BGR image (so RGB comes out reversed); one or two
+    give grey, four RGB without alpha; MAXVAL 1 reads the bytes as packed
+    bits, 1 white.  A TUPLTYPE must have its DEPTH.  cv2 converts only
+    the first ceil(WIDTH / DEPTH) pixels of a GRAYSCALE_ALPHA or RGB_ALPHA
+    row and leaves the rest of its image uninitialised; this reader gives
+    every pixel its grey or RGB value."""
+    if data[:3] not in (b"P7\n", b"P7\r"):
+        raise FormatError("not a P7 header")
+    s = _Bytes(data, 3)
+    fields = {}
+    tupltype = ""
+    while True:
+        name, value = _pam_line(s)
+        if name is None:
+            continue
+        if name == "ENDHDR":
+            break
+        if name == "TUPLTYPE":
+            tupltype = value.rstrip(" \t\n\v\f\r")
+            if tupltype not in _PAM_TUPLTYPES:
+                raise FormatError(f"an unknown TUPLTYPE {value!r}")
+            continue
+        if name in fields:
+            raise FormatError(f"{name} twice")
+        fields[name] = _pam_int(value)
+        if name == "MAXVAL" and fields[name] > 65535:
+            raise FormatError(f"MAXVAL {fields[name]}")
+    if len(fields) < 4:
+        raise FormatError("a PAM header without WIDTH, HEIGHT, DEPTH and "
+                          "MAXVAL")
+    w, h, depth, maxval = (fields[k] for k in ("WIDTH", "HEIGHT", "DEPTH",
+                                               "MAXVAL"))
+    if not tupltype:
+        if depth == 1 and maxval == 1:
+            tupltype = "BLACKANDWHITE"
+        elif depth in (1, 3) and maxval < 256:
+            tupltype = "GRAYSCALE" if depth == 1 else "RGB"
+        else:
+            raise FormatError(f"no TUPLTYPE for DEPTH {depth}, MAXVAL "
+                              f"{maxval}")
+    if not 1 <= depth <= 4 or _PAM_TUPLTYPES[tupltype] != depth:
+        raise FormatError(f"DEPTH {depth} for TUPLTYPE {tupltype}")
+    check_size(w, h)
+    wide = maxval > 255
+    row = w * depth * (2 if wide else 1)
+    raw = np.frombuffer(s.take(h * row), np.uint8).reshape(h, row)
+    if maxval == 1:                             # cv2's "bit mode"
+        return _bits_to_rgb(raw[:, :(w + 7) // 8], w, False)
+    v = (raw.view(">u2") >> 8).astype(np.uint8) if wide else raw
+    v = v.reshape(h, w, depth)
+    if depth == 3:
+        return v[..., ::-1].copy()
+    if depth == 4:
+        return v[..., :3].copy()
+    return np.repeat(v[..., :1], 3, -1)
+
+
+def read_pfm(data: bytes) -> np.ndarray:
+    """PF bytes -> uint8 [H, W, 3] RGB as cv2's PFMDecoder reads them:
+    width, height and scale each ended by one whitespace byte; float32
+    rows bottom-up, little-endian when the scale is negative; every
+    sample divided by |scale| and rounded to 0..255 (half to even; NaN,
+    infinities and values past int32 give 0, as cvRound's do).  A
+    grey PFM (Pf), which cv2 returns as one channel, is refused."""
+    if data[:2] == b"Pf":
+        raise FormatError("a grey PFM (cv2 fails on it for a colour read)")
+    if data[:3] != b"PF\n":
+        raise FormatError("not a PF header")
+    s = _Bytes(data, 3)
+
+    def token() -> str:
+        out = bytearray()
+        for _ in range(2048):
+            c = s.byte()
+            if c >= 128:
+                raise FormatError("a non-ASCII byte in the header")
+            if c in _SPACE:
+                break
+            out.append(c)
+        return out.decode()
+
+    w, h, scale = _c_atoi(token()), _c_atoi(token()), _c_atof(token())
+    check_size(w, h)
+    if not abs(scale) > 0:
+        raise FormatError(f"a scale of {scale}")
+    v = np.frombuffer(s.take(h * w * 12), "<f4" if scale < 0 else ">f4")
+    v = v.reshape(h, w, 3)[::-1].astype(np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        return _round_u8(v * np.float32(1.0 / abs(scale)))
+
+
+def _c_atoi(text: str) -> int:
+    """C's atoi: leading whitespace, a sign and digits; 0 for none."""
+    m = re.match(r"\s*([+-]?\d+)", text)
+    return int(m.group(1)) if m else 0
+
+
+def _c_atof(text: str) -> float:
+    """C's atof: the longest prefix strtod reads (decimal, hexadecimal,
+    inf, nan), 0 for none."""
+    m = re.match(r"\s*([+-]?)(0[xX](?:[0-9a-fA-F]+\.?[0-9a-fA-F]*|"
+                 r"\.[0-9a-fA-F]+)(?:[pP][+-]?\d+)?|infinity|inf|nan|"
+                 r"(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?)", text,
+                 re.IGNORECASE)
+    if not m:
+        return 0.0
+    body = m.group(2)
+    value = float.fromhex(body) if body[:2].lower() == "0x" else float(body)
+    return -value if m.group(1) == "-" else value
+
+
+# ---------------------------------------------------------------------------
+# Sun raster: cv2's SunRasterDecoder
+
+def read_sun(data: bytes) -> np.ndarray:
+    """Sun raster bytes -> uint8 [H, W, 3] RGB as cv2's SunRasterDecoder
+    reads them: RT_OLD and RT_STANDARD (cv2 refuses RT_BYTE_ENCODED and
+    RT_FORMAT_RGB: its header check tests the image type where it means
+    the encoding); depths 1 and 8 through an RMT_EQUAL_RGB colour map of
+    at most 3 << depth bytes (missing entries black) or the grey ramp,
+    24 bits as BGR, 32 as XBGR; rows padded to 16 bits."""
+    if len(data) < 32:
+        raise FormatError("the file ends inside the header")
+    _, w, h, bpp, _, kind, maptype, maplength = struct.unpack(">8i",
+                                                              data[:32])
+    pal_size = 3 << bpp if 0 < bpp <= 8 else 0
+    if not (w > 0 and h > 0 and bpp in (1, 8, 24, 32) and kind in (0, 1)
+            and ((maptype == 0 and maplength == 0)
+                 or (maptype == 1 and 0 < maplength <= pal_size))):
+        raise FormatError(f"a {w}x{h} {bpp}-bit raster of type {kind}, map "
+                          f"type {maptype} of {maplength} bytes")
+    check_size(w, h)
+    s = _Bytes(data, 32)
+    if maplength:
+        cmap = np.frombuffer(s.take(maplength), np.uint8)
+        n = maplength // 3
+        palette = np.zeros((256, 3), np.uint8)
+        palette[:n] = cmap[:3 * n].reshape(3, n).T
+    elif bpp <= 8:
+        palette = np.repeat((np.arange(1 << bpp) * 255 // ((1 << bpp) - 1)
+                             ).astype(np.uint8)[:, None], 3, 1)
+    pitch = ((w * bpp + 7) // 8 + 1) & -2
+    rows = np.frombuffer(s.take(h * pitch), np.uint8).reshape(h, pitch)
+    if bpp == 1:
+        return palette[np.unpackbits(rows, axis=1)[:, :w]]
+    if bpp == 8:
+        return palette[rows[:, :w]]
+    if bpp == 24:
+        return rows[:, :3 * w].reshape(h, w, 3)[..., ::-1].copy()
+    return rows[:, :4 * w].reshape(h, w, 4)[..., :0:-1].copy()
+
+
+# ---------------------------------------------------------------------------
+# Radiance HDR: cv2's HdrDecoder over its copy of Bruce Walter's rgbe.c
+
+def _hdr_lines(data: bytes, pos: int):
+    """fgets with a 128-byte buffer: (line, position after it)."""
+    end = data.find(b"\n", pos, pos + 127)
+    end = min(len(data), pos + 127) if end < 0 else end + 1
+    if end == pos:
+        raise FormatError("the file ends inside the header")
+    return data[pos:end], end
+
+
+def read_hdr(data: bytes) -> np.ndarray:
+    """Radiance HDR bytes -> uint8 [H, W, 3] RGB as cv2's HdrDecoder reads
+    them: header lines to the first blank line, one of them exactly
+    ``FORMAT=32-bit_rle_rgbe``, then ``-Y <height> +X <width>`` (cv2 reads
+    no other orientation, nor an XYZE file); scanlines of 8 to 32767
+    pixels in the new run-length form while they start with 2, 2 (the
+    rest of the image flat from the first that does not), narrower images
+    flat; each
+    pixel's mantissas times 2 ** (exponent - 136) in float, times 255,
+    rounded as cv2's convertTo rounds."""
+    pos, found = 0, False
+    while True:                                 # to the first blank line
+        line, pos = _hdr_lines(data, pos)
+        if line[:1] == b"\0":
+            raise FormatError("a header line that starts with NUL")
+        if line == b"\n":
+            break
+        found |= line == b"FORMAT=32-bit_rle_rgbe\n"
+    if not found:
+        raise FormatError("no FORMAT=32-bit_rle_rgbe line")
+    line, pos = _hdr_lines(data, pos)
+    m = re.match(rb"-Y\s*([+-]?\d+)\s*\+X\s*([+-]?\d+)", line)
+    if not m:
+        raise FormatError(f"a resolution line other than -Y h +X w: "
+                          f"{line[:40]!r}")
+    h, w = int(m.group(1)), int(m.group(2))
+    check_size(w, h)
+    rgbe = np.empty((h * w, 4), np.uint8)
+    done = 0
+    if 8 <= w <= 0x7FFF:
+        while done < h * w:
+            if pos + 4 > len(data):
+                raise FormatError("the file ends inside a scanline")
+            head = data[pos:pos + 4]
+            if head[0] != 2 or head[1] != 2 or head[2] & 0x80:
+                break
+            if head[2] << 8 | head[3] != w:
+                raise FormatError("a scanline of the wrong width")
+            pos += 4
+            line = bytearray()
+            for c in range(4):
+                end = (c + 1) * w
+                while len(line) < end:
+                    if pos + 2 > len(data):
+                        raise FormatError("the file ends inside a scanline")
+                    n = data[pos]
+                    count = n - 128 if n > 128 else n
+                    if count == 0 or count > end - len(line):
+                        raise FormatError("bad scanline data")
+                    if n > 128:                 # a run
+                        line += data[pos + 1:pos + 2] * count
+                        pos += 2
+                    else:                       # count bytes as they are
+                        if pos + 1 + count > len(data):
+                            raise FormatError("the file ends inside a "
+                                              "scanline")
+                        line += data[pos + 1:pos + 1 + count]
+                        pos += 1 + count
+            rgbe[done:done + w] = np.frombuffer(bytes(line),
+                                                np.uint8).reshape(4, w).T
+            done += w
+    rest = h * w - done
+    if rest:
+        if pos + 4 * rest > len(data):
+            raise FormatError("the file ends inside the pixels")
+        rgbe[done:] = np.frombuffer(data[pos:pos + 4 * rest],
+                                    np.uint8).reshape(rest, 4)
+    e = rgbe[:, 3].astype(np.int64)
+    f = np.where(e > 0, np.ldexp(1.0, e - 136), 0.0).astype(np.float32)
+    with np.errstate(over="ignore"):
+        v = rgbe[:, :3].astype(np.float32) * f[:, None] * np.float32(255)
+    return _round_u8(v).reshape(h, w, 3)
+
+
+def _round_u8(v: np.ndarray) -> np.ndarray:
+    """float32 -> uint8 as cv2's convertTo rounds: half to even, 0..255,
+    and 0 for NaN, infinities and values past int32 (cvRound's
+    INT_MIN)."""
+    r = np.rint(v).astype(np.float64)
+    r[~((r >= -2.0 ** 31) & (r < 2.0 ** 31))] = 0
+    return np.clip(r, 0, 255).astype(np.uint8)

@@ -1,6 +1,6 @@
 """ctypes binding of the port's host library: the resize, the JPEG
-decoder and the inner loops of the PNG, WebP and TIFF readers, one
-``.so``.
+decoder, the JPEG 2000 codestream decoder, GIF's LZW and the inner loops
+of the PNG, WebP and TIFF readers, one ``.so``.
 
 ``csrc/preproc.cc`` resizes uint8 RGB images into a batch [N, S, S, 3],
 two kinds picked per call: float32 in [0, 1] (a copy of the JAX package's
@@ -9,8 +9,9 @@ two kinds picked per call: float32 in [0, 1] (a copy of the JAX package's
 cache with).  ``csrc/jpeg_decode.cc`` is the port's own JPEG
 decoder, sequential and progressive, at 1/1, 1/2, 1/4 or 1/8 scale (equal
 bit for bit to libjpeg-turbo's decompression to RGB with that
-``scale_denom``).  ``csrc/png_decode.cc``, ``csrc/webp_decode.cc`` and
-``csrc/tiff_decode.cc`` serve :func:`decode_image`'s readers.  All build
+``scale_denom``).  ``csrc/png_decode.cc``, ``csrc/webp_decode.cc``,
+``csrc/tiff_decode.cc``, ``csrc/jp2_decode.cc`` and ``csrc/gif_decode.cc``
+serve :func:`decode_image`'s readers.  All build
 with g++ into ``build/native/libpreproc-<key>.so`` at the repository
 root.
 
@@ -62,7 +63,8 @@ REPO = Path(__file__).resolve().parents[2]
 CSRC = REPO / "objectdetectionpl_tpu_torch" / "csrc"
 SOURCES = (CSRC / "preproc.cc", CSRC / "jpeg_decode.cc",
            CSRC / "png_decode.cc", CSRC / "webp_decode.cc",
-           CSRC / "tiff_decode.cc")
+           CSRC / "tiff_decode.cc", CSRC / "jp2_decode.cc",
+           CSRC / "gif_decode.cc")
 HEADERS = (CSRC / "jpeg_decode.h",)
 BUILD_DIR = REPO / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
@@ -193,6 +195,12 @@ def _load() -> Optional[ctypes.CDLL]:
         fn.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64,
                        ctypes.c_char_p, ctypes.c_int]
         fn.restype = ctypes.c_int
+    lib.j2k_decode.argtypes = [u8p, ctypes.c_int64, _J2K_ALLOC, i32p,
+                               ctypes.c_char_p, ctypes.c_int]
+    lib.j2k_decode.restype = ctypes.c_int
+    lib.gif_lzw.argtypes = [u8p, ctypes.c_int64, ctypes.c_int, u8p,
+                            ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+    lib.gif_lzw.restype = ctypes.c_int64
     _lib = lib
     return _lib
 
@@ -453,6 +461,44 @@ _tiff_lzw = _tiff_codec("tiff_lzw")
 _tiff_packbits = _tiff_codec("tiff_packbits")
 
 
+# int32* alloc(ncomp, h, w): the decoder's output buffer, null if none
+_J2K_ALLOC = ctypes.CFUNCTYPE(ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int)
+
+
+def _j2k_decode(codestream: bytes) -> Tuple[np.ndarray, int]:
+    """A J2K codestream -> (int32 [ncomp, h, w] samples, the largest
+    component precision), or FormatError with what cv2 refuses."""
+    src = np.frombuffer(codestream or bytes(1), np.uint8)
+    out: List[np.ndarray] = []
+
+    def alloc(n, h, w):
+        try:
+            out.append(np.empty((n, h, w), np.int32))
+        except MemoryError:
+            return None
+        return out[0].ctypes.data
+
+    prec = np.zeros(1, np.int32)
+    msg = ctypes.create_string_buffer(MSG_LEN)
+    if _lib_or_raise().j2k_decode(_u8(src), len(codestream),
+                                  _J2K_ALLOC(alloc), _i32(prec), msg,
+                                  MSG_LEN):
+        raise _format_error(msg)
+    return out[0], int(prec[0])
+
+
+def _gif_lzw(codes: bytes, min_code_size: int, npix: int):
+    src = np.frombuffer(codes or bytes(1), np.uint8)
+    dst = np.zeros(npix, np.uint8)
+    msg = ctypes.create_string_buffer(MSG_LEN)
+    count = _lib_or_raise().gif_lzw(_u8(src), len(codes), min_code_size,
+                                    _u8(dst), npix, msg, MSG_LEN)
+    if count < 0:
+        raise _format_error(msg)
+    return dst, int(count)
+
+
 def _exif_orientation(tiff: bytes) -> int:
     data = np.frombuffer(tiff or bytes(1), np.uint8)
     return int(_lib_or_raise().exif_orientation(_u8(data), len(tiff)))
@@ -472,18 +518,20 @@ def orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return out
 
 
-_READERS = ("PNG", "BMP", "WebP", "TIFF")   # formats.py's, besides JPEG
+_READERS = ("PNG", "BMP", "WebP", "TIFF", "JPEG 2000", "GIF", "PNM", "PAM",
+            "PFM", "Sun raster", "Radiance HDR")   # formats.py's, and JPEG
 
 
 def decode_image(path: str, exif: bool = True) -> np.ndarray:
     """One image file -> uint8 [H, W, 3] RGB, as ``cv2.imread(path)`` (the
     JAX package's ``load_image_rgb``) reads it: the reader picked by the
     file's first bytes whatever its name (``formats.sniff``), JPEG by the
-    port's decoder (CMYK, YCCK and lossless included), PNG, BMP, WebP and
-    TIFF by ``data/formats.py``; JPEG, PNG and WebP turned by their EXIF
+    port's decoder (CMYK, YCCK and lossless included), PNG, BMP, GIF,
+    WebP, TIFF, JPEG 2000, PNM, PAM, PFM, Sun raster and Radiance HDR by
+    ``data/formats.py``; JPEG, PNG and WebP turned by their EXIF
     orientation with ``exif`` (a TIFF's Orientation tag is its reader's,
-    as in cv2).  Other formats cv2 reads (JPEG 2000, AVIF, PNM, ...) and
-    anything else raise :class:`ImageError` naming the path and the
+    as in cv2; cv2 reads no EXIF from the others).  AVIF, which cv2 reads,
+    and anything else raise :class:`ImageError` naming the path and the
     format, as does a file that cv2 would not read either, and a TIFF or
     WebP of a kind the port does not read, naming the kind."""
     from objectdetectionpl_tpu_torch.data import formats
@@ -502,18 +550,27 @@ def decode_image(path: str, exif: bool = True) -> np.ndarray:
             img, orientation = formats.read_png(data, _png_unfilter,
                                                 _exif_orientation)
             return orient(img, orientation) if exif else img
-        if kind == "BMP":
-            return formats.read_bmp(data)
         if kind == "WebP":
             img, orientation = formats.read_webp(
                 data, _webp_vp8, _webp_vp8l, _webp_alpha, _exif_orientation)
             return orient(img, orientation) if exif else img
         if kind == "TIFF":
             return formats.read_tiff(data, _tiff_lzw, _tiff_packbits)
+        if kind == "JPEG 2000":
+            return formats.read_jp2(data, _j2k_decode)
+        if kind == "GIF":
+            return formats.read_gif(data, _gif_lzw)
+        numpy_only = {"BMP": formats.read_bmp, "PNM": formats.read_pnm,
+                      "PAM": formats.read_pam, "PFM": formats.read_pfm,
+                      "Sun raster": formats.read_sun,
+                      "Radiance HDR": formats.read_hdr}
+        if kind in numpy_only:
+            return numpy_only[kind](data)
     except formats.FormatError as e:
         raise ImageError(f"{path}: {kind}: {e}") from None
-    if kind:
+    if kind:    # AVIF; OpenEXR, which the cv2 build of the tests lacks
         raise ImageError(f"{path}: a {kind} image, which the port does not "
-                         f"read (cv2.imread does)")
-    raise ImageError(f"{path}: not an image file (no JPEG, PNG, BMP, WebP "
-                     f"or TIFF signature)")
+                         f"read")
+    raise ImageError(f"{path}: not an image file (no JPEG, PNG, BMP, GIF, "
+                     f"WebP, TIFF, JPEG 2000, PNM, PAM, PFM, Sun raster or "
+                     f"Radiance HDR signature)")

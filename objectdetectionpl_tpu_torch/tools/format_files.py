@@ -12,18 +12,34 @@ its scan data; a lossless JPEG (predictor 6, restart markers); PNGs (RGB
 named ``.jpg``); BMPs (24-bit, RLE8); the committed WebP files, which
 cv2.imwrite wrote (VP8 at quality 75, VP8L, VP8X with a lossless-coded
 ALPH chunk); TIFFs (RGB LZW strips with predictor 2, Deflate tiles, an
-8-bit palette in PackBits and MM order, 16-bit RGB LZW in a BigTIFF).  Every file is
-made the same way on every machine, so the SHA-256 of each one's decode
+8-bit palette in PackBits and MM order, 16-bit RGB LZW in a BigTIFF); the
+committed JPEG 2000 files (cv2's writes of the 500x375 fixture at rate
+x1000 25 and lossless; Pillow's tiled three-layer 9/7 JP2, its RPCL J2K
+codestream with 32x32 precincts and 16x16 code-blocks and its 16-bit
+grey JP2; libopenjp2's J2K codestream with every code-block style bit,
+SOP and EPH markers, precincts and tile-parts by resolution); GIFs (the
+500x375 image in 256 colours, and an interlaced frame at an offset
+inside a larger screen with a local table and a transparent index); a
+P6 PPM, a 16-bit ASCII P2 PGM, a P7 PAM (TUPLTYPE RGB), a PF PFM
+(scale -0.5); Sun rasters (24-bit, 8-bit with a colour map); a Radiance
+HDR of RLE scanlines.  Every file is made the same way on every
+machine, so the SHA-256 of each one's decode
 (``data/testdata/formats/sha256.json``, cv2's decodes, which
 ``tests/test_torch_port_image_formats.py`` holds against cv2 and the
 port) checks the port's reader wherever it runs.
 
-``png_bytes``, ``chunk``, ``bmp_bytes``, ``lossless_jpeg_bytes`` and
-``tiff_bytes`` are the writers: PNG of any colour type, bit depth and
+``png_bytes``, ``chunk``, ``bmp_bytes``, ``lossless_jpeg_bytes``,
+``tiff_bytes``, ``gif_bytes``, ``sun_bytes``, ``hdr_bytes`` and
+``jp2_bytes`` are the writers: PNG of any colour type, bit depth and
 interlace, each row with a filter of its own (None, Sub, Up, Average,
 Paeth in turn); BMP of BI_RGB, BI_BITFIELDS or RLE rows; lossless JPEG
 of any predictor, point transform, restart interval and sampling; TIFF
-of any layout, compression and sample kind the port reads.
+of any layout, compression and sample kind the port reads; GIF of any
+screen, colour tables, frames (``gif_image``: offset, interlace,
+transparency, disposal, minimum code size, a deferred clear); Sun raster
+of any depth, type and colour map, byte-encoded when asked; Radiance HDR
+of RLE or flat scanlines under any header and resolution line; the JP2
+boxes (ihdr, colr, pclr, cmap, cdef) around a J2K codestream.
 """
 
 from __future__ import annotations
@@ -50,7 +66,10 @@ KINDS = ("jpeg", "jpeg_cmyk", "jpeg_ycck", "jpeg_arithmetic",
          "jpeg_damaged", "jpeg_lossless", "png",
          "png_gray16_adam7", "png_palette4", "png_named_jpg", "bmp",
          "bmp_rle8", "webp_lossy", "webp_lossless", "webp_alpha",
-         "tiff_lzw", "tiff_deflate_tiled", "tiff_palette", "tiff_16bit")
+         "tiff_lzw", "tiff_deflate_tiled", "tiff_palette", "tiff_16bit",
+         "jp2_lossy", "jp2_lossless", "jp2_tiles_layers", "j2k_rpcl_precincts",
+         "j2k_styles", "jp2_grey16", "gif", "gif_interlaced_offset", "ppm",
+         "pgm_ascii16", "pam", "pfm", "ras_rgb24", "ras_map8", "hdr")
 COMMITTED = {"jpeg": TESTDATA / BASE,
              "jpeg_cmyk": TESTDATA / UNSUPPORTED[0],
              "jpeg_ycck": FORMATS / "ycck_420_q85_160x120.jpg",
@@ -59,7 +78,13 @@ COMMITTED = {"jpeg": TESTDATA / BASE,
                  FORMATS / "arith_progressive_420_q80_160x120.jpg",
              "webp_lossy": FORMATS / "webp_q75_500x375.webp",
              "webp_lossless": FORMATS / "webp_lossless_160x120.webp",
-             "webp_alpha": FORMATS / "webp_alpha_q75_160x120.webp"}
+             "webp_alpha": FORMATS / "webp_alpha_q75_160x120.webp",
+             "jp2_lossy": FORMATS / "jp2_lossy_x25_500x375.jp2",
+             "jp2_lossless": FORMATS / "jp2_lossless_500x375.jp2",
+             "jp2_tiles_layers": FORMATS / "jp2_tiles_layers_160x120.jp2",
+             "j2k_rpcl_precincts": FORMATS / "j2k_rpcl_precincts_160x120.j2k",
+             "j2k_styles": FORMATS / "j2k_styles_sop_eph_tileparts_128x96.j2k",
+             "jp2_grey16": FORMATS / "jp2_grey16_160x120.jp2"}
 
 
 def chunk(ctype: bytes, body: bytes) -> bytes:
@@ -475,6 +500,248 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2,
     return bytes(out)
 
 
+# ---------------------------------------------------------------------------
+# GIF
+
+def gif_lzw(indices: bytes, min_code_size: int = 8,
+            deferred_clear: bool = False, clear_first: bool = True) -> bytes:
+    """GIF LZW (LSB first, codes from min_code_size + 1 bits, widened when
+    the next free code reaches the width, up to 12 bits): a Clear code
+    first, another when the table fills -- or with ``deferred_clear``
+    none, the rest coded with the full table at 12 bits -- and the End
+    code last."""
+    clear, end = 1 << min_code_size, (1 << min_code_size) + 1
+    out, acc, nacc = bytearray(), 0, 0
+    fresh = {bytes([i]): i for i in range(clear)}
+    width, table, nxt = min_code_size + 1, dict(fresh), end + 1
+
+    def put(code):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += width
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+
+    if clear_first:
+        put(clear)
+    w = b""
+    for i in range(len(indices)):
+        c = indices[i:i + 1]
+        if w + c in table:
+            w += c
+            continue
+        put(table[w])
+        if nxt == 1 << width and width < 12:    # as giflib widens
+            width += 1
+        if nxt < 4096:
+            table[w + c] = nxt
+            nxt += 1
+        elif not deferred_clear:
+            put(clear)
+            table, nxt, width = dict(fresh), end + 1, min_code_size + 1
+        w = c
+    if w:
+        put(table[w])
+        if nxt == 1 << width and width < 12:
+            width += 1
+    put(end)
+    if nacc:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def gif_blocks(data: bytes) -> bytes:
+    """Data sub-blocks of up to 255 bytes and the terminator."""
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def gif_image(indices, left: int = 0, top: int = 0, palette=None,
+              interlace: bool = False, transparent=None,
+              min_code_size: int = 8, deferred_clear: bool = False,
+              disposal: int = 0) -> bytes:
+    """One frame: a graphic control extension (when ``transparent`` is an
+    index or ``disposal`` is set), the image descriptor, its local colour
+    table (``palette`` [n, 3] RGB, n a power of two from 2 to 256) and
+    its LZW data; ``indices`` [h, w] in display order, stored in the four
+    interlace passes with ``interlace``."""
+    idx = np.asarray(indices, np.uint8)
+    h, w = idx.shape
+    out = b""
+    if transparent is not None or disposal:
+        out += b"\x21\xf9\x04" + bytes([disposal << 2 | (
+            transparent is not None)]) + b"\0\0" + bytes(
+            [transparent or 0]) + b"\0"
+    flags = 0
+    if palette is not None:
+        palette = np.asarray(palette, np.uint8)
+        flags = 0x80 | (len(palette).bit_length() - 2)
+    if interlace:
+        flags |= 0x40
+        idx = idx[np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
+                                  np.arange(2, h, 4), np.arange(1, h, 2)])]
+    out += b"," + struct.pack("<HHHHB", left, top, w, h, flags)
+    if palette is not None:
+        out += palette.tobytes()
+    return out + bytes([min_code_size]) + gif_blocks(gif_lzw(
+        idx.tobytes(), min_code_size, deferred_clear))
+
+
+def gif_bytes(w: int, h: int, frames, palette=None, background: int = 0,
+              version: bytes = b"89a", extensions: bytes = b"") -> bytes:
+    """A GIF file: the logical screen w x h, the global colour table
+    (``palette`` [n, 3] RGB, or none), the background index, then
+    ``extensions`` (raw bytes) and the frames (``gif_image``'s), then the
+    trailer."""
+    flags = 0
+    if palette is not None:
+        palette = np.asarray(palette, np.uint8)
+        flags = 0x80 | 0x70 | (len(palette).bit_length() - 2)
+    out = b"GIF" + version + struct.pack("<HHBBB", w, h, flags, background, 0)
+    if palette is not None:
+        out += palette.tobytes()
+    return out + extensions + b"".join(frames) + b";"
+
+
+# ---------------------------------------------------------------------------
+# Sun raster
+
+RT_OLD, RT_STANDARD, RT_BYTE_ENCODED, RT_FORMAT_RGB = 0, 1, 2, 3
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun's byte encoding: runs of 3-256 equal bytes as 0x80, n - 1,
+    byte; a lone 0x80 as 0x80 0x00; other bytes as they are."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        run = 1
+        while i + run < n and run < 256 and data[i + run] == data[i]:
+            run += 1
+        if run >= 3 or data[i] == 0x80 and run > 1:
+            out += bytes([0x80, run - 1, data[i]])
+            i += run
+        elif data[i] == 0x80:
+            out += b"\x80\x00"
+            i += 1
+        else:
+            out.append(data[i])
+            i += 1
+    return bytes(out)
+
+
+def sun_bytes(pixels, bpp: int, kind: int = RT_STANDARD, colormap=None,
+              maptype=None, length=None) -> bytes:
+    """A Sun raster file: ``pixels`` [h, w] (1 or 8 bits: indices or
+    bits) or [h, w, 3 or 4] (24 or 32 bits, in file order: BGR or XBGR,
+    RGB or XRGB for RT_FORMAT_RGB), rows padded to 16 bits, byte-encoded
+    for RT_BYTE_ENCODED; ``colormap`` [3, n] (the red, green and blue
+    planes) with maptype 1 (RMT_EQUAL_RGB)."""
+    px = np.asarray(pixels, np.uint8)
+    h, w = px.shape[:2]
+    if bpp == 1:
+        rows = np.packbits(px, axis=1)
+    else:
+        rows = px.reshape(h, -1)
+    if rows.shape[1] % 2:
+        rows = np.concatenate([rows, np.zeros((h, 1), np.uint8)], 1)
+    body = rows.tobytes()
+    if kind == RT_BYTE_ENCODED:
+        body = sun_rle(body)
+    cmap = b"" if colormap is None else np.asarray(colormap,
+                                                   np.uint8).tobytes()
+    if maptype is None:
+        maptype = 1 if cmap else 0
+    return struct.pack(">8I", 0x59A66A95, w, h, bpp,
+                       len(body) if length is None else length, kind,
+                       maptype, len(cmap)) + cmap + body
+
+
+# ---------------------------------------------------------------------------
+# Radiance HDR
+
+def hdr_rle_scanline(rgbe) -> bytes:
+    """One new-style RLE scanline: 2, 2, the width, then each of the four
+    channels as runs (128 + n, byte) of 3-127 and literals (n, bytes) of
+    1-128."""
+    rgbe = np.asarray(rgbe, np.uint8)
+    w = len(rgbe)
+    out = bytearray([2, 2, w >> 8, w & 0xFF])
+    for c in range(4):
+        v, i = rgbe[:, c].tobytes(), 0
+        while i < w:
+            run = 1
+            while i + run < w and run < 127 and v[i + run] == v[i]:
+                run += 1
+            if run >= 3:
+                out += bytes([128 + run, v[i]])
+                i += run
+                continue
+            j = i
+            while j < w and j - i < 128 and not (
+                    j + 2 < w and v[j] == v[j + 1] == v[j + 2]):
+                j += 1
+            out += bytes([j - i]) + v[i:j]
+            i = j
+    return bytes(out)
+
+
+def hdr_bytes(rgbe, rle: bool = True, header: bytes = None,
+              resolution: bytes = None) -> bytes:
+    """A Radiance HDR file of RGBE pixels [h, w, 4]: the header (default
+    ``#?RADIANCE``, ``FORMAT=32-bit_rle_rgbe`` and a blank line), the
+    resolution line (default ``-Y h +X w``), then new-style RLE scanlines
+    or flat pixels."""
+    rgbe = np.asarray(rgbe, np.uint8)
+    h, w = rgbe.shape[:2]
+    if header is None:
+        header = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+    if resolution is None:
+        resolution = f"-Y {h} +X {w}\n".encode()
+    body = b"".join(hdr_rle_scanline(r) for r in rgbe) if rle \
+        else rgbe.tobytes()
+    return header + resolution + body
+
+
+def jp2_box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def jp2_bytes(codestream: bytes, ncomp: int, h: int, w: int,
+              enumcs: int = 16, colr: bytes = None, pclr=None, cmap=None,
+              cdef=None) -> bytes:
+    """A JP2 file around a J2K codestream: the signature, ftyp, jp2h (ihdr,
+    colr with the enumerated colour space ``enumcs`` or the raw ``colr``
+    body, no colr with both None, then pclr, cmap and cdef when given)
+    and jp2c.  ``pclr`` is (bits per column, entries [n, columns]),
+    ``cmap`` [(component, mtyp, pcol), ...], ``cdef`` [(channel, type,
+    association), ...]."""
+    hdr = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, ncomp, 7, 7, 0, 0))
+    if colr is None and enumcs is not None:
+        colr = b"\x01\x00\x00" + struct.pack(">I", enumcs)
+    if colr is not None:
+        hdr += jp2_box(b"colr", colr)
+    if pclr is not None:
+        bits, entries = pclr
+        entries = np.asarray(entries, np.int64)
+        body = struct.pack(">HB", len(entries), len(bits)) + bytes(
+            b - 1 for b in bits)
+        for row in entries:
+            body += b"".join(int(v).to_bytes((b + 7) // 8, "big")
+                             for b, v in zip(bits, row))
+        hdr += jp2_box(b"pclr", body)
+    if cmap is not None:
+        hdr += jp2_box(b"cmap", b"".join(struct.pack(">HBB", *m)
+                                         for m in cmap))
+    if cdef is not None:
+        hdr += jp2_box(b"cdef", struct.pack(">H", len(cdef)) + b"".join(
+            struct.pack(">HHH", *d) for d in cdef))
+    return (jp2_box(b"jP  ", b"\r\n\x87\n")
+            + jp2_box(b"ftyp", b"jp2 \x00\x00\x00\x00jp2 ")
+            + jp2_box(b"jp2h", hdr) + jp2_box(b"jp2c", codestream))
+
+
 def write_format_files(directory) -> Dict[str, str]:
     """Every kind of ``KINDS`` written under ``directory``: {kind: path}."""
     d = Path(directory)
@@ -545,6 +812,38 @@ def write_format_files(directory) -> Dict[str, str]:
     }
     for kind, data in tiffs.items():
         paths[kind] = d / f"{kind}.tiff"
+        paths[kind].write_bytes(data)
+    # 8-bit colours: 3 bits of red and green, 2 of blue
+    index = (rgb[..., 0] & 0xE0) | (rgb[..., 1] >> 5 << 2) | (rgb[..., 2] >> 6)
+    cube = np.stack([i & 0xE0, (i >> 2 & 7) * 36, (i & 3) * 85], 1)
+    grey = small[..., 1] >> 4
+    others = {
+        "gif.gif": gif_bytes(w, h, [gif_image(index)], cube, background=9),
+        "gif_interlaced_offset.gif": gif_bytes(
+            w // 3 + 20, h // 3 + 10, [gif_image(
+                grey, left=13, top=6, interlace=True, transparent=5,
+                min_code_size=4, palette=np.repeat(
+                    np.arange(16)[:, None] * 17, 3, 1))], cube[:16],
+            background=2),
+        "ppm.ppm": b"P6\n%d %d\n255\n" % (w, h) + rgb.tobytes(),
+        "pgm_ascii16.pgm": (b"P2\n# 16-bit\n%d %d\n65535\n"
+                            % small.shape[1::-1] + " ".join(map(str, (
+                                small[..., 2].astype(np.int64) * 257
+                            ).reshape(-1))).encode() + b"\n"),
+        "pam.pam": (b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH 3\nMAXVAL 255\n"
+                    b"TUPLTYPE RGB\nENDHDR\n" % small.shape[1::-1]
+                    + small.tobytes()),
+        "pfm.pfm": (b"PF\n%d %d\n-0.5\n" % small.shape[1::-1]
+                    + (small[::-1].astype("<f4") / 2).tobytes()),
+        "ras_rgb24.ras": sun_bytes(rgb[..., ::-1], 24),
+        "ras_map8.ras": sun_bytes(small[..., 0], 8, colormap=np.stack(
+            [i, 255 - i, i * 7 % 256])),
+        "hdr.hdr": hdr_bytes(np.dstack([rgb, np.full((h, w), 128,
+                                                     np.uint8)])),
+    }
+    for name, data in others.items():
+        kind = name.split(".")[0]
+        paths[kind] = d / name
         paths[kind].write_bytes(data)
     assert sorted(paths) == sorted(KINDS)
     return {k: str(paths[k]) for k in KINDS}

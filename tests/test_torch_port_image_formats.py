@@ -19,14 +19,16 @@ their own, ``test_torch_port_webp.py`` and ``test_torch_port_tiff.py``).
   its row, the OS/2 header, odd widths (row padding).
 - ``format_files.write_format_files``: every kind's decode equals cv2's
   and the SHA-256 recorded for ``chip_smoke.py formats``.
-- WebP and TIFF files written by cv2 read as cv2 reads them; JPEG 2000,
-  PNM, Sun raster and Radiance HDR files raise naming the format; a file
-  with no signature raises.
+- WebP, TIFF, JPEG 2000, PNM, Sun raster, Radiance HDR and GIF files
+  written by cv2 read as cv2 reads them (each has a file of tests of its
+  own); an AVIF file raises naming the format; a file with no signature
+  raises, and a GIF signature on a 0x0 screen raises naming GIF.
 """
 
 import hashlib
 import json
 import struct
+import zlib
 
 import cv2
 import numpy as np
@@ -287,16 +289,18 @@ def test_bmp_rle(tmp_path, four, name):
 
 
 # ---------------------------------------------------------------------------
-# the formats the port refuses
+# the other formats cv2 reads
 
 @pytest.mark.parametrize("ext,name", [(".webp", "WebP"), (".tiff", "TIFF"),
                                       (".jp2", "JPEG 2000"), (".ppm", "PNM"),
                                       (".ras", "Sun raster"),
-                                      (".hdr", "Radiance HDR")])
+                                      (".hdr", "Radiance HDR"),
+                                      (".gif", "GIF"), (".avif", "AVIF")])
 def test_other_formats_raise_naming_the_format(tmp_path, ext, name):
     """cv2.imwrite's file of each other format, under its name and a .jpg
-    one: the formats the port reads (WebP, TIFF) equal cv2's decode; the
-    others raise naming the format."""
+    one: the formats the port reads (WebP, TIFF, JPEG 2000, PNM, Sun
+    raster, Radiance HDR, GIF) equal cv2's decode; AVIF, which it does not
+    read yet, raises naming the format."""
     rng = np.random.RandomState(1)
     img = rng.randint(0, 256, (64, 64, 3)).astype(np.uint8)
     path = tmp_path / f"img{ext}"
@@ -305,7 +309,7 @@ def test_other_formats_raise_naming_the_format(tmp_path, ext, name):
     named = tmp_path / "img.jpg"                             # any name
     named.write_bytes(path.read_bytes())
     for p in (path, named):
-        if name in ("WebP", "TIFF"):
+        if name != "AVIF":
             assert _assert_like_jax(p) is not None
             continue
         with pytest.raises(native.ImageError,
@@ -315,12 +319,133 @@ def test_other_formats_raise_naming_the_format(tmp_path, ext, name):
 
 def test_no_signature_raises(tmp_path):
     path = tmp_path / "x.jpg"
-    path.write_bytes(b"GIF89a" + bytes(40))
-    with pytest.raises(OSError,
-                       match="no JPEG, PNG, BMP, WebP or TIFF signature"):
+    path.write_bytes(b"GIF90a" + bytes(40))
+    with pytest.raises(OSError, match="no JPEG, PNG, BMP, GIF, WebP, TIFF, "
+                                      "JPEG 2000, PNM, PAM, PFM, Sun raster "
+                                      "or Radiance HDR signature"):
         common.load_image_rgb(str(path))
     with pytest.raises(OSError, match="cannot read the file"):
         common.load_image_rgb(str(tmp_path / "missing.png"))
+
+
+def test_gif_signature_and_zeros_raise_naming_gif(tmp_path):
+    """``GIF89a`` and 40 zero bytes: a GIF signature on a 0x0 screen, which
+    cv2 returns None for, raises naming GIF (under any name)."""
+    for name in ("x.gif", "x.jpg"):
+        path = tmp_path / name
+        path.write_bytes(b"GIF89a" + bytes(40))
+        assert cv2.imread(str(path)) is None
+        with pytest.raises(native.ImageError, match=f"^{path}: GIF: "):
+            common.load_image_rgb(str(path))
+
+
+def _jpeg_2000(img, raw: bool, w: int, h: int) -> bytes:
+    """cv2's JP2 write of ``img`` with SIZ (and ihdr) saying w x h, one
+    tile; ``raw``: the bare codestream."""
+    data = cv2.imencode(".jp2", img)[1].tobytes()
+    at = data.index(b"\xff\x4f\xff\x51")
+    siz = struct.pack(">IIIIII", w, h, 0, 0, w, h)
+    data = data[:at + 8] + siz + data[at + 32:]
+    if raw:
+        return data[at:]
+    at = data.index(b"ihdr") + 4
+    return data[:at] + struct.pack(">II", h, w) + data[at + 8:]
+
+
+def _tiff_size(data: bytes, w: int, h: int) -> bytes:
+    """A little-endian classic TIFF with ImageWidth and ImageLength set."""
+    out = bytearray(data)
+    ifd = struct.unpack("<I", data[4:8])[0]
+    for k in range(struct.unpack("<H", data[ifd:ifd + 2])[0]):
+        at = ifd + 2 + 12 * k
+        tag, typ = struct.unpack("<HH", data[at:at + 4])
+        if tag in (256, 257):
+            v = w if tag == 256 else h
+            out[at + 8:at + 12] = struct.pack("<HH", v, 0) if typ == 3 \
+                else struct.pack("<I", v)
+    return bytes(out)
+
+
+def _webp_canvas(img, w: int, h: int) -> bytes:
+    """cv2's WebP of ``img`` behind a VP8X chunk whose canvas is w x h."""
+    vp8 = cv2.imencode(".webp", img)[1].tobytes()[12:]
+    vp8x = b"VP8X" + struct.pack("<II", 10, 0) + \
+        struct.pack("<I", w - 1)[:3] + struct.pack("<I", h - 1)[:3]
+    return b"RIFF" + struct.pack("<I", 4 + len(vp8x) + len(vp8)) + \
+        b"WEBP" + vp8x + vp8
+
+
+def _oversized(kind: str, w: int, h: int) -> bytes:
+    """A small file of ``kind`` whose header says w x h."""
+    img = np.random.RandomState(5).randint(0, 256, (64, 64, 3)).astype(
+        np.uint8)
+    if kind == "JPEG":
+        data = cv2.imencode(".jpg", img)[1].tobytes()
+        at = data.index(b"\xff\xc0") + 5
+        return data[:at] + struct.pack(">HH", h, w) + data[at + 4:]
+    if kind == "PNG":
+        data = png_bytes(img, 2, 8)
+        body = b"IHDR" + struct.pack(">II", w, h) + data[24:29]
+        return data[:12] + body + struct.pack(">I", zlib.crc32(body)) + \
+            data[33:]
+    if kind == "BMP":
+        data = cv2.imencode(".bmp", img)[1].tobytes()
+        return data[:18] + struct.pack("<ii", w, h) + data[26:]
+    if kind == "TIFF":
+        return _tiff_size(format_files.tiff_bytes(img), w, h)
+    if kind == "WebP":
+        return _webp_canvas(img, w, h)
+    if kind == "GIF":
+        data = cv2.imencode(".gif", img)[1].tobytes()
+        return data[:6] + struct.pack("<HH", w, h) + data[10:]
+    if kind == "JPEG 2000 codestream":
+        return _jpeg_2000(img, True, w, h)
+    if kind == "JPEG 2000":
+        return _jpeg_2000(img, False, w, h)
+    if kind == "PNM":
+        return b"P5\n%d %d\n255\n" % (w, h) + bytes(min(w * h, 1 << 21))
+    if kind == "PAM":
+        return (b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH 3\nMAXVAL 255\n"
+                b"TUPLTYPE RGB\nENDHDR\n" % (w, h)) + bytes(192)
+    if kind == "PFM":
+        return b"PF\n%d %d\n-1.0\n" % (w, h) + bytes(64 * 64 * 12)
+    if kind == "Sun raster":
+        data = cv2.imencode(".ras", img)[1].tobytes()
+        return data[:4] + struct.pack(">ii", w, h) + data[12:]
+    assert kind == "Radiance HDR"
+    return b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y %d +X %d\n" % (h, w) \
+        + bytes(256)
+
+
+@pytest.mark.parametrize("kind,w,h", [
+    ("JPEG", 40000, 40000), ("PNG", 40000, 40000), ("BMP", 40000, 40000),
+    ("BMP", 40000, -40000), ("TIFF", 65535, 65535),
+    ("WebP", 1 << 20, 1 << 11), ("GIF", 65535, 65535),
+    ("JPEG 2000 codestream", 40000, 40000), ("JPEG 2000", 40000, 40000),
+    ("PNM", (1 << 20) + 1, 1), ("PNM", 40000, 40000), ("PAM", 40000, 40000),
+    ("PFM", 40000, 40000), ("Sun raster", 40000, 40000),
+    ("Radiance HDR", 40000, 40000)])
+def test_sizes_past_cv2s_limits_raise(tmp_path, kind, w, h):
+    """A header past cv2.imread's limits (more than 2^20 columns or rows,
+    or 2^30 pixels), which cv2 5.0 refuses with an assertion (cv2.error;
+    JAX's load_image_rgb lets it through), raises ImageError before the
+    port makes anything of that size."""
+    path = tmp_path / "big.jpg"
+    path.write_bytes(_oversized(kind, w, h))
+    with pytest.raises(cv2.error, match="validateInputImageSize"):
+        cv2.imread(str(path))
+    with pytest.raises(native.ImageError,
+                       match=f"a {w}x{abs(h)} image, larger than cv2 reads"):
+        common.load_image_rgb(str(path))
+
+
+def test_size_at_cv2s_limit_reads(tmp_path):
+    """2^20 columns is inside the limit: a grey PNM of one such row reads
+    as cv2 reads it."""
+    path = tmp_path / "wide.pgm"
+    path.write_bytes(b"P5\n%d 1\n255\n" % (1 << 20)
+                     + bytes(range(256)) * (1 << 12))
+    assert _assert_like_jax(path).shape == (1, 1 << 20, 3)
 
 
 def test_sniff():
@@ -332,6 +457,13 @@ def test_sniff():
     assert formats.sniff(b"\x59\xa6\x6a\x95") == "Sun raster"
     assert formats.sniff(b"#?RADIANCE\n") == "Radiance HDR"
     assert formats.sniff(b"\x76\x2f\x31\x01") == "OpenEXR"
+    assert formats.sniff(b"GIF87a") == formats.sniff(b"GIF89a") == "GIF"
+    assert formats.sniff(b"GIF88a") == ""
+    assert formats.sniff(b"\xff\x4f\xff\x51\x00") == "JPEG 2000"
+    assert formats.sniff(formats.JP2_SIGNATURE) == "JPEG 2000"
+    assert formats.sniff(b"P6\n") == "PNM"
+    assert formats.sniff(b"P7\n") == "PAM"
+    assert formats.sniff(b"PF\n") == formats.sniff(b"Pf\n") == "PFM"
 
 
 def test_format_files_equal_their_hashes(tmp_path):

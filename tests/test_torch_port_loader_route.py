@@ -11,14 +11,16 @@ have some images replaced by: the committed CMYK fixture (which the fused
 call refuses), a file cut at half its bytes and a bit-flipped one (which
 it decodes), a PNG named ``.jpg``, a 500x375 copy with EXIF Orientation
 6, a lossless JPEG (which JAX's libjpeg 2.1 refuses on the fused route and
-cv2 reads), a VP8 and a VP8L WebP and an LZW TIFF, named ``.jpg`` in the
-VOC tree and the VP8 and TIFF files by their own extension in the COCO
-tree.
+cv2 reads), a VP8 and a VP8L WebP, an LZW TIFF, and one file of each
+format the port reads since (cv2's writes of a JP2, a GIF, a PPM, a PAM,
+a PFM, a Sun raster and a Radiance HDR, and a committed J2K codestream),
+named ``.jpg`` in the VOC tree and the VP8, TIFF, JP2, J2K, GIF, PAM and
+Sun raster files by their own extension in the COCO tree.
 
 - The port's batches equal JAX's bit for bit, epoch after epoch; the port
   counts its fused and parser batches, and every batch holding the CMYK
-  file, the PNG, the lossless JPEG, a WebP or the TIFF took the parser
-  route.
+  file, the PNG, the lossless JPEG, a WebP, the TIFF or a file of the
+  newer formats took the parser route.
 - A batch that took the parser route equals ``preproc_batch`` of
   ``decode_image`` (full scale, turned) and differs from the fused call's
   decode of the same files.
@@ -65,7 +67,18 @@ def _replacements():
     ok, png = cv2.imencode(".png", cv2.imread(
         str(fixture_trees.TESTDATA / "coco_420_q75_640x480.jpg")))
     assert ok
-    return {
+    bgr = np.ascontiguousarray(small[..., ::-1])
+    written = {}
+    for slot, ext, img in ((16, ".jp2", bgr), (18, ".gif", bgr),
+                           (19, ".ppm", bgr), (20, ".pam", bgr),
+                           (21, ".pfm", bgr.astype(np.float32)),
+                           (22, ".ras", bgr),
+                           (23, ".hdr", bgr.astype(np.float32) / 255)):
+        ok, data = cv2.imencode(ext, img)
+        assert ok
+        written[slot] = data.tobytes()
+    return {**written,
+        17: format_files.COMMITTED["j2k_rpcl_precincts"].read_bytes(),
         1: (fixture_trees.TESTDATA / fixture_trees.UNSUPPORTED[0])
         .read_bytes(),                                       # CMYK
         4: voc[:len(voc) // 2],                              # cut
@@ -81,7 +94,8 @@ def _replacements():
 
 # the slots whose file keeps its own extension in the COCO tree (the VOC
 # tree names every file .jpg)
-OWN_NAME = {7: ".webp", 14: ".tiff"}
+OWN_NAME = {7: ".webp", 14: ".tiff", 16: ".jp2", 17: ".j2k", 18: ".gif",
+            20: ".pam", 22: ".ras"}
 
 
 def _replace(paths, rename=False):
@@ -140,8 +154,10 @@ def test_batches_and_routes_equal_jax(mixed_voc, mixed_coco, jax_library,
     odd = {port.parser.record(i)[0] for i in range(len(port.parser))
            if native.decode_preproc_codes([port.parser.record(i)[0]], S,
                                           False, max_denom=8)[-1][0]}
-    # the CMYK file, the PNG, the lossless JPEG, both WebPs and the TIFF
-    assert len(odd) == 6
+    # the CMYK file, the PNG, the lossless JPEG, both WebPs, the TIFF, the
+    # JP2, the J2K codestream, the GIF, the PPM, the PAM, the PFM, the Sun
+    # raster and the Radiance HDR
+    assert len(odd) == 14
     # batches holding one of them take the parser route, the others fused
     n_odd = 0
     for epoch in range(2):
