@@ -24,17 +24,24 @@ exits non-zero:
    time (CUDA events) and host-inclusive time per call; the plain
    version's host-inclusive time (a Python loop of ~100 to ~1200
    launches); the greedy chain's length (kept heads per image, mean, max);
-   the tiled kernel's device time on the same candidates (launched through
-   ``greedy_nms_tiled_launch``, uncounted, its result checked first); the
-   bound counts the pairs of one label (class-aware) or all pairs.
-3a. kernel_wide -- the tiled kernel (K above 1024, the single-tile
-   kernel's limit) against ``greedy_nms_plain`` at K = 1025, 2048, 4096,
-   B = 1 and 8, 80 classes: class-aware with merge, class-agnostic without
-   merge with ``drop_lone_survivor`` off and on, and near-threshold pairs,
-   within a tile and (K = 2048, 4096) a tile apart, so that the cross-tile
-   test decides them; each check must count one tiled launch.  Then its device time at K =
-   2048, 4096 and 25,200, B = 1 and 64, with the chain length, K x kept
-   heads, the bound, and the plain version's time at B=1.
+   the K > 1024 route's device time on the same candidates (launched
+   through ``greedy_nms_tiled_launch``, uncounted, its result checked
+   first); the bound counts the pairs of one label (class-aware) or all
+   pairs.
+3a. kernel_wide -- the K > 1024 route (a partition kernel that splits each
+   image's rows by label into segments, a segment kernel that runs each
+   segment's chain) against ``greedy_nms_plain`` at K = 1025, 2048, 4096,
+   B = 1 and 8, 80 classes: class-aware with merge and with
+   ``drop_lone_survivor``, class-agnostic without merge with the flag off
+   and on, and near-threshold pairs, within a tile and (K = 2048, 4096) a
+   tile apart, so that the cross-tile test decides them; one label, two
+   labels of which one holds 95 % of the rows, and labels over 0..2999
+   (past the partition's histogram: the workspace header must count every
+   image on the one-segment path); each check must count one tiled
+   launch.  Then its device time at K = 2048, 4096 and 25,200, B = 1 and
+   64, with 80 labels and (K=25,200) one label, with the segments, the
+   chain length, K x kept heads, the bound, and the plain version's time
+   at B=1.
 4. fp32    -- YOLOv5s-640, 80 classes, B=2, f32 with TF32 off: head maps on
    the card against the CPU on the same seeded weights; the card's decoded
    candidates through the kernel and the plain version.
@@ -45,9 +52,11 @@ exits non-zero:
    before and read just after; every batch must launch the NMS kernel
    once.  Then serving_all: the same with every decoded row into the NMS
    (``top_k`` 25,200, ``conf_thres`` 0.001, as an mAP evaluation runs):
-   each batch launches the tiled kernel once and the plain version never;
+   each batch launches the K > 1024 route once and the plain version never;
    the B=1 candidates through the kernel and the plain version, both
-   timed, and the B=64 kernel time.
+   timed, and the B=64 kernel time, with every eighth image of that batch
+   held against the plain version one image at a time and the whole batch
+   against ``greedy_nms_segmented_plain``.
 5a. export -- the serving export (``utils/export.py``): YOLOv5s-640, 80
    classes, bf16, /255 folded, ``build_inference_fn`` saved with
    ``torch.export`` at B=1 and B=64 and loaded in this process: ``valid``,
@@ -179,7 +188,11 @@ exits non-zero:
    over the fixtures x 32 at 1 thread and at the Loader's thread count: ms
    per image, MP/s, ``os.cpu_count()``; and each frame's ms per image at
    each scale and both thread counts (``tools/decode_bench.py``), timed on
-   the host's CPU.
+   the host's CPU.  Then jpeg_headers: the damaged headers of
+   ``format_files.header_cases`` (31 files patched from the fixtures),
+   each decode equal to cv2's committed hash
+   (``formats/headers_sha256.json``) or refused where cv2 refuses, and
+   the fused route reading exactly the cases the JAX library read.
 10a'. formats -- the files a scraped tree holds
    (``tools/format_files.py``: a baseline JPEG, CMYK, YCCK, arithmetic
    sequential and progressive, a cut baseline JPEG, a cut progressive one
@@ -354,8 +367,9 @@ exits non-zero:
    unprofiled calls (the profiler's own host cost inflates the first).
 
 Then the ``kernels`` line (``greedy_nms`` is the single-tile NMS kernel,
-K <= 1024, ``greedy_nms_tiled`` the tiled one with ``serving_all``'s
-launches and times at B=1, K=25,200; the NMS and warp entries also carry the launch
+K <= 1024, ``greedy_nms_tiled`` the K > 1024 route -- its device kernels
+``greedy_nms_partition_kernel`` and ``greedy_nms_segment_kernel`` -- with
+``serving_all``'s launches and times at B=1, K=25,200; the NMS and warp entries also carry the launch
 counts of the YOLO, anchor, VOC, COCO (uncached and cached), WiderPerson,
 training-options, BDD100K-SSD and predict phases, the NMS entry those of
 the export, the fresh interpreter, ``predict --export`` and the bench, the warp entry those of
@@ -506,7 +520,8 @@ WIDE_TIME_K = (2048, 4096, 25200)
 WIDE_TIME_B = (1, 64)
 SERVE_ALL_K = 25200
 SERVE_ALL_CONF = 0.001
-NMS_TILE = 1024          # the tiled kernel's rows a tile (csrc kTile)
+NMS_TILE = 1024          # the tiled kernel's rows a tile (csrc kSeg)
+LABEL_RANGE_WIDE = 3000  # labels 0..2999: above the partition's histogram
 
 REPO = Path(__file__).resolve().parent
 # the trainer phase: cli.run on the YAML with these overrides
@@ -717,19 +732,20 @@ def near_threshold_cross(B, K, seed):
 
 
 def tiled_at_any_k(args, nms_thresh=0.4, class_aware=True, merge=True,
-                   drop=False):
-    """The tiled kernel at any K through ``greedy_nms_tiled_launch`` (the
-    wrapper takes it only above 1024), not counted: to time it beside the
-    single-tile kernel at K <= 1024.  Its workspace is 28 bytes a row
-    (a float4, a float and two ints)."""
+                   drop=False, header=False):
+    """The K > 1024 route (partition and segment kernels) at any K through
+    ``greedy_nms_tiled_launch`` (the wrapper takes it only above 1024), not
+    counted: to time it beside the single-tile kernel at K <= 1024, and to
+    read its workspace header.  Its workspace is
+    ``greedy_nms_tiled_workspace_bytes``; with ``header`` also returns the
+    header's int32 words."""
     boxes, scores, labels, obj = args
     B, K = scores.shape
     lib = nms_kernel._lib()
-    lib.greedy_nms_tiled_launch.argtypes = lib.greedy_nms_launch.argtypes
     out = torch.empty_like(boxes)
     keep = torch.empty((B, K), dtype=torch.bool, device=boxes.device)
-    workspace = torch.empty(28 * B * K, dtype=torch.uint8,
-                            device=boxes.device)
+    workspace = torch.empty(lib.greedy_nms_tiled_workspace_bytes(B, K),
+                            dtype=torch.uint8, device=boxes.device)
     err = lib.greedy_nms_tiled_launch(
         boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
         obj.data_ptr(), out.data_ptr(), keep.data_ptr(), B, K,
@@ -738,6 +754,8 @@ def tiled_at_any_k(args, nms_thresh=0.4, class_aware=True, merge=True,
         workspace.data_ptr())
     if err:
         raise RuntimeError(f"greedy_nms_tiled_launch: cudaError {err}")
+    if header:
+        return out, keep, workspace[:256].view(torch.int32).tolist()
     return out, keep
 
 
@@ -964,16 +982,47 @@ def cross_tile_pairs(args, class_aware, drop) -> dict:
             "pairs_second_suppressed": int((head & ~k[:, :, 1]).sum())}
 
 
+def relabel(args, labels_of, seed):
+    """``args`` with labels drawn by ``labels_of(generator, shape)``."""
+    boxes, scores, labels, obj = args
+    g = torch.Generator().manual_seed(seed)
+    new = labels_of(g, tuple(labels.shape)).to(torch.int32)
+    return [boxes, scores, new.contiguous().cuda(), obj]
+
+
+def label_cases(B, K, seed) -> list:
+    """The split route's own cases: one label (a segment above 1024 rows
+    from K=2048), two labels of which one holds 95 % of the rows, and
+    labels spread over 0..2999 (a range above the partition's histogram:
+    the one-segment path, label test on)."""
+    return [
+        ("c1", relabel(candidates(B, K, seed + 3), lambda g, sh:
+                       torch.zeros(sh), 0)),
+        ("c2_one_segment_above_1024", relabel(
+            candidates(B, K, seed + 4), lambda g, sh:
+            7 + (torch.rand(sh, generator=g) >= 0.95).int(), seed + 4)),
+        ("label_range_above_histogram", relabel(
+            candidates(B, K, seed + 5), lambda g, sh:
+            torch.randint(0, LABEL_RANGE_WIDE, sh, generator=g), seed + 5)),
+    ]
+
+
 def phase_kernel_wide(card: str) -> dict:
-    """The tiled kernel (K > 1024) against the plain version on the card at
-    WIDE_K x WIDE_B, 80 classes: class-aware with merge, class-agnostic
-    without merge with drop_lone_survivor off and on, and near-threshold
-    pairs both ways; every check must take the tiled kernel.  Then its
-    device time at WIDE_TIME_K x WIDE_TIME_B with the chain length, the
-    plain version's at B=1, and the bound."""
+    """The K > 1024 route (partition by label, then each segment's chain)
+    against the plain version on the card at WIDE_K x WIDE_B, 80 classes:
+    class-aware with merge and with drop_lone_survivor, class-agnostic
+    without merge with drop_lone_survivor off and on, near-threshold
+    pairs both ways; one label, two labels with a segment above 1024, and
+    a label range above the histogram (the workspace header must count
+    every image on the one-segment path); every check must count one
+    launch of the route.  Then its device time at WIDE_TIME_K x
+    WIDE_TIME_B with the chain length, the plain version's at B=1, and
+    the bound; and at K=25,200 with one label."""
     max_err = 0.0
     flag_sets = ((True, True, False), (False, False, False),
-                 (False, False, True))        # (class_aware, merge, drop)
+                 (False, False, True), (True, True, True))
+    # (class_aware, merge, drop)
+    bins = nms_kernel._lib().greedy_nms_label_bins()
     for K in WIDE_K:
         for B in WIDE_B:
             seed = 10 * K + B
@@ -985,6 +1034,8 @@ def phase_kernel_wide(card: str) -> dict:
                 cases.append(("near_threshold_cross_tile",
                               near_threshold_cross(B, K, seed + 2),
                               flag_sets[::2]))
+            cases += [(name, args, (flag_sets[0], flag_sets[3]))
+                      for name, args in label_cases(B, K, seed)]
             for name, args, flags in cases:
                 for class_aware, merge, drop in flags:
                     tiled = nms_kernel.TILED_LAUNCHES
@@ -999,23 +1050,66 @@ def phase_kernel_wide(card: str) -> dict:
                            "max_abs_box_err": err, "card": card}
                     if name == "near_threshold_cross_tile":
                         row.update(cross_tile_pairs(args, class_aware, drop))
+                    _, keep, hdr = tiled_at_any_k(
+                        args, class_aware=class_aware, merge=merge,
+                        drop=drop, header=True)
+                    one = hdr[nms_kernel.HEADER_ONE_SEGMENT]
+                    want = B if (class_aware and
+                                 name == "label_range_above_histogram") else 0
+                    if one != want or not torch.equal(
+                            keep, nms_kernel.greedy_nms(
+                                *args, class_aware=class_aware, merge=merge,
+                                drop_lone_survivor=drop)[1]):
+                        raise AssertionError(
+                            f"{name}: {one} images on the one-segment path "
+                            f"(want {want}, histogram {bins} labels)")
+                    row.update(segments=hdr[nms_kernel.HEADER_SEGMENTS],
+                               one_segment_images=one)
                     emit(row)
     timing = {}
-    for K in WIDE_TIME_K:
-        for B in WIDE_TIME_B:
-            args = candidates(B, K, 7 * K + B, classes=80)
-            ms, call_ms = time_ms(lambda: nms_kernel.greedy_nms(*args),
-                                  5 if K > 4096 else 50)
-            plain_ms = (call_time_ms(lambda: nms_kernel.greedy_nms_plain(
-                *args), 1, warmup=1) if B == 1 else None)
-            timing[(K, B)] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                                  **nms_bound_ms(args),
-                                  ious_k_by_kept=ious_k_by_kept(args),
-                                  **kernel_ab.chain_length(args))
-            emit({"phase": "kernel_time", "kernel": "tiled", "B": B, "K": K,
-                  "classes": 80, "card": card, **timing[(K, B)],
-                  "library_ms": None})
+    for K, B, classes in [(K, B, 80) for K in WIDE_TIME_K
+                          for B in WIDE_TIME_B] + [
+                              (SERVE_ALL_K, B, 1) for B in WIDE_TIME_B]:
+        args = candidates(B, K, 7 * K + B + classes, classes=classes)
+        ms, call_ms = time_ms(lambda: nms_kernel.greedy_nms(*args),
+                              5 if K > 4096 else 50)
+        plain_ms = (call_time_ms(lambda: nms_kernel.greedy_nms_plain(
+            *args), 1, warmup=1) if B == 1 else None)
+        timing[(K, B, classes)] = dict(
+            ms=ms, call_ms=call_ms, plain_ms=plain_ms, **nms_bound_ms(args),
+            ious_k_by_kept=ious_k_by_kept(args),
+            segments=tiled_at_any_k(args, header=True)[2][
+                nms_kernel.HEADER_SEGMENTS],
+            **kernel_ab.chain_length(args))
+        emit({"phase": "kernel_time", "kernel": "tiled", "B": B, "K": K,
+              "classes": classes, "card": card, **timing[(K, B, classes)],
+              "library_ms": None})
     return {"max_abs_err": max_err, "timing": timing}
+
+
+def check_large_batch(args, every: int = 8) -> dict:
+    """The kernel's result on a large batch: ``keep`` of every ``every``-th
+    image identical to ``greedy_nms_plain`` on that image alone (its
+    [K, K] tensors take GBs an image), and the whole batch's ``keep``
+    identical to ``greedy_nms_segmented_plain`` with boxes within
+    BOX_TOL."""
+    kb, kk = nms_kernel.greedy_nms(*args)
+    images = list(range(0, args[1].shape[0], every))
+    err = 0.0
+    for b in images:
+        pb, pk = nms_kernel.greedy_nms_plain(*[t[b:b + 1] for t in args])
+        if not torch.equal(kk[b:b + 1], pk):
+            raise AssertionError(f"image {b}: keep differs in "
+                                 f"{int((kk[b:b + 1] != pk).sum())} rows")
+        torch.testing.assert_close(kb[b:b + 1], pb, **BOX_TOL)
+        err = max(err, float((kb[b:b + 1] - pb).abs().max()))
+    sb, sk = nms_kernel.greedy_nms_segmented_plain(*args)
+    if not torch.equal(kk, sk):
+        raise AssertionError(f"segmented plain: keep differs in "
+                             f"{int((kk != sk).sum())} rows")
+    torch.testing.assert_close(kb, sb, **BOX_TOL)
+    return {"images_checked_plain": images, "max_abs_err": max(
+        err, float((kb - sb).abs().max())), "batch_checked_segmented": True}
 
 
 def phase_serving_all(card: str) -> dict:
@@ -1075,15 +1169,19 @@ def phase_serving_all(card: str) -> dict:
             ms, call_ms = time_ms(lambda: nms_kernel.greedy_nms(*args), 5)
             r = dict(ms=ms, call_ms=call_ms, **nms_bound_ms(args),
                      ious_k_by_kept=ious_k_by_kept(args),
+                     segments=tiled_at_any_k(args, header=True)[2][
+                         nms_kernel.HEADER_SEGMENTS],
                      valid_rows=int((args[1] > nms_kernel.NEG_INF).sum()),
                      **kernel_ab.chain_length(args))
             if B == 1:                          # the plain version's GBs
                 r["max_abs_err"] = check_kernel(args, True, True)
                 r["plain_ms"] = call_time_ms(
                     lambda: nms_kernel.greedy_nms_plain(*args), 1, warmup=1)
+            else:
+                r.update(check_large_batch(args))
             out[B] = r
             emit({"phase": "serving_all_check", "card": card, "B": B,
-                  "K": SERVE_ALL_K, "keep_equal": B == 1 or None, **r,
+                  "K": SERVE_ALL_K, "keep_equal": True, **r,
                   "library_ms": None})
     return out
 
@@ -2967,6 +3065,39 @@ def phase_jpeg_check(card: str) -> None:
           "images": len(paths), "megapixels": pixels / 1e6,
           "cpu_count": os.cpu_count(), "decode_batch": timing,
           "decode_one_ms": per_file, "frames_ms_per_image": frames})
+    check_header_cases(card)
+
+
+def check_header_cases(card: str) -> None:
+    """The damaged headers of ``format_files.header_cases``: each decode
+    equal to cv2's committed hash, or refused where cv2 refuses; the fused
+    route reading exactly the cases the JAX library read."""
+    want = json.loads(format_files.HEADER_HASHES.read_text())
+    read = fused = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_headers_",
+                                     dir=REPO / "build") as tmp:
+        for case, path in format_files.write_header_cases(tmp).items():
+            rec = want[case]
+            try:
+                img = native.decode_image(path)
+            except native.ImageError:
+                img = None
+            if (img is None) != (rec["sha256"] is None) or (
+                    img is not None and (list(img.shape) != rec["shape"] or
+                                         hashlib.sha256(img.tobytes())
+                                         .hexdigest() != rec["sha256"])):
+                raise AssertionError(f"header case {case}: decode differs "
+                                     f"from cv2's")
+            code = native.decode_preproc_codes([path], 64, False)[-1][0]
+            if (code == native.JPEG_OK) != rec["fused"]:
+                raise AssertionError(f"header case {case}: fused route "
+                                     f"{code}, the JAX library's "
+                                     f"{rec['fused']}")
+            read += img is not None
+            fused += rec["fused"]
+    emit({"phase": "jpeg_headers", "card": card, "cases": len(want),
+          "read_as_cv2": read, "fused_read": fused,
+          "refused_as_cv2": len(want) - read})
 
 
 def phase_formats(card: str) -> dict:
@@ -4596,8 +4727,15 @@ def main(argv=None) -> int:
         "bound_pairs_b64": w64["bound_pairs"],
         **{f"ms_k{TOP_K}_b{B}": t[B]["tiled_ms"] for B in (1, 64, 256)},
         "chain_mean_b64": w64["chain_mean"],
-        **{f"ms_random_c80_K{K}_B{B}": r["ms"]
-           for (K, B), r in wide["timing"].items()},
+        **{f"ms_random_c{c}_K{K}_B{B}": r["ms"]
+           for (K, B, c), r in wide["timing"].items()},
+        **{f"{key}_random_c1_K{SERVE_ALL_K}_B{B}":
+           wide["timing"][(SERVE_ALL_K, B, 1)][key]
+           for B in WIDE_TIME_B for key in ("bound_ms", "plain_ms")},
+        "segments_b1": w1["segments"], "segments_b64": w64["segments"],
+        "images_checked_plain_b64": w64["images_checked_plain"],
+        "device_kernels": ["greedy_nms_partition_kernel",
+                           "greedy_nms_segment_kernel"],
         "card": card}, {
         "name": "affine_warp", "route": "cuda",
         "source": "objectdetectionpl_tpu_torch/csrc/affine_warp.cu",

@@ -162,6 +162,57 @@ void build_huffman(HuffTable* t, const uint8_t bits[17], const uint8_t* vals,
   t->defined = true;
 }
 
+// The Huffman tables of T.81 K.3 (libjpeg's jstdhuff.c), which
+// libjpeg-turbo's jinit_huff_decoder installs in every empty slot 0 and 1
+// of a sequential Huffman file: what Motion-JPEG frames, which carry no
+// DHT, are coded with.
+constexpr uint8_t kBits_dc_luminance[] = {
+    0x00, 0x00, 0x01, 0x05, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x00, 0x00,
+    0x00, 0x00, 0x00, 0x00, 0x00};
+constexpr uint8_t kVal_dc_luminance[] = {
+    0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07, 0x08, 0x09, 0x0a, 0x0b};
+constexpr uint8_t kBits_ac_luminance[] = {
+    0x00, 0x00, 0x02, 0x01, 0x03, 0x03, 0x02, 0x04, 0x03, 0x05, 0x05, 0x04,
+    0x04, 0x00, 0x00, 0x01, 0x7d};
+constexpr uint8_t kVal_ac_luminance[] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+constexpr uint8_t kBits_dc_chrominance[] = {
+    0x00, 0x00, 0x03, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01, 0x01,
+    0x00, 0x00, 0x00, 0x00, 0x00};
+constexpr uint8_t kVal_dc_chrominance[] = {
+    0x00, 0x01, 0x02, 0x03, 0x04, 0x05, 0x06, 0x07, 0x08, 0x09, 0x0a, 0x0b};
+constexpr uint8_t kBits_ac_chrominance[] = {
+    0x00, 0x00, 0x02, 0x01, 0x02, 0x04, 0x04, 0x03, 0x04, 0x07, 0x05, 0x04,
+    0x04, 0x00, 0x01, 0x02, 0x77};
+constexpr uint8_t kVal_ac_chrominance[] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
 // ---------------------------------------------------------------------------
 // Entropy-coded data: 0xFF00 stuffing, fill bytes, markers.  Past a marker
 // (or the end of the file, which libjpeg's source manager turns into an EOI
@@ -831,7 +882,24 @@ class Decoder {
   // Reads every scan, then writes the image at 1/denom scale into rgb
   // (ceil(height / denom) * ceil(width / denom) * 3 bytes).
   void decode(int denom, uint8_t* rgb) {
-    while (!done_) segment();
+    while (!done_) {
+      if (!(imread_ && output_read())) {
+        segment();
+        continue;
+      }
+      // cv2's JpegDecoder::readData has its result once the last scanline
+      // is read and swallows what jpeg_finish_decompress raises while it
+      // reads the markers after that scan (read_markers' JERR_UNKNOWN_MARKER
+      // for 0xFF9E or 0xFFF3, get_sof's JERR_SOF_DUPLICATE, a second scan's
+      // JERR_EOI_EXPECTED, a bad or cut segment): the image stands as its
+      // one scan left it.  The JAX package's libjpeg loader fails such a
+      // file in the same call, so without imread_ they raise.
+      try {
+        segment();
+      } catch (const Error&) {
+        done_ = true;
+      }
+    }
     if (lossless_) {
       if (denom != 1)
         fail(JPEG_UNSUPPORTED, "a lossless JPEG at scale 1/" +
@@ -853,6 +921,12 @@ class Decoder {
  private:
   size_t size() const { return static_cast<size_t>(end_ - p_); }
 
+  // libjpeg has read every scanline: a file of one scan (jdinput.c's
+  // has_multiple_scans false: not progressive, its first scan holds every
+  // component) whose scan is read.  Files of several scans are read to
+  // their EOI inside jpeg_start_decompress, before any output.
+  bool output_read() const { return scans_ > 0 && one_scan_; }
+
   int byte() {
     if (p_ >= end_) fail(JPEG_CORRUPT, "file ends inside a marker segment "
                                        "(truncated file)");
@@ -870,12 +944,15 @@ class Decoder {
       done_ = true;
       return;
     }
-    int c = byte();
-    if (c != 0xFF) {
-      // libjpeg skips garbage before a marker with a warning
+    // jdmarker.c's next_marker: bytes before a 0xFF are skipped with a
+    // warning ("N extraneous bytes before marker"), fill bytes 0xFF are
+    // swallowed, and a stuffed 0xFF00 counts as two more extraneous bytes
+    int c;
+    do {
+      c = byte();
       while (c != 0xFF) c = byte();
-    }
-    while (c == 0xFF) c = byte();
+      while (c == 0xFF) c = byte();
+    } while (c == 0);
     const int m = c;
     if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA)
       return sof(m);
@@ -1107,8 +1184,12 @@ class Decoder {
         if (k == c) fail(JPEG_CORRUPT, "SOS names a component twice");
       c->td = d[2 + 2 * i] >> 4;
       c->ta = d[2 + 2 * i] & 15;
-      if (c->td > 3 || c->ta > 3)
-        fail(JPEG_CORRUPT, "bad Huffman table index");
+      // jdhuff.c takes Huffman tables 0..3 (NUM_HUFF_TBLS), jdarith.c
+      // conditioning tables 0..15 (NUM_ARITH_TBLS), each with its own
+      // statistics
+      if (c->td > (arith_ ? 15 : 3) || c->ta > (arith_ ? 15 : 3))
+        fail(JPEG_CORRUPT, arith_ ? "bad arithmetic table index"
+                                  : "bad Huffman table index");
       scan.push_back(c);
     }
     int blocks_in_mcu = 0;
@@ -1118,6 +1199,7 @@ class Decoder {
                              "interleaved scan");
     const int ss = d[1 + 2 * ns], se = d[2 + 2 * ns],
               ah = d[3 + 2 * ns] >> 4, al = d[3 + 2 * ns] & 15;
+    if (!scans_) one_scan_ = !progressive_ && ns == int(comps_.size());
     if (lossless_) {
       BitReader br(p_, end_);
       lossless_scan(scan, &br, ss, se, ah, al);
@@ -1143,6 +1225,7 @@ class Decoder {
       arith_scan(scan, &ar, ss, se, ah, al, dc_first);
       p_ = ar.marker_start();
     } else {
+      if (!progressive_) standard_tables();
       for (Component* c : scan)
         need_tables(*c, !progressive_ || (ss == 0 && ah == 0),
                     !progressive_ || ss != 0);
@@ -1158,6 +1241,23 @@ class Decoder {
       p_ = br.marker_start();
     }
     ++scans_;
+  }
+
+  // jdhuff.c's jinit_huff_decoder (std_huff_tables): a sequential Huffman
+  // file's empty DC and AC slots 0 and 1 take the tables of T.81 K.3 when
+  // its decoding starts, in libjpeg-turbo 2.1 (the fused route) and 3 (cv2)
+  // alike; a later DHT replaces them.  Progressive (jdphuff.c) and
+  // lossless (jdlhuff.c) scans take no default and refuse an empty slot.
+  void standard_tables() {
+    const uint8_t* bits[2][2] = {{kBits_dc_luminance, kBits_dc_chrominance},
+                                 {kBits_ac_luminance, kBits_ac_chrominance}};
+    const uint8_t* vals[2][2] = {{kVal_dc_luminance, kVal_dc_chrominance},
+                                 {kVal_ac_luminance, kVal_ac_chrominance}};
+    for (int tc = 0; tc < 2; ++tc)
+      for (int th = 0; th < 2; ++th)
+        if (!huff_[tc][th].defined)
+          build_huffman(&huff_[tc][th], bits[tc][th], vals[tc][th],
+                        tc ? 162 : 12);
   }
 
   void need_tables(const Component& c, bool dc, bool ac) const {
@@ -1398,24 +1498,16 @@ class Decoder {
                              std::to_string(ss) + " Se=" + std::to_string(se) +
                              " Ah=" + std::to_string(ah) +
                              " Al=" + std::to_string(al));
+    // An AC scan before the component's DC scan, or an Ah that is not the
+    // last Al of its coefficients, is only JWRN_BOGUS_PROGRESSION to
+    // jdphuff.c's start_pass_phuff_decoder: the scan decodes with its own
+    // Ah and Al, and the coefficients' bits become Al.
     for (Component* c : scan) {
-      if (!dc_band && c->bits[0] < 0)
-        fail(JPEG_CORRUPT, "an AC scan of component " + std::to_string(c->id) +
-                               " before its DC scan");
       // the bits before this scan, which block smoothing uses for the
       // rows it did not reach (jdphuff.c's start_pass)
       for (int k = std::min(ss, 1); k <= std::min(std::max(se, 9), 9); ++k)
         c->prev_bits[k] = scans_ ? c->bits[k] : 0;
-      for (int k = ss; k <= se; ++k) {
-        if (ah != std::max(c->bits[k], 0))
-          fail(JPEG_CORRUPT,
-               "scan Ah=" + std::to_string(ah) + " does not follow "
-                   "coefficient " + std::to_string(k) + " of component " +
-                   std::to_string(c->id) +
-                   (c->bits[k] < 0 ? std::string(" (no scan yet)")
-                                   : "'s Al=" + std::to_string(c->bits[k])));
-        c->bits[k] = al;
-      }
+      for (int k = ss; k <= se; ++k) c->bits[k] = al;
     }
   }
 
@@ -2010,6 +2102,7 @@ class Decoder {
   int last_good_ = -1;     // jdcoefct.c's last_good_iMCU_row
   bool frame_ = false, progressive_ = false, arith_ = false, done_ = false;
   bool lossless_ = false;  // SOF3: 1-sample blocks, undiff_ the samples
+  bool one_scan_ = false;  // the first scan holds every component
   int precision_ = 8;
   std::vector<uint16_t> undiff_[4];
   bool jfif_ = false, adobe_ = false, has_orientation_ = false;
@@ -2022,7 +2115,7 @@ class Decoder {
   HuffTable huff_[2][4];
   // arithmetic coding: conditioning (DAC; SOI's defaults) and statistics
   int dc_l_[16], dc_u_[16], ac_k_[16];
-  uint8_t dc_stats_[4][64] = {}, ac_stats_[4][256] = {};
+  uint8_t dc_stats_[16][64] = {}, ac_stats_[16][256] = {};
   uint8_t fixed_bin_[4] = {113, 0, 0, 0};
 };
 

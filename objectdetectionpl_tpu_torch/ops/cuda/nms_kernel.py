@@ -9,9 +9,13 @@ The counterpart of ``objectdetectionpl_tpu/ops/pallas/nms_kernel.py``
 (``torch.library``), whose CPU kernel is the plain version and whose CUDA
 kernel launches ``csrc/greedy_nms.cu`` or raises; ``LAUNCHES`` counts the
 launches, so a run can show that its path went through the kernel, and
-``TILED_LAUNCHES`` those of them that took the tiled kernel (K above
-``greedy_nms_max_k()``, 1024), whose device workspace the CUDA
-implementation allocates on the tensors' card.  The
+``TILED_LAUNCHES`` those of them that took the route for K above
+``greedy_nms_max_k()`` (1024): a partition kernel that splits each image's
+valid rows by label and a segment kernel that runs each (image, label)
+segment's chain, with a device workspace that the CUDA implementation
+allocates on the tensors' card.  :func:`greedy_nms_segmented_plain` is
+that route's function in plain PyTorch, for the tests and the card's
+checks.  The
 op's fake kernel gives the output shapes, so ``torch.export`` captures the
 op as one node of the serving graph (``utils/export.py``), and a program
 loaded from a ``.pt2`` file calls the same kernels once this module is
@@ -31,7 +35,11 @@ from objectdetectionpl_tpu_torch.ops.cuda import _build
 NEG_INF = -1e9
 
 LAUNCHES = 0          # kernel launches by greedy_nms since import (or reset)
-TILED_LAUNCHES = 0    # those of them at K > greedy_nms_max_k(): the tiled one
+TILED_LAUNCHES = 0    # those of them at K > greedy_nms_max_k(): the split route
+
+# The split route's workspace header (int32 words, greedy_nms_workspace_bytes)
+HEADER_ONE_SEGMENT = 33   # images whose label range exceeded the histogram
+HEADER_SEGMENTS = 34      # segments the partition listed
 
 
 @functools.lru_cache(maxsize=1)
@@ -44,8 +52,14 @@ def _lib() -> ctypes.CDLL:
     lib.greedy_nms_launch.restype = ctypes.c_int
     lib.greedy_nms_max_k.argtypes = []
     lib.greedy_nms_max_k.restype = ctypes.c_int
-    lib.greedy_nms_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.greedy_nms_workspace_bytes.restype = ctypes.c_size_t
+    lib.greedy_nms_label_bins.argtypes = []
+    lib.greedy_nms_label_bins.restype = ctypes.c_int
+    for fn in (lib.greedy_nms_workspace_bytes,
+               lib.greedy_nms_tiled_workspace_bytes):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_size_t
+    lib.greedy_nms_tiled_launch.argtypes = lib.greedy_nms_launch.argtypes
+    lib.greedy_nms_tiled_launch.restype = ctypes.c_int
     return lib
 
 
@@ -115,6 +129,84 @@ def greedy_nms_plain(boxes, scores, labels, obj, nms_thresh: float = 0.4,
     return torch.where(keep[..., None], merged, boxes), keep
 
 
+def greedy_nms_segmented_plain(boxes, scores, labels, obj,
+                               nms_thresh: float = 0.4,
+                               class_aware: bool = True, merge: bool = True,
+                               plus1: float = 1.0,
+                               drop_lone_survivor: bool = False,
+                               pairs_per_call: int = 1 << 24
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`greedy_nms_plain`'s function computed as the K > 1024 route
+    computes it: each image's valid rows split into segments by label
+    (class-aware; one segment of all valid rows otherwise), each segment
+    through :func:`greedy_nms_plain` on its rows in ascending order, the
+    results scattered back, then ``drop_lone_survivor`` for the image: its
+    last kept row, over all segments, un-kept (and given its input box
+    back) when its group is empty.  Segments of similar size are padded
+    with invalid rows and taken together, ``pairs_per_call`` relation
+    entries a call.  Not on any serving path: the tests and the card's
+    checks hold the kernels and ``greedy_nms_plain`` against it."""
+    B, K, _ = boxes.shape
+    dev = boxes.device
+    boxes = boxes.float()
+    valid = scores.float() > NEG_INF
+    out = boxes.clone()
+    keep = torch.zeros(B, K, dtype=torch.bool, device=dev)
+    b_idx, r_idx = valid.nonzero(as_tuple=True)       # rows ascending
+    if not len(b_idx):
+        return out, keep
+    key = labels[b_idx, r_idx].long() if class_aware else \
+        torch.zeros_like(b_idx)
+    key = key - key.min()
+    seg_of = b_idx * (int(key.max()) + 1) + key
+    order = torch.sort(seg_of, stable=True).indices
+    seg_ids, sizes = torch.unique_consecutive(seg_of[order],
+                                              return_counts=True)
+    starts = torch.cumsum(sizes, 0) - sizes
+    by_size = torch.argsort(sizes, descending=True).tolist()
+    sizes_l, starts_l = sizes.tolist(), starts.tolist()
+    last_lone = {}                  # segment -> (its last kept row, lone)
+    at = 0
+    while at < len(by_size):
+        n = sizes_l[by_size[at]]
+        take = max(1, pairs_per_call // (n * n))
+        group = by_size[at:at + take]
+        at += len(group)
+        pos = torch.full((len(group), n), -1, dtype=torch.long, device=dev)
+        for g, s in enumerate(group):
+            pos[g, :sizes_l[s]] = order[starts_l[s]:starts_l[s] + sizes_l[s]]
+        pad = pos < 0
+        rows = pos.clamp(min=0)
+        bb, rr = b_idx[rows], r_idx[rows]
+        args = (torch.where(pad[..., None], 0.0, boxes[bb, rr]),
+                torch.where(pad, NEG_INF, scores.float()[bb, rr]),
+                labels[bb, rr], torch.where(pad, 0.0, obj.float()[bb, rr]))
+        flags = dict(nms_thresh=nms_thresh, class_aware=class_aware,
+                     plus1=plus1)
+        sb, sk = greedy_nms_plain(*args, merge=merge, **flags)
+        live = ~pad
+        out[bb[live], rr[live]] = sb[live]
+        keep[bb[live], rr[live]] = sk[live]
+        if drop_lone_survivor:
+            _, dk = greedy_nms_plain(*args, merge=False,
+                                     drop_lone_survivor=True, **flags)
+            for g, s in enumerate(group):
+                kept = sk[g].nonzero()
+                if len(kept):
+                    j = int(kept[-1])
+                    last_lone[s] = (int(rr[g, j]), bool(not dk[g, j]))
+    if drop_lone_survivor:
+        seg_image = (seg_ids // (int(key.max()) + 1)).tolist()
+        for b in range(B):
+            ends = [v for s, v in last_lone.items() if seg_image[s] == b]
+            if ends:
+                row, lone = max(ends)
+                if lone:
+                    keep[b, row] = False
+                    out[b, row] = boxes[b, row]
+    return out, keep
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
     if t.device != device:
         raise ValueError(f"greedy_nms: {name} is on {t.device}, boxes on "
@@ -136,9 +228,10 @@ def greedy_nms(boxes, scores, labels, obj, nms_thresh: float = 0.4,
 
     CPU tensors go to the plain version.  CUDA tensors must be contiguous,
     boxes/scores/obj float32 and labels int32; any K: up to 1024 one
-    kernel holds the image's relation in shared memory, above it the tiled
-    kernel takes the candidates 1024 at a time.  The kernel runs on the
-    current stream.  Either way through the op ``objdet::greedy_nms``;
+    kernel holds the image's relation in shared memory, above it a
+    partition kernel splits the valid rows by label and a segment kernel
+    runs each segment's chain (one tile of 1024 rows, or tiles).  The
+    kernels run on the current stream.  Either way through the op ``objdet::greedy_nms``;
     other devices raise.
     """
     if boxes.device.type not in ("cpu", "cuda"):
@@ -176,7 +269,7 @@ def _greedy_nms_cuda(boxes, scores, labels, obj, nms_thresh, class_aware,
     if B == 0 or K == 0:
         return out, keep
     tiled = K > lib.greedy_nms_max_k()
-    # the tiled kernel's per-head sums, rows and group sizes
+    # the split route's segments, work list and per-head sums
     workspace = (torch.empty(lib.greedy_nms_workspace_bytes(B, K),
                              dtype=torch.uint8, device=dev) if tiled else None)
     # the launch and its shared-memory attribute act on the current

@@ -847,3 +847,143 @@ def write_format_files(directory) -> Dict[str, str]:
         paths[kind].write_bytes(data)
     assert sorted(paths) == sorted(KINDS)
     return {k: str(paths[k]) for k in KINDS}
+
+
+# ---------------------------------------------------------------------------
+# Damaged JPEG headers: the committed fixtures patched byte by byte, each
+# case as libjpeg-turbo meets it in a scraped tree.
+
+HEADER_HASHES = FORMATS / "headers_sha256.json"   # cv2's decodes, or null
+COCO = "coco_420_q75_640x480.jpg"                  # one scan, no restarts
+
+
+def jpeg_segments(data: bytes):
+    """[(marker, start, end)] of a JPEG's marker segments up to its first
+    SOS, that SOS's included (``end`` is where its scan data begin)."""
+    out, p = [], 2
+    while True:
+        m = data[p + 1]
+        n = struct.unpack(">H", data[p + 2:p + 4])[0]
+        out.append((m, p, p + 2 + n))
+        if m == 0xDA:
+            return out
+        p += 2 + n
+
+
+def jpeg_scan_end(data: bytes, sos: int) -> int:
+    """Where the scan of the SOS at ``sos`` ends: its first marker that is
+    not a stuffed 0xFF00 or a restart marker."""
+    q = sos + 2 + struct.unpack(">H", data[sos + 2:sos + 4])[0]
+    while not (data[q] == 0xFF and data[q + 1] != 0
+               and not 0xD0 <= data[q + 1] <= 0xD7):
+        q += 1
+    return q
+
+
+def jpeg_restarts(data: bytes, sos: int) -> list:
+    """The offsets of the RSTn markers inside the scan at ``sos``."""
+    q = sos + 2 + struct.unpack(">H", data[sos + 2:sos + 4])[0]
+    end = jpeg_scan_end(data, sos)
+    return [i for i in range(q, end) if data[i] == 0xFF
+            and 0xD0 <= data[i + 1] <= 0xD7]
+
+
+def _without(data: bytes, drop) -> bytes:
+    """``data`` without the header segments for which ``drop(marker,
+    segment bytes)`` holds."""
+    out, at = bytearray(data[:2]), 2
+    for m, s, e in jpeg_segments(data):
+        out += data[at:s]
+        if not drop(m, data[s:e]):
+            out += data[s:e]
+        at = e
+    return bytes(out + data[at:])
+
+
+def _at(data: bytes, offset: int, new: bytes, cut: int = 0) -> bytes:
+    """``new`` written at ``offset`` in place of ``cut`` bytes."""
+    return data[:offset] + new + data[offset + cut:]
+
+
+def header_cases() -> Dict[str, bytes]:
+    """{case: file bytes} of the damaged headers, from the committed
+    fixtures: scans whose Huffman tables were never defined (every DHT
+    removed, the AC ones removed, a DHT's class or slot changed, an SOS
+    naming the empty slot 2), extraneous bytes before markers and around
+    restart markers, unknown markers in the header, in the scan, at its
+    end and where a restart marker was due, a second SOF, arithmetic
+    conditioning tables past 3, and progressions libjpeg warns about."""
+    coco = (TESTDATA / COCO).read_bytes()
+    rst = (TESTDATA / RESTART).read_bytes()
+    prog = (TESTDATA / PROGRESSIVE).read_bytes()
+    gray = (TESTDATA / "gray_q85_200x150.jpg").read_bytes()
+    opt = (TESTDATA / "optimized_420_q80_320x240.jpg").read_bytes()
+    arith = (FORMATS / "arith_progressive_420_q80_160x120.jpg").read_bytes()
+
+    def first(data, marker):
+        return next(s for m, s, _ in jpeg_segments(data) if m == marker)
+
+    def dht(data, tc_th):          # the DHT segment holding table tc_th
+        return next(s for m, s, _ in jpeg_segments(data)
+                    if m == 0xC4 and data[s + 4] == tc_th)
+
+    sos, rsos, psos = first(coco, 0xDA), first(rst, 0xDA), first(prog, 0xDA)
+    end, rend = jpeg_scan_end(coco, sos), jpeg_scan_end(rst, rsos)
+    r3 = jpeg_restarts(rst, rsos)[3]
+    sof = next(rst[s:e] for m, s, e in jpeg_segments(rst) if m == 0xC0)
+    scans = [i for i in range(len(prog) - 1) if prog[i:i + 2] == b"\xff\xda"]
+    ahal = lambda s: s + 5 + 2 * prog[s + 4] + 2      # the scan's Ah/Al byte
+    return {
+        # tables never defined: libjpeg's standard ones (sequential files)
+        "no_dht": _without(coco, lambda m, b: m == 0xC4),
+        "no_dht_optimized": _without(opt, lambda m, b: m == 0xC4),
+        "no_dht_gray": _without(gray, lambda m, b: m == 0xC4),
+        "no_ac_dht_restarts": _without(rst, lambda m, b: m == 0xC4
+                                       and b[4] >> 4 == 1),
+        "dht_dc0_to_slot_2": _at(coco, dht(coco, 0x00) + 4, b"\x02", 1),
+        "dht_ac1_to_slot_3": _at(coco, dht(coco, 0x11) + 4, b"\x13", 1),
+        "dht_dc0_to_ac0": _at(coco, dht(coco, 0x00) + 4, b"\x10", 1),
+        "sos_names_dc_slot_2": _at(coco, sos + 6, b"\x20", 1),
+        "no_dht_progressive": _without(prog, lambda m, b: m == 0xC4),
+        "arith_tables_4_and_5": _at(arith, first(arith, 0xDA) + 6, b"\x45",
+                                    1),
+        # extraneous bytes: skipped with a warning
+        "junk_before_dqt": _at(coco, first(coco, 0xDB), b"\x12\x34\x56"),
+        "junk_before_dht": _at(coco, first(coco, 0xC4), b"\x00\x07"),
+        "junk_before_sos": _at(coco, sos, b"\x12\x34\x56"),
+        "ff00_before_dht": _at(coco, first(coco, 0xC4), b"\x05\xff\x00\x07"),
+        "junk_before_eoi": _at(coco, len(coco) - 2, b"\x12\x34"),
+        "junk_before_rst": _at(rst, r3, b"\x12\x34\x56"),
+        "junk_after_rst": _at(rst, r3 + 2, b"\x12\x34\x56"),
+        "junk_01ff02_before_sos": _at(coco, sos, b"\x01\xff\x02"),
+        # unknown markers
+        "marker_9e_in_header": _at(coco, sos, b"\xff\x9e"),
+        "marker_f3_in_header": _at(coco, sos, b"\xff\xf3"),
+        "marker_9e_at_scan_end": _at(coco, end, b"\xff\x9e"),
+        "marker_f3_at_scan_end": _at(coco, end, b"\xff\xf3"),
+        "marker_9e_mid_scan": _at(coco, (sos + end) // 2, b"\xff\x9e"),
+        "marker_9e_for_rst": _at(rst, r3, b"\xff\x9e", 2),
+        "marker_f3_for_rst": _at(rst, r3, b"\xff\xf3", 2),
+        "marker_9e_progressive": _at(prog, jpeg_scan_end(prog, psos),
+                                     b"\xff\x9e"),
+        # a second SOF
+        "sof_for_rst": _at(rst, r3, sof, 2),
+        "sof_at_scan_end": _at(rst, rend, sof),
+        "sof_progressive": _at(prog, jpeg_scan_end(prog, psos), sof),
+        # progressions libjpeg warns about (JWRN_BOGUS_PROGRESSION)
+        "refinement_ah_skips": _at(prog, ahal(scans[5]), b"\x32", 1),
+        "ac_first_scan_as_refinement": _at(prog, ahal(scans[2]), b"\x10",
+                                           1),
+    }
+
+
+def write_header_cases(directory) -> Dict[str, str]:
+    """Every case of ``header_cases`` written under ``directory`` as
+    ``<case>.jpg``: {case: path}."""
+    d = Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for case, data in header_cases().items():
+        paths[case] = str(d / f"{case}.jpg")
+        Path(paths[case]).write_bytes(data)
+    return paths

@@ -16,8 +16,9 @@ limit and the package it measured:
 - ``nms_time``: ``greedy_nms`` device ms (CUDA events behind a spin kernel)
   on the seeded candidates of ``chip_smoke.py`` (B=1 and B=256, K=300, 5
   classes; B=64, K=300, 80 classes) and on the serving chain's (YOLOv5s-640
-  bf16, random weights from seed 0, B=64 and its first image), with the
-  chain length of the greedy scan: kept heads per image, mean and max;
+  bf16, random weights from seed 0, B=64 and its first image, at K=300 and
+  at every decoded row, ``nms_top_k`` 25,200 and conf_thres 0.001), with
+  the chain length of the greedy scan: kept heads per image, mean and max;
 - ``warp_time``: the warp kernel at K=26 slots of 640x640x3, every slot
   warped (``all_used``) and the training mix from a seed (``mix``, about
   half the slots warped), and the SSR tail of ``augment_batch`` on a B=64
@@ -28,7 +29,15 @@ limit and the package it measured:
   stamps that this tool adds to a copy of the source at the phase comments
   (``// 1.`` to ``// 4.`` and the kernel's closing brace) and builds under
   ``build/probe/``; cycles per block, mean and max over blocks, and the same
-  at the card's largest SM clock in microseconds.
+  at the card's largest SM clock in microseconds.  Where the source has
+  the K > 1024 route's probe (``NMS_PROBE``), the same build also gives
+  ``route_phases`` on the serving decode at ``nms_top_k`` 25,200
+  (conf_thres 0.001, B=1 and 64) and on seeded candidates of 80 labels
+  and of one label (B=1): the partition kernel's span and the segment
+  kernel's (globaltimer, us), the segment CTAs' cycles in each phase
+  (waiting for a ticket, staging rows, the chain, the merge and outputs,
+  the drop pass) summed and per CTA, the items each CTA took, and the
+  segments by size.
 
 The package measured is the one ``import objectdetectionpl_tpu_torch``
 finds; the tool uses only what both the older and the newer wrappers have,
@@ -57,6 +66,9 @@ IMG = 640
 WARP_K = 26              # warp slots at B=64: round(64 * 2 * p_ssr)
 TRAIN_B = 64
 NMS_REPS = 200
+WIDE_REPS = 20           # launches timed above K=1024 (ms each, not us)
+SERVE_ALL_K = 25200      # every decoded row of YOLOv5s-640 into the NMS
+SERVE_ALL_CONF = 0.001   # as an mAP evaluation runs
 PHASES = ("stage", "relation", "scan", "merge")
 
 
@@ -76,7 +88,8 @@ def candidates(B, K, seed, classes=5, dense=False, n_invalid=10):
     return [t.contiguous().cuda() for t in (boxes, scores, labels, obj)]
 
 
-def serving_candidates(B: int = 64) -> list:
+def serving_candidates(B: int = 64, conf_thres: float = 0.5,
+                       top_k: int = TOP_K) -> list:
     """The NMS inputs of one B-image serving batch of YOLOv5s-640 bf16, 80
     classes, random weights from seed 0, uint8 images from seed 0."""
     from objectdetectionpl_tpu_torch.models import build_model
@@ -91,16 +104,20 @@ def serving_candidates(B: int = 64) -> list:
     with torch.inference_mode():
         preds = nms.decode_yolov5_predictions(
             model(images), anchors.YOLOV5_ANCHORS, anchors.YOLOV5_STRIDES, 80)
-        return list(nms.yolo_candidates(preds, 0.5, TOP_K).nms_inputs())
+        return list(nms.yolo_candidates(preds, conf_thres,
+                                        top_k).nms_inputs())
 
 
 def nms_cases() -> dict:
     serve = serving_candidates()
+    every = serving_candidates(64, SERVE_ALL_CONF, SERVE_ALL_K)
     return {"random_B1_C5": candidates(1, TOP_K, 11),
             "random_B256_C5": candidates(256, TOP_K, 266),
             "random_B64_C80": candidates(64, TOP_K, 74, classes=80),
             "serving_B64": serve,
-            "serving_B1": [t[:1].contiguous() for t in serve]}
+            "serving_B1": [t[:1].contiguous() for t in serve],
+            "serving_all_B64": every,
+            "serving_all_B1": [t[:1].contiguous() for t in every]}
 
 
 def chain_length(args, **flags) -> dict:
@@ -226,13 +243,15 @@ def instrument(source: str) -> str:
 
 def probe_lib(source: Path) -> ctypes.CDLL:
     text = instrument(source.read_text())
+    route = "NMS_PROBE" in text                # the K > 1024 route's stamps
     digest = hashlib.sha256(text.encode()).hexdigest()[:16]
     probe = _build.BUILD_DIR.parent / "probe"
     probe.mkdir(parents=True, exist_ok=True)
     cu, lib = probe / f"nms_phases-{digest}.cu", probe / f"nms_phases-{digest}.so"
     if not lib.exists():
         cu.write_text(text)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                        *(["-DNMS_PROBE"] if route else []), "-o", str(lib),
                         str(cu)], check=True, capture_output=True, text=True,
                        timeout=_build.BUILD_TIMEOUT_S)
     dll = ctypes.CDLL(str(lib))
@@ -241,7 +260,86 @@ def probe_lib(source: Path) -> ctypes.CDLL:
         p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, p, ctypes.c_int, p]
     dll.phase_clocks.argtypes = [p, ctypes.c_int]
+    if route:
+        dll.route_probe.argtypes = [p, p, p, ctypes.c_int]
+        dll.greedy_nms_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        dll.greedy_nms_workspace_bytes.restype = ctypes.c_size_t
+    dll.route = route
     return dll
+
+
+ROUTE_PHASES = ("wait", "stage", "cross", "chain", "merge", "drop")  # ProbePhase
+PROBE_CTAS = 4096
+
+
+def route_cases(cases: dict) -> dict:
+    """The K > 1024 route's cases: the serving decode of ``nms_cases`` at
+    nms_top_k 25,200 (B=64 and its first image) and seeded candidates of
+    80 labels and of one label."""
+    c1 = candidates(1, SERVE_ALL_K, 25201)
+    c1[2].zero_()
+    return {"serving_all_B1": cases["serving_all_B1"],
+            "serving_all_B64": cases["serving_all_B64"],
+            "random_B1_K25200_C80": candidates(1, SERVE_ALL_K, 25280,
+                                               classes=80),
+            "random_B1_K25200_C1": c1}
+
+
+def route_phases(dll: ctypes.CDLL, args) -> dict:
+    """One launch of the K > 1024 route with the probe's stamps, after two
+    warm launches; the segments' sizes from the candidates' labels."""
+    boxes, scores, labels, obj = args
+    B, K = scores.shape
+    out = torch.empty_like(boxes)
+    keep = torch.empty((B, K), dtype=torch.bool, device=boxes.device)
+    ws = torch.empty(dll.greedy_nms_workspace_bytes(B, K), dtype=torch.uint8,
+                     device=boxes.device)
+    launch = lambda: dll.greedy_nms_launch(
+        boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
+        obj.data_ptr(), out.data_ptr(), keep.data_ptr(), B, K, 0.4, 1, 1,
+        1.0, torch.cuda.current_stream().cuda_stream, 0, ws.data_ptr())
+    for i in range(3):
+        if i == 2:
+            torch.cuda.synchronize()
+            if dll.route_probe_clear():
+                raise RuntimeError("could not clear the route probe")
+        if launch():
+            raise RuntimeError("probe launch failed")
+    torch.cuda.synchronize()
+    n = PROBE_CTAS
+    part = (ctypes.c_longlong * (2 * n))()
+    seg = (ctypes.c_longlong * (2 * n))()
+    clk = (ctypes.c_longlong * (8 * n))()
+    if dll.route_probe(ctypes.addressof(part), ctypes.addressof(seg),
+                       ctypes.addressof(clk), n):
+        raise RuntimeError("could not read the route probe")
+    part = torch.tensor(list(part), dtype=torch.float64).view(n, 2)[:B]
+    seg = torch.tensor(list(seg), dtype=torch.float64).view(n, 2)
+    ran = seg[:, 0] > 0
+    clk = torch.tensor(list(clk), dtype=torch.float64).view(n, 8)[ran]
+    seg = seg[ran]
+    khz = dll.sm_clock_khz()
+    valid = scores > nms_kernel.NEG_INF
+    lab = labels.long() - int(labels[valid].min())
+    key = torch.arange(B, device=labels.device)[:, None] * (
+        int(lab[valid].max()) + 1) + lab
+    sizes = torch.bincount(key[valid])
+    sizes = sizes[sizes > 0].sort(descending=True).values.cpu()
+    res = {"keep_equal_to_kernel": torch.equal(
+               keep, nms_kernel.greedy_nms(*args)[1]),
+           "sm_clock_mhz": khz / 1e3,
+           "partition_us": float(part[:, 1].max() - part[:, 0].min()) / 1e3,
+           "segment_kernel_us": float(seg[:, 1].max() - seg[:, 0].min()) / 1e3,
+           "ctas": int(ran.sum()), "segments": len(sizes),
+           "items_per_cta_max": int(clk[:, len(ROUTE_PHASES)].max()),
+           "largest_segments": sizes[:8].tolist(),
+           "segment_rows_mean": float(sizes.double().mean())}
+    for i, name in enumerate(ROUTE_PHASES):
+        c = clk[:, i]
+        res[name] = {"cycles_sum": float(c.sum()),
+                     "cycles_max_cta": float(c.max()),
+                     "us_max_cta_at_max_clock": float(c.max()) / khz * 1e3}
+    return res
 
 
 def phases(dll: ctypes.CDLL, args) -> dict:
@@ -291,7 +389,8 @@ def main(argv=None) -> int:
     cases = nms_cases()
     for name, a in cases.items():
         ms, call_ms = timing.time_ms(lambda: nms_kernel.greedy_nms(*a),
-                                     NMS_REPS)
+                                     NMS_REPS if a[1].shape[1] <= TOP_K
+                                     else WIDE_REPS)
         emit({"phase": "nms_time", "case": name, "B": a[1].shape[0],
               "K": a[1].shape[1], "ms": ms, "call_ms": call_ms,
               **chain_length(a)})
@@ -299,8 +398,14 @@ def main(argv=None) -> int:
     if args.phases:
         dll = probe_lib(_build.CSRC / "greedy_nms.cu")
         for name, a in cases.items():
-            emit({"phase": "nms_phases", "case": name, "B": a[1].shape[0],
-                  **phases(dll, a)})
+            if a[1].shape[1] <= TOP_K:         # the single-tile kernel
+                emit({"phase": "nms_phases", "case": name,
+                      "B": a[1].shape[0], **phases(dll, a)})
+        if dll.route:
+            for name, a in route_cases(cases).items():
+                emit({"phase": "route_phases", "case": name,
+                      "B": a[1].shape[0], "K": a[1].shape[1],
+                      **route_phases(dll, a)})
     return 0
 
 

@@ -268,11 +268,15 @@ def test_incomplete_script_raises(tmp_path, scans_tool, jax_library, name):
 
 @pytest.mark.parametrize("patch,reason", [
     ("dc_scan_with_se", "bad progressive scan parameters Ss=0 Se=5"),
-    ("refine_skips_a_bit", "scan Ah=2 does not follow coefficient 0 of "
-                           "component 1's Al=3")])
-def test_bad_progression_raises(tmp_path, scans_tool, patch, reason):
-    """libjpeg's start_pass_phuff_decoder checks, as errors: Ss=0 only with
-    Se=0, and a refinement's Ah equal to the previous scan's Al."""
+    ("refine_skips_a_bit", None)])
+def test_bad_progression_raises(tmp_path, scans_tool, jax_library, patch,
+                                reason):
+    """libjpeg's start_pass_phuff_decoder: Ss=0 only with Se=0 is an error
+    (cv2, the JAX library and the port refuse the file); a refinement whose
+    Ah is not the previous scan's Al is only JWRN_BOGUS_PROGRESSION, and
+    the scan decodes with its own Ah and Al: the port reads the file as
+    cv2 does on the imread route and as the JAX library does on the fused
+    route, bit for bit."""
     path = tmp_path / "src.jpg"
     _write_script(scans_tool, path,
                   smooth_image(37, 45, np.random.RandomState(1)),
@@ -287,9 +291,26 @@ def test_bad_progression_raises(tmp_path, scans_tool, patch, reason):
         data[sos[1] + 5 + 2 * ns + 2] = 0x21
     bad = tmp_path / "bad.jpg"
     bad.write_bytes(bytes(data))
-    with pytest.raises(native.JpegError,
-                       match=f"^{re.escape(str(bad))}: {reason}"):
-        native.decode_one(str(bad))
+    if reason:
+        with pytest.raises(native.JpegError,
+                           match=f"^{re.escape(str(bad))}: {reason}"):
+            native.decode_one(str(bad))
+        with pytest.raises(OSError):
+            load_image_rgb(str(bad))
+        assert not jax_native.decode_preproc_batch([str(bad)], 37,
+                                                   False)[-1][0]
+        return
+    want = load_image_rgb(str(bad))
+    np.testing.assert_array_equal(native.decode_one(str(bad), imread=True),
+                                  want)
+    clean = native.decode_one(str(path), imread=True)
+    assert not np.array_equal(want, clean)        # the patch changed pixels
+    for target in (37, 18, 9, 4):              # denominators 1, 2, 4, 8
+        ref = jax_native.decode_preproc_batch([str(bad)], target, False)
+        got = native.decode_preproc_batch([str(bad)], target, False,
+                                          max_denom=native.MAX_DENOM)
+        assert ref[-1][0]
+        np.testing.assert_array_equal(got[0], ref[0])
 
 
 # --- reduced scales ---------------------------------------------------------
