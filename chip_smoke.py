@@ -498,7 +498,8 @@ CONV_REPS = 20
 # greedy_nms work, counted from the candidates: one IoU test per valid pair
 # i < j (of one label when class-aware) (4 min/max, 2x(sub, add, max), mul, add, sub, add, div, compare =
 # 16 ops); per valid row its area (5) and, with merge, its share of a merge
-# (4 mul, 5 add).
+# (4 mul, 5 add).  The route past K=1024 settles most pairs without an IoU:
+# its bound counts one IoU per suppressed valid row (nms_split_bound_ms).
 IOU_PAIR_OPS = 16
 AREA_OPS = 5
 MERGE_ROW_OPS = 9
@@ -680,13 +681,44 @@ def nms_bound_ms(args, class_aware: bool = True, merge: bool = True) -> dict:
     else:
         n = valid.sum(dim=1).double()
     pairs = float((n * (n - 1) / 2).sum())
-    row_ops = AREA_OPS + (MERGE_ROW_OPS if merge else 0)
-    ops = pairs * IOU_PAIR_OPS + float(valid.sum()) * row_ops
-    nbytes = scores.numel() * ROW_BYTES
-    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    return {**_rows_bound(pairs, valid, scores.numel(), merge),
             "bound_pairs": int(pairs)}
+
+
+def nms_split_bound_ms(args, keep, merge: bool = True) -> dict:
+    """The least time of greedy_nms on ``args`` whose result is ``keep``,
+    for a route that settles pairs without an IoU (the K > 1024 route's
+    grid does, for most pairs of one label): the one IoU test that each
+    suppressed valid row cannot skip, against its first kept suppressor,
+    and each valid row's area and merge share, against the rows' bytes.
+    ``bound_suppressed``: the rows counted."""
+    valid = (args[1] > nms_kernel.NEG_INF).cpu()
+    suppressed = int((valid & ~keep.cpu()).sum())
+    return {**_rows_bound(suppressed, valid, args[1].numel(), merge),
+            "bound_suppressed": suppressed}
+
+
+def _rows_bound(ious, valid, rows, merge) -> dict:
+    """``bound_ms`` and ``bound_by`` of ``ious`` IoU tests and each valid
+    row's area (and merge share) against ``rows`` rows' bytes."""
+    row_ops = AREA_OPS + (MERGE_ROW_OPS if merge else 0)
+    ops = ious * IOU_PAIR_OPS + float(valid.sum()) * row_ops
+    t_ops, t_bytes = ops / F32_OPS_PER_S, rows * ROW_BYTES / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def split_bounds(args) -> dict:
+    """The K > 1024 route's bound (``nms_split_bound_ms``) on ``args``
+    under the default flags, beside the same-label pair count
+    (``nms_bound_ms``) as ``bound_ms_pairs``, kept so that figures taken
+    against it stay comparable: that count is the single-tile kernel's
+    work, not this route's."""
+    pairs = nms_bound_ms(args)
+    return {**nms_split_bound_ms(args, nms_kernel.greedy_nms(*args)[1]),
+            "bound_ms_pairs": pairs["bound_ms"],
+            "bound_by_pairs": pairs["bound_by"],
+            "bound_pairs": pairs["bound_pairs"]}
 
 
 def near_threshold(B, K, seed, thresh=0.4):
@@ -717,11 +749,14 @@ def near_threshold_k(B, K, seed):
 
 
 def near_threshold_cross(B, K, seed):
-    """``near_threshold``'s pairs with each second box a tile later: of
-    every 2 * NMS_TILE rows, pair m at rows m and m + NMS_TILE, the scores
-    still sorted, so that the tiled kernel's cross-tile test (its step (a))
-    decides them.  K a multiple of 2 * NMS_TILE."""
+    """``near_threshold``'s pairs with each second box a tile later and
+    every row of one label: of every 2 * NMS_TILE rows, pair m at rows m
+    and m + NMS_TILE, the scores still sorted, so that, class-aware or
+    not, the pairs lie in one segment of K > 1024 rows, where the split
+    route's cross-tile test (its step (a): the grid, the float band, the
+    sorted head sums) decides them.  K a multiple of 2 * NMS_TILE."""
     boxes, scores, labels, obj = near_threshold(B, K, seed)
+    labels = torch.zeros_like(labels)
     m = torch.arange(K // 2)
     first = m // NMS_TILE * 2 * NMS_TILE + m % NMS_TILE
     order = torch.empty(K, dtype=torch.long)
@@ -736,16 +771,17 @@ def tiled_at_any_k(args, nms_thresh=0.4, class_aware=True, merge=True,
     """The K > 1024 route (partition and segment kernels) at any K through
     ``greedy_nms_tiled_launch`` (the wrapper takes it only above 1024), not
     counted: to time it beside the single-tile kernel at K <= 1024, and to
-    read its workspace header.  Its workspace is
-    ``greedy_nms_tiled_workspace_bytes``; with ``header`` also returns the
-    header's int32 words."""
+    read its workspace header.  Its workspace is the library's size for K,
+    or for K = 1025 at K <= 1024 (the size grows with K); with ``header``
+    also returns the header's int32 words."""
     boxes, scores, labels, obj = args
     B, K = scores.shape
     lib = nms_kernel._lib()
     out = torch.empty_like(boxes)
     keep = torch.empty((B, K), dtype=torch.bool, device=boxes.device)
-    workspace = torch.empty(lib.greedy_nms_tiled_workspace_bytes(B, K),
-                            dtype=torch.uint8, device=boxes.device)
+    size = lib.greedy_nms_workspace_bytes(
+        B, max(K, lib.greedy_nms_max_k() + 1))
+    workspace = torch.empty(size, dtype=torch.uint8, device=boxes.device)
     err = lib.greedy_nms_tiled_launch(
         boxes.data_ptr(), scores.data_ptr(), labels.data_ptr(),
         obj.data_ptr(), out.data_ptr(), keep.data_ptr(), B, K,
@@ -1076,7 +1112,7 @@ def phase_kernel_wide(card: str) -> dict:
         plain_ms = (call_time_ms(lambda: nms_kernel.greedy_nms_plain(
             *args), 1, warmup=1) if B == 1 else None)
         timing[(K, B, classes)] = dict(
-            ms=ms, call_ms=call_ms, plain_ms=plain_ms, **nms_bound_ms(args),
+            ms=ms, call_ms=call_ms, plain_ms=plain_ms, **split_bounds(args),
             ious_k_by_kept=ious_k_by_kept(args),
             segments=tiled_at_any_k(args, header=True)[2][
                 nms_kernel.HEADER_SEGMENTS],
@@ -1167,7 +1203,7 @@ def phase_serving_all(card: str) -> dict:
             args = nms.yolo_candidates(preds, SERVE_ALL_CONF,
                                        SERVE_ALL_K).nms_inputs()
             ms, call_ms = time_ms(lambda: nms_kernel.greedy_nms(*args), 5)
-            r = dict(ms=ms, call_ms=call_ms, **nms_bound_ms(args),
+            r = dict(ms=ms, call_ms=call_ms, **split_bounds(args),
                      ious_k_by_kept=ious_k_by_kept(args),
                      segments=tiled_at_any_k(args, header=True)[2][
                          nms_kernel.HEADER_SEGMENTS],
@@ -4715,6 +4751,8 @@ def main(argv=None) -> int:
         "max_abs_err": max(wide["max_abs_err"], w1["max_abs_err"]),
         "ms": w1["ms"], "plain_ms": w1["plain_ms"],
         "bound_ms": w1["bound_ms"], "bound_by": w1["bound_by"],
+        "bound_suppressed": w1["bound_suppressed"],
+        "bound_ms_pairs": w1["bound_ms_pairs"],
         "bound_pairs": w1["bound_pairs"],
         "library_ms": None,
         "shape": f"B=1,K={SERVE_ALL_K}: a YOLOv5s-640 bf16 decode at "
@@ -4724,6 +4762,7 @@ def main(argv=None) -> int:
         "valid_rows": w1["valid_rows"],
         "ious_k_by_kept": w1["ious_k_by_kept"],
         "ms_b64": w64["ms"], "bound_ms_b64": w64["bound_ms"],
+        "bound_ms_pairs_b64": w64["bound_ms_pairs"],
         "bound_pairs_b64": w64["bound_pairs"],
         **{f"ms_k{TOP_K}_b{B}": t[B]["tiled_ms"] for B in (1, 64, 256)},
         "chain_mean_b64": w64["chain_mean"],
@@ -4731,7 +4770,8 @@ def main(argv=None) -> int:
            for (K, B, c), r in wide["timing"].items()},
         **{f"{key}_random_c1_K{SERVE_ALL_K}_B{B}":
            wide["timing"][(SERVE_ALL_K, B, 1)][key]
-           for B in WIDE_TIME_B for key in ("bound_ms", "plain_ms")},
+           for B in WIDE_TIME_B
+           for key in ("bound_ms", "bound_ms_pairs", "plain_ms")},
         "segments_b1": w1["segments"], "segments_b64": w64["segments"],
         "images_checked_plain_b64": w64["images_checked_plain"],
         "device_kernels": ["greedy_nms_partition_kernel",

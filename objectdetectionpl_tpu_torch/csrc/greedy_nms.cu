@@ -22,8 +22,9 @@
 // K <= 1024: greedy_nms_kernel, one CTA per image.  K > 1024: the image's
 // valid rows split by label into segments (greedy_nms_partition_kernel),
 // and persistent CTAs run each segment's chain (greedy_nms_segment_kernel);
-// see "K > kMaxK" below.  Both run the same device functions: over_pair,
-// build_relation, scan_words and group_sum.
+// see "K > kMaxK" below.  Both run the same device functions:
+// build_relation (its pair test over_pair, or over_pair_fast on the split
+// route), scan_words and group_sum.
 //
 // What bounds it on an H100: not bytes nor FLOPs.  At B=256, K=300 the
 // function moves ~3.5 MB (~1 us at 3.35 TB/s) and does ~45k IoUs per image
@@ -143,7 +144,10 @@ __device__ __forceinline__ bool over_pair(float4 bi, float ai, float4 bj,
 // FMA rounds once), so outside a band of 2^-20 * |mid_f| * denom its sign
 // is the exact one.  Pairs inside the band -- an IoU within a few ulps of
 // the threshold -- take the double test.  The split route runs it; the
-// single-tile kernel keeps over_pair.
+// single-tile kernel keeps over_pair: at its 64 registers the pre-test
+// spilled there (116 bytes of spill stores and loads, unrolled by 8 or 4,
+// or with the double test out of line), and taken only for rows of one
+// label it cost 10 % at K=300, B=1 (H100, PERF.md).
 __device__ __forceinline__ bool over_pair_fast(float4 bi, float ai, float4 bj,
                                                float aj, float plus1,
                                                const Thresh& th) {
@@ -1292,8 +1296,6 @@ Layout layout(int B, int K) {
   return L;
 }
 
-size_t tiled_workspace_bytes(int B, int K) { return layout(B, K).total; }
-
 int launch_tiled(const void* boxes, const void* scores, const void* labels,
                  const void* obj, void* out_boxes, void* keep, int B, int K,
                  float thresh, int class_aware, int merge, float plus1,
@@ -1370,17 +1372,13 @@ extern "C" int greedy_nms_max_k() { return kMaxK; }
 extern "C" int greedy_nms_label_bins() { return kLabelBins; }
 
 // Bytes of device workspace that greedy_nms_launch needs for B x K: 0 up to
-// greedy_nms_max_k(), greedy_nms_tiled_workspace_bytes(B, K) above it.
+// greedy_nms_max_k(), the split route's layout above it (its size grows
+// with K, so that of K = greedy_nms_max_k() + 1 holds any smaller K).
 // Its first 64 int32 are a header: [0, 32) segments in each size bin,
 // [32] the work ticket, [33] images that took the one-segment path because
 // their label range exceeded greedy_nms_label_bins(), [34] segments.
 extern "C" size_t greedy_nms_workspace_bytes(int B, int K) {
-  return K > kMaxK ? tiled_workspace_bytes(B, K) : 0;
-}
-
-// The split route's workspace at any K (greedy_nms_tiled_launch).
-extern "C" size_t greedy_nms_tiled_workspace_bytes(int B, int K) {
-  return tiled_workspace_bytes(B, K);
+  return K > kMaxK ? layout(B, K).total : 0;
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
@@ -1418,9 +1416,9 @@ extern "C" int greedy_nms_launch(const void* boxes, const void* scores,
 }
 
 // greedy_nms_launch's arguments, but the split route (partition and
-// segment kernels) at any K, its workspace greedy_nms_tiled_workspace_bytes
-// (B, K): to time the two routes side by side at K <= kMaxK.  The serving
-// path never calls it.
+// segment kernels) at any K, its workspace greedy_nms_workspace_bytes(B,
+// max(K, kMaxK + 1)): to time the two routes side by side at K <= kMaxK.
+// The serving path never calls it.
 extern "C" int greedy_nms_tiled_launch(const void* boxes, const void* scores,
                                        const void* labels, const void* obj,
                                        void* out_boxes, void* keep, int B,

@@ -36,6 +36,8 @@ NEG_INF = -1e9
 
 LAUNCHES = 0          # kernel launches by greedy_nms since import (or reset)
 TILED_LAUNCHES = 0    # those of them at K > greedy_nms_max_k(): the split route
+# greedy_nms_segmented_plain: relation entries ([n, n] a segment) a call
+SEGMENT_PAIRS_PER_CALL = 1 << 24
 
 # The split route's workspace header (int32 words, greedy_nms_workspace_bytes)
 HEADER_ONE_SEGMENT = 33   # images whose label range exceeded the histogram
@@ -54,10 +56,8 @@ def _lib() -> ctypes.CDLL:
     lib.greedy_nms_max_k.restype = ctypes.c_int
     lib.greedy_nms_label_bins.argtypes = []
     lib.greedy_nms_label_bins.restype = ctypes.c_int
-    for fn in (lib.greedy_nms_workspace_bytes,
-               lib.greedy_nms_tiled_workspace_bytes):
-        fn.argtypes = [ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_size_t
+    lib.greedy_nms_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.greedy_nms_workspace_bytes.restype = ctypes.c_size_t
     lib.greedy_nms_tiled_launch.argtypes = lib.greedy_nms_launch.argtypes
     lib.greedy_nms_tiled_launch.restype = ctypes.c_int
     return lib
@@ -133,8 +133,7 @@ def greedy_nms_segmented_plain(boxes, scores, labels, obj,
                                nms_thresh: float = 0.4,
                                class_aware: bool = True, merge: bool = True,
                                plus1: float = 1.0,
-                               drop_lone_survivor: bool = False,
-                               pairs_per_call: int = 1 << 24
+                               drop_lone_survivor: bool = False
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`greedy_nms_plain`'s function computed as the K > 1024 route
     computes it: each image's valid rows split into segments by label
@@ -143,9 +142,9 @@ def greedy_nms_segmented_plain(boxes, scores, labels, obj,
     results scattered back, then ``drop_lone_survivor`` for the image: its
     last kept row, over all segments, un-kept (and given its input box
     back) when its group is empty.  Segments of similar size are padded
-    with invalid rows and taken together, ``pairs_per_call`` relation
-    entries a call.  Not on any serving path: the tests and the card's
-    checks hold the kernels and ``greedy_nms_plain`` against it."""
+    with invalid rows and taken together, ``SEGMENT_PAIRS_PER_CALL``
+    relation entries a call.  Not on any serving path: the tests and the
+    card's checks hold the kernels and ``greedy_nms_plain`` against it."""
     B, K, _ = boxes.shape
     dev = boxes.device
     boxes = boxes.float()
@@ -169,7 +168,7 @@ def greedy_nms_segmented_plain(boxes, scores, labels, obj,
     at = 0
     while at < len(by_size):
         n = sizes_l[by_size[at]]
-        take = max(1, pairs_per_call // (n * n))
+        take = max(1, SEGMENT_PAIRS_PER_CALL // (n * n))
         group = by_size[at:at + take]
         at += len(group)
         pos = torch.full((len(group), n), -1, dtype=torch.long, device=dev)

@@ -155,14 +155,14 @@ def test_segmented_matches_plain_and_jax(K, case):
         assert torch.equal(sb[:, K - 1], tensors[0][:, K - 1])
 
 
-def test_segments_take_any_grouping():
+def test_segments_take_any_grouping(monkeypatch):
     """One segment a call, or all of them together: the same result."""
     arrays = _two_labels(11, 1500)
     tensors = [torch.from_numpy(a) for a in arrays]
     want = nms_kernel.greedy_nms_segmented_plain(*tensors)
     for pairs in (1, 1 << 30):
-        got = nms_kernel.greedy_nms_segmented_plain(*tensors,
-                                                    pairs_per_call=pairs)
+        monkeypatch.setattr(nms_kernel, "SEGMENT_PAIRS_PER_CALL", pairs)
+        got = nms_kernel.greedy_nms_segmented_plain(*tensors)
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
