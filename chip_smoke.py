@@ -192,7 +192,12 @@ exits non-zero:
    ``format_files.header_cases`` (31 files patched from the fixtures),
    each decode equal to cv2's committed hash
    (``formats/headers_sha256.json``) or refused where cv2 refuses, and
-   the fused route reading exactly the cases the JAX library read.
+   the fused route reading exactly the cases the JAX library read; and
+   ``format_files.idct_case`` (the 640x480 fixture's luma scan read with
+   the chroma tables: huge coefficients through the reduced IDCTs) at
+   1/1, 1/2, 1/4 and 1/8 through both routes' decoders, each equal to
+   cv2's hash at that scale (``formats/idct_sha256.json``), the fused
+   call reading it at each denominator.
 10a'. formats -- the files a scraped tree holds
    (``tools/format_files.py``: a baseline JPEG, CMYK, YCCK, arithmetic
    sequential and progressive, a cut baseline JPEG, a cut progressive one
@@ -204,8 +209,12 @@ exits non-zero:
    precincts, a J2K with every code-block style bit, SOP/EPH and
    tile-parts, a 16-bit grey JP2), GIF (256 colours at 500x375, an
    interlaced transparent frame at an offset), a PPM, a 16-bit ASCII
-   PGM, a PAM, a PFM, Sun rasters (24-bit, 8-bit mapped) and a Radiance
-   HDR): each decoded by
+   PGM, a PAM, a PFM, Sun rasters (24-bit, 8-bit mapped), a Radiance
+   HDR, and TIFFs of JPEG compression (the 500x375 JPEG split into
+   JPEGTables and a strip, libtiff's YCbCr strips and tiles, the CMYK
+   JPEG), YCbCr units (2x2, clipped 4x4 tiles), CMYK, CIELab, CCITT RLE,
+   Group 3 2-D and Group 4, FillOrder 2, old-style LZW, ThunderScan,
+   signed samples, SGILog LogLuv and LogL): each decoded by
    ``native.decode_image`` (the port's
    ``load_image_rgb``), its SHA-256 held against cv2's recorded in
    ``data/testdata/formats/sha256.json``, with its host ms per image on
@@ -595,7 +604,7 @@ TRAINER_COCO_SETS = {**REAL_SETS, "data_module": "COCO",
                      "img_size": "640"}
 JPEG_REPEAT = 32          # decode_batch timing: the fixtures x 32
 FORMATS_DECODE_REPS = 10  # host decode timing of each format file: median
-# the formats fit: train ids the baseline JPEG, test ids every kind (37),
+# the formats fit: train ids the baseline JPEG, test ids every kind (54),
 # in two whole test batches of B=32 (the Loader drops a partial one)
 FORMATS_TREE = {"n_train": 160, "n_val": 64, "seed": 6}
 # trainer_bdd_ssd: SSD-300 on a BDD100K tree of the 1280x720 frames, half
@@ -3133,7 +3142,41 @@ def check_header_cases(card: str) -> None:
             fused += rec["fused"]
     emit({"phase": "jpeg_headers", "card": card, "cases": len(want),
           "read_as_cv2": read, "fused_read": fused,
-          "refused_as_cv2": len(want) - read})
+          "refused_as_cv2": len(want) - read,
+          "reduced_idct": check_idct_case()})
+
+
+def check_idct_case() -> dict:
+    """``format_files.idct_case`` (huge coefficients through the reduced
+    IDCTs) at 1/1, 1/2, 1/4 and 1/8 on both routes' decoders -- cv2's
+    (imread) and the fused call's (libjpeg 2.1's rules) -- each equal to
+    cv2's recorded hash at that scale, and the fused call reading it at
+    the denominators 1, 2, 4 and 8."""
+    want = json.loads(format_files.IDCT_HASHES.read_text())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_idct_",
+                                     dir=REPO / "build") as tmp:
+        path = os.path.join(tmp, "luma_chroma_tables.jpg")
+        with open(path, "wb") as f:
+            f.write(format_files.idct_case())
+        for denom, rec in want.items():
+            for imread in (True, False):
+                img = native.decode_one(path, int(denom), imread=imread)
+                if list(img.shape) != rec["shape"] or hashlib.sha256(
+                        img.tobytes()).hexdigest() != rec["sha256"]:
+                    route = "imread" if imread else "fused"
+                    raise AssertionError(f"idct case at 1/{denom} ({route} "
+                                         f"route): decode differs from cv2's")
+        # targets at which the fused call picks 1/8, 1/4, 1/2 and 1/1 of
+        # the 640x480 frame (the JAX library's rule)
+        fused = {}
+        for size in (60, 120, 240, 480):
+            code = native.decode_preproc_codes(
+                [path], size, False, max_denom=native.MAX_DENOM)[-1][0]
+            if code != native.JPEG_OK:
+                raise AssertionError(f"idct case: the fused call refused it "
+                                     f"at {size} px")
+            fused[size] = int(code)
+    return {"scales": sorted(want, key=int), "fused_sizes": sorted(fused)}
 
 
 def phase_formats(card: str) -> dict:

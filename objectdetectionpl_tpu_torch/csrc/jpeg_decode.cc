@@ -624,17 +624,23 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
 
 // libjpeg-turbo's SIMD reduced IDCTs (jidctred-sse2.asm): jidctred.c's
 // jpeg_idct_4x4 and jpeg_idct_2x2 arithmetic in 16-bit lanes, as for the
-// ISLOW IDCT above: the dequantized coefficients wrap to 16 bits, pass 1's
-// output saturates to 16 bits, pass 2's to 8 around the centre, and a
-// block whose odd rows (4x4: and row 2 and 6) are all zero takes the
-// shortcut, row 0 dequantized << 2.
+// ISLOW IDCT above: the dequantized coefficients wrap to 16 bits, every
+// 32-bit sum wraps (the descale's rounding add too, before its arithmetic
+// shift), pass 1's output saturates to 16 bits and pass 2's to 8 around
+// the centre.
+inline int32_t descale32(int64_t x, int n) {
+  return wrap32(int64_t{wrap32(x)} + (int64_t{1} << (n - 1))) >> n;
+}
+
 inline uint8_t sat8(int32_t x) {
   return static_cast<uint8_t>(std::min(std::max<int32_t>(sat16(x), -128), 127)
                               + 128);
 }
 
 // jidctred.c's jpeg_idct_4x4: the 4-point IDCT of the even-numbered and
-// odd coefficients, row and column 4 left out.
+// odd coefficients, row and column 4 left out.  A block whose rows 1..3
+// and 5..7 are all zero takes the shortcut: row 0 dequantized << 2,
+// wrapping.
 void idct_4x4(const int16_t* in, const uint16_t* q, uint8_t* out,
               int stride) {
   int16_t d[64], ws[8 * 4];
@@ -661,10 +667,10 @@ void idct_4x4(const int16_t* in, const uint16_t* q, uint8_t* out,
     tmp2 = z1 * -F_0_509795579 + z2 * -F_0_601344887 + z3 * F_0_899976223 +
            z4 * F_2_562915447;
     constexpr int n = kConstBits - kPass1Bits + 1;
-    ws[0 * 8 + c] = sat16(wrap32(descale(wrap32(tmp10 + tmp2), n)));
-    ws[3 * 8 + c] = sat16(wrap32(descale(wrap32(tmp10 - tmp2), n)));
-    ws[1 * 8 + c] = sat16(wrap32(descale(wrap32(tmp12 + tmp0), n)));
-    ws[2 * 8 + c] = sat16(wrap32(descale(wrap32(tmp12 - tmp0), n)));
+    ws[0 * 8 + c] = sat16(descale32(tmp10 + tmp2, n));
+    ws[3 * 8 + c] = sat16(descale32(tmp10 - tmp2, n));
+    ws[1 * 8 + c] = sat16(descale32(tmp12 + tmp0, n));
+    ws[2 * 8 + c] = sat16(descale32(tmp12 - tmp0, n));
   }
   constexpr int n2 = kConstBits + kPass1Bits + 3 + 1;
   for (int r = 0; r < 4; ++r) {
@@ -678,50 +684,55 @@ void idct_4x4(const int16_t* in, const uint16_t* q, uint8_t* out,
            z4 * F_1_061594337;
     tmp2 = z1 * -F_0_509795579 + z2 * -F_0_601344887 + z3 * F_0_899976223 +
            z4 * F_2_562915447;
-    o[0] = sat8(wrap32(descale(wrap32(tmp10 + tmp2), n2)));
-    o[3] = sat8(wrap32(descale(wrap32(tmp10 - tmp2), n2)));
-    o[1] = sat8(wrap32(descale(wrap32(tmp12 + tmp0), n2)));
-    o[2] = sat8(wrap32(descale(wrap32(tmp12 - tmp0), n2)));
+    o[0] = sat8(descale32(tmp10 + tmp2, n2));
+    o[3] = sat8(descale32(tmp10 - tmp2, n2));
+    o[1] = sat8(descale32(tmp12 + tmp0, n2));
+    o[2] = sat8(descale32(tmp12 - tmp0, n2));
   }
 }
 
-// jidctred.c's jpeg_idct_2x2: the DC and the odd coefficients only.
+// jidctred.c's jpeg_idct_2x2: the DC and the odd coefficients only, with
+// no shortcut.  The asm keeps pass 1's column 0 in 32 bits, unsaturated,
+// and shifts it left by 15 in pass 2, wrapping; the odd columns saturate.
 void idct_2x2(const int16_t* in, const uint16_t* q, uint8_t* out,
               int stride) {
   int16_t d[64], ws[8 * 2];
-  bool ac = false;
-  for (int i = 0; i < 64; ++i) {
+  int32_t ws0[2];
+  for (int i = 0; i < 64; ++i)
     d[i] = wrap16(static_cast<int32_t>(in[i]) * q[i]);
-    ac |= ((i >> 3) & 1) && in[i] != 0;
-  }
   for (int c = 0; c < 8; ++c) {
     if (c == 2 || c == 4 || c == 6) continue;
     const int16_t* col = d + c;
-    if (!ac) {
-      ws[c] = ws[8 + c] = wrap16(col[0] * (1 << kPass1Bits));
-      continue;
-    }
     auto dq = [&](int r) { return static_cast<int64_t>(col[8 * r]); };
     const int64_t tmp10 = dq(0) * (int64_t{1} << (kConstBits + 2));
     const int64_t tmp0 = dq(7) * -F_0_720959822 + dq(5) * F_0_850430095 +
                          dq(3) * -F_1_272758580 + dq(1) * F_3_624509785;
     constexpr int n = kConstBits - kPass1Bits + 2;
-    ws[c] = sat16(wrap32(descale(wrap32(tmp10 + tmp0), n)));
-    ws[8 + c] = sat16(wrap32(descale(wrap32(tmp10 - tmp0), n)));
+    const int32_t a = descale32(tmp10 + tmp0, n);
+    const int32_t b = descale32(tmp10 - tmp0, n);
+    if (c == 0) {
+      ws0[0] = a;
+      ws0[1] = b;
+    } else {
+      ws[c] = sat16(a);
+      ws[8 + c] = sat16(b);
+    }
   }
   constexpr int n2 = kConstBits + kPass1Bits + 3 + 2;
   for (int r = 0; r < 2; ++r) {
     const int16_t* w = ws + r * 8;
     uint8_t* o = out + r * stride;
-    const int64_t tmp10 = int64_t{w[0]} * (int64_t{1} << (kConstBits + 2));
+    const int64_t tmp10 = wrap32(int64_t{ws0[r]} << (kConstBits + 2));
     const int64_t tmp0 = w[7] * -F_0_720959822 + w[5] * F_0_850430095 +
                          w[3] * -F_1_272758580 + w[1] * F_3_624509785;
-    o[0] = sat8(wrap32(descale(wrap32(tmp10 + tmp0), n2)));
-    o[1] = sat8(wrap32(descale(wrap32(tmp10 - tmp0), n2)));
+    o[0] = sat8(descale32(tmp10 + tmp0, n2));
+    o[1] = sat8(descale32(tmp10 - tmp0, n2));
   }
 }
 
-// jidctred.c's jpeg_idct_1x1: the block's mean, DC / 8.
+// jidctred.c's jpeg_idct_1x1 (C, no SIMD): the block's mean, DC / 8.
+// (The SIMD build's 16-bit multiplier changes the product by a multiple
+// of 65536, which the range limit's 10 bits do not see.)
 void idct_1x1(const int16_t* in, const uint16_t* q, uint8_t* out, int) {
   *out = range_limit(descale(static_cast<int64_t>(in[0]) * q[0], 3));
 }
@@ -911,6 +922,45 @@ class Decoder {
     output(8 / denom, rgb);
   }
 
+  // A TIFF JPEGTables stream (tag 347) at the decoder's position, read as
+  // libtiff has libjpeg read it (jpeg_read_header(FALSE), which must end
+  // in JPEG_HEADER_TABLES_ONLY): SOI, table and other segments, EOI.  Its
+  // tables stay for the strip or tile at `strip`, whose SOI resets the
+  // rest (jdmarker.c's get_soi: restart interval, arithmetic
+  // conditioning, the JFIF and Adobe marks).
+  void tables(const uint8_t* strip) {
+    if (size() < 2 || p_[0] != 0xFF || p_[1] != 0xD8)
+      fail(JPEG_CORRUPT, "bogus JPEGTables (no SOI marker)");
+    p_ += 2;
+    for (int m; (m = next_marker()) != 0xD9;) {
+      if (m == 0xC4) dht();
+      else if (m == 0xDB) dqt();
+      else if (m == 0xDD) dri();
+      else if (m == 0xCC) dac();
+      else if (m >= 0xE0 && m <= 0xEF) app(m);
+      else if (m == 0xFE) skip_segment();
+      else fail(JPEG_CORRUPT, "bogus JPEGTables (marker " + hex_marker(m) +
+                                  ")");
+    }
+    restart_interval_ = 0;
+    std::fill(dc_l_, dc_l_ + 16, 0);
+    std::fill(dc_u_, dc_u_ + 16, 1);
+    std::fill(ac_k_, ac_k_ + 16, 5);
+    jfif_ = adobe_ = false;
+    adobe_transform_ = -1;
+    p_ = strip;
+  }
+
+  // libtiff's colour request to libjpeg: TIFF_YCBCR_TO_RGB (JCS_YCbCr to
+  // JCS_RGB, whatever the markers say) or TIFF_SAMPLES (JCS_UNKNOWN both
+  // ways: the components as stored, interleaved, 1, 3 or 4 bytes a pixel).
+  enum Tiff { NOT_TIFF, TIFF_YCBCR_TO_RGB, TIFF_SAMPLES };
+  void set_tiff(Tiff t) { tiff_ = t; }
+  int components() const { return static_cast<int>(comps_.size()); }
+  int precision() const { return precision_; }
+  int h_samp(int i) const { return comps_[i].h; }
+  int v_samp(int i) const { return comps_[i].v; }
+
   // The EXIF Orientation read before the first scan, 0 without one; known
   // once decode() is done.
   int orientation() const { return orientation_; }
@@ -944,16 +994,7 @@ class Decoder {
       done_ = true;
       return;
     }
-    // jdmarker.c's next_marker: bytes before a 0xFF are skipped with a
-    // warning ("N extraneous bytes before marker"), fill bytes 0xFF are
-    // swallowed, and a stuffed 0xFF00 counts as two more extraneous bytes
-    int c;
-    do {
-      c = byte();
-      while (c != 0xFF) c = byte();
-      while (c == 0xFF) c = byte();
-    } while (c == 0);
-    const int m = c;
+    const int m = next_marker();
     if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA)
       return sof(m);
     if (m == 0xC3) {
@@ -981,6 +1022,19 @@ class Decoder {
     if (m >= 0xE0 && m <= 0xEF) return app(m);
     if (m == 0xFE) return skip_segment();
     fail(JPEG_CORRUPT, "unexpected marker " + hex_marker(m));
+  }
+
+  // jdmarker.c's next_marker: bytes before a 0xFF are skipped with a
+  // warning ("N extraneous bytes before marker"), fill bytes 0xFF are
+  // swallowed, and a stuffed 0xFF00 counts as two more extraneous bytes
+  int next_marker() {
+    int c;
+    do {
+      c = byte();
+      while (c != 0xFF) c = byte();
+      while (c == 0xFF) c = byte();
+    } while (c == 0);
+    return c;
   }
 
   const uint8_t* segment_body(int* len) {
@@ -1440,11 +1494,11 @@ class Decoder {
   // replicated (no "fancy" upsampling for 1-sample blocks).
   void lossless_output(uint8_t* rgb) {
     const int nf = static_cast<int>(comps_.size());
-    if (nf == 1)
+    if (nf == 1 && tiff_ != TIFF_SAMPLES)
       fail(JPEG_UNSUPPORTED, "a grey lossless JPEG, which cv2.imread refuses "
                              "(libjpeg converts no colour space of a "
                              "lossless file)");
-    if (adobe_ && adobe_transform_ != 0)
+    if (adobe_ && adobe_transform_ != 0 && tiff_ == NOT_TIFF)
       fail(JPEG_UNSUPPORTED, std::string("a lossless JPEG in ") +
                                  (nf == 3 ? "YCbCr" : "YCCK") +
                                  ", which cv2.imread refuses (libjpeg "
@@ -2021,6 +2075,17 @@ class Decoder {
   }
 
   void convert(const View* v, int W, int H, uint8_t* rgb) const {
+    if (tiff_ == TIFF_SAMPLES) {
+      const int nf = static_cast<int>(comps_.size());
+      for (int y = 0; y < H; ++y) {
+        uint8_t* o = rgb + static_cast<size_t>(y) * W * nf;
+        for (int i = 0; i < nf; ++i) {
+          const uint8_t* a = v[i].p + static_cast<size_t>(y) * v[i].stride;
+          for (int x = 0; x < W; ++x) o[x * nf + i] = a[x];
+        }
+      }
+      return;
+    }
     if (comps_.size() == 1) {
       for (int y = 0; y < H; ++y) {
         const uint8_t* g = v[0].p + static_cast<size_t>(y) * v[0].stride;
@@ -2087,6 +2152,12 @@ class Decoder {
   // libjpeg's default colour space for 3 components: JFIF means YCbCr, an
   // Adobe marker's transform 0 means RGB, else component ids 'R','G','B'.
   bool is_rgb() const {
+    if (tiff_ == TIFF_YCBCR_TO_RGB) {
+      if (lossless_)
+        fail(JPEG_UNSUPPORTED, "a lossless JPEG in YCbCr, which libjpeg does "
+                               "not convert");
+      return false;
+    }
     if (lossless_) return true;
     if (jfif_) return false;
     if (adobe_) return adobe_transform_ == 0;
@@ -2098,6 +2169,7 @@ class Decoder {
   const uint8_t* end_;
   Buffers* b_;
   bool imread_;
+  Tiff tiff_ = NOT_TIFF;
   bool smooth_ = false;    // libjpeg's block smoothing applies
   int last_good_ = -1;     // jdcoefct.c's last_good_iMCU_row
   bool frame_ = false, progressive_ = false, arith_ = false, done_ = false;
@@ -2256,6 +2328,82 @@ void jpeg_decode_batch(const char** paths, int n, int threads, int denom,
 }
 
 void jpeg_free(uint8_t* pixels) { std::free(pixels); }
+
+// One strip or tile of a TIFF of JPEG compression (7) as libtiff's JPEG
+// codec has libjpeg (cv2's libjpeg-turbo 3) decode it for the RGBA reader
+// (tif_jpeg.c's JPEGSetupDecode and JPEGPreDecode): the JPEGTables stream
+// (tag 347; ntables 0 without one), then the segment's own stream, at full
+// scale, checked as libtiff checks them: `comps` components, 8-bit
+// samples, component 0 sampled hs x vs and the others 1 x 1, a frame of
+// the segment's w x h or, for the last strip (`taller_ok`), as wide and
+// taller.  With `to_rgb` (photometric YCbCr, which the RGBA reader asks
+// libjpeg to convert) YCbCr becomes RGB, 3 bytes a pixel, through the
+// file's upsampling; else the samples come as stored, `comps` bytes a
+// pixel.  out: w * h * (to_rgb ? 3 : comps) bytes.  Returns a Code, the
+// reason in msg.
+int jpeg_decode_tiff(const uint8_t* tables, int64_t ntables,
+                     const uint8_t* strip, int64_t nstrip, int to_rgb, int w,
+                     int h, int comps, int hs, int vs, int taller_ok,
+                     uint8_t* out, char* msg, int msg_len) {
+  set_msg(msg, msg_len, "");
+  Buffers b;
+  try {
+    // each stream followed by libjpeg's EOI answers past its end
+    std::vector<uint8_t>& data = b.data;
+    const size_t at_strip = static_cast<size_t>(ntables) + kEofPad;
+    data.assign(at_strip + nstrip + kEofPad, 0);
+    std::memcpy(data.data(), tables, ntables);
+    std::memcpy(data.data() + at_strip, strip, nstrip);
+    for (size_t i = 0; i < kEofPad; i += 2) {
+      for (size_t at : {static_cast<size_t>(ntables), at_strip + nstrip}) {
+        data[at + i] = 0xFF;
+        data[at + i + 1] = 0xD9;
+      }
+    }
+    const size_t from = ntables > 0 ? 0 : at_strip;
+    Decoder d(data.data() + from, data.size() - from, &b, true);
+    if (ntables > 0) d.tables(data.data() + at_strip);
+    d.set_tiff(to_rgb ? Decoder::TIFF_YCBCR_TO_RGB : Decoder::TIFF_SAMPLES);
+    int jw, jh;
+    d.header(&jw, &jh);
+    if (d.components() != comps)
+      fail(JPEG_UNSUPPORTED, "improper JPEG component count (" +
+                                 std::to_string(d.components()) + ", not " +
+                                 std::to_string(comps) + ")");
+    if (d.precision() != 8)
+      fail(JPEG_UNSUPPORTED, "improper JPEG data precision (" +
+                                 std::to_string(d.precision()) + " bits)");
+    for (int i = 0; i < comps; ++i) {
+      const int want_h = i ? 1 : hs, want_v = i ? 1 : vs;
+      if (d.h_samp(i) != want_h || d.v_samp(i) != want_v)
+        fail(JPEG_UNSUPPORTED,
+             "improper JPEG sampling factors " + std::to_string(d.h_samp(i)) +
+                 "," + std::to_string(d.v_samp(i)) + " (component " +
+                 std::to_string(i) + "; the TIFF says " +
+                 std::to_string(want_h) + "," + std::to_string(want_v) + ")");
+    }
+    if (jw < w || jh < h)
+      fail(JPEG_UNSUPPORTED, "a JPEG strip or tile of " + std::to_string(jw) +
+                                 "x" + std::to_string(jh) + ", smaller than "
+                                 "its " + std::to_string(w) + "x" +
+                                 std::to_string(h));
+    if (jw > w || (jh > h && !taller_ok))
+      fail(JPEG_CORRUPT, "a JPEG strip or tile of " + std::to_string(jw) +
+                             "x" + std::to_string(jh) + ", larger than its " +
+                             std::to_string(w) + "x" + std::to_string(h));
+    const int px = to_rgb ? 3 : comps;
+    b.rgb.resize(static_cast<size_t>(jw) * jh * px);
+    d.decode(1, b.rgb.data());
+    std::memcpy(out, b.rgb.data(), static_cast<size_t>(w) * h * px);
+    return JPEG_OK;
+  } catch (const Error& e) {
+    set_msg(msg, msg_len, e.msg);
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    set_msg(msg, msg_len, "out of memory");
+    return JPEG_CORRUPT;
+  }
+}
 
 }  // extern "C"
 

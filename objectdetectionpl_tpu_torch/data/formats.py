@@ -30,8 +30,10 @@ and animation chunks here, the VP8 and VP8L bitstreams in the host
 library (``csrc/webp_decode.cc``).
 
 TIFF (libtiff's RGBA interface through cv2, :func:`read_tiff`): the IFD,
-strips and tiles, Deflate and libtiff's sample rules here; LZW and
-PackBits in the host library (``csrc/tiff_decode.cc``).
+strips and tiles, Deflate, libtiff's sample rules and its YCbCr, CMYK and
+CIELab conversions here; LZW, PackBits, CCITT fax and ThunderScan in the
+host library (``csrc/tiff_decode.cc``), JPEG strips and tiles by the
+JPEG decoder (``csrc/jpeg_decode.cc::jpeg_decode_tiff``).
 
 JPEG 2000 (OpenJPEG 2.5 through cv2, :func:`read_jp2`): the JP2 boxes,
 the palette, channel definitions and cv2's conversion to 8-bit here; the
@@ -49,6 +51,7 @@ carries EXIF that cv2 reads.
 
 from __future__ import annotations
 
+import math
 import re
 import struct
 import zlib
@@ -519,7 +522,7 @@ _TIFF_TYPE = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4),
 _COMPRESSIONS = {1: "none", 5: "LZW", 8: "Deflate", 32946: "Deflate",
                  32773: "PackBits", 2: "CCITT RLE", 3: "CCITT Group 3",
                  4: "CCITT Group 4", 6: "old JPEG", 7: "JPEG",
-                 34676: "SGI LogLuv", 34677: "SGI LogL", 32809: "ThunderScan",
+                 34676: "SGILog", 34677: "SGILog24", 32809: "ThunderScan",
                  32766: "NeXT", 34925: "LZMA", 50000: "Zstandard",
                  50001: "WebP", 34712: "JPEG 2000", 34892: "lossy JPEG"}
 _PHOTOMETRICS = {0: "MINISWHITE", 1: "MINISBLACK", 2: "RGB", 3: "palette",
@@ -577,30 +580,59 @@ _REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
                      np.uint8)
 
 
-def read_tiff(data: bytes, lzw, packbits) -> np.ndarray:
+def read_tiff(data: bytes, codecs) -> np.ndarray:
     """TIFF bytes (classic or BigTIFF, either byte order) -> uint8 [H, W,
-    3] RGB, as cv2.imread reads the first page: through libtiff's RGBA
+    3] RGB, as cv2.imread reads the first page: through libtiff 4.7's RGBA
     interface (TIFFReadRGBAStrip / Tile), which cv2 asks for whenever its
-    output is 8-bit.  That interface takes grey (MINISBLACK, MINISWHITE
-    inverted) at 1, 8 and 16 bits (16-bit grey by its high byte; grey in
-    tiles whose right part is clipped as libtiff's grey routines misstep
-    over it), planar grey and RGB at 8 and 16 bits (16-bit samples become
-    (v + 128) // 257) with alpha (associated: kept; unassociated:
-    multiplied into the colour, as libtiff's UaToAa table rounds it; a
-    fourth RGB sample without an ExtraSamples tag, or an unspecified one
-    past 3 samples, counts as associated), and palettes of 1, 4 and 8 bits
-    (a colour map with any entry above 255 is read by its high byte); cv2
-    refuses 2- and 4-bit grey.  Strips or tiles, chunky or
-    planar, compressions none, LZW (the host library's ``lzw``),
-    Deflate (zlib) and PackBits (``packbits``); predictor 2 (horizontal
-    differencing, 8 and 16 bits) only where libtiff's codec honours it
-    (LZW and Deflate), FillOrder 2 uncompressed (each byte's bits
-    reversed).  The
+    output is 8-bit.
+
+    That interface takes grey (MINISBLACK, MINISWHITE inverted) at 1, 8
+    and 16 bits (16-bit grey by its high byte; grey in tiles whose right
+    part is clipped as libtiff's grey routines misstep over it), planar
+    grey and RGB at 8 and 16 bits (16-bit samples become (v + 128) // 257)
+    with alpha (associated: kept; unassociated: multiplied into the
+    colour, as libtiff's UaToAa table rounds it; a fourth RGB sample
+    without an ExtraSamples tag, or an unspecified one past 3 samples,
+    counts as associated), palettes of 1, 4 and 8 bits (a colour map with
+    any entry above 255 is read by its high byte), 8-bit CMYK of InkSet 1,
+    chunky with 4 or more samples or planar with 4 (k = 255 - K, r = k *
+    (255 - C) // 255), 8-bit YCbCr, chunky at YCbCrSubsampling 1, 2 or 4
+    each way (4x2 at most: 44, 42, 41, 22, 21, 12, 11; the data units
+    packed, chroma replicated over a unit) or planar at 1x1, through
+    libtiff's TIFFYCbCrToRGB tables from ReferenceBlackWhite and
+    YCbCrCoefficients, 8- and 16-bit CIELab of 3 samples through its
+    float TIFFCIELabToXYZ and TIFFXYZToRGB under the WhitePoint (D50
+    without one), and SGILog LogL and 32-bit LogLuv (``sgilog``: tif_luv.c's
+    byte planes), tone-mapped to 8 bits as tif_luv.c does for the RGBA
+    reader; cv2 refuses 2- and 4-bit grey.  Strips or tiles, chunky
+    or planar, compressions none, LZW (the host library's ``lzw``, the old
+    LSB-first kind too), Deflate (zlib), PackBits (``packbits``), JPEG
+    (``jpeg``: the JPEGTables stream, then each strip's or tile's own,
+    photometric YCbCr converted to RGB by the decoder as libjpeg converts
+    it for libtiff, other photometrics' samples as stored) and CCITT RLE,
+    Group 3 (1-D and 2-D) and Group 4 (``fax``, 1-bit samples); predictor
+    2 (horizontal differencing, 8 and 16 bits) only where libtiff's codec
+    honours it (LZW and Deflate), FillOrder 2 (each byte's bits reversed
+    before the codec; the fax codec reads them in that order).  The
     Orientation tag: 2 and 3 flip each strip or tile left to right (the
     RGBA reader's flip), 3 and 4 then flip the image upside down (cv2's);
     cv2 fails on 5 to 8 (a turned image of another shape), and so does
-    this reader.  Other kinds raise :class:`FormatError`
-    naming themselves."""
+    this reader.  SampleFormat 2 (signed) reads as unsigned.
+
+    Damaged files read as cv2 reads them, one TIFFReadRGBAStrip / Tile a
+    strip or tile: a codec that fails a strip leaves what it wrote, zeros
+    after, without the predictor or the byte swap, and the image goes on;
+    a byte count of 0 or past the file's end fails the image, as does an
+    uncompressed tile whose count is not the tile's; an uncompressed
+    file's counts that TIFFReadDirectory finds wrong are re-estimated
+    (:func:`_tiff_counts`).
+
+    Other kinds raise :class:`FormatError` naming themselves; those cv2
+    refuses as well: LZMA, Zstandard, WebP and old-JPEG compression (not
+    configured in cv2's libtiff), NeXT (2-bit), float and 32-bit samples,
+    mixed SampleFormats, predictor 3, 16-bit CMYK and YCbCr, photometric
+    RGB over a JPEG whose component 0 is sampled above 1x1.  24-bit SGI
+    LogLuv (SGILog24), which cv2 reads, raises too."""
     tags, e = _tiff_ifd(data)
 
     def one(tag, default=None):
@@ -624,17 +656,58 @@ def read_tiff(data: bytes, lzw, packbits) -> np.ndarray:
     planar = one(284, 1) if spp > 1 else 1
     predictor = one(317, 1) if compression in (5, 8, 32946) else 1
     sample_format = one(339, 1)
-    if compression not in (1, 5, 8, 32946, 32773):
+    if len(set(tags.get(339, [1]))) != 1:
+        raise FormatError(f"{kind} of sample formats {tags[339]}, which "
+                          f"libtiff refuses (one value for every sample)")
+    fax = compression in (2, 3, 4)
+    if compression in (6, 34925, 50000, 50001):
+        raise FormatError(f"{kind}, which cv2 does not read either (its "
+                          f"libtiff has no such codec configured)")
+    if compression == 32766:
+        raise FormatError(f"{kind}, which cv2 does not read either (NeXT "
+                          f"holds 2-bit samples)")
+    if compression not in (1, 2, 3, 4, 5, 7, 8, 32946, 32773, 32809,
+                           34676):
         raise FormatError(f"{kind}, which the port does not read")
-    if photometric not in (0, 1, 2, 3):
+    # SGILog: libtiff's RGBA reader asks tif_luv.c for 8-bit grey (LogL)
+    # or RGB (LogLuv), tone-mapped by 256 * sqrt(Y)
+    sgilog = 0
+    if photometric in (32844, 32845):
+        if compression not in (34676, 34677) or \
+                (photometric == 32844 and compression != 34676):
+            raise FormatError(f"{kind}, which libtiff's RGBA reader refuses "
+                              f"(LogL and LogLuv need SGILog compression)")
+        if (photometric, spp) not in ((32844, 1), (32845, 3)) or \
+                one(284, 1) != 1:
+            raise FormatError(f"{kind} of {spp} samples, planar "
+                              f"configuration {one(284, 1)}, which cv2 does "
+                              f"not read either")
+        if compression == 34677:
+            raise FormatError(f"{kind}, which the port does not read")
+        sgilog = 2 if photometric == 32844 else 4
+        photometric, bits, bps = (1 if sgilog == 2 else 2), [8] * spp, 8
+        sample_format = 1
+    elif compression == 34676:
+        raise FormatError(f"{kind}, which libtiff's SGILog codec refuses "
+                          f"(LogL or LogLuv data only)")
+    if compression == 32809 and (one(258, 1) != 4 or spp != 1):
+        raise FormatError(f"{kind}, which libtiff's ThunderScan codec "
+                          f"refuses (4-bit samples only)")
+    if photometric not in (0, 1, 2, 3, 5, 6, 8):
         raise FormatError(f"{kind}, which the port does not read")
     # cv2 takes 1, 8 and 16 bits, and 4 in a palette
     if len(set(bits)) != 1 or bps not in ((1, 4, 8) if photometric == 3
                                           else (1, 8, 16)) or \
-            sample_format not in (1,) or planar not in (1, 2):
+            sample_format not in (1, 2) or planar not in (1, 2):
         raise FormatError(f"{kind} of sample format {sample_format}, planar "
                           f"configuration {planar}, which the port does not "
                           f"read")
+    if fax and (bps != 1 or spp != 1):
+        raise FormatError(f"{kind} of {spp} samples, which libtiff's fax "
+                          f"codec refuses (1-bit samples only)")
+    if compression == 7 and bps != 8:
+        raise FormatError(f"{kind}, which libtiff's JPEG codec refuses "
+                          f"(improper JPEG data precision)")
     if predictor not in (1, 2) or (predictor == 2 and bps < 8):
         raise FormatError(f"{kind} with predictor {predictor}, which the "
                           f"port does not read")
@@ -651,6 +724,32 @@ def read_tiff(data: bytes, lzw, packbits) -> np.ndarray:
             planar == 2 and photometric == 3)):
         raise FormatError(f"{kind} of {spp} samples, which the port does "
                           f"not read")
+    if photometric == 5 and (one(332, 1) != 1 or spp != 4 or bps != 8):
+        raise FormatError(f"{kind} of {spp} samples, InkSet {one(332, 1)}, "
+                          f"planar configuration {planar}, which cv2 does "
+                          f"not read either")
+    if photometric == 8 and (spp != 3 or bps == 1 or planar != 1):
+        raise FormatError(f"{kind} of {spp} samples, planar configuration "
+                          f"{planar}, which cv2 does not read either")
+    hs, vs = 1, 1
+    if photometric == 6:
+        sub = tags.get(530)
+        if sub is None and compression == 7:
+            hs, vs = _jpeg_sampling(data, tags)
+        elif sub is not None:
+            hs, vs = (list(sub) + [2])[:2]
+        else:
+            hs, vs = 2, 2
+        # libtiff's put routines: 44, 42, 41, 22, 21, 12, 11 chunky, 11
+        # planar; libjpeg's RGB of a JPEG any sampling, chunky
+        if spp != 3 or bps != 8 or hs not in (1, 2, 4) or \
+                vs not in (1, 2, 4) or (compression != 7 and (
+                    vs > hs and (hs, vs) != (1, 2) or
+                    planar == 2 and (hs, vs) != (1, 1))) or \
+                (planar == 2 and compression == 7):
+            raise FormatError(f"{kind} of {spp} samples, subsampling "
+                              f"{hs}x{vs}, planar configuration {planar}, "
+                              f"which cv2 does not read either")
     # libtiff's alpha: ExtraSamples' first, unspecified counting as
     # associated past 3 samples, and a fourth RGB sample without the tag
     extra = tags.get(338) or []
@@ -663,9 +762,6 @@ def read_tiff(data: bytes, lzw, packbits) -> np.ndarray:
     # from where it lands (a no-op for one 8-bit sample)
     skewed = photometric in (0, 1) and planar == 1
     fill_order = one(266, 1)
-    if fill_order == 2 and compression != 1:
-        raise FormatError(f"{kind} with FillOrder 2, which the port does "
-                          f"not read")
     orientation = one(274, 1)
     if orientation in (5, 6, 7, 8):
         raise FormatError(f"{kind} with Orientation {orientation}, which "
@@ -687,38 +783,84 @@ def read_tiff(data: bytes, lzw, packbits) -> np.ndarray:
             len(offsets) < across * down * nplanes or \
             len(counts) < across * down * nplanes:
         raise FormatError("missing or short strip or tile offsets")
+    # photometric YCbCr: libtiff asks libjpeg for RGB, else packed units
+    ycbcr_units = photometric == 6 and compression != 7 and \
+        (hs, vs) != (1, 1)
+    if photometric == 6 and compression == 7:
+        photometric = 2                 # the decoder's RGB
     row_bytes = (tw * chunk_spp * bps + 7) // 8
+    scanline = (-(-tw // hs) * (hs * vs + 2)) // vs if ycbcr_units \
+        else row_bytes                      # TIFFScanlineSize
+    counts = _tiff_counts(list(counts), offsets, len(data), compression,
+                          tiled, planar, scanline, h, down,
+                          _ycbcr_chunk_size(tw, th, hs, vs, True)
+                          if ycbcr_units else row_bytes * th)
     dtype = np.dtype(e + "u2") if bps == 16 else np.dtype(np.uint8)
     planes = np.zeros((nplanes, h, w, chunk_spp),
                       np.uint16 if bps == 16 else np.uint8)
+    fax_state = {}                      # the fax codec's mode, image-wide
     for p in range(nplanes):
         for k in range(across * down):
             ty, tx = divmod(k, across)
             rows = th if tiled else min(th, h - ty * th)
             size = row_bytes * rows
+            if ycbcr_units:
+                size = _ycbcr_chunk_size(tw, rows, hs, vs, tiled)
             i = p * across * down + k
+            # TIFFFillStrip / TIFFFillTile fail the image before the
+            # strip's buffer exists
+            if counts[i] == 0:
+                raise FormatError(f"strip or tile {i} of 0 bytes")
+            if offsets[i] + counts[i] > len(data):
+                raise FormatError("the file ends inside a strip or tile")
             raw = data[offsets[i]:offsets[i] + counts[i]]
-            if fill_order == 2:                 # libtiff reverses the bits
+            if fill_order == 2 and not fax:     # libtiff reverses the bits
                 raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
+            # ok False: the codec failed the strip, which cv2's libtiff
+            # reads on with what it wrote (no predictor, no byte swap)
             if compression == 1:
-                if len(raw) < size:
-                    raise FormatError("the file ends inside a strip or tile")
-                buf = raw[:size]
+                if tiled:
+                    # libtiff wants an uncompressed tile's bytes read to be
+                    # the tile's; with FillOrder 2 it reads them into its
+                    # raw buffer, whose size it rounds up to 1024 bytes
+                    got = -(-counts[i] // 1024) * 1024 if fill_order == 2 \
+                        else counts[i]
+                    if got != size:
+                        raise FormatError(
+                            f"{kind}: an uncompressed tile of {got} bytes "
+                            f"read, not {size}, which libtiff refuses")
+                ok = len(raw) >= size           # DumpModeDecode copies all
+                buf = raw[:size] if ok else bytes(size)     # or nothing
             elif compression == 5:
-                buf = lzw(raw, size)
+                buf, ok = codecs["lzw"](raw, size)
             elif compression == 32773:
-                buf = packbits(raw, size)
+                buf, ok = codecs["packbits"](raw, size)
+            elif fax:
+                buf, ok = codecs["fax"](raw, rows, tw, compression,
+                                        one(293 if compression == 4 else 292,
+                                            0), fill_order, fax_state)
+            elif compression == 32809:
+                buf, ok = codecs["thunder"](raw, rows, tw)
+            elif sgilog:
+                vals, ok = codecs["sgilog"](raw, rows, tw, sgilog)
+                buf = (_logl_grey(vals) if sgilog == 2
+                       else _logluv_rgb(vals)).tobytes()
+            elif compression == 7:
+                buf, ok = codecs["jpeg"](
+                    bytes(tags.get(347, ())), raw, tw, rows, chunk_spp,
+                    one(262) == 6, hs, vs,
+                    not tiled and ty * th + rows == h)
             else:
-                try:
-                    buf = zlib.decompressobj().decompress(raw, size)
-                except zlib.error as err:
-                    raise FormatError(f"Deflate: {err}") from None
-                if len(buf) < size:
-                    raise FormatError("Deflate data end before the strip "
-                                      "is full")
-            if bps >= 8:
-                s = np.frombuffer(buf, dtype).reshape(rows, tw, chunk_spp)
-                if predictor == 2:
+                buf, ok = _inflate(raw, size)
+            if ycbcr_units:
+                s = _ycbcr_expand(buf, tw, rows, hs, vs,
+                                  min(tw, w - tx * tw) if tiled else tw)
+            elif compression == 7 and photometric == 2 and one(262) == 6:
+                s = np.frombuffer(buf, np.uint8).reshape(rows, tw, 3)
+            elif bps >= 8:
+                s = np.frombuffer(buf, dtype if ok else np.dtype(
+                    dtype.newbyteorder("<"))).reshape(rows, tw, chunk_spp)
+                if predictor == 2 and ok:
                     s = np.cumsum(s, axis=1, dtype=dtype)
                 if skewed and tiled and w - tx * tw < tw:
                     s = _tiff_skew(s, w - tx * tw, bps)
@@ -739,6 +881,164 @@ def read_tiff(data: bytes, lzw, packbits) -> np.ndarray:
     if orientation in (3, 4):                   # and cv2 the whole image
         img = img[::-1]
     return np.ascontiguousarray(img)
+
+
+_LOGL_Y = None
+
+
+def _logl_y(le: np.ndarray) -> np.ndarray:
+    """tif_luv.c's LogL16toY of 15-bit magnitudes, sign aside:
+    exp(ln 2 / 256 * (Le + .5) - 64 ln 2), 0 for Le 0, by the C library's
+    exp (``math.exp``) once for all 32768."""
+    global _LOGL_Y
+    if _LOGL_Y is None:
+        ln2 = math.log(2)
+        _LOGL_Y = np.array([0.0] + [math.exp(ln2 / 256. * (k + .5)
+                                             - ln2 * 64.)
+                                    for k in range(1, 32768)])
+    return _LOGL_Y[le]
+
+
+def _tone(v: np.ndarray) -> np.ndarray:
+    """tif_luv.c's 8-bit tone map: 0 below 0, 255 from 1, else
+    (int)(256 * sqrt(v))."""
+    with np.errstate(invalid="ignore"):
+        t = np.floor(256. * np.sqrt(np.clip(v, 0, 1)))
+    return np.where(v <= 0, 0, np.where(v >= 1, 255, t)).astype(np.uint8)
+
+
+def _logl_grey(p: np.ndarray) -> np.ndarray:
+    """16-bit LogL -> grey (L16toGry): a set sign bit is negative, 0."""
+    p = p.astype(np.int64)
+    y = _logl_y(p & 0x7FFF)
+    return _tone(np.where(p & 0x8000, -y, y))
+
+
+def _logluv_rgb(p: np.ndarray) -> np.ndarray:
+    """32-bit LogLuv -> RGB (Luv32toRGB): LogLuv32toXYZ in double, each
+    of X, Y, Z rounded to float, then XYZtoRGB24's CCIR-709 matrix in
+    double and the tone map."""
+    p = p.astype(np.int64)
+    hi = p >> 16
+    y = _logl_y(hi & 0x7FFF)
+    L = np.where(hi & 0x8000, -y, y)
+    u = 1. / 410 * (((p >> 8) & 0xFF) + .5)
+    v = 1. / 410 * ((p & 0xFF) + .5)
+    s = 1. / (6. * u - 16. * v + 12.)
+    x, yy = 9. * u * s, 4. * v * s
+    f = np.float32
+    X = np.where(L > 0, (x / yy * L).astype(f), 0).astype(np.float64)
+    Y = np.where(L > 0, L.astype(f), 0).astype(np.float64)
+    Z = np.where(L > 0, ((1. - x - yy) / yy * L).astype(f),
+                 0).astype(np.float64)
+    return np.stack([_tone(2.690 * X + -1.276 * Y + -0.414 * Z),
+                     _tone(-1.022 * X + 1.978 * Y + 0.044 * Z),
+                     _tone(0.061 * X + -0.224 * Y + 1.163 * Z)], -1)
+
+
+def _tiff_counts(counts: list, offsets: list, file_size: int,
+                 compression: int, tiled: bool, planar: int, scanline: int,
+                 h: int, per_plane: int, tile_size: int) -> list:
+    """The byte counts libtiff reads: TIFFReadDirectory replaces an
+    uncompressed file's byte counts that look wrong -- one strip of 0
+    bytes, or past the file's end, or of fewer bytes than the image; or,
+    chunky in more than two strips or tiles, a first and second count that
+    differ -- by EstimateStripByteCounts: a tile's bytes, or the
+    scanline's bytes times the image's rows over its strips (rounded
+    down), every one alike."""
+    if compression != 1 or not counts:
+        return counts
+    if len(counts) == 1:
+        bad = not tiled and offsets[0] != 0 and (
+            counts[0] == 0 or counts[0] > file_size - offsets[0]
+            or counts[0] < scanline * h)
+    else:
+        bad = planar == 1 and len(counts) > 2 and counts[0] != counts[1] \
+            and counts[0] != 0 and counts[1] != 0
+    if not bad:
+        return counts
+    return [tile_size if tiled else scanline * (h // per_plane)] * \
+        len(counts)
+
+
+def _inflate(raw: bytes, size: int) -> Tuple[bytes, bool]:
+    """libtiff's ZIPDecode into a zeroed strip of ``size`` bytes: zlib's
+    inflate until the strip is full; where the data end first or are
+    corrupt, what it wrote before (False)."""
+    try:
+        buf = zlib.decompressobj().decompress(raw, size)
+        return buf + bytes(size - len(buf)), len(buf) == size
+    except zlib.error:
+        pass
+    # the bytes inflate wrote before the error: fed one input byte a call
+    d, buf = zlib.decompressobj(), bytearray()
+    try:
+        for i in range(len(raw)):
+            buf += d.decompress(raw[i:i + 1], size - len(buf))
+            if len(buf) >= size:
+                break
+    except zlib.error:
+        pass
+    return bytes(buf[:size]) + bytes(size - min(len(buf), size)), False
+
+
+def _jpeg_sampling(data: bytes, tags: dict) -> Tuple[int, int]:
+    """libtiff's JPEGFixupTagsSubsampling: a JPEG-compressed YCbCr TIFF
+    without YCbCrSubsampling takes component 0's sampling factors from the
+    frame header of its first strip or tile (2x2 where none is found)."""
+    offsets = tags.get(324) or tags.get(273)
+    counts = tags.get(325) or tags.get(279)
+    if offsets and counts:
+        seg = data[offsets[0]:offsets[0] + counts[0]]
+        for m in re.finditer(rb"\xff[\xc0-\xc2\xc9\xca]", seg):
+            f = seg[m.start() + 2:m.start() + 12]
+            if len(f) == 10 and f[7] >= 1:
+                return f[9] >> 4, f[9] & 15
+    return 2, 2
+
+
+def _ycbcr_chunk_size(tw: int, rows: int, hs: int, vs: int,
+                      tiled: bool) -> int:
+    """The bytes libtiff decodes into a strip or tile of subsampled YCbCr:
+    whole data units of hs * vs luma and 2 chroma samples; a strip reads
+    its rows rounded up to vs times TIFFScanlineSize, the units of a row
+    over vs rounded down."""
+    units = -(-tw // hs) * (hs * vs + 2)
+    full = -(-rows // vs) * units
+    if tiled:
+        return full
+    return min(full, -(-rows // vs) * vs * (units // vs))
+
+
+def _ycbcr_expand(buf: bytes, tw: int, rows: int, hs: int, vs: int,
+                  ww: int) -> np.ndarray:
+    """Packed YCbCr units -> [rows, tw, 3] samples as libtiff's
+    putcontig8bitYCbCr* routines spread them: each luma sample at its
+    place in the unit, the unit's Cb and Cr over all of them; bytes past
+    what the codec decoded are zero.  A tile clipped to ``ww`` columns is
+    read as the routines step over it: the units that cover ww, then
+    (tw - ww) // hs units skipped, which putcontig8bitYCbCr44tile counts
+    as 10 bytes each, not 18."""
+    ux, uy = -(-tw // hs), -(-rows // vs)
+    n = hs * vs + 2
+    flat = np.zeros(ux * uy * n, np.uint8)
+    got = np.frombuffer(buf, np.uint8)[:flat.size]
+    flat[:got.size] = got
+    if ww < tw:
+        used = -(-ww // hs)
+        stride = used * n + (tw - ww) // hs * (10 if (hs, vs) == (4, 4)
+                                               else n)
+        at = (np.arange(uy)[:, None] * stride
+              + np.arange(used * n)[None, :])
+        u = np.zeros((uy, ux, n), np.uint8)
+        u[:, :used] = flat[at].reshape(uy, used, n)
+    else:
+        u = flat.reshape(uy, ux, n)
+    y = u[..., :hs * vs].reshape(uy, ux, vs, hs).transpose(0, 2, 1, 3)
+    y = y.reshape(uy * vs, ux * hs)
+    cb = np.repeat(np.repeat(u[..., -2], vs, 0), hs, 1)
+    cr = np.repeat(np.repeat(u[..., -1], vs, 0), hs, 1)
+    return np.stack([y, cb, cr], -1)[:rows, :tw]
 
 
 def _tiff_skew(s: np.ndarray, ww: int, bps: int) -> np.ndarray:
@@ -775,6 +1075,14 @@ def _tiff_rgb(samples: np.ndarray, photometric: int, bps: int,
         top = 255 if bps >= 8 else (1 << bps) - 1
         g = (top - g if photometric == 0 else g) * 255 // top
         return np.repeat(g.astype(np.uint8)[..., None], 3, -1)
+    if photometric == 5:                        # CMYK
+        c = samples[..., :4].astype(np.int64)
+        k = 255 - c[..., 3:]
+        return (k * (255 - c[..., :3]) // 255).astype(np.uint8)
+    if photometric == 6:                        # YCbCr
+        return _ycbcr_rgb(samples, tags)
+    if photometric == 8:                        # CIELab
+        return _cielab_rgb(samples, bps, tags)
     if photometric == 3:                        # palette
         n = 1 << bps
         cmap = np.asarray(tags[320], np.int64)
@@ -793,6 +1101,132 @@ def _tiff_rgb(samples: np.ndarray, photometric: int, bps: int,
         a = _to8(samples[..., channels:channels + 1], bps).astype(np.int64)
         rgb = (rgb * a + 127) // 255
     return np.repeat(rgb, 3 // channels, -1).astype(np.uint8)
+
+
+def _rationals(tags: dict, tag: int, default) -> np.ndarray:
+    """A RATIONAL tag as libtiff's float array: num / den in float32, 0
+    for a zero denominator."""
+    v = tags.get(tag)
+    if not v or len(v) < 2 * len(default):
+        return np.asarray(default, np.float32)
+    num = np.asarray(v[0::2], np.float64).astype(np.float32)
+    den = np.asarray(v[1::2], np.float64).astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        q = np.where(den == 0, np.float32(0), num / den)
+    return q.astype(np.float32)[:len(default)]
+
+
+def _fix(x) -> int:
+    """tif_color.c's FIX: (int32_t)(x * 65536.0F + 0.5) of a float."""
+    return int(float(np.float32(x) * np.float32(65536)) + 0.5)
+
+
+def _ycbcr_rgb(samples: np.ndarray, tags: dict) -> np.ndarray:
+    """8-bit Y, Cb, Cr -> RGB by libtiff's TIFFYCbCrToRGBInit tables and
+    TIFFYCbCrtoRGB: the YCbCrCoefficients (0.299, 0.587, 0.114 without
+    the tag) and ReferenceBlackWhite (0, 255, 128, 255, 128, 255) in float
+    arithmetic, 16-bit fixed point after."""
+    f = np.float32
+    luma = _rationals(tags, 529, [0.299, 0.587, 0.114])
+    ref = _rationals(tags, 532, [0, 255, 128, 255, 128, 255])
+    lr, lg, lb = (f(v) for v in luma)
+
+    def clamp2(v):
+        return min(max(v, f(0)), f(2))
+
+    f1 = f(2) - f(2) * lr
+    d1 = _fix(clamp2(f1))
+    d2 = -_fix(clamp2(lr * f1 / lg))
+    f3 = f(2) - f(2) * lb
+    d3 = _fix(clamp2(f3))
+    d4 = -_fix(clamp2(lb * f3 / lg))
+
+    def code2v(c, rb, rw, cr):
+        """Code2V, clamped to +-4096 and truncated to int32."""
+        div = f(rw - rb) if f(rw - rb) != 0 else f(1)
+        v = (c - np.int64(np.trunc(rb))).astype(np.float32) * f(cr) / div
+        return np.trunc(np.clip(v, f(-4096), f(4096))).astype(np.int64)
+
+    x = np.arange(-128, 128)
+    cr = code2v(x, f(ref[4] - f(128)), f(ref[5] - f(128)), 127)
+    cb = code2v(x, f(ref[2] - f(128)), f(ref[3] - f(128)), 127)
+    half = 1 << 15
+    cr_r = (d1 * cr + half) >> 16
+    cb_b = (d3 * cb + half) >> 16
+    cr_g = d2 * cr
+    cb_g = d4 * cb + half
+    y_tab = code2v(x + 128, ref[0], ref[1], 255)
+    yy = y_tab[samples[..., 0]]
+    b_, r_ = samples[..., 1], samples[..., 2]
+    rgb = np.stack([yy + cr_r[r_], yy + ((cb_g[b_] + cr_g[r_]) >> 16),
+                    yy + cb_b[b_]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _cielab_tables():
+    """tif_color.c's TIFFCIELabToRGBInit for display_sRGB: the three
+    luminance -> value tables of 1501 floats, 255 * (i / 1500) ** (1 /
+    2.4) in double, rounded to float."""
+    i = np.arange(1501, dtype=np.float64) / 1500
+    gamma = 1.0 / float(np.float32(2.4))
+    return np.power(i, gamma).astype(np.float32) * np.float32(255)
+
+
+_SRGB = np.array([[3.2410, -1.5374, -0.4986], [-0.9692, 1.8760, 0.0416],
+                  [0.0556, -0.2040, 1.0570]], np.float32)
+
+
+def _cielab_rgb(samples: np.ndarray, bps: int, tags: dict) -> np.ndarray:
+    """CIELab (L unsigned, a and b signed; 8 or 16 bits) -> RGB by
+    libtiff's TIFFCIELab16ToXYZ and TIFFXYZToRGB for display_sRGB, each
+    step in float32 in C's order, the white from WhitePoint (D50 without
+    the tag)."""
+    f = np.float32
+    s = samples.astype(np.int64)
+    if bps == 8:        # TIFFCIELabToXYZ passes l * 257, a * 256, b * 256
+        l_, a_, b_ = s[..., 0] * 257, ((s[..., 1] ^ 128) - 128) * 256, \
+            ((s[..., 2] ^ 128) - 128) * 256
+    else:
+        l_ = s[..., 0]
+        a_ = (s[..., 1] ^ 32768) - 32768
+        b_ = (s[..., 2] ^ 32768) - 32768
+    wp = tags.get(318)
+    if wp and len(wp) >= 4:
+        white = _rationals(tags, 318, [0, 0])
+    else:
+        tot = f(f(f(96.4250) + f(100.0)) + f(82.4680))
+        white = np.array([f(96.4250) / tot, f(100.0) / tot], np.float32)
+    if white[1] == 0:
+        raise FormatError("a CIELab image of WhitePoint y 0, which libtiff "
+                          "refuses")
+    y0 = f(100)
+    x0 = f(white[0] / white[1]) * y0
+    z0 = f(f(f(1) - white[0]) - white[1]) / white[1] * y0
+    L = l_.astype(np.float32) * f(100) / f(65535)
+    small = L < f(8.856)
+    y_small = L * y0 / f(903.292)
+    cby_small = f(7.787) * (y_small / y0) + f(16) / f(116)
+    cby_big = (L + f(16)) / f(116)
+    y_big = y0 * cby_big * cby_big * cby_big
+    Y = np.where(small, y_small, y_big)
+    cby = np.where(small, cby_small, cby_big)
+
+    def part(tmp, w0):
+        return np.where(tmp < f(0.2069), w0 * (tmp - f(0.13793)) / f(7.787),
+                        w0 * tmp * tmp * tmp)
+
+    X = part(a_.astype(np.float32) / f(256) / f(500) + cby, x0)
+    Z = part(cby - b_.astype(np.float32) / f(256) / f(200), z0)
+    table = _cielab_tables()
+    step = f(f(100) - f(1)) / f(1500)
+    out = []
+    for row in _SRGB:
+        v = row[0] * X + row[1] * Y + row[2] * Z
+        v = np.minimum(np.maximum(v, f(1)), f(100))
+        i = np.minimum(np.trunc((v - f(1)) / step).astype(np.int64), 1500)
+        c = np.floor(table[i].astype(np.float64) + 0.5)
+        out.append(np.minimum(c, 255))
+    return np.stack(out, -1).astype(np.uint8)
 
 
 # ---------------------------------------------------------------------------

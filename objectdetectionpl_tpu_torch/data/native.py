@@ -195,6 +195,21 @@ def _load() -> Optional[ctypes.CDLL]:
         fn.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64,
                        ctypes.c_char_p, ctypes.c_int]
         fn.restype = ctypes.c_int
+    ci = ctypes.c_int
+    lib.tiff_fax.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64, ci,
+                             ci, ci, ci, i32p, ctypes.c_char_p, ci]
+    lib.tiff_fax.restype = ci
+    lib.tiff_thunder.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64,
+                                 ci, ctypes.c_char_p, ci]
+    lib.tiff_thunder.restype = ci
+    lib.tiff_sgilog.argtypes = [u8p, ctypes.c_int64,
+                                ctypes.POINTER(ctypes.c_uint32),
+                                ctypes.c_int64, ci, ci, ctypes.c_char_p, ci]
+    lib.tiff_sgilog.restype = ci
+    lib.jpeg_decode_tiff.argtypes = [u8p, ctypes.c_int64, u8p,
+                                     ctypes.c_int64, ci, ci, ci, ci, ci, ci,
+                                     ci, u8p, ctypes.c_char_p, ci]
+    lib.jpeg_decode_tiff.restype = ci
     lib.j2k_decode.argtypes = [u8p, ctypes.c_int64, _J2K_ALLOC, i32p,
                                ctypes.c_char_p, ctypes.c_int]
     lib.j2k_decode.restype = ctypes.c_int
@@ -445,20 +460,81 @@ def _webp_alpha(stream: bytes, w: int, h: int) -> None:
     _webp_vp8l(stream, w, h, headerless=True)
 
 
+# The TIFF codecs return (bytes, ok): ok False where libtiff's codec
+# fails the strip, the bytes then what it wrote before, zeros after.
+
 def _tiff_codec(name: str):
-    def decode(raw: bytes, size: int) -> bytes:
+    def decode(raw: bytes, size: int) -> Tuple[bytes, bool]:
         src = np.frombuffer(raw or bytes(1), np.uint8)
         dst = np.empty(max(size, 1), np.uint8)
         msg = ctypes.create_string_buffer(MSG_LEN)
-        if getattr(_lib_or_raise(), name)(_u8(src), len(raw), _u8(dst), size,
-                                          msg, MSG_LEN):
-            raise _format_error(msg)
-        return dst[:size].tobytes()
+        code = getattr(_lib_or_raise(), name)(_u8(src), len(raw), _u8(dst),
+                                              size, msg, MSG_LEN)
+        return dst[:size].tobytes(), code == JPEG_OK
     return decode
 
 
-_tiff_lzw = _tiff_codec("tiff_lzw")
-_tiff_packbits = _tiff_codec("tiff_packbits")
+def _tiff_fax(raw: bytes, rows: int, width: int, kind: int, options: int,
+              fill_order: int, state: dict) -> Tuple[bytes, bool]:
+    """``state`` carries libtiff's fax mode from strip to strip of one
+    image (``noeol``)."""
+    src = np.frombuffer(raw or bytes(1), np.uint8)
+    size = rows * ((width + 7) // 8)
+    dst = np.empty(max(size, 1), np.uint8)
+    noeol = np.array([int(state.get("noeol", 0))], np.int32)
+    msg = ctypes.create_string_buffer(MSG_LEN)
+    code = _lib_or_raise().tiff_fax(_u8(src), len(raw), _u8(dst), rows,
+                                    width, kind, options, fill_order,
+                                    _i32(noeol), msg, MSG_LEN)
+    state["noeol"] = int(noeol[0])
+    return dst[:size].tobytes(), code == JPEG_OK
+
+
+def _tiff_jpeg(tables: bytes, raw: bytes, w: int, h: int, comps: int,
+               to_rgb: bool, hs: int, vs: int,
+               taller_ok: bool) -> Tuple[bytes, bool]:
+    """One JPEG strip or tile of a TIFF -> its samples (RGB with
+    ``to_rgb``), by ``csrc/jpeg_decode.cc::jpeg_decode_tiff``; raises
+    where libtiff fails before the strip's buffer exists (the stream's
+    header, its frame against the TIFF's)."""
+    t = np.frombuffer(tables or bytes(1), np.uint8)
+    src = np.frombuffer(raw or bytes(1), np.uint8)
+    out = np.empty(w * h * (3 if to_rgb else comps), np.uint8)
+    msg = ctypes.create_string_buffer(MSG_LEN)
+    if _lib_or_raise().jpeg_decode_tiff(
+            _u8(t), len(tables), _u8(src), len(raw), int(to_rgb), w, h,
+            comps, hs, vs, int(taller_ok), _u8(out), msg, MSG_LEN):
+        raise _format_error(msg)
+    return out.tobytes(), True
+
+
+def _tiff_thunder(raw: bytes, rows: int, width: int) -> Tuple[bytes, bool]:
+    src = np.frombuffer(raw or bytes(1), np.uint8)
+    size = rows * ((width + 1) // 2)
+    dst = np.empty(max(size, 1), np.uint8)
+    msg = ctypes.create_string_buffer(MSG_LEN)
+    code = _lib_or_raise().tiff_thunder(_u8(src), len(raw), _u8(dst), rows,
+                                        width, msg, MSG_LEN)
+    return dst[:size].tobytes(), code == JPEG_OK
+
+
+def _tiff_sgilog(raw: bytes, rows: int, width: int,
+                 nbytes: int) -> Tuple[np.ndarray, bool]:
+    """SGILog rows -> uint32 [rows * width] LogL (nbytes 2) or LogLuv
+    (4) values."""
+    src = np.frombuffer(raw or bytes(1), np.uint8)
+    dst = np.empty(max(rows * width, 1), np.uint32)
+    msg = ctypes.create_string_buffer(MSG_LEN)
+    code = _lib_or_raise().tiff_sgilog(
+        _u8(src), len(raw), dst.ctypes.data_as(ctypes.POINTER(
+            ctypes.c_uint32)), rows, width, nbytes, msg, MSG_LEN)
+    return dst[:rows * width], code == JPEG_OK
+
+
+TIFF_CODECS = {"lzw": _tiff_codec("tiff_lzw"),
+               "packbits": _tiff_codec("tiff_packbits"),
+               "fax": _tiff_fax, "jpeg": _tiff_jpeg,
+               "thunder": _tiff_thunder, "sgilog": _tiff_sgilog}
 
 
 # int32* alloc(ncomp, h, w): the decoder's output buffer, null if none
@@ -555,7 +631,7 @@ def decode_image(path: str, exif: bool = True) -> np.ndarray:
                 data, _webp_vp8, _webp_vp8l, _webp_alpha, _exif_orientation)
             return orient(img, orientation) if exif else img
         if kind == "TIFF":
-            return formats.read_tiff(data, _tiff_lzw, _tiff_packbits)
+            return formats.read_tiff(data, TIFF_CODECS)
         if kind == "JPEG 2000":
             return formats.read_jp2(data, _j2k_decode)
         if kind == "GIF":

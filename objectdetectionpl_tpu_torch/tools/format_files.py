@@ -12,7 +12,15 @@ its scan data; a lossless JPEG (predictor 6, restart markers); PNGs (RGB
 named ``.jpg``); BMPs (24-bit, RLE8); the committed WebP files, which
 cv2.imwrite wrote (VP8 at quality 75, VP8L, VP8X with a lossless-coded
 ALPH chunk); TIFFs (RGB LZW strips with predictor 2, Deflate tiles, an
-8-bit palette in PackBits and MM order, 16-bit RGB LZW in a BigTIFF); the
+8-bit palette in PackBits and MM order, 16-bit RGB LZW in a BigTIFF, and
+``tiff_kinds``: JPEG compression of the 500x375 fixture split into
+JPEGTables and a strip and of the CMYK fixture, YCbCr in 2x2 units and in
+clipped 4x4 tiles, CMYK, CIELab, FillOrder 2, old-style LZW, a
+ThunderScan palette, signed samples; and the committed files libtiff
+wrote: JPEG YCbCr strips and tiles, CCITT Group 3 2-D, Group 4 and RLE,
+SGILog LogLuv and LogL,
+``tests/test_torch_port_tiff.py::test_committed_tiff_fixtures`` their
+recipe); the
 committed JPEG 2000 files (cv2's writes of the 500x375 fixture at rate
 x1000 25 and lossless; Pillow's tiled three-layer 9/7 JP2, its RPCL J2K
 codestream with 32x32 precincts and 16x16 code-blocks and its 16-bit
@@ -29,17 +37,22 @@ machine, so the SHA-256 of each one's decode
 port) checks the port's reader wherever it runs.
 
 ``png_bytes``, ``chunk``, ``bmp_bytes``, ``lossless_jpeg_bytes``,
-``tiff_bytes``, ``gif_bytes``, ``sun_bytes``, ``hdr_bytes`` and
-``jp2_bytes`` are the writers: PNG of any colour type, bit depth and
+``tiff_bytes``, ``jpeg_tiff_bytes``, ``thunderscan_bytes``,
+``gif_bytes``, ``sun_bytes``, ``hdr_bytes`` and ``jp2_bytes`` are the
+writers: PNG of any colour type, bit depth and
 interlace, each row with a filter of its own (None, Sub, Up, Average,
 Paeth in turn); BMP of BI_RGB, BI_BITFIELDS or RLE rows; lossless JPEG
 of any predictor, point transform, restart interval and sampling; TIFF
-of any layout, compression and sample kind the port reads; GIF of any
+of any layout, compression and sample kind the port writes (YCbCr data
+units, FillOrder 2, old-style LZW, strips given as stored); JPEG
+compression from a baseline JPEG; ThunderScan codes; GIF of any
 screen, colour tables, frames (``gif_image``: offset, interlace,
 transparency, disposal, minimum code size, a deferred clear); Sun raster
 of any depth, type and colour map, byte-encoded when asked; Radiance HDR
 of RLE or flat scanlines under any header and resolution line; the JP2
 boxes (ihdr, colr, pclr, cmap, cdef) around a J2K codestream.
+``idct_case`` is the reduced IDCTs' damaged JPEG, ``IDCT_HASHES`` cv2's
+decodes of it at 1/1, 1/2, 1/4 and 1/8.
 """
 
 from __future__ import annotations
@@ -69,7 +82,12 @@ KINDS = ("jpeg", "jpeg_cmyk", "jpeg_ycck", "jpeg_arithmetic",
          "tiff_lzw", "tiff_deflate_tiled", "tiff_palette", "tiff_16bit",
          "jp2_lossy", "jp2_lossless", "jp2_tiles_layers", "j2k_rpcl_precincts",
          "j2k_styles", "jp2_grey16", "gif", "gif_interlaced_offset", "ppm",
-         "pgm_ascii16", "pam", "pfm", "ras_rgb24", "ras_map8", "hdr")
+         "pgm_ascii16", "pam", "pfm", "ras_rgb24", "ras_map8", "hdr",
+         "tiff_jpeg_ycbcr", "tiff_jpeg_strips", "tiff_jpeg_tiles",
+         "tiff_jpeg_cmyk", "tiff_ycbcr", "tiff_ycbcr_44_tiles", "tiff_cmyk",
+         "tiff_cielab", "tiff_g3_2d", "tiff_g4", "tiff_ccitt_rle",
+         "tiff_fillorder2", "tiff_lzw_old", "tiff_thunderscan",
+         "tiff_signed", "tiff_logluv", "tiff_logl")
 COMMITTED = {"jpeg": TESTDATA / BASE,
              "jpeg_cmyk": TESTDATA / UNSUPPORTED[0],
              "jpeg_ycck": FORMATS / "ycck_420_q85_160x120.jpg",
@@ -84,7 +102,15 @@ COMMITTED = {"jpeg": TESTDATA / BASE,
              "jp2_tiles_layers": FORMATS / "jp2_tiles_layers_160x120.jp2",
              "j2k_rpcl_precincts": FORMATS / "j2k_rpcl_precincts_160x120.j2k",
              "j2k_styles": FORMATS / "j2k_styles_sop_eph_tileparts_128x96.j2k",
-             "jp2_grey16": FORMATS / "jp2_grey16_160x120.jp2"}
+             "jp2_grey16": FORMATS / "jp2_grey16_160x120.jp2",
+             "tiff_jpeg_strips":
+                 FORMATS / "tiff_jpeg_ycbcr_strips_160x120.tif",
+             "tiff_jpeg_tiles": FORMATS / "tiff_jpeg_tiles_160x120.tif",
+             "tiff_g3_2d": FORMATS / "tiff_g3_2d_fill_160x120.tif",
+             "tiff_g4": FORMATS / "tiff_g4_160x120.tif",
+             "tiff_ccitt_rle": FORMATS / "tiff_ccitt_rle_lsb_160x120.tif",
+             "tiff_logluv": FORMATS / "tiff_sgilog_logluv_54x40.tif",
+             "tiff_logl": FORMATS / "tiff_sgilog_logl_54x40.tif"}
 
 
 def chunk(ctype: bytes, body: bytes) -> bytes:
@@ -315,16 +341,26 @@ def lossless_jpeg_bytes(planes, psv: int = 1, al: int = 0,
 # ---------------------------------------------------------------------------
 # TIFF
 
-def lzw_encode(data: bytes) -> bytes:
+def lzw_encode(data: bytes, old: bool = False) -> bytes:
     """TIFF LZW (MSB first, 9 to 12-bit codes widened as libtiff's
     decoder expects, a Clear code first and when the table is full, EOI
-    last)."""
+    last); with ``old`` the old LSB-first kind that libtiff reads through
+    LZWDecodeCompat, codes widened one entry later."""
     out, acc, nacc = bytearray(), 0, 0
     width, table = 9, {bytes([i]): i for i in range(256)}
     nxt = 258
+    late = int(old)
 
     def put(code):
         nonlocal acc, nacc
+        if old:
+            acc |= code << nacc
+            nacc += width
+            while nacc >= 8:
+                out.append(acc & 0xFF)
+                acc >>= 8
+                nacc -= 8
+            return
         acc = acc << width | code
         nacc += width
         while nacc >= 8:
@@ -342,7 +378,7 @@ def lzw_encode(data: bytes) -> bytes:
         put(table[w])
         table[w + c] = nxt
         nxt += 1
-        if nxt == 1 << width and width < 12:
+        if nxt == (1 << width) + late and width < 12:
             width += 1
         if nxt == 4094:
             put(256)
@@ -352,11 +388,11 @@ def lzw_encode(data: bytes) -> bytes:
     if w:
         put(table[w])
         nxt += 1
-        if nxt == 1 << width and width < 12:
+        if nxt == (1 << width) + late and width < 12:
             width += 1
     put(257)
     if nacc:
-        out.append(acc << (8 - nacc) & 0xFF)
+        out.append(acc & 0xFF if old else acc << (8 - nacc) & 0xFF)
     return bytes(out)
 
 
@@ -380,23 +416,47 @@ def packbits_encode(data: bytes) -> bytes:
     return bytes(out)
 
 
-_TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 16: "Q"}
+_TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 7: "B", 16: "Q"}
+_REVERSED_BITS = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
+                          np.uint8)
+
+
+def _ycbcr_units(block: np.ndarray, hs: int, vs: int) -> bytes:
+    """[rows, cols, 3] Y, Cb, Cr -> TIFF's packed data units of hs x vs
+    luma samples, then Cb and Cr of the unit's first pixel; the last
+    units repeat the block's last row and column."""
+    rows, cols = block.shape[:2]
+    uy, ux = -(-rows // vs), -(-cols // hs)
+    pad = np.pad(block, ((0, uy * vs - rows), (0, ux * hs - cols), (0, 0)),
+                 mode="edge").astype(np.uint8)
+    y = pad[..., 0].reshape(uy, vs, ux, hs).transpose(0, 2, 1, 3)
+    chroma = pad[::vs, ::hs, 1:]
+    units = np.concatenate([y.reshape(uy, ux, hs * vs), chroma], -1)
+    return units.tobytes()
 
 
 def tiff_bytes(samples, bits: int = 8, photometric: int = 2,
                compression: int = 1, predictor: int = 1, planar: int = 1,
                rows_per_strip=None, tile=None, big_endian: bool = False,
                bigtiff: bool = False, extra_samples=None, colormap=None,
-               orientation=None, pages=1, extra_tags=None) -> bytes:
+               orientation=None, pages=1, extra_tags=None,
+               ycbcr_subsampling=None, old_lzw: bool = False,
+               fill_order: int = 1, chunks=None) -> bytes:
     """samples [H, W, C] (ints at ``bits`` bits) -> a TIFF: strips of
     ``rows_per_strip`` rows (default all) or ``tile`` (w, h) tiles,
-    chunky (planar 1) or planar (2), compression 1, 5 (LZW), 8 / 32946
-    (Deflate) or 32773 (PackBits), predictor 2 (horizontal differencing
-    at 8 and 16 bits), MM or II byte order, classic or BigTIFF, with
-    ExtraSamples, a ColorMap (3 x 2**bits 16-bit entries), an
-    Orientation, and ``pages`` copies of the IFD (each page's pixels
-    inverted).  ``extra_tags`` {tag: (type, [values])} adds or replaces
-    entries."""
+    chunky (planar 1) or planar (2), compression 1, 5 (LZW; the old
+    LSB-first kind with ``old_lzw``), 8 / 32946 (Deflate) or 32773
+    (PackBits), predictor 2 (horizontal differencing at 8 and 16 bits),
+    MM or II byte order, classic or BigTIFF, with ExtraSamples, a
+    ColorMap (3 x 2**bits 16-bit entries), an Orientation, and ``pages``
+    copies of the IFD (each page's pixels inverted).  With
+    ``ycbcr_subsampling`` (h, v) the 3 samples (Y, Cb, Cr) are packed in
+    data units of h x v luma samples and the Cb and Cr of the unit's first
+    pixel (edge units repeat their last row and column), YCbCrSubsampling
+    written; ``fill_order`` 2 writes each compressed byte's bits reversed
+    and the FillOrder tag.  ``chunks`` gives the first page's strips or
+    tiles as stored (``samples`` then gives only the shape).
+    ``extra_tags`` {tag: (type, [values])} adds or replaces entries."""
     samples = np.asarray(samples, np.int64)
     h, w, spp = samples.shape
     e = ">" if big_endian else "<"
@@ -405,6 +465,8 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2,
     def rows_bytes(block):
         """[rows, cols, c] -> packed rows (predictor applied)."""
         block = block.copy()
+        if ycbcr_subsampling:
+            return _ycbcr_units(block, *ycbcr_subsampling)
         if predictor == 2:
             block[:, 1:] = block[:, 1:] - block[:, :-1]
             block &= (1 << bits) - 1
@@ -413,8 +475,14 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2,
         return b"".join(pack(r, bits) for r in block)
 
     def compress(raw: bytes) -> bytes:
+        if fill_order == 2:
+            return bytes(_REVERSED_BITS[np.frombuffer(
+                compress_msb(raw), np.uint8)])
+        return compress_msb(raw)
+
+    def compress_msb(raw: bytes) -> bytes:
         if compression == 5:
-            return lzw_encode(raw)
+            return lzw_encode(raw, old_lzw)
         if compression in (8, 32946):
             return zlib.compress(raw)
         if compression == 32773:
@@ -448,9 +516,10 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2,
     link_at = None                           # where the previous IFD links
     for page in range(pages):
         img = samples if page == 0 else (1 << bits) - 1 - samples
-        chunks = page_chunks(img)
+        stored = chunks if chunks is not None and page == 0 \
+            else page_chunks(img)
         offsets = []
-        for c in chunks:
+        for c in stored:
             offsets.append(len(out))
             out += c + bytes(len(c) & 1)
         tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
@@ -459,11 +528,11 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2,
         if tile:
             tags.update({322: (4, [tile[0]]), 323: (4, [tile[1]]),
                          324: (16 if bigtiff else 4, offsets),
-                         325: (4, [len(c) for c in chunks])})
+                         325: (4, [len(c) for c in stored])})
         else:
             tags.update({273: (16 if bigtiff else 4, offsets),
                          278: (4, [rows_per_strip or h]),
-                         279: (4, [len(c) for c in chunks])})
+                         279: (4, [len(c) for c in stored])})
         if predictor != 1:
             tags[317] = (3, [predictor])
         if extra_samples is not None:
@@ -472,19 +541,26 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2,
             tags[320] = (3, list(np.asarray(colormap).reshape(-1)))
         if orientation is not None:
             tags[274] = (3, [orientation])
+        if ycbcr_subsampling:
+            tags[530] = (3, list(ycbcr_subsampling))
+        if fill_order != 1:
+            tags[266] = (3, [fill_order])
         tags.update(extra_tags or {})
         # the values that do not fit in the entry go before the IFD
         inline = 8 if bigtiff else 4
         entries = []
         for tag in sorted(tags):
             typ, vals = tags[tag]
-            raw = struct.pack(e + _TIFF_TYPES[typ] * len(vals), *vals) \
+            # RATIONAL values come as numerator, denominator pairs
+            count = len(vals) // 2 if typ == 5 else len(vals)
+            raw = struct.pack(e + "I" * len(vals) if typ == 5 else
+                              e + _TIFF_TYPES[typ] * len(vals), *vals) \
                 if typ != 2 else bytes(vals)
             if len(raw) > inline:
                 at = len(out)
                 out += raw + bytes(len(raw) & 1)
                 raw = struct.pack(e + off_fmt, at)
-            entries.append((tag, typ, len(vals), raw.ljust(inline, b"\0")))
+            entries.append((tag, typ, count, raw.ljust(inline, b"\0")))
         ifd_at = len(out)
         if link_at is not None:
             out[link_at:link_at + inline] = struct.pack(e + off_fmt, ifd_at)
@@ -497,6 +573,121 @@ def tiff_bytes(samples, bits: int = 8, photometric: int = 2,
                                count) + raw
         link_at = len(out)
         out += bytes(inline)
+    return bytes(out)
+
+
+def _ycbcr_of(rgb: np.ndarray) -> np.ndarray:
+    """uint8 RGB -> Y, Cb, Cr bytes by the JFIF formulas, rounded."""
+    r, g, b = (rgb[..., i].astype(np.float64) for i in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    ycc = np.stack([y, (b - y) / 1.772 + 128, (r - y) / 1.402 + 128], -1)
+    return np.clip(np.round(ycc), 0, 255).astype(np.int64)
+
+
+def tiff_kinds(jpeg: bytes, small: np.ndarray) -> Dict[str, bytes]:
+    """The TIFFs of ``KINDS`` that libtiff's other photometrics and codecs
+    make, from a baseline JPEG and its pixels cut to ``small``: JPEG
+    compression (the JPEG split into JPEGTables and a strip; the CMYK
+    fixture), YCbCr of the JFIF formulas in 2x2 units and in clipped 4x4
+    tiles, CMYK as 255 - RGB with K their minimum, CIELab bytes from the
+    RGB bytes (any bytes are L, a and b), FillOrder 2, old-style LZW,
+    ThunderScan under a 4-bit palette, signed samples."""
+    ycc = _ycbcr_of(small)
+    cmy = 255 - small.astype(np.int64)
+    k = cmy.min(-1, keepdims=True)
+    return {
+        "tiff_jpeg_ycbcr": jpeg_tiff_bytes(jpeg),
+        "tiff_jpeg_cmyk": jpeg_tiff_bytes(
+            (TESTDATA / UNSUPPORTED[0]).read_bytes(), photometric=5),
+        "tiff_ycbcr": tiff_bytes(ycc, photometric=6, compression=5,
+                                 ycbcr_subsampling=(2, 2),
+                                 rows_per_strip=16),
+        "tiff_ycbcr_44_tiles": tiff_bytes(
+            ycc, photometric=6, compression=8, ycbcr_subsampling=(4, 4),
+            tile=(32, 32), extra_tags={532: (5, [16, 1, 235, 1, 128, 1,
+                                                 240, 1, 128, 1, 240, 1])}),
+        "tiff_cmyk": tiff_bytes(np.concatenate([cmy - k, k], -1),
+                                photometric=5, compression=8, predictor=2),
+        "tiff_cielab": tiff_bytes(small, photometric=8, compression=32773,
+                                  rows_per_strip=32),
+        "tiff_fillorder2": tiff_bytes(small, compression=5, predictor=2,
+                                      fill_order=2, rows_per_strip=24),
+        "tiff_lzw_old": tiff_bytes(small, compression=5, old_lzw=True,
+                                   rows_per_strip=40),
+        "tiff_thunderscan": tiff_bytes(
+            small[..., 1:2] >> 4, bits=4, photometric=3,
+            colormap=np.stack([np.arange(16) * 17, 255 - np.arange(16) * 17,
+                               np.arange(16) * 9]) * 257,
+            chunks=[thunderscan_bytes(small[..., 1] >> 4)],
+            extra_tags={259: (3, [32809])}),
+        "tiff_signed": tiff_bytes(small, compression=32773,
+                                  extra_tags={339: (3, [2, 2, 2])}),
+    }
+
+
+def jpeg_tiff_bytes(jpeg: bytes, photometric: int = 6,
+                    extra_tags=None) -> bytes:
+    """A baseline JPEG -> a TIFF of JPEG compression (7) with one strip:
+    its DQT and DHT segments moved into a JPEGTables stream (SOI, the
+    tables, EOI; tag 347) and the rest, an abbreviated stream, as the
+    strip; ``photometric`` 6 (YCbCr, with YCbCrSubsampling from the frame's
+    component 0), 2, 1 or 5 as the samples mean."""
+    segs = jpeg_segments(jpeg)
+    tables = b"".join(jpeg[a:b] for m, a, b in segs if m in (0xC4, 0xDB))
+    strip = jpeg[:2] + b"".join(jpeg[a:b] for m, a, b in segs
+                                if m not in (0xC4, 0xDB)) + \
+        jpeg[segs[-1][2]:]
+    sof = next(a for m, a, b in segs if m in (0xC0, 0xC1))
+    h, w = struct.unpack(">HH", jpeg[sof + 5:sof + 9])
+    ncomp = jpeg[sof + 9]
+    tags = {347: (7, list(b"\xff\xd8" + tables + b"\xff\xd9"))}
+    if photometric == 6:
+        tags[530] = (3, [jpeg[sof + 11] >> 4, jpeg[sof + 11] & 15])
+    tags.update(extra_tags or {})
+    return tiff_bytes(np.zeros((h, w, ncomp), np.int64), compression=7,
+                      photometric=photometric, chunks=[strip],
+                      extra_tags=tags)
+
+
+def thunderscan_bytes(pixels) -> bytes:
+    """[H, W] 4-bit pixels -> ThunderScan data (tif_thunder.c's codes),
+    each row coded alone from a last pixel of 0: a run of the last pixel
+    (up to 63), else three 2-bit or two 3-bit deltas where they reach the
+    next pixels (a skip code where a row ends first), else a raw
+    pixel."""
+    out = bytearray()
+    two = {0: 0, 1: 1, -1: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    for row in np.asarray(pixels, np.int64):
+        last, i, n = 0, 0, len(row)
+        while i < n:
+            run = 0
+            while i + run < n and run < 63 and row[i + run] == last:
+                run += 1
+            if run >= 2:
+                out.append(run)
+                i += run
+                continue
+            nxt = list(row[i:i + 3])
+            d, prev = [], last
+            for v in nxt:
+                d.append(int(v) - int(prev))
+                prev = v
+            if len(d) >= 2 and all(x in two for x in d[:3]):
+                codes = [two[x] for x in d[:3]] + [2] * (3 - len(d[:3]))
+                out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+                i += len(d[:3])
+                last = int(row[i - 1])
+                continue
+            if all(x in three for x in d[:2]):
+                codes = [three[x] for x in d[:2]] + [4] * (2 - len(d[:2]))
+                out.append(0x80 | codes[0] << 3 | codes[1])
+                i += len(d[:2])
+                last = int(row[i - 1])
+                continue
+            out.append(0xC0 | int(row[i]))
+            last = int(row[i])
+            i += 1
     return bytes(out)
 
 
@@ -810,6 +1001,7 @@ def write_format_files(directory) -> Dict[str, str]:
         "tiff_16bit": tiff_bytes(small.astype(np.int64) * 257, bits=16,
                                  compression=5, predictor=2, bigtiff=True),
     }
+    tiffs.update(tiff_kinds(base, small))
     for kind, data in tiffs.items():
         paths[kind] = d / f"{kind}.tiff"
         paths[kind].write_bytes(data)
@@ -975,6 +1167,19 @@ def header_cases() -> Dict[str, bytes]:
         "ac_first_scan_as_refinement": _at(prog, ahal(scans[2]), b"\x10",
                                            1),
     }
+
+
+# The reduced IDCTs on out-of-range coefficients: the 640x480 fixture's
+# luma scan decoded with the chroma tables (its SOS byte at sos + 6 set to
+# 0x11): bad Huffman codes, huge coefficients.  cv2's decodes at 1/1, 1/2,
+# 1/4 and 1/8 are recorded for the card machine, which has no cv2.
+IDCT_HASHES = FORMATS / "idct_sha256.json"
+
+
+def idct_case() -> bytes:
+    coco = (TESTDATA / COCO).read_bytes()
+    sos = next(s for m, s, _ in jpeg_segments(coco) if m == 0xDA)
+    return _at(coco, sos + 6, b"\x11", 1)
 
 
 def write_header_cases(directory) -> Dict[str, str]:

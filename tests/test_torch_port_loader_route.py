@@ -11,11 +11,16 @@ have some images replaced by: the committed CMYK fixture (which the fused
 call refuses), a file cut at half its bytes and a bit-flipped one (which
 it decodes), a PNG named ``.jpg``, a 500x375 copy with EXIF Orientation
 6, a lossless JPEG (which JAX's libjpeg 2.1 refuses on the fused route and
-cv2 reads), a VP8 and a VP8L WebP, an LZW TIFF, and one file of each
+cv2 reads), a VP8 and a VP8L WebP, an LZW TIFF, one file of each
 format the port reads since (cv2's writes of a JP2, a GIF, a PPM, a PAM,
 a PFM, a Sun raster and a Radiance HDR, and a committed J2K codestream),
-named ``.jpg`` in the VOC tree and the VP8, TIFF, JP2, J2K, GIF, PAM and
-Sun raster files by their own extension in the COCO tree.
+and one TIFF of each kind of ``format_files.tiff_kinds`` and the
+committed JPEG, fax and SGILog TIFFs (JPEG compression in a strip,
+strips and tiles, YCbCr, CMYK, CIELab, CCITT RLE, Group 3 and Group 4,
+FillOrder 2, old-style LZW, ThunderScan, signed samples, LogLuv and
+LogL), named ``.jpg`` in the VOC tree and the VP8, TIFF, JP2, J2K, GIF,
+PAM and Sun raster files and half of the newer TIFFs by their own
+extension in the COCO tree.
 
 - The port's batches equal JAX's bit for bit, epoch after epoch; the port
   counts its fused and parser batches, and every batch holding the CMYK
@@ -89,13 +94,33 @@ def _replacements():
         7: format_files.COMMITTED["webp_lossy"].read_bytes(),
         11: format_files.COMMITTED["webp_lossless"].read_bytes(),
         14: tiff_bytes(small, compression=5, predictor=2, rows_per_strip=8),
+        **{24 + i: data for i, data in enumerate(_tiff_kinds(voc, small))},
     }
+
+
+def _tiff_kinds(voc: bytes, small: np.ndarray):
+    """The TIFFs of JPEG compression, YCbCr, CMYK, CIELab, CCITT fax,
+    FillOrder 2, old-style LZW, ThunderScan and signed samples, as
+    ``format_files`` makes them."""
+    made = format_files.tiff_kinds(voc, small)
+    committed = {k: format_files.COMMITTED[k].read_bytes()
+                 for k in TIFF_COMMITTED}
+    return [{**made, **committed}[k] for k in TIFF_KINDS]
+
+
+TIFF_COMMITTED = ("tiff_jpeg_strips", "tiff_jpeg_tiles", "tiff_g3_2d",
+                  "tiff_g4", "tiff_ccitt_rle", "tiff_logluv", "tiff_logl")
+TIFF_KINDS = ("tiff_jpeg_ycbcr", "tiff_jpeg_cmyk", "tiff_ycbcr",
+              "tiff_ycbcr_44_tiles", "tiff_cmyk", "tiff_cielab",
+              "tiff_fillorder2", "tiff_lzw_old", "tiff_thunderscan",
+              "tiff_signed") + TIFF_COMMITTED
 
 
 # the slots whose file keeps its own extension in the COCO tree (the VOC
 # tree names every file .jpg)
 OWN_NAME = {7: ".webp", 14: ".tiff", 16: ".jp2", 17: ".j2k", 18: ".gif",
-            20: ".pam", 22: ".ras"}
+            20: ".pam", 22: ".ras",
+            **{24 + i: ".tif" for i in range(0, len(TIFF_KINDS), 2)}}
 
 
 def _replace(paths, rename=False):
@@ -116,7 +141,7 @@ def _replace(paths, rename=False):
 @pytest.fixture(scope="module")
 def mixed_voc(tmp_path_factory):
     root = fixture_trees.write_voc_tree(tmp_path_factory.mktemp("voc"),
-                                        n_train=40, n_val=4, seed=3)
+                                        n_train=80, n_val=4, seed=3)
     _replace(sorted((Path(root) / "VOC2012" / "JPEGImages").iterdir()))
     return root
 
@@ -124,7 +149,7 @@ def mixed_voc(tmp_path_factory):
 @pytest.fixture(scope="module")
 def mixed_coco(tmp_path_factory):
     root = fixture_trees.write_coco_tree(tmp_path_factory.mktemp("coco"),
-                                         n_train=40, n_val=4, seed=4)
+                                         n_train=80, n_val=4, seed=4)
     ann_path = Path(root) / "annotations" / "instances_train2017.json"
     ann = json.loads(ann_path.read_text())
     image_dir = Path(root) / "images" / "train2017"
@@ -154,10 +179,10 @@ def test_batches_and_routes_equal_jax(mixed_voc, mixed_coco, jax_library,
     odd = {port.parser.record(i)[0] for i in range(len(port.parser))
            if native.decode_preproc_codes([port.parser.record(i)[0]], S,
                                           False, max_denom=8)[-1][0]}
-    # the CMYK file, the PNG, the lossless JPEG, both WebPs, the TIFF, the
+    # the CMYK file, the PNG, the lossless JPEG, both WebPs, the TIFFs, the
     # JP2, the J2K codestream, the GIF, the PPM, the PAM, the PFM, the Sun
     # raster and the Radiance HDR
-    assert len(odd) == 14
+    assert len(odd) == 14 + len(TIFF_KINDS)
     # batches holding one of them take the parser route, the others fused
     n_odd = 0
     for epoch in range(2):

@@ -32,7 +32,11 @@
 - The same against JAX on one file of each kind ``NEW_KINDS``: a lossless
   JPEG, VP8, VP8L and VP8X+ALPH WebPs, LZW, Deflate-tiled, palette and
   16-bit TIFFs (``tools/format_files.py``), at seed 47, the one of 13..55
-  whose margins hold on them.
+  whose margins hold on them; one file of each newer format at seed 45,
+  and a TIFF of each kind ``TIFF_KINDS`` (JPEG compression, YCbCr,
+  CMYK, CIELab, CCITT fax, FillOrder 2, old-style LZW, ThunderScan,
+  signed samples, SGILog) at seed 15, the first of 13..55 whose margins
+  hold.
 - ``main`` end to end on a port checkpoint, over every decodable fixture
   (progressive and 1280x720 ones too): one JSON line per image equal to
   ``predict_images`` on the restored state, one PNG panel per image.
@@ -176,16 +180,28 @@ NEW_KIND_SEEDS = (47,)
 NEWER_KINDS = ("jp2_lossy", "j2k_styles", "gif_interlaced_offset", "ppm",
                "pam", "pfm", "ras_map8", "hdr")
 NEWER_KIND_SEEDS = (45,)
+# one TIFF of each kind of JPEG compression, photometric and codec read
+# since (JPEG in a strip, strips and tiles, JPEG CMYK, YCbCr units, CMYK,
+# CIELab, CCITT RLE, Group 3 and Group 4, FillOrder 2, old-style LZW,
+# ThunderScan, signed samples, SGILog), at seed 15, the first of 13..55
+# whose margins hold on them (45 and 47 do not)
+TIFF_KINDS = ("tiff_jpeg_ycbcr", "tiff_jpeg_strips", "tiff_jpeg_tiles",
+              "tiff_jpeg_cmyk", "tiff_ycbcr", "tiff_ycbcr_44_tiles",
+              "tiff_cmyk", "tiff_cielab", "tiff_g3_2d", "tiff_g4",
+              "tiff_ccitt_rle", "tiff_fillorder2", "tiff_lzw_old",
+              "tiff_thunderscan", "tiff_signed", "tiff_logluv", "tiff_logl")
+TIFF_KIND_SEEDS = (15,)
 
 
 def test_predict_new_formats_equal_jax(tmp_path, monkeypatch):
-    """``predict_images`` on a lossless JPEG, WebPs, TIFFs and a file of
+    """``predict_images`` on a lossless JPEG, WebPs, TIFFs, a file of
     each newer format (JPEG 2000, GIF, PNM, PAM, PFM, Sun raster,
-    Radiance HDR) against the JAX CLI's chain on its cv2 decodes, as for
-    the baseline fixtures."""
+    Radiance HDR) and a TIFF of each newer kind against the JAX CLI's
+    chain on its cv2 decodes, as for the baseline fixtures."""
     paths = format_files.write_format_files(tmp_path / "formats")
     for n, (kinds, seeds) in enumerate(((NEW_KINDS, NEW_KIND_SEEDS),
-                                        (NEWER_KINDS, NEWER_KIND_SEEDS))):
+                                        (NEWER_KINDS, NEWER_KIND_SEEDS),
+                                        (TIFF_KINDS, TIFF_KIND_SEEDS))):
         _assert_predict_equals_jax(tmp_path / str(n), monkeypatch,
                                    [paths[k] for k in kinds], seeds)
 
