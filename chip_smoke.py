@@ -604,7 +604,7 @@ TRAINER_COCO_SETS = {**REAL_SETS, "data_module": "COCO",
                      "img_size": "640"}
 JPEG_REPEAT = 32          # decode_batch timing: the fixtures x 32
 FORMATS_DECODE_REPS = 10  # host decode timing of each format file: median
-# the formats fit: train ids the baseline JPEG, test ids every kind (54),
+# the formats fit: train ids the baseline JPEG, test ids every kind (59),
 # in two whole test batches of B=32 (the Loader drops a partial one)
 FORMATS_TREE = {"n_train": 160, "n_val": 64, "seed": 6}
 # trainer_bdd_ssd: SSD-300 on a BDD100K tree of the 1280x720 frames, half

@@ -5,9 +5,12 @@
 //
 // - main and tile-part headers: SIZ, COD/COC, QCD/QCC (no quantisation,
 //   scalar derived, scalar expounded; guard bits), RGN (max-shift), POC,
-//   PPM, PPT, SOT/SOD over any number of tile-parts; TLM, PLM, PLT, CRG
-//   and COM checked by their lengths and skipped; each marker held to
+//   PPM, PPT, SOT/SOD over any number of tile-parts; Part 2's CBD (bit
+//   depths) and MCT, MCC and MCO as OpenJPEG takes them (the DC level
+//   shifts from an offset array); TLM, PLM, PLT, CRG, COM and Part 15's
+//   CAP and CPF checked by their lengths and skipped; each marker held to
 //   OpenJPEG's lengths and places, unknown ones skipped as it skips them;
+//   HT code-blocks (HTJ2K) refused;
 // - tier 2: the five progression orders and POC as OpenJPEG's packet
 //   iterator walks them (pi.c), precincts, the inclusion and zero
 //   bit-plane tag trees, pass counts, Lblock, segments of every code-block
@@ -24,8 +27,8 @@
 //   coefficients, the irreversible one scales them by half the step size
 //   in float), the inverse 5/3 DWT in integers and the 9/7 in float in
 //   OpenJPEG's order and constants (rows, then columns; its 2/K high-pass
-//   gain), the inverse RCT or ICT, the DC level shift with lrintf and the
-//   clamp to the component's range.
+//   gain), the inverse RCT or ICT, the DC level shift (SIZ's, or an MCO's)
+//   with lrintf and the clamp to the component's range.
 //
 // The float steps are plain adds and multiplies in OpenJPEG's order, kept
 // from being contracted into FMAs under -march=native (cv2's OpenJPEG
@@ -87,6 +90,7 @@ struct Tccp {                   // a component's coding style and quantisation
   int csty = 0, numres = 6, cbw = 6, cbh = 6, cblksty = 0, qmfbid = 1;
   int prcw[kMaxRes], prch[kMaxRes];
   int qntsty = 0, numgbits = 2, roishift = 0;
+  int32_t dc_shift = 0;         // added after the inverse transforms
   int expn[kMaxBands], mant[kMaxBands];
   Tccp() {
     std::fill(prcw, prcw + kMaxRes, 15);
@@ -117,7 +121,7 @@ int marker_places(uint32_t m) {
       return kMain | kTilePart;
     case 0xff90: case 0xff55: case 0xff57:      // SOT, TLM, PLM
     case 0xff60: case 0xff63: case 0xff78:      // PPM, CRG, CBD
-    case 0xff50: case 0xff59:                   // CAP, CPF
+    case 0xff50: case 0xff59:                   // CAP, CPF (Part 15)
       return kMain;
     case 0xff58: case 0xff61:                   // PLT, PPT
       return kTilePart;
@@ -131,10 +135,28 @@ int marker_places(uint32_t m) {
 // packed packet headers, by their PPM / PPT index (Zppm / Zppt)
 using Packed = std::map<int, std::vector<uint8_t>>;
 
+// Part 2's multiple component transformation as OpenJPEG keeps it: MCT
+// arrays (Imct's index and element type: int16, int32, float32, float64;
+// its bytes), MCC collections (a component count, the MCT records holding
+// the decorrelation and offset arrays, -1 for none).  OpenJPEG's decoder
+// never applies a decorrelation array (its COD refuses the transform
+// value 2 that would ask for it), but it sizes it; an MCO stage sets every
+// component's DC level shift from its collection's offset array.
+struct MctRecord {
+  int index = 0, elem = 0;
+  std::vector<uint8_t> data;
+};
+struct MccRecord {
+  int index = 0, ncomp = 0, deco = -1, offset = -1;
+};
+constexpr uint32_t kMctElemSize[4] = {2, 4, 4, 8};
+
 struct Tcp {                    // a tile's coding parameters and data
   int csty = 0, prg = LRCP, numlayers = 1, mct = 0;
   std::vector<Tccp> tccps;
   std::vector<Poc> pocs;
+  std::vector<MctRecord> mcts;
+  std::vector<MccRecord> mccs;
   std::vector<uint8_t> data, ppt;
   Packed ppt_parts;
   bool seen = false, has_ppt = false;
@@ -776,6 +798,8 @@ class Decoder {
       if (marker == 0xff51) {
         read_siz(len - 2);
         def_.tccps.assign(siz_.ncomp, Tccp());
+        for (int c = 0; c < siz_.ncomp; ++c)
+          if (!siz_.sgnd[c]) def_.tccps[c].dc_shift = 1 << (siz_.prec[c] - 1);
         has_siz = true;
       } else {
         segment(marker, len - 2, def_);
@@ -976,6 +1000,7 @@ class Decoder {
           t.qntsty = q.qntsty;
           t.numgbits = q.numgbits;
           t.roishift = q.roishift;
+          t.dc_shift = q.dc_shift;
         }
         break;
       }
@@ -1052,13 +1077,165 @@ class Decoder {
       case 0xff63:                              // CRG
         if (body != 4u * siz_.ncomp) fail("a CRG marker of the wrong length");
         break;
-      case 0xff50: case 0xff59:                 // CAP, CPF (Part 15)
-        fail("a Part 15 (HTJ2K) codestream, which the port does not read");
-      case 0xff74: case 0xff75: case 0xff77: case 0xff78:
-        fail("a Part 2 marker (MCT, MCC, MCO, CBD), which the port does not "
-             "read");
-      default:                                  // COM
+      case 0xff74:                              // MCT
+        read_mct(tcp, body);
         break;
+      case 0xff75:                              // MCC
+        read_mcc(tcp, body);
+        break;
+      case 0xff77:                              // MCO
+        read_mco(tcp, body);
+        break;
+      case 0xff78:                              // CBD
+        read_cbd(body);
+        break;
+      default:                                  // COM, CAP, CPF
+        break;
+    }
+  }
+
+  // opj_j2k_read_mct: Zmct and Ymct other than 0 are not taken (with
+  // Ymct the record is made, its data dropped); a record of the same
+  // index is replaced
+  void read_mct(Tcp& tcp, uint32_t body) {
+    if (body < 2) fail("an MCT marker of the wrong length");
+    if (s_.u16() != 0) return;                  // Zmct
+    if (body <= 6) fail("an MCT marker of the wrong length");
+    const uint32_t imct = s_.u16();
+    const int index = static_cast<int>(imct & 0xff);
+    size_t k = 0;
+    while (k < tcp.mcts.size() && tcp.mcts[k].index != index) ++k;
+    if (k == tcp.mcts.size()) tcp.mcts.emplace_back();
+    MctRecord& r = tcp.mcts[k];
+    r.data.clear();
+    r.index = index;
+    r.elem = static_cast<int>((imct >> 10) & 3);
+    if (s_.u16() != 0) return;                  // Ymct
+    r.data.assign(s_.at(s_.pos()), s_.at(s_.pos()) + body - 6);
+  }
+
+  // opj_j2k_read_mcc: one collection of array-based decorrelation over
+  // components 0..n-1 in order; anything else is not taken (a record
+  // already there keeps what was read of it); a collection naming an MCT
+  // index that is not there fails
+  void read_mcc(Tcp& tcp, uint32_t body) {
+    if (body < 2) fail("an MCC marker of the wrong length");
+    if (s_.u16() != 0) return;                  // Zmcc
+    if (body < 7) fail("an MCC marker of the wrong length");
+    const int index = static_cast<int>(s_.u8());
+    size_t k = 0;
+    while (k < tcp.mccs.size() && tcp.mccs[k].index != index) ++k;
+    const bool found = k < tcp.mccs.size();
+    MccRecord fresh;
+    MccRecord& r = found ? tcp.mccs[k] : fresh;
+    r.index = index;
+    if (s_.u16() != 0) return;                  // Ymcc
+    const uint32_t ncoll = s_.u16();            // Qmcc
+    if (ncoll > 1) return;
+    uint32_t left = body - 7;
+    for (uint32_t i = 0; i < ncoll; ++i) {
+      if (left < 3) fail("an MCC marker of the wrong length");
+      if (s_.u8() != 1) return;                 // Xmcc: array-based
+      uint32_t n = s_.u16();
+      left -= 3;
+      int bytes = 1 + static_cast<int>(n >> 15);
+      r.ncomp = static_cast<int>(n & 0x7fff);
+      if (left < bytes * uint32_t(r.ncomp) + 2)
+        fail("an MCC marker of the wrong length");
+      left -= bytes * r.ncomp + 2;
+      for (int j = 0; j < r.ncomp; ++j)
+        if (s_.un(bytes) != uint32_t(j)) return;
+      n = s_.u16();
+      bytes = 1 + static_cast<int>(n >> 15);
+      if (static_cast<int>(n & 0x7fff) != r.ncomp) return;
+      if (left < bytes * uint32_t(r.ncomp) + 3)
+        fail("an MCC marker of the wrong length");
+      left -= bytes * r.ncomp + 3;
+      for (int j = 0; j < r.ncomp; ++j)
+        if (s_.un(bytes) != uint32_t(j)) return;
+      const uint32_t t = s_.u8() << 16 | s_.u16();
+      r.deco = r.offset = -1;
+      for (int which : {0, 1}) {
+        const int want = static_cast<int>(which ? (t >> 8) & 0xff : t & 0xff);
+        if (!want) continue;
+        int found_at = -1;
+        for (size_t m = 0; m < tcp.mcts.size() && found_at < 0; ++m)
+          if (tcp.mcts[m].index == want) found_at = static_cast<int>(m);
+        if (found_at < 0) fail("an MCC naming an MCT array that is not there");
+        (which ? r.offset : r.deco) = found_at;
+      }
+    }
+    if (left) fail("an MCC marker of the wrong length");
+    if (!found) tcp.mccs.push_back(r);
+  }
+
+  // opj_j2k_read_mco: more than one stage is not taken; otherwise every
+  // component's DC level shift becomes 0, then each stage's collection
+  // (opj_j2k_add_mct) sets them from its offset array
+  void read_mco(Tcp& tcp, uint32_t body) {
+    if (body < 1) fail("an MCO marker of the wrong length");
+    const uint32_t nstages = s_.u8();
+    if (nstages > 1) return;
+    if (body != nstages + 1) fail("an MCO marker of the wrong length");
+    for (auto& t : tcp.tccps) t.dc_shift = 0;
+    for (uint32_t i = 0; i < nstages; ++i)
+      add_mct(tcp, static_cast<int>(s_.u8()));
+  }
+
+  // opj_j2k_add_mct compares the stage's index with the first collection
+  // only (its search never steps on); a collection over another number of
+  // components than the image's is passed over; arrays of the wrong size
+  // fail; the offsets, read as OpenJPEG's j2k_mct_read_functions_to_int32
+  // read them (int16 as unsigned, floats truncated), become the shifts
+  void add_mct(Tcp& tcp, int index) {
+    if (tcp.mccs.empty() || tcp.mccs[0].index != index) return;
+    const MccRecord& r = tcp.mccs[0];
+    const uint32_t n = static_cast<uint32_t>(siz_.ncomp);
+    if (r.ncomp != siz_.ncomp) return;
+    if (r.deco >= 0) {
+      const MctRecord& d = tcp.mcts[r.deco];
+      if (d.data.size() != kMctElemSize[d.elem] * n * n)
+        fail("an MCT decorrelation array of the wrong size");
+    }
+    if (r.offset < 0) return;
+    const MctRecord& o = tcp.mcts[r.offset];
+    const uint32_t size = kMctElemSize[o.elem];
+    if (o.data.size() != size * n)
+      fail("an MCT offset array of the wrong size");
+    for (uint32_t c = 0; c < n; ++c) {
+      uint64_t v = 0;
+      for (uint32_t b = 0; b < size; ++b) v = v << 8 | o.data[c * size + b];
+      int32_t shift;
+      if (o.elem < 2) {
+        shift = static_cast<int32_t>(static_cast<uint32_t>(v));
+      } else {
+        double f;
+        if (o.elem == 2) {
+          float g;
+          const uint32_t u = static_cast<uint32_t>(v);
+          std::memcpy(&g, &u, 4);
+          f = g;
+        } else {
+          std::memcpy(&f, &v, 8);
+        }
+        // a conversion out of range gives x86's "integer indefinite"
+        shift = f >= -2147483648.0 && f < 2147483648.0
+                    ? static_cast<int32_t>(f) : INT32_MIN;
+      }
+      tcp.tccps[c].dc_shift = shift;
+    }
+  }
+
+  // opj_j2k_read_cbd: a bit depth and sign for every component, which
+  // replace SIZ's
+  void read_cbd(uint32_t body) {
+    const uint32_t n = static_cast<uint32_t>(siz_.ncomp);
+    if (body != n + 2 || s_.u16() != n) fail("a bad CBD marker");
+    for (uint32_t c = 0; c < n; ++c) {
+      const uint32_t v = s_.u8();
+      siz_.sgnd[c] = static_cast<int>(v >> 7);
+      siz_.prec[c] = static_cast<int>(v & 0x7f) + 1;
+      if (siz_.prec[c] > 31) fail("a bad CBD marker");
     }
   }
 
@@ -1609,7 +1786,7 @@ class Decoder {
       const int64_t lo = siz_.sgnd[c] ? -(int64_t(1) << (prec - 1)) : 0;
       const int64_t hi = siz_.sgnd[c] ? (int64_t(1) << (prec - 1)) - 1
                                       : (int64_t(1) << prec) - 1;
-      const int64_t shift = siz_.sgnd[c] ? 0 : int64_t(1) << (prec - 1);
+      const int32_t shift = tcp.tccps[c].dc_shift;
       const int64_t stride = tcm.x1 - tcm.x0;
       const Res& re = tcm.res[top[c]];
       int32_t* plane = out + c * W * H;
@@ -1617,8 +1794,9 @@ class Decoder {
         for (int64_t x = re.x0; x < std::min(re.x1, W); ++x) {
           const int64_t i = (y - re.y0) * stride + (x - re.x0);
           int64_t v;
-          if (tcp.tccps[c].qmfbid == 1) {
-            v = int64_t(tcm.idata[i]) + shift;
+          if (tcp.tccps[c].qmfbid == 1) {         // OpenJPEG adds in int32
+            v = static_cast<int32_t>(static_cast<uint32_t>(tcm.idata[i]) +
+                                     static_cast<uint32_t>(shift));
           } else {
             const float f = tcm.fdata[i];
             if (f > static_cast<float>(INT32_MAX)) v = hi;

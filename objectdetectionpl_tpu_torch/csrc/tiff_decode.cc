@@ -7,7 +7,7 @@
 //   tiff_lzw(src, n, dst, dst_size, msg, msg_len)
 //   tiff_packbits(src, n, dst, dst_size, msg, msg_len)
 //   tiff_fax(src, n, dst, rows, width, kind, options, fill_order, noeol,
-//            msg, msg_len)
+//            runs, msg, msg_len)
 //   tiff_thunder(src, n, dst, rows, width, msg, msg_len)
 //   tiff_sgilog(src, n, dst, rows, width, nbytes, msg, msg_len)
 // return 0, or 3 with the reason in msg where libtiff's codec fails the
@@ -27,7 +27,12 @@
 // fill_order 2 reads each byte's bits from the least significant.  An
 // extension code (uncompressed mode) ends its row, as in libtiff.
 // *noeol is the codec's FAXMODE_NOEOL, carried from strip to strip of one
-// image: Group 3 data that end where an EOL was sought set it.
+// image: Group 3 data that end where an EOL was sought set it (and that
+// strip is decoded again from its start, as libtiff 4.7 retries).  runs
+// is the codec's run arrays, tiff_fax_runs(width, kind, options) words
+// that the caller zeroes once an image: libtiff allocates them once a
+// directory, and a 2-D code that reads past the reference row's end sees
+// what earlier rows and strips left there.
 // tiff_thunder decodes ThunderScan's rows of 4-bit pixels,
 // ceil(width / 2) bytes a row; tiff_sgilog SGILog's rows of 16-bit LogL
 // (nbytes 2) or 32-bit LogLuv (4) values, one uint32 a pixel.
@@ -317,9 +322,14 @@ enum FaxKind { kRle = 2, kG3 = 3, kG4 = 4 };
 // its error after a premature end of the data or a run past its arrays,
 // dst then holding what it filled (G4's "badly-terminated strips" return
 // 1 once a row is done, as libtiff's).
+uint32_t fax_nruns(int width, int kind, int options) {
+  const uint32_t nruns = (static_cast<uint32_t>(width) + 1 + 31) / 32 * 32;
+  return kind == kG4 || (kind == kG3 && (options & 1)) ? nruns * 2 : nruns;
+}
+
 int fax_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t rows,
                int width, int kind, int options, int fill_order,
-               bool* noeol_mode) {
+               bool* noeol_mode, uint32_t* runs) {
   static const Reversed kReversed;
   static uint8_t identity[256];
   if (!identity[255])
@@ -329,10 +339,7 @@ int fax_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t rows,
   const bool two_d = kind == kG4 || (kind == kG3 && (options & 1));
   const int rowbytes = (width + 7) / 8;
   const uint32_t lastx = static_cast<uint32_t>(width);
-  uint32_t nruns = (lastx + 1 + 31) / 32 * 32;
-  if (two_d) nruns *= 2;
-  std::vector<uint32_t> runs_store(static_cast<size_t>(nruns) * 2 + 2, 0);
-  uint32_t* runs = runs_store.data();
+  const uint32_t nruns = fax_nruns(width, kind, options);
   uint32_t* curruns = runs;
   uint32_t* refruns = two_d ? runs + nruns : nullptr;
   if (refruns) {
@@ -438,6 +445,7 @@ int fax_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t rows,
   } while (0)
 
   while (line < rows) {
+  row_start:
     a0 = 0;
     RunLength = 0;
     pa = thisrun = curruns;
@@ -446,7 +454,7 @@ int fax_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t rows,
       // skip the zero bytes and bits after them and the EOL's 1
       if (EOLcnt == 0) {
         for (;;) {
-          NeedBits16(11, eof_row);
+          NeedBits16(11, no_eol);
           if (GetBits(11) == 0) break;
           ClrBits(1);
         }
@@ -461,7 +469,14 @@ int fax_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t rows,
       EOLcnt = 0;
       goto synced;
     no_eol:
-      noeol = true;          // "retry without EOL": this and later rows
+      // libtiff 4.7's "retry without EOL": the data end before an EOL, so
+      // this row and the strip's later ones are decoded again from the
+      // strip's first byte, without EOLs (the mode stays for the image)
+      noeol = true;
+      cp = src;
+      BitAcc = 0;
+      BitsAvail = 0;
+      goto row_start;
     }
   synced:
     if (kind == kG3 && two_d) {
@@ -798,13 +813,17 @@ int tiff_lzw(const uint8_t* src, int64_t n, uint8_t* dst, int64_t size,
   }
 }
 
+int64_t tiff_fax_runs(int width, int kind, int options) {
+  return 2 * static_cast<int64_t>(fax_nruns(width, kind, options)) + 2;
+}
+
 int tiff_fax(const uint8_t* src, int64_t n, uint8_t* dst, int64_t rows,
              int width, int kind, int options, int fill_order, int* noeol,
-             char* msg, int msg_len) {
+             uint32_t* runs, char* msg, int msg_len) {
   std::memset(dst, 0, static_cast<size_t>(rows) * ((width + 7) / 8));
   bool mode = *noeol != 0;
   const int ok = fax_decode(src, n, dst, rows, width, kind, options,
-                            fill_order, &mode);
+                            fill_order, &mode, runs);
   *noeol = mode;
   if (ok) return 0;
   set_msg(msg, msg_len, "CCITT data end or fail before the strip is full");

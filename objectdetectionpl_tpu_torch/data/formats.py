@@ -30,8 +30,9 @@ and animation chunks here, the VP8 and VP8L bitstreams in the host
 library (``csrc/webp_decode.cc``).
 
 TIFF (libtiff's RGBA interface through cv2, :func:`read_tiff`): the IFD,
-strips and tiles, Deflate, libtiff's sample rules and its YCbCr, CMYK and
-CIELab conversions here; LZW, PackBits, CCITT fax and ThunderScan in the
+strips and tiles, Deflate, libtiff's sample rules, its YCbCr, CMYK and
+CIELab conversions and 24-bit LogLuv here; LZW, PackBits, CCITT fax,
+ThunderScan and SGILog's run-length planes in the
 host library (``csrc/tiff_decode.cc``), JPEG strips and tiles by the
 JPEG decoder (``csrc/jpeg_decode.cc::jpeg_decode_tiff``).
 
@@ -603,8 +604,10 @@ def read_tiff(data: bytes, codecs) -> np.ndarray:
     YCbCrCoefficients, 8- and 16-bit CIELab of 3 samples through its
     float TIFFCIELabToXYZ and TIFFXYZToRGB under the WhitePoint (D50
     without one), and SGILog LogL and 32-bit LogLuv (``sgilog``: tif_luv.c's
-    byte planes), tone-mapped to 8 bits as tif_luv.c does for the RGBA
-    reader; cv2 refuses 2- and 4-bit grey.  Strips or tiles, chunky
+    byte planes) and 24-bit LogLuv (SGILog24: 3 bytes a pixel, a 10-bit
+    log luminance and a 14-bit uv cell), tone-mapped to 8 bits as
+    tif_luv.c does for the RGBA reader; cv2 refuses 2- and 4-bit grey.
+    Strips or tiles, chunky
     or planar, compressions none, LZW (the host library's ``lzw``, the old
     LSB-first kind too), Deflate (zlib), PackBits (``packbits``), JPEG
     (``jpeg``: the JPEGTables stream, then each strip's or tile's own,
@@ -631,8 +634,7 @@ def read_tiff(data: bytes, codecs) -> np.ndarray:
     refuses as well: LZMA, Zstandard, WebP and old-JPEG compression (not
     configured in cv2's libtiff), NeXT (2-bit), float and 32-bit samples,
     mixed SampleFormats, predictor 3, 16-bit CMYK and YCbCr, photometric
-    RGB over a JPEG whose component 0 is sampled above 1x1.  24-bit SGI
-    LogLuv (SGILog24), which cv2 reads, raises too."""
+    RGB over a JPEG whose component 0 is sampled above 1x1."""
     tags, e = _tiff_ifd(data)
 
     def one(tag, default=None):
@@ -667,10 +669,11 @@ def read_tiff(data: bytes, codecs) -> np.ndarray:
         raise FormatError(f"{kind}, which cv2 does not read either (NeXT "
                           f"holds 2-bit samples)")
     if compression not in (1, 2, 3, 4, 5, 7, 8, 32946, 32773, 32809,
-                           34676):
+                           34676, 34677):
         raise FormatError(f"{kind}, which the port does not read")
     # SGILog: libtiff's RGBA reader asks tif_luv.c for 8-bit grey (LogL)
-    # or RGB (LogLuv), tone-mapped by 256 * sqrt(Y)
+    # or RGB (LogLuv), tone-mapped by 256 * sqrt(Y); sgilog is the bytes a
+    # stored pixel: 2 LogL, 4 LogLuv, 3 24-bit LogLuv
     sgilog = 0
     if photometric in (32844, 32845):
         if compression not in (34676, 34677) or \
@@ -682,9 +685,8 @@ def read_tiff(data: bytes, codecs) -> np.ndarray:
             raise FormatError(f"{kind} of {spp} samples, planar "
                               f"configuration {one(284, 1)}, which cv2 does "
                               f"not read either")
-        if compression == 34677:
-            raise FormatError(f"{kind}, which the port does not read")
-        sgilog = 2 if photometric == 32844 else 4
+        sgilog = 2 if photometric == 32844 else \
+            3 if compression == 34677 else 4
         photometric, bits, bps = (1 if sgilog == 2 else 2), [8] * spp, 8
         sample_format = 1
     elif compression == 34676:
@@ -841,6 +843,9 @@ def read_tiff(data: bytes, codecs) -> np.ndarray:
                                             0), fill_order, fax_state)
             elif compression == 32809:
                 buf, ok = codecs["thunder"](raw, rows, tw)
+            elif sgilog == 3:
+                vals, ok = _sgilog24(raw, rows, tw)
+                buf = _xyz_rgb(_logluv24_xyz(vals)).tobytes()
             elif sgilog:
                 vals, ok = codecs["sgilog"](raw, rows, tw, sgilog)
                 buf = (_logl_grey(vals) if sgilog == 2
@@ -915,25 +920,130 @@ def _logl_grey(p: np.ndarray) -> np.ndarray:
 
 
 def _logluv_rgb(p: np.ndarray) -> np.ndarray:
-    """32-bit LogLuv -> RGB (Luv32toRGB): LogLuv32toXYZ in double, each
-    of X, Y, Z rounded to float, then XYZtoRGB24's CCIR-709 matrix in
-    double and the tone map."""
+    """32-bit LogLuv -> RGB (Luv32toRGB): LogLuv32toXYZ's 16-bit LogL
+    and (u, v) from two bytes, then XYZtoRGB24."""
     p = p.astype(np.int64)
     hi = p >> 16
     y = _logl_y(hi & 0x7FFF)
-    L = np.where(hi & 0x8000, -y, y)
-    u = 1. / 410 * (((p >> 8) & 0xFF) + .5)
-    v = 1. / 410 * ((p & 0xFF) + .5)
+    return _xyz_rgb(_luv_xyz(np.where(hi & 0x8000, -y, y),
+                             1. / 410 * (((p >> 8) & 0xFF) + .5),
+                             1. / 410 * ((p & 0xFF) + .5)))
+
+
+def _luv_xyz(L: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """The tail of tif_luv.c's LogLuv32toXYZ and LogLuv24toXYZ: (u, v) to
+    xy in double, then X, Y, Z each rounded to float (all 0 where L <=
+    0) -> float32 [..., 3]."""
     s = 1. / (6. * u - 16. * v + 12.)
-    x, yy = 9. * u * s, 4. * v * s
-    f = np.float32
-    X = np.where(L > 0, (x / yy * L).astype(f), 0).astype(np.float64)
-    Y = np.where(L > 0, L.astype(f), 0).astype(np.float64)
-    Z = np.where(L > 0, ((1. - x - yy) / yy * L).astype(f),
-                 0).astype(np.float64)
+    x, y = 9. * u * s, 4. * v * s
+    xyz = np.stack([x / y * L, L, (1. - x - y) / y * L], -1)
+    return np.where((L > 0)[..., None], xyz, 0).astype(np.float32)
+
+
+def _xyz_rgb(xyz: np.ndarray) -> np.ndarray:
+    """tif_luv.c's XYZtoRGB24: the CCIR-709 matrix in double, then the
+    tone map."""
+    X, Y, Z = np.moveaxis(xyz.astype(np.float64), -1, 0)
     return np.stack([_tone(2.690 * X + -1.276 * Y + -0.414 * Z),
                      _tone(-1.022 * X + 1.978 * Y + 0.044 * Z),
                      _tone(0.061 * X + -0.224 * Y + 1.163 * Z)], -1)
+
+
+# tif_luv.c's uvcode.h: the 163 rows of (u', v') cells of side UV_SQSIZ
+# from v' = UV_VSTART, each row's first u' (a float) and the index of its
+# first cell; indices from 16289 on are no cell
+_UV_USTART = (
+    0.247663, 0.243779, 0.241684, 0.237874, 0.235906, 0.232153, 0.228352,
+    0.226259, 0.222371, 0.220410, 0.214710, 0.212714, 0.210721, 0.204976,
+    0.202986, 0.199245, 0.195525, 0.193560, 0.189878, 0.186216, 0.186216,
+    0.182592, 0.179003, 0.175466, 0.172001, 0.172001, 0.168612, 0.168612,
+    0.163575, 0.158642, 0.158642, 0.158642, 0.153815, 0.153815, 0.149097,
+    0.149097, 0.142746, 0.142746, 0.142746, 0.138270, 0.138270, 0.138270,
+    0.132166, 0.132166, 0.126204, 0.126204, 0.126204, 0.120381, 0.120381,
+    0.120381, 0.120381, 0.112962, 0.112962, 0.112962, 0.107450, 0.107450,
+    0.107450, 0.107450, 0.100343, 0.100343, 0.100343, 0.095126, 0.095126,
+    0.095126, 0.095126, 0.088276, 0.088276, 0.088276, 0.088276, 0.081523,
+    0.081523, 0.081523, 0.081523, 0.074861, 0.074861, 0.074861, 0.074861,
+    0.068290, 0.068290, 0.068290, 0.068290, 0.063573, 0.063573, 0.063573,
+    0.063573, 0.057219, 0.057219, 0.057219, 0.057219, 0.050985, 0.050985,
+    0.050985, 0.050985, 0.050985, 0.044859, 0.044859, 0.044859, 0.044859,
+    0.040571, 0.040571, 0.040571, 0.040571, 0.036339, 0.036339, 0.036339,
+    0.036339, 0.032139, 0.032139, 0.032139, 0.032139, 0.027947, 0.027947,
+    0.027947, 0.023739, 0.023739, 0.023739, 0.023739, 0.019504, 0.019504,
+    0.019504, 0.016976, 0.016976, 0.016976, 0.016976, 0.012639, 0.012639,
+    0.012639, 0.009991, 0.009991, 0.009991, 0.009016, 0.009016, 0.009016,
+    0.006217, 0.006217, 0.005097, 0.005097, 0.005097, 0.003909, 0.003909,
+    0.002340, 0.002389, 0.001068, 0.001653, 0.000717, 0.001614, 0.000270,
+    0.000484, 0.001103, 0.001242, 0.001188, 0.001011, 0.000709, 0.000301,
+    0.002416, 0.003251, 0.003246, 0.004141, 0.005963, 0.008839, 0.010490,
+    0.016994, 0.023659)
+_UV_NCUM = (
+    0, 4, 10, 17, 26, 36, 48, 62, 77, 94, 112, 133, 155, 178, 204, 231,
+    260, 291, 323, 357, 393, 429, 467, 507, 549, 593, 637, 683, 729, 778,
+    830, 882, 934, 989, 1044, 1102, 1160, 1222, 1284, 1346, 1411, 1476,
+    1541, 1610, 1679, 1752, 1825, 1898, 1975, 2052, 2129, 2206, 2288, 2370,
+    2452, 2538, 2624, 2710, 2796, 2887, 2978, 3069, 3164, 3259, 3354, 3449,
+    3549, 3649, 3749, 3849, 3954, 4059, 4164, 4269, 4379, 4489, 4599, 4709,
+    4824, 4939, 5054, 5169, 5288, 5407, 5526, 5645, 5769, 5893, 6017, 6141,
+    6270, 6399, 6528, 6657, 6786, 6920, 7054, 7188, 7322, 7460, 7598, 7736,
+    7874, 8016, 8158, 8300, 8442, 8588, 8734, 8880, 9026, 9176, 9326, 9476,
+    9630, 9784, 9938, 10092, 10250, 10408, 10566, 10727, 10888, 11049,
+    11210, 11375, 11540, 11705, 11873, 12041, 12209, 12379, 12549, 12719,
+    12892, 13065, 13240, 13415, 13590, 13767, 13944, 14121, 14291, 14455,
+    14612, 14762, 14905, 15041, 15170, 15293, 15408, 15517, 15620, 15717,
+    15806, 15888, 15964, 16033, 16095, 16150, 16197, 16237, 16268)
+_UV_CELLS = None
+
+
+def _uv_cells() -> Tuple[np.ndarray, np.ndarray]:
+    """uv_decode's (u', v') of every 14-bit index, in double: u' =
+    ustart + (i + .5) UV_SQSIZ, v' = UV_VSTART + (row + .5) UV_SQSIZ,
+    both constants floats; LogLuv24toXYZ's neutral (U_NEU, V_NEU) past
+    the last cell."""
+    global _UV_CELLS
+    if _UV_CELLS is None:
+        sq, v0 = float(np.float32(0.0035)), float(np.float32(0.01694))
+        c = np.arange(16384)
+        row = np.searchsorted(_UV_NCUM, c, "right") - 1
+        u = np.array(_UV_USTART, np.float32).astype(np.float64)[row] + \
+            (c - np.array(_UV_NCUM)[row] + .5) * sq
+        v = v0 + (row + .5) * sq
+        past = c >= 16289
+        _UV_CELLS = (np.where(past, 0.210526316, u),
+                     np.where(past, 0.473684211, v))
+    return _UV_CELLS
+
+
+_LOGL10_Y = None
+
+
+def _logluv24_xyz(p: np.ndarray) -> np.ndarray:
+    """tif_luv.c's LogLuv24toXYZ: the 10-bit Le of bits 14..23 through
+    LogL10toY, exp(ln 2 / 64 (Le + .5) - 12 ln 2) by the C library's exp
+    (0 for Le 0), and the uv cell of the low 14 bits (:func:`_uv_cells`)
+    -> float32 [..., 3]."""
+    global _LOGL10_Y
+    if _LOGL10_Y is None:
+        ln2 = math.log(2)
+        _LOGL10_Y = np.array([0.0] + [math.exp(ln2 / 64. * (k + .5)
+                                               - ln2 * 12.)
+                                      for k in range(1, 1024)])
+    p = p.astype(np.int64)
+    u, v = _uv_cells()
+    return _luv_xyz(_LOGL10_Y[(p >> 14) & 0x3FF], u[p & 0x3FFF],
+                    v[p & 0x3FFF])
+
+
+def _sgilog24(raw: bytes, rows: int, width: int) -> Tuple[np.ndarray, bool]:
+    """tif_luv.c's LogLuvDecode24 on a strip or tile: each pixel 3 bytes,
+    most significant first; a row the data do not fill fails, and it and
+    the rows after stay 0 (False)."""
+    whole = min(len(raw) // (3 * width), rows)
+    b = np.frombuffer(raw, np.uint8, whole * width * 3).reshape(-1, 3)
+    vals = np.zeros(rows * width, np.uint32)
+    vals[:whole * width] = (b[:, 0].astype(np.uint32) << 16) | \
+        (b[:, 1].astype(np.uint32) << 8) | b[:, 2]
+    return vals, whole == rows
 
 
 def _tiff_counts(counts: list, offsets: list, file_size: int,

@@ -196,14 +196,16 @@ def _load() -> Optional[ctypes.CDLL]:
                        ctypes.c_char_p, ctypes.c_int]
         fn.restype = ctypes.c_int
     ci = ctypes.c_int
+    u32p = ctypes.POINTER(ctypes.c_uint32)
     lib.tiff_fax.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64, ci,
-                             ci, ci, ci, i32p, ctypes.c_char_p, ci]
+                             ci, ci, ci, i32p, u32p, ctypes.c_char_p, ci]
     lib.tiff_fax.restype = ci
+    lib.tiff_fax_runs.argtypes = [ci, ci, ci]
+    lib.tiff_fax_runs.restype = ctypes.c_int64
     lib.tiff_thunder.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64,
                                  ci, ctypes.c_char_p, ci]
     lib.tiff_thunder.restype = ci
-    lib.tiff_sgilog.argtypes = [u8p, ctypes.c_int64,
-                                ctypes.POINTER(ctypes.c_uint32),
+    lib.tiff_sgilog.argtypes = [u8p, ctypes.c_int64, u32p,
                                 ctypes.c_int64, ci, ci, ctypes.c_char_p, ci]
     lib.tiff_sgilog.restype = ci
     lib.jpeg_decode_tiff.argtypes = [u8p, ctypes.c_int64, u8p,
@@ -476,16 +478,21 @@ def _tiff_codec(name: str):
 
 def _tiff_fax(raw: bytes, rows: int, width: int, kind: int, options: int,
               fill_order: int, state: dict) -> Tuple[bytes, bool]:
-    """``state`` carries libtiff's fax mode from strip to strip of one
-    image (``noeol``)."""
+    """``state`` carries libtiff's fax codec from strip to strip of one
+    image: its mode (``noeol``) and its run arrays (``runs``)."""
+    lib = _lib_or_raise()
     src = np.frombuffer(raw or bytes(1), np.uint8)
     size = rows * ((width + 7) // 8)
     dst = np.empty(max(size, 1), np.uint8)
     noeol = np.array([int(state.get("noeol", 0))], np.int32)
+    if "runs" not in state:
+        state["runs"] = np.zeros(lib.tiff_fax_runs(width, kind, options),
+                                 np.uint32)
     msg = ctypes.create_string_buffer(MSG_LEN)
-    code = _lib_or_raise().tiff_fax(_u8(src), len(raw), _u8(dst), rows,
-                                    width, kind, options, fill_order,
-                                    _i32(noeol), msg, MSG_LEN)
+    code = lib.tiff_fax(_u8(src), len(raw), _u8(dst), rows, width, kind,
+                        options, fill_order, _i32(noeol),
+                        state["runs"].ctypes.data_as(ctypes.POINTER(
+                            ctypes.c_uint32)), msg, MSG_LEN)
     state["noeol"] = int(noeol[0])
     return dst[:size].tobytes(), code == JPEG_OK
 

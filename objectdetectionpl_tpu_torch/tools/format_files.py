@@ -18,14 +18,19 @@ JPEGTables and a strip and of the CMYK fixture, YCbCr in 2x2 units and in
 clipped 4x4 tiles, CMYK, CIELab, FillOrder 2, old-style LZW, a
 ThunderScan palette, signed samples; and the committed files libtiff
 wrote: JPEG YCbCr strips and tiles, CCITT Group 3 2-D, Group 4 and RLE,
-SGILog LogLuv and LogL,
+SGILog LogLuv and LogL, 24-bit LogLuv (SGILog24) in strips and in tiles,
 ``tests/test_torch_port_tiff.py::test_committed_tiff_fixtures`` their
-recipe); the
+recipe; and the Group 3 file with its second strip's byte count cut to
+half, which libtiff 4.7 decodes again from the strip's start); the
 committed JPEG 2000 files (cv2's writes of the 500x375 fixture at rate
 x1000 25 and lossless; Pillow's tiled three-layer 9/7 JP2, its RPCL J2K
 codestream with 32x32 precincts and 16x16 code-blocks and its 16-bit
 grey JP2; libopenjp2's J2K codestream with every code-block style bit,
-SOP and EPH markers, precincts and tile-parts by resolution); GIFs (the
+SOP and EPH markers, precincts and tile-parts by resolution; its Part 2
+J2K codestream, CBD, MCT, MCC and MCO from opj_set_MCT, with the COD
+transform value set to 1, and that codestream in a JP2 file,
+``tests/test_torch_port_jp2.py::test_committed_part2_fixture`` its
+recipe); GIFs (the
 500x375 image in 256 colours, and an interlaced frame at an offset
 inside a larger screen with a local table and a transparent index); a
 P6 PPM, a 16-bit ASCII P2 PGM, a P7 PAM (TUPLTYPE RGB), a PF PFM
@@ -39,7 +44,8 @@ port) checks the port's reader wherever it runs.
 ``png_bytes``, ``chunk``, ``bmp_bytes``, ``lossless_jpeg_bytes``,
 ``tiff_bytes``, ``jpeg_tiff_bytes``, ``thunderscan_bytes``,
 ``gif_bytes``, ``sun_bytes``, ``hdr_bytes`` and ``jp2_bytes`` are the
-writers: PNG of any colour type, bit depth and
+writers (``set_tiff_counts`` replaces a TIFF's strip or tile byte
+counts): PNG of any colour type, bit depth and
 interlace, each row with a filter of its own (None, Sub, Up, Average,
 Paeth in turn); BMP of BI_RGB, BI_BITFIELDS or RLE rows; lossless JPEG
 of any predictor, point transform, restart interval and sampling; TIFF
@@ -65,7 +71,8 @@ from typing import Dict
 import numpy as np
 
 from objectdetectionpl_tpu_torch.data import native
-from objectdetectionpl_tpu_torch.data.formats import PNG_SIGNATURE
+from objectdetectionpl_tpu_torch.data.formats import (PNG_SIGNATURE,
+                                                     _tiff_ifd)
 from objectdetectionpl_tpu_torch.tools.fixture_trees import (TESTDATA,
                                                             UNSUPPORTED)
 
@@ -87,7 +94,8 @@ KINDS = ("jpeg", "jpeg_cmyk", "jpeg_ycck", "jpeg_arithmetic",
          "tiff_jpeg_cmyk", "tiff_ycbcr", "tiff_ycbcr_44_tiles", "tiff_cmyk",
          "tiff_cielab", "tiff_g3_2d", "tiff_g4", "tiff_ccitt_rle",
          "tiff_fillorder2", "tiff_lzw_old", "tiff_thunderscan",
-         "tiff_signed", "tiff_logluv", "tiff_logl")
+         "tiff_signed", "tiff_logluv", "tiff_logl", "tiff_logluv24",
+         "tiff_logluv24_tiles", "tiff_g3_cut", "j2k_part2", "jp2_part2")
 COMMITTED = {"jpeg": TESTDATA / BASE,
              "jpeg_cmyk": TESTDATA / UNSUPPORTED[0],
              "jpeg_ycck": FORMATS / "ycck_420_q85_160x120.jpg",
@@ -110,7 +118,10 @@ COMMITTED = {"jpeg": TESTDATA / BASE,
              "tiff_g4": FORMATS / "tiff_g4_160x120.tif",
              "tiff_ccitt_rle": FORMATS / "tiff_ccitt_rle_lsb_160x120.tif",
              "tiff_logluv": FORMATS / "tiff_sgilog_logluv_54x40.tif",
-             "tiff_logl": FORMATS / "tiff_sgilog_logl_54x40.tif"}
+             "tiff_logl": FORMATS / "tiff_sgilog_logl_54x40.tif",
+             "tiff_logluv24": FORMATS / "tiff_sgilog24_strips_54x40.tif",
+             "tiff_logluv24_tiles": FORMATS / "tiff_sgilog24_tiles_54x40.tif",
+             "j2k_part2": FORMATS / "j2k_part2_mct_160x120.j2k"}
 
 
 def chunk(ctype: bytes, body: bytes) -> bytes:
@@ -433,6 +444,27 @@ def _ycbcr_units(block: np.ndarray, hs: int, vs: int) -> bytes:
     chroma = pad[::vs, ::hs, 1:]
     units = np.concatenate([y.reshape(uy, ux, hs * vs), chroma], -1)
     return units.tobytes()
+
+
+def set_tiff_counts(data: bytes, counts) -> bytes:
+    """A classic TIFF with its StripByteCounts or TileByteCounts replaced
+    where ``counts`` is not None, in the entry's own type (libtiff writes
+    SHORT counts where they fit)."""
+    e = "<" if data[:2] == b"II" else ">"
+    at = struct.unpack(e + "I", data[4:8])[0]
+    out = bytearray(data)
+    for k in range(struct.unpack(e + "H", data[at:at + 2])[0]):
+        o = at + 2 + 12 * k
+        tag, typ, n = struct.unpack(e + "HHI", data[o:o + 8])
+        if tag in (279, 325):
+            code, size = ("H", 2) if typ == 3 else ("I", 4)
+            vo = o + 8 if n * size <= 4 else struct.unpack(
+                e + "I", data[o + 8:o + 12])[0]
+            for i, c in enumerate(counts):
+                if c is not None:
+                    out[vo + size * i:vo + size * (i + 1)] = struct.pack(
+                        e + code, c)
+    return bytes(out)
 
 
 def tiff_bytes(samples, bits: int = 8, photometric: int = 2,
@@ -1002,6 +1034,9 @@ def write_format_files(directory) -> Dict[str, str]:
                                  compression=5, predictor=2, bigtiff=True),
     }
     tiffs.update(tiff_kinds(base, small))
+    g3 = COMMITTED["tiff_g3_2d"].read_bytes()
+    tiffs["tiff_g3_cut"] = set_tiff_counts(
+        g3, [None, _tiff_ifd(g3)[0][279][1] // 2])
     for kind, data in tiffs.items():
         paths[kind] = d / f"{kind}.tiff"
         paths[kind].write_bytes(data)
@@ -1037,6 +1072,9 @@ def write_format_files(directory) -> Dict[str, str]:
         kind = name.split(".")[0]
         paths[kind] = d / name
         paths[kind].write_bytes(data)
+    paths["jp2_part2"] = d / "jp2_part2.jp2"
+    paths["jp2_part2"].write_bytes(jp2_bytes(
+        COMMITTED["j2k_part2"].read_bytes(), 3, 120, 160))
     assert sorted(paths) == sorted(KINDS)
     return {k: str(paths[k]) for k in KINDS}
 

@@ -1,0 +1,155 @@
+"""Probes of cv2.imread on damaged or unusual files against the port's
+reader, counting where the two agree.  Not a test: the counts are the
+record behind ROADMAP §C's entries.
+
+    python tests/probe_cv2_readers.py fax [--seeds 60]
+    python tests/probe_cv2_readers.py gif [--files 3000]
+
+``fax``: CCITT Group 3 (1-D, 2-D, with and without fill bits), Group 4
+and RLE files that the system libtiff writes (the writer of
+``test_torch_port_tiff.py``), 24 rows of 61, 200 or 1728 pixels, in
+strips of 8 or 24 rows or 64x16 tiles; in each, 40 times, one strip or
+tile cut to a random byte count or zeroed from a random byte.  Prints,
+per compression, the files and how many the port reads as cv2 does.
+
+``gif``: one-frame GIFs of up to 8x4 pixels whose LZW data hold a random
+number of the frame's pixels, the End code, then 1 to 9 seeded random
+bytes.  cv2 decodes every file in two fresh processes (in file order and
+in reverse); prints how many decodes differ between them, and how many
+files the port reads as cv2 does, split by which side refuses.
+"""
+
+import argparse
+import hashlib
+import os
+import struct
+import subprocess
+import sys
+import tempfile
+from collections import Counter
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(REPO), str(REPO / "tests")]
+os.environ.setdefault("OPENCV_LOG_LEVEL", "OFF")
+
+from objectdetectionpl_tpu_torch.data import native  # noqa: E402
+from objectdetectionpl_tpu_torch.data.formats import _tiff_ifd  # noqa: E402
+from objectdetectionpl_tpu_torch.tools.format_files import (  # noqa: E402
+    gif_blocks, gif_bytes, gif_lzw, set_tiff_counts)
+
+
+def _port(path: str):
+    try:
+        return native.decode_image(path)
+    except native.ImageError:
+        return None
+
+
+def fax(seeds: int) -> None:
+    import cv2
+    from test_torch_port_tiff import TIFF_WRITER
+    tmp = Path(tempfile.mkdtemp(prefix="probe_fax_"))
+    (tmp / "tw.c").write_text(TIFF_WRITER)
+    subprocess.run(["cc", "-O1", str(tmp / "tw.c"), "-ltiff", "-o",
+                    str(tmp / "tw")], check=True)
+    codecs = {"G3 1-D": (3, 0), "G3 2-D": (3, 1), "G3 1-D fill": (3, 4),
+              "G3 2-D fill": (3, 5), "G4": (4, None), "RLE": (2, None)}
+    counts = Counter()
+    path = str(tmp / "probe.tif")
+    for seed in range(seeds):
+        rng = np.random.RandomState(seed)
+        w = (61, 200, 1728)[seed % 3]
+        bits = (np.arange(w)[None] // rng.randint(1, 90, (24, 1)) % 2
+                if seed % 2 == 0 else rng.rand(24, w) < rng.rand())
+        for name, (comp, t4) in codecs.items():
+            layout = ["rps=8"] if w > 1000 else \
+                [["rps=8"], ["rps=24"], ["tw=64", "th=16"]][rng.randint(3)]
+            fields = [f"w={w}", "h=24", "spp=1", "bps=1",
+                      f"photo={rng.randint(2)}", f"comp={comp}", *layout]
+            if t4 is not None:
+                fields.append(f"t4={t4}")
+            subprocess.run([str(tmp / "tw"), path, *fields],
+                           input=np.packbits(bits, axis=1).tobytes(),
+                           check=True)
+            data = Path(path).read_bytes()
+            tags, _ = _tiff_ifd(data)
+            offs, cnts = tags.get(273) or tags[324], tags.get(279) or tags[325]
+            for _ in range(40):
+                i = rng.randint(len(offs))
+                if rng.rand() < .5:
+                    damaged = set_tiff_counts(data, [
+                        rng.randint(1, cnts[i]) if k == i else None
+                        for k in range(len(offs))])
+                else:
+                    at = offs[i] + rng.randint(cnts[i])
+                    damaged = bytearray(data)
+                    damaged[at:offs[i] + cnts[i]] = bytes(
+                        offs[i] + cnts[i] - at)
+                Path(path).write_bytes(bytes(damaged))
+                ref, got = cv2.imread(path), _port(path)
+                same = (ref is None and got is None) or (
+                    ref is not None and got is not None
+                    and np.array_equal(ref[..., ::-1], got))
+                counts[name, "files"] += 1
+                counts[name, "as cv2"] += same
+    for name in codecs:
+        print(f"{name}: {counts[name, 'as cv2']} of {counts[name, 'files']}"
+              f" files read as cv2 reads them")
+
+
+_DECODE = """
+import hashlib, os, sys
+import cv2
+names = sorted(os.listdir(sys.argv[1]))
+for n in (names[::-1] if sys.argv[2] == "reverse" else names):
+    im = cv2.imread(os.path.join(sys.argv[1], n))
+    print(n, "None" if im is None else hashlib.sha1(im.tobytes()).hexdigest())
+"""
+
+
+def gif(files: int) -> None:
+    tmp = Path(tempfile.mkdtemp(prefix="probe_gif_"))
+    for s in range(files):
+        rng = np.random.RandomState(s)
+        mcs = rng.randint(2, 9)
+        w, h = rng.randint(1, 9), rng.randint(1, 5)
+        idx = rng.randint(0, 1 << mcs, rng.randint(1, w * h + 1))
+        data = gif_lzw(idx.astype(np.uint8).tobytes(), mcs) + \
+            rng.randint(0, 256, rng.randint(1, 10)).astype(np.uint8).tobytes()
+        frame = b"," + struct.pack("<HHHHB", 0, 0, w, h, 0) + bytes([mcs]) \
+            + gif_blocks(data)
+        table = rng.randint(0, 256, (1 << mcs, 3))
+        (tmp / f"{s:05d}.gif").write_bytes(gif_bytes(w, h, [frame], table))
+    runs = []
+    for order in ("forward", "reverse"):
+        out = subprocess.run([sys.executable, "-c", _DECODE, str(tmp), order],
+                             check=True, capture_output=True, text=True)
+        runs.append(dict(line.split() for line in out.stdout.splitlines()))
+    print(f"{files} files; cv2's decodes differ between the two processes "
+          f"on {sum(runs[0][n] != runs[1][n] for n in runs[0])}")
+    split = Counter()
+    for n, ref in runs[0].items():
+        got = _port(str(tmp / n))
+        mine = "None" if got is None else hashlib.sha1(
+            np.ascontiguousarray(got[..., ::-1]).tobytes()).hexdigest()
+        split["as cv2" if mine == ref else "cv2 refuses, the port reads"
+              if ref == "None" else "the port refuses, cv2 reads"
+              if mine == "None" else "both read, pixels differ"] += 1
+    for k, v in sorted(split.items()):
+        print(f"{k}: {v}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("probe", choices=["fax", "gif"])
+    ap.add_argument("--seeds", type=int, default=60)
+    ap.add_argument("--files", type=int, default=3000)
+    a = ap.parse_args()
+    fax(a.seeds) if a.probe == "fax" else gif(a.files)
+
+
+if __name__ == "__main__":
+    main()

@@ -80,12 +80,13 @@ def pack(codes) -> bytes:
 
 
 def widths(codes, mcs=2):
-    """Each code with the width a decoder reads it at."""
+    """Each code with the width a decoder reads it at (an End code resets
+    it as a Clear does)."""
     clear, end = 1 << mcs, (1 << mcs) + 1
     nxt, width, first, out = end + 1, mcs + 1, True, []
     for c in codes:
         out.append((c, width))
-        if c == clear:
+        if c in (clear, end):
             nxt, width, first = end + 1, mcs + 1, True
         elif c != end:
             if not first and nxt < 4096:
@@ -260,6 +261,37 @@ def test_codes_past_the_frame(tmp_path, name):
     got = like_cv2(tmp_path, gif_bytes(w, 1, [raw_frame(w, 1, codes, mcs)],
                                        table))
     assert (got is not None) == reads
+
+
+AFTER_END = {  # name: (width, codes, the port's indices or None)
+    "colours after an early End": (4, [4, 1, 2, 5, 3, 0], [1, 2, 3, 0]),
+    "a table built after the End": (5, [4, 1, 2, 5, 3, 6], [1, 2, 3, 3, 3]),
+    "strings from the table since the End": (6, [4, 1, 2, 5, 2, 3, 6],
+                                             [1, 2, 2, 3, 2, 3]),
+    "a table code first after the End": (4, [4, 1, 2, 5, 6, 1], None),
+    "a code past the table since the End": (4, [4, 1, 2, 5, 3, 7], None),
+}
+
+
+@pytest.mark.parametrize("name", list(AFTER_END))
+def test_codes_after_the_end_code(tmp_path, name):
+    """The port's rule for LZW codes after an End code (mcs 2: Clear 4,
+    End 5): they decode on as after a Clear, from an empty table.  cv2
+    5.0's lzwDecode empties its table there without resizing it and reads
+    on through the emptied entries; its output was the same in every
+    process that probed it, but its rule was not found, so this is a
+    deliberate difference (ROADMAP, "Deliberate differences") and only
+    the port's output is held here."""
+    w, codes, want = AFTER_END[name]
+    table = np.arange(12).reshape(4, 3) * 20
+    path = tmp_path / "end.gif"
+    path.write_bytes(gif_bytes(w, 1, [raw_frame(w, 1, codes)], table))
+    if want is None:
+        with pytest.raises(native.ImageError, match="GIF: .*LZW"):
+            native.decode_image(str(path))
+    else:
+        np.testing.assert_array_equal(native.decode_image(str(path))[0],
+                                      table[want])
 
 
 def test_refused(tmp_path):

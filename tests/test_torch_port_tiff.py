@@ -39,12 +39,11 @@ file under its own name and under a ``.jpg`` name.
   and tiles of every codec (Group 3's only flipped: cut Group 3 strips
   are ROADMAP §C's open fault), byte counts of 0, short and past the
   file's end, a FillOrder 2 tag on data written MSB first;
-- SGI LogL and LogLuv under SGILog compression (tif_luv.c's 8-bit tone
-  map); the 24-bit LogLuv kind, which cv2 reads and the port does not yet
-  (ROADMAP §C), raises naming itself.
+- SGI LogL and LogLuv under SGILog compression and 24-bit LogLuv under
+  SGILog24 (tif_luv.c's 8-bit tone map; the 24-bit decode is held to
+  the static libtiff by ``test_torch_port_logluv24.py``).
 """
 
-import struct
 import subprocess
 
 import cv2
@@ -57,7 +56,7 @@ from objectdetectionpl_tpu_torch.data.parsers import common
 from objectdetectionpl_tpu_torch.tools import format_files
 from objectdetectionpl_tpu_torch.tools.fixture_trees import TESTDATA
 from objectdetectionpl_tpu_torch.tools.format_files import (
-    jpeg_tiff_bytes, thunderscan_bytes, tiff_bytes)
+    jpeg_tiff_bytes, set_tiff_counts, thunderscan_bytes, tiff_bytes)
 
 H, W = 21, 37          # tiles of 16 are clipped at the right and the bottom
 
@@ -416,6 +415,30 @@ def test_jpeg_tables_and_abbreviated_strip(tmp_path, fixture):
         str(TESTDATA / fixture)))
 
 
+@pytest.mark.parametrize("layout", ["one strip", "strips of 16",
+                                    "tiles"])
+def test_jpeg_strip_shorter_than_its_segments(tmp_path, libtiff, layout):
+    """A JPEG strip or tile whose byte count ends inside its stream, at
+    every byte of the second one: cv2 refuses the file where the count
+    ends inside the stream's marker segments (before its scan data), and
+    reads on where it ends inside the scan data, libjpeg given a fake EOI
+    (premature end of data); the port does the same."""
+    rgb = _crop()
+    h, w = rgb.shape[:2]
+    data = libtiff(rgb, w=w, h=h, comp=7, spp=3, photo=6, rgbmode=1, ysh=2,
+                   ysv=2, **{"one strip": {}, "strips of 16": dict(rps=16),
+                             "tiles": dict(tw=32, th=32)}[layout])
+    tags, _ = formats._tiff_ifd(data)
+    counts = tags.get(279) or tags.get(325)
+    k = min(1, len(counts) - 1)
+    reads = [like_cv2(tmp_path, set_tiff_counts(data, [
+        end if i == k else None for i in range(len(counts))])) is not None
+        for end in range(1, counts[k])]
+    # refused while the header lasts, then read on
+    assert not reads[0] and reads[-1]
+    assert reads == sorted(reads)
+
+
 FAX = {"RLE": dict(comp=2), "G3 1-D": dict(comp=3, t4=0),
        "G3 2-D": dict(comp=3, t4=1), "G3 1-D fill bits": dict(comp=3, t4=4),
        "G3 2-D fill bits": dict(comp=3, t4=5), "G4": dict(comp=4)}
@@ -454,6 +477,10 @@ COMMITTED_TIFF = {
     "tiff_logluv": dict(spp=3, bps=32, photo=32845, comp=34676, sgilog=0,
                         rps=16),
     "tiff_logl": dict(spp=1, bps=32, photo=32844, comp=34676, sgilog=0),
+    "tiff_logluv24": dict(spp=3, bps=32, photo=32845, comp=34677, sgilog=0,
+                          rps=16),
+    "tiff_logluv24_tiles": dict(spp=3, bps=32, photo=32845, comp=34677,
+                                sgilog=0, tw=16, th=16),
 }
 
 
@@ -613,10 +640,10 @@ def test_signed_samples_read_unsigned(tmp_path):
 @pytest.mark.parametrize("kind", ["LogL", "LogL float", "LogLuv",
                                   "LogLuv 24-bit"])
 def test_sgilog(tmp_path, libtiff, kind):
-    """SGI LogL and LogLuv under SGILog compression, which the RGBA reader
-    has tif_luv.c tone-map to 8 bits (256 sqrt(Y); LogLuv through XYZ and
-    CCIR-709 primaries), in strips and tiles; the 24-bit LogLuv kind,
-    which cv2 reads too, still raises naming itself (ROADMAP §C)."""
+    """SGI LogL and LogLuv under SGILog compression, and 24-bit LogLuv
+    under SGILog24, which the RGBA reader has tif_luv.c tone-map to 8 bits
+    (256 sqrt(Y); LogLuv through XYZ and CCIR-709 primaries), in strips
+    and tiles."""
     rng = np.random.RandomState(10)
     h, w = 40, 53
     samples, fields = {
@@ -632,34 +659,8 @@ def test_sgilog(tmp_path, libtiff, kind):
                                sgilog=0)),
     }[kind]
     for layout in (dict(rps=7), dict(tw=16, th=16)):
-        data = libtiff(samples, w=w, h=h, **fields, **layout)
-        if kind != "LogLuv 24-bit":
-            assert like_cv2(tmp_path, data) is not None
-            continue
-        path = tmp_path / "log.tif"
-        path.write_bytes(data)
-        assert load_image_rgb(str(path)) is not None
-        with pytest.raises(native.ImageError, match="TIFF: .*SGILog24"):
-            native.decode_image(str(path))
-
-
-def _set_counts(data: bytes, counts) -> bytes:
-    """``data`` with its StripByteCounts or TileByteCounts replaced where
-    ``counts`` is not None."""
-    tags, e = formats._tiff_ifd(data)
-    tag = 279 if 279 in tags else 325
-    at = struct.unpack(e + "I", data[4:8])[0]
-    out = bytearray(data)
-    for k in range(struct.unpack(e + "H", data[at:at + 2])[0]):
-        o = at + 2 + 12 * k
-        t, _, n = struct.unpack(e + "HHI", data[o:o + 8])
-        if t == tag:
-            vo = o + 8 if n == 1 else struct.unpack(e + "I",
-                                                    data[o + 8:o + 12])[0]
-            for i, c in enumerate(counts):
-                if c is not None:
-                    out[vo + 4 * i:vo + 4 * i + 4] = struct.pack(e + "I", c)
-    return bytes(out)
+        assert like_cv2(tmp_path, libtiff(samples, w=w, h=h, **fields,
+                                          **layout)) is not None
 
 
 def _damaged(data: bytes, rng, how: str) -> bytes:
@@ -677,7 +678,7 @@ def _damaged(data: bytes, rng, how: str) -> bytes:
         start = offs[i] + rng.randint(counts[i])
         out[start:offs[i] + counts[i]] = bytes(offs[i] + counts[i] - start)
     else:
-        return _set_counts(data, [rng.randint(1, max(counts[i], 2))
+        return set_tiff_counts(data, [rng.randint(1, max(counts[i], 2))
                                   if k == i else None
                                   for k in range(len(offs))])
     return bytes(out)
@@ -686,7 +687,8 @@ def _damaged(data: bytes, rng, how: str) -> bytes:
 DAMAGED = ["LZW", "LZW predictor 16-bit MM", "old LZW", "Deflate",
            "Deflate tiles predictor", "PackBits planar", "uncompressed strips",
            "uncompressed tiles", "G4", "RLE", "G3 2-D", "ThunderScan", "JPEG",
-           "SGILog LogLuv"]
+           "SGILog LogLuv", "G3 1-D", "G3 2-D fill bits tiles",
+           "SGILog24 tiles"]
 
 
 @pytest.mark.parametrize("kind", DAMAGED)
@@ -697,8 +699,7 @@ def test_damaged_strips_read_on(tmp_path, libtiff, kind):
     swap.  A byte count of 0 or past the file's end fails the image, and
     an uncompressed file's counts are re-estimated where TIFFReadDirectory
     finds them wrong.  Bits flipped, counts cut and tails zeroed, 6 seeds
-    each; Group 3's data only flipped (cut Group 3 strips are ROADMAP
-    §C's open fault)."""
+    each."""
     rng = np.random.RandomState(DAMAGED.index(kind))
     img = np.repeat(rng.randint(0, 256, (12, W, 3)), 2, 0)
     bits = np.packbits(np.arange(61)[None] // rng.randint(1, 9, (24, 1)) % 2,
@@ -734,11 +735,51 @@ def test_damaged_strips_read_on(tmp_path, libtiff, kind):
         "SGILog LogLuv": lambda: libtiff(
             (img / 200).astype(np.float32), w=W, h=24, spp=3, bps=32,
             photo=32845, comp=34676, sgilog=0, rps=8),
+        "G3 1-D": lambda: libtiff(bits, w=61, h=24, spp=1, bps=1, photo=0,
+                                  comp=3, t4=0, rps=8),
+        "G3 2-D fill bits tiles": lambda: libtiff(
+            bits, w=61, h=24, spp=1, bps=1, photo=1, comp=3, t4=5, tw=32,
+            th=16),
+        "SGILog24 tiles": lambda: libtiff(
+            (img / 200).astype(np.float32), w=W, h=24, spp=3, bps=32,
+            photo=32845, comp=34677, sgilog=0, tw=16, th=16),
     }[kind]
     data = make()
-    for how in ("flip",) if kind == "G3 2-D" else ("flip", "cut", "zero"):
+    for how in ("flip", "cut", "zero"):
         for _ in range(6):
             like_cv2(tmp_path, _damaged(data, rng, how))
+
+
+G3 = {"1-D": (0, 0), "2-D": (1, 22), "1-D fill bits": (4, 4),
+      "2-D fill bits": (5, 1)}          # name: (T4Options, seed)
+
+
+@pytest.mark.parametrize("options", list(G3))
+def test_group3_strips_that_end_early(tmp_path, libtiff, options):
+    """Group 3 strips of 8 rows whose byte count is cut, or whose tail is
+    zeroed, at every byte: inside runs, at rows' EOLs and inside 2-D
+    rows.  libtiff 4.7 (cv2's), where the data end before an EOL, decodes
+    the strip again from its first byte without EOLs, and that mode stays
+    for the image's later strips, whose 2-D codes can read past the
+    reference row into what earlier strips left in the codec's run
+    arrays.  A random 200-pixel-wide image; the cut strip is the second
+    of three."""
+    t4, seed = G3[options]
+    rng = np.random.RandomState(seed)
+    bits = np.packbits(rng.rand(24, 200) < rng.uniform(.05, .5), axis=1)
+    data = libtiff(bits, w=200, h=24, spp=1, bps=1, photo=0, comp=3, t4=t4,
+                   rps=8)
+    tags, _ = formats._tiff_ifd(data)
+    at, n = tags[273][1], tags[279][1]
+    path = tmp_path / "g3.tif"
+    for end in range(n):
+        cut = bytearray(data)
+        cut[at + end:at + n] = bytes(n - end)
+        for damaged in (bytes(cut), set_tiff_counts(data, [None, end or 1])):
+            path.write_bytes(damaged)
+            np.testing.assert_array_equal(native.decode_image(str(path)),
+                                          load_image_rgb(str(path)),
+                                          err_msg=f"{end}")
 
 
 def test_strip_and_tile_counts(tmp_path):
@@ -756,7 +797,7 @@ def test_strip_and_tile_counts(tmp_path):
         for i in range(len(counts)):
             for c in (0, 1, counts[i] - 1, counts[i] + 10,
                       counts[i] + 100000):
-                like_cv2(tmp_path, _set_counts(
+                like_cv2(tmp_path, set_tiff_counts(
                     data, [c if k == i else None
                            for k in range(len(counts))]))
 
