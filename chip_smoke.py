@@ -214,7 +214,11 @@ exits non-zero:
    JPEGTables and a strip, libtiff's YCbCr strips and tiles, the CMYK
    JPEG), YCbCr units (2x2, clipped 4x4 tiles), CMYK, CIELab, CCITT RLE,
    Group 3 2-D and Group 4, FillOrder 2, old-style LZW, ThunderScan,
-   signed samples, SGILog LogLuv and LogL): each decoded by
+   signed samples, SGILog LogLuv and LogL), AVIF (cv2.imwrite's default
+   with CDEF and quantizer matrices, Pillow's default, 4:4:4, 4:2:2,
+   4:0:0, lossless, two tiles of 128x128 superblocks, an odd 167x125 and
+   a 500x375; their host ms on a line of their own, ``formats_avif``):
+   each decoded by
    ``native.decode_image`` (the port's
    ``load_image_rgb``), its SHA-256 held against cv2's recorded in
    ``data/testdata/formats/sha256.json``, with its host ms per image on
@@ -3215,6 +3219,10 @@ def phase_formats(card: str) -> dict:
                             "fused_route": bool(code[0] == native.JPEG_OK)}
         emit({"phase": "formats_decode", "card": card,
               "cpu_count": os.cpu_count(), "decode": decode})
+        emit({"phase": "formats_avif", "card": card,    # host ms an image
+              "ms": {k: decode[k]["ms"] for k in format_files.AVIF_KINDS},
+              "shapes": {k: decode[k]["shape"]
+                         for k in format_files.AVIF_KINDS}})
         n_train = FORMATS_TREE["n_train"]
         tree = {**FORMATS_TREE,
                 "files": [paths["jpeg"]] * n_train + list(paths.values())}

@@ -1,0 +1,2760 @@
+// The AV1 decoder of the port's AVIF reader (host C++17; data/formats.py
+// parses the HEIF boxes around it): one shown key frame, decoded by the
+// AV1 specification's decoding process, to the planes cv2.imread's libavif
+// gets from its AV1 decoder.
+//
+// What it reads: sized OBUs with or without extensions (the temporal
+// delimiter, padding and metadata skipped); the sequence header,
+// full or reduced still picture, every profile's colour config; the key
+// frame's header with its quantizer, segmentation, delta q / lf, loop
+// filter, CDEF, tx mode and tile info (uniform or explicit, several tiles
+// and tile groups); the symbol decoder with its adaptation; every
+// partition, intra mode (directional with angle deltas and the intra edge
+// filter and upsampling, smooth, Paeth, CFL, filter intra), the segment
+// ids, skip, cdef_idx, delta q / lf, tx size, intra tx type and every
+// coefficient; dequantization with or without quantizer matrices; the
+// DCT 4..64, ADST 4..16, identity and the lossless WHT; the deblocking
+// filter and CDEF.  Pixels are uint16.
+//
+// What it refuses, naming the tool: loop restoration, superres, film
+// grain, a block that uses a palette, intra block copy, bit depths above
+// 8, several operating points or layers, frames that are not one shown
+// key frame.  As libaom (cv2's AV1 decoder) it refuses an unsized OBU, an
+// OBU whose trailing bits are missing, and a tile whose data do not end
+// where its symbols do.  It never returns part of an image.
+//
+// C interface:
+//   av1_probe(data, len, info, msg, msg_len)
+//     info[0..9] = width, height, subsampling x, y, monochrome, bit depth,
+//     colour range, matrix coefficients, colour primaries, transfer
+//   av1_decode(data, len, y, u, v, msg, msg_len)
+//     planes of width x height (y) and the subsampled size (u, v; unused
+//     for a monochrome stream), row-major.
+// Both return 0, or 1 with the reason in msg.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <vector>
+
+#include "av1_tables.h"
+
+namespace {
+
+struct Fail {
+  std::string msg;
+};
+
+[[noreturn]] void fail(const std::string& m) { throw Fail{m}; }
+
+[[noreturn]] void refuse(const char* tool) {
+  fail(std::string("the AV1 stream uses ") + tool +
+       ", which the port does not read");
+}
+
+void set_msg(char* msg, int msg_len, const std::string& s) {
+  if (msg && msg_len > 0) std::snprintf(msg, msg_len, "%s", s.c_str());
+}
+
+inline int clip3(int lo, int hi, int x) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+inline int round2(int64_t x, int n) {
+  return n == 0 ? static_cast<int>(x)
+                : static_cast<int>((x + (int64_t(1) << (n - 1))) >> n);
+}
+inline int floor_log2(uint32_t x) { return x ? 31 - __builtin_clz(x) : 0; }
+
+// ---------------------------------------------------------------------------
+// Constants of the specification
+
+enum { KEY_FRAME = 0 };
+enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
+       D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
+       PAETH_PRED, UV_CFL_PRED };
+enum { PARTITION_NONE, PARTITION_HORZ, PARTITION_VERT, PARTITION_SPLIT,
+       PARTITION_HORZ_A, PARTITION_HORZ_B, PARTITION_VERT_A,
+       PARTITION_VERT_B, PARTITION_HORZ_4, PARTITION_VERT_4 };
+enum { BLOCK_4X4, BLOCK_4X8, BLOCK_8X4, BLOCK_8X8, BLOCK_8X16, BLOCK_16X8,
+       BLOCK_16X16, BLOCK_16X32, BLOCK_32X16, BLOCK_32X32, BLOCK_32X64,
+       BLOCK_64X32, BLOCK_64X64, BLOCK_64X128, BLOCK_128X64,
+       BLOCK_128X128, BLOCK_4X16, BLOCK_16X4, BLOCK_8X32, BLOCK_32X8,
+       BLOCK_16X64, BLOCK_64X16, BLOCK_INVALID };
+enum { TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4,
+       TX_8X16, TX_16X8, TX_16X32, TX_32X16, TX_32X64, TX_64X32, TX_4X16,
+       TX_16X4, TX_8X32, TX_32X8, TX_16X64, TX_64X16 };
+enum { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
+       FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT,
+       V_ADST, H_ADST, V_FLIPADST, H_FLIPADST };
+enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2 };
+enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
+enum { ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT };
+enum { SEG_LVL_ALT_Q = 0, SEG_LVL_ALT_LF_Y_V = 1, SEG_LVL_REF_FRAME = 5,
+       SEG_LVL_SKIP = 6, SEG_LVL_MAX = 8 };
+constexpr int MAX_SEGMENTS = 8, MAX_LOOP_FILTER = 63;
+
+const uint8_t kWide4[22] = {1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8, 16, 16, 16, 32,
+                            32, 1, 4, 2, 8, 4, 16};
+const uint8_t kHigh4[22] = {1, 2, 1, 2, 4, 2, 4, 8, 4, 8, 16, 8, 16, 32, 16,
+                            32, 4, 1, 8, 2, 16, 4};
+const uint8_t kTxW[19] = {4, 8, 16, 32, 64, 4, 8, 8, 16, 16, 32, 32, 64, 4,
+                          16, 8, 32, 16, 64};
+const uint8_t kTxH[19] = {4, 8, 16, 32, 64, 8, 4, 16, 8, 32, 16, 64, 32, 16,
+                          4, 32, 8, 64, 16};
+const uint8_t kMaxTxRect[22] = {
+    TX_4X4,   TX_4X8,   TX_8X4,   TX_8X8,   TX_8X16,  TX_16X8,
+    TX_16X16, TX_16X32, TX_32X16, TX_32X32, TX_32X64, TX_64X32,
+    TX_64X64, TX_64X64, TX_64X64, TX_64X64, TX_4X16,  TX_16X4,
+    TX_8X32,  TX_32X8,  TX_16X64, TX_64X16};
+const uint8_t kSplitTx[19] = {
+    TX_4X4,   TX_4X4,   TX_8X8,   TX_16X16, TX_32X32, TX_4X4,  TX_4X4,
+    TX_8X8,   TX_8X8,   TX_16X16, TX_16X16, TX_32X32, TX_32X32, TX_4X8,
+    TX_8X4,   TX_8X16,  TX_16X8,  TX_16X32, TX_32X16};
+// get_plane_residual_size: [block][subsampling_x][subsampling_y]
+const uint8_t kSubSize[22][2][2] = {
+    {{BLOCK_4X4, BLOCK_4X4}, {BLOCK_4X4, BLOCK_4X4}},
+    {{BLOCK_4X8, BLOCK_4X4}, {BLOCK_INVALID, BLOCK_4X4}},
+    {{BLOCK_8X4, BLOCK_INVALID}, {BLOCK_4X4, BLOCK_4X4}},
+    {{BLOCK_8X8, BLOCK_8X4}, {BLOCK_4X8, BLOCK_4X4}},
+    {{BLOCK_8X16, BLOCK_8X8}, {BLOCK_INVALID, BLOCK_4X8}},
+    {{BLOCK_16X8, BLOCK_INVALID}, {BLOCK_8X8, BLOCK_8X4}},
+    {{BLOCK_16X16, BLOCK_16X8}, {BLOCK_8X16, BLOCK_8X8}},
+    {{BLOCK_16X32, BLOCK_16X16}, {BLOCK_INVALID, BLOCK_8X16}},
+    {{BLOCK_32X16, BLOCK_INVALID}, {BLOCK_16X16, BLOCK_16X8}},
+    {{BLOCK_32X32, BLOCK_32X16}, {BLOCK_16X32, BLOCK_16X16}},
+    {{BLOCK_32X64, BLOCK_32X32}, {BLOCK_INVALID, BLOCK_16X32}},
+    {{BLOCK_64X32, BLOCK_INVALID}, {BLOCK_32X32, BLOCK_32X16}},
+    {{BLOCK_64X64, BLOCK_64X32}, {BLOCK_32X64, BLOCK_32X32}},
+    {{BLOCK_64X128, BLOCK_64X64}, {BLOCK_INVALID, BLOCK_32X64}},
+    {{BLOCK_128X64, BLOCK_INVALID}, {BLOCK_64X64, BLOCK_64X32}},
+    {{BLOCK_128X128, BLOCK_128X64}, {BLOCK_64X128, BLOCK_64X64}},
+    {{BLOCK_4X16, BLOCK_4X8}, {BLOCK_INVALID, BLOCK_4X8}},
+    {{BLOCK_16X4, BLOCK_INVALID}, {BLOCK_8X4, BLOCK_8X4}},
+    {{BLOCK_8X32, BLOCK_8X16}, {BLOCK_INVALID, BLOCK_4X16}},
+    {{BLOCK_32X8, BLOCK_INVALID}, {BLOCK_16X8, BLOCK_16X4}},
+    {{BLOCK_16X64, BLOCK_16X32}, {BLOCK_INVALID, BLOCK_8X32}},
+    {{BLOCK_64X16, BLOCK_INVALID}, {BLOCK_32X16, BLOCK_32X8}}};
+const uint8_t kIntraModeContext[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0};
+const int kModeToAngle[13] = {0, 90, 180, 45, 135, 113, 157, 203, 67,
+                              0, 0, 0, 0};
+const uint8_t kModeToTxfm[14] = {
+    DCT_DCT,  ADST_DCT,  DCT_ADST, DCT_DCT,  ADST_ADST, ADST_DCT, DCT_ADST,
+    DCT_ADST, ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST, ADST_ADST, DCT_DCT};
+const uint8_t kFilterIntraToDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED,
+                                      DC_PRED};
+const uint8_t kTxTypeInvSet1[7] = {IDTX,      DCT_DCT,  V_DCT,   H_DCT,
+                                   ADST_ADST, ADST_DCT, DCT_ADST};
+const uint8_t kTxTypeInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT,
+                                   DCT_ADST};
+const int kSegFeatureBits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
+const int kSegFeatureSigned[8] = {1, 1, 1, 1, 1, 0, 0, 0};
+const int kSegFeatureMax[8] = {255, 63, 63, 63, 63, 7, 0, 0};
+const int kRowShift[19] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 2,
+                           2, 2, 2};
+const int kSigRefDiff[3][5][2] = {
+    {{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
+    {{0, 1}, {1, 0}, {0, 2}, {0, 3}, {0, 4}},
+    {{0, 1}, {1, 0}, {2, 0}, {3, 0}, {4, 0}}};
+const int kMagRefOffset[3][3][2] = {{{0, 1}, {1, 0}, {1, 1}},
+                                    {{0, 1}, {1, 0}, {0, 2}},
+                                    {{0, 1}, {1, 0}, {2, 0}}};
+const int kEdgeKernel[3][5] = {{0, 4, 8, 4, 0}, {0, 5, 6, 5, 0},
+                               {2, 4, 4, 4, 2}};
+const int kCdefUvDir[2][2][8] = {
+    {{0, 1, 2, 3, 4, 5, 6, 7}, {1, 2, 2, 2, 3, 4, 6, 0}},
+    {{7, 0, 2, 4, 5, 6, 6, 6}, {0, 1, 2, 3, 4, 5, 6, 7}}};
+const int kCdefDirections[8][2][2] = {
+    {{-1, 1}, {-2, 2}}, {{0, 1}, {-1, 2}}, {{0, 1}, {0, 2}},
+    {{0, 1}, {1, 2}},   {{1, 1}, {2, 2}},  {{1, 0}, {2, 1}},
+    {{1, 0}, {2, 0}},   {{1, 0}, {2, -1}}};
+const int kCdefPriTaps[2][2] = {{4, 2}, {3, 3}};
+const int kCdefSecTaps[2][2] = {{2, 1}, {2, 1}};
+
+inline int log2i(int x) { return floor_log2(static_cast<uint32_t>(x)); }
+inline int sq_tx(int side) { return log2i(side) - 2; }     // 4 -> TX_4X4
+inline int tx_sqr(int t) { return sq_tx(std::min(kTxW[t], kTxH[t])); }
+inline int tx_sqr_up(int t) { return sq_tx(std::max(kTxW[t], kTxH[t])); }
+
+int block_of(int w4, int h4) {
+  for (int b = 0; b < 22; ++b)
+    if (kWide4[b] == w4 && kHigh4[b] == h4) return b;
+  return BLOCK_INVALID;
+}
+
+int partition_subsize(int p, int b) {
+  const int n = kWide4[b];
+  switch (p) {
+    case PARTITION_NONE: return b;
+    case PARTITION_HORZ: case PARTITION_HORZ_A: case PARTITION_HORZ_B:
+      return block_of(n, n / 2);
+    case PARTITION_VERT: case PARTITION_VERT_A: case PARTITION_VERT_B:
+      return block_of(n / 2, n);
+    case PARTITION_SPLIT: return block_of(n / 2, n / 2);
+    case PARTITION_HORZ_4: return block_of(n, n / 4);
+    default: return block_of(n / 4, n);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Bits
+
+struct BitReader {
+  const uint8_t* p = nullptr;
+  size_t size = 0, pos = 0;      // pos in bits
+  BitReader() = default;
+  BitReader(const uint8_t* d, size_t n) : p(d), size(n) {}
+  uint32_t f(int n) {
+    uint32_t x = 0;
+    for (int i = 0; i < n; ++i) {
+      if (pos >= size * 8) fail("the AV1 stream ends inside a header");
+      x = (x << 1) | ((p[pos >> 3] >> (7 - (pos & 7))) & 1);
+      ++pos;
+    }
+    return x;
+  }
+  int su(int n) {
+    int v = static_cast<int>(f(n));
+    const int sign = 1 << (n - 1);
+    return (v & sign) ? v - 2 * sign : v;
+  }
+  uint32_t ns(uint32_t n) {
+    int w = floor_log2(n) + 1;
+    uint32_t m = (1u << w) - n;
+    uint32_t v = f(w - 1);
+    if (v < m) return v;
+    return (v << 1) - m + f(1);
+  }
+  uint32_t uvlc() {
+    int lz = 0;
+    while (!f(1)) {
+      if (++lz >= 32) fail("the AV1 stream has a malformed uvlc value");
+    }
+    return lz ? f(lz) + (1u << lz) - 1 : 0;
+  }
+  void byte_align() { pos = (pos + 7) & ~size_t(7); }
+};
+
+uint64_t leb128(const uint8_t* d, size_t n, size_t* at) {
+  uint64_t v = 0;
+  for (int i = 0; i < 8; ++i) {
+    if (*at >= n) fail("the AV1 stream ends inside an OBU size");
+    const uint8_t b = d[(*at)++];
+    v |= uint64_t(b & 0x7f) << (7 * i);
+    if (!(b & 0x80)) return v;
+  }
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// The symbol decoder (spec 8.2)
+
+struct Symbols {
+  const uint8_t* buf = nullptr;
+  size_t size = 0, pos = 0;     // bits
+  uint32_t value = 0, range = 0;
+  int64_t max_bits = 0;
+  bool adapt = true;
+  uint32_t bits(int n) {       // n <= 15; zeros past the end
+    if (n == 0) return 0;
+    const size_t byte = pos >> 3;
+    uint32_t win = 0;
+    for (int i = 0; i < 3; ++i)
+      win = (win << 8) | (byte + i < size ? buf[byte + i] : 0);
+    const uint32_t x = (win >> (24 - int(pos & 7) - n)) & ((1u << n) - 1);
+    pos += n;
+    return x;
+  }
+  void init(const uint8_t* b, size_t sz, bool disable_update) {
+    if (sz == 0) fail("the AV1 stream has an empty tile");
+    buf = b; size = sz; pos = 0;
+    const int nb = static_cast<int>(std::min<size_t>(sz * 8, 15));
+    const uint32_t padded = bits(nb) << (15 - nb);
+    value = ((1u << 15) - 1) ^ padded;
+    range = 1u << 15;
+    max_bits = int64_t(8) * sz - 15;
+    adapt = !disable_update;
+  }
+  int read(uint16_t* cdf, int n) {
+    uint32_t cur = range, prev;
+    int symbol = -1;
+    do {
+      ++symbol;
+      prev = cur;
+      const uint32_t f = (1u << 15) - cdf[symbol];
+      cur = ((range >> 8) * (f >> 6) >> 1) + 4 * (n - symbol - 1);
+    } while (value < cur);
+    range = prev - cur;
+    value -= cur;
+    const int b = 15 - floor_log2(range);
+    range <<= b;
+    const int nb = static_cast<int>(
+        std::min<int64_t>(b, std::max<int64_t>(0, max_bits)));
+    const uint32_t data = bits(nb) << (b - nb);
+    value = data ^ (((value + 1) << b) - 1);
+    max_bits -= b;
+    if (adapt) {
+      const int rate =
+          3 + (cdf[n] > 15) + (cdf[n] > 31) + std::min(floor_log2(n), 2);
+      uint32_t tmp = 0;
+      for (int i = 0; i < n - 1; ++i) {
+        if (i == symbol) tmp = 1u << 15;
+        if (tmp < cdf[i])
+          cdf[i] -= static_cast<uint16_t>((cdf[i] - tmp) >> rate);
+        else
+          cdf[i] += static_cast<uint16_t>((tmp - cdf[i]) >> rate);
+      }
+      cdf[n] += (cdf[n] < 32);
+    }
+    return symbol;
+  }
+  int rbool() {
+    uint16_t cdf[3] = {1 << 14, 1 << 15, 0};
+    const bool a = adapt;
+    adapt = false;
+    const int b = read(cdf, 2);
+    adapt = a;
+    return b;
+  }
+  int literal(int n) {
+    int x = 0;
+    for (int i = 0; i < n; ++i) x = 2 * x + rbool();
+    return x;
+  }
+  // exit_symbol's conformance (libaom fails a tile that breaks it): no
+  // more than 14 bits read past the data, and the padding after the
+  // last symbol a 1 bit, then zeros to the tile's end.
+  bool padding_ok() const {
+    if (max_bits < -14) return false;
+    const int64_t end = int64_t(size) * 8;
+    const int64_t trailing = end - max_bits - 15;
+    auto bit = [&](int64_t p) { return (buf[p >> 3] >> (7 - (p & 7))) & 1; };
+    if (trailing < 0 || !bit(trailing)) return false;
+    for (int64_t p = trailing + 1; p < end; ++p)
+      if (bit(p)) return false;
+    return true;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The CDFs of a tile
+
+struct Cdfs {
+  uint16_t y_mode[5][5][14];
+  uint16_t uv_mode[2][13][15];
+  uint16_t angle_delta[8][8];
+  uint16_t partition[20][11];
+  uint16_t skip[3][3];
+  uint16_t segment_id[3][9];
+  uint16_t delta_q[5];
+  uint16_t delta_lf[5];
+  uint16_t delta_lf_multi[4][5];
+  uint16_t filter_intra[22][3];
+  uint16_t filter_intra_mode[6];
+  uint16_t tx_size[4][3][4];
+  uint16_t intra_tx[2][4][13][17];
+  uint16_t palette_y[7][3][3];
+  uint16_t palette_uv[2][3];
+  uint16_t cfl_sign[9];
+  uint16_t cfl_alpha[6][17];
+  uint16_t txb_skip[5][13][3];
+  uint16_t eob16[2][2][6], eob32[2][2][7], eob64[2][2][8], eob128[2][2][9],
+      eob256[2][2][10], eob512[2][2][11], eob1024[2][2][12];
+  uint16_t eob_extra[5][2][9][3];
+  uint16_t dc_sign[2][3][3];
+  uint16_t base_eob[5][2][4][4];
+  uint16_t base[5][2][42][5];
+  uint16_t br[5][2][21][5];
+
+  void init(int base_q_idx) {
+#define COPY(dst, src) std::memcpy(dst, src, sizeof(dst))
+    COPY(y_mode, Default_Intra_Frame_Y_Mode_Cdf);
+    COPY(uv_mode, Default_Uv_Mode_Cdf);
+    COPY(angle_delta, Default_Angle_Delta_Cdf);
+    COPY(partition, Default_Partition_Cdf);
+    COPY(skip, Default_Skip_Cdf);
+    COPY(segment_id, Default_Segment_Id_Cdf);
+    COPY(delta_q, Default_Delta_Q_Cdf);
+    COPY(delta_lf, Default_Delta_Q_Cdf);
+    for (auto& c : delta_lf_multi) COPY(c, Default_Delta_Q_Cdf);
+    for (int b = 0; b < 22; ++b) {    // sizes that never filter: 16384
+      const uint16_t half[3] = {16384, 32768, 0};
+      const uint16_t* src =
+          b < 10 ? Default_Filter_Intra_Cdfs[b]
+          : (b >= 16 && b < 20) ? Default_Filter_Intra_Cdfs_Wide[b - 16]
+                                : half;
+      std::memcpy(filter_intra[b], src, sizeof(filter_intra[b]));
+    }
+    COPY(filter_intra_mode, Default_Filter_Intra_Mode_Cdf);
+    COPY(tx_size, Default_Tx_Size_Cdf);
+    COPY(intra_tx, Default_Intra_Tx_Type_Cdf);
+    COPY(palette_y, Default_Palette_Y_Mode_Cdf);
+    COPY(palette_uv, Default_Palette_Uv_Mode_Cdf);
+    COPY(cfl_sign, Default_Cfl_Sign_Cdf);
+    COPY(cfl_alpha, Default_Cfl_Alpha_Cdf);
+    const int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1
+                  : base_q_idx <= 120 ? 2 : 3;
+    COPY(txb_skip, Default_Txb_Skip_Cdf[q]);
+    COPY(eob16, Default_Eob_Pt_16_Cdf[q]);
+    COPY(eob32, Default_Eob_Pt_32_Cdf[q]);
+    COPY(eob64, Default_Eob_Pt_64_Cdf[q]);
+    COPY(eob128, Default_Eob_Pt_128_Cdf[q]);
+    COPY(eob256, Default_Eob_Pt_256_Cdf[q]);
+    COPY(eob512, Default_Eob_Pt_512_Cdf[q]);
+    COPY(eob1024, Default_Eob_Pt_1024_Cdf[q]);
+    COPY(eob_extra, Default_Eob_Extra_Cdf[q]);
+    COPY(dc_sign, Default_Dc_Sign_Cdf[q]);
+    COPY(base_eob, Default_Coeff_Base_Eob_Cdf[q]);
+    COPY(base, Default_Coeff_Base_Cdf[q]);
+    COPY(br, Default_Coeff_Br_Cdf[q]);
+#undef COPY
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Scans (spec: the default diagonal scans, the row and column scans)
+
+struct Scans {
+  std::vector<int16_t> def[19], mrow[19], mcol[19];
+  Scans() {
+    for (int t = 0; t < 19; ++t) {
+      const int w = std::min<int>(kTxW[t], 32), h = std::min<int>(kTxH[t], 32);
+      std::vector<int16_t>& s = def[t];
+      for (int d = 0; d < w + h - 1; ++d) {
+        // squares zig-zag; taller blocks run each diagonal downwards,
+        // wider ones upwards
+        bool down = w == h ? (d & 1) : (w < h);
+        for (int k = 0; k <= d; ++k) {
+          const int r = down ? k : d - k, c = d - r;
+          if (r < h && c < w) s.push_back(static_cast<int16_t>(r * w + c));
+        }
+      }
+      for (int i = 0; i < w * h; ++i) {
+        mrow[t].push_back(static_cast<int16_t>(i));
+        mcol[t].push_back(static_cast<int16_t>((i % h) * w + i / h));
+      }
+    }
+  }
+};
+
+const Scans& scans() {
+  static const Scans s;
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// Inverse transforms (spec 7.13.2, as libaom computes them: every add
+// clamped to the stage's range)
+
+int g_cos[65];
+struct CosInit {
+  CosInit() {
+    static const int16_t c[65] = {
+        4096, 4095, 4091, 4085, 4076, 4065, 4052, 4036, 4017, 3996, 3973,
+        3948, 3920, 3889, 3857, 3822, 3784, 3745, 3703, 3659, 3612, 3564,
+        3513, 3461, 3406, 3349, 3290, 3229, 3166, 3102, 3035, 2967, 2896,
+        2824, 2751, 2675, 2598, 2520, 2440, 2359, 2276, 2191, 2106, 2019,
+        1931, 1842, 1751, 1660, 1567, 1474, 1380, 1285, 1189, 1092, 995,
+        897,  799,  700,  601,  501,  401,  301,  201,  101,  0};
+    for (int i = 0; i < 65; ++i) g_cos[i] = c[i];
+  }
+} g_cos_init;
+
+inline int32_t hbtf(int w0, int32_t a, int w1, int32_t b) {
+  return static_cast<int32_t>((int64_t(w0) * a + int64_t(w1) * b + 2048) >> 12);
+}
+
+struct Tx1D {
+  int lo, hi;     // the stage range
+  int32_t cl(int64_t x) const {
+    return static_cast<int32_t>(x < lo ? lo : (x > hi ? hi : x));
+  }
+
+  // DCT of size n = 2^lg on t[0..n) in bit-reversed order, in place.
+  void dct_core(int32_t* t, int n) const {
+    if (n == 2) {
+      const int32_t a = t[0], b = t[1];
+      t[0] = hbtf(g_cos[32], a, g_cos[32], b);
+      t[1] = hbtf(g_cos[32], a, -g_cos[32], b);
+      return;
+    }
+    const int m = n / 2;
+    dct_core(t, m);
+    odd(t + m, m, n);
+    for (int i = 0; i < m; ++i) {
+      const int32_t a = t[i], b = t[n - 1 - i];
+      t[i] = cl(int64_t(a) + b);
+      t[n - 1 - i] = cl(int64_t(a) - b);
+    }
+  }
+  // The odd half of a DCT of size n: m = n / 2 values, the inputs of
+  // odd index in bit-reversed order.
+  void odd(int32_t* o, int m, int n) const {
+    const int lgn = log2i(n);
+    for (int i = 0; i < m / 2; ++i) {
+      int k = 0, x = m + i;
+      for (int b = 0; b < lgn; ++b) k |= ((x >> b) & 1) << (lgn - 1 - b);
+      const int q = k * 64 / n, p = 64 - q;
+      const int32_t a = o[i], b = o[m - 1 - i];
+      o[i] = hbtf(g_cos[p], a, -g_cos[q], b);
+      o[m - 1 - i] = hbtf(g_cos[q], a, g_cos[p], b);
+    }
+    const int levels = log2i(m);
+    for (int l = 1; l < levels; ++l) {
+      const int s = 1 << l;       // the adds: blocks of s, forward then reverse
+      for (int b = 0; b < m; b += s) {
+        const bool rev = (b / s) & 1;
+        for (int j = 0; j < s / 2; ++j) {
+          const int32_t x = o[b + j], y = o[b + s - 1 - j];
+          if (!rev) {
+            o[b + j] = cl(int64_t(x) + y);
+            o[b + s - 1 - j] = cl(int64_t(x) - y);
+          } else {
+            o[b + j] = cl(int64_t(y) - x);
+            o[b + s - 1 - j] = cl(int64_t(x) + y);
+          }
+        }
+      }
+      if (l == levels - 1) {      // the last rotation: by 32, type 1
+        for (int j = m / 4; j < m / 2; ++j) {
+          const int32_t a = o[j], b = o[m - 1 - j];
+          o[j] = hbtf(-g_cos[32], a, g_cos[32], b);
+          o[m - 1 - j] = hbtf(g_cos[32], a, g_cos[32], b);
+        }
+        continue;
+      }
+      const int S = 2 << l, H = m / 2 / S;   // blocks of S in the first half
+      for (int blk = 0; blk < H; ++blk) {
+        int br = 0;     // blk bit-reversed
+        for (int b = 0; b < log2i(H); ++b)
+          br |= ((blk >> b) & 1) << (log2i(H) - 1 - b);
+        const int th = (64 / (4 * H)) * (4 * br + 1);
+        const int base = blk * S;
+        for (int j = base + S / 4; j < base + 3 * S / 4; ++j) {
+          const int mj = m - 1 - j;
+          const int32_t a = o[j], b = o[mj];
+          if (j < base + S / 2) {     // type 1
+            o[j] = hbtf(-g_cos[th], a, g_cos[64 - th], b);
+            o[mj] = hbtf(g_cos[64 - th], a, g_cos[th], b);
+          } else {                    // type 2
+            o[j] = hbtf(-g_cos[64 - th], a, -g_cos[th], b);
+            o[mj] = hbtf(-g_cos[th], a, g_cos[64 - th], b);
+          }
+        }
+      }
+    }
+  }
+  void dct(int32_t* t, int n) const {
+    int32_t c[64];
+    const int lg = log2i(n);
+    for (int i = 0; i < n; ++i) {
+      int r = 0;
+      for (int b = 0; b < lg; ++b) r |= ((i >> b) & 1) << (lg - 1 - b);
+      c[i] = t[r];
+    }
+    dct_core(c, n);
+    std::memcpy(t, c, n * sizeof(int32_t));
+  }
+  void adst4(int32_t* t) const {
+    const int64_t x0 = t[0], x1 = t[1], x2 = t[2], x3 = t[3];
+    int64_t s0 = 1321 * x0, s1 = 2482 * x0, s2 = 3344 * x1, s3 = 3803 * x2;
+    const int64_t s4 = 1321 * x2, s5 = 2482 * x3, s6 = 3803 * x3;
+    const int64_t s7 = (x0 - x2) + x3;
+    s0 = s0 + s3;
+    s1 = s1 - s4;
+    s3 = s2;
+    s2 = 3344 * s7;
+    s0 = s0 + s5;
+    s1 = s1 - s6;
+    const int64_t y0 = s0 + s3, y1 = s1 + s3, y2 = s2, y3 = s0 + s1 - s3;
+    t[0] = round2(y0, 12);
+    t[1] = round2(y1, 12);
+    t[2] = round2(y2, 12);
+    t[3] = round2(y3, 12);
+  }
+  void adst8(int32_t* t) const {
+    int32_t b[8], c[8];
+    const int in[8] = {7, 0, 5, 2, 3, 4, 1, 6};
+    for (int i = 0; i < 8; ++i) b[i] = t[in[i]];
+    for (int i = 0; i < 4; ++i) {
+      const int a = 4 + 16 * i;
+      c[2 * i] = hbtf(g_cos[a], b[2 * i], g_cos[64 - a], b[2 * i + 1]);
+      c[2 * i + 1] = hbtf(g_cos[64 - a], b[2 * i], -g_cos[a], b[2 * i + 1]);
+    }
+    for (int i = 0; i < 4; ++i) {
+      b[i] = cl(int64_t(c[i]) + c[i + 4]);
+      b[i + 4] = cl(int64_t(c[i]) - c[i + 4]);
+    }
+    c[0] = b[0]; c[1] = b[1]; c[2] = b[2]; c[3] = b[3];
+    c[4] = hbtf(g_cos[16], b[4], g_cos[48], b[5]);
+    c[5] = hbtf(g_cos[48], b[4], -g_cos[16], b[5]);
+    c[6] = hbtf(-g_cos[48], b[6], g_cos[16], b[7]);
+    c[7] = hbtf(g_cos[16], b[6], g_cos[48], b[7]);
+    for (int g = 0; g < 8; g += 4) {
+      b[g] = cl(int64_t(c[g]) + c[g + 2]);
+      b[g + 1] = cl(int64_t(c[g + 1]) + c[g + 3]);
+      b[g + 2] = cl(int64_t(c[g]) - c[g + 2]);
+      b[g + 3] = cl(int64_t(c[g + 1]) - c[g + 3]);
+    }
+    for (int g = 2; g < 8; g += 4) {
+      const int32_t x = b[g], y = b[g + 1];
+      b[g] = hbtf(g_cos[32], x, g_cos[32], y);
+      b[g + 1] = hbtf(g_cos[32], x, -g_cos[32], y);
+    }
+    t[0] = b[0]; t[1] = -b[4]; t[2] = b[6]; t[3] = -b[2];
+    t[4] = b[3]; t[5] = -b[7]; t[6] = b[5]; t[7] = -b[1];
+  }
+  void adst16(int32_t* t) const {
+    int32_t b[16], c[16];
+    const int in[16] = {15, 0, 13, 2, 11, 4, 9, 6, 7, 8, 5, 10, 3, 12, 1, 14};
+    for (int i = 0; i < 16; ++i) b[i] = t[in[i]];
+    for (int i = 0; i < 8; ++i) {
+      const int a = 2 + 8 * i;
+      c[2 * i] = hbtf(g_cos[a], b[2 * i], g_cos[64 - a], b[2 * i + 1]);
+      c[2 * i + 1] = hbtf(g_cos[64 - a], b[2 * i], -g_cos[a], b[2 * i + 1]);
+    }
+    for (int i = 0; i < 8; ++i) {
+      b[i] = cl(int64_t(c[i]) + c[i + 8]);
+      b[i + 8] = cl(int64_t(c[i]) - c[i + 8]);
+    }
+    for (int i = 0; i < 8; ++i) c[i] = b[i];
+    c[8] = hbtf(g_cos[8], b[8], g_cos[56], b[9]);
+    c[9] = hbtf(g_cos[56], b[8], -g_cos[8], b[9]);
+    c[10] = hbtf(g_cos[40], b[10], g_cos[24], b[11]);
+    c[11] = hbtf(g_cos[24], b[10], -g_cos[40], b[11]);
+    c[12] = hbtf(-g_cos[56], b[12], g_cos[8], b[13]);
+    c[13] = hbtf(g_cos[8], b[12], g_cos[56], b[13]);
+    c[14] = hbtf(-g_cos[24], b[14], g_cos[40], b[15]);
+    c[15] = hbtf(g_cos[40], b[14], g_cos[24], b[15]);
+    for (int g = 0; g < 16; g += 8)
+      for (int i = 0; i < 4; ++i) {
+        b[g + i] = cl(int64_t(c[g + i]) + c[g + i + 4]);
+        b[g + i + 4] = cl(int64_t(c[g + i]) - c[g + i + 4]);
+      }
+    for (int i = 0; i < 16; ++i) c[i] = b[i];
+    for (int g = 4; g < 16; g += 8) {
+      c[g] = hbtf(g_cos[16], b[g], g_cos[48], b[g + 1]);
+      c[g + 1] = hbtf(g_cos[48], b[g], -g_cos[16], b[g + 1]);
+      c[g + 2] = hbtf(-g_cos[48], b[g + 2], g_cos[16], b[g + 3]);
+      c[g + 3] = hbtf(g_cos[16], b[g + 2], g_cos[48], b[g + 3]);
+    }
+    for (int g = 0; g < 16; g += 4) {
+      b[g] = cl(int64_t(c[g]) + c[g + 2]);
+      b[g + 1] = cl(int64_t(c[g + 1]) + c[g + 3]);
+      b[g + 2] = cl(int64_t(c[g]) - c[g + 2]);
+      b[g + 3] = cl(int64_t(c[g + 1]) - c[g + 3]);
+    }
+    for (int g = 2; g < 16; g += 4) {
+      const int32_t x = b[g], y = b[g + 1];
+      b[g] = hbtf(g_cos[32], x, g_cos[32], y);
+      b[g + 1] = hbtf(g_cos[32], x, -g_cos[32], y);
+    }
+    const int out[16] = {0, 8, 12, 4, 6, 14, 10, 2, 3, 11, 15, 7, 5, 13, 9, 1};
+    for (int i = 0; i < 16; ++i) t[i] = (i & 1) ? -b[out[i]] : b[out[i]];
+  }
+  void identity(int32_t* t, int n) const {
+    for (int i = 0; i < n; ++i) {
+      if (n == 4) t[i] = round2(int64_t(t[i]) * 5793, 12);
+      else if (n == 8) t[i] = t[i] * 2;
+      else if (n == 16) t[i] = round2(int64_t(t[i]) * 11586, 12);
+      else t[i] = t[i] * 4;
+    }
+  }
+  // kind: 0 DCT, 1 ADST, 2 identity
+  void run(int kind, int32_t* t, int n) const {
+    if (kind == 2) identity(t, n);
+    else if (kind == 0) dct(t, n);
+    else if (n == 4) adst4(t);
+    else if (n == 8) adst8(t);
+    else adst16(t);
+  }
+};
+
+void iwht4(int32_t* t, int shift) {
+  int32_t a = t[0] >> shift, c = t[1] >> shift, d = t[2] >> shift,
+          b = t[3] >> shift;
+  a += c;
+  d -= b;
+  const int32_t e = (a - d) >> 1;
+  b = e - b;
+  c = e - c;
+  a -= b;
+  d += c;
+  t[0] = a; t[1] = b; t[2] = c; t[3] = d;
+}
+
+// ---------------------------------------------------------------------------
+// The decoder
+
+struct Plane {
+  std::vector<uint16_t> px;
+  int stride = 0, rows = 0;
+  uint16_t* at(int y, int x) { return &px[size_t(y) * stride + x]; }
+  uint16_t get(int y, int x) const { return px[size_t(y) * stride + x]; }
+};
+
+struct Decoder {
+  // sequence header
+  int seq_profile = 0, reduced = 0;
+  int timing_info = 0, decoder_model_info = 0, equal_picture_interval = 0;
+  int buffer_delay_length = 0, buffer_removal_time_length = 0,
+      frame_presentation_time_length = 0;
+  int op_cnt = 1, op_idc[32] = {0}, decoder_model_present[32] = {0};
+  int frame_width_bits = 0, frame_height_bits = 0;
+  int max_w = 0, max_h = 0;
+  int frame_id_numbers_present = 0, delta_frame_id_length = 0,
+      additional_frame_id_length = 0;
+  int use_128 = 0, enable_filter_intra = 0, enable_intra_edge_filter = 0;
+  int enable_order_hint = 0, order_hint_bits = 0;
+  int seq_force_screen_content_tools = 2, seq_force_integer_mv = 2;
+  int enable_superres = 0, enable_cdef = 0, enable_restoration = 0;
+  int bit_depth = 8, mono = 0, num_planes = 3;
+  int color_primaries = 2, transfer = 2, matrix = 2, color_range = 0;
+  int ssx = 1, ssy = 1, separate_uv_delta_q = 0;
+  int film_grain_params_present = 0;
+  bool have_seq = false;
+
+  // frame header
+  int frame_w = 0, frame_h = 0, mi_cols = 0, mi_rows = 0;
+  int disable_cdf_update = 0, allow_screen_content_tools = 0;
+  int base_q_idx = 0, dq_y_dc = 0, dq_u_dc = 0, dq_u_ac = 0, dq_v_dc = 0,
+      dq_v_ac = 0;
+  int seg_enabled = 0, feature_enabled[8][8] = {{0}},
+      feature_data[8][8] = {{0}};
+  int seg_id_pre_skip = 0, last_active_seg_id = 0;
+  int delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0,
+      delta_lf_res = 0, delta_lf_multi = 0;
+  int coded_lossless = 0, lossless_array[8] = {0};
+  int using_qmatrix = 0, qm_y = 15, qm_u = 15, qm_v = 15;
+  int lf_level[4] = {0}, lf_sharpness = 0, lf_delta_enabled = 0;
+  int lf_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+  int cdef_damping = 3, cdef_bits = 0;
+  int cdef_y_pri[8] = {0}, cdef_y_sec[8] = {0}, cdef_uv_pri[8] = {0},
+      cdef_uv_sec[8] = {0};
+  int tx_mode = 0, reduced_tx_set = 0;
+  int tile_cols = 1, tile_rows = 1, tile_cols_log2 = 0, tile_rows_log2 = 0;
+  int mi_col_starts[65] = {0}, mi_row_starts[65] = {0};
+  int tile_size_bytes = 4;
+  bool have_frame = false, frame_done = false;
+  int next_tile = 0;
+
+  // the frame
+  Plane cur[3];
+  int mi_stride = 0;
+  std::vector<uint8_t> y_modes, uv_modes, mi_sizes, skips, tx_sizes,
+      seg_ids;
+  std::vector<int8_t> delta_lfs;          // 4 per mi
+  std::vector<int8_t> cdef_idx;           // per 64x64
+  int cdef_stride = 0;
+  std::vector<uint8_t> lf_tx[3];          // per 4x4 of each plane
+  int lf_stride[3] = {0};
+
+  // tile state
+  Cdfs cdf;
+  Symbols sym;
+  int mi_row_start = 0, mi_row_end = 0, mi_col_start = 0, mi_col_end = 0;
+  int current_q = 0;
+  int delta_lf[4] = {0};
+  bool read_deltas = false;
+  std::vector<uint8_t> above_level[3], above_dc[3], left_level[3], left_dc[3];
+  uint8_t block_decoded[3][34][34];   // [-1..32] offset by 1
+
+  // block state
+  int mi_row = 0, mi_col = 0, mi_size = 0, has_chroma = 0;
+  bool avail_u = false, avail_l = false, avail_u_chroma = false,
+       avail_l_chroma = false;
+  int skip = 0, segment_id = 0, lossless = 0, y_mode = 0, uv_mode = 0;
+  int angle_delta_y = 0, angle_delta_uv = 0, use_filter_intra = 0,
+      filter_intra_mode = 0, cfl_alpha_u = 0, cfl_alpha_v = 0, tx_size = 0;
+  int max_luma_w = 0, max_luma_h = 0;
+  std::vector<uint8_t> tx_types;          // per mi (luma 4x4)
+  int plane_tx_type = 0;
+  int32_t quant[1024];
+
+  // -------------------------------------------------------------------------
+  // headers
+
+  void color_config(BitReader& r) {
+    const int high = r.f(1);
+    if (seq_profile == 2 && high) bit_depth = r.f(1) ? 12 : 10;
+    else bit_depth = high ? 10 : 8;
+    mono = seq_profile == 1 ? 0 : r.f(1);
+    num_planes = mono ? 1 : 3;
+    if (r.f(1)) {
+      color_primaries = r.f(8);
+      transfer = r.f(8);
+      matrix = r.f(8);
+    } else {
+      color_primaries = transfer = matrix = 2;
+    }
+    if (mono) {
+      color_range = r.f(1);
+      ssx = ssy = 1;
+      separate_uv_delta_q = 0;
+      return;
+    }
+    if (color_primaries == 1 && transfer == 13 && matrix == 0) {
+      color_range = 1;
+      ssx = ssy = 0;
+    } else {
+      color_range = r.f(1);
+      if (seq_profile == 0) ssx = ssy = 1;
+      else if (seq_profile == 1) ssx = ssy = 0;
+      else if (bit_depth == 12) {
+        ssx = r.f(1);
+        ssy = ssx ? r.f(1) : 0;
+      } else {
+        ssx = 1;
+        ssy = 0;
+      }
+      if (ssx && ssy) r.f(2);     // chroma_sample_position
+    }
+    separate_uv_delta_q = r.f(1);
+  }
+
+  void sequence_header(BitReader& r) {
+    seq_profile = r.f(3);
+    if (seq_profile > 2) fail("the AV1 stream has a reserved profile");
+    r.f(1);                         // still_picture
+    reduced = r.f(1);
+    if (reduced) {
+      timing_info = decoder_model_info = 0;
+      op_cnt = 1;
+      op_idc[0] = 0;
+      r.f(5);                       // seq_level_idx
+    } else {
+      timing_info = r.f(1);
+      if (timing_info) {
+        r.f(32);
+        r.f(32);
+        equal_picture_interval = r.f(1);
+        if (equal_picture_interval) r.uvlc();
+        decoder_model_info = r.f(1);
+        if (decoder_model_info) {
+          buffer_delay_length = r.f(5) + 1;
+          r.f(32);
+          buffer_removal_time_length = r.f(5) + 1;
+          frame_presentation_time_length = r.f(5) + 1;
+        }
+      } else {
+        decoder_model_info = 0;
+      }
+      const int initial_display_delay = r.f(1);
+      op_cnt = r.f(5) + 1;
+      for (int i = 0; i < op_cnt; ++i) {
+        op_idc[i] = r.f(12);
+        const int level = r.f(5);
+        if (level > 7) r.f(1);
+        decoder_model_present[i] = 0;
+        if (decoder_model_info) {
+          decoder_model_present[i] = r.f(1);
+          if (decoder_model_present[i]) {
+            r.f(buffer_delay_length);
+            r.f(buffer_delay_length);
+            r.f(1);
+          }
+        }
+        if (initial_display_delay && r.f(1)) r.f(4);
+      }
+    }
+    if (op_cnt > 1 || op_idc[0] != 0)
+      refuse("several operating points or layers");
+    frame_width_bits = r.f(4) + 1;
+    frame_height_bits = r.f(4) + 1;
+    max_w = r.f(frame_width_bits) + 1;
+    max_h = r.f(frame_height_bits) + 1;
+    frame_id_numbers_present = reduced ? 0 : r.f(1);
+    if (frame_id_numbers_present) {
+      delta_frame_id_length = r.f(4) + 2;
+      additional_frame_id_length = r.f(3) + 1;
+    }
+    use_128 = r.f(1);
+    enable_filter_intra = r.f(1);
+    enable_intra_edge_filter = r.f(1);
+    if (reduced) {
+      enable_order_hint = 0;
+      seq_force_screen_content_tools = 2;
+      seq_force_integer_mv = 2;
+      order_hint_bits = 0;
+    } else {
+      r.f(1); r.f(1); r.f(1); r.f(1);  // interintra, masked, warped, dual
+      enable_order_hint = r.f(1);
+      if (enable_order_hint) { r.f(1); r.f(1); }
+      seq_force_screen_content_tools = r.f(1) ? 2 : r.f(1);
+      if (seq_force_screen_content_tools > 0)
+        seq_force_integer_mv = r.f(1) ? 2 : r.f(1);
+      else
+        seq_force_integer_mv = 2;
+      order_hint_bits = enable_order_hint ? r.f(3) + 1 : 0;
+    }
+    enable_superres = r.f(1);
+    enable_cdef = r.f(1);
+    enable_restoration = r.f(1);
+    color_config(r);
+    film_grain_params_present = r.f(1);
+    if (bit_depth != 8) refuse("a bit depth of 10 or 12");
+    have_seq = true;
+  }
+
+  void frame_header(BitReader& r, int temporal_id, int spatial_id) {
+    if (!have_seq)
+      fail("the AV1 stream has a frame before its sequence header");
+    if (have_frame) fail("the AV1 stream has a second frame header");
+    int frame_type = KEY_FRAME, show_frame = 1;
+    if (!reduced) {
+      if (r.f(1)) refuse("a shown existing frame");
+      frame_type = r.f(2);
+      show_frame = r.f(1);
+      if (frame_type != KEY_FRAME || !show_frame)
+        refuse("a frame other than one shown key frame");
+      if (decoder_model_info && !equal_picture_interval)
+        r.f(frame_presentation_time_length);
+    }
+    disable_cdf_update = r.f(1);
+    allow_screen_content_tools = seq_force_screen_content_tools == 2
+                                     ? r.f(1) : seq_force_screen_content_tools;
+    if (allow_screen_content_tools && seq_force_integer_mv == 2) r.f(1);
+    if (frame_id_numbers_present)
+      r.f(additional_frame_id_length + delta_frame_id_length);
+    const int frame_size_override = reduced ? 0 : r.f(1);
+    r.f(order_hint_bits);
+    if (decoder_model_info) {
+      if (r.f(1)) {                   // buffer_removal_time_present_flag
+        for (int op = 0; op < op_cnt; ++op) {
+          if (!decoder_model_present[op]) continue;
+          const int idc = op_idc[op];
+          const int in_t = (idc >> temporal_id) & 1;
+          const int in_s = (idc >> (spatial_id + 8)) & 1;
+          if (idc == 0 || (in_t && in_s)) r.f(buffer_removal_time_length);
+        }
+      }
+    }
+    // refresh_frame_flags: all frames for a shown key frame
+    if (frame_size_override) {
+      frame_w = r.f(frame_width_bits) + 1;
+      frame_h = r.f(frame_height_bits) + 1;
+    } else {
+      frame_w = max_w;
+      frame_h = max_h;
+    }
+    if (enable_superres && r.f(1)) refuse("superres");
+    if (int64_t(frame_w) * frame_h > (int64_t(1) << 30))   // cv2's limit
+      fail("a " + std::to_string(frame_w) + "x" + std::to_string(frame_h) +
+           " frame, larger than cv2 reads");
+    mi_cols = 2 * ((frame_w + 7) >> 3);
+    mi_rows = 2 * ((frame_h + 7) >> 3);
+    if (r.f(1)) { r.f(16); r.f(16); }       // render size
+    if (allow_screen_content_tools && r.f(1)) refuse("intra block copy");
+    // disable_frame_end_update_cdf
+    if (!reduced && !disable_cdf_update) r.f(1);
+    tile_info(r);
+    quantization_params(r);
+    segmentation_params(r);
+    delta_q_present = 0;
+    delta_q_res = 0;
+    if (base_q_idx > 0) delta_q_present = r.f(1);
+    if (delta_q_present) delta_q_res = r.f(2);
+    delta_lf_present = delta_lf_res = delta_lf_multi = 0;
+    if (delta_q_present) {
+      delta_lf_present = r.f(1);
+      if (delta_lf_present) {
+        delta_lf_res = r.f(2);
+        delta_lf_multi = r.f(1);
+      }
+    }
+    coded_lossless = 1;
+    for (int s = 0; s < MAX_SEGMENTS; ++s) {
+      const int q = qindex(true, s);
+      lossless_array[s] = q == 0 && dq_y_dc == 0 && dq_u_ac == 0 &&
+                          dq_u_dc == 0 && dq_v_ac == 0 && dq_v_dc == 0;
+      if (!lossless_array[s]) coded_lossless = 0;
+    }
+    loop_filter_params(r);
+    cdef_params(r);
+    if (!coded_lossless && enable_restoration) {
+      for (int p = 0; p < num_planes; ++p)
+        if (r.f(2)) refuse("loop restoration");
+    }
+    tx_mode = coded_lossless ? ONLY_4X4
+              : r.f(1)       ? TX_MODE_SELECT
+                             : TX_MODE_LARGEST;
+    reduced_tx_set = r.f(1);
+    if (film_grain_params_present && r.f(1)) refuse("film grain");
+    have_frame = true;
+  }
+
+  static int tile_log2(int blk, int target) {
+    int k = 0;
+    while ((blk << k) < target) ++k;
+    return k;
+  }
+
+  void tile_info(BitReader& r) {
+    const int sb_cols = use_128 ? (mi_cols + 31) >> 5 : (mi_cols + 15) >> 4;
+    const int sb_rows = use_128 ? (mi_rows + 31) >> 5 : (mi_rows + 15) >> 4;
+    const int sb_shift = use_128 ? 5 : 4, sb_size = sb_shift + 2;
+    const int max_tile_width_sb = 4096 >> sb_size;
+    int max_tile_area_sb = (4096 * 2304) >> (2 * sb_size);
+    const int min_log2_tile_cols = tile_log2(max_tile_width_sb, sb_cols);
+    const int max_log2_tile_cols = tile_log2(1, std::min(sb_cols, 64));
+    const int max_log2_tile_rows = tile_log2(1, std::min(sb_rows, 64));
+    const int min_log2_tiles = std::max(
+        min_log2_tile_cols, tile_log2(max_tile_area_sb, sb_rows * sb_cols));
+    if (r.f(1)) {                 // uniform
+      tile_cols_log2 = min_log2_tile_cols;
+      while (tile_cols_log2 < max_log2_tile_cols && r.f(1)) ++tile_cols_log2;
+      const int w = (sb_cols + (1 << tile_cols_log2) - 1) >> tile_cols_log2;
+      int i = 0;
+      for (int s = 0; s < sb_cols; s += w) mi_col_starts[i++] = s << sb_shift;
+      mi_col_starts[i] = mi_cols;
+      tile_cols = i;
+      const int min_log2_tile_rows = std::max(min_log2_tiles - tile_cols_log2, 0);
+      tile_rows_log2 = min_log2_tile_rows;
+      while (tile_rows_log2 < max_log2_tile_rows && r.f(1)) ++tile_rows_log2;
+      const int h = (sb_rows + (1 << tile_rows_log2) - 1) >> tile_rows_log2;
+      i = 0;
+      for (int s = 0; s < sb_rows; s += h) mi_row_starts[i++] = s << sb_shift;
+      mi_row_starts[i] = mi_rows;
+      tile_rows = i;
+    } else {
+      int widest = 0, s = 0, i = 0;
+      for (; s < sb_cols; ++i) {
+        if (i >= 64) fail("the AV1 stream has too many tile columns");
+        mi_col_starts[i] = s << sb_shift;
+        const int size = r.ns(std::min(sb_cols - s, max_tile_width_sb)) + 1;
+        widest = std::max(widest, size);
+        s += size;
+      }
+      mi_col_starts[i] = mi_cols;
+      tile_cols = i;
+      tile_cols_log2 = tile_log2(1, tile_cols);
+      max_tile_area_sb = min_log2_tiles > 0
+                             ? (sb_rows * sb_cols) >> (min_log2_tiles + 1)
+                             : sb_rows * sb_cols;
+      const int max_h = std::max(max_tile_area_sb / widest, 1);
+      s = 0;
+      i = 0;
+      for (; s < sb_rows; ++i) {
+        if (i >= 64) fail("the AV1 stream has too many tile rows");
+        mi_row_starts[i] = s << sb_shift;
+        s += r.ns(std::min(sb_rows - s, max_h)) + 1;
+      }
+      mi_row_starts[i] = mi_rows;
+      tile_rows = i;
+      tile_rows_log2 = tile_log2(1, tile_rows);
+    }
+    if (tile_cols_log2 > 0 || tile_rows_log2 > 0) {
+      r.f(tile_rows_log2 + tile_cols_log2);   // context_update_tile_id
+      tile_size_bytes = r.f(2) + 1;
+    }
+  }
+
+  static int read_delta_q(BitReader& r) { return r.f(1) ? r.su(7) : 0; }
+
+  void quantization_params(BitReader& r) {
+    base_q_idx = r.f(8);
+    dq_y_dc = read_delta_q(r);
+    if (num_planes > 1) {
+      const int diff = separate_uv_delta_q ? r.f(1) : 0;
+      dq_u_dc = read_delta_q(r);
+      dq_u_ac = read_delta_q(r);
+      if (diff) {
+        dq_v_dc = read_delta_q(r);
+        dq_v_ac = read_delta_q(r);
+      } else {
+        dq_v_dc = dq_u_dc;
+        dq_v_ac = dq_u_ac;
+      }
+    }
+    using_qmatrix = r.f(1);
+    if (using_qmatrix) {
+      qm_y = r.f(4);
+      qm_u = r.f(4);
+      qm_v = separate_uv_delta_q ? r.f(4) : qm_u;
+    }
+  }
+
+  void segmentation_params(BitReader& r) {
+    seg_enabled = r.f(1);
+    std::memset(feature_enabled, 0, sizeof(feature_enabled));
+    std::memset(feature_data, 0, sizeof(feature_data));
+    if (seg_enabled) {
+      for (int i = 0; i < MAX_SEGMENTS; ++i)
+        for (int j = 0; j < SEG_LVL_MAX; ++j) {
+          if (!r.f(1)) continue;
+          feature_enabled[i][j] = 1;
+          const int bits = kSegFeatureBits[j], lim = kSegFeatureMax[j];
+          if (kSegFeatureSigned[j])
+            feature_data[i][j] = clip3(-lim, lim, r.su(1 + bits));
+          else
+            feature_data[i][j] = clip3(0, lim, static_cast<int>(r.f(bits)));
+        }
+    }
+    seg_id_pre_skip = 0;
+    last_active_seg_id = 0;
+    for (int i = 0; i < MAX_SEGMENTS; ++i)
+      for (int j = 0; j < SEG_LVL_MAX; ++j)
+        if (feature_enabled[i][j]) {
+          last_active_seg_id = i;
+          if (j >= SEG_LVL_REF_FRAME) seg_id_pre_skip = 1;
+        }
+  }
+
+  void loop_filter_params(BitReader& r) {
+    lf_level[0] = lf_level[1] = lf_level[2] = lf_level[3] = 0;
+    if (coded_lossless) return;
+    lf_level[0] = r.f(6);
+    lf_level[1] = r.f(6);
+    if (num_planes > 1 && (lf_level[0] || lf_level[1])) {
+      lf_level[2] = r.f(6);
+      lf_level[3] = r.f(6);
+    }
+    lf_sharpness = r.f(3);
+    lf_delta_enabled = r.f(1);
+    if (lf_delta_enabled && r.f(1)) {
+      for (int i = 0; i < 8; ++i)
+        if (r.f(1)) lf_ref_deltas[i] = r.su(7);
+      for (int i = 0; i < 2; ++i)
+        if (r.f(1)) r.su(7);            // mode deltas: inter blocks only
+    }
+  }
+
+  void cdef_params(BitReader& r) {
+    cdef_bits = 0;
+    cdef_y_pri[0] = cdef_y_sec[0] = cdef_uv_pri[0] = cdef_uv_sec[0] = 0;
+    cdef_damping = 3;
+    if (coded_lossless || !enable_cdef) return;
+    cdef_damping = r.f(2) + 3;
+    cdef_bits = r.f(2);
+    for (int i = 0; i < (1 << cdef_bits); ++i) {
+      cdef_y_pri[i] = r.f(4);
+      cdef_y_sec[i] = r.f(2);
+      if (cdef_y_sec[i] == 3) cdef_y_sec[i] = 4;
+      if (num_planes > 1) {
+        cdef_uv_pri[i] = r.f(4);
+        cdef_uv_sec[i] = r.f(2);
+        if (cdef_uv_sec[i] == 3) cdef_uv_sec[i] = 4;
+      }
+    }
+  }
+
+  bool seg_active(int seg, int feature) const {
+    return seg_enabled && feature_enabled[seg][feature];
+  }
+
+  int qindex(bool ignore_delta, int seg) const {
+    if (seg_active(seg, SEG_LVL_ALT_Q)) {
+      const int data = feature_data[seg][SEG_LVL_ALT_Q];
+      int q = base_q_idx + data;
+      if (!ignore_delta && delta_q_present) q = current_q + data;
+      return clip3(0, 255, q);
+    }
+    if (!ignore_delta && delta_q_present) return current_q;
+    return base_q_idx;
+  }
+
+  void allocate() {
+    const int sb = use_128 ? 128 : 64;
+    const int w = (mi_cols * 4 + sb - 1) / sb * sb;
+    const int h = (mi_rows * 4 + sb - 1) / sb * sb;
+    for (int p = 0; p < num_planes; ++p) {
+      const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      cur[p].stride = w >> sx;
+      cur[p].rows = h >> sy;
+      cur[p].px.assign(size_t(cur[p].stride) * cur[p].rows, 0);
+      lf_stride[p] = (w >> sx) / 4 + 1;
+      lf_tx[p].assign(size_t(lf_stride[p]) * ((h >> sy) / 4 + 1), 0);
+      above_level[p].assign((w >> sx) / 4 + 32, 0);
+      above_dc[p].assign((w >> sx) / 4 + 32, 0);
+      left_level[p].assign((h >> sy) / 4 + 32, 0);
+      left_dc[p].assign((h >> sy) / 4 + 32, 0);
+    }
+    mi_stride = w / 4;
+    const size_t n = size_t(mi_stride) * (h / 4);
+    y_modes.assign(n, 0);
+    uv_modes.assign(n, 0);
+    mi_sizes.assign(n, 0);
+    skips.assign(n, 0);
+    tx_sizes.assign(n, 0);
+    seg_ids.assign(n, 0);
+    tx_types.assign(n, 0);
+    delta_lfs.assign(n * 4, 0);
+    cdef_stride = w / 64;
+    cdef_idx.assign(size_t(cdef_stride) * (h / 64), -1);
+  }
+
+  // -------------------------------------------------------------------------
+  // tiles
+
+  void tile_group(BitReader& r, const uint8_t* data, size_t size) {
+    if (!have_frame) fail("the AV1 stream has tile data before a frame header");
+    if (frame_done) fail("the AV1 stream has tiles past the frame's last");
+    const int num_tiles = tile_cols * tile_rows;
+    const size_t start = r.pos;
+    int tg_start = 0, tg_end = num_tiles - 1;
+    if (num_tiles > 1 && r.f(1)) {
+      const int bits = tile_cols_log2 + tile_rows_log2;
+      tg_start = r.f(bits);
+      tg_end = r.f(bits);
+    }
+    r.byte_align();
+    if (tg_start != next_tile || tg_end < tg_start || tg_end >= num_tiles)
+      fail("the AV1 stream's tile groups are out of order");
+    size_t at = (r.pos - start) / 8;
+    const uint8_t* d = data + (start / 8);
+    size_t sz = size - (start / 8);
+    for (int t = tg_start; t <= tg_end; ++t) {
+      size_t tile;
+      if (t == tg_end) {
+        if (at > sz) fail("the AV1 stream ends inside a tile");
+        tile = sz - at;
+      } else {
+        if (at + tile_size_bytes > sz)
+          fail("the AV1 stream ends inside a tile size");
+        uint64_t v = 0;
+        for (int i = 0; i < tile_size_bytes; ++i)
+          v |= uint64_t(d[at + i]) << (8 * i);
+        at += tile_size_bytes;
+        tile = v + 1;
+        if (at + tile > sz) fail("the AV1 stream ends inside a tile");
+      }
+      decode_tile(t, d + at, tile);
+      at += tile;
+    }
+    next_tile = tg_end + 1;
+    if (next_tile == num_tiles) frame_done = true;
+  }
+
+  void decode_tile(int t, const uint8_t* data, size_t size) {
+    const int tr = t / tile_cols, tc = t % tile_cols;
+    mi_row_start = mi_row_starts[tr];
+    mi_row_end = mi_row_starts[tr + 1];
+    mi_col_start = mi_col_starts[tc];
+    mi_col_end = mi_col_starts[tc + 1];
+    current_q = base_q_idx;
+    cdf.init(base_q_idx);
+    sym.init(data, size, disable_cdf_update);
+    for (int p = 0; p < num_planes; ++p) {
+      std::fill(above_level[p].begin(), above_level[p].end(), 0);
+      std::fill(above_dc[p].begin(), above_dc[p].end(), 0);
+    }
+    for (int& d : delta_lf) d = 0;
+    const int sb4 = use_128 ? 32 : 16;
+    for (int r = mi_row_start; r < mi_row_end; r += sb4) {
+      for (int p = 0; p < num_planes; ++p) {
+        std::fill(left_level[p].begin(), left_level[p].end(), 0);
+        std::fill(left_dc[p].begin(), left_dc[p].end(), 0);
+      }
+      for (int c = mi_col_start; c < mi_col_end; c += sb4) {
+        read_deltas = delta_q_present;
+        cdef_at(r, c) = -1;
+        if (use_128) {
+          if (c + 16 < mi_cols) cdef_at(r, c + 16) = -1;
+          if (r + 16 < mi_rows) cdef_at(r + 16, c) = -1;
+          if (c + 16 < mi_cols && r + 16 < mi_rows)
+            cdef_at(r + 16, c + 16) = -1;
+        }
+        clear_block_decoded(r, c, sb4);
+        decode_partition(r, c, use_128 ? BLOCK_128X128 : BLOCK_64X64);
+      }
+    }
+    if (!sym.padding_ok())
+      fail("the AV1 stream's tile data do not end where its symbols do "
+           "(cv2 refuses it)");
+  }
+
+  int8_t& cdef_at(int r, int c) {
+    return cdef_idx[size_t(r >> 4) * cdef_stride + (c >> 4)];
+  }
+
+  uint8_t& bd(int p, int y, int x) { return block_decoded[p][y + 1][x + 1]; }
+
+  void clear_block_decoded(int r, int c, int sb4) {
+    for (int p = 0; p < num_planes; ++p) {
+      const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      const int w4 = (mi_col_end - c) >> sx, h4 = (mi_row_end - r) >> sy;
+      for (int y = -1; y <= (sb4 >> sy); ++y)
+        for (int x = -1; x <= (sb4 >> sx); ++x) {
+          if (y < 0 && x < w4) bd(p, y, x) = 1;
+          else if (x < 0 && y < h4) bd(p, y, x) = 1;
+          else bd(p, y, x) = 0;
+        }
+      bd(p, sb4 >> sy, -1) = 0;
+    }
+  }
+
+  bool inside(int r, int c) const {
+    return c >= mi_col_start && c < mi_col_end && r >= mi_row_start &&
+           r < mi_row_end;
+  }
+  size_t mi(int r, int c) const { return size_t(r) * mi_stride + c; }
+
+  // -------------------------------------------------------------------------
+  // partitions and modes
+
+  void decode_partition(int r, int c, int bsize) {
+    if (r >= mi_rows || c >= mi_cols) return;
+    const bool au = inside(r - 1, c), al = inside(r, c - 1);
+    const int n4 = kWide4[bsize], half = n4 >> 1, quarter = half >> 1;
+    const bool has_rows = (r + half) < mi_rows, has_cols = (c + half) < mi_cols;
+    int p;
+    if (bsize < BLOCK_8X8) {
+      p = PARTITION_NONE;
+    } else {
+      const int bsl = log2i(n4);      // 1 for 8x8 .. 5 for 128x128
+      const int above = au && log2i(kWide4[mi_sizes[mi(r - 1, c)]]) < bsl;
+      const int left = al && log2i(kHigh4[mi_sizes[mi(r, c - 1)]]) < bsl;
+      uint16_t* pc = cdf.partition[(bsl - 1) * 4 + left * 2 + above];
+      const int nsym = bsl == 1 ? 4 : bsl == 5 ? 8 : 10;
+      auto prob = [&](int e) {
+        return e < nsym ? pc[e] - (e ? pc[e - 1] : 0) : 0;
+      };
+      if (has_rows && has_cols) {
+        p = sym.read(pc, nsym);
+      } else if (has_cols) {
+        int psum = prob(PARTITION_VERT) + prob(PARTITION_SPLIT) +
+                   prob(PARTITION_HORZ_A) + prob(PARTITION_VERT_A) +
+                   prob(PARTITION_VERT_B);
+        if (bsize != BLOCK_128X128) psum += prob(PARTITION_VERT_4);
+        uint16_t b[3] = {static_cast<uint16_t>(32768 - psum), 32768, 0};
+        const bool a = sym.adapt;
+        sym.adapt = false;
+        p = sym.read(b, 2) ? PARTITION_SPLIT : PARTITION_HORZ;
+        sym.adapt = a;
+      } else if (has_rows) {
+        int psum = prob(PARTITION_HORZ) + prob(PARTITION_SPLIT) +
+                   prob(PARTITION_HORZ_A) + prob(PARTITION_HORZ_B) +
+                   prob(PARTITION_VERT_A);
+        if (bsize != BLOCK_128X128) psum += prob(PARTITION_HORZ_4);
+        uint16_t b[3] = {static_cast<uint16_t>(32768 - psum), 32768, 0};
+        const bool a = sym.adapt;
+        sym.adapt = false;
+        p = sym.read(b, 2) ? PARTITION_SPLIT : PARTITION_VERT;
+        sym.adapt = a;
+      } else {
+        p = PARTITION_SPLIT;
+      }
+    }
+    const int sub = partition_subsize(p, bsize);
+    const int split = partition_subsize(PARTITION_SPLIT, bsize);
+    switch (p) {
+      case PARTITION_NONE: decode_block(r, c, sub); break;
+      case PARTITION_HORZ:
+        decode_block(r, c, sub);
+        if (has_rows) decode_block(r + half, c, sub);
+        break;
+      case PARTITION_VERT:
+        decode_block(r, c, sub);
+        if (has_cols) decode_block(r, c + half, sub);
+        break;
+      case PARTITION_SPLIT:
+        decode_partition(r, c, sub);
+        decode_partition(r, c + half, sub);
+        decode_partition(r + half, c, sub);
+        decode_partition(r + half, c + half, sub);
+        break;
+      case PARTITION_HORZ_A:
+        decode_block(r, c, split);
+        decode_block(r, c + half, split);
+        decode_block(r + half, c, sub);
+        break;
+      case PARTITION_HORZ_B:
+        decode_block(r, c, sub);
+        decode_block(r + half, c, split);
+        decode_block(r + half, c + half, split);
+        break;
+      case PARTITION_VERT_A:
+        decode_block(r, c, split);
+        decode_block(r + half, c, split);
+        decode_block(r, c + half, sub);
+        break;
+      case PARTITION_VERT_B:
+        decode_block(r, c, sub);
+        decode_block(r, c + half, split);
+        decode_block(r + half, c + half, split);
+        break;
+      case PARTITION_HORZ_4:
+        for (int i = 0; i < 4; ++i)
+          if (i < 3 || r + quarter * 3 < mi_rows)
+            decode_block(r + quarter * i, c, sub);
+        break;
+      default:
+        for (int i = 0; i < 4; ++i)
+          if (i < 3 || c + quarter * 3 < mi_cols)
+            decode_block(r, c + quarter * i, sub);
+        break;
+    }
+  }
+
+  void decode_block(int r, int c, int bsize) {
+    if (bsize == BLOCK_INVALID) fail("the AV1 stream has an invalid partition");
+    mi_row = r;
+    mi_col = c;
+    mi_size = bsize;
+    const int bw4 = kWide4[bsize], bh4 = kHigh4[bsize];
+    if (bh4 == 1 && ssy && (r & 1) == 0) has_chroma = 0;
+    else if (bw4 == 1 && ssx && (c & 1) == 0) has_chroma = 0;
+    else has_chroma = num_planes > 1;
+    if (has_chroma && kSubSize[bsize][ssx][ssy] == BLOCK_INVALID)
+      fail("the AV1 stream has a block its subsampling forbids");
+    avail_u = inside(r - 1, c);
+    avail_l = inside(r, c - 1);
+    avail_u_chroma = avail_u;
+    avail_l_chroma = avail_l;
+    if (has_chroma) {
+      if (ssy && bh4 == 1) avail_u_chroma = inside(r - 2, c);
+      if (ssx && bw4 == 1) avail_l_chroma = inside(r, c - 2);
+    } else {
+      avail_u_chroma = avail_l_chroma = false;
+    }
+    intra_frame_mode_info();
+    read_tx_size();
+    if (skip) reset_block_context(bw4, bh4);
+    for (int y = 0; y < bh4; ++y) {
+      if (r + y >= mi_rows) break;
+      for (int x = 0; x < bw4; ++x) {
+        if (c + x >= mi_cols) break;
+        const size_t k = mi(r + y, c + x);
+        y_modes[k] = static_cast<uint8_t>(y_mode);
+        uv_modes[k] = static_cast<uint8_t>(uv_mode);
+        mi_sizes[k] = static_cast<uint8_t>(bsize);
+        skips[k] = static_cast<uint8_t>(skip);
+        tx_sizes[k] = static_cast<uint8_t>(tx_size);
+        seg_ids[k] = static_cast<uint8_t>(segment_id);
+        for (int i = 0; i < 4; ++i)
+          delta_lfs[k * 4 + i] = static_cast<int8_t>(delta_lf[i]);
+      }
+    }
+    residual();
+  }
+
+  void intra_frame_mode_info() {
+    skip = 0;
+    if (seg_id_pre_skip) intra_segment_id();
+    read_skip();
+    if (!seg_id_pre_skip) intra_segment_id();
+    read_cdef();
+    read_delta_qindex();
+    read_delta_lf();
+    read_deltas = false;
+    const int above = kIntraModeContext[
+        avail_u ? y_modes[mi(mi_row - 1, mi_col)] : int(DC_PRED)];
+    const int left = kIntraModeContext[
+        avail_l ? y_modes[mi(mi_row, mi_col - 1)] : int(DC_PRED)];
+    y_mode = sym.read(cdf.y_mode[above][left], 13);
+    angle_delta_y = 0;
+    if (mi_size >= BLOCK_8X8 && y_mode >= V_PRED && y_mode <= D67_PRED)
+      angle_delta_y = sym.read(cdf.angle_delta[y_mode - V_PRED], 7) - 3;
+    uv_mode = DC_PRED;
+    angle_delta_uv = 0;
+    cfl_alpha_u = cfl_alpha_v = 0;
+    if (has_chroma) {
+      const int bw = kWide4[mi_size] * 4, bh = kHigh4[mi_size] * 4;
+      bool cfl_allowed;
+      if (lossless && kSubSize[mi_size][ssx][ssy] == BLOCK_4X4)
+        cfl_allowed = true;
+      else
+        cfl_allowed = !lossless && std::max(bw, bh) <= 32;
+      uv_mode = cfl_allowed ? sym.read(cdf.uv_mode[1][y_mode], 14)
+                            : sym.read(cdf.uv_mode[0][y_mode], 13);
+      if (uv_mode == UV_CFL_PRED) read_cfl_alphas();
+      if (mi_size >= BLOCK_8X8 && uv_mode >= V_PRED && uv_mode <= D67_PRED)
+        angle_delta_uv = sym.read(cdf.angle_delta[uv_mode - V_PRED], 7) - 3;
+    }
+    if (mi_size >= BLOCK_8X8 && kWide4[mi_size] <= 16 &&
+        kHigh4[mi_size] <= 16 && allow_screen_content_tools) {
+      const int bctx = log2i(kWide4[mi_size]) + log2i(kHigh4[mi_size]) - 2;
+      if (y_mode == DC_PRED && sym.read(cdf.palette_y[bctx][0], 2))
+        refuse("a palette");
+      if (has_chroma && uv_mode == DC_PRED && sym.read(cdf.palette_uv[0], 2))
+        refuse("a palette");
+    }
+    use_filter_intra = 0;
+    if (enable_filter_intra && y_mode == DC_PRED &&
+        std::max(kWide4[mi_size], kHigh4[mi_size]) <= 8) {
+      use_filter_intra = sym.read(cdf.filter_intra[mi_size], 2);
+      if (use_filter_intra)
+        filter_intra_mode = sym.read(cdf.filter_intra_mode, 5);
+    }
+  }
+
+  void read_cfl_alphas() {
+    const int signs = sym.read(cdf.cfl_sign, 8);
+    const int sign_u = (signs + 1) / 3, sign_v = (signs + 1) % 3;
+    if (sign_u) {
+      cfl_alpha_u = 1 + sym.read(cdf.cfl_alpha[(sign_u - 1) * 3 + sign_v], 16);
+      if (sign_u == 1) cfl_alpha_u = -cfl_alpha_u;
+    }
+    if (sign_v) {
+      cfl_alpha_v = 1 + sym.read(cdf.cfl_alpha[(sign_v - 1) * 3 + sign_u], 16);
+      if (sign_v == 1) cfl_alpha_v = -cfl_alpha_v;
+    }
+  }
+
+  static int neg_deinterleave(int diff, int ref, int max) {
+    if (!ref) return diff;
+    if (ref >= max - 1) return max - diff - 1;
+    if (2 * ref < max) {
+      if (diff <= 2 * ref)
+        return (diff & 1) ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+      return diff;
+    }
+    if (diff <= 2 * (max - ref - 1))
+      return (diff & 1) ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+    return max - (diff + 1);
+  }
+
+  void intra_segment_id() {
+    if (seg_enabled) {
+      const int ul =
+          (avail_u && avail_l) ? seg_ids[mi(mi_row - 1, mi_col - 1)] : -1;
+      const int u = avail_u ? seg_ids[mi(mi_row - 1, mi_col)] : -1;
+      const int l = avail_l ? seg_ids[mi(mi_row, mi_col - 1)] : -1;
+      int pred;
+      if (u == -1) pred = l == -1 ? 0 : l;
+      else if (l == -1) pred = u;
+      else pred = ul == u ? u : l;
+      if (skip) {
+        segment_id = pred;
+      } else {
+        int ctx;
+        if (ul < 0) ctx = 0;
+        else if (ul == u && ul == l) ctx = 2;
+        else if (ul == u || ul == l || u == l) ctx = 1;
+        else ctx = 0;
+        const int s = sym.read(cdf.segment_id[ctx], MAX_SEGMENTS);
+        segment_id = clip3(0, last_active_seg_id,
+                           neg_deinterleave(s, pred, last_active_seg_id + 1));
+      }
+    } else {
+      segment_id = 0;
+    }
+    lossless = lossless_array[segment_id];
+  }
+
+  void read_skip() {
+    if (seg_id_pre_skip && seg_active(segment_id, SEG_LVL_SKIP)) {
+      skip = 1;
+      return;
+    }
+    const int ctx = (avail_u ? skips[mi(mi_row - 1, mi_col)] : 0) +
+                    (avail_l ? skips[mi(mi_row, mi_col - 1)] : 0);
+    skip = sym.read(cdf.skip[ctx], 2);
+  }
+
+  void read_cdef() {
+    if (skip || coded_lossless || !enable_cdef) return;
+    const int r = mi_row & ~15, c = mi_col & ~15;
+    if (cdef_at(r, c) == -1) {
+      const int v = sym.literal(cdef_bits);
+      const int w4 = kWide4[mi_size], h4 = kHigh4[mi_size];
+      for (int y = r; y < r + h4; y += 16)
+        for (int x = c; x < c + w4; x += 16)
+          if (y < mi_rows && x < mi_cols)
+            cdef_at(y, x) = static_cast<int8_t>(v);
+    }
+  }
+
+  void read_delta_qindex() {
+    const int sb = use_128 ? BLOCK_128X128 : BLOCK_64X64;
+    if (mi_size == sb && skip) return;
+    if (!read_deltas) return;
+    int abs = sym.read(cdf.delta_q, 4);
+    if (abs == 3) {
+      const int rem = sym.literal(3) + 1;
+      abs = sym.literal(rem) + (1 << rem) + 1;
+    }
+    if (abs) {
+      const int sign = sym.literal(1);
+      const int reduced_q = sign ? -abs : abs;
+      current_q = clip3(1, 255, current_q + reduced_q * (1 << delta_q_res));
+    }
+  }
+
+  void read_delta_lf() {
+    const int sb = use_128 ? BLOCK_128X128 : BLOCK_64X64;
+    if (mi_size == sb && skip) return;
+    if (!read_deltas || !delta_lf_present) return;
+    const int count = delta_lf_multi ? (num_planes > 1 ? 4 : 2) : 1;
+    for (int i = 0; i < count; ++i) {
+      int abs = sym.read(
+          delta_lf_multi ? cdf.delta_lf_multi[i] : cdf.delta_lf, 4);
+      if (abs == 3) {
+        const int n = sym.literal(3) + 1;
+        abs = sym.literal(n) + (1 << n) + 1;
+      }
+      if (abs) {
+        const int sign = sym.literal(1);
+        const int red = sign ? -abs : abs;
+        delta_lf[i] = clip3(-MAX_LOOP_FILTER, MAX_LOOP_FILTER,
+                            delta_lf[i] + red * (1 << delta_lf_res));
+      }
+    }
+  }
+
+  void read_tx_size() {
+    if (lossless) {
+      tx_size = TX_4X4;
+      return;
+    }
+    tx_size = kMaxTxRect[mi_size];
+    if (mi_size > BLOCK_4X4 && tx_mode == TX_MODE_SELECT) {
+      int depth_to_4 = 0;
+      for (int t = tx_size; t != TX_4X4; t = kSplitTx[t]) ++depth_to_4;
+      const int cat = depth_to_4 - 1;
+      const int max_depth = std::min(depth_to_4, 2);
+      const int mw = kTxW[tx_size], mh = kTxH[tx_size];
+      int above = 0, left = 0;
+      if (avail_u) above = kTxW[tx_sizes[mi(mi_row - 1, mi_col)]] >= mw;
+      if (avail_l) left = kTxH[tx_sizes[mi(mi_row, mi_col - 1)]] >= mh;
+      const int ctx = above + left;
+      const int depth = sym.read(cdf.tx_size[cat][ctx], max_depth + 1);
+      for (int i = 0; i < depth; ++i) tx_size = kSplitTx[tx_size];
+    }
+  }
+
+  void reset_block_context(int bw4, int bh4) {
+    for (int p = 0; p < 1 + 2 * has_chroma; ++p) {
+      const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      for (int i = mi_col >> sx; i < ((mi_col + bw4) >> sx); ++i)
+        above_level[p][i] = above_dc[p][i] = 0;
+      const int r0 = mi_row - mi_row_start;
+      for (int i = r0 >> sy; i < ((r0 + bh4) >> sy); ++i)
+        left_level[p][i] = left_dc[p][i] = 0;
+    }
+  }
+
+  // -------------------------------------------------------------------------
+  // residual
+
+  int plane_tx_size(int p) const {
+    if (p == 0) return tx_size;
+    const int uv = kMaxTxRect[kSubSize[mi_size][ssx][ssy]];
+    if (kTxW[uv] == 64 || kTxH[uv] == 64) {
+      if (kTxW[uv] == 16) return TX_16X32;
+      if (kTxH[uv] == 16) return TX_32X16;
+      return TX_32X32;
+    }
+    return uv;
+  }
+
+  void residual() {
+    const int bw4 = kWide4[mi_size], bh4 = kHigh4[mi_size];
+    const int wchunks = std::max(1, bw4 >> 4), hchunks = std::max(1, bh4 >> 4);
+    for (int cy = 0; cy < hchunks; ++cy)
+      for (int cx = 0; cx < wchunks; ++cx) {
+        for (int p = 0; p < 1 + has_chroma * 2; ++p) {
+          const int txs = lossless ? TX_4X4 : plane_tx_size(p);
+          const int step_x = kTxW[txs] >> 2, step_y = kTxH[txs] >> 2;
+          const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+          const int psz = p ? kSubSize[mi_size][ssx][ssy] : mi_size;
+          const int n4w = kWide4[psz], n4h = kHigh4[psz];
+          const int base_x = (mi_col >> sx) * 4, base_y = (mi_row >> sy) * 4;
+          for (int y = 0; y < std::min(n4h, 16 >> sy); y += step_y)
+            for (int x = 0; x < std::min(n4w, 16 >> sx); x += step_x)
+              transform_block(p, base_x, base_y, txs, x + ((cx << 4) >> sx),
+                              y + ((cy << 4) >> sy));
+        }
+      }
+  }
+
+  void transform_block(int p, int base_x, int base_y, int txs, int x, int y) {
+    const int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
+    const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+    const int row = (start_y << sy) >> 2, col = (start_x << sx) >> 2;
+    const int sb_mask = use_128 ? 31 : 15;
+    const int sub_r = row & sb_mask, sub_c = col & sb_mask;
+    const int step_x = kTxW[txs] >> 2, step_y = kTxH[txs] >> 2;
+    const int max_x = (mi_cols * 4) >> sx, max_y = (mi_rows * 4) >> sy;
+    if (start_x >= max_x || start_y >= max_y) return;
+    const bool is_cfl = p > 0 && uv_mode == UV_CFL_PRED;
+    const int mode = p == 0 ? y_mode : (is_cfl ? DC_PRED : uv_mode);
+    const int log2w = log2i(kTxW[txs]), log2h = log2i(kTxH[txs]);
+    predict_intra(p, start_x, start_y,
+                  (p == 0 ? avail_l : avail_l_chroma) || x > 0,
+                  (p == 0 ? avail_u : avail_u_chroma) || y > 0,
+                  bd(p, (sub_r >> sy) - 1, (sub_c >> sx) + step_x),
+                  bd(p, (sub_r >> sy) + step_y, (sub_c >> sx) - 1),
+                  mode, log2w, log2h);
+    if (is_cfl) predict_cfl(p, start_x, start_y, txs);
+    if (p == 0) {
+      max_luma_w = start_x + step_x * 4;
+      max_luma_h = start_y + step_y * 4;
+    }
+    if (!skip) {
+      const int eob = coeffs(p, start_x, start_y, txs);
+      if (eob > 0) reconstruct(p, start_x, start_y, txs);
+    }
+    for (int i = 0; i < step_y; ++i)
+      for (int j = 0; j < step_x; ++j) {
+        const int ry = (row >> sy) + i, cx = (col >> sx) + j;
+        if (ry < (int)(lf_tx[p].size() / lf_stride[p]) && cx < lf_stride[p])
+          lf_tx[p][size_t(ry) * lf_stride[p] + cx] = static_cast<uint8_t>(txs);
+        bd(p, (sub_r >> sy) + i, (sub_c >> sx) + j) = 1;
+      }
+  }
+
+  int tx_set(int txs) const {
+    if (tx_sqr_up(txs) > TX_32X32) return TX_SET_DCTONLY;
+    if (tx_sqr_up(txs) == TX_32X32) return TX_SET_DCTONLY;
+    if (reduced_tx_set) return TX_SET_INTRA_2;
+    if (tx_sqr(txs) == TX_16X16) return TX_SET_INTRA_2;
+    return TX_SET_INTRA_1;
+  }
+
+  static bool in_set(int set, int type) {
+    if (set == TX_SET_DCTONLY) return type == DCT_DCT;
+    if (set == TX_SET_INTRA_1)
+      return type == IDTX || type == DCT_DCT || type == V_DCT ||
+             type == H_DCT || type == ADST_ADST || type == ADST_DCT ||
+             type == DCT_ADST;
+    return type == IDTX || type == DCT_DCT || type == ADST_ADST ||
+           type == ADST_DCT || type == DCT_ADST;
+  }
+
+  int compute_tx_type(int p, int txs, int x4, int y4) {
+    if (lossless || tx_sqr_up(txs) > TX_32X32) return DCT_DCT;
+    if (p == 0) return tx_types[mi(y4, x4)];
+    const int t = kModeToTxfm[uv_mode];
+    return in_set(tx_set(txs), t) ? t : DCT_DCT;
+  }
+
+  static int tx_class(int t) {
+    if (t == V_DCT || t == V_ADST || t == V_FLIPADST) return TX_CLASS_VERT;
+    if (t == H_DCT || t == H_ADST || t == H_FLIPADST) return TX_CLASS_HORIZ;
+    return TX_CLASS_2D;
+  }
+
+  const std::vector<int16_t>& get_scan(int txs) const {
+    const Scans& s = scans();
+    if (txs == TX_16X64) return s.def[TX_16X32];
+    if (txs == TX_64X16) return s.def[TX_32X16];
+    if (tx_sqr_up(txs) == TX_64X64) return s.def[TX_32X32];
+    if (plane_tx_type == IDTX) return s.def[txs];
+    const int t = plane_tx_type;
+    if (t == V_DCT || t == V_ADST || t == V_FLIPADST) return s.mrow[txs];
+    if (t == H_DCT || t == H_ADST || t == H_FLIPADST) return s.mcol[txs];
+    return s.def[txs];
+  }
+
+  // where each (adjusted) transform size's weights start in a level
+  static int qm_offset(int txs) {
+    int off = 0;
+    for (int t = 0; t < txs; ++t)
+      if (adjusted(t) == t) off += kTxW[t] * kTxH[t];
+    return off;
+  }
+
+  static int adjusted(int txs) {
+    switch (txs) {
+      case TX_64X64: case TX_32X64: case TX_64X32: return TX_32X32;
+      case TX_16X64: return TX_16X32;
+      case TX_64X16: return TX_32X16;
+      default: return txs;
+    }
+  }
+
+  int coeffs(int p, int start_x, int start_y, int txs) {
+    const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+    const int x4 = start_x >> 2, y4 = start_y >> 2;
+    const int w4 = kTxW[txs] >> 2, h4 = kTxH[txs] >> 2;
+    const int tx_ctx = (tx_sqr(txs) + tx_sqr_up(txs) + 1) >> 1;
+    const int ptype = p > 0;
+    const int seg_eob = (txs == TX_16X64 || txs == TX_64X16)
+                            ? 512 : std::min(1024, kTxW[txs] * kTxH[txs]);
+    std::memset(quant, 0, sizeof(int32_t) * seg_eob);
+    int eob = 0, cul = 0, dc_cat = 0;
+    const int max_x4 = mi_cols >> sx, max_y4 = mi_rows >> sy;
+    const int ly = y4 - (mi_row_start >> sy);   // the tile's left context
+    // all_zero
+    int ctx;
+    const int psz = p ? kSubSize[mi_size][ssx][ssy] : mi_size;
+    const int bw = kWide4[psz] * 4, bh = kHigh4[psz] * 4;
+    const int w = kTxW[txs], h = kTxH[txs];
+    if (p == 0) {
+      int top = 0, left = 0;
+      for (int k = 0; k < w4; ++k)
+        if (x4 + k < max_x4) top = std::max<int>(top, above_level[p][x4 + k]);
+      for (int k = 0; k < h4; ++k)
+        if (y4 + k < max_y4) left = std::max<int>(left, left_level[p][ly + k]);
+      if (bw == w && bh == h) ctx = 0;
+      else if (top == 0 && left == 0) ctx = 1;
+      else if (top == 0 || left == 0) ctx = 2 + (std::max(top, left) > 3);
+      else if (std::max(top, left) <= 3) ctx = 4;
+      else if (std::min(top, left) <= 3) ctx = 5;
+      else ctx = 6;
+    } else {
+      int above = 0, left = 0;
+      for (int k = 0; k < w4; ++k)
+        if (x4 + k < max_x4)
+          above |= above_level[p][x4 + k] | above_dc[p][x4 + k];
+      for (int k = 0; k < h4; ++k)
+        if (y4 + k < max_y4) left |= left_level[p][ly + k] | left_dc[p][ly + k];
+      ctx = (above != 0) + (left != 0) + 7;
+      if (bw * bh > w * h) ctx += 3;
+    }
+    const int all_zero = sym.read(cdf.txb_skip[tx_ctx][ctx], 2);
+    if (all_zero) {
+      if (p == 0)
+        for (int i = 0; i < w4; ++i)
+          for (int j = 0; j < h4; ++j)
+            if (x4 + i < mi_cols && y4 + j < mi_rows)
+              tx_types[mi(y4 + j, x4 + i)] = DCT_DCT;
+    } else {
+      if (p == 0) transform_type(x4, y4, txs);
+      plane_tx_type = compute_tx_type(p, txs, x4, y4);
+      const std::vector<int16_t>& scan = get_scan(txs);
+      const int cls = tx_class(plane_tx_type);
+      const int eob_ms = std::min(log2i(w), 5) + std::min(log2i(h), 5) - 4;
+      const int ectx = cls == TX_CLASS_2D ? 0 : 1;
+      int eob_pt;
+      switch (eob_ms) {
+        case 0: eob_pt = sym.read(cdf.eob16[ptype][ectx], 5) + 1; break;
+        case 1: eob_pt = sym.read(cdf.eob32[ptype][ectx], 6) + 1; break;
+        case 2: eob_pt = sym.read(cdf.eob64[ptype][ectx], 7) + 1; break;
+        case 3: eob_pt = sym.read(cdf.eob128[ptype][ectx], 8) + 1; break;
+        case 4: eob_pt = sym.read(cdf.eob256[ptype][ectx], 9) + 1; break;
+        case 5: eob_pt = sym.read(cdf.eob512[ptype][ectx], 10) + 1; break;
+        default: eob_pt = sym.read(cdf.eob1024[ptype][ectx], 11) + 1; break;
+      }
+      eob = eob_pt < 2 ? eob_pt : (1 << (eob_pt - 2)) + 1;
+      int eob_shift = eob_pt - 3;
+      if (eob_shift >= 0) {
+        if (sym.read(cdf.eob_extra[tx_ctx][ptype][eob_pt - 3], 2))
+          eob += 1 << eob_shift;
+        for (int i = 1; i < std::max(0, eob_pt - 2); ++i) {
+          eob_shift = std::max(0, eob_pt - 2) - 1 - i;
+          if (sym.literal(1)) eob += 1 << eob_shift;
+        }
+      }
+      const int adj = adjusted(txs);
+      const int bwl = log2i(kTxW[adj]);
+      const int txw = kTxW[adj], txh = kTxH[adj];
+      for (int c = eob - 1; c >= 0; --c) {
+        const int pos = scan[c];
+        int level;
+        if (c == eob - 1) {
+          const int area = txw * txh;
+          const int cctx = c == 0 ? 0 : c <= area / 8 ? 1
+                           : c <= area / 4 ? 2 : 3;
+          level = sym.read(cdf.base_eob[tx_ctx][ptype][cctx], 3) + 1;
+        } else {
+          const int bctx = base_ctx(txs, bwl, txh, pos, cls);
+          level = sym.read(cdf.base[tx_ctx][ptype][bctx], 4);
+        }
+        if (level > 2) {
+          const int bctx = br_ctx(bwl, txw, txh, pos, cls);
+          for (int idx = 0; idx < 4; ++idx) {
+            const int k = sym.read(cdf.br[std::min(tx_ctx, 3)][ptype][bctx], 4);
+            level += k;
+            if (k < 3) break;
+          }
+        }
+        quant[pos] = level;
+      }
+      for (int c = 0; c < eob; ++c) {
+        const int pos = scan[c];
+        int sign = 0;
+        if (quant[pos] != 0) {
+          if (c == 0) {
+            int dsign = 0;
+            for (int k = 0; k < w4; ++k)
+              if (x4 + k < max_x4) {
+                const int s = above_dc[p][x4 + k];
+                if (s == 1) --dsign;
+                else if (s == 2) ++dsign;
+              }
+            for (int k = 0; k < h4; ++k)
+              if (y4 + k < max_y4) {
+                const int s = left_dc[p][ly + k];
+                if (s == 1) --dsign;
+                else if (s == 2) ++dsign;
+              }
+            const int dctx = dsign < 0 ? 1 : dsign > 0 ? 2 : 0;
+            sign = sym.read(cdf.dc_sign[ptype][dctx], 2);
+          } else {
+            sign = sym.literal(1);
+          }
+        }
+        if (quant[pos] > 14) {
+          int length = 0;
+          do {
+            ++length;
+            if (length > 20) fail("the AV1 stream has a malformed Golomb code");
+          } while (!sym.literal(1));
+          int x = 1;
+          for (int i = length - 2; i >= 0; --i) x = (x << 1) | sym.literal(1);
+          quant[pos] = x + 14;
+        }
+        if (pos == 0 && quant[pos] > 0) dc_cat = sign ? 1 : 2;
+        quant[pos] &= 0xFFFFF;
+        cul += quant[pos];
+        if (sign) quant[pos] = -quant[pos];
+      }
+      cul = std::min(63, cul);
+    }
+    for (int i = 0; i < w4; ++i) {
+      above_level[p][x4 + i] = static_cast<uint8_t>(cul);
+      above_dc[p][x4 + i] = static_cast<uint8_t>(dc_cat);
+    }
+    for (int i = 0; i < h4; ++i) {
+      left_level[p][ly + i] = static_cast<uint8_t>(cul);
+      left_dc[p][ly + i] = static_cast<uint8_t>(dc_cat);
+    }
+    return eob;
+  }
+
+  int base_ctx(int txs, int bwl, int txh, int pos, int cls) const {
+    const int row = pos >> bwl, col = pos - (row << bwl);
+    int mag = 0;
+    for (int i = 0; i < 5; ++i) {
+      const int rr = row + kSigRefDiff[cls][i][0];
+      const int cc = col + kSigRefDiff[cls][i][1];
+      if (rr >= 0 && cc >= 0 && rr < txh && cc < (1 << bwl))
+        mag += std::min(std::abs(quant[(rr << bwl) + cc]), 3);
+    }
+    const int ctx = std::min((mag + 1) >> 1, 4);
+    if (cls == TX_CLASS_2D) {
+      if (row == 0 && col == 0) return 0;
+      const int w = kTxW[txs], h = kTxH[txs];
+      int off;
+      if (w < h && row < 2) off = 11;
+      else if (w > h && col < 2) off = 16;
+      else if (row + col < 2) off = 1;
+      else if (row + col < 4) off = 6;
+      else off = 21;
+      return ctx + off;
+    }
+    const int idx = cls == TX_CLASS_VERT ? row : col;
+    static const int kPos[3] = {26, 31, 36};
+    return ctx + kPos[std::min(idx, 2)];
+  }
+
+  int br_ctx(int bwl, int txw, int txh, int pos, int cls) const {
+    const int row = pos >> bwl, col = pos - (row << bwl);
+    int mag = 0;
+    for (int i = 0; i < 3; ++i) {
+      const int rr = row + kMagRefOffset[cls][i][0];
+      const int cc = col + kMagRefOffset[cls][i][1];
+      if (rr >= 0 && cc >= 0 && rr < txh && cc < (1 << bwl))
+        mag += std::min(quant[rr * txw + cc], 15);
+    }
+    mag = std::min((mag + 1) >> 1, 6);
+    if (pos == 0) return mag;
+    if (cls == TX_CLASS_2D) return (row < 2 && col < 2) ? mag + 7 : mag + 14;
+    if (cls == TX_CLASS_HORIZ) return col == 0 ? mag + 7 : mag + 14;
+    return row == 0 ? mag + 7 : mag + 14;
+  }
+
+  void transform_type(int x4, int y4, int txs) {
+    const int set = tx_set(txs);
+    int type = DCT_DCT;
+    const int q = seg_enabled ? qindex(true, segment_id) : base_q_idx;
+    if (set > 0 && q > 0) {
+      const int dir =
+          use_filter_intra ? kFilterIntraToDir[filter_intra_mode] : y_mode;
+      const int sqr = tx_sqr(txs);
+      if (set == TX_SET_INTRA_1)
+        type = kTxTypeInvSet1[sym.read(cdf.intra_tx[0][sqr][dir], 7)];
+      else
+        type = kTxTypeInvSet2[sym.read(cdf.intra_tx[1][sqr][dir], 5)];
+    }
+    for (int i = 0; i < (kTxW[txs] >> 2); ++i)
+      for (int j = 0; j < (kTxH[txs] >> 2); ++j)
+        if (x4 + i < mi_cols && y4 + j < mi_rows)
+          tx_types[mi(y4 + j, x4 + i)] = static_cast<uint8_t>(type);
+  }
+
+  int dc_q(int b) const { return Dc_Qlookup[clip3(0, 255, b)]; }
+  int ac_q(int b) const { return Ac_Qlookup[clip3(0, 255, b)]; }
+
+  void reconstruct(int p, int x, int y, int txs) {
+    // dqDenom 2 for the 32-point sizes, 4 for the 64x32 ones: a shift
+    const int area = kTxW[txs] * kTxH[txs];
+    const int dq_denom = area > 1024 ? 2 : area >= 512 ? 1 : 0;
+    const int log2w = log2i(kTxW[txs]), log2h = log2i(kTxH[txs]);
+    const int w = 1 << log2w, h = 1 << log2h;
+    const int tw = std::min(32, w), th = std::min(32, h);
+    const int q = qindex(false, segment_id);
+    const int dcq = dc_q(q + (p == 0 ? dq_y_dc : p == 1 ? dq_u_dc : dq_v_dc));
+    const int acq = ac_q(q + (p == 0 ? 0 : p == 1 ? dq_u_ac : dq_v_ac));
+    const int lim = 1 << (7 + bit_depth);
+    // quantizer matrices weight 2D transforms only (libaom's
+    // av1_get_iqmatrix: 1D and identity transforms get a flat matrix)
+    const int qm_level = (!using_qmatrix || lossless) ? 15
+                         : p == 0 ? qm_y : p == 1 ? qm_u : qm_v;
+    const uint8_t* qm = (qm_level < 15 && plane_tx_type < IDTX)
+                            ? Quantizer_Matrix[qm_level][p > 0] + qm_offset(adjusted(txs))
+                            : nullptr;
+    static thread_local int32_t res[64 * 64];
+    int32_t* R = res;
+    std::memset(R, 0, sizeof(int32_t) * w * h);
+    for (int i = 0; i < th; ++i)
+      for (int j = 0; j < tw; ++j) {
+        const int32_t v = quant[i * tw + j];
+        if (!v) continue;
+        const int64_t a = std::abs(v);
+        int q = i == 0 && j == 0 ? dcq : acq;
+        if (qm) q = round2(int64_t(q) * qm[i * tw + j], 5);
+        int64_t dq = (a * q) & 0xFFFFFF;
+        dq >>= dq_denom;
+        if (v < 0) dq = -dq;
+        R[i * w + j] = static_cast<int32_t>(std::min<int64_t>(std::max<int64_t>(dq, -lim), lim - 1));
+      }
+    int32_t t[64];
+    if (lossless) {
+      for (int i = 0; i < 4; ++i) {
+        for (int j = 0; j < 4; ++j) t[j] = R[i * 4 + j];
+        iwht4(t, 2);
+        for (int j = 0; j < 4; ++j) R[i * 4 + j] = t[j];
+      }
+      for (int j = 0; j < 4; ++j) {
+        for (int i = 0; i < 4; ++i) t[i] = R[i * 4 + j];
+        iwht4(t, 0);
+        for (int i = 0; i < 4; ++i) R[i * 4 + j] = t[i];
+      }
+    } else {
+      const int row_kind = (plane_tx_type == IDTX || plane_tx_type == V_DCT) ? 2
+                           : (plane_tx_type == DCT_ADST || plane_tx_type == ADST_ADST) ? 1 : 0;
+      const int col_kind = (plane_tx_type == IDTX || plane_tx_type == H_DCT) ? 2
+                           : (plane_tx_type == ADST_DCT || plane_tx_type == ADST_ADST) ? 1 : 0;
+      const int row_shift = kRowShift[txs];
+      const int rlim = 1 << (bit_depth + 7);
+      const int clim = 1 << (std::max(bit_depth + 6, 16) - 1);
+      Tx1D rowtx{-rlim, rlim - 1};
+      Tx1D coltx{-clim, clim - 1};
+      const bool rect = std::abs(log2w - log2h) == 1;
+      for (int i = 0; i < std::min(h, 32); ++i) {
+        bool any = false;
+        for (int j = 0; j < w; ++j) {
+          int64_t v = R[i * w + j];
+          if (rect) v = round2(v * 2896, 12);
+          t[j] = static_cast<int32_t>(std::min<int64_t>(std::max<int64_t>(v, -rlim), rlim - 1));
+          any |= t[j] != 0;
+        }
+        if (any) rowtx.run(row_kind, t, w);
+        for (int j = 0; j < w; ++j) R[i * w + j] = round2(t[j], row_shift);
+      }
+      for (int j = 0; j < w; ++j) {
+        for (int i = 0; i < h; ++i) t[i] = clip3(-clim, clim - 1, R[i * w + j]);
+        coltx.run(col_kind, t, h);
+        for (int i = 0; i < h; ++i) R[i * w + j] = round2(t[i], 4);
+      }
+    }
+    Plane& P = cur[p];
+    const int maxv = (1 << bit_depth) - 1;
+    for (int i = 0; i < h; ++i) {
+      if (y + i >= P.rows) break;
+      uint16_t* row = P.at(y + i, 0);
+      for (int j = 0; j < w; ++j) {
+        if (x + j >= P.stride) break;
+        row[x + j] = static_cast<uint16_t>(clip3(0, maxv, row[x + j] + R[i * w + j]));
+      }
+    }
+  }
+
+  // -------------------------------------------------------------------------
+  // intra prediction (spec 7.11.2)
+
+  bool is_smooth(int r, int c, int p) const {
+    const int m = p == 0 ? y_modes[mi(r, c)] : uv_modes[mi(r, c)];
+    return m == SMOOTH_PRED || m == SMOOTH_V_PRED || m == SMOOTH_H_PRED;
+  }
+
+  int filter_type(int p) const {
+    bool a = false, l = false;
+    if (p == 0 ? avail_u : avail_u_chroma) {
+      int r = mi_row - 1, c = mi_col;
+      if (p > 0) {
+        if (ssx && !(mi_col & 1)) ++c;
+        if (ssy && (mi_row & 1)) --r;
+      }
+      a = is_smooth(r, c, p);
+    }
+    if (p == 0 ? avail_l : avail_l_chroma) {
+      int r = mi_row, c = mi_col - 1;
+      if (p > 0) {
+        if (ssx && (mi_col & 1)) --c;
+        if (ssy && !(mi_row & 1)) ++r;
+      }
+      l = is_smooth(r, c, p);
+    }
+    return a || l;
+  }
+
+  static int edge_strength(int w, int h, int type, int delta) {
+    const int d = std::abs(delta), wh = w + h;
+    int s = 0;
+    if (type == 0) {
+      if (wh <= 8) { if (d >= 56) s = 1; }
+      else if (wh <= 12) { if (d >= 40) s = 1; }
+      else if (wh <= 16) { if (d >= 40) s = 1; }
+      else if (wh <= 24) { if (d >= 8) s = 1; if (d >= 16) s = 2; if (d >= 32) s = 3; }
+      else if (wh <= 32) { if (d >= 1) s = 1; if (d >= 4) s = 2; if (d >= 32) s = 3; }
+      else { if (d >= 1) s = 3; }
+    } else {
+      if (wh <= 8) { if (d >= 40) s = 1; if (d >= 64) s = 2; }
+      else if (wh <= 16) { if (d >= 20) s = 1; if (d >= 48) s = 2; }
+      else if (wh <= 24) { if (d >= 4) s = 3; }
+      else { if (d >= 1) s = 3; }
+    }
+    return s;
+  }
+
+  static bool use_upsample(int w, int h, int type, int delta) {
+    const int d = std::abs(delta), wh = w + h;
+    if (d <= 0 || d >= 40) return false;
+    return type == 0 ? wh <= 16 : wh <= 8;
+  }
+
+  static void edge_filter(int* e, int sz, int strength) {   // e[-1 .. sz-2]
+    if (!strength) return;
+    int edge[300];
+    for (int i = 0; i < sz; ++i) edge[i] = e[i - 1];
+    for (int i = 1; i < sz; ++i) {
+      int s = 0;
+      for (int j = 0; j < 5; ++j) {
+        const int k = clip3(0, sz - 1, i - 2 + j);
+        s += kEdgeKernel[strength - 1][j] * edge[k];
+      }
+      e[i - 1] = (s + 8) >> 4;
+    }
+  }
+
+  void edge_upsample(int* buf, int num_px) const {
+    int dup[300];
+    dup[0] = buf[-1];
+    for (int i = -1; i < num_px; ++i) dup[i + 2] = buf[i];
+    dup[num_px + 2] = buf[num_px - 1];
+    buf[-2] = dup[0];
+    const int maxv = (1 << bit_depth) - 1;
+    for (int i = 0; i < num_px; ++i) {
+      int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
+      s = clip3(0, maxv, round2(s, 4));
+      buf[2 * i - 1] = s;
+      buf[2 * i] = dup[i + 2];
+    }
+  }
+
+  void predict_intra(int p, int x, int y, bool have_left, bool have_above,
+                     bool have_above_right, bool have_below_left, int mode,
+                     int log2w, int log2h) {
+    Plane& P = cur[p];
+    const int w = 1 << log2w, h = 1 << log2h;
+    const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+    const int max_x = ((mi_cols * 4) >> sx) - 1, max_y = ((mi_rows * 4) >> sy) - 1;
+    const int mid = 1 << (bit_depth - 1);
+    int above_buf[320], left_buf[320];
+    int* above = above_buf + 16;
+    int* left = left_buf + 16;
+    const int n = w + h;
+    if (!have_above && have_left) {
+      for (int i = -1; i < n; ++i) above[i] = P.get(y, x - 1);
+    } else if (!have_above && !have_left) {
+      for (int i = -1; i < n; ++i) above[i] = mid - 1;
+    } else {
+      const int lim = std::min(max_x, x + (have_above_right ? 2 * w : w) - 1);
+      for (int i = 0; i < n; ++i) above[i] = P.get(y - 1, std::min(lim, x + i));
+    }
+    if (!have_left && have_above) {
+      for (int i = -1; i < n; ++i) left[i] = P.get(y - 1, x);
+    } else if (!have_left && !have_above) {
+      for (int i = -1; i < n; ++i) left[i] = mid + 1;
+    } else {
+      const int lim = std::min(max_y, y + (have_below_left ? 2 * h : h) - 1);
+      for (int i = 0; i < n; ++i) left[i] = P.get(std::min(lim, y + i), x - 1);
+    }
+    if (have_above && have_left) above[-1] = P.get(y - 1, x - 1);
+    else if (have_above) above[-1] = P.get(y - 1, x);
+    else if (have_left) above[-1] = P.get(y, x - 1);
+    else above[-1] = mid;
+    left[-1] = above[-1];
+
+    static thread_local int pred[64][64];
+    if (p == 0 && use_filter_intra) {
+      filter_intra(above, left, w, h, pred);
+    } else if (mode >= V_PRED && mode <= D67_PRED) {
+      directional(p, x, y, have_left, have_above, mode, w, h, max_x, max_y,
+                  above, left, pred);
+    } else if (mode == SMOOTH_PRED) {
+      const uint8_t* wx = Sm_Weight_Arrays + w - 4;
+      const uint8_t* wy = Sm_Weight_Arrays + h - 4;
+      for (int i = 0; i < h; ++i)
+        for (int j = 0; j < w; ++j)
+          pred[i][j] = round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1] +
+                                  wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 9);
+    } else if (mode == SMOOTH_V_PRED) {
+      const uint8_t* wy = Sm_Weight_Arrays + h - 4;
+      for (int i = 0; i < h; ++i)
+        for (int j = 0; j < w; ++j)
+          pred[i][j] = round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
+    } else if (mode == SMOOTH_H_PRED) {
+      const uint8_t* wx = Sm_Weight_Arrays + w - 4;
+      for (int i = 0; i < h; ++i)
+        for (int j = 0; j < w; ++j)
+          pred[i][j] = round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
+    } else if (mode == DC_PRED) {
+      int avg;
+      if (have_left && have_above) {
+        int sum = 0;
+        for (int k = 0; k < w; ++k) sum += above[k];
+        for (int k = 0; k < h; ++k) sum += left[k];
+        avg = (sum + ((w + h) >> 1)) / (w + h);
+      } else if (have_left) {
+        int sum = 0;
+        for (int k = 0; k < h; ++k) sum += left[k];
+        avg = (sum + (h >> 1)) >> log2h;
+      } else if (have_above) {
+        int sum = 0;
+        for (int k = 0; k < w; ++k) sum += above[k];
+        avg = (sum + (w >> 1)) >> log2w;
+      } else {
+        avg = mid;
+      }
+      for (int i = 0; i < h; ++i)
+        for (int j = 0; j < w; ++j) pred[i][j] = avg;
+    } else {    // PAETH
+      for (int i = 0; i < h; ++i)
+        for (int j = 0; j < w; ++j) {
+          const int base = above[j] + left[i] - above[-1];
+          const int pl = std::abs(base - left[i]), pt = std::abs(base - above[j]),
+                    ptl = std::abs(base - above[-1]);
+          pred[i][j] = (pl <= pt && pl <= ptl) ? left[i] : (pt <= ptl) ? above[j] : above[-1];
+        }
+    }
+    for (int i = 0; i < h; ++i) {
+      if (y + i >= P.rows) break;
+      uint16_t* row = P.at(y + i, 0);
+      for (int j = 0; j < w; ++j)
+        if (x + j < P.stride) row[x + j] = static_cast<uint16_t>(pred[i][j]);
+    }
+  }
+
+  void filter_intra(const int* above, const int* left, int w, int h,
+                    int (*pred)[64]) const {
+    const int maxv = (1 << bit_depth) - 1;
+    const int w4 = w >> 2, h2 = h >> 1;
+    for (int i2 = 0; i2 < h2; ++i2)
+      for (int j4 = 0; j4 < w4; ++j4) {
+        int pp[7];
+        for (int i = 0; i < 7; ++i) {
+          if (i < 5) {
+            if (i2 == 0) pp[i] = above[(j4 << 2) + i - 1];
+            else if (j4 == 0 && i == 0) pp[i] = left[(i2 << 1) - 1];
+            else pp[i] = pred[(i2 << 1) - 1][(j4 << 2) + i - 1];
+          } else {
+            if (j4 == 0) pp[i] = left[(i2 << 1) + i - 5];
+            else pp[i] = pred[(i2 << 1) + i - 5][(j4 << 2) - 1];
+          }
+        }
+        for (int i = 0; i < 8; ++i) {
+          int pr = 0;
+          for (int j = 0; j < 7; ++j)
+            pr += Filter_Intra_Taps[(filter_intra_mode * 8 + i) * 8 + j] * pp[j];
+          const int v = pr >= 0 ? round2(pr, 4) : -round2(-pr, 4);
+          pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] = clip3(0, maxv, v);
+        }
+      }
+  }
+
+  void directional(int p, int x, int y, bool have_left, bool have_above,
+                   int mode, int w, int h, int max_x, int max_y, int* above,
+                   int* left, int (*pred)[64]) const {
+    const int delta = p == 0 ? angle_delta_y : angle_delta_uv;
+    const int angle = kModeToAngle[mode] + delta * 3;
+    int up_above = 0, up_left = 0;
+    if (enable_intra_edge_filter) {
+      if (angle != 90 && angle != 180) {
+        if (angle > 90 && angle < 180 && (w + h) >= 24) {
+          const int v = round2(left[0] * 5 + above[-1] * 6 + above[0] * 5, 4);
+          left[-1] = above[-1] = v;
+        }
+        const int type = filter_type(p);
+        if (have_above) {
+          const int s = edge_strength(w, h, type, angle - 90);
+          const int num = std::min(w, max_x - x + 1) + (angle < 90 ? h : 0) + 1;
+          edge_filter(above, num, s);
+        }
+        if (have_left) {
+          const int s = edge_strength(w, h, type, angle - 180);
+          const int num = std::min(h, max_y - y + 1) + (angle > 180 ? w : 0) + 1;
+          edge_filter(left, num, s);
+        }
+      }
+      const int type = filter_type(p);
+      up_above = use_upsample(w, h, type, angle - 90);
+      if (up_above) edge_upsample(above, w + (angle < 90 ? h : 0));
+      up_left = use_upsample(w, h, type, angle - 180);
+      if (up_left) edge_upsample(left, h + (angle > 180 ? w : 0));
+    }
+    int dx = 0, dy = 0;
+    if (angle < 90) dx = Dr_Intra_Derivative[angle];
+    else if (angle > 90 && angle < 180) dx = Dr_Intra_Derivative[180 - angle];
+    if (angle > 90 && angle < 180) dy = Dr_Intra_Derivative[angle - 90];
+    else if (angle > 180) dy = Dr_Intra_Derivative[270 - angle];
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
+        int v;
+        if (angle < 90) {
+          const int idx = (i + 1) * dx;
+          const int base = (idx >> (6 - up_above)) + (j << up_above);
+          const int shift = ((idx << up_above) >> 1) & 0x1F;
+          const int max_base = (w + h - 1) << up_above;
+          if (base < max_base)
+            v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+          else
+            v = above[max_base];
+        } else if (angle > 90 && angle < 180) {
+          int idx = (j << 6) - (i + 1) * dx;
+          int base = idx >> (6 - up_above);
+          if (base >= -(1 << up_above)) {
+            const int shift = ((idx * (1 << up_above)) >> 1) & 0x1F;
+            v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+          } else {
+            idx = (i << 6) - (j + 1) * dy;
+            base = idx >> (6 - up_left);
+            const int shift = ((idx * (1 << up_left)) >> 1) & 0x1F;
+            v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+          }
+        } else if (angle > 180) {
+          const int idx = (j + 1) * dy;
+          const int base = (idx >> (6 - up_left)) + (i << up_left);
+          const int shift = ((idx << up_left) >> 1) & 0x1F;
+          const int max_base = (w + h - 1) << up_left;
+          if (base < max_base)
+            v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+          else
+            v = left[max_base];
+        } else if (angle == 90) {
+          v = above[j];
+        } else {
+          v = left[i];
+        }
+        pred[i][j] = v;
+      }
+  }
+
+  void predict_cfl(int p, int sx0, int sy0, int txs) {
+    const int w = kTxW[txs], h = kTxH[txs];
+    const int alpha = p == 1 ? cfl_alpha_u : cfl_alpha_v;
+    static thread_local int L[64][64];
+    int64_t avg = 0;
+    const Plane& Y = cur[0];
+    for (int i = 0; i < h; ++i) {
+      const int ly = std::min((sy0 + i) << ssy, max_luma_h - (1 << ssy));
+      for (int j = 0; j < w; ++j) {
+        const int lx = std::min((sx0 + j) << ssx, max_luma_w - (1 << ssx));
+        int t = 0;
+        for (int dy = 0; dy <= ssy; ++dy)
+          for (int dx = 0; dx <= ssx; ++dx) t += Y.get(ly + dy, lx + dx);
+        const int v = t << (3 - ssx - ssy);
+        L[i][j] = v;
+        avg += v;
+      }
+    }
+    const int lavg = round2(avg, log2i(w) + log2i(h));
+    Plane& P = cur[p];
+    const int maxv = (1 << bit_depth) - 1;
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
+        const int dc = P.get(sy0 + i, sx0 + j);
+        const int s = alpha * (L[i][j] - lavg);
+        const int scaled = s >= 0 ? round2(s, 6) : -round2(-s, 6);
+        *P.at(sy0 + i, sx0 + j) = static_cast<uint16_t>(clip3(0, maxv, dc + scaled));
+      }
+  }
+
+  // -------------------------------------------------------------------------
+  // the deblocking filter (spec 7.14)
+
+  void loop_filter() {
+    if (!lf_level[0] && !lf_level[1]) return;
+    for (int p = 0; p < num_planes; ++p) {
+      if (p > 0 && !lf_level[p + 1]) continue;
+      const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      for (int pass = 0; pass < 2; ++pass)
+        for (int row = 0; row < mi_rows; row += (1 << sy))
+          for (int col = 0; col < mi_cols; col += (1 << sx))
+            edge(p, pass, row, col, sx, sy);
+    }
+  }
+
+  void strength(int r, int c, int p, int pass, int* lvl, int* limit,
+                int* blimit, int* thresh) const {
+    const int seg = seg_ids[mi(r, c)];
+    const int i = p == 0 ? pass : p + 1;
+    const int dlf = delta_lfs[mi(r, c) * 4 + (delta_lf_multi ? i : 0)];
+    int l = clip3(0, MAX_LOOP_FILTER, dlf + lf_level[i]);
+    if (seg_active(seg, SEG_LVL_ALT_LF_Y_V + i))
+      l = clip3(0, MAX_LOOP_FILTER, l + feature_data[seg][SEG_LVL_ALT_LF_Y_V + i]);
+    if (lf_delta_enabled) {
+      l += lf_ref_deltas[0] * (1 << (l >> 5));
+      l = clip3(0, MAX_LOOP_FILTER, l);
+    }
+    const int shift = lf_sharpness > 4 ? 2 : lf_sharpness > 0 ? 1 : 0;
+    int lim = lf_sharpness > 0 ? clip3(1, 9 - lf_sharpness, l >> shift)
+                               : std::max(1, l >> shift);
+    *lvl = l;
+    *limit = lim;
+    *blimit = 2 * (l + 2) + lim;
+    *thresh = l >> 4;
+  }
+
+  void edge(int p, int pass, int row, int col, int sx, int sy) {
+    const int dx = pass == 0, dy = pass == 1;
+    const int x = col * 4, y = row * 4;
+    row |= sy;
+    col |= sx;
+    if (x >= frame_w || y >= frame_h) return;
+    if (pass == 0 && x == 0) return;
+    if (pass == 1 && y == 0) return;
+    const int xp = x >> sx, yp = y >> sy;
+    const int prev_row = row - (dy << sy), prev_col = col - (dx << sx);
+    const int txs = lf_tx[p][size_t(row >> sy) * lf_stride[p] + (col >> sx)];
+    const int prev_txs =
+        lf_tx[p][size_t(prev_row >> sy) * lf_stride[p] + (prev_col >> sx)];
+    // an intra frame filters every transform edge (block edges are ones)
+    const bool tx_edge =
+        pass == 0 ? xp % kTxW[txs] == 0 : yp % kTxH[txs] == 0;
+    if (!tx_edge) return;
+    const int base = pass == 0 ? std::min(kTxW[prev_txs], kTxW[txs])
+                               : std::min(kTxH[prev_txs], kTxH[txs]);
+    const int fsize = p == 0 ? std::min(16, base) : std::min(8, base);
+    int lvl, limit, blimit, thresh;
+    strength(row, col, p, pass, &lvl, &limit, &blimit, &thresh);
+    if (lvl == 0) strength(prev_row, prev_col, p, pass, &lvl, &limit, &blimit, &thresh);
+    if (lvl == 0) return;
+    for (int i = 0; i < 4; ++i)
+      sample_filter(xp + dy * i, yp + dx * i, p, limit, blimit, thresh, dx, dy, fsize);
+  }
+
+  void sample_filter(int x, int y, int p, int limit, int blimit, int thresh,
+                     int dx, int dy, int fsize) {
+    Plane& P = cur[p];
+    if (y >= P.rows || x >= P.stride) return;
+    auto at = [&](int k) -> uint16_t& { return *P.at(y + dy * k, x + dx * k); };
+    // k >= 0: q_k at offset k; p_k at offset -k-1
+    const int q0 = at(0), q1 = at(1), p0 = at(-1), p1 = at(-2);
+    int hev = std::abs(p1 - p0) > thresh || std::abs(q1 - q0) > thresh;
+    const int flen = fsize == 4 ? 4 : p != 0 ? 6 : fsize == 8 ? 8 : 16;
+    int mask = std::abs(p1 - p0) > limit || std::abs(q1 - q0) > limit ||
+               std::abs(p0 - q0) * 2 + std::abs(p1 - q1) / 2 > blimit;
+    int q2 = 0, p2 = 0, q3 = 0, p3 = 0;
+    if (flen >= 6) {
+      q2 = at(2);
+      p2 = at(-3);
+      mask |= std::abs(p2 - p1) > limit || std::abs(q2 - q1) > limit;
+    }
+    if (flen >= 8) {
+      q3 = at(3);
+      p3 = at(-4);
+      mask |= std::abs(p3 - p2) > limit || std::abs(q3 - q2) > limit;
+    }
+    if (mask) return;
+    int flat = 0, flat2 = 0;
+    if (fsize >= 8) {
+      int m = std::abs(p1 - p0) > 1 || std::abs(q1 - q0) > 1 ||
+              std::abs(p2 - p0) > 1 || std::abs(q2 - q0) > 1;
+      if (flen >= 8) m |= std::abs(p3 - p0) > 1 || std::abs(q3 - q0) > 1;
+      flat = !m;
+    }
+    if (fsize >= 16) {
+      const int q4 = at(4), q5 = at(5), q6 = at(6), p4 = at(-5), p5 = at(-6), p6 = at(-7);
+      flat2 = !(std::abs(p6 - p0) > 1 || std::abs(q6 - q0) > 1 ||
+                std::abs(p5 - p0) > 1 || std::abs(q5 - q0) > 1 ||
+                std::abs(p4 - p0) > 1 || std::abs(q4 - q0) > 1);
+    }
+    if (fsize == 4 || !flat) {
+      auto c4 = [](int v) { return clip3(-128, 127, v); };
+      const int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+      int f = hev ? c4(ps1 - qs1) : 0;
+      f = c4(f + 3 * (qs0 - ps0));
+      const int f1 = c4(f + 4) >> 3, f2 = c4(f + 3) >> 3;
+      at(0) = static_cast<uint16_t>(c4(qs0 - f1) + 128);
+      at(-1) = static_cast<uint16_t>(c4(ps0 + f2) + 128);
+      if (!hev) {
+        const int f3 = round2(f1, 1);
+        at(1) = static_cast<uint16_t>(c4(qs1 - f3) + 128);
+        at(-2) = static_cast<uint16_t>(c4(ps1 + f3) + 128);
+      }
+    } else {
+      const int log2size = (fsize == 8 || !flat2) ? 3 : 4;
+      const int n = log2size == 4 ? 6 : p == 0 ? 3 : 2;
+      const int n2 = (log2size == 3 && p == 0) ? 0 : 1;
+      int s[16], F[16];
+      for (int k = -(n + 1); k <= n; ++k) s[k + 8] = at(k);   // offsets
+      for (int i = -n; i < n; ++i) {
+        int t = 0;
+        for (int j = -n; j <= n; ++j) {
+          const int pp = clip3(-(n + 1), n, i + j);
+          const int tap = std::abs(j) <= n2 ? 2 : 1;
+          t += s[pp + 8] * tap;
+        }
+        F[i + 8] = round2(t, log2size);
+      }
+      for (int i = -n; i < n; ++i) at(i) = static_cast<uint16_t>(F[i + 8]);
+    }
+  }
+
+  // -------------------------------------------------------------------------
+  // CDEF (spec 7.15)
+
+  void cdef() {
+    if (!enable_cdef || coded_lossless) return;
+    Plane src[3];
+    for (int p = 0; p < num_planes; ++p) src[p] = cur[p];
+    for (int r = 0; r < mi_rows; r += 16)
+      for (int c = 0; c < mi_cols; c += 16) {
+        const int idx = cdef_at(r, c);
+        if (idx == -1) continue;
+        for (int y = r; y < std::min(r + 16, mi_rows); y += 2)
+          for (int x = c; x < std::min(c + 16, mi_cols); x += 2) {
+            const bool skipped = skips[mi(y, x)] && skips[mi(y + 1, x)] &&
+                                 skips[mi(y, x + 1)] && skips[mi(y + 1, x + 1)];
+            if (skipped) continue;
+            int var = 0;
+            const int ydir = cdef_direction(src[0], y, x, &var);
+            int pri = cdef_y_pri[idx], sec = cdef_y_sec[idx];
+            int dir = pri == 0 ? 0 : ydir;
+            const int vs = (var >> 6) ? std::min(floor_log2(var >> 6), 12) : 0;
+            pri = var ? (pri * (4 + vs) + 8) >> 4 : 0;
+            cdef_filter(src, 0, y, x, pri, sec, cdef_damping, dir);
+            if (num_planes > 1) {
+              pri = cdef_uv_pri[idx];
+              sec = cdef_uv_sec[idx];
+              dir = pri == 0 ? 0 : kCdefUvDir[ssx][ssy][ydir];
+              cdef_filter(src, 1, y, x, pri, sec, cdef_damping - 1, dir);
+              cdef_filter(src, 2, y, x, pri, sec, cdef_damping - 1, dir);
+            }
+          }
+      }
+  }
+
+  int cdef_direction(const Plane& P, int r, int c, int* var) const {
+    int cost[8] = {0}, partial[8][15] = {{0}};
+    const int x0 = c * 4, y0 = r * 4;
+    for (int i = 0; i < 8; ++i)
+      for (int j = 0; j < 8; ++j) {
+        const int x = (P.get(y0 + i, x0 + j) >> (bit_depth - 8)) - 128;
+        partial[0][i + j] += x;
+        partial[1][i + j / 2] += x;
+        partial[2][i] += x;
+        partial[3][3 + i - j / 2] += x;
+        partial[4][7 + i - j] += x;
+        partial[5][3 - i / 2 + j] += x;
+        partial[6][j] += x;
+        partial[7][i / 2 + j] += x;
+      }
+    for (int i = 0; i < 8; ++i) {
+      cost[2] += partial[2][i] * partial[2][i];
+      cost[6] += partial[6][i] * partial[6][i];
+    }
+    cost[2] *= Div_Table[8];
+    cost[6] *= Div_Table[8];
+    for (int i = 0; i < 7; ++i) {
+      cost[0] += (partial[0][i] * partial[0][i] + partial[0][14 - i] * partial[0][14 - i]) * Div_Table[i + 1];
+      cost[4] += (partial[4][i] * partial[4][i] + partial[4][14 - i] * partial[4][14 - i]) * Div_Table[i + 1];
+    }
+    cost[0] += partial[0][7] * partial[0][7] * Div_Table[8];
+    cost[4] += partial[4][7] * partial[4][7] * Div_Table[8];
+    for (int i = 1; i < 8; i += 2) {
+      for (int j = 0; j < 5; ++j) cost[i] += partial[i][3 + j] * partial[i][3 + j];
+      cost[i] *= Div_Table[8];
+      for (int j = 0; j < 3; ++j)
+        cost[i] += (partial[i][j] * partial[i][j] + partial[i][10 - j] * partial[i][10 - j]) * Div_Table[2 * j + 2];
+    }
+    int best = 0, dir = 0;
+    for (int i = 0; i < 8; ++i)
+      if (cost[i] > best) {
+        best = cost[i];
+        dir = i;
+      }
+    *var = (best - cost[(dir + 4) & 7]) >> 10;
+    return dir;
+  }
+
+  // constrain() of the spec, its damping shift max(0, damping -
+  // FloorLog2(threshold)) given
+  static int constrain(int diff, int threshold, int adj) {
+    if (!threshold) return 0;
+    const int v = std::min(std::abs(diff), std::max(0, threshold - (std::abs(diff) >> adj)));
+    return diff < 0 ? -v : v;
+  }
+
+  void cdef_filter(const Plane* src, int p, int r, int c, int pri, int sec,
+                   int damping, int dir) {
+    const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+    const int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy;
+    const int w = 8 >> sx, h = 8 >> sy;
+    const Plane& S = src[p];
+    Plane& D = cur[p];
+    const int pri_adj = pri ? std::max(0, damping - floor_log2(pri)) : 0;
+    const int sec_adj = sec ? std::max(0, damping - floor_log2(sec)) : 0;
+    auto get = [&](int yy, int xx, bool* ok) {
+      *ok = yy >= 0 && xx >= 0 && ((yy << sy) >> 2) < mi_rows &&
+            ((xx << sx) >> 2) < mi_cols;
+      return *ok ? S.get(yy, xx) : 0;
+    };
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
+        const int x = S.get(y0 + i, x0 + j);
+        int sum = 0, mx = x, mn = x;
+        for (int k = 0; k < 2; ++k)
+          for (int sign = -1; sign <= 1; sign += 2) {
+            bool ok;
+            const int pv = get(y0 + i + sign * kCdefDirections[dir][k][0],
+                               x0 + j + sign * kCdefDirections[dir][k][1], &ok);
+            if (ok) {
+              sum += kCdefPriTaps[pri & 1][k] * constrain(pv - x, pri, pri_adj);
+              mx = std::max(pv, mx);
+              mn = std::min(pv, mn);
+            }
+            for (int off = -2; off <= 2; off += 4) {
+              const int d2 = (dir + off) & 7;
+              const int s = get(y0 + i + sign * kCdefDirections[d2][k][0],
+                                x0 + j + sign * kCdefDirections[d2][k][1], &ok);
+              if (ok) {
+                sum += kCdefSecTaps[pri & 1][k] * constrain(s - x, sec, sec_adj);
+                mx = std::max(s, mx);
+                mn = std::min(s, mn);
+              }
+            }
+          }
+        *D.at(y0 + i, x0 + j) =
+            static_cast<uint16_t>(clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4)));
+      }
+  }
+
+  // -------------------------------------------------------------------------
+  // OBUs
+
+  // The OBUs of the item, as libaom takes them (libavif hands it the
+  // item's data; the av1C's config OBUs are not read): every OBU with its
+  // size field, zero bytes right after the frame's last OBU skipped (as
+  // libaom skips them after each frame it decodes); a temporal delimiter
+  // empty, no tile list; padding, metadata and reserved OBUs skipped but
+  // for a last byte of 0 (libaom's trailing-bits test); a redundant frame
+  // header ignored.
+  void run(const uint8_t* d, size_t n, bool headers_only) {
+    size_t at = 0;
+    bool after_frame = false;
+    while (at < n) {
+      if (after_frame && d[at] == 0) {
+        ++at;
+        continue;
+      }
+      after_frame = false;
+      const bool was_done = frame_done;
+      const uint8_t h = d[at++];
+      if (h & 0x80)
+        fail("the AV1 stream has an OBU with its forbidden bit set");
+      const int type = (h >> 3) & 15, ext = (h >> 2) & 1;
+      if (!((h >> 1) & 1))
+        fail("the AV1 stream has an OBU without its size (cv2 refuses it)");
+      int temporal_id = 0, spatial_id = 0;
+      if (ext) {
+        if (at >= n) fail("the AV1 stream ends inside an OBU header");
+        temporal_id = d[at] >> 5;
+        spatial_id = (d[at] >> 3) & 3;
+        ++at;
+      }
+      const size_t size = static_cast<size_t>(leb128(d, n, &at));
+      if (size > n - at) fail("the AV1 stream ends inside an OBU");
+      const uint8_t* body = d + at;
+      at += size;
+      BitReader r(body, size);
+      switch (type) {
+        case 1:
+          if (!have_seq) sequence_header(r);
+          break;
+        case 2:
+          if (size) fail("the AV1 stream has a temporal delimiter with a "
+                         "payload (cv2 refuses it)");
+          break;
+        case 3: case 6:
+          if (frame_done) break;
+          frame_header(r, temporal_id, spatial_id);
+          if (headers_only) return;
+          allocate();
+          if (type == 6) {
+            r.byte_align();
+            tile_group(r, body, size);
+          }
+          break;
+        case 4:
+          if (headers_only) return;
+          tile_group(r, body, size);
+          break;
+        case 7:
+          break;
+        case 8:
+          fail("the AV1 stream has a tile list OBU (cv2 refuses it)");
+        default:        // metadata, padding, reserved
+          if (size && body[size - 1] == 0)
+            fail("the AV1 stream has an OBU whose trailing bits are "
+                 "missing (cv2 refuses it)");
+      }
+      after_frame = frame_done && !was_done;
+    }
+    if (!have_seq) fail("the AV1 stream has no sequence header");
+    if (!have_frame) fail("the AV1 stream has no frame");
+    if (!headers_only && !frame_done)
+      fail("the AV1 stream ends before its last tile");
+  }
+
+};
+
+}  // namespace
+
+extern "C" {
+
+int av1_probe(const uint8_t* data, int64_t len, int32_t* info, char* msg,
+              int msg_len) {
+  try {
+    Decoder dec;
+    dec.run(data, static_cast<size_t>(len), true);
+    info[0] = dec.frame_w;
+    info[1] = dec.frame_h;
+    info[2] = dec.ssx;
+    info[3] = dec.ssy;
+    info[4] = dec.mono;
+    info[5] = dec.bit_depth;
+    info[6] = dec.color_range;
+    info[7] = dec.matrix;
+    info[8] = dec.color_primaries;
+    info[9] = dec.transfer;
+    return 0;
+  } catch (const Fail& f) {
+    set_msg(msg, msg_len, f.msg);
+  } catch (const std::bad_alloc&) {
+    set_msg(msg, msg_len, "out of memory");
+  }
+  return 1;
+}
+
+int av1_decode(const uint8_t* data, int64_t len, uint16_t* y, uint16_t* u,
+               uint16_t* v, char* msg, int msg_len) {
+  try {
+    Decoder dec;
+    dec.run(data, static_cast<size_t>(len), false);
+    dec.loop_filter();
+    dec.cdef();
+    uint16_t* out[3] = {y, u, v};
+    for (int p = 0; p < dec.num_planes; ++p) {
+      const int sx = p ? dec.ssx : 0, sy = p ? dec.ssy : 0;
+      const int w = (dec.frame_w + sx) >> sx, h = (dec.frame_h + sy) >> sy;
+      for (int i = 0; i < h; ++i)
+        std::memcpy(out[p] + size_t(i) * w, dec.cur[p].at(i, 0), w * sizeof(uint16_t));
+    }
+    return 0;
+  } catch (const Fail& f) {
+    set_msg(msg, msg_len, f.msg);
+  } catch (const std::bad_alloc&) {
+    set_msg(msg, msg_len, "out of memory");
+  }
+  return 1;
+}
+
+}  // extern "C"

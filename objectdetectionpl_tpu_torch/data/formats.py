@@ -1,12 +1,13 @@
-"""PNG, BMP, GIF, WebP, TIFF, JPEG 2000, PNM, PAM, PFM, Sun raster and
-Radiance HDR files read as ``cv2.imread(path, IMREAD_COLOR)`` reads them,
-and the signatures that pick a reader.
+"""PNG, BMP, GIF, WebP, TIFF, JPEG 2000, AVIF, PNM, PAM, PFM, Sun raster
+and Radiance HDR files read as ``cv2.imread(path, IMREAD_COLOR)`` reads
+them, and the signatures that pick a reader.
 
 ``cv2.imread`` picks its decoder by the file's first bytes, not by its
 name: a PNG named ``.jpg`` is read as a PNG.  :func:`sniff` names the
 format the same way; ``native.decode_image`` reads JPEG with the port's
 decoder and the others here (with the host library's inner loops), and
-refuses the formats cv2 reads that the port does not (AVIF), naming them.
+refuses a format cv2 reads that the port does not (OpenEXR, which the
+cv2 of the tests lacks), naming it.
 
 PNG (libpng through cv2): the chunks are read here -- a bad CRC fails a
 critical chunk and drops an ancillary one, an unknown critical chunk
@@ -44,6 +45,11 @@ GIF (cv2 5's own ``GifDecoder``, :func:`read_gif`): the blocks, the
 canvas and the colours here; the LZW codes in the host library
 (``csrc/gif_decode.cc``).
 
+AVIF (libavif 1.4 through cv2, :func:`read_avif`): the HEIF boxes and
+libavif's YUV -> RGB (libyuv's fixed point and bilinear chroma, or its
+own float path) here; the AV1 stream in the host library
+(``csrc/av1_decode.cc``).
+
 PNM, PAM, PFM, Sun raster and Radiance HDR (cv2's own decoders,
 :func:`read_pnm`, :func:`read_pam`, :func:`read_pfm`, :func:`read_sun`,
 :func:`read_hdr`): numpy here, with cv2's quirks.  None of these formats
@@ -70,7 +76,7 @@ _OTHERS = (
                                  b"MM\x00+")),
     ("JPEG 2000", lambda h: h[:12] == JP2_SIGNATURE
      or h[:4] == J2K_SIGNATURE),
-    ("AVIF", lambda h: h[4:8] == b"ftyp" and h[8:12] in (b"avif", b"avis")),
+    ("AVIF", lambda h: avif_brand(h)),
     ("OpenEXR", lambda h: h[:4] == b"\x76\x2f\x31\x01"),
     ("PNM", lambda h: len(h) > 1 and h[:1] == b"P" and h[1:2] in b"123456"),
     ("PAM", lambda h: h[:2] == b"P7"),
@@ -1555,6 +1561,502 @@ def _yuv_to_rgb(yuv: np.ndarray) -> np.ndarray:
     g = y + descale(u * -6472 + v * -9519)
     r = y + descale(v * 18678)
     return np.clip(np.stack([r, g, b], -1), 0, 255)
+
+
+# ---------------------------------------------------------------------------
+# AVIF: cv2's AvifDecoder over libavif 1.4 (HEIF boxes, then the AV1 item
+# through the host library's decoder, then libavif's YUV -> RGB)
+
+AVIF_BRANDS = (b"avif", b"avis")
+AVIF_HEAD = 500       # the bytes cv2's AvifDecoder::checkSignature parses
+
+
+def avif_brand(head: bytes) -> bool:
+    """cv2's AVIF signature check: libavif's parse of the file's first
+    500 bytes must not fail (running out of bytes is no failure).  Here:
+    a leading ftyp box whose major brand or one of whose compatible
+    brands is avif or avis (a brand past the 500 bytes passes, as the
+    parse runs out first), and no box header cut by the 500 bytes' end
+    (the parse fails there)."""
+    head = head[:AVIF_HEAD]
+    pos = 0
+    while pos < len(head):
+        if len(head) - pos < 8:
+            return False
+        size, kind = struct.unpack(">I4s", head[pos:pos + 8])
+        at = 8
+        if size == 1:
+            if len(head) - pos < 16:
+                return False
+            size, at = struct.unpack(">Q", head[pos + 8:pos + 16])[0], 16
+        elif size == 0:
+            size = len(head) - pos
+        if size < at:
+            return False
+        if pos == 0:
+            if kind != b"ftyp":
+                return False
+            if size > len(head):
+                return True
+            if size < at + 8:
+                return False
+            brands = [head[at:at + 4]] + [
+                head[i:i + 4] for i in range(at + 8, size - 3, 4)]
+            if not any(b in AVIF_BRANDS for b in brands):
+                return False
+        if pos + size > len(head):
+            return True
+        pos += size
+    return pos > 0
+
+
+class _Reader:
+    """Big-endian fields of one box's body."""
+
+    def __init__(self, data: bytes, pos: int, end: int, what: str):
+        self.data, self.pos, self.end, self.what = data, pos, end, what
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > self.end:
+            raise FormatError(f"the {self.what} box ends early")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def uint(self, n: int) -> int:
+        return int.from_bytes(self.take(n), "big") if n else 0
+
+    def full(self) -> Tuple[int, int]:
+        """A full box's version and flags."""
+        return self.uint(1), self.uint(3)
+
+
+def _avif_meta(data: bytes, pos: int, end: int) -> dict:
+    """The meta box's item information as libavif reads it."""
+    r = _Reader(data, pos, end, "meta")
+    r.full()
+    meta = {"hdlr": None, "pitm": None, "iloc": {}, "infe": {}, "iref": [],
+            "props": [], "ipma": {}, "idat": None}
+    for kind, at, stop in _jp2_boxes(data, r.pos, end):
+        b = _Reader(data, at, stop, kind.decode(errors="replace"))
+        if kind == b"hdlr":
+            b.full()
+            b.take(4)
+            meta["hdlr"] = b.take(4)
+        elif kind == b"pitm":
+            version, _ = b.full()
+            meta["pitm"] = b.uint(2 if version == 0 else 4)
+        elif kind == b"iloc":
+            version, _ = b.full()
+            if version > 2:
+                raise FormatError(f"iloc version {version}")
+            sizes = b.uint(2)
+            off_size, len_size = sizes >> 12, (sizes >> 8) & 15
+            base_size, index_size = (sizes >> 4) & 15, sizes & 15
+            for s in (off_size, len_size, base_size) + (
+                    (index_size,) if version else ()):
+                if s not in (0, 4, 8):
+                    raise FormatError(f"an iloc field of {s} bytes")
+            for _ in range(b.uint(2 if version < 2 else 4)):
+                item = b.uint(2 if version < 2 else 4)
+                method = b.uint(2) & 15 if version else 0
+                if b.uint(2) != 0:
+                    raise FormatError("an item in another file")
+                base = b.uint(base_size)
+                extents = []
+                for _ in range(b.uint(2)):
+                    if version and index_size:
+                        b.uint(index_size)
+                    extents.append((base + b.uint(off_size), b.uint(len_size)))
+                if item in meta["iloc"]:
+                    raise FormatError(f"item {item} located twice")
+                meta["iloc"][item] = (method, extents)
+        elif kind == b"iinf":
+            version, _ = b.full()
+            b.uint(2 if version == 0 else 4)
+            for k2, a2, s2 in _jp2_boxes(data, b.pos, stop):
+                if k2 != b"infe":
+                    continue
+                e = _Reader(data, a2, s2, "infe")
+                v2, _ = e.full()
+                if v2 < 2:
+                    continue        # no item type: nothing libavif reads
+                item = e.uint(2 if v2 == 2 else 4)
+                e.uint(2)
+                meta["infe"][item] = e.take(4)      # its type
+        elif kind == b"iref":
+            version, _ = b.full()
+            n = 2 if version == 0 else 4
+            for k2, a2, s2 in _jp2_boxes(data, b.pos, stop):
+                e = _Reader(data, a2, s2, "iref")
+                src = e.uint(n)
+                for _ in range(e.uint(2)):
+                    meta["iref"].append((k2, src, e.uint(n)))
+        elif kind == b"iprp":
+            for k2, a2, s2 in _jp2_boxes(data, at, stop):
+                if k2 == b"ipco":
+                    meta["props"] = [(k3, a3, s3) for k3, a3, s3 in
+                                     _jp2_boxes(data, a2, s2)]
+                elif k2 == b"ipma":
+                    e = _Reader(data, a2, s2, "ipma")
+                    version, flags = e.full()
+                    for _ in range(e.uint(4)):
+                        item = e.uint(2 if version < 1 else 4)
+                        assoc = []
+                        for _ in range(e.uint(1)):
+                            v = e.uint(2 if flags & 1 else 1)
+                            bits = 15 if flags & 1 else 7
+                            assoc.append((v & ((1 << bits) - 1), v >> bits))
+                        meta["ipma"].setdefault(item, []).extend(assoc)
+        elif kind == b"idat":
+            meta["idat"] = (at, stop)
+    return meta
+
+
+# the properties libavif parses; an essential one it does not know makes
+# it drop the item (cv2 then refuses the file)
+_AVIF_KNOWN = (b"ispe", b"auxC", b"colr", b"av1C", b"pasp", b"clap",
+               b"irot", b"imir", b"pixi", b"a1op", b"lsel", b"a1lx", b"clli")
+
+
+def _avif_props(data: bytes, meta: dict, item: int) -> dict:
+    """The properties associated with an item: kind -> (body start, end),
+    the first of each kind; FormatError where libavif refuses them."""
+    out = {}
+    for index, essential in meta["ipma"].get(item, []):
+        if index == 0:
+            continue
+        if index > len(meta["props"]):
+            raise FormatError(f"item {item}'s property {index} is missing")
+        kind, at, stop = meta["props"][index - 1]
+        if essential and (kind not in _AVIF_KNOWN or kind == b"a1lx"):
+            raise FormatError(f"an essential {kind!r} property (cv2 "
+                              f"refuses it)")
+        if kind == b"colr" and data[at:at + 4] == b"nclx":
+            out.setdefault(b"nclx", (at + 4, stop))
+        out.setdefault(kind, (at, stop))
+    return out
+
+
+def _avif_item_data(data: bytes, meta: dict, item: int) -> bytes:
+    if item not in meta["iloc"]:
+        raise FormatError(f"item {item} has no location")
+    method, extents = meta["iloc"][item]
+    if method == 0:
+        base, limit = 0, len(data)
+    elif method == 1:
+        if meta["idat"] is None:
+            raise FormatError("an item in idat without an idat box")
+        base, limit = meta["idat"][0], meta["idat"][1]
+    else:
+        raise FormatError(f"iloc construction method {method}")
+    parts = []
+    for offset, length in extents:
+        start = base + offset
+        stop = limit if length == 0 else start + length
+        if stop > limit or start > limit:
+            raise FormatError(f"item {item}'s data runs past the file")
+        parts.append(data[start:stop])
+    return b"".join(parts)
+
+
+def read_avif(data: bytes, av1) -> np.ndarray:
+    """AVIF bytes -> uint8 [H, W, 3] RGB, as cv2.imread reads them through
+    libavif: the primary av01 item's AV1 stream decoded by the host
+    library (``av1(stream) -> (planes, info)``: the Y, U, V planes as
+    uint16 at the stream's bit depth, their subsampling and the sequence
+    header's colour fields), then libavif's conversion to 8-bit RGB by
+    the colr box's nclx values (else the sequence header's).  iloc
+    versions 0-2 with every field size, items in the file or in idat,
+    several extents; infe versions 2 and 3; ipma's 7- and 15-bit
+    indices.  Ignored as cv2
+    ignores them: an alpha item (IMREAD_COLOR drops it), irot, imir,
+    clap, an ICC colr, EXIF, the hidden flag, a1op / lsel / a1lx (a
+    stream of several layers the decoder refuses).  Refused as cv2
+    refuses them: an essential property libavif does not know, pixi
+    depths that are not av1C's.  Refused, naming themselves: grid items,
+    image sequences, premultiplied alpha, an ispe that is not the AV1
+    frame's size (cv2 writes the frame's rows into a buffer of ispe's
+    size)."""
+    boxes = _jp2_boxes(data, 0, len(data))
+    first = next(boxes, None)
+    if first is None or first[0] != b"ftyp":
+        raise FormatError("the ftyp box is not the first")
+    at, stop = first[1], first[2]
+    if stop - at < 8 or not any(
+            data[i:i + 4] in AVIF_BRANDS
+            for i in [at] + list(range(at + 8, stop - 3, 4))):
+        raise FormatError("the ftyp box names neither avif nor avis")
+    major = data[first[1]:first[1] + 4]
+    meta, moov = None, False
+    for kind, at, stop in boxes:
+        if kind == b"meta":
+            if meta is not None:
+                raise FormatError("a second meta box")
+            meta = _avif_meta(data, at, stop)
+        moov |= kind == b"moov"
+    # libavif reads the tracks of an avis major brand, or of a moov box
+    # under a major brand that is neither
+    if major == b"avis" or (moov and major != b"avif"):
+        raise FormatError("an image sequence (avis), which the port does "
+                          "not read")
+    if meta is None:
+        raise FormatError("no meta box")
+    if meta["hdlr"] != b"pict":
+        raise FormatError(f"the meta handler is {meta['hdlr']!r}, not pict")
+    item = meta["pitm"]
+    if item is None or item not in meta["infe"]:
+        raise FormatError("no primary item")
+    kind = meta["infe"][item]
+    if kind == b"grid":
+        raise FormatError("a grid image, which the port does not read")
+    if kind != b"av01":
+        raise FormatError(f"a primary item of type {kind!r}")
+    for ref, src, dst in meta["iref"]:
+        if ref == b"prem" and src == item:
+            raise FormatError("premultiplied alpha, which the port does "
+                              "not read")
+    props = _avif_props(data, meta, item)
+    if b"ispe" not in props:
+        raise FormatError("the primary item has no ispe")
+    ispe = _Reader(data, *props[b"ispe"], "ispe")
+    ispe.full()
+    size = ispe.uint(4), ispe.uint(4)
+    check_size(*size)
+    if b"av1C" not in props:
+        raise FormatError("the primary item has no av1C")
+    at, stop = props[b"av1C"]
+    if stop - at < 4 or data[at] != 0x81:
+        raise FormatError("a malformed av1C")
+    depth = 12 if data[at + 2] & 0x20 else 10 if data[at + 2] & 0x40 else 8
+    if b"pixi" in props:
+        pixi = _Reader(data, *props[b"pixi"], "pixi")
+        pixi.full()
+        depths = pixi.take(pixi.uint(1))
+        if any(d != depth for d in depths):
+            raise FormatError(f"pixi's depths {list(depths)} are not "
+                              f"av1C's {depth} (cv2 refuses them)")
+    # libavif hands libaom the item's data alone: a sequence header among
+    # av1C's config OBUs only does not make a file cv2 reads
+    planes, info = av1(_avif_item_data(data, meta, item))
+    if planes[0].shape[::-1] != size:
+        raise FormatError(f"ispe's {size[0]}x{size[1]} is not the AV1 "
+                          f"frame's {planes[0].shape[1]}x"
+                          f"{planes[0].shape[0]}")
+    if b"nclx" in props:
+        c = _Reader(data, *props[b"nclx"], "colr")
+        primaries, _, matrix, full = (c.uint(2), c.uint(2), c.uint(2),
+                                      c.uint(1) >> 7)
+    else:
+        primaries, matrix, full = (info["primaries"], info["matrix"],
+                                   info["full_range"])
+    return _avif_rgb(planes, info["subsampling"], matrix, bool(full),
+                     primaries)
+
+
+# libyuv's YuvConstants as libavif picks them (avif's getLibYUVConstants):
+# (UB, UG, VG, VR, YG, YB) by (full range, matrix coefficients)
+_LIBYUV_601 = {False: (128, 25, 52, 102, 18997, -1160),
+               True: (113, 22, 46, 90, 16320, 32)}
+_LIBYUV = {1: {False: (128, 14, 34, 115, 18997, -1160),
+               True: (119, 12, 30, 101, 16320, 32)},
+           2: _LIBYUV_601, 5: _LIBYUV_601, 6: _LIBYUV_601,
+           9: {False: (128, 12, 42, 107, 19003, -1160),
+               True: (120, 11, 37, 94, 16320, 32)}}
+# matrix 12 (chromaticity-derived) by the colour primaries
+_LIBYUV_DERIVED = {1: _LIBYUV[1], 2: _LIBYUV[1], 5: _LIBYUV_601,
+                   6: _LIBYUV_601, 9: _LIBYUV[9]}
+
+
+def _neighbours(c: np.ndarray):
+    """Each chroma sample and the one to its right (the last repeated)."""
+    c = np.concatenate([c, c[:, -1:]], 1)
+    return c[:, :-1], c[:, 1:]
+
+
+def _up_row(c: np.ndarray, w: int) -> np.ndarray:
+    """libyuv's ScaleRowUp2_Linear_Any: each row of ``c`` to width w
+    (output j = 2k + 1 weighs sample k 3:1 against k + 1, j = 2k + 2 the
+    other way; the first and last outputs copy their samples)."""
+    a, b = _neighbours(c)
+    out = np.empty((c.shape[0], 2 * c.shape[1] + 1), np.int32)
+    out[:, 0] = c[:, 0]
+    out[:, 1::2] = (3 * a + b + 2) >> 2
+    out[:, 2::2] = (a + 3 * b + 2) >> 2
+    out = out[:, :w]
+    out[:, w - 1] = c[:, (w - 1) // 2]
+    return out
+
+
+def _up_rows(s: np.ndarray, t: np.ndarray, w: int) -> np.ndarray:
+    """libyuv's ScaleRowUp2_Bilinear_Any: the output rows nearer chroma
+    rows ``s`` (weighted 3:1 against ``t``), width w."""
+    sa, sb = _neighbours(s)
+    ta, tb = _neighbours(t)
+    out = np.empty((s.shape[0], 2 * s.shape[1] + 1), np.int32)
+    out[:, 1::2] = (9 * sa + 3 * sb + 3 * ta + tb + 8) >> 4
+    out[:, 2::2] = (3 * sa + 9 * sb + ta + 3 * tb + 8) >> 4
+    out = out[:, :w]
+    m = (w - 1) // 2
+    out[:, 0] = (3 * s[:, 0] + t[:, 0] + 2) >> 2
+    out[:, w - 1] = (3 * s[:, m] + t[:, m] + 2) >> 2
+    return out
+
+
+def _upsample(c: np.ndarray, h: int, w: int, sub_y: bool) -> np.ndarray:
+    """A chroma plane at the luma size as libyuv's I420 / I422
+    ToARGBMatrixFilter upsamples it with kFilterBilinear."""
+    c = c.astype(np.int32)
+    if not sub_y:
+        return _up_row(c, w)
+    out = np.empty((h, w), np.int32)
+    out[0] = _up_row(c[:1], w)[0]
+    pairs = (h - 1) // 2                 # output rows 1..2 * pairs
+    if pairs:
+        s, t = c[:pairs], c[1:pairs + 1]
+        out[1:2 * pairs:2] = _up_rows(s, t, w)
+        out[2:2 * pairs + 1:2] = _up_rows(t, s, w)
+    if h % 2 == 0:
+        out[h - 1] = _up_row(c[h // 2 - 1:h // 2], w)[0]
+    return out
+
+
+def _avif_rgb(planes, subsampling, matrix: int, full: bool, primaries: int
+              ) -> np.ndarray:
+    """8-bit Y, U, V planes and their (x, y) subsampling -> uint8 RGB as
+    libavif 1.4 converts them for cv2 (8-bit BGR): a grey (4:0:0) image
+    is its Y plane, as cv2 copies it; the matrices libyuv has constants
+    for (1, 2, 5, 6, 9, and 12 under primaries 1, 2, 5, 6, 9) by libyuv's
+    fixed-point YuvPixel after its bilinear chroma upsampling; the others
+    cv2 reads (0 at 4:4:4, 4, 7, 8 in full range, 12 under other
+    primaries, 15) by libavif's float path."""
+    y = planes[0].astype(np.int32)
+    h, w = y.shape
+    if len(planes) == 1:
+        return np.repeat(y.astype(np.uint8)[..., None], 3, -1)
+    u, v = planes[1], planes[2]
+    sub_x, sub_y = subsampling
+    constants = (_LIBYUV_DERIVED.get(primaries) if matrix == 12
+                 else _LIBYUV.get(matrix))
+    if constants is None:
+        if matrix not in _FLOAT_MATRICES:
+            raise FormatError(f"matrix coefficients {matrix} (cv2 refuses "
+                              f"them)")
+        if matrix == 0 and sub_x:
+            raise FormatError("the identity matrix with subsampled chroma "
+                              "(cv2 refuses it)")
+        return _avif_rgb_float(y, u, v, sub_x, sub_y, matrix, full,
+                               primaries)
+    if sub_x:
+        u, v = _upsample(u, h, w, sub_y), _upsample(v, h, w, sub_y)
+    ub, ug, vg, vr, yg, yb = constants[full]
+    ui, vi = u.astype(np.int32) - 128, v.astype(np.int32) - 128
+    y1 = ((y * (0x0101 * yg)) >> 16) + yb       # below 2^31: no wrap
+    rgb = np.empty((h, w, 3), np.uint8)
+    for i, c in enumerate((y1 + vi * vr, y1 - (ui * ug + vi * vg),
+                           y1 + ui * ub)):
+        np.clip(c >> 6, 0, 255, out=c)
+        rgb[..., i] = c
+    return rgb
+
+
+# libavif's (kr, kb) for the matrices libyuv has no constants for;
+# anything else falls back to BT.601's
+_KR_KB = {4: (0.30, 0.11), 7: (0.212, 0.087)}
+_FLOAT_MATRICES = (0, 4, 7, 8, 12, 15)
+# libavif's colour primaries (rx, ry, gx, gy, bx, by, wx, wy), for matrix
+# 12's coefficients; values it does not know are BT.709's
+_PRIMARIES = {
+    4: (0.67, 0.33, 0.21, 0.71, 0.14, 0.08, 0.310, 0.316),
+    5: (0.64, 0.33, 0.29, 0.60, 0.15, 0.06, 0.3127, 0.3290),
+    6: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    7: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    8: (0.681, 0.319, 0.243, 0.692, 0.145, 0.049, 0.310, 0.316),
+    9: (0.708, 0.292, 0.170, 0.797, 0.131, 0.046, 0.3127, 0.3290),
+    10: (1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.3333, 0.3333),
+    11: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.314, 0.351),
+    12: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.3127, 0.3290),
+    22: (0.630, 0.340, 0.295, 0.605, 0.155, 0.077, 0.3127, 0.3290)}
+_BT709 = (0.64, 0.33, 0.30, 0.60, 0.15, 0.06, 0.3127, 0.3290)
+
+
+def _derived_kr_kb(primaries: int):
+    """libavif's avifColorPrimariesComputeYCoeffs, in float32."""
+    rx, ry, gx, gy, bx, by, wx, wy = (
+        np.float32(c) for c in _PRIMARIES.get(primaries, _BT709))
+    one = np.float32(1)
+    rz, gz, bz, wz = (one - (rx + ry), one - (gx + gy), one - (bx + by),
+                      one - (wx + wy))
+    den = wy * (rx * (gy * bz - by * gz) + gx * (by * rz - ry * bz)
+                + bx * (ry * gz - gy * rz))
+    kr = (ry * (wx * (gy * bz - by * gz) + wy * (bx * gz - gx * bz)
+                + wz * (gx * by - bx * gy))) / den
+    kb = (by * (wx * (ry * gz - gy * rz) + wy * (gx * rz - rx * gz)
+                + wz * (rx * gy - gx * ry))) / den
+    return kr, kb
+
+
+def _chroma_float(c, table, h: int, w: int, sub_x: bool, sub_y: bool):
+    """A chroma plane as libavif's own float path takes it at each luma
+    position: its sample, or for subsampled chroma its bilinear filter
+    (9:3:3:1 over the sample, its neighbour across the nearer column and
+    row, and the diagonal; none past the image's first or last sample)."""
+    t = table[c]
+    if not sub_x:
+        return t
+    def near(n, sub):
+        i = np.arange(n)
+        adj = np.where(i % 2 == 1, 1, -1)
+        adj[(i == 0) | ((i == n - 1) & (i % 2 == 1))] = 0
+        if not sub:
+            adj[:] = 0
+        return i >> int(sub), (i >> int(sub)) + adj
+    ci, cn = near(w, True)
+    rj, rn = near(h, sub_y)
+    f32 = np.float32
+    return (((t[rj][:, ci] * f32(9 / 16) + t[rj][:, cn] * f32(3 / 16))
+             + t[rn][:, ci] * f32(3 / 16)) + t[rn][:, cn] * f32(1 / 16))
+
+
+def _avif_rgb_float(y, u, v, sub_x: bool, sub_y: bool, matrix: int,
+                    full: bool, primaries: int) -> np.ndarray:
+    """Planes through libavif's own float32 conversion
+    (avifImageYUV8ToRGB8Color, avifImageYUVAnyToRGBAnySlow with its
+    bilinear chroma, the identity and YCgCo modes)."""
+    f32 = np.float32
+    if matrix == 8 and not full:
+        raise FormatError("YCgCo in limited range (cv2 refuses it)")
+    if full:
+        by, ry, buv, ruv = 0, 255, 128, 255
+    else:
+        by, ry, buv, ruv = 16, 219, 128, 224
+    if matrix == 0:
+        buv, ruv = by, ry
+    levels = np.arange(256, dtype=f32)
+    Y = ((levels - f32(by)) / f32(ry))[y]
+    table = (levels - f32(buv)) / f32(ruv)
+    h, w = y.shape
+    Cb = _chroma_float(u, table, h, w, sub_x, sub_y)
+    Cr = _chroma_float(v, table, h, w, sub_x, sub_y)
+    if matrix == 0:
+        R, G, B = Cr, Y, Cb
+    elif matrix == 8:
+        t = Y - Cb
+        R, G, B = t + Cr, Y + Cb, t - Cr
+    else:
+        if matrix == 12:
+            kr, kb = _derived_kr_kb(primaries)
+        else:
+            kr, kb = (f32(c) for c in _KR_KB.get(matrix, (0.299, 0.114)))
+        one, two = f32(1), f32(2)
+        kg = one - kr - kb
+        R = Y + (two * (one - kr)) * Cr
+        B = Y + (two * (one - kb)) * Cb
+        G = Y - ((two * ((kr * (one - kr) * Cr) + (kb * (one - kb) * Cb)))
+                 / kg)
+    rgb = np.stack([R, G, B], -1).astype(f32)
+    rgb = np.clip(rgb, f32(0), f32(1))
+    return (f32(0.5) + rgb * f32(255)).astype(np.uint8)
 
 
 # ---------------------------------------------------------------------------

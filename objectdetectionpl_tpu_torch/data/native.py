@@ -1,6 +1,6 @@
 """ctypes binding of the port's host library: the resize, the JPEG
-decoder, the JPEG 2000 codestream decoder, GIF's LZW and the inner loops
-of the PNG, WebP and TIFF readers, one ``.so``.
+decoder, the JPEG 2000 codestream decoder, the AV1 decoder, GIF's LZW and
+the inner loops of the PNG, WebP and TIFF readers, one ``.so``.
 
 ``csrc/preproc.cc`` resizes uint8 RGB images into a batch [N, S, S, 3],
 two kinds picked per call: float32 in [0, 1] (a copy of the JAX package's
@@ -10,7 +10,8 @@ cache with).  ``csrc/jpeg_decode.cc`` is the port's own JPEG
 decoder, sequential and progressive, at 1/1, 1/2, 1/4 or 1/8 scale (equal
 bit for bit to libjpeg-turbo's decompression to RGB with that
 ``scale_denom``).  ``csrc/png_decode.cc``, ``csrc/webp_decode.cc``,
-``csrc/tiff_decode.cc``, ``csrc/jp2_decode.cc`` and ``csrc/gif_decode.cc``
+``csrc/tiff_decode.cc``, ``csrc/jp2_decode.cc``, ``csrc/gif_decode.cc``
+and ``csrc/av1_decode.cc`` (with its tables, ``csrc/av1_tables.h``)
 serve :func:`decode_image`'s readers.  All build
 with g++ into ``build/native/libpreproc-<key>.so`` at the repository
 root.
@@ -64,8 +65,8 @@ CSRC = REPO / "objectdetectionpl_tpu_torch" / "csrc"
 SOURCES = (CSRC / "preproc.cc", CSRC / "jpeg_decode.cc",
            CSRC / "png_decode.cc", CSRC / "webp_decode.cc",
            CSRC / "tiff_decode.cc", CSRC / "jp2_decode.cc",
-           CSRC / "gif_decode.cc")
-HEADERS = (CSRC / "jpeg_decode.h",)
+           CSRC / "gif_decode.cc", CSRC / "av1_decode.cc")
+HEADERS = (CSRC / "jpeg_decode.h", CSRC / "av1_tables.h")
 BUILD_DIR = REPO / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
              "-pthread", "-Wall")
@@ -218,6 +219,12 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.gif_lzw.argtypes = [u8p, ctypes.c_int64, ctypes.c_int, u8p,
                             ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
     lib.gif_lzw.restype = ctypes.c_int64
+    lib.av1_probe.argtypes = [u8p, ctypes.c_int64, i32p, ctypes.c_char_p, ci]
+    lib.av1_probe.restype = ci
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    lib.av1_decode.argtypes = [u8p, ctypes.c_int64, u16p, u16p, u16p,
+                               ctypes.c_char_p, ci]
+    lib.av1_decode.restype = ci
     _lib = lib
     return _lib
 
@@ -582,6 +589,31 @@ def _gif_lzw(codes: bytes, min_code_size: int, npix: int):
     return dst, int(count)
 
 
+def _av1(stream: bytes):
+    """An AV1 still's OBUs -> ([Y, U, V] uint16 planes, or [Y] for a
+    monochrome stream, and the sequence header's colour fields), by
+    ``csrc/av1_decode.cc``; FormatError with the tool it refuses."""
+    lib = _lib_or_raise()
+    src = np.frombuffer(stream or bytes(1), np.uint8)
+    info = np.zeros(10, np.int32)
+    msg = ctypes.create_string_buffer(MSG_LEN)
+    if lib.av1_probe(_u8(src), len(stream), _i32(info), msg, MSG_LEN):
+        raise _format_error(msg)
+    w, h, sx, sy, mono = (int(v) for v in info[:5])
+    from objectdetectionpl_tpu_torch.data.formats import check_size
+    check_size(w, h)
+    cw, ch = (w + sx) >> sx, (h + sy) >> sy
+    planes = [np.empty((h, w), np.uint16)] + [
+        np.empty((ch, cw), np.uint16) for _ in range(0 if mono else 2)]
+    u16p = ctypes.POINTER(ctypes.c_uint16)
+    ptrs = [p.ctypes.data_as(u16p) for p in planes]
+    ptrs += [None] * (3 - len(ptrs))
+    if lib.av1_decode(_u8(src), len(stream), *ptrs, msg, MSG_LEN):
+        raise _format_error(msg)
+    return planes, {"subsampling": (sx, sy), "full_range": int(info[6]),
+                    "matrix": int(info[7]), "primaries": int(info[8])}
+
+
 def _exif_orientation(tiff: bytes) -> int:
     data = np.frombuffer(tiff or bytes(1), np.uint8)
     return int(_lib_or_raise().exif_orientation(_u8(data), len(tiff)))
@@ -601,8 +633,8 @@ def orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return out
 
 
-_READERS = ("PNG", "BMP", "WebP", "TIFF", "JPEG 2000", "GIF", "PNM", "PAM",
-            "PFM", "Sun raster", "Radiance HDR")   # formats.py's, and JPEG
+_READERS = ("PNG", "BMP", "WebP", "TIFF", "JPEG 2000", "GIF", "AVIF", "PNM",
+            "PAM", "PFM", "Sun raster", "Radiance HDR")   # formats.py's
 
 
 def decode_image(path: str, exif: bool = True) -> np.ndarray:
@@ -610,17 +642,19 @@ def decode_image(path: str, exif: bool = True) -> np.ndarray:
     JAX package's ``load_image_rgb``) reads it: the reader picked by the
     file's first bytes whatever its name (``formats.sniff``), JPEG by the
     port's decoder (CMYK, YCCK and lossless included), PNG, BMP, GIF,
-    WebP, TIFF, JPEG 2000, PNM, PAM, PFM, Sun raster and Radiance HDR by
-    ``data/formats.py``; JPEG, PNG and WebP turned by their EXIF
+    WebP, TIFF, JPEG 2000, AVIF, PNM, PAM, PFM, Sun raster and Radiance
+    HDR by ``data/formats.py``; JPEG, PNG and WebP turned by their EXIF
     orientation with ``exif`` (a TIFF's Orientation tag is its reader's,
-    as in cv2; cv2 reads no EXIF from the others).  AVIF, which cv2 reads,
-    and anything else raise :class:`ImageError` naming the path and the
-    format, as does a file that cv2 would not read either, and a TIFF or
-    WebP of a kind the port does not read, naming the kind."""
+    as in cv2; cv2 reads no EXIF from the others, AVIF's included).
+    Anything else raises :class:`ImageError` naming the path and the
+    format, as does a file that cv2 would not read either, and a TIFF,
+    WebP or AVIF of a kind the port does not read, naming the kind.  The
+    first 500 bytes pick the reader: cv2's AVIF signature check parses
+    that many."""
     from objectdetectionpl_tpu_torch.data import formats
     try:
         with open(path, "rb") as f:
-            head = f.read(16)
+            head = f.read(formats.AVIF_HEAD)
             kind = formats.sniff(head)
             data = head + f.read() if kind in _READERS else b""
     except OSError as e:
@@ -643,6 +677,8 @@ def decode_image(path: str, exif: bool = True) -> np.ndarray:
             return formats.read_jp2(data, _j2k_decode)
         if kind == "GIF":
             return formats.read_gif(data, _gif_lzw)
+        if kind == "AVIF":
+            return formats.read_avif(data, _av1)
         numpy_only = {"BMP": formats.read_bmp, "PNM": formats.read_pnm,
                       "PAM": formats.read_pam, "PFM": formats.read_pfm,
                       "Sun raster": formats.read_sun,
@@ -651,9 +687,9 @@ def decode_image(path: str, exif: bool = True) -> np.ndarray:
             return numpy_only[kind](data)
     except formats.FormatError as e:
         raise ImageError(f"{path}: {kind}: {e}") from None
-    if kind:    # AVIF; OpenEXR, which the cv2 build of the tests lacks
+    if kind:    # OpenEXR, which the cv2 build of the tests lacks
         raise ImageError(f"{path}: a {kind} image, which the port does not "
                          f"read")
     raise ImageError(f"{path}: not an image file (no JPEG, PNG, BMP, GIF, "
-                     f"WebP, TIFF, JPEG 2000, PNM, PAM, PFM, Sun raster or "
-                     f"Radiance HDR signature)")
+                     f"WebP, TIFF, JPEG 2000, AVIF, PNM, PAM, PFM, Sun raster "
+                     f"or Radiance HDR signature)")

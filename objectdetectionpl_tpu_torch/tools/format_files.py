@@ -95,7 +95,9 @@ KINDS = ("jpeg", "jpeg_cmyk", "jpeg_ycck", "jpeg_arithmetic",
          "tiff_cielab", "tiff_g3_2d", "tiff_g4", "tiff_ccitt_rle",
          "tiff_fillorder2", "tiff_lzw_old", "tiff_thunderscan",
          "tiff_signed", "tiff_logluv", "tiff_logl", "tiff_logluv24",
-         "tiff_logluv24_tiles", "tiff_g3_cut", "j2k_part2", "jp2_part2")
+         "tiff_logluv24_tiles", "tiff_g3_cut", "j2k_part2", "jp2_part2",
+         "avif_cv2", "avif_pillow", "avif_444", "avif_422", "avif_400",
+         "avif_lossless", "avif_tiles_sb128", "avif_odd", "avif_500x375")
 COMMITTED = {"jpeg": TESTDATA / BASE,
              "jpeg_cmyk": TESTDATA / UNSUPPORTED[0],
              "jpeg_ycck": FORMATS / "ycck_420_q85_160x120.jpg",
@@ -121,7 +123,17 @@ COMMITTED = {"jpeg": TESTDATA / BASE,
              "tiff_logl": FORMATS / "tiff_sgilog_logl_54x40.tif",
              "tiff_logluv24": FORMATS / "tiff_sgilog24_strips_54x40.tif",
              "tiff_logluv24_tiles": FORMATS / "tiff_sgilog24_tiles_54x40.tif",
-             "j2k_part2": FORMATS / "j2k_part2_mct_160x120.j2k"}
+             "j2k_part2": FORMATS / "j2k_part2_mct_160x120.j2k",
+             "avif_cv2": FORMATS / "avif_cv2_160x120.avif",
+             "avif_pillow": FORMATS / "avif_pillow_160x120.avif",
+             "avif_444": FORMATS / "avif_444_q60_160x120.avif",
+             "avif_422": FORMATS / "avif_422_q60_160x120.avif",
+             "avif_400": FORMATS / "avif_400_q60_160x120.avif",
+             "avif_lossless": FORMATS / "avif_lossless_80x60.avif",
+             "avif_tiles_sb128": FORMATS / "avif_tiles_sb128_160x120.avif",
+             "avif_odd": FORMATS / "avif_q60_167x125.avif",
+             "avif_500x375": FORMATS / "avif_q50_500x375.avif"}
+AVIF_KINDS = tuple(k for k in KINDS if k.startswith("avif"))
 
 
 def chunk(ctype: bytes, body: bytes) -> bytes:
@@ -963,6 +975,178 @@ def jp2_bytes(codestream: bytes, ncomp: int, h: int, w: int,
     return (jp2_box(b"jP  ", b"\r\n\x87\n")
             + jp2_box(b"ftyp", b"jp2 \x00\x00\x00\x00jp2 ")
             + jp2_box(b"jp2h", hdr) + jp2_box(b"jp2c", codestream))
+
+
+def heif_box(kind: bytes, body: bytes, version=None, flags: int = 0) -> bytes:
+    """A box, a full box when ``version`` is given."""
+    if version is not None:
+        body = struct.pack(">I", version << 24 | flags) + body
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def _uint(v: int, n: int) -> bytes:
+    return v.to_bytes(n, "big") if n else b""
+
+
+def avif_bytes(obus: bytes, w: int, h: int, av1c: bytes,
+               nclx=(1, 13, 6, 1), major: bytes = b"avif",
+               brands=(b"avif", b"mif1", b"miaf"), iloc_version: int = 0,
+               sizes=(4, 4, 0, 0), idat: bool = False, extents: int = 1,
+               ipma_large: bool = False, ipma_version: int = 0,
+               infe_version: int = 2, item_id: int = 1, hidden: bool = False,
+               pixi=(8, 8, 8), extra_props=(), alpha=None,
+               iref_extra=()) -> bytes:
+    """An AVIF file of one av01 item holding ``obus``: ftyp, meta (hdlr,
+    pitm, iloc, iinf, iref, iprp with ipco / ipma, idat) and mdat.
+
+    ``av1c`` is the av1C body; ``nclx`` (primaries, transfer, matrix,
+    full range) the colr box, or None for none; ``sizes`` iloc's offset,
+    length, base offset and index sizes in bytes; ``idat`` stores the
+    item in an idat box (construction method 1, iloc version 1 or 2);
+    ``extents`` splits it into that many extents, laid out in reverse;
+    ``ipma_large`` writes 15-bit property indices; ``hidden`` sets the
+    item's hidden flag; ``pixi`` its bit depths or None; ``extra_props``
+    more (box, essential) properties of the item; ``alpha`` an
+    (obus, av1c) alpha item, linked by auxl; ``iref_extra`` more
+    (type, from, to) references."""
+    items = [(item_id, obus, av1c, nclx, pixi, extra_props)]
+    alpha_id = item_id + 1
+    if alpha is not None:
+        urn = b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha\0"
+        items.append((alpha_id, alpha[0], alpha[1], None, (8,),
+                      ((heif_box(b"auxC", urn, 0), False),)))
+    off_size, len_size, base_size, index_size = sizes
+    props, assoc = [], {}
+    for iid, _, config, colr, depths, extra in items:
+        own = [(heif_box(b"ispe", struct.pack(">II", w, h), 0), False)]
+        if depths is not None:
+            own.append((heif_box(b"pixi", bytes([len(depths), *depths]), 0),
+                        False))
+        own.append((heif_box(b"av1C", config), True))
+        if colr is not None:
+            p, t, m, full = colr
+            own.append((heif_box(b"colr", b"nclx" + struct.pack(
+                ">HHHB", p, t, m, full << 7)), False))
+        own.extend(extra)
+        assoc[iid] = []
+        for box, essential in own:
+            props.append(box)
+            assoc[iid].append((len(props), essential))
+    ipma = struct.pack(">I", len(assoc))
+    for iid, entries in assoc.items():
+        ipma += _uint(iid, 2 if ipma_version == 0 else 4)
+        ipma += bytes([len(entries)])
+        for index, essential in entries:
+            ipma += (struct.pack(">H", essential << 15 | index) if ipma_large
+                     else bytes([essential << 7 | index]))
+    iprp = heif_box(b"iprp", heif_box(b"ipco", b"".join(props))
+                    + heif_box(b"ipma", ipma, ipma_version,
+                               1 if ipma_large else 0))
+    infes = b""
+    for iid, *_ in items:
+        kind = b"av01"
+        name = b"Color\0" if iid == item_id else b"Alpha\0"
+        flags = 1 if hidden and iid == item_id else 0
+        infes += heif_box(b"infe", _uint(iid, 2 if infe_version == 2 else 4)
+                          + b"\0\0" + kind + name, infe_version, flags)
+    iinf = heif_box(b"iinf", struct.pack(">H", len(items)) + infes, 0)
+    refs = list(iref_extra)
+    if alpha is not None:
+        refs.append((b"auxl", alpha_id, item_id))
+    iref = heif_box(b"iref", b"".join(
+        heif_box(k, struct.pack(">HHH", a, 1, b)) for k, a, b in refs),
+        0) if refs else b""
+
+    def layout(data_start):
+        pieces, payload, pos = [], b"", data_start
+        for iid, stream, *_ in items:
+            cut = [len(stream) * k // extents for k in range(extents + 1)]
+            parts = [stream[cut[k]:cut[k + 1]] for k in range(extents)]
+            offsets = {}
+            for k in reversed(range(extents)):      # stored in reverse
+                offsets[k] = pos
+                payload += parts[k]
+                pos += len(parts[k])
+            pieces.append((iid, [(offsets[k], len(parts[k]))
+                                 for k in range(extents)]))
+        return pieces, payload
+
+    def iloc_box(pieces, base):
+        body = struct.pack(">BB", off_size << 4 | len_size,
+                           base_size << 4 | (index_size if iloc_version
+                                             else 0))
+        body += _uint(len(pieces), 2 if iloc_version < 2 else 4)
+        for iid, ext in pieces:
+            body += _uint(iid, 2 if iloc_version < 2 else 4)
+            if iloc_version:
+                body += struct.pack(">H", 1 if idat else 0)
+            body += b"\0\0" + _uint(base, base_size)
+            body += struct.pack(">H", len(ext))
+            for k, (offset, length) in enumerate(ext):
+                if iloc_version and index_size:
+                    body += _uint(k, index_size)
+                body += _uint(offset - base, off_size) + _uint(length,
+                                                               len_size)
+        return heif_box(b"iloc", body, iloc_version)
+
+    ftyp = heif_box(b"ftyp", major + b"\0\0\0\0" + b"".join(brands))
+    hdlr = heif_box(b"hdlr", b"\0" * 4 + b"pict" + b"\0" * 12 + b"\0", 0)
+    pitm = heif_box(b"pitm", struct.pack(">H", item_id), 0)
+    base = 8 if base_size else 0
+
+    def meta_of(pieces, payload):
+        tail = heif_box(b"idat", payload) if idat else b""
+        return heif_box(b"meta", hdlr + pitm + iloc_box(pieces, base) + iinf
+                        + iref + iprp + tail, 0)
+
+    if idat:
+        return ftyp + meta_of(*layout(base))
+    size = len(meta_of(*layout(base)))        # offsets do not change it
+    pieces, payload = layout(len(ftyp) + size + 8)
+    return ftyp + meta_of(pieces, payload) + heif_box(b"mdat", payload)
+
+
+def avif_grid_bytes(obus: bytes, w: int, h: int, av1c: bytes, rows: int,
+                    cols: int) -> bytes:
+    """An AVIF whose primary item is a rows x cols grid (in idat) of the
+    w x h av01 item ``obus``: every tile the same stream, one extent."""
+    n = rows * cols
+    grid_id = n + 1
+    nclx = heif_box(b"colr", b"nclx" + struct.pack(">HHHB", 1, 13, 6, 128))
+    props = [heif_box(b"ispe", struct.pack(">II", w, h), 0),
+             heif_box(b"pixi", bytes([3, 8, 8, 8]), 0),
+             heif_box(b"av1C", av1c), nclx,
+             heif_box(b"ispe", struct.pack(">II", w * cols, h * rows), 0)]
+    ipma = struct.pack(">I", n + 1)
+    for iid in range(1, n + 1):
+        ipma += struct.pack(">HB", iid, 4) + bytes([1, 2, 0x83, 4])
+    ipma += struct.pack(">HB", grid_id, 3) + bytes([5, 2, 4])
+    iprp = heif_box(b"iprp", heif_box(b"ipco", b"".join(props))
+                    + heif_box(b"ipma", ipma, 0))
+    infes = b"".join(heif_box(b"infe", struct.pack(">HH", iid, 0) + b"av01"
+                              + b"\0", 2, 1) for iid in range(1, n + 1))
+    infes += heif_box(b"infe", struct.pack(">HH", grid_id, 0) + b"grid\0",
+                      2)
+    iinf = heif_box(b"iinf", struct.pack(">H", n + 1) + infes, 0)
+    iref = heif_box(b"iref", heif_box(b"dimg", struct.pack(
+        ">HH", grid_id, n) + b"".join(struct.pack(">H", i)
+                                      for i in range(1, n + 1))), 0)
+    grid = bytes([0, 0, rows - 1, cols - 1]) + struct.pack(
+        ">HH", w * cols, h * rows)
+    ftyp = heif_box(b"ftyp", b"avif\0\0\0\0avifmif1miaf")
+    hdlr = heif_box(b"hdlr", b"\0" * 4 + b"pict" + b"\0" * 13, 0)
+    pitm = heif_box(b"pitm", struct.pack(">H", grid_id), 0)
+
+    def meta(start):        # the tiles in mdat, the grid in idat
+        body = struct.pack(">BBH", 0x44, 0, n + 1)
+        for iid in range(1, n + 1):
+            body += struct.pack(">HHHHII", iid, 0, 0, 1, start, len(obus))
+        body += struct.pack(">HHHHII", grid_id, 1, 0, 1, 0, len(grid))
+        return heif_box(b"meta", hdlr + pitm + heif_box(b"iloc", body, 1)
+                        + iinf + iref + iprp + heif_box(b"idat", grid), 0)
+
+    start = len(ftyp) + len(meta(0)) + 8
+    return ftyp + meta(start) + heif_box(b"mdat", obus)
 
 
 def write_format_files(directory) -> Dict[str, str]:

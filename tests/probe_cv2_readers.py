@@ -4,6 +4,7 @@ record behind ROADMAP §C's entries.
 
     python tests/probe_cv2_readers.py fax [--seeds 60]
     python tests/probe_cv2_readers.py gif [--files 3000]
+    python tests/probe_cv2_readers.py avif [--files 400]
 
 ``fax``: CCITT Group 3 (1-D, 2-D, with and without fill bits), Group 4
 and RLE files that the system libtiff writes (the writer of
@@ -17,6 +18,15 @@ number of the frame's pixels, the End code, then 1 to 9 seeded random
 bytes.  cv2 decodes every file in two fresh processes (in file order and
 in reverse); prints how many decodes differ between them, and how many
 files the port reads as cv2 does, split by which side refuses.
+
+``avif``: seeded images (smooth, noise, or blocks of a few colours) of 1
+to 200 pixels a side through Pillow's AVIF encoder (libavif over aom)
+under random aom options (each tool of the decoder on or off, 64 or 128
+superblocks, delta q, adaptive quantization, quantizer matrices, tiles,
+film grain, palette, intra block copy, restoration), subsamplings,
+qualities and speeds, a quarter of them with the colr box's matrix and
+range redrawn, a tenth with 1 to 3 bits of their AV1 data flipped.  Prints how many files the port reads as cv2 does, and
+for the rest which side refuses and why.
 """
 
 import argparse
@@ -142,13 +152,102 @@ def gif(files: int) -> None:
         print(f"{k}: {v}")
 
 
+AVIF_TOOLS = ("enable-cdef", "loopfilter-control", "enable-filter-intra",
+              "enable-intra-edge-filter", "enable-cfl-intra",
+              "enable-smooth-intra", "enable-paeth-intra",
+              "enable-angle-delta", "enable-tx64", "enable-diagonal-intra",
+              "enable-directional-intra", "enable-rect-tx",
+              "enable-flip-idtx", "enable-rect-partitions",
+              "enable-ab-partitions", "enable-1to4-partitions", "enable-qm",
+              "enable-palette", "enable-intrabc", "enable-restoration",
+              "reduced-tx-type-set", "enable-chroma-deltaq")
+
+
+def avif(files: int) -> None:
+    import io
+    import cv2
+    from PIL import Image
+    tmp = Path(tempfile.mkdtemp(prefix="probe_avif_"))
+    split = Counter()
+    for s in range(files):
+        rng = np.random.RandomState(s)
+        h, w = rng.randint(1, 201), rng.randint(1, 201)
+        kind = rng.choice(["smooth", "noise", "blocks"])
+        if kind == "noise":
+            img = rng.randint(0, 256, (h, w, 3))
+        elif kind == "blocks":
+            cols = rng.randint(0, 256, (rng.randint(2, 8), 3))
+            img = cols[rng.randint(0, len(cols), (h // 8 + 1, w // 8 + 1))
+                       .repeat(8, 0).repeat(8, 1)[:h, :w]]
+        else:
+            y, x = np.mgrid[0:h, 0:w]
+            img = np.stack([x * 3, y * 4, (x + y) * 2], -1) % 256 + \
+                rng.randint(0, 30, (h, w, 3))
+        adv = {t: str(rng.randint(2)) for t in AVIF_TOOLS}
+        adv["sb-size"] = str(rng.choice([64, 128]))
+        adv["deltaq-mode"] = str(rng.randint(2))
+        adv["aq-mode"] = str(rng.randint(4))
+        if rng.rand() < 0.1:
+            adv["film-grain-test"] = "1"
+        sub = rng.choice(["4:2:0", "4:2:2", "4:4:4", "4:0:0"])
+        if sub == "4:0:0":
+            adv.pop("enable-chroma-deltaq")
+        kw = dict(quality=int(rng.choice([0, 20, 40, 60, 80, 95, 100])),
+                  speed=int(rng.choice([2, 4, 6, 8, 10])), subsampling=sub,
+                  range=rng.choice(["full", "limited"]), advanced=adv)
+        if rng.rand() < 0.2:
+            kw.update(tile_cols=1, tile_rows=int(rng.randint(2)),
+                      autotiling=False)
+        out = io.BytesIO()
+        try:
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                out, format="AVIF", **kw)
+        except (OSError, ValueError):
+            split["Pillow's encoder refuses the options"] += 1
+            continue
+        data = bytearray(out.getvalue())
+        at = data.find(b"colrnclx")
+        if rng.rand() < 0.25 and at > 0:
+            data[at + 12:at + 14] = int(rng.choice(
+                [0, 1, 2, 4, 5, 6, 7, 8, 9, 12, 15])).to_bytes(2, "big")
+            data[at + 14] = 0x80 * rng.randint(2)
+        if rng.rand() < 0.1:                # damaged: bits flipped
+            for at in rng.randint(data.find(b"mdat") + 8, len(data),
+                                  rng.randint(1, 4)):
+                data[at] ^= 1 << rng.randint(8)
+        path = tmp / f"{s:05d}.avif"
+        path.write_bytes(bytes(data))
+        ref = cv2.imread(str(path), cv2.IMREAD_COLOR)
+        try:
+            got, why = native.decode_image(str(path)), ""
+        except native.ImageError as e:
+            got, why = None, str(e).split(": ", 2)[-1]
+        if ref is None:
+            split["cv2 refuses, " + ("the port too" if got is None
+                                     else "the port reads")] += 1
+        elif got is None:
+            split[f"the port refuses, cv2 reads: {why}"] += 1
+        elif np.array_equal(got, ref[..., ::-1]):
+            split["as cv2"] += 1
+        else:
+            split["both read, pixels differ"] += 1
+    print(f"{files} files")
+    for k, v in sorted(split.items()):
+        print(f"{k}: {v}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("probe", choices=["fax", "gif"])
+    ap.add_argument("probe", choices=["fax", "gif", "avif"])
     ap.add_argument("--seeds", type=int, default=60)
-    ap.add_argument("--files", type=int, default=3000)
+    ap.add_argument("--files", type=int, default=None)
     a = ap.parse_args()
-    fax(a.seeds) if a.probe == "fax" else gif(a.files)
+    if a.probe == "fax":
+        fax(a.seeds)
+    elif a.probe == "gif":
+        gif(a.files or 3000)
+    else:
+        avif(a.files or 400)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,489 @@
+"""AVIF through the port's reader (``data/formats.py::read_avif``, the AV1
+decoder ``csrc/av1_decode.cc`` and libavif's YUV -> RGB) against JAX's
+``load_image_rgb`` -- cv2 5.0's AvifDecoder over libavif 1.4.2 and its
+libaom -- bit for bit, on seeded images of at most 160x120 that Pillow's
+AVIF encoder (libavif over aom) and cv2.imwrite write here.
+
+- the sniff: libavif's brand rule (major or compatible avif / avis) over
+  the 500 bytes cv2's signature check parses;
+- the container: iloc versions, field sizes, idat, several extents,
+  15-bit and version-1 ipma, infe v3, a hidden primary item, the
+  properties cv2 ignores (pixi absent, irot, imir, clap, an ICC colr,
+  pasp, clli, auxC, a1op, lsel, a1lx) and an alpha item; what cv2
+  refuses (an essential property libavif does not know, pixi depths off
+  av1C's, idat read as the file, cut files, bits flipped in the AV1
+  data);
+- the OBUs libaom takes (size fields, delimiters, padding, metadata,
+  reserved and tile list OBUs, zero bytes after the frame, a sequence
+  header in av1C only);
+- the AV1 tools one at a time over a tools-off base (4:4:4 with the
+  identity matrix, so cv2 hands back the decoded planes), the
+  subsamplings, sizes from 1x1 to 65x33, tiles, 128x128 superblocks,
+  delta q and adaptive quantization, quantizer matrices, lossless;
+- the colour conversions: every matrix, range, subsampling and (for
+  matrix 12) colour primaries cv2 reads, and the combinations cv2
+  refuses;
+- the kinds this slice refuses, each raising ``ImageError`` naming the
+  path, "AVIF" and the tool while cv2 reads the file (loop restoration,
+  film grain, a palette, intra block copy, a grid, premultiplied alpha);
+- the tables: the committed ``csrc/av1_tables.h`` is what
+  ``tools/av1_tables.py`` reads from libaom.so.3, where it is present.
+"""
+
+import io
+import struct
+
+import cv2
+import numpy as np
+import pytest
+from PIL import Image, features
+
+from objectdetectionpl_tpu.data.parsers.common import load_image_rgb
+from objectdetectionpl_tpu_torch.data import formats, native
+from objectdetectionpl_tpu_torch.tools import av1_tables, format_files
+from objectdetectionpl_tpu_torch.tools.format_files import (
+    avif_bytes, avif_grid_bytes, heif_box)
+
+pytestmark = pytest.mark.skipif(not features.check("avif"),
+                                reason="Pillow without AVIF writes no file")
+
+# every aom option of the tools the decoder reads, off
+TOOLS = ("enable-cdef", "loopfilter-control", "enable-filter-intra",
+         "enable-intra-edge-filter", "enable-cfl-intra",
+         "enable-smooth-intra", "enable-paeth-intra", "enable-angle-delta",
+         "enable-tx64", "enable-diagonal-intra", "enable-directional-intra",
+         "enable-rect-tx", "enable-flip-idtx", "enable-rect-partitions",
+         "enable-ab-partitions", "enable-1to4-partitions")
+OFF = {t: "0" for t in TOOLS}
+
+
+def _image(h, w, seed=0, smooth=True):
+    rng = np.random.default_rng(seed)
+    if not smooth:
+        return rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([(x * 4) % 256, (y * 5) % 256, (x + y) * 2 % 256], -1)
+    return (img + rng.integers(0, 40, img.shape)).clip(0, 255).astype(
+        np.uint8)
+
+
+def _pillow(img, **kw) -> bytes:
+    out = io.BytesIO()
+    Image.fromarray(img).save(out, format="AVIF", **kw)
+    return out.getvalue()
+
+
+def _file(tmp_path, data: bytes, name="x.avif") -> str:
+    path = tmp_path / name
+    path.write_bytes(data)
+    return str(path)
+
+
+def _same_as_cv2(path: str) -> np.ndarray:
+    want = load_image_rgb(path)
+    got = native.decode_image(path)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+def _both_refuse(path: str) -> None:
+    assert cv2.imread(path, cv2.IMREAD_COLOR) is None
+    with pytest.raises(native.ImageError, match=f"^{path}"):
+        native.decode_image(path)
+
+
+def _parts(data: bytes):
+    """The primary item's AV1 stream and av1C body of a file."""
+    boxes = list(formats._jp2_boxes(data, 0, len(data)))
+    meta = [formats._avif_meta(data, a, s) for k, a, s in boxes
+            if k == b"meta"][0]
+    props = formats._avif_props(data, meta, meta["pitm"])
+    at, stop = props[b"av1C"]
+    return formats._avif_item_data(data, meta, meta["pitm"]), data[at:stop]
+
+
+def _patch_colr(data: bytes, primaries=None, matrix=None, full=None):
+    at = data.index(b"colrnclx") + 8
+    out = bytearray(data)
+    if primaries is not None:
+        out[at:at + 2] = primaries.to_bytes(2, "big")
+    if matrix is not None:
+        out[at + 4:at + 6] = matrix.to_bytes(2, "big")
+    if full is not None:
+        out[at + 6] = 0x80 if full else 0
+    return bytes(out)
+
+
+def _box(stream, **kw) -> bytes:
+    return avif_bytes(stream[0], 64, 40, stream[1], **kw)
+
+
+@pytest.fixture(scope="module")
+def stream():
+    """An AV1 stream of a 64x40 image and its av1C, to box as we like."""
+    obus, av1c = _parts(_pillow(_image(40, 64, smooth=False), quality=80))
+    return obus, av1c
+
+
+# ---------------------------------------------------------------------------
+# the sniff
+
+@pytest.mark.parametrize("major,slot", [(b"avif", None), (b"mif1", 0),
+                                        (b"mif1", 10), (b"mif1", 118),
+                                        (b"mif1", 119), (b"mif1", 120),
+                                        (b"mif1", 300)])
+def test_sniff_as_cv2(tmp_path, stream, major, slot):
+    """cv2 finds its AVIF decoder by libavif's parse of the first 500
+    bytes: an avif brand anywhere in ftyp (past 500 bytes too), but not a
+    box header cut by the 500 bytes' end (slot 119: the ftyp ends 4 bytes
+    before it, and cv2 calls the file no image)."""
+    brands = (b"avif",) if slot is None else (b"mif1",) * slot + (b"avif",)
+    data = _box(stream, major=major, brands=brands)
+    path = _file(tmp_path, data)
+    if slot == 119:
+        assert formats.sniff(data[:formats.AVIF_HEAD]) == ""
+        _both_refuse(path)
+    else:
+        assert formats.sniff(data[:formats.AVIF_HEAD]) == "AVIF"
+        _same_as_cv2(path)
+    no_brand = _box(stream, major=b"mif1", brands=(b"mif1", b"miaf"))
+    assert formats.sniff(no_brand) == ""
+    _both_refuse(_file(tmp_path, no_brand, "none.avif"))
+
+
+# ---------------------------------------------------------------------------
+# the container
+
+CONTAINER = {
+    "iloc_v1": dict(iloc_version=1),
+    "iloc_v2_8byte": dict(iloc_version=2, sizes=(8, 8, 8, 4)),
+    "iloc_v1_base_index": dict(iloc_version=1, sizes=(4, 8, 4, 8)),
+    "idat": dict(iloc_version=1, idat=True),
+    "extents": dict(extents=3),
+    "extents_idat": dict(extents=3, iloc_version=2, idat=True),
+    "ipma_15bit": dict(ipma_large=True),
+    "ipma_v1": dict(ipma_version=1),
+    "infe_v3": dict(infe_version=3),
+    "hidden": dict(hidden=True),
+    "item_7": dict(item_id=7),
+    "no_pixi": dict(pixi=None),
+    "no_colr": dict(nclx=None),
+    "mif1_major": dict(major=b"mif1", brands=(b"mif1", b"avif")),
+    "ignored_props": dict(extra_props=(
+        (heif_box(b"irot", b"\x01"), True),
+        (heif_box(b"imir", b"\x01"), True),
+        (heif_box(b"clap", struct.pack(">8I", 32, 1, 20, 1, 0, 1, 0, 1)),
+         True),
+        (heif_box(b"colr", b"prof" + bytes(128)), True),
+        (heif_box(b"pasp", struct.pack(">II", 1, 1)), True),
+        (heif_box(b"clli", struct.pack(">HH", 1, 1)), True),
+        (heif_box(b"a1op", b"\0"), True),
+        (heif_box(b"lsel", b"\0\0"), True),
+        (heif_box(b"a1lx", bytes(7)), False),
+        (heif_box(b"zzzz", b"\0"), False))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONTAINER))
+def test_container_as_cv2(tmp_path, stream, case):
+    _same_as_cv2(_file(tmp_path, _box(stream, **CONTAINER[case])))
+
+
+def test_alpha_item_ignored(tmp_path, stream):
+    """An auxl alpha item: cv2's IMREAD_COLOR pixels are the colour
+    item's, so the port ignores it; premultiplied (prem) it refuses."""
+    plain = _same_as_cv2(_file(tmp_path, _box(stream),
+                               "plain.avif"))
+    with_alpha = _file(tmp_path, _box(stream, alpha=stream))
+    np.testing.assert_array_equal(_same_as_cv2(with_alpha), plain)
+    prem = _file(tmp_path, _box(stream, alpha=stream,
+                                      iref_extra=((b"prem", 1, 2),)),
+                 "prem.avif")
+    assert load_image_rgb(prem) is not None
+    with pytest.raises(native.ImageError,
+                       match=f"^{prem}: AVIF: premultiplied alpha"):
+        native.decode_image(prem)
+
+
+REFUSED_BY_CV2 = {
+    "unknown_essential": dict(extra_props=((heif_box(b"zzzz", b"\0"),
+                                            True),)),
+    "mdcv_essential": dict(extra_props=((heif_box(b"mdcv", bytes(24)),
+                                         True),)),
+    "a1lx_essential": dict(extra_props=((heif_box(b"a1lx", bytes(7)),
+                                         True),)),
+    "pixi_10bit": dict(pixi=(10, 10, 10)),
+    "idat_as_file": dict(idat=True),        # iloc v0: construction 0
+    "avis_major": dict(major=b"avis"),      # libavif reads its tracks
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED_BY_CV2))
+def test_container_refused_as_cv2(tmp_path, stream, case):
+    _both_refuse(_file(tmp_path, _box(stream,
+                                            **REFUSED_BY_CV2[case])))
+
+
+def test_cut_files_refused_as_cv2(tmp_path, stream):
+    data = _box(stream)
+    for cut in list(range(16, len(data), len(data) // 23)) + [len(data) - 1]:
+        _both_refuse(_file(tmp_path, data[:cut], f"cut{cut}.avif"))
+
+
+def test_damaged_streams_as_cv2(tmp_path):
+    """Bits flipped in the AV1 data of committed files: libaom refuses a
+    tile whose padding after its last symbol is not a 1 bit then zeros
+    (the specification's exit process), and so does the port; a file cv2
+    reads reads the same."""
+    rng = np.random.default_rng(11)
+    for n in range(40):
+        kind = format_files.AVIF_KINDS[n % len(format_files.AVIF_KINDS)]
+        data = bytearray(format_files.COMMITTED[kind].read_bytes())
+        start = data.index(b"mdat") + 24
+        for at in rng.integers(start, len(data), rng.integers(1, 4)):
+            data[at] ^= 1 << int(rng.integers(8))
+        path = _file(tmp_path, bytes(data), f"d{n}.avif")
+        if cv2.imread(path, cv2.IMREAD_COLOR) is None:
+            _both_refuse(path)
+        else:
+            _same_as_cv2(path)
+
+
+def test_ispe_not_the_frame_refused(tmp_path, stream):
+    """cv2 writes the frame's rows into a buffer of ispe's size when the
+    two differ (a deliberate difference: the port refuses, naming it)."""
+    data = _box(stream).replace(
+        struct.pack(">II", 64, 40), struct.pack(">II", 60, 40), 1)
+    path = _file(tmp_path, data)
+    assert load_image_rgb(path).shape == (40, 60, 3)
+    with pytest.raises(native.ImageError, match="AVIF: ispe's 60x40 is not"):
+        native.decode_image(path)
+
+
+def _leb128(n: int) -> bytes:
+    out = b""
+    while True:
+        out += bytes([n & 0x7F | (0x80 if n >> 7 else 0)])
+        n >>= 7
+        if not n:
+            return out
+
+
+def _obu(kind: int, body: bytes, ext=None, sized=True) -> bytes:
+    head = bytes([kind << 3 | (4 if ext is not None else 0)
+                  | (2 if sized else 0)])
+    return head + (bytes([ext]) if ext is not None else b"") + (
+        _leb128(len(body)) if sized else b"") + body
+
+
+def _obu_bodies(stream: bytes) -> dict:
+    """{OBU type: payload} of a stream of sized OBUs."""
+    out, at = {}, 0
+    while at < len(stream):
+        kind = stream[at] >> 3 & 15
+        at += 1 + (stream[at] >> 2 & 1)
+        size, shift = 0, 0
+        while True:
+            size |= (stream[at] & 0x7F) << shift
+            shift += 7
+            at += 1
+            if not stream[at - 1] & 0x80:
+                break
+        out[kind] = stream[at:at + size]
+        at += size
+    return out
+
+
+CLL = _leb128(1) + bytes([0, 100, 0, 50, 0x80])    # HDR CLL metadata
+OBUS = {   # name: (the OBUs around the sequence header S and frame F,
+           #        cv2 reads the file)
+    "plain": (lambda s, f: _obu(1, s) + _obu(6, f), True),
+    "temporal_delimiter": (lambda s, f: _obu(2, b"") + _obu(1, s)
+                           + _obu(6, f), True),
+    "extension_header": (lambda s, f: _obu(1, s, 0) + _obu(6, f, 0), True),
+    "metadata": (lambda s, f: _obu(5, CLL) + _obu(1, s) + _obu(6, f), True),
+    "after_the_frame": (lambda s, f: _obu(1, s) + _obu(6, f) + b"\0\0"
+                        + _obu(2, b"") + _obu(1, s) + _obu(5, CLL), True),
+    "zero_after_an_obu": (lambda s, f: _obu(1, s) + _obu(6, f) + _obu(2, b"")
+                          + b"\0", False),
+    "padding": (lambda s, f: _obu(1, s) + _obu(15, b"\x80") + _obu(6, f),
+                True),
+    "reserved": (lambda s, f: _obu(1, s) + _obu(9, b"") + _obu(6, f), True),
+    "two_sequence_headers": (lambda s, f: _obu(1, s) + _obu(1, s)
+                             + _obu(6, f), True),
+    "padding_zero_last": (lambda s, f: _obu(1, s) + _obu(15, b"\0")
+                          + _obu(6, f), False),
+    "metadata_zero_last": (lambda s, f: _obu(1, s) + _obu(5, CLL[:-1] + b"\0")
+                           + _obu(6, f), False),
+    "unsized_frame": (lambda s, f: _obu(1, s) + _obu(6, f, sized=False),
+                      False),
+    "tile_list": (lambda s, f: _obu(1, s) + _obu(8, b"\x80") + _obu(6, f),
+                  False),
+    "delimiter_payload": (lambda s, f: _obu(2, b"\x80") + _obu(1, s)
+                          + _obu(6, f), False),
+    "no_sequence_header": (lambda s, f: _obu(6, f), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OBUS))
+def test_obus_as_cv2(tmp_path, stream, case):
+    """The OBUs libaom takes from libavif (the item's data alone: a
+    sequence header in av1C's config OBUs only is no help, the last
+    case)."""
+    bodies = _obu_bodies(stream[0])
+    make, reads = OBUS[case]
+    av1c = stream[1][:4] + _obu(1, bodies[1])
+    path = _file(tmp_path, avif_bytes(make(bodies[1], bodies[6]), 64, 40,
+                                      av1c))
+    if reads:
+        _same_as_cv2(path)
+    else:
+        _both_refuse(path)
+
+
+# ---------------------------------------------------------------------------
+# the AV1 decoder, through the identity matrix and through libyuv
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_one_tool_on(tmp_path, tool):
+    """Each tool alone over the tools-off base: 4:4:4 with matrix 0
+    (identity, full range), so cv2 returns the decoded planes (G = Y,
+    B = U, R = V)."""
+    img = _image(72, 88, seed=TOOLS.index(tool), smooth=tool != "enable-cdef")
+    data = _pillow(img, subsampling="4:4:4", quality=55,
+                   advanced={**OFF, tool: "1"})
+    _same_as_cv2(_file(tmp_path, _patch_colr(data, matrix=0, full=True)))
+
+
+@pytest.mark.parametrize("size", [(1, 1), (2, 3), (6, 1), (1, 6), (9, 17),
+                                  (33, 65), (65, 33), (120, 160)])
+@pytest.mark.parametrize("sub", ["4:2:0", "4:2:2", "4:4:4", "4:0:0"])
+def test_subsampling_and_size(tmp_path, size, sub):
+    h, w = size
+    data = _pillow(_image(h, w, seed=h * w, smooth=h > 16), subsampling=sub,
+                   quality=70)
+    _same_as_cv2(_file(tmp_path, data))
+
+
+STREAMS = {
+    "tiles_sb128": dict(quality=60, tile_cols=1, autotiling=False,
+                        advanced={"sb-size": "128"}),
+    "tile_rows": dict(quality=60, tile_rows=1, tile_cols=1,
+                      autotiling=False),
+    "deltaq": dict(quality=70, advanced={"deltaq-mode": "1"}),
+    "aq_mode": dict(quality=70, advanced={"aq-mode": "1"}),
+    "chroma_deltaq": dict(quality=70, subsampling="4:4:4",
+                          advanced={"enable-chroma-deltaq": "1"}),
+    "qm": dict(quality=80, advanced={"enable-qm": "1"}),
+    "reduced_tx_set": dict(quality=70, advanced={"reduced-tx-type-set":
+                                                 "1"}),
+    "lossless": dict(quality=100, subsampling="4:4:4"),
+    "q0": dict(quality=0),
+    "q95": dict(quality=95),
+    "speed10": dict(quality=60, speed=10),
+    "screen_content": dict(quality=90, subsampling="4:4:4",
+                           advanced={"enable-palette": "0",
+                                     "enable-intrabc": "0"}),
+}
+
+
+def _screen():
+    """Blocks of four colours: aom turns on its screen content tools."""
+    rng = np.random.default_rng(3)
+    lab = rng.integers(0, 4, (15, 20)).repeat(8, 0).repeat(8, 1)
+    return rng.integers(0, 256, (4, 3)).astype(np.uint8)[lab]
+
+
+@pytest.mark.parametrize("case", sorted(STREAMS))
+def test_stream_kinds(tmp_path, case):
+    if case == "screen_content":
+        img = _screen()
+    else:
+        img = _image(120, 160, seed=len(case), smooth=case != "q95")
+    _same_as_cv2(_file(tmp_path, _pillow(img, **STREAMS[case])))
+
+
+def test_default_files(tmp_path):
+    """cv2.imwrite's default AVIF (CDEF, quantizer matrices, delta q) and
+    Pillow's default at quality 50, 80 and 95, at 160x120 and 97x61."""
+    for h, w in ((120, 160), (61, 97)):
+        img = _image(h, w, seed=w)
+        path = tmp_path / f"cv2_{w}.avif"
+        assert cv2.imwrite(str(path), img[..., ::-1])
+        _same_as_cv2(str(path))
+        for q in (None, 50, 80, 95):
+            kw = {} if q is None else {"quality": q}
+            _same_as_cv2(_file(tmp_path, _pillow(img, **kw), f"p{q}_{w}.avif"))
+
+
+# ---------------------------------------------------------------------------
+# the colour conversions
+
+@pytest.mark.parametrize("sub", ["4:2:0", "4:2:2", "4:4:4", "4:0:0"])
+def test_matrices_and_ranges(tmp_path, sub):
+    """libyuv's constants (matrices 1, 2, 5, 6, 9, and 12 under primaries
+    1, 2, 5, 6, 9) after its bilinear chroma; libavif's float path with
+    its own bilinear chroma for the rest cv2 reads (0 at 4:4:4, 4, 7, 8 in
+    full range, 12 under other primaries, 15); the grey plane for 4:0:0
+    whatever the matrix; what cv2 refuses is refused."""
+    base = _pillow(_image(41, 53, seed=5, smooth=False), subsampling=sub,
+                   quality=90)
+    for matrix in range(17):
+        for full in (True, False):
+            path = _file(tmp_path, _patch_colr(base, matrix=matrix,
+                                               full=full),
+                         f"m{matrix}_{full}.avif")
+            if cv2.imread(path, cv2.IMREAD_COLOR) is None:
+                _both_refuse(path)
+            else:
+                _same_as_cv2(path)
+    for primaries in (0, 1, 2, 4, 5, 6, 9, 10, 12, 22, 255):
+        _same_as_cv2(_file(tmp_path, _patch_colr(base, primaries, 12),
+                           f"p{primaries}.avif"))
+
+
+# ---------------------------------------------------------------------------
+# the refused kinds
+
+def test_refused_kinds_name_themselves(tmp_path):
+    """Each kind this slice refuses, in a file cv2 reads: ImageError naming
+    the path, AVIF and the tool, never a partial image."""
+    rng = np.random.default_rng(0)
+    lab = rng.integers(0, 5, (12, 16)).repeat(8, 0).repeat(8, 1)
+    screen = rng.integers(0, 256, (5, 3)).astype(np.uint8)[lab]
+    cases = {
+        "loop restoration": _pillow(_image(128, 160, smooth=False), speed=2,
+                                    quality=50,
+                                    advanced={"enable-restoration": "1"}),
+        "film grain": _pillow(_image(64, 96), quality=60,
+                              advanced={"film-grain-test": "1"}),
+        "a palette": _pillow(screen, subsampling="4:4:4", quality=90,
+                             advanced={"enable-palette": "1"}),
+        "intra block copy": _pillow(_screen(), subsampling="4:4:4",
+                                    quality=90,
+                                    advanced={"enable-palette": "0"}),
+    }
+    for tool, data in cases.items():
+        path = _file(tmp_path, data, tool.replace(" ", "_") + ".avif")
+        assert load_image_rgb(path) is not None
+        with pytest.raises(native.ImageError,
+                           match=f"^{path}: AVIF: the AV1 stream uses {tool}"):
+            native.decode_image(path)
+    obus, av1c = _parts(_pillow(_image(64, 64, smooth=False), quality=80))
+    path = _file(tmp_path, avif_grid_bytes(obus, 64, 64, av1c, 2, 2),
+                 "grid.avif")
+    assert load_image_rgb(path).shape == (128, 128, 3)
+    with pytest.raises(native.ImageError, match=f"^{path}: AVIF: a grid"):
+        native.decode_image(path)
+
+
+# ---------------------------------------------------------------------------
+# the tables
+
+def test_tables_are_libaoms():
+    lib = av1_tables.find_libaom()
+    if lib is None:
+        pytest.skip("no libaom.so.3 in the dynamic linker's cache")
+    assert av1_tables.HEADER.read_text() == av1_tables.render(
+        av1_tables.read_tables(lib))

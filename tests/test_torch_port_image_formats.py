@@ -298,9 +298,9 @@ def test_bmp_rle(tmp_path, four, name):
                                       (".gif", "GIF"), (".avif", "AVIF")])
 def test_other_formats_raise_naming_the_format(tmp_path, ext, name):
     """cv2.imwrite's file of each other format, under its name and a .jpg
-    one: the formats the port reads (WebP, TIFF, JPEG 2000, PNM, Sun
-    raster, Radiance HDR, GIF) equal cv2's decode; AVIF, which it does not
-    read yet, raises naming the format."""
+    one, equals cv2's decode: WebP, TIFF, JPEG 2000, PNM, Sun raster,
+    Radiance HDR, GIF and AVIF (cv2's default AVIF: CDEF, quantizer
+    matrices, delta q)."""
     rng = np.random.RandomState(1)
     img = rng.randint(0, 256, (64, 64, 3)).astype(np.uint8)
     path = tmp_path / f"img{ext}"
@@ -309,20 +309,16 @@ def test_other_formats_raise_naming_the_format(tmp_path, ext, name):
     named = tmp_path / "img.jpg"                             # any name
     named.write_bytes(path.read_bytes())
     for p in (path, named):
-        if name != "AVIF":
-            assert _assert_like_jax(p) is not None
-            continue
-        with pytest.raises(native.ImageError,
-                           match=f"^{p}: a {name} image, which the port"):
-            common.load_image_rgb(str(p))
+        assert formats.sniff(p.read_bytes()[:formats.AVIF_HEAD]) == name
+        assert _assert_like_jax(p) is not None
 
 
 def test_no_signature_raises(tmp_path):
     path = tmp_path / "x.jpg"
     path.write_bytes(b"GIF90a" + bytes(40))
     with pytest.raises(OSError, match="no JPEG, PNG, BMP, GIF, WebP, TIFF, "
-                                      "JPEG 2000, PNM, PAM, PFM, Sun raster "
-                                      "or Radiance HDR signature"):
+                                      "JPEG 2000, AVIF, PNM, PAM, PFM, Sun "
+                                      "raster or Radiance HDR signature"):
         common.load_image_rgb(str(path))
     with pytest.raises(OSError, match="cannot read the file"):
         common.load_image_rgb(str(tmp_path / "missing.png"))
@@ -454,6 +450,12 @@ def test_sniff():
     assert formats.sniff(formats.PNG_SIGNATURE) == "PNG"
     assert formats.sniff(b"BM\x00") == "BMP"
     assert formats.sniff(b"\x00\x00\x00\x1cftypavif") == "AVIF"
+    # libavif's rule: avif or avis, major or compatible brand
+    ftyp = b"\x00\x00\x00\x18ftypmif1\x00\x00\x00\x00mif1"
+    assert formats.sniff(ftyp + b"avif") == "AVIF"
+    assert formats.sniff(ftyp + b"avis") == "AVIF"
+    assert formats.sniff(ftyp + b"miaf") == ""
+    assert formats.sniff(b"\x00\x00\x00\x10ftypmif1\x00\x00\x00\x00") == ""
     assert formats.sniff(b"\x59\xa6\x6a\x95") == "Sun raster"
     assert formats.sniff(b"#?RADIANCE\n") == "Radiance HDR"
     assert formats.sniff(b"\x76\x2f\x31\x01") == "OpenEXR"

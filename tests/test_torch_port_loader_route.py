@@ -18,8 +18,9 @@ and one TIFF of each kind of ``format_files.tiff_kinds`` and the
 committed JPEG, fax and SGILog TIFFs (JPEG compression in a strip,
 strips and tiles, YCbCr, CMYK, CIELab, CCITT RLE, Group 3 and Group 4,
 FillOrder 2, old-style LZW, ThunderScan, signed samples, LogLuv and
-LogL), named ``.jpg`` in the VOC tree and the VP8, TIFF, JP2, J2K, GIF,
-PAM and Sun raster files and half of the newer TIFFs by their own
+LogL), and two AVIFs (cv2's write and the committed Pillow one), named
+``.jpg`` in the VOC tree and the VP8, TIFF, JP2, J2K, GIF, PAM, Sun
+raster and cv2's AVIF files and half of the newer TIFFs by their own
 extension in the COCO tree.
 
 - The port's batches equal JAX's bit for bit, epoch after epoch; the port
@@ -78,7 +79,8 @@ def _replacements():
                            (19, ".ppm", bgr), (20, ".pam", bgr),
                            (21, ".pfm", bgr.astype(np.float32)),
                            (22, ".ras", bgr),
-                           (23, ".hdr", bgr.astype(np.float32) / 255)):
+                           (23, ".hdr", bgr.astype(np.float32) / 255),
+                           (41, ".avif", bgr)):
         ok, data = cv2.imencode(ext, img)
         assert ok
         written[slot] = data.tobytes()
@@ -95,6 +97,7 @@ def _replacements():
         11: format_files.COMMITTED["webp_lossless"].read_bytes(),
         14: tiff_bytes(small, compression=5, predictor=2, rows_per_strip=8),
         **{24 + i: data for i, data in enumerate(_tiff_kinds(voc, small))},
+        42: format_files.COMMITTED["avif_pillow"].read_bytes(),
     }
 
 
@@ -119,7 +122,7 @@ TIFF_KINDS = ("tiff_jpeg_ycbcr", "tiff_jpeg_cmyk", "tiff_ycbcr",
 # the slots whose file keeps its own extension in the COCO tree (the VOC
 # tree names every file .jpg)
 OWN_NAME = {7: ".webp", 14: ".tiff", 16: ".jp2", 17: ".j2k", 18: ".gif",
-            20: ".pam", 22: ".ras",
+            20: ".pam", 22: ".ras", 41: ".avif",
             **{24 + i: ".tif" for i in range(0, len(TIFF_KINDS), 2)}}
 
 
@@ -181,8 +184,8 @@ def test_batches_and_routes_equal_jax(mixed_voc, mixed_coco, jax_library,
                                           False, max_denom=8)[-1][0]}
     # the CMYK file, the PNG, the lossless JPEG, both WebPs, the TIFFs, the
     # JP2, the J2K codestream, the GIF, the PPM, the PAM, the PFM, the Sun
-    # raster and the Radiance HDR
-    assert len(odd) == 14 + len(TIFF_KINDS)
+    # raster, the Radiance HDR and both AVIFs
+    assert len(odd) == 16 + len(TIFF_KINDS)
     # batches holding one of them take the parser route, the others fused
     n_odd = 0
     for epoch in range(2):

@@ -36,7 +36,7 @@
   and a TIFF of each kind ``TIFF_KINDS`` (JPEG compression, YCbCr,
   CMYK, CIELab, CCITT fax, FillOrder 2, old-style LZW, ThunderScan,
   signed samples, SGILog) at seed 15, the first of 13..55 whose margins
-  hold.
+  hold; five AVIF files ``AVIF_KINDS`` at seed 19.
 - ``main`` end to end on a port checkpoint, over every decodable fixture
   (progressive and 1280x720 ones too): one JSON line per image equal to
   ``predict_images`` on the restored state, one PNG panel per image.
@@ -191,17 +191,23 @@ TIFF_KINDS = ("tiff_jpeg_ycbcr", "tiff_jpeg_strips", "tiff_jpeg_tiles",
               "tiff_ccitt_rle", "tiff_fillorder2", "tiff_lzw_old",
               "tiff_thunderscan", "tiff_signed", "tiff_logluv", "tiff_logl")
 TIFF_KIND_SEEDS = (15,)
+# AVIF files (cv2.imwrite's default, Pillow's default, 4:0:0, an odd size,
+# 500x375) at seed 19, at which their margins hold
+AVIF_KINDS = ("avif_cv2", "avif_pillow", "avif_400", "avif_odd",
+              "avif_500x375")
+AVIF_KIND_SEEDS = (19,)
 
 
 def test_predict_new_formats_equal_jax(tmp_path, monkeypatch):
     """``predict_images`` on a lossless JPEG, WebPs, TIFFs, a file of
     each newer format (JPEG 2000, GIF, PNM, PAM, PFM, Sun raster,
-    Radiance HDR) and a TIFF of each newer kind against the JAX CLI's
-    chain on its cv2 decodes, as for the baseline fixtures."""
+    Radiance HDR), a TIFF of each newer kind and AVIF files against the
+    JAX CLI's chain on its cv2 decodes, as for the baseline fixtures."""
     paths = format_files.write_format_files(tmp_path / "formats")
     for n, (kinds, seeds) in enumerate(((NEW_KINDS, NEW_KIND_SEEDS),
                                         (NEWER_KINDS, NEWER_KIND_SEEDS),
-                                        (TIFF_KINDS, TIFF_KIND_SEEDS))):
+                                        (TIFF_KINDS, TIFF_KIND_SEEDS),
+                                        (AVIF_KINDS, AVIF_KIND_SEEDS))):
         _assert_predict_equals_jax(tmp_path / str(n), monkeypatch,
                                    [paths[k] for k in kinds], seeds)
 
