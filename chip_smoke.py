@@ -216,8 +216,10 @@ exits non-zero:
    Group 3 2-D and Group 4, FillOrder 2, old-style LZW, ThunderScan,
    signed samples, SGILog LogLuv and LogL), AVIF (cv2.imwrite's default
    with CDEF and quantizer matrices, Pillow's default, 4:4:4, 4:2:2,
-   4:0:0, lossless, two tiles of 128x128 superblocks, an odd 167x125 and
-   a 500x375; their host ms on a line of their own, ``formats_avif``):
+   4:0:0, lossless, two tiles of 128x128 superblocks, an odd 167x125, a
+   500x375, Wiener and self-guided loop restoration, superres at
+   denominator 16 over two tile columns, film grain; their host ms on a
+   line of their own, ``formats_avif``):
    each decoded by
    ``native.decode_image`` (the port's
    ``load_image_rgb``), its SHA-256 held against cv2's recorded in

@@ -11,28 +11,38 @@
 // and tile groups); the symbol decoder with its adaptation; every
 // partition, intra mode (directional with angle deltas and the intra edge
 // filter and upsampling, smooth, Paeth, CFL, filter intra), the segment
-// ids, skip, cdef_idx, delta q / lf, tx size, intra tx type and every
-// coefficient; dequantization with or without quantizer matrices; the
-// DCT 4..64, ADST 4..16, identity and the lossless WHT; the deblocking
-// filter and CDEF.  Pixels are uint16.
+// ids, skip, cdef_idx, delta q / lf, tx size, intra tx type, the loop
+// restoration units' types and coefficients, and every coefficient;
+// dequantization with or without quantizer matrices; the DCT 4..64, ADST
+// 4..16, identity and the lossless WHT; then the stages after the tiles:
+// the deblocking filter, CDEF, superres (libaom's per-tile-column
+// upscaling), loop restoration (Wiener and self-guided, in stripes that
+// read the deblocked rows around them) and film grain synthesis (cv2's
+// pixels carry the grain libaom adds).  Pixels are uint16.
 //
-// What it refuses, naming the tool: loop restoration, superres, film
-// grain, a block that uses a palette, intra block copy, bit depths above
-// 8, several operating points or layers, frames that are not one shown
-// key frame.  As libaom (cv2's AV1 decoder) it refuses an unsized OBU, an
-// OBU whose trailing bits are missing, and a tile whose data do not end
-// where its symbols do.  It never returns part of an image.
+// What it refuses, naming the tool: a block that uses a palette, intra
+// block copy, bit depths above 8, several operating points or layers,
+// frames that are not one shown key frame.  As libaom (cv2's AV1 decoder)
+// it refuses an unsized OBU, an OBU whose trailing bits are missing, a
+// tile whose data do not end where its symbols do, and film grain
+// scaling points that do not increase.  It never returns part of an
+// image.
 //
 // C interface:
 //   av1_probe(data, len, info, msg, msg_len)
-//     info[0..9] = width, height, subsampling x, y, monochrome, bit depth,
-//     colour range, matrix coefficients, colour primaries, transfer
+//     info[0..17] = width (upscaled), height, subsampling x, y,
+//     monochrome, bit depth, colour range, matrix coefficients, colour
+//     primaries, transfer, the restoration type of Y, U, V (0 none, 1
+//     Wiener, 2 self-guided, 3 switchable), the superres denominator (8
+//     without), apply_grain, the superblock size, the tile columns, the
+//     coded width
 //   av1_decode(data, len, y, u, v, msg, msg_len)
 //     planes of width x height (y) and the subsampled size (u, v; unused
 //     for a monochrome stream), row-major.
 // Both return 0, or 1 with the reason in msg.
 
 #include <algorithm>
+#include <array>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -95,6 +105,13 @@ enum { ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT };
 enum { SEG_LVL_ALT_Q = 0, SEG_LVL_ALT_LF_Y_V = 1, SEG_LVL_REF_FRAME = 5,
        SEG_LVL_SKIP = 6, SEG_LVL_MAX = 8 };
 constexpr int MAX_SEGMENTS = 8, MAX_LOOP_FILTER = 63;
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+constexpr int SUPERRES_NUM = 8, SUPERRES_DENOM_MIN = 9;
+constexpr int SGRPROJ_RST_BITS = 4, SGRPROJ_PRJ_BITS = 7,
+              SGRPROJ_MTABLE_BITS = 20, SGRPROJ_RECIP_BITS = 12,
+              SGRPROJ_SGR_BITS = 8, SGRPROJ_PRJ_SUBEXP_K = 4;
+const int kRemapLrType[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER,
+                             RESTORE_SGRPROJ};
 
 const uint8_t kWide4[22] = {1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8, 16, 16, 16, 32,
                             32, 1, 4, 2, 8, 4, 16};
@@ -367,6 +384,7 @@ struct Cdfs {
   uint16_t base_eob[5][2][4][4];
   uint16_t base[5][2][42][5];
   uint16_t br[5][2][21][5];
+  uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
 
   void init(int base_q_idx) {
 #define COPY(dst, src) std::memcpy(dst, src, sizeof(dst))
@@ -409,6 +427,9 @@ struct Cdfs {
     COPY(base_eob, Default_Coeff_Base_Eob_Cdf[q]);
     COPY(base, Default_Coeff_Base_Cdf[q]);
     COPY(br, Default_Coeff_Br_Cdf[q]);
+    COPY(restoration_type, Default_Restoration_Type_Cdf);
+    COPY(use_wiener, Default_Use_Wiener_Cdf);
+    COPY(use_sgrproj, Default_Use_Sgrproj_Cdf);
 #undef COPY
   }
 };
@@ -695,6 +716,27 @@ struct Plane {
   uint16_t get(int y, int x) const { return px[size_t(y) * stride + x]; }
 };
 
+// A restoration unit (spec 5.11.58): its type, the Wiener taps of each
+// pass (0 vertical, 1 horizontal) or the self-guided set and weights.
+struct LrUnit {
+  int type = RESTORE_NONE;
+  int wiener[2][3] = {{0}};
+  int sgr_set = 0, sgr_xqd[2] = {0};
+};
+
+// film_grain_params (spec 5.9.30)
+struct FilmGrain {
+  int apply = 0, seed = 0;
+  int num_y = 0, num_cb = 0, num_cr = 0;
+  int y_pts[14][2] = {{0}}, cb_pts[10][2] = {{0}}, cr_pts[10][2] = {{0}};
+  int chroma_from_luma = 0, scaling_shift = 8, ar_lag = 0;
+  int ar_y[24] = {0}, ar_cb[25] = {0}, ar_cr[25] = {0};
+  int ar_shift = 6, grain_scale_shift = 0;
+  int cb_mult = 0, cb_luma_mult = 0, cb_offset = 0;
+  int cr_mult = 0, cr_luma_mult = 0, cr_offset = 0;
+  int overlap = 0, clip_restricted = 0;
+};
+
 struct Decoder {
   // sequence header
   int seq_profile = 0, reduced = 0;
@@ -739,6 +781,14 @@ struct Decoder {
   int tile_size_bytes = 4;
   bool have_frame = false, frame_done = false;
   int next_tile = 0;
+  // superres: frame_w is the coded (downscaled) width
+  int upscaled_w = 0, superres_denom = SUPERRES_NUM;
+  // loop restoration: per plane the frame's type, the unit size and the
+  // units' types and coefficients
+  int lr_frame_type[3] = {RESTORE_NONE, RESTORE_NONE, RESTORE_NONE};
+  int lr_size[3] = {0}, lr_rows[3] = {0}, lr_cols[3] = {0};
+  std::vector<LrUnit> lr_units[3];
+  FilmGrain grain;
 
   // the frame
   Plane cur[3];
@@ -760,6 +810,7 @@ struct Decoder {
   bool read_deltas = false;
   std::vector<uint8_t> above_level[3], above_dc[3], left_level[3], left_dc[3];
   uint8_t block_decoded[3][34][34];   // [-1..32] offset by 1
+  int ref_lr_wiener[3][2][3] = {{{0}}}, ref_sgr_xqd[3][2] = {{0}};
 
   // block state
   int mi_row = 0, mi_col = 0, mi_size = 0, has_chroma = 0;
@@ -939,14 +990,15 @@ struct Decoder {
       frame_w = max_w;
       frame_h = max_h;
     }
-    if (enable_superres && r.f(1)) refuse("superres");
-    if (int64_t(frame_w) * frame_h > (int64_t(1) << 30))   // cv2's limit
-      fail("a " + std::to_string(frame_w) + "x" + std::to_string(frame_h) +
+    superres_params(r);
+    if (int64_t(upscaled_w) * frame_h > (int64_t(1) << 30))   // cv2's limit
+      fail("a " + std::to_string(upscaled_w) + "x" + std::to_string(frame_h) +
            " frame, larger than cv2 reads");
     mi_cols = 2 * ((frame_w + 7) >> 3);
     mi_rows = 2 * ((frame_h + 7) >> 3);
     if (r.f(1)) { r.f(16); r.f(16); }       // render size
-    if (allow_screen_content_tools && r.f(1)) refuse("intra block copy");
+    if (allow_screen_content_tools && upscaled_w == frame_w && r.f(1))
+      refuse("intra block copy");
     // disable_frame_end_update_cdf
     if (!reduced && !disable_cdf_update) r.f(1);
     tile_info(r);
@@ -973,16 +1025,123 @@ struct Decoder {
     }
     loop_filter_params(r);
     cdef_params(r);
-    if (!coded_lossless && enable_restoration) {
-      for (int p = 0; p < num_planes; ++p)
-        if (r.f(2)) refuse("loop restoration");
-    }
+    lr_params(r);
     tx_mode = coded_lossless ? ONLY_4X4
               : r.f(1)       ? TX_MODE_SELECT
                              : TX_MODE_LARGEST;
     reduced_tx_set = r.f(1);
-    if (film_grain_params_present && r.f(1)) refuse("film grain");
+    if (film_grain_params_present) film_grain_params(r);
     have_frame = true;
+  }
+
+  // spec 5.9.8: the coded width from the upscaled one
+  void superres_params(BitReader& r) {
+    superres_denom = SUPERRES_NUM;
+    if (enable_superres && r.f(1)) superres_denom = r.f(3) + SUPERRES_DENOM_MIN;
+    upscaled_w = frame_w;
+    if (superres_denom != SUPERRES_NUM) {
+      const int min_w = std::min(16, upscaled_w);
+      frame_w = std::max(
+          min_w, static_cast<int>((int64_t(upscaled_w) * SUPERRES_NUM +
+                                   superres_denom / 2) / superres_denom));
+    }
+  }
+
+  // spec 5.9.20
+  void lr_params(BitReader& r) {
+    for (int& t : lr_frame_type) t = RESTORE_NONE;
+    const bool all_lossless = coded_lossless && frame_w == upscaled_w;
+    if (all_lossless || !enable_restoration) return;
+    bool uses_lr = false, uses_chroma_lr = false;
+    for (int p = 0; p < num_planes; ++p) {
+      lr_frame_type[p] = kRemapLrType[r.f(2)];
+      if (lr_frame_type[p] != RESTORE_NONE) {
+        uses_lr = true;
+        uses_chroma_lr |= p > 0;
+      }
+    }
+    if (!uses_lr) return;
+    int shift = r.f(1);
+    if (use_128) ++shift;
+    else if (shift) shift += r.f(1);
+    lr_size[0] = 256 >> (2 - shift);
+    const int uv_shift = ssx && ssy && uses_chroma_lr ? r.f(1) : 0;
+    lr_size[1] = lr_size[2] = lr_size[0] >> uv_shift;
+    for (int p = 0; p < num_planes; ++p) {
+      if (lr_frame_type[p] == RESTORE_NONE) continue;
+      const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      lr_rows[p] = count_units(lr_size[p], (frame_h + sy) >> sy);
+      lr_cols[p] = count_units(lr_size[p], (upscaled_w + sx) >> sx);
+      lr_units[p].assign(size_t(lr_rows[p]) * lr_cols[p], LrUnit());
+    }
+  }
+
+  static int count_units(int unit, int size) {
+    return std::max((size + (unit >> 1)) / unit, 1);
+  }
+
+  // spec 5.9.30 (a key frame: no grain from a reference), with libaom's
+  // refusals of what the specification forbids
+  void film_grain_params(BitReader& r) {
+    FilmGrain& g = grain;
+    g = FilmGrain();
+    g.apply = r.f(1);
+    if (!g.apply) return;
+    g.seed = r.f(16);
+    auto points = [&](int (*pts)[2], int n, const char* what) {
+      for (int i = 0; i < n; ++i) {
+        pts[i][0] = r.f(8);
+        pts[i][1] = r.f(8);
+        if (i && pts[i][0] <= pts[i - 1][0])
+          fail(std::string("the AV1 stream's film grain ") + what +
+               " points do not increase (cv2 refuses it)");
+      }
+    };
+    g.num_y = r.f(4);
+    if (g.num_y > 14)
+      fail("the AV1 stream has more than 14 film grain luma points "
+           "(cv2 refuses it)");
+    points(g.y_pts, g.num_y, "luma");
+    g.chroma_from_luma = mono ? 0 : r.f(1);
+    if (!(mono || g.chroma_from_luma || (ssx && ssy && g.num_y == 0))) {
+      g.num_cb = r.f(4);
+      if (g.num_cb > 10)
+        fail("the AV1 stream has more than 10 film grain cb points "
+             "(cv2 refuses it)");
+      points(g.cb_pts, g.num_cb, "cb");
+      g.num_cr = r.f(4);
+      if (g.num_cr > 10)
+        fail("the AV1 stream has more than 10 film grain cr points "
+             "(cv2 refuses it)");
+      points(g.cr_pts, g.num_cr, "cr");
+      if (ssx && ssy && (g.num_cb == 0) != (g.num_cr == 0))
+        fail("the AV1 stream's 4:2:0 film grain has points for one chroma "
+             "plane only (cv2 refuses it)");
+    }
+    g.scaling_shift = r.f(2) + 8;
+    g.ar_lag = r.f(2);
+    const int num_pos_luma = 2 * g.ar_lag * (g.ar_lag + 1);
+    const int num_pos_chroma = num_pos_luma + (g.num_y ? 1 : 0);
+    if (g.num_y)
+      for (int i = 0; i < num_pos_luma; ++i) g.ar_y[i] = int(r.f(8)) - 128;
+    if (g.chroma_from_luma || g.num_cb)
+      for (int i = 0; i < num_pos_chroma; ++i) g.ar_cb[i] = int(r.f(8)) - 128;
+    if (g.chroma_from_luma || g.num_cr)
+      for (int i = 0; i < num_pos_chroma; ++i) g.ar_cr[i] = int(r.f(8)) - 128;
+    g.ar_shift = r.f(2) + 6;
+    g.grain_scale_shift = r.f(2);
+    if (g.num_cb) {
+      g.cb_mult = r.f(8);
+      g.cb_luma_mult = r.f(8);
+      g.cb_offset = r.f(9);
+    }
+    if (g.num_cr) {
+      g.cr_mult = r.f(8);
+      g.cr_luma_mult = r.f(8);
+      g.cr_offset = r.f(9);
+    }
+    g.overlap = r.f(1);
+    g.clip_restricted = r.f(1);
   }
 
   static int tile_log2(int blk, int target) {
@@ -1241,6 +1400,11 @@ struct Decoder {
       std::fill(above_dc[p].begin(), above_dc[p].end(), 0);
     }
     for (int& d : delta_lf) d = 0;
+    for (int p = 0; p < num_planes; ++p)
+      for (int pass = 0; pass < 2; ++pass) {
+        ref_sgr_xqd[p][pass] = Sgrproj_Xqd_Mid[pass];
+        for (int i = 0; i < 3; ++i) ref_lr_wiener[p][pass][i] = Wiener_Taps_Mid[i];
+      }
     const int sb4 = use_128 ? 32 : 16;
     for (int r = mi_row_start; r < mi_row_end; r += sb4) {
       for (int p = 0; p < num_planes; ++p) {
@@ -1257,12 +1421,93 @@ struct Decoder {
             cdef_at(r + 16, c + 16) = -1;
         }
         clear_block_decoded(r, c, sb4);
+        read_lr(r, c, sb4);
         decode_partition(r, c, use_128 ? BLOCK_128X128 : BLOCK_64X64);
       }
     }
     if (!sym.padding_ok())
       fail("the AV1 stream's tile data do not end where its symbols do "
            "(cv2 refuses it)");
+  }
+
+  // spec 5.11.57: the restoration units whose top left corner lies in
+  // the superblock (in upscaled units under superres)
+  void read_lr(int r, int c, int sb4) {
+    for (int p = 0; p < num_planes; ++p) {
+      if (lr_frame_type[p] == RESTORE_NONE) continue;
+      const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      const int unit = lr_size[p];
+      const int row0 = (r * (4 >> sy) + unit - 1) / unit;
+      const int row1 = std::min(lr_rows[p], ((r + sb4) * (4 >> sy) + unit - 1) / unit);
+      const bool scaled = upscaled_w != frame_w;   // libaom's test
+      const int num = (4 >> sx) * (scaled ? superres_denom : SUPERRES_NUM);
+      const int den = unit * SUPERRES_NUM;
+      const int col0 = (c * num + den - 1) / den;
+      const int col1 = std::min(lr_cols[p], ((c + sb4) * num + den - 1) / den);
+      for (int y = row0; y < row1; ++y)
+        for (int x = col0; x < col1; ++x)
+          read_lr_unit(p, lr_units[p][size_t(y) * lr_cols[p] + x]);
+    }
+  }
+
+  void read_lr_unit(int p, LrUnit& u) {
+    const int ft = lr_frame_type[p];
+    if (ft == RESTORE_WIENER)
+      u.type = sym.read(cdf.use_wiener, 2) ? RESTORE_WIENER : RESTORE_NONE;
+    else if (ft == RESTORE_SGRPROJ)
+      u.type = sym.read(cdf.use_sgrproj, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+    else
+      u.type = sym.read(cdf.restoration_type, 3);
+    if (u.type == RESTORE_WIENER) {
+      for (int pass = 0; pass < 2; ++pass) {
+        u.wiener[pass][0] = 0;
+        for (int j = p ? 1 : 0; j < 3; ++j) {
+          const int v = signed_subexp(Wiener_Taps_Min[j], Wiener_Taps_Max[j] + 1,
+                                      Wiener_Taps_K[j], ref_lr_wiener[p][pass][j]);
+          u.wiener[pass][j] = ref_lr_wiener[p][pass][j] = v;
+        }
+      }
+    } else if (u.type == RESTORE_SGRPROJ) {
+      u.sgr_set = sym.literal(4);
+      for (int i = 0; i < 2; ++i) {
+        const int radius = Sgr_Params[u.sgr_set][i];
+        const int lo = Sgrproj_Xqd_Min[i], hi = Sgrproj_Xqd_Max[i];
+        int v = 0;
+        if (radius)
+          v = signed_subexp(lo, hi + 1, SGRPROJ_PRJ_SUBEXP_K, ref_sgr_xqd[p][i]);
+        else if (i == 1)
+          v = clip3(lo, hi, (1 << SGRPROJ_PRJ_BITS) - ref_sgr_xqd[p][0]);
+        u.sgr_xqd[i] = ref_sgr_xqd[p][i] = v;
+      }
+    }
+  }
+
+  // decode_signed_subexp_with_ref_bool and what it calls (spec 5.11.58)
+  int signed_subexp(int low, int high, int k, int ref) {
+    const int mx = high - low, r = ref - low;
+    const int v = subexp(mx, k);
+    const int x = (r << 1) <= mx ? inverse_recenter(r, v)
+                                 : mx - 1 - inverse_recenter(mx - 1 - r, v);
+    return x + low;
+  }
+  int subexp(int num_syms, int k) {
+    int i = 0, mk = 0;
+    while (true) {
+      const int b2 = i ? k + i - 1 : k, a = 1 << b2;
+      if (num_syms <= mk + 3 * a) return ns(num_syms - mk) + mk;
+      if (!sym.literal(1)) return sym.literal(b2) + mk;
+      ++i;
+      mk += a;
+    }
+  }
+  int ns(int n) {
+    const int w = floor_log2(n) + 1, m = (1 << w) - n;
+    const int v = sym.literal(w - 1);
+    return v < m ? v : (v << 1) - m + sym.literal(1);
+  }
+  static int inverse_recenter(int r, int v) {
+    if (v > 2 * r) return v;
+    return (v & 1) ? r - ((v + 1) >> 1) : r + (v >> 1);
   }
 
   int8_t& cdef_at(int r, int c) {
@@ -2627,6 +2872,411 @@ struct Decoder {
       }
   }
 
+  // The stages after the tiles: deblocking, CDEF, superres, loop
+  // restoration, film grain.
+  void post_filters() {
+    loop_filter();
+    bool lr = false;
+    for (int p = 0; p < num_planes; ++p) lr |= lr_frame_type[p] != RESTORE_NONE;
+    Plane deb[3];
+    if (lr)
+      for (int p = 0; p < num_planes; ++p) deb[p] = cur[p];
+    cdef();
+    if (upscaled_w != frame_w)
+      for (int p = 0; p < num_planes; ++p) {
+        cur[p] = upscale(cur[p], p);
+        if (lr) deb[p] = upscale(deb[p], p);
+      }
+    if (lr) restore(deb);
+    if (grain.apply) add_grain();
+  }
+
+  // -------------------------------------------------------------------------
+  // Superres (spec 7.16), as libaom upscales: each tile column on its own
+  // (av1_upscale_normative_rows), its start position carried from the
+  // column before, the frame's left and right edges extended; a column
+  // reads its neighbours' pixels across its inner edges.  The coded plane
+  // is read up to its 8-aligned width.
+
+  Plane upscale(const Plane& src, int p) const {
+    const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+    const int down_w = (frame_w + sx) >> sx, up_w = (upscaled_w + sx) >> sx;
+    const int rows = (frame_h + sy) >> sy;
+    Plane dst;
+    dst.stride = up_w;
+    dst.rows = rows;
+    dst.px.assign(size_t(up_w) * rows, 0);
+    const int32_t step = ((down_w << 14) + up_w / 2) / up_w;
+    const int err = up_w * step - (down_w << 14);
+    int32_t x0 = static_cast<int32_t>(
+        static_cast<uint32_t>((-((up_w - down_w) << 13) + up_w / 2) / up_w +
+                              (1 << 7) - err / 2) & ((1u << 14) - 1));
+    for (int t = 0; t < tile_cols; ++t) {
+      const int dx0 = mi_col_starts[t] << (2 - sx);
+      const int dx1 = mi_col_starts[t + 1] << (2 - sx);
+      const int ux0 = dx0 * superres_denom / SUPERRES_NUM;
+      const int ux1 = t == tile_cols - 1 ? up_w
+                                         : dx1 * superres_denom / SUPERRES_NUM;
+      const int lo = t == 0 ? 0 : -(1 << 30);
+      const int hi = t == tile_cols - 1 ? dx1 - 1 : (1 << 30);
+      for (int y = 0; y < rows; ++y) {
+        const uint16_t* row = &src.px[size_t(y) * src.stride];
+        uint16_t* out = &dst.px[size_t(y) * dst.stride];
+        int32_t pos = x0;
+        for (int x = ux0; x < ux1; ++x, pos += step) {
+          const int base = dx0 + (pos >> 14) - 4;
+          const int16_t* f = Upscale_Filter[(pos & ((1 << 14) - 1)) >> 8];
+          int sum = 0;
+          for (int k = 0; k < 8; ++k)
+            sum += row[clip3(lo, hi, base + k)] * f[k];
+          out[x] = static_cast<uint16_t>(clip3(0, 255, round2(sum, 7)));
+        }
+      }
+      x0 += (ux1 - ux0) * step - ((dx1 - dx0) << 14);
+    }
+    return dst;
+  }
+
+  // -------------------------------------------------------------------------
+  // Loop restoration (spec 7.17): cur holds the CDEF output, deb the
+  // deblocked frame before CDEF (both upscaled).  Each stripe of 64 luma
+  // rows, 8 rows up, reads its own rows from cur and up to 2 rows above
+  // and below it from deb; rows and columns clamp to the plane.  Filtered
+  // one stripe of one unit at a time.
+
+  void restore(const Plane* deb) {
+    for (int p = 0; p < num_planes; ++p) {
+      if (lr_frame_type[p] == RESTORE_NONE) continue;
+      const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      const int pw = (upscaled_w + sx) >> sx, ph = (frame_h + sy) >> sy;
+      const int unit = lr_size[p], sh = 64 >> sy, off = 8 >> sy;
+      const Plane cdef_out = cur[p];
+      for (int s = 0; s * sh - off < ph; ++s) {
+        const int start = s * sh - off, end = start + sh - 1;
+        const int y0 = std::max(0, start), y1 = std::min(ph, end + 1);
+        const int ur = std::min(lr_rows[p] - 1, (y0 + off) / unit);
+        for (int uc = 0; uc < lr_cols[p]; ++uc) {
+          const LrUnit& u = lr_units[p][size_t(ur) * lr_cols[p] + uc];
+          if (u.type == RESTORE_NONE) continue;
+          const int x0 = uc * unit;
+          const int x1 = uc == lr_cols[p] - 1 ? pw : x0 + unit;
+          // the source window: 3 pixels around the block
+          const int w = x1 - x0, h = y1 - y0, ww = w + 6;
+          std::vector<int> win(size_t(ww) * (h + 6));
+          for (int i = 0; i < h + 6; ++i) {
+            int y = clip3(0, ph - 1, y0 + i - 3);
+            const Plane* from = &cdef_out;
+            if (y < start) {
+              y = std::max(start - 2, y);
+              from = &deb[p];
+            } else if (y > end) {
+              y = std::min(end + 2, y);
+              from = &deb[p];
+            }
+            for (int j = 0; j < ww; ++j)
+              win[size_t(i) * ww + j] = from->get(y, clip3(0, pw - 1, x0 + j - 3));
+          }
+          if (u.type == RESTORE_WIENER)
+            wiener(u, win.data(), ww, w, h, p, x0, y0);
+          else
+            self_guided(u, win.data(), ww, w, h, p, x0, y0);
+        }
+      }
+    }
+  }
+
+  // spec 7.17.4 at 8 bits: InterRound0 3, InterRound1 11
+  void wiener(const LrUnit& u, const int* win, int ww, int w, int h, int p,
+              int x0, int y0) {
+    int f[2][7];
+    for (int pass = 0; pass < 2; ++pass) {
+      f[pass][3] = 128;
+      for (int i = 0; i < 3; ++i) {
+        f[pass][i] = f[pass][6 - i] = u.wiener[pass][i];
+        f[pass][3] -= 2 * u.wiener[pass][i];
+      }
+    }
+    const int offset = 1 << (8 + 7 - 3 - 1), limit = (1 << (8 + 1 + 7 - 3)) - 1;
+    std::vector<int> mid(size_t(h + 6) * w);
+    for (int r = 0; r < h + 6; ++r)
+      for (int c = 0; c < w; ++c) {
+        int sum = 0;
+        for (int t = 0; t < 7; ++t) sum += f[1][t] * win[size_t(r) * ww + c + t];
+        mid[size_t(r) * w + c] = clip3(-offset, limit - offset, round2(sum, 3));
+      }
+    for (int r = 0; r < h; ++r)
+      for (int c = 0; c < w; ++c) {
+        int sum = 0;
+        for (int t = 0; t < 7; ++t) sum += f[0][t] * mid[size_t(r + t) * w + c];
+        *cur[p].at(y0 + r, x0 + c) = static_cast<uint16_t>(clip3(0, 255, round2(sum, 11)));
+      }
+  }
+
+  // spec 7.17.3: box filters of radius 2 (A and B on every other row) and
+  // 1, then the projection
+  void self_guided(const LrUnit& u, const int* win, int ww, int w, int h,
+                   int p, int x0, int y0) {
+    std::vector<int> flt[2];
+    for (int pass = 0; pass < 2; ++pass) {
+      const int r = Sgr_Params[u.sgr_set][pass];
+      if (r) flt[pass] = box_filter(win, ww, w, h, y0, r, Sgr_Params[u.sgr_set][2 + pass]);
+    }
+    const int w0 = u.sgr_xqd[0], w1 = u.sgr_xqd[1];
+    const int w2 = (1 << SGRPROJ_PRJ_BITS) - w0 - w1;
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
+        const int px = win[size_t(i + 3) * ww + j + 3] << SGRPROJ_RST_BITS;
+        int64_t v = int64_t(w1) * px;
+        v += int64_t(w0) * (flt[0].empty() ? px : flt[0][size_t(i) * w + j]);
+        v += int64_t(w2) * (flt[1].empty() ? px : flt[1][size_t(i) * w + j]);
+        const int o = round2(v, SGRPROJ_RST_BITS + SGRPROJ_PRJ_BITS);
+        *cur[p].at(y0 + i, x0 + j) = static_cast<uint16_t>(clip3(0, 255, o));
+      }
+  }
+
+  std::vector<int> box_filter(const int* win, int ww, int w, int h, int y0,
+                              int r, int s) const {
+    const int n = (2 * r + 1) * (2 * r + 1);
+    const int one_over_n = ((1 << SGRPROJ_RECIP_BITS) + n / 2) / n;
+    const int aw = w + 2;
+    std::vector<int> A(size_t(aw) * (h + 2)), B(A.size());
+    for (int i = -1; i <= h; ++i) {
+      if (r == 2 && !((y0 + i) & 1)) continue;     // only odd rows
+      for (int j = -1; j <= w; ++j) {
+        int a = 0, b = 0;
+        for (int dy = -r; dy <= r; ++dy)
+          for (int dx = -r; dx <= r; ++dx) {
+            const int c = win[size_t(i + 3 + dy) * ww + j + 3 + dx];
+            a += c * c;
+            b += c;
+          }
+        const int64_t pv = std::max<int64_t>(0, int64_t(a) * n - int64_t(b) * b);
+        const int z = static_cast<int>((pv * s + (1 << (SGRPROJ_MTABLE_BITS - 1))) >>
+                                       SGRPROJ_MTABLE_BITS);
+        int a2;
+        if (z >= 255) a2 = 256;
+        else if (z == 0) a2 = 1;
+        else a2 = ((z << SGRPROJ_SGR_BITS) + z / 2) / (z + 1);
+        const int64_t b2 = int64_t((1 << SGRPROJ_SGR_BITS) - a2) * b * one_over_n;
+        A[size_t(i + 1) * aw + j + 1] = a2;
+        B[size_t(i + 1) * aw + j + 1] = round2(b2, SGRPROJ_RECIP_BITS);
+      }
+    }
+    std::vector<int> F(size_t(w) * h);
+    for (int i = 0; i < h; ++i) {
+      const bool odd = (y0 + i) & 1;
+      const int shift = r == 2 && odd ? 4 : 5;
+      for (int j = 0; j < w; ++j) {
+        int a = 0, b = 0;
+        for (int dy = -1; dy <= 1; ++dy)
+          for (int dx = -1; dx <= 1; ++dx) {
+            int weight;
+            if (r == 2) weight = ((y0 + i + dy) & 1) ? (dx == 0 ? 6 : 5) : 0;
+            else weight = (dx == 0 || dy == 0) ? 4 : 3;
+            if (!weight) continue;
+            const size_t k = size_t(i + 1 + dy) * aw + j + 1 + dx;
+            a += weight * A[k];
+            b += weight * B[k];
+          }
+        const int v = a * win[size_t(i + 3) * ww + j + 3] + b;
+        F[size_t(i) * w + j] = round2(v, SGRPROJ_SGR_BITS + shift - SGRPROJ_RST_BITS);
+      }
+    }
+    return F;
+  }
+
+  // -------------------------------------------------------------------------
+  // Film grain synthesis (spec 7.18.3) at 8 bits
+
+  uint16_t random_register = 0;
+  int random_number(int bits) {
+    const uint16_t r = random_register;
+    const int bit = (r ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1;
+    random_register = static_cast<uint16_t>((r >> 1) | (bit << 15));
+    return (random_register >> (16 - bits)) & ((1 << bits) - 1);
+  }
+
+  void add_grain() {
+    const FilmGrain& g = grain;
+    const int gmin = -128, gmax = 127;
+    // the templates: luma 73x82, chroma at the subsampled size
+    std::vector<std::array<int, 82>> luma(73), chroma[2] = {
+        std::vector<std::array<int, 82>>(73), std::vector<std::array<int, 82>>(73)};
+    const int shift = 12 - 8 + g.grain_scale_shift;
+    random_register = static_cast<uint16_t>(g.seed);
+    for (auto& row : luma)
+      for (int& v : row)
+        v = g.num_y ? round2(Gaussian_Sequence[random_number(11)], shift) : 0;
+    const int ar_shift = g.ar_shift, lag = g.ar_lag;
+    if (g.num_y)
+      for (int y = 3; y < 73; ++y)
+        for (int x = 3; x < 82 - 3; ++x) {
+          int sum = 0, pos = 0;
+          for (int dr = -lag; dr <= 0; ++dr)
+            for (int dc = -lag; dc <= lag; ++dc) {
+              if (dr == 0 && dc == 0) break;
+              sum += luma[y + dr][x + dc] * g.ar_y[pos++];
+            }
+          luma[y][x] = clip3(gmin, gmax, luma[y][x] + round2(sum, ar_shift));
+        }
+    const int cw = ssx ? 44 : 82, ch = ssy ? 38 : 73;
+    const bool use[2] = {g.num_cb > 0 || g.chroma_from_luma,
+                         g.num_cr > 0 || g.chroma_from_luma};
+    const int* ar[2] = {g.ar_cb, g.ar_cr};
+    if (num_planes > 1) {
+      for (int c = 0; c < 2; ++c) {
+        random_register = static_cast<uint16_t>(g.seed ^ (c ? 0x49d8 : 0xb524));
+        for (int y = 0; y < ch; ++y)
+          for (int x = 0; x < cw; ++x)
+            chroma[c][y][x] =
+                use[c] ? round2(Gaussian_Sequence[random_number(11)], shift) : 0;
+      }
+      for (int y = 3; y < ch; ++y)
+        for (int x = 3; x < cw - 3; ++x)
+          for (int c = 0; c < 2; ++c) {
+            if (!use[c]) continue;
+            int sum = 0, pos = 0;
+            for (int dr = -lag; dr <= 0; ++dr)
+              for (int dc = -lag; dc <= lag; ++dc) {
+                if (dr == 0 && dc == 0) {
+                  if (g.num_y) {
+                    int l = 0;
+                    const int ly = ((y - 3) << ssy) + 3, lx = ((x - 3) << ssx) + 3;
+                    for (int i = 0; i <= ssy; ++i)
+                      for (int j = 0; j <= ssx; ++j) l += luma[ly + i][lx + j];
+                    sum += round2(l, ssx + ssy) * ar[c][pos];
+                  }
+                  break;
+                }
+                sum += ar[c][pos++] * chroma[c][y + dr][x + dc];
+              }
+            chroma[c][y][x] = clip3(gmin, gmax, chroma[c][y][x] + round2(sum, ar_shift));
+          }
+    }
+    // the scaling look-ups
+    int lut[3][256];
+    for (int p = 0; p < num_planes; ++p) {
+      const int (*pts)[2] = p == 0 || g.chroma_from_luma ? g.y_pts
+                            : p == 1 ? g.cb_pts : g.cr_pts;
+      const int n = p == 0 || g.chroma_from_luma ? g.num_y
+                    : p == 1 ? g.num_cb : g.num_cr;
+      if (!n) {
+        std::fill(lut[p], lut[p] + 256, 0);
+        continue;
+      }
+      for (int i = 0; i < pts[0][0]; ++i) lut[p][i] = pts[0][1];
+      for (int i = 0; i < n - 1; ++i) {
+        const int dy = pts[i + 1][1] - pts[i][1], dx = pts[i + 1][0] - pts[i][0];
+        const int64_t delta = int64_t(dy) * ((65536 + (dx >> 1)) / dx);
+        for (int x = 0; x < dx; ++x)
+          lut[p][pts[i][0] + x] = pts[i][1] + static_cast<int>((x * delta + 32768) >> 16);
+      }
+      for (int i = pts[n - 1][0]; i < 256; ++i) lut[p][i] = pts[n - 1][1];
+    }
+    // the noise stripes: 34 rows of 32x32 blocks at random offsets, their
+    // overlaps blended
+    const int w = upscaled_w, h = frame_h;
+    const int stripes = (h + 1) / 2 / 16 + 1, sw = ((w + 1) / 2 + 16) * 2 + 34;
+    std::vector<int> noise[3];
+    for (int p = 0; p < num_planes; ++p) noise[p].assign(size_t(stripes) * 34 * sw, 0);
+    auto ns = [&](int p, int stripe, int i, int x) -> int& {
+      return noise[p][(size_t(stripe) * 34 + i) * sw + x];
+    };
+    int luma_num = 0;
+    for (int y = 0; y < (h + 1) / 2; y += 16, ++luma_num) {
+      random_register = static_cast<uint16_t>(g.seed);
+      random_register ^= static_cast<uint16_t>(((luma_num * 37 + 178) & 255) << 8);
+      random_register ^= static_cast<uint16_t>((luma_num * 173 + 105) & 255);
+      for (int x = 0; x < (w + 1) / 2; x += 16) {
+        const int rnd = random_number(8);
+        const int ox = rnd >> 4, oy = rnd & 15;
+        for (int p = 0; p < num_planes; ++p) {
+          const int psx = p ? ssx : 0, psy = p ? ssy : 0;
+          const int pox = psx ? 6 + ox : 9 + ox * 2, poy = psy ? 6 + oy : 9 + oy * 2;
+          for (int i = 0; i < (34 >> psy); ++i)
+            for (int j = 0; j < (34 >> psx); ++j) {
+              int v = p == 0 ? luma[poy + i][pox + j] : chroma[p - 1][poy + i][pox + j];
+              const int at = psx ? x + j : x * 2 + j;
+              if (!psx) {
+                if (j < 2 && g.overlap && x > 0) {
+                  const int old = ns(p, luma_num, i, at);
+                  v = j == 0 ? old * 27 + v * 17 : old * 17 + v * 27;
+                  v = clip3(gmin, gmax, round2(v, 5));
+                }
+              } else if (j == 0 && g.overlap && x > 0) {
+                const int old = ns(p, luma_num, i, at);
+                v = clip3(gmin, gmax, round2(old * 23 + v * 22, 5));
+              }
+              ns(p, luma_num, i, at) = v;
+            }
+        }
+      }
+    }
+    // the noise image, the stripes' vertical overlaps blended
+    std::vector<int> img[3];
+    for (int p = 0; p < num_planes; ++p) {
+      const int psx = p ? ssx : 0, psy = p ? ssy : 0;
+      const int pw = (w + psx) >> psx, ph = (h + psy) >> psy;
+      img[p].assign(size_t(pw) * ph, 0);
+      for (int y = 0; y < ph; ++y) {
+        const int n = y >> (5 - psy), i = y - (n << (5 - psy));
+        for (int x = 0; x < pw; ++x) {
+          int v = ns(p, n, i, x);
+          if (!psy) {
+            if (i < 2 && n > 0 && g.overlap) {
+              const int old = ns(p, n - 1, i + 32, x);
+              v = i == 0 ? old * 27 + v * 17 : old * 17 + v * 27;
+              v = clip3(gmin, gmax, round2(v, 5));
+            }
+          } else if (i < 1 && n > 0 && g.overlap) {
+            const int old = ns(p, n - 1, i + 16, x);
+            v = clip3(gmin, gmax, round2(old * 23 + v * 22, 5));
+          }
+          img[p][size_t(y) * pw + x] = v;
+        }
+      }
+    }
+    // blend: chroma first, from the luma without its noise
+    const int min_v = g.clip_restricted ? 16 : 0;
+    const int max_luma = g.clip_restricted ? 235 : 255;
+    const int max_chroma = g.clip_restricted ? (matrix == 0 ? 235 : 240) : 255;
+    if (num_planes > 1) {
+      const int pw = (w + ssx) >> ssx, ph = (h + ssy) >> ssy;
+      const int mult[2] = {g.cb_mult, g.cr_mult},
+                luma_mult[2] = {g.cb_luma_mult, g.cr_luma_mult},
+                offset[2] = {g.cb_offset, g.cr_offset};
+      for (int y = 0; y < ph; ++y)
+        for (int x = 0; x < pw; ++x) {
+          const int lx = x << ssx, ly = y << ssy;
+          const int lnx = std::min(lx + 1, w - 1);
+          const int avg = ssx ? round2(cur[0].get(ly, lx) + cur[0].get(ly, lnx), 1)
+                              : cur[0].get(ly, lx);
+          for (int c = 0; c < 2; ++c) {
+            if (!use[c]) continue;
+            uint16_t& px = *cur[c + 1].at(y, x);
+            const int orig = px;
+            int merged;
+            if (g.chroma_from_luma) {
+              merged = avg;
+            } else {
+              const int combined = avg * (luma_mult[c] - 128) + orig * (mult[c] - 128);
+              merged = clip3(0, 255, (combined >> 6) + (offset[c] - 256));
+            }
+            const int n = round2(lut[c + 1][merged] * img[c + 1][size_t(y) * pw + x],
+                                 g.scaling_shift);
+            px = static_cast<uint16_t>(clip3(min_v, max_chroma, orig + n));
+          }
+        }
+    }
+    if (g.num_y)
+      for (int y = 0; y < h; ++y)
+        for (int x = 0; x < w; ++x) {
+          uint16_t& px = *cur[0].at(y, x);
+          const int n = round2(lut[0][px] * img[0][size_t(y) * w + x], g.scaling_shift);
+          px = static_cast<uint16_t>(clip3(min_v, max_luma, px + n));
+        }
+  }
+
   // -------------------------------------------------------------------------
   // OBUs
 
@@ -2715,7 +3365,7 @@ int av1_probe(const uint8_t* data, int64_t len, int32_t* info, char* msg,
   try {
     Decoder dec;
     dec.run(data, static_cast<size_t>(len), true);
-    info[0] = dec.frame_w;
+    info[0] = dec.upscaled_w;
     info[1] = dec.frame_h;
     info[2] = dec.ssx;
     info[3] = dec.ssy;
@@ -2725,6 +3375,12 @@ int av1_probe(const uint8_t* data, int64_t len, int32_t* info, char* msg,
     info[7] = dec.matrix;
     info[8] = dec.color_primaries;
     info[9] = dec.transfer;
+    for (int p = 0; p < 3; ++p) info[10 + p] = dec.lr_frame_type[p];
+    info[13] = dec.superres_denom;
+    info[14] = dec.grain.apply;
+    info[15] = dec.use_128 ? 128 : 64;
+    info[16] = dec.tile_cols;
+    info[17] = dec.frame_w;
     return 0;
   } catch (const Fail& f) {
     set_msg(msg, msg_len, f.msg);
@@ -2739,12 +3395,11 @@ int av1_decode(const uint8_t* data, int64_t len, uint16_t* y, uint16_t* u,
   try {
     Decoder dec;
     dec.run(data, static_cast<size_t>(len), false);
-    dec.loop_filter();
-    dec.cdef();
+    dec.post_filters();
     uint16_t* out[3] = {y, u, v};
     for (int p = 0; p < dec.num_planes; ++p) {
       const int sx = p ? dec.ssx : 0, sy = p ? dec.ssy : 0;
-      const int w = (dec.frame_w + sx) >> sx, h = (dec.frame_h + sy) >> sy;
+      const int w = (dec.upscaled_w + sx) >> sx, h = (dec.frame_h + sy) >> sy;
       for (int i = 0; i < h; ++i)
         std::memcpy(out[p] + size_t(i) * w, dec.cur[p].at(i, 0), w * sizeof(uint16_t));
     }

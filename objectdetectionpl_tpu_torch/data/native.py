@@ -589,17 +589,36 @@ def _gif_lzw(codes: bytes, min_code_size: int, npix: int):
     return dst, int(count)
 
 
+AV1_INFO = ("width", "height", "subsampling_x", "subsampling_y",
+            "monochrome", "bit_depth", "full_range", "matrix", "primaries",
+            "transfer", "restoration_y", "restoration_u", "restoration_v",
+            "superres_denom", "apply_grain", "superblock", "tile_cols",
+            "coded_width")
+
+
+def av1_probe(stream: bytes) -> dict:
+    """The headers of an AV1 still's OBUs, by ``csrc/av1_decode.cc``'s
+    ``av1_probe``: ``AV1_INFO`` -> value (the width is the upscaled one;
+    restoration types 0 none, 1 Wiener, 2 self-guided, 3 switchable;
+    superres_denom 8 without superres); FormatError with the tool it
+    refuses."""
+    lib = _lib_or_raise()
+    src = np.frombuffer(stream or bytes(1), np.uint8)
+    info = np.zeros(len(AV1_INFO), np.int32)
+    msg = ctypes.create_string_buffer(MSG_LEN)
+    if lib.av1_probe(_u8(src), len(stream), _i32(info), msg, MSG_LEN):
+        raise _format_error(msg)
+    return dict(zip(AV1_INFO, (int(v) for v in info)))
+
+
 def _av1(stream: bytes):
     """An AV1 still's OBUs -> ([Y, U, V] uint16 planes, or [Y] for a
     monochrome stream, and the sequence header's colour fields), by
     ``csrc/av1_decode.cc``; FormatError with the tool it refuses."""
     lib = _lib_or_raise()
     src = np.frombuffer(stream or bytes(1), np.uint8)
-    info = np.zeros(10, np.int32)
-    msg = ctypes.create_string_buffer(MSG_LEN)
-    if lib.av1_probe(_u8(src), len(stream), _i32(info), msg, MSG_LEN):
-        raise _format_error(msg)
-    w, h, sx, sy, mono = (int(v) for v in info[:5])
+    info = av1_probe(stream)
+    w, h, sx, sy, mono = (info[k] for k in AV1_INFO[:5])
     from objectdetectionpl_tpu_torch.data.formats import check_size
     check_size(w, h)
     cw, ch = (w + sx) >> sx, (h + sy) >> sy
@@ -608,10 +627,11 @@ def _av1(stream: bytes):
     u16p = ctypes.POINTER(ctypes.c_uint16)
     ptrs = [p.ctypes.data_as(u16p) for p in planes]
     ptrs += [None] * (3 - len(ptrs))
+    msg = ctypes.create_string_buffer(MSG_LEN)
     if lib.av1_decode(_u8(src), len(stream), *ptrs, msg, MSG_LEN):
         raise _format_error(msg)
-    return planes, {"subsampling": (sx, sy), "full_range": int(info[6]),
-                    "matrix": int(info[7]), "primaries": int(info[8])}
+    return planes, {"subsampling": (sx, sy), "full_range": info["full_range"],
+                    "matrix": info["matrix"], "primaries": info["primaries"]}
 
 
 def _exif_orientation(tiff: bytes) -> int:

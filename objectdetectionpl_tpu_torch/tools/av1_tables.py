@@ -1,12 +1,12 @@
 """Write ``csrc/av1_tables.h``: the AV1 decoder's default CDFs, its
-quantizer lookups and the intra tables the specification lists by value,
-read from the read-only data of libaom 3.6 (``libaom.so.3``, found in the
+quantizer lookups, the intra tables the specification lists by value and
+those of loop restoration, superres and film grain, read from the read-only data of libaom 3.6 (``libaom.so.3``, found in the
 dynamic linker's cache unless ``--lib`` names it).
 
     python -m objectdetectionpl_tpu_torch.tools.av1_tables [--lib P] [--check]
 
 Each table is found by its leading values (unique in the library's
-``.rodata``; two in ``.text``, where the compiler made them immediates)
+``.rodata``; five in ``.text``, where the compiler made them immediates)
 and read at the dimensions the specification gives.  libaom keeps a CDF
 of N symbols as N - 1 values ``32768 - x`` falling strictly to 0, then 0
 for the 32768 the specification writes, then a 0 counter, padded with
@@ -101,11 +101,19 @@ CDFS = (
      (4, 5, 2, 21, 5), 4),
 )
 
-# libaom keeps these two as immediates in its code, not as data: the
-# filter-intra mode CDF is found there all the same (four values), the
-# palette UV flag's two one-value rows are the specification's.
+# libaom keeps these as immediates in its code, not as data: the
+# filter-intra mode CDF is found there all the same (four values), and so
+# are the loop restoration CDFs, three stores in a row (the Wiener and
+# self-guided one-value rows are found in the 64 bytes after the
+# switchable row: alone they are not unique); the palette UV flag's two
+# one-value rows are the specification's.
 TEXT_CDFS = (("Default_Filter_Intra_Mode_Cdf", (8949, 12776, 17211, 29558),
-              (6,), 5),)
+              (6,), 5),
+             ("Default_Restoration_Type_Cdf", (9413, 22581), (4,), 3),
+             ("Default_Use_Wiener_Cdf", (11570,), (3,), 2,
+              "Default_Restoration_Type_Cdf"),
+             ("Default_Use_Sgrproj_Cdf", (16855,), (3,), 2,
+              "Default_Use_Wiener_Cdf"))
 SPEC_CDFS = (("Default_Palette_Uv_Mode_Cdf", ((32461,), (21488,)), 2),)
 
 # other tables: (name, C type, leading values, numpy type, count or
@@ -126,7 +134,28 @@ PLAIN = (
     # chroma, the transform sizes one after another (libaom's layout)
     ("Quantizer_Matrix", "uint8_t", (32, 43, 73, 97, 43, 67, 94, 110),
      np.uint8, (15, 2, 3344)),
+    # the self-guided filter's radii and scale factors s, libaom's
+    # {r0, r1, s0, s1} a set (-1 where the radius is 0)
+    ("Sgr_Params", "int16_t", (2, 1, 140, 3236, 2, 1, 112, 2158), np.int32,
+     (16, 4)),
+    # superres: 64 phases of 8 taps
+    ("Upscale_Filter", "int16_t", (0, 0, 0, 128, 0, 0, 0, 0, 0, 0, -1, 128),
+     np.int16, (64, 8)),
+    ("Gaussian_Sequence", "int16_t", (56, 568, -180, 172, 124, -84, 172, -64),
+     np.int32, 2048),
 )
+
+# The Wiener and self-guided coefficient limits are macros in libaom: its
+# data holds them only as vector constants -- the default Wiener filter
+# {3, -7, 15, 106, 15, -7, 3} (the middle values and 128 less twice their
+# sum), taps 0 and 1's minima and maxima {-5, -23, 10, 8}, and the
+# self-guided {min0, min1, max0, max1} -- each found by its values and
+# held to the specification's tables; tap 2's limits and the subexp k are
+# the specification's.
+WIENER_MIN, WIENER_MAX, WIENER_K = (-5, -23, -17), (10, 8, 46), (1, 2, 3)
+LIMITS = ("Wiener_Taps_Mid", "Wiener_Taps_Min", "Wiener_Taps_Max",
+          "Wiener_Taps_K", "Sgrproj_Xqd_Mid", "Sgrproj_Xqd_Min",
+          "Sgrproj_Xqd_Max")
 
 
 class TableError(ValueError):
@@ -244,8 +273,17 @@ def read_tables(path: str) -> dict:
                        2 * int(np.prod(dims))) + 2 * before
         raw = _stored(lib, at, dims, layout)
         tables[name] = _rows(raw, dims, nsym, name)
-    for name, lead, dims, nsym in TEXT_CDFS:
-        at = _find_one(lib, text, _icdf(lead), name)
+    found = {}
+    for name, lead, dims, nsym, *after in TEXT_CDFS:
+        if after:
+            start = found[after[0]]
+            at = lib.find(_icdf(lead), start + 1, start + 64)
+            if at < 0:
+                raise TableError(f"{name}: not within 64 bytes of "
+                                 f"{after[0]}")
+        else:
+            at = _find_one(lib, text, _icdf(lead), name)
+        found[name] = at
         raw = np.zeros(dims, np.uint16)
         raw[:nsym - 1] = np.frombuffer(lib, np.uint16, nsym - 1, at)
         tables[name] = _rows(raw, dims, nsym, name)
@@ -268,6 +306,7 @@ def read_tables(path: str) -> dict:
             raise TableError(f"{name}: {len(copies)} different tables")
         tables[name] = np.frombuffer(copies.pop(), dt).astype(
             np.int64).reshape(shape)
+    tables.update(_restoration_limits(lib, ro))
     # the formulas against the library's cospi / sinpi arrays (cos_bit 12)
     cos = [round(4096 * math.cos(i * math.pi / 128)) for i in range(64)]
     _find_one(lib, ro, np.array(cos, np.int32).tobytes(), "cospi")
@@ -275,6 +314,30 @@ def read_tables(path: str) -> dict:
         i * math.pi / 9)) for i in range(1, 5)]
     _find_one(lib, ro, np.array(sinpi, np.int32).tobytes(), "sinpi")
     return tables
+
+
+def _restoration_limits(lib: bytes, ro) -> dict:
+    """LIMITS from the library's vector constants (see WIENER_MIN)."""
+    def row(lead, n):
+        at = _find_one(lib, ro, np.array(lead, np.int32).tobytes(), str(lead))
+        return np.frombuffer(lib, np.int32, n, at).astype(np.int64)
+
+    wiener = row((3, -7, 15, 106), 8)
+    if wiener[3] != 128 - 2 * wiener[:3].sum() or any(
+            wiener[4:7] != wiener[2::-1]):
+        raise TableError(f"the default Wiener filter {wiener.tolist()}")
+    if row((-5, -23, 10, 8), 4).tolist() != [*WIENER_MIN[:2],
+                                             *WIENER_MAX[:2]]:
+        raise TableError("the Wiener taps' limits differ")
+    sgr = row((-96, -32, 31, 95), 4)
+    lo, hi = sgr[:2], sgr[2:]
+    return {"Wiener_Taps_Mid": wiener[:3],
+            "Wiener_Taps_Min": np.array(WIENER_MIN),
+            "Wiener_Taps_Max": np.array(WIENER_MAX),
+            "Wiener_Taps_K": np.array(WIENER_K),
+            # set_default_sgrproj: (min + max) / 2, truncated
+            "Sgrproj_Xqd_Mid": np.trunc((lo + hi) / 2).astype(np.int64),
+            "Sgrproj_Xqd_Min": lo, "Sgrproj_Xqd_Max": hi}
 
 
 def _c_array(name: str, ctype: str, a: np.ndarray) -> str:
@@ -302,6 +365,8 @@ def render(tables: dict) -> str:
         lines.append(_c_array(name, "uint16_t", tables[name]))
     for name, ctype, *_ in PLAIN:
         lines.append(_c_array(name, ctype, tables[name]))
+    for name in LIMITS:
+        lines.append(_c_array(name, "int8_t", tables[name]))
     return "\n".join(lines)
 
 

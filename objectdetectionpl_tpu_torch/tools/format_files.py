@@ -97,7 +97,8 @@ KINDS = ("jpeg", "jpeg_cmyk", "jpeg_ycck", "jpeg_arithmetic",
          "tiff_signed", "tiff_logluv", "tiff_logl", "tiff_logluv24",
          "tiff_logluv24_tiles", "tiff_g3_cut", "j2k_part2", "jp2_part2",
          "avif_cv2", "avif_pillow", "avif_444", "avif_422", "avif_400",
-         "avif_lossless", "avif_tiles_sb128", "avif_odd", "avif_500x375")
+         "avif_lossless", "avif_tiles_sb128", "avif_odd", "avif_500x375",
+         "avif_wiener", "avif_sgrproj", "avif_superres", "avif_film_grain")
 COMMITTED = {"jpeg": TESTDATA / BASE,
              "jpeg_cmyk": TESTDATA / UNSUPPORTED[0],
              "jpeg_ycck": FORMATS / "ycck_420_q85_160x120.jpg",
@@ -132,7 +133,11 @@ COMMITTED = {"jpeg": TESTDATA / BASE,
              "avif_lossless": FORMATS / "avif_lossless_80x60.avif",
              "avif_tiles_sb128": FORMATS / "avif_tiles_sb128_160x120.avif",
              "avif_odd": FORMATS / "avif_q60_167x125.avif",
-             "avif_500x375": FORMATS / "avif_q50_500x375.avif"}
+             "avif_500x375": FORMATS / "avif_q50_500x375.avif",
+             "avif_wiener": FORMATS / "avif_wiener_160x120.avif",
+             "avif_sgrproj": FORMATS / "avif_sgrproj_sb128_160x120.avif",
+             "avif_superres": FORMATS / "avif_superres_d16_tiles2_288x64.avif",
+             "avif_film_grain": FORMATS / "avif_film_grain1_160x120.avif"}
 AVIF_KINDS = tuple(k for k in KINDS if k.startswith("avif"))
 
 
@@ -1147,6 +1152,174 @@ def avif_grid_bytes(obus: bytes, w: int, h: int, av1c: bytes, rows: int,
 
     start = len(ftyp) + len(meta(0)) + 8
     return ftyp + meta(start) + heif_box(b"mdat", obus)
+
+
+# libaom 3.6's aom_codec_enc_cfg_t as unsigned ints: the fields the
+# encoder below sets, and default values it checks (the library's layout)
+_AOM_CFG = {"g_profile": 2, "g_w": 3, "g_h": 4, "g_limit": 5,
+            "rc_superres_mode": 19, "rc_superres_denominator": 20,
+            "rc_superres_kf_denominator": 21, "rc_end_usage": 24,
+            "monochrome": 52}
+_AOM_CFG_DEFAULTS = {3: 320, 4: 240, 20: 8, 21: 8, 34: 256, 36: 63,
+                     48: 9999}
+AOM_ENCODER_ABI = 25        # AOM_ENCODER_ABI_VERSION of libaom 3.6
+# the subsamplings as aom_img_fmt_t and the profile each needs
+_AOM_FORMATS = {"4:2:0": (0x102, 0), "4:0:0": (0x102, 0),
+                "4:4:4": (0x106, 1), "4:2:2": (0x105, 2)}
+
+
+def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
+               options=None, lib=None) -> bytes:
+    """One key frame of 8-bit ``planes`` ([Y, U, V] uint8 at the
+    subsampling's sizes, or [Y] for 4:0:0) through the system libaom.so.3
+    (3.6, found as ``tools/av1_tables.py`` finds it unless ``lib`` names
+    it) by ctypes: its OBUs.  Good-quality usage at a constant quantizer
+    (``options`` take aom_codec_set_option's keys: ``cq-level``,
+    ``cpu-used``, ``enable-restoration``, ``tile-columns``, ``sb-size``,
+    ``film-grain-test``, ...); ``superres`` a denominator 9..16 of fixed
+    superres (rc_superres_mode 1), which no key reaches.  RuntimeError
+    where the library is not libaom 3.6's layout."""
+    import ctypes
+    from objectdetectionpl_tpu_torch.tools.av1_tables import find_libaom
+    path = lib or find_libaom()
+    if path is None:
+        raise RuntimeError("libaom.so.3 is not in the dynamic linker's cache")
+    aom = ctypes.CDLL(path)
+    vp, cp = ctypes.c_void_p, ctypes.c_char_p
+    aom.aom_codec_av1_cx.restype = vp
+    aom.aom_codec_enc_config_default.argtypes = [vp, vp, ctypes.c_uint]
+    aom.aom_codec_enc_init_ver.argtypes = [vp, vp, vp, ctypes.c_long,
+                                           ctypes.c_int]
+    aom.aom_codec_set_option.argtypes = [vp, cp, cp]
+    aom.aom_img_wrap.argtypes = [vp, ctypes.c_int, ctypes.c_uint,
+                                 ctypes.c_uint, ctypes.c_uint, vp]
+    aom.aom_img_wrap.restype = vp
+    aom.aom_codec_encode.argtypes = [vp, vp, ctypes.c_int64, ctypes.c_ulong,
+                                     ctypes.c_long]
+    aom.aom_codec_get_cx_data.argtypes = [vp, vp]
+    aom.aom_codec_get_cx_data.restype = vp
+    aom.aom_codec_destroy.argtypes = [vp]
+    h, w = planes[0].shape
+    fmt, profile = _AOM_FORMATS[subsampling]
+    sx = int(subsampling in ("4:2:0", "4:0:0", "4:2:2"))
+    sy = int(subsampling in ("4:2:0", "4:0:0"))
+    cfg = (ctypes.c_uint32 * 1024)()
+    iface = aom.aom_codec_av1_cx()
+    if aom.aom_codec_enc_config_default(iface, cfg, 0) or any(
+            cfg[k] != v for k, v in _AOM_CFG_DEFAULTS.items()):
+        raise RuntimeError(f"{path}: not libaom 3.6's encoder config")
+    set_cfg = {"g_profile": profile, "g_w": w, "g_h": h, "g_limit": 1,
+               "rc_end_usage": 3, "monochrome": int(subsampling == "4:0:0")}
+    if superres is not None:
+        set_cfg.update(rc_superres_mode=1, rc_superres_denominator=superres,
+                       rc_superres_kf_denominator=superres)
+    for k, v in set_cfg.items():
+        cfg[_AOM_CFG[k]] = v
+    ctx = ctypes.create_string_buffer(1024)
+    if aom.aom_codec_enc_init_ver(ctx, iface, cfg, 0, AOM_ENCODER_ABI):
+        raise RuntimeError(f"{path}: aom_codec_enc_init_ver failed")
+    try:
+        for k, v in (options or {}).items():
+            if aom.aom_codec_set_option(ctx, k.encode(), str(v).encode()):
+                raise RuntimeError(f"libaom refuses the option {k}={v}")
+        # aom_img_wrap's layout: luma padded to the subsampling's multiple
+        # (align_image_dimension), then each chroma plane
+        aw, ah = (w + sx) >> sx << sx, (h + sy) >> sy << sy
+        pieces = [np.zeros((ah, aw), np.uint8)]
+        pieces[0][:h, :w] = planes[0]
+        for c in range(2):
+            q = np.full((ah >> sy, aw >> sx), 128, np.uint8)
+            if len(planes) > 1:
+                q[:planes[1 + c].shape[0], :planes[1 + c].shape[1]] = \
+                    planes[1 + c]
+            pieces.append(q)
+        buf = np.concatenate([q.reshape(-1) for q in pieces])
+        img = ctypes.create_string_buffer(512)
+        if not aom.aom_img_wrap(img, fmt, w, h, 1, buf.ctypes.data):
+            raise RuntimeError("aom_img_wrap failed")
+        out = b""
+        for frame, flags in ((img, 1), (None, 0)):     # force a key frame
+            if aom.aom_codec_encode(ctx, frame, 0, 1, flags):
+                raise RuntimeError("aom_codec_encode failed")
+            it = ctypes.c_void_p(0)
+            while True:
+                pkt = aom.aom_codec_get_cx_data(ctx, ctypes.byref(it))
+                if not pkt:
+                    break
+                if ctypes.c_int.from_address(pkt).value == 0:   # a frame
+                    data = ctypes.c_void_p.from_address(pkt + 8).value
+                    size = ctypes.c_size_t.from_address(pkt + 16).value
+                    out += ctypes.string_at(data, size)
+        return out
+    finally:
+        aom.aom_codec_destroy(ctx)
+
+
+def av1c_bytes(subsampling: str) -> bytes:
+    """An av1C body for an 8-bit stream of the subsampling: profile 0, 1
+    or 2 as ``aom_encode`` writes it, level 31, chroma position 0."""
+    profile = _AOM_FORMATS[subsampling][1]
+    mono = int(subsampling == "4:0:0")
+    sx = int(subsampling in ("4:2:0", "4:0:0", "4:2:2"))
+    sy = int(subsampling in ("4:2:0", "4:0:0"))
+    return bytes([0x81, profile << 5 | 31, mono << 4 | sx << 3 | sy << 2, 0])
+
+
+def _yuv(rgb: np.ndarray, subsampling: str) -> list:
+    """BT.601 full-range planes of an RGB image, chroma averaged over each
+    subsampled block (edge samples repeated)."""
+    r, g, b = (rgb[..., i].astype(np.float64) for i in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    planes = [y, (b - y) / 1.772 + 128, (r - y) / 1.402 + 128]
+    sx = int(subsampling in ("4:2:0", "4:2:2"))
+    sy = int(subsampling == "4:2:0")
+    out = [np.clip(np.rint(planes[0]), 0, 255).astype(np.uint8)]
+    h, w = y.shape
+    for c in planes[1:]:
+        c = np.pad(c, ((0, h % 2 * sy), (0, w % 2 * sx)), mode="edge")
+        c = c.reshape(c.shape[0] >> sy, 1 << sy, c.shape[1] >> sx,
+                      1 << sx).mean((1, 3))
+        out.append(np.clip(np.rint(c), 0, 255).astype(np.uint8))
+    return out
+
+
+def avif_stage_files() -> Dict[str, bytes]:
+    """The committed AVIFs of the stages after CDEF, from crops of the
+    500x375 fixture: ``aom_encode``'s 4:2:0 file whose planes take Wiener
+    units, Pillow's at speed 2 whose luma and V take self-guided units
+    (128x128 superblocks), ``aom_encode``'s superres file (denominator
+    16, two tile columns of the 64x288 crop's 144 coded columns,
+    self-guided and Wiener units) and Pillow's film-grain-test 1 file.
+    Needs Pillow's AVIF plugin and the system libaom."""
+    import io
+
+    from PIL import Image
+
+    rgb = native.decode_one(str(TESTDATA / BASE))
+
+    def pillow(img, **kw):
+        out = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(img)).save(out, format="AVIF",
+                                                        **kw)
+        return out.getvalue()
+
+    crop = rgb[100:220, 150:310]
+    wide = rgb[140:204, 100:388]
+    restoration = {"cpu-used": 4, "sb-size": "64", "enable-restoration": 1}
+    return {
+        "avif_wiener": avif_bytes(
+            aom_encode(_yuv(crop, "4:2:0"), "4:2:0",
+                       options={"cq-level": 5, **restoration}),
+            160, 120, av1c_bytes("4:2:0")),
+        "avif_sgrproj": pillow(crop, speed=2, quality=50, advanced={
+            "enable-restoration": "1", "sb-size": "128"}),
+        "avif_superres": avif_bytes(
+            aom_encode(_yuv(wide, "4:2:0"), "4:2:0", superres=16, options={
+                "cq-level": 20, "tile-columns": 1, **restoration}),
+            288, 64, av1c_bytes("4:2:0")),
+        "avif_film_grain": pillow(crop, quality=60,
+                                  advanced={"film-grain-test": "1"}),
+    }
 
 
 def write_format_files(directory) -> Dict[str, str]:

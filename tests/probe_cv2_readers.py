@@ -23,10 +23,15 @@ files the port reads as cv2 does, split by which side refuses.
 to 200 pixels a side through Pillow's AVIF encoder (libavif over aom)
 under random aom options (each tool of the decoder on or off, 64 or 128
 superblocks, delta q, adaptive quantization, quantizer matrices, tiles,
-film grain, palette, intra block copy, restoration), subsamplings,
-qualities and speeds, a quarter of them with the colr box's matrix and
-range redrawn, a tenth with 1 to 3 bits of their AV1 data flipped.  Prints how many files the port reads as cv2 does, and
-for the rest which side refuses and why.
+film grain (one of libaom's 16 test vectors), palette, intra block copy,
+restoration), subsamplings, qualities and speeds, a quarter of them with
+the colr box's matrix and range redrawn, a tenth with 1 to 3 bits of
+their AV1 data flipped; then a fifth as many superres key frames
+(denominators 9 to 16, restoration on or off, two tile columns where
+the coded width allows, a film grain test vector in a quarter) through
+the system libaom by ``tools/format_files.py::aom_encode``, boxed by
+``avif_bytes``, a tenth with bits flipped.  Prints how many files the
+port reads as cv2 does, and for the rest which side refuses and why.
 """
 
 import argparse
@@ -165,7 +170,6 @@ AVIF_TOOLS = ("enable-cdef", "loopfilter-control", "enable-filter-intra",
 
 def avif(files: int) -> None:
     import io
-    import cv2
     from PIL import Image
     tmp = Path(tempfile.mkdtemp(prefix="probe_avif_"))
     split = Counter()
@@ -188,7 +192,7 @@ def avif(files: int) -> None:
         adv["deltaq-mode"] = str(rng.randint(2))
         adv["aq-mode"] = str(rng.randint(4))
         if rng.rand() < 0.1:
-            adv["film-grain-test"] = "1"
+            adv["film-grain-test"] = str(rng.randint(1, 17))
         sub = rng.choice(["4:2:0", "4:2:2", "4:4:4", "4:0:0"])
         if sub == "4:0:0":
             adv.pop("enable-chroma-deltaq")
@@ -215,25 +219,68 @@ def avif(files: int) -> None:
             for at in rng.randint(data.find(b"mdat") + 8, len(data),
                                   rng.randint(1, 4)):
                 data[at] ^= 1 << rng.randint(8)
-        path = tmp / f"{s:05d}.avif"
-        path.write_bytes(bytes(data))
-        ref = cv2.imread(str(path), cv2.IMREAD_COLOR)
-        try:
-            got, why = native.decode_image(str(path)), ""
-        except native.ImageError as e:
-            got, why = None, str(e).split(": ", 2)[-1]
-        if ref is None:
-            split["cv2 refuses, " + ("the port too" if got is None
-                                     else "the port reads")] += 1
-        elif got is None:
-            split[f"the port refuses, cv2 reads: {why}"] += 1
-        elif np.array_equal(got, ref[..., ::-1]):
-            split["as cv2"] += 1
-        else:
-            split["both read, pixels differ"] += 1
+        _avif_against_cv2(tmp / f"{s:05d}.avif", bytes(data), split)
     print(f"{files} files")
     for k, v in sorted(split.items()):
         print(f"{k}: {v}")
+    split = Counter()
+    for s in range(files // 5):
+        _avif_superres(s, tmp / f"superres_{s:05d}.avif", split)
+    print(f"{files // 5} superres files (libaom 3.6 through ctypes)")
+    for k, v in sorted(split.items()):
+        print(f"{k}: {v}")
+
+
+def _avif_against_cv2(path: Path, data: bytes, split: Counter) -> None:
+    import cv2
+    path.write_bytes(data)
+    ref = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    try:
+        got, why = native.decode_image(str(path)), ""
+    except native.ImageError as e:
+        got, why = None, str(e).split(": ", 2)[-1]
+    if ref is None:
+        split["cv2 refuses, " + ("the port too" if got is None
+                                 else "the port reads")] += 1
+    elif got is None:
+        split[f"the port refuses, cv2 reads: {why}"] += 1
+    elif np.array_equal(got, ref[..., ::-1]):
+        split["as cv2"] += 1
+    else:
+        split["both read, pixels differ"] += 1
+
+
+def _avif_superres(s: int, path: Path, split: Counter) -> None:
+    from objectdetectionpl_tpu_torch.tools.format_files import (
+        aom_encode, av1c_bytes, avif_bytes)
+    rng = np.random.RandomState(10_000 + s)
+    h, w = rng.randint(16, 129), rng.randint(16, 321)
+    sub = rng.choice(["4:2:0", "4:2:2", "4:4:4", "4:0:0"])
+    denom = int(rng.randint(9, 17))
+    y, x = np.mgrid[0:h, 0:w]
+    noise = rng.randint(0, rng.choice([20, 80, 256]), (h, w))
+    planes = [((x * 3 + y * 2) % 256 + noise).clip(0, 255).astype(np.uint8)]
+    if sub != "4:0:0":
+        sx, sy = int(sub != "4:4:4"), int(sub == "4:2:0")
+        planes += [rng.randint(60, 200, ((h + sy) >> sy, (w + sx) >> sx))
+                   .astype(np.uint8) for _ in range(2)]
+    options = {"cq-level": int(rng.randint(5, 60)),
+               "cpu-used": int(rng.randint(1, 7)),
+               "enable-restoration": int(rng.randint(2)),
+               "sb-size": str(rng.choice(["64", "128"]))}
+    # libaom asks an inner tile column of 128 coded pixels under superres
+    if (w * 8 + denom // 2) // denom > 136 and rng.rand() < 0.5:
+        options["tile-columns"] = 1
+    if rng.rand() < 0.25:
+        options["film-grain-test"] = int(rng.randint(1, 17))
+    data = bytearray(avif_bytes(aom_encode(planes, sub, superres=denom,
+                                           options=options),
+                                w, h, av1c_bytes(sub)))
+    if rng.rand() < 0.1:
+        for at in rng.randint(data.find(b"mdat") + 8, len(data),
+                              rng.randint(1, 4)):
+            data[at] ^= 1 << rng.randint(8)
+    _avif_against_cv2(path, bytes(data), split)
 
 
 def main() -> None:

@@ -23,9 +23,19 @@ AVIF encoder (libavif over aom) and cv2.imwrite write here.
 - the colour conversions: every matrix, range, subsampling and (for
   matrix 12) colour primaries cv2 reads, and the combinations cv2
   refuses;
+- the stages after CDEF, each case's ``native.av1_probe`` fields showing
+  what it exercises: loop restoration (Wiener, self-guided and switchable
+  units, luma and chroma, 64 and 128 superblocks, 4:2:0 / 4:4:4 / 4:0:0),
+  superres (denominators 9 to 16, odd widths, two tile columns, with and
+  without restoration, every subsampling; written by
+  ``tools/format_files.py::aom_encode``, the system libaom through
+  ctypes, and skipped where it is absent) and film grain (libaom's test
+  vectors at odd sizes in every subsampling, and parameters from libaom
+  grain tables, those libaom refuses refused: cv2's pixels carry the
+  grain);
 - the kinds this slice refuses, each raising ``ImageError`` naming the
-  path, "AVIF" and the tool while cv2 reads the file (loop restoration,
-  film grain, a palette, intra block copy, a grid, premultiplied alpha);
+  path, "AVIF" and the tool while cv2 reads the file (a palette, intra
+  block copy, a grid, premultiplied alpha);
 - the tables: the committed ``csrc/av1_tables.h`` is what
   ``tools/av1_tables.py`` reads from libaom.so.3, where it is present.
 """
@@ -53,7 +63,8 @@ TOOLS = ("enable-cdef", "loopfilter-control", "enable-filter-intra",
          "enable-smooth-intra", "enable-paeth-intra", "enable-angle-delta",
          "enable-tx64", "enable-diagonal-intra", "enable-directional-intra",
          "enable-rect-tx", "enable-flip-idtx", "enable-rect-partitions",
-         "enable-ab-partitions", "enable-1to4-partitions")
+         "enable-ab-partitions", "enable-1to4-partitions",
+         "enable-restoration")
 OFF = {t: "0" for t in TOOLS}
 
 
@@ -418,6 +429,241 @@ def test_default_files(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# the stages after CDEF: loop restoration, superres, film grain
+
+def _info(data: bytes) -> dict:
+    return native.av1_probe(_parts(data)[0])
+
+
+def _types(info: dict):
+    return (info["restoration_y"], info["restoration_u"],
+            info["restoration_v"])
+
+
+def _lr_image(kind: str) -> np.ndarray:
+    """128x160: noise, or a gradient with small or large noise."""
+    rng = np.random.default_rng(1)
+    if kind == "noise":
+        return rng.integers(0, 256, (128, 160, 3)).astype(np.uint8)
+    y, x = np.mgrid[0:128, 0:160]
+    img = np.stack([(x * 4) % 256, (y * 5) % 256, (x + y) * 2 % 256], -1)
+    amp = 40 if kind == "smooth" else 120
+    return (img + rng.integers(0, amp, img.shape)).clip(0, 255).astype(
+        np.uint8)
+
+
+def _quadrants(h: int, w: int, subsampling: str) -> list:
+    """Planes whose luma quadrants differ (a gradient, stripes, a flat
+    area, noise): units that want different restoration."""
+    rng = np.random.default_rng(3)
+    y, x = np.mgrid[0:h, 0:w]
+    luma = ((x * 3 + y * 2) % 256 + rng.integers(0, 60, (h, w))).clip(
+        0, 255).astype(np.uint8)
+    hh, hw = h // 2, w // 2
+    luma[:hh, hw:] = ((np.arange(w - hw) // 2 % 2) * 200 + 20)[None, :]
+    luma[hh:, :hw] = 128 + rng.integers(-3, 4, (h - hh, hw))
+    luma[hh:, hw:] = rng.integers(0, 256, (h - hh, w - hw))
+    return [luma] + _chroma(rng, h, w, subsampling)
+
+
+def _stripes(h: int, w: int, subsampling: str) -> list:
+    """Planes whose luma is vertical stripes two pixels wide, the chroma
+    drawn after three draws that only advance the generator."""
+    rng = np.random.default_rng(1)
+    for shape in ((h, w), (h, w // 2), (h, w // 2)):
+        rng.integers(0, 4, shape)
+    luma = np.tile(((np.arange(w) // 2 % 2) * 200 + 20).astype(np.uint8),
+                   (h, 1))
+    return [luma] + _chroma(rng, h, w, subsampling)
+
+
+def _chroma(rng, h, w, subsampling):
+    if subsampling == "4:0:0":
+        return []
+    sx, sy = {"4:2:0": (1, 1), "4:2:2": (1, 0), "4:4:4": (0, 0)}[subsampling]
+    return [rng.integers(60, 200, ((h + sy) >> sy, (w + sx) >> sx)).astype(
+        np.uint8) for _ in range(2)]
+
+
+def _aom(planes, subsampling, **kw) -> bytes:
+    """``aom_encode``'s OBUs boxed as an AVIF (the av1C made for them)."""
+    if av1_tables.find_libaom() is None:
+        pytest.skip("no libaom.so.3 in the dynamic linker's cache")
+    obus = format_files.aom_encode(planes, subsampling, **kw)
+    h, w = planes[0].shape
+    return avif_bytes(obus, w, h, format_files.av1c_bytes(subsampling))
+
+
+# name: (subsampling, superblock, quality, image, the frame's restoration
+# types of Y, U, V: 1 Wiener, 2 self-guided), Pillow at speed 2
+LR_CASES = {
+    "sgr_y_wiener_uv_420_sb64": ("4:2:0", 64, 30, "noise", (2, 1, 1)),
+    "wiener_444_sb128": ("4:4:4", 128, 30, "noise", (1, 1, 1)),
+    "sgr_444_sb64": ("4:4:4", 64, 50, "smooth", (2, 2, 2)),
+    "sgr_u_420_sb128": ("4:2:0", 128, 30, "smooth", (0, 2, 0)),
+    "wiener_400_sb64": ("4:0:0", 64, 30, "rough", (1, 0, 0)),
+    "sgr_400_sb128": ("4:0:0", 128, 50, "smooth", (2, 0, 0)),
+}
+
+
+# switchable units (type 3) from libaom 3.6 over 64x256: two 128-pixel
+# units a row; (planes, subsampling, cpu-used, cq-level, the types)
+SWITCHABLE = {"switchable_v_444": (_quadrants, "4:4:4", 0, 40, (2, 2, 3)),
+              "switchable_y_420": (_stripes, "4:2:0", 1, 50, (3, 1, 1))}
+
+
+@pytest.mark.parametrize("case", sorted(LR_CASES) + sorted(SWITCHABLE))
+def test_loop_restoration_as_cv2(tmp_path, case):
+    """Each case's restoration types as its name says."""
+    if case in SWITCHABLE:
+        planes, sub, cpu, cq, want = SWITCHABLE[case]
+        data = _aom(planes(64, 256, sub), sub,
+                    options={"enable-restoration": 1, "cpu-used": cpu,
+                             "cq-level": cq, "sb-size": "64",
+                             "enable-palette": 0, "enable-intrabc": 0})
+        sb = 64
+    else:
+        sub, sb, quality, kind, want = LR_CASES[case]
+        data = _pillow(_lr_image(kind), subsampling=sub, quality=quality,
+                       speed=2, advanced={"enable-restoration": "1",
+                                          "sb-size": str(sb)})
+    info = _info(data)
+    assert (_types(info), info["superblock"]) == (want, sb)
+    _same_as_cv2(_file(tmp_path, data))
+
+
+# name: (height, width, subsampling, denominator, aom options)
+SUPERRES = {
+    "d9_420": (64, 96, "4:2:0", 9, {}),
+    "d12_420_lr": (64, 96, "4:2:0", 12, {}),
+    "d16_420_lr": (128, 160, "4:2:0", 16, {}),
+    "d13_444_odd_lr": (61, 157, "4:4:4", 13, {}),
+    "d11_422_odd": (37, 75, "4:2:2", 11, {}),
+    "d14_400_odd_lr": (45, 99, "4:0:0", 14, {}),
+    "d16_420_tiles2_lr": (64, 288, "4:2:0", 16, {"tile-columns": 1}),
+    "d9_444_odd_tiles2": (48, 153, "4:4:4", 9, {"tile-columns": 1}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SUPERRES))
+def test_superres_as_cv2(tmp_path, case):
+    """Superres key frames from libaom 3.6 (fixed denominator): the coded
+    width ``(W * 8 + d / 2) / d``, upscaled per tile column (two columns:
+    an inner one of at least 128 coded pixels, as libaom asks under
+    superres), restoration on the upscaled planes where asked."""
+    h, w, sub, denom, options = SUPERRES[case]
+    rng = np.random.default_rng(denom)
+    y, x = np.mgrid[0:h, 0:w]
+    luma = ((x * 3 + y * 2) % 256 + rng.integers(0, 60, (h, w))).clip(
+        0, 255).astype(np.uint8)
+    data = _aom([luma] + _chroma(rng, h, w, sub), sub, superres=denom,
+                options={"cq-level": 30, "cpu-used": 4, "sb-size": "64",
+                         "enable-restoration": int("lr" in case), **options})
+    info = _info(data)
+    assert info["superres_denom"] == denom and info["width"] == w
+    assert info["coded_width"] == (w * 8 + denom // 2) // denom
+    assert info["tile_cols"] == (2 if "tiles2" in case else 1)
+    assert any(_types(info)) == ("lr" in case)
+    _same_as_cv2(_file(tmp_path, data))
+
+
+# (libaom's film-grain-test vector, subsampling, height, width)
+GRAIN = [(1, "4:2:0", 64, 96), (2, "4:4:4", 37, 53), (3, "4:2:2", 70, 33),
+         (5, "4:0:0", 45, 61), (8, "4:2:0", 33, 47), (10, "4:2:2", 64, 96),
+         (13, "4:4:4", 61, 97), (16, "4:2:0", 128, 160)]
+
+
+@pytest.mark.parametrize("test,sub,h,w", GRAIN)
+def test_film_grain_as_cv2(tmp_path, test, sub, h, w):
+    """libaom's film grain test vectors (Pillow's encoder): cv2's pixels
+    carry the grain libaom adds (av1_add_film_grain, odd sizes padded),
+    which the port synthesizes as the specification does."""
+    data = _pillow(_image(h, w, seed=test), subsampling=sub, quality=60,
+                   advanced={"film-grain-test": str(test)})
+    assert _info(data)["apply_grain"] == 1
+    _same_as_cv2(_file(tmp_path, data))
+
+
+def test_committed_stage_fixtures():
+    """``format_files.avif_stage_files`` is the recipe of the committed
+    AVIFs of the stages after CDEF (``chip_smoke.py formats`` serves
+    them): the same bytes again, each exercising what its name says."""
+    if av1_tables.find_libaom() is None:
+        pytest.skip("no libaom.so.3 in the dynamic linker's cache")
+    want = {"avif_wiener": ((1, 1, 1), 8, 0), "avif_sgrproj": ((2, 0, 2), 8, 0),
+            "avif_superres": ((2, 2, 1), 16, 0),
+            "avif_film_grain": ((0, 0, 0), 8, 1)}
+    files = format_files.avif_stage_files()
+    assert sorted(files) == sorted(want)
+    for kind, data in files.items():
+        assert format_files.COMMITTED[kind].read_bytes() == data, kind
+        info = _info(data)
+        assert (_types(info), info["superres_denom"],
+                info["apply_grain"]) == want[kind], kind
+    assert _info(files["avif_superres"])["tile_cols"] == 2
+    assert _info(files["avif_sgrproj"])["superblock"] == 128
+
+
+def _grain_table(y, cb, cr, lag=1, from_luma=0, overlap=1) -> str:
+    """A libaom film grain table (grain_table.c's text form): one entry
+    for every frame, these scaling points, an auto-regressive lag."""
+    n = 2 * lag * (lag + 1)
+    pts = lambda p: f"{len(p)}" + "".join(f" {a} {b}" for a, b in p)
+    return "\n".join([
+        "filmgrn1", "E 0 9223372036854775807 1 4321 1",
+        f"\tp {lag} 7 0 11 {from_luma} {overlap} 120 200 270 140 180 240",
+        f"\tsY {pts(y)}", f"\tsCb {pts(cb)}", f"\tsCr {pts(cr)}",
+        "\tcY" + "".join(f" {(-1) ** i * (3 + i)}" for i in range(n)),
+        "\tcCb" + "".join(f" {2 - i}" for i in range(n + 1)),
+        "\tcCr" + "".join(f" {i - 3}" for i in range(n + 1))]) + "\n"
+
+
+Y3 = [(0, 20), (128, 70), (255, 30)]
+C2 = [(0, 30), (200, 50)]
+# (subsampling, table keywords, cv2 reads the file)
+GRAIN_TABLES = {
+    "from_luma_lag3_420": ("4:2:0", dict(y=Y3, cb=[], cr=[], lag=3,
+                                          from_luma=1), True),
+    "no_overlap_lag0_444": ("4:4:4", dict(y=Y3, cb=C2, cr=C2, lag=0,
+                                           overlap=0), True),
+    "luma_only_422": ("4:2:2", dict(y=Y3, cb=[], cr=[], lag=2), True),
+    "chroma_only_444": ("4:4:4", dict(y=[], cb=C2, cr=[(10, 60)]), True),
+    "grey_400": ("4:0:0", dict(y=Y3, cb=[], cr=[]), True),
+    "luma_points_repeat": ("4:2:0", dict(y=[(0, 20), (128, 60), (128, 30)],
+                                         cb=C2, cr=C2), False),
+    "cb_points_fall": ("4:4:4", dict(y=Y3, cb=[(40, 30), (20, 50)],
+                                     cr=C2), False),
+    "cb_without_cr_420": ("4:2:0", dict(y=Y3, cb=C2, cr=[]), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAIN_TABLES))
+def test_film_grain_tables_as_cv2(tmp_path, case):
+    """Film grain parameters written by libaom 3.6 from a grain table
+    (``film-grain-table``): chroma scaled from luma, no overlap, lags 0
+    to 3, luma or chroma alone, grey; and the parameters libaom refuses
+    (scaling points that do not increase, 4:2:0 points for one chroma
+    plane only), which the port refuses too."""
+    sub, table, reads = GRAIN_TABLES[case]
+    (tmp_path / "grain.tbl").write_text(_grain_table(**table))
+    rng = np.random.default_rng(len(case))
+    y, x = np.mgrid[0:45, 0:61]
+    luma = ((x * 4 + y * 3) % 256 + rng.integers(0, 40, (45, 61))).clip(
+        0, 255).astype(np.uint8)
+    data = _aom([luma] + _chroma(rng, 45, 61, sub), sub,
+                options={"cq-level": 30, "cpu-used": 6,
+                         "film-grain-table": str(tmp_path / "grain.tbl")})
+    path = _file(tmp_path, data)
+    if reads:
+        assert _info(data)["apply_grain"] == 1
+        _same_as_cv2(path)
+    else:
+        _both_refuse(path)
+        with pytest.raises(formats.FormatError, match="film grain"):
+            _info(data)
+
+
+# ---------------------------------------------------------------------------
 # the colour conversions
 
 @pytest.mark.parametrize("sub", ["4:2:0", "4:2:2", "4:4:4", "4:0:0"])
@@ -453,11 +699,6 @@ def test_refused_kinds_name_themselves(tmp_path):
     lab = rng.integers(0, 5, (12, 16)).repeat(8, 0).repeat(8, 1)
     screen = rng.integers(0, 256, (5, 3)).astype(np.uint8)[lab]
     cases = {
-        "loop restoration": _pillow(_image(128, 160, smooth=False), speed=2,
-                                    quality=50,
-                                    advanced={"enable-restoration": "1"}),
-        "film grain": _pillow(_image(64, 96), quality=60,
-                              advanced={"film-grain-test": "1"}),
         "a palette": _pillow(screen, subsampling="4:4:4", quality=90,
                              advanced={"enable-palette": "1"}),
         "intra block copy": _pillow(_screen(), subsampling="4:4:4",
