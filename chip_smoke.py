@@ -218,8 +218,9 @@ exits non-zero:
    with CDEF and quantizer matrices, Pillow's default, 4:4:4, 4:2:2,
    4:0:0, lossless, two tiles of 128x128 superblocks, an odd 167x125, a
    500x375, Wiener and self-guided loop restoration, superres at
-   denominator 16 over two tile columns, film grain; their host ms on a
-   line of their own, ``formats_avif``):
+   denominator 16 over two tile columns, film grain, palettes in 4:4:4
+   and in 4:2:0 over 128x128 superblocks, intra block copy, a cropped
+   2x2 grid; their host ms on a line of their own, ``formats_avif``):
    each decoded by
    ``native.decode_image`` (the port's
    ``load_image_rgb``), its SHA-256 held against cv2's recorded in

@@ -11,34 +11,45 @@
 // and tile groups); the symbol decoder with its adaptation; every
 // partition, intra mode (directional with angle deltas and the intra edge
 // filter and upsampling, smooth, Paeth, CFL, filter intra), the segment
-// ids, skip, cdef_idx, delta q / lf, tx size, intra tx type, the loop
+// ids, skip, cdef_idx, delta q / lf, palettes (sizes, colours from the
+// neighbours' cache or coded, the colour index map), intra block copy
+// (the vector stack of the spatial neighbours, the vector, libaom's
+// validity rules, the bilinear copy of the frame so far, var-tx sizes
+// and the inter transform sets), tx size, intra tx type, the loop
 // restoration units' types and coefficients, and every coefficient;
 // dequantization with or without quantizer matrices; the DCT 4..64, ADST
-// 4..16, identity and the lossless WHT; then the stages after the tiles:
+// 4..16 (flipped too), identity and the lossless WHT; then the stages
+// after the tiles:
 // the deblocking filter, CDEF, superres (libaom's per-tile-column
 // upscaling), loop restoration (Wiener and self-guided, in stripes that
 // read the deblocked rows around them) and film grain synthesis (cv2's
 // pixels carry the grain libaom adds).  Pixels are uint16.
 //
-// What it refuses, naming the tool: a block that uses a palette, intra
-// block copy, bit depths above 8, several operating points or layers,
-// frames that are not one shown key frame.  As libaom (cv2's AV1 decoder)
-// it refuses an unsized OBU, an OBU whose trailing bits are missing, a
-// tile whose data do not end where its symbols do, and film grain
-// scaling points that do not increase.  It never returns part of an
-// image.
+// What it refuses, naming the tool: bit depths above 8, several
+// operating points or layers, frames that are not one shown key frame.
+// As libaom (cv2's AV1 decoder) it refuses an unsized OBU, an OBU whose
+// trailing bits are missing, a header whose trailing bits are not a 1
+// then zeros (or with other than zero bytes after them) or whose
+// alignment bits are not zeros, an undefined level, a reduced header
+// for a video, a tile whose data do not end where its symbols do, film
+// grain scaling points that do not increase, and an intra block copy
+// vector outside the tile, not yet decoded or within the 256-sample
+// delay.  It never returns part of an image.
 //
 // C interface:
 //   av1_probe(data, len, info, msg, msg_len)
-//     info[0..17] = width (upscaled), height, subsampling x, y,
+//     info[0..19] = width (upscaled), height, subsampling x, y,
 //     monochrome, bit depth, colour range, matrix coefficients, colour
 //     primaries, transfer, the restoration type of Y, U, V (0 none, 1
 //     Wiener, 2 self-guided, 3 switchable), the superres denominator (8
 //     without), apply_grain, the superblock size, the tile columns, the
-//     coded width
-//   av1_decode(data, len, y, u, v, msg, msg_len)
+//     coded width, allow_screen_content_tools, allow_intrabc
+//   av1_decode(data, len, y, u, v, counts, msg, msg_len)
 //     planes of width x height (y) and the subsampled size (u, v; unused
-//     for a monochrome stream), row-major.
+//     for a monochrome stream), row-major; counts[0..4] (or null) gets
+//     what the stream used: the blocks with a Y palette, with a UV
+//     palette, the palette sizes (bit n for n colours), the intra block
+//     copy blocks, those whose reference vector was the default one.
 // Both return 0, or 1 with the reason in msg.
 
 #include <algorithm>
@@ -99,7 +110,10 @@ enum { TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4,
 enum { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
        FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT,
        V_ADST, H_ADST, V_FLIPADST, H_FLIPADST };
+// the transform sets: intra 1 and 2, inter 1 to 3 (the specification's
+// numbers; is_inter tells them apart)
 enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2 };
+enum { TX_SET_INTER_1 = 1, TX_SET_INTER_2, TX_SET_INTER_3 };
 enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
 enum { ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT };
 enum { SEG_LVL_ALT_Q = 0, SEG_LVL_ALT_LF_Y_V = 1, SEG_LVL_REF_FRAME = 5,
@@ -166,6 +180,22 @@ const uint8_t kTxTypeInvSet1[7] = {IDTX,      DCT_DCT,  V_DCT,   H_DCT,
                                    ADST_ADST, ADST_DCT, DCT_ADST};
 const uint8_t kTxTypeInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT,
                                    DCT_ADST};
+const uint8_t kTxTypeInterInvSet1[16] = {
+    IDTX,         V_DCT,        H_DCT,    V_ADST,       H_ADST,
+    V_FLIPADST,   H_FLIPADST,   DCT_DCT,  ADST_DCT,     DCT_ADST,
+    FLIPADST_DCT, DCT_FLIPADST, ADST_ADST, FLIPADST_FLIPADST,
+    ADST_FLIPADST, FLIPADST_ADST};
+const uint8_t kTxTypeInterInvSet2[12] = {
+    IDTX,         V_DCT,     H_DCT,     DCT_DCT,          ADST_DCT,
+    DCT_ADST,     FLIPADST_DCT, DCT_FLIPADST, ADST_ADST, FLIPADST_FLIPADST,
+    ADST_FLIPADST, FLIPADST_ADST};
+const uint8_t kTxTypeInterInvSet3[2] = {IDTX, DCT_DCT};
+// intra block copy (spec 7.10.2 and libaom's mvref_common.c)
+constexpr int MAX_REF_MV_STACK_SIZE = 8, REF_CAT_LEVEL = 640,
+              MVREF_ROW_COLS = 3, INTRABC_DELAY_PIXELS = 256,
+              INTRABC_DELAY_SB64 = INTRABC_DELAY_PIXELS / 64,
+              MV_BORDER = 16 << 3;
+constexpr int PALETTE_MAX_SIZE = 8;
 const int kSegFeatureBits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
 const int kSegFeatureSigned[8] = {1, 1, 1, 1, 1, 0, 0, 0};
 const int kSegFeatureMax[8] = {255, 63, 63, 63, 63, 7, 0, 0};
@@ -251,7 +281,23 @@ struct BitReader {
     }
     return lz ? f(lz) + (1u << lz) - 1 : 0;
   }
-  void byte_align() { pos = (pos + 7) & ~size_t(7); }
+  // libaom's check_trailing_bits, then its test that the OBU's bytes
+  // after them are zeros
+  void trailing_bits() {
+    const int n = 8 - int(pos % 8);
+    bool ok = f(n) == (1u << (n - 1));
+    for (size_t i = pos / 8; i < size; ++i) ok &= p[i] == 0;
+    if (!ok)
+      fail("the AV1 stream has a header whose trailing bits are wrong "
+           "(cv2 refuses it)");
+  }
+  // libaom's byte_alignment: zero bits up to the next byte
+  void zero_align() {
+    while (pos % 8)
+      if (f(1))
+        fail("the AV1 stream has a header not aligned by zero bits (cv2 "
+             "refuses it)");
+  }
 };
 
 uint64_t leb128(const uint8_t* d, size_t n, size_t* at) {
@@ -385,6 +431,13 @@ struct Cdfs {
   uint16_t base[5][2][42][5];
   uint16_t br[5][2][21][5];
   uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
+  uint16_t palette_y_size[7][8], palette_uv_size[7][8];
+  uint16_t palette_y_color[7][5][9], palette_uv_color[7][5][9];
+  uint16_t intrabc[3], txfm_split[21][3], inter_tx[3][4][17];
+  // the MV context of intra block copy (MV_INTRABC_CONTEXT): joints,
+  // then per component (0 row, 1 column)
+  uint16_t mv_joint[5], mv_class[2][12], mv_sign[2][3], mv_class0_bit[2][3],
+      mv_bit[2][10][3];
 
   void init(int base_q_idx) {
 #define COPY(dst, src) std::memcpy(dst, src, sizeof(dst))
@@ -430,6 +483,20 @@ struct Cdfs {
     COPY(restoration_type, Default_Restoration_Type_Cdf);
     COPY(use_wiener, Default_Use_Wiener_Cdf);
     COPY(use_sgrproj, Default_Use_Sgrproj_Cdf);
+    COPY(palette_y_size, Default_Palette_Y_Size_Cdf);
+    COPY(palette_uv_size, Default_Palette_Uv_Size_Cdf);
+    COPY(palette_y_color, Default_Palette_Y_Color_Cdf);
+    COPY(palette_uv_color, Default_Palette_Uv_Color_Cdf);
+    COPY(intrabc, Default_Intrabc_Cdf[0]);
+    COPY(txfm_split, Default_Txfm_Split_Cdf);
+    COPY(inter_tx, Default_Inter_Tx_Type_Cdf);
+    COPY(mv_joint, Default_Mv_Joint_Cdf);
+    for (int c = 0; c < 2; ++c) {
+      COPY(mv_class[c], Default_Mv_Class_Cdf);
+      COPY(mv_sign[c], Default_Mv_Sign_Cdf);
+      COPY(mv_class0_bit[c], Default_Mv_Class0_Bit_Cdf);
+      COPY(mv_bit[c], Default_Mv_Bit_Cdf);
+    }
 #undef COPY
   }
 };
@@ -760,7 +827,8 @@ struct Decoder {
 
   // frame header
   int frame_w = 0, frame_h = 0, mi_cols = 0, mi_rows = 0;
-  int disable_cdf_update = 0, allow_screen_content_tools = 0;
+  int disable_cdf_update = 0, allow_screen_content_tools = 0,
+      allow_intrabc = 0;
   int base_q_idx = 0, dq_y_dc = 0, dq_u_dc = 0, dq_u_ac = 0, dq_v_dc = 0,
       dq_v_ac = 0;
   int seg_enabled = 0, feature_enabled[8][8] = {{0}},
@@ -793,8 +861,28 @@ struct Decoder {
   // the frame
   Plane cur[3];
   int mi_stride = 0;
+  // tx_sizes holds the specification's InterTxSizes: an intra block's
+  // TxSize, an inter block's transform at each mi
   std::vector<uint8_t> y_modes, uv_modes, mi_sizes, skips, tx_sizes,
       seg_ids;
+  // palettes: per mi an index into palettes (-1 for none); a palette is
+  // its Y and U sizes, then 8 Y and 8 U colours (what later blocks'
+  // caches read)
+  struct Palette {
+    int size[2];
+    uint16_t colors[2][PALETTE_MAX_SIZE];
+  };
+  std::vector<int32_t> palette_at;
+  std::vector<Palette> palettes;
+  // intra block copy: per mi whether the block is one, and its vector
+  // (row, column in 1/8 samples)
+  std::vector<uint8_t> is_inters;
+  std::vector<int16_t> mvs;
+  // what the stream used: blocks with a Y and a UV palette, the palette
+  // sizes (bit n for n colours), intra block copy blocks, those whose
+  // reference vector was the default one
+  int palette_y_blocks = 0, palette_uv_blocks = 0, palette_sizes = 0,
+      intrabc_blocks = 0, intrabc_default_dv = 0;
   std::vector<int8_t> delta_lfs;          // 4 per mi
   std::vector<int8_t> cdef_idx;           // per 64x64
   int cdef_stride = 0;
@@ -820,6 +908,11 @@ struct Decoder {
   int angle_delta_y = 0, angle_delta_uv = 0, use_filter_intra = 0,
       filter_intra_mode = 0, cfl_alpha_u = 0, cfl_alpha_v = 0, tx_size = 0;
   int max_luma_w = 0, max_luma_h = 0;
+  int is_inter = 0, partition = 0, mv[2] = {0, 0};
+  Palette pal{};                          // this block's
+  uint16_t v_colors[PALETTE_MAX_SIZE] = {0};
+  uint8_t color_map[2][64 * 64];          // Y, UV: 64 wide
+
   std::vector<uint8_t> tx_types;          // per mi (luma 4x4)
   int plane_tx_type = 0;
   int32_t quant[1024];
@@ -865,16 +958,31 @@ struct Decoder {
     separate_uv_delta_q = r.f(1);
   }
 
+  // libaom refuses the levels the specification leaves undefined (2.2,
+  // 2.3, 3.2, 3.3, 4.2, 4.3, 7.x and 24..30)
+  static int check_level(int level) {
+    const bool ok = level == 31 || (level < 20 && level != 2 && level != 3 &&
+                                    level != 6 && level != 7 && level != 10 &&
+                                    level != 11);
+    if (!ok)
+      fail("the AV1 stream names the undefined level " +
+           std::to_string(level) + " (cv2 refuses it)");
+    return level;
+  }
+
   void sequence_header(BitReader& r) {
     seq_profile = r.f(3);
     if (seq_profile > 2) fail("the AV1 stream has a reserved profile");
-    r.f(1);                         // still_picture
+    const int still_picture = r.f(1);
     reduced = r.f(1);
+    if (reduced && !still_picture)
+      fail("the AV1 stream has a reduced header for a video (cv2 refuses "
+           "it)");
     if (reduced) {
       timing_info = decoder_model_info = 0;
       op_cnt = 1;
       op_idc[0] = 0;
-      r.f(5);                       // seq_level_idx
+      check_level(r.f(5));
     } else {
       timing_info = r.f(1);
       if (timing_info) {
@@ -896,7 +1004,7 @@ struct Decoder {
       op_cnt = r.f(5) + 1;
       for (int i = 0; i < op_cnt; ++i) {
         op_idc[i] = r.f(12);
-        const int level = r.f(5);
+        const int level = check_level(r.f(5));
         if (level > 7) r.f(1);
         decoder_model_present[i] = 0;
         if (decoder_model_info) {
@@ -945,6 +1053,7 @@ struct Decoder {
     enable_restoration = r.f(1);
     color_config(r);
     film_grain_params_present = r.f(1);
+    r.trailing_bits();
     if (bit_depth != 8) refuse("a bit depth of 10 or 12");
     have_seq = true;
   }
@@ -997,8 +1106,8 @@ struct Decoder {
     mi_cols = 2 * ((frame_w + 7) >> 3);
     mi_rows = 2 * ((frame_h + 7) >> 3);
     if (r.f(1)) { r.f(16); r.f(16); }       // render size
-    if (allow_screen_content_tools && upscaled_w == frame_w && r.f(1))
-      refuse("intra block copy");
+    allow_intrabc = allow_screen_content_tools && upscaled_w == frame_w
+                        ? r.f(1) : 0;
     // disable_frame_end_update_cdf
     if (!reduced && !disable_cdf_update) r.f(1);
     tile_info(r);
@@ -1010,7 +1119,7 @@ struct Decoder {
     if (delta_q_present) delta_q_res = r.f(2);
     delta_lf_present = delta_lf_res = delta_lf_multi = 0;
     if (delta_q_present) {
-      delta_lf_present = r.f(1);
+      if (!allow_intrabc) delta_lf_present = r.f(1);
       if (delta_lf_present) {
         delta_lf_res = r.f(2);
         delta_lf_multi = r.f(1);
@@ -1051,7 +1160,7 @@ struct Decoder {
   void lr_params(BitReader& r) {
     for (int& t : lr_frame_type) t = RESTORE_NONE;
     const bool all_lossless = coded_lossless && frame_w == upscaled_w;
-    if (all_lossless || !enable_restoration) return;
+    if (all_lossless || allow_intrabc || !enable_restoration) return;
     bool uses_lr = false, uses_chroma_lr = false;
     for (int p = 0; p < num_planes; ++p) {
       lr_frame_type[p] = kRemapLrType[r.f(2)];
@@ -1263,7 +1372,7 @@ struct Decoder {
 
   void loop_filter_params(BitReader& r) {
     lf_level[0] = lf_level[1] = lf_level[2] = lf_level[3] = 0;
-    if (coded_lossless) return;
+    if (coded_lossless || allow_intrabc) return;
     lf_level[0] = r.f(6);
     lf_level[1] = r.f(6);
     if (num_planes > 1 && (lf_level[0] || lf_level[1])) {
@@ -1284,7 +1393,7 @@ struct Decoder {
     cdef_bits = 0;
     cdef_y_pri[0] = cdef_y_sec[0] = cdef_uv_pri[0] = cdef_uv_sec[0] = 0;
     cdef_damping = 3;
-    if (coded_lossless || !enable_cdef) return;
+    if (coded_lossless || allow_intrabc || !enable_cdef) return;
     cdef_damping = r.f(2) + 3;
     cdef_bits = r.f(2);
     for (int i = 0; i < (1 << cdef_bits); ++i) {
@@ -1340,6 +1449,10 @@ struct Decoder {
     seg_ids.assign(n, 0);
     tx_types.assign(n, 0);
     delta_lfs.assign(n * 4, 0);
+    palette_at.assign(allow_screen_content_tools ? n : 0, -1);
+    palettes.clear();
+    is_inters.assign(allow_intrabc ? n : 0, 0);
+    mvs.assign(allow_intrabc ? 2 * n : 0, 0);
     cdef_stride = w / 64;
     cdef_idx.assign(size_t(cdef_stride) * (h / 64), -1);
   }
@@ -1347,18 +1460,21 @@ struct Decoder {
   // -------------------------------------------------------------------------
   // tiles
 
-  void tile_group(BitReader& r, const uint8_t* data, size_t size) {
+  void tile_group(BitReader& r, const uint8_t* data, size_t size,
+                  bool in_frame_obu) {
     if (!have_frame) fail("the AV1 stream has tile data before a frame header");
     if (frame_done) fail("the AV1 stream has tiles past the frame's last");
     const int num_tiles = tile_cols * tile_rows;
     const size_t start = r.pos;
     int tg_start = 0, tg_end = num_tiles - 1;
     if (num_tiles > 1 && r.f(1)) {
+      if (in_frame_obu)
+        fail("the AV1 stream's frame OBU names its tiles (cv2 refuses it)");
       const int bits = tile_cols_log2 + tile_rows_log2;
       tg_start = r.f(bits);
       tg_end = r.f(bits);
     }
-    r.byte_align();
+    r.zero_align();
     if (tg_start != next_tile || tg_end < tg_start || tg_end >= num_tiles)
       fail("the AV1 stream's tile groups are out of order");
     size_t at = (r.pos - start) / 8;
@@ -1584,6 +1700,7 @@ struct Decoder {
     }
     const int sub = partition_subsize(p, bsize);
     const int split = partition_subsize(PARTITION_SPLIT, bsize);
+    partition = p;      // libaom's mbmi->partition: has_top_right reads it
     switch (p) {
       case PARTITION_NONE: decode_block(r, c, sub); break;
       case PARTITION_HORZ:
@@ -1655,8 +1772,17 @@ struct Decoder {
       avail_u_chroma = avail_l_chroma = false;
     }
     intra_frame_mode_info();
-    read_tx_size();
+    palette_tokens();
+    read_block_tx_size();
     if (skip) reset_block_context(bw4, bh4);
+    int32_t pal_index = -1;
+    if (pal.size[0] || pal.size[1]) {
+      pal_index = static_cast<int32_t>(palettes.size());
+      palettes.push_back(pal);
+      palette_y_blocks += pal.size[0] > 0;
+      palette_uv_blocks += pal.size[1] > 0;
+      palette_sizes |= (1 << pal.size[0]) | (1 << pal.size[1]);
+    }
     for (int y = 0; y < bh4; ++y) {
       if (r + y >= mi_rows) break;
       for (int x = 0; x < bw4; ++x) {
@@ -1666,13 +1792,25 @@ struct Decoder {
         uv_modes[k] = static_cast<uint8_t>(uv_mode);
         mi_sizes[k] = static_cast<uint8_t>(bsize);
         skips[k] = static_cast<uint8_t>(skip);
-        tx_sizes[k] = static_cast<uint8_t>(tx_size);
         seg_ids[k] = static_cast<uint8_t>(segment_id);
         for (int i = 0; i < 4; ++i)
           delta_lfs[k * 4 + i] = static_cast<int8_t>(delta_lf[i]);
+        if (!palette_at.empty()) palette_at[k] = pal_index;
+        if (allow_intrabc) {
+          is_inters[k] = static_cast<uint8_t>(is_inter);
+          mvs[2 * k] = static_cast<int16_t>(mv[0]);
+          mvs[2 * k + 1] = static_cast<int16_t>(mv[1]);
+        }
       }
     }
+    if (is_inter) predict_intrabc();
     residual();
+  }
+
+  bool inter_at(size_t k) const { return !is_inters.empty() && is_inters[k]; }
+  const Palette* palette_of(size_t k) const {
+    if (palette_at.empty() || palette_at[k] < 0) return nullptr;
+    return &palettes[palette_at[k]];
   }
 
   void intra_frame_mode_info() {
@@ -1684,17 +1822,26 @@ struct Decoder {
     read_delta_qindex();
     read_delta_lf();
     read_deltas = false;
+    pal = Palette{};
+    use_filter_intra = 0;
+    angle_delta_y = angle_delta_uv = 0;
+    cfl_alpha_u = cfl_alpha_v = 0;
+    mv[0] = mv[1] = 0;
+    is_inter = allow_intrabc ? sym.read(cdf.intrabc, 2) : 0;
+    if (is_inter) {       // use_intrabc: DC_PRED both, bilinear
+      y_mode = uv_mode = DC_PRED;
+      ++intrabc_blocks;
+      assign_dv();
+      return;
+    }
     const int above = kIntraModeContext[
         avail_u ? y_modes[mi(mi_row - 1, mi_col)] : int(DC_PRED)];
     const int left = kIntraModeContext[
         avail_l ? y_modes[mi(mi_row, mi_col - 1)] : int(DC_PRED)];
     y_mode = sym.read(cdf.y_mode[above][left], 13);
-    angle_delta_y = 0;
     if (mi_size >= BLOCK_8X8 && y_mode >= V_PRED && y_mode <= D67_PRED)
       angle_delta_y = sym.read(cdf.angle_delta[y_mode - V_PRED], 7) - 3;
     uv_mode = DC_PRED;
-    angle_delta_uv = 0;
-    cfl_alpha_u = cfl_alpha_v = 0;
     if (has_chroma) {
       const int bw = kWide4[mi_size] * 4, bh = kHigh4[mi_size] * 4;
       bool cfl_allowed;
@@ -1709,15 +1856,9 @@ struct Decoder {
         angle_delta_uv = sym.read(cdf.angle_delta[uv_mode - V_PRED], 7) - 3;
     }
     if (mi_size >= BLOCK_8X8 && kWide4[mi_size] <= 16 &&
-        kHigh4[mi_size] <= 16 && allow_screen_content_tools) {
-      const int bctx = log2i(kWide4[mi_size]) + log2i(kHigh4[mi_size]) - 2;
-      if (y_mode == DC_PRED && sym.read(cdf.palette_y[bctx][0], 2))
-        refuse("a palette");
-      if (has_chroma && uv_mode == DC_PRED && sym.read(cdf.palette_uv[0], 2))
-        refuse("a palette");
-    }
-    use_filter_intra = 0;
-    if (enable_filter_intra && y_mode == DC_PRED &&
+        kHigh4[mi_size] <= 16 && allow_screen_content_tools)
+      palette_mode_info();
+    if (enable_filter_intra && y_mode == DC_PRED && pal.size[0] == 0 &&
         std::max(kWide4[mi_size], kHigh4[mi_size]) <= 8) {
       use_filter_intra = sym.read(cdf.filter_intra[mi_size], 2);
       if (use_filter_intra)
@@ -1735,6 +1876,471 @@ struct Decoder {
     if (sign_v) {
       cfl_alpha_v = 1 + sym.read(cdf.cfl_alpha[(sign_v - 1) * 3 + sign_u], 16);
       if (sign_v == 1) cfl_alpha_v = -cfl_alpha_v;
+    }
+  }
+
+  // -------------------------------------------------------------------------
+  // palettes (spec 5.11.46, 5.11.49, 7.11.4)
+
+  // get_palette_cache: the above (not across a 64-row line) and left
+  // blocks' colours of the plane's palette (U for chroma), merged in
+  // order without repeats
+  int palette_cache(int p, uint16_t* cache) const {
+    const Palette* a = avail_u && (mi_row * 4) % 64
+                           ? palette_of(mi(mi_row - 1, mi_col)) : nullptr;
+    const Palette* l = avail_l ? palette_of(mi(mi_row, mi_col - 1)) : nullptr;
+    int an = a ? a->size[p] : 0, ln = l ? l->size[p] : 0;
+    int ai = 0, li = 0, n = 0;
+    auto put = [&](uint16_t v) {
+      if (n == 0 || v != cache[n - 1]) cache[n++] = v;
+    };
+    while (ai < an && li < ln) {
+      const uint16_t va = a->colors[p][ai], vl = l->colors[p][li];
+      if (vl < va) {
+        put(vl);
+        ++li;
+      } else {
+        put(va);
+        ++ai;
+        if (vl == va) ++li;
+      }
+    }
+    while (ai < an) put(a->colors[p][ai++]);
+    while (li < ln) put(l->colors[p][li++]);
+    return n;
+  }
+
+  static int ceil_log2(int x) {
+    if (x < 2) return 0;
+    int i = 1, q = 2;
+    while (q < x) {
+      ++i;
+      q <<= 1;
+    }
+    return i;
+  }
+
+  // Y's and U's colours: taken from the cache, then literals rising by
+  // deltas (Y's at least 1 apart), all sorted
+  void palette_colors(int p) {
+    const int n = pal.size[p];
+    uint16_t cache[2 * PALETTE_MAX_SIZE];
+    const int ncache = palette_cache(p, cache);
+    uint16_t* col = pal.colors[p];
+    int idx = 0;
+    for (int i = 0; i < ncache && idx < n; ++i)
+      if (sym.literal(1)) col[idx++] = cache[i];
+    if (idx < n) {
+      col[idx++] = static_cast<uint16_t>(sym.literal(bit_depth));
+      int bits = 0;
+      if (idx < n) bits = bit_depth - 3 + sym.literal(2);
+      const int maxv = (1 << bit_depth) - 1;
+      for (; idx < n; ++idx) {
+        const int delta = sym.literal(bits) + (p == 0);
+        col[idx] = static_cast<uint16_t>(std::min(maxv, col[idx - 1] + delta));
+        bits = std::min(bits, ceil_log2((1 << bit_depth) - col[idx] - (p == 0)));
+      }
+    }
+    std::sort(col, col + n);
+  }
+
+  void palette_mode_info() {
+    const int bctx = log2i(kWide4[mi_size]) + log2i(kHigh4[mi_size]) - 2;
+    if (y_mode == DC_PRED) {
+      int ctx = 0;
+      if (avail_u) {
+        const Palette* a = palette_of(mi(mi_row - 1, mi_col));
+        ctx += a && a->size[0] > 0;
+      }
+      if (avail_l) {
+        const Palette* l = palette_of(mi(mi_row, mi_col - 1));
+        ctx += l && l->size[0] > 0;
+      }
+      if (sym.read(cdf.palette_y[bctx][ctx], 2)) {
+        pal.size[0] = sym.read(cdf.palette_y_size[bctx], 7) + 2;
+        palette_colors(0);
+      }
+    }
+    if (has_chroma && uv_mode == DC_PRED &&
+        sym.read(cdf.palette_uv[pal.size[0] > 0], 2)) {
+      pal.size[1] = sym.read(cdf.palette_uv_size[bctx], 7) + 2;
+      palette_colors(1);
+      // V: delta coded with signs, wrapping, or literals
+      const int n = pal.size[1];
+      if (sym.literal(1)) {
+        const int maxv = 1 << bit_depth;
+        const int bits = bit_depth - 4 + sym.literal(2);
+        v_colors[0] = static_cast<uint16_t>(sym.literal(bit_depth));
+        for (int i = 1; i < n; ++i) {
+          int delta = sym.literal(bits);
+          if (delta && sym.literal(1)) delta = -delta;
+          int val = v_colors[i - 1] + delta;
+          if (val < 0) val += maxv;
+          if (val >= maxv) val -= maxv;
+          v_colors[i] = static_cast<uint16_t>(clip3(0, maxv - 1, val));
+        }
+      } else {
+        for (int i = 0; i < n; ++i)
+          v_colors[i] = static_cast<uint16_t>(sym.literal(bit_depth));
+      }
+    }
+  }
+
+  // palette_tokens: each plane's colour index map in anti-diagonal order
+  // over its visible part, then its last column and row repeated
+  void palette_tokens() {
+    const int bw = kWide4[mi_size] * 4, bh = kHigh4[mi_size] * 4;
+    const int on_w = std::min(bw, (mi_cols - mi_col) * 4);
+    const int on_h = std::min(bh, (mi_rows - mi_row) * 4);
+    if (pal.size[0]) color_map_tokens(0, bw, bh, on_w, on_h);
+    if (pal.size[1]) {
+      int w = bw >> ssx, h = bh >> ssy, ow = on_w >> ssx, oh = on_h >> ssy;
+      if (w < 4) {
+        w += 2;
+        ow += 2;
+      }
+      if (h < 4) {
+        h += 2;
+        oh += 2;
+      }
+      color_map_tokens(1, w, h, ow, oh);
+    }
+  }
+
+  void color_map_tokens(int p, int w, int h, int on_w, int on_h) {
+    uint8_t* map = color_map[p];
+    const int n = pal.size[p];
+    auto at = [&](int r, int c) -> uint8_t& { return map[r * 64 + c]; };
+    at(0, 0) = static_cast<uint8_t>(ns(n));
+    for (int i = 1; i < on_h + on_w - 1; ++i)
+      for (int j = std::min(i, on_w - 1); j >= std::max(0, i - on_h + 1); --j) {
+        const int r = i - j;
+        // get_palette_color_context: the left, above-left and above
+        // indices scored 2, 1, 2; the first three orders by score
+        int scores[PALETTE_MAX_SIZE] = {0};
+        uint8_t order[PALETTE_MAX_SIZE];
+        for (int k = 0; k < PALETTE_MAX_SIZE; ++k) order[k] = static_cast<uint8_t>(k);
+        if (j > 0) scores[at(r, j - 1)] += Palette_Color_Weights[0];
+        if (r > 0 && j > 0) scores[at(r - 1, j - 1)] += Palette_Color_Weights[1];
+        if (r > 0) scores[at(r - 1, j)] += Palette_Color_Weights[2];
+        for (int k = 0; k < 3; ++k) {
+          int best = scores[k], bi = k;
+          for (int m = k + 1; m < n; ++m)
+            if (scores[m] > best) {
+              best = scores[m];
+              bi = m;
+            }
+          if (bi != k) {
+            const uint8_t o = order[bi];
+            for (int m = bi; m > k; --m) {
+              scores[m] = scores[m - 1];
+              order[m] = order[m - 1];
+            }
+            scores[k] = best;
+            order[k] = o;
+          }
+        }
+        int hash = 0;
+        for (int k = 0; k < 3; ++k)
+          hash += scores[k] * Palette_Color_Hash_Multipliers[k];
+        const int ctx = Palette_Color_Context[hash];
+        uint16_t* c = p == 0 ? cdf.palette_y_color[n - 2][ctx]
+                             : cdf.palette_uv_color[n - 2][ctx];
+        at(r, j) = order[sym.read(c, n)];
+      }
+    for (int r = 0; r < on_h; ++r)
+      for (int c = on_w; c < w; ++c) at(r, c) = at(r, on_w - 1);
+    for (int r = on_h; r < h; ++r)
+      for (int c = 0; c < w; ++c) at(r, c) = at(on_h - 1, c);
+  }
+
+  // predict_palette: a transform block's colours from the map
+  void predict_palette(int p, int start_x, int start_y, int x, int y,
+                       int txs) {
+    const uint16_t* colors = p == 0 ? pal.colors[0]
+                             : p == 1 ? pal.colors[1] : v_colors;
+    const uint8_t* map = color_map[p > 0];
+    Plane& P = cur[p];
+    for (int i = 0; i < kTxH[txs]; ++i) {
+      if (start_y + i >= P.rows) break;
+      for (int j = 0; j < kTxW[txs]; ++j)
+        if (start_x + j < P.stride)
+          *P.at(start_y + i, start_x + j) =
+              colors[map[(y * 4 + i) * 64 + x * 4 + j]];
+    }
+  }
+
+  // -------------------------------------------------------------------------
+  // intra block copy: the reference vector stack of INTRA_FRAME from the
+  // spatial neighbours (libaom's setup_ref_mv_list; no temporal
+  // candidates in a key frame, and the extra search finds nothing there),
+  // the vector read against it and checked as libaom checks it
+  // (av1_is_dv_valid), the prediction copied from the frame so far
+
+  struct MvCand {
+    int row, col, weight;
+  };
+  MvCand stack[MAX_REF_MV_STACK_SIZE];
+  int stack_n = 0;
+
+  void add_candidate(int r, int c, int weight) {
+    const size_t k = mi(r, c);
+    if (!inter_at(k)) return;
+    const int row = mvs[2 * k], col = mvs[2 * k + 1];
+    for (int i = 0; i < stack_n; ++i)
+      if (stack[i].row == row && stack[i].col == col) {
+        stack[i].weight += weight;
+        return;
+      }
+    if (stack_n < MAX_REF_MV_STACK_SIZE) stack[stack_n++] = {row, col, weight};
+  }
+
+  void scan_row(int row_offset, int max_row_offset, int* processed) {
+    const int bw4 = kWide4[mi_size];
+    const int end = std::min({bw4, mi_cols - mi_col, 16});
+    int col_offset = 0;
+    if (std::abs(row_offset) > 1) {
+      col_offset = 1;
+      if ((mi_col & 1) && bw4 < 2) --col_offset;
+    }
+    for (int i = 0; i < end;) {
+      const int r = mi_row + row_offset, c = mi_col + col_offset + i;
+      const int cand = mi_sizes[mi(r, c)];
+      int len = std::min<int>(bw4, kWide4[cand]);
+      if (bw4 >= 16) len = std::max(4, len);      // 64 samples wide
+      else if (std::abs(row_offset) > 1) len = std::max(len, 2);
+      int weight = 2;
+      if (bw4 >= 2 && bw4 <= kWide4[cand]) {
+        const int inc = std::min<int>(-max_row_offset + row_offset + 1,
+                                      kHigh4[cand]);
+        weight = std::max(weight, inc);
+        *processed = inc - row_offset - 1;
+      }
+      add_candidate(r, c, len * weight);
+      i += len;
+    }
+  }
+
+  void scan_col(int col_offset, int max_col_offset, int* processed) {
+    const int bh4 = kHigh4[mi_size];
+    const int end = std::min({bh4, mi_rows - mi_row, 16});
+    int row_offset = 0;
+    if (std::abs(col_offset) > 1) {
+      row_offset = 1;
+      if ((mi_row & 1) && bh4 < 2) --row_offset;
+    }
+    for (int i = 0; i < end;) {
+      const int r = mi_row + row_offset + i, c = mi_col + col_offset;
+      const int cand = mi_sizes[mi(r, c)];
+      int len = std::min<int>(bh4, kHigh4[cand]);
+      if (bh4 >= 16) len = std::max(4, len);
+      else if (std::abs(col_offset) > 1) len = std::max(len, 2);
+      int weight = 2;
+      if (bh4 >= 2 && bh4 <= kHigh4[cand]) {
+        const int inc = std::min<int>(-max_col_offset + col_offset + 1,
+                                      kWide4[cand]);
+        weight = std::max(weight, inc);
+        *processed = inc - col_offset - 1;
+      }
+      add_candidate(r, c, len * weight);
+      i += len;
+    }
+  }
+
+  void scan_point(int row_offset, int col_offset) {
+    const int r = mi_row + row_offset, c = mi_col + col_offset;
+    if (inside(r, c)) add_candidate(r, c, 4);
+  }
+
+  // libaom's has_top_right (its is_sec_rect rules for rectangles)
+  bool has_top_right() const {
+    const int bw4 = kWide4[mi_size], bh4 = kHigh4[mi_size];
+    int bs = std::max(bw4, bh4);
+    const int sb = use_128 ? 32 : 16;
+    const int mask_row = mi_row & (sb - 1), mask_col = mi_col & (sb - 1);
+    if (bs > 16) return false;
+    bool has_tr = !((mask_row & bs) && (mask_col & bs));
+    while (bs < sb) {
+      if (!(mask_col & bs)) break;
+      if ((mask_col & 2 * bs) && (mask_row & 2 * bs)) {
+        has_tr = false;
+        break;
+      }
+      bs <<= 1;
+    }
+    if (bw4 < bh4 && ((mi_col + bw4) & (bh4 - 1))) has_tr = true;
+    if (bw4 > bh4 && (mi_row & (bw4 - 1))) has_tr = false;
+    if (partition == PARTITION_VERT_A && bw4 == bh4 && (mask_row & bs))
+      has_tr = false;
+    return has_tr;
+  }
+
+  void find_mv_stack() {
+    const int bw4 = kWide4[mi_size], bh4 = kHigh4[mi_size];
+    stack_n = 0;
+    const int row_adj = bh4 < 2 && (mi_row & 1);
+    const int col_adj = bw4 < 2 && (mi_col & 1);
+    int max_row = 0, max_col = 0, rows_done = 0, cols_done = 0;
+    if (avail_u) {
+      max_row = (bh4 < 2 ? -4 : -2 * MVREF_ROW_COLS) + row_adj;
+      max_row = clip3(mi_row_start - mi_row, mi_row_end - mi_row - 1, max_row);
+    }
+    if (avail_l) {
+      max_col = (bw4 < 2 ? -4 : -2 * MVREF_ROW_COLS) + col_adj;
+      max_col = clip3(mi_col_start - mi_col, mi_col_end - mi_col - 1, max_col);
+    }
+    if (std::abs(max_row) >= 1) scan_row(-1, max_row, &rows_done);
+    if (std::abs(max_col) >= 1) scan_col(-1, max_col, &cols_done);
+    if (has_top_right()) scan_point(-1, bw4);
+    const int nearest = stack_n;
+    for (int i = 0; i < nearest; ++i) stack[i].weight += REF_CAT_LEVEL;
+    scan_point(-1, -1);
+    for (int idx = 2; idx <= MVREF_ROW_COLS; ++idx) {
+      const int ro = -(idx << 1) + 1 + row_adj, co = -(idx << 1) + 1 + col_adj;
+      if (std::abs(ro) <= std::abs(max_row) && std::abs(ro) > rows_done)
+        scan_row(ro, max_row, &rows_done);
+      if (std::abs(co) <= std::abs(max_col) && std::abs(co) > cols_done)
+        scan_col(co, max_col, &cols_done);
+    }
+    auto sort = [&](int lo, int len) {    // libaom's bubble passes
+      while (len > lo) {
+        int last = lo;
+        for (int i = lo + 1; i < len; ++i)
+          if (stack[i - 1].weight < stack[i].weight) {
+            std::swap(stack[i - 1], stack[i]);
+            last = i;
+          }
+        len = last;
+      }
+    };
+    sort(0, nearest);
+    sort(nearest, stack_n);
+    // clamp_mv_ref: within the frame and the block's size plus 16 samples
+    for (int i = 0; i < stack_n; ++i) {
+      const int bw = bw4 * 4, bh = bh4 * 4;
+      stack[i].col = clip3(-mi_col * 32 - bw * 8 - MV_BORDER,
+                           (mi_cols - bw4 - mi_col) * 32 + bw * 8 + MV_BORDER,
+                           stack[i].col);
+      stack[i].row = clip3(-mi_row * 32 - bh * 8 - MV_BORDER,
+                           (mi_rows - bh4 - mi_row) * 32 + bh * 8 + MV_BORDER,
+                           stack[i].row);
+    }
+  }
+
+  int read_mv_component(int c) {
+    const int sign = sym.read(cdf.mv_sign[c], 2);
+    const int cls = sym.read(cdf.mv_class[c], 11);
+    int mag, d = 0;
+    if (cls == 0) {
+      d = sym.read(cdf.mv_class0_bit[c], 2);
+      mag = 0;
+    } else {
+      for (int i = 0; i < cls; ++i) d |= sym.read(cdf.mv_bit[c][i], 2) << i;
+      mag = 2 << (cls + 2);
+    }
+    mag += ((d << 3) | (3 << 1) | 1) + 1;     // integer: fr 3, hp 1
+    return sign ? -mag : mag;
+  }
+
+  void assign_dv() {
+    find_mv_stack();
+    int pred[2] = {0, 0};
+    for (int i = 0; i < std::min(stack_n, 2); ++i)
+      if (stack[i].row || stack[i].col) {
+        pred[0] = stack[i].row;
+        pred[1] = stack[i].col;
+        break;
+      }
+    if (!pred[0] && !pred[1]) {      // av1_find_ref_dv
+      ++intrabc_default_dv;
+      const int sb4 = use_128 ? 32 : 16;
+      if (mi_row - sb4 < mi_row_start) {
+        pred[1] = -(sb4 * 4 + INTRABC_DELAY_PIXELS) * 8;
+      } else {
+        pred[0] = -(sb4 * 4 * 8);
+      }
+    }
+    const int joint = sym.read(cdf.mv_joint, 4);
+    mv[0] = pred[0] + (joint == 2 || joint == 3 ? read_mv_component(0) : 0);
+    mv[1] = pred[1] + (joint == 1 || joint == 3 ? read_mv_component(1) : 0);
+    if (!dv_valid())
+      fail("the AV1 stream has an invalid intra block copy vector "
+           "(cv2 refuses it)");
+  }
+
+  bool dv_valid() const {
+    const int row = mv[0], col = mv[1];
+    if ((row & 7) || (col & 7)) return false;
+    const int lim = 1 << 14;
+    if (row <= -lim || row >= lim || col <= -lim || col >= lim) return false;
+    const int bw = kWide4[mi_size] * 4, bh = kHigh4[mi_size] * 4;
+    const int top = mi_row * 32 + row, left = mi_col * 32 + col;
+    const int bottom = (mi_row * 4 + bh) * 8 + row;
+    const int right = (mi_col * 4 + bw) * 8 + col;
+    const int tile_top = mi_row_start * 32, tile_left = mi_col_start * 32;
+    if (top < tile_top || left < tile_left || bottom > mi_row_end * 32 ||
+        right > mi_col_end * 32)
+      return false;
+    if (has_chroma) {     // sub-8x8 chroma reaches a column or row back
+      if (bw < 8 && ssx && left < tile_left + 32) return false;
+      if (bh < 8 && ssy && top < tile_top + 32) return false;
+    }
+    const int sb_log2 = use_128 ? 5 : 4, sb_size = 4 << sb_log2;
+    const int active_sb_row = mi_row >> sb_log2;
+    const int active_sb64_col = (mi_col * 4) >> 6;
+    const int src_sb_row = ((bottom >> 3) - 1) / sb_size;
+    const int src_sb64_col = ((right >> 3) - 1) >> 6;
+    const int sb64_per_row = ((mi_col_end - mi_col_start - 1) >> 4) + 1;
+    const int active_sb64 = active_sb_row * sb64_per_row + active_sb64_col;
+    const int src_sb64 = src_sb_row * sb64_per_row + src_sb64_col;
+    if (src_sb64 >= active_sb64 - INTRABC_DELAY_SB64) return false;
+    const int gradient = 1 + INTRABC_DELAY_SB64 + (sb_size > 64);
+    const int wf_offset = gradient * (active_sb_row - src_sb_row);
+    if (src_sb_row > active_sb_row ||
+        src_sb64_col >= active_sb64_col - INTRABC_DELAY_SB64 + wf_offset)
+      return false;
+    return true;
+  }
+
+  // The prediction of each plane (spec 7.11.3 for one reference, the
+  // block's own vector even for sub-8x8 chroma: every neighbour's
+  // RefFrame[0] is INTRA_FRAME): the frame's samples before any filter,
+  // through the bilinear filter at half-sample chroma positions,
+  // rounded by 3 then 11 bits.
+  void predict_intrabc() {
+    static thread_local int tmp[(128 + 8) * 128];
+    static thread_local uint16_t out[128 * 128];
+    for (int p = 0; p < 1 + 2 * has_chroma; ++p) {
+      const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      const int psz = p ? kSubSize[mi_size][ssx][ssy] : mi_size;
+      const int w = kWide4[psz] * 4, h = kHigh4[psz] * 4;
+      const int x0 = (mi_col >> sx) * 4, y0 = (mi_row >> sy) * 4;
+      const int last_x = ((mi_cols * 4 + sx) >> sx) - 1;
+      const int last_y = ((mi_rows * 4 + sy) >> sy) - 1;
+      const int px = (x0 << 4) + ((2 * mv[1]) >> sx);    // 1/16 samples
+      const int py = (y0 << 4) + ((2 * mv[0]) >> sy);
+      const int fx = px & 15, fy = py & 15;
+      const Plane& P = cur[p];
+      for (int r = 0; r < h + 7; ++r) {
+        const int yy = clip3(0, last_y, (py >> 4) + r - 3);
+        for (int c = 0; c < w; ++c) {
+          const int xx = (px >> 4) + c;
+          const int a = P.get(yy, clip3(0, last_x, xx));
+          const int b = P.get(yy, clip3(0, last_x, xx + 1));
+          tmp[r * w + c] = round2((128 - 8 * fx) * a + 8 * fx * b, 3);
+        }
+      }
+      for (int r = 0; r < h; ++r)
+        for (int c = 0; c < w; ++c) {
+          const int s = (128 - 8 * fy) * tmp[(r + 3) * w + c] +
+                        8 * fy * tmp[(r + 4) * w + c];
+          out[r * w + c] = static_cast<uint16_t>(
+              clip3(0, (1 << bit_depth) - 1, round2(s, 11)));
+        }
+      Plane& D = cur[p];
+      for (int r = 0; r < h && y0 + r < D.rows; ++r)
+        for (int c = 0; c < w && x0 + c < D.stride; ++c)
+          *D.at(y0 + r, x0 + c) = out[r * w + c];
     }
   }
 
@@ -1790,7 +2396,7 @@ struct Decoder {
   }
 
   void read_cdef() {
-    if (skip || coded_lossless || !enable_cdef) return;
+    if (skip || coded_lossless || !enable_cdef || allow_intrabc) return;
     const int r = mi_row & ~15, c = mi_col & ~15;
     if (cdef_at(r, c) == -1) {
       const int v = sym.literal(cdef_bits);
@@ -1839,21 +2445,95 @@ struct Decoder {
     }
   }
 
-  void read_tx_size() {
+  // read_block_tx_size: a coded inter (intra block copy) block under
+  // TX_MODE_SELECT splits each largest transform as its flags say;
+  // every other block has one size, kept per mi as InterTxSizes
+  void read_block_tx_size() {
+    const int bw4 = kWide4[mi_size], bh4 = kHigh4[mi_size];
+    if (tx_mode == TX_MODE_SELECT && mi_size > BLOCK_4X4 && is_inter &&
+        !skip && !lossless) {
+      const int mx = kMaxTxRect[mi_size];
+      for (int r = 0; r < bh4; r += kTxH[mx] >> 2)
+        for (int c = 0; c < bw4; c += kTxW[mx] >> 2)
+          read_var_tx_size(mi_row + r, mi_col + c, mx, 0);
+      return;
+    }
+    read_tx_size(!skip || !is_inter);
+    for (int r = 0; r < bh4; ++r)
+      for (int c = 0; c < bw4; ++c)
+        tx_sizes[mi(mi_row + r, mi_col + c)] = static_cast<uint8_t>(tx_size);
+  }
+
+  void read_var_tx_size(int row, int col, int txs, int depth) {
+    if (row >= mi_rows || col >= mi_cols) return;
+    int split = 0;
+    if (txs != TX_4X4 && depth < 2) {
+      // the neighbours' transform widths and heights against this one's
+      const int above = above_tx_width(row, col) < kTxW[txs];
+      const int left = left_tx_height(row, col) < kTxH[txs];
+      const int size = std::min(64, 4 * std::max(kWide4[mi_size],
+                                                  kHigh4[mi_size]));
+      const int max_sq = sq_tx(size);
+      const int ctx = (tx_sqr_up(txs) != max_sq) * 3 + (4 - max_sq) * 6 +
+                      above + left;
+      split = sym.read(cdf.txfm_split[ctx], 2);
+    }
+    const int w4 = kTxW[txs] >> 2, h4 = kTxH[txs] >> 2;
+    if (split) {
+      const int sub = kSplitTx[txs];
+      for (int i = 0; i < h4; i += kTxH[sub] >> 2)
+        for (int j = 0; j < w4; j += kTxW[sub] >> 2)
+          read_var_tx_size(row + i, col + j, sub, depth + 1);
+      return;
+    }
+    for (int i = 0; i < h4; ++i)
+      for (int j = 0; j < w4; ++j)
+        tx_sizes[mi(row + i, col + j)] = static_cast<uint8_t>(txs);
+    tx_size = txs;
+  }
+
+  int above_tx_width(int row, int col) const {
+    if (row == mi_row) {
+      if (!avail_u) return 64;
+      const size_t k = mi(row - 1, col);
+      if (skips[k] && inter_at(k)) return kWide4[mi_sizes[k]] * 4;
+    }
+    return kTxW[tx_sizes[mi(row - 1, col)]];
+  }
+
+  int left_tx_height(int row, int col) const {
+    if (col == mi_col) {
+      if (!avail_l) return 64;
+      const size_t k = mi(row, col - 1);
+      if (skips[k] && inter_at(k)) return kHigh4[mi_sizes[k]] * 4;
+    }
+    return kTxH[tx_sizes[mi(row, col - 1)]];
+  }
+
+  void read_tx_size(bool allow_select) {
     if (lossless) {
       tx_size = TX_4X4;
       return;
     }
     tx_size = kMaxTxRect[mi_size];
-    if (mi_size > BLOCK_4X4 && tx_mode == TX_MODE_SELECT) {
+    if (mi_size > BLOCK_4X4 && allow_select && tx_mode == TX_MODE_SELECT) {
       int depth_to_4 = 0;
       for (int t = tx_size; t != TX_4X4; t = kSplitTx[t]) ++depth_to_4;
       const int cat = depth_to_4 - 1;
       const int max_depth = std::min(depth_to_4, 2);
       const int mw = kTxW[tx_size], mh = kTxH[tx_size];
+      // an inter neighbour by its block's width or height
       int above = 0, left = 0;
-      if (avail_u) above = kTxW[tx_sizes[mi(mi_row - 1, mi_col)]] >= mw;
-      if (avail_l) left = kTxH[tx_sizes[mi(mi_row, mi_col - 1)]] >= mh;
+      if (avail_u) {
+        const size_t k = mi(mi_row - 1, mi_col);
+        above = (inter_at(k) ? kWide4[mi_sizes[k]] * 4
+                             : kTxW[tx_sizes[k]]) >= mw;
+      }
+      if (avail_l) {
+        const size_t k = mi(mi_row, mi_col - 1);
+        left = (inter_at(k) ? kHigh4[mi_sizes[k]] * 4
+                            : kTxH[tx_sizes[k]]) >= mh;
+      }
       const int ctx = above + left;
       const int depth = sym.read(cdf.tx_size[cat][ctx], max_depth + 1);
       for (int i = 0; i < depth; ++i) tx_size = kSplitTx[tx_size];
@@ -1897,12 +2577,37 @@ struct Decoder {
           const int psz = p ? kSubSize[mi_size][ssx][ssy] : mi_size;
           const int n4w = kWide4[psz], n4h = kHigh4[psz];
           const int base_x = (mi_col >> sx) * 4, base_y = (mi_row >> sy) * 4;
+          if (is_inter && !lossless && p == 0) {
+            transform_tree(base_x + cx * 64, base_y + cy * 64,
+                           std::min(n4w, 16) * 4, std::min(n4h, 16) * 4);
+            continue;
+          }
           for (int y = 0; y < std::min(n4h, 16 >> sy); y += step_y)
             for (int x = 0; x < std::min(n4w, 16 >> sx); x += step_x)
               transform_block(p, base_x, base_y, txs, x + ((cx << 4) >> sx),
                               y + ((cy << 4) >> sy));
         }
       }
+  }
+
+  // an inter block's luma: its transforms as read_var_tx_size split it
+  void transform_tree(int x, int y, int w, int h) {
+    if (x >= mi_cols * 4 || y >= mi_rows * 4) return;
+    const int t = tx_sizes[mi(y >> 2, x >> 2)];
+    if (w <= kTxW[t] && h <= kTxH[t]) {
+      transform_block(0, x, y, kMaxTxRect[block_of(w >> 2, h >> 2)], 0, 0);
+    } else if (w > h) {
+      transform_tree(x, y, w / 2, h);
+      transform_tree(x + w / 2, y, w / 2, h);
+    } else if (w < h) {
+      transform_tree(x, y, w, h / 2);
+      transform_tree(x, y + h / 2, w, h / 2);
+    } else {
+      transform_tree(x, y, w / 2, h / 2);
+      transform_tree(x + w / 2, y, w / 2, h / 2);
+      transform_tree(x, y + h / 2, w / 2, h / 2);
+      transform_tree(x + w / 2, y + h / 2, w / 2, h / 2);
+    }
   }
 
   void transform_block(int p, int base_x, int base_y, int txs, int x, int y) {
@@ -1914,19 +2619,24 @@ struct Decoder {
     const int step_x = kTxW[txs] >> 2, step_y = kTxH[txs] >> 2;
     const int max_x = (mi_cols * 4) >> sx, max_y = (mi_rows * 4) >> sy;
     if (start_x >= max_x || start_y >= max_y) return;
-    const bool is_cfl = p > 0 && uv_mode == UV_CFL_PRED;
-    const int mode = p == 0 ? y_mode : (is_cfl ? DC_PRED : uv_mode);
-    const int log2w = log2i(kTxW[txs]), log2h = log2i(kTxH[txs]);
-    predict_intra(p, start_x, start_y,
-                  (p == 0 ? avail_l : avail_l_chroma) || x > 0,
-                  (p == 0 ? avail_u : avail_u_chroma) || y > 0,
-                  bd(p, (sub_r >> sy) - 1, (sub_c >> sx) + step_x),
-                  bd(p, (sub_r >> sy) + step_y, (sub_c >> sx) - 1),
-                  mode, log2w, log2h);
-    if (is_cfl) predict_cfl(p, start_x, start_y, txs);
-    if (p == 0) {
-      max_luma_w = start_x + step_x * 4;
-      max_luma_h = start_y + step_y * 4;
+    if (!is_inter) {
+      if (pal.size[p > 0]) {
+        predict_palette(p, start_x, start_y, x, y, txs);
+      } else {
+        const bool is_cfl = p > 0 && uv_mode == UV_CFL_PRED;
+        const int mode = p == 0 ? y_mode : (is_cfl ? DC_PRED : uv_mode);
+        predict_intra(p, start_x, start_y,
+                      (p == 0 ? avail_l : avail_l_chroma) || x > 0,
+                      (p == 0 ? avail_u : avail_u_chroma) || y > 0,
+                      bd(p, (sub_r >> sy) - 1, (sub_c >> sx) + step_x),
+                      bd(p, (sub_r >> sy) + step_y, (sub_c >> sx) - 1),
+                      mode, log2i(kTxW[txs]), log2i(kTxH[txs]));
+        if (is_cfl) predict_cfl(p, start_x, start_y, txs);
+      }
+      if (p == 0) {
+        max_luma_w = start_x + step_x * 4;
+        max_luma_h = start_y + step_y * 4;
+      }
     }
     if (!skip) {
       const int eob = coeffs(p, start_x, start_y, txs);
@@ -1943,14 +2653,26 @@ struct Decoder {
 
   int tx_set(int txs) const {
     if (tx_sqr_up(txs) > TX_32X32) return TX_SET_DCTONLY;
+    if (is_inter) {
+      if (reduced_tx_set || tx_sqr_up(txs) == TX_32X32) return TX_SET_INTER_3;
+      if (tx_sqr(txs) == TX_16X16) return TX_SET_INTER_2;
+      return TX_SET_INTER_1;
+    }
     if (tx_sqr_up(txs) == TX_32X32) return TX_SET_DCTONLY;
     if (reduced_tx_set) return TX_SET_INTRA_2;
     if (tx_sqr(txs) == TX_16X16) return TX_SET_INTRA_2;
     return TX_SET_INTRA_1;
   }
 
-  static bool in_set(int set, int type) {
+  bool in_set(int set, int type) const {
     if (set == TX_SET_DCTONLY) return type == DCT_DCT;
+    if (is_inter) {
+      if (set == TX_SET_INTER_1) return true;
+      if (set == TX_SET_INTER_2)
+        return type != V_ADST && type != H_ADST && type != V_FLIPADST &&
+               type != H_FLIPADST;
+      return type == IDTX || type == DCT_DCT;
+    }
     if (set == TX_SET_INTRA_1)
       return type == IDTX || type == DCT_DCT || type == V_DCT ||
              type == H_DCT || type == ADST_ADST || type == ADST_DCT ||
@@ -1962,6 +2684,11 @@ struct Decoder {
   int compute_tx_type(int p, int txs, int x4, int y4) {
     if (lossless || tx_sqr_up(txs) > TX_32X32) return DCT_DCT;
     if (p == 0) return tx_types[mi(y4, x4)];
+    if (is_inter) {     // the co-located luma type, where the set has it
+      const int t = tx_types[mi(std::max(mi_row, y4 << ssy),
+                                std::max(mi_col, x4 << ssx))];
+      return in_set(tx_set(txs), t) ? t : DCT_DCT;
+    }
     const int t = kModeToTxfm[uv_mode];
     return in_set(tx_set(txs), t) ? t : DCT_DCT;
   }
@@ -2201,7 +2928,12 @@ struct Decoder {
       const int dir =
           use_filter_intra ? kFilterIntraToDir[filter_intra_mode] : y_mode;
       const int sqr = tx_sqr(txs);
-      if (set == TX_SET_INTRA_1)
+      if (is_inter) {
+        uint16_t* c = cdf.inter_tx[set - 1][sqr];
+        type = set == TX_SET_INTER_1 ? kTxTypeInterInvSet1[sym.read(c, 16)]
+               : set == TX_SET_INTER_2 ? kTxTypeInterInvSet2[sym.read(c, 12)]
+                                       : kTxTypeInterInvSet3[sym.read(c, 2)];
+      } else if (set == TX_SET_INTRA_1)
         type = kTxTypeInvSet1[sym.read(cdf.intra_tx[0][sqr][dir], 7)];
       else
         type = kTxTypeInvSet2[sym.read(cdf.intra_tx[1][sqr][dir], 5)];
@@ -2261,16 +2993,22 @@ struct Decoder {
         for (int i = 0; i < 4; ++i) R[i * 4 + j] = t[i];
       }
     } else {
-      const int row_kind = (plane_tx_type == IDTX || plane_tx_type == V_DCT) ? 2
-                           : (plane_tx_type == DCT_ADST || plane_tx_type == ADST_ADST) ? 1 : 0;
-      const int col_kind = (plane_tx_type == IDTX || plane_tx_type == H_DCT) ? 2
-                           : (plane_tx_type == ADST_DCT || plane_tx_type == ADST_ADST) ? 1 : 0;
+      // each type's vertical (column) and horizontal (row) 1D kinds:
+      // 0 DCT, 1 ADST, 2 FLIPADST (an ADST whose output is flipped),
+      // 3 identity
+      static const uint8_t kCol[16] = {0, 1, 0, 1, 2, 0, 2, 1, 2, 3, 0, 3,
+                                       1, 3, 2, 3};
+      static const uint8_t kRow[16] = {0, 0, 1, 1, 0, 2, 2, 2, 1, 3, 3, 0,
+                                       3, 1, 3, 2};
+      const int col_kind = kCol[plane_tx_type], row_kind = kRow[plane_tx_type];
+      const bool flip_ud = col_kind == 2, flip_lr = row_kind == 2;
       const int row_shift = kRowShift[txs];
       const int rlim = 1 << (bit_depth + 7);
       const int clim = 1 << (std::max(bit_depth + 6, 16) - 1);
       Tx1D rowtx{-rlim, rlim - 1};
       Tx1D coltx{-clim, clim - 1};
       const bool rect = std::abs(log2w - log2h) == 1;
+      static const int kRun[4] = {0, 1, 1, 2};    // Tx1D::run's kinds
       for (int i = 0; i < std::min(h, 32); ++i) {
         bool any = false;
         for (int j = 0; j < w; ++j) {
@@ -2279,13 +3017,15 @@ struct Decoder {
           t[j] = static_cast<int32_t>(std::min<int64_t>(std::max<int64_t>(v, -rlim), rlim - 1));
           any |= t[j] != 0;
         }
-        if (any) rowtx.run(row_kind, t, w);
-        for (int j = 0; j < w; ++j) R[i * w + j] = round2(t[j], row_shift);
+        if (any) rowtx.run(kRun[row_kind], t, w);
+        for (int j = 0; j < w; ++j)
+          R[i * w + (flip_lr ? w - 1 - j : j)] = round2(t[j], row_shift);
       }
       for (int j = 0; j < w; ++j) {
         for (int i = 0; i < h; ++i) t[i] = clip3(-clim, clim - 1, R[i * w + j]);
-        coltx.run(col_kind, t, h);
-        for (int i = 0; i < h; ++i) R[i * w + j] = round2(t[i], 4);
+        coltx.run(kRun[col_kind], t, h);
+        for (int i = 0; i < h; ++i)
+          R[(flip_ud ? h - 1 - i : i) * w + j] = round2(t[i], 4);
       }
     }
     Plane& P = cur[p];
@@ -2747,7 +3487,7 @@ struct Decoder {
   // CDEF (spec 7.15)
 
   void cdef() {
-    if (!enable_cdef || coded_lossless) return;
+    if (!enable_cdef || coded_lossless || allow_intrabc) return;
     Plane src[3];
     for (int p = 0; p < num_planes; ++p) src[p] = cur[p];
     for (int r = 0; r < mi_rows; r += 16)
@@ -3326,16 +4066,15 @@ struct Decoder {
         case 3: case 6:
           if (frame_done) break;
           frame_header(r, temporal_id, spatial_id);
+          if (type == 3) r.trailing_bits();
+          else r.zero_align();
           if (headers_only) return;
           allocate();
-          if (type == 6) {
-            r.byte_align();
-            tile_group(r, body, size);
-          }
+          if (type == 6) tile_group(r, body, size, true);
           break;
         case 4:
           if (headers_only) return;
-          tile_group(r, body, size);
+          tile_group(r, body, size, false);
           break;
         case 7:
           break;
@@ -3381,6 +4120,8 @@ int av1_probe(const uint8_t* data, int64_t len, int32_t* info, char* msg,
     info[15] = dec.use_128 ? 128 : 64;
     info[16] = dec.tile_cols;
     info[17] = dec.frame_w;
+    info[18] = dec.allow_screen_content_tools;
+    info[19] = dec.allow_intrabc;
     return 0;
   } catch (const Fail& f) {
     set_msg(msg, msg_len, f.msg);
@@ -3391,7 +4132,7 @@ int av1_probe(const uint8_t* data, int64_t len, int32_t* info, char* msg,
 }
 
 int av1_decode(const uint8_t* data, int64_t len, uint16_t* y, uint16_t* u,
-               uint16_t* v, char* msg, int msg_len) {
+               uint16_t* v, int32_t* counts, char* msg, int msg_len) {
   try {
     Decoder dec;
     dec.run(data, static_cast<size_t>(len), false);
@@ -3402,6 +4143,13 @@ int av1_decode(const uint8_t* data, int64_t len, uint16_t* y, uint16_t* u,
       const int w = (dec.upscaled_w + sx) >> sx, h = (dec.frame_h + sy) >> sy;
       for (int i = 0; i < h; ++i)
         std::memcpy(out[p] + size_t(i) * w, dec.cur[p].at(i, 0), w * sizeof(uint16_t));
+    }
+    if (counts) {
+      counts[0] = dec.palette_y_blocks;
+      counts[1] = dec.palette_uv_blocks;
+      counts[2] = dec.palette_sizes & ~1;
+      counts[3] = dec.intrabc_blocks;
+      counts[4] = dec.intrabc_default_dv;
     }
     return 0;
   } catch (const Fail& f) {

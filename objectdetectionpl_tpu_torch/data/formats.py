@@ -1760,6 +1760,99 @@ def _avif_item_data(data: bytes, meta: dict, item: int) -> bytes:
     return b"".join(parts)
 
 
+def _avif_grid_tiles(data: bytes, meta: dict, item: int) -> list:
+    """A grid item's tiles, in its dimg reference's order: (item, its
+    properties); FormatError where libavif refuses them (cv2 then reads
+    no image): a tile that is not av01, one with an essential property
+    libavif does not know, one without av1C or ispe, av1C fields
+    (profile, level, tier, depth, monochrome, subsampling, chroma
+    position) unlike the first tile's."""
+    tiles = []
+    for ref, src, dst in meta["iref"]:
+        if ref != b"dimg" or src != item:
+            continue
+        if meta["infe"].get(dst) != b"av01":
+            raise FormatError(f"grid tile {dst} is not an av01 item (cv2 "
+                              f"refuses it)")
+        props = _avif_props(data, meta, dst)
+        for box in (b"av1C", b"ispe"):
+            if box not in props:
+                raise FormatError(f"grid tile {dst} has no {box.decode()} "
+                                  f"(cv2 refuses it)")
+        tiles.append((dst, props))
+    if not tiles:
+        raise FormatError("a grid without tiles (cv2 refuses it)")
+    fields = [data[a + 1:a + 3] for a, _ in (p[b"av1C"] for _, p in tiles)]
+    if any(f != fields[0] for f in fields):
+        raise FormatError("grid tiles whose av1C differ (cv2 refuses them)")
+    return tiles
+
+
+def _avif_grid(data: bytes, meta: dict, item: int, tiles: list, av1):
+    """A grid item's planes as libavif assembles them: the ImageGrid body
+    (version 0; flag bit 0 for 32-bit output sizes) over rows x columns
+    tiles of one size, checked as libavif checks them (MIAF's: tiles of
+    at least 64x64, even sizes where chroma is subsampled; the output
+    covered, and each last row and column inside it), each tile decoded
+    by ``av1`` and copied in, the whole cropped to the output size."""
+    grid = _avif_item_data(data, meta, item)
+    body = _Reader(grid, 0, len(grid), "grid")
+    version, flags = body.uint(1), body.uint(1)
+    if version != 0:
+        raise FormatError(f"an ImageGrid of version {version} (cv2 refuses "
+                          f"it)")
+    rows, cols = body.uint(1) + 1, body.uint(1) + 1
+    n = 4 if flags & 1 else 2
+    out_w, out_h = body.uint(n), body.uint(n)
+    if body.pos != body.end or not out_w or not out_h:
+        raise FormatError("a malformed ImageGrid (cv2 refuses it)")
+    check_size(out_w, out_h)
+    if len(tiles) != rows * cols:
+        raise FormatError(f"a {rows}x{cols} grid of {len(tiles)} tiles (cv2 "
+                          f"refuses it)")
+    decoded = []
+    for t, props in tiles:
+        ispe = _Reader(data, *props[b"ispe"], "ispe")
+        ispe.full()
+        size = ispe.uint(4), ispe.uint(4)
+        decoded.append(av1(_avif_item_data(data, meta, t)))
+        if decoded[-1][0][0].shape[::-1] != size:
+            # libavif scales the frame to the tile's ispe: a deliberate
+            # difference, as for a single item
+            raise FormatError(f"grid tile {t}'s ispe {size[0]}x{size[1]} is "
+                              f"not its AV1 frame's "
+                              f"{decoded[-1][0][0].shape[1]}x"
+                              f"{decoded[-1][0][0].shape[0]}")
+    planes0, info0 = decoded[0]
+    th, tw = planes0[0].shape
+    keys = ("subsampling", "full_range", "matrix", "primaries", "transfer")
+    for planes, info in decoded[1:]:
+        if planes[0].shape != (th, tw) or len(planes) != len(planes0) or any(
+                info[k] != info0[k] for k in keys):
+            raise FormatError("grid tiles that differ in size or colour "
+                              "(cv2 refuses them)")
+    sx, sy = info0["subsampling"]
+    mono = len(planes0) == 1
+    if tw < 64 or th < 64 or (not mono and (
+            (sx and (out_w % 2 or tw % 2)) or (sy and (out_h % 2 or th % 2)))):
+        raise FormatError(f"grid tiles of {tw}x{th} for a {out_w}x{out_h} "
+                          f"image, which MIAF forbids (cv2 refuses them)")
+    if tw * cols < out_w or th * rows < out_h or tw * (cols - 1) >= out_w \
+            or th * (rows - 1) >= out_h:
+        raise FormatError(f"{rows}x{cols} tiles of {tw}x{th} do not fit a "
+                          f"{out_w}x{out_h} image (cv2 refuses them)")
+    out = []
+    for p in range(len(planes0)):
+        px, py = (sx, sy) if p else (0, 0)
+        plane = np.empty(((out_h + py) >> py, (out_w + px) >> px), np.uint16)
+        for i, (planes, _) in enumerate(decoded):
+            y0, x0 = (i // cols) * th >> py, (i % cols) * tw >> px
+            part = planes[p][:plane.shape[0] - y0, :plane.shape[1] - x0]
+            plane[y0:y0 + part.shape[0], x0:x0 + part.shape[1]] = part
+        out.append(plane)
+    return out, info0
+
+
 def read_avif(data: bytes, av1) -> np.ndarray:
     """AVIF bytes -> uint8 [H, W, 3] RGB, as cv2.imread reads them through
     libavif: the primary av01 item's AV1 stream decoded by the host
@@ -1774,10 +1867,13 @@ def read_avif(data: bytes, av1) -> np.ndarray:
     clap, an ICC colr, EXIF, the hidden flag, a1op / lsel / a1lx (a
     stream of several layers the decoder refuses).  Refused as cv2
     refuses them: an essential property libavif does not know, pixi
-    depths that are not av1C's.  Refused, naming themselves: grid items,
+    depths that are not av1C's.  A grid primary item is assembled from
+    its av01 tiles as libavif does (:func:`_avif_grid`), then converted
+    as a whole (the chroma upsampling reads across the tiles' seams);
+    its own ispe, colr and pixi apply.  Refused, naming themselves:
     image sequences, premultiplied alpha, an ispe that is not the AV1
-    frame's size (cv2 writes the frame's rows into a buffer of ispe's
-    size)."""
+    frame's (or the grid's output) size (cv2 writes the frame's rows into
+    a buffer of ispe's size)."""
     boxes = _jp2_boxes(data, 0, len(data))
     first = next(boxes, None)
     if first is None or first[0] != b"ftyp":
@@ -1808,9 +1904,7 @@ def read_avif(data: bytes, av1) -> np.ndarray:
     if item is None or item not in meta["infe"]:
         raise FormatError("no primary item")
     kind = meta["infe"][item]
-    if kind == b"grid":
-        raise FormatError("a grid image, which the port does not read")
-    if kind != b"av01":
+    if kind not in (b"av01", b"grid"):
         raise FormatError(f"a primary item of type {kind!r}")
     for ref, src, dst in meta["iref"]:
         if ref == b"prem" and src == item:
@@ -1823,9 +1917,12 @@ def read_avif(data: bytes, av1) -> np.ndarray:
     ispe.full()
     size = ispe.uint(4), ispe.uint(4)
     check_size(*size)
-    if b"av1C" not in props:
+    tiles = _avif_grid_tiles(data, meta, item) if kind == b"grid" else None
+    # a grid takes its first tile's av1C (libavif copies it to the grid)
+    config = props if b"av1C" in props or tiles is None else tiles[0][1]
+    if b"av1C" not in config:
         raise FormatError("the primary item has no av1C")
-    at, stop = props[b"av1C"]
+    at, stop = config[b"av1C"]
     if stop - at < 4 or data[at] != 0x81:
         raise FormatError("a malformed av1C")
     depth = 12 if data[at + 2] & 0x20 else 10 if data[at + 2] & 0x40 else 8
@@ -1838,11 +1935,14 @@ def read_avif(data: bytes, av1) -> np.ndarray:
                               f"av1C's {depth} (cv2 refuses them)")
     # libavif hands libaom the item's data alone: a sequence header among
     # av1C's config OBUs only does not make a file cv2 reads
-    planes, info = av1(_avif_item_data(data, meta, item))
-    if planes[0].shape[::-1] != size:
-        raise FormatError(f"ispe's {size[0]}x{size[1]} is not the AV1 "
-                          f"frame's {planes[0].shape[1]}x"
-                          f"{planes[0].shape[0]}")
+    if tiles is None:
+        planes, info = av1(_avif_item_data(data, meta, item))
+    else:
+        planes, info = _avif_grid(data, meta, item, tiles, av1)
+    if planes[0].shape[::-1] != size:       # cv2 refuses it for a grid
+        raise FormatError(f"ispe's {size[0]}x{size[1]} is not the "
+                          f"{'grid' if tiles else 'AV1 frame'}'s "
+                          f"{planes[0].shape[1]}x{planes[0].shape[0]}")
     if b"nclx" in props:
         c = _Reader(data, *props[b"nclx"], "colr")
         primaries, _, matrix, full = (c.uint(2), c.uint(2), c.uint(2),

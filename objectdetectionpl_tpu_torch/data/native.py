@@ -222,7 +222,7 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.av1_probe.argtypes = [u8p, ctypes.c_int64, i32p, ctypes.c_char_p, ci]
     lib.av1_probe.restype = ci
     u16p = ctypes.POINTER(ctypes.c_uint16)
-    lib.av1_decode.argtypes = [u8p, ctypes.c_int64, u16p, u16p, u16p,
+    lib.av1_decode.argtypes = [u8p, ctypes.c_int64, u16p, u16p, u16p, i32p,
                                ctypes.c_char_p, ci]
     lib.av1_decode.restype = ci
     _lib = lib
@@ -593,7 +593,7 @@ AV1_INFO = ("width", "height", "subsampling_x", "subsampling_y",
             "monochrome", "bit_depth", "full_range", "matrix", "primaries",
             "transfer", "restoration_y", "restoration_u", "restoration_v",
             "superres_denom", "apply_grain", "superblock", "tile_cols",
-            "coded_width")
+            "coded_width", "screen_content_tools", "intrabc")
 
 
 def av1_probe(stream: bytes) -> dict:
@@ -613,7 +613,10 @@ def av1_probe(stream: bytes) -> dict:
 
 def _av1(stream: bytes):
     """An AV1 still's OBUs -> ([Y, U, V] uint16 planes, or [Y] for a
-    monochrome stream, and the sequence header's colour fields), by
+    monochrome stream, and the sequence header's colour fields with what
+    the stream used: blocks with a Y or UV palette, the palette sizes,
+    intra block copy blocks and those whose reference vector was the
+    default), by
     ``csrc/av1_decode.cc``; FormatError with the tool it refuses."""
     lib = _lib_or_raise()
     src = np.frombuffer(stream or bytes(1), np.uint8)
@@ -627,11 +630,20 @@ def _av1(stream: bytes):
     u16p = ctypes.POINTER(ctypes.c_uint16)
     ptrs = [p.ctypes.data_as(u16p) for p in planes]
     ptrs += [None] * (3 - len(ptrs))
+    counts = np.zeros(5, np.int32)
     msg = ctypes.create_string_buffer(MSG_LEN)
-    if lib.av1_decode(_u8(src), len(stream), *ptrs, msg, MSG_LEN):
+    if lib.av1_decode(_u8(src), len(stream), *ptrs, _i32(counts), msg,
+                      MSG_LEN):
         raise _format_error(msg)
     return planes, {"subsampling": (sx, sy), "full_range": info["full_range"],
-                    "matrix": info["matrix"], "primaries": info["primaries"]}
+                    "matrix": info["matrix"], "primaries": info["primaries"],
+                    "transfer": info["transfer"],
+                    "palette_y_blocks": int(counts[0]),
+                    "palette_uv_blocks": int(counts[1]),
+                    "palette_sizes": [n for n in range(2, 9)
+                                      if counts[2] >> n & 1],
+                    "intrabc_blocks": int(counts[3]),
+                    "intrabc_default_dv": int(counts[4])}
 
 
 def _exif_orientation(tiff: bytes) -> int:

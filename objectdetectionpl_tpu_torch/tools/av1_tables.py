@@ -1,6 +1,8 @@
-"""Write ``csrc/av1_tables.h``: the AV1 decoder's default CDFs, its
-quantizer lookups, the intra tables the specification lists by value and
-those of loop restoration, superres and film grain, read from the read-only data of libaom 3.6 (``libaom.so.3``, found in the
+"""Write ``csrc/av1_tables.h``: the AV1 decoder's default CDFs (intra
+modes, coefficients, palettes, intra block copy's vectors and inter
+transforms), its quantizer lookups, the intra tables the specification
+lists by value and those of loop restoration, superres and film grain,
+read from the read-only data of libaom 3.6 (``libaom.so.3``, found in the
 dynamic linker's cache unless ``--lib`` names it).
 
     python -m objectdetectionpl_tpu_torch.tools.av1_tables [--lib P] [--check]
@@ -99,7 +101,33 @@ CDFS = (
      (4, 5, 2, 42, 5), 4),
     ("Default_Coeff_Br_Cdf", (14298, 20718, 24174, 0, 0, 12536),
      (4, 5, 2, 21, 5), 4),
+    # palettes: the sizes by block size, the colour indices by palette
+    # size (2..8 symbols) and colour context
+    ("Default_Palette_Y_Size_Cdf", (7952, 13000, 18149, 21478), (7, 8), 7),
+    ("Default_Palette_Uv_Size_Cdf", (8713, 19979, 27128, 29609), (7, 8), 7),
+    ("Default_Palette_Y_Color_Cdf", (28710,) + (0,) * 8 + (16384,),
+     (7, 5, 9), lambda i: i[0] + 2),
+    ("Default_Palette_Uv_Color_Cdf", (29089,) + (0,) * 8 + (16384,),
+     (7, 5, 9), lambda i: i[0] + 2),
+    # intra block copy: the var-tx split flag, the inter tx-type CDFs (sets
+    # 1, 2 and 3 of libaom's [4][4][17]; set 0, DCT only, holds none) and
+    # the MV joint CDF, the first field of libaom's MV context
+    ("Default_Txfm_Split_Cdf", (28581, 0, 0, 23846), (21, 3), 2, 0,
+     ("chunks", ((0, 56, 0), (55, 8, 56)))),
+    ("Default_Inter_Tx_Type_Cdf", (4458, 5560, 7695, 9709), (3, 4, 17),
+     lambda i: (16, 12, 2)[i[0]]),
+    ("Default_Mv_Joint_Cdf", (4096, 11264, 19328), (5,), 4),
 )
+
+# The MV context's per-component CDFs an integer vector reads, at their
+# offsets (in values) from the joint CDF's start in libaom's
+# nmv_context {joints, comps[2]}: a component is 69 values, and the two
+# hold the same defaults (checked).
+MV_COMP = 69
+MV_CDFS = (("Default_Mv_Class_Cdf", 5, (12,), 11),
+           ("Default_Mv_Sign_Cdf", 32, (3,), 2),
+           ("Default_Mv_Class0_Bit_Cdf", 41, (3,), 2),
+           ("Default_Mv_Bit_Cdf", 44, (10, 3), 2))
 
 # libaom keeps these as immediates in its code, not as data: the
 # filter-intra mode CDF is found there all the same (four values), and so
@@ -114,7 +142,15 @@ TEXT_CDFS = (("Default_Filter_Intra_Mode_Cdf", (8949, 12776, 17211, 29558),
               "Default_Restoration_Type_Cdf"),
              ("Default_Use_Sgrproj_Cdf", (16855,), (3,), 2,
               "Default_Use_Wiener_Cdf"))
-SPEC_CDFS = (("Default_Palette_Uv_Mode_Cdf", ((32461,), (21488,)), 2),)
+# so is the intra block copy flag's one value (an immediate found many
+# times over)
+SPEC_CDFS = (("Default_Palette_Uv_Mode_Cdf", ((32461,), (21488,)), 2),
+             ("Default_Intrabc_Cdf", ((30531,),), 2))
+# the palette colour context's neighbour weights (left, above-left,
+# above) and hash multipliers are the specification's: libaom keeps them
+# as int arrays of three small values, found many times over
+SPEC_TABLES = (("Palette_Color_Weights", (2, 1, 2)),
+               ("Palette_Color_Hash_Multipliers", (1, 2, 2)))
 
 # other tables: (name, C type, leading values, numpy type, count or
 # shape)
@@ -143,6 +179,9 @@ PLAIN = (
      np.int16, (64, 8)),
     ("Gaussian_Sequence", "int16_t", (56, 568, -180, 172, 124, -84, 172, -64),
      np.int32, 2048),
+    # the palette colour context of each hash (-1 where none)
+    ("Palette_Color_Context", "int8_t", (-1, -1, 0, -1, -1, 4, 3, 2, 1),
+     np.int32, 9),
 )
 
 # The Wiener and self-guided coefficient limits are macros in libaom: its
@@ -287,6 +326,13 @@ def read_tables(path: str) -> dict:
         raw = np.zeros(dims, np.uint16)
         raw[:nsym - 1] = np.frombuffer(lib, np.uint16, nsym - 1, at)
         tables[name] = _rows(raw, dims, nsym, name)
+    joint = _find_one(lib, ro, _icdf(CDFS[-1][1]), "Default_Mv_Joint_Cdf")
+    for name, off, dims, nsym in MV_CDFS:
+        comps = [_rows(_stored(lib, joint + 2 * (off + c * MV_COMP), dims,
+                               None), dims, nsym, name) for c in (0, 1)]
+        if not np.array_equal(*comps):
+            raise TableError(f"{name}: the MV components differ")
+        tables[name] = comps[0]
     for name, rows, n in SPEC_CDFS:
         t = np.zeros((len(rows), n + 1), np.int64)
         for i, r in enumerate(rows):
@@ -306,6 +352,8 @@ def read_tables(path: str) -> dict:
             raise TableError(f"{name}: {len(copies)} different tables")
         tables[name] = np.frombuffer(copies.pop(), dt).astype(
             np.int64).reshape(shape)
+    for name, values in SPEC_TABLES:
+        tables[name] = np.array(values)
     tables.update(_restoration_limits(lib, ro))
     # the formulas against the library's cospi / sinpi arrays (cos_bit 12)
     cos = [round(4096 * math.cos(i * math.pi / 128)) for i in range(64)]
@@ -359,13 +407,15 @@ def render(tables: dict) -> str:
              "the AV1 specification's rising form:\n// a row of N symbols "
              "holds x_1 .. x_(N-1), 32768, then a 0 counter.\n",
              "#pragma once\n#include <stdint.h>\n"]
-    for name, *_ in CDFS + TEXT_CDFS:
+    for name, *_ in CDFS + TEXT_CDFS + MV_CDFS:
         lines.append(_c_array(name, "uint16_t", tables[name]))
     for name, *_ in SPEC_CDFS:
         lines.append(_c_array(name, "uint16_t", tables[name]))
     for name, ctype, *_ in PLAIN:
         lines.append(_c_array(name, ctype, tables[name]))
     for name in LIMITS:
+        lines.append(_c_array(name, "int8_t", tables[name]))
+    for name, _ in SPEC_TABLES:
         lines.append(_c_array(name, "int8_t", tables[name]))
     return "\n".join(lines)
 

@@ -98,7 +98,9 @@ KINDS = ("jpeg", "jpeg_cmyk", "jpeg_ycck", "jpeg_arithmetic",
          "tiff_logluv24_tiles", "tiff_g3_cut", "j2k_part2", "jp2_part2",
          "avif_cv2", "avif_pillow", "avif_444", "avif_422", "avif_400",
          "avif_lossless", "avif_tiles_sb128", "avif_odd", "avif_500x375",
-         "avif_wiener", "avif_sgrproj", "avif_superres", "avif_film_grain")
+         "avif_wiener", "avif_sgrproj", "avif_superres", "avif_film_grain",
+         "avif_palette_444", "avif_palette_420", "avif_intrabc",
+         "avif_grid_cropped")
 COMMITTED = {"jpeg": TESTDATA / BASE,
              "jpeg_cmyk": TESTDATA / UNSUPPORTED[0],
              "jpeg_ycck": FORMATS / "ycck_420_q85_160x120.jpg",
@@ -137,7 +139,12 @@ COMMITTED = {"jpeg": TESTDATA / BASE,
              "avif_wiener": FORMATS / "avif_wiener_160x120.avif",
              "avif_sgrproj": FORMATS / "avif_sgrproj_sb128_160x120.avif",
              "avif_superres": FORMATS / "avif_superres_d16_tiles2_288x64.avif",
-             "avif_film_grain": FORMATS / "avif_film_grain1_160x120.avif"}
+             "avif_film_grain": FORMATS / "avif_film_grain1_160x120.avif",
+             "avif_palette_444": FORMATS / "avif_palette_444_160x120.avif",
+             "avif_palette_420":
+                 FORMATS / "avif_palette_420_sb128_157x117.avif",
+             "avif_intrabc": FORMATS / "avif_intrabc_420_160x120.avif",
+             "avif_grid_cropped": FORMATS / "avif_grid_2x2_120x100.avif"}
 AVIF_KINDS = tuple(k for k in KINDS if k.startswith("avif"))
 
 
@@ -1111,24 +1118,44 @@ def avif_bytes(obus: bytes, w: int, h: int, av1c: bytes,
     return ftyp + meta_of(pieces, payload) + heif_box(b"mdat", payload)
 
 
-def avif_grid_bytes(obus: bytes, w: int, h: int, av1c: bytes, rows: int,
-                    cols: int) -> bytes:
-    """An AVIF whose primary item is a rows x cols grid (in idat) of the
-    w x h av01 item ``obus``: every tile the same stream, one extent."""
-    n = rows * cols
+def avif_grid_bytes(tiles, w: int, h: int, av1c: bytes, rows: int,
+                    cols: int, output=None, body: bytes = None, ispe=None,
+                    tile_av1c=None, tile_ispe=None,
+                    tile_kind: bytes = b"av01") -> bytes:
+    """An AVIF whose primary item is a rows x cols grid (in idat) of w x h
+    av01 tiles, the AV1 streams ``tiles`` in raster order (as many as
+    given: a count unlike rows x cols makes a grid libavif refuses), the
+    grid's colr BT.601 full range.  ``output`` the grid's (width,
+    height), by default the tiles' cover (32-bit fields past 65535);
+    ``body`` an ImageGrid body in its place; ``ispe`` the grid's ispe,
+    by default the output; ``tile_av1c`` an av1C body for each tile in
+    place of ``av1c``; ``tile_ispe`` a (width, height) or None (no ispe)
+    for each tile in place of (w, h); ``tile_kind`` the tiles' item
+    type."""
+    streams = list(tiles)
+    n = len(streams)
     grid_id = n + 1
-    nclx = heif_box(b"colr", b"nclx" + struct.pack(">HHHB", 1, 13, 6, 128))
-    props = [heif_box(b"ispe", struct.pack(">II", w, h), 0),
-             heif_box(b"pixi", bytes([3, 8, 8, 8]), 0),
-             heif_box(b"av1C", av1c), nclx,
-             heif_box(b"ispe", struct.pack(">II", w * cols, h * rows), 0)]
+    out_w, out_h = output or (w * cols, h * rows)
+    props = [heif_box(b"pixi", bytes([3, 8, 8, 8]), 0),
+             heif_box(b"colr", b"nclx" + struct.pack(">HHHB", 1, 13, 6, 128)),
+             heif_box(b"ispe", struct.pack(">II", *(ispe or (out_w, out_h))),
+                      0)]
     ipma = struct.pack(">I", n + 1)
-    for iid in range(1, n + 1):
-        ipma += struct.pack(">HB", iid, 4) + bytes([1, 2, 0x83, 4])
-    ipma += struct.pack(">HB", grid_id, 3) + bytes([5, 2, 4])
+    for iid, config, size in zip(range(1, n + 1), tile_av1c or [av1c] * n,
+                                 tile_ispe or [(w, h)] * n):
+        own = [(heif_box(b"av1C", config), 0x80)]
+        if size is not None:
+            own.append((heif_box(b"ispe", struct.pack(">II", *size), 0), 0))
+        index = []
+        for box, essential in own:         # each distinct box once
+            if box not in props:
+                props.append(box)
+            index.append(essential | props.index(box) + 1)
+        ipma += struct.pack(">HB", iid, len(index) + 2) + bytes(index + [1, 2])
+    ipma += struct.pack(">HB", grid_id, 3) + bytes([3, 1, 2])
     iprp = heif_box(b"iprp", heif_box(b"ipco", b"".join(props))
                     + heif_box(b"ipma", ipma, 0))
-    infes = b"".join(heif_box(b"infe", struct.pack(">HH", iid, 0) + b"av01"
+    infes = b"".join(heif_box(b"infe", struct.pack(">HH", iid, 0) + tile_kind
                               + b"\0", 2, 1) for iid in range(1, n + 1))
     infes += heif_box(b"infe", struct.pack(">HH", grid_id, 0) + b"grid\0",
                       2)
@@ -1136,32 +1163,36 @@ def avif_grid_bytes(obus: bytes, w: int, h: int, av1c: bytes, rows: int,
     iref = heif_box(b"iref", heif_box(b"dimg", struct.pack(
         ">HH", grid_id, n) + b"".join(struct.pack(">H", i)
                                       for i in range(1, n + 1))), 0)
-    grid = bytes([0, 0, rows - 1, cols - 1]) + struct.pack(
-        ">HH", w * cols, h * rows)
+    if body is None:
+        wide = max(out_w, out_h) > 0xFFFF
+        body = bytes([0, int(wide), rows - 1, cols - 1]) + struct.pack(
+            ">II" if wide else ">HH", out_w, out_h)
     ftyp = heif_box(b"ftyp", b"avif\0\0\0\0avifmif1miaf")
     hdlr = heif_box(b"hdlr", b"\0" * 4 + b"pict" + b"\0" * 13, 0)
     pitm = heif_box(b"pitm", struct.pack(">H", grid_id), 0)
 
     def meta(start):        # the tiles in mdat, the grid in idat
-        body = struct.pack(">BBH", 0x44, 0, n + 1)
-        for iid in range(1, n + 1):
-            body += struct.pack(">HHHHII", iid, 0, 0, 1, start, len(obus))
-        body += struct.pack(">HHHHII", grid_id, 1, 0, 1, 0, len(grid))
-        return heif_box(b"meta", hdlr + pitm + heif_box(b"iloc", body, 1)
-                        + iinf + iref + iprp + heif_box(b"idat", grid), 0)
+        loc = struct.pack(">BBH", 0x44, 0, n + 1)
+        for iid, stream in enumerate(streams, 1):
+            loc += struct.pack(">HHHHII", iid, 0, 0, 1, start, len(stream))
+            start += len(stream)
+        loc += struct.pack(">HHHHII", grid_id, 1, 0, 1, 0, len(body))
+        return heif_box(b"meta", hdlr + pitm + heif_box(b"iloc", loc, 1)
+                        + iinf + iref + iprp + heif_box(b"idat", body), 0)
 
     start = len(ftyp) + len(meta(0)) + 8
-    return ftyp + meta(start) + heif_box(b"mdat", obus)
+    return ftyp + meta(start) + heif_box(b"mdat", b"".join(streams))
 
 
 # libaom 3.6's aom_codec_enc_cfg_t as unsigned ints: the fields the
 # encoder below sets, and default values it checks (the library's layout)
 _AOM_CFG = {"g_profile": 2, "g_w": 3, "g_h": 4, "g_limit": 5,
+            "g_bit_depth": 8, "g_input_bit_depth": 9,
             "rc_superres_mode": 19, "rc_superres_denominator": 20,
             "rc_superres_kf_denominator": 21, "rc_end_usage": 24,
             "monochrome": 52}
-_AOM_CFG_DEFAULTS = {3: 320, 4: 240, 20: 8, 21: 8, 34: 256, 36: 63,
-                     48: 9999}
+_AOM_CFG_DEFAULTS = {3: 320, 4: 240, 8: 8, 9: 8, 20: 8, 21: 8, 34: 256,
+                     36: 63, 48: 9999}
 AOM_ENCODER_ABI = 25        # AOM_ENCODER_ABI_VERSION of libaom 3.6
 # the subsamplings as aom_img_fmt_t and the profile each needs
 _AOM_FORMATS = {"4:2:0": (0x102, 0), "4:0:0": (0x102, 0),
@@ -1169,16 +1200,20 @@ _AOM_FORMATS = {"4:2:0": (0x102, 0), "4:0:0": (0x102, 0),
 
 
 def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
-               options=None, lib=None) -> bytes:
-    """One key frame of 8-bit ``planes`` ([Y, U, V] uint8 at the
-    subsampling's sizes, or [Y] for 4:0:0) through the system libaom.so.3
-    (3.6, found as ``tools/av1_tables.py`` finds it unless ``lib`` names
-    it) by ctypes: its OBUs.  Good-quality usage at a constant quantizer
-    (``options`` take aom_codec_set_option's keys: ``cq-level``,
-    ``cpu-used``, ``enable-restoration``, ``tile-columns``, ``sb-size``,
-    ``film-grain-test``, ...); ``superres`` a denominator 9..16 of fixed
-    superres (rc_superres_mode 1), which no key reaches.  RuntimeError
-    where the library is not libaom 3.6's layout."""
+               options=None, lib=None, bit_depth: int = 8) -> bytes:
+    """One key frame of ``planes`` ([Y, U, V] at the subsampling's sizes,
+    or [Y] for 4:0:0; uint8, or samples below 2**bit_depth for 10 or 12
+    bits) through the system libaom.so.3 (3.6, found as
+    ``tools/av1_tables.py`` finds it unless ``lib`` names it) by ctypes:
+    its OBUs.  Good-quality usage at a constant quantizer (``options``
+    take aom_codec_set_option's keys: ``cq-level``, ``cpu-used``,
+    ``enable-restoration``, ``tile-columns``, ``sb-size``,
+    ``film-grain-test``; ``tune-content`` "screen" with
+    ``enable-palette`` and ``enable-intrabc`` for palettes and intra
+    block copy, ...); ``superres`` a denominator 9..16 of fixed superres
+    (rc_superres_mode 1), which no key reaches; ``bit_depth`` above 8
+    through libaom's high-bitdepth route.  RuntimeError where the library
+    is not libaom 3.6's layout."""
     import ctypes
     from objectdetectionpl_tpu_torch.tools.av1_tables import find_libaom
     path = lib or find_libaom()
@@ -1209,14 +1244,17 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
             cfg[k] != v for k, v in _AOM_CFG_DEFAULTS.items()):
         raise RuntimeError(f"{path}: not libaom 3.6's encoder config")
     set_cfg = {"g_profile": profile, "g_w": w, "g_h": h, "g_limit": 1,
-               "rc_end_usage": 3, "monochrome": int(subsampling == "4:0:0")}
+               "rc_end_usage": 3, "monochrome": int(subsampling == "4:0:0"),
+               "g_bit_depth": bit_depth, "g_input_bit_depth": bit_depth}
     if superres is not None:
         set_cfg.update(rc_superres_mode=1, rc_superres_denominator=superres,
                        rc_superres_kf_denominator=superres)
     for k, v in set_cfg.items():
         cfg[_AOM_CFG[k]] = v
     ctx = ctypes.create_string_buffer(1024)
-    if aom.aom_codec_enc_init_ver(ctx, iface, cfg, 0, AOM_ENCODER_ABI):
+    high = bit_depth > 8        # AOM_CODEC_USE_HIGHBITDEPTH
+    if aom.aom_codec_enc_init_ver(ctx, iface, cfg, 0x40000 if high else 0,
+                                  AOM_ENCODER_ABI):
         raise RuntimeError(f"{path}: aom_codec_enc_init_ver failed")
     try:
         for k, v in (options or {}).items():
@@ -1225,17 +1263,19 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
         # aom_img_wrap's layout: luma padded to the subsampling's multiple
         # (align_image_dimension), then each chroma plane
         aw, ah = (w + sx) >> sx << sx, (h + sy) >> sy << sy
-        pieces = [np.zeros((ah, aw), np.uint8)]
+        dtype = np.uint16 if high else np.uint8
+        pieces = [np.zeros((ah, aw), dtype)]
         pieces[0][:h, :w] = planes[0]
         for c in range(2):
-            q = np.full((ah >> sy, aw >> sx), 128, np.uint8)
+            q = np.full((ah >> sy, aw >> sx), 1 << (bit_depth - 1), dtype)
             if len(planes) > 1:
                 q[:planes[1 + c].shape[0], :planes[1 + c].shape[1]] = \
                     planes[1 + c]
             pieces.append(q)
         buf = np.concatenate([q.reshape(-1) for q in pieces])
         img = ctypes.create_string_buffer(512)
-        if not aom.aom_img_wrap(img, fmt, w, h, 1, buf.ctypes.data):
+        if not aom.aom_img_wrap(img, fmt | (0x800 if high else 0), w, h, 1,
+                                buf.ctypes.data):
             raise RuntimeError("aom_img_wrap failed")
         out = b""
         for frame, flags in ((img, 1), (None, 0)):     # force a key frame
@@ -1255,14 +1295,15 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
         aom.aom_codec_destroy(ctx)
 
 
-def av1c_bytes(subsampling: str) -> bytes:
-    """An av1C body for an 8-bit stream of the subsampling: profile 0, 1
-    or 2 as ``aom_encode`` writes it, level 31, chroma position 0."""
+def av1c_bytes(subsampling: str, bit_depth: int = 8) -> bytes:
+    """An av1C body for a stream of the subsampling: profile 0, 1 or 2 as
+    ``aom_encode`` writes it, level 31, chroma position 0, 8 or 10 bits."""
     profile = _AOM_FORMATS[subsampling][1]
     mono = int(subsampling == "4:0:0")
     sx = int(subsampling in ("4:2:0", "4:0:0", "4:2:2"))
     sy = int(subsampling in ("4:2:0", "4:0:0"))
-    return bytes([0x81, profile << 5 | 31, mono << 4 | sx << 3 | sy << 2, 0])
+    return bytes([0x81, profile << 5 | 31, (bit_depth > 8) << 6 | mono << 4
+                  | sx << 3 | sy << 2, 0])
 
 
 def _yuv(rgb: np.ndarray, subsampling: str) -> list:
@@ -1319,6 +1360,66 @@ def avif_stage_files() -> Dict[str, bytes]:
             288, 64, av1c_bytes("4:2:0")),
         "avif_film_grain": pillow(crop, quality=60,
                                   advanced={"film-grain-test": "1"}),
+    }
+
+
+def screen_regions(h: int, w: int, seed: int) -> np.ndarray:
+    """Screen content for palettes: 32x32 regions, each of 2 to 8
+    colours laid out in 4x4 squares (RGB uint8)."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((h, w, 3), np.uint8)
+    for y in range(0, h, 32):
+        for x in range(0, w, 32):
+            k = int(rng.integers(2, 9))
+            colours = rng.integers(0, 256, (k, 3))
+            lab = rng.integers(0, k, (8, 8)).repeat(4, 0).repeat(4, 1)
+            part = img[y:y + 32, x:x + 32]
+            part[:] = colours[lab][:part.shape[0], :part.shape[1]]
+    return img
+
+
+def screen_text(h: int, w: int, seed: int) -> np.ndarray:
+    """Screen content for intra block copy: a page of ten 7x10 glyphs
+    drawn in one colour on another (RGB uint8)."""
+    rng = np.random.default_rng(seed)
+    glyphs = rng.integers(0, 2, (10, 10, 7)).astype(bool)
+    fg, bg = rng.integers(0, 256, (2, 3))
+    img = np.empty((h, w, 3), np.uint8)
+    img[:] = bg
+    for y in range(1, h - 10, 12):
+        for x in range(1, w - 7, 8):
+            img[y:y + 10, x:x + 7][glyphs[rng.integers(10)]] = fg
+    return img
+
+
+def avif_screen_files() -> Dict[str, bytes]:
+    """The committed AVIFs of screen content, from ``aom_encode`` with
+    libaom's screen tuning: palettes in 4:4:4 (Y and UV, 2 to 8 colours)
+    and in 4:2:0 at 157x117 over 128x128 superblocks, intra block copy in
+    a 4:2:0 page of text, and a 2x2 grid of 64x64 4:2:0 tiles (crops of
+    the 500x375 fixture) cropped to 120x100.  Needs the system libaom."""
+    screen = {"tune-content": "screen", "cpu-used": 4}
+
+    def encode(rgb, sub, **options):
+        h, w = rgb.shape[:2]
+        return avif_bytes(aom_encode(_yuv(rgb, sub), sub,
+                                     options={**screen, **options}),
+                          w, h, av1c_bytes(sub))
+
+    rgb = native.decode_one(str(TESTDATA / BASE))
+    tiles = [aom_encode(_yuv(rgb[y:y + 64, x:x + 64], "4:2:0"), "4:2:0",
+                        options={"cq-level": 30, "cpu-used": 4})
+             for y, x in ((100, 150), (100, 214), (164, 150), (164, 214))]
+    return {
+        "avif_palette_444": encode(screen_regions(120, 160, 1), "4:4:4",
+                                   **{"cq-level": 20, "enable-intrabc": 0}),
+        "avif_palette_420": encode(screen_regions(117, 157, 2), "4:2:0",
+                                   **{"cq-level": 20, "enable-intrabc": 0,
+                                      "sb-size": "128"}),
+        "avif_intrabc": encode(screen_text(120, 160, 3), "4:2:0",
+                               **{"cq-level": 40, "enable-palette": 0}),
+        "avif_grid_cropped": avif_grid_bytes(
+            tiles, 64, 64, av1c_bytes("4:2:0"), 2, 2, output=(120, 100)),
     }
 
 

@@ -15,7 +15,8 @@ AVIF encoder (libavif over aom) and cv2.imwrite write here.
   data);
 - the OBUs libaom takes (size fields, delimiters, padding, metadata,
   reserved and tile list OBUs, zero bytes after the frame, a sequence
-  header in av1C only);
+  header in av1C only, a header's trailing bits and the bytes after
+  them, undefined levels, a reduced header for a video);
 - the AV1 tools one at a time over a tools-off base (4:4:4 with the
   identity matrix, so cv2 hands back the decoded planes), the
   subsamplings, sizes from 1x1 to 65x33, tiles, 128x128 superblocks,
@@ -33,9 +34,19 @@ AVIF encoder (libavif over aom) and cv2.imwrite write here.
   vectors at odd sizes in every subsampling, and parameters from libaom
   grain tables, those libaom refuses refused: cv2's pixels carry the
   grain);
-- the kinds this slice refuses, each raising ``ImageError`` naming the
-  path, "AVIF" and the tool while cv2 reads the file (a palette, intra
-  block copy, a grid, premultiplied alpha);
+- screen content, each case's ``native._av1`` counts showing what it
+  exercises: palettes (luma alone and with chroma, 2 to 8 colours,
+  4:4:4 / 4:2:0 / 4:2:2 / 4:0:0, 64 and 128 superblocks, two tiles, sizes
+  that are not a multiple of 8) and intra block copy (4:4:4 and 4:2:0,
+  odd sizes, two tiles, vectors coded against the neighbours' stack and
+  against the default one), written by ``aom_encode`` with libaom's
+  screen tuning or by Pillow;
+- grid primary items: 1x2, 2x2 and 3x1 grids of different tiles, cropped
+  outputs, 4:2:0 seams (converted as one image), 4:4:4, 4:2:2, grey,
+  32-bit output sizes, and the layouts libavif refuses;
+- the kinds the port still refuses, each raising ``ImageError`` naming
+  the path, "AVIF" and the tool while cv2 reads the file (10-bit,
+  premultiplied alpha, an image sequence);
 - the tables: the committed ``csrc/av1_tables.h`` is what
   ``tools/av1_tables.py`` reads from libaom.so.3, where it is present.
 """
@@ -52,7 +63,8 @@ from objectdetectionpl_tpu.data.parsers.common import load_image_rgb
 from objectdetectionpl_tpu_torch.data import formats, native
 from objectdetectionpl_tpu_torch.tools import av1_tables, format_files
 from objectdetectionpl_tpu_torch.tools.format_files import (
-    avif_bytes, avif_grid_bytes, heif_box)
+    av1c_bytes, avif_bytes, avif_grid_bytes, heif_box, screen_regions,
+    screen_text)
 
 pytestmark = pytest.mark.skipif(not features.check("avif"),
                                 reason="Pillow without AVIF writes no file")
@@ -307,6 +319,12 @@ def _obu_bodies(stream: bytes) -> dict:
 
 
 CLL = _leb128(1) + bytes([0, 100, 0, 50, 0x80])    # HDR CLL metadata
+
+
+def _level(s: bytes, level: int) -> bytes:
+    """A reduced sequence header with seq_level_idx set to ``level``."""
+    return bytes([s[0] & 0xF8 | level >> 2, s[1] & 0x3F | (level & 3) << 6]
+                 ) + s[2:]
 OBUS = {   # name: (the OBUs around the sequence header S and frame F,
            #        cv2 reads the file)
     "plain": (lambda s, f: _obu(1, s) + _obu(6, f), True),
@@ -334,6 +352,22 @@ OBUS = {   # name: (the OBUs around the sequence header S and frame F,
     "delimiter_payload": (lambda s, f: _obu(2, b"\x80") + _obu(1, s)
                           + _obu(6, f), False),
     "no_sequence_header": (lambda s, f: _obu(6, f), False),
+    # libaom's header checks: the trailing bits a 1 then zeros, zero
+    # bytes after them, a defined level, still_picture under a reduced
+    # header
+    "sequence_header_zero_byte": (lambda s, f: _obu(1, s + b"\0")
+                                  + _obu(6, f), True),
+    "sequence_header_other_byte": (lambda s, f: _obu(1, s + b"\1")
+                                   + _obu(6, f), False),
+    "sequence_header_trailing_bits": (lambda s, f: _obu(1, s[:-1] + bytes(
+        [s[-1] ^ 1])) + _obu(6, f), False),
+    "level_9": (lambda s, f: _obu(1, _level(s, 9)) + _obu(6, f), True),
+    "undefined_level_2": (lambda s, f: _obu(1, _level(s, 2)) + _obu(6, f),
+                          False),
+    "undefined_level_21": (lambda s, f: _obu(1, _level(s, 21))
+                           + _obu(6, f), False),
+    "reduced_header_video": (lambda s, f: _obu(1, bytes([s[0] & ~0x10])
+                                               + s[1:]) + _obu(6, f), False),
 }
 
 
@@ -690,33 +724,286 @@ def test_matrices_and_ranges(tmp_path, sub):
 
 
 # ---------------------------------------------------------------------------
-# the refused kinds
+# screen content: palettes and intra block copy
 
-def test_refused_kinds_name_themselves(tmp_path):
-    """Each kind this slice refuses, in a file cv2 reads: ImageError naming
-    the path, AVIF and the tool, never a partial image."""
+def _counts(data: bytes) -> dict:
+    """What the primary item's stream used (``native._av1``'s counts)."""
+    return native._av1(_parts(data)[0])[1]
+
+
+def _screen_aom(rgb, sub, **options) -> bytes:
+    """``aom_encode`` with libaom's screen tuning, boxed as an AVIF."""
+    planes = format_files._yuv(rgb, sub)[:1 if sub == "4:0:0" else 3]
+    return _aom(planes, sub, options={"tune-content": "screen",
+                                      "cpu-used": 4, **options})
+
+
+# name: (subsampling, height, width, seed, aom options, chroma palettes
+# expected); the image is ``screen_regions``' (grey where no chroma
+# palette is expected)
+PALETTE = {
+    "444_y_uv": ("4:4:4", 120, 160, 1, {}, True),
+    "420_y_uv": ("4:2:0", 120, 160, 1, {}, True),
+    "422_y_uv_odd": ("4:2:2", 61, 97, 4, {}, True),
+    "400_y": ("4:0:0", 120, 160, 1, {}, False),
+    "420_y_only": ("4:2:0", 120, 160, 2, {}, False),
+    "420_sb128_odd": ("4:2:0", 117, 157, 2, {"sb-size": "128"}, True),
+    "444_two_tiles": ("4:4:4", 96, 160, 0, {"tile-columns": 1}, True),
+    "420_cq40_odd": ("4:2:0", 45, 83, 5, {"cq-level": 40}, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PALETTE))
+def test_palette_as_cv2(tmp_path, case):
+    """Palettes of 2 to 8 colours (sizes and colours coded or taken from
+    the neighbours' cache, the colour index map read in anti-diagonal
+    order and extended past the frame's edge): each case's blocks with a
+    Y and a UV palette counted."""
+    sub, h, w, seed, options, uv = PALETTE[case]
+    rgb = screen_regions(h, w, seed)
+    if not uv:
+        rgb = np.repeat(rgb[..., 1:2], 3, 2)
+    data = _screen_aom(rgb, sub, **{"cq-level": 20, "enable-intrabc": 0,
+                                    **options})
+    info = _counts(data)
+    assert info["palette_y_blocks"] > 0
+    assert (info["palette_uv_blocks"] > 0) == uv
+    if case == "444_y_uv":
+        assert info["palette_sizes"] == list(range(2, 9))
+    if "tiles" in case:
+        assert _info(data)["tile_cols"] == 2
+    if "sb128" in case:
+        assert _info(data)["superblock"] == 128
+    _same_as_cv2(_file(tmp_path, data))
+
+
+def test_palette_pillow_as_cv2(tmp_path):
+    """Pillow's encoder (its own libaom) with palettes on, the file cv2
+    reads and the port used to refuse."""
     rng = np.random.default_rng(0)
     lab = rng.integers(0, 5, (12, 16)).repeat(8, 0).repeat(8, 1)
     screen = rng.integers(0, 256, (5, 3)).astype(np.uint8)[lab]
-    cases = {
-        "a palette": _pillow(screen, subsampling="4:4:4", quality=90,
-                             advanced={"enable-palette": "1"}),
-        "intra block copy": _pillow(_screen(), subsampling="4:4:4",
-                                    quality=90,
-                                    advanced={"enable-palette": "0"}),
+    data = _pillow(screen, subsampling="4:4:4", quality=90,
+                   advanced={"enable-palette": "1"})
+    assert _counts(data)["palette_y_blocks"] > 0
+    _same_as_cv2(_file(tmp_path, data))
+
+
+# name: (subsampling, height, width, seed, aom options): pages of text
+# (``screen_text``) at libaom's screen tuning, palettes off but where
+# named; two tile columns need three rows of superblocks (the copy
+# keeps 256 samples behind the block it predicts)
+INTRABC = {
+    "444": ("4:4:4", 120, 160, 0, {}),
+    "420": ("4:2:0", 120, 160, 0, {}),
+    "444_odd": ("4:4:4", 119, 157, 1, {}),
+    "420_odd": ("4:2:0", 117, 157, 0, {}),
+    "420_two_tiles": ("4:2:0", 192, 160, 0, {"tile-columns": 1}),
+    "420_cq10": ("4:2:0", 120, 160, 2, {"cq-level": 10}),
+    "420_with_palettes": ("4:2:0", 120, 160, 1, {"enable-palette": 1}),
+    "420_reduced_tx_set": ("4:2:0", 120, 160, 1,
+                           {"reduced-tx-type-set": 1}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INTRABC))
+def test_intrabc_as_cv2(tmp_path, case):
+    """Intra block copy: each case's copied blocks counted, among them
+    those whose vector was coded against the neighbours' stack and those
+    coded against the default vector; the frame's filters are off."""
+    sub, h, w, seed, options = INTRABC[case]
+    data = _screen_aom(screen_text(h, w, seed), sub,
+                       **{"cq-level": 30, "enable-palette": 0, **options})
+    probe, info = _info(data), _counts(data)
+    assert probe["intrabc"] == probe["screen_content_tools"] == 1
+    assert info["intrabc_blocks"] > info["intrabc_default_dv"] > 0
+    if "palettes" in case:
+        assert info["palette_y_blocks"] > 0
+    if "tiles" in case:
+        assert probe["tile_cols"] == 2
+    _same_as_cv2(_file(tmp_path, data))
+
+
+def test_intrabc_pillow_as_cv2(tmp_path):
+    """Pillow's encoder (its own libaom) with palettes off: the file cv2
+    reads and the port used to refuse."""
+    data = _pillow(_screen(), subsampling="4:4:4", quality=90,
+                   advanced={"enable-palette": "0"})
+    assert _counts(data)["intrabc_blocks"] > 0
+    _same_as_cv2(_file(tmp_path, data))
+
+
+def test_committed_screen_fixtures():
+    """``format_files.avif_screen_files`` is the recipe of the committed
+    screen-content AVIFs (``chip_smoke.py formats`` serves them): the
+    same bytes again, each exercising what its name says."""
+    if av1_tables.find_libaom() is None:
+        pytest.skip("no libaom.so.3 in the dynamic linker's cache")
+    files = format_files.avif_screen_files()
+    assert sorted(files) == ["avif_grid_cropped", "avif_intrabc",
+                             "avif_palette_420", "avif_palette_444"]
+    for kind, data in files.items():
+        assert format_files.COMMITTED[kind].read_bytes() == data, kind
+    for kind in ("avif_palette_444", "avif_palette_420"):
+        info = _counts(files[kind])
+        assert info["palette_y_blocks"] and info["palette_uv_blocks"], kind
+    assert _info(files["avif_palette_420"])["superblock"] == 128
+    assert _counts(files["avif_intrabc"])["intrabc_blocks"] > 0
+
+
+# ---------------------------------------------------------------------------
+# grid primary items
+
+def _tiles(n, h, w, sub="4:2:0", seed=0):
+    """n different h x w AV1 streams (Pillow's) and their av1C."""
+    parts = [_parts(_pillow(_image(h, w, seed=seed + i, smooth=False),
+                            subsampling=sub, quality=70)) for i in range(n)]
+    return [p[0] for p in parts], parts[0][1]
+
+
+# name: (rows, columns, tile height, width, subsampling, output or None)
+GRID = {
+    "1x2_420": (1, 2, 64, 64, "4:2:0", None),
+    "2x2_420": (2, 2, 64, 64, "4:2:0", None),
+    "3x1_420": (3, 1, 64, 64, "4:2:0", None),
+    "2x2_420_cropped": (2, 2, 64, 64, "4:2:0", (100, 90)),
+    "2x2_444_odd_cropped": (2, 2, 67, 65, "4:4:4", (121, 99)),
+    "2x2_422_cropped": (2, 2, 64, 66, "4:2:2", (130, 101)),
+    "1x2_400": (1, 2, 64, 64, "4:0:0", None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRID))
+def test_grid_as_cv2(tmp_path, case):
+    """A grid of different tiles, cropped to its output size, converted
+    as one image: at 4:2:0 the chroma upsampling reads across the seams,
+    so converting each tile alone would differ."""
+    rows, cols, th, tw, sub, output = GRID[case]
+    streams, av1c = _tiles(rows * cols, th, tw, sub, seed=len(case))
+    data = avif_grid_bytes(streams, tw, th, av1c, rows, cols, output=output)
+    got = _same_as_cv2(_file(tmp_path, data))
+    if case == "2x2_420":
+        tiles = [_same_as_cv2(_file(tmp_path, avif_bytes(s, tw, th, av1c),
+                                    f"t{i}.avif"))
+                 for i, s in enumerate(streams)]
+        per_tile = np.concatenate([np.concatenate(tiles[:2], 1),
+                                   np.concatenate(tiles[2:], 1)], 0)
+        assert not np.array_equal(per_tile, got)
+
+
+def test_grid_32bit_sizes_as_cv2(tmp_path):
+    """Flag bit 0 of the ImageGrid: 32-bit output sizes."""
+    streams, av1c = _tiles(4, 64, 64)
+    body = bytes([0, 1, 1, 1]) + struct.pack(">II", 128, 120)
+    _same_as_cv2(_file(tmp_path, avif_grid_bytes(
+        streams, 64, 64, av1c, 2, 2, body=body, ispe=(128, 120))))
+
+
+def _grid_refused():
+    """name: avif_grid_bytes' arguments of a grid libavif refuses."""
+    t, av1c = _tiles(4, 64, 64)
+    small, small_c = _tiles(4, 32, 32)
+    odd, odd_c = _tiles(2, 65, 64)
+    tall, _ = _tiles(1, 72, 64, seed=9)
+    t444, c444 = _tiles(1, 64, 64, "4:4:4", seed=7)
+    return {
+        "too_few_tiles": (t[:3], 64, 64, av1c, 2, 2, {}),
+        "too_many_tiles": (t[:3], 64, 64, av1c, 1, 2, {}),
+        "tiles_under_64": (small, 32, 32, small_c, 2, 2, {}),
+        "odd_tile_height_420": (odd, 64, 65, odd_c, 2, 1, {}),
+        "odd_output_420": (t, 64, 64, av1c, 2, 2, {"output": (127, 128)}),
+        "output_past_the_tiles": (t, 64, 64, av1c, 2, 2,
+                                  {"output": (130, 128)}),
+        "last_column_outside": (t, 64, 64, av1c, 2, 2,
+                                {"output": (64, 128)}),
+        "zero_output": (t, 64, 64, av1c, 2, 2, {"output": (0, 128)}),
+        "tiles_of_two_sizes": (t[:3] + tall, 64, 64, av1c, 2, 2,
+                               {"tile_ispe": [(64, 64)] * 3 + [(64, 72)]}),
+        "tiles_of_two_subsamplings": (t[:3] + t444, 64, 64, av1c, 2, 2, {}),
+        "av1c_differ": (t[:3] + t444, 64, 64, av1c, 2, 2,
+                        {"tile_av1c": [av1c] * 3 + [c444]}),
+        "tile_without_ispe": (t, 64, 64, av1c, 2, 2,
+                              {"tile_ispe": [(64, 64)] * 3 + [None]}),
+        "tile_not_av01": (t, 64, 64, av1c, 2, 2, {"tile_kind": b"hvc1"}),
+        "version_1": (t, 64, 64, av1c, 2, 2, {
+            "body": bytes([1, 0, 1, 1]) + struct.pack(">HH", 128, 128)}),
+        "body_too_long": (t, 64, 64, av1c, 2, 2, {
+            "body": bytes([0, 0, 1, 1]) + struct.pack(">HH", 128, 128)
+            + b"\0"}),
+        "ispe_not_the_output": (t, 64, 64, av1c, 2, 2,
+                                {"ispe": (120, 128)}),
     }
-    for tool, data in cases.items():
-        path = _file(tmp_path, data, tool.replace(" ", "_") + ".avif")
+
+
+GRID_REFUSED = sorted(("too_few_tiles", "too_many_tiles", "tiles_under_64",
+                       "odd_tile_height_420", "odd_output_420",
+                       "output_past_the_tiles", "last_column_outside",
+                       "zero_output", "tiles_of_two_sizes",
+                       "tiles_of_two_subsamplings", "av1c_differ",
+                       "tile_without_ispe", "tile_not_av01", "version_1",
+                       "body_too_long", "ispe_not_the_output"))
+
+
+@pytest.mark.parametrize("case", GRID_REFUSED)
+def test_grid_refused_as_cv2(tmp_path, case):
+    """The grids libavif refuses (cv2 then reads no image): a tile count
+    unlike rows x columns; MIAF's tile rules (64x64 at least, even where
+    chroma is subsampled); an output the tiles do not cover, or whose
+    last row or column of tiles lies outside it; tiles of two sizes or
+    subsamplings, or whose av1C differ; a tile without ispe, or not av01;
+    an ImageGrid of another version or with bytes after it; a grid whose
+    ispe is not its output size."""
+    *args, kw = _grid_refused()[case]
+    path = _file(tmp_path, avif_grid_bytes(*args, **kw))
+    assert cv2.imread(path, cv2.IMREAD_COLOR) is None
+    with pytest.raises(native.ImageError, match=f"^{path}: AVIF: "):
+        native.decode_image(path)
+
+
+def test_grid_tile_ispe_not_its_frame_refused(tmp_path):
+    """A tile whose ispe is not its AV1 frame's size: libavif scales the
+    frame to the ispe, the port refuses, naming it (a deliberate
+    difference, as for a single item's ispe)."""
+    t, av1c = _tiles(3, 64, 64)
+    tall, _ = _tiles(1, 72, 64, seed=9)
+    path = _file(tmp_path, avif_grid_bytes(t + tall, 64, 64, av1c, 2, 2))
+    assert load_image_rgb(path).shape == (128, 128, 3)
+    with pytest.raises(native.ImageError,
+                       match="AVIF: grid tile 4's ispe 64x64 is not its AV1"):
+        native.decode_image(path)
+
+
+# ---------------------------------------------------------------------------
+# the refused kinds
+
+def test_refused_kinds_name_themselves(tmp_path):
+    """Each kind the port still refuses, in a file cv2 reads: ImageError
+    naming the path, AVIF and the tool, never a partial image -- a 10-bit
+    stream (libaom's high-bitdepth route), premultiplied alpha, an image
+    sequence (avis)."""
+    if av1_tables.find_libaom() is None:
+        pytest.skip("no libaom.so.3 in the dynamic linker's cache")
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 1024, (48, 64)).astype(np.uint16)
+    uv = rng.integers(0, 1024, (24, 32)).astype(np.uint16)
+    obus = format_files.aom_encode([y, uv, uv], "4:2:0", bit_depth=10,
+                                   options={"cq-level": 30})
+    ten = avif_bytes(obus, 64, 48, av1c_bytes("4:2:0", 10), pixi=(10,) * 3)
+    stream = _parts(_pillow(_image(40, 64, smooth=False), quality=80))
+    prem = _box(stream, alpha=stream, iref_extra=((b"prem", 1, 2),))
+    frames = [Image.fromarray(_image(48, 64, seed=s)) for s in range(2)]
+    out = io.BytesIO()
+    frames[0].save(out, format="AVIF", save_all=True,
+                   append_images=frames[1:], duration=100)
+    cases = {"the AV1 stream uses a bit depth of 10 or 12": ten,
+             "premultiplied alpha": prem,
+             r"an image sequence \(avis\)": out.getvalue()}
+    for i, (what, data) in enumerate(cases.items()):
+        path = _file(tmp_path, data, f"refused{i}.avif")
         assert load_image_rgb(path) is not None
         with pytest.raises(native.ImageError,
-                           match=f"^{path}: AVIF: the AV1 stream uses {tool}"):
+                           match=f"^{path}: AVIF: {what}"):
             native.decode_image(path)
-    obus, av1c = _parts(_pillow(_image(64, 64, smooth=False), quality=80))
-    path = _file(tmp_path, avif_grid_bytes(obus, 64, 64, av1c, 2, 2),
-                 "grid.avif")
-    assert load_image_rgb(path).shape == (128, 128, 3)
-    with pytest.raises(native.ImageError, match=f"^{path}: AVIF: a grid"):
-        native.decode_image(path)
 
 
 # ---------------------------------------------------------------------------
