@@ -220,7 +220,11 @@ exits non-zero:
    500x375, Wiener and self-guided loop restoration, superres at
    denominator 16 over two tile columns, film grain, palettes in 4:4:4
    and in 4:2:0 over 128x128 superblocks, intra block copy, a cropped
-   2x2 grid; their host ms on a line of their own, ``formats_avif``):
+   2x2 grid, 10-bit 4:2:0, 4:4:4 with loop restoration, film grain,
+   4:0:0 and screen content (palettes and intra block copy), 12-bit
+   4:2:2, Pillow's three-frame sequence read from its track, a 10-bit
+   image with premultiplied alpha; their host ms on a line of their own,
+   ``formats_avif``):
    each decoded by
    ``native.decode_image`` (the port's
    ``load_image_rgb``), its SHA-256 held against cv2's recorded in

@@ -23,10 +23,12 @@
 // the deblocking filter, CDEF, superres (libaom's per-tile-column
 // upscaling), loop restoration (Wiener and self-guided, in stripes that
 // read the deblocked rows around them) and film grain synthesis (cv2's
-// pixels carry the grain libaom adds).  Pixels are uint16.
+// pixels carry the grain libaom adds).  Pixels are uint16 at the
+// stream's bit depth, 8, 10 or 12: every stage works at that depth as the
+// specification (and libaom's high-bitdepth route) does.
 //
-// What it refuses, naming the tool: bit depths above 8, several
-// operating points or layers, frames that are not one shown key frame.
+// What it refuses, naming the tool: several operating points or layers,
+// frames that are not one shown key frame.
 // As libaom (cv2's AV1 decoder) it refuses an unsized OBU, an OBU whose
 // trailing bits are missing, a header whose trailing bits are not a 1
 // then zeros (or with other than zero bytes after them) or whose
@@ -1054,7 +1056,6 @@ struct Decoder {
     color_config(r);
     film_grain_params_present = r.f(1);
     r.trailing_bits();
-    if (bit_depth != 8) refuse("a bit depth of 10 or 12");
     have_seq = true;
   }
 
@@ -2306,8 +2307,10 @@ struct Decoder {
   // block's own vector even for sub-8x8 chroma: every neighbour's
   // RefFrame[0] is INTRA_FRAME): the frame's samples before any filter,
   // through the bilinear filter at half-sample chroma positions,
-  // rounded by 3 then 11 bits.
+  // rounded by InterRound0 then InterRound1 bits (3 and 11; 5 and 9 at
+  // 12 bits).
   void predict_intrabc() {
+    const int round0 = bit_depth == 12 ? 5 : 3, round1 = 14 - round0;
     static thread_local int tmp[(128 + 8) * 128];
     static thread_local uint16_t out[128 * 128];
     for (int p = 0; p < 1 + 2 * has_chroma; ++p) {
@@ -2327,7 +2330,7 @@ struct Decoder {
           const int xx = (px >> 4) + c;
           const int a = P.get(yy, clip3(0, last_x, xx));
           const int b = P.get(yy, clip3(0, last_x, xx + 1));
-          tmp[r * w + c] = round2((128 - 8 * fx) * a + 8 * fx * b, 3);
+          tmp[r * w + c] = round2((128 - 8 * fx) * a + 8 * fx * b, round0);
         }
       }
       for (int r = 0; r < h; ++r)
@@ -2335,7 +2338,7 @@ struct Decoder {
           const int s = (128 - 8 * fy) * tmp[(r + 3) * w + c] +
                         8 * fy * tmp[(r + 4) * w + c];
           out[r * w + c] = static_cast<uint16_t>(
-              clip3(0, (1 << bit_depth) - 1, round2(s, 11)));
+              clip3(0, (1 << bit_depth) - 1, round2(s, round1)));
         }
       Plane& D = cur[p];
       for (int r = 0; r < h && y0 + r < D.rows; ++r)
@@ -2944,8 +2947,13 @@ struct Decoder {
           tx_types[mi(y4 + j, x4 + i)] = static_cast<uint8_t>(type);
   }
 
-  int dc_q(int b) const { return Dc_Qlookup[clip3(0, 255, b)]; }
-  int ac_q(int b) const { return Ac_Qlookup[clip3(0, 255, b)]; }
+  // spec 7.12.2: the lookup of the bit depth
+  int dc_q(int b) const {
+    return Dc_Qlookup[(bit_depth - 8) >> 1][clip3(0, 255, b)];
+  }
+  int ac_q(int b) const {
+    return Ac_Qlookup[(bit_depth - 8) >> 1][clip3(0, 255, b)];
+  }
 
   void reconstruct(int p, int x, int y, int txs) {
     // dqDenom 2 for the 32-point sizes, 4 for the 64x32 ones: a shift
@@ -3415,10 +3423,16 @@ struct Decoder {
       sample_filter(xp + dy * i, yp + dx * i, p, limit, blimit, thresh, dx, dy, fsize);
   }
 
+  // spec 7.14.6: the 8-bit limits shifted to the bit depth, the flatness
+  // threshold 1 << (BitDepth - 8)
   void sample_filter(int x, int y, int p, int limit, int blimit, int thresh,
                      int dx, int dy, int fsize) {
     Plane& P = cur[p];
     if (y >= P.rows || x >= P.stride) return;
+    const int shift = bit_depth - 8, one = 1 << shift;
+    limit <<= shift;
+    blimit <<= shift;
+    thresh <<= shift;
     auto at = [&](int k) -> uint16_t& { return *P.at(y + dy * k, x + dx * k); };
     // k >= 0: q_k at offset k; p_k at offset -k-1
     const int q0 = at(0), q1 = at(1), p0 = at(-1), p1 = at(-2);
@@ -3440,29 +3454,32 @@ struct Decoder {
     if (mask) return;
     int flat = 0, flat2 = 0;
     if (fsize >= 8) {
-      int m = std::abs(p1 - p0) > 1 || std::abs(q1 - q0) > 1 ||
-              std::abs(p2 - p0) > 1 || std::abs(q2 - q0) > 1;
-      if (flen >= 8) m |= std::abs(p3 - p0) > 1 || std::abs(q3 - q0) > 1;
+      int m = std::abs(p1 - p0) > one || std::abs(q1 - q0) > one ||
+              std::abs(p2 - p0) > one || std::abs(q2 - q0) > one;
+      if (flen >= 8)
+        m |= std::abs(p3 - p0) > one || std::abs(q3 - q0) > one;
       flat = !m;
     }
     if (fsize >= 16) {
       const int q4 = at(4), q5 = at(5), q6 = at(6), p4 = at(-5), p5 = at(-6), p6 = at(-7);
-      flat2 = !(std::abs(p6 - p0) > 1 || std::abs(q6 - q0) > 1 ||
-                std::abs(p5 - p0) > 1 || std::abs(q5 - q0) > 1 ||
-                std::abs(p4 - p0) > 1 || std::abs(q4 - q0) > 1);
+      flat2 = !(std::abs(p6 - p0) > one || std::abs(q6 - q0) > one ||
+                std::abs(p5 - p0) > one || std::abs(q5 - q0) > one ||
+                std::abs(p4 - p0) > one || std::abs(q4 - q0) > one);
     }
     if (fsize == 4 || !flat) {
-      auto c4 = [](int v) { return clip3(-128, 127, v); };
-      const int ps1 = p1 - 128, ps0 = p0 - 128, qs0 = q0 - 128, qs1 = q1 - 128;
+      const int half = 1 << (bit_depth - 1);
+      auto c4 = [half](int v) { return clip3(-half, half - 1, v); };
+      const int ps1 = p1 - half, ps0 = p0 - half, qs0 = q0 - half,
+                qs1 = q1 - half;
       int f = hev ? c4(ps1 - qs1) : 0;
       f = c4(f + 3 * (qs0 - ps0));
       const int f1 = c4(f + 4) >> 3, f2 = c4(f + 3) >> 3;
-      at(0) = static_cast<uint16_t>(c4(qs0 - f1) + 128);
-      at(-1) = static_cast<uint16_t>(c4(ps0 + f2) + 128);
+      at(0) = static_cast<uint16_t>(c4(qs0 - f1) + half);
+      at(-1) = static_cast<uint16_t>(c4(ps0 + f2) + half);
       if (!hev) {
         const int f3 = round2(f1, 1);
-        at(1) = static_cast<uint16_t>(c4(qs1 - f3) + 128);
-        at(-2) = static_cast<uint16_t>(c4(ps1 + f3) + 128);
+        at(1) = static_cast<uint16_t>(c4(qs1 - f3) + half);
+        at(-2) = static_cast<uint16_t>(c4(ps1 + f3) + half);
       }
     } else {
       const int log2size = (fsize == 8 || !flat2) ? 3 : 4;
@@ -3499,19 +3516,22 @@ struct Decoder {
             const bool skipped = skips[mi(y, x)] && skips[mi(y + 1, x)] &&
                                  skips[mi(y, x + 1)] && skips[mi(y + 1, x + 1)];
             if (skipped) continue;
+            // strengths and damping shifted by BitDepth - 8 (spec 7.15.1)
+            const int shift = bit_depth - 8;
             int var = 0;
             const int ydir = cdef_direction(src[0], y, x, &var);
-            int pri = cdef_y_pri[idx], sec = cdef_y_sec[idx];
+            int pri = cdef_y_pri[idx] << shift, sec = cdef_y_sec[idx] << shift;
             int dir = pri == 0 ? 0 : ydir;
             const int vs = (var >> 6) ? std::min(floor_log2(var >> 6), 12) : 0;
             pri = var ? (pri * (4 + vs) + 8) >> 4 : 0;
-            cdef_filter(src, 0, y, x, pri, sec, cdef_damping, dir);
+            cdef_filter(src, 0, y, x, pri, sec, cdef_damping + shift, dir);
             if (num_planes > 1) {
-              pri = cdef_uv_pri[idx];
-              sec = cdef_uv_sec[idx];
+              pri = cdef_uv_pri[idx] << shift;
+              sec = cdef_uv_sec[idx] << shift;
               dir = pri == 0 ? 0 : kCdefUvDir[ssx][ssy][ydir];
-              cdef_filter(src, 1, y, x, pri, sec, cdef_damping - 1, dir);
-              cdef_filter(src, 2, y, x, pri, sec, cdef_damping - 1, dir);
+              const int damping = cdef_damping - 1 + shift;
+              cdef_filter(src, 1, y, x, pri, sec, damping, dir);
+              cdef_filter(src, 2, y, x, pri, sec, damping, dir);
             }
           }
       }
@@ -3577,6 +3597,8 @@ struct Decoder {
     Plane& D = cur[p];
     const int pri_adj = pri ? std::max(0, damping - floor_log2(pri)) : 0;
     const int sec_adj = sec ? std::max(0, damping - floor_log2(sec)) : 0;
+    // the primary taps by the strength at 8 bits
+    const int taps = (pri >> (bit_depth - 8)) & 1;
     auto get = [&](int yy, int xx, bool* ok) {
       *ok = yy >= 0 && xx >= 0 && ((yy << sy) >> 2) < mi_rows &&
             ((xx << sx) >> 2) < mi_cols;
@@ -3592,7 +3614,7 @@ struct Decoder {
             const int pv = get(y0 + i + sign * kCdefDirections[dir][k][0],
                                x0 + j + sign * kCdefDirections[dir][k][1], &ok);
             if (ok) {
-              sum += kCdefPriTaps[pri & 1][k] * constrain(pv - x, pri, pri_adj);
+              sum += kCdefPriTaps[taps][k] * constrain(pv - x, pri, pri_adj);
               mx = std::max(pv, mx);
               mn = std::min(pv, mn);
             }
@@ -3601,7 +3623,7 @@ struct Decoder {
               const int s = get(y0 + i + sign * kCdefDirections[d2][k][0],
                                 x0 + j + sign * kCdefDirections[d2][k][1], &ok);
               if (ok) {
-                sum += kCdefSecTaps[pri & 1][k] * constrain(s - x, sec, sec_adj);
+                sum += kCdefSecTaps[taps][k] * constrain(s - x, sec, sec_adj);
                 mx = std::max(s, mx);
                 mn = std::min(s, mn);
               }
@@ -3646,6 +3668,7 @@ struct Decoder {
     dst.stride = up_w;
     dst.rows = rows;
     dst.px.assign(size_t(up_w) * rows, 0);
+    const int maxv = (1 << bit_depth) - 1;
     const int32_t step = ((down_w << 14) + up_w / 2) / up_w;
     const int err = up_w * step - (down_w << 14);
     int32_t x0 = static_cast<int32_t>(
@@ -3669,7 +3692,7 @@ struct Decoder {
           int sum = 0;
           for (int k = 0; k < 8; ++k)
             sum += row[clip3(lo, hi, base + k)] * f[k];
-          out[x] = static_cast<uint16_t>(clip3(0, 255, round2(sum, 7)));
+          out[x] = static_cast<uint16_t>(clip3(0, maxv, round2(sum, 7)));
         }
       }
       x0 += (ux1 - ux0) * step - ((dx1 - dx0) << 14);
@@ -3725,7 +3748,7 @@ struct Decoder {
     }
   }
 
-  // spec 7.17.4 at 8 bits: InterRound0 3, InterRound1 11
+  // spec 7.17.4: InterRound0 3 and InterRound1 11, 5 and 9 at 12 bits
   void wiener(const LrUnit& u, const int* win, int ww, int w, int h, int p,
               int x0, int y0) {
     int f[2][7];
@@ -3736,19 +3759,24 @@ struct Decoder {
         f[pass][3] -= 2 * u.wiener[pass][i];
       }
     }
-    const int offset = 1 << (8 + 7 - 3 - 1), limit = (1 << (8 + 1 + 7 - 3)) - 1;
+    const int round0 = bit_depth == 12 ? 5 : 3, round1 = 14 - round0;
+    const int offset = 1 << (bit_depth + 7 - round0 - 1);
+    const int limit = (1 << (bit_depth + 1 + 7 - round0)) - 1;
+    const int maxv = (1 << bit_depth) - 1;
     std::vector<int> mid(size_t(h + 6) * w);
     for (int r = 0; r < h + 6; ++r)
       for (int c = 0; c < w; ++c) {
         int sum = 0;
         for (int t = 0; t < 7; ++t) sum += f[1][t] * win[size_t(r) * ww + c + t];
-        mid[size_t(r) * w + c] = clip3(-offset, limit - offset, round2(sum, 3));
+        mid[size_t(r) * w + c] =
+            clip3(-offset, limit - offset, round2(sum, round0));
       }
     for (int r = 0; r < h; ++r)
       for (int c = 0; c < w; ++c) {
         int sum = 0;
         for (int t = 0; t < 7; ++t) sum += f[0][t] * mid[size_t(r + t) * w + c];
-        *cur[p].at(y0 + r, x0 + c) = static_cast<uint16_t>(clip3(0, 255, round2(sum, 11)));
+        *cur[p].at(y0 + r, x0 + c) =
+            static_cast<uint16_t>(clip3(0, maxv, round2(sum, round1)));
       }
   }
 
@@ -3763,6 +3791,7 @@ struct Decoder {
     }
     const int w0 = u.sgr_xqd[0], w1 = u.sgr_xqd[1];
     const int w2 = (1 << SGRPROJ_PRJ_BITS) - w0 - w1;
+    const int maxv = (1 << bit_depth) - 1;
     for (int i = 0; i < h; ++i)
       for (int j = 0; j < w; ++j) {
         const int px = win[size_t(i + 3) * ww + j + 3] << SGRPROJ_RST_BITS;
@@ -3770,7 +3799,7 @@ struct Decoder {
         v += int64_t(w0) * (flt[0].empty() ? px : flt[0][size_t(i) * w + j]);
         v += int64_t(w2) * (flt[1].empty() ? px : flt[1][size_t(i) * w + j]);
         const int o = round2(v, SGRPROJ_RST_BITS + SGRPROJ_PRJ_BITS);
-        *cur[p].at(y0 + i, x0 + j) = static_cast<uint16_t>(clip3(0, 255, o));
+        *cur[p].at(y0 + i, x0 + j) = static_cast<uint16_t>(clip3(0, maxv, o));
       }
   }
 
@@ -3790,7 +3819,10 @@ struct Decoder {
             a += c * c;
             b += c;
           }
-        const int64_t pv = std::max<int64_t>(0, int64_t(a) * n - int64_t(b) * b);
+        // a and b at 8 bits for the variance (spec 7.17.3)
+        const int64_t a8 = round2(a, 2 * (bit_depth - 8)),
+                      b8 = round2(b, bit_depth - 8);
+        const int64_t pv = std::max<int64_t>(0, a8 * n - b8 * b8);
         const int z = static_cast<int>((pv * s + (1 << (SGRPROJ_MTABLE_BITS - 1))) >>
                                        SGRPROJ_MTABLE_BITS);
         int a2;
@@ -3826,7 +3858,8 @@ struct Decoder {
   }
 
   // -------------------------------------------------------------------------
-  // Film grain synthesis (spec 7.18.3) at 8 bits
+  // Film grain synthesis (spec 7.18.3) at the bit depth, as libaom's
+  // av1_add_film_grain_run computes it
 
   uint16_t random_register = 0;
   int random_number(int bits) {
@@ -3838,11 +3871,13 @@ struct Decoder {
 
   void add_grain() {
     const FilmGrain& g = grain;
-    const int gmin = -128, gmax = 127;
+    const int depth_shift = bit_depth - 8;
+    const int center = 128 << depth_shift;
+    const int gmin = -center, gmax = (256 << depth_shift) - 1 - center;
     // the templates: luma 73x82, chroma at the subsampled size
     std::vector<std::array<int, 82>> luma(73), chroma[2] = {
         std::vector<std::array<int, 82>>(73), std::vector<std::array<int, 82>>(73)};
-    const int shift = 12 - 8 + g.grain_scale_shift;
+    const int shift = 12 - bit_depth + g.grain_scale_shift;
     random_register = static_cast<uint16_t>(g.seed);
     for (auto& row : luma)
       for (int& v : row)
@@ -3913,6 +3948,15 @@ struct Decoder {
       }
       for (int i = pts[n - 1][0]; i < 256; ++i) lut[p][i] = pts[n - 1][1];
     }
+    // above 8 bits, interpolated between the look-up's entries (the
+    // specification's scale_lut)
+    auto scale = [&](int p, int index) {
+      const int x = index >> depth_shift;
+      if (!depth_shift || x == 255) return lut[p][x];
+      const int frac = index & ((1 << depth_shift) - 1);
+      return lut[p][x] + (((lut[p][x + 1] - lut[p][x]) * frac +
+                           (1 << (depth_shift - 1))) >> depth_shift);
+    };
     // the noise stripes: 34 rows of 32x32 blocks at random offsets, their
     // overlaps blended
     const int w = upscaled_w, h = frame_h;
@@ -3977,9 +4021,11 @@ struct Decoder {
       }
     }
     // blend: chroma first, from the luma without its noise
-    const int min_v = g.clip_restricted ? 16 : 0;
-    const int max_luma = g.clip_restricted ? 235 : 255;
-    const int max_chroma = g.clip_restricted ? (matrix == 0 ? 235 : 240) : 255;
+    const int maxv = (256 << depth_shift) - 1;
+    const int min_v = g.clip_restricted ? 16 << depth_shift : 0;
+    const int max_luma = g.clip_restricted ? 235 << depth_shift : maxv;
+    const int max_chroma =
+        g.clip_restricted ? (matrix == 0 ? 235 : 240) << depth_shift : maxv;
     if (num_planes > 1) {
       const int pw = (w + ssx) >> ssx, ph = (h + ssy) >> ssy;
       const int mult[2] = {g.cb_mult, g.cr_mult},
@@ -4000,9 +4046,10 @@ struct Decoder {
               merged = avg;
             } else {
               const int combined = avg * (luma_mult[c] - 128) + orig * (mult[c] - 128);
-              merged = clip3(0, 255, (combined >> 6) + (offset[c] - 256));
+              merged = clip3(0, maxv, (combined >> 6) + (offset[c] << depth_shift) -
+                                          (1 << bit_depth));
             }
-            const int n = round2(lut[c + 1][merged] * img[c + 1][size_t(y) * pw + x],
+            const int n = round2(scale(c + 1, merged) * img[c + 1][size_t(y) * pw + x],
                                  g.scaling_shift);
             px = static_cast<uint16_t>(clip3(min_v, max_chroma, orig + n));
           }
@@ -4012,7 +4059,7 @@ struct Decoder {
       for (int y = 0; y < h; ++y)
         for (int x = 0; x < w; ++x) {
           uint16_t& px = *cur[0].at(y, x);
-          const int n = round2(lut[0][px] * img[0][size_t(y) * w + x], g.scaling_shift);
+          const int n = round2(scale(0, px) * img[0][size_t(y) * w + x], g.scaling_shift);
           px = static_cast<uint16_t>(clip3(min_v, max_luma, px + n));
         }
   }

@@ -1825,7 +1825,8 @@ def _avif_grid(data: bytes, meta: dict, item: int, tiles: list, av1):
                               f"{decoded[-1][0][0].shape[0]}")
     planes0, info0 = decoded[0]
     th, tw = planes0[0].shape
-    keys = ("subsampling", "full_range", "matrix", "primaries", "transfer")
+    keys = ("subsampling", "bit_depth", "full_range", "matrix", "primaries",
+            "transfer")
     for planes, info in decoded[1:]:
         if planes[0].shape != (th, tw) or len(planes) != len(planes0) or any(
                 info[k] != info0[k] for k in keys):
@@ -1853,49 +1854,351 @@ def _avif_grid(data: bytes, meta: dict, item: int, tiles: list, av1):
     return out, info0
 
 
+_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+               b"urn:mpeg:hevc:2015:auxid:1")
+
+
+def _avif_alpha_item(data: bytes, meta: dict, item: int):
+    """The colour item's alpha item as libavif finds it, or None: the
+    first item (in iloc's order) with data whose last auxl reference
+    names the colour item and whose auxC names alpha, skipping those
+    with an essential property libavif does not know.  Also whether a
+    grid's tiles have alpha items of their own (libavif assembles them
+    into an alpha grid)."""
+    aux = {}
+    for ref, src, dst in meta["iref"]:
+        if ref == b"auxl":
+            aux[src] = dst
+    for cand, (_, extents) in meta["iloc"].items():
+        if aux.get(cand) != item or not sum(n for _, n in extents):
+            continue
+        try:
+            props = _avif_props(data, meta, cand)
+        except FormatError:
+            continue
+        if b"auxC" in props:
+            at, stop = props[b"auxC"]
+            urn = data[at + 4:stop].split(b"\0", 1)[0]
+            if urn in _ALPHA_URNS:
+                return cand, False
+    tiles = {dst for ref, src, dst in meta["iref"]
+             if ref == b"dimg" and src == item}
+    return None, any(aux.get(a) in tiles for a in aux)
+
+
+def _limited_to_full(a: np.ndarray, depth: int) -> np.ndarray:
+    """libavif's avifLimitedToFullY: limited-range alpha to full range
+    in C's integer division (truncating towards zero), clamped."""
+    lo, hi = 16 << (depth - 8), 235 << (depth - 8)
+    top = (1 << depth) - 1
+    num = (a.astype(np.int64) - lo) * top + (hi - lo) // 2
+    q = np.abs(num) // (hi - lo) * np.sign(num)
+    return np.clip(q, 0, top)
+
+
+def _avif_alpha(planes, info, alpha, prem: bool) -> np.ndarray:
+    """The decoded alpha (planes, info) as libavif hands it on with the
+    colour planes: FormatError where cv2 refuses the pair (a grey image
+    with alpha, alpha of another bit depth); limited-range alpha made
+    full range.  Alpha of another size selects libavif's route only
+    (cv2's colours are then the alpha route's whatever its values);
+    premultiplied, the port refuses it by name."""
+    a_planes, a_info = alpha
+    if len(planes) == 1:
+        raise FormatError("a grey image with alpha (cv2 refuses it)")
+    if a_info["bit_depth"] != info["bit_depth"]:
+        raise FormatError(f"{a_info['bit_depth']}-bit alpha on a "
+                          f"{info['bit_depth']}-bit image (cv2 refuses it)")
+    a = a_planes[0]
+    if a.shape != planes[0].shape:
+        if prem:
+            raise FormatError("premultiplied alpha of another size than "
+                              "the image, which the port does not read")
+        return np.zeros(planes[0].shape, np.int64)
+    if not a_info["full_range"]:
+        return _limited_to_full(a, info["bit_depth"])
+    return a.astype(np.int64)
+
+
+def _avif_convert(data: bytes, props: dict, planes, info, alpha=None,
+                  prem: bool = False) -> np.ndarray:
+    """Planes to RGB by the colr box's nclx values (else the sequence
+    header's), with the alpha libavif hands on (:func:`_avif_alpha`)."""
+    if b"nclx" in props:
+        c = _Reader(data, *props[b"nclx"], "colr")
+        primaries, _, matrix, full = (c.uint(2), c.uint(2), c.uint(2),
+                                      c.uint(1) >> 7)
+    else:
+        primaries, matrix, full = (info["primaries"], info["matrix"],
+                                   info["full_range"])
+    a = None if alpha is None else _avif_alpha(planes, info, alpha, prem)
+    return _avif_rgb(planes, info["subsampling"], matrix, bool(full),
+                     primaries, info["bit_depth"], a, prem)
+
+
+# sample entries are VisualSampleEntry boxes: 78 bytes before their own
+_VISUAL_SAMPLE_ENTRY = 78
+
+
+def _avif_tracks(data: bytes, pos: int, end: int) -> list:
+    """The trak boxes of a moov box as libavif reads them: per track its
+    tkhd id and size (width and height >> 16), the tref auxl and prem
+    track (the first id of the last of each), and the sample table:
+    chunk offsets (stco and co64, appended), stsc's (first chunk,
+    samples per chunk), stsz's sizes (or one size for all) and the
+    sample entries (type, their boxes after the VisualSampleEntry's
+    fields).  The handler is not read: libavif takes any.  FormatError
+    where libavif refuses the boxes."""
+    tracks = []
+    for kind, at, stop in _jp2_boxes(data, pos, end):
+        if kind != b"trak":
+            continue
+        t = {"id": 0, "size": None, "aux_for": 0, "prem_by": 0,
+             "stbl": None}
+        edts = False
+        for k2, a2, s2 in _jp2_boxes(data, at, stop):
+            if k2 == b"tkhd":
+                if t["size"] is not None:
+                    raise FormatError("a track with two tkhd boxes")
+                r = _Reader(data, a2, s2, "tkhd")
+                version, _ = r.full()
+                if version > 1:
+                    raise FormatError(f"a tkhd box of version {version}")
+                r.take(16 if version else 8)
+                t["id"] = r.uint(4)
+                r.take(4 + (8 if version else 4) + 52)
+                t["size"] = r.uint(4) >> 16, r.uint(4) >> 16
+                if not all(t["size"]):
+                    raise FormatError(f"a track of size {t['size'][0]}x"
+                                      f"{t['size'][1]} (cv2 refuses it)")
+            elif k2 == b"tref":
+                for k3, a3, s3 in _jp2_boxes(data, a2, s2):
+                    if k3 in (b"auxl", b"prem"):
+                        key = "aux_for" if k3 == b"auxl" else "prem_by"
+                        t[key] = _Reader(data, a3, s3, "tref").uint(4)
+            elif k2 == b"mdia":
+                for k3, a3, s3 in _jp2_boxes(data, a2, s2):
+                    if k3 == b"minf":
+                        _avif_minf(data, a3, s3, t)
+            elif k2 == b"edts":
+                if edts:
+                    raise FormatError("a track with two edts boxes (cv2 "
+                                      "refuses it)")
+                edts = True
+                _avif_edit_list(data, a2, s2)
+        if t["size"] is None:
+            raise FormatError("a track without tkhd (cv2 refuses it)")
+        tracks.append(t)
+    if not tracks:
+        raise FormatError("a moov box without tracks (cv2 refuses it)")
+    return tracks
+
+
+def _avif_edit_list(data: bytes, pos: int, end: int) -> None:
+    """libavif's checks of an edts box (its edit list only sets the
+    repetition; the first frame is the first sample whatever the media
+    time): one elst; a repeating one (flag 1) of version 0 or 1 with one
+    entry whose segment duration is not 0."""
+    lists = [(at, stop) for kind, at, stop in _jp2_boxes(data, pos, end)
+             if kind == b"elst"]
+    if len(lists) != 1:
+        raise FormatError(f"an edts box with {len(lists)} elst boxes (cv2 "
+                          f"refuses it)")
+    r = _Reader(data, *lists[0], "elst")
+    version, flags = r.full()
+    if not flags & 1:
+        return
+    if r.uint(4) != 1 or version > 1 or not r.uint(8 if version else 4):
+        raise FormatError("a repeating edit list that is not one entry of "
+                          "version 0 or 1 with a duration (cv2 refuses it)")
+
+
+def _avif_minf(data: bytes, pos: int, end: int, t: dict) -> None:
+    """A minf box's sample table into the track ``t``."""
+    for kind, at, stop in _jp2_boxes(data, pos, end):
+        if kind == b"stbl":
+            if t["stbl"] is not None:
+                raise FormatError("a track with two stbl boxes")
+            t["stbl"] = _avif_sample_table(data, at, stop)
+
+
+def _avif_sample_table(data: bytes, pos: int, end: int) -> dict:
+    stbl = {"chunks": [], "stsc": [], "sizes": [], "size": 0,
+            "entries": []}
+    for kind, at, stop in _jp2_boxes(data, pos, end):
+        r = _Reader(data, at, stop, kind.decode(errors="replace"))
+        if kind in (b"stco", b"co64"):
+            r.full()
+            n = 8 if kind == b"co64" else 4
+            stbl["chunks"] += [r.uint(n) for _ in range(r.uint(4))]
+        elif kind == b"stsc":
+            r.full()
+            for _ in range(r.uint(4)):
+                first, per = r.uint(4), r.uint(4)
+                r.uint(4)                       # sample description index
+                prev = stbl["stsc"][-1][0] if stbl["stsc"] else 0
+                if first <= prev or (not prev and first != 1):
+                    raise FormatError("an stsc box whose chunks do not rise "
+                                      "from 1 (cv2 refuses it)")
+                stbl["stsc"].append((first, per))
+        elif kind == b"stsz":
+            r.full()
+            stbl["size"], count = r.uint(4), r.uint(4)
+            if not stbl["size"]:
+                stbl["sizes"] = [r.uint(4) for _ in range(count)]
+        elif kind == b"stsd":
+            if r.full()[0] != 0:
+                raise FormatError("an stsd box of a version other than 0")
+            count = r.uint(4)
+            for k2, a2, s2 in _jp2_boxes(data, r.pos, stop):
+                if len(stbl["entries"]) == count:
+                    break
+                props = []
+                if k2 == b"av01":
+                    if s2 - a2 < _VISUAL_SAMPLE_ENTRY:
+                        raise FormatError("an av01 sample entry that ends "
+                                          "early (cv2 refuses it)")
+                    props = list(_jp2_boxes(data, a2 + _VISUAL_SAMPLE_ENTRY,
+                                            s2))
+                stbl["entries"].append((k2, props))
+            if len(stbl["entries"]) < count:
+                raise FormatError("an stsd box that ends early")
+    return stbl
+
+
+def _avif_first_sample(data: bytes, stbl: dict) -> bytes:
+    """A track's first sample after libavif's check of the whole table
+    (avifCodecDecodeInputFillFromSampleTable): every chunk holds samples
+    (its stsc entry's count), every sample has a size and lies inside
+    the file."""
+    first, k = None, 0
+    for c, offset in enumerate(stbl["chunks"]):
+        per = next((n for f, n in reversed(stbl["stsc"]) if f <= c + 1), 0)
+        if not per:
+            raise FormatError("a chunk of no samples (cv2 refuses it)")
+        for _ in range(per):
+            if stbl["size"]:
+                size = stbl["size"]
+            elif k < len(stbl["sizes"]):
+                size = stbl["sizes"][k]
+            else:
+                raise FormatError("a sample table that ends early (cv2 "
+                                  "refuses it)")
+            if offset + size > len(data):
+                raise FormatError("a sample past the end of the file (cv2 "
+                                  "refuses it)")
+            if first is None:
+                first = data[offset:offset + size]
+            offset += size
+            k += 1
+    return first
+
+
+def _avif_entry_props(data: bytes, entries) -> dict:
+    """The first av01 sample entry's boxes as item properties: kind ->
+    (body start, end), the first of each kind, colr's nclx apart."""
+    for kind, boxes in entries:
+        if kind == b"av01":
+            out = {}
+            for k, at, stop in boxes:
+                if k == b"colr" and data[at:at + 4] == b"nclx":
+                    out.setdefault(b"nclx", (at + 4, stop))
+                out.setdefault(k, (at, stop))
+            return out
+    return {}
+
+
+def _avif_sequence(data: bytes, tracks: list, av1) -> np.ndarray:
+    """The first frame of an image sequence as libavif picks it: the
+    colour track is the first with a sample table of chunks, an av01
+    sample entry, and no auxl reference; its first sample decoded, its
+    av1C and colr from the sample entry; the alpha track the first such
+    track whose auxl names the colour track, premultiplied where the
+    colour track's prem names it."""
+    def usable(t):
+        return t["stbl"] is not None and t["id"] and t["stbl"]["chunks"] \
+            and any(k == b"av01" for k, _ in t["stbl"]["entries"])
+
+    colour = next((t for t in tracks if usable(t) and not t["aux_for"]),
+                  None)
+    if colour is None:
+        raise FormatError("an image sequence without an AV1 colour track "
+                          "(cv2 refuses it)")
+    props = _avif_entry_props(data, colour["stbl"]["entries"])
+    if b"av1C" not in props:
+        raise FormatError("an AV1 track without av1C (cv2 refuses it)")
+    check_size(*colour["size"])
+    alpha_track = next((t for t in tracks if usable(t) and t["aux_for"] ==
+                        colour["id"]), None)
+    planes, info = av1(_avif_first_sample(data, colour["stbl"]))
+    if planes[0].shape[::-1] != colour["size"]:
+        raise FormatError(f"the track's {colour['size'][0]}x"
+                          f"{colour['size'][1]} is not its first frame's "
+                          f"{planes[0].shape[1]}x{planes[0].shape[0]}")
+    alpha, prem = None, False
+    if alpha_track is not None:
+        alpha = av1(_avif_first_sample(data, alpha_track["stbl"]))
+        prem = colour["prem_by"] == alpha_track["id"]
+    return _avif_convert(data, props, planes, info, alpha, prem)
+
+
 def read_avif(data: bytes, av1) -> np.ndarray:
     """AVIF bytes -> uint8 [H, W, 3] RGB, as cv2.imread reads them through
-    libavif: the primary av01 item's AV1 stream decoded by the host
-    library (``av1(stream) -> (planes, info)``: the Y, U, V planes as
-    uint16 at the stream's bit depth, their subsampling and the sequence
-    header's colour fields), then libavif's conversion to 8-bit RGB by
-    the colr box's nclx values (else the sequence header's).  iloc
-    versions 0-2 with every field size, items in the file or in idat,
-    several extents; infe versions 2 and 3; ipma's 7- and 15-bit
-    indices.  Ignored as cv2
-    ignores them: an alpha item (IMREAD_COLOR drops it), irot, imir,
-    clap, an ICC colr, EXIF, the hidden flag, a1op / lsel / a1lx (a
-    stream of several layers the decoder refuses).  Refused as cv2
-    refuses them: an essential property libavif does not know, pixi
-    depths that are not av1C's.  A grid primary item is assembled from
-    its av01 tiles as libavif does (:func:`_avif_grid`), then converted
-    as a whole (the chroma upsampling reads across the tiles' seams);
-    its own ispe, colr and pixi apply.  Refused, naming themselves:
-    image sequences, premultiplied alpha, an ispe that is not the AV1
-    frame's (or the grid's output) size (cv2 writes the frame's rows into
-    a buffer of ispe's size)."""
+    libavif: the primary av01 item's AV1 stream (or an image sequence's
+    first frame) decoded by the host library (``av1(stream) -> (planes,
+    info)``: the Y, U, V planes as uint16 at the stream's bit depth, 8,
+    10 or 12, their subsampling and the sequence header's depth and
+    colour fields), then libavif's conversion to 8-bit RGB by the colr
+    box's nclx values (else the sequence header's).  iloc versions 0-2
+    with every field size, items in the file or in idat, several
+    extents; infe versions 2 and 3; ipma's 7- and 15-bit indices.
+    Ignored as cv2 ignores them: irot, imir, clap, an ICC colr, EXIF,
+    the hidden flag, a1op / lsel / a1lx (a stream of several layers the
+    decoder refuses).  An alpha item (auxl, auxC alpha) is decoded as
+    libavif decodes it: cv2's BGRA conversion picks libavif's route, and
+    a prem reference from the colour item to it has the colours
+    un-premultiplied (:func:`_avif_rgb`).  Refused as cv2 refuses them:
+    an essential property libavif does not know, pixi depths that are
+    not av1C's, alpha on a grey image or of another bit depth.  A grid
+    primary item is assembled from its av01 tiles as libavif does
+    (:func:`_avif_grid`), then converted as a whole (the chroma
+    upsampling reads across the tiles' seams); its own ispe, colr and
+    pixi apply.  libavif reads the tracks of an avis major brand, or of
+    a moov box under a major brand that is neither (:func:`_avif_sequence`:
+    the first sample of the colour track, an auxl track its alpha).
+    Refused, naming themselves: an ispe that is not the AV1 frame's (or
+    the grid's output) size, a track size that is not its first
+    frame's, premultiplied alpha of another size than the image, alpha
+    items on a grid's tiles at 10 or 12 bits or premultiplied."""
     boxes = _jp2_boxes(data, 0, len(data))
     first = next(boxes, None)
     if first is None or first[0] != b"ftyp":
         raise FormatError("the ftyp box is not the first")
     at, stop = first[1], first[2]
-    if stop - at < 8 or not any(
-            data[i:i + 4] in AVIF_BRANDS
-            for i in [at] + list(range(at + 8, stop - 3, 4))):
+    brands = [data[i:i + 4] for i in [at] + list(range(at + 8, stop - 3, 4))]
+    if stop - at < 8 or not any(b in AVIF_BRANDS for b in brands):
         raise FormatError("the ftyp box names neither avif nor avis")
-    major = data[first[1]:first[1] + 4]
-    meta, moov = None, False
+    major = brands[0]
+    meta = tracks = None
     for kind, at, stop in boxes:
         if kind == b"meta":
             if meta is not None:
                 raise FormatError("a second meta box")
             meta = _avif_meta(data, at, stop)
-        moov |= kind == b"moov"
-    # libavif reads the tracks of an avis major brand, or of a moov box
-    # under a major brand that is neither
-    if major == b"avis" or (moov and major != b"avif"):
-        raise FormatError("an image sequence (avis), which the port does "
-                          "not read")
+        elif kind == b"moov":
+            if tracks is not None:
+                raise FormatError("a second moov box")
+            tracks = _avif_tracks(data, at, stop)
+    # libavif needs a meta box under an avif brand, a moov under avis
+    if b"avis" in brands and tracks is None:
+        raise FormatError("an avis brand without a moov box (cv2 refuses "
+                          "it)")
+    if meta is None and b"avif" in brands:
+        raise FormatError("no meta box")
+    # it reads the tracks of an avis major brand, or of a moov box under
+    # a major brand that is neither
+    if major == b"avis" or (tracks and major != b"avif"):
+        return _avif_sequence(data, tracks, av1)
     if meta is None:
         raise FormatError("no meta box")
     if meta["hdlr"] != b"pict":
@@ -1906,10 +2209,6 @@ def read_avif(data: bytes, av1) -> np.ndarray:
     kind = meta["infe"][item]
     if kind not in (b"av01", b"grid"):
         raise FormatError(f"a primary item of type {kind!r}")
-    for ref, src, dst in meta["iref"]:
-        if ref == b"prem" and src == item:
-            raise FormatError("premultiplied alpha, which the port does "
-                              "not read")
     props = _avif_props(data, meta, item)
     if b"ispe" not in props:
         raise FormatError("the primary item has no ispe")
@@ -1943,15 +2242,27 @@ def read_avif(data: bytes, av1) -> np.ndarray:
         raise FormatError(f"ispe's {size[0]}x{size[1]} is not the "
                           f"{'grid' if tiles else 'AV1 frame'}'s "
                           f"{planes[0].shape[1]}x{planes[0].shape[0]}")
-    if b"nclx" in props:
-        c = _Reader(data, *props[b"nclx"], "colr")
-        primaries, _, matrix, full = (c.uint(2), c.uint(2), c.uint(2),
-                                      c.uint(1) >> 7)
-    else:
-        primaries, matrix, full = (info["primaries"], info["matrix"],
-                                   info["full_range"])
-    return _avif_rgb(planes, info["subsampling"], matrix, bool(full),
-                     primaries)
+    alpha_item, on_tiles = _avif_alpha_item(data, meta, item)
+    # the colour item's last prem reference names its alpha item
+    prem_by = [dst for ref, src, dst in meta["iref"]
+               if ref == b"prem" and src == item]
+    if on_tiles and (info["bit_depth"] > 8 or prem_by):
+        # at 8 bits, not premultiplied, the colours are the same
+        raise FormatError("alpha items on a grid's tiles at 10 or 12 bits "
+                          "or premultiplied, which the port does not read")
+    alpha, prem = None, False
+    if alpha_item is not None:
+        a_kind = meta["infe"].get(alpha_item)
+        if a_kind == b"av01":
+            alpha = av1(_avif_item_data(data, meta, alpha_item))
+        elif a_kind == b"grid":
+            alpha = _avif_grid(data, meta, alpha_item, _avif_grid_tiles(
+                data, meta, alpha_item), av1)
+        else:
+            raise FormatError(f"an alpha item of type {a_kind!r} (cv2 "
+                              f"refuses it)")
+        prem = bool(prem_by) and prem_by[-1] == alpha_item
+    return _avif_convert(data, props, planes, info, alpha, prem)
 
 
 # libyuv's YuvConstants as libavif picks them (avif's getLibYUVConstants):
@@ -2021,20 +2332,39 @@ def _upsample(c: np.ndarray, h: int, w: int, sub_y: bool) -> np.ndarray:
     return out
 
 
-def _avif_rgb(planes, subsampling, matrix: int, full: bool, primaries: int
+def _avif_rgb(planes, subsampling, matrix: int, full: bool, primaries: int,
+              depth: int = 8, alpha=None, premultiplied: bool = False
               ) -> np.ndarray:
-    """8-bit Y, U, V planes and their (x, y) subsampling -> uint8 RGB as
-    libavif 1.4 converts them for cv2 (8-bit BGR): a grey (4:0:0) image
-    is its Y plane, as cv2 copies it; the matrices libyuv has constants
-    for (1, 2, 5, 6, 9, and 12 under primaries 1, 2, 5, 6, 9) by libyuv's
-    fixed-point YuvPixel after its bilinear chroma upsampling; the others
-    cv2 reads (0 at 4:4:4, 4, 7, 8 in full range, 12 under other
-    primaries, 15) by libavif's float path."""
+    """Y, U, V planes of 8, 10 or 12 bits and their (x, y) subsampling ->
+    uint8 RGB as libavif 1.4 converts them for cv2 (8-bit BGR, or BGRA
+    where the file has an alpha item: ``alpha`` its full-range plane at
+    ``depth``, which above 8 bits changes libavif's route).
+
+    A grey (4:0:0) image is its Y plane, as cv2 copies it (above 8 bits
+    cv2's convertTo by 2^-(depth-8): rounded, ties to even).  The
+    matrices libyuv has constants for (1, 2, 5, 6, 9, and 12 under
+    primaries 1, 2, 5, 6, 9) by libyuv's fixed-point YuvPixel after its
+    bilinear chroma upsampling (:func:`_libyuv_rgb`): 8-bit planes as
+    they are; above 8 bits cut to 8 by libyuv's Convert16To8Plane (a
+    shift that truncates), except where libyuv converts them to BGRA
+    itself: 10-bit planes with alpha (I010 / I210 / I410AlphaToARGB) and
+    12-bit 4:2:0 ones (I012ToARGB, nearest chroma).  The others cv2
+    reads (0 at 4:4:4, 4, 7, 8 in full range, 12 under other primaries,
+    15) by libavif's float path at the planes' depth
+    (:func:`_avif_rgb_float`).  ``premultiplied`` alpha (a prem
+    reference) is undone as libavif does for an unpremultiplied BGRA
+    output: libyuv's ARGBUnattenuate on 8-bit BGRA (:func:`_unattenuate`)
+    after libyuv and after libavif's fast float paths, in float inside
+    its slow one."""
     y = planes[0].astype(np.int32)
     h, w = y.shape
     if len(planes) == 1:
+        if alpha is not None:
+            raise FormatError("a grey image with alpha (cv2 refuses it)")
+        if depth > 8:
+            y = np.minimum(np.rint(y / (1 << (depth - 8))), 255)
         return np.repeat(y.astype(np.uint8)[..., None], 3, -1)
-    u, v = planes[1], planes[2]
+    u, v = planes[1].astype(np.int32), planes[2].astype(np.int32)
     sub_x, sub_y = subsampling
     constants = (_LIBYUV_DERIVED.get(primaries) if matrix == 12
                  else _LIBYUV.get(matrix))
@@ -2045,19 +2375,84 @@ def _avif_rgb(planes, subsampling, matrix: int, full: bool, primaries: int
         if matrix == 0 and sub_x:
             raise FormatError("the identity matrix with subsampled chroma "
                               "(cv2 refuses it)")
-        return _avif_rgb_float(y, u, v, sub_x, sub_y, matrix, full,
-                               primaries)
-    if sub_x:
+        # libavif's fast paths (no chroma to upsample, YUV coefficients or
+        # 8-bit full-range identity) leave the alpha to libyuv afterwards
+        fast = not sub_x and matrix != 8 and (matrix != 0 or (
+            depth == 8 and full))
+        inside = alpha if premultiplied and not fast else None
+        rgb = _avif_rgb_float(y, u, v, sub_x, sub_y, matrix, full,
+                              primaries, depth, inside)
+        if premultiplied and fast:
+            rgb = _unattenuate(rgb, _alpha8(alpha, depth))
+        return rgb
+    nearest = False
+    if depth > 8 and (alpha is None or (depth == 12 and not sub_y)):
+        y, u, v = (p >> (depth - 8) for p in (y, u, v))
+        a8 = None if alpha is None else alpha >> (depth - 8)
+        depth = 8
+    elif depth == 12:                   # 4:2:0: I012ToARGBMatrix
+        a8, nearest = _alpha8(alpha, depth), True
+    else:
+        a8 = None if alpha is None else alpha >> (depth - 8)
+    rgb = _libyuv_rgb(y, u, v, subsampling, constants[full], depth,
+                      nearest)
+    if premultiplied:
+        rgb = _unattenuate(rgb, a8)
+    return rgb
+
+
+def _libyuv_rgb(y, u, v, subsampling, constants, depth: int,
+                nearest: bool = False) -> np.ndarray:
+    """libyuv's YuvPixel (8 bits), YuvPixel10 or YuvPixel12 over planes of
+    that depth: the luma replicated to 16 bits, the chroma (upsampled
+    bilinearly at its own depth, or nearest) cut to 8 bits, the fixed
+    point constants (UB, UG, VG, VR, YG, YB), each channel >> 6 and
+    clamped."""
+    h, w = y.shape
+    sub_x, sub_y = subsampling
+    if sub_x and nearest:
+        u, v = (c.repeat(1 + sub_y, 0).repeat(2, 1)[:h, :w] for c in (u, v))
+    elif sub_x:
         u, v = _upsample(u, h, w, sub_y), _upsample(v, h, w, sub_y)
-    ub, ug, vg, vr, yg, yb = constants[full]
-    ui, vi = u.astype(np.int32) - 128, v.astype(np.int32) - 128
-    y1 = ((y * (0x0101 * yg)) >> 16) + yb       # below 2^31: no wrap
+    y = y.astype(np.int64)
+    if depth == 8:
+        y32 = y * 0x0101
+    else:
+        s = depth - 8
+        y32 = (y << (16 - depth)) | (y >> (2 * depth - 16))
+        u, v = np.minimum(u >> s, 255), np.minimum(v >> s, 255)
+    ub, ug, vg, vr, yg, yb = constants
+    ui, vi = u.astype(np.int64) - 128, v.astype(np.int64) - 128
+    y1 = ((y32 * yg) >> 16) + yb
     rgb = np.empty((h, w, 3), np.uint8)
     for i, c in enumerate((y1 + vi * vr, y1 - (ui * ug + vi * vg),
                            y1 + ui * ub)):
-        np.clip(c >> 6, 0, 255, out=c)
-        rgb[..., i] = c
+        rgb[..., i] = np.clip(c >> 6, 0, 255)
     return rgb
+
+
+def _alpha8(alpha: np.ndarray, depth: int) -> np.ndarray:
+    """libavif's avifReformatAlpha to 8 bits: a copy at 8 bits, else
+    (int)(0.5f + a / max * 255) in float32."""
+    if depth == 8:
+        return alpha.astype(np.int64)
+    f32 = np.float32
+    a = alpha.astype(f32) / f32((1 << depth) - 1)
+    return (f32(0.5) + a * f32(255)).astype(np.int64)
+
+
+# libyuv's fixed_invtbl8: 0x01000000 + 0x10000 / a, a's 1 / a in 8.8
+_INV_ALPHA = np.array([0, 0xFFFF] + [0x10000 // a for a in range(2, 255)]
+                      + [0x100], np.int64)
+
+
+def _unattenuate(rgb: np.ndarray, alpha8: np.ndarray) -> np.ndarray:
+    """libyuv's ARGBUnattenuate as its SSE2 / AVX2 rows compute it (cv2's
+    libavif on an x86-64 host): (c * 257 * inv[a]) >> 16 in unsigned 16
+    bits, packed with signed saturation (results of 32768 and above, at
+    alpha 1, become 0)."""
+    v = (rgb.astype(np.int64) * 257 * _INV_ALPHA[alpha8][..., None]) >> 16
+    return np.where(v >= 32768, 0, np.minimum(v, 255)).astype(np.uint8)
 
 
 # libavif's (kr, kb) for the matrices libyuv has no constants for;
@@ -2119,20 +2514,25 @@ def _chroma_float(c, table, h: int, w: int, sub_x: bool, sub_y: bool):
 
 
 def _avif_rgb_float(y, u, v, sub_x: bool, sub_y: bool, matrix: int,
-                    full: bool, primaries: int) -> np.ndarray:
-    """Planes through libavif's own float32 conversion
-    (avifImageYUV8ToRGB8Color, avifImageYUVAnyToRGBAnySlow with its
-    bilinear chroma, the identity and YCgCo modes)."""
+                    full: bool, primaries: int, depth: int = 8,
+                    alpha=None) -> np.ndarray:
+    """Planes of the bit depth through libavif's own float32 conversion
+    (avifImageYUV8ToRGB8Color / YUV16ToRGB8Color,
+    avifImageYUVAnyToRGBAnySlow with its bilinear chroma, the identity and
+    YCgCo modes): each level over the depth's range; ``alpha`` (at the
+    same depth) premultiplied and undone in float as the slow path does
+    (0 where alpha is 0, RGB / A capped at 1 below full alpha)."""
     f32 = np.float32
     if matrix == 8 and not full:
         raise FormatError("YCgCo in limited range (cv2 refuses it)")
+    top, s = (1 << depth) - 1, depth - 8
     if full:
-        by, ry, buv, ruv = 0, 255, 128, 255
+        by, ry, buv, ruv = 0, top, 128 << s, top
     else:
-        by, ry, buv, ruv = 16, 219, 128, 224
+        by, ry, buv, ruv = 16 << s, 219 << s, 128 << s, 224 << s
     if matrix == 0:
         buv, ruv = by, ry
-    levels = np.arange(256, dtype=f32)
+    levels = np.arange(1 << depth, dtype=f32)
     Y = ((levels - f32(by)) / f32(ry))[y]
     table = (levels - f32(buv)) / f32(ruv)
     h, w = y.shape
@@ -2156,6 +2556,11 @@ def _avif_rgb_float(y, u, v, sub_x: bool, sub_y: bool, matrix: int,
                  / kg)
     rgb = np.stack([R, G, B], -1).astype(f32)
     rgb = np.clip(rgb, f32(0), f32(1))
+    if alpha is not None:
+        a = (alpha.astype(f32) / f32((1 << depth) - 1))[..., None]
+        safe = np.where(a == 0, f32(1), a)
+        rgb = np.where(a == 0, f32(0),
+                       np.where(a < 1, np.minimum(rgb / safe, f32(1)), rgb))
     return (f32(0.5) + rgb * f32(255)).astype(np.uint8)
 
 

@@ -612,8 +612,9 @@ def av1_probe(stream: bytes) -> dict:
 
 
 def _av1(stream: bytes):
-    """An AV1 still's OBUs -> ([Y, U, V] uint16 planes, or [Y] for a
-    monochrome stream, and the sequence header's colour fields with what
+    """An AV1 still's OBUs -> ([Y, U, V] uint16 planes at the stream's bit
+    depth, or [Y] for a monochrome stream, and the sequence header's bit
+    depth and colour fields with what
     the stream used: blocks with a Y or UV palette, the palette sizes,
     intra block copy blocks and those whose reference vector was the
     default), by
@@ -635,7 +636,8 @@ def _av1(stream: bytes):
     if lib.av1_decode(_u8(src), len(stream), *ptrs, _i32(counts), msg,
                       MSG_LEN):
         raise _format_error(msg)
-    return planes, {"subsampling": (sx, sy), "full_range": info["full_range"],
+    return planes, {"subsampling": (sx, sy), "bit_depth": info["bit_depth"],
+                    "full_range": info["full_range"],
                     "matrix": info["matrix"], "primaries": info["primaries"],
                     "transfer": info["transfer"],
                     "palette_y_blocks": int(counts[0]),

@@ -1,8 +1,8 @@
 """Write ``csrc/av1_tables.h``: the AV1 decoder's default CDFs (intra
 modes, coefficients, palettes, intra block copy's vectors and inter
-transforms), its quantizer lookups, the intra tables the specification
-lists by value and those of loop restoration, superres and film grain,
-read from the read-only data of libaom 3.6 (``libaom.so.3``, found in the
+transforms), its quantizer lookups at 8, 10 and 12 bits, the intra
+tables the specification lists by value and those of loop restoration,
+superres and film grain, read from the read-only data of libaom 3.6 (``libaom.so.3``, found in the
 dynamic linker's cache unless ``--lib`` names it).
 
     python -m objectdetectionpl_tpu_torch.tools.av1_tables [--lib P] [--check]
@@ -153,10 +153,17 @@ SPEC_TABLES = (("Palette_Color_Weights", (2, 1, 2)),
                ("Palette_Color_Hash_Multipliers", (1, 2, 2)))
 
 # other tables: (name, C type, leading values, numpy type, count or
-# shape)
+# shape); a tuple of leading values for each row of a table whose rows
+# libaom keeps apart (the quantizer lookups at 8, 10 and 12 bits)
 PLAIN = (
-    ("Dc_Qlookup", "int16_t", (4, 8, 8, 9, 10, 11, 12, 12), np.int16, 256),
-    ("Ac_Qlookup", "int16_t", (4, 8, 9, 10, 11, 12, 13, 14), np.int16, 256),
+    ("Dc_Qlookup", "int16_t", ((4, 8, 8, 9, 10, 11, 12, 12),
+                               (4, 9, 10, 13, 15, 17, 20, 22),
+                               (4, 12, 18, 25, 33, 41, 50, 60)),
+     np.int16, (3, 256)),
+    ("Ac_Qlookup", "int16_t", ((4, 8, 9, 10, 11, 12, 13, 14),
+                               (4, 9, 11, 13, 16, 18, 21, 24),
+                               (4, 13, 19, 27, 35, 44, 54, 64)),
+     np.int16, (3, 256)),
     ("Filter_Intra_Taps", "int8_t", (-6, 10, 0, 0, 0, 12, 0, 0), np.int8,
      5 * 8 * 8),
     ("Dr_Intra_Derivative", "int16_t", (0, 0, 0, 1023, 0, 0, 547),
@@ -340,17 +347,21 @@ def read_tables(path: str) -> dict:
             t[i, n - 1] = 32768
         tables[name] = t
     for name, _, lead, dt, shape in PLAIN:
-        size = int(np.prod(shape)) * np.dtype(dt).itemsize
-        pattern = np.array(lead, dt).tobytes()
-        copies = set()      # the SIMD code keeps copies of some: all equal
-        at = lib.find(pattern, ro[0], ro[0] + ro[1])
-        while at >= 0:
-            if _whole(name, lib[at:at + size]):
-                copies.add(lib[at:at + size])
-            at = lib.find(pattern, at + 1, ro[0] + ro[1])
-        if len(copies) != 1:
-            raise TableError(f"{name}: {len(copies)} different tables")
-        tables[name] = np.frombuffer(copies.pop(), dt).astype(
+        rows = lead if isinstance(lead[0], tuple) else (lead,)
+        size = int(np.prod(shape)) // len(rows) * np.dtype(dt).itemsize
+        parts = []
+        for row in rows:
+            pattern = np.array(row, dt).tobytes()
+            copies = set()  # the SIMD code keeps copies of some: all equal
+            at = lib.find(pattern, ro[0], ro[0] + ro[1])
+            while at >= 0:
+                if _whole(name, lib[at:at + size]):
+                    copies.add(lib[at:at + size])
+                at = lib.find(pattern, at + 1, ro[0] + ro[1])
+            if len(copies) != 1:
+                raise TableError(f"{name}: {len(copies)} different tables")
+            parts.append(copies.pop())
+        tables[name] = np.frombuffer(b"".join(parts), dt).astype(
             np.int64).reshape(shape)
     for name, values in SPEC_TABLES:
         tables[name] = np.array(values)

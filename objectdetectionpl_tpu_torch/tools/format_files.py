@@ -35,7 +35,10 @@ recipe); GIFs (the
 inside a larger screen with a local table and a transparent index); a
 P6 PPM, a 16-bit ASCII P2 PGM, a P7 PAM (TUPLTYPE RGB), a PF PFM
 (scale -0.5); Sun rasters (24-bit, 8-bit with a colour map); a Radiance
-HDR of RLE scanlines.  Every file is made the same way on every
+HDR of RLE scanlines; the committed AVIFs (``avif_stage_files``,
+``avif_screen_files`` and ``avif_depth_files`` the recipes of the later
+ones: the stages after CDEF, screen content and a grid, 10 and 12 bits,
+an image sequence, premultiplied alpha).  Every file is made the same way on every
 machine, so the SHA-256 of each one's decode
 (``data/testdata/formats/sha256.json``, cv2's decodes, which
 ``tests/test_torch_port_image_formats.py`` holds against cv2 and the
@@ -100,7 +103,9 @@ KINDS = ("jpeg", "jpeg_cmyk", "jpeg_ycck", "jpeg_arithmetic",
          "avif_lossless", "avif_tiles_sb128", "avif_odd", "avif_500x375",
          "avif_wiener", "avif_sgrproj", "avif_superres", "avif_film_grain",
          "avif_palette_444", "avif_palette_420", "avif_intrabc",
-         "avif_grid_cropped")
+         "avif_grid_cropped", "avif_10bit_420", "avif_10bit_444_lr",
+         "avif_10bit_film_grain", "avif_12bit_422", "avif_10bit_400",
+         "avif_10bit_screen", "avif_sequence", "avif_prem")
 COMMITTED = {"jpeg": TESTDATA / BASE,
              "jpeg_cmyk": TESTDATA / UNSUPPORTED[0],
              "jpeg_ycck": FORMATS / "ycck_420_q85_160x120.jpg",
@@ -144,7 +149,16 @@ COMMITTED = {"jpeg": TESTDATA / BASE,
              "avif_palette_420":
                  FORMATS / "avif_palette_420_sb128_157x117.avif",
              "avif_intrabc": FORMATS / "avif_intrabc_420_160x120.avif",
-             "avif_grid_cropped": FORMATS / "avif_grid_2x2_120x100.avif"}
+             "avif_grid_cropped": FORMATS / "avif_grid_2x2_120x100.avif",
+             "avif_10bit_420": FORMATS / "avif_10bit_420_160x120.avif",
+             "avif_10bit_444_lr": FORMATS / "avif_10bit_444_lr_160x120.avif",
+             "avif_10bit_film_grain":
+                 FORMATS / "avif_10bit_film_grain1_160x120.avif",
+             "avif_12bit_422": FORMATS / "avif_12bit_422_160x120.avif",
+             "avif_10bit_400": FORMATS / "avif_10bit_400_160x120.avif",
+             "avif_10bit_screen": FORMATS / "avif_10bit_screen_160x120.avif",
+             "avif_sequence": FORMATS / "avif_sequence3_160x120.avif",
+             "avif_prem": FORMATS / "avif_10bit_prem_160x120.avif"}
 AVIF_KINDS = tuple(k for k in KINDS if k.startswith("avif"))
 
 
@@ -1019,13 +1033,15 @@ def avif_bytes(obus: bytes, w: int, h: int, av1c: bytes,
     ``ipma_large`` writes 15-bit property indices; ``hidden`` sets the
     item's hidden flag; ``pixi`` its bit depths or None; ``extra_props``
     more (box, essential) properties of the item; ``alpha`` an
-    (obus, av1c) alpha item, linked by auxl; ``iref_extra`` more
-    (type, from, to) references."""
+    (obus, av1c) alpha item, linked by auxl (its pixi the av1C's depth);
+    ``iref_extra`` more (type, from, to) references (a prem reference
+    from item 1 to 2 marks the alpha premultiplied)."""
     items = [(item_id, obus, av1c, nclx, pixi, extra_props)]
     alpha_id = item_id + 1
     if alpha is not None:
         urn = b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha\0"
-        items.append((alpha_id, alpha[0], alpha[1], None, (8,),
+        depth = 12 if alpha[1][2] & 0x20 else 10 if alpha[1][2] & 0x40 else 8
+        items.append((alpha_id, alpha[0], alpha[1], None, (depth,),
                       ((heif_box(b"auxC", urn, 0), False),)))
     off_size, len_size, base_size, index_size = sizes
     props, assoc = [], {}
@@ -1121,7 +1137,7 @@ def avif_bytes(obus: bytes, w: int, h: int, av1c: bytes,
 def avif_grid_bytes(tiles, w: int, h: int, av1c: bytes, rows: int,
                     cols: int, output=None, body: bytes = None, ispe=None,
                     tile_av1c=None, tile_ispe=None,
-                    tile_kind: bytes = b"av01") -> bytes:
+                    tile_kind: bytes = b"av01", depth: int = 8) -> bytes:
     """An AVIF whose primary item is a rows x cols grid (in idat) of w x h
     av01 tiles, the AV1 streams ``tiles`` in raster order (as many as
     given: a count unlike rows x cols makes a grid libavif refuses), the
@@ -1131,12 +1147,12 @@ def avif_grid_bytes(tiles, w: int, h: int, av1c: bytes, rows: int,
     by default the output; ``tile_av1c`` an av1C body for each tile in
     place of ``av1c``; ``tile_ispe`` a (width, height) or None (no ispe)
     for each tile in place of (w, h); ``tile_kind`` the tiles' item
-    type."""
+    type; ``depth`` the bit depth the grid's pixi gives."""
     streams = list(tiles)
     n = len(streams)
     grid_id = n + 1
     out_w, out_h = output or (w * cols, h * rows)
-    props = [heif_box(b"pixi", bytes([3, 8, 8, 8]), 0),
+    props = [heif_box(b"pixi", bytes([3, depth, depth, depth]), 0),
              heif_box(b"colr", b"nclx" + struct.pack(">HHHB", 1, 13, 6, 128)),
              heif_box(b"ispe", struct.pack(">II", *(ispe or (out_w, out_h))),
                       0)]
@@ -1194,9 +1210,14 @@ _AOM_CFG = {"g_profile": 2, "g_w": 3, "g_h": 4, "g_limit": 5,
 _AOM_CFG_DEFAULTS = {3: 320, 4: 240, 8: 8, 9: 8, 20: 8, 21: 8, 34: 256,
                      36: 63, 48: 9999}
 AOM_ENCODER_ABI = 25        # AOM_ENCODER_ABI_VERSION of libaom 3.6
-# the subsamplings as aom_img_fmt_t and the profile each needs
+# the subsamplings as aom_img_fmt_t and the profile each needs at 8 or
+# 10 bits (12 bits need profile 2 at every subsampling)
 _AOM_FORMATS = {"4:2:0": (0x102, 0), "4:0:0": (0x102, 0),
                 "4:4:4": (0x106, 1), "4:2:2": (0x105, 2)}
+
+
+def _aom_profile(subsampling: str, bit_depth: int) -> int:
+    return 2 if bit_depth == 12 else _AOM_FORMATS[subsampling][1]
 
 
 def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
@@ -1235,7 +1256,8 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
     aom.aom_codec_get_cx_data.restype = vp
     aom.aom_codec_destroy.argtypes = [vp]
     h, w = planes[0].shape
-    fmt, profile = _AOM_FORMATS[subsampling]
+    fmt = _AOM_FORMATS[subsampling][0]
+    profile = _aom_profile(subsampling, bit_depth)
     sx = int(subsampling in ("4:2:0", "4:0:0", "4:2:2"))
     sy = int(subsampling in ("4:2:0", "4:0:0"))
     cfg = (ctypes.c_uint32 * 1024)()
@@ -1296,14 +1318,16 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
 
 
 def av1c_bytes(subsampling: str, bit_depth: int = 8) -> bytes:
-    """An av1C body for a stream of the subsampling: profile 0, 1 or 2 as
-    ``aom_encode`` writes it, level 31, chroma position 0, 8 or 10 bits."""
-    profile = _AOM_FORMATS[subsampling][1]
+    """An av1C body for a stream of the subsampling and bit depth (8, 10
+    or 12): profile 0, 1 or 2 as ``aom_encode`` writes it (2 at 12
+    bits, with the twelve_bit flag), level 31, chroma position 0."""
+    profile = _aom_profile(subsampling, bit_depth)
     mono = int(subsampling == "4:0:0")
     sx = int(subsampling in ("4:2:0", "4:0:0", "4:2:2"))
     sy = int(subsampling in ("4:2:0", "4:0:0"))
-    return bytes([0x81, profile << 5 | 31, (bit_depth > 8) << 6 | mono << 4
-                  | sx << 3 | sy << 2, 0])
+    return bytes([0x81, profile << 5 | 31, (bit_depth > 8) << 6
+                  | (bit_depth == 12) << 5 | mono << 4 | sx << 3 | sy << 2,
+                  0])
 
 
 def _yuv(rgb: np.ndarray, subsampling: str) -> list:
@@ -1420,6 +1444,86 @@ def avif_screen_files() -> Dict[str, bytes]:
                                **{"cq-level": 40, "enable-palette": 0}),
         "avif_grid_cropped": avif_grid_bytes(
             tiles, 64, 64, av1c_bytes("4:2:0"), 2, 2, output=(120, 100)),
+    }
+
+
+def deepen(planes, depth: int) -> list:
+    """8-bit planes at ``depth`` bits, each level's high bits replicated
+    below it (255 -> 1023 or 4095)."""
+    s = depth - 8
+    return [(p.astype(np.uint16) << s) | (p.astype(np.uint16) >> (8 - s))
+            for p in planes]
+
+
+def avif_depth_files() -> Dict[str, bytes]:
+    """The committed AVIFs of 10 and 12 bits, image sequences and
+    premultiplied alpha, from crops of the 500x375 fixture: ``aom_encode``
+    at 10 bits in 4:2:0, 4:4:4 with Wiener / self-guided units, 4:2:0
+    with film-grain-test 1, 4:0:0, and screen content (a page of glyphs,
+    4:4:4, palettes and intra block copy); at 12 bits in 4:2:2; Pillow's
+    three-frame sequence whose meta item is pointed at the second sample
+    (cv2 reads the track's first), its times of creation and
+    modification zeroed; a 10-bit 4:2:0 image with a 10-bit
+    limited-range alpha item (opaque, transparent and graded regions)
+    and a prem reference.  Needs Pillow's AVIF plugin and the system
+    libaom."""
+    import io
+
+    from PIL import Image
+
+    rgb = native.decode_one(str(TESTDATA / BASE))
+    crop = rgb[100:220, 150:310]
+
+    def encode(img, sub, depth=10, **options):
+        h, w = img.shape[:2]
+        planes = _yuv(img, "4:2:0" if sub == "4:0:0" else sub)
+        planes = deepen(planes[:1] if sub == "4:0:0" else planes, depth)
+        obus = aom_encode(planes, sub, bit_depth=depth,
+                          options={"cpu-used": 4, **options})
+        return obus, avif_bytes(obus, w, h, av1c_bytes(sub, depth),
+                                pixi=(depth,) * (1 if sub == "4:0:0" else 3))
+
+    frames = [Image.fromarray(np.ascontiguousarray(rgb[100 + 20 * k:
+                                                       220 + 20 * k,
+                                                       150:310]))
+              for k in range(3)]
+    out = io.BytesIO()
+    frames[0].save(out, format="AVIF", save_all=True,
+                   append_images=frames[1:], duration=100, quality=60)
+    sequence = bytearray(out.getvalue())
+    stco, stsz = sequence.index(b"stco") + 12, sequence.index(b"stsz") + 16
+    first = struct.unpack(">I", sequence[stco:stco + 4])[0]
+    size = struct.unpack(">I", sequence[stsz:stsz + 4])[0]
+    at = sequence.index(struct.pack(">I", first), sequence.index(b"iloc"))
+    sequence[at:at + 8] = struct.pack(">I", first + size) + \
+        sequence[stsz + 4:stsz + 8]
+    for kind in (b"mvhd", b"tkhd", b"mdhd"):    # creation, modification
+        box = sequence.index(kind) + 4
+        n = 8 if sequence[box] else 4
+        sequence[box + 4:box + 4 + 2 * n] = bytes(2 * n)
+    colour, _ = encode(crop, "4:2:0", **{"cq-level": 15})
+    y, x = np.mgrid[0:120, 0:160]
+    alpha = np.clip((x - 40) * 1023 // 80, 0, 1023).astype(np.uint16)
+    alpha[:40] = 1023
+    alpha[80:, :80] = 0
+    prem_alpha = aom_encode([alpha], "4:0:0", bit_depth=10,
+                            options={"cq-level": 10, "cpu-used": 4})
+    return {
+        "avif_10bit_420": encode(crop, "4:2:0", **{"cq-level": 15})[1],
+        "avif_10bit_444_lr": encode(crop, "4:4:4", **{
+            "cq-level": 5, "enable-restoration": 1, "sb-size": "64"})[1],
+        "avif_10bit_film_grain": encode(crop, "4:2:0", **{
+            "cq-level": 30, "film-grain-test": 1})[1],
+        "avif_12bit_422": encode(crop, "4:2:2", 12, **{"cq-level": 15})[1],
+        "avif_10bit_400": encode(crop, "4:0:0", **{"cq-level": 15})[1],
+        "avif_10bit_screen": encode(screen_text(120, 160, 3), "4:4:4", **{
+            "cq-level": 30, "tune-content": "screen", "enable-palette": 1,
+            "enable-intrabc": 1})[1],
+        "avif_sequence": bytes(sequence),
+        "avif_prem": avif_bytes(colour, 160, 120, av1c_bytes("4:2:0", 10),
+                                pixi=(10,) * 3,
+                                alpha=(prem_alpha, av1c_bytes("4:0:0", 10)),
+                                iref_extra=((b"prem", 1, 2),)),
     }
 
 

@@ -5,6 +5,8 @@ record behind ROADMAP §C's entries.
     python tests/probe_cv2_readers.py fax [--seeds 60]
     python tests/probe_cv2_readers.py gif [--files 3000]
     python tests/probe_cv2_readers.py avif [--files 400]
+    python tests/probe_cv2_readers.py avif_depth [--files 400]
+    python tests/probe_cv2_readers.py avif_sequence [--files 400]
 
 ``fax``: CCITT Group 3 (1-D, 2-D, with and without fill bits), Group 4
 and RLE files that the system libtiff writes (the writer of
@@ -32,6 +34,25 @@ the coded width allows, a film grain test vector in a quarter) through
 the system libaom by ``tools/format_files.py::aom_encode``, boxed by
 ``avif_bytes``, a tenth with bits flipped.  Prints how many files the
 port reads as cv2 does, and for the rest which side refuses and why.
+
+``avif_depth``: seeded 10- and 12-bit key frames of 1 to 200 pixels a
+side (smooth, noise or screen content: blocks of a few colours or a
+page of glyphs) through the system libaom by ``aom_encode``: every
+subsampling, 64 or 128 superblocks, tile columns, restoration, superres
+(a fifth), film grain (one of libaom's 16 test vectors, a fifth),
+libaom's screen tuning with palettes and intra block copy (a third),
+quantizer matrices, delta q, lossless; boxed by ``avif_bytes`` with a
+random nclx (every matrix cv2 reads, both ranges) and a tenth with bits
+flipped.  Prints the counts as ``avif`` does.
+
+``avif_sequence``: Pillow's image sequences (2 to 5 frames, RGB or RGBA,
+random quality, speed and subsampling), a third with the meta item
+pointed at the second sample; and files with an alpha item, a half of
+them premultiplied (a prem reference): colour and alpha through
+``aom_encode`` at 8, 10 or 12 bits (limited-range alpha, an alpha of
+another depth or size now and then) or through Pillow, with a random
+nclx; a tenth of all with bits flipped.  Prints the counts as ``avif``
+does.
 """
 
 import argparse
@@ -283,9 +304,185 @@ def _avif_superres(s: int, path: Path, split: Counter) -> None:
     _avif_against_cv2(path, bytes(data), split)
 
 
+def _probe_counts(title: str, split: Counter) -> None:
+    print(title)
+    for k, v in sorted(split.items()):
+        print(f"{k}: {v}")
+
+
+def _flip(rng, data: bytearray) -> None:
+    for at in rng.randint(data.find(b"mdat") + 8, len(data),
+                          rng.randint(1, 4)):
+        data[at] ^= 1 << rng.randint(8)
+
+
+# the colr boxes drawn: (primaries, matrix, full range)
+_NCLX = [(1, 6, 1), (1, 1, 0), (1, 1, 1), (9, 9, 0), (1, 5, 0), (9, 12, 1),
+         (4, 12, 0), (1, 0, 1), (1, 0, 0), (1, 4, 0), (1, 7, 1), (1, 8, 1),
+         (1, 15, 0), (1, 2, 1), (1, 3, 0)]
+
+
+def _depth_planes(rng, h: int, w: int, sub: str, depth: int):
+    """Planes at ``depth``: smooth, noise, blocks or glyphs."""
+    from objectdetectionpl_tpu_torch.tools.format_files import (
+        _yuv, screen_regions, screen_text)
+    top = (1 << depth) - 1
+    kind = rng.choice(["smooth", "noise", "blocks", "text"])
+    if kind in ("blocks", "text"):
+        img = (screen_regions if kind == "blocks" else screen_text)(
+            max(h, 12), max(w, 9), int(rng.randint(1 << 30)))[:h, :w]
+        planes = _yuv(img, "4:2:0" if sub == "4:0:0" else sub)
+        # 8-bit levels to the depth with their high bits replicated
+        planes = [(p.astype(np.uint16) << (depth - 8))
+                  | (p.astype(np.uint16) >> (16 - depth)) for p in planes]
+    else:
+        y, x = np.mgrid[0:h, 0:w]
+        amp = top if kind == "noise" else top // 8
+        luma = ((x * 3 + y * 2) * (top + 1) // 256 + rng.randint(
+            0, amp + 1, (h, w))) % (top + 1)
+        sx, sy = int(sub != "4:4:4"), int(sub in ("4:2:0", "4:0:0"))
+        planes = [luma] + [rng.randint(0, top + 1, ((h + sy) >> sy,
+                                                    (w + sx) >> sx))
+                           for _ in range(2)]
+    planes = [p.astype(np.uint16) for p in planes]
+    return planes[:1] if sub == "4:0:0" else planes
+
+
+def avif_depth(files: int) -> None:
+    from objectdetectionpl_tpu_torch.tools.format_files import (
+        aom_encode, av1c_bytes, avif_bytes)
+    tmp = Path(tempfile.mkdtemp(prefix="probe_avif_depth_"))
+    split = Counter()
+    for s in range(files):
+        rng = np.random.RandomState(20_000 + s)
+        depth = int(rng.choice([10, 12]))
+        sub = str(rng.choice(["4:2:0", "4:2:2", "4:4:4", "4:0:0"]))
+        h, w = rng.randint(1, 201), rng.randint(1, 201)
+        options = {"cq-level": int(rng.randint(0, 64)),
+                   "cpu-used": int(rng.randint(1, 7)),
+                   "enable-restoration": int(rng.randint(2)),
+                   "sb-size": str(rng.choice(["64", "128"])),
+                   "enable-qm": int(rng.randint(2)),
+                   "deltaq-mode": int(rng.randint(2))}
+        if rng.rand() < 1 / 3:
+            options.update({"tune-content": "screen", "enable-palette": 1,
+                            "enable-intrabc": int(rng.randint(2))})
+        if rng.rand() < 0.2:
+            options["film-grain-test"] = int(rng.randint(1, 17))
+        if rng.rand() < 0.05:
+            options["lossless"] = 1
+        denom = None
+        if rng.rand() < 0.2 and w >= 16:
+            denom = int(rng.randint(9, 17))
+            if (w * 8 + denom // 2) // denom > 136 and rng.rand() < 0.5:
+                options["tile-columns"] = 1
+        elif w > 64 and rng.rand() < 0.2:
+            options["tile-columns"] = 1
+        planes = _depth_planes(rng, h, w, sub, depth)
+        try:
+            obus = aom_encode(planes, sub, superres=denom, options=options,
+                              bit_depth=depth)
+        except RuntimeError:
+            split["libaom refuses the options"] += 1
+            continue
+        primaries, matrix, full = _NCLX[rng.randint(len(_NCLX))]
+        data = bytearray(avif_bytes(
+            obus, w, h, av1c_bytes(sub, depth),
+            nclx=(primaries, 13, matrix, full),
+            pixi=(depth,) * (1 if sub == "4:0:0" else 3)))
+        if rng.rand() < 0.1:
+            _flip(rng, data)
+        _avif_against_cv2(tmp / f"{s:05d}.avif", bytes(data), split)
+    _probe_counts(f"{files} 10- and 12-bit files (libaom 3.6 through "
+                  f"ctypes)", split)
+
+
+def _pillow_sequence(rng) -> bytearray:
+    import io
+    from PIL import Image
+    h, w = rng.randint(1, 121), rng.randint(1, 161)
+    mode = str(rng.choice(["RGB", "RGBA"]))
+    y, x = np.mgrid[0:h, 0:w]
+    frames = []
+    for k in range(rng.randint(2, 6)):
+        img = np.stack([x * 3 + 40 * k, y * 4, (x + y) * 2], -1) + \
+            rng.randint(0, 30, (h, w, 3))
+        if mode == "RGBA":
+            img = np.dstack([img, (x * 5 + y + 60 * k) % 256])
+        frames.append(Image.fromarray(np.clip(img, 0, 255).astype(np.uint8),
+                                      mode))
+    out = io.BytesIO()
+    frames[0].save(out, format="AVIF", save_all=True,
+                   append_images=frames[1:], duration=100,
+                   quality=int(rng.choice([30, 60, 90])),
+                   speed=int(rng.choice([6, 8, 10])),
+                   subsampling=str(rng.choice(["4:2:0", "4:4:4"])))
+    data = bytearray(out.getvalue())
+    if rng.rand() < 1 / 3 and data.count(b"stco") == 1 and \
+            data.count(b"iloc") == 1:
+        # the meta item at the second sample: cv2 reads the track
+        stco, stsz = data.index(b"stco") + 12, data.index(b"stsz") + 16
+        first = struct.unpack(">I", data[stco:stco + 4])[0]
+        size = struct.unpack(">I", data[stsz:stsz + 4])[0]
+        at = data.find(struct.pack(">I", first), data.index(b"iloc"))
+        data[at:at + 4] = struct.pack(">I", first + size)
+    return data
+
+
+def _alpha_file(rng) -> bytearray:
+    from objectdetectionpl_tpu_torch.tools.format_files import (
+        aom_encode, av1c_bytes, avif_bytes)
+    h, w = rng.randint(1, 121), rng.randint(1, 161)
+    depth = int(rng.choice([8, 10, 12]))
+    sub = str(rng.choice(["4:2:0", "4:2:2", "4:4:4"]))
+    planes = _depth_planes(rng, h, w, sub, max(depth, 10))
+    if depth == 8:
+        planes = [p >> 2 for p in planes]
+    obus = aom_encode(planes, sub, bit_depth=depth, options={
+        "cq-level": int(rng.randint(5, 50)), "cpu-used": 5})
+    a_depth = depth if rng.rand() < 0.9 else int(rng.choice([8, 10, 12]))
+    ah, aw = (h, w) if rng.rand() < 0.9 else (h + 8, w)
+    y, x = np.mgrid[0:ah, 0:aw]
+    top = (1 << a_depth) - 1
+    alpha = np.clip((x * 7 + y * 3) * (top + 1) // 256 % (top + 1)
+                    + rng.randint(-top // 16, top // 16 + 1, (ah, aw)),
+                    0, top)
+    alpha[:2, :2], alpha[-2:, -2:] = 0, top
+    a_obus = aom_encode([alpha.astype(np.uint16)], "4:0:0",
+                        bit_depth=a_depth, options={
+                            "cq-level": int(rng.randint(0, 30)),
+                            "cpu-used": 5})
+    primaries, matrix, full = _NCLX[rng.randint(len(_NCLX))]
+    prem = ((b"prem", 1, 2),) if rng.rand() < 0.5 else ()
+    return bytearray(avif_bytes(
+        obus, w, h, av1c_bytes(sub, depth), nclx=(primaries, 13, matrix, full),
+        pixi=(depth,) * 3, alpha=(a_obus, av1c_bytes("4:0:0", a_depth)),
+        iref_extra=prem))
+
+
+def avif_sequence(files: int) -> None:
+    tmp = Path(tempfile.mkdtemp(prefix="probe_avif_sequence_"))
+    for name, make in (("Pillow sequences", _pillow_sequence),
+                       ("files with an alpha item (libaom 3.6)",
+                        _alpha_file)):
+        split = Counter()
+        for s in range(files):
+            rng = np.random.RandomState(30_000 + s)
+            try:
+                data = make(rng)
+            except (OSError, ValueError, RuntimeError):
+                split["the encoder refuses the options"] += 1
+                continue
+            if rng.rand() < 0.1:
+                _flip(rng, data)
+            _avif_against_cv2(tmp / f"{s:05d}.avif", bytes(data), split)
+        _probe_counts(f"{files} {name}", split)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("probe", choices=["fax", "gif", "avif"])
+    ap.add_argument("probe", choices=["fax", "gif", "avif", "avif_depth",
+                                      "avif_sequence"])
     ap.add_argument("--seeds", type=int, default=60)
     ap.add_argument("--files", type=int, default=None)
     a = ap.parse_args()
@@ -293,8 +490,12 @@ def main() -> None:
         fax(a.seeds)
     elif a.probe == "gif":
         gif(a.files or 3000)
-    else:
+    elif a.probe == "avif":
         avif(a.files or 400)
+    elif a.probe == "avif_depth":
+        avif_depth(a.files or 400)
+    else:
+        avif_sequence(a.files or 400)
 
 
 if __name__ == "__main__":

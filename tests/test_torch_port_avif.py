@@ -1,8 +1,9 @@
 """AVIF through the port's reader (``data/formats.py::read_avif``, the AV1
 decoder ``csrc/av1_decode.cc`` and libavif's YUV -> RGB) against JAX's
 ``load_image_rgb`` -- cv2 5.0's AvifDecoder over libavif 1.4.2 and its
-libaom -- bit for bit, on seeded images of at most 160x120 that Pillow's
-AVIF encoder (libavif over aom) and cv2.imwrite write here.
+libaom -- bit for bit, on seeded images of at most 160x120 (a few of
+up to 160x192) that Pillow's AVIF encoder (libavif over aom),
+cv2.imwrite and the system libaom write here.
 
 - the sniff: libavif's brand rule (major or compatible avif / avis) over
   the 500 bytes cv2's signature check parses;
@@ -44,9 +45,19 @@ AVIF encoder (libavif over aom) and cv2.imwrite write here.
 - grid primary items: 1x2, 2x2 and 3x1 grids of different tiles, cropped
   outputs, 4:2:0 seams (converted as one image), 4:4:4, 4:2:2, grey,
   32-bit output sizes, and the layouts libavif refuses;
-- the kinds the port still refuses, each raising ``ImageError`` naming
-  the path, "AVIF" and the tool while cv2 reads the file (10-bit,
-  premultiplied alpha, an image sequence);
+- 10- and 12-bit streams from ``aom_encode`` at every subsampling and
+  through every stage (deblocking, CDEF, restoration, superres, film
+  grain, palettes, intra block copy, a grid), at 12 bits where the
+  rounding differs, under every matrix and range cv2 reads;
+- alpha items (libavif's route for cv2's BGRA, limited-range alpha) and
+  premultiplied alpha (opaque, transparent, partly transparent; libyuv's
+  and libavif's float un-premultiply), what cv2 refuses of them;
+- image sequences: Pillow's, their first sample read from the colour
+  track whatever the meta item, the edit list or the sync samples say,
+  an alpha track, the sample tables and edit lists libavif refuses;
+- a layered stream (several operating points), which the port still
+  refuses, raising ``ImageError`` naming the path, "AVIF" and the tool
+  while cv2 reads it;
 - the tables: the committed ``csrc/av1_tables.h`` is what
   ``tools/av1_tables.py`` reads from libaom.so.3, where it is present.
 """
@@ -974,36 +985,560 @@ def test_grid_tile_ispe_not_its_frame_refused(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the refused kinds
+# 10 and 12 bits
 
-def test_refused_kinds_name_themselves(tmp_path):
-    """Each kind the port still refuses, in a file cv2 reads: ImageError
-    naming the path, AVIF and the tool, never a partial image -- a 10-bit
-    stream (libaom's high-bitdepth route), premultiplied alpha, an image
-    sequence (avis)."""
+def _deep(planes, sub, depth, nclx=(1, 13, 6, 1), superres=None,
+          **options) -> bytes:
+    """``aom_encode`` of 8-bit planes deepened to ``depth``
+    (``format_files.deepen``: high bits replicated) or of planes already
+    at it, boxed with an av1C and pixi of that depth."""
     if av1_tables.find_libaom() is None:
         pytest.skip("no libaom.so.3 in the dynamic linker's cache")
-    rng = np.random.default_rng(0)
-    y = rng.integers(0, 1024, (48, 64)).astype(np.uint16)
-    uv = rng.integers(0, 1024, (24, 32)).astype(np.uint16)
-    obus = format_files.aom_encode([y, uv, uv], "4:2:0", bit_depth=10,
-                                   options={"cq-level": 30})
-    ten = avif_bytes(obus, 64, 48, av1c_bytes("4:2:0", 10), pixi=(10,) * 3)
-    stream = _parts(_pillow(_image(40, 64, smooth=False), quality=80))
-    prem = _box(stream, alpha=stream, iref_extra=((b"prem", 1, 2),))
-    frames = [Image.fromarray(_image(48, 64, seed=s)) for s in range(2)]
+    if planes[0].dtype == np.uint8:
+        planes = format_files.deepen(planes, depth)
+    obus = format_files.aom_encode(planes, sub, superres=superres,
+                                   bit_depth=depth,
+                                   options={"cpu-used": 4, **options})
+    h, w = planes[0].shape
+    return avif_bytes(obus, w, h, av1c_bytes(sub, depth), nclx=nclx,
+                      pixi=(depth,) * len(planes))
+
+
+def _planes_at(h, w, sub, depth, seed=0) -> list:
+    """A gradient with noise in every bit of ``depth``, and random
+    chroma."""
+    rng = np.random.default_rng(seed)
+    top = (1 << depth) - 1
+    y, x = np.mgrid[0:h, 0:w]
+    luma = ((x * 5 + y * 3) * (top + 1) // 256 + rng.integers(
+        0, top // 6, (h, w))) % (top + 1)
+    planes = [luma.astype(np.uint16)]
+    if sub != "4:0:0":
+        sx, sy = int(sub != "4:4:4"), int(sub == "4:2:0")
+        planes += [rng.integers(0, top + 1, ((h + sy) >> sy, (w + sx) >> sx))
+                   .astype(np.uint16) for _ in range(2)]
+    return planes
+
+
+@pytest.mark.parametrize("depth", [10, 12])
+@pytest.mark.parametrize("sub", ["4:2:0", "4:2:2", "4:4:4", "4:0:0"])
+def test_depth_and_subsampling_as_cv2(tmp_path, depth, sub):
+    """10- and 12-bit streams (profile 0 / 1 / 2 at 10 bits, 2 at 12) at
+    an odd size through deblocking and CDEF: libaom's high-bitdepth
+    route, then libyuv's planes cut to 8 bits (4:0:0: cv2's rounded
+    convertTo)."""
+    data = _deep(_planes_at(37, 53, sub, depth, seed=depth), sub, depth,
+                 **{"cq-level": 35})
+    assert _info(data)["bit_depth"] == depth
+    _same_as_cv2(_file(tmp_path, data))
+
+
+def _lr_planes(kind: str, sub: str) -> list:
+    if kind in ("noise", "smooth"):
+        return format_files._yuv(_lr_image(kind)[:64, :128], sub)
+    return (_quadrants if kind == "quadrants" else _stripes)(64, 128, sub)
+
+
+# name: (8-bit planes, subsampling, depth, aom options, superres
+# denominator, the native.av1_probe fields the stream shows); where the
+# rounding differs at 12 bits (Wiener's InterRound, CDEF's and the
+# deblocking's shifts, grain's scaling) a 12-bit case too
+STAGES = {
+    "deblock_cdef_420_10": (lambda: _quadrants(64, 96, "4:2:0"), "4:2:0",
+                            10, {"cq-level": 45}, None, {}),
+    "deblock_cdef_444_12": (lambda: _quadrants(64, 96, "4:4:4"), "4:4:4",
+                            12, {"cq-level": 45}, None, {}),
+    "wiener_y_420_10": (lambda: _lr_planes("noise", "4:2:0"), "4:2:0", 10,
+                        {"cq-level": 50}, None, {"restoration_y": 1}),
+    "wiener_y_444_12": (lambda: _lr_planes("quadrants", "4:4:4"), "4:4:4",
+                        12, {"cq-level": 50}, None, {"restoration_y": 1}),
+    "sgrproj_y_420_10": (lambda: _lr_planes("quadrants", "4:2:0"), "4:2:0",
+                         10, {"cq-level": 30}, None, {"restoration_y": 2}),
+    "sgrproj_uv_420_12": (lambda: _lr_planes("stripes", "4:2:0"), "4:2:0",
+                          12, {"cq-level": 10}, None,
+                          {"restoration_u": 2, "restoration_v": 2}),
+    "superres_d12_420_10": (lambda: _quadrants(64, 96, "4:2:0"), "4:2:0",
+                            10, {"cq-level": 30}, 12, {"superres_denom": 12}),
+    "superres_d13_444_odd_12": (lambda: _quadrants(61, 157, "4:4:4"),
+                                "4:4:4", 12, {"cq-level": 30}, 13,
+                                {"superres_denom": 13}),
+    "film_grain1_420_10": (lambda: format_files._yuv(
+        _image(64, 96, seed=1), "4:2:0"), "4:2:0", 10,
+        {"cq-level": 30, "film-grain-test": 1}, None, {"apply_grain": 1}),
+    "film_grain10_422_odd_12": (lambda: format_files._yuv(
+        _image(37, 53, seed=10), "4:2:2"), "4:2:2", 12,
+        {"cq-level": 30, "film-grain-test": 10}, None, {"apply_grain": 1}),
+    "film_grain16_400_12": (lambda: format_files._yuv(
+        _image(45, 61, seed=16), "4:2:0")[:1], "4:0:0", 12,
+        {"cq-level": 30, "film-grain-test": 16}, None, {"apply_grain": 1}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGES))
+def test_depth_stages_as_cv2(tmp_path, case):
+    """Each stage after the tiles at 10 bits, and at 12 where its
+    rounding differs: deblocking and CDEF (strengths, limits and damping
+    shifted by BitDepth - 8), Wiener (InterRound 5 / 9 at 12 bits) and
+    self-guided units (the variance at 8 bits), superres, film grain
+    (the interpolated scaling look-up, the shifted ranges)."""
+    planes, sub, depth, options, denom, want = STAGES[case]
+    data = _deep(planes(), sub, depth, superres=denom, **{
+        "enable-restoration": 1, "cpu-used": 1, "sb-size": "64", **options})
+    info = _info(data)
+    assert info["bit_depth"] == depth
+    assert {k: info[k] for k in want} == want
+    _same_as_cv2(_file(tmp_path, data))
+
+
+# name: (image, subsampling, depth, aom options); libaom's screen tuning
+DEPTH_SCREEN = {
+    "palette_444_10": (lambda: screen_regions(96, 128, 4), "4:4:4", 10,
+                       {"cq-level": 20, "enable-intrabc": 0}),
+    "palette_420_12": (lambda: screen_regions(70, 99, 5), "4:2:0", 12,
+                       {"cq-level": 20, "enable-intrabc": 0}),
+    "intrabc_420_10": (lambda: screen_text(120, 160, 3), "4:2:0", 10,
+                       {"cq-level": 40, "enable-palette": 0}),
+    "intrabc_444_12": (lambda: screen_text(120, 160, 3), "4:4:4", 12,
+                       {"cq-level": 40, "enable-palette": 0}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEPTH_SCREEN))
+def test_depth_screen_content_as_cv2(tmp_path, case):
+    """Palettes (colours of ``depth`` bits, delta coded) and intra block
+    copy (its bilinear copy rounded by 5 then 9 bits at 12) at depth."""
+    image, sub, depth, options = DEPTH_SCREEN[case]
+    data = _deep(format_files._yuv(image(), sub), sub, depth,
+                 **{"tune-content": "screen", **options})
+    counts = _counts(data)
+    if "palette" in case:
+        assert counts["palette_y_blocks"] and counts["palette_uv_blocks"]
+    else:
+        assert counts["intrabc_blocks"] > 0
+    _same_as_cv2(_file(tmp_path, data))
+
+
+def test_depth_grid_as_cv2(tmp_path):
+    """A 2x2 grid of 10-bit 4:2:0 tiles cropped to 120x100: assembled at
+    10 bits, converted as one image."""
+    if av1_tables.find_libaom() is None:
+        pytest.skip("no libaom.so.3 in the dynamic linker's cache")
+    tiles = [format_files.aom_encode(_planes_at(64, 64, "4:2:0", 10, seed=k),
+                                     "4:2:0", bit_depth=10,
+                                     options={"cq-level": 30, "cpu-used": 4})
+             for k in range(4)]
+    _same_as_cv2(_file(tmp_path, avif_grid_bytes(
+        tiles, 64, 64, av1c_bytes("4:2:0", 10), 2, 2, output=(120, 100),
+        depth=10)))
+
+
+# the colr boxes tried at depth: libyuv's constants and libavif's float
+# matrices, both ranges, and what cv2 refuses
+DEPTH_NCLX = [(1, 6, 1), (1, 1, 0), (1, 1, 1), (9, 9, 0), (9, 12, 1),
+              (1, 5, 0), (1, 2, 1), (1, 0, 1), (1, 0, 0), (1, 4, 0),
+              (1, 7, 1), (1, 8, 1), (1, 8, 0), (4, 12, 0), (1, 15, 0),
+              (1, 15, 1), (1, 3, 0), (1, 10, 1)]
+
+
+@pytest.mark.parametrize("depth", [10, 12])
+@pytest.mark.parametrize("sub", ["4:2:0", "4:2:2", "4:4:4"])
+def test_depth_matrices_and_ranges_as_cv2(tmp_path, depth, sub):
+    """Every matrix and range at depth: libyuv's after Convert16To8Plane,
+    libavif's float path over the depth's levels; what cv2 refuses is
+    refused."""
+    if av1_tables.find_libaom() is None:
+        pytest.skip("no libaom.so.3 in the dynamic linker's cache")
+    stream = format_files.aom_encode(
+        _planes_at(29, 43, sub, depth, seed=3), sub, bit_depth=depth,
+        options={"cq-level": 25, "cpu-used": 5})
+    for p, m, full in DEPTH_NCLX:
+        path = _file(tmp_path, avif_bytes(
+            stream, 43, 29, av1c_bytes(sub, depth), nclx=(p, 13, m, full),
+            pixi=(depth,) * 3), f"m{p}_{m}_{full}.avif")
+        if cv2.imread(path, cv2.IMREAD_COLOR) is None:
+            _both_refuse(path)
+        else:
+            _same_as_cv2(path)
+
+
+# ---------------------------------------------------------------------------
+# alpha items and premultiplied alpha
+
+def _alpha(kind: str, h: int, w: int, depth: int) -> np.ndarray:
+    """An alpha plane: all opaque, all transparent, or partly
+    transparent (a ramp with opaque, transparent and alpha-1 squares)."""
+    top = (1 << depth) - 1
+    if kind == "opaque":
+        return np.full((h, w), top, np.uint16)
+    if kind == "transparent":
+        return np.zeros((h, w), np.uint16)
+    y, x = np.mgrid[0:h, 0:w]
+    a = ((x * 4 + y * 2) * (top + 1) // 256 % (top + 1)).astype(np.uint16)
+    a[:8, :8], a[8:16, :8], a[:8, 8:16] = top, 0, 1 << (depth - 8)
+    return a
+
+
+def _alpha_file(colour, sub, depth, alpha, prem, nclx=(1, 13, 6, 1),
+                size=None, alpha_depth=None) -> bytes:
+    """A colour stream with an alpha item (``aom_encode``'s 4:0:0 stream
+    of ``alpha``: limited range, as libaom writes it by default), a prem
+    reference from the colour item to it where ``prem``; ``size`` the
+    (height, width) both items' ispe give, by default the alpha's."""
+    h, w = size or alpha.shape
+    a_depth = alpha_depth or depth
+    a_obus = format_files.aom_encode([alpha], "4:0:0", bit_depth=a_depth,
+                                     options={"cq-level": 5, "cpu-used": 5})
+    return avif_bytes(colour, w, h, av1c_bytes(sub, depth), nclx=nclx,
+                      pixi=(depth,) * 3,
+                      alpha=(a_obus, av1c_bytes("4:0:0", a_depth)),
+                      iref_extra=((b"prem", 1, 2),) if prem else ())
+
+
+# depth: (subsampling, the colr boxes: libyuv's constants, libavif's float
+# path (fast at 4:4:4, slow where chroma is upsampled or for YCgCo))
+PREM = {8: ("4:2:2", [(1, 6, 1), (1, 1, 0), (1, 15, 0), (1, 8, 1)]),
+        10: ("4:2:0", [(1, 6, 1), (9, 9, 0), (1, 15, 0), (1, 8, 1)]),
+        12: ("4:4:4", [(1, 6, 1), (1, 1, 0), (1, 15, 0), (1, 0, 1),
+                       (1, 8, 1)])}
+
+
+@pytest.mark.parametrize("depth", [8, 10, 12])
+@pytest.mark.parametrize("kind", ["opaque", "transparent", "partial"])
+def test_prem_as_cv2(tmp_path, depth, kind):
+    """Premultiplied alpha undone as libavif undoes it for cv2's BGRA:
+    libyuv's ARGBUnattenuate after libyuv's conversion (alpha cut to 8
+    bits by libyuv or libavif's float reformat) and after libavif's fast
+    float path, in float in its slow path; limited-range alpha made full
+    range first.  Opaque alpha leaves the colours as they are,
+    transparent alpha makes them black."""
+    if av1_tables.find_libaom() is None:
+        pytest.skip("no libaom.so.3 in the dynamic linker's cache")
+    sub, colrs = PREM[depth]
+    h, w = 27, 45
+    planes = _planes_at(h, w, sub, max(depth, 10), seed=depth)
+    if depth == 8:
+        planes = [p >> 2 for p in planes]
+    colour = format_files.aom_encode(planes, sub, bit_depth=depth, options={
+        "cq-level": 25, "cpu-used": 5})
+    alpha = _alpha(kind, h, w, depth)
+    for nclx in colrs:
+        nclx = (nclx[0], 13, nclx[1], nclx[2])
+        plain, prem = (_same_as_cv2(_file(tmp_path, _alpha_file(
+            colour, sub, depth, alpha, p, nclx), f"{p}.avif"))
+            for p in (False, True))
+        if kind == "transparent":
+            assert not prem.any()
+        elif kind == "partial":
+            assert not np.array_equal(plain, prem)
+
+
+@pytest.mark.parametrize("sub", ["4:2:0", "4:2:2", "4:4:4"])
+def test_alpha_item_at_depth_as_cv2(tmp_path, sub):
+    """An alpha item, not premultiplied, still changes libavif's route
+    above 8 bits (cv2 reads BGRA): libyuv's 10-bit YuvPixel10 with
+    bilinear chroma at 10 bits, I012ToARGB's nearest chroma at 12-bit
+    4:2:0; the colours differ from the same stream's without alpha."""
+    if av1_tables.find_libaom() is None:
+        pytest.skip("no libaom.so.3 in the dynamic linker's cache")
+    for depth in (10, 12):
+        colour = format_files.aom_encode(
+            _planes_at(30, 44, sub, depth, seed=1), sub, bit_depth=depth,
+            options={"cq-level": 25, "cpu-used": 5})
+        alone = _same_as_cv2(_file(tmp_path, avif_bytes(
+            colour, 44, 30, av1c_bytes(sub, depth), pixi=(depth,) * 3),
+            f"alone{depth}.avif"))
+        with_alpha = _same_as_cv2(_file(tmp_path, _alpha_file(
+            colour, sub, depth, _alpha("partial", 30, 44, depth), False),
+            f"alpha{depth}.avif"))
+        if depth == 10 or sub == "4:2:0":
+            assert not np.array_equal(alone, with_alpha)
+
+
+def test_alpha_item_ignored(tmp_path, stream):
+    """An auxl alpha item at 8 bits, not premultiplied: cv2's IMREAD_COLOR
+    pixels are the colour item's; premultiplied (prem from the colour
+    item to it) they are un-premultiplied, as cv2's are (Pillow's alpha
+    stream: full range)."""
+    plain = _same_as_cv2(_file(tmp_path, _box(stream),
+                               "plain.avif"))
+    with_alpha = _file(tmp_path, _box(stream, alpha=stream))
+    np.testing.assert_array_equal(_same_as_cv2(with_alpha), plain)
+    prem = _file(tmp_path, _box(stream, alpha=stream,
+                                      iref_extra=((b"prem", 1, 2),)),
+                 "prem.avif")
+    assert not np.array_equal(_same_as_cv2(prem), plain)
+
+
+def test_prem_references_as_cv2(tmp_path, stream):
+    """Only the colour item's last prem reference naming its alpha item
+    marks the alpha premultiplied: one from the alpha item, or naming
+    another item, does not; nor does a prem reference without alpha."""
+    for i, refs in enumerate([((b"prem", 2, 1),), ((b"prem", 1, 1),),
+                              ((b"prem", 1, 2), (b"prem", 1, 1)),
+                              ((b"prem", 1, 1), (b"prem", 1, 2))]):
+        _same_as_cv2(_file(tmp_path, _box(stream, alpha=stream,
+                                          iref_extra=refs), f"r{i}.avif"))
+    _same_as_cv2(_file(tmp_path, _box(stream, iref_extra=((b"prem", 1, 2),)),
+                       "no_alpha.avif"))
+
+
+def test_alpha_pairs_refused_as_cv2(tmp_path):
+    """cv2 refuses alpha on a grey image and alpha of another bit depth;
+    alpha of another size it reads (the colours are the alpha route's),
+    and premultiplied the port refuses it by name (libavif scales the
+    alpha to the image)."""
+    if av1_tables.find_libaom() is None:
+        pytest.skip("no libaom.so.3 in the dynamic linker's cache")
+    grey = format_files.aom_encode(_planes_at(24, 40, "4:0:0", 10), "4:0:0",
+                                   bit_depth=10, options={"cq-level": 30})
+    _both_refuse(_file(tmp_path, avif_bytes(
+        grey, 40, 24, av1c_bytes("4:0:0", 10), pixi=(10,),
+        alpha=(grey, av1c_bytes("4:0:0", 10))), "grey.avif"))
+    colour = format_files.aom_encode(_planes_at(24, 40, "4:2:0", 10),
+                                     "4:2:0", bit_depth=10,
+                                     options={"cq-level": 30})
+    for a_depth in (8, 12):
+        _both_refuse(_file(tmp_path, _alpha_file(
+            colour, "4:2:0", 10, _alpha("partial", 24, 40, a_depth), True,
+            alpha_depth=a_depth), f"depth{a_depth}.avif"))
+    taller = _alpha("partial", 32, 40, 10)
+    _same_as_cv2(_file(tmp_path, _alpha_file(colour, "4:2:0", 10, taller,
+                                             False, size=(24, 40)),
+                       "taller.avif"))
+    path = _file(tmp_path, _alpha_file(colour, "4:2:0", 10, taller, True,
+                                       size=(24, 40)), "taller_prem.avif")
+    assert load_image_rgb(path) is not None
+    with pytest.raises(native.ImageError, match=f"^{path}: AVIF: "
+                       "premultiplied alpha of another size"):
+        native.decode_image(path)
+
+
+# ---------------------------------------------------------------------------
+# image sequences
+
+def _sequence(mode="RGB", n=3) -> bytes:
+    """Pillow's n-frame sequence (ftyp avis; meta with the first frame as
+    its primary item; moov with one track, or two with alpha)."""
+    frames = [Image.fromarray(_image(48, 64, seed=k)[..., :3]).convert(mode)
+              for k in range(n)]
+    if mode == "RGBA":
+        for k, f in enumerate(frames):
+            f.putalpha(Image.fromarray(
+                (np.arange(64)[None] * 4 + 20 * k).repeat(48, 0)
+                .clip(0, 255).astype(np.uint8)))
     out = io.BytesIO()
     frames[0].save(out, format="AVIF", save_all=True,
                    append_images=frames[1:], duration=100)
-    cases = {"the AV1 stream uses a bit depth of 10 or 12": ten,
-             "premultiplied alpha": prem,
-             r"an image sequence \(avis\)": out.getvalue()}
-    for i, (what, data) in enumerate(cases.items()):
-        path = _file(tmp_path, data, f"refused{i}.avif")
+    return out.getvalue()
+
+
+def _box_at(data, kind: bytes, start: int = 0) -> int:
+    """Where the first ``kind`` box from ``start`` begins."""
+    return data.index(kind, start) - 4
+
+
+def _patch(data, kind: bytes, offset: int, value: bytes,
+           start: int = 0) -> bytes:
+    out = bytearray(data)
+    at = _box_at(data, kind, start) + 8 + offset
+    out[at:at + len(value)] = value
+    return bytes(out)
+
+
+def _samples(data):
+    """Pillow's track's (offset, size) of each sample (one chunk)."""
+    stco, stsz = _box_at(data, b"stco") + 16, _box_at(data, b"stsz") + 20
+    offset = struct.unpack(">I", data[stco:stco + 4])[0]
+    n = struct.unpack(">I", data[stsz - 4:stsz])[0]
+    sizes = struct.unpack(f">{n}I", data[stsz:stsz + 4 * n])
+    return [(offset + sum(sizes[:k]), sizes[k]) for k in range(n)]
+
+
+def _meta_at_second(data) -> bytes:
+    """The meta item pointed at the track's second sample."""
+    (first, size), (second, size2) = _samples(data)[:2]
+    at = data.index(struct.pack(">I", first), _box_at(data, b"iloc"))
+    out = bytearray(data)
+    out[at:at + 4] = struct.pack(">I", second)
+    out[at + 4:at + 8] = struct.pack(">I", size2)
+    assert out[at + 4:at + 8] != struct.pack(">I", size) or size == size2
+    return bytes(out)
+
+
+def _co64(data) -> bytes:
+    """stco rewritten as co64 (8-byte offsets): the boxes around it 4
+    bytes longer, mdat 4 bytes later."""
+    at = _box_at(data, b"stco")
+    n = struct.unpack(">I", data[at + 12:at + 16])[0]
+    offsets = struct.unpack(f">{n}I", data[at + 16:at + 16 + 4 * n])
+    body = data[at + 8:at + 16] + b"".join(struct.pack(">Q", o + 4 * n)
+                                           for o in offsets)
+    out = bytearray(data[:at] + struct.pack(">I", 8 + len(body)) + b"co64"
+                    + body + data[at + 16 + 4 * n:])
+    for kind in (b"moov", b"trak", b"mdia", b"minf", b"stbl"):
+        k = _box_at(out, kind)
+        size = struct.unpack(">I", out[k:k + 4])[0]
+        out[k:k + 4] = struct.pack(">I", size + 4 * n)
+    iloc = _box_at(out, b"iloc")
+    first = struct.pack(">I", offsets[0])
+    k = out.index(first, iloc)
+    out[k:k + 4] = struct.pack(">I", offsets[0] + 4 * n)
+    return bytes(out)
+
+
+# name: (the file from Pillow's sequence, cv2 reads it)
+SEQUENCES = {
+    "rgb": (lambda d: d, True),
+    "rgba_alpha_track": (lambda d: _sequence("RGBA"), True),
+    "meta_item_at_second_sample": (_meta_at_second, True),
+    "co64": (_co64, True),
+    "two_frames": (lambda d: _sequence(n=2), True),
+    "major_mif1": (lambda d: d.replace(b"avis", b"mif1", 1), True),
+    "handler_vide": (lambda d: _patch(d, b"hdlr", 8, b"vide",
+                                      _box_at(d, b"mdia")), True),
+    "edit_list_media_time": (lambda d: _patch(d, b"elst", 16,
+                                              struct.pack(">Q", 100)), True),
+    "edit_list_not_repeating": (lambda d: _patch(d, b"elst", 0,
+                                                 b"\1\0\0\0\0\0\0\2"),
+                                True),
+    "no_edit_list": (lambda d: d.replace(b"edts", b"free", 1), True),
+    "no_sync_samples": (lambda d: d.replace(b"stss", b"free", 1), True),
+    "edit_list_no_duration": (lambda d: _patch(d, b"elst", 8, bytes(8)),
+                              False),
+    "edit_list_two_entries": (lambda d: _patch(d, b"elst", 4,
+                                               b"\0\0\0\2"), False),
+    "edts_without_elst": (lambda d: d.replace(b"elst", b"free", 1), False),
+    "chunk_without_samples": (lambda d: _patch(d, b"stsc", 12, bytes(4)),
+                              False),
+    "sample_table_short": (lambda d: _patch(d, b"stsc", 12,
+                                            struct.pack(">I", 9)), False),
+    "no_av01_entry": (lambda d: _patch(d, b"av01", -4, b"xxxx",
+                                       _box_at(d, b"stsd")), False),
+    "no_moov": (lambda d: d.replace(b"moov", b"free", 1), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEQUENCES))
+def test_sequence_first_frame_as_cv2(tmp_path, case):
+    """libavif reads the tracks of an avis major brand (or of a moov box
+    under a major brand that is neither): the first sample of the first
+    track with chunks and an av01 sample entry, whatever the meta item,
+    the edit list or the sync samples say; an auxl track is its alpha.
+    What libavif refuses in the sample table or the edit list, both
+    refuse."""
+    make, reads = SEQUENCES[case]
+    data = make(_sequence())
+    path = _file(tmp_path, data)
+    if not reads:
+        _both_refuse(path)
+        return
+    _same_as_cv2(path)
+    if case == "meta_item_at_second_sample":
+        (first, size), (second, size2) = _samples(data)[:2]
+        assert _parts(data)[0] == data[second:second + size2] != \
+            data[first:first + size]
+
+
+def test_sequence_track_size_not_its_frame_refused(tmp_path):
+    """A tkhd size that is not the first frame's: libavif scales the frame
+    to it (as to an item's ispe), the port refuses, naming it."""
+    data = _sequence()
+    tkhd = _box_at(data, b"tkhd") + 8
+    at = tkhd + 4 + (32 if data[tkhd] else 20) + 52
+    bad = data[:at] + struct.pack(">II", 60 << 16, 48 << 16) + data[at + 8:]
+    path = _file(tmp_path, bad)
+    assert load_image_rgb(path).shape == (48, 60, 3)
+    with pytest.raises(native.ImageError, match=f"^{path}: AVIF: the "
+                       "track's 60x48 is not its first frame's 64x48"):
+        native.decode_image(path)
+
+
+# ---------------------------------------------------------------------------
+# layered streams
+
+def _with_operating_points(seq: bytes, points) -> bytes:
+    """A full sequence header (no timing info) with its operating points
+    replaced by ``points`` ((operating_point_idc, seq_level_idx), ...)."""
+    bits = [(x >> (7 - i)) & 1 for x in seq for i in range(8)]
+    assert bits[4] == 0 and bits[5] == 0      # not reduced, no timing info
+    delay = bits[6]
+    count = int("".join(map(str, bits[7:12])), 2) + 1
+    pos = 12
+    for _ in range(count):
+        level = int("".join(map(str, bits[pos + 12:pos + 17])), 2)
+        pos += 17 + (level > 7)
+        if delay:
+            pos += 5 if bits[pos] else 1
+    end = len(bits) - 1 - bits[::-1].index(1)     # the trailing 1 bit
+    put = lambda v, n: [(v >> (n - 1 - i)) & 1 for i in range(n)]
+    out = bits[:6] + [0] + put(len(points) - 1, 5)
+    for idc, level in points:
+        out += put(idc, 12) + put(level, 5) + [0] * (level > 7)
+    out += bits[pos:end] + [1]
+    out += [0] * (-len(out) % 8)
+    return bytes(int("".join(map(str, out[k:k + 8])), 2)
+                 for k in range(0, len(out), 8))
+
+
+def test_layered_stream_refused_by_name(tmp_path):
+    """A sequence header with several operating points (layers): cv2 reads
+    it (libavif asks libaom for operating point 0; the frame OBUs have
+    no extension, so every point decodes them), the port refuses it,
+    naming the tool; the same header rewritten with its one point of
+    idc 0 reads as cv2."""
+    obus = _obu_bodies(formats._avif_first_sample(
+        _sequence(), _sequence_stbl(_sequence())))
+    av1c = bytes([0x81, 0x0D, 0x0C, 0x00])
+    one = _obu(1, _with_operating_points(obus[1], [(0, 13)])) + \
+        _obu(6, obus[6])
+    _same_as_cv2(_file(tmp_path, avif_bytes(one, 64, 48, av1c), "one.avif"))
+    for i, points in enumerate([[(0x103, 13), (0x101, 13)], [(0x101, 13)],
+                                [(0x301, 13), (0x101, 13)]]):
+        stream = _obu(1, _with_operating_points(obus[1], points)) + \
+            _obu(6, obus[6])
+        path = _file(tmp_path, avif_bytes(stream, 64, 48, av1c),
+                     f"layers{i}.avif")
         assert load_image_rgb(path) is not None
-        with pytest.raises(native.ImageError,
-                           match=f"^{path}: AVIF: {what}"):
+        with pytest.raises(native.ImageError, match=f"^{path}: AVIF: the AV1 "
+                           "stream uses several operating points or layers"):
             native.decode_image(path)
+
+
+def _sequence_stbl(data) -> dict:
+    at = _box_at(data, b"moov")
+    size = struct.unpack(">I", data[at:at + 4])[0]
+    return formats._avif_tracks(data, at + 8, at + size)[0]["stbl"]
+
+
+# ---------------------------------------------------------------------------
+# the committed fixtures of this part
+
+def test_committed_depth_fixtures():
+    """``format_files.avif_depth_files`` is the recipe of the committed
+    10/12-bit, sequence and prem AVIFs (``chip_smoke.py formats`` serves
+    them): the same bytes again, each exercising what its name says."""
+    if av1_tables.find_libaom() is None:
+        pytest.skip("no libaom.so.3 in the dynamic linker's cache")
+    files = format_files.avif_depth_files()
+    assert sorted(files) == sorted(
+        k for k in format_files.AVIF_KINDS if k.startswith(
+            ("avif_10bit", "avif_12bit", "avif_sequence", "avif_prem")))
+    for kind, data in files.items():
+        assert format_files.COMMITTED[kind].read_bytes() == data, kind
+    depth = {k: _info(files[k])["bit_depth"] for k in files
+             if "bit" in k}
+    assert depth == {"avif_10bit_420": 10, "avif_10bit_444_lr": 10,
+                     "avif_10bit_film_grain": 10, "avif_12bit_422": 12,
+                     "avif_10bit_400": 10, "avif_10bit_screen": 10}
+    assert any(_types(_info(files["avif_10bit_444_lr"])))
+    assert _info(files["avif_10bit_film_grain"])["apply_grain"] == 1
+    counts = _counts(files["avif_10bit_screen"])
+    assert counts["palette_y_blocks"] and counts["intrabc_blocks"]
+    assert _info(files["avif_prem"])["bit_depth"] == 10
+    assert b"prem" in files["avif_prem"]
+    sequence = files["avif_sequence"]
+    assert sequence[8:12] == b"avis" and _parts(sequence)[0] != \
+        formats._avif_first_sample(sequence, _sequence_stbl(sequence))
 
 
 # ---------------------------------------------------------------------------
