@@ -223,8 +223,11 @@ exits non-zero:
    2x2 grid, 10-bit 4:2:0, 4:4:4 with loop restoration, film grain,
    4:0:0 and screen content (palettes and intra block copy), 12-bit
    4:2:2, Pillow's three-frame sequence read from its track, a 10-bit
-   image with premultiplied alpha; their host ms on a line of their own,
-   ``formats_avif``):
+   image with premultiplied alpha, and six layered items of libaom's
+   spatial layers: three key-frame layers, realtime SVC with inter
+   layers, quality layers with local warp, scaled base layers, 10-bit
+   layers, two operating points with a1op selecting the base layer;
+   their host ms on a line of their own, ``formats_avif``):
    each decoded by
    ``native.decode_image`` (the port's
    ``load_image_rgb``), its SHA-256 held against cv2's recorded in

@@ -1,57 +1,73 @@
 // The AV1 decoder of the port's AVIF reader (host C++17; data/formats.py
-// parses the HEIF boxes around it): one shown key frame, decoded by the
-// AV1 specification's decoding process, to the planes cv2.imread's libavif
-// gets from its AV1 decoder.
+// parses the HEIF boxes around it): every frame of an item's temporal
+// units that the asked operating point keeps, decoded by the AV1
+// specification's decoding process (with libaom's motion vector stack
+// and rounding), to the planes cv2.imread's libavif gets from its libaom:
+// the last frame shown, or (lsel) the first shown of one spatial layer.
 //
-// What it reads: sized OBUs with or without extensions (the temporal
-// delimiter, padding and metadata skipped); the sequence header,
-// full or reduced still picture, every profile's colour config; the key
-// frame's header with its quantizer, segmentation, delta q / lf, loop
-// filter, CDEF, tx mode and tile info (uniform or explicit, several tiles
-// and tile groups); the symbol decoder with its adaptation; every
-// partition, intra mode (directional with angle deltas and the intra edge
-// filter and upsampling, smooth, Paeth, CFL, filter intra), the segment
-// ids, skip, cdef_idx, delta q / lf, palettes (sizes, colours from the
-// neighbours' cache or coded, the colour index map), intra block copy
-// (the vector stack of the spatial neighbours, the vector, libaom's
-// validity rules, the bilinear copy of the frame so far, var-tx sizes
-// and the inter transform sets), tx size, intra tx type, the loop
-// restoration units' types and coefficients, and every coefficient;
-// dequantization with or without quantizer matrices; the DCT 4..64, ADST
-// 4..16 (flipped too), identity and the lossless WHT; then the stages
-// after the tiles:
-// the deblocking filter, CDEF, superres (libaom's per-tile-column
-// upscaling), loop restoration (Wiener and self-guided, in stripes that
-// read the deblocked rows around them) and film grain synthesis (cv2's
-// pixels carry the grain libaom adds).  Pixels are uint16 at the
-// stream's bit depth, 8, 10 or 12: every stage works at that depth as the
-// specification (and libaom's high-bitdepth route) does.
+// What it reads: sized OBUs with or without extensions (those outside
+// the operating point's idc dropped; the temporal delimiter, padding and
+// metadata skipped); the sequence header, full or reduced still
+// picture, every profile's colour config, any number of operating
+// points; frame headers of every type (key, inter, intra-only, switch,
+// a frame shown again from a slot) with frame ids, order hints, short
+// reference signalling, sizes from the references, superres, the
+// quantizer, segmentation (updated or from the primary reference),
+// delta q / lf, loop filter with reference and mode deltas, CDEF,
+// restoration, tx mode, reference select, skip mode, global motion
+// parameters, film grain (or a reference's); eight reference slots
+// (planes, CDFs saved at the frame's end, loop filter and segmentation
+// parameters, order hints, global motion, the motion field, segment
+// ids); the symbol decoder with its adaptation; every partition, intra
+// mode (directional with angle deltas and the intra edge filter and
+// upsampling, smooth, Paeth, CFL, filter intra), segment ids (spatial
+// or predicted), skip and skip mode, cdef_idx, delta q / lf, palettes,
+// intra block copy; inter blocks: single and compound references,
+// NEAREST / NEAR / GLOBAL / NEW modes and their compound pairs, the
+// DRL index, vectors at every precision, the projected motion field,
+// switchable and dual interpolation filters, OBMC, local warp
+// (libaom's sample selection and least squares), inter-intra (smooth
+// and wedge), compound average, distance, wedge and difference-weighted
+// masks, the var-tx tree; prediction by the 8-tap filters (4-tap for
+// narrow blocks) through scaled references, the warp filter, and a
+// 4-sample block's chroma from each covered block; tx size and type,
+// the loop restoration units, every coefficient; dequantization with or
+// without quantizer matrices; the DCT 4..64, ADST 4..16 (flipped too),
+// identity and the lossless WHT; then the stages after the tiles: the
+// deblocking filter (inter frames' skip and level rules), CDEF, superres
+// (libaom's per-tile-column upscaling), loop restoration and, on the
+// output only, film grain synthesis.  Pixels are uint16 at the stream's
+// bit depth, 8, 10 or 12.
 //
-// What it refuses, naming the tool: several operating points or layers,
-// frames that are not one shown key frame.
+// What it refuses, naming the tool: compound prediction from a scaled
+// reference, a warped global motion block, a reference slot libaom
+// would fill with grey for a lost frame.
 // As libaom (cv2's AV1 decoder) it refuses an unsized OBU, an OBU whose
 // trailing bits are missing, a header whose trailing bits are not a 1
 // then zeros (or with other than zero bytes after them) or whose
 // alignment bits are not zeros, an undefined level, a reduced header
 // for a video, a tile whose data do not end where its symbols do, film
-// grain scaling points that do not increase, and an intra block copy
-// vector outside the tile, not yet decoded or within the 256-sample
-// delay.  It never returns part of an image.
+// grain scaling points that do not increase, an intra block copy vector
+// outside the tile, not yet decoded or within the 256-sample delay, a
+// motion vector out of range, references of another format or an
+// invalid size, frame ids that do not match the slots, a stream that
+// shows no frame.  It never returns part of an image.
 //
-// C interface:
-//   av1_probe(data, len, info, msg, msg_len)
-//     info[0..19] = width (upscaled), height, subsampling x, y,
+// C interface (operating_point: a1op's index; layer: lsel's, or -1):
+//   av1_probe(data, len, operating_point, layer, info, msg, msg_len)
+//     the frame headers alone; info[0..21] = the shown frame's width
+//     (upscaled) and height, then the last header's subsampling x, y,
 //     monochrome, bit depth, colour range, matrix coefficients, colour
 //     primaries, transfer, the restoration type of Y, U, V (0 none, 1
 //     Wiener, 2 self-guided, 3 switchable), the superres denominator (8
-//     without), apply_grain, the superblock size, the tile columns, the
-//     coded width, allow_screen_content_tools, allow_intrabc
-//   av1_decode(data, len, y, u, v, counts, msg, msg_len)
+//     without), the shown frame's apply_grain, the superblock size, the
+//     tile columns, the coded width, allow_screen_content_tools,
+//     allow_intrabc, the operating points, the frames
+//   av1_decode(data, len, operating_point, layer, y, u, v, counts, msg,
+//              msg_len)
 //     planes of width x height (y) and the subsampled size (u, v; unused
-//     for a monochrome stream), row-major; counts[0..4] (or null) gets
-//     what the stream used: the blocks with a Y palette, with a UV
-//     palette, the palette sizes (bit n for n colours), the intra block
-//     copy blocks, those whose reference vector was the default one.
+//     for a monochrome stream), row-major; counts[0..AV1_COUNTS) (or
+//     null) gets what the stream used (data/native.py's AV1_COUNTS).
 // Both return 0, or 1 with the reason in msg.
 
 #include <algorithm>
@@ -60,12 +76,15 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <string>
 #include <vector>
 
 #include "av1_tables.h"
 
 namespace {
+
+constexpr int AV1_COUNTS = 20;
 
 struct Fail {
   std::string msg;
@@ -119,7 +138,7 @@ enum { TX_SET_INTER_1 = 1, TX_SET_INTER_2, TX_SET_INTER_3 };
 enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
 enum { ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT };
 enum { SEG_LVL_ALT_Q = 0, SEG_LVL_ALT_LF_Y_V = 1, SEG_LVL_REF_FRAME = 5,
-       SEG_LVL_SKIP = 6, SEG_LVL_MAX = 8 };
+       SEG_LVL_SKIP = 6, SEG_LVL_GLOBALMV = 7, SEG_LVL_MAX = 8 };
 constexpr int MAX_SEGMENTS = 8, MAX_LOOP_FILTER = 63;
 enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 constexpr int SUPERRES_NUM = 8, SUPERRES_DENOM_MIN = 9;
@@ -221,6 +240,74 @@ const int kCdefDirections[8][2][2] = {
     {{1, 0}, {2, 0}},   {{1, 0}, {2, -1}}};
 const int kCdefPriTaps[2][2] = {{4, 2}, {3, 3}};
 const int kCdefSecTaps[2][2] = {{2, 1}, {2, 1}};
+// inter frames (spec 6.10.x, 7.10, 7.11.3)
+enum { INTER_FRAME = 1, INTRA_ONLY_FRAME = 2, SWITCH_FRAME = 3 };
+enum { NONE_FRAME = -1, INTRA_FRAME = 0, LAST_FRAME, LAST2_FRAME, LAST3_FRAME,
+       GOLDEN_FRAME, BWDREF_FRAME, ALTREF2_FRAME, ALTREF_FRAME };
+enum { NEARESTMV = 13, NEARMV, GLOBALMV, NEWMV, NEAREST_NEARESTMV,
+       NEAR_NEARMV, NEAREST_NEWMV, NEW_NEARESTMV, NEAR_NEWMV, NEW_NEARMV,
+       GLOBAL_GLOBALMV, NEW_NEWMV };
+enum { SIMPLE, OBMC, LOCALWARP };
+enum { EIGHTTAP, EIGHTTAP_SMOOTH, EIGHTTAP_SHARP, BILINEAR, SWITCHABLE };
+enum { COMPOUND_WEDGE, COMPOUND_DIFFWTD, COMPOUND_AVERAGE, COMPOUND_INTRA,
+       COMPOUND_DISTANCE };
+enum { II_DC_PRED, II_V_PRED, II_H_PRED, II_SMOOTH_PRED };
+enum { IDENTITY, TRANSLATION, ROTZOOM, AFFINE };
+constexpr int NUM_REF_FRAMES = 8, REFS_PER_FRAME = 7, PRIMARY_REF_NONE = 7;
+constexpr int WARPEDMODEL_PREC_BITS = 16, GM_ABS_TRANS_BITS = 12,
+              GM_ABS_TRANS_ONLY_BITS = 9, GM_ABS_ALPHA_BITS = 12,
+              GM_ALPHA_PREC_BITS = 15, GM_TRANS_PREC_BITS = 6,
+              GM_TRANS_ONLY_PREC_BITS = 3, WARP_PARAM_REDUCE_BITS = 6,
+              WARPEDMODEL_NONDIAGAFFINE_CLAMP = 1 << 13,
+              WARPEDMODEL_TRANS_CLAMP = 1 << 23, LS_MV_MAX = 256,
+              LEAST_SQUARES_SAMPLES_MAX = 8, DIV_LUT_BITS = 8,
+              DIV_LUT_PREC_BITS = 14;
+constexpr int REF_SCALE_SHIFT = 14, SCALE_SUBPEL_BITS = 10,
+              MAX_FRAME_DISTANCE = 31, REFMVS_LIMIT = (1 << 12) - 1,
+              MV_LOW = -(1 << 14), MV_UPP = 1 << 14, MFMV_STACK_SIZE = 3;
+const uint8_t kSizeGroup[22] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 3, 3, 3,
+                                3, 0, 0, 1, 1, 2, 2};
+const uint8_t kWedgeBits[22] = {0, 0, 0, 4, 4, 4, 4, 4, 4, 4, 0, 0, 0, 0, 0,
+                                0, 0, 0, 4, 4, 0, 0};
+const uint8_t kCompoundModeCtxMap[3][5] = {
+    {0, 1, 1, 1, 1}, {1, 2, 3, 4, 4}, {4, 4, 5, 6, 7}};
+// the loop filter's mode delta of each y mode (inter modes but GLOBALMV
+// and GLOBAL_GLOBALMV take the second)
+inline int mode_lf(int y_mode) {
+  return y_mode >= NEARESTMV && y_mode != GLOBALMV && y_mode != GLOBAL_GLOBALMV;
+}
+// distance weights of compound prediction (libaom's quant_dist tables)
+const int kQuantDistWeight[4][2] = {{2, 3}, {2, 5}, {2, 7}, {1, 31}};
+const int kQuantDistLookup[4][2] = {{9, 7}, {11, 5}, {12, 4}, {13, 3}};
+inline int round2signed(int64_t x, int n) {
+  return x >= 0 ? round2(x, n) : -round2(-x, n);
+}
+inline int64_t round2signed_64(int64_t x, int n) {
+  if (n == 0) return x;
+  return x >= 0 ? (x + (int64_t(1) << (n - 1))) >> n
+                : -((-x + (int64_t(1) << (n - 1))) >> n);
+}
+
+// Wedge masks (libaom's av1_init_wedge_masks; its masters and codebooks)
+enum { WEDGE_HORIZONTAL, WEDGE_VERTICAL, WEDGE_OBLIQUE27, WEDGE_OBLIQUE63,
+       WEDGE_OBLIQUE117, WEDGE_OBLIQUE153 };
+// each master: zeros, a ramp from index 28 (29 for the vertical one),
+// then 64s
+const uint8_t kWedgeRamp[3][8] = {{1, 4, 11, 27, 46, 58, 62, 63},   // even
+                                  {1, 2, 6, 18, 37, 53, 60, 63},    // odd
+                                  {2, 7, 21, 43, 57, 62, 64, 64}};  // vertical
+// [codebook][index]: direction, x offset, y offset (in eighths); the
+// codebooks of blocks taller than wide, wider than tall, square
+const uint8_t kWedgeCodebook[3][16][3] = {
+    {{2, 4, 4}, {3, 4, 4}, {4, 4, 4}, {5, 4, 4}, {0, 4, 2}, {0, 4, 4},
+     {0, 4, 6}, {1, 4, 4}, {2, 4, 2}, {2, 4, 6}, {5, 4, 2}, {5, 4, 6},
+     {3, 2, 4}, {3, 6, 4}, {4, 2, 4}, {4, 6, 4}},
+    {{2, 4, 4}, {3, 4, 4}, {4, 4, 4}, {5, 4, 4}, {1, 2, 4}, {1, 4, 4},
+     {1, 6, 4}, {0, 4, 4}, {2, 4, 2}, {2, 4, 6}, {5, 4, 2}, {5, 4, 6},
+     {3, 2, 4}, {3, 6, 4}, {4, 2, 4}, {4, 6, 4}},
+    {{2, 4, 4}, {3, 4, 4}, {4, 4, 4}, {5, 4, 4}, {0, 4, 2}, {0, 4, 6},
+     {1, 2, 4}, {1, 6, 4}, {2, 4, 2}, {2, 4, 6}, {5, 4, 2}, {5, 4, 6},
+     {3, 2, 4}, {3, 6, 4}, {4, 2, 4}, {4, 6, 4}}};
 
 inline int log2i(int x) { return floor_log2(static_cast<uint32_t>(x)); }
 inline int sq_tx(int side) { return log2i(side) - 2; }     // 4 -> TX_4X4
@@ -436,13 +523,49 @@ struct Cdfs {
   uint16_t palette_y_size[7][8], palette_uv_size[7][8];
   uint16_t palette_y_color[7][5][9], palette_uv_color[7][5][9];
   uint16_t intrabc[3], txfm_split[21][3], inter_tx[3][4][17];
-  // the MV context of intra block copy (MV_INTRABC_CONTEXT): joints,
-  // then per component (0 row, 1 column)
-  uint16_t mv_joint[5], mv_class[2][12], mv_sign[2][3], mv_class0_bit[2][3],
-      mv_bit[2][10][3];
+  // the MV contexts (0 inter blocks, 1 intra block copy): joints, then
+  // per component (0 row, 1 column)
+  struct Mv {
+    uint16_t joint[5], cls[2][12], sign[2][3], class0_bit[2][3],
+        class0_fr[2][2][5], fr[2][5], class0_hp[2][3], hp[2][3],
+        bits[2][10][3];
+  } mv[2];
+  // inter frames
+  uint16_t y_mode_inter[4][14], is_inter[4][3], comp_mode[5][3],
+      comp_ref_type[5][3], uni_comp_ref[3][3][3], single_ref[3][6][3],
+      comp_ref[3][3][3], comp_bwd_ref[3][2][3], compound_mode[8][9],
+      new_mv[6][3], zero_mv[2][3], ref_mv[6][3], drl[3][3],
+      interp_filter[16][4], motion_mode[22][4], use_obmc[22][3],
+      inter_intra[4][3], inter_intra_mode[4][5], wedge_inter_intra[22][3],
+      wedge_index[22][17], compound_type[22][3], comp_group_idx[6][3],
+      compound_idx[6][3], skip_mode[3][3], seg_pred[3][3];
 
-  void init(int base_q_idx) {
+  // the symbol counters of every CDF set to 0 (each follows its 32768)
+  void clear_counts() {
+    uint16_t* p = reinterpret_cast<uint16_t*>(this);
+    const size_t n = sizeof(*this) / sizeof(uint16_t);
+    for (size_t i = 0; i + 1 < n; ++i)
+      if (p[i] == 32768) p[i + 1] = 0;
+  }
+  void init_coeff(int base_q_idx) {
 #define COPY(dst, src) std::memcpy(dst, src, sizeof(dst))
+    const int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1
+                  : base_q_idx <= 120 ? 2 : 3;
+    COPY(txb_skip, Default_Txb_Skip_Cdf[q]);
+    COPY(eob16, Default_Eob_Pt_16_Cdf[q]);
+    COPY(eob32, Default_Eob_Pt_32_Cdf[q]);
+    COPY(eob64, Default_Eob_Pt_64_Cdf[q]);
+    COPY(eob128, Default_Eob_Pt_128_Cdf[q]);
+    COPY(eob256, Default_Eob_Pt_256_Cdf[q]);
+    COPY(eob512, Default_Eob_Pt_512_Cdf[q]);
+    COPY(eob1024, Default_Eob_Pt_1024_Cdf[q]);
+    COPY(eob_extra, Default_Eob_Extra_Cdf[q]);
+    COPY(dc_sign, Default_Dc_Sign_Cdf[q]);
+    COPY(base_eob, Default_Coeff_Base_Eob_Cdf[q]);
+    COPY(base, Default_Coeff_Base_Cdf[q]);
+    COPY(br, Default_Coeff_Br_Cdf[q]);
+  }
+  void init_non_coeff() {
     COPY(y_mode, Default_Intra_Frame_Y_Mode_Cdf);
     COPY(uv_mode, Default_Uv_Mode_Cdf);
     COPY(angle_delta, Default_Angle_Delta_Cdf);
@@ -467,21 +590,6 @@ struct Cdfs {
     COPY(palette_uv, Default_Palette_Uv_Mode_Cdf);
     COPY(cfl_sign, Default_Cfl_Sign_Cdf);
     COPY(cfl_alpha, Default_Cfl_Alpha_Cdf);
-    const int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1
-                  : base_q_idx <= 120 ? 2 : 3;
-    COPY(txb_skip, Default_Txb_Skip_Cdf[q]);
-    COPY(eob16, Default_Eob_Pt_16_Cdf[q]);
-    COPY(eob32, Default_Eob_Pt_32_Cdf[q]);
-    COPY(eob64, Default_Eob_Pt_64_Cdf[q]);
-    COPY(eob128, Default_Eob_Pt_128_Cdf[q]);
-    COPY(eob256, Default_Eob_Pt_256_Cdf[q]);
-    COPY(eob512, Default_Eob_Pt_512_Cdf[q]);
-    COPY(eob1024, Default_Eob_Pt_1024_Cdf[q]);
-    COPY(eob_extra, Default_Eob_Extra_Cdf[q]);
-    COPY(dc_sign, Default_Dc_Sign_Cdf[q]);
-    COPY(base_eob, Default_Coeff_Base_Eob_Cdf[q]);
-    COPY(base, Default_Coeff_Base_Cdf[q]);
-    COPY(br, Default_Coeff_Br_Cdf[q]);
     COPY(restoration_type, Default_Restoration_Type_Cdf);
     COPY(use_wiener, Default_Use_Wiener_Cdf);
     COPY(use_sgrproj, Default_Use_Sgrproj_Cdf);
@@ -492,13 +600,44 @@ struct Cdfs {
     COPY(intrabc, Default_Intrabc_Cdf[0]);
     COPY(txfm_split, Default_Txfm_Split_Cdf);
     COPY(inter_tx, Default_Inter_Tx_Type_Cdf);
-    COPY(mv_joint, Default_Mv_Joint_Cdf);
-    for (int c = 0; c < 2; ++c) {
-      COPY(mv_class[c], Default_Mv_Class_Cdf);
-      COPY(mv_sign[c], Default_Mv_Sign_Cdf);
-      COPY(mv_class0_bit[c], Default_Mv_Class0_Bit_Cdf);
-      COPY(mv_bit[c], Default_Mv_Bit_Cdf);
+    for (Mv& m : mv) {
+      COPY(m.joint, Default_Mv_Joint_Cdf);
+      for (int c = 0; c < 2; ++c) {
+        COPY(m.cls[c], Default_Mv_Class_Cdf);
+        COPY(m.sign[c], Default_Mv_Sign_Cdf);
+        COPY(m.class0_bit[c], Default_Mv_Class0_Bit_Cdf);
+        COPY(m.class0_fr[c], Default_Mv_Class0_Fr_Cdf);
+        COPY(m.fr[c], Default_Mv_Fr_Cdf);
+        COPY(m.class0_hp[c], Default_Mv_Class0_Hp_Cdf);
+        COPY(m.hp[c], Default_Mv_Hp_Cdf);
+        COPY(m.bits[c], Default_Mv_Bit_Cdf);
+      }
     }
+    COPY(y_mode_inter, Default_Y_Mode_Cdf);
+    COPY(is_inter, Default_Is_Inter_Cdf);
+    COPY(comp_mode, Default_Comp_Mode_Cdf);
+    COPY(comp_ref_type, Default_Comp_Ref_Type_Cdf);
+    COPY(uni_comp_ref, Default_Uni_Comp_Ref_Cdf);
+    COPY(single_ref, Default_Single_Ref_Cdf);
+    COPY(comp_ref, Default_Comp_Ref_Cdf);
+    COPY(comp_bwd_ref, Default_Comp_Bwd_Ref_Cdf);
+    COPY(compound_mode, Default_Compound_Mode_Cdf);
+    COPY(new_mv, Default_New_Mv_Cdf);
+    COPY(zero_mv, Default_Zero_Mv_Cdf);
+    COPY(ref_mv, Default_Ref_Mv_Cdf);
+    COPY(drl, Default_Drl_Mode_Cdf);
+    COPY(interp_filter, Default_Interp_Filter_Cdf);
+    COPY(motion_mode, Default_Motion_Mode_Cdf);
+    COPY(use_obmc, Default_Use_Obmc_Cdf);
+    COPY(inter_intra, Default_Inter_Intra_Cdf);
+    COPY(inter_intra_mode, Default_Inter_Intra_Mode_Cdf);
+    COPY(wedge_inter_intra, Default_Wedge_Inter_Intra_Cdf);
+    COPY(wedge_index, Default_Wedge_Index_Cdf);
+    COPY(compound_type, Default_Compound_Type_Cdf);
+    COPY(comp_group_idx, Default_Comp_Group_Idx_Cdf);
+    COPY(compound_idx, Default_Compound_Idx_Cdf);
+    COPY(skip_mode, Default_Skip_Mode_Cdf);
+    COPY(seg_pred, Default_Segment_Id_Predicted_Cdf);
 #undef COPY
   }
 };
@@ -806,7 +945,116 @@ struct FilmGrain {
   int overlap = 0, clip_restricted = 0;
 };
 
+// The 64x64 wedge masks of each sign and direction, and each block
+// size's sign flips (libaom's init_wedge_master_masks, init_wedge_signs)
+struct WedgeMasks {
+  uint8_t obl[2][6][64 * 64];
+  uint8_t flip[22][16];
+  static int codebook(int bsize) {
+    const int w = kWide4[bsize], h = kHigh4[bsize];
+    return h > w ? 0 : h < w ? 1 : 2;
+  }
+  // get_wedge_mask_inplace: the mask's top left, 64 a row
+  const uint8_t* mask(int bsize, int neg, int index) const {
+    const uint8_t* a = kWedgeCodebook[codebook(bsize)][index];
+    const int bw = kWide4[bsize] * 4, bh = kHigh4[bsize] * 4;
+    const int woff = (a[1] * bw) >> 3, hoff = (a[2] * bh) >> 3;
+    return obl[neg ^ flip[bsize][index]][a[0]] + 64 * (32 - hoff) + 32 - woff;
+  }
+  WedgeMasks() {
+    uint8_t master[3][64];
+    for (int m = 0; m < 3; ++m) {
+      const int start = m == 2 ? 29 : 28;
+      for (int i = 0; i < 64; ++i)
+        master[m][i] = i < start ? 0 : i < start + 8 ? kWedgeRamp[m][i - start] : 64;
+    }
+    auto shift_copy = [](const uint8_t* src, uint8_t* dst, int shift) {
+      if (shift >= 0) {
+        std::memcpy(dst + shift, src, 64 - shift);
+        std::memset(dst, src[0], shift);
+      } else {
+        shift = -shift;
+        std::memcpy(dst, src + shift, 64 - shift);
+        std::memset(dst + 64 - shift, src[63], shift);
+      }
+    };
+    int shift = 16;
+    for (int i = 0; i < 64; i += 2) {
+      shift_copy(master[0], &obl[0][WEDGE_OBLIQUE63][i * 64], shift);
+      --shift;
+      shift_copy(master[1], &obl[0][WEDGE_OBLIQUE63][(i + 1) * 64], shift);
+      std::memcpy(&obl[0][WEDGE_VERTICAL][i * 64], master[2], 64);
+      std::memcpy(&obl[0][WEDGE_VERTICAL][(i + 1) * 64], master[2], 64);
+    }
+    for (int i = 0; i < 64; ++i)
+      for (int j = 0; j < 64; ++j) {
+        const int m = obl[0][WEDGE_OBLIQUE63][i * 64 + j];
+        obl[0][WEDGE_OBLIQUE27][j * 64 + i] = m;
+        obl[0][WEDGE_OBLIQUE117][i * 64 + 63 - j] =
+            obl[0][WEDGE_OBLIQUE153][(63 - j) * 64 + i] = uint8_t(64 - m);
+        obl[1][WEDGE_OBLIQUE63][i * 64 + j] =
+            obl[1][WEDGE_OBLIQUE27][j * 64 + i] = uint8_t(64 - m);
+        obl[1][WEDGE_OBLIQUE117][i * 64 + 63 - j] =
+            obl[1][WEDGE_OBLIQUE153][(63 - j) * 64 + i] = uint8_t(m);
+        const int mx = obl[0][WEDGE_VERTICAL][i * 64 + j];
+        obl[0][WEDGE_HORIZONTAL][j * 64 + i] = uint8_t(mx);
+        obl[1][WEDGE_VERTICAL][i * 64 + j] =
+            obl[1][WEDGE_HORIZONTAL][j * 64 + i] = uint8_t(64 - mx);
+      }
+    std::memset(flip, 0, sizeof(flip));
+    for (int b = 0; b < 22; ++b) {
+      if (!kWedgeBits[b]) continue;
+      const int bw = kWide4[b] * 4, bh = kHigh4[b] * 4;
+      for (int w = 0; w < 16; ++w) {
+        const uint8_t* m = mask(b, 0, w);
+        int avg = 0;
+        for (int i = 0; i < bw; ++i) avg += m[i];
+        for (int i = 1; i < bh; ++i) avg += m[i * 64];
+        avg = (avg + (bw + bh - 1) / 2) / (bw + bh - 1);
+        flip[b][w] = avg < 32;
+      }
+    }
+  }
+};
+
+const WedgeMasks& wedges() {
+  static const WedgeMasks w;
+  return w;
+}
+
+// A frame's planes, shared by the reference slots and the output
+struct FrameBuf {
+  Plane planes[3];
+};
+
+// A reference slot (spec 7.20): what later frames read of a frame
+struct RefSlot {
+  bool valid = false;
+  int frame_id = 0, frame_type = 0, order_hint = 0, showable = 0;
+  int spatial_id = 0;
+  int upscaled_w = 0, frame_w = 0, frame_h = 0, render_w = 0, render_h = 0;
+  int mi_cols = 0, mi_rows = 0, bit_depth = 8, ssx = 1, ssy = 1;
+  int saved_order_hints[8] = {0};
+  std::shared_ptr<FrameBuf> buf;
+  std::shared_ptr<Cdfs> cdf;
+  int lf_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1}, lf_mode_deltas[2] = {0};
+  int feature_enabled[8][8] = {{0}}, feature_data[8][8] = {{0}};
+  int gm_params[8][6] = {{0}};
+  FilmGrain grain;
+  // the motion field (a reference frame and a vector per mi) and the
+  // segment ids
+  std::shared_ptr<std::vector<int8_t>> mf_refs;
+  std::shared_ptr<std::vector<int16_t>> mf_mvs;
+  std::shared_ptr<std::vector<uint8_t>> seg_ids;
+};
+
 struct Decoder {
+  // the operating point asked for (a1op's index), its idc; the layer
+  // whose first shown frame is the output (lsel's), or -1 for the last
+  // shown frame
+  int operating_point = 0, op_idc_cur = 0, select_layer = -1;
+  int frame_spatial_id = 0;
+  bool layer_found = false;
   // sequence header
   int seq_profile = 0, reduced = 0;
   int timing_info = 0, decoder_model_info = 0, equal_picture_interval = 0;
@@ -825,7 +1073,41 @@ struct Decoder {
   int color_primaries = 2, transfer = 2, matrix = 2, color_range = 0;
   int ssx = 1, ssy = 1, separate_uv_delta_q = 0;
   int film_grain_params_present = 0;
+  int enable_interintra_compound = 0, enable_masked_compound = 0,
+      enable_warped_motion = 0, enable_dual_filter = 0, enable_jnt_comp = 0,
+      enable_ref_frame_mvs = 0;
   bool have_seq = false;
+
+  // the reference slots, the frame to show and its film grain
+  RefSlot refs[NUM_REF_FRAMES];
+  std::shared_ptr<FrameBuf> shown;
+  FilmGrain shown_grain;
+  int shown_w = 0, shown_h = 0;
+  // inter frame header
+  int frame_type = KEY_FRAME, show_frame = 1, showable_frame = 0,
+      show_existing_frame = 0, error_resilient_mode = 1, frame_is_intra = 1;
+  int refresh_frame_flags = 0xFF, primary_ref_frame = PRIMARY_REF_NONE;
+  int order_hint = 0, current_frame_id = 0;
+  int ref_frame_idx[REFS_PER_FRAME] = {0};
+  int order_hints[8] = {0}, sign_bias[8] = {0};
+  int allow_high_precision_mv = 0, force_integer_mv = 0;
+  int interpolation_filter = EIGHTTAP, is_motion_mode_switchable = 0;
+  int use_ref_frame_mvs = 0, reference_select = 0, skip_mode_present = 0;
+  int skip_mode_frame[2] = {0, 0}, allow_warped_motion = 0;
+  int disable_frame_end_update_cdf = 1, context_update_tile_id = 0;
+  int render_w = 0, render_h = 0, existing_slot = 0;
+  int seg_update_map = 0, seg_temporal_update = 0;
+  int lf_mode_deltas[2] = {0, 0};
+  int gm_type[8] = {0}, gm_params[8][6], prev_gm_params[8][6];
+  int x_scale[8] = {0}, y_scale[8] = {0};    // per reference frame
+  Cdfs frame_cdf, saved_cdf;
+  // what the stream used (native._av1's counts past the palette ones)
+  int inter_frames = 0, shown_existing = 0, inter_blocks = 0,
+      compound_blocks = 0, obmc_blocks = 0, warp_blocks = 0,
+      interintra_blocks = 0, scaled_blocks = 0,
+      temporal_mvs = 0, dual_filter_blocks = 0,
+      wedge_blocks = 0, diffwtd_blocks = 0, distance_blocks = 0,
+      wedge_interintra_blocks = 0, frames = 0;
 
   // frame header
   int frame_w = 0, frame_h = 0, mi_cols = 0, mi_rows = 0;
@@ -876,10 +1158,21 @@ struct Decoder {
   };
   std::vector<int32_t> palette_at;
   std::vector<Palette> palettes;
-  // intra block copy: per mi whether the block is one, and its vector
-  // (row, column in 1/8 samples)
-  std::vector<uint8_t> is_inters;
+  // per mi: whether the block is inter (or intra block copy), its two
+  // reference frames, vectors ([list][row, column] in 1/8 samples) and
+  // interpolation filters ([0] vertical, [1] horizontal), skip_mode,
+  // comp_group_idx and compound_idx
+  std::vector<uint8_t> is_inters, interps, skip_modes, comp_group_idxs,
+      compound_idxs;
+  std::vector<int8_t> ref_frames;
   std::vector<int16_t> mvs;
+  // the segment ids of the primary reference frame (empty: all 0)
+  std::vector<uint8_t> prev_seg_ids;
+  // the projected motion field (libaom's tpl_mvs) per 8x8: a vector of
+  // its source frame (-32768 where none) and that frame's distance to
+  // its reference
+  std::vector<int16_t> mf_mv;
+  std::vector<int8_t> mf_offset;
   // what the stream used: blocks with a Y and a UV palette, the palette
   // sizes (bit n for n colours), intra block copy blocks, those whose
   // reference vector was the default one
@@ -910,7 +1203,13 @@ struct Decoder {
   int angle_delta_y = 0, angle_delta_uv = 0, use_filter_intra = 0,
       filter_intra_mode = 0, cfl_alpha_u = 0, cfl_alpha_v = 0, tx_size = 0;
   int max_luma_w = 0, max_luma_h = 0;
-  int is_inter = 0, partition = 0, mv[2] = {0, 0};
+  int is_inter = 0, partition = 0, use_intrabc = 0;
+  int ref_frame[2] = {INTRA_FRAME, NONE_FRAME}, mvb[2][2] = {{0}};
+  int skip_mode = 0, interp[2] = {0, 0}, motion_mode = SIMPLE;
+  int interintra = 0, interintra_mode = 0, wedge_interintra = 0;
+  int wedge_index = 0, wedge_sign = 0, mask_type = 0;
+  int compound_type = COMPOUND_AVERAGE, comp_group_idx = 0, compound_idx = 1;
+  int ref_mv_idx = 0;
   Palette pal{};                          // this block's
   uint16_t v_colors[PALETTE_MAX_SIZE] = {0};
   uint8_t color_map[2][64 * 64];          // Y, UV: 64 wide
@@ -1020,8 +1319,9 @@ struct Decoder {
         if (initial_display_delay && r.f(1)) r.f(4);
       }
     }
-    if (op_cnt > 1 || op_idc[0] != 0)
-      refuse("several operating points or layers");
+    // libaom decodes operating point 0 where the one asked for is absent
+    op_idc_cur = op_idc[operating_point >= 0 && operating_point < op_cnt
+                            ? operating_point : 0];
     frame_width_bits = r.f(4) + 1;
     frame_height_bits = r.f(4) + 1;
     max_w = r.f(frame_width_bits) + 1;
@@ -1040,9 +1340,15 @@ struct Decoder {
       seq_force_integer_mv = 2;
       order_hint_bits = 0;
     } else {
-      r.f(1); r.f(1); r.f(1); r.f(1);  // interintra, masked, warped, dual
+      enable_interintra_compound = r.f(1);
+      enable_masked_compound = r.f(1);
+      enable_warped_motion = r.f(1);
+      enable_dual_filter = r.f(1);
       enable_order_hint = r.f(1);
-      if (enable_order_hint) { r.f(1); r.f(1); }
+      if (enable_order_hint) {
+        enable_jnt_comp = r.f(1);
+        enable_ref_frame_mvs = r.f(1);
+      }
       seq_force_screen_content_tools = r.f(1) ? 2 : r.f(1);
       if (seq_force_screen_content_tools > 0)
         seq_force_integer_mv = r.f(1) ? 2 : r.f(1);
@@ -1059,28 +1365,77 @@ struct Decoder {
     have_seq = true;
   }
 
+  int get_relative_dist(int a, int b) const {
+    if (!enable_order_hint) return 0;
+    const int diff = a - b, m = 1 << (order_hint_bits - 1);
+    return (diff & (m - 1)) - (diff & m);
+  }
+
+  // uncompressed_header (spec 5.9.2), every frame type; a frame shown
+  // from a reference slot returns after its index
   void frame_header(BitReader& r, int temporal_id, int spatial_id) {
     if (!have_seq)
       fail("the AV1 stream has a frame before its sequence header");
-    if (have_frame) fail("the AV1 stream has a second frame header");
-    int frame_type = KEY_FRAME, show_frame = 1;
-    if (!reduced) {
-      if (r.f(1)) refuse("a shown existing frame");
+    frame_spatial_id = spatial_id;
+    const int id_len = frame_id_numbers_present
+                           ? additional_frame_id_length + delta_frame_id_length
+                           : 0;
+    show_existing_frame = 0;
+    if (reduced) {
+      frame_type = KEY_FRAME;
+      frame_is_intra = show_frame = error_resilient_mode = 1;
+      showable_frame = 0;
+    } else {
+      show_existing_frame = r.f(1);
+      if (show_existing_frame) {
+        const int idx = r.f(3);
+        if (decoder_model_info && !equal_picture_interval)
+          r.f(frame_presentation_time_length);
+        const int display_frame_id = frame_id_numbers_present ? r.f(id_len) : 0;
+        const RefSlot& slot = refs[idx];
+        if (!slot.valid || !slot.showable)
+          fail("the AV1 stream shows a reference slot that holds no "
+               "showable frame (cv2 refuses it)");
+        if (frame_id_numbers_present && display_frame_id != slot.frame_id)
+          fail("the AV1 stream's frame ids do not match its reference "
+               "slots (cv2 refuses it)");
+        frame_type = slot.frame_type;
+        refresh_frame_flags = frame_type == KEY_FRAME ? 0xFF : 0;
+        existing_slot = idx;
+        return;
+      }
       frame_type = r.f(2);
       show_frame = r.f(1);
-      if (frame_type != KEY_FRAME || !show_frame)
-        refuse("a frame other than one shown key frame");
-      if (decoder_model_info && !equal_picture_interval)
+      if (show_frame && decoder_model_info && !equal_picture_interval)
         r.f(frame_presentation_time_length);
+      showable_frame = show_frame ? frame_type != KEY_FRAME : r.f(1);
+      error_resilient_mode =
+          frame_type == SWITCH_FRAME || (frame_type == KEY_FRAME && show_frame)
+              ? 1 : r.f(1);
+    }
+    frame_is_intra = frame_type == INTRA_ONLY_FRAME || frame_type == KEY_FRAME;
+    if (frame_type == KEY_FRAME && show_frame) {
+      for (RefSlot& slot : refs) {
+        slot.valid = false;
+        slot.order_hint = 0;
+      }
+      for (int i = LAST_FRAME; i <= ALTREF_FRAME; ++i) order_hints[i] = 0;
     }
     disable_cdf_update = r.f(1);
     allow_screen_content_tools = seq_force_screen_content_tools == 2
                                      ? r.f(1) : seq_force_screen_content_tools;
-    if (allow_screen_content_tools && seq_force_integer_mv == 2) r.f(1);
-    if (frame_id_numbers_present)
-      r.f(additional_frame_id_length + delta_frame_id_length);
-    const int frame_size_override = reduced ? 0 : r.f(1);
-    r.f(order_hint_bits);
+    force_integer_mv = 0;
+    if (allow_screen_content_tools)
+      force_integer_mv = seq_force_integer_mv == 2 ? r.f(1)
+                                                   : seq_force_integer_mv;
+    if (frame_is_intra) force_integer_mv = 1;
+    if (frame_id_numbers_present) frame_ids(r, id_len);
+    const int frame_size_override = frame_type == SWITCH_FRAME ? 1
+                                    : reduced                 ? 0
+                                                              : r.f(1);
+    order_hint = r.f(order_hint_bits);
+    primary_ref_frame = frame_is_intra || error_resilient_mode
+                            ? PRIMARY_REF_NONE : r.f(3);
     if (decoder_model_info) {
       if (r.f(1)) {                   // buffer_removal_time_present_flag
         for (int op = 0; op < op_cnt; ++op) {
@@ -1092,25 +1447,91 @@ struct Decoder {
         }
       }
     }
-    // refresh_frame_flags: all frames for a shown key frame
-    if (frame_size_override) {
-      frame_w = r.f(frame_width_bits) + 1;
-      frame_h = r.f(frame_height_bits) + 1;
+    allow_high_precision_mv = use_ref_frame_mvs = allow_intrabc = 0;
+    refresh_frame_flags =
+        frame_type == SWITCH_FRAME || (frame_type == KEY_FRAME && show_frame)
+            ? 0xFF : r.f(8);
+    if (frame_type == INTRA_ONLY_FRAME && refresh_frame_flags == 0xFF)
+      fail("the AV1 stream has an intra-only frame that refreshes every "
+           "reference slot (cv2 refuses it)");
+    if ((!frame_is_intra || refresh_frame_flags != 0xFF) &&
+        error_resilient_mode && enable_order_hint)
+      for (int i = 0; i < NUM_REF_FRAMES; ++i)
+        if (int(r.f(order_hint_bits)) != refs[i].order_hint || !refs[i].valid)
+          refuse("a reference slot filled in for a lost frame");
+    if (frame_is_intra) {
+      frame_size(r, frame_size_override);
+      render_size(r);
+      allow_intrabc = allow_screen_content_tools && upscaled_w == frame_w
+                          ? r.f(1) : 0;
     } else {
-      frame_w = max_w;
-      frame_h = max_h;
+      const int short_signaling = enable_order_hint ? r.f(1) : 0;
+      if (short_signaling) {
+        const int last = r.f(3), gold = r.f(3);
+        set_frame_refs(last, gold);
+      }
+      for (int i = 0; i < REFS_PER_FRAME; ++i) {
+        if (!short_signaling) ref_frame_idx[i] = r.f(3);
+        if (frame_id_numbers_present) {
+          const int delta = r.f(delta_frame_id_length) + 1;
+          const int expected = (current_frame_id - delta + (1 << id_len)) %
+                               (1 << id_len);
+          if (expected != refs[ref_frame_idx[i]].frame_id)
+            fail("the AV1 stream's frame ids do not match its reference "
+                 "slots (cv2 refuses it)");
+        }
+        if (!refs[ref_frame_idx[i]].valid)
+          fail("the AV1 stream's inter frame refers to an empty reference "
+               "slot (cv2 refuses it)");
+      }
+      if (frame_size_override && !error_resilient_mode) {
+        frame_size_with_refs(r);
+      } else {
+        frame_size(r, frame_size_override);
+        render_size(r);
+      }
+      allow_high_precision_mv = force_integer_mv ? 0 : r.f(1);
+      interpolation_filter = r.f(1) ? SWITCHABLE : int(r.f(2));
+      is_motion_mode_switchable = r.f(1);
+      use_ref_frame_mvs = error_resilient_mode || !enable_ref_frame_mvs
+                              ? 0 : r.f(1);
+      for (int i = 0; i < REFS_PER_FRAME; ++i) {
+        const int ref = LAST_FRAME + i;
+        const RefSlot& slot = refs[ref_frame_idx[i]];
+        order_hints[ref] = slot.order_hint;
+        sign_bias[ref] = enable_order_hint &&
+                         get_relative_dist(slot.order_hint, order_hint) > 0;
+        if (slot.bit_depth != bit_depth || slot.ssx != ssx || slot.ssy != ssy)
+          fail("the AV1 stream's inter frame refers to a frame of another "
+               "format (cv2 refuses it)");
+        // libaom's valid_ref_frame_size and scale factors
+        if (2 * frame_w < slot.upscaled_w || 2 * frame_h < slot.frame_h ||
+            frame_w > 16 * slot.upscaled_w || frame_h > 16 * slot.frame_h)
+          fail("the AV1 stream's inter frame refers to a frame of an "
+               "invalid size (cv2 refuses it)");
+        x_scale[ref] = ((slot.upscaled_w << REF_SCALE_SHIFT) + frame_w / 2) /
+                       frame_w;
+        y_scale[ref] = ((slot.frame_h << REF_SCALE_SHIFT) + frame_h / 2) /
+                       frame_h;
+      }
     }
-    superres_params(r);
     if (int64_t(upscaled_w) * frame_h > (int64_t(1) << 30))   // cv2's limit
       fail("a " + std::to_string(upscaled_w) + "x" + std::to_string(frame_h) +
            " frame, larger than cv2 reads");
-    mi_cols = 2 * ((frame_w + 7) >> 3);
-    mi_rows = 2 * ((frame_h + 7) >> 3);
-    if (r.f(1)) { r.f(16); r.f(16); }       // render size
-    allow_intrabc = allow_screen_content_tools && upscaled_w == frame_w
-                        ? r.f(1) : 0;
-    // disable_frame_end_update_cdf
-    if (!reduced && !disable_cdf_update) r.f(1);
+    disable_frame_end_update_cdf = reduced || disable_cdf_update ? 1 : r.f(1);
+    if (primary_ref_frame == PRIMARY_REF_NONE) {
+      frame_cdf.init_non_coeff();
+      setup_past_independence();
+    } else {
+      const RefSlot& prev = refs[ref_frame_idx[primary_ref_frame]];
+      if (prev.cdf) frame_cdf = *prev.cdf;
+      std::memcpy(prev_gm_params, prev.gm_params, sizeof(prev_gm_params));
+      std::memcpy(lf_ref_deltas, prev.lf_ref_deltas, sizeof(lf_ref_deltas));
+      std::memcpy(lf_mode_deltas, prev.lf_mode_deltas, sizeof(lf_mode_deltas));
+      std::memcpy(feature_enabled, prev.feature_enabled,
+                  sizeof(feature_enabled));
+      std::memcpy(feature_data, prev.feature_data, sizeof(feature_data));
+    }
     tile_info(r);
     quantization_params(r);
     segmentation_params(r);
@@ -1126,6 +1547,7 @@ struct Decoder {
         delta_lf_multi = r.f(1);
       }
     }
+    if (primary_ref_frame == PRIMARY_REF_NONE) frame_cdf.init_coeff(base_q_idx);
     coded_lossless = 1;
     for (int s = 0; s < MAX_SEGMENTS; ++s) {
       const int q = qindex(true, s);
@@ -1139,9 +1561,271 @@ struct Decoder {
     tx_mode = coded_lossless ? ONLY_4X4
               : r.f(1)       ? TX_MODE_SELECT
                              : TX_MODE_LARGEST;
+    reference_select = frame_is_intra ? 0 : r.f(1);
+    skip_mode_params(r);
+    allow_warped_motion = frame_is_intra || error_resilient_mode ||
+                                  !enable_warped_motion
+                              ? 0 : r.f(1);
     reduced_tx_set = r.f(1);
-    if (film_grain_params_present) film_grain_params(r);
+    global_motion_params(r);
+    film_grain_params(r);
     have_frame = true;
+  }
+
+  // current_frame_id and libaom's checks: a frame id other than the last
+  // and less than half the range ahead of it; slots whose ids fall
+  // outside the delta's reach no longer valid
+  bool had_frame_id = false;
+  void frame_ids(BitReader& r, int id_len) {
+    const bool have_prev = had_frame_id && !(frame_type == KEY_FRAME && show_frame);
+    const int prev = current_frame_id;
+    current_frame_id = r.f(id_len);
+    had_frame_id = true;
+    if (have_prev) {
+      const int diff = current_frame_id > prev
+                           ? current_frame_id - prev
+                           : (1 << id_len) + current_frame_id - prev;
+      if (prev == current_frame_id || diff >= (1 << (id_len - 1)))
+        fail("the AV1 stream has an invalid frame id (cv2 refuses it)");
+    }
+    const int reach = 1 << delta_frame_id_length;
+    for (RefSlot& slot : refs) {
+      const int id = slot.frame_id;
+      if (current_frame_id - reach > 0) {
+        if (id > current_frame_id || id < current_frame_id - reach) slot.valid = false;
+      } else if (id > current_frame_id &&
+                 id < (1 << id_len) + current_frame_id - reach) {
+        slot.valid = false;
+      }
+    }
+  }
+
+  void frame_size(BitReader& r, int override_flag) {
+    if (override_flag) {
+      frame_w = r.f(frame_width_bits) + 1;
+      frame_h = r.f(frame_height_bits) + 1;
+      if (frame_w > max_w || frame_h > max_h)
+        fail("the AV1 stream has a frame larger than its sequence header's "
+             "(cv2 refuses it)");
+    } else {
+      frame_w = max_w;
+      frame_h = max_h;
+    }
+    superres_params(r);
+    mi_cols = 2 * ((frame_w + 7) >> 3);
+    mi_rows = 2 * ((frame_h + 7) >> 3);
+  }
+
+  void render_size(BitReader& r) {
+    if (r.f(1)) {
+      render_w = r.f(16) + 1;
+      render_h = r.f(16) + 1;
+    } else {
+      render_w = upscaled_w;
+      render_h = frame_h;
+    }
+  }
+
+  void frame_size_with_refs(BitReader& r) {
+    for (int i = 0; i < REFS_PER_FRAME; ++i) {
+      if (!r.f(1)) continue;
+      const RefSlot& slot = refs[ref_frame_idx[i]];
+      frame_w = slot.upscaled_w;
+      frame_h = slot.frame_h;
+      render_w = slot.render_w;
+      render_h = slot.render_h;
+      superres_params(r);
+      mi_cols = 2 * ((frame_w + 7) >> 3);
+      mi_rows = 2 * ((frame_h + 7) >> 3);
+      return;
+    }
+    frame_size(r, 1);
+    render_size(r);
+  }
+
+  // spec 7.8: the references of frame_refs_short_signaling
+  void set_frame_refs(int last_idx, int gold_idx) {
+    for (int& i : ref_frame_idx) i = -1;
+    ref_frame_idx[0] = last_idx;
+    ref_frame_idx[GOLDEN_FRAME - LAST_FRAME] = gold_idx;
+    bool used[8] = {false};
+    used[last_idx] = used[gold_idx] = true;
+    const int cur = 1 << (order_hint_bits - 1);
+    int shifted[8];
+    for (int i = 0; i < 8; ++i)
+      shifted[i] = cur + get_relative_dist(refs[i].order_hint, order_hint);
+    if (shifted[last_idx] >= cur || shifted[gold_idx] >= cur)
+      fail("the AV1 stream's short reference signalling names a later frame "
+           "(cv2 refuses it)");
+    auto pick = [&](bool backward, bool latest) {
+      int ref = -1, best = 0;
+      for (int i = 0; i < 8; ++i) {
+        const int h = shifted[i];
+        if (used[i] || (backward ? h < cur : h >= cur)) continue;
+        if (ref < 0 || (latest ? h >= best : h < best)) {
+          ref = i;
+          best = h;
+        }
+      }
+      return ref;
+    };
+    int ref = pick(true, true);
+    if (ref >= 0) {
+      ref_frame_idx[ALTREF_FRAME - LAST_FRAME] = ref;
+      used[ref] = true;
+    }
+    ref = pick(true, false);
+    if (ref >= 0) {
+      ref_frame_idx[BWDREF_FRAME - LAST_FRAME] = ref;
+      used[ref] = true;
+    }
+    ref = pick(true, false);
+    if (ref >= 0) {
+      ref_frame_idx[ALTREF2_FRAME - LAST_FRAME] = ref;
+      used[ref] = true;
+    }
+    static const int kRefList[5] = {LAST2_FRAME, LAST3_FRAME, BWDREF_FRAME,
+                                    ALTREF2_FRAME, ALTREF_FRAME};
+    for (int f : kRefList)
+      if (ref_frame_idx[f - LAST_FRAME] < 0) {
+        ref = pick(false, true);
+        if (ref >= 0) {
+          ref_frame_idx[f - LAST_FRAME] = ref;
+          used[ref] = true;
+        }
+      }
+    ref = -1;
+    int earliest = 0;
+    for (int i = 0; i < 8; ++i)
+      if (ref < 0 || shifted[i] < earliest) {
+        ref = i;
+        earliest = shifted[i];
+      }
+    for (int& i : ref_frame_idx)
+      if (i < 0) i = ref;
+  }
+
+  void setup_past_independence() {
+    std::memset(feature_enabled, 0, sizeof(feature_enabled));
+    std::memset(feature_data, 0, sizeof(feature_data));
+    for (int ref = LAST_FRAME; ref <= ALTREF_FRAME; ++ref)
+      for (int i = 0; i < 6; ++i)
+        prev_gm_params[ref][i] = i % 3 == 2 ? 1 << WARPEDMODEL_PREC_BITS : 0;
+    static const int kDefaults[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+    std::memcpy(lf_ref_deltas, kDefaults, sizeof(lf_ref_deltas));
+    lf_mode_deltas[0] = lf_mode_deltas[1] = 0;
+  }
+
+  // spec 5.9.22
+  void skip_mode_params(BitReader& r) {
+    skip_mode_present = 0;
+    if (frame_is_intra || !reference_select || !enable_order_hint) return;
+    int fwd = -1, bwd = -1, fwd_hint = 0, bwd_hint = 0;
+    for (int i = 0; i < REFS_PER_FRAME; ++i) {
+      const int h = refs[ref_frame_idx[i]].order_hint;
+      if (get_relative_dist(h, order_hint) < 0) {
+        if (fwd < 0 || get_relative_dist(h, fwd_hint) > 0) {
+          fwd = i;
+          fwd_hint = h;
+        }
+      } else if (get_relative_dist(h, order_hint) > 0) {
+        if (bwd < 0 || get_relative_dist(h, bwd_hint) < 0) {
+          bwd = i;
+          bwd_hint = h;
+        }
+      }
+    }
+    if (fwd < 0) return;
+    if (bwd >= 0) {
+      skip_mode_frame[0] = LAST_FRAME + std::min(fwd, bwd);
+      skip_mode_frame[1] = LAST_FRAME + std::max(fwd, bwd);
+    } else {
+      int fwd2 = -1, fwd2_hint = 0;
+      for (int i = 0; i < REFS_PER_FRAME; ++i) {
+        const int h = refs[ref_frame_idx[i]].order_hint;
+        if (get_relative_dist(h, fwd_hint) < 0 &&
+            (fwd2 < 0 || get_relative_dist(h, fwd2_hint) > 0)) {
+          fwd2 = i;
+          fwd2_hint = h;
+        }
+      }
+      if (fwd2 < 0) return;
+      skip_mode_frame[0] = LAST_FRAME + std::min(fwd, fwd2);
+      skip_mode_frame[1] = LAST_FRAME + std::max(fwd, fwd2);
+    }
+    skip_mode_present = r.f(1);
+  }
+
+  // spec 5.9.24: each reference's global motion against the primary
+  // reference frame's
+  void global_motion_params(BitReader& r) {
+    for (int ref = LAST_FRAME; ref <= ALTREF_FRAME; ++ref) {
+      gm_type[ref] = IDENTITY;
+      for (int i = 0; i < 6; ++i)
+        gm_params[ref][i] = i % 3 == 2 ? 1 << WARPEDMODEL_PREC_BITS : 0;
+    }
+    if (frame_is_intra) return;
+    for (int ref = LAST_FRAME; ref <= ALTREF_FRAME; ++ref) {
+      int type = IDENTITY;
+      if (r.f(1)) {
+        if (r.f(1)) type = ROTZOOM;
+        else type = r.f(1) ? TRANSLATION : AFFINE;
+      }
+      gm_type[ref] = type;
+      if (type >= ROTZOOM) {
+        read_global_param(r, type, ref, 2);
+        read_global_param(r, type, ref, 3);
+        if (type == AFFINE) {
+          read_global_param(r, type, ref, 4);
+          read_global_param(r, type, ref, 5);
+        } else {
+          gm_params[ref][4] = -gm_params[ref][3];
+          gm_params[ref][5] = gm_params[ref][2];
+        }
+      }
+      if (type >= TRANSLATION) {
+        read_global_param(r, type, ref, 0);
+        read_global_param(r, type, ref, 1);
+      }
+    }
+  }
+
+  void read_global_param(BitReader& r, int type, int ref, int idx) {
+    int abs_bits = GM_ABS_ALPHA_BITS, prec_bits = GM_ALPHA_PREC_BITS;
+    if (idx < 2) {
+      if (type == TRANSLATION) {
+        abs_bits = GM_ABS_TRANS_ONLY_BITS - !allow_high_precision_mv;
+        prec_bits = GM_TRANS_ONLY_PREC_BITS - !allow_high_precision_mv;
+      } else {
+        abs_bits = GM_ABS_TRANS_BITS;
+        prec_bits = GM_TRANS_PREC_BITS;
+      }
+    }
+    const int prec_diff = WARPEDMODEL_PREC_BITS - prec_bits;
+    const int round = idx % 3 == 2 ? 1 << WARPEDMODEL_PREC_BITS : 0;
+    const int sub = idx % 3 == 2 ? 1 << prec_bits : 0;
+    const int mx = 1 << abs_bits;
+    const int ref_v = (prev_gm_params[ref][idx] >> prec_diff) - sub;
+    // decode_signed_subexp_with_ref (spec 5.9.26..28) on the header's bits
+    const int low = -mx, high = mx + 1;
+    const int num = high - low, rr = ref_v - low;
+    int i = 0, mk = 0, v;
+    while (true) {
+      const int b2 = i ? 3 + i - 1 : 3, a = 1 << b2;
+      if (num <= mk + 3 * a) {
+        v = static_cast<int>(r.ns(num - mk)) + mk;
+        break;
+      }
+      if (!r.f(1)) {
+        v = static_cast<int>(r.f(b2)) + mk;
+        break;
+      }
+      ++i;
+      mk += a;
+    }
+    const int x = (rr << 1) <= num ? inverse_recenter(rr, v)
+                                   : num - 1 - inverse_recenter(num - 1 - rr, v);
+    gm_params[ref][idx] = (x + low) * (1 << prec_diff) + round;
   }
 
   // spec 5.9.8: the coded width from the upscaled one
@@ -1190,14 +1874,29 @@ struct Decoder {
     return std::max((size + (unit >> 1)) / unit, 1);
   }
 
-  // spec 5.9.30 (a key frame: no grain from a reference), with libaom's
-  // refusals of what the specification forbids
+  // spec 5.9.30 (an inter frame may take a reference's parameters with
+  // a seed of its own), with libaom's refusals of what the specification
+  // forbids
   void film_grain_params(BitReader& r) {
     FilmGrain& g = grain;
     g = FilmGrain();
+    if (!film_grain_params_present || (!show_frame && !showable_frame))
+      return;
     g.apply = r.f(1);
     if (!g.apply) return;
     g.seed = r.f(16);
+    const int update = frame_type == INTER_FRAME ? r.f(1) : 1;
+    if (!update) {
+      const int idx = r.f(3);
+      if (std::find(ref_frame_idx, ref_frame_idx + REFS_PER_FRAME, idx) ==
+          ref_frame_idx + REFS_PER_FRAME)
+        fail("the AV1 stream takes film grain from a frame it does not "
+             "refer to (cv2 refuses it)");
+      const int seed = g.seed;
+      g = refs[idx].grain;
+      g.seed = seed;
+      return;
+    }
     auto points = [&](int (*pts)[2], int n, const char* what) {
       for (int i = 0; i < n; ++i) {
         pts[i][0] = r.f(8);
@@ -1314,9 +2013,13 @@ struct Decoder {
       tile_rows = i;
       tile_rows_log2 = tile_log2(1, tile_rows);
     }
+    context_update_tile_id = 0;
     if (tile_cols_log2 > 0 || tile_rows_log2 > 0) {
-      r.f(tile_rows_log2 + tile_cols_log2);   // context_update_tile_id
+      context_update_tile_id = r.f(tile_rows_log2 + tile_cols_log2);
       tile_size_bytes = r.f(2) + 1;
+      if (context_update_tile_id >= tile_cols * tile_rows)
+        fail("the AV1 stream's context_update_tile_id names no tile (cv2 "
+             "refuses it)");
     }
   }
 
@@ -1345,11 +2048,26 @@ struct Decoder {
     }
   }
 
+  // spec 5.9.14: without update_data the features stay those of the
+  // primary reference frame
   void segmentation_params(BitReader& r) {
     seg_enabled = r.f(1);
-    std::memset(feature_enabled, 0, sizeof(feature_enabled));
-    std::memset(feature_data, 0, sizeof(feature_data));
+    seg_update_map = seg_temporal_update = 0;
+    int update_data = 0;
     if (seg_enabled) {
+      if (primary_ref_frame == PRIMARY_REF_NONE) {
+        seg_update_map = update_data = 1;
+      } else {
+        seg_update_map = r.f(1);
+        if (seg_update_map) seg_temporal_update = r.f(1);
+        update_data = r.f(1);
+      }
+    }
+    if (!seg_enabled || update_data) {
+      std::memset(feature_enabled, 0, sizeof(feature_enabled));
+      std::memset(feature_data, 0, sizeof(feature_data));
+    }
+    if (update_data) {
       for (int i = 0; i < MAX_SEGMENTS; ++i)
         for (int j = 0; j < SEG_LVL_MAX; ++j) {
           if (!r.f(1)) continue;
@@ -1373,7 +2091,12 @@ struct Decoder {
 
   void loop_filter_params(BitReader& r) {
     lf_level[0] = lf_level[1] = lf_level[2] = lf_level[3] = 0;
-    if (coded_lossless || allow_intrabc) return;
+    if (coded_lossless || allow_intrabc) {
+      static const int kDefaults[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+      std::memcpy(lf_ref_deltas, kDefaults, sizeof(lf_ref_deltas));
+      lf_mode_deltas[0] = lf_mode_deltas[1] = 0;
+      return;
+    }
     lf_level[0] = r.f(6);
     lf_level[1] = r.f(6);
     if (num_planes > 1 && (lf_level[0] || lf_level[1])) {
@@ -1386,7 +2109,7 @@ struct Decoder {
       for (int i = 0; i < 8; ++i)
         if (r.f(1)) lf_ref_deltas[i] = r.su(7);
       for (int i = 0; i < 2; ++i)
-        if (r.f(1)) r.su(7);            // mode deltas: inter blocks only
+        if (r.f(1)) lf_mode_deltas[i] = r.su(7);
     }
   }
 
@@ -1452,8 +2175,14 @@ struct Decoder {
     delta_lfs.assign(n * 4, 0);
     palette_at.assign(allow_screen_content_tools ? n : 0, -1);
     palettes.clear();
-    is_inters.assign(allow_intrabc ? n : 0, 0);
-    mvs.assign(allow_intrabc ? 2 * n : 0, 0);
+    is_inters.assign(n, 0);
+    mvs.assign(4 * n, 0);
+    ref_frames.assign(2 * n, 0);
+    interps.assign(2 * n, 0);
+    skip_modes.assign(n, 0);
+    comp_group_idxs.assign(n, 0);
+    compound_idxs.assign(n, 0);
+    seg_preds.assign(n, 0);
     cdef_stride = w / 64;
     cdef_idx.assign(size_t(cdef_stride) * (h / 64), -1);
   }
@@ -1510,7 +2239,7 @@ struct Decoder {
     mi_col_start = mi_col_starts[tc];
     mi_col_end = mi_col_starts[tc + 1];
     current_q = base_q_idx;
-    cdf.init(base_q_idx);
+    cdf = frame_cdf;
     sym.init(data, size, disable_cdf_update);
     for (int p = 0; p < num_planes; ++p) {
       std::fill(above_level[p].begin(), above_level[p].end(), 0);
@@ -1545,6 +2274,7 @@ struct Decoder {
     if (!sym.padding_ok())
       fail("the AV1 stream's tile data do not end where its symbols do "
            "(cv2 refuses it)");
+    if (t == context_update_tile_id) saved_cdf = cdf;
   }
 
   // spec 5.11.57: the restoration units whose top left corner lies in
@@ -1772,7 +2502,8 @@ struct Decoder {
     } else {
       avail_u_chroma = avail_l_chroma = false;
     }
-    intra_frame_mode_info();
+    if (frame_is_intra) intra_frame_mode_info();
+    else inter_frame_mode_info();
     palette_tokens();
     read_block_tx_size();
     if (skip) reset_block_context(bw4, bh4);
@@ -1797,21 +2528,44 @@ struct Decoder {
         for (int i = 0; i < 4; ++i)
           delta_lfs[k * 4 + i] = static_cast<int8_t>(delta_lf[i]);
         if (!palette_at.empty()) palette_at[k] = pal_index;
-        if (allow_intrabc) {
-          is_inters[k] = static_cast<uint8_t>(is_inter);
-          mvs[2 * k] = static_cast<int16_t>(mv[0]);
-          mvs[2 * k + 1] = static_cast<int16_t>(mv[1]);
+        is_inters[k] = static_cast<uint8_t>(is_inter);
+        for (int l = 0; l < 2; ++l) {
+          ref_frames[2 * k + l] = static_cast<int8_t>(ref_frame[l]);
+          interps[2 * k + l] = static_cast<uint8_t>(interp[l]);
+          for (int d = 0; d < 2; ++d)
+            mvs[4 * k + 2 * l + d] = static_cast<int16_t>(mvb[l][d]);
         }
+        skip_modes[k] = static_cast<uint8_t>(skip_mode);
+        comp_group_idxs[k] = static_cast<uint8_t>(comp_group_idx);
+        compound_idxs[k] = static_cast<uint8_t>(compound_idx);
       }
     }
-    if (is_inter) predict_intrabc();
+    if (use_intrabc) predict_intrabc();
+    else if (is_inter) predict_inter();
     residual();
   }
 
-  bool inter_at(size_t k) const { return !is_inters.empty() && is_inters[k]; }
   const Palette* palette_of(size_t k) const {
     if (palette_at.empty() || palette_at[k] < 0) return nullptr;
     return &palettes[palette_at[k]];
+  }
+
+  // the block's inter state before its mode info: an intra block
+  void reset_inter_state() {
+    pal = Palette{};
+    use_filter_intra = 0;
+    angle_delta_y = angle_delta_uv = 0;
+    cfl_alpha_u = cfl_alpha_v = 0;
+    std::memset(mvb, 0, sizeof(mvb));
+    ref_frame[0] = INTRA_FRAME;
+    ref_frame[1] = NONE_FRAME;
+    use_intrabc = is_inter = skip_mode = 0;
+    interp[0] = interp[1] = EIGHTTAP;
+    motion_mode = SIMPLE;
+    interintra = 0;
+    compound_type = COMPOUND_AVERAGE;
+    comp_group_idx = 0;
+    compound_idx = 1;
   }
 
   void intra_frame_mode_info() {
@@ -1823,13 +2577,9 @@ struct Decoder {
     read_delta_qindex();
     read_delta_lf();
     read_deltas = false;
-    pal = Palette{};
-    use_filter_intra = 0;
-    angle_delta_y = angle_delta_uv = 0;
-    cfl_alpha_u = cfl_alpha_v = 0;
-    mv[0] = mv[1] = 0;
-    is_inter = allow_intrabc ? sym.read(cdf.intrabc, 2) : 0;
-    if (is_inter) {       // use_intrabc: DC_PRED both, bilinear
+    reset_inter_state();
+    use_intrabc = is_inter = allow_intrabc ? sym.read(cdf.intrabc, 2) : 0;
+    if (use_intrabc) {       // DC_PRED both, bilinear
       y_mode = uv_mode = DC_PRED;
       ++intrabc_blocks;
       assign_dv();
@@ -1839,7 +2589,13 @@ struct Decoder {
         avail_u ? y_modes[mi(mi_row - 1, mi_col)] : int(DC_PRED)];
     const int left = kIntraModeContext[
         avail_l ? y_modes[mi(mi_row, mi_col - 1)] : int(DC_PRED)];
-    y_mode = sym.read(cdf.y_mode[above][left], 13);
+    intra_modes(cdf.y_mode[above][left]);
+  }
+
+  // intra_frame_y_mode or y_mode, then the angles, the UV mode, CFL,
+  // palettes and filter intra
+  void intra_modes(uint16_t* y_cdf) {
+    y_mode = sym.read(y_cdf, 13);
     if (mi_size >= BLOCK_8X8 && y_mode >= V_PRED && y_mode <= D67_PRED)
       angle_delta_y = sym.read(cdf.angle_delta[y_mode - V_PRED], 7) - 3;
     uv_mode = DC_PRED;
@@ -2072,31 +2828,129 @@ struct Decoder {
   }
 
   // -------------------------------------------------------------------------
-  // intra block copy: the reference vector stack of INTRA_FRAME from the
-  // spatial neighbours (libaom's setup_ref_mv_list; no temporal
-  // candidates in a key frame, and the extra search finds nothing there),
-  // the vector read against it and checked as libaom checks it
-  // (av1_is_dv_valid), the prediction copied from the frame so far
+  // The motion vector stack of the block's reference frame(s), as libaom
+  // builds it (setup_ref_mv_list; the specification's find_mv_stack): the
+  // nearest row, column and top right, then the projected motion field,
+  // the top left and the outer rows and columns, each half sorted by
+  // weight; a short stack completed from the neighbours' other vectors
+  // (or, compound, pairs of them and the global vectors); every vector
+  // clamped to the block's reach.  INTRA_FRAME for intra block copy.
 
   struct MvCand {
-    int row, col, weight;
+    int mv[2][2];     // [list][row, column]
+    int weight;
   };
   MvCand stack[MAX_REF_MV_STACK_SIZE];
-  int stack_n = 0;
+  int stack_n = 0, new_mv_count = 0, mode_ctx = 0;
+  int global_mvs[2][2] = {{0}};
 
-  void add_candidate(int r, int c, int weight) {
-    const size_t k = mi(r, c);
-    if (!inter_at(k)) return;
-    const int row = mvs[2 * k], col = mvs[2 * k + 1];
+  static void lower_precision(int* v, int allow_hp, int integer) {
+    for (int i = 0; i < 2; ++i) {
+      int& x = v[i];
+      if (integer) {
+        const int mod = x % 8;
+        if (mod) {
+          x -= mod;
+          if (std::abs(mod) > 4) x += mod > 0 ? 8 : -8;
+        }
+      } else if (!allow_hp && (x & 1)) {
+        x += x > 0 ? -1 : 1;
+      }
+    }
+  }
+
+  // gm_get_motion_vector: the global motion of the block's centre
+  void global_mv(int ref, int* out) const {
+    out[0] = out[1] = 0;
+    if (ref <= INTRA_FRAME || gm_type[ref] == IDENTITY) return;
+    const int* m = gm_params[ref];
+    if (gm_type[ref] == TRANSLATION) {
+      // row from [0], column from [1], as libaom and the specification
+      out[0] = m[0] >> (WARPEDMODEL_PREC_BITS - 3);
+      out[1] = m[1] >> (WARPEDMODEL_PREC_BITS - 3);
+    } else {
+      const int x = mi_col * 4 + kWide4[mi_size] * 2 - 1;
+      const int y = mi_row * 4 + kHigh4[mi_size] * 2 - 1;
+      const int xc = (m[2] - (1 << WARPEDMODEL_PREC_BITS)) * x + m[3] * y + m[0];
+      const int yc = m[4] * x + (m[5] - (1 << WARPEDMODEL_PREC_BITS)) * y + m[1];
+      auto conv = [&](int v) {
+        return allow_high_precision_mv
+                   ? round2signed(v, WARPEDMODEL_PREC_BITS - 3)
+                   : round2signed(v, WARPEDMODEL_PREC_BITS - 2) * 2;
+      };
+      out[0] = conv(yc);
+      out[1] = conv(xc);
+    }
+    if (force_integer_mv) lower_precision(out, 0, 1);
+  }
+
+  static bool has_newmv(int mode) {
+    return mode == NEWMV || mode == NEW_NEWMV || mode == NEAREST_NEWMV ||
+           mode == NEW_NEARESTMV || mode == NEAR_NEWMV || mode == NEW_NEARMV;
+  }
+  bool is_global_block(int mode, int bsize, int ref) const {
+    return (mode == GLOBALMV || mode == GLOBAL_GLOBALMV) && ref > INTRA_FRAME &&
+           gm_type[ref] > TRANSLATION &&
+           std::min(kWide4[bsize], kHigh4[bsize]) >= 2;
+  }
+
+  void push_candidate(const int (*v)[2], int weight, bool compound) {
     for (int i = 0; i < stack_n; ++i)
-      if (stack[i].row == row && stack[i].col == col) {
+      if (stack[i].mv[0][0] == v[0][0] && stack[i].mv[0][1] == v[0][1] &&
+          (!compound || (stack[i].mv[1][0] == v[1][0] &&
+                         stack[i].mv[1][1] == v[1][1]))) {
         stack[i].weight += weight;
         return;
       }
-    if (stack_n < MAX_REF_MV_STACK_SIZE) stack[stack_n++] = {row, col, weight};
+    if (stack_n < MAX_REF_MV_STACK_SIZE) {
+      MvCand& c = stack[stack_n++];
+      std::memcpy(c.mv, v, sizeof(c.mv));
+      if (!compound) c.mv[1][0] = c.mv[1][1] = 0;
+      c.weight = weight;
+    }
   }
 
-  void scan_row(int row_offset, int max_row_offset, int* processed) {
+  // add_ref_mv_candidate
+  void add_candidate(int r, int c, int weight, int* match) {
+    const size_t k = mi(r, c);
+    if (!is_inters[k]) return;
+    const int8_t* cref = &ref_frames[2 * k];
+    const int cmode = y_modes[k], csize = mi_sizes[k];
+    if (ref_frame[1] <= INTRA_FRAME) {
+      for (int l = 0; l < 2; ++l) {
+        if (cref[l] != ref_frame[0]) continue;
+        int v[2][2] = {{0}};
+        if (is_global_block(cmode, csize, ref_frame[0])) {
+          v[0][0] = global_mvs[0][0];
+          v[0][1] = global_mvs[0][1];
+        } else {
+          v[0][0] = mvs[4 * k + 2 * l];
+          v[0][1] = mvs[4 * k + 2 * l + 1];
+        }
+        push_candidate(v, weight, false);
+        new_mv_count += has_newmv(cmode);
+        ++*match;
+      }
+    } else {
+      if (cref[0] != ref_frame[0] || cref[1] != ref_frame[1]) return;
+      int v[2][2];
+      for (int l = 0; l < 2; ++l) {
+        if (is_global_block(cmode, csize, ref_frame[l])) {
+          v[l][0] = global_mvs[l][0];
+          v[l][1] = global_mvs[l][1];
+        } else {
+          v[l][0] = mvs[4 * k + 2 * l];
+          v[l][1] = mvs[4 * k + 2 * l + 1];
+        }
+      }
+      push_candidate(v, weight, true);
+      new_mv_count += has_newmv(cmode);
+      ++*match;
+    }
+  }
+
+  void scan_row(int row_offset, int max_row_offset, int* processed,
+                int* match) {
     const int bw4 = kWide4[mi_size];
     const int end = std::min({bw4, mi_cols - mi_col, 16});
     int col_offset = 0;
@@ -2117,12 +2971,13 @@ struct Decoder {
         weight = std::max(weight, inc);
         *processed = inc - row_offset - 1;
       }
-      add_candidate(r, c, len * weight);
+      add_candidate(r, c, len * weight, match);
       i += len;
     }
   }
 
-  void scan_col(int col_offset, int max_col_offset, int* processed) {
+  void scan_col(int col_offset, int max_col_offset, int* processed,
+                int* match) {
     const int bh4 = kHigh4[mi_size];
     const int end = std::min({bh4, mi_rows - mi_row, 16});
     int row_offset = 0;
@@ -2143,14 +2998,14 @@ struct Decoder {
         weight = std::max(weight, inc);
         *processed = inc - col_offset - 1;
       }
-      add_candidate(r, c, len * weight);
+      add_candidate(r, c, len * weight, match);
       i += len;
     }
   }
 
-  void scan_point(int row_offset, int col_offset) {
+  void scan_point(int row_offset, int col_offset, int* match) {
     const int r = mi_row + row_offset, c = mi_col + col_offset;
-    if (inside(r, c)) add_candidate(r, c, 4);
+    if (inside(r, c)) add_candidate(r, c, 4, match);
   }
 
   // libaom's has_top_right (its is_sec_rect rules for rectangles)
@@ -2176,9 +3031,54 @@ struct Decoder {
     return has_tr;
   }
 
+  // get_mv_projection
+  static void project(const int* v, int num, int den, int* out) {
+    static const int kDivMult[32] = {
+        0,    16384, 8192, 5461, 4096, 3276, 2730, 2340, 2048, 1820, 1638,
+        1489, 1365,  1260, 1170, 1092, 1024, 963,  910,  862,  819,  780,
+        744,  712,   682,  655,  630,  606,  585,  564,  546,  528};
+    den = std::min(den, MAX_FRAME_DISTANCE);
+    num = num > 0 ? std::min(num, MAX_FRAME_DISTANCE)
+                  : std::max(num, -MAX_FRAME_DISTANCE);
+    for (int i = 0; i < 2; ++i)
+      out[i] = clip3(MV_LOW + 1, MV_UPP - 1,
+                     round2signed(int64_t(v[i]) * num * kDivMult[den], 14));
+  }
+
+  // add_tpl_ref_mv: a vector of the projected motion field
+  bool add_temporal(int blk_row, int blk_col) {
+    const int r = mi_row + ((mi_row & 1) ? blk_row : blk_row + 1);
+    const int c = mi_col + ((mi_col & 1) ? blk_col : blk_col + 1);
+    if (!inside(r, c)) return false;
+    const size_t at = size_t(r >> 1) * (mi_stride >> 1) + (c >> 1);
+    if (mf_mv[2 * at] == -32768) return false;
+    const int src[2] = {mf_mv[2 * at], mf_mv[2 * at + 1]};
+    int v[2][2] = {{0}};
+    const int n = ref_frame[1] > INTRA_FRAME ? 2 : 1;
+    for (int l = 0; l < n; ++l) {
+      const int offset = get_relative_dist(order_hint, order_hints[ref_frame[l]]);
+      project(src, offset, mf_offset[at], v[l]);
+      lower_precision(v[l], allow_high_precision_mv, force_integer_mv);
+    }
+    if (blk_row == 0 && blk_col == 0) {
+      bool far = false;
+      for (int l = 0; l < n; ++l)
+        far |= std::abs(v[l][0] - global_mvs[l][0]) >= 16 ||
+               std::abs(v[l][1] - global_mvs[l][1]) >= 16;
+      if (far) mode_ctx |= 1 << 3;
+    }
+    push_candidate(v, 2, n == 2);
+    ++temporal_mvs;
+    return true;
+  }
+
   void find_mv_stack() {
     const int bw4 = kWide4[mi_size], bh4 = kHigh4[mi_size];
-    stack_n = 0;
+    const bool compound = ref_frame[1] > INTRA_FRAME;
+    stack_n = new_mv_count = mode_ctx = 0;
+    global_mv(ref_frame[0], global_mvs[0]);
+    if (compound) global_mv(ref_frame[1], global_mvs[1]);
+    else global_mvs[1][0] = global_mvs[1][1] = 0;
     const int row_adj = bh4 < 2 && (mi_row & 1);
     const int col_adj = bw4 < 2 && (mi_col & 1);
     int max_row = 0, max_col = 0, rows_done = 0, cols_done = 0;
@@ -2190,18 +3090,59 @@ struct Decoder {
       max_col = (bw4 < 2 ? -4 : -2 * MVREF_ROW_COLS) + col_adj;
       max_col = clip3(mi_col_start - mi_col, mi_col_end - mi_col - 1, max_col);
     }
-    if (std::abs(max_row) >= 1) scan_row(-1, max_row, &rows_done);
-    if (std::abs(max_col) >= 1) scan_col(-1, max_col, &cols_done);
-    if (has_top_right()) scan_point(-1, bw4);
+    int row_match = 0, col_match = 0;
+    if (std::abs(max_row) >= 1) scan_row(-1, max_row, &rows_done, &row_match);
+    if (std::abs(max_col) >= 1) scan_col(-1, max_col, &cols_done, &col_match);
+    if (has_top_right()) scan_point(-1, bw4, &row_match);
+    const int nearest_match = (row_match > 0) + (col_match > 0);
     const int nearest = stack_n;
     for (int i = 0; i < nearest; ++i) stack[i].weight += REF_CAT_LEVEL;
-    scan_point(-1, -1);
+    if (use_ref_frame_mvs) {
+      const int voffset = std::max(2, bh4), hoffset = std::max(2, bw4);
+      const int row_end = std::min(bh4, 16), col_end = std::min(bw4, 16);
+      const int step_h = bh4 >= 16 ? 4 : 2, step_w = bw4 >= 16 ? 4 : 2;
+      bool available = false;
+      for (int r = 0; r < row_end; r += step_h)
+        for (int c = 0; c < col_end; c += step_w) {
+          const bool ok = add_temporal(r, c);
+          if (r == 0 && c == 0) available = ok;
+        }
+      if (!available) mode_ctx |= 1 << 3;
+      const int pos[3][2] = {{voffset, -2}, {voffset, hoffset},
+                             {voffset - 2, hoffset}};
+      const bool extension = bh4 >= 2 && bh4 < 16 && bw4 >= 2 && bw4 < 16;
+      for (int i = 0; i < 3 && extension; ++i) {
+        const int rr = (mi_row & 15) + pos[i][0], cc = (mi_col & 15) + pos[i][1];
+        if (rr < 0 || rr >= 16 || cc < 0 || cc >= 16) continue;
+        add_temporal(pos[i][0], pos[i][1]);
+      }
+    }
+    const int newmv_nearest = new_mv_count;   // the outer scans' are not kept
+    scan_point(-1, -1, &row_match);
     for (int idx = 2; idx <= MVREF_ROW_COLS; ++idx) {
       const int ro = -(idx << 1) + 1 + row_adj, co = -(idx << 1) + 1 + col_adj;
       if (std::abs(ro) <= std::abs(max_row) && std::abs(ro) > rows_done)
-        scan_row(ro, max_row, &rows_done);
+        scan_row(ro, max_row, &rows_done, &row_match);
       if (std::abs(co) <= std::abs(max_col) && std::abs(co) > cols_done)
-        scan_col(co, max_col, &cols_done);
+        scan_col(co, max_col, &cols_done, &col_match);
+    }
+    new_mv_count = newmv_nearest;
+    const int ref_match = (row_match > 0) + (col_match > 0);
+    switch (nearest_match) {
+      case 0:
+        if (ref_match >= 1) mode_ctx |= 1;
+        if (ref_match == 1) mode_ctx |= 1 << 4;
+        else if (ref_match >= 2) mode_ctx |= 2 << 4;
+        break;
+      case 1:
+        mode_ctx |= new_mv_count > 0 ? 2 : 3;
+        if (ref_match == 1) mode_ctx |= 3 << 4;
+        else if (ref_match >= 2) mode_ctx |= 4 << 4;
+        break;
+      default:
+        mode_ctx |= new_mv_count >= 1 ? 4 : 5;
+        mode_ctx |= 5 << 4;
+        break;
     }
     auto sort = [&](int lo, int len) {    // libaom's bubble passes
       while (len > lo) {
@@ -2216,40 +3157,1205 @@ struct Decoder {
     };
     sort(0, nearest);
     sort(nearest, stack_n);
-    // clamp_mv_ref: within the frame and the block's size plus 16 samples
-    for (int i = 0; i < stack_n; ++i) {
-      const int bw = bw4 * 4, bh = bh4 * 4;
-      stack[i].col = clip3(-mi_col * 32 - bw * 8 - MV_BORDER,
-                           (mi_cols - bw4 - mi_col) * 32 + bw * 8 + MV_BORDER,
-                           stack[i].col);
-      stack[i].row = clip3(-mi_row * 32 - bh * 8 - MV_BORDER,
-                           (mi_rows - bh4 - mi_row) * 32 + bh * 8 + MV_BORDER,
-                           stack[i].row);
+    const int mw = std::min({bw4, 16, mi_cols - mi_col});
+    const int mh = std::min({bh4, 16, mi_rows - mi_row});
+    if (compound) {
+      if (stack_n < 2) extra_compound(mw, mh);
+    } else if (stack_n < 2) {
+      const int msz = std::min(mw, mh);
+      // the neighbours' vectors of any reference, sign-flipped to ours
+      auto add = [&](size_t k) {
+        for (int l = 0; l < 2; ++l) {
+          const int rf = ref_frames[2 * k + l];
+          if (rf <= INTRA_FRAME) continue;
+          int v[2][2] = {{mvs[4 * k + 2 * l], mvs[4 * k + 2 * l + 1]}, {0, 0}};
+          if (sign_bias[rf] != sign_bias[ref_frame[0]]) {
+            v[0][0] = -v[0][0];
+            v[0][1] = -v[0][1];
+          }
+          int i = 0;
+          while (i < stack_n && !(stack[i].mv[0][0] == v[0][0] &&
+                                  stack[i].mv[0][1] == v[0][1]))
+            ++i;
+          if (i == stack_n) {
+            std::memcpy(stack[i].mv, v, sizeof(v));
+            stack[i].weight = 2;
+            ++stack_n;
+          }
+        }
+      };
+      if (avail_u)
+        for (int i = 0; std::abs(max_row) >= 1 && i < msz && stack_n < 2;) {
+          const size_t k = mi(mi_row - 1, mi_col + i);
+          add(k);
+          i += kWide4[mi_sizes[k]];
+        }
+      if (avail_l)
+        for (int i = 0; std::abs(max_col) >= 1 && i < msz && stack_n < 2;) {
+          const size_t k = mi(mi_row + i, mi_col - 1);
+          add(k);
+          i += kHigh4[mi_sizes[k]];
+        }
+    }
+    // clamp_mv_ref: within the frame and the block's size plus 16 samples;
+    // over the whole array (a single reference's second vectors are 0,
+    // which stay, and entries past the stack are rewritten before they
+    // are read): GCC 12 at -O3 -march=native built a loop over the first
+    // stack_n entries into code that left a stale stack behind
+    const int bw = bw4 * 4, bh = bh4 * 4;
+    const int col_lo = -mi_col * 32 - bw * 8 - MV_BORDER;
+    const int col_hi = (mi_cols - bw4 - mi_col) * 32 + bw * 8 + MV_BORDER;
+    const int row_lo = -mi_row * 32 - bh * 8 - MV_BORDER;
+    const int row_hi = (mi_rows - bh4 - mi_row) * 32 + bh * 8 + MV_BORDER;
+    for (MvCand& c : stack)
+      for (int* v : c.mv) {
+        v[0] = clip3(row_lo, row_hi, v[0]);
+        v[1] = clip3(col_lo, col_hi, v[1]);
+      }
+  }
+
+  // a compound stack of fewer than two pairs: pairs of the neighbours'
+  // vectors of the same references, then of others (sign-flipped), then
+  // the global vectors
+  void extra_compound(int mw, int mh) {
+    int id[2][2][2], diff[2][2][2], id_n[2] = {0, 0}, diff_n[2] = {0, 0};
+    auto process = [&](size_t k) {
+      for (int l = 0; l < 2; ++l) {
+        const int rf = ref_frames[2 * k + l];
+        if (rf <= INTRA_FRAME) continue;
+        const int v[2] = {mvs[4 * k + 2 * l], mvs[4 * k + 2 * l + 1]};
+        for (int cmp = 0; cmp < 2; ++cmp) {
+          if (rf == ref_frame[cmp] && id_n[cmp] < 2) {
+            id[cmp][id_n[cmp]][0] = v[0];
+            id[cmp][id_n[cmp]++][1] = v[1];
+          } else if (diff_n[cmp] < 2) {
+            int w[2] = {v[0], v[1]};
+            if (sign_bias[rf] != sign_bias[ref_frame[cmp]]) {
+              w[0] = -w[0];
+              w[1] = -w[1];
+            }
+            diff[cmp][diff_n[cmp]][0] = w[0];
+            diff[cmp][diff_n[cmp]++][1] = w[1];
+          }
+        }
+      }
+    };
+    if (avail_u)
+      for (int i = 0; i < mw;) {
+        const size_t k = mi(mi_row - 1, mi_col + i);
+        process(k);
+        i += kWide4[mi_sizes[k]];
+      }
+    if (avail_l)
+      for (int i = 0; i < mh;) {
+        const size_t k = mi(mi_row + i, mi_col - 1);
+        process(k);
+        i += kHigh4[mi_sizes[k]];
+      }
+    int comp[2][2][2];     // [candidate][list][row, column]
+    for (int cmp = 0; cmp < 2; ++cmp) {
+      int n = 0;
+      for (int i = 0; i < id_n[cmp] && n < 2; ++i, ++n)
+        std::memcpy(comp[n][cmp], id[cmp][i], sizeof(int) * 2);
+      for (int i = 0; i < diff_n[cmp] && n < 2; ++i, ++n)
+        std::memcpy(comp[n][cmp], diff[cmp][i], sizeof(int) * 2);
+      for (; n < 2; ++n) std::memcpy(comp[n][cmp], global_mvs[cmp], sizeof(int) * 2);
+    }
+    if (stack_n == 1) {
+      const MvCand& s0 = stack[0];
+      const bool same = comp[0][0][0] == s0.mv[0][0] &&
+                        comp[0][0][1] == s0.mv[0][1] &&
+                        comp[0][1][0] == s0.mv[1][0] &&
+                        comp[0][1][1] == s0.mv[1][1];
+      std::memcpy(stack[1].mv, comp[same ? 1 : 0], sizeof(stack[1].mv));
+      stack[1].weight = 2;
+      stack_n = 2;
+    } else {
+      for (int i = 0; i < 2; ++i) {
+        std::memcpy(stack[i].mv, comp[i], sizeof(stack[i].mv));
+        stack[i].weight = 2;
+      }
+      stack_n = 2;
     }
   }
 
-  int read_mv_component(int c) {
-    const int sign = sym.read(cdf.mv_sign[c], 2);
-    const int cls = sym.read(cdf.mv_class[c], 11);
-    int mag, d = 0;
+  // read_mv_component (1/8 samples; integer, quarter or eighth precision)
+  int read_mv_component(int ctx, int c, bool subpel, bool hp) {
+    Cdfs::Mv& m = cdf.mv[ctx];
+    const int sign = sym.read(m.sign[c], 2);
+    const int cls = sym.read(m.cls[c], 11);
+    int mag, d = 0, fr = 3, h = 1;
     if (cls == 0) {
-      d = sym.read(cdf.mv_class0_bit[c], 2);
+      d = sym.read(m.class0_bit[c], 2);
       mag = 0;
+      if (subpel) {
+        fr = sym.read(m.class0_fr[c][d], 4);
+        if (hp) h = sym.read(m.class0_hp[c], 2);
+      }
     } else {
-      for (int i = 0; i < cls; ++i) d |= sym.read(cdf.mv_bit[c][i], 2) << i;
+      for (int i = 0; i < cls; ++i) d |= sym.read(m.bits[c][i], 2) << i;
       mag = 2 << (cls + 2);
+      if (subpel) {
+        fr = sym.read(m.fr[c], 4);
+        if (hp) h = sym.read(m.hp[c], 2);
+      }
     }
-    mag += ((d << 3) | (3 << 1) | 1) + 1;     // integer: fr 3, hp 1
+    mag += ((d << 3) | (fr << 1) | h) + 1;
     return sign ? -mag : mag;
+  }
+
+  void read_mv(int ctx, const int* pred, int* out) {
+    const bool subpel = ctx == 0 && !force_integer_mv;
+    const bool hp = subpel && allow_high_precision_mv;
+    const int joint = sym.read(cdf.mv[ctx].joint, 4);
+    out[0] = pred[0] + (joint == 2 || joint == 3 ? read_mv_component(ctx, 0, subpel, hp) : 0);
+    out[1] = pred[1] + (joint == 1 || joint == 3 ? read_mv_component(ctx, 1, subpel, hp) : 0);
+  }
+
+  // -------------------------------------------------------------------------
+  // inter frames' mode info (spec 5.11.18 .. 5.11.28, with libaom's
+  // contexts)
+
+  int above_ref[2] = {INTRA_FRAME, NONE_FRAME},
+      left_ref[2] = {INTRA_FRAME, NONE_FRAME};
+  std::vector<uint8_t> seg_preds;       // per mi: seg_id_predicted
+
+  void inter_frame_mode_info() {
+    reset_inter_state();
+    for (int l = 0; l < 2; ++l) {
+      above_ref[l] = avail_u ? ref_frames[2 * mi(mi_row - 1, mi_col) + l]
+                             : (l ? int(NONE_FRAME) : int(INTRA_FRAME));
+      left_ref[l] = avail_l ? ref_frames[2 * mi(mi_row, mi_col - 1) + l]
+                            : (l ? int(NONE_FRAME) : int(INTRA_FRAME));
+    }
+    skip = 0;
+    seg_id_predicted = 0;
+    inter_segment_id(true);
+    read_skip_mode();
+    if (skip_mode) skip = 1;
+    else read_skip();
+    if (!seg_id_pre_skip) inter_segment_id(false);
+    lossless = lossless_array[segment_id];
+    for (int y = 0; y < kHigh4[mi_size] && mi_row + y < mi_rows; ++y)
+      for (int x = 0; x < kWide4[mi_size] && mi_col + x < mi_cols; ++x)
+        seg_preds[mi(mi_row + y, mi_col + x)] =
+            static_cast<uint8_t>(seg_id_predicted);
+    read_cdef();
+    read_delta_qindex();
+    read_delta_lf();
+    read_deltas = false;
+    if (skip_mode) {
+      is_inter = 1;
+    } else if (seg_active(segment_id, SEG_LVL_REF_FRAME)) {
+      is_inter = feature_data[segment_id][SEG_LVL_REF_FRAME] != INTRA_FRAME;
+    } else if (seg_active(segment_id, SEG_LVL_GLOBALMV)) {
+      is_inter = 1;
+    } else {
+      const bool ai = above_ref[0] <= INTRA_FRAME, li = left_ref[0] <= INTRA_FRAME;
+      int ctx;
+      if (avail_u && avail_l) ctx = ai && li ? 3 : ai || li;
+      else if (avail_u || avail_l) ctx = 2 * (avail_u ? ai : li);
+      else ctx = 0;
+      is_inter = sym.read(cdf.is_inter[ctx], 2);
+    }
+    if (is_inter) inter_block_mode_info();
+    else intra_modes(cdf.y_mode_inter[kSizeGroup[mi_size]]);
+  }
+
+  int seg_id_predicted = 0;
+
+  int predicted_segment_id() const {
+    if (prev_seg_ids.empty()) return 0;
+    int seg = 7;
+    for (int y = 0; y < kHigh4[mi_size] && mi_row + y < mi_rows; ++y)
+      for (int x = 0; x < kWide4[mi_size] && mi_col + x < mi_cols; ++x)
+        seg = std::min<int>(seg, prev_seg_ids[mi(mi_row + y, mi_col + x)]);
+    return seg;
+  }
+
+  // read_inter_segment_id (libaom's, the specification's inter_segment_id)
+  void inter_segment_id(bool pre_skip) {
+    if (!seg_enabled) {
+      segment_id = 0;
+      return;
+    }
+    if (!seg_update_map) {
+      segment_id = predicted_segment_id();
+      return;
+    }
+    if (pre_skip && !seg_id_pre_skip) {
+      segment_id = 0;
+      return;
+    }
+    if (!pre_skip && skip) {
+      seg_id_predicted = 0;
+      intra_segment_id();          // the spatial prediction, unread
+      return;
+    }
+    if (seg_temporal_update) {
+      const int ctx = (avail_u ? seg_preds[mi(mi_row - 1, mi_col)] : 0) +
+                      (avail_l ? seg_preds[mi(mi_row, mi_col - 1)] : 0);
+      seg_id_predicted = sym.read(cdf.seg_pred[ctx], 2);
+      if (seg_id_predicted) segment_id = predicted_segment_id();
+      else intra_segment_id();
+    } else {
+      intra_segment_id();
+    }
+  }
+
+  void read_skip_mode() {
+    skip_mode = 0;
+    if (seg_active(segment_id, SEG_LVL_SKIP) ||
+        seg_active(segment_id, SEG_LVL_REF_FRAME) ||
+        seg_active(segment_id, SEG_LVL_GLOBALMV) || !skip_mode_present ||
+        kWide4[mi_size] < 2 || kHigh4[mi_size] < 2)
+      return;
+    const int ctx = (avail_u ? skip_modes[mi(mi_row - 1, mi_col)] : 0) +
+                    (avail_l ? skip_modes[mi(mi_row, mi_col - 1)] : 0);
+    skip_mode = sym.read(cdf.skip_mode[ctx], 2);
+  }
+
+  int count_refs(int f) const {
+    int c = 0;
+    if (avail_u) c += (above_ref[0] == f) + (above_ref[1] == f);
+    if (avail_l) c += (left_ref[0] == f) + (left_ref[1] == f);
+    return c;
+  }
+  static int ref_count_ctx(int a, int b) { return a < b ? 0 : a == b ? 1 : 2; }
+  static bool backward(int f) { return f >= BWDREF_FRAME; }
+  static bool uni_comp(const int* r) {
+    return r[1] > INTRA_FRAME && backward(r[0]) == backward(r[1]);
+  }
+
+  int comp_mode_ctx() const {
+    const bool as = above_ref[1] <= INTRA_FRAME, ls = left_ref[1] <= INTRA_FRAME;
+    const bool ai = above_ref[0] <= INTRA_FRAME, li = left_ref[0] <= INTRA_FRAME;
+    if (avail_u && avail_l) {
+      if (as && ls) return backward(above_ref[0]) ^ backward(left_ref[0]);
+      if (as) return 2 + (backward(above_ref[0]) || ai);
+      if (ls) return 2 + (backward(left_ref[0]) || li);
+      return 4;
+    }
+    if (avail_u) return as ? backward(above_ref[0]) : 3;
+    if (avail_l) return ls ? backward(left_ref[0]) : 3;
+    return 1;
+  }
+
+  // libaom's av1_get_comp_reference_type_context
+  int comp_ref_type_ctx() const {
+    const bool ai = above_ref[0] <= INTRA_FRAME, li = left_ref[0] <= INTRA_FRAME;
+    if (avail_u && avail_l) {
+      if (ai && li) return 2;
+      if (ai || li) {
+        const int* r = ai ? left_ref : above_ref;
+        return r[1] <= INTRA_FRAME ? 2 : 1 + 2 * uni_comp(r);
+      }
+      const bool asg = above_ref[1] <= INTRA_FRAME, lsg = left_ref[1] <= INTRA_FRAME;
+      const int fa = above_ref[0], fl = left_ref[0];
+      if (asg && lsg) return 1 + 2 * !(backward(fa) ^ backward(fl));
+      if (asg || lsg) {
+        const bool u = asg ? uni_comp(left_ref) : uni_comp(above_ref);
+        return u ? 3 + !(backward(fa) ^ backward(fl)) : 1;
+      }
+      const bool ua = uni_comp(above_ref), ul = uni_comp(left_ref);
+      if (!ua && !ul) return 0;
+      if (!ua || !ul) return 2;
+      return 3 + !((fa == BWDREF_FRAME) ^ (fl == BWDREF_FRAME));
+    }
+    if (avail_u || avail_l) {
+      const int* r = avail_u ? above_ref : left_ref;
+      if (r[0] <= INTRA_FRAME || r[1] <= INTRA_FRAME) return 2;
+      return 4 * uni_comp(r);
+    }
+    return 2;
+  }
+
+  void read_ref_frames() {
+    ref_frame[1] = NONE_FRAME;
+    if (skip_mode) {
+      ref_frame[0] = skip_mode_frame[0];
+      ref_frame[1] = skip_mode_frame[1];
+      return;
+    }
+    if (seg_active(segment_id, SEG_LVL_REF_FRAME)) {
+      ref_frame[0] = feature_data[segment_id][SEG_LVL_REF_FRAME];
+      return;
+    }
+    if (seg_active(segment_id, SEG_LVL_SKIP) ||
+        seg_active(segment_id, SEG_LVL_GLOBALMV)) {
+      ref_frame[0] = LAST_FRAME;
+      return;
+    }
+    const int last = count_refs(LAST_FRAME), last2 = count_refs(LAST2_FRAME),
+              last3 = count_refs(LAST3_FRAME), gold = count_refs(GOLDEN_FRAME),
+              bwd = count_refs(BWDREF_FRAME), alt2 = count_refs(ALTREF2_FRAME),
+              alt = count_refs(ALTREF_FRAME);
+    const int fwd_ctx = ref_count_ctx(last + last2 + last3 + gold, bwd + alt2 + alt);
+    const int p3 = ref_count_ctx(last + last2, last3 + gold);
+    const int p4 = ref_count_ctx(last, last2), p5 = ref_count_ctx(last3, gold);
+    const int bwd_ctx = ref_count_ctx(bwd + alt2, alt);
+    const int p6 = ref_count_ctx(bwd, alt2);
+    const bool compound = reference_select &&
+                          std::min(kWide4[mi_size], kHigh4[mi_size]) >= 2 &&
+                          sym.read(cdf.comp_mode[comp_mode_ctx()], 2);
+    if (compound) {
+      if (!sym.read(cdf.comp_ref_type[comp_ref_type_ctx()], 2)) {   // unidir
+        if (sym.read(cdf.uni_comp_ref[fwd_ctx][0], 2)) {
+          ref_frame[0] = BWDREF_FRAME;
+          ref_frame[1] = ALTREF_FRAME;
+        } else if (sym.read(cdf.uni_comp_ref[ref_count_ctx(last2, last3 + gold)][1], 2)) {
+          ref_frame[0] = LAST_FRAME;
+          ref_frame[1] = sym.read(cdf.uni_comp_ref[p5][2], 2) ? GOLDEN_FRAME
+                                                              : LAST3_FRAME;
+        } else {
+          ref_frame[0] = LAST_FRAME;
+          ref_frame[1] = LAST2_FRAME;
+        }
+        return;
+      }
+      if (!sym.read(cdf.comp_ref[p3][0], 2))
+        ref_frame[0] = sym.read(cdf.comp_ref[p4][1], 2) ? LAST2_FRAME : LAST_FRAME;
+      else
+        ref_frame[0] = sym.read(cdf.comp_ref[p5][2], 2) ? GOLDEN_FRAME : LAST3_FRAME;
+      if (!sym.read(cdf.comp_bwd_ref[bwd_ctx][0], 2))
+        ref_frame[1] = sym.read(cdf.comp_bwd_ref[p6][1], 2) ? ALTREF2_FRAME
+                                                            : BWDREF_FRAME;
+      else
+        ref_frame[1] = ALTREF_FRAME;
+      return;
+    }
+    if (sym.read(cdf.single_ref[fwd_ctx][0], 2)) {
+      if (!sym.read(cdf.single_ref[bwd_ctx][1], 2))
+        ref_frame[0] = sym.read(cdf.single_ref[p6][5], 2) ? ALTREF2_FRAME
+                                                          : BWDREF_FRAME;
+      else
+        ref_frame[0] = ALTREF_FRAME;
+    } else if (sym.read(cdf.single_ref[p3][2], 2)) {
+      ref_frame[0] = sym.read(cdf.single_ref[p5][4], 2) ? GOLDEN_FRAME
+                                                        : LAST3_FRAME;
+    } else {
+      ref_frame[0] = sym.read(cdf.single_ref[p4][3], 2) ? LAST2_FRAME
+                                                        : LAST_FRAME;
+    }
+  }
+
+  int drl_ctx(int idx) const {
+    const bool a = stack[idx].weight >= REF_CAT_LEVEL;
+    const bool b = stack[idx + 1].weight >= REF_CAT_LEVEL;
+    return a && b ? 0 : a ? 1 : !b ? 2 : 0;
+  }
+
+  static int comp_mode_of(int y_mode, int list) {
+    static const uint8_t k0[12] = {NEARESTMV, NEARMV, GLOBALMV, NEWMV,
+                                   NEARESTMV, NEARMV, NEARESTMV, NEWMV,
+                                   NEARMV, NEWMV, GLOBALMV, NEWMV};
+    static const uint8_t k1[12] = {NEARESTMV, NEARMV, GLOBALMV, NEWMV,
+                                   NEARESTMV, NEARMV, NEWMV, NEARESTMV,
+                                   NEWMV, NEARMV, GLOBALMV, NEWMV};
+    return (list ? k1 : k0)[y_mode - NEARESTMV];
+  }
+
+  void inter_block_mode_info() {
+    ++inter_blocks;
+    read_ref_frames();
+    const bool compound = ref_frame[1] > INTRA_FRAME;
+    compound_blocks += compound;
+    find_mv_stack();
+    const int new_ctx = mode_ctx & 7, zero_ctx = (mode_ctx >> 3) & 1;
+    const int ref_ctx = (mode_ctx >> 4) & 15;
+    if (skip_mode) {
+      y_mode = NEAREST_NEARESTMV;
+    } else if (seg_active(segment_id, SEG_LVL_SKIP) ||
+               seg_active(segment_id, SEG_LVL_GLOBALMV)) {
+      y_mode = GLOBALMV;
+    } else if (compound) {
+      const int ctx = kCompoundModeCtxMap[ref_ctx >> 1][std::min(new_ctx, 4)];
+      y_mode = NEAREST_NEARESTMV + sym.read(cdf.compound_mode[ctx], 8);
+    } else if (!sym.read(cdf.new_mv[new_ctx], 2)) {
+      y_mode = NEWMV;
+    } else if (!sym.read(cdf.zero_mv[zero_ctx], 2)) {
+      y_mode = GLOBALMV;
+    } else {
+      y_mode = sym.read(cdf.ref_mv[ref_ctx], 2) ? NEARMV : NEARESTMV;
+    }
+    uv_mode = DC_PRED;
+    ref_mv_idx = 0;
+    if (y_mode == NEWMV || y_mode == NEW_NEWMV) {
+      for (int idx = 0; idx < 2; ++idx)
+        if (stack_n > idx + 1) {
+          const int drl = sym.read(cdf.drl[drl_ctx(idx)], 2);
+          ref_mv_idx = idx + drl;
+          if (!drl) break;
+        }
+    } else if (y_mode == NEARMV || y_mode == NEAR_NEARMV ||
+               y_mode == NEAR_NEWMV || y_mode == NEW_NEARMV) {
+      for (int idx = 1; idx < 3; ++idx)
+        if (stack_n > idx + 1) {
+          const int drl = sym.read(cdf.drl[drl_ctx(idx)], 2);
+          ref_mv_idx = idx + drl - 1;
+          if (!drl) break;
+        }
+    }
+    assign_mv(compound);
+    // inter-intra
+    if (enable_interintra_compound && !skip_mode && !compound &&
+        mi_size >= BLOCK_8X8 && mi_size <= BLOCK_32X32) {
+      const int g = kSizeGroup[mi_size];
+      interintra = sym.read(cdf.inter_intra[g], 2);
+      if (interintra) {
+        ++interintra_blocks;
+        interintra_mode = sym.read(cdf.inter_intra_mode[g], 4);
+        ref_frame[1] = INTRA_FRAME;
+        wedge_interintra = sym.read(cdf.wedge_inter_intra[mi_size], 2);
+        if (wedge_interintra) {
+          wedge_index = sym.read(cdf.wedge_index[mi_size], 16);
+          wedge_sign = 0;
+        }
+      }
+    }
+    read_motion_mode(compound);
+    // the compound type
+    if (compound && !skip_mode) {
+      if (enable_masked_compound) {
+        int ctx = 0;
+        for (int side = 0; side < 2; ++side) {
+          if (!(side ? avail_l : avail_u)) continue;
+          const int* r = side ? left_ref : above_ref;
+          const size_t k = side ? mi(mi_row, mi_col - 1) : mi(mi_row - 1, mi_col);
+          if (r[1] > INTRA_FRAME) ctx += comp_group_idxs[k];
+          else if (r[0] == ALTREF_FRAME) ctx += 3;
+        }
+        comp_group_idx = sym.read(cdf.comp_group_idx[std::min(5, ctx)], 2);
+      }
+      if (comp_group_idx == 0) {
+        if (enable_jnt_comp) {
+          const int fwd = std::abs(get_relative_dist(order_hints[ref_frame[0]], order_hint));
+          const int bck = std::abs(get_relative_dist(order_hints[ref_frame[1]], order_hint));
+          int ctx = fwd == bck ? 3 : 0;
+          for (int side = 0; side < 2; ++side) {
+            if (!(side ? avail_l : avail_u)) continue;
+            const int* r = side ? left_ref : above_ref;
+            const size_t k = side ? mi(mi_row, mi_col - 1) : mi(mi_row - 1, mi_col);
+            if (r[1] > INTRA_FRAME) ctx += compound_idxs[k];
+            else if (r[0] == ALTREF_FRAME) ++ctx;
+          }
+          compound_idx = sym.read(cdf.compound_idx[ctx], 2);
+          compound_type = compound_idx ? COMPOUND_AVERAGE : COMPOUND_DISTANCE;
+        }
+      } else {
+        compound_type = kWedgeBits[mi_size]
+                            ? sym.read(cdf.compound_type[mi_size], 2)
+                            : int(COMPOUND_DIFFWTD);
+        if (compound_type == COMPOUND_WEDGE) {
+          wedge_index = sym.read(cdf.wedge_index[mi_size], 16);
+          wedge_sign = sym.literal(1);
+        } else {
+          mask_type = sym.literal(1);
+        }
+      }
+    } else if (interintra) {
+      compound_type = wedge_interintra ? COMPOUND_WEDGE : COMPOUND_INTRA;
+    }
+    if (compound) {
+      wedge_blocks += compound_type == COMPOUND_WEDGE;
+      diffwtd_blocks += compound_type == COMPOUND_DIFFWTD;
+      distance_blocks += compound_type == COMPOUND_DISTANCE;
+    }
+    wedge_interintra_blocks += interintra && wedge_interintra;
+    // the interpolation filters
+    const bool nontrans_global =
+        (y_mode == GLOBALMV || y_mode == GLOBAL_GLOBALMV) &&
+        std::min(kWide4[mi_size], kHigh4[mi_size]) >= 2 &&
+        gm_type[ref_frame[0]] != TRANSLATION &&
+        (!compound || gm_type[ref_frame[1]] != TRANSLATION);
+    const int frame_filter = interpolation_filter == SWITCHABLE ? int(EIGHTTAP)
+                                                                : interpolation_filter;
+    interp[0] = interp[1] = frame_filter;
+    if (!skip_mode && motion_mode != LOCALWARP && !nontrans_global &&
+        interpolation_filter == SWITCHABLE) {
+      for (int dir = 0; dir < 2; ++dir) {
+        int ctx = (compound ? 4 : 0) + dir * 8;
+        int lt = 3, at = 3;
+        if (avail_l) {
+          const size_t k = mi(mi_row, mi_col - 1);
+          if (ref_frames[2 * k] == ref_frame[0] || ref_frames[2 * k + 1] == ref_frame[0])
+            lt = interps[2 * k + dir];
+        }
+        if (avail_u) {
+          const size_t k = mi(mi_row - 1, mi_col);
+          if (ref_frames[2 * k] == ref_frame[0] || ref_frames[2 * k + 1] == ref_frame[0])
+            at = interps[2 * k + dir];
+        }
+        ctx += lt == at ? lt : lt == 3 ? at : at == 3 ? lt : 3;
+        interp[dir] = sym.read(cdf.interp_filter[ctx], 3);
+        if (!enable_dual_filter) {
+          interp[1] = interp[0];
+          break;
+        }
+      }
+      dual_filter_blocks += interp[0] != interp[1];
+    }
+    if (motion_mode == LOCALWARP) local_warp_params();
+  }
+
+  // assign_mv as libaom: NEAREST and NEAR from the stack (or the global
+  // vector) at the frame's precision, a NEWMV read against its stack
+  // entry; each vector within libaom's range
+  void assign_mv(bool compound) {
+    int nearest[2][2], nearv[2][2];
+    if (compound) {
+      for (int l = 0; l < 2; ++l) {
+        std::memcpy(nearest[l], stack[0].mv[l], sizeof(nearest[l]));
+        std::memcpy(nearv[l], stack[ref_mv_idx + 1].mv[l], sizeof(nearv[l]));
+        lower_precision(nearest[l], allow_high_precision_mv, force_integer_mv);
+        lower_precision(nearv[l], allow_high_precision_mv, force_integer_mv);
+      }
+    } else {
+      for (int i = 0; i < 2; ++i) {
+        int* v = i ? nearv[0] : nearest[0];
+        std::memcpy(v, i < stack_n ? stack[i].mv[0] : global_mvs[0], 2 * sizeof(int));
+        lower_precision(v, allow_high_precision_mv, force_integer_mv);
+      }
+      if (ref_mv_idx > 0 && y_mode == NEARMV)
+        std::memcpy(nearv[0], stack[1 + ref_mv_idx].mv[0], sizeof(nearv[0]));
+      nearest[1][0] = nearest[1][1] = nearv[1][0] = nearv[1][1] = 0;
+    }
+    int ref_mv[2][2];
+    std::memcpy(ref_mv, nearest, sizeof(ref_mv));
+    if (compound) {
+      const int idx = ref_mv_idx + (y_mode == NEAR_NEWMV || y_mode == NEW_NEARMV);
+      for (int l = 0; l < 2; ++l)
+        if (comp_mode_of(y_mode, l) == NEWMV)
+          std::memcpy(ref_mv[l], stack[idx].mv[l], sizeof(ref_mv[l]));
+    } else if (y_mode == NEWMV && stack_n > 1) {
+      std::memcpy(ref_mv[0], stack[ref_mv_idx].mv[0], sizeof(ref_mv[0]));
+    }
+    for (int l = 0; l < 1 + compound; ++l) {
+      const int m = comp_mode_of(y_mode, l);
+      if (m == NEWMV) read_mv(0, ref_mv[l], mvb[l]);
+      else if (m == NEARESTMV) std::memcpy(mvb[l], nearest[l], sizeof(mvb[l]));
+      else if (m == NEARMV) std::memcpy(mvb[l], nearv[l], sizeof(mvb[l]));
+      else std::memcpy(mvb[l], global_mvs[l], sizeof(mvb[l]));
+      if (mvb[l][0] <= MV_LOW || mvb[l][0] >= MV_UPP || mvb[l][1] <= MV_LOW ||
+          mvb[l][1] >= MV_UPP)
+        fail("the AV1 stream has a motion vector out of range (cv2 refuses "
+             "it)");
+    }
+  }
+
+  // -------------------------------------------------------------------------
+  // motion modes (libaom's read_motion_mode, av1_findSamples,
+  // av1_find_projection)
+
+  int num_samples = 0, samples[LEAST_SQUARES_SAMPLES_MAX][4];
+  int local_warp[6] = {0};
+  bool local_valid = false;
+
+  // the neighbours OBMC blends, above (dir 0) or left: (mi offset along
+  // the edge, its width in mi, the neighbour's mi)
+  template <typename F>
+  void for_each_overlappable(int dir, int nb_max, F f) {
+    if (!(dir ? avail_l : avail_u)) return;
+    const int n4 = dir ? kHigh4[mi_size] : kWide4[mi_size];
+    const int end = dir ? std::min(mi_row + n4, mi_rows)
+                        : std::min(mi_col + n4, mi_cols);
+    int count = 0;
+    for (int pos = dir ? mi_row : mi_col; pos < end && count < nb_max;) {
+      size_t k = dir ? mi(pos, mi_col - 1) : mi(mi_row - 1, pos);
+      int step = std::min<int>(dir ? kHigh4[mi_sizes[k]] : kWide4[mi_sizes[k]], 16);
+      if (step == 1) {      // a 4-sample pair: the one with chroma
+        pos &= ~1;
+        k = dir ? mi(pos + 1, mi_col - 1) : mi(mi_row - 1, pos + 1);
+        step = 2;
+      }
+      if (is_inters[k]) {
+        ++count;
+        f(pos - (dir ? mi_row : mi_col), std::min(n4, step), k);
+      }
+      pos += step;
+    }
+  }
+
+  void record_sample(size_t k, int row_offset, int sign_r, int col_offset,
+                     int sign_c) {
+    const int bw = kWide4[mi_sizes[k]] * 4, bh = kHigh4[mi_sizes[k]] * 4;
+    int* smp = samples[num_samples++];
+    smp[0] = (col_offset * 4 + sign_c * bw / 2 - 1) * 8;
+    smp[1] = (row_offset * 4 + sign_r * bh / 2 - 1) * 8;
+    smp[2] = smp[0] + mvs[4 * k + 1];
+    smp[3] = smp[1] + mvs[4 * k];
+  }
+
+  // av1_findSamples: the neighbours of the same single reference
+  int find_samples() {
+    num_samples = 0;
+    const int bw4 = kWide4[mi_size], bh4 = kHigh4[mi_size];
+    bool do_tl = true, do_tr = true;
+    auto same = [&](size_t k) {
+      return ref_frames[2 * k] == ref_frame[0] && ref_frames[2 * k + 1] == NONE_FRAME;
+    };
+    if (avail_u) {
+      size_t k = mi(mi_row - 1, mi_col);
+      int sbw = kWide4[mi_sizes[k]];
+      if (bw4 <= sbw) {
+        const int col_offset = -(mi_col % sbw);
+        if (col_offset < 0) do_tl = false;
+        if (col_offset + sbw > bw4) do_tr = false;
+        if (same(k)) {
+          record_sample(k, 0, -1, col_offset, 1);
+          if (num_samples >= LEAST_SQUARES_SAMPLES_MAX) return num_samples;
+        }
+      } else {
+        for (int i = 0; i < std::min(bw4, mi_cols - mi_col); i += sbw) {
+          k = mi(mi_row - 1, mi_col + i);
+          sbw = kWide4[mi_sizes[k]];
+          if (same(k)) {
+            record_sample(k, 0, -1, i, 1);
+            if (num_samples >= LEAST_SQUARES_SAMPLES_MAX) return num_samples;
+          }
+        }
+      }
+    }
+    if (avail_l) {
+      size_t k = mi(mi_row, mi_col - 1);
+      int sbh = kHigh4[mi_sizes[k]];
+      if (bh4 <= sbh) {
+        const int row_offset = -(mi_row % sbh);
+        if (row_offset < 0) do_tl = false;
+        if (same(k)) {
+          record_sample(k, row_offset, 1, 0, -1);
+          if (num_samples >= LEAST_SQUARES_SAMPLES_MAX) return num_samples;
+        }
+      } else {
+        for (int i = 0; i < std::min(bh4, mi_rows - mi_row); i += sbh) {
+          k = mi(mi_row + i, mi_col - 1);
+          sbh = kHigh4[mi_sizes[k]];
+          if (same(k)) {
+            record_sample(k, i, 1, 0, -1);
+            if (num_samples >= LEAST_SQUARES_SAMPLES_MAX) return num_samples;
+          }
+        }
+      }
+    }
+    if (do_tl && avail_l && avail_u) {
+      const size_t k = mi(mi_row - 1, mi_col - 1);
+      if (same(k)) {
+        record_sample(k, 0, -1, 0, -1);
+        if (num_samples >= LEAST_SQUARES_SAMPLES_MAX) return num_samples;
+      }
+    }
+    if (do_tr && has_top_right() && inside(mi_row - 1, mi_col + bw4)) {
+      const size_t k = mi(mi_row - 1, mi_col + bw4);
+      if (same(k)) record_sample(k, 0, -1, bw4, 1);
+    }
+    return num_samples;
+  }
+
+  void read_motion_mode(bool compound) {
+    motion_mode = SIMPLE;
+    if (skip_mode || !is_motion_mode_switchable) return;
+    if (std::min(kWide4[mi_size], kHigh4[mi_size]) < 2) return;
+    if (!force_integer_mv && is_global_block(y_mode, mi_size, ref_frame[0])) return;
+    if (compound || ref_frame[1] == INTRA_FRAME) return;
+    bool overlappable = false;
+    for (int dir = 0; dir < 2 && !overlappable; ++dir)
+      for_each_overlappable(dir, 1 << 30, [&](int, int, size_t) { overlappable = true; });
+    if (!overlappable) return;
+    find_samples();
+    if (force_integer_mv || num_samples == 0 || !allow_warped_motion ||
+        scaled(ref_frame[0]))
+      motion_mode = sym.read(cdf.use_obmc[mi_size], 2) ? OBMC : SIMPLE;
+    else
+      motion_mode = sym.read(cdf.motion_mode[mi_size], 3);
+    obmc_blocks += motion_mode == OBMC;
+    warp_blocks += motion_mode == LOCALWARP;
+  }
+
+  // resolve_divisor_32 / _64: a multiplier and a shift for 1 / d
+  static int resolve_divisor(uint64_t d, int* shift) {
+    const int n = 63 - __builtin_clzll(d);
+    const uint64_t e = d - (uint64_t(1) << n);
+    const int64_t f = n > DIV_LUT_BITS
+                          ? int64_t((e + (uint64_t(1) << (n - DIV_LUT_BITS - 1))) >> (n - DIV_LUT_BITS))
+                          : int64_t(e << (DIV_LUT_BITS - n));
+    *shift = n + DIV_LUT_PREC_BITS;
+    return Div_Lut[f];
+  }
+
+  // av1_get_shear_params: false where the model is not one the warp
+  // filter takes
+  static bool setup_shear(const int* m, int* shear) {
+    if (m[2] <= 0) return false;
+    int alpha = clip3(-32768, 32767, m[2] - (1 << WARPEDMODEL_PREC_BITS));
+    int beta = clip3(-32768, 32767, m[3]);
+    int shift;
+    const int y = resolve_divisor(uint64_t(std::abs(m[2])), &shift) * (m[2] < 0 ? -1 : 1);
+    int64_t v = (int64_t(m[4]) * (1 << WARPEDMODEL_PREC_BITS)) * y;
+    int gamma = static_cast<int>(std::min<int64_t>(
+        std::max<int64_t>(round2signed_64(v, shift), -32768), 32767));
+    v = int64_t(m[3]) * m[4] * y;
+    int delta = static_cast<int>(std::min<int64_t>(
+        std::max<int64_t>(m[5] - round2signed_64(v, shift) -
+                              (1 << WARPEDMODEL_PREC_BITS), -32768), 32767));
+    auto reduce = [](int x) {
+      return round2signed(x, WARP_PARAM_REDUCE_BITS) * (1 << WARP_PARAM_REDUCE_BITS);
+    };
+    alpha = reduce(alpha);
+    beta = reduce(beta);
+    gamma = reduce(gamma);
+    delta = reduce(delta);
+    if (4 * std::abs(alpha) + 7 * std::abs(beta) >= (1 << WARPEDMODEL_PREC_BITS))
+      return false;
+    if (4 * std::abs(gamma) + 4 * std::abs(delta) >= (1 << WARPEDMODEL_PREC_BITS))
+      return false;
+    shear[0] = alpha;
+    shear[1] = beta;
+    shear[2] = gamma;
+    shear[3] = delta;
+    return true;
+  }
+
+
+  // av1_selectSamples and av1_find_projection (find_affine_int)
+  void local_warp_params() {
+    const int bw = kWide4[mi_size] * 4, bh = kHigh4[mi_size] * 4;
+    if (num_samples > 1) {
+      const int thresh = clip3(16, 112, std::max(bw, bh));
+      int n = 0;
+      for (int i = 0; i < num_samples; ++i) {
+        const int diff = std::abs(samples[i][2] - samples[i][0] - mvb[0][1]) +
+                         std::abs(samples[i][3] - samples[i][1] - mvb[0][0]);
+        if (diff > thresh) continue;
+        if (n != i) std::memcpy(samples[n], samples[i], sizeof(samples[n]));
+        ++n;
+      }
+      num_samples = std::max(n, 1);
+    }
+    local_valid = false;
+    const int rsuy = bh / 2 - 1, rsux = bw / 2 - 1;
+    const int suy = rsuy * 8, sux = rsux * 8;
+    const int duy = suy + mvb[0][0], dux = sux + mvb[0][1];
+    int32_t a[2][2] = {{0, 0}, {0, 0}}, bx[2] = {0, 0}, by[2] = {0, 0};
+    auto sq = [](int v) { return (v * v * 4 + v * 4 * 8 + 8 * 8 * 2) >> 4; };
+    auto p1 = [](int u, int v) { return (u * v * 4 + (u + v) * 2 * 8 + 8 * 8) >> 4; };
+    auto p2 = [](int u, int v) { return (u * v * 4 + (u + v) * 2 * 8 + 8 * 8 * 2) >> 4; };
+    for (int i = 0; i < num_samples; ++i) {
+      const int dx = samples[i][2] - dux, dy = samples[i][3] - duy;
+      const int sx = samples[i][0] - sux, sy = samples[i][1] - suy;
+      if (std::abs(sx - dx) < LS_MV_MAX && std::abs(sy - dy) < LS_MV_MAX) {
+        a[0][0] += sq(sx);
+        a[0][1] += p1(sx, sy);
+        a[1][1] += sq(sy);
+        bx[0] += p2(sx, dx);
+        bx[1] += p1(sy, dx);
+        by[0] += p1(sx, dy);
+        by[1] += p2(sy, dy);
+      }
+    }
+    const int64_t det = int64_t(a[0][0]) * a[1][1] - int64_t(a[0][1]) * a[0][1];
+    if (det == 0) return;
+    int shift;
+    int64_t idet = resolve_divisor(uint64_t(det < 0 ? -det : det), &shift) * (det < 0 ? -1 : 1);
+    shift -= WARPEDMODEL_PREC_BITS;
+    if (shift < 0) {       // libaom shifts an int16_t
+      idet = static_cast<int16_t>(idet << -shift);
+      shift = 0;
+    }
+    const int64_t px[2] = {int64_t(a[1][1]) * bx[0] - int64_t(a[0][1]) * bx[1],
+                           -int64_t(a[0][1]) * bx[0] + int64_t(a[0][0]) * bx[1]};
+    const int64_t py[2] = {int64_t(a[1][1]) * by[0] - int64_t(a[0][1]) * by[1],
+                           -int64_t(a[0][1]) * by[0] + int64_t(a[0][0]) * by[1]};
+    auto ndiag = [&](int64_t v) {
+      const int64_t r = round2signed_64(v * idet, shift);
+      return int(std::min<int64_t>(std::max<int64_t>(r, -WARPEDMODEL_NONDIAGAFFINE_CLAMP + 1),
+                                   WARPEDMODEL_NONDIAGAFFINE_CLAMP - 1));
+    };
+    auto diag = [&](int64_t v) {
+      const int64_t r = round2signed_64(v * idet, shift);
+      return int(std::min<int64_t>(
+          std::max<int64_t>(r, (1 << WARPEDMODEL_PREC_BITS) - WARPEDMODEL_NONDIAGAFFINE_CLAMP + 1),
+          (1 << WARPEDMODEL_PREC_BITS) + WARPEDMODEL_NONDIAGAFFINE_CLAMP - 1));
+    };
+    int* m = local_warp;
+    m[2] = diag(px[0]);
+    m[3] = ndiag(px[1]);
+    m[4] = ndiag(py[0]);
+    m[5] = diag(py[1]);
+    const int isuy = mi_row * 4 + rsuy, isux = mi_col * 4 + rsux;
+    const int32_t vx = mvb[0][1] * (1 << (WARPEDMODEL_PREC_BITS - 3)) -
+                       (isux * (m[2] - (1 << WARPEDMODEL_PREC_BITS)) + isuy * m[3]);
+    const int32_t vy = mvb[0][0] * (1 << (WARPEDMODEL_PREC_BITS - 3)) -
+                       (isux * m[4] + isuy * (m[5] - (1 << WARPEDMODEL_PREC_BITS)));
+    m[0] = clip3(-WARPEDMODEL_TRANS_CLAMP, WARPEDMODEL_TRANS_CLAMP - 1, vx);
+    m[1] = clip3(-WARPEDMODEL_TRANS_CLAMP, WARPEDMODEL_TRANS_CLAMP - 1, vy);
+    int shear[4];
+    local_valid = setup_shear(m, shear);
+  }
+
+
+  // -------------------------------------------------------------------------
+  // Inter prediction (spec 7.11.3, as libaom rounds): each reference's
+  // prediction by the 8-tap filters through the scaled position (the
+  // unscaled one is its case), or by the warp filter; one reference's
+  // rounded to samples, two averaged, distance-weighted or blended by a
+  // mask; inter-intra blended with an intra prediction; OBMC blended
+  // with the neighbours' predictions.  A 4-sample-wide luma block's
+  // chroma takes each covered block's vector.
+
+  int round0() const { return bit_depth == 12 ? 5 : 3; }
+  int round1(bool compound) const {
+    return compound ? 7 : bit_depth == 12 ? 9 : 11;
+  }
+
+  static int filter_index(int f, int size) {
+    if (size <= 4) {
+      if (f == EIGHTTAP || f == EIGHTTAP_SHARP) return 4;
+      if (f == EIGHTTAP_SMOOTH) return 5;
+    }
+    return f;
+  }
+
+  // a w x h prediction of plane p at (x, y) from reference frame ref by
+  // vector mv ([row, column], 1/8 luma samples), filters [vertical,
+  // horizontal]: samples, or the compound precision
+  void block_pred(int p, int ref, const int* mv, int x, int y, int w, int h,
+                  const int* filt, bool compound, int* out) {
+    const RefSlot& slot = refs[ref_frame_idx[ref - LAST_FRAME]];
+    const Plane& P = slot.buf->planes[p];
+    const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+    const int last_x = ((slot.upscaled_w + sx) >> sx) - 1;
+    const int last_y = ((slot.frame_h + sy) >> sy) - 1;
+    const int xs = x_scale[ref], ys = y_scale[ref];
+    const int64_t ox = (int64_t(x) << 4) + ((2 * mv[1]) >> sx) + 8;
+    const int64_t oy = (int64_t(y) << 4) + ((2 * mv[0]) >> sy) + 8;
+    const int start_x = int(round2signed_64(ox * xs - (int64_t(8) << 14), 8)) + 32;
+    const int start_y = int(round2signed_64(oy * ys - (int64_t(8) << 14), 8)) + 32;
+    const int step_x = round2(xs, 4), step_y = round2(ys, 4);
+    const int16_t(*fx)[8] = Subpel_Filters[filter_index(filt[1], w)];
+    const int16_t(*fy)[8] = Subpel_Filters[filter_index(filt[0], h)];
+    const int r0 = round0(), r1 = round1(compound);
+    const int ih = (((h - 1) * step_y + (1 << SCALE_SUBPEL_BITS) - 1) >>
+                    SCALE_SUBPEL_BITS) + 8;
+    static thread_local std::vector<int32_t> tmp;
+    tmp.resize(size_t(ih) * w);
+    for (int r = 0; r < ih; ++r) {
+      const uint16_t* row = &P.px[size_t(clip3(0, last_y, (start_y >> 10) + r - 3)) * P.stride];
+      for (int c = 0; c < w; ++c) {
+        const int pos = start_x + step_x * c;
+        const int16_t* f = fx[(pos >> 6) & 15];
+        const int base = (pos >> 10) - 3;
+        int sum = 0;
+        for (int t = 0; t < 8; ++t) sum += f[t] * row[clip3(0, last_x, base + t)];
+        tmp[size_t(r) * w + c] = round2(sum, r0);
+      }
+    }
+    const int maxv = (1 << bit_depth) - 1;
+    for (int r = 0; r < h; ++r) {
+      const int pos = (start_y & 1023) + step_y * r;
+      const int16_t* f = fy[(pos >> 6) & 15];
+      const int32_t* col = &tmp[size_t(pos >> 10) * w];
+      for (int c = 0; c < w; ++c) {
+        int sum = 0;
+        for (int t = 0; t < 8; ++t) sum += f[t] * col[size_t(t) * w + c];
+        const int v = round2(sum, r1);
+        out[r * w + c] = compound ? v : clip3(0, maxv, v);
+      }
+    }
+  }
+
+  // the warp filter over 8x8 blocks (av1_highbd_warp_affine_c)
+  void warp_pred(int p, int ref, const int* m, int x, int y, int w, int h,
+                 bool compound, int* out) {
+    const RefSlot& slot = refs[ref_frame_idx[ref - LAST_FRAME]];
+    const Plane& P = slot.buf->planes[p];
+    const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+    const int width = (slot.upscaled_w + sx) >> sx, height = (slot.frame_h + sy) >> sy;
+    int shear[4];
+    setup_shear(m, shear);
+    const int alpha = shear[0], beta = shear[1], gamma = shear[2], delta = shear[3];
+    const int r0 = round0(), r1 = round1(compound);
+    const int maxv = (1 << bit_depth) - 1;
+    for (int i = 0; i < h; i += 8)
+      for (int j = 0; j < w; j += 8) {
+        const int32_t src_x = (x + j + 4) << sx, src_y = (y + i + 4) << sy;
+        const int64_t dst_x = int64_t(m[2]) * src_x + int64_t(m[3]) * src_y + m[0];
+        const int64_t dst_y = int64_t(m[4]) * src_x + int64_t(m[5]) * src_y + m[1];
+        const int64_t x4 = dst_x >> sx, y4 = dst_y >> sy;
+        const int ix4 = int(x4 >> WARPEDMODEL_PREC_BITS);
+        int sx4 = int(x4 & ((1 << WARPEDMODEL_PREC_BITS) - 1));
+        const int iy4 = int(y4 >> WARPEDMODEL_PREC_BITS);
+        int sy4 = int(y4 & ((1 << WARPEDMODEL_PREC_BITS) - 1));
+        sx4 += alpha * -4 + beta * -4;
+        sy4 += gamma * -4 + delta * -4;
+        sx4 &= ~((1 << WARP_PARAM_REDUCE_BITS) - 1);
+        sy4 &= ~((1 << WARP_PARAM_REDUCE_BITS) - 1);
+        int tmp[15][8];
+        for (int k = -7; k < 8; ++k) {
+          const uint16_t* row = &P.px[size_t(clip3(0, height - 1, iy4 + k)) * P.stride];
+          int sxk = sx4 + beta * (k + 4);
+          for (int l = -4; l < 4; ++l, sxk += alpha) {
+            const int16_t* f = Warped_Filters[round2(sxk, 10) + 64];
+            int sum = 0;
+            for (int t = 0; t < 8; ++t)
+              sum += row[clip3(0, width - 1, ix4 + l - 3 + t)] * f[t];
+            tmp[k + 7][l + 4] = round2(sum, r0);
+          }
+        }
+        for (int k = -4; k < std::min(4, h - i - 4); ++k) {
+          int syk = sy4 + delta * (k + 4);
+          for (int l = -4; l < std::min(4, w - j - 4); ++l, syk += gamma) {
+            const int16_t* f = Warped_Filters[round2(syk, 10) + 64];
+            int sum = 0;
+            for (int t = 0; t < 8; ++t) sum += tmp[k + t + 4][l + 4] * f[t];
+            const int v = round2(sum, r1);
+            out[(i + k + 4) * w + (j + l + 4)] = compound ? v : clip3(0, maxv, v);
+          }
+        }
+      }
+  }
+
+  // the shear of each reference's global motion (valid where the warp
+  // filter takes it)
+  bool gm_valid[8] = {false};
+
+  // one reference's prediction of the block's plane
+  void ref_pred(int p, int l, int x, int y, int w, int h, bool compound,
+                int* out) {
+    const int ref = ref_frame[l];
+    if (w >= 8 && h >= 8 && !force_integer_mv && !scaled(ref)) {
+      if (motion_mode == LOCALWARP && local_valid) {
+        warp_pred(p, ref, local_warp, x, y, w, h, compound, out);
+        return;
+      }
+      if (is_global_block(y_mode, mi_size, ref) && gm_valid[ref])
+        refuse("global motion warp prediction");
+    }
+    block_pred(p, ref, mvb[l], x, y, w, h, interp, compound, out);
+  }
+
+  std::vector<int> p0, p1;      // the references' predictions
+
+  bool scaled(int ref) const {
+    return x_scale[ref] != 1 << REF_SCALE_SHIFT || y_scale[ref] != 1 << REF_SCALE_SHIFT;
+  }
+
+  void predict_inter() {
+    const bool compound = ref_frame[1] > INTRA_FRAME;
+    scaled_blocks += scaled(ref_frame[0]) || (compound && scaled(ref_frame[1]));
+    if (compound && (scaled(ref_frame[0]) || scaled(ref_frame[1])))
+      refuse("compound prediction from a scaled reference");
+    const int maxv = (1 << bit_depth) - 1;
+    for (int p = 0; p < 1 + 2 * has_chroma; ++p) {
+      const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      const int psz = p ? kSubSize[mi_size][ssx][ssy] : mi_size;
+      const int w = kWide4[psz] * 4, h = kHigh4[psz] * 4;
+      const int x0 = (mi_col >> sx) * 4, y0 = (mi_row >> sy) * 4;
+      Plane& D = cur[p];
+      p0.resize(size_t(w) * h);
+      // a 4-sample-wide or -high luma block's chroma: each covered
+      // block's own prediction where all are inter
+      const int r_start = p && kHigh4[mi_size] == 1 && sy ? -1 : 0;
+      const int c_start = p && kWide4[mi_size] == 1 && sx ? -1 : 0;
+      bool sub8 = r_start || c_start;
+      for (int r = r_start; r <= 0 && sub8; ++r)
+        for (int c = c_start; c <= 0; ++c)
+          sub8 &= is_inters[mi(mi_row + r, mi_col + c)] != 0;
+      if (sub8) {
+        const int b4w = (kWide4[mi_size] * 4) >> sx, b4h = (kHigh4[mi_size] * 4) >> sy;
+        int r = r_start;
+        for (int yy = 0; yy < h; yy += b4h, ++r) {
+          int c = c_start;
+          for (int xx = 0; xx < w; xx += b4w, ++c) {
+            const size_t k = mi(mi_row + r, mi_col + c);
+            const int v[2] = {mvs[4 * k], mvs[4 * k + 1]};
+            const int f[2] = {interps[2 * k], interps[2 * k + 1]};
+            block_pred(p, ref_frames[2 * k], v, x0 + xx, y0 + yy, b4w, b4h, f,
+                       false, p0.data());
+            for (int i = 0; i < b4h; ++i)
+              for (int j = 0; j < b4w; ++j)
+                if (y0 + yy + i < D.rows && x0 + xx + j < D.stride)
+                  *D.at(y0 + yy + i, x0 + xx + j) = uint16_t(p0[i * b4w + j]);
+          }
+        }
+        continue;
+      }
+      ref_pred(p, 0, x0, y0, w, h, compound, p0.data());
+      if (compound) {
+        p1.resize(size_t(w) * h);
+        ref_pred(p, 1, x0, y0, w, h, true, p1.data());
+        const int rb = 14 - round0() - 7;
+        if (compound_type == COMPOUND_AVERAGE) {
+          for (size_t i = 0; i < p0.size(); ++i)
+            p0[i] = clip3(0, maxv, round2(p0[i] + p1[i], 1 + rb));
+        } else if (compound_type == COMPOUND_DISTANCE) {
+          int fwd, bck;
+          distance_weights(&fwd, &bck);
+          for (size_t i = 0; i < p0.size(); ++i)
+            p0[i] = clip3(0, maxv, round2(int64_t(p0[i]) * fwd + int64_t(p1[i]) * bck, 4 + rb));
+        } else {
+          if (p == 0) build_compound_mask(w, h, rb);
+          for (int i = 0; i < h; ++i)
+            for (int j = 0; j < w; ++j) {
+              const int mm = mask_at(i, j, sx, sy);
+              const size_t k = size_t(i) * w + j;
+              p0[k] = clip3(0, maxv, round2(int64_t(p0[k]) * mm + int64_t(p1[k]) * (64 - mm), 6 + rb));
+            }
+        }
+      }
+      for (int i = 0; i < h && y0 + i < D.rows; ++i)
+        for (int j = 0; j < w && x0 + j < D.stride; ++j)
+          *D.at(y0 + i, x0 + j) = uint16_t(p0[i * w + j]);
+      if (interintra) blend_interintra(p, x0, y0, w, h, psz);
+    }
+    if (motion_mode == OBMC) obmc();
+  }
+
+  // av1_dist_wtd_comp_weight_assign
+  void distance_weights(int* fwd, int* bck) const {
+    const int d0 = clip3(0, MAX_FRAME_DISTANCE,
+                         std::abs(get_relative_dist(order_hints[ref_frame[1]], order_hint)));
+    const int d1 = clip3(0, MAX_FRAME_DISTANCE,
+                         std::abs(get_relative_dist(order_hint, order_hints[ref_frame[0]])));
+    const int order = d0 <= d1;
+    int i = 3;
+    if (d0 && d1)
+      for (i = 0; i < 3; ++i) {
+        const int c0 = kQuantDistWeight[i][order], c1 = kQuantDistWeight[i][!order];
+        if ((d0 > d1 && d0 * c0 < d1 * c1) || (d0 <= d1 && d0 * c0 > d1 * c1)) break;
+      }
+    *fwd = kQuantDistLookup[i][order];
+    *bck = kQuantDistLookup[i][1 - order];
+  }
+
+  // the block's blend mask at luma size (a wedge, or the difference
+  // weights of the two luma predictions), and its value at a sample of
+  // a subsampled plane (the mean of the luma ones it covers)
+  uint8_t blend_mask[128 * 128];
+  int blend_stride = 0;
+
+  void wedge_blend_mask(int sign) {
+    const int bw = kWide4[mi_size] * 4, bh = kHigh4[mi_size] * 4;
+    const uint8_t* m = wedges().mask(mi_size, sign, wedge_index);
+    blend_stride = bw;
+    for (int i = 0; i < bh; ++i) std::memcpy(blend_mask + i * bw, m + i * 64, bw);
+  }
+
+  void build_compound_mask(int w, int h, int rb) {
+    if (compound_type == COMPOUND_WEDGE) {
+      wedge_blend_mask(wedge_sign);
+      return;
+    }
+    // diffwtd_mask_d16: DIFFWTD_38, inverted by mask_type
+    blend_stride = w;
+    const int round = rb + bit_depth - 8;
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
+        const int d = round2(std::abs(p0[i * w + j] - p1[i * w + j]), round);
+        const int m = clip3(0, 64, 38 + d / 16);
+        blend_mask[i * w + j] = uint8_t(mask_type ? 64 - m : m);
+      }
+  }
+
+  int mask_at(int i, int j, int sx, int sy) const {
+    const uint8_t* m = blend_mask;
+    const int s = blend_stride;
+    if (sx && sy)
+      return round2(m[(2 * i) * s + 2 * j] + m[(2 * i) * s + 2 * j + 1] +
+                    m[(2 * i + 1) * s + 2 * j] + m[(2 * i + 1) * s + 2 * j + 1], 2);
+    if (sx) return round2(m[i * s + 2 * j] + m[i * s + 2 * j + 1], 1);
+    return m[i * s + j];
+  }
+
+  // the inter prediction blended with an intra one by the inter-intra
+  // mode's smooth weights (libaom's combine_interintra)
+  void blend_interintra(int p, int x0, int y0, int w, int h, int psz) {
+    if (wedge_interintra && p == 0) wedge_blend_mask(0);
+    Plane& D = cur[p];
+    static thread_local std::vector<int> inter;
+    inter.assign(size_t(w) * h, 0);
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j)
+        inter[i * w + j] = (y0 + i < D.rows && x0 + j < D.stride) ? D.get(y0 + i, x0 + j) : 0;
+    static const uint8_t kMode[4] = {DC_PRED, V_PRED, H_PRED, SMOOTH_PRED};
+    const int saved_ad[2] = {angle_delta_y, angle_delta_uv};
+    angle_delta_y = angle_delta_uv = 0;
+    const int fi = use_filter_intra;
+    use_filter_intra = 0;
+    predict_intra(p, x0, y0, p == 0 ? avail_l : avail_l_chroma,
+                  p == 0 ? avail_u : avail_u_chroma, false, false,
+                  kMode[interintra_mode], log2i(w), log2i(h));
+    angle_delta_y = saved_ad[0];
+    angle_delta_uv = saved_ad[1];
+    use_filter_intra = fi;
+    static const uint8_t kScale[22] = {32, 16, 16, 16, 8, 8, 8, 4, 4, 4, 2,
+                                       2,  2,  1,  1,  1, 8, 8, 4, 4, 2, 2};
+    const int scale = kScale[psz];
+    for (int i = 0; i < h && y0 + i < D.rows; ++i)
+      for (int j = 0; j < w && x0 + j < D.stride; ++j) {
+        int m = 32;
+        if (wedge_interintra) m = mask_at(i, j, p ? ssx : 0, p ? ssy : 0);
+        else if (interintra_mode == II_V_PRED) m = Ii_Weights_1d[i * scale];
+        else if (interintra_mode == II_H_PRED) m = Ii_Weights_1d[j * scale];
+        else if (interintra_mode == II_SMOOTH_PRED) m = Ii_Weights_1d[std::min(i, j) * scale];
+        uint16_t& px = *D.at(y0 + i, x0 + j);
+        px = uint16_t(round2(m * px + (64 - m) * inter[i * w + j], 6));
+      }
+  }
+
+  // OBMC (libaom's av1_build_obmc_inter_prediction): the above
+  // neighbours' predictions blended into the block's top rows, then the
+  // left ones' into its left columns
+  void obmc() {
+    static const int kMaxNeighbours[6] = {0, 1, 2, 3, 4, 4};
+    const int bw4 = kWide4[mi_size], bh4 = kHigh4[mi_size];
+    static thread_local std::vector<int> pred;
+    for (int dir = 0; dir < 2; ++dir) {
+      const int n4 = dir ? bh4 : bw4;
+      for_each_overlappable(dir, kMaxNeighbours[log2i(n4)], [&](int rel, int op, size_t k) {
+        const int v[2] = {mvs[4 * k], mvs[4 * k + 1]};
+        const int f[2] = {interps[2 * k], interps[2 * k + 1]};
+        const int nref = ref_frames[2 * k];
+        for (int p = 0; p < 1 + 2 * has_chroma; ++p) {
+          const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+          const int psz = p ? kSubSize[mi_size][ssx][ssy] : mi_size;
+          if (dir == 0 && (psz == BLOCK_4X4 || psz == BLOCK_8X4 || psz == BLOCK_4X8))
+            continue;
+          int x, y, w, h, bw, bh;       // the prediction and the blend
+          if (dir == 0) {
+            x = ((mi_col + rel) * 4) >> sx;
+            y = (mi_row * 4) >> sy;
+            w = bw = (op * 4) >> sx;
+            h = clip3(4, 64 >> (sy + 1), (bh4 * 4) >> (sy + 1));
+            bh = (std::min(bh4 * 4, 64) >> 1) >> sy;
+          } else {
+            x = (mi_col * 4) >> sx;
+            y = ((mi_row + rel) * 4) >> sy;
+            h = bh = (op * 4) >> sy;
+            w = clip3(4, 64 >> (sx + 1), (bw4 * 4) >> (sx + 1));
+            bw = (std::min(bw4 * 4, 64) >> 1) >> sx;
+          }
+          pred.resize(size_t(w) * h);
+          block_pred(p, nref, v, x, y, w, h, f, false, pred.data());
+          const uint8_t* mask = Obmc_Masks[log2i(dir ? bw : bh) - 1];
+          Plane& D = cur[p];
+          for (int i = 0; i < bh && y + i < D.rows; ++i)
+            for (int j = 0; j < bw && x + j < D.stride; ++j) {
+              const int m = mask[dir ? j : i];
+              uint16_t& px = *D.at(y + i, x + j);
+              px = uint16_t(round2(m * px + (64 - m) * pred[i * w + j], 6));
+            }
+        }
+      });
+    }
   }
 
   void assign_dv() {
     find_mv_stack();
     int pred[2] = {0, 0};
     for (int i = 0; i < std::min(stack_n, 2); ++i)
-      if (stack[i].row || stack[i].col) {
-        pred[0] = stack[i].row;
-        pred[1] = stack[i].col;
+      if (stack[i].mv[0][0] || stack[i].mv[0][1]) {
+        pred[0] = stack[i].mv[0][0];
+        pred[1] = stack[i].mv[0][1];
         break;
       }
     if (!pred[0] && !pred[1]) {      // av1_find_ref_dv
@@ -2261,16 +4367,14 @@ struct Decoder {
         pred[0] = -(sb4 * 4 * 8);
       }
     }
-    const int joint = sym.read(cdf.mv_joint, 4);
-    mv[0] = pred[0] + (joint == 2 || joint == 3 ? read_mv_component(0) : 0);
-    mv[1] = pred[1] + (joint == 1 || joint == 3 ? read_mv_component(1) : 0);
+    read_mv(1, pred, mvb[0]);
     if (!dv_valid())
       fail("the AV1 stream has an invalid intra block copy vector "
            "(cv2 refuses it)");
   }
 
   bool dv_valid() const {
-    const int row = mv[0], col = mv[1];
+    const int row = mvb[0][0], col = mvb[0][1];
     if ((row & 7) || (col & 7)) return false;
     const int lim = 1 << 14;
     if (row <= -lim || row >= lim || col <= -lim || col >= lim) return false;
@@ -2320,8 +4424,8 @@ struct Decoder {
       const int x0 = (mi_col >> sx) * 4, y0 = (mi_row >> sy) * 4;
       const int last_x = ((mi_cols * 4 + sx) >> sx) - 1;
       const int last_y = ((mi_rows * 4 + sy) >> sy) - 1;
-      const int px = (x0 << 4) + ((2 * mv[1]) >> sx);    // 1/16 samples
-      const int py = (y0 << 4) + ((2 * mv[0]) >> sy);
+      const int px = (x0 << 4) + ((2 * mvb[0][1]) >> sx);    // 1/16 samples
+      const int py = (y0 << 4) + ((2 * mvb[0][0]) >> sy);
       const int fx = px & 15, fy = py & 15;
       const Plane& P = cur[p];
       for (int r = 0; r < h + 7; ++r) {
@@ -2499,7 +4603,7 @@ struct Decoder {
     if (row == mi_row) {
       if (!avail_u) return 64;
       const size_t k = mi(row - 1, col);
-      if (skips[k] && inter_at(k)) return kWide4[mi_sizes[k]] * 4;
+      if (skips[k] && is_inters[k]) return kWide4[mi_sizes[k]] * 4;
     }
     return kTxW[tx_sizes[mi(row - 1, col)]];
   }
@@ -2508,7 +4612,7 @@ struct Decoder {
     if (col == mi_col) {
       if (!avail_l) return 64;
       const size_t k = mi(row, col - 1);
-      if (skips[k] && inter_at(k)) return kHigh4[mi_sizes[k]] * 4;
+      if (skips[k] && is_inters[k]) return kHigh4[mi_sizes[k]] * 4;
     }
     return kTxH[tx_sizes[mi(row, col - 1)]];
   }
@@ -2529,12 +4633,12 @@ struct Decoder {
       int above = 0, left = 0;
       if (avail_u) {
         const size_t k = mi(mi_row - 1, mi_col);
-        above = (inter_at(k) ? kWide4[mi_sizes[k]] * 4
+        above = (is_inters[k] ? kWide4[mi_sizes[k]] * 4
                              : kTxW[tx_sizes[k]]) >= mw;
       }
       if (avail_l) {
         const size_t k = mi(mi_row, mi_col - 1);
-        left = (inter_at(k) ? kHigh4[mi_sizes[k]] * 4
+        left = (is_inters[k] ? kHigh4[mi_sizes[k]] * 4
                             : kTxH[tx_sizes[k]]) >= mh;
       }
       const int ctx = above + left;
@@ -3382,8 +5486,11 @@ struct Decoder {
     int l = clip3(0, MAX_LOOP_FILTER, dlf + lf_level[i]);
     if (seg_active(seg, SEG_LVL_ALT_LF_Y_V + i))
       l = clip3(0, MAX_LOOP_FILTER, l + feature_data[seg][SEG_LVL_ALT_LF_Y_V + i]);
-    if (lf_delta_enabled) {
-      l += lf_ref_deltas[0] * (1 << (l >> 5));
+    if (lf_delta_enabled) {       // the reference's and the mode's deltas
+      const int scale = 1 << (l >> 5);
+      const int ref = std::max<int>(INTRA_FRAME, ref_frames[2 * mi(r, c)]);
+      l += lf_ref_deltas[ref] * scale;
+      if (ref > INTRA_FRAME) l += lf_mode_deltas[mode_lf(y_modes[mi(r, c)])] * scale;
       l = clip3(0, MAX_LOOP_FILTER, l);
     }
     const int shift = lf_sharpness > 4 ? 2 : lf_sharpness > 0 ? 1 : 0;
@@ -3408,10 +5515,18 @@ struct Decoder {
     const int txs = lf_tx[p][size_t(row >> sy) * lf_stride[p] + (col >> sx)];
     const int prev_txs =
         lf_tx[p][size_t(prev_row >> sy) * lf_stride[p] + (prev_col >> sx)];
-    // an intra frame filters every transform edge (block edges are ones)
+    // transform edges; between two skipped inter blocks only the blocks'
+    // own edges
     const bool tx_edge =
         pass == 0 ? xp % kTxW[txs] == 0 : yp % kTxH[txs] == 0;
     if (!tx_edge) return;
+    const size_t k = mi(row, col), kp = mi(prev_row, prev_col);
+    if (skips[k] && is_inters[k] && skips[kp] && is_inters[kp]) {
+      const int psz = p ? kSubSize[mi_sizes[k]][sx][sy] : mi_sizes[k];
+      const bool block_edge = pass == 0 ? xp % (kWide4[psz] * 4) == 0
+                                        : yp % (kHigh4[psz] * 4) == 0;
+      if (!block_edge) return;
+    }
     const int base = pass == 0 ? std::min(kTxW[prev_txs], kTxW[txs])
                                : std::min(kTxH[prev_txs], kTxH[txs]);
     const int fsize = p == 0 ? std::min(16, base) : std::min(8, base);
@@ -3650,7 +5765,6 @@ struct Decoder {
         if (lr) deb[p] = upscale(deb[p], p);
       }
     if (lr) restore(deb);
-    if (grain.apply) add_grain();
   }
 
   // -------------------------------------------------------------------------
@@ -4074,6 +6188,194 @@ struct Decoder {
   // empty, no tile list; padding, metadata and reserved OBUs skipped but
   // for a last byte of 0 (libaom's trailing-bits test); a redundant frame
   // header ignored.
+  // -------------------------------------------------------------------------
+  // frames
+
+  // what a frame needs before its tiles: the shears of global motion,
+  // the segment ids of the primary reference frame, the projected
+  // motion field
+  void setup_frame() {
+    for (int ref = LAST_FRAME; ref <= ALTREF_FRAME; ++ref) {
+      int shear[4];
+      gm_valid[ref] = setup_shear(gm_params[ref], shear);
+    }
+    prev_seg_ids.clear();
+    if (primary_ref_frame != PRIMARY_REF_NONE && seg_enabled) {
+      const RefSlot& prev = refs[ref_frame_idx[primary_ref_frame]];
+      if (prev.seg_ids && prev.mi_cols == mi_cols && prev.mi_rows == mi_rows)
+        prev_seg_ids = *prev.seg_ids;
+    }
+    if (use_ref_frame_mvs) motion_field_estimation();
+  }
+
+  // libaom's av1_setup_motion_field: vectors of the references' motion
+  // fields projected onto this frame's 8x8 blocks
+  void motion_field_estimation() {
+    const size_t cells = size_t(mi_stride >> 1) * ((mi_rows >> 1) + 1);
+    mf_mv.assign(2 * cells, -32768);
+    mf_offset.assign(cells, 0);
+    int stamp = MFMV_STACK_SIZE - 1;
+    const RefSlot& last = refs[ref_frame_idx[0]];
+    if (last.saved_order_hints[ALTREF_FRAME] != order_hints[GOLDEN_FRAME])
+      project_field(LAST_FRAME, 2);
+    --stamp;
+    if (get_relative_dist(order_hints[BWDREF_FRAME], order_hint) > 0 &&
+        project_field(BWDREF_FRAME, 0))
+      --stamp;
+    if (get_relative_dist(order_hints[ALTREF2_FRAME], order_hint) > 0 &&
+        project_field(ALTREF2_FRAME, 0))
+      --stamp;
+    if (get_relative_dist(order_hints[ALTREF_FRAME], order_hint) > 0 &&
+        stamp >= 0 && project_field(ALTREF_FRAME, 0))
+      --stamp;
+    if (stamp >= 0) project_field(LAST2_FRAME, 2);
+  }
+
+  bool project_field(int src, int dir) {
+    const RefSlot& slot = refs[ref_frame_idx[src - LAST_FRAME]];
+    if (slot.frame_type == KEY_FRAME || slot.frame_type == INTRA_ONLY_FRAME)
+      return false;
+    if (slot.mi_rows != mi_rows || slot.mi_cols != mi_cols || !slot.mf_refs)
+      return false;
+    int ref_offset[8] = {0};
+    for (int rf = LAST_FRAME; rf <= ALTREF_FRAME; ++rf)
+      ref_offset[rf] = get_relative_dist(slot.order_hint, slot.saved_order_hints[rf]);
+    int s2c = get_relative_dist(slot.order_hint, order_hint);
+    if (dir == 2) s2c = -s2c;
+    const int rows8 = (mi_rows + 1) >> 1, cols8 = (mi_cols + 1) >> 1;
+    const int stride8 = mi_stride >> 1;
+    for (int r = 0; r < rows8; ++r)
+      for (int c = 0; c < cols8; ++c) {
+        const size_t cell = size_t(r) * cols8 + c;
+        const int ref = (*slot.mf_refs)[cell];
+        if (ref <= INTRA_FRAME) continue;
+        const int off = ref_offset[ref];
+        if (std::abs(off) > MAX_FRAME_DISTANCE || off <= 0 ||
+            std::abs(s2c) > MAX_FRAME_DISTANCE)
+          continue;
+        const int fwd[2] = {(*slot.mf_mvs)[2 * cell], (*slot.mf_mvs)[2 * cell + 1]};
+        int v[2];
+        project(fwd, s2c, off, v);
+        // get_block_position
+        const int ro = v[0] >= 0 ? v[0] >> 6 : -((-v[0]) >> 6);
+        const int co = v[1] >= 0 ? v[1] >> 6 : -((-v[1]) >> 6);
+        const int rr = dir == 2 ? r - ro : r + ro;
+        const int cc = dir == 2 ? c - co : c + co;
+        if (rr < 0 || rr >= (mi_rows >> 1) || cc < 0 || cc >= (mi_cols >> 1))
+          continue;
+        const int br = (r >> 3) << 3, bc = (c >> 3) << 3;
+        if (rr < br || rr >= br + 8 || cc < bc - 8 || cc >= bc + 16) continue;
+        const size_t at = size_t(rr) * stride8 + cc;
+        mf_mv[2 * at] = static_cast<int16_t>(fwd[0]);
+        mf_mv[2 * at + 1] = static_cast<int16_t>(fwd[1]);
+        mf_offset[at] = static_cast<int8_t>(off);
+      }
+    return true;
+  }
+
+  // the end of a frame (spec 7.20, 7.21): the filters, the frame CDFs,
+  // the motion field and the segment ids saved, the reference slots
+  // refreshed, a shown frame kept for output; a frame shown from a slot
+  // (a key frame refreshing every slot from it)
+  void finish_frame(bool headers_only) {
+    ++frames;
+    if (show_existing_frame) {
+      const RefSlot slot = refs[existing_slot];
+      show(slot.buf, slot.grain, slot.upscaled_w, slot.frame_h, slot.spatial_id);
+      ++shown_existing;
+      if (frame_type == KEY_FRAME)
+        for (RefSlot& r : refs) r = slot;
+      return;
+    }
+    RefSlot slot;
+    slot.valid = true;
+    slot.frame_id = current_frame_id;
+    slot.frame_type = frame_type;
+    slot.order_hint = order_hint;
+    slot.showable = showable_frame;
+    slot.spatial_id = frame_spatial_id;
+    slot.upscaled_w = upscaled_w;
+    slot.frame_w = frame_w;
+    slot.frame_h = frame_h;
+    slot.render_w = render_w;
+    slot.render_h = render_h;
+    slot.mi_cols = mi_cols;
+    slot.mi_rows = mi_rows;
+    slot.bit_depth = bit_depth;
+    slot.ssx = ssx;
+    slot.ssy = ssy;
+    std::memcpy(slot.saved_order_hints, order_hints, sizeof(order_hints));
+    std::memcpy(slot.lf_ref_deltas, lf_ref_deltas, sizeof(lf_ref_deltas));
+    std::memcpy(slot.lf_mode_deltas, lf_mode_deltas, sizeof(lf_mode_deltas));
+    std::memcpy(slot.feature_enabled, feature_enabled, sizeof(feature_enabled));
+    std::memcpy(slot.feature_data, feature_data, sizeof(feature_data));
+    std::memcpy(slot.gm_params, gm_params, sizeof(gm_params));
+    slot.grain = grain;
+    if (!headers_only) {
+      post_filters();
+      slot.buf = std::make_shared<FrameBuf>();
+      for (int p = 0; p < num_planes; ++p)
+        slot.buf->planes[p] = std::move(cur[p]);
+      if (!disable_frame_end_update_cdf) frame_cdf = saved_cdf;
+      frame_cdf.clear_counts();
+      slot.cdf = std::make_shared<Cdfs>(frame_cdf);
+      slot.seg_ids = std::make_shared<std::vector<uint8_t>>(seg_ids);
+      // the motion field (libaom's av1_copy_frame_mvs): per 8x8 the
+      // vector of a past reference of its odd mi
+      const int rows8 = (mi_rows + 1) >> 1, cols8 = (mi_cols + 1) >> 1;
+      auto refs8 = std::make_shared<std::vector<int8_t>>(size_t(rows8) * cols8, NONE_FRAME);
+      auto mvs8 = std::make_shared<std::vector<int16_t>>(size_t(rows8) * cols8 * 2, 0);
+      if (!frame_is_intra)
+        for (int r = 0; r < rows8; ++r)
+          for (int c = 0; c < cols8; ++c) {
+            const size_t k = mi(std::min(2 * r + 1, mi_rows - 1),
+                                std::min(2 * c + 1, mi_cols - 1));
+            const size_t cell = size_t(r) * cols8 + c;
+            for (int l = 0; l < 2; ++l) {
+              const int rf = ref_frames[2 * k + l];
+              if (rf <= INTRA_FRAME) continue;
+              if (get_relative_dist(order_hints[rf], order_hint) >= 0) continue;
+              const int mr = mvs[4 * k + 2 * l], mc = mvs[4 * k + 2 * l + 1];
+              if (std::abs(mr) > REFMVS_LIMIT || std::abs(mc) > REFMVS_LIMIT) continue;
+              (*refs8)[cell] = static_cast<int8_t>(rf);
+              (*mvs8)[2 * cell] = static_cast<int16_t>(mr);
+              (*mvs8)[2 * cell + 1] = static_cast<int16_t>(mc);
+            }
+          }
+      slot.mf_refs = refs8;
+      slot.mf_mvs = mvs8;
+    }
+    for (int i = 0; i < NUM_REF_FRAMES; ++i)
+      if ((refresh_frame_flags >> i) & 1) refs[i] = slot;
+    if (show_frame) show(slot.buf, grain, upscaled_w, frame_h, frame_spatial_id);
+    inter_frames += !frame_is_intra;
+  }
+
+  // a shown frame: the output if it is the last (libaom with
+  // output_all_layers off), or the first of the selected layer (libavif
+  // picks it among all the layers' frames)
+  void show(const std::shared_ptr<FrameBuf>& buf, const FilmGrain& g, int w,
+            int h, int spatial_id) {
+    if (select_layer >= 0 && (layer_found || spatial_id != select_layer))
+      return;
+    layer_found = true;
+    shown = buf;
+    shown_grain = g;
+    shown_w = w;
+    shown_h = h;
+  }
+
+  // The OBUs of the item, as libaom takes them (libavif hands it the
+  // item's data; the av1C's config OBUs are not read): every OBU with its
+  // size field, zero bytes right after a frame's last OBU skipped (as
+  // libaom skips them after each frame it decodes); OBUs with an
+  // extension outside the operating point dropped; a temporal delimiter
+  // empty, no tile list; padding, metadata and reserved OBUs skipped but
+  // for a last byte of 0 (libaom's trailing-bits test); a redundant frame
+  // header ignored.  Every frame is decoded, its references kept; the
+  // last one shown is the output, as libaom hands libavif (which does
+  // not ask for every layer).  headers_only parses the frame headers
+  // alone, the tiles skipped.
   void run(const uint8_t* d, size_t n, bool headers_only) {
     size_t at = 0;
     bool after_frame = false;
@@ -4083,7 +6385,7 @@ struct Decoder {
         continue;
       }
       after_frame = false;
-      const bool was_done = frame_done;
+      const int frames_before = frames;
       const uint8_t h = d[at++];
       if (h & 0x80)
         fail("the AV1 stream has an OBU with its forbidden bit set");
@@ -4101,6 +6403,10 @@ struct Decoder {
       if (size > n - at) fail("the AV1 stream ends inside an OBU");
       const uint8_t* body = d + at;
       at += size;
+      if (type != 1 && type != 2 && ext && op_idc_cur &&
+          !(((op_idc_cur >> temporal_id) & 1) &&
+            ((op_idc_cur >> (spatial_id + 8)) & 1)))
+        continue;       // not in the operating point
       BitReader r(body, size);
       switch (type) {
         case 1:
@@ -4111,17 +6417,38 @@ struct Decoder {
                          "payload (cv2 refuses it)");
           break;
         case 3: case 6:
-          if (frame_done) break;
+          if (have_frame && !frame_done)
+            fail("the AV1 stream has a frame header inside a frame (cv2 "
+                 "refuses it)");
+          have_frame = frame_done = false;
+          next_tile = 0;
           frame_header(r, temporal_id, spatial_id);
+          have_frame = true;
+          if (show_existing_frame) {
+            if (type == 6)
+              fail("the AV1 stream's frame OBU shows an existing frame (cv2 "
+                   "refuses it)");
+            r.trailing_bits();
+            frame_done = true;
+            finish_frame(headers_only);
+            break;
+          }
           if (type == 3) r.trailing_bits();
           else r.zero_align();
-          if (headers_only) return;
+          if (headers_only) {
+            frame_done = true;
+            finish_frame(true);
+            break;
+          }
           allocate();
+          setup_frame();
           if (type == 6) tile_group(r, body, size, true);
+          if (frame_done) finish_frame(false);
           break;
         case 4:
-          if (headers_only) return;
+          if (headers_only) break;
           tile_group(r, body, size, false);
+          if (frame_done) finish_frame(false);
           break;
         case 7:
           break;
@@ -4132,12 +6459,24 @@ struct Decoder {
             fail("the AV1 stream has an OBU whose trailing bits are "
                  "missing (cv2 refuses it)");
       }
-      after_frame = frame_done && !was_done;
+      after_frame = frames != frames_before;
     }
     if (!have_seq) fail("the AV1 stream has no sequence header");
     if (!have_frame) fail("the AV1 stream has no frame");
-    if (!headers_only && !frame_done)
-      fail("the AV1 stream ends before its last tile");
+    if (!frame_done) fail("the AV1 stream ends before its last tile");
+    if (select_layer >= 0 && !layer_found)
+      fail("the AV1 stream shows no frame of the layer its lsel selects "
+           "(cv2 refuses it)");
+    if (!shown_w) fail("the AV1 stream shows no frame (cv2 refuses it)");
+  }
+
+  // the shown frame, its film grain added, in cur
+  void output() {
+    upscaled_w = shown_w;
+    frame_h = shown_h;
+    for (int p = 0; p < num_planes; ++p) cur[p] = shown->planes[p];
+    grain = shown_grain;
+    if (grain.apply) add_grain();
   }
 
 };
@@ -4146,13 +6485,15 @@ struct Decoder {
 
 extern "C" {
 
-int av1_probe(const uint8_t* data, int64_t len, int32_t* info, char* msg,
-              int msg_len) {
+int av1_probe(const uint8_t* data, int64_t len, int operating_point,
+              int layer, int32_t* info, char* msg, int msg_len) {
   try {
     Decoder dec;
+    dec.operating_point = operating_point;
+    dec.select_layer = layer;
     dec.run(data, static_cast<size_t>(len), true);
-    info[0] = dec.upscaled_w;
-    info[1] = dec.frame_h;
+    info[0] = dec.shown_w;
+    info[1] = dec.shown_h;
     info[2] = dec.ssx;
     info[3] = dec.ssy;
     info[4] = dec.mono;
@@ -4163,12 +6504,14 @@ int av1_probe(const uint8_t* data, int64_t len, int32_t* info, char* msg,
     info[9] = dec.transfer;
     for (int p = 0; p < 3; ++p) info[10 + p] = dec.lr_frame_type[p];
     info[13] = dec.superres_denom;
-    info[14] = dec.grain.apply;
+    info[14] = dec.shown_grain.apply;
     info[15] = dec.use_128 ? 128 : 64;
     info[16] = dec.tile_cols;
     info[17] = dec.frame_w;
     info[18] = dec.allow_screen_content_tools;
     info[19] = dec.allow_intrabc;
+    info[20] = dec.op_cnt;
+    info[21] = dec.frames;
     return 0;
   } catch (const Fail& f) {
     set_msg(msg, msg_len, f.msg);
@@ -4178,12 +6521,15 @@ int av1_probe(const uint8_t* data, int64_t len, int32_t* info, char* msg,
   return 1;
 }
 
-int av1_decode(const uint8_t* data, int64_t len, uint16_t* y, uint16_t* u,
-               uint16_t* v, int32_t* counts, char* msg, int msg_len) {
+int av1_decode(const uint8_t* data, int64_t len, int operating_point,
+               int layer, uint16_t* y, uint16_t* u, uint16_t* v,
+               int32_t* counts, char* msg, int msg_len) {
   try {
     Decoder dec;
+    dec.operating_point = operating_point;
+    dec.select_layer = layer;
     dec.run(data, static_cast<size_t>(len), false);
-    dec.post_filters();
+    dec.output();
     uint16_t* out[3] = {y, u, v};
     for (int p = 0; p < dec.num_planes; ++p) {
       const int sx = p ? dec.ssx : 0, sy = p ? dec.ssy : 0;
@@ -4192,11 +6538,16 @@ int av1_decode(const uint8_t* data, int64_t len, uint16_t* y, uint16_t* u,
         std::memcpy(out[p] + size_t(i) * w, dec.cur[p].at(i, 0), w * sizeof(uint16_t));
     }
     if (counts) {
-      counts[0] = dec.palette_y_blocks;
-      counts[1] = dec.palette_uv_blocks;
-      counts[2] = dec.palette_sizes & ~1;
-      counts[3] = dec.intrabc_blocks;
-      counts[4] = dec.intrabc_default_dv;
+      const int c[AV1_COUNTS] = {
+          dec.palette_y_blocks, dec.palette_uv_blocks, dec.palette_sizes & ~1,
+          dec.intrabc_blocks, dec.intrabc_default_dv, dec.frames,
+          dec.inter_frames, dec.shown_existing, dec.inter_blocks,
+          dec.compound_blocks, dec.obmc_blocks, dec.warp_blocks,
+          dec.interintra_blocks, dec.scaled_blocks,
+          dec.temporal_mvs, dec.dual_filter_blocks,
+          dec.wedge_blocks, dec.diffwtd_blocks, dec.distance_blocks,
+          dec.wedge_interintra_blocks};
+      std::memcpy(counts, c, sizeof(c));
     }
     return 0;
   } catch (const Fail& f) {

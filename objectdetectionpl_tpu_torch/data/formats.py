@@ -1738,6 +1738,92 @@ def _avif_props(data: bytes, meta: dict, item: int) -> dict:
     return out
 
 
+def _avif_layer_props(data: bytes, meta: dict) -> None:
+    """libavif's checks of the layer properties as it parses the meta box
+    (cv2 then reads no image): each a1op an operating point 0..31, each
+    lsel a layer 0..3 or 0xFFFF, each a1lx's reserved bits zero and its
+    three sizes present; every a1op and lsel association essential."""
+    for kind, at, stop in meta["props"]:
+        body = data[at:stop]
+        if kind == b"a1op":
+            if len(body) < 1:
+                raise FormatError("a truncated a1op (cv2 refuses it)")
+            if body[0] > 31:
+                raise FormatError(f"a1op names operating point {body[0]} "
+                                  f"(cv2 refuses it)")
+        elif kind == b"lsel":
+            if len(body) < 2:
+                raise FormatError("a truncated lsel (cv2 refuses it)")
+            layer = int.from_bytes(body[:2], "big")
+            if layer > 3 and layer != 0xFFFF:
+                raise FormatError(f"lsel names layer {layer} (cv2 refuses "
+                                  f"it)")
+        elif kind == b"a1lx":
+            if len(body) < 1 or body[0] >> 1:
+                raise FormatError("an a1lx with reserved bits set (cv2 "
+                                  "refuses it)")
+            if len(body) < 1 + 3 * (4 if body[0] & 1 else 2):
+                raise FormatError("a truncated a1lx (cv2 refuses it)")
+    for item, assoc in meta["ipma"].items():
+        for index, essential in assoc:
+            if 0 < index <= len(meta["props"]) and not essential and \
+                    meta["props"][index - 1][0] in (b"a1op", b"lsel"):
+                kind = meta["props"][index - 1][0].decode()
+                raise FormatError(f"item {item}'s {kind} is not essential "
+                                  f"(cv2 refuses it)")
+
+
+def _avif_layers(data: bytes, props: dict, size: int):
+    """What libavif asks of libaom for an item of ``size`` bytes: a1op's
+    operating point (0 without), lsel's layer (-1 without, or for
+    0xFFFF) and the bytes it hands over (a1lx's layers up to lsel's,
+    else the whole item); FormatError where libavif refuses them: an
+    a1lx layer size not below what is left of the item, an lsel layer
+    past a1lx's layers."""
+    op = layer = -1
+    if b"a1op" in props:
+        op = data[props[b"a1op"][0]]
+    if b"lsel" in props:
+        at = props[b"lsel"][0]
+        layer = int.from_bytes(data[at:at + 2], "big")
+        if layer == 0xFFFF:
+            layer = -1
+    sizes = []
+    if b"a1lx" in props:
+        at = props[b"a1lx"][0]
+        n = 4 if data[at] & 1 else 2
+        remaining = size
+        for i in range(3):
+            v = int.from_bytes(data[at + 1 + n * i:at + 1 + n * (i + 1)],
+                               "big")
+            if not v:
+                sizes.append(remaining)
+                remaining = 0
+                break
+            if v >= remaining:
+                raise FormatError(f"a1lx's layer {i} does not fit in the "
+                                  f"item (cv2 refuses it)")
+            sizes.append(v)
+            remaining -= v
+        if remaining:
+            sizes.append(remaining)
+    take = size
+    if layer >= 0 and sizes:
+        if layer >= len(sizes):
+            raise FormatError(f"lsel selects layer {layer}, past a1lx's "
+                              f"{len(sizes)} (cv2 refuses it)")
+        take = sum(sizes[:layer + 1])
+    return max(op, 0), layer, take
+
+
+def _avif_decode_item(data: bytes, meta: dict, item: int, props: dict, av1):
+    """An av01 item's planes: its data, with the layer properties as
+    libavif hands them to libaom (:func:`_avif_layers`)."""
+    stream = _avif_item_data(data, meta, item)
+    op, layer, take = _avif_layers(data, props, len(stream))
+    return av1(stream[:take], op, layer)
+
+
 def _avif_item_data(data: bytes, meta: dict, item: int) -> bytes:
     if item not in meta["iloc"]:
         raise FormatError(f"item {item} has no location")
@@ -1815,7 +1901,7 @@ def _avif_grid(data: bytes, meta: dict, item: int, tiles: list, av1):
         ispe = _Reader(data, *props[b"ispe"], "ispe")
         ispe.full()
         size = ispe.uint(4), ispe.uint(4)
-        decoded.append(av1(_avif_item_data(data, meta, t)))
+        decoded.append(_avif_decode_item(data, meta, t, props, av1))
         if decoded[-1][0][0].shape[::-1] != size:
             # libavif scales the frame to the tile's ispe: a deliberate
             # difference, as for a single item
@@ -2145,16 +2231,20 @@ def _avif_sequence(data: bytes, tracks: list, av1) -> np.ndarray:
 def read_avif(data: bytes, av1) -> np.ndarray:
     """AVIF bytes -> uint8 [H, W, 3] RGB, as cv2.imread reads them through
     libavif: the primary av01 item's AV1 stream (or an image sequence's
-    first frame) decoded by the host library (``av1(stream) -> (planes,
-    info)``: the Y, U, V planes as uint16 at the stream's bit depth, 8,
+    first frame) decoded by the host library (``av1(stream,
+    operating_point, layer) -> (planes, info)``: the Y, U, V planes of the
+    frame libaom hands libavif, as uint16 at the stream's bit depth, 8,
     10 or 12, their subsampling and the sequence header's depth and
     colour fields), then libavif's conversion to 8-bit RGB by the colr
     box's nclx values (else the sequence header's).  iloc versions 0-2
     with every field size, items in the file or in idat, several
     extents; infe versions 2 and 3; ipma's 7- and 15-bit indices.
-    Ignored as cv2 ignores them: irot, imir, clap, an ICC colr, EXIF,
-    the hidden flag, a1op / lsel / a1lx (a stream of several layers the
-    decoder refuses).  An alpha item (auxl, auxC alpha) is decoded as
+    Layered items as libavif reads them (:func:`_avif_layers`): a1op's
+    operating point, lsel's layer (its first shown frame of all the
+    layers), a1lx's layer sizes cutting the item under an lsel; a1op
+    and lsel must be essential, and are refused as libavif refuses them
+    (:func:`_avif_layer_props`).  Ignored as cv2 ignores them: irot,
+    imir, clap, an ICC colr, EXIF, the hidden flag.  An alpha item (auxl, auxC alpha) is decoded as
     libavif decodes it: cv2's BGRA conversion picks libavif's route, and
     a prem reference from the colour item to it has the colours
     un-premultiplied (:func:`_avif_rgb`).  Refused as cv2 refuses them:
@@ -2189,6 +2279,8 @@ def read_avif(data: bytes, av1) -> np.ndarray:
             if tracks is not None:
                 raise FormatError("a second moov box")
             tracks = _avif_tracks(data, at, stop)
+    if meta is not None:
+        _avif_layer_props(data, meta)
     # libavif needs a meta box under an avif brand, a moov under avis
     if b"avis" in brands and tracks is None:
         raise FormatError("an avis brand without a moov box (cv2 refuses "
@@ -2235,7 +2327,7 @@ def read_avif(data: bytes, av1) -> np.ndarray:
     # libavif hands libaom the item's data alone: a sequence header among
     # av1C's config OBUs only does not make a file cv2 reads
     if tiles is None:
-        planes, info = av1(_avif_item_data(data, meta, item))
+        planes, info = _avif_decode_item(data, meta, item, props, av1)
     else:
         planes, info = _avif_grid(data, meta, item, tiles, av1)
     if planes[0].shape[::-1] != size:       # cv2 refuses it for a grid
@@ -2254,7 +2346,9 @@ def read_avif(data: bytes, av1) -> np.ndarray:
     if alpha_item is not None:
         a_kind = meta["infe"].get(alpha_item)
         if a_kind == b"av01":
-            alpha = av1(_avif_item_data(data, meta, alpha_item))
+            alpha = _avif_decode_item(data, meta, alpha_item,
+                                      _avif_props(data, meta, alpha_item),
+                                      av1)
         elif a_kind == b"grid":
             alpha = _avif_grid(data, meta, alpha_item, _avif_grid_tiles(
                 data, meta, alpha_item), av1)

@@ -219,11 +219,12 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.gif_lzw.argtypes = [u8p, ctypes.c_int64, ctypes.c_int, u8p,
                             ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
     lib.gif_lzw.restype = ctypes.c_int64
-    lib.av1_probe.argtypes = [u8p, ctypes.c_int64, i32p, ctypes.c_char_p, ci]
+    lib.av1_probe.argtypes = [u8p, ctypes.c_int64, ci, ci, i32p,
+                              ctypes.c_char_p, ci]
     lib.av1_probe.restype = ci
     u16p = ctypes.POINTER(ctypes.c_uint16)
-    lib.av1_decode.argtypes = [u8p, ctypes.c_int64, u16p, u16p, u16p, i32p,
-                               ctypes.c_char_p, ci]
+    lib.av1_decode.argtypes = [u8p, ctypes.c_int64, ci, ci, u16p, u16p,
+                               u16p, i32p, ctypes.c_char_p, ci]
     lib.av1_decode.restype = ci
     _lib = lib
     return _lib
@@ -593,35 +594,59 @@ AV1_INFO = ("width", "height", "subsampling_x", "subsampling_y",
             "monochrome", "bit_depth", "full_range", "matrix", "primaries",
             "transfer", "restoration_y", "restoration_u", "restoration_v",
             "superres_denom", "apply_grain", "superblock", "tile_cols",
-            "coded_width", "screen_content_tools", "intrabc")
+            "coded_width", "screen_content_tools", "intrabc",
+            "operating_points", "frames")
+# what the stream used, as ``av1_decode`` counts it
+AV1_COUNTS = ("palette_y_blocks", "palette_uv_blocks", "palette_sizes",
+              "intrabc_blocks", "intrabc_default_dv", "frames",
+              "inter_frames", "shown_existing", "inter_blocks",
+              "compound_blocks", "obmc_blocks", "warp_blocks",
+              "interintra_blocks", "scaled_blocks",
+              "temporal_mvs", "dual_filter_blocks",
+              "wedge_compound_blocks", "diffwtd_compound_blocks",
+              "distance_blocks", "wedge_interintra_blocks")
 
 
-def av1_probe(stream: bytes) -> dict:
-    """The headers of an AV1 still's OBUs, by ``csrc/av1_decode.cc``'s
-    ``av1_probe``: ``AV1_INFO`` -> value (the width is the upscaled one;
-    restoration types 0 none, 1 Wiener, 2 self-guided, 3 switchable;
-    superres_denom 8 without superres); FormatError with the tool it
-    refuses."""
+def av1_probe(stream: bytes, operating_point: int = 0,
+              layer: int = -1) -> dict:
+    """The headers of an AV1 item's OBUs, by ``csrc/av1_decode.cc``'s
+    ``av1_probe``: ``AV1_INFO`` -> value.  The width and height are the
+    shown frame's (the last one shown, as libaom hands libavif; the
+    width the upscaled one) and so is apply_grain; the other frame fields
+    are the last frame header's (restoration types 0 none, 1 Wiener, 2
+    self-guided, 3 switchable; superres_denom 8 without superres);
+    ``operating_point`` selects the layers decoded (a1op's index; 0 where
+    the stream has fewer points), ``layer`` (lsel's, -1 for none) the
+    spatial layer whose first shown frame is the output; frames counts
+    the frame headers parsed.  FormatError with the tool it refuses."""
     lib = _lib_or_raise()
     src = np.frombuffer(stream or bytes(1), np.uint8)
     info = np.zeros(len(AV1_INFO), np.int32)
     msg = ctypes.create_string_buffer(MSG_LEN)
-    if lib.av1_probe(_u8(src), len(stream), _i32(info), msg, MSG_LEN):
+    if lib.av1_probe(_u8(src), len(stream), operating_point, layer,
+                     _i32(info), msg, MSG_LEN):
         raise _format_error(msg)
     return dict(zip(AV1_INFO, (int(v) for v in info)))
 
 
-def _av1(stream: bytes):
-    """An AV1 still's OBUs -> ([Y, U, V] uint16 planes at the stream's bit
-    depth, or [Y] for a monochrome stream, and the sequence header's bit
-    depth and colour fields with what
-    the stream used: blocks with a Y or UV palette, the palette sizes,
-    intra block copy blocks and those whose reference vector was the
-    default), by
+def _av1(stream: bytes, operating_point: int = 0, layer: int = -1):
+    """An AV1 item's OBUs -> ([Y, U, V] uint16 planes at the stream's bit
+    depth, or [Y] for a monochrome stream, of the frame libaom hands
+    libavif: the last one shown in the operating point's layers, or the
+    first one of spatial layer ``layer`` where lsel selects it; and the
+    sequence header's bit depth and colour fields with what the stream
+    used, ``AV1_COUNTS``: blocks with a Y or UV palette, the palette
+    sizes, intra block copy blocks and those whose reference vector was
+    the default, the frames, inter frames, frames shown from a reference
+    slot, inter, compound, OBMC, local-warp, inter-intra and
+    scaled-reference blocks, temporal vector candidates, blocks with
+    two different interpolation filters, wedge,
+    difference-weighted and distance-weighted compound blocks and wedge
+    inter-intra blocks), by
     ``csrc/av1_decode.cc``; FormatError with the tool it refuses."""
     lib = _lib_or_raise()
     src = np.frombuffer(stream or bytes(1), np.uint8)
-    info = av1_probe(stream)
+    info = av1_probe(stream, operating_point, layer)
     w, h, sx, sy, mono = (info[k] for k in AV1_INFO[:5])
     from objectdetectionpl_tpu_torch.data.formats import check_size
     check_size(w, h)
@@ -631,21 +656,17 @@ def _av1(stream: bytes):
     u16p = ctypes.POINTER(ctypes.c_uint16)
     ptrs = [p.ctypes.data_as(u16p) for p in planes]
     ptrs += [None] * (3 - len(ptrs))
-    counts = np.zeros(5, np.int32)
+    counts = np.zeros(len(AV1_COUNTS), np.int32)
     msg = ctypes.create_string_buffer(MSG_LEN)
-    if lib.av1_decode(_u8(src), len(stream), *ptrs, _i32(counts), msg,
-                      MSG_LEN):
+    if lib.av1_decode(_u8(src), len(stream), operating_point, layer, *ptrs,
+                      _i32(counts), msg, MSG_LEN):
         raise _format_error(msg)
+    used = dict(zip(AV1_COUNTS, (int(v) for v in counts)))
+    used["palette_sizes"] = [n for n in range(2, 9) if counts[2] >> n & 1]
     return planes, {"subsampling": (sx, sy), "bit_depth": info["bit_depth"],
                     "full_range": info["full_range"],
                     "matrix": info["matrix"], "primaries": info["primaries"],
-                    "transfer": info["transfer"],
-                    "palette_y_blocks": int(counts[0]),
-                    "palette_uv_blocks": int(counts[1]),
-                    "palette_sizes": [n for n in range(2, 9)
-                                      if counts[2] >> n & 1],
-                    "intrabc_blocks": int(counts[3]),
-                    "intrabc_default_dv": int(counts[4])}
+                    "transfer": info["transfer"], **used}
 
 
 def _exif_orientation(tiff: bytes) -> int:

@@ -1,9 +1,13 @@
 """Write ``csrc/av1_tables.h``: the AV1 decoder's default CDFs (intra
-modes, coefficients, palettes, intra block copy's vectors and inter
-transforms), its quantizer lookups at 8, 10 and 12 bits, the intra
-tables the specification lists by value and those of loop restoration,
-superres and film grain, read from the read-only data of libaom 3.6 (``libaom.so.3``, found in the
-dynamic linker's cache unless ``--lib`` names it).
+modes, coefficients, palettes, intra block copy's vectors, inter
+transforms, and those of inter frames: references, modes, vectors,
+interpolation filters, motion modes, inter-intra, compound types), its
+quantizer lookups at 8, 10 and 12 bits, the intra tables the
+specification lists by value and those of loop restoration, superres,
+film grain and inter prediction (the sub-sample and warp filters, the
+warp's divisor lookup, the inter-intra and OBMC weights), read from the
+read-only data of libaom 3.6 (``libaom.so.3``, found in the dynamic
+linker's cache unless ``--lib`` names it).
 
     python -m objectdetectionpl_tpu_torch.tools.av1_tables [--lib P] [--check]
 
@@ -119,6 +123,78 @@ CDFS = (
     ("Default_Mv_Joint_Cdf", (4096, 11264, 19328), (5,), 4),
 )
 
+# The CDFs of inter frames that libaom keeps whole in its data, found as
+# CDFS are (the wedge index CDF by its first row of its own, three rows
+# in).
+INTER_CDFS = (
+    ("Default_Y_Mode_Cdf", (22801, 23489, 24293, 24756), (4, 14), 13),
+    ("Default_Compound_Mode_Cdf", (7760, 13823, 15808, 17641), (8, 9), 8),
+    ("Default_Wedge_Index_Cdf", (2438, 4440, 6599, 8663), (22, 17), 16, -51),
+    ("Default_Interp_Filter_Cdf", (31935, 32720, 0, 0, 5568, 32719),
+     (16, 4), 3),
+)
+# ... and those its compiler keeps in pieces (16-byte copies from a
+# constant pool that overlap, short tails as immediates): the
+# specification's values (rows of x_1 .. x_(N-1)), each run of eight
+# stored values held to a run in the library's data or code
+_UNIFORM2 = (16384,)
+INTER_SPEC_CDFS = (
+    ("Default_Is_Inter_Cdf", ((806,), (16662,), (20186,), (26538,)), 2),
+    ("Default_Comp_Mode_Cdf", ((26828,), (24035,), (12031,), (10640,),
+                               (2901,)), 2),
+    ("Default_Comp_Ref_Type_Cdf", ((1198,), (2070,), (9166,), (7499,),
+                                   (22475,)), 2),
+    ("Default_New_Mv_Cdf", ((24035,), (16630,), (15339,), (8386,),
+                            (12222,), (4676,)), 2),
+    ("Default_Zero_Mv_Cdf", ((2175,), (1054,)), 2),
+    ("Default_Ref_Mv_Cdf", ((23974,), (24188,), (17848,), (28622,),
+                            (24312,), (19923,)), 2),
+    ("Default_Drl_Mode_Cdf", ((13104,), (24560,), (18945,)), 2),
+    ("Default_Inter_Intra_Cdf", ((16384,), (26887,), (27597,), (30237,)),
+     2),
+    ("Default_Wedge_Inter_Intra_Cdf", (_UNIFORM2,) * 3 + (
+        (20036,), (24957,), (26704,), (27530,), (29564,), (29444,),
+        (26872,)) + (_UNIFORM2,) * 12, 2),
+    ("Default_Compound_Type_Cdf", (_UNIFORM2,) * 3 + (
+        (23431,), (13171,), (11470,), (9770,), (9100,), (8233,),
+        (6172,)) + (_UNIFORM2,) * 8 + ((11820,), (7701,)) +
+     (_UNIFORM2,) * 2, 2),
+    ("Default_Use_Obmc_Cdf", (_UNIFORM2,) * 3 + (
+        (10437,), (9371,), (9301,), (17432,), (14423,), (15142,),
+        (25817,), (22823,), (22083,), (30128,), (31014,), (31560,),
+        (32638,), (16384,), (16384,), (23664,), (20901,), (24008,),
+        (26879,)), 2),
+    ("Default_Motion_Mode_Cdf", ((10923, 21845),) * 3 + (
+        (7651, 24760), (4738, 24765), (5391, 25528), (19419, 26810),
+        (5123, 23606), (11606, 24308), (26260, 29116), (20360, 28062),
+        (21679, 26830), (29516, 30701), (28898, 30397), (30878, 31335),
+        (32507, 32558), (10923, 21845), (10923, 21845), (28799, 31390),
+        (26431, 30774), (28973, 31594), (29742, 31203)), 3),
+    ("Default_Skip_Mode_Cdf", ((32621,), (20708,), (8127,)), 2),
+    ("Default_Inter_Intra_Mode_Cdf", ((8192, 16384, 24576),
+                                      (1875, 11082, 27332),
+                                      (2473, 9996, 26388),
+                                      (4238, 11537, 25926)), 4),
+    ("Default_Compound_Idx_Cdf", ((18244,), (12865,), (7053,), (13259,),
+                                  (9334,), (4644,)), 2),
+    ("Default_Comp_Group_Idx_Cdf", ((26607,), (22891,), (18840,), (24594,),
+                                    (19934,), (22674,)), 2),
+    # the reference frame CDFs by context, then by the tree's node
+    ("Default_Single_Ref_Cdf", tuple((v,) for v in (
+        4897, 1555, 4236, 8650, 904, 1444, 16973, 16751, 19647, 24773,
+        11014, 15087, 29744, 30279, 31194, 31895, 26875, 30304)), 2,
+     (3, 6, 3)),
+    ("Default_Uni_Comp_Ref_Cdf", tuple((v,) for v in (
+        5284, 3865, 3128, 23152, 14173, 15270, 31774, 25120, 26710)), 2,
+     (3, 3, 3)),
+    ("Default_Comp_Ref_Cdf", tuple((v,) for v in (
+        4946, 9468, 1503, 19891, 22441, 15160, 30731, 31059, 27544)), 2,
+     (3, 3, 3)),
+    ("Default_Comp_Bwd_Ref_Cdf", tuple((v,) for v in (
+        2235, 1423, 17182, 15175, 30606, 30489)), 2, (3, 2, 3)),
+    ("Default_Segment_Id_Predicted_Cdf", (_UNIFORM2,) * 3, 2),
+)
+
 # The MV context's per-component CDFs an integer vector reads, at their
 # offsets (in values) from the joint CDF's start in libaom's
 # nmv_context {joints, comps[2]}: a component is 69 values, and the two
@@ -127,7 +203,11 @@ MV_COMP = 69
 MV_CDFS = (("Default_Mv_Class_Cdf", 5, (12,), 11),
            ("Default_Mv_Sign_Cdf", 32, (3,), 2),
            ("Default_Mv_Class0_Bit_Cdf", 41, (3,), 2),
-           ("Default_Mv_Bit_Cdf", 44, (10, 3), 2))
+           ("Default_Mv_Bit_Cdf", 44, (10, 3), 2),
+           ("Default_Mv_Class0_Fr_Cdf", 17, (2, 5), 4),
+           ("Default_Mv_Fr_Cdf", 27, (5,), 4),
+           ("Default_Mv_Class0_Hp_Cdf", 35, (3,), 2),
+           ("Default_Mv_Hp_Cdf", 38, (3,), 2))
 
 # libaom keeps these as immediates in its code, not as data: the
 # filter-intra mode CDF is found there all the same (four values), and so
@@ -186,6 +266,14 @@ PLAIN = (
      np.int16, (64, 8)),
     ("Gaussian_Sequence", "int16_t", (56, 568, -180, 172, 124, -84, 172, -64),
      np.int32, 2048),
+    # inter prediction: the warp filter's 193 phases, the divisor lookup
+    # of warp estimation, the smooth inter-intra weights
+    ("Warped_Filters", "int16_t", (0, 0, 127, 1, 0, 0, 0, 0, 0, -1, 127, 2,
+                                   0, 0, 0, 0, 1, -3, 127, 4, -1, 0, 0, 0),
+     np.int16, (193, 8)),
+    ("Div_Lut", "uint16_t", (16384, 16320, 16257, 16194), np.uint16, 257),
+    ("Ii_Weights_1d", "uint8_t", (60, 58, 56, 54, 52, 50, 48, 47), np.uint8,
+     128),
     # the palette colour context of each hash (-1 where none)
     ("Palette_Color_Context", "int8_t", (-1, -1, 0, -1, -1, 4, 3, 2, 1),
      np.int32, 9),
@@ -202,6 +290,79 @@ WIENER_MIN, WIENER_MAX, WIENER_K = (-5, -23, -17), (10, 8, 46), (1, 2, 3)
 LIMITS = ("Wiener_Taps_Mid", "Wiener_Taps_Min", "Wiener_Taps_Max",
           "Wiener_Taps_K", "Sgrproj_Xqd_Mid", "Sgrproj_Xqd_Min",
           "Sgrproj_Xqd_Max")
+
+_NP = {"int16_t": np.int16, "uint8_t": np.uint8}
+
+
+def _subpel(rows):
+    return [[0, 0, 0, 128, 0, 0, 0, 0]] + [list(r) for r in rows]
+
+
+# The sub-sample filters (regular, smooth, sharp, bilinear, then the
+# 4-tap regular and smooth of narrow blocks) and the OBMC masks of sizes
+# 2 .. 32 are the specification's, each held to a copy in libaom's data.
+SPEC_PLAIN = (
+    ("Subpel_Filters", "int16_t", [
+        _subpel([(0, 2, -6, 126, 8, -2, 0, 0), (0, 2, -10, 122, 18, -4, 0, 0),
+                 (0, 2, -12, 116, 28, -8, 2, 0),
+                 (0, 2, -14, 110, 38, -10, 2, 0),
+                 (0, 2, -14, 102, 48, -12, 2, 0),
+                 (0, 2, -16, 94, 58, -12, 2, 0), (0, 2, -14, 84, 66, -12, 2, 0),
+                 (0, 2, -14, 76, 76, -14, 2, 0), (0, 2, -12, 66, 84, -14, 2, 0),
+                 (0, 2, -12, 58, 94, -16, 2, 0),
+                 (0, 2, -12, 48, 102, -14, 2, 0),
+                 (0, 2, -10, 38, 110, -14, 2, 0),
+                 (0, 2, -8, 28, 116, -12, 2, 0), (0, 0, -4, 18, 122, -10, 2, 0),
+                 (0, 0, -2, 8, 126, -6, 2, 0)]),
+        _subpel([(0, 2, 28, 62, 34, 2, 0, 0), (0, 0, 26, 62, 36, 4, 0, 0),
+                 (0, 0, 22, 62, 40, 4, 0, 0), (0, 0, 20, 60, 42, 6, 0, 0),
+                 (0, 0, 18, 58, 44, 8, 0, 0), (0, 0, 16, 56, 46, 10, 0, 0),
+                 (0, -2, 16, 54, 48, 12, 0, 0), (0, -2, 14, 52, 52, 14, -2, 0),
+                 (0, 0, 12, 48, 54, 16, -2, 0), (0, 0, 10, 46, 56, 16, 0, 0),
+                 (0, 0, 8, 44, 58, 18, 0, 0), (0, 0, 6, 42, 60, 20, 0, 0),
+                 (0, 0, 4, 40, 62, 22, 0, 0), (0, 0, 4, 36, 62, 26, 0, 0),
+                 (0, 0, 2, 34, 62, 28, 2, 0)]),
+        _subpel([(-2, 2, -6, 126, 8, -2, 2, 0), (-2, 6, -12, 124, 16, -6, 4, -2),
+                 (-2, 8, -18, 120, 26, -10, 6, -2),
+                 (-4, 10, -22, 116, 38, -14, 6, -2),
+                 (-4, 10, -22, 108, 48, -18, 8, -2),
+                 (-4, 10, -24, 100, 60, -20, 8, -2),
+                 (-4, 10, -24, 90, 70, -22, 10, -2),
+                 (-4, 12, -24, 80, 80, -24, 12, -4),
+                 (-2, 10, -22, 70, 90, -24, 10, -4),
+                 (-2, 8, -20, 60, 100, -24, 10, -4),
+                 (-2, 8, -18, 48, 108, -22, 10, -4),
+                 (-2, 6, -14, 38, 116, -22, 10, -4),
+                 (-2, 6, -10, 26, 120, -18, 8, -2),
+                 (-2, 4, -6, 16, 124, -12, 6, -2),
+                 (0, 2, -2, 8, 126, -6, 2, -2)]),
+        _subpel([(0, 0, 0, 128 - 8 * k, 8 * k, 0, 0, 0) for k in range(1, 16)]),
+        _subpel([(0, 0, -4, 126, 8, -2, 0, 0), (0, 0, -8, 122, 18, -4, 0, 0),
+                 (0, 0, -10, 116, 28, -6, 0, 0),
+                 (0, 0, -12, 110, 38, -8, 0, 0),
+                 (0, 0, -12, 102, 48, -10, 0, 0),
+                 (0, 0, -14, 94, 58, -10, 0, 0), (0, 0, -12, 84, 66, -10, 0, 0),
+                 (0, 0, -12, 76, 76, -12, 0, 0), (0, 0, -10, 66, 84, -12, 0, 0),
+                 (0, 0, -10, 58, 94, -14, 0, 0),
+                 (0, 0, -10, 48, 102, -12, 0, 0),
+                 (0, 0, -8, 38, 110, -12, 0, 0), (0, 0, -6, 28, 116, -10, 0, 0),
+                 (0, 0, -4, 18, 122, -8, 0, 0), (0, 0, -2, 8, 126, -4, 0, 0)]),
+        _subpel([(0, 0, 30, 62, 34, 2, 0, 0), (0, 0, 26, 62, 36, 4, 0, 0),
+                 (0, 0, 22, 62, 40, 4, 0, 0), (0, 0, 20, 60, 42, 6, 0, 0),
+                 (0, 0, 18, 58, 44, 8, 0, 0), (0, 0, 16, 56, 46, 10, 0, 0),
+                 (0, 0, 14, 54, 48, 12, 0, 0), (0, 0, 12, 52, 52, 12, 0, 0),
+                 (0, 0, 12, 48, 54, 14, 0, 0), (0, 0, 10, 46, 56, 16, 0, 0),
+                 (0, 0, 8, 44, 58, 18, 0, 0), (0, 0, 6, 42, 60, 20, 0, 0),
+                 (0, 0, 4, 40, 62, 22, 0, 0), (0, 0, 4, 36, 62, 26, 0, 0),
+                 (0, 0, 2, 34, 62, 30, 0, 0)])]),
+    ("Obmc_Masks", "uint8_t", [
+        [45, 64] + [0] * 30, [39, 50, 59, 64] + [0] * 28,
+        [36, 42, 48, 53, 57, 61, 64, 64] + [0] * 24,
+        [34, 37, 40, 43, 46, 49, 52, 54, 56, 58, 60, 61, 64, 64, 64, 64]
+        + [0] * 16,
+        [33, 35, 36, 38, 40, 41, 43, 44, 45, 47, 48, 50, 51, 52, 53, 55, 56,
+         57, 58, 59, 60, 60, 61, 62, 64, 64, 64, 64, 64, 64, 64, 64]]),
+)
 
 
 class TableError(ValueError):
@@ -294,6 +455,38 @@ def _whole(name: str, table: bytes) -> bool:
                for n in (4, 8, 16, 32, 64))
 
 
+def _held_in_pieces(lib: bytes, sections, name: str, t: np.ndarray):
+    """Each run of eight values of the table as libaom stores it (32768 -
+    x, then zeros) found in the library's data or code, at the run's
+    place or up to seven values before it (the overlapping copies), or
+    a short tail's values each as an immediate in the code."""
+    stored = np.where(t > 0, 32768 - t, 0).astype(np.uint16)
+    stored[:, -2] = 0
+    flat = stored.reshape(-1)
+    for k in range(0, flat.size, 8):
+        if not flat[k:k + 8].any():
+            continue
+        for shift in range(8):
+            run = flat[max(0, k - shift):max(0, k - shift) + 8]
+            if len(run) >= 4 and any(
+                    lib.find(run.tobytes(), off, off + size) >= 0
+                    for off, size in sections):
+                break
+        else:       # a short tail: each value an immediate in the code
+            off, size = sections[1]
+            if not all(lib.find(np.array([v], np.uint16).tobytes(), off,
+                                off + size) >= 0
+                       for v in flat[k:k + 8] if v):
+                raise TableError(f"{name}: values {k}..{k + 7} are not in "
+                                 f"the library")
+
+
+def _find_any(lib: bytes, section, pattern: bytes, what: str) -> None:
+    off, size = section
+    if lib.find(pattern, off, off + size) < 0:
+        raise TableError(f"{what}: not in the library's data")
+
+
 def find_libaom() -> Optional[str]:
     """libaom.so.3's path from ``ldconfig -p``, or None."""
     try:
@@ -313,7 +506,7 @@ def read_tables(path: str) -> dict:
     sec = _sections(lib)
     ro, text = sec[".rodata"], sec[".text"]
     tables = {}
-    for name, lead, dims, nsym, *rest in CDFS:
+    for name, lead, dims, nsym, *rest in CDFS + INTER_CDFS:
         before, layout = rest + [0, None][len(rest):]
         at = _find_one(lib, ro, _icdf(lead), name,
                        2 * int(np.prod(dims))) + 2 * before
@@ -340,6 +533,13 @@ def read_tables(path: str) -> dict:
         if not np.array_equal(*comps):
             raise TableError(f"{name}: the MV components differ")
         tables[name] = comps[0]
+    for name, rows, n, *dims in INTER_SPEC_CDFS:
+        t = np.zeros((len(rows), n + 1), np.int64)
+        for i, r in enumerate(rows):
+            t[i, :n - 1] = r
+            t[i, n - 1] = 32768
+        _held_in_pieces(lib, (ro, text), name, t)
+        tables[name] = t.reshape(dims[0]) if dims else t
     for name, rows, n in SPEC_CDFS:
         t = np.zeros((len(rows), n + 1), np.int64)
         for i, r in enumerate(rows):
@@ -365,6 +565,14 @@ def read_tables(path: str) -> dict:
             np.int64).reshape(shape)
     for name, values in SPEC_TABLES:
         tables[name] = np.array(values)
+    for name, ctype, values in SPEC_PLAIN:
+        a = np.array(values, np.int64)
+        # a filter set 16 x 8 taps at a time; a mask without its padding
+        rows = a.reshape(-1, a.shape[-2] * a.shape[-1]) if a.ndim > 2 else \
+            [r[:np.flatnonzero(r)[-1] + 1] for r in a]
+        for row in rows:
+            _find_any(lib, ro, row.astype(_NP[ctype]).tobytes(), name)
+        tables[name] = a
     tables.update(_restoration_limits(lib, ro))
     # the formulas against the library's cospi / sinpi arrays (cos_bit 12)
     cos = [round(4096 * math.cos(i * math.pi / 128)) for i in range(64)]
@@ -420,7 +628,7 @@ def render(tables: dict) -> str:
              "#pragma once\n#include <stdint.h>\n"]
     for name, *_ in CDFS + TEXT_CDFS + MV_CDFS:
         lines.append(_c_array(name, "uint16_t", tables[name]))
-    for name, *_ in SPEC_CDFS:
+    for name, *_ in INTER_CDFS + INTER_SPEC_CDFS + SPEC_CDFS:
         lines.append(_c_array(name, "uint16_t", tables[name]))
     for name, ctype, *_ in PLAIN:
         lines.append(_c_array(name, ctype, tables[name]))
@@ -428,6 +636,8 @@ def render(tables: dict) -> str:
         lines.append(_c_array(name, "int8_t", tables[name]))
     for name, _ in SPEC_TABLES:
         lines.append(_c_array(name, "int8_t", tables[name]))
+    for name, ctype, _ in SPEC_PLAIN:
+        lines.append(_c_array(name, ctype, tables[name]))
     return "\n".join(lines)
 
 

@@ -36,9 +36,10 @@ inside a larger screen with a local table and a transparent index); a
 P6 PPM, a 16-bit ASCII P2 PGM, a P7 PAM (TUPLTYPE RGB), a PF PFM
 (scale -0.5); Sun rasters (24-bit, 8-bit with a colour map); a Radiance
 HDR of RLE scanlines; the committed AVIFs (``avif_stage_files``,
-``avif_screen_files`` and ``avif_depth_files`` the recipes of the later
-ones: the stages after CDEF, screen content and a grid, 10 and 12 bits,
-an image sequence, premultiplied alpha).  Every file is made the same way on every
+``avif_screen_files``, ``avif_depth_files`` and ``avif_layer_files``
+the recipes of the later ones: the stages after CDEF, screen content and
+a grid, 10 and 12 bits, an image sequence, premultiplied alpha, spatial
+layers).  Every file is made the same way on every
 machine, so the SHA-256 of each one's decode
 (``data/testdata/formats/sha256.json``, cv2's decodes, which
 ``tests/test_torch_port_image_formats.py`` holds against cv2 and the
@@ -105,7 +106,9 @@ KINDS = ("jpeg", "jpeg_cmyk", "jpeg_ycck", "jpeg_arithmetic",
          "avif_palette_444", "avif_palette_420", "avif_intrabc",
          "avif_grid_cropped", "avif_10bit_420", "avif_10bit_444_lr",
          "avif_10bit_film_grain", "avif_12bit_422", "avif_10bit_400",
-         "avif_10bit_screen", "avif_sequence", "avif_prem")
+         "avif_10bit_screen", "avif_sequence", "avif_prem",
+         "avif_layers_key", "avif_layers_realtime", "avif_layers_quality",
+         "avif_layers_scaled", "avif_layers_10bit", "avif_layers_ops")
 COMMITTED = {"jpeg": TESTDATA / BASE,
              "jpeg_cmyk": TESTDATA / UNSUPPORTED[0],
              "jpeg_ycck": FORMATS / "ycck_420_q85_160x120.jpg",
@@ -158,7 +161,16 @@ COMMITTED = {"jpeg": TESTDATA / BASE,
              "avif_10bit_400": FORMATS / "avif_10bit_400_160x120.avif",
              "avif_10bit_screen": FORMATS / "avif_10bit_screen_160x120.avif",
              "avif_sequence": FORMATS / "avif_sequence3_160x120.avif",
-             "avif_prem": FORMATS / "avif_10bit_prem_160x120.avif"}
+             "avif_prem": FORMATS / "avif_10bit_prem_160x120.avif",
+             "avif_layers_key": FORMATS / "avif_layers_key3_160x120.avif",
+             "avif_layers_realtime":
+                 FORMATS / "avif_layers_realtime3_160x120.avif",
+             "avif_layers_quality":
+                 FORMATS / "avif_layers_quality3_160x120.avif",
+             "avif_layers_scaled":
+                 FORMATS / "avif_layers_scaled3_160x120.avif",
+             "avif_layers_10bit": FORMATS / "avif_layers_10bit3_160x120.avif",
+             "avif_layers_ops": FORMATS / "avif_layers_ops2_160x120.avif"}
 AVIF_KINDS = tuple(k for k in KINDS if k.startswith("avif"))
 
 
@@ -1203,7 +1215,8 @@ def avif_grid_bytes(tiles, w: int, h: int, av1c: bytes, rows: int,
 # libaom 3.6's aom_codec_enc_cfg_t as unsigned ints: the fields the
 # encoder below sets, and default values it checks (the library's layout)
 _AOM_CFG = {"g_profile": 2, "g_w": 3, "g_h": 4, "g_limit": 5,
-            "g_bit_depth": 8, "g_input_bit_depth": 9,
+            "g_bit_depth": 8, "g_input_bit_depth": 9, "g_lag_in_frames": 14,
+            "rc_resize_mode": 16, "rc_resize_denominator": 17,
             "rc_superres_mode": 19, "rc_superres_denominator": 20,
             "rc_superres_kf_denominator": 21, "rc_end_usage": 24,
             "monochrome": 52}
@@ -1221,7 +1234,9 @@ def _aom_profile(subsampling: str, bit_depth: int) -> int:
 
 
 def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
-               options=None, lib=None, bit_depth: int = 8) -> bytes:
+               options=None, lib=None, bit_depth: int = 8, usage: int = 0,
+               layers=None, sequence=None, lag: int = 0,
+               resize=None) -> bytes:
     """One key frame of ``planes`` ([Y, U, V] at the subsampling's sizes,
     or [Y] for 4:0:0; uint8, or samples below 2**bit_depth for 10 or 12
     bits) through the system libaom.so.3 (3.6, found as
@@ -1233,8 +1248,21 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
     ``enable-palette`` and ``enable-intrabc`` for palettes and intra
     block copy, ...); ``superres`` a denominator 9..16 of fixed superres
     (rc_superres_mode 1), which no key reaches; ``bit_depth`` above 8
-    through libaom's high-bitdepth route.  RuntimeError where the library
-    is not libaom 3.6's layout."""
+    through libaom's high-bitdepth route; ``usage`` 0 good quality or 1
+    realtime.  ``layers`` encodes spatial layers in one temporal unit
+    (AOME_SET_NUMBER_SPATIAL_LAYERS, lag 0): a list of dicts, one a
+    layer, whose ``planes`` (default ``planes``) go through
+    AOME_SET_SPATIAL_LAYER_ID, ``cq_level`` AOME_SET_CQ_LEVEL, ``scale``
+    an (h, v) AOME_SET_SCALEMODE pair (0 normal, 6 one half, ...) and
+    ``flags`` the AOM_EFLAG bits of its aom_codec_encode; the base layer
+    is forced to a key frame.  ``sequence`` encodes those planes as the
+    following frames, one a temporal unit, ``lag`` frames ahead (hidden
+    alt-ref frames, compound prediction and frames shown again): one
+    item's data holding them all; ``resize`` a (mode, denominator) of
+    libaom's frame resizing (rc_resize_mode 1: every frame but the key
+    frame coded at 8/denominator of the size, predicted from scaled
+    references).  RuntimeError where the library is not libaom 3.6's
+    layout."""
     import ctypes
     from objectdetectionpl_tpu_torch.tools.av1_tables import find_libaom
     path = lib or find_libaom()
@@ -1255,6 +1283,10 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
     aom.aom_codec_get_cx_data.argtypes = [vp, vp]
     aom.aom_codec_get_cx_data.restype = vp
     aom.aom_codec_destroy.argtypes = [vp]
+    aom.aom_codec_control.argtypes = [vp, ctypes.c_int]
+    layered = layers is not None
+    if planes is None:
+        planes = layers[0]["planes"]
     h, w = planes[0].shape
     fmt = _AOM_FORMATS[subsampling][0]
     profile = _aom_profile(subsampling, bit_depth)
@@ -1262,12 +1294,19 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
     sy = int(subsampling in ("4:2:0", "4:0:0"))
     cfg = (ctypes.c_uint32 * 1024)()
     iface = aom.aom_codec_av1_cx()
-    if aom.aom_codec_enc_config_default(iface, cfg, 0) or any(
+    if aom.aom_codec_enc_config_default(iface, cfg, usage) or any(
             cfg[k] != v for k, v in _AOM_CFG_DEFAULTS.items()):
         raise RuntimeError(f"{path}: not libaom 3.6's encoder config")
-    set_cfg = {"g_profile": profile, "g_w": w, "g_h": h, "g_limit": 1,
+    set_cfg = {"g_profile": profile, "g_w": w, "g_h": h,
+               "g_limit": len(layers) if layered
+               else 1 + len(sequence or ()),
                "rc_end_usage": 3, "monochrome": int(subsampling == "4:0:0"),
                "g_bit_depth": bit_depth, "g_input_bit_depth": bit_depth}
+    if layered or sequence:
+        set_cfg["g_lag_in_frames"] = lag if sequence else 0
+    if resize is not None:
+        set_cfg.update(rc_resize_mode=resize[0],
+                       rc_resize_denominator=resize[1])
     if superres is not None:
         set_cfg.update(rc_superres_mode=1, rc_superres_denominator=superres,
                        rc_superres_kf_denominator=superres)
@@ -1282,28 +1321,56 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
         for k, v in (options or {}).items():
             if aom.aom_codec_set_option(ctx, k.encode(), str(v).encode()):
                 raise RuntimeError(f"libaom refuses the option {k}={v}")
-        # aom_img_wrap's layout: luma padded to the subsampling's multiple
-        # (align_image_dimension), then each chroma plane
-        aw, ah = (w + sx) >> sx << sx, (h + sy) >> sy << sy
-        dtype = np.uint16 if high else np.uint8
-        pieces = [np.zeros((ah, aw), dtype)]
-        pieces[0][:h, :w] = planes[0]
-        for c in range(2):
-            q = np.full((ah >> sy, aw >> sx), 1 << (bit_depth - 1), dtype)
-            if len(planes) > 1:
-                q[:planes[1 + c].shape[0], :planes[1 + c].shape[1]] = \
-                    planes[1 + c]
-            pieces.append(q)
-        buf = np.concatenate([q.reshape(-1) for q in pieces])
-        img = ctypes.create_string_buffer(512)
-        if not aom.aom_img_wrap(img, fmt | (0x800 if high else 0), w, h, 1,
-                                buf.ctypes.data):
-            raise RuntimeError("aom_img_wrap failed")
+
+        def control(ctrl, value):
+            arg = value if isinstance(value, ctypes.Array) else \
+                ctypes.c_int(value)
+            if aom.aom_codec_control(ctx, ctrl, arg):
+                raise RuntimeError(f"libaom refuses control {ctrl}={value}")
+
+        def wrap(planes):
+            # aom_img_wrap's layout: luma padded to the subsampling's
+            # multiple (align_image_dimension), then each chroma plane
+            aw, ah = (w + sx) >> sx << sx, (h + sy) >> sy << sy
+            dtype = np.uint16 if high else np.uint8
+            pieces = [np.zeros((ah, aw), dtype)]
+            pieces[0][:h, :w] = planes[0]
+            for c in range(2):
+                q = np.full((ah >> sy, aw >> sx), 1 << (bit_depth - 1), dtype)
+                if len(planes) > 1:
+                    q[:planes[1 + c].shape[0], :planes[1 + c].shape[1]] = \
+                        planes[1 + c]
+                pieces.append(q)
+            buf = np.concatenate([q.reshape(-1) for q in pieces])
+            img = ctypes.create_string_buffer(512)
+            if not aom.aom_img_wrap(img, fmt | (0x800 if high else 0), w, h,
+                                    1, buf.ctypes.data):
+                raise RuntimeError("aom_img_wrap failed")
+            return img, buf
+
+        # a key frame (forced, but for a sequence's first)
+        frames = [(wrap(planes), 0 if sequence else 1, None)]
+        frames += [(wrap(p), 0, None) for p in sequence or ()]
+        if layered:
+            control(27, len(layers))          # AOME_SET_NUMBER_SPATIAL_LAYERS
+            frames = [(wrap(lay.get("planes", planes)),
+                       lay.get("flags", 0) | (1 if i == 0 else 0), (i, lay))
+                      for i, lay in enumerate(layers)]
         out = b""
-        for frame, flags in ((img, 1), (None, 0)):     # force a key frame
-            if aom.aom_codec_encode(ctx, frame, 0, 1, flags):
+        pts = 0
+        # the frames, then flushes until the encoder has nothing left
+        for image, flags, layer in frames + [((None, None), 0, None)] * 99:
+            if layer is not None:
+                i, lay = layer
+                control(12, i)                # AOME_SET_SPATIAL_LAYER_ID
+                if "cq_level" in lay:
+                    control(25, lay["cq_level"])      # AOME_SET_CQ_LEVEL
+                control(11, (ctypes.c_int * 2)(*lay.get("scale", (0, 0))))
+            if aom.aom_codec_encode(ctx, image[0], pts, 1, flags):
                 raise RuntimeError("aom_codec_encode failed")
+            pts += bool(sequence)
             it = ctypes.c_void_p(0)
+            got = False
             while True:
                 pkt = aom.aom_codec_get_cx_data(ctx, ctypes.byref(it))
                 if not pkt:
@@ -1312,6 +1379,9 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
                     data = ctypes.c_void_p.from_address(pkt + 8).value
                     size = ctypes.c_size_t.from_address(pkt + 16).value
                     out += ctypes.string_at(data, size)
+                    got = True
+            if image[0] is None and not got:
+                break
         return out
     finally:
         aom.aom_codec_destroy(ctx)
@@ -1524,6 +1594,103 @@ def avif_depth_files() -> Dict[str, bytes]:
                                 pixi=(10,) * 3,
                                 alpha=(prem_alpha, av1c_bytes("4:0:0", 10)),
                                 iref_extra=((b"prem", 1, 2),)),
+    }
+
+
+def av1_obus(stream: bytes) -> list:
+    """The OBUs of an AV1 stream (each with its size field): (type, the
+    OBU's bytes, its payload)."""
+    out, i = [], 0
+    while i < len(stream):
+        start, kind, ext = i, stream[i] >> 3 & 15, stream[i] >> 2 & 1
+        i += 1 + ext
+        size = shift = 0
+        while True:
+            b = stream[i]
+            i += 1
+            size |= (b & 127) << shift
+            shift += 7
+            if not b & 128:
+                break
+        out.append((kind, stream[start:i + size], stream[i:i + size]))
+        i += size
+    return out
+
+
+def _bits(data: bytes) -> list:
+    return [(x >> (7 - i)) & 1 for x in data for i in range(8)]
+
+
+def with_operating_points(stream: bytes, points) -> bytes:
+    """The stream with each sequence header (full, no timing info) given
+    the operating points ``points`` ((operating_point_idc,
+    seq_level_idx), ...)."""
+    out = b""
+    for kind, raw, body in av1_obus(stream):
+        if kind != 1:
+            out += raw
+            continue
+        bits = _bits(body)
+        assert bits[4] == 0 and bits[5] == 0    # not reduced, no timing
+        delay, count, pos = bits[6], int("".join(map(str, bits[7:12])), 2) + 1, 12
+        for _ in range(count):
+            level = int("".join(map(str, bits[pos + 12:pos + 17])), 2)
+            pos += 17 + (level > 7)
+            if delay:
+                pos += 5 if bits[pos] else 1
+        end = len(bits) - 1 - bits[::-1].index(1)     # the trailing 1 bit
+        put = lambda v, n: [(v >> (n - 1 - i)) & 1 for i in range(n)]
+        new = bits[:6] + [0] + put(len(points) - 1, 5)
+        for idc, level in points:
+            new += put(idc, 12) + put(level, 5) + [0] * (level > 7)
+        new += bits[pos:end] + [1]
+        new += [0] * (-len(new) % 8)
+        payload = bytes(int("".join(map(str, new[k:k + 8])), 2)
+                        for k in range(0, len(new), 8))
+        out += bytes([0x0A, len(payload)]) + payload
+    return out
+
+
+def avif_layer_files() -> Dict[str, bytes]:
+    """The committed layered AVIFs, from the 160x120 crop of the 500x375
+    fixture through ``aom_encode``'s spatial layers: three key-frame
+    layers at cq-levels 50, 30 and 10 (each forced to a key frame: on
+    the tree before the port decoded inter frames it returned layer 0
+    where cv2 returns layer 2), realtime SVC (layers 1 and 2 inter
+    frames predicted from the layer below), good-quality layers at
+    cq-levels 50, 30, 10 (local warp among their tools), a realtime base
+    layer at half and a second at three quarters of the size (scaled
+    references), 10-bit good-quality layers, and the realtime stream with
+    two operating points (all layers; the base alone) whose a1op selects
+    the second.  Needs the system libaom."""
+    rgb = native.decode_one(str(TESTDATA / BASE))
+    planes = _yuv(rgb[100:220, 150:310], "4:2:0")
+
+    def encode(layers, usage, depth=8, **options):
+        ps = deepen(planes, depth) if depth > 8 else planes
+        return aom_encode(None, "4:2:0", usage=usage, bit_depth=depth,
+                          layers=[{"planes": ps, **lay} for lay in layers],
+                          options={"cpu-used": 4 if usage == 0 else 8,
+                                   **options})
+
+    quality = [{"cq_level": q} for q in (50, 30, 10)]
+    realtime = encode([{}] * 3, 1)
+    two = with_operating_points(realtime, [(0x701, 13), (0x101, 13)])
+    a1op = heif_box(b"a1op", bytes([1]))
+
+    def box(obus, depth=8, **kw):
+        return avif_bytes(obus, 160, 120, av1c_bytes("4:2:0", depth),
+                          pixi=(depth,) * 3, **kw)
+
+    return {
+        "avif_layers_key": box(encode([{**q, "flags": 1} for q in quality],
+                                      0)),
+        "avif_layers_realtime": box(realtime),
+        "avif_layers_quality": box(encode(quality, 0)),
+        "avif_layers_scaled": box(encode(
+            [{"scale": (6, 6)}, {"scale": (3, 3)}, {}], 1)),
+        "avif_layers_10bit": box(encode(quality, 0, 10), 10),
+        "avif_layers_ops": box(two, extra_props=((a1op, True),)),
     }
 
 

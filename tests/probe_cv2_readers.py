@@ -7,6 +7,7 @@ record behind ROADMAP §C's entries.
     python tests/probe_cv2_readers.py avif [--files 400]
     python tests/probe_cv2_readers.py avif_depth [--files 400]
     python tests/probe_cv2_readers.py avif_sequence [--files 400]
+    python tests/probe_cv2_readers.py avif_layers [--files 400]
 
 ``fax``: CCITT Group 3 (1-D, 2-D, with and without fill bits), Group 4
 and RLE files that the system libtiff writes (the writer of
@@ -53,6 +54,16 @@ them premultiplied (a prem reference): colour and alpha through
 another depth or size now and then) or through Pillow, with a random
 nclx; a tenth of all with bits flipped.  Prints the counts as ``avif``
 does.
+
+``avif_layers``: seeded layered items through the system libaom's
+spatial layers (``aom_encode``'s ``layers``): crops of the 500x375
+fixture of 32 to 200 pixels a side, 2 or 3 layers, good-quality or
+realtime usage, a cq-level per layer (seven in ten), the lower layers
+scaled (one half .. four fifths, four in ten), 8, 10 or 12 bits, every
+subsampling; a fifth with an lsel of a random layer, a tenth with bits
+flipped.  Each encode runs in a child process (libaom 3.6's encoder
+crashes on some high-bitdepth layered configurations; those are counted
+apart).  Prints the counts as ``avif`` does.
 """
 
 import argparse
@@ -479,10 +490,85 @@ def avif_sequence(files: int) -> None:
         _probe_counts(f"{files} {name}", split)
 
 
+def _in_child(make) -> bytes:
+    """``make()``'s bytes, run in a forked child; b"" where it fails or
+    the child dies."""
+    rfd, wfd = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(rfd)
+        try:
+            out = make()
+        except Exception:
+            out = b""
+        os.write(wfd, out)
+        os._exit(0)
+    os.close(wfd)
+    chunks = []
+    while True:
+        chunk = os.read(rfd, 1 << 16)
+        if not chunk:
+            break
+        chunks.append(chunk)
+    os.close(rfd)
+    _, status = os.waitpid(pid, 0)
+    return b"".join(chunks) if status == 0 else b""
+
+
+def avif_layers(files: int) -> None:
+    from objectdetectionpl_tpu_torch.tools.format_files import (
+        BASE, TESTDATA, _yuv, aom_encode, av1c_bytes, avif_bytes, deepen,
+        heif_box)
+    rgb = native.decode_one(str(TESTDATA / BASE))
+    tmp = Path(tempfile.mkdtemp(prefix="probe_avif_layers_"))
+    split = Counter()
+    for s in range(files):
+        rng = np.random.RandomState(30_000 + s)
+        h, w = rng.randint(32, 201), rng.randint(32, 201)
+        y0, x0 = rng.randint(0, 376 - h), rng.randint(0, 501 - w)
+        sub = str(rng.choice(["4:2:0", "4:2:0", "4:4:4", "4:2:2", "4:0:0"]))
+        depth = int(rng.choice([8, 8, 10, 12]))
+        usage, n = int(rng.randint(2)), int(rng.randint(2, 4))
+        planes = _yuv(rgb[y0:y0 + h, x0:x0 + w],
+                      "4:2:0" if sub == "4:0:0" else sub)
+        planes = planes[:1] if sub == "4:0:0" else planes
+        if depth > 8:
+            planes = deepen(planes, depth)
+        layers = []
+        for k in range(n):
+            lay = {"planes": planes}
+            if rng.rand() < 0.7:
+                lay["cq_level"] = int(rng.randint(5, 60))
+            if k < n - 1 and rng.rand() < 0.4:
+                m = int(rng.choice([1, 2, 3, 4, 6]))
+                lay["scale"] = (m, m)
+            layers.append(lay)
+        options = {"cpu-used": int(rng.randint(0, 7) if usage == 0
+                                   else rng.randint(5, 10))}
+        obus = _in_child(lambda: aom_encode(None, sub, usage=usage,
+                                            layers=layers, options=options,
+                                            bit_depth=depth))
+        if not obus:
+            split["libaom's encoder fails"] += 1
+            continue
+        props = ()
+        if rng.rand() < 0.2:
+            props = ((heif_box(b"lsel", struct.pack(">H", rng.randint(n))),
+                      True),)
+        data = bytearray(avif_bytes(
+            obus, w, h, av1c_bytes(sub, depth),
+            pixi=(depth,) * (1 if sub == "4:0:0" else 3), extra_props=props))
+        if rng.rand() < 0.1:
+            _flip(rng, data)
+        _avif_against_cv2(tmp / f"{s:05d}.avif", bytes(data), split)
+    _probe_counts(f"{files} layered files (libaom 3.6's spatial layers "
+                  f"through ctypes)", split)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=["fax", "gif", "avif", "avif_depth",
-                                      "avif_sequence"])
+                                      "avif_sequence", "avif_layers"])
     ap.add_argument("--seeds", type=int, default=60)
     ap.add_argument("--files", type=int, default=None)
     a = ap.parse_args()
@@ -494,6 +580,8 @@ def main() -> None:
         avif(a.files or 400)
     elif a.probe == "avif_depth":
         avif_depth(a.files or 400)
+    elif a.probe == "avif_layers":
+        avif_layers(a.files or 400)
     else:
         avif_sequence(a.files or 400)
 

@@ -55,9 +55,9 @@ cv2.imwrite and the system libaom write here.
 - image sequences: Pillow's, their first sample read from the colour
   track whatever the meta item, the edit list or the sync samples say,
   an alpha track, the sample tables and edit lists libavif refuses;
-- a layered stream (several operating points), which the port still
-  refuses, raising ``ImageError`` naming the path, "AVIF" and the tool
-  while cv2 reads it;
+- a sequence header with several operating points, which the port once
+  refused and now reads as cv2 does (``test_torch_port_avif_layers.py``
+  holds the layered streams and their inter frames);
 - the tables: the committed ``csrc/av1_tables.h`` is what
   ``tools/av1_tables.py`` reads from libaom.so.3, where it is present.
 """
@@ -1483,9 +1483,9 @@ def _with_operating_points(seq: bytes, points) -> bytes:
 def test_layered_stream_refused_by_name(tmp_path):
     """A sequence header with several operating points (layers): cv2 reads
     it (libavif asks libaom for operating point 0; the frame OBUs have
-    no extension, so every point decodes them), the port refuses it,
-    naming the tool; the same header rewritten with its one point of
-    idc 0 reads as cv2."""
+    no extension, so every point decodes them), and so does the port
+    (it once refused it, naming the tool); the same header rewritten
+    with its one point of idc 0 reads as cv2."""
     obus = _obu_bodies(formats._avif_first_sample(
         _sequence(), _sequence_stbl(_sequence())))
     av1c = bytes([0x81, 0x0D, 0x0C, 0x00])
@@ -1498,10 +1498,7 @@ def test_layered_stream_refused_by_name(tmp_path):
             _obu(6, obus[6])
         path = _file(tmp_path, avif_bytes(stream, 64, 48, av1c),
                      f"layers{i}.avif")
-        assert load_image_rgb(path) is not None
-        with pytest.raises(native.ImageError, match=f"^{path}: AVIF: the AV1 "
-                           "stream uses several operating points or layers"):
-            native.decode_image(path)
+        _same_as_cv2(path)
 
 
 def _sequence_stbl(data) -> dict:
