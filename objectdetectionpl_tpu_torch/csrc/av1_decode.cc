@@ -10,8 +10,11 @@
 // metadata skipped); the sequence header, full or reduced still
 // picture, every profile's colour config, any number of operating
 // points; frame headers of every type (key, inter, intra-only, switch,
-// a frame shown again from a slot) with frame ids, order hints, short
-// reference signalling, sizes from the references, superres, the
+// a frame shown again from a slot) with frame ids, order hints (a slot
+// whose order hint an error-resilient frame does not find filled in with
+// grey for a lost frame, in the buffer libaom's buffer pool would give
+// it, with that buffer's earlier frame's state), short reference
+// signalling, sizes from the references, superres, the
 // quantizer, segmentation (updated or from the primary reference),
 // delta q / lf, loop filter with reference and mode deltas, CDEF,
 // restoration, tx mode, reference select, skip mode, global motion
@@ -26,22 +29,24 @@
 // NEAREST / NEAR / GLOBAL / NEW modes and their compound pairs, the
 // DRL index, vectors at every precision, the projected motion field,
 // switchable and dual interpolation filters, OBMC, local warp
-// (libaom's sample selection and least squares), inter-intra (smooth
+// (libaom's sample selection and least squares), global motion (GLOBALMV
+// blocks warped by the reference's model), inter-intra (smooth
 // and wedge), compound average, distance, wedge and difference-weighted
 // masks, the var-tx tree; prediction by the 8-tap filters (4-tap for
-// narrow blocks) through scaled references, the warp filter, and a
-// 4-sample block's chroma from each covered block; tx size and type,
-// the loop restoration units, every coefficient; dequantization with or
-// without quantizer matrices; the DCT 4..64, ADST 4..16 (flipped too),
-// identity and the lossless WHT; then the stages after the tiles: the
-// deblocking filter (inter frames' skip and level rules), CDEF, superres
-// (libaom's per-tile-column upscaling), loop restoration and, on the
-// output only, film grain synthesis.  Pixels are uint16 at the stream's
-// bit depth, 8, 10 or 12.
+// narrow blocks) through scaled references (compound ones too), the
+// warp filter, and a 4-sample block's chroma from each covered block;
+// tx size and type, the loop restoration units, every coefficient;
+// dequantization with or without quantizer matrices; the DCT 4..64, ADST
+// 4..16 (flipped too), identity and the lossless WHT; then the stages
+// after the tiles: the deblocking filter (inter frames' skip and level
+// rules), CDEF, superres (libaom's per-tile-column upscaling), loop
+// restoration and, on the output only, film grain synthesis.  Pixels are
+// uint16 at the stream's bit depth, 8, 10 or 12.
 //
-// What it refuses, naming the tool: compound prediction from a scaled
-// reference, a warped global motion block, a reference slot libaom
-// would fill with grey for a lost frame.
+// What it refuses, naming the tool: under an lsel, a frame that reads
+// more of a slot filled in for a lost frame than its samples (libavif
+// then asks libaom for every layer, whose output frames hold buffers
+// longer).
 // As libaom (cv2's AV1 decoder) it refuses an unsized OBU, an OBU whose
 // trailing bits are missing, a header whose trailing bits are not a 1
 // then zeros (or with other than zero bytes after them) or whose
@@ -69,6 +74,10 @@
 //     for a monochrome stream), row-major; counts[0..AV1_COUNTS) (or
 //     null) gets what the stream used (data/native.py's AV1_COUNTS).
 // Both return 0, or 1 with the reason in msg.
+//   av1_frame_marks(data, len, operating_point, out, max, msg, msg_len)
+//     where each frame header lies, for the writers that rewrite one
+//     (tools/format_files.py::with_global_motion): the number of headers,
+//     or -1 with the reason in msg.
 
 #include <algorithm>
 #include <array>
@@ -84,7 +93,7 @@
 
 namespace {
 
-constexpr int AV1_COUNTS = 20;
+constexpr int AV1_COUNTS = 25;
 
 struct Fail {
   std::string msg;
@@ -1029,7 +1038,12 @@ struct FrameBuf {
 
 // A reference slot (spec 7.20): what later frames read of a frame
 struct RefSlot {
-  bool valid = false;
+  // valid for referencing (libaom's valid_for_referencing), holding a
+  // frame (its ref_frame_map entry), grey for a lost frame; blank: the
+  // state of a libaom buffer no frame has used (zeros: no entropy
+  // context, no film grain)
+  bool valid = false, held = false, grey = false, blank = false;
+  int fb = -1;     // its libaom frame buffer (Decoder::pool)
   int frame_id = 0, frame_type = 0, order_hint = 0, showable = 0;
   int spatial_id = 0;
   int upscaled_w = 0, frame_w = 0, frame_h = 0, render_w = 0, render_h = 0;
@@ -1107,7 +1121,9 @@ struct Decoder {
       interintra_blocks = 0, scaled_blocks = 0,
       temporal_mvs = 0, dual_filter_blocks = 0,
       wedge_blocks = 0, diffwtd_blocks = 0, distance_blocks = 0,
-      wedge_interintra_blocks = 0, frames = 0;
+      wedge_interintra_blocks = 0, frames = 0, scaled_compound_blocks = 0,
+      global_warp_blocks = 0, global_shift_blocks = 0, grey_slots = 0,
+      grey_blocks = 0;
 
   // frame header
   int frame_w = 0, frame_h = 0, mi_cols = 0, mi_rows = 0;
@@ -1393,6 +1409,12 @@ struct Decoder {
           r.f(frame_presentation_time_length);
         const int display_frame_id = frame_id_numbers_present ? r.f(id_len) : 0;
         const RefSlot& slot = refs[idx];
+        refuse_grey(slot, "shows again");
+        // assign_frame_buffer_p: the frame's own buffer back, the slot's
+        // taken
+        release_fb(cur_fb);
+        cur_fb = slot.fb;
+        if (cur_fb >= 0) ++pool[cur_fb].ref;
         if (!slot.valid || !slot.showable)
           fail("the AV1 stream shows a reference slot that holds no "
                "showable frame (cv2 refuses it)");
@@ -1456,9 +1478,10 @@ struct Decoder {
            "reference slot (cv2 refuses it)");
     if ((!frame_is_intra || refresh_frame_flags != 0xFF) &&
         error_resilient_mode && enable_order_hint)
-      for (int i = 0; i < NUM_REF_FRAMES; ++i)
-        if (int(r.f(order_hint_bits)) != refs[i].order_hint || !refs[i].valid)
-          refuse("a reference slot filled in for a lost frame");
+      for (int i = 0; i < NUM_REF_FRAMES; ++i) {
+        const int hint = int(r.f(order_hint_bits));
+        if (hint != refs[i].order_hint || !refs[i].held) fill_grey(i, hint);
+      }
     if (frame_is_intra) {
       frame_size(r, frame_size_override);
       render_size(r);
@@ -1524,6 +1547,10 @@ struct Decoder {
       setup_past_independence();
     } else {
       const RefSlot& prev = refs[ref_frame_idx[primary_ref_frame]];
+      refuse_grey(prev, "takes its primary reference frame from");
+      if (prev.blank)
+        fail("the AV1 stream's primary reference frame has no entropy "
+             "context (cv2 refuses it)");
       if (prev.cdf) frame_cdf = *prev.cdf;
       std::memcpy(prev_gm_params, prev.gm_params, sizeof(prev_gm_params));
       std::memcpy(lf_ref_deltas, prev.lf_ref_deltas, sizeof(lf_ref_deltas));
@@ -1567,7 +1594,9 @@ struct Decoder {
                                   !enable_warped_motion
                               ? 0 : r.f(1);
     reduced_tx_set = r.f(1);
+    gm_bits[0] = int(r.pos);
     global_motion_params(r);
+    gm_bits[1] = int(r.pos);
     film_grain_params(r);
     have_frame = true;
   }
@@ -1598,6 +1627,90 @@ struct Decoder {
         slot.valid = false;
       }
     }
+  }
+
+  // libaom's frame buffers (BufferPool's frame_bufs, FRAME_BUFFERS of
+  // them, zeros at first): each one's reference count and the state of
+  // the frame last decoded into it.  A frame takes the first free buffer
+  // (get_free_fb); the slots it refreshes and the output frame (the
+  // last shown, output_all_layers off) hold references, as
+  // update_frame_buffers and assign_frame_buffer_p count them.  Only a
+  // slot filled in for a lost frame shows which buffer a frame got.
+  struct PoolBuf {
+    int ref = 0;
+    std::shared_ptr<RefSlot> state;     // null: never used
+  };
+  static constexpr int FRAME_BUFFERS = 16;
+  PoolBuf pool[FRAME_BUFFERS];
+  int cur_fb = -1, out_fb = -1;
+
+  int get_free_fb() {
+    for (int i = 0; i < FRAME_BUFFERS; ++i)
+      if (pool[i].ref == 0) {
+        pool[i].ref = 1;
+        return i;
+      }
+    fail("the AV1 stream holds more frames than libaom's buffers (cv2 "
+         "refuses it)");
+  }
+
+  void release_fb(int fb) {
+    if (fb >= 0) --pool[fb].ref;
+  }
+
+  // libaom's slot for a lost frame (ref_order_hint[i] unlike the slot's,
+  // or an empty slot, in an error-resilient frame): the slot's buffer
+  // released, the first free one taken and filled with a frame of the
+  // sequence's largest size, every plane at 1 << (BitDepth - 1), the
+  // order hint given; its frame id and validity for referencing stay the
+  // slot's.  The rest of its state (frame type, motion field, entropy
+  // context, global motion, loop filter deltas, segmentation, film grain,
+  // showable) is that of the frame the buffer held before, or blank.
+  // Under an lsel (libavif asks libaom for every layer, whose output
+  // frames hold buffers longer) a frame that reads that state is
+  // refused by name.
+  void fill_grey(int i, int hint) {
+    if (refs[i].held) release_fb(refs[i].fb);
+    const int fb = get_free_fb();
+    RefSlot g;
+    if (pool[fb].state) {
+      g = *pool[fb].state;
+    } else {
+      g.blank = true;
+      std::fill(g.lf_ref_deltas, g.lf_ref_deltas + 8, 0);
+      g.grain.scaling_shift = 0;
+    }
+    g.valid = refs[i].valid;
+    g.frame_id = refs[i].frame_id;
+    g.held = g.grey = true;
+    g.fb = fb;
+    g.order_hint = hint;
+    g.upscaled_w = g.frame_w = max_w;
+    g.frame_h = max_h;
+    g.bit_depth = bit_depth;
+    g.ssx = ssx;
+    g.ssy = ssy;
+    if (int64_t(max_w) * max_h > (int64_t(1) << 30))      // cv2's limit
+      fail("a lost frame's " + std::to_string(max_w) + "x" +
+           std::to_string(max_h) + " slot, larger than cv2 reads");
+    g.buf = std::make_shared<FrameBuf>();
+    for (int p = 0; p < num_planes; ++p) {
+      const int sx = p ? ssx : 0, sy = p ? ssy : 0;
+      Plane& P = g.buf->planes[p];
+      P.stride = (max_w + sx) >> sx;
+      P.rows = (max_h + sy) >> sy;
+      P.px.assign(size_t(P.stride) * P.rows, uint16_t(1 << (bit_depth - 1)));
+    }
+    refs[i] = g;
+    pool[fb].state = std::make_shared<RefSlot>(g);
+    ++grey_slots;
+  }
+
+  void refuse_grey(const RefSlot& slot, const char* use) const {
+    if (slot.grey && select_layer >= 0)
+      fail(std::string("the AV1 stream ") + use +
+           " a reference slot filled in for a lost frame under an lsel, "
+           "which the port does not read");
   }
 
   void frame_size(BitReader& r, int override_flag) {
@@ -1893,6 +2006,10 @@ struct Decoder {
         fail("the AV1 stream takes film grain from a frame it does not "
              "refer to (cv2 refuses it)");
       const int seed = g.seed;
+      refuse_grey(refs[idx], "takes its film grain from");
+      if (refs[idx].blank)
+        fail("the AV1 stream takes film grain from a frame without it "
+             "(cv2 refuses it)");
       g = refs[idx].grain;
       g.seed = seed;
       return;
@@ -3240,14 +3357,16 @@ struct Decoder {
         }
       }
     };
+    // both scans as far as the block's shorter side (libaom's mi_size)
+    const int msz = std::min(mw, mh);
     if (avail_u)
-      for (int i = 0; i < mw;) {
+      for (int i = 0; i < msz;) {
         const size_t k = mi(mi_row - 1, mi_col + i);
         process(k);
         i += kWide4[mi_sizes[k]];
       }
     if (avail_l)
-      for (int i = 0; i < mh;) {
+      for (int i = 0; i < msz;) {
         const size_t k = mi(mi_row + i, mi_col - 1);
         process(k);
         i += kHigh4[mi_sizes[k]];
@@ -4127,8 +4246,13 @@ struct Decoder {
         warp_pred(p, ref, local_warp, x, y, w, h, compound, out);
         return;
       }
-      if (is_global_block(y_mode, mi_size, ref) && gm_valid[ref])
-        refuse("global motion warp prediction");
+      // global motion (av1_allow_warp): the model's own warp where its
+      // shear is valid, else the block's vector from it
+      if (is_global_block(y_mode, mi_size, ref) && gm_valid[ref]) {
+        global_warped = true;
+        warp_pred(p, ref, gm_params[ref], x, y, w, h, compound, out);
+        return;
+      }
     }
     block_pred(p, ref, mvb[l], x, y, w, h, interp, compound, out);
   }
@@ -4139,11 +4263,15 @@ struct Decoder {
     return x_scale[ref] != 1 << REF_SCALE_SHIFT || y_scale[ref] != 1 << REF_SCALE_SHIFT;
   }
 
+  bool global_warped = false;    // the block warped by global motion
+
   void predict_inter() {
     const bool compound = ref_frame[1] > INTRA_FRAME;
+    global_warped = false;
     scaled_blocks += scaled(ref_frame[0]) || (compound && scaled(ref_frame[1]));
-    if (compound && (scaled(ref_frame[0]) || scaled(ref_frame[1])))
-      refuse("compound prediction from a scaled reference");
+    scaled_compound_blocks += compound && (scaled(ref_frame[0]) || scaled(ref_frame[1]));
+    grey_blocks += refs[ref_frame_idx[ref_frame[0] - LAST_FRAME]].grey ||
+                   (compound && refs[ref_frame_idx[ref_frame[1] - LAST_FRAME]].grey);
     const int maxv = (1 << bit_depth) - 1;
     for (int p = 0; p < 1 + 2 * has_chroma; ++p) {
       const int sx = p ? ssx : 0, sy = p ? ssy : 0;
@@ -4208,6 +4336,10 @@ struct Decoder {
       if (interintra) blend_interintra(p, x0, y0, w, h, psz);
     }
     if (motion_mode == OBMC) obmc();
+    global_warp_blocks += global_warped;
+    global_shift_blocks += !global_warped &&
+                           (y_mode == GLOBALMV || y_mode == GLOBAL_GLOBALMV) &&
+                           gm_type[ref_frame[0]] > IDENTITY;
   }
 
   // av1_dist_wtd_comp_weight_assign
@@ -6216,6 +6348,7 @@ struct Decoder {
     mf_offset.assign(cells, 0);
     int stamp = MFMV_STACK_SIZE - 1;
     const RefSlot& last = refs[ref_frame_idx[0]];
+    refuse_grey(last, "projects its motion field from");
     if (last.saved_order_hints[ALTREF_FRAME] != order_hints[GOLDEN_FRAME])
       project_field(LAST_FRAME, 2);
     --stamp;
@@ -6233,6 +6366,7 @@ struct Decoder {
 
   bool project_field(int src, int dir) {
     const RefSlot& slot = refs[ref_frame_idx[src - LAST_FRAME]];
+    refuse_grey(slot, "projects its motion field from");
     if (slot.frame_type == KEY_FRAME || slot.frame_type == INTRA_ONLY_FRAME)
       return false;
     if (slot.mi_rows != mi_rows || slot.mi_cols != mi_cols || !slot.mf_refs)
@@ -6283,12 +6417,13 @@ struct Decoder {
       const RefSlot slot = refs[existing_slot];
       show(slot.buf, slot.grain, slot.upscaled_w, slot.frame_h, slot.spatial_id);
       ++shown_existing;
-      if (frame_type == KEY_FRAME)
-        for (RefSlot& r : refs) r = slot;
+      if (frame_type == KEY_FRAME) refresh(slot, 0xFF);
+      output_fb();
       return;
     }
     RefSlot slot;
-    slot.valid = true;
+    slot.valid = slot.held = true;
+    slot.fb = cur_fb;
     slot.frame_id = current_frame_id;
     slot.frame_type = frame_type;
     slot.order_hint = order_hint;
@@ -6345,10 +6480,33 @@ struct Decoder {
       slot.mf_refs = refs8;
       slot.mf_mvs = mvs8;
     }
-    for (int i = 0; i < NUM_REF_FRAMES; ++i)
-      if ((refresh_frame_flags >> i) & 1) refs[i] = slot;
-    if (show_frame) show(slot.buf, grain, upscaled_w, frame_h, frame_spatial_id);
+    pool[cur_fb].state = std::make_shared<RefSlot>(slot);
+    refresh(slot, refresh_frame_flags);
+    if (show_frame) {
+      show(slot.buf, grain, upscaled_w, frame_h, frame_spatial_id);
+      output_fb();
+    } else {
+      release_fb(cur_fb);
+      cur_fb = -1;
+    }
     inter_frames += !frame_is_intra;
+  }
+
+  // update_frame_buffers: the refreshed slots hold the frame's buffer
+  void refresh(const RefSlot& slot, int flags) {
+    for (int i = 0; i < NUM_REF_FRAMES; ++i)
+      if ((flags >> i) & 1) {
+        if (refs[i].held) release_fb(refs[i].fb);
+        refs[i] = slot;
+        if (slot.fb >= 0) ++pool[slot.fb].ref;
+      }
+  }
+
+  // ... and the output frame holds it in place of the one before
+  void output_fb() {
+    release_fb(out_fb);
+    out_fb = cur_fb;
+    cur_fb = -1;
   }
 
   // a shown frame: the output if it is the last (libaom with
@@ -6364,6 +6522,10 @@ struct Decoder {
     shown_w = w;
     shown_h = h;
   }
+
+  // where each frame header lies (av1_frame_marks), when asked
+  std::vector<int32_t>* marks = nullptr;
+  int gm_bits[2] = {0, 0};
 
   // The OBUs of the item, as libaom takes them (libavif hands it the
   // item's data; the av1C's config OBUs are not read): every OBU with its
@@ -6386,6 +6548,7 @@ struct Decoder {
       }
       after_frame = false;
       const int frames_before = frames;
+      const size_t obu_at = at;
       const uint8_t h = d[at++];
       if (h & 0x80)
         fail("the AV1 stream has an OBU with its forbidden bit set");
@@ -6422,8 +6585,15 @@ struct Decoder {
                  "refuses it)");
           have_frame = frame_done = false;
           next_tile = 0;
+          gm_bits[0] = gm_bits[1] = -1;
+          cur_fb = get_free_fb();     // assign_cur_frame_new_fb
           frame_header(r, temporal_id, spatial_id);
           have_frame = true;
+          if (marks)
+            marks->insert(marks->end(),
+                          {int32_t(obu_at), int32_t(body - d), int32_t(size),
+                           gm_bits[0], gm_bits[1], int32_t(r.pos), type,
+                           frame_type | allow_high_precision_mv << 2});
           if (show_existing_frame) {
             if (type == 6)
               fail("the AV1 stream's frame OBU shows an existing frame (cv2 "
@@ -6484,6 +6654,30 @@ struct Decoder {
 }  // namespace
 
 extern "C" {
+
+// the frame headers of the stream (the operating point's), up to max:
+// eight int32 each (the OBU's offset, its payload's offset and size, the
+// bits of global_motion_params in the payload [start, end) or -1, the
+// header's end bit, the OBU type, frame_type | allow_high_precision_mv
+// << 2); the number of headers, or -1 with the reason
+int av1_frame_marks(const uint8_t* data, int64_t len, int operating_point,
+                    int32_t* out, int max, char* msg, int msg_len) {
+  try {
+    std::vector<int32_t> marks;
+    Decoder dec;
+    dec.operating_point = operating_point;
+    dec.marks = &marks;
+    dec.run(data, static_cast<size_t>(len), true);
+    const int n = int(marks.size() / 8);
+    std::memcpy(out, marks.data(), sizeof(int32_t) * 8 * std::min(n, max));
+    return n;
+  } catch (const Fail& f) {
+    set_msg(msg, msg_len, f.msg);
+  } catch (const std::bad_alloc&) {
+    set_msg(msg, msg_len, "out of memory");
+  }
+  return -1;
+}
 
 int av1_probe(const uint8_t* data, int64_t len, int operating_point,
               int layer, int32_t* info, char* msg, int msg_len) {
@@ -6546,7 +6740,9 @@ int av1_decode(const uint8_t* data, int64_t len, int operating_point,
           dec.interintra_blocks, dec.scaled_blocks,
           dec.temporal_mvs, dec.dual_filter_blocks,
           dec.wedge_blocks, dec.diffwtd_blocks, dec.distance_blocks,
-          dec.wedge_interintra_blocks};
+          dec.wedge_interintra_blocks, dec.scaled_compound_blocks,
+          dec.global_warp_blocks, dec.global_shift_blocks, dec.grey_slots,
+          dec.grey_blocks};
       std::memcpy(counts, c, sizeof(c));
     }
     return 0;

@@ -1719,9 +1719,11 @@ _AVIF_KNOWN = (b"ispe", b"auxC", b"colr", b"av1C", b"pasp", b"clap",
                b"irot", b"imir", b"pixi", b"a1op", b"lsel", b"a1lx", b"clli")
 
 
-def _avif_props(data: bytes, meta: dict, item: int) -> dict:
+def _avif_props(data: bytes, meta: dict, item: int,
+                unknown_ok: bool = False) -> dict:
     """The properties associated with an item: kind -> (body start, end),
-    the first of each kind; FormatError where libavif refuses them."""
+    the first of each kind; FormatError where libavif refuses them (but
+    for an essential property it does not know with ``unknown_ok``)."""
     out = {}
     for index, essential in meta["ipma"].get(item, []):
         if index == 0:
@@ -1729,7 +1731,8 @@ def _avif_props(data: bytes, meta: dict, item: int) -> dict:
         if index > len(meta["props"]):
             raise FormatError(f"item {item}'s property {index} is missing")
         kind, at, stop = meta["props"][index - 1]
-        if essential and (kind not in _AVIF_KNOWN or kind == b"a1lx"):
+        if essential and not unknown_ok and (kind not in _AVIF_KNOWN
+                                             or kind == b"a1lx"):
             raise FormatError(f"an essential {kind!r} property (cv2 "
                               f"refuses it)")
         if kind == b"colr" and data[at:at + 4] == b"nclx":
@@ -1852,35 +1855,33 @@ def _avif_grid_tiles(data: bytes, meta: dict, item: int) -> list:
     no image): a tile that is not av01, one with an essential property
     libavif does not know, one without av1C or ispe, av1C fields
     (profile, level, tier, depth, monochrome, subsampling, chroma
-    position) unlike the first tile's."""
-    tiles = []
-    for ref, src, dst in meta["iref"]:
-        if ref != b"dimg" or src != item:
-            continue
-        if meta["infe"].get(dst) != b"av01":
-            raise FormatError(f"grid tile {dst} is not an av01 item (cv2 "
-                              f"refuses it)")
-        props = _avif_props(data, meta, dst)
-        for box in (b"av1C", b"ispe"):
-            if box not in props:
-                raise FormatError(f"grid tile {dst} has no {box.decode()} "
-                                  f"(cv2 refuses it)")
-        tiles.append((dst, props))
+    position) unlike the first tile's (:func:`_avif_grid`)."""
+    tiles = [(dst, _avif_tile_props(data, meta, dst))
+             for ref, src, dst in meta["iref"]
+             if ref == b"dimg" and src == item]
     if not tiles:
         raise FormatError("a grid without tiles (cv2 refuses it)")
-    fields = [data[a + 1:a + 3] for a, _ in (p[b"av1C"] for _, p in tiles)]
-    if any(f != fields[0] for f in fields):
-        raise FormatError("grid tiles whose av1C differ (cv2 refuses them)")
     return tiles
 
 
-def _avif_grid(data: bytes, meta: dict, item: int, tiles: list, av1):
-    """A grid item's planes as libavif assembles them: the ImageGrid body
-    (version 0; flag bit 0 for 32-bit output sizes) over rows x columns
-    tiles of one size, checked as libavif checks them (MIAF's: tiles of
-    at least 64x64, even sizes where chroma is subsampled; the output
-    covered, and each last row and column inside it), each tile decoded
-    by ``av1`` and copied in, the whole cropped to the output size."""
+def _avif_tile_props(data: bytes, meta: dict, tile: int) -> dict:
+    """A grid tile's properties; FormatError where libavif refuses the
+    tile: not av01, an essential property it does not know, no av1C or
+    ispe."""
+    if meta["infe"].get(tile) != b"av01":
+        raise FormatError(f"grid tile {tile} is not an av01 item (cv2 "
+                          f"refuses it)")
+    props = _avif_props(data, meta, tile)
+    for box in (b"av1C", b"ispe"):
+        if box not in props:
+            raise FormatError(f"grid tile {tile} has no {box.decode()} "
+                              f"(cv2 refuses it)")
+    return props
+
+
+def _avif_grid_layout(data: bytes, meta: dict, item: int) -> tuple:
+    """A grid item's ImageGrid body (version 0; flag bit 0 for 32-bit
+    output sizes): (rows, columns, output width, output height)."""
     grid = _avif_item_data(data, meta, item)
     body = _Reader(grid, 0, len(grid), "grid")
     version, flags = body.uint(1), body.uint(1)
@@ -1893,6 +1894,20 @@ def _avif_grid(data: bytes, meta: dict, item: int, tiles: list, av1):
     if body.pos != body.end or not out_w or not out_h:
         raise FormatError("a malformed ImageGrid (cv2 refuses it)")
     check_size(out_w, out_h)
+    return rows, cols, out_w, out_h
+
+
+def _avif_grid(data: bytes, meta: dict, tiles: list, layout: tuple, av1):
+    """A grid's planes as libavif assembles them: the layout's (rows,
+    columns, output width, height; :func:`_avif_grid_layout`) tiles of
+    one size, checked as libavif checks them (MIAF's: tiles of at least
+    64x64, even sizes where chroma is subsampled; the output covered,
+    and each last row and column inside it), each tile decoded by
+    ``av1`` and copied in, the whole cropped to the output size."""
+    rows, cols, out_w, out_h = layout
+    fields = [data[a + 1:a + 3] for a, _ in (p[b"av1C"] for _, p in tiles)]
+    if any(f != fields[0] for f in fields):
+        raise FormatError("grid tiles whose av1C differ (cv2 refuses them)")
     if len(tiles) != rows * cols:
         raise FormatError(f"a {rows}x{cols} grid of {len(tiles)} tiles (cv2 "
                           f"refuses it)")
@@ -1945,31 +1960,57 @@ _ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
 
 
 def _avif_alpha_item(data: bytes, meta: dict, item: int):
-    """The colour item's alpha item as libavif finds it, or None: the
-    first item (in iloc's order) with data whose last auxl reference
-    names the colour item and whose auxC names alpha, skipping those
-    with an essential property libavif does not know.  Also whether a
-    grid's tiles have alpha items of their own (libavif assembles them
-    into an alpha grid)."""
+    """The colour item's alpha as libavif finds it (avifDecoderDataFind-
+    AlphaItem): (the first item, in iloc's order, with data whose last
+    auxl reference names the colour item and whose auxC names alpha,
+    skipping those with an essential property libavif does not know;
+    None) or, for a grid whose every tile has such an alpha item, (None,
+    those items in the tiles' iloc order: libavif's alpha grid, laid
+    out as the colour grid); (None, None) without alpha.  FormatError
+    where a tile has two alpha items or its alpha item is itself a grid
+    tile (libavif's invalid grid)."""
     aux = {}
     for ref, src, dst in meta["iref"]:
         if ref == b"auxl":
             aux[src] = dst
+
+    def is_alpha(cand, strict):
+        if strict:
+            try:
+                props = _avif_props(data, meta, cand)
+            except FormatError:
+                return False
+        else:
+            props = _avif_props(data, meta, cand, unknown_ok=True)
+        if b"auxC" not in props:
+            return False
+        at, stop = props[b"auxC"]
+        return data[at + 4:stop].split(b"\0", 1)[0] in _ALPHA_URNS
+
     for cand, (_, extents) in meta["iloc"].items():
-        if aux.get(cand) != item or not sum(n for _, n in extents):
+        if aux.get(cand) == item and sum(n for _, n in extents) and \
+                is_alpha(cand, True):
+            return cand, None
+    if meta["infe"].get(item) != b"grid":
+        return None, None
+    # libavif's items in their order (iloc's, then the others), each
+    # tile's grid the last dimg naming it
+    order = list(meta["iloc"]) + [i for i in meta["infe"]
+                                  if i not in meta["iloc"]]
+    grid_of = {dst: src for ref, src, dst in meta["iref"] if ref == b"dimg"}
+    alphas = []
+    for tile in order:
+        if grid_of.get(tile) != item:
             continue
-        try:
-            props = _avif_props(data, meta, cand)
-        except FormatError:
-            continue
-        if b"auxC" in props:
-            at, stop = props[b"auxC"]
-            urn = data[at + 4:stop].split(b"\0", 1)[0]
-            if urn in _ALPHA_URNS:
-                return cand, False
-    tiles = {dst for ref, src, dst in meta["iref"]
-             if ref == b"dimg" and src == item}
-    return None, any(aux.get(a) in tiles for a in aux)
+        found = [a for a in order
+                 if aux.get(a) == tile and is_alpha(a, False)]
+        if len(found) > 1 or (found and found[0] in grid_of):
+            raise FormatError("a grid tile whose alpha items libavif "
+                              "refuses (cv2 refuses it)")
+        if not found:
+            return None, None
+        alphas.append(found[0])
+    return None, alphas or None
 
 
 def _limited_to_full(a: np.ndarray, depth: int) -> np.ndarray:
@@ -2253,13 +2294,15 @@ def read_avif(data: bytes, av1) -> np.ndarray:
     primary item is assembled from its av01 tiles as libavif does
     (:func:`_avif_grid`), then converted as a whole (the chroma
     upsampling reads across the tiles' seams); its own ispe, colr and
-    pixi apply.  libavif reads the tracks of an avis major brand, or of
-    a moov box under a major brand that is neither (:func:`_avif_sequence`:
-    the first sample of the colour track, an auxl track its alpha).
+    pixi apply; alpha items on each of its tiles make libavif's alpha
+    grid (:func:`_avif_alpha_item`), premultiplied where the colour
+    grid's prem reference names that new item.  libavif reads the tracks
+    of an avis major brand, or of a moov box under a major brand that is
+    neither (:func:`_avif_sequence`: the first sample of the colour
+    track, an auxl track its alpha).
     Refused, naming themselves: an ispe that is not the AV1 frame's (or
     the grid's output) size, a track size that is not its first
-    frame's, premultiplied alpha of another size than the image, alpha
-    items on a grid's tiles at 10 or 12 bits or premultiplied."""
+    frame's, premultiplied alpha of another size than the image."""
     boxes = _jp2_boxes(data, 0, len(data))
     first = next(boxes, None)
     if first is None or first[0] != b"ftyp":
@@ -2329,29 +2372,38 @@ def read_avif(data: bytes, av1) -> np.ndarray:
     if tiles is None:
         planes, info = _avif_decode_item(data, meta, item, props, av1)
     else:
-        planes, info = _avif_grid(data, meta, item, tiles, av1)
+        layout = _avif_grid_layout(data, meta, item)
+        planes, info = _avif_grid(data, meta, tiles, layout, av1)
     if planes[0].shape[::-1] != size:       # cv2 refuses it for a grid
         raise FormatError(f"ispe's {size[0]}x{size[1]} is not the "
                           f"{'grid' if tiles else 'AV1 frame'}'s "
                           f"{planes[0].shape[1]}x{planes[0].shape[0]}")
-    alpha_item, on_tiles = _avif_alpha_item(data, meta, item)
+    alpha_item, tile_alphas = _avif_alpha_item(data, meta, item)
     # the colour item's last prem reference names its alpha item
     prem_by = [dst for ref, src, dst in meta["iref"]
                if ref == b"prem" and src == item]
-    if on_tiles and (info["bit_depth"] > 8 or prem_by):
-        # at 8 bits, not premultiplied, the colours are the same
-        raise FormatError("alpha items on a grid's tiles at 10 or 12 bits "
-                          "or premultiplied, which the port does not read")
     alpha, prem = None, False
-    if alpha_item is not None:
+    if tile_alphas is not None:
+        # libavif's alpha grid: a new item (the largest id of the items
+        # it made, from iloc, iinf, a reference's source or a dimg's
+        # tile, + 1) of the colour grid's layout over the tiles' alphas
+        alpha = _avif_grid(data, meta, [
+            (a, _avif_tile_props(data, meta, a)) for a in tile_alphas],
+            layout, av1)
+        ids = set(meta["iloc"]) | set(meta["infe"]) | {
+            i for ref, src, dst in meta["iref"]
+            for i in ((src, dst) if ref == b"dimg" else (src,))}
+        prem = bool(prem_by) and prem_by[-1] == max(ids) + 1
+    elif alpha_item is not None:
         a_kind = meta["infe"].get(alpha_item)
         if a_kind == b"av01":
             alpha = _avif_decode_item(data, meta, alpha_item,
                                       _avif_props(data, meta, alpha_item),
                                       av1)
         elif a_kind == b"grid":
-            alpha = _avif_grid(data, meta, alpha_item, _avif_grid_tiles(
-                data, meta, alpha_item), av1)
+            alpha = _avif_grid(data, meta, _avif_grid_tiles(
+                data, meta, alpha_item), _avif_grid_layout(
+                    data, meta, alpha_item), av1)
         else:
             raise FormatError(f"an alpha item of type {a_kind!r} (cv2 "
                               f"refuses it)")

@@ -226,6 +226,9 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.av1_decode.argtypes = [u8p, ctypes.c_int64, ci, ci, u16p, u16p,
                                u16p, i32p, ctypes.c_char_p, ci]
     lib.av1_decode.restype = ci
+    lib.av1_frame_marks.argtypes = [u8p, ctypes.c_int64, ci, i32p, ci,
+                                    ctypes.c_char_p, ci]
+    lib.av1_frame_marks.restype = ci
     _lib = lib
     return _lib
 
@@ -604,7 +607,9 @@ AV1_COUNTS = ("palette_y_blocks", "palette_uv_blocks", "palette_sizes",
               "interintra_blocks", "scaled_blocks",
               "temporal_mvs", "dual_filter_blocks",
               "wedge_compound_blocks", "diffwtd_compound_blocks",
-              "distance_blocks", "wedge_interintra_blocks")
+              "distance_blocks", "wedge_interintra_blocks",
+              "scaled_compound_blocks", "global_warp_blocks",
+              "global_shift_blocks", "grey_slots", "grey_blocks")
 
 
 def av1_probe(stream: bytes, operating_point: int = 0,
@@ -629,6 +634,42 @@ def av1_probe(stream: bytes, operating_point: int = 0,
     return dict(zip(AV1_INFO, (int(v) for v in info)))
 
 
+AV1_MARKS = ("obu", "payload", "size", "gm_start", "gm_end", "header_end",
+             "obu_type", "flags")
+
+
+def av1_frame_marks(stream: bytes, operating_point: int = 0) -> list:
+    """Where each frame header of an AV1 item's OBUs lies, by
+    ``csrc/av1_decode.cc``'s ``av1_frame_marks``: one dict a header, in
+    stream order, of ``AV1_MARKS`` (the OBU's byte offset, its payload's
+    offset and size, the payload bits [gm_start, gm_end) of
+    global_motion_params, -1 in a frame shown again, and the header's
+    end bit) with ``frame_type`` and ``high_precision_mv``
+    (allow_high_precision_mv) from the flags.  For
+    the writers that rewrite a header (``tools/format_files.py``);
+    FormatError where the headers do not parse."""
+    lib = _lib_or_raise()
+    src = np.frombuffer(stream or bytes(1), np.uint8)
+    cap = 64
+    while True:
+        out = np.zeros((cap, len(AV1_MARKS)), np.int32)
+        msg = ctypes.create_string_buffer(MSG_LEN)
+        n = lib.av1_frame_marks(_u8(src), len(stream), operating_point,
+                                _i32(out), cap, msg, MSG_LEN)
+        if n < 0:
+            raise _format_error(msg)
+        if n <= cap:
+            break
+        cap = n
+    marks = []
+    for row in out[:n]:
+        m = dict(zip(AV1_MARKS, (int(v) for v in row)))
+        f = m.pop("flags")
+        m.update(frame_type=f & 3, high_precision_mv=f >> 2 & 1)
+        marks.append(m)
+    return marks
+
+
 def _av1(stream: bytes, operating_point: int = 0, layer: int = -1):
     """An AV1 item's OBUs -> ([Y, U, V] uint16 planes at the stream's bit
     depth, or [Y] for a monochrome stream, of the frame libaom hands
@@ -641,9 +682,12 @@ def _av1(stream: bytes, operating_point: int = 0, layer: int = -1):
     slot, inter, compound, OBMC, local-warp, inter-intra and
     scaled-reference blocks, temporal vector candidates, blocks with
     two different interpolation filters, wedge,
-    difference-weighted and distance-weighted compound blocks and wedge
-    inter-intra blocks), by
-    ``csrc/av1_decode.cc``; FormatError with the tool it refuses."""
+    difference-weighted and distance-weighted compound blocks, wedge
+    inter-intra blocks, compound blocks from a scaled reference, GLOBALMV
+    blocks warped by their reference's global motion and those moved by
+    it, slots filled in for a lost frame and blocks predicted from
+    them), by ``csrc/av1_decode.cc``; FormatError with the tool it
+    refuses."""
     lib = _lib_or_raise()
     src = np.frombuffer(stream or bytes(1), np.uint8)
     info = av1_probe(stream, operating_point, layer)

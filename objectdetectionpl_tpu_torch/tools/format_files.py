@@ -36,10 +36,12 @@ inside a larger screen with a local table and a transparent index); a
 P6 PPM, a 16-bit ASCII P2 PGM, a P7 PAM (TUPLTYPE RGB), a PF PFM
 (scale -0.5); Sun rasters (24-bit, 8-bit with a colour map); a Radiance
 HDR of RLE scanlines; the committed AVIFs (``avif_stage_files``,
-``avif_screen_files``, ``avif_depth_files`` and ``avif_layer_files``
-the recipes of the later ones: the stages after CDEF, screen content and
-a grid, 10 and 12 bits, an image sequence, premultiplied alpha, spatial
-layers).  Every file is made the same way on every
+``avif_screen_files``, ``avif_depth_files``, ``avif_layer_files`` and
+``avif_inter_files`` the recipes of the later ones: the stages after
+CDEF, screen content and a grid, 10 and 12 bits, an image sequence,
+premultiplied alpha, spatial layers, compound prediction from a scaled
+reference, global motion, a frame lost, an alpha grid).  Every file is
+made the same way on every
 machine, so the SHA-256 of each one's decode
 (``data/testdata/formats/sha256.json``, cv2's decodes, which
 ``tests/test_torch_port_image_formats.py`` holds against cv2 and the
@@ -108,7 +110,9 @@ KINDS = ("jpeg", "jpeg_cmyk", "jpeg_ycck", "jpeg_arithmetic",
          "avif_10bit_film_grain", "avif_12bit_422", "avif_10bit_400",
          "avif_10bit_screen", "avif_sequence", "avif_prem",
          "avif_layers_key", "avif_layers_realtime", "avif_layers_quality",
-         "avif_layers_scaled", "avif_layers_10bit", "avif_layers_ops")
+         "avif_layers_scaled", "avif_layers_10bit", "avif_layers_ops",
+         "avif_scaled_compound", "avif_global_motion", "avif_lost_frame",
+         "avif_alpha_grid")
 COMMITTED = {"jpeg": TESTDATA / BASE,
              "jpeg_cmyk": TESTDATA / UNSUPPORTED[0],
              "jpeg_ycck": FORMATS / "ycck_420_q85_160x120.jpg",
@@ -170,7 +174,13 @@ COMMITTED = {"jpeg": TESTDATA / BASE,
              "avif_layers_scaled":
                  FORMATS / "avif_layers_scaled3_160x120.avif",
              "avif_layers_10bit": FORMATS / "avif_layers_10bit3_160x120.avif",
-             "avif_layers_ops": FORMATS / "avif_layers_ops2_160x120.avif"}
+             "avif_layers_ops": FORMATS / "avif_layers_ops2_160x120.avif",
+             "avif_scaled_compound":
+                 FORMATS / "avif_scaled_compound6_73x55.avif",
+             "avif_global_motion": FORMATS / "avif_global_motion5_128x96.avif",
+             "avif_lost_frame": FORMATS / "avif_lost_frame4_128x96.avif",
+             "avif_alpha_grid":
+                 FORMATS / "avif_10bit_alpha_grid_prem_128x128.avif"}
 AVIF_KINDS = tuple(k for k in KINDS if k.startswith("avif"))
 
 
@@ -1149,7 +1159,8 @@ def avif_bytes(obus: bytes, w: int, h: int, av1c: bytes,
 def avif_grid_bytes(tiles, w: int, h: int, av1c: bytes, rows: int,
                     cols: int, output=None, body: bytes = None, ispe=None,
                     tile_av1c=None, tile_ispe=None,
-                    tile_kind: bytes = b"av01", depth: int = 8) -> bytes:
+                    tile_kind: bytes = b"av01", depth: int = 8,
+                    alpha=None, iref_extra=()) -> bytes:
     """An AVIF whose primary item is a rows x cols grid (in idat) of w x h
     av01 tiles, the AV1 streams ``tiles`` in raster order (as many as
     given: a count unlike rows x cols makes a grid libavif refuses), the
@@ -1159,10 +1170,16 @@ def avif_grid_bytes(tiles, w: int, h: int, av1c: bytes, rows: int,
     by default the output; ``tile_av1c`` an av1C body for each tile in
     place of ``av1c``; ``tile_ispe`` a (width, height) or None (no ispe)
     for each tile in place of (w, h); ``tile_kind`` the tiles' item
-    type; ``depth`` the bit depth the grid's pixi gives."""
+    type; ``depth`` the bit depth the grid's pixi gives; ``alpha`` an
+    (obus, av1c) alpha item for each tile, linked to it by auxl (items
+    n + 2.., after the tiles in iloc: libavif assembles them into an
+    alpha grid, item 2n + 2); ``iref_extra`` more (type, from, to)
+    references (prem from the grid, n + 1, to 2n + 2 marks that alpha
+    grid premultiplied)."""
     streams = list(tiles)
     n = len(streams)
     grid_id = n + 1
+    alpha = list(alpha or ())
     out_w, out_h = output or (w * cols, h * rows)
     props = [heif_box(b"pixi", bytes([3, depth, depth, depth]), 0),
              heif_box(b"colr", b"nclx" + struct.pack(">HHHB", 1, 13, 6, 128)),
@@ -1181,16 +1198,39 @@ def avif_grid_bytes(tiles, w: int, h: int, av1c: bytes, rows: int,
             index.append(essential | props.index(box) + 1)
         ipma += struct.pack(">HB", iid, len(index) + 2) + bytes(index + [1, 2])
     ipma += struct.pack(">HB", grid_id, 3) + bytes([3, 1, 2])
+    urn = b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha\0"
+    for k, (_, config) in enumerate(alpha):
+        a_depth = 12 if config[2] & 0x20 else 10 if config[2] & 0x40 else 8
+        own = [(heif_box(b"auxC", urn, 0), 0),
+               (heif_box(b"av1C", config), 0x80),
+               (heif_box(b"ispe", struct.pack(">II", w, h), 0), 0),
+               (heif_box(b"pixi", bytes([1, a_depth]), 0), 0)]
+        index = []
+        for box, essential in own:
+            if box not in props:
+                props.append(box)
+            index.append(essential | props.index(box) + 1)
+        ipma += struct.pack(">HB", grid_id + 1 + k, len(index)) + bytes(index)
+    ipma = struct.pack(">I", n + 1 + len(alpha)) + ipma[4:]
     iprp = heif_box(b"iprp", heif_box(b"ipco", b"".join(props))
                     + heif_box(b"ipma", ipma, 0))
     infes = b"".join(heif_box(b"infe", struct.pack(">HH", iid, 0) + tile_kind
                               + b"\0", 2, 1) for iid in range(1, n + 1))
     infes += heif_box(b"infe", struct.pack(">HH", grid_id, 0) + b"grid\0",
                       2)
-    iinf = heif_box(b"iinf", struct.pack(">H", n + 1) + infes, 0)
+    infes += b"".join(heif_box(b"infe", struct.pack(
+        ">HH", grid_id + 1 + k, 0) + b"av01Alpha\0", 2, 1)
+        for k in range(len(alpha)))
+    iinf = heif_box(b"iinf", struct.pack(">H", n + 1 + len(alpha)) + infes,
+                    0)
+    refs = b"".join(heif_box(b"auxl", struct.pack(">HHH", grid_id + 1 + k,
+                                                  1, k + 1))
+                    for k in range(len(alpha)))
+    refs += b"".join(heif_box(kind, struct.pack(">HHH", a, 1, b))
+                     for kind, a, b in iref_extra)
     iref = heif_box(b"iref", heif_box(b"dimg", struct.pack(
         ">HH", grid_id, n) + b"".join(struct.pack(">H", i)
-                                      for i in range(1, n + 1))), 0)
+                                      for i in range(1, n + 1))) + refs, 0)
     if body is None:
         wide = max(out_w, out_h) > 0xFFFF
         body = bytes([0, int(wide), rows - 1, cols - 1]) + struct.pack(
@@ -1200,8 +1240,9 @@ def avif_grid_bytes(tiles, w: int, h: int, av1c: bytes, rows: int,
     pitm = heif_box(b"pitm", struct.pack(">H", grid_id), 0)
 
     def meta(start):        # the tiles in mdat, the grid in idat
-        loc = struct.pack(">BBH", 0x44, 0, n + 1)
-        for iid, stream in enumerate(streams, 1):
+        loc = struct.pack(">BBH", 0x44, 0, n + 1 + len(alpha))
+        for iid, stream in list(enumerate(streams, 1)) + [
+                (grid_id + 1 + k, a[0]) for k, a in enumerate(alpha)]:
             loc += struct.pack(">HHHHII", iid, 0, 0, 1, start, len(stream))
             start += len(stream)
         loc += struct.pack(">HHHHII", grid_id, 1, 0, 1, 0, len(body))
@@ -1209,7 +1250,8 @@ def avif_grid_bytes(tiles, w: int, h: int, av1c: bytes, rows: int,
                         + iinf + iref + iprp + heif_box(b"idat", body), 0)
 
     start = len(ftyp) + len(meta(0)) + 8
-    return ftyp + meta(start) + heif_box(b"mdat", b"".join(streams))
+    return ftyp + meta(start) + heif_box(b"mdat", b"".join(
+        streams + [a[0] for a in alpha]))
 
 
 # libaom 3.6's aom_codec_enc_cfg_t as unsigned ints: the fields the
@@ -1236,7 +1278,7 @@ def _aom_profile(subsampling: str, bit_depth: int) -> int:
 def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
                options=None, lib=None, bit_depth: int = 8, usage: int = 0,
                layers=None, sequence=None, lag: int = 0,
-               resize=None) -> bytes:
+               resize=None, flags=None) -> bytes:
     """One key frame of ``planes`` ([Y, U, V] at the subsampling's sizes,
     or [Y] for 4:0:0; uint8, or samples below 2**bit_depth for 10 or 12
     bits) through the system libaom.so.3 (3.6, found as
@@ -1261,8 +1303,10 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
     item's data holding them all; ``resize`` a (mode, denominator) of
     libaom's frame resizing (rc_resize_mode 1: every frame but the key
     frame coded at 8/denominator of the size, predicted from scaled
-    references).  RuntimeError where the library is not libaom 3.6's
-    layout."""
+    references); ``flags`` the AOM_EFLAG bits of each frame's
+    aom_codec_encode, the first frame's first (``AOM_EFLAG_ERROR_RESILIENT``
+    an error-resilient frame without the sequence's frame ids).
+    RuntimeError where the library is not libaom 3.6's layout."""
     import ctypes
     from objectdetectionpl_tpu_torch.tools.av1_tables import find_libaom
     path = lib or find_libaom()
@@ -1351,6 +1395,8 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
         # a key frame (forced, but for a sequence's first)
         frames = [(wrap(planes), 0 if sequence else 1, None)]
         frames += [(wrap(p), 0, None) for p in sequence or ()]
+        frames = [(img, f | extra, layer) for (img, f, layer), extra in
+                  zip(frames, list(flags or ()) + [0] * len(frames))]
         if layered:
             control(27, len(layers))          # AOME_SET_NUMBER_SPATIAL_LAYERS
             frames = [(wrap(lay.get("planes", planes)),
@@ -1385,6 +1431,9 @@ def aom_encode(planes, subsampling: str = "4:2:0", superres=None,
         return out
     finally:
         aom.aom_codec_destroy(ctx)
+
+
+AOM_EFLAG_ERROR_RESILIENT = 1 << 28      # aomcx.h
 
 
 def av1c_bytes(subsampling: str, bit_depth: int = 8) -> bytes:
@@ -1621,6 +1670,25 @@ def _bits(data: bytes) -> list:
     return [(x >> (7 - i)) & 1 for x in data for i in range(8)]
 
 
+def _put(v: int, n: int) -> list:
+    return [(v >> (n - 1 - i)) & 1 for i in range(n)]
+
+
+def _leb128(v: int) -> bytes:
+    out = b""
+    while True:
+        out += bytes([(v & 127) | (128 if v >> 7 else 0)])
+        v >>= 7
+        if not v:
+            return out
+
+
+def _bytes_of(bits: list) -> bytes:
+    bits = bits + [0] * (-len(bits) % 8)
+    return bytes(int("".join(map(str, bits[k:k + 8])), 2)
+                 for k in range(0, len(bits), 8))
+
+
 def with_operating_points(stream: bytes, points) -> bytes:
     """The stream with each sequence header (full, no timing info) given
     the operating points ``points`` ((operating_point_idc,
@@ -1639,16 +1707,103 @@ def with_operating_points(stream: bytes, points) -> bytes:
             if delay:
                 pos += 5 if bits[pos] else 1
         end = len(bits) - 1 - bits[::-1].index(1)     # the trailing 1 bit
-        put = lambda v, n: [(v >> (n - 1 - i)) & 1 for i in range(n)]
-        new = bits[:6] + [0] + put(len(points) - 1, 5)
+        new = bits[:6] + [0] + _put(len(points) - 1, 5)
         for idc, level in points:
-            new += put(idc, 12) + put(level, 5) + [0] * (level > 7)
-        new += bits[pos:end] + [1]
-        new += [0] * (-len(new) % 8)
-        payload = bytes(int("".join(map(str, new[k:k + 8])), 2)
-                        for k in range(0, len(new), 8))
+            new += _put(idc, 12) + _put(level, 5) + [0] * (level > 7)
+        payload = _bytes_of(new + bits[pos:end] + [1])
         out += bytes([0x0A, len(payload)]) + payload
     return out
+
+
+def _subexp_with_ref(x: int, mx: int, ref: int) -> list:
+    """The bits of the AV1 specification's decode_signed_subexp_with_ref
+    (low -mx, high mx + 1, reference ``ref``) reading ``x``: the
+    recentring against the reference, then decode_subexp's classes."""
+    num, v, r = 2 * mx + 1, x + mx, ref + mx
+
+    def recenter(r, v):
+        return v if v > 2 * r else 2 * (v - r) if v >= r else 2 * (r - v) - 1
+
+    v = recenter(r, v) if 2 * r <= num else recenter(num - 1 - r,
+                                                     num - 1 - v)
+    bits, i, mk = [], 0, 0
+    while True:
+        b2 = 3 + i - 1 if i else 3
+        a = 1 << b2
+        if num <= mk + 3 * a:                 # ns(num - mk)
+            n = num - mk
+            w = n.bit_length()
+            m = (1 << w) - n
+            u = v - mk
+            if u < m:
+                return bits + _put(u, w - 1)
+            return bits + _put(m + ((u - m) >> 1), w - 1) + [(u - m) & 1]
+        if v >= mk + a:
+            bits.append(1)
+            i, mk = i + 1, mk + a
+        else:
+            return bits + [0] + _put(v - mk, b2)
+
+
+# global motion types and their codes (is_global, is_rot_zoom,
+# is_translation)
+GM_TYPES = {"identity": [0], "translation": [1, 0, 1], "rotzoom": [1, 1],
+            "affine": [1, 0, 0]}
+
+
+def with_global_motion(stream: bytes, models, frame: int = -1) -> bytes:
+    """The stream with one inter frame header's global_motion_params()
+    rewritten: ``models`` {reference frame 1..7 (LAST..ALTREF): (type,
+    wmmat)}, a type of ``GM_TYPES`` and the model's six parameters at
+    WARPEDMODEL_PREC_BITS (16) as the header reads them back (each on
+    its type's grid: alpha parameters multiples of 2, translations of
+    2**10, or 2**13 / 2**14 for a translation-only model with / without
+    high-precision vectors); the others IDENTITY.  ``frame`` indexes
+    the inter frame headers (``native.av1_frame_marks``, stream order).
+    Each parameter is coded against the default model, the reference
+    of a frame whose primary reference frame carries IDENTITY (libaom
+    3.6 writes IDENTITY everywhere).  The header's other bits, its film
+    grain and the tile data are kept and the OBU's size rewritten;
+    later frames keep IDENTITY, so their bits mean what they meant."""
+    marks = [m for m in native.av1_frame_marks(stream) if m["gm_start"] >= 0
+             and m["frame_type"] in (1, 3)]
+    m = marks[frame]
+    body = stream[m["payload"]:m["payload"] + m["size"]]
+    bits = _bits(body)
+    gm = []
+    for ref in range(1, 8):
+        kind, mat = models.get(ref, ("identity", None))
+        gm += GM_TYPES[kind]
+        if kind == "identity":
+            continue
+        order = [2, 3] + ([4, 5] if kind == "affine" else [])
+        order = (order if kind != "translation" else []) + [0, 1]
+        for idx in order:
+            if idx >= 2:
+                abs_bits, prec = 12, 15
+            elif kind == "translation":
+                hp = m["high_precision_mv"]
+                abs_bits, prec = 9 - (not hp), 3 - (not hp)
+            else:
+                abs_bits, prec = 12, 6
+            diff = 16 - prec
+            one = 1 << 16 if idx in (2, 5) else 0
+            if (mat[idx] - one) % (1 << diff):
+                raise ValueError(f"wmmat[{idx}] {mat[idx]} is not on its "
+                                 "grid")
+            x = (mat[idx] - one) >> diff
+            if abs(x) > 1 << abs_bits:
+                raise ValueError(f"wmmat[{idx}] {mat[idx]} out of range")
+            gm += _subexp_with_ref(x, 1 << abs_bits, 0)
+    head = bits[:m["gm_start"]] + gm + bits[m["gm_end"]:m["header_end"]]
+    if m["obu_type"] == 6:        # a frame OBU: aligned, then the tiles
+        payload = _bytes_of(head) + body[(m["header_end"] + 7) // 8:]
+    else:                          # a frame header OBU: trailing bits
+        payload = _bytes_of(head + [1])
+    ext = stream[m["obu"]] >> 2 & 1
+    obu = stream[m["obu"]:m["obu"] + 1 + ext] + _leb128(len(payload)) + \
+        payload
+    return stream[:m["obu"]] + obu + stream[m["payload"] + m["size"]:]
 
 
 def avif_layer_files() -> Dict[str, bytes]:
@@ -1691,6 +1846,106 @@ def avif_layer_files() -> Dict[str, bytes]:
             [{"scale": (6, 6)}, {"scale": (3, 3)}, {}], 1)),
         "avif_layers_10bit": box(encode(quality, 0, 10), 10),
         "avif_layers_ops": box(two, extra_props=((a1op, True),)),
+    }
+
+
+def moving_frames(rgb: np.ndarray, n: int, y0: int, x0: int, h: int,
+                  w: int, dy: int, dx: int, sub: str = "4:2:0") -> list:
+    """n frames' planes (``_yuv``) of h x w crops of ``rgb``, the k-th at
+    (y0 + k dy, x0 + k dx)."""
+    return [_yuv(rgb[y0 + k * dy:y0 + k * dy + h,
+                     x0 + k * dx:x0 + k * dx + w], sub) for k in range(n)]
+
+
+def mosaic_frames(rgb: np.ndarray, n: int, h: int, w: int, seed: int,
+                  tile: int = 16, y0: int = 120, x0: int = 160,
+                  sub: str = "4:2:0") -> list:
+    """n frames' planes of an h x w mosaic of tile x tile crops of ``rgb``
+    from (y0, x0), each tile moving by its own seeded step of up to 4
+    samples a frame and two in five standing still: static blocks
+    amid moving ones, which libaom codes as GLOBALMV."""
+    rng = np.random.default_rng(seed)
+    still = rng.random((h // tile, w // tile)) < 0.4
+    step = rng.integers(-4, 5, (h // tile, w // tile, 2))
+    out = []
+    for k in range(n):
+        img = np.empty((h, w, 3), np.uint8)
+        for i in range(h // tile):
+            for j in range(w // tile):
+                dy, dx = (0, 0) if still[i, j] else step[i, j] * k
+                y, x = y0 + i * tile + dy, x0 + j * tile + dx
+                img[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile] = \
+                    rgb[y:y + tile, x:x + tile]
+        out.append(_yuv(img, sub))
+    return out
+
+
+def temporal_units(stream: bytes) -> list:
+    """The stream's temporal units: each temporal delimiter OBU and the
+    OBUs up to the next."""
+    units, cur = [], b""
+    for kind, raw, _ in av1_obus(stream):
+        if kind == 2 and cur:
+            units.append(cur)
+            cur = b""
+        cur += raw
+    return units + [cur]
+
+
+# a rotation and zoom small enough that every block's global vector
+# rounds to zero in a 128 x 96 frame (the GLOBALMV blocks warp, the
+# candidate lists and so the coded bits keep their meaning); and one
+# that moves blocks by up to 1/8 sample (some vectors of one unit)
+GM_ROTZOOM = ("rotzoom", [-3072, 0, (1 << 16) + 32, 32, 0, 0])
+GM_ROTZOOM_WIDE = ("rotzoom", [-6144, -4096, (1 << 16) + 64, 64, 0, 0])
+
+
+def avif_inter_files() -> Dict[str, bytes]:
+    """The committed AVIFs of the AV1 inter tools libaom 3.6 reaches only
+    through frame resizing, a rewritten header, a lost frame or alpha
+    tiles, from crops of the 500x375 fixture: a sequence coded at 8/14
+    of its key frame's size (compound blocks from the scaled key frame);
+    realtime frames of a mosaic whose first inter frame header
+    (``with_global_motion``) gives LAST a rotation and zoom (its GLOBALMV
+    blocks warp); an error-resilient last frame after a lost temporal
+    unit (its LAST slot filled with grey); a 2x2 grid of 10-bit tiles
+    with an alpha item on each tile, premultiplied (libavif's alpha
+    grid).  Needs the system libaom."""
+    rgb = native.decode_one(str(TESTDATA / BASE))
+    fr = moving_frames(rgb, 6, 150, 200, 96, 128, 2, 3)
+    scaled = aom_encode(fr[0], sequence=fr[1:], lag=5, resize=(1, 14),
+                        options={"cpu-used": 0, "cq-level": 30})
+    fr = mosaic_frames(rgb, 5, 96, 128, 3)
+    mosaic = aom_encode(fr[0], sequence=fr[1:], usage=1, options={
+        "cpu-used": 8, "cq-level": 30, "enable-obmc": 0,
+        "enable-warped-motion": 0})
+    fr = moving_frames(rgb, 5, 150, 200, 96, 128, 2, 3)
+    lost = temporal_units(aom_encode(
+        fr[0], sequence=fr[1:], flags=[0, 0, 0, 0, AOM_EFLAG_ERROR_RESILIENT],
+        options={"cpu-used": 4, "cq-level": 30}))
+    tiles, alphas = [], []
+    for i in range(4):
+        crop = rgb[40 + 64 * (i // 2):104 + 64 * (i // 2),
+                   180 + 64 * (i % 2):244 + 64 * (i % 2)]
+        tiles.append(aom_encode(deepen(_yuv(crop, "4:2:0"), 10), "4:2:0",
+                                bit_depth=10, options={"cq-level": 25,
+                                                       "cpu-used": 5}))
+        y, x = np.mgrid[0:64, 0:64]
+        alpha = ((x * 3 + y * 5 + 97 * i) * 4 % 1024).astype(np.uint16)
+        alphas.append((aom_encode([alpha], "4:0:0", bit_depth=10, options={
+            "cq-level": 5, "cpu-used": 5}), av1c_bytes("4:0:0", 10)))
+
+    def box(obus, w, h):
+        return avif_bytes(obus, w, h, av1c_bytes("4:2:0"))
+
+    return {
+        "avif_scaled_compound": box(scaled, 73, 55),
+        "avif_global_motion": box(with_global_motion(
+            mosaic, {1: GM_ROTZOOM_WIDE}, frame=0), 128, 96),
+        "avif_lost_frame": box(b"".join(lost[:3] + lost[4:]), 128, 96),
+        "avif_alpha_grid": avif_grid_bytes(
+            tiles, 64, 64, av1c_bytes("4:2:0", 10), 2, 2, depth=10,
+            alpha=alphas, iref_extra=((b"prem", 5, 10),)),
     }
 
 

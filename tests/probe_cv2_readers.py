@@ -8,6 +8,7 @@ record behind ROADMAP §C's entries.
     python tests/probe_cv2_readers.py avif_depth [--files 400]
     python tests/probe_cv2_readers.py avif_sequence [--files 400]
     python tests/probe_cv2_readers.py avif_layers [--files 400]
+    python tests/probe_cv2_readers.py avif_inter [--files 400]
 
 ``fax``: CCITT Group 3 (1-D, 2-D, with and without fill bits), Group 4
 and RLE files that the system libtiff writes (the writer of
@@ -64,6 +65,23 @@ subsampling; a fifth with an lsel of a random layer, a tenth with bits
 flipped.  Each encode runs in a child process (libaom 3.6's encoder
 crashes on some high-bitdepth layered configurations; those are counted
 apart).  Prints the counts as ``avif`` does.
+
+``avif_inter``: four kinds in turn, each encoded in a child by the
+system libaom (``aom_encode``), seeded: frame sequences (2 to 6 crops of
+the 500x375 fixture of 32 to 160 samples a side, each moving by its own
+step) coded through libaom's frame resizing (8/9 .. 8/16) or superres
+(9 .. 16), compound tools on or off, 8, 10 or 12 bits, every
+subsampling but 4:0:0; realtime or good-quality sequences of a mosaic
+or of moving crops with one inter frame header's global motion
+rewritten (``with_global_motion``: identity, translation, rotation and
+zoom or affine for one or every reference, a model whose vectors round
+to zero or one drawn at random, shears valid or not); sequences with
+error-resilient frames (per frame, ``AOM_EFLAG_ERROR_RESILIENT``) and
+one temporal unit dropped; grids of 1x1 .. 2x3 tiles of 64 to 80
+samples with an alpha item on each tile (``avif_grid_bytes``' alpha),
+premultiplied or not, now and then a tile without alpha, one with two,
+or alpha of another depth.  A tenth of all with bits flipped.  Prints
+the counts as ``avif`` does.
 """
 
 import argparse
@@ -565,10 +583,200 @@ def avif_layers(files: int) -> None:
                   f"through ctypes)", split)
 
 
+def _inter_scaled(rng, rgb) -> bytes:
+    from objectdetectionpl_tpu_torch.tools.format_files import (
+        aom_encode, av1c_bytes, avif_bytes, deepen, moving_frames)
+    h, w = rng.randint(32, 161), rng.randint(32, 161)
+    n, sub = rng.randint(2, 7), str(rng.choice(["4:2:0", "4:4:4", "4:2:2"]))
+    depth = int(rng.choice([8, 8, 10, 12]))
+    dy, dx = rng.randint(-4, 5), rng.randint(-4, 5)
+    y0 = rng.randint(max(0, -dy * n), 375 - h - max(0, dy * n))
+    x0 = rng.randint(max(0, -dx * n), 500 - w - max(0, dx * n))
+    fr = moving_frames(rgb, n, y0, x0, h, w, dy, dx, sub)
+    if depth > 8:
+        fr = [deepen(f, depth) for f in fr]
+    options = {"cpu-used": int(rng.randint(0, 6)),
+               "cq-level": int(rng.randint(5, 55))}
+    for tool in ("enable-masked-comp", "enable-dist-wtd-comp", "enable-obmc",
+                 "enable-interintra-comp", "enable-ref-frame-mvs",
+                 "enable-dual-filter"):
+        options[tool] = int(rng.randint(2))
+    kw = {"lag": int(rng.randint(0, 7)), "bit_depth": depth,
+          "options": options}
+    if rng.rand() < 0.5:
+        kw["resize"] = (1, int(rng.randint(9, 17)))
+    else:
+        kw["superres"] = int(rng.randint(9, 17))
+    obus = _in_child(lambda: aom_encode(fr[0], sub, sequence=fr[1:], **kw))
+    if not obus:
+        return b""
+    info = native.av1_probe(obus)
+    return avif_bytes(obus, info["width"], info["height"],
+                      av1c_bytes(sub, depth), pixi=(depth,) * 3)
+
+
+def _inter_global(rng, rgb) -> bytes:
+    from objectdetectionpl_tpu_torch.tools.format_files import (
+        GM_ROTZOOM, aom_encode, av1c_bytes, avif_bytes, deepen,
+        mosaic_frames, moving_frames, with_global_motion)
+    sub = str(rng.choice(["4:2:0", "4:2:0", "4:4:4"]))
+    depth = int(rng.choice([8, 8, 10]))
+    h, w = 16 * rng.randint(3, 7), 16 * rng.randint(3, 9)
+    n = rng.randint(3, 6)
+    if rng.rand() < 0.7:
+        fr = mosaic_frames(rgb, n, h, w, int(rng.randint(1 << 16)), sub=sub)
+    else:
+        fr = moving_frames(rgb, n, 100, 150, h, w, rng.randint(-3, 4),
+                           rng.randint(-3, 4), sub)
+    if depth > 8:
+        fr = [deepen(f, depth) for f in fr]
+    usage = int(rng.randint(2))
+    options = {"cpu-used": int(rng.randint(6, 10) if usage
+                               else rng.randint(0, 6)),
+               "cq-level": int(rng.randint(10, 50))}
+    if rng.rand() < 0.7:
+        options.update({"enable-obmc": 0, "enable-warped-motion": 0})
+    obus = _in_child(lambda: aom_encode(
+        fr[0], sub, sequence=fr[1:], usage=usage, bit_depth=depth,
+        lag=0 if usage else int(rng.randint(0, 4)), options=options))
+    if not obus:
+        return b""
+    one = 1 << 16
+    models = {}
+    for ref in ([1] if rng.rand() < 0.5 else range(1, 8)):
+        kind = str(rng.choice(["identity", "translation", "rotzoom",
+                               "affine"]))
+        if kind == "rotzoom" and rng.rand() < 0.5:
+            models[ref] = GM_ROTZOOM
+            continue
+        big = rng.rand() < 0.3            # shears past the warp's limit
+        a = 1 << (12 if big else 7)
+        mat = [int(rng.randint(-64, 65)) << 10, int(rng.randint(-64, 65))
+               << 10] + [2 * int(rng.randint(-a, a + 1)) for _ in range(4)]
+        mat[2] += one
+        mat[5] += one
+        if kind == "translation":
+            mat = [int(rng.randint(-64, 65)) << 14,
+                   int(rng.randint(-64, 65)) << 14, one, 0, 0, one]
+        models[ref] = (kind, mat)
+    inter = [m for m in native.av1_frame_marks(obus)
+             if m["gm_start"] >= 0 and m["frame_type"] in (1, 3)]
+    if not inter:
+        return b""
+    obus = with_global_motion(obus, models, int(rng.randint(len(inter))))
+    return avif_bytes(obus, w, h, av1c_bytes(sub, depth), pixi=(depth,) * 3)
+
+
+def _inter_lost(rng, rgb) -> bytes:
+    from objectdetectionpl_tpu_torch.tools.format_files import (
+        AOM_EFLAG_ERROR_RESILIENT, aom_encode, av1c_bytes, avif_bytes,
+        deepen, moving_frames, temporal_units)
+    sub = str(rng.choice(["4:2:0", "4:2:0", "4:4:4"]))
+    depth = int(rng.choice([8, 8, 10]))
+    h, w = rng.randint(32, 129), rng.randint(32, 161)
+    n = rng.randint(3, 7)
+    fr = moving_frames(rgb, n, 150, 200, h, w, rng.randint(-3, 4),
+                       rng.randint(-3, 4), sub)
+    if depth > 8:
+        fr = [deepen(f, depth) for f in fr]
+    flags = [0] + [AOM_EFLAG_ERROR_RESILIENT * int(rng.rand() < 0.4)
+                   for _ in range(n - 1)]
+    flags[-1] = AOM_EFLAG_ERROR_RESILIENT
+    if rng.rand() < 0.3:      # the last frame refers to the ALTREF slot alone
+        flags[-1] |= sum(1 << b for b in (16, 17, 18, 19, 21, 22))
+    obus = _in_child(lambda: aom_encode(
+        fr[0], sub, sequence=fr[1:], bit_depth=depth, flags=flags,
+        lag=int(rng.randint(0, 4)), options={
+            "cpu-used": int(rng.randint(1, 7)),
+            "cq-level": int(rng.randint(10, 50))}))
+    if not obus:
+        return b""
+    units = temporal_units(obus)
+    if len(units) < 3:
+        return b""
+    drop = int(rng.randint(1, len(units) - 1))
+    obus = b"".join(u for i, u in enumerate(units) if i != drop)
+    return avif_bytes(obus, w, h, av1c_bytes(sub, depth), pixi=(depth,) * 3)
+
+
+def _inter_alpha_grid(rng, rgb) -> bytes:
+    from objectdetectionpl_tpu_torch.tools.format_files import (
+        _yuv, aom_encode, av1c_bytes, avif_grid_bytes, deepen)
+    rows, cols = rng.randint(1, 3), rng.randint(1, 4)
+    th, tw = 2 * rng.randint(32, 41), 2 * rng.randint(32, 41)
+    sub = str(rng.choice(["4:2:0", "4:4:4", "4:2:2"]))
+    depth = int(rng.choice([8, 10, 12]))
+
+    def encode():
+        tiles, alphas = [], []
+        for i in range(rows * cols):
+            y0, x0 = rng.randint(0, 375 - th), rng.randint(0, 500 - tw)
+            planes = _yuv(rgb[y0:y0 + th, x0:x0 + tw], sub)
+            if depth > 8:
+                planes = deepen(planes, depth)
+            tiles.append(aom_encode(planes, sub, bit_depth=depth, options={
+                "cq-level": int(rng.randint(10, 50)), "cpu-used": 5}))
+            a_depth = depth if rng.rand() < 0.95 else int(rng.choice(
+                [d for d in (8, 10, 12) if d != depth]))
+            top = (1 << a_depth) - 1
+            y, x = np.mgrid[0:th, 0:tw]
+            alpha = ((x * rng.randint(1, 9) + y * rng.randint(1, 9)) * (
+                top + 1) // 256 + rng.randint(top + 1)) % (top + 1)
+            alphas.append((aom_encode([alpha.astype(np.uint16)], "4:0:0",
+                                      bit_depth=a_depth, options={
+                                          "cq-level": int(rng.randint(0, 30)),
+                                          "cpu-used": 5}),
+                           av1c_bytes("4:0:0", a_depth)))
+        return tiles, alphas
+
+    tiles, alphas = encode()
+    n = rows * cols
+    refs = [(b"prem", n + 1, 2 * n + 2)] if rng.rand() < 0.5 else []
+    if rng.rand() < 0.1:          # a tile without alpha
+        alphas = alphas[:-1]
+    if rng.rand() < 0.05:         # a second alpha item for the first tile
+        refs.append((b"auxl", n + 1 + len(alphas), 1))
+    out_w = tw * cols - (rng.randint(0, tw // 2) if rng.rand() < 0.3 else 0)
+    out_h = th * rows - (rng.randint(0, th // 2) if rng.rand() < 0.3 else 0)
+    if sub != "4:4:4":
+        out_w -= out_w % 2
+    if sub == "4:2:0":
+        out_h -= out_h % 2
+    return avif_grid_bytes(tiles, tw, th, av1c_bytes(sub, depth), rows, cols,
+                           output=(out_w, out_h), depth=depth, alpha=alphas,
+                           iref_extra=refs)
+
+
+def avif_inter(files: int) -> None:
+    from objectdetectionpl_tpu_torch.tools.format_files import BASE, TESTDATA
+    rgb = native.decode_one(str(TESTDATA / BASE))
+    tmp = Path(tempfile.mkdtemp(prefix="probe_avif_inter_"))
+    for name, make in (("compound from a scaled reference", _inter_scaled),
+                       ("global motion rewritten", _inter_global),
+                       ("a temporal unit lost", _inter_lost),
+                       ("alpha on a grid's tiles", _inter_alpha_grid)):
+        split = Counter()
+        for s in range(files // 4):
+            rng = np.random.RandomState(40_000 + s)
+            try:
+                data = bytearray(make(rng, rgb))
+            except (RuntimeError, ValueError):
+                data = bytearray()
+            if not data:
+                split["libaom's encoder fails"] += 1
+                continue
+            if rng.rand() < 0.1:
+                _flip(rng, data)
+            _avif_against_cv2(tmp / f"{s:05d}.avif", bytes(data), split)
+        _probe_counts(f"{files // 4} files, {name} (libaom 3.6 through "
+                      f"ctypes)", split)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=["fax", "gif", "avif", "avif_depth",
-                                      "avif_sequence", "avif_layers"])
+                                      "avif_sequence", "avif_layers",
+                                      "avif_inter"])
     ap.add_argument("--seeds", type=int, default=60)
     ap.add_argument("--files", type=int, default=None)
     a = ap.parse_args()
@@ -582,6 +790,8 @@ def main() -> None:
         avif_depth(a.files or 400)
     elif a.probe == "avif_layers":
         avif_layers(a.files or 400)
+    elif a.probe == "avif_inter":
+        avif_inter(a.files or 400)
     else:
         avif_sequence(a.files or 400)
 
