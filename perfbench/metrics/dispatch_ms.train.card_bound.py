@@ -1,0 +1,8 @@
+"""dispatch_ms.train.card_bound: dispatch_ms.train, read alike, in the training
+cells whose card sets the pace (they report train_img_per_s.card_bound)."""
+
+from perfbench.harness import manifest
+
+
+def read(ctx):
+    return manifest.reader("dispatch_ms.train").read(ctx)

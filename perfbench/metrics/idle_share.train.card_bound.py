@@ -1,0 +1,8 @@
+"""idle_share.train.card_bound: idle_share.train, read alike, in the training
+cells whose card sets the pace (they report train_img_per_s.card_bound)."""
+
+from perfbench.harness import manifest
+
+
+def read(ctx):
+    return manifest.reader("idle_share.train").read(ctx)

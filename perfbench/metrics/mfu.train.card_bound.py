@@ -1,0 +1,8 @@
+"""mfu.train.card_bound: mfu.train, read alike, in the training
+cells whose card sets the pace (they report train_img_per_s.card_bound)."""
+
+from perfbench.harness import manifest
+
+
+def read(ctx):
+    return manifest.reader("mfu.train").read(ctx)
